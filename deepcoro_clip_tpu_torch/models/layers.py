@@ -1,0 +1,250 @@
+"""Transformer building blocks, the port of the JAX package's ``models/layers.py``.
+
+Precision follows the JAX package: parameters are fp32; a ``Dense`` casts
+its input and its weights to the compute dtype (bf16 under
+``precision="bf16"``) for the product; LayerNorm runs in fp32 (eps 1e-6,
+flax's default); GELU is the tanh approximation (flax's default).
+Dropout is the identity when ``deterministic`` (serving never drops).
+
+Module and parameter names follow the flax tree (``block{i}``, ``attn``,
+``qkv``, ``norm1`` ...), so ``convert.py`` maps one onto the other by name.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from deepcoro_clip_tpu_torch.ops.attention import multi_head_attention
+from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+
+
+def _dropout(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
+    if deterministic or rate == 0.0:
+        return x
+    return F.dropout(x, rate, training=True)
+
+
+class Dense(nn.Linear):
+    """Linear with fp32 parameters computed in ``compute_dtype``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.bfloat16, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """fp32 LayerNorm with flax's eps; returns fp32."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps)
+
+
+class MlpBlock(nn.Module):
+    """Dense -> GELU(tanh) -> Dense."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.fc1 = Dense(in_dim, hidden_dim, dtype)
+        self.fc2 = Dense(hidden_dim, out_dim, dtype)
+        self.dropout = dropout
+
+    def forward(self, x, deterministic: bool = True):
+        x = F.gelu(self.fc1(x), approximate="tanh")
+        x = _dropout(x, self.dropout, deterministic)
+        return _dropout(self.fc2(x), self.dropout, deterministic)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention over a fused q|k|v projection.
+
+    Dispatch as in the JAX package: with ``use_flash`` and a head dim that
+    is a multiple of 128, the packed kernel reads the fused projection
+    directly; otherwise heads are split to ``[B, H, L, Dh]`` for the
+    standard kernel (``use_flash``) or the plain attention. The JAX
+    module's cross-attention (``context``) path is not ported yet.
+    """
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.bfloat16, use_flash: bool = True):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.dropout, self.use_flash = dropout, use_flash
+        self.qkv = Dense(dim, 3 * dim, dtype)
+        self.proj = Dense(dim, dim, dtype)
+
+    def forward(self, x, sin=None, cos=None, kv_mask=None, causal: bool = False,
+                deterministic: bool = True):
+        B, L, _ = x.shape
+        H = self.num_heads
+        head_dim = self.dim // H
+        qkv = self.qkv(x)
+        if self.use_flash and head_dim % 128 == 0:
+            out = flash_attention_packed(qkv=qkv, num_heads=H, sin=sin, cos=cos,
+                                         kv_mask=kv_mask, causal=causal)
+        else:
+            q, k, v = (t.reshape(B, L, H, head_dim).transpose(1, 2)
+                       for t in qkv.split(self.dim, dim=-1))
+            if self.use_flash:
+                out = flash_attention(q, k, v, sin=sin, cos=cos,
+                                      kv_mask=kv_mask, causal=causal)
+            else:
+                m = None if kv_mask is None else kv_mask != 0
+                out = multi_head_attention(q, k, v, sin=sin, cos=cos,
+                                           kv_mask=m, causal=causal)
+            out = out.transpose(1, 2).reshape(B, L, self.dim)
+        return _dropout(self.proj(out), self.dropout, deterministic)
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN transformer block (LN in fp32)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.bfloat16,
+                 use_flash: bool = True):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = LayerNorm(dim)
+        self.attn = Attention(dim, num_heads, dropout, dtype, use_flash)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dim, dropout, dtype)
+
+    def forward(self, x, sin=None, cos=None, kv_mask=None,
+                deterministic: bool = True):
+        h = self.norm1(x).to(self.dtype)
+        x = x + self.attn(h, sin=sin, cos=cos, kv_mask=kv_mask,
+                          deterministic=deterministic)
+        h = self.norm2(x).to(self.dtype)
+        return x + self.mlp(h, deterministic=deterministic)
+
+
+class ProjectionHead(nn.Module):
+    """Dropout -> Dense -> GELU(tanh) -> Dropout."""
+
+    def __init__(self, in_dim: int, out_dim: int, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.proj = Dense(in_dim, out_dim, dtype)
+        self.dropout = dropout
+
+    def forward(self, x, deterministic: bool = True):
+        x = _dropout(x, self.dropout, deterministic)
+        x = F.gelu(self.proj(x), approximate="tanh")
+        return _dropout(x, self.dropout, deterministic)
+
+
+class _PatchProj(nn.Module):
+    """Patchify weights under nn.Conv's names and shapes (``kernel``
+    ``[pt, ph, pw, C, dim]``, ``bias`` ``[dim]``), applied as one matmul
+    over patch-major ``[B, L, K]`` patches.
+
+    On raw integer pixels the per-channel normalization is folded into the
+    weights, ``((x-m)/s)@W + b == x@(W/s) + (b - sum((m/s)·W))``, with
+    mean 0 and std 1 when the config has no stats. A 1-channel input
+    against a C-channel kernel (the mono wire) folds the channel
+    replication too: the kernel summed over its channel axis.
+    """
+
+    def __init__(self, dim: int, patch: Tuple[int, int, int], in_channels: int,
+                 dtype: torch.dtype, pixel_mean: Optional[Sequence[float]] = None,
+                 pixel_std: Optional[Sequence[float]] = None):
+        super().__init__()
+        self.dim, self.patch, self.in_channels = dim, tuple(patch), in_channels
+        self.dtype = dtype
+        self.pixel_mean, self.pixel_std = pixel_mean, pixel_std
+        pt, ph, pw = self.patch
+        self.kernel = nn.Parameter(torch.zeros(pt, ph, pw, in_channels, dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, patches: torch.Tensor, fold_stats: bool = False):
+        """patches: ``[B, L, pt*ph*pw*Cin]`` -> ``[B, L, dim]``."""
+        pt, ph, pw = self.patch
+        C = self.in_channels
+        cin = patches.shape[-1] // (pt * ph * pw)
+        mono = cin == 1 and C > 1
+        w, b = self.kernel, self.bias
+        if mono and not fold_stats:
+            w = w.sum(dim=3, keepdim=True)
+        if fold_stats:
+            m = torch.tensor(self.pixel_mean if self.pixel_mean is not None
+                             else (0.0,) * C, dtype=torch.float32, device=w.device)
+            s = torch.tensor(self.pixel_std if self.pixel_std is not None
+                             else (1.0,) * C, dtype=torch.float32, device=w.device)
+            m, s = m.expand(C), s.clamp_min(1e-6).expand(C)
+            b = b - torch.einsum("c,thwcd->d", m / s, w)
+            w = w / s[None, None, None, :, None]
+            if mono:
+                w = w.sum(dim=3, keepdim=True)
+        wk = w.reshape(pt * ph * pw * w.shape[3], self.dim).to(self.dtype)
+        return torch.matmul(patches.to(self.dtype), wk) + b.to(self.dtype)
+
+
+class PatchEmbed3D(nn.Module):
+    """3D tubelet patchify: ``[B, T, H, W, C]`` or the patch-major wire
+    ``[B, L, K]`` -> (``[B, T'·H'·W', dim]``, (T', H', W'))."""
+
+    def __init__(self, dim: int, patch: Tuple[int, int, int] = (2, 16, 16),
+                 dtype: torch.dtype = torch.bfloat16,
+                 pixel_mean: Optional[Sequence[float]] = None,
+                 pixel_std: Optional[Sequence[float]] = None,
+                 patch_grid: Optional[Tuple[int, int, int]] = None,
+                 in_channels: int = 3):
+        super().__init__()
+        self.patch = tuple(patch)
+        self.patch_grid = patch_grid
+        self.in_channels = in_channels
+        self.pixel_mean, self.pixel_std = pixel_mean, pixel_std
+        self.conv = _PatchProj(dim, self.patch, in_channels, dtype,
+                               pixel_mean, pixel_std)
+
+    def forward(self, x: torch.Tensor):
+        pt, ph, pw = self.patch
+        is_raw = not torch.is_floating_point(x)
+        if x.dim() == 3:  # host patch-major wire [B, L, K]
+            if self.patch_grid is None:
+                raise ValueError("patch-major input requires patch_grid=(T', H', W')")
+            Tn, Hn, Wn = self.patch_grid
+            if x.shape[1] != Tn * Hn * Wn:
+                raise ValueError(f"patch-wire token count {x.shape[1]} != "
+                                 f"grid {self.patch_grid}")
+            return self.conv(x, fold_stats=is_raw), (Tn, Hn, Wn)
+        B, T, H, W, C = x.shape
+        if T % pt or H % ph or W % pw:  # pad right to a whole patch grid
+            if is_raw and self.pixel_mean is not None:
+                # normalize BEFORE padding, so zero padding means "dataset
+                # mean" on the uint8 wire as it does on the float wire
+                m = torch.tensor(self.pixel_mean, dtype=torch.float32, device=x.device)
+                s = torch.tensor(self.pixel_std, dtype=torch.float32,
+                                 device=x.device).clamp_min(1e-6)
+                if C == 1 and m.shape[0] > 1:
+                    x = ((x.float() - m[:1]) / s[:1]).repeat_interleave(
+                        self.in_channels, dim=-1)
+                    C = self.in_channels
+                else:
+                    x = (x.float() - m) / s
+                is_raw = False
+            padded = x.new_zeros((B, T + (-T % pt), H + (-H % ph),
+                                  W + (-W % pw), C))
+            padded[:, :T, :H, :W] = x
+            x = padded
+            T, H, W = x.shape[1:4]
+        Tn, Hn, Wn = T // pt, H // ph, W // pw
+        p = (x.reshape(B, Tn, pt, Hn, ph, Wn, pw, C)
+             .permute(0, 1, 3, 5, 2, 4, 6, 7)
+             .reshape(B, Tn * Hn * Wn, pt * ph * pw * C))
+        return self.conv(p, fold_stats=is_raw), (Tn, Hn, Wn)

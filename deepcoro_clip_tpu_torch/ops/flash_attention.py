@@ -1,0 +1,56 @@
+"""Flash attention on the ``[B, H, L, Dh]`` layout (K3 of the TPU kernels).
+
+Counterpart of the JAX package's ``ops/flash_attention.flash_attention``,
+whose Pallas ``_fwd_kernel`` it replaces on the card with the hand-written
+CUDA kernel of ``csrc/flash_fwd.cu`` (that file's note says what bounds it
+and how it is laid out). On a CPU tensor it runs the plain version,
+``ops/attention.multi_head_attention``; on a CUDA tensor it launches the
+kernel or raises. Forward only: training, with the backward kernel, is
+later work.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from deepcoro_clip_tpu_torch.ops._flash_cuda import flash_fwd
+from deepcoro_clip_tpu_torch.ops.attention import multi_head_attention
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    sin: Optional[torch.Tensor] = None,
+    cos: Optional[torch.Tensor] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """q: ``[B, H, Lq, Dh]``, k/v: ``[B, H, Lk, Dh]`` (Lq may differ from
+    Lk without RoPE); sin/cos: ``[L, Dh]`` RoPE tables (self-attention);
+    kv_mask: ``[B, Lk]``, nonzero = attend. Returns ``[B, H, Lq, Dh]``.
+
+    On CUDA the kernel takes bf16 and Dh 64 or 128; anything else raises.
+    """
+    B, H, Lq, Dh = q.shape
+    Lk = k.shape[2]
+    if Dh % 2:
+        raise ValueError(f"head dim must be even, got {Dh}")
+    if sin is not None and Lq != Lk:
+        raise ValueError("RoPE flash attention requires self-attention (Lq == Lk)")
+    scale_v = float(scale if scale is not None else Dh ** -0.5)
+    if q.device.type == "cpu":
+        m = None if kv_mask is None else kv_mask != 0
+        return multi_head_attention(q, k, v, sin=sin, cos=cos, kv_mask=m,
+                                    causal=causal, scale=scale_v)
+    out = torch.empty((B, H, Lq, Dh), dtype=q.dtype, device=q.device)
+    flash_fwd(q, k, v, out, sin=sin, cos=cos, kv_mask=kv_mask,
+              causal=causal, scale=scale_v)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0  # kernel launches, for checks that the path ran it

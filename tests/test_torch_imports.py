@@ -1,0 +1,37 @@
+"""The port imports neither JAX nor anything of the JAX package.
+
+Run in a subprocess: this test process has JAX loaded already
+(tests/conftest.py imports it). There ``jax``, ``flax`` and ``optax`` are
+made unimportable, every module of ``deepcoro_clip_tpu_torch`` and
+``chip_smoke`` is imported, and no ``deepcoro_clip_tpu`` module may have
+been loaded.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+CHECK = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import deepcoro_clip_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(deepcoro_clip_tpu_torch.__path__,
+                                               "deepcoro_clip_tpu_torch.")]
+for name in mods:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "deepcoro_clip_tpu" or m.startswith("deepcoro_clip_tpu."))
+assert not bad, bad
+print(len(mods))
+"""
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run([sys.executable, "-c", CHECK], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 15  # every module walked

@@ -1,0 +1,190 @@
+"""Port attention ops (deepcoro_clip_tpu_torch.ops) against the JAX package.
+
+The port's wrappers run their plain PyTorch version on CPU tensors; they
+are held against the JAX functions run as the JAX package's own tests run
+them on the CPU: the Pallas kernels in interpret mode. Inputs are made with
+numpy from a seed and go to both sides in fp32; the tolerance is the one
+of tests/ops/test_flash_attention_packed.py (2e-5).
+
+Fully masked key rows compare against the XLA oracle (``backend="xla"``):
+there the Pallas kernel averages over the key padding it adds itself
+(``sum(v) / padded length``) while the oracle, and the port, return the
+uniform mean of v over the real keys.
+
+The CUDA kernels themselves are held against the plain version on the
+card by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepcoro_clip_tpu.ops import flash_attention as jfa
+from deepcoro_clip_tpu.ops import flash_attention_packed as jfap
+from deepcoro_clip_tpu.ops.rope3d import build_rope3d_tables as jax_tables
+
+from deepcoro_clip_tpu_torch.ops import _flash_cuda
+from deepcoro_clip_tpu_torch.ops.attention import multi_head_attention
+from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _np(shape, seed):
+    return (np.random.default_rng(seed).normal(size=shape) * 0.3).astype(np.float32)
+
+
+def _mask(B, Lk, seed, dead_row=None):
+    m = np.random.default_rng(seed).random((B, Lk)) > 0.4
+    m[:, 0] = True  # at least one valid key (the Pallas kernel's contract)
+    if dead_row is not None:
+        m[dead_row] = False
+    return m
+
+
+def _rope(dh, thw, n_special=1):
+    t = build_rope3d_tables(dh, *thw, n_special=n_special)
+    return t.sin, t.cos
+
+
+@pytest.mark.parametrize("thw,n_special", [((2, 3, 4), 1), ((2, 8, 8), 0),
+                                           ((1, 1, 1), 0)])
+def test_rope_tables_match_jax(thw, n_special):
+    for dh in (64, 128):
+        mine = build_rope3d_tables(dh, *thw, n_special=n_special, temporal_scale=2.0)
+        ref = jax_tables(dh, *thw, n_special=n_special, temporal_scale=2.0)
+        np.testing.assert_array_equal(mine.sin, ref.sin)
+        np.testing.assert_array_equal(mine.cos, ref.cos)
+
+
+# --------------------------------------------------------------------------- #
+# K1: packed layout [B, L, H*Dh], Dh = 128
+
+B1, H1, D1 = 2, 2, 256
+
+
+@pytest.mark.parametrize("case", ["fused_rope_ragged", "qkv_mask_cross",
+                                  "causal", "fused_plain"])
+def test_packed_matches_jax_interpret(case):
+    if case in ("fused_rope_ragged", "fused_plain"):
+        sin, cos = _rope(128, (2, 5, 5))  # L = 51 with CLS: not a tile multiple
+        L = sin.shape[0]
+        qkv = _np((B1, L, 3 * D1), 0)
+        rope = {} if case == "fused_plain" else dict(sin=sin, cos=cos)
+        ref = jfap.flash_attention_packed(
+            qkv=jnp.asarray(qkv), num_heads=H1, backend="interpret",
+            **{k: jnp.asarray(v) for k, v in rope.items()})
+        got = flash_attention_packed(
+            qkv=torch.from_numpy(qkv), num_heads=H1,
+            **{k: torch.from_numpy(v) for k, v in rope.items()})
+    elif case == "qkv_mask_cross":
+        q, k, v = _np((B1, 40, D1), 1), _np((B1, 90, D1), 2), _np((B1, 90, D1), 3)
+        m = _mask(B1, 90, 4)
+        ref = jfap.flash_attention_packed(
+            *map(jnp.asarray, (q, k, v)), num_heads=H1,
+            kv_mask=jnp.asarray(m.astype(np.int32)), backend="interpret")
+        got = flash_attention_packed(*map(torch.from_numpy, (q, k, v)),
+                                     num_heads=H1, kv_mask=torch.from_numpy(m))
+    else:
+        q, k, v = (_np((B1, 70, D1), s) for s in (5, 6, 7))
+        ref = jfap.flash_attention_packed(*map(jnp.asarray, (q, k, v)),
+                                          num_heads=H1, causal=True,
+                                          backend="interpret")
+        got = flash_attention_packed(*map(torch.from_numpy, (q, k, v)),
+                                     num_heads=H1, causal=True)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_packed_fully_masked_row_matches_oracle():
+    q, k, v = _np((B1, 12, D1), 8), _np((B1, 12, D1), 9), _np((B1, 12, D1), 10)
+    m = _mask(B1, 12, 11, dead_row=1)
+    ref = jfap.flash_attention_packed(*map(jnp.asarray, (q, k, v)), num_heads=H1,
+                                      kv_mask=jnp.asarray(m), backend="xla")
+    got = flash_attention_packed(*map(torch.from_numpy, (q, k, v)),
+                                 num_heads=H1, kv_mask=torch.from_numpy(m))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    # the dead study is the uniform mean of v over its 12 real keys
+    np.testing.assert_allclose(got.numpy()[1], np.broadcast_to(v[1].mean(0), (12, D1)),
+                               atol=1e-6)
+
+
+def test_packed_rejects_unaligned_head_dim():
+    x = torch.zeros(1, 4, 3 * 192)
+    with pytest.raises(ValueError, match="Dh%128"):
+        flash_attention_packed(qkv=x, num_heads=2)
+
+
+# --------------------------------------------------------------------------- #
+# K3: [B, H, L, Dh], any even Dh
+
+
+@pytest.mark.parametrize("case", ["rope_dh64", "mask_cross_dh64", "causal_dh128",
+                                  "plain_dh32"])
+def test_standard_matches_jax_interpret(case):
+    kw_j, kw_t = {}, {}
+    if case == "rope_dh64":
+        sin, cos = _rope(64, (2, 3, 5))
+        L = Lk = sin.shape[0]
+        Dh = 64
+        kw_j = dict(sin=jnp.asarray(sin), cos=jnp.asarray(cos))
+        kw_t = dict(sin=torch.from_numpy(sin), cos=torch.from_numpy(cos))
+    elif case == "mask_cross_dh64":
+        L, Lk, Dh = 20, 90, 64
+        m = _mask(2, Lk, 12)
+        kw_j = dict(kv_mask=jnp.asarray(m))
+        kw_t = dict(kv_mask=torch.from_numpy(m))
+    elif case == "causal_dh128":
+        L = Lk = 70
+        Dh = 128
+        kw_j = kw_t = dict(causal=True)
+    else:
+        L = Lk = 33
+        Dh = 32
+    q, k, v = _np((2, 3, L, Dh), 13), _np((2, 3, Lk, Dh), 14), _np((2, 3, Lk, Dh), 15)
+    ref = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), backend="interpret", **kw_j)
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), **kw_t)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_standard_fully_masked_row_matches_oracle():
+    """The aggregator's shape: a padded study has no valid video."""
+    q, k, v = _np((4, 8, 10, 64), 16), _np((4, 8, 10, 64), 17), _np((4, 8, 10, 64), 18)
+    m = np.zeros((4, 10), bool)
+    m[0, :7], m[1], m[2, :1] = True, True, True
+    ref = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), kv_mask=jnp.asarray(m),
+                              backend="xla")
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), kv_mask=torch.from_numpy(m))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(got.numpy()[3],
+                               np.broadcast_to(v[3].mean(1, keepdims=True), (8, 10, 64)),
+                               atol=1e-6)
+
+
+def test_plain_bf16_matches_jax_oracle_bf16():
+    """bf16 compute: fp32 logits and softmax, P cast to bf16 before P V."""
+    sin, cos = _rope(64, (1, 3, 3))
+    L = sin.shape[0]
+    q, k, v = (_np((2, 2, L, 64), s) for s in (19, 20, 21))
+    ref = jfa.flash_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                              sin=jnp.asarray(sin), cos=jnp.asarray(cos), backend="xla")
+    got = multi_head_attention(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+                               sin=torch.from_numpy(sin), cos=torch.from_numpy(cos))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_cpu_tensors_never_reach_the_kernel():
+    n1, n3 = flash_attention_packed.launches, flash_attention.launches
+    q = torch.zeros(1, 1, 4, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        _flash_cuda.flash_fwd(q, q, q, torch.empty_like(q), sin=None, cos=None,
+                              kv_mask=None, causal=False, scale=0.125)
+    flash_attention(q, q, q)
+    flash_attention_packed(qkv=torch.zeros(1, 4, 3 * 128), num_heads=1)
+    assert (flash_attention_packed.launches, flash_attention.launches) == (n1, n3)
