@@ -6,7 +6,8 @@
 Phases, each printing one line (or a few) before the last:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: nvcc builds csrc/flash_fwd.cu for sm_90a (timed);
+2. build: nvcc builds csrc/flash_fwd.cu and csrc/flash_bwd.cu for sm_90a,
+   side by side (timed, with the ptxas register and spill lines);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    in bf16, at the serving path's shapes and in one small case of every
    other mode it takes;
@@ -21,7 +22,39 @@ Phases, each printing one line (or a few) before the last:
    breakdown of one tower pass by kernel, each kernel at its serving
    shapes beside its plain version, its bound and
    scaled_dot_product_attention (a yardstick only; the port never calls
-   it), then one JSON "kernels" line.
+   it); beside each time between CUDA events the time the card was busy
+   (device events of a profiler trace), which for a call of microseconds
+   is the smaller by the host's share;
+7. backward kernels: dq, dk, dv of the CUDA backward against
+   flash_bwd_plain on the card in bf16, at the train step's shapes (the
+   video tower at 4 clips) and in one small case of every other mode; two
+   backward launches on the same inputs must agree bit for bit. In every
+   case the forward that the backward follows (the one that also writes
+   the row statistics, as every forward of a train step does) is held
+   against the plain forward as in phase 3; phase 10 does the same for
+   the video tower's shapes at 32 clips;
+8. training: the contrastive train step at
+   flagship_config(multi_video=True, num_videos=4, batch_size=8,
+   max_text_length=512): 8 studies x 4 clips of 16x224x224 (uint8,
+   patch-major) and 8 reports of 512 tokens, seeded weights and batch,
+   dropout on with a seeded generator; 3 warm-up steps, then 7 counted
+   ones. The schedule is built with steps_per_epoch=1 (30 updates in all,
+   3 of warm-up), so the rate is 0 only at the first step. Every loss
+   finite, per step 24 K1 / 24 K2 / 2 K3 / 2 K4 launches, every trainable
+   parameter moved, none NaN, the loss on the repeated batch (read with
+   dropout off before and after, through make_eval_step) falls;
+9. gradients end to end: one step's gradients with dropout off, same
+   weights, 2 studies x 4 clips, three ways: through the kernels (bf16),
+   through the plain attention (bf16) and through the plain attention in
+   fp32 as the reference; per tower the kernel path's cosine to the fp32
+   gradient must be within 0.005 of the plain bf16 path's and at least
+   0.95, and its cosine to the plain bf16 gradient at least 0.97 (video)
+   and 0.985 (text);
+10. train times: step time (CUDA events and host clock), clips/s, peak
+   memory, a profiler breakdown of one step, each backward kernel beside
+   its plain version, its bound and the backward of
+   scaled_dot_product_attention (a yardstick only);
+then one JSON "kernels" line (K1, K3 forward, K2, K4 backward).
 
 The last line is {"ok": true, "device": {...}}. Any failing phase exits
 non-zero before it, as does a machine without CUDA.
@@ -57,9 +90,38 @@ E2E_MIN_COSINE = 0.999
 # timed launches per kernel (the plain version: a fifth of them)
 REPS = 20
 
+# backward kernel vs flash_bwd_plain, both bf16 on the card, per gradient
+# tensor: max|kernel - plain| <= BWD_MAX_REL * max|plain| and
+# ||kernel - plain|| <= BWD_L2_REL * ||plain||. Each gradient is rounded to
+# bf16 on the way out (2^-9 relative per element), P and dS are rounded to
+# bf16 before their products on both sides but from scores summed in
+# another order, and the plain version starts from its own forward output.
+BWD_MAX_REL = 2e-2
+BWD_L2_REL = 1e-2
+# end-to-end gradients, per tower, as cosines of the flattened gradient
+# against the fp32 plain-attention gradient of the same weights and batch.
+# A bf16 tower's gradient carries bf16 rounding noise through 12 layers
+# whichever attention it uses (measured on seeded weights: kernels 0.9976,
+# plain attention 0.9971, the two bf16 paths against each other 0.9954), so
+# the kernel path is held to the plain bf16 path's own distance from fp32:
+# it may fall short of it by at most GRAD_COSINE_SLACK, with a floor that a
+# wrong gradient (a sign, a missing term) cannot reach.
+GRAD_COSINE_SLACK = 0.005
+GRAD_MIN_COSINE = 0.95
+# and the two bf16 paths against each other. On the seeded weights after the
+# ten training steps this reads 0.977796 (video) and 0.988398 (text) on an
+# H100, the same to the last digit in every run (no atomics, seeded batch);
+# the floors leave a margin of 0.008 and 0.003 below the readings for another
+# card or library version, and stand above what one wrong layer would leave.
+GRAD_MIN_KERNEL_VS_PLAIN = {"video_encoder": 0.97, "text_encoder": 0.985}
+TRAIN_WARMUP, TRAIN_STEPS = 3, 7
+
 KERNEL_SOURCE = "deepcoro_clip_tpu_torch/csrc/flash_fwd.cu"
+BWD_SOURCE = "deepcoro_clip_tpu_torch/csrc/flash_bwd.cu"
 K1_REPLACES = "deepcoro_clip_tpu/ops/flash_attention_packed.py:63"
+K2_REPLACES = "deepcoro_clip_tpu/ops/flash_attention_packed.py:210"
 K3_REPLACES = "deepcoro_clip_tpu/ops/flash_attention.py:84"
+K4_REPLACES = "deepcoro_clip_tpu/ops/flash_attention.py:179"
 
 
 class PhaseError(RuntimeError):
@@ -84,6 +146,48 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_events(torch, fn):
+    """Run ``fn`` once under torch.profiler: (device time by kernel name in
+    ms, host wall time in ms including the final synchronise)."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_name = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_name[e.name] += e.time_range.elapsed_us() / 1e3
+    return per_name, wall_ms
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean time the card is busy per call of ``fn``: the summed durations of
+    the device events of ``reps`` calls in a profiler trace. Unlike
+    ``cuda_ms`` it leaves out the gaps in which the card waits for the host,
+    which is most of the time between CUDA events for a call of a few
+    microseconds. 0.0 when the trace holds no device event."""
+    fn()
+    torch.cuda.synchronize()
+    per_name, _ = device_events(torch, lambda: [fn() for _ in range(reps)])
+    return sum(per_name.values()) / reps
+
+
+def print_profile(label: str, what: str, per_name, wall_ms: float, top: int) -> None:
+    busy = sum(per_name.values())
+    if not busy:
+        print(f"{label}: no device events in the trace (not measured)", flush=True)
+        return
+    print(f"{label}: {what}, kernels busy {busy:.2f} ms of {wall_ms:.2f} ms host wall "
+          f"(busy share {busy / wall_ms:.2f}, profiler on)", flush=True)
+    for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"{label}:   {ms:8.3f} ms  {ms / busy:5.1%}  {name[:90]}", flush=True)
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -172,20 +276,26 @@ def kernel_cases(torch):
     return cases
 
 
+def check_forward(torch, label: str, name: str, out, ref) -> float:
+    """Hold a forward kernel's output against the plain version's; returns
+    max|kernel - plain|."""
+    d = (out.float() - ref.float()).abs()
+    tol = KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()
+    err = float(d.max())
+    ok = bool(torch.isfinite(out).all()) and bool((d <= tol).all())
+    print(f"{label} {name}: max|kernel-plain| {err:.3e} "
+          f"(tol {KERNEL_ATOL}+{KERNEL_RTOL}|plain|) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, f"kernel {name} disagrees with its plain version")
+    return err
+
+
 def phase_kernels(torch) -> dict:
     errs = {"K1": 0.0, "K3": 0.0}
     for name, kern, plain, at_serving_shape in kernel_cases(torch):
         out = kern()
         torch.cuda.synchronize()
-        ref = plain()
-        d = (out.float() - ref.float()).abs()
-        tol = KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()
-        err = float(d.max())
-        ok = bool(torch.isfinite(out).all()) and bool((d <= tol).all())
-        print(f"kernel check {name}: max|kernel-plain| {err:.3e} "
-              f"(tol {KERNEL_ATOL}+{KERNEL_RTOL}|plain|) {'ok' if ok else 'FAIL'}",
-              flush=True)
-        check(ok, f"kernel {name} disagrees with its plain version")
+        err = check_forward(torch, "kernel check", name, out, plain())
         if at_serving_shape:
             key = name[:2]
             errs[key] = max(errs[key], err)
@@ -318,28 +428,9 @@ def phase_e2e(torch, engine, paths):
 
 def phase_profile(torch, engine, x, m) -> None:
     """Device time of one tower pass by kernel name (torch.profiler)."""
-    from collections import defaultdict
-
-    from torch.profiler import ProfilerActivity, profile
-
     with torch.inference_mode():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.model(x, video_mask=m)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    per_name = defaultdict(float)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per_name[e.name] += e.time_range.elapsed_us() / 1e3
-    busy = sum(per_name.values())
-    if not busy:
-        print("profile: no device events in the trace (not measured)", flush=True)
-        return
-    print(f"profile: one tower pass, kernels busy {busy:.2f} ms of {wall_ms:.2f} ms "
-          f"host wall (busy share {busy / wall_ms:.2f}, profiler on)", flush=True)
-    for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"profile:   {ms:8.3f} ms  {ms / busy:5.1%}  {name[:90]}", flush=True)
+        per_name, wall_ms = device_events(torch, lambda: engine.model(x, video_mask=m))
+    print_profile("profile", "one tower pass", per_name, wall_ms, top=8)
 
 
 def phase_times(torch, engine, x, m, errs, launches):
@@ -377,7 +468,9 @@ def phase_times(torch, engine, x, m, errs, launches):
         return {"ms": cuda_ms(torch, kern, REPS),
                 "plain_ms": cuda_ms(torch, plain, REPS // 5),
                 "library_ms": cuda_ms(torch, library, REPS),
-                "bound_ms": b_ms, "bound_by": b_by}
+                "bound_ms": b_ms, "bound_by": b_by,
+                "device_ms": device_ms(torch, kern, REPS),
+                "library_device_ms": device_ms(torch, library, REPS)}
 
     k1_shapes = []
     for T, HW in ((8, 14), (8, 7)):
@@ -397,7 +490,6 @@ def phase_times(torch, engine, x, m, errs, launches):
             lambda: F.scaled_dot_product_attention(qr, kr, heads[2]),
             flops, nbytes)
         row["shape"] = f"qkv [{B},{L},{3 * D}] bf16, H {H}, Dh {Dh}, RoPE"
-        row["launches_per_dispatch"] = 3 if L == 1569 else 9
         k1_shapes.append(row)
         del qkv, heads, qr, kr
 
@@ -412,13 +504,14 @@ def phase_times(torch, engine, x, m, errs, launches):
                    q3, k3, v3, attn_mask=m3[:, None, None, :]),
                4 * B * H * L * L * Dh, 4 * B * H * L * Dh * 2 + B * L)
     k3_row["shape"] = "q/k/v [4,8,10,64] bf16, kv_mask [4,10]"
-    k3_row["launches_per_dispatch"] = 2
 
     for name, rows in (("K1", k1_shapes), ("K3", [k3_row])):
         for r in rows:
             print(f"times: {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}); card busy: kernel "
+                  f"{r['device_ms']:.4f} ms, sdpa {r['library_device_ms']:.4f} ms",
+                  flush=True)
 
     def entry(name, replaces, key, rows):
         head = rows[0]
@@ -426,7 +519,7 @@ def phase_times(torch, engine, x, m, errs, launches):
              "replaces": replaces, "launches": launches[key],
              "max_abs_err": errs[key]}
         e.update({k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                       "library_ms")})
+                                       "library_ms", "device_ms")})
         e["shapes"] = rows
         return e
 
@@ -435,6 +528,495 @@ def phase_times(torch, engine, x, m, errs, launches):
         entry("flash_attention (K3 forward)", K3_REPLACES, "K3", [k3_row]),
     ]
     return {"kernels": entries}
+
+
+# --------------------------------------------------------------------------- #
+# phase 7: backward kernels against flash_bwd_plain
+
+
+def _to_heads(t, H):
+    return t.unflatten(2, (H, t.shape[2] // H)).transpose(1, 2)
+
+
+def bwd_cases(torch):
+    """(name, key or None, run) with run() -> (kernel grads, plain grads,
+    kernel forward output, plain forward output): the gradients as lists of
+    [B, H, L, Dh] tensors, the outputs as [B, H, L, Dh]. The kernel output
+    is the one the backward follows: it carries a grad_fn, so its forward
+    also wrote the row statistics."""
+    from deepcoro_clip_tpu_torch.ops.attention import (
+        flash_bwd_plain,
+        multi_head_attention,
+    )
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import (
+        flash_attention_packed,
+    )
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def rope(dh, T, H, W):
+        t = build_rope3d_tables(dh, T, H, W, n_special=1)
+        return dict(sin=torch.from_numpy(t.sin).to(dev),
+                    cos=torch.from_numpy(t.cos).to(dev))
+
+    def plain(qh, kh, vh, doh, **kw):
+        out = multi_head_attention(qh, kh, vh, **kw)
+        return list(flash_bwd_plain(qh, kh, vh, doh, out, **kw)), out
+
+    def twice(out, leaves, do):
+        check(out.grad_fn is not None, "the wrapper's output carries no grad_fn")
+        a = torch.autograd.grad(out, leaves, do, retain_graph=True)
+        b = torch.autograd.grad(out, leaves, do)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              "two backward launches on the same inputs differ")
+        return a
+
+    def fused(B, L, H, Dh, kw):
+        D = H * Dh
+        qkv, do = randn(B, L, 3 * D), randn(B, L, D)
+
+        def run():
+            leaf = qkv.clone().requires_grad_()
+            out = flash_attention_packed(qkv=leaf, num_heads=H, **kw)
+            (dqkv,) = twice(out, [leaf], do)
+            heads = [_to_heads(t, H) for t in qkv.split(D, -1)]
+            ref, ref_out = plain(*heads, _to_heads(do, H), **kw)
+            return ([_to_heads(t, H) for t in dqkv.split(D, -1)], ref,
+                    _to_heads(out.detach(), H), ref_out)
+        return run
+
+    def packed(B, Lq, Lk, H, Dh, kw):
+        D = H * Dh
+        q, k, v, do = randn(B, Lq, D), randn(B, Lk, D), randn(B, Lk, D), randn(B, Lq, D)
+
+        def run():
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = flash_attention_packed(*leaves, num_heads=H, **kw)
+            got = twice(out, leaves, do)
+            ref, ref_out = plain(*[_to_heads(t, H) for t in (q, k, v)],
+                                 _to_heads(do, H), **kw)
+            return ([_to_heads(t, H) for t in got], ref,
+                    _to_heads(out.detach(), H), ref_out)
+        return run
+
+    def heads(B, H, Lq, Lk, Dh, kw):
+        q, k, v = randn(B, H, Lq, Dh), randn(B, H, Lk, Dh), randn(B, H, Lk, Dh)
+        # the output gradient arrives through a transpose, as the aggregator's does
+        do = randn(B, Lq, H, Dh).transpose(1, 2)
+
+        def run():
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = flash_attention(*leaves, **kw)
+            ref, ref_out = plain(q, k, v, do, **kw)
+            return list(twice(out, leaves, do)), ref, out.detach(), ref_out
+        return run
+
+    cases = []
+    # K2 at the train step's shapes: the video tower (4 clips here, 32 in the
+    # step) with fused qkv and RoPE, the text tower with its key mask
+    for T, HW in ((8, 14), (8, 7)):
+        kw = rope(128, T, HW, HW)
+        L = kw["sin"].shape[0]
+        cases.append((f"K2 fused qkv + RoPE [4,{L},1536]", "K2", fused(4, L, 4, 128, kw)))
+    tmask = torch.ones(8, 512, dtype=torch.bool, device=dev)
+    tmask[1, 300:], tmask[5, 77:] = False, False
+    cases.append(("K2 q/k/v + kv_mask [8,512,768] H 6", "K2",
+                  packed(8, 512, 512, 6, 128, dict(kv_mask=tmask))))
+    # K4 at the train step's shape: the aggregator over 4 videos
+    amask = torch.ones(8, 4, dtype=torch.bool, device=dev)
+    amask[2, 3:], amask[6, 1:] = False, False
+    cases.append(("K4 kv_mask [8,8,4,64]", "K4", heads(8, 8, 4, 4, 64, dict(kv_mask=amask))))
+    # every other mode, small: mask with one fully masked row and Lq != Lk,
+    # causal, K4 with RoPE at Dh 64, K4 causal at Dh 128
+    m = torch.rand(3, 200, generator=g, device=dev) > 0.3
+    m[2] = False
+    cases.append(("K2 q/k/v + kv_mask [3,70|200,256] (one row fully masked)", None,
+                  packed(3, 70, 200, 2, 128, dict(kv_mask=m))))
+    cases.append(("K2 causal [2,150,256]", None,
+                  packed(2, 150, 150, 2, 128, dict(causal=True))))
+    kw64 = rope(64, 2, 7, 7)
+    cases.append(("K4 RoPE [2,3,99,64]", None,
+                  heads(2, 3, kw64["sin"].shape[0], kw64["sin"].shape[0], 64, kw64)))
+    cases.append(("K4 causal [2,2,130,128]", None,
+                  heads(2, 2, 130, 130, 128, dict(causal=True))))
+    return cases
+
+
+def phase_bwd_kernels(torch) -> dict:
+    """Returns max|kernel - plain| at the train step's shapes: of the
+    gradients under K2 and K4, of the forward outputs under K1 and K3."""
+    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
+    forward_of = {"K2": "K1", "K4": "K3"}
+    for name, key, run in bwd_cases(torch):
+        got, ref, out, ref_out = run()
+        torch.cuda.synchronize()
+        fwd_err = check_forward(torch, "backward check, its forward (row statistics "
+                                "written):", name.replace("K2", "K1").replace("K4", "K3"),
+                                out, ref_out)
+        worst = 0.0
+        for which, a, r in zip(("dq", "dk", "dv"), got, ref):
+            a, r = a.float(), r.float()
+            d = (a - r).abs()
+            err, top = float(d.max()), float(r.abs().max())
+            l2 = float(torch.linalg.vector_norm(a - r) / torch.linalg.vector_norm(r).clamp_min(1e-30))
+            # an all-zero plain gradient (no valid key) must be met exactly
+            ok = (bool(torch.isfinite(a).all()) and err <= BWD_MAX_REL * top
+                  and (l2 <= BWD_L2_REL or top == 0.0))
+            check(ok, f"backward kernel {name}: {which} disagrees with the plain "
+                      f"version (max|d| {err:.3e} vs max|plain| {top:.3e}, rel l2 {l2:.3e})")
+            worst = max(worst, err)
+        print(f"backward check {name}: max|kernel-plain| {worst:.3e} over dq, dk, dv "
+              f"(bars: {BWD_MAX_REL} of max|plain|, rel l2 {BWD_L2_REL}); two launches "
+              f"bit-equal ok", flush=True)
+        if key:
+            errs[key] = max(errs[key], worst)
+            errs[forward_of[key]] = max(errs[forward_of[key]], fwd_err)
+    return errs
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: the contrastive train step at flagship width
+
+
+def train_config():
+    from deepcoro_clip_tpu_torch.flagship import flagship_config
+
+    return flagship_config(multi_video=True, num_videos=4, batch_size=8,
+                           max_text_length=512)
+
+
+def train_batch(cfg, studies: int):
+    from deepcoro_clip_tpu_torch.data.patch_wire import patchify_videos
+
+    r = np.random.default_rng(0)
+    videos = r.integers(0, 255, size=(studies, cfg.num_videos, cfg.frames, cfg.resize,
+                                      cfg.resize, 3), dtype=np.uint8)
+    return {
+        "videos": patchify_videos(videos, tuple(cfg.vit_patch)),
+        "video_mask": np.ones((studies, cfg.num_videos), bool),
+        "input_ids": r.integers(0, cfg.text_vocab_size,
+                                size=(studies, cfg.max_text_length)).astype(np.int32),
+        "attention_mask": np.ones((studies, cfg.max_text_length), np.int32),
+    }
+
+
+def _kernel_counts():
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention as k3
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import (
+        flash_attention_packed as k1,
+    )
+
+    return {"K1": k1.launches, "K2": k1.bwd_launches,
+            "K3": k3.launches, "K4": k3.bwd_launches}
+
+
+def _zero_kernel_counts():
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention as k3
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import (
+        flash_attention_packed as k1,
+    )
+
+    k1.launches = k1.bwd_launches = k3.launches = k3.bwd_launches = 0
+
+
+def phase_training(torch):
+    from deepcoro_clip_tpu_torch.train.clip import (
+        build_clip_bundle,
+        make_eval_step,
+        make_train_step,
+        to_device_batch,
+    )
+
+    cfg = train_config()
+    t0 = time.perf_counter()
+    bundle, state = build_clip_bundle(cfg, seed=0, steps_per_epoch=1)
+    step_fn = make_train_step(bundle)
+    batch = to_device_batch(bundle, train_batch(cfg, cfg.batch_size))
+    gen = torch.Generator(device=bundle.device).manual_seed(0)
+    n_params = sum(p.numel() for p in state.params.values())
+    print(f"training: bundle built in {time.perf_counter() - t0:.1f} s: "
+          f"{n_params / 1e6:.1f} M parameters, {cfg.batch_size} studies x "
+          f"{cfg.num_videos} clips of {cfg.frames}x{cfg.resize}x{cfg.resize}, "
+          f"{cfg.max_text_length} tokens, dropout {cfg.dropout}, {cfg.optimizer}, "
+          f"{cfg.scheduler_name} (steps_per_epoch 1: 30 updates, 3 of warm-up)",
+          flush=True)
+    before = {k: v.detach().clone() for k, v in state.params.items()}
+    eval_fn = make_eval_step(bundle)  # dropout off: the loss without mask noise
+    eval_before = float(eval_fn(state.params, batch)["loss"])
+    torch.cuda.reset_peak_memory_stats()
+
+    losses, lrs = [], []
+    for _ in range(TRAIN_WARMUP):
+        state, m = step_fn(state, batch, gen, 0.0, 0.0, -1.0)
+        losses.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+    _zero_kernel_counts()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    metrics = []
+    for _ in range(TRAIN_STEPS):
+        state, m = step_fn(state, batch, gen, 0.0, 0.0, -1.0)
+        metrics.append(m)  # read after the loop: no host wait inside it
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    dev_ms = start.elapsed_time(end) / TRAIN_STEPS
+    counts = _kernel_counts()
+    losses += [float(m["loss"]) for m in metrics]
+    lrs += [float(m["lr"]) for m in metrics]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    eval_after = float(eval_fn(state.params, batch)["loss"])
+    last = metrics[-1]
+
+    print("training: losses " + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    print("training: lr " + " ".join(f"{x:.2e}" for x in lrs), flush=True)
+    print(f"training: last step grad_norm {float(last['grad_norm']):.3f} (video "
+          f"{float(last['grad_norm_video_encoder']):.3f}, text "
+          f"{float(last['grad_norm_text_encoder']):.3f}), temperature "
+          f"{float(last['temperature']):.5f}, alignment {float(last['alignment']):.4f}",
+          flush=True)
+    print(f"training: launches over {TRAIN_STEPS} steps: K1 {counts['K1']}, K2 "
+          f"{counts['K2']}, K3 {counts['K3']}, K4 {counts['K4']} (per step 24/24/2/2)",
+          flush=True)
+    clips = cfg.batch_size * cfg.num_videos
+    print(f"training: step {dev_ms:.1f} ms (CUDA events), {host_ms:.1f} ms (host clock), "
+          f"{clips / dev_ms * 1e3:.1f} clips/s, peak memory {peak_gb:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)", flush=True)
+
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss in {losses}")
+    for key, per_step in (("K1", 24), ("K2", 24), ("K3", 2), ("K4", 2)):
+        check(counts[key] == per_step * TRAIN_STEPS,
+              f"{key} launched {counts[key]} times in {TRAIN_STEPS} steps, "
+              f"expected {per_step} per step")
+    check(state.step == TRAIN_WARMUP + TRAIN_STEPS, f"step count {state.step}")
+    stuck = [k for k, v in state.params.items()
+             if k != "logit_bias" and torch.equal(v, before[k])]
+    bad = [k for k, v in state.params.items() if not bool(torch.isfinite(v).all())]
+    check(not bad, f"non-finite parameters after training: {bad[:5]}")
+    # logit_bias is in the tree for the SigLIP losses; clip_loss does not read it
+    check(not stuck, f"parameters that did not move: {stuck[:5]}")
+    check(math.isfinite(eval_after) and eval_after < eval_before,
+          f"the loss on the repeated batch did not fall: {eval_before} -> {eval_after}")
+    print(f"training: all {len(state.params) - 1} trainable tensors moved, none NaN; loss "
+          f"on the repeated batch with dropout off {eval_before:.4f} -> {eval_after:.4f} "
+          f"(train-mode mean of the first 3 steps {sum(losses[:3]) / 3:.4f}, of the "
+          f"last 3 {sum(losses[-3:]) / 3:.4f})", flush=True)
+    del before
+    times = {"step_ms": dev_ms, "step_host_ms": host_ms, "peak_gib": peak_gb}
+    return bundle, state, step_fn, batch, gen, counts, times
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: gradients end to end against the plain attention
+
+
+def phase_grad_e2e(torch, bundle):
+    import dataclasses
+
+    from deepcoro_clip_tpu_torch.train.clip import (
+        build_clip_bundle,
+        compute_loss,
+        to_device_batch,
+    )
+
+    def with_weights(**over):
+        b, _ = build_clip_bundle(dataclasses.replace(bundle.config, **over), seed=0,
+                                 steps_per_epoch=1)
+        b.video_model.load_state_dict(bundle.video_model.state_dict())
+        b.text_model.load_state_dict(bundle.text_model.state_dict())
+        return b
+
+    batch = to_device_batch(bundle, train_batch(bundle.config, 2))
+
+    def grads(b):
+        models = {"video_encoder": b.video_model, "text_encoder": b.text_model}
+        log_temp = torch.tensor(math.log(b.config.temperature), device=b.device)
+        out = compute_loss(b, log_temp, batch, deterministic=True)
+        leaves = [p for m in models.values() for p in m.parameters()]
+        got = torch.autograd.grad(out["loss"], leaves)
+        flat, i = {}, 0
+        for name, m in models.items():
+            n = len(list(m.parameters()))
+            flat[name] = torch.cat([g.flatten().double() for g in got[i:i + n]])
+            i += n
+        return float(out["loss"].detach()), flat
+
+    def cosine(a, b):
+        return float(torch.dot(a, b) / (torch.linalg.vector_norm(a)
+                                        * torch.linalg.vector_norm(b)))
+
+    _zero_kernel_counts()
+    loss_k, gk = grads(bundle)
+    counts = _kernel_counts()
+    check(counts["K2"] == 24 and counts["K4"] == 2, f"kernel path launched {counts}")
+    loss_p, gp = grads(with_weights(use_pallas_attention=False))
+    loss_f, gf = grads(with_weights(use_pallas_attention=False, precision="fp32"))
+    check(_kernel_counts() == counts, "a plain-attention bundle launched a kernel")
+    print(f"gradients end to end: loss through the kernels {loss_k:.5f}, plain bf16 "
+          f"{loss_p:.5f}, plain fp32 {loss_f:.5f}", flush=True)
+    for tower in gk:
+        kf, pf, kp = (cosine(gk[tower], gf[tower]), cosine(gp[tower], gf[tower]),
+                      cosine(gk[tower], gp[tower]))
+        print(f"gradients end to end: {tower}: cosine to the fp32 gradient: kernels "
+              f"{kf:.6f}, plain bf16 {pf:.6f} (bar: kernels >= plain - "
+              f"{GRAD_COSINE_SLACK} and >= {GRAD_MIN_COSINE}); kernels vs plain bf16 "
+              f"{kp:.6f} (bar >= {GRAD_MIN_KERNEL_VS_PLAIN[tower]})", flush=True)
+        check(bool(torch.isfinite(gk[tower]).all()), f"non-finite {tower} gradients")
+        check(kf >= pf - GRAD_COSINE_SLACK and kf >= GRAD_MIN_COSINE,
+              f"{tower}: the kernel path's gradient is further from fp32 ({kf}) than "
+              f"the plain bf16 path's ({pf})")
+        check(kp >= GRAD_MIN_KERNEL_VS_PLAIN[tower],
+              f"{tower}: cosine of the kernel path's gradient to the plain bf16 "
+              f"path's {kp} below {GRAD_MIN_KERNEL_VS_PLAIN[tower]}")
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
+# phase 10: train times
+
+
+def phase_train_profile(torch, state, step_fn, batch, gen) -> None:
+    per_name, wall_ms = device_events(
+        torch, lambda: step_fn(state, batch, gen, 0.0, 0.0, -1.0))
+    print_profile("train profile", "one step", per_name, wall_ms, top=14)
+
+
+def phase_train_times(torch, errs, counts):
+    import torch.nn.functional as F
+
+    from deepcoro_clip_tpu_torch.ops.attention import (
+        apply_rope,
+        flash_bwd_plain,
+        multi_head_attention,
+    )
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import (
+        flash_attention_packed,
+    )
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def timed(out, leaves, do, plain, sdpa_out, sdpa_leaves, sdpa_do, flops, nbytes):
+        b_ms, b_by = bound(flops, nbytes)
+        return {
+            "ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True), REPS),
+            "plain_ms": cuda_ms(torch, plain, max(1, REPS // 5)),
+            "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                sdpa_out, sdpa_leaves, sdpa_do, retain_graph=True), REPS),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "device_ms": device_ms(torch, lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True), REPS),
+            "library_device_ms": device_ms(torch, lambda: torch.autograd.grad(
+                sdpa_out, sdpa_leaves, sdpa_do, retain_graph=True), REPS)}
+
+    rows_k2 = []
+    # K2, video tower: fused qkv with RoPE at 32 clips
+    for T, HW in ((8, 14), (8, 7)):
+        t = build_rope3d_tables(128, T, HW, HW, n_special=1)
+        sin, cos = torch.from_numpy(t.sin).to(dev), torch.from_numpy(t.cos).to(dev)
+        B, H, Dh, D, L = 32, 4, 128, 512, sin.shape[0]
+        qkv, do = randn(B, L, 3 * D), randn(B, L, D)
+        leaf = qkv.clone().requires_grad_()
+        out = flash_attention_packed(qkv=leaf, num_heads=H, sin=sin, cos=cos)
+        heads = [_to_heads(u, H) for u in qkv.split(D, -1)]
+        doh = _to_heads(do, H)
+        outh = _to_heads(out.detach(), H)
+        # the forward at the step's 32 clips, row statistics written
+        errs["K1"] = max(errs["K1"], check_forward(
+            torch, "train forward check", f"K1 fused qkv + RoPE [{B},{L},{3 * D}]",
+            outh, multi_head_attention(*heads, sin=sin, cos=cos)))
+        sq = [apply_rope(heads[0], sin, cos).requires_grad_(),
+              apply_rope(heads[1], sin, cos).requires_grad_(),
+              heads[2].clone().requires_grad_()]
+        sout = F.scaled_dot_product_attention(*sq)
+        row = timed(out, [leaf], do,
+                    lambda: flash_bwd_plain(*heads, doh, outh, sin=sin, cos=cos),
+                    sout, sq, doh, 10 * B * H * L * L * Dh,
+                    8 * B * L * D * 2 + 2 * L * Dh * 4)
+        row["shape"] = f"qkv [{B},{L},{3 * D}] bf16, H {H}, Dh {Dh}, RoPE"
+        rows_k2.append(row)
+        del qkv, do, leaf, out, heads, doh, outh, sq, sout
+        torch.cuda.empty_cache()
+    # K1 forward and K2 backward, text tower: q/k/v with the key mask
+    B, H, Dh, D, L = 8, 6, 128, 768, 512
+    q, k, v, do = randn(B, L, D), randn(B, L, D), randn(B, L, D), randn(B, L, D)
+    mask = torch.ones(B, L, dtype=torch.bool, device=dev)
+    leaves = [u.clone().requires_grad_() for u in (q, k, v)]
+    out = flash_attention_packed(*leaves, num_heads=H, kv_mask=mask)
+    heads = [_to_heads(u, H) for u in (q, k, v)]
+    doh, outh = _to_heads(do, H), _to_heads(out.detach(), H)
+    sq = [u.clone().requires_grad_() for u in heads]
+    sout = F.scaled_dot_product_attention(*sq, attn_mask=mask[:, None, None, :])
+    row = timed(out, leaves, do,
+                lambda: flash_bwd_plain(*heads, doh, outh, kv_mask=mask),
+                sout, sq, doh, 10 * B * H * L * L * Dh, 8 * B * L * D * 2 + B * L)
+    row["shape"] = f"q/k/v [{B},{L},{D}] bf16, H {H}, Dh {Dh}, kv_mask"
+    rows_k2.append(row)
+    with torch.no_grad():
+        b_ms, b_by = bound(4 * B * H * L * L * Dh, 4 * B * L * D * 2 + B * L)
+        k1_text = {
+            "shape": row["shape"],
+            "ms": cuda_ms(torch, lambda: flash_attention_packed(
+                q, k, v, num_heads=H, kv_mask=mask), REPS),
+            "plain_ms": cuda_ms(torch, lambda: multi_head_attention(
+                *heads, kv_mask=mask), max(1, REPS // 5)),
+            "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                *heads, attn_mask=mask[:, None, None, :]), REPS),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "device_ms": device_ms(torch, lambda: flash_attention_packed(
+                q, k, v, num_heads=H, kv_mask=mask), REPS),
+            "library_device_ms": device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    *heads, attn_mask=mask[:, None, None, :]), REPS)}
+    del q, k, v, do, leaves, out, heads, doh, outh, sq, sout
+
+    # K4: the aggregator over 4 videos
+    B, H, L, Dh = 8, 8, 4, 64
+    q4, k4, v4 = randn(B, H, L, Dh), randn(B, H, L, Dh), randn(B, H, L, Dh)
+    do4 = randn(B, L, H, Dh).transpose(1, 2)
+    m4 = torch.ones(B, L, dtype=torch.bool, device=dev)
+    leaves = [u.clone().requires_grad_() for u in (q4, k4, v4)]
+    out = flash_attention(*leaves, kv_mask=m4)
+    sq = [u.clone().requires_grad_() for u in (q4, k4, v4)]
+    sout = F.scaled_dot_product_attention(*sq, attn_mask=m4[:, None, None, :])
+    row_k4 = timed(out, leaves, do4,
+                   lambda: flash_bwd_plain(q4, k4, v4, do4, out.detach(), kv_mask=m4),
+                   sout, sq, do4, 10 * B * H * L * L * Dh, 8 * B * H * L * Dh * 2 + B * L)
+    row_k4["shape"] = "q/k/v [8,8,4,64] bf16, kv_mask [8,4]"
+
+    for name, rows in (("K2 backward", rows_k2), ("K1 forward (text)", [k1_text]),
+                       ("K4 backward", [row_k4])):
+        for r in rows:
+            print(f"train times: {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}); card busy: kernel "
+                  f"{r['device_ms']:.4f} ms, sdpa {r['library_device_ms']:.4f} ms",
+                  flush=True)
+
+    def entry(name, replaces, key, rows):
+        e = {"name": name, "route": "cuda", "source": BWD_SOURCE, "replaces": replaces,
+             "launches": counts[key], "max_abs_err": errs[key]}
+        e.update({k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "device_ms")})
+        e["shapes"] = rows
+        return e
+
+    return [entry("flash_attention_packed (K2 backward)", K2_REPLACES, "K2", rows_k2),
+            entry("flash_attention (K4 backward)", K4_REPLACES, "K4", [row_k4])], k1_text
 
 
 def main() -> int:
@@ -458,19 +1040,42 @@ def main() -> int:
 
     try:
         t0 = time.perf_counter()
-        _build.load("flash_fwd")
-        info = _build.build_info.get("flash_fwd", {})
-        print(f"build: flash_fwd.cu ready in {time.perf_counter() - t0:.1f} s "
-              f"(nvcc {info.get('seconds', 0.0):.1f} s)", flush=True)
-        for line in info.get("log", "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: ptxas {line.strip()}", flush=True)
+        _build.build_all(("flash_fwd", "flash_bwd"))  # one nvcc each, side by side
+        for name in ("flash_fwd", "flash_bwd"):
+            _build.load(name)
+            info = _build.build_info.get(name, {})
+            print(f"build: {name}.cu ready {time.perf_counter() - t0:.1f} s after the "
+                  f"start (nvcc {info.get('seconds', 0.0):.1f} s)", flush=True)
+            for line in info.get("log", "").splitlines():
+                if "Compiling entry" in line:
+                    fn = line.split("'")[1]
+                    print(f"build: ptxas {name}: {fn[fn.index('_cu_') + 13:][:40]}", flush=True)
+                elif "registers" in line or "spill" in line:
+                    print(f"build: ptxas   {line.strip()}", flush=True)
 
         errs = phase_kernels(torch)
         with tempfile.TemporaryDirectory() as tmp:
             engine, paths, launches = phase_serving(torch, Path(tmp))
             x, m = phase_e2e(torch, engine, paths)
         kernels = phase_times(torch, engine, x, m, errs, launches)
+        del engine, x, m
+        torch.cuda.empty_cache()
+
+        bwd_errs = phase_bwd_kernels(torch)
+        bundle, state, step_fn, batch, gen, counts, times = phase_training(torch)
+        phase_grad_e2e(torch, bundle)
+        phase_train_profile(torch, state, step_fn, batch, gen)
+        del bundle, state, step_fn, batch
+        torch.cuda.empty_cache()
+        bwd_entries, k1_text = phase_train_times(torch, bwd_errs, counts)
+        for e, key in zip(kernels["kernels"], ("K1", "K3")):
+            e["train_launches"] = counts[key]
+            # the forward at the train step's shapes, row statistics written
+            e["train_max_abs_err"] = bwd_errs[key]
+            e["max_abs_err"] = max(e["max_abs_err"], bwd_errs[key])
+        kernels["kernels"][0]["shapes"].append(k1_text)
+        kernels["kernels"] += bwd_entries
+        kernels["train_step"] = times
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -1,7 +1,8 @@
-"""The ``ClipConfig`` fields that the serving slice reads.
+"""The ``ClipConfig`` fields that the ported slices read.
 
 A copy of the JAX package's ``configs/clip.py`` and ``configs/base.py``
-restricted to what the video tower and the server use, with the same
+restricted to what the towers, the server and the contrastive train step
+use, with the same
 names and defaults so a config dict means the same thing on both sides.
 Keys this class does not know are kept in ``extra()``, as there. YAML
 parsing is not part of the port yet.
@@ -39,10 +40,15 @@ def _coerce(value: Any, ftype: Any) -> Any:
 
 @dataclass
 class ClipConfig:
+    # ---- run ----
+    epochs: int = 10
     # ---- data ----
     frames: int = 16
     resize: int = 224
+    batch_size: int = 8
+    multi_video: bool = False
     num_videos: int = 1
+    max_text_length: int = 512
     data_mean: Optional[List[float]] = None
     data_std: Optional[List[float]] = None
     dataset_mean: Optional[List[float]] = None
@@ -57,6 +63,26 @@ class ClipConfig:
     use_cls_token: bool = False
     pooling_mode: str = "mean"  # mean | attention | cls_token
     embedding_dim: int = 512
+    # ---- optimization ----
+    optimizer: str = "AdamW"
+    scheduler_name: str = "cosine"
+    lr: float = 1e-4
+    text_lr: float = 2e-5
+    lr_step_period: int = 20
+    factor: float = 0.3
+    loss_name: str = "contrastive"
+    video_weight_decay: float = 1e-5
+    text_weight_decay: float = 1e-7
+    gradient_accumulation_steps: int = 1
+    num_warmup_percent: float = 0.1
+    num_hard_restarts_cycles: float = 1.0
+    warm_restart_tmult: int = 2
+    max_grad_norm: float = 1.0
+    video_max_grad_norm: Optional[float] = None
+    text_max_grad_norm: Optional[float] = None
+    temperature: float = 0.07
+    label_smoothing: float = 0.0
+    siglip_bias_init: float = -10.0
     # ---- accelerator knobs ----
     precision: str = "bf16"  # bf16 | fp32 compute (params always fp32)
     use_pallas_attention: bool = True  # here: the hand-written CUDA kernels
@@ -66,6 +92,10 @@ class ClipConfig:
     vit_patch: List[int] = field(default_factory=lambda: [2, 16, 16])
     vit_pool_stages: List[int] = field(default_factory=list)
     rope_temporal_scale: float = 1.0
+    text_vocab_size: int = 30522
+    text_dim: int = 768
+    text_depth: int = 12
+    text_heads: int = 12
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ClipConfig":

@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX ``VideoEncoder`` parameter tree -> the port's state dict.
+"""Weight bridge between JAX parameter trees and the port's modules, both ways.
 
 The JAX tree comes as nested dicts of numpy arrays (``flax`` is not
 needed): ``backbone/{patch_embed/conv/{kernel,bias}, cls, block{i}/...,
@@ -8,9 +8,17 @@ a path maps onto a state-dict key by joining with ``.``, with two renames:
 
 - a dense ``kernel`` ``[in, out]`` becomes the transposed ``weight``
   ``[out, in]`` of a ``Linear``;
-- a LayerNorm ``scale`` becomes ``weight``.
+- a LayerNorm ``scale`` becomes ``weight``;
+- an ``nn.Embed`` ``embedding`` becomes the ``weight`` of an ``Embedding``.
 
-The patch ``kernel`` ``[pt, ph, pw, C, dim]`` stays a raw parameter.
+The patch ``kernel`` ``[pt, ph, pw, C, dim]`` stays a raw parameter. The
+``TextEncoder`` tree (``word_embeddings/embedding``, ``position_embeddings``,
+``embeddings_norm``, ``layer{i}/{attention/{query,key,value,out},
+attention_norm, intermediate, output, output_norm}``, ``proj/proj``) maps
+the same way. ``module_to_jax_tree`` goes back, and
+``load_training_tree``/``training_tree`` carry the whole training tree
+``{"video_encoder", "text_encoder", "log_temp", "logit_bias"}`` into the
+port's models and scalars and back.
 
 ``save_params_npz``/``load_params_npz`` store such a tree in one ``.npz``
 with ``/``-joined keys, which is what ``serve.py --params`` reads. To
@@ -29,6 +37,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -56,8 +65,9 @@ def unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict:
 
 
 def jax_tree_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX ``VideoEncoder`` params (nested dict, optionally under a
-    ``"params"`` key) -> the port's ``VideoEncoder`` state dict (fp32)."""
+    """JAX ``VideoEncoder`` or ``TextEncoder`` params (nested dict,
+    optionally under a ``"params"`` key) -> the state dict (fp32) of the
+    port's module of the same name."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     sd = {}
@@ -67,8 +77,47 @@ def jax_tree_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
             name, arr = "weight", arr.T
         elif name == "scale":
             name = "weight"
+        elif name == "embedding":
+            name = "weight"
         sd[".".join(mods + [name])] = torch.tensor(np.asarray(arr, np.float32))
     return sd
+
+
+def module_to_jax_tree(module: nn.Module) -> dict:
+    """The port's ``VideoEncoder`` or ``TextEncoder`` -> the JAX parameter
+    tree (nested dict of fp32 numpy arrays): the inverse of
+    ``jax_tree_to_state_dict``."""
+    flat = {}
+    for mod_name, mod in module.named_modules():
+        for name, p in mod.named_parameters(recurse=False):
+            arr = p.detach().cpu().numpy().astype(np.float32)
+            if name == "weight" and isinstance(mod, nn.Linear):
+                name, arr = "kernel", arr.T
+            elif name == "weight" and isinstance(mod, nn.LayerNorm):
+                name = "scale"
+            elif name == "weight" and isinstance(mod, nn.Embedding):
+                name = "embedding"
+            flat["/".join(mod_name.split(".") + [name]) if mod_name else name] = arr.copy()
+    return unflatten_tree(flat)
+
+
+@torch.no_grad()
+def load_training_tree(tree: Mapping, video_model: nn.Module, text_model: nn.Module,
+                       log_temp: torch.Tensor, logit_bias: torch.Tensor) -> None:
+    """The JAX training tree into the port's models and scalars, in place."""
+    video_model.load_state_dict(jax_tree_to_state_dict(tree["video_encoder"]), strict=True)
+    text_model.load_state_dict(jax_tree_to_state_dict(tree["text_encoder"]), strict=True)
+    log_temp.fill_(float(np.asarray(tree["log_temp"])))
+    logit_bias.fill_(float(np.asarray(tree["logit_bias"])))
+
+
+def training_tree(video_model: nn.Module, text_model: nn.Module,
+                  log_temp: torch.Tensor, logit_bias: torch.Tensor) -> dict:
+    """The port's models and scalars as the JAX training tree."""
+    return {"video_encoder": module_to_jax_tree(video_model),
+            "text_encoder": module_to_jax_tree(text_model),
+            "log_temp": log_temp.detach().cpu().numpy().astype(np.float32),
+            "logit_bias": logit_bias.detach().cpu().numpy().astype(np.float32)}
 
 
 def save_params_npz(tree: Mapping, path) -> None:

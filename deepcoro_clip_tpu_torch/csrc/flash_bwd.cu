@@ -1,0 +1,576 @@
+// Flash-attention backward for Hopper (sm_90a), bf16 in/out, fp32 sums.
+//
+// Replaces two Pallas TPU kernels of deepcoro_clip_tpu:
+//   - ops/flash_attention_packed.py `_bwd_kernel` (packed [B, L, H*Dh]; in
+//     fused mode dq, dk, dv are written through strided views straight into
+//     one [B, L, 3D] gradient of the fused QKV tensor);
+//   - ops/flash_attention.py `_bwd_kernel` ([B, H, L, Dh]).
+// As in flash_fwd.cu, one set of kernels serves both: every operand is a
+// base pointer plus (batch, head, row) strides in elements.
+//
+// What it computes (Dao's backward, with the Pallas kernel's rounding
+// points), per (batch, head):
+//   P  = softmax(scale * rot(Q) rot(K)^T + mask)          fp32, rebuilt
+//   dV = bf16(P)^T dO                                     fp32 sum
+//   dP = dO V^T
+//   delta = rowsum(dO * O)                                fp32, from bf16 O
+//   dS = bf16(P * (dP - delta) * scale), 0 where masked
+//   dQ = unrot(dS rot(K)),  dK = unrot(dS^T rot(Q))       unrot in fp32,
+//                                                         then bf16
+//
+// What bounds it on an H100: 10*L*L*Dh FLOP per head against 8*L*Dh*2 bytes
+// (q, k, v, do, o read; dq, dk, dv written), 5L/8 FLOP per byte: above the
+// card's ~295 FLOP/byte ridge at the video tower's L = 1569 (operations
+// bound it), at it for the text tower's L = 512, below it at L = 393 and in
+// the aggregator (bytes, then launch latency).
+//
+// Design. The Pallas kernel walks the q-blocks of one head in order, holds
+// all of K/V in VMEM, rebuilds one exact softmax per q-block and carries
+// dK/dV in fp32 scratch from one grid step to the next. Here blocks run in
+// parallel and K/V do not fit in shared memory, so:
+//   - the forward kernel writes each row's softmax maximum and sum (fp32,
+//     when a gradient is wanted); a pre-pass turns them into (m, 1/l,
+//     delta) per row, padded to whole tiles, so P = exp2(s - m) / l is
+//     rebuilt tile by tile exactly as the forward defined it;
+//   - with RoPE, q and k are rotated once by a pre-pass into scratch copies
+//     (the forward's rotation, bit for bit), so the main kernels read plain
+//     tiles;
+//   - dK/dV: one block per 64-key tile (a warp owns 16 keys), looping over
+//     the q tiles; dK and dV stay in registers for the whole loop and are
+//     written once. It works on the transposed tile S^T = K Q^T so that P^T
+//     and dS^T come out of the accumulators already laid out as the A
+//     operand of the two products that follow;
+//   - dQ: a second kernel, one block per 64-row q tile, looping over the
+//     key tiles, dQ in registers.
+//   Seven products per tile pair instead of five (S and dP are computed in
+//   both kernels), in exchange for no atomics: every output element is
+//   summed by one thread in a fixed order, so two launches on the same
+//   inputs agree bit for bit and a training run is reproducible.
+// The streamed tiles arrive by cp.async into a double buffer; fragments
+// come out of padded shared tiles by ldmatrix, with mma.sync m16n8k16.
+// wgmma, TMA and skipping causal tiles are left for later work.
+//
+// Semantics kept from the plain version (ops/attention.py and
+// flash_bwd_plain): keys at index >= Lk do not exist (P = 0); masked keys
+// inside Lk score -FLT_MAX, so a row with no valid key has P = 1/Lk on
+// every key: it feeds dV, while dS is 0 wherever the score was masked (no
+// gradient flows through a masked score); rows at index >= Lq add nothing.
+
+#include "flash_common.cuh"
+
+namespace {
+
+struct BwdParams {
+  const __nv_bfloat16* q;   // rotated already when RoPE is on
+  const __nv_bfloat16* k;   // rotated already when RoPE is on
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* dout;
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  const float* rows;        // [3, B*H, Lq_pad]: m, 1/l, delta
+  const float* sin;         // [L, Dh] fp32 or null (for the un-rotation)
+  const float* cos;
+  const uint8_t* mask;      // [B, Lk], nonzero = attend, or null
+  long long q_sb, q_sh, q_sl;
+  long long k_sb, k_sh, k_sl;
+  long long v_sb, v_sh, v_sl;
+  long long do_sb, do_sh, do_sl;
+  long long dq_sb, dq_sh, dq_sl;
+  long long dk_sb, dk_sh, dk_sl;
+  long long dv_sb, dv_sh, dv_sl;
+  int H, Lq, Lk, Lq_pad;
+  float scale, scale_log2;
+  int causal;
+};
+
+// Pre-pass: per (batch, head, row) the softmax maximum, the reciprocal of
+// the softmax sum, and delta = rowsum(dO * O) in fp32. One warp per row;
+// rows in [Lq, Lq_pad) get zeros, so a padded row has P = 0 everywhere.
+template <int D>
+__global__ void __launch_bounds__(256) bwd_rows_kernel(
+    const __nv_bfloat16* o, long long o_sb, long long o_sh, long long o_sl,
+    const __nv_bfloat16* dout, long long do_sb, long long do_sh, long long do_sl,
+    const float* stats, float* rows, int H, int Lq, int Lq_pad) {
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= Lq_pad) return;
+  const long long plane = (long long)gridDim.y * Lq_pad;
+  float* out = rows + (long long)bh * Lq_pad + row;
+  if (row >= Lq) {
+    if (lane == 0) { out[0] = 0.f; out[plane] = 0.f; out[2 * plane] = 0.f; }
+    return;
+  }
+  constexpr int PER = D / 32;  // bf16 values per lane: 2 or 4
+  const __nv_bfloat16* orow = o + b * o_sb + h * o_sh + row * o_sl + lane * PER;
+  const __nv_bfloat16* drow = dout + b * do_sb + h * do_sh + row * do_sl + lane * PER;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; i += 2) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + i));
+    const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + i));
+    acc += a.x * g.x + a.y * g.y;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const float* sm = stats + (long long)bh * Lq;
+    const float* sl = sm + (long long)gridDim.y * Lq;
+    out[0] = sm[row];
+    out[plane] = 1.f / sl[row];  // l >= 1
+    out[2 * plane] = acc;
+  }
+}
+
+// The (m, 1/l, delta) values of 64 rows into shared memory [3][64].
+__device__ __forceinline__ void load_rows_async(float* s, const float* rows,
+                                                long long plane, int row0) {
+  if (threadIdx.x < 48) {
+    const int pl = threadIdx.x / 16, c = (threadIdx.x % 16) * 4;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(s + pl * BQ + c)),
+                 "l"(rows + pl * plane + row0 + c));
+  }
+}
+
+// Un-rotate a [16 x D] fp32 accumulator (the transpose of rotate-half RoPE,
+// tables rounded to bf16 as the forward used them) and store it as bf16.
+// acc[dn][e] holds row g (e < 2) or g + 8 (e >= 2), column dn*8 + 2t + (e&1);
+// the rotate-half partner of column d is d + D/2: tile dn + D/16, same thread.
+template <int D>
+__device__ __forceinline__ void store_rows(float (&acc)[D / 8][4], __nv_bfloat16* base,
+                                           long long sl, int row_a, int L,
+                                           const float* sin, const float* cos, int t) {
+  constexpr int NO = D / 8;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= L) continue;
+    if (sin != nullptr) {
+      const float* sr = sin + (long long)row * D;
+      const float* cr = cos + (long long)row * D;
+#pragma unroll
+      for (int dn = 0; dn < NO / 2; ++dn) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int d = dn * 8 + 2 * t + c, d2 = d + D / 2;
+          const float g1 = acc[dn][2 * r + c], g2 = acc[dn + NO / 2][2 * r + c];
+          acc[dn][2 * r + c] = g1 * bf16_round(cr[d]) + g2 * bf16_round(sr[d2]);
+          acc[dn + NO / 2][2 * r + c] = g2 * bf16_round(cr[d2]) - g1 * bf16_round(sr[d]);
+        }
+      }
+    }
+    __nv_bfloat16* orow = base + (long long)row * sl;
+#pragma unroll
+    for (int dn = 0; dn < NO; ++dn) {
+      *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t) =
+          pack_bf16(acc[dn][2 * r], acc[dn][2 * r + 1]);
+    }
+  }
+}
+
+// dK and dV of one 64-key tile. Shared memory: K tile, V tile, two Q tiles,
+// two dO tiles, two [3][64] row-value blocks.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int TILE = BK * (D + PAD);
+  constexpr int KS = D / 16;
+  constexpr int NO = D / 8;
+  constexpr int HQ = 32;  // q columns of S^T worked on at a time (registers)
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Vs = Ks + TILE;
+  __nv_bfloat16* Qs = Vs + TILE;       // two tiles
+  __nv_bfloat16* Gs = Qs + 2 * TILE;   // two dO tiles
+  float* Rs = reinterpret_cast<float*>(Gs + 2 * TILE);  // [2][3][64]
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int k0 = blockIdx.x * BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vg = p.v + b * p.v_sb + h * p.v_sh;
+  const __nv_bfloat16* gg = p.dout + b * p.do_sb + h * p.do_sh;
+  const long long plane = (long long)gridDim.y * p.Lq_pad;
+  const float* rows = p.rows + (long long)bh * p.Lq_pad;
+  const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
+  const int ntiles = p.Lq_pad / BQ;
+
+  load_tile_async<D>(Ks, kg, p.k_sl, k0, p.Lk);
+  load_tile_async<D>(Vs, vg, p.v_sl, k0, p.Lk);
+  load_tile_async<D>(Qs, qg, p.q_sl, 0, p.Lq);
+  load_tile_async<D>(Gs, gg, p.do_sl, 0, p.Lq);
+  load_rows_async(Rs, rows, plane, 0);
+  cp_async_commit();
+
+  // this warp's 16 keys are the rows of S^T; keys g and g + 8 of them
+  const int key_a = k0 + warp * 16 + g;
+  const int key_b = key_a + 8;
+  const bool exists[2] = {key_a < p.Lk, key_b < p.Lk};
+  const bool kmasked[2] = {mrow != nullptr && exists[0] && mrow[key_a] == 0,
+                           mrow != nullptr && exists[1] && mrow[key_b] == 0};
+
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int dn = 0; dn < NO; ++dn) {
+    dk[dn][0] = dk[dn][1] = dk[dn][2] = dk[dn][3] = 0.f;
+    dv[dn][0] = dv[dn][1] = dv[dn][2] = dv[dn][3] = 0.f;
+  }
+  // ldmatrix lane offsets: A operand rows, B operand from a [n, k] tile
+  // (x4: n-tiles nt, nt+1 x k-halves), B from a [k, n] tile (x4.trans)
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int n_row = (lane & 7) + ((lane >> 4) << 3), n_col = ((lane >> 3) & 1) * 8;
+  const int k_row = (lane & 7) + (((lane >> 3) & 1) << 3), k_col = (lane >> 4) * 8;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int cur = j & 1;
+    if (j + 1 < ntiles) {  // prefetch the next q tile into the other buffer
+      load_tile_async<D>(Qs + (cur ^ 1) * TILE, qg, p.q_sl, (j + 1) * BQ, p.Lq);
+      load_tile_async<D>(Gs + (cur ^ 1) * TILE, gg, p.do_sl, (j + 1) * BQ, p.Lq);
+      load_rows_async(Rs + (cur ^ 1) * 3 * BQ, rows, plane, (j + 1) * BQ);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Qt = Qs + cur * TILE;
+    const __nv_bfloat16* Gt = Gs + cur * TILE;
+    const float* Rt = Rs + cur * 3 * BQ;
+    const int q0 = j * BQ;
+
+#pragma unroll 1
+    for (int hq = 0; hq < BQ / HQ; ++hq) {
+      const int c0 = hq * HQ;  // first q row of this half, within the tile
+      // S^T = K Q^T and dP^T = V dO^T for 16 keys x 32 q rows
+      float st[HQ / 8][4], dpt[HQ / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < HQ / 8; ++nt) {
+        st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.f;
+        dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ka[4], va[4];
+        ldsm_x4(ka, Ks + (warp * 16 + a_row) * (D + PAD) + ks * 16 + a_col);
+        ldsm_x4(va, Vs + (warp * 16 + a_row) * (D + PAD) + ks * 16 + a_col);
+#pragma unroll
+        for (int np = 0; np < HQ / 16; ++np) {
+          uint32_t qb[4], gb[4];
+          ldsm_x4(qb, Qt + (c0 + np * 16 + n_row) * (D + PAD) + ks * 16 + n_col);
+          ldsm_x4(gb, Gt + (c0 + np * 16 + n_row) * (D + PAD) + ks * 16 + n_col);
+          mma_bf16(st[2 * np], ka, qb[0], qb[1]);
+          mma_bf16(st[2 * np + 1], ka, qb[2], qb[3]);
+          mma_bf16(dpt[2 * np], va, gb[0], gb[1]);
+          mma_bf16(dpt[2 * np + 1], va, gb[2], gb[3]);
+        }
+      }
+
+      // P^T and dS^T, re-packed as A fragments: n8 tiles 2kk and 2kk+1 of
+      // the accumulator are the k16 slice kk of the operand
+      uint32_t pf[HQ / 16][4], sf[HQ / 16][4];
+#pragma unroll
+      for (int nt = 0; nt < HQ / 8; ++nt) {
+        float pv[4], sv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int col = c0 + nt * 8 + 2 * t + (e & 1);
+          const int qrow = q0 + col;
+          const bool masked = kmasked[r] || (p.causal && (r ? key_b : key_a) > qrow);
+          const float x = masked ? -FLT_MAX : st[nt][e] * p.scale_log2;
+          const float prob = exists[r] ? exp2f(x - Rt[col]) * Rt[BQ + col] : 0.f;
+          pv[e] = prob;
+          sv[e] = masked ? 0.f : prob * (dpt[nt][e] - Rt[2 * BQ + col]) * p.scale;
+        }
+        const int kk = nt >> 1, hi = nt & 1;
+        pf[kk][hi * 2 + 0] = pack_bf16(pv[0], pv[1]);
+        pf[kk][hi * 2 + 1] = pack_bf16(pv[2], pv[3]);
+        sf[kk][hi * 2 + 0] = pack_bf16(sv[0], sv[1]);
+        sf[kk][hi * 2 + 1] = pack_bf16(sv[2], sv[3]);
+      }
+
+      // dV += P^T dO, dK += dS^T Q (k dim: the 32 q rows)
+#pragma unroll
+      for (int kk = 0; kk < HQ / 16; ++kk) {
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t gb[4], qb[4];
+          ldsm_x4_trans(gb, Gt + (c0 + kk * 16 + k_row) * (D + PAD) + dp * 16 + k_col);
+          ldsm_x4_trans(qb, Qt + (c0 + kk * 16 + k_row) * (D + PAD) + dp * 16 + k_col);
+          mma_bf16(dv[2 * dp], pf[kk], gb[0], gb[1]);
+          mma_bf16(dv[2 * dp + 1], pf[kk], gb[2], gb[3]);
+          mma_bf16(dk[2 * dp], sf[kk], qb[0], qb[1]);
+          mma_bf16(dk[2 * dp + 1], sf[kk], qb[2], qb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it refills
+  }
+
+  store_rows<D>(dv, p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_sl, key_a, p.Lk,
+                nullptr, nullptr, t);
+  store_rows<D>(dk, p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_sl, key_a, p.Lk,
+                p.sin, p.cos, t);
+}
+
+// dQ of one 64-row q tile. Shared memory: Q tile, dO tile, two K tiles,
+// two V tiles.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, D == 64 ? 3 : 1)
+flash_bwd_dq_kernel(const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int TILE = BK * (D + PAD);
+  constexpr int KS = D / 16;
+  constexpr int NO = D / 8;
+  constexpr int HK = 32;  // keys of S worked on at a time (registers)
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Gs = Qs + TILE;
+  __nv_bfloat16* Ks = Gs + TILE;      // two tiles
+  __nv_bfloat16* Vs = Ks + 2 * TILE;  // two tiles
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+
+  const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vg = p.v + b * p.v_sb + h * p.v_sh;
+  const __nv_bfloat16* gg = p.dout + b * p.do_sb + h * p.do_sh;
+  const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
+  const int ntiles = (p.Lk + BK - 1) / BK;
+
+  load_tile_async<D>(Qs, qg, p.q_sl, q0, p.Lq);
+  load_tile_async<D>(Gs, gg, p.do_sl, q0, p.Lq);
+  load_tile_async<D>(Ks, kg, p.k_sl, 0, p.Lk);
+  load_tile_async<D>(Vs, vg, p.v_sl, 0, p.Lk);
+  cp_async_commit();
+
+  const int row_a = q0 + warp * 16 + g;
+  const int row_b = row_a + 8;
+  // (m, 1/l, delta) of rows g and g + 8; the buffer is padded to whole tiles
+  const long long plane = (long long)gridDim.y * p.Lq_pad;
+  const float* rows = p.rows + (long long)bh * p.Lq_pad;
+  const float m_r[2] = {rows[row_a], rows[row_b]};
+  const float il_r[2] = {rows[plane + row_a], rows[plane + row_b]};
+  const float dl_r[2] = {rows[2 * plane + row_a], rows[2 * plane + row_b]};
+
+  float dq[NO][4];
+#pragma unroll
+  for (int dn = 0; dn < NO; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int n_row = (lane & 7) + ((lane >> 4) << 3), n_col = ((lane >> 3) & 1) * 8;
+  const int k_row = (lane & 7) + (((lane >> 3) & 1) << 3), k_col = (lane >> 4) * 8;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int cur = j & 1;
+    if (j + 1 < ntiles) {  // prefetch the next K/V tile into the other buffer
+      load_tile_async<D>(Ks + (cur ^ 1) * TILE, kg, p.k_sl, (j + 1) * BK, p.Lk);
+      load_tile_async<D>(Vs + (cur ^ 1) * TILE, vg, p.v_sl, (j + 1) * BK, p.Lk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Kt = Ks + cur * TILE;
+    const __nv_bfloat16* Vt = Vs + cur * TILE;
+    const int kv0 = j * BK;
+
+#pragma unroll 1
+    for (int hk = 0; hk < BK / HK; ++hk) {
+      const int c0 = hk * HK;  // first key of this half, within the tile
+      // S = Q K^T and dP = dO V^T for 16 rows x 32 keys
+      float s[HK / 8][4], dp[HK / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < HK / 8; ++nt) {
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qa[4], ga[4];
+        ldsm_x4(qa, Qs + (warp * 16 + a_row) * (D + PAD) + ks * 16 + a_col);
+        ldsm_x4(ga, Gs + (warp * 16 + a_row) * (D + PAD) + ks * 16 + a_col);
+#pragma unroll
+        for (int np = 0; np < HK / 16; ++np) {
+          uint32_t kb[4], vb[4];
+          ldsm_x4(kb, Kt + (c0 + np * 16 + n_row) * (D + PAD) + ks * 16 + n_col);
+          ldsm_x4(vb, Vt + (c0 + np * 16 + n_row) * (D + PAD) + ks * 16 + n_col);
+          mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+          mma_bf16(dp[2 * np], ga, vb[0], vb[1]);
+          mma_bf16(dp[2 * np + 1], ga, vb[2], vb[3]);
+        }
+      }
+
+      uint32_t sf[HK / 16][4];  // dS as A fragments
+#pragma unroll
+      for (int nt = 0; nt < HK / 8; ++nt) {
+        float sv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int key = kv0 + c0 + nt * 8 + 2 * t + (e & 1);
+          float out = 0.f;
+          if (key < p.Lk) {
+            const bool masked = (mrow != nullptr && mrow[key] == 0) ||
+                                (p.causal && key > (r ? row_b : row_a));
+            if (!masked) {
+              const float prob = exp2f(s[nt][e] * p.scale_log2 - m_r[r]) * il_r[r];
+              out = prob * (dp[nt][e] - dl_r[r]) * p.scale;
+            }
+          }
+          sv[e] = out;
+        }
+        const int kk = nt >> 1, hi = nt & 1;
+        sf[kk][hi * 2 + 0] = pack_bf16(sv[0], sv[1]);
+        sf[kk][hi * 2 + 1] = pack_bf16(sv[2], sv[3]);
+      }
+
+      // dQ += dS K (k dim: the 32 keys)
+#pragma unroll
+      for (int kk = 0; kk < HK / 16; ++kk) {
+#pragma unroll
+        for (int dd = 0; dd < D / 16; ++dd) {
+          uint32_t kb[4];
+          ldsm_x4_trans(kb, Kt + (c0 + kk * 16 + k_row) * (D + PAD) + dd * 16 + k_col);
+          mma_bf16(dq[2 * dd], sf[kk], kb[0], kb[1]);
+          mma_bf16(dq[2 * dd + 1], sf[kk], kb[2], kb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it refills
+  }
+
+  store_rows<D>(dq, p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_sl, row_a, p.Lq,
+                p.sin, p.cos, t);
+}
+
+template <int D>
+cudaError_t launch(BwdParams p, int B, const __nv_bfloat16* o, long long o_sb,
+                   long long o_sh, long long o_sl, const float* stats, float* rows,
+                   __nv_bfloat16* q_rot, __nv_bfloat16* k_rot, cudaStream_t stream) {
+  cudaError_t err;
+  if (p.sin != nullptr) {  // rotate q and k once into the scratch copies
+    err = launch_rope_rows<D>(p.q, p.q_sb, p.q_sh, p.q_sl, B, p.H, p.Lq, p.sin, p.cos,
+                              q_rot, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_rope_rows<D>(p.k, p.k_sb, p.k_sh, p.k_sl, B, p.H, p.Lk, p.sin, p.cos,
+                              k_rot, stream);
+    if (err != cudaSuccess) return err;
+    p.q = q_rot;
+    p.q_sb = (long long)p.H * p.Lq * D; p.q_sh = (long long)p.Lq * D; p.q_sl = D;
+    p.k = k_rot;
+    p.k_sb = (long long)p.H * p.Lk * D; p.k_sh = (long long)p.Lk * D; p.k_sl = D;
+  }
+  {
+    const dim3 grid((p.Lq_pad + 7) / 8, B * p.H);
+    bwd_rows_kernel<D><<<grid, 256, 0, stream>>>(o, o_sb, o_sh, o_sl, p.dout, p.do_sb,
+                                                 p.do_sh, p.do_sl, stats, rows, p.H,
+                                                 p.Lq, p.Lq_pad);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int tile_bytes = BK * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16));
+  {
+    const int smem = 6 * tile_bytes + 2 * 3 * BQ * static_cast<int>(sizeof(float));
+    static bool ready[MAX_DEVICES] = {};  // one per head dim: launch<D> is a template
+    err = allow_smem_once(reinterpret_cast<const void*>(&flash_bwd_dkv_kernel<D>), smem,
+                          ready);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.Lk + BK - 1) / BK, B * p.H);
+    flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  {
+    const int smem = 6 * tile_bytes;
+    static bool ready[MAX_DEVICES] = {};
+    err = allow_smem_once(reinterpret_cast<const void*>(&flash_bwd_dq_kernel<D>), smem,
+                          ready);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.Lq_pad / BQ, B * p.H);
+    flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns 0 on success, else the CUDA error code of a launch (or
+// cudaErrorInvalidValue for a head dim the kernels were not built for, or a
+// missing scratch buffer). Strides are in elements; the head dim of every
+// operand is contiguous. `stats` is the [2, B, H, Lq] fp32 buffer the
+// forward filled. Scratch, allocated by the caller: `rows`
+// [3, B, H, Lq_pad] fp32 with Lq_pad = Lq rounded up to 64; with sin/cos,
+// `q_rot` [B, H, Lq, Dh] and `k_rot` [B, H, Lk, Dh] bf16.
+int deepcoro_flash_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* stats, const void* sin, const void* cos, const void* mask,
+    void* dq, void* dk, void* dv, void* rows, void* q_rot, void* k_rot,
+    int B, int H, int Lq, int Lk, int Dh,
+    long long q_sb, long long q_sh, long long q_sl,
+    long long k_sb, long long k_sh, long long k_sl,
+    long long v_sb, long long v_sh, long long v_sl,
+    long long o_sb, long long o_sh, long long o_sl,
+    long long do_sb, long long do_sh, long long do_sl,
+    long long dq_sb, long long dq_sh, long long dq_sl,
+    long long dk_sb, long long dk_sh, long long dk_sl,
+    long long dv_sb, long long dv_sh, long long dv_sl,
+    float scale, int causal, void* stream) {
+  BwdParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.rows = static_cast<const float*>(rows);
+  p.sin = static_cast<const float*>(sin);
+  p.cos = static_cast<const float*>(cos);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
+  p.do_sb = do_sb; p.do_sh = do_sh; p.do_sl = do_sl;
+  p.dq_sb = dq_sb; p.dq_sh = dq_sh; p.dq_sl = dq_sl;
+  p.dk_sb = dk_sb; p.dk_sh = dk_sh; p.dk_sl = dk_sl;
+  p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_sl = dv_sl;
+  p.H = H; p.Lq = Lq; p.Lk = Lk;
+  p.Lq_pad = (Lq + BQ - 1) / BQ * BQ;
+  p.scale = scale;
+  p.scale_log2 = scale * LOG2E;
+  p.causal = causal;
+  if (stats == nullptr || rows == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (sin != nullptr && (q_rot == nullptr || k_rot == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(o);
+  const float* st = static_cast<const float*>(stats);
+  float* rw = static_cast<float*>(rows);
+  __nv_bfloat16* qr = static_cast<__nv_bfloat16*>(q_rot);
+  __nv_bfloat16* kr = static_cast<__nv_bfloat16*>(k_rot);
+  cudaStream_t sm = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64:
+      return static_cast<int>(launch<64>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm));
+    case 128:
+      return static_cast<int>(launch<128>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // extern "C"

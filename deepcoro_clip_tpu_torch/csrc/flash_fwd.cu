@@ -43,21 +43,9 @@
 //   - P is rounded to bf16 before the P V product; l sums the fp32 P.
 // exp2 with log2(e) folded into the score scale computes the same softmax.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cfloat>
-#include <cmath>
-#include <cstdint>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int BQ = 64;  // query rows per block: 4 warps x 16 rows
-constexpr int BK = 64;  // keys per streamed K/V tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD = 8;  // bf16 elements of row padding: conflict-free ldmatrix
-constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
   const __nv_bfloat16* q;
@@ -67,6 +55,7 @@ struct Params {
   const float* sin;      // [Lq, Dh] fp32 or null
   const float* cos;      // [Lq, Dh] fp32 or null
   const uint8_t* mask;   // [B, Lk], nonzero = attend, or null
+  float* stats;          // [2, B*H, Lq] fp32 row max and row sum, or null
   long long q_sb, q_sh, q_sl;
   long long k_sb, k_sh, k_sl;
   long long v_sb, v_sh, v_sl;
@@ -75,80 +64,6 @@ struct Params {
   float scale_log2;
   int causal;
 };
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Two floats -> bf16x2 in one register, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// One rotate-half pair (x1 at d, x2 at d + Dh/2) of RoPE: tables rounded to
-// bf16, each product and the sum rounded to bf16, as the plain version's
-// elementwise bf16 ops round, so the rotated q/k match it bit for bit.
-__device__ __forceinline__ void rope_pair(float x1, float x2, float s1, float s2,
-                                          float c1, float c2,
-                                          __nv_bfloat16& y1, __nv_bfloat16& y2) {
-  s1 = bf16_round(s1); s2 = bf16_round(s2);
-  c1 = bf16_round(c1); c2 = bf16_round(c2);
-  y1 = __float2bfloat16_rn(bf16_round(x1 * c1) + bf16_round(-x2 * s1));
-  y2 = __float2bfloat16_rn(bf16_round(x2 * c2) + bf16_round(x1 * s2));
-}
-
-// Rows [row0, row0 + 64) of a strided [L, D] operand into a padded shared
-// tile by cp.async; rows at or past L are zero-filled (so 0-probability
-// keys never meet uninitialised shared memory in P V).
-template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* s, const __nv_bfloat16* g,
-                                                long long sl, int row0, int L) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BK * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = row0 + r < L;
-    const __nv_bfloat16* src = g + (long long)(ok ? row0 + r : 0) * sl + c * 8;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(s + r * (D + PAD) + c * 8)),
-                 "l"(src), "r"(ok ? 16 : 0));
-  }
-}
 
 // In-place RoPE on the rows of the shared q tile that exist.
 template <int D>
@@ -165,37 +80,6 @@ __device__ __forceinline__ void rope_tile(__nv_bfloat16* s, const float* sin,
     rope_pair(__bfloat162float(row[d]), __bfloat162float(row[d + HALF]), sr[d],
               sr[d + HALF], cr[d], cr[d + HALF], row[d], row[d + HALF]);
   }
-}
-
-// RoPE pre-pass: k [B, H, Lk, D] (strided) -> out [B, H, Lk, D] contiguous,
-// rotated once. One thread per row and 8 rotate-half pairs.
-template <int D>
-__global__ void __launch_bounds__(256) rope_k_kernel(const Params p, __nv_bfloat16* out) {
-  constexpr int HALF = D / 2, CH = HALF / 8;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = idx / CH, c = (idx % CH) * 8;
-  if (row >= p.Lk) return;
-  const __nv_bfloat16* src = p.k + b * p.k_sb + h * p.k_sh + row * p.k_sl;
-  __nv_bfloat16* dst = out + ((long long)bh * p.Lk + row) * D;
-  const uint4 a1 = *reinterpret_cast<const uint4*>(src + c);
-  const uint4 a2 = *reinterpret_cast<const uint4*>(src + c + HALF);
-  const __nv_bfloat16* x1 = reinterpret_cast<const __nv_bfloat16*>(&a1);
-  const __nv_bfloat16* x2 = reinterpret_cast<const __nv_bfloat16*>(&a2);
-  const float* sr = p.sin + (long long)row * D;
-  const float* cr = p.cos + (long long)row * D;
-  uint4 o1, o2;
-  __nv_bfloat16* y1 = reinterpret_cast<__nv_bfloat16*>(&o1);
-  __nv_bfloat16* y2 = reinterpret_cast<__nv_bfloat16*>(&o2);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int d = c + i;
-    rope_pair(__bfloat162float(x1[i]), __bfloat162float(x2[i]), sr[d], sr[d + HALF],
-              cr[d], cr[d + HALF], y1[i], y2[i]);
-  }
-  *reinterpret_cast<uint4*>(dst + c) = o1;
-  *reinterpret_cast<uint4*>(dst + c + HALF) = o2;
 }
 
 template <int D>
@@ -355,6 +239,14 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
   }
+  // the backward kernels rebuild P = exp2(s - m) / l from these; written
+  // only when a gradient is wanted, and never read on this path
+  if (p.stats != nullptr && t == 0) {
+    float* sm = p.stats + (long long)bh * p.Lq;
+    float* sl = sm + (long long)gridDim.y * p.Lq;
+    if (row_a < p.Lq) { sm[row_a] = m_r[0]; sl[row_a] = l_r[0]; }
+    if (row_b < p.Lq) { sm[row_b] = m_r[1]; sl[row_b] = l_r[1]; }
+  }
   // l >= 1: the row maximum contributes exp2(0)
   const float inv_a = 1.f / l_r[0];
   const float inv_b = 1.f / l_r[1];
@@ -379,10 +271,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
 template <int D>
 cudaError_t launch(Params p, int B, __nv_bfloat16* k_rot, cudaStream_t stream) {
   if (p.sin != nullptr) {  // rotate K once into the scratch, then read it there
-    constexpr int CH = D / 16;
-    const dim3 grid((p.Lk * CH + 255) / 256, B * p.H);
-    rope_k_kernel<D><<<grid, 256, 0, stream>>>(p, k_rot);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = launch_rope_rows<D>(p.k, p.k_sb, p.k_sh, p.k_sl, B, p.H, p.Lk,
+                                          p.sin, p.cos, k_rot, stream);
     if (err != cudaSuccess) return err;
     p.k = k_rot;
     p.k_sb = (long long)p.H * p.Lk * D;
@@ -390,8 +280,9 @@ cudaError_t launch(Params p, int B, __nv_bfloat16* k_rot, cudaStream_t stream) {
     p.k_sl = D;
   }
   const int smem = (BQ + 4 * BK) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool ready[MAX_DEVICES] = {};  // one per head dim: launch<D> is a template
+  cudaError_t err = allow_smem_once(
+      reinterpret_cast<const void*>(&flash_fwd_kernel<D>), smem, ready);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Lq + BQ - 1) / BQ, B * p.H);
   flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
@@ -406,10 +297,13 @@ extern "C" {
 // cudaErrorInvalidValue for a head dim the kernel was not built for, or
 // RoPE without its scratch). Strides are in elements; the head dim of every
 // operand is contiguous. With sin/cos, `k_rot` is a [B, H, Lk, Dh] bf16
-// scratch buffer that receives the rotated K.
+// scratch buffer that receives the rotated K. `stats`, when not null, is
+// a [2, B, H, Lq] fp32 buffer that receives each row's maximum (of the
+// scores in log2 units, scale folded in) and the row's sum of
+// exp2(score - maximum): what the backward needs to rebuild P.
 int deepcoro_flash_fwd_bf16(
     const void* q, const void* k, const void* v, void* o,
-    const void* sin, const void* cos, const void* mask, void* k_rot,
+    const void* sin, const void* cos, const void* mask, void* k_rot, void* stats,
     int B, int H, int Lq, int Lk, int Dh,
     long long q_sb, long long q_sh, long long q_sl,
     long long k_sb, long long k_sh, long long k_sl,
@@ -424,6 +318,7 @@ int deepcoro_flash_fwd_bf16(
   p.sin = static_cast<const float*>(sin);
   p.cos = static_cast<const float*>(cos);
   p.mask = static_cast<const uint8_t*>(mask);
+  p.stats = static_cast<float*>(stats);
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;

@@ -2,7 +2,8 @@
 
 CoroViT-B/2x16x16: dim 512, depth 12, 4 heads (Dh 128), 16x224x224 input
 -> 8x14x14 = 1568 tokens + CLS, a 2x2 token pool at block 3 (393 tokens
-after it). Text-tower fields are carried for parity of the config dict.
+after it). Text tower: BERT-base shape (dim 768, depth 12) with 6 heads of
+128, so its attention runs the packed kernel.
 """
 
 from __future__ import annotations

@@ -4,7 +4,11 @@ Precision follows the JAX package: parameters are fp32; a ``Dense`` casts
 its input and its weights to the compute dtype (bf16 under
 ``precision="bf16"``) for the product; LayerNorm runs in fp32 (eps 1e-6,
 flax's default); GELU is the tanh approximation (flax's default).
-Dropout is the identity when ``deterministic`` (serving never drops).
+Dropout is the identity when ``deterministic`` (serving never drops); in
+training mode (``deterministic=False``) every mask is drawn from the
+``torch.Generator`` handed down the call (the global one when it is None),
+so a train step is a function of its generator, as the JAX step is of its
+``rng``.
 
 Module and parameter names follow the flax tree (``block{i}``, ``attn``,
 ``qkv``, ``norm1`` ...), so ``convert.py`` maps one onto the other by name.
@@ -23,10 +27,14 @@ from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
 from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
 
 
-def _dropout(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, deterministic: bool,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout; the keep mask comes from ``generator``, which must
+    live on ``x``'s device."""
     if deterministic or rate == 0.0:
         return x
-    return F.dropout(x, rate, training=True)
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep * (1.0 / (1.0 - rate))
 
 
 class Dense(nn.Linear):
@@ -64,10 +72,10 @@ class MlpBlock(nn.Module):
         self.fc2 = Dense(hidden_dim, out_dim, dtype)
         self.dropout = dropout
 
-    def forward(self, x, deterministic: bool = True):
+    def forward(self, x, deterministic: bool = True, generator=None):
         x = F.gelu(self.fc1(x), approximate="tanh")
-        x = _dropout(x, self.dropout, deterministic)
-        return _dropout(self.fc2(x), self.dropout, deterministic)
+        x = _dropout(x, self.dropout, deterministic, generator)
+        return _dropout(self.fc2(x), self.dropout, deterministic, generator)
 
 
 class Attention(nn.Module):
@@ -89,7 +97,7 @@ class Attention(nn.Module):
         self.proj = Dense(dim, dim, dtype)
 
     def forward(self, x, sin=None, cos=None, kv_mask=None, causal: bool = False,
-                deterministic: bool = True):
+                deterministic: bool = True, generator=None):
         B, L, _ = x.shape
         H = self.num_heads
         head_dim = self.dim // H
@@ -108,7 +116,7 @@ class Attention(nn.Module):
                 out = multi_head_attention(q, k, v, sin=sin, cos=cos,
                                            kv_mask=m, causal=causal)
             out = out.transpose(1, 2).reshape(B, L, self.dim)
-        return _dropout(self.proj(out), self.dropout, deterministic)
+        return _dropout(self.proj(out), self.dropout, deterministic, generator)
 
 
 class TransformerBlock(nn.Module):
@@ -125,12 +133,12 @@ class TransformerBlock(nn.Module):
         self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dim, dropout, dtype)
 
     def forward(self, x, sin=None, cos=None, kv_mask=None,
-                deterministic: bool = True):
+                deterministic: bool = True, generator=None):
         h = self.norm1(x).to(self.dtype)
         x = x + self.attn(h, sin=sin, cos=cos, kv_mask=kv_mask,
-                          deterministic=deterministic)
+                          deterministic=deterministic, generator=generator)
         h = self.norm2(x).to(self.dtype)
-        return x + self.mlp(h, deterministic=deterministic)
+        return x + self.mlp(h, deterministic=deterministic, generator=generator)
 
 
 class ProjectionHead(nn.Module):
@@ -142,10 +150,10 @@ class ProjectionHead(nn.Module):
         self.proj = Dense(in_dim, out_dim, dtype)
         self.dropout = dropout
 
-    def forward(self, x, deterministic: bool = True):
-        x = _dropout(x, self.dropout, deterministic)
+    def forward(self, x, deterministic: bool = True, generator=None):
+        x = _dropout(x, self.dropout, deterministic, generator)
         x = F.gelu(self.proj(x), approximate="tanh")
-        return _dropout(x, self.dropout, deterministic)
+        return _dropout(x, self.dropout, deterministic, generator)
 
 
 class _PatchProj(nn.Module):

@@ -33,14 +33,15 @@ class EnhancedVideoAggregator(nn.Module):
         self.query = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
-                deterministic: bool = True):
+                deterministic: bool = True, generator=None):
         """x: [B, N, D] per-video embeddings; mask: [B, N], True = real
         video. Returns the [B, D] study embedding."""
         B, N, D = x.shape
         x = x + self.pos_embedding[:, :N].to(x.dtype)
         for i in range(self.depth):
             x = getattr(self, f"block{i}")(x, kv_mask=mask,
-                                           deterministic=deterministic)
+                                           deterministic=deterministic,
+                                           generator=generator)
         x = self.norm(x)  # fp32
         scores = torch.einsum("bnd,d->bn", x, self.query) / math.sqrt(float(self.dim))
         if mask is not None:

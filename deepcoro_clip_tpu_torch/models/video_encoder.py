@@ -72,7 +72,7 @@ class CoroViT(nn.Module):
                                      torch.from_numpy(t.cos).to(device))
         return self._rope_cache[key]
 
-    def forward(self, x, deterministic: bool = True):
+    def forward(self, x, deterministic: bool = True, generator=None):
         x, (T, H, W) = self.patch_embed(x)
         B = x.shape[0]
         n_special = 1 if self.use_cls_token else 0
@@ -84,7 +84,8 @@ class CoroViT(nn.Module):
                 x, (T, H, W) = self._pool_tokens(x, T, H, W, n_special, i)
                 sin, cos = self._rope(T, H, W, n_special, x.device)
             x = getattr(self, f"block{i}")(x, sin=sin, cos=cos,
-                                           deterministic=deterministic)
+                                           deterministic=deterministic,
+                                           generator=generator)
         return self.norm(x).to(self.dtype)
 
     def _pool_tokens(self, x, T, H, W, n_special, idx):
@@ -137,12 +138,12 @@ class VideoEncoder(nn.Module):
         """Insert N=1 for spatial [B,T,H,W,C] or patch-major [B,L,K] input."""
         return x[:, None] if x.dim() in (3, 5) else x
 
-    def _encode_clips(self, x, deterministic):
+    def _encode_clips(self, x, deterministic, generator=None):
         """[B, N, ...] -> projected tokens [B, N, L, D_emb]."""
         B, N = x.shape[:2]
         toks = self.backbone(x.reshape((B * N,) + tuple(x.shape[2:])),
-                             deterministic=deterministic)
-        toks = self.proj(toks, deterministic=deterministic)
+                             deterministic=deterministic, generator=generator)
+        toks = self.proj(toks, deterministic=deterministic, generator=generator)
         return toks.reshape(B, N, toks.shape[1], self.embedding_dim)
 
     def _pool_video(self, toks):
@@ -152,10 +153,11 @@ class VideoEncoder(nn.Module):
         return toks.mean(dim=2)
 
     def forward(self, x, video_mask: Optional[torch.Tensor] = None,
-                deterministic: bool = True):
-        """x: [B, N, ...] or [B, ...]; video_mask: [B, N], True = real video."""
+                deterministic: bool = True, generator=None):
+        """x: [B, N, ...] or [B, ...]; video_mask: [B, N], True = real video;
+        generator: the source of the dropout masks when not deterministic."""
         x = self._with_video_axis(x)
-        toks = self._encode_clips(x, deterministic)
+        toks = self._encode_clips(x, deterministic, generator)
         B, N, L, D = toks.shape
         if not self.aggregate_videos_tokens and not self.per_video_pool:
             return toks.reshape(B, N * L, D)
@@ -163,17 +165,17 @@ class VideoEncoder(nn.Module):
         if self.per_video_pool and not self.aggregate_videos_tokens:
             return per_video
         return self.aggregator(per_video, mask=video_mask,
-                               deterministic=deterministic)
+                               deterministic=deterministic, generator=generator)
 
     def features(self, x, video_mask: Optional[torch.Tensor] = None,
-                 deterministic: bool = True):
+                 deterministic: bool = True, generator=None):
         """One backbone pass -> {"tokens": [B,N,L,D], "video": [B,N,D],
         "study": [B,D]}."""
         x = self._with_video_axis(x)
-        toks = self._encode_clips(x, deterministic)
+        toks = self._encode_clips(x, deterministic, generator)
         per_video = self._pool_video(toks)
         study = self.aggregator(per_video, mask=video_mask,
-                                deterministic=deterministic)
+                                deterministic=deterministic, generator=generator)
         return {"tokens": toks, "video": per_video, "study": study}
 
     def get_tokens(self, x, mode: str = "patch", deterministic: bool = True):
@@ -267,7 +269,8 @@ def video_encoder_from_config(cfg, aggregate=None, per_video=None) -> VideoEncod
 def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     """Random init from ``seed`` with the JAX package's initializers:
     xavier-uniform dense weights, lecun-normal patch kernel, zero biases,
-    unit LayerNorm scales, N(0, 0.02) for cls, positions and query."""
+    unit LayerNorm scales, N(0, 1/dim) token embeddings, N(0, 0.02) for
+    cls, positions and query."""
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
         if isinstance(mod, Dense):
@@ -276,6 +279,8 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
         elif isinstance(mod, LayerNorm):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.Embedding):
+            nn.init.normal_(mod.weight, std=mod.embedding_dim ** -0.5, generator=g)
         elif isinstance(mod, _PatchProj):
             fan_in = math.prod(mod.kernel.shape[:4])
             # truncated at +-2 std, rescaled to unit variance (flax lecun_normal)
@@ -284,6 +289,7 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
                                   generator=g)
             nn.init.zeros_(mod.bias)
     for name, p in model.named_parameters():
-        if name.split(".")[-1] in ("cls", "pos_embedding", "query"):
+        if name.split(".")[-1] in ("cls", "pos_embedding", "position_embeddings",
+                                   "query"):
             nn.init.normal_(p, std=0.02, generator=g)
     return model

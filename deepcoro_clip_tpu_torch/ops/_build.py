@@ -2,14 +2,17 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface: ``nvcc`` compiles it for
 ``sm_90a`` into a shared library, which ``ctypes`` loads. Nothing is built
-when a module is imported; the first kernel launch builds. The library
-name carries a hash of the source and the flags, so an edited source is
-never served by a stale build. The build directory is
+when a module is imported; the first kernel launch builds (``build_all``
+starts one ``nvcc`` per source at once for a caller that wants them all).
+The library name carries a hash of the source, of the headers beside it
+(``csrc/*.cuh``) and of the flags, so an edited source is never served by a
+stale build. The build directory is
 ``deepcoro_clip_tpu_torch/_build`` (listed in ``.gitignore``).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -50,6 +53,8 @@ def build(name: str) -> Path:
     there yet; returns the library's path."""
     src = SRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
@@ -74,6 +79,13 @@ def build(name: str) -> Path:
                         "seconds": time.perf_counter() - t0,
                         "log": proc.stdout + proc.stderr}
     return out
+
+
+def build_all(names=("flash_fwd", "flash_bwd")) -> None:
+    """Build several sources side by side, one ``nvcc`` process each."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        for fut in [ex.submit(build, n) for n in names]:
+            fut.result()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,11 +1,17 @@
-"""ctypes launcher of the CUDA flash-attention forward (``csrc/flash_fwd.cu``).
+"""ctypes launchers of the CUDA flash-attention kernels, and their autograd glue.
 
-Shared by ``flash_attention`` and ``flash_attention_packed``: both hand it
-``[B, H, L, Dh]`` views (any batch/head/row strides, head dim contiguous)
-of their operands and of an output they allocated. It checks what the
-kernel takes, launches on PyTorch's current stream, and raises if the
-launch failed. It counts nothing: each entry point counts its own
-launches.
+``flash_fwd`` (``csrc/flash_fwd.cu``) and ``flash_bwd``
+(``csrc/flash_bwd.cu``) are shared by ``flash_attention`` and
+``flash_attention_packed``: both hand them ``[B, H, L, Dh]`` views (any
+batch/head/row strides, head dim contiguous) of their operands and of the
+outputs they allocated. The launchers check what the kernels take, launch
+on PyTorch's current stream, and raise if a launch failed. They count
+nothing: each entry point counts its own launches.
+
+``FlashAttention`` is the ``torch.autograd.Function`` both entry points go
+through when a gradient is wanted. On a CUDA tensor its forward and its
+backward launch the kernels or raise; on a CPU tensor they run the plain
+versions (``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -14,21 +20,42 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from deepcoro_clip_tpu_torch.ops import _build
+from deepcoro_clip_tpu_torch.ops.attention import flash_bwd_plain, multi_head_attention
 
 HEAD_DIMS = (64, 128)
+TILE = 64  # rows per tile of the kernels; the backward pads its row values to it
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def _fn():
-    lib = _build.load("flash_fwd")
-    fn = lib.deepcoro_flash_fwd_bf16
+def _fwd_fn():
+    fn = _build.load("flash_fwd").deepcoro_flash_fwd_bf16
     if fn.argtypes is None:
-        fn.argtypes = ([_P] * 8 + [_I] * 5 + [_LL] * 12
+        fn.argtypes = ([_P] * 9 + [_I] * 5 + [_LL] * 12
                        + [ctypes.c_float, _I, _P])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _bwd_fn():
+    fn = _build.load("flash_bwd").deepcoro_flash_bwd_bf16
+    if fn.argtypes is None:
+        fn.argtypes = ([_P] * 15 + [_I] * 5 + [_LL] * 24
+                       + [ctypes.c_float, _I, _P])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Head dim contiguous, base and strides fit for 16-byte loads."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and not any(s % 8 for s in t.stride()[:3]))
 
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -39,21 +66,17 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
             f"the CUDA flash kernel takes bfloat16, got {name} {t.dtype}")
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: the head dim must be contiguous")
-    if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+    if not _aligned(t):
         raise ValueError(
             f"{name}: base and strides must allow 16-byte loads "
             f"(ptr % 16 == 0, strides % 8 == 0), got strides {t.stride()}")
 
 
-def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              out: torch.Tensor, *, sin: Optional[torch.Tensor],
-              cos: Optional[torch.Tensor], kv_mask: Optional[torch.Tensor],
-              causal: bool, scale: float) -> None:
-    """Write attention of ``q`` over ``k``/``v`` into ``out`` (all views
-    ``[B, H, L, Dh]`` on one CUDA device, bf16)."""
+def _check_problem(q, k, v, sin, cos, kv_mask):
+    """Shapes, sizes, tables and mask; returns the uint8 mask or None."""
     device = q.device
     if device.type != "cuda":
-        raise ValueError(f"flash_fwd needs CUDA tensors, got {device}")
+        raise ValueError(f"the flash kernels need CUDA tensors, got {device}")
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
     if Dh not in HEAD_DIMS:
@@ -61,12 +84,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (B, H, Lk, Dh) or v.shape != (B, H, Lk, Dh):
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
-    if out.shape != q.shape:
-        raise ValueError(f"out shape {tuple(out.shape)} != q {tuple(q.shape)}")
     if Lq < 1 or Lk < 1 or B * H > 65535:
         raise ValueError(f"unsupported sizes B*H={B * H}, Lq={Lq}, Lk={Lk}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        _check_operand(name, t, device)
     if sin is not None:
         if Lq != Lk:
             raise ValueError("RoPE flash attention requires Lq == Lk")
@@ -76,21 +95,42 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 raise ValueError(
                     f"{name} must be a contiguous float32 [{Lq}, {Dh}] tensor "
                     f"on {device}")
+    if kv_mask is None:
+        return None
+    if kv_mask.shape != (B, Lk) or kv_mask.device != device:
+        raise ValueError(f"kv_mask must be [{B}, {Lk}] on {device}, "
+                         f"got {tuple(kv_mask.shape)} on {kv_mask.device}")
+    return (kv_mask != 0).to(torch.uint8).contiguous()
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, *, sin: Optional[torch.Tensor],
+              cos: Optional[torch.Tensor], kv_mask: Optional[torch.Tensor],
+              causal: bool, scale: float,
+              stats: Optional[torch.Tensor] = None) -> None:
+    """Write attention of ``q`` over ``k``/``v`` into ``out`` (all views
+    ``[B, H, L, Dh]`` on one CUDA device, bf16). ``stats``, a contiguous
+    fp32 ``[2, B, H, Lq]`` buffer, receives each row's softmax maximum and
+    sum for the backward; without it nothing extra is written."""
+    mask = _check_problem(q, k, v, sin, cos, kv_mask)
+    device = q.device
+    B, H, Lq, Dh = q.shape
+    Lk = k.shape[2]
+    if out.shape != q.shape:
+        raise ValueError(f"out shape {tuple(out.shape)} != q {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        _check_operand(name, t, device)
+    if stats is not None and (
+            stats.shape != (2, B, H, Lq) or stats.dtype != torch.float32
+            or stats.device != device or not stats.is_contiguous()):
+        raise ValueError(f"stats must be a contiguous float32 [2, {B}, {H}, {Lq}] "
+                         f"tensor on {device}")
     # RoPE of K is applied once, by a pre-pass, into this scratch copy
     k_rot = None if sin is None else torch.empty(
         (B, H, Lk, Dh), dtype=torch.bfloat16, device=device)
-    mask = None
-    if kv_mask is not None:
-        if kv_mask.shape != (B, Lk) or kv_mask.device != device:
-            raise ValueError(f"kv_mask must be [{B}, {Lk}] on {device}, "
-                             f"got {tuple(kv_mask.shape)} on {kv_mask.device}")
-        mask = (kv_mask != 0).to(torch.uint8).contiguous()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = _fn()(
-        ptr(q), ptr(k), ptr(v), ptr(out), ptr(sin), ptr(cos), ptr(mask), ptr(k_rot),
+    err = _fwd_fn()(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(sin), _ptr(cos), _ptr(mask),
+        _ptr(k_rot), _ptr(stats),
         B, H, Lq, Lk, Dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         float(scale), int(bool(causal)),
@@ -98,3 +138,165 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     )
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, do: torch.Tensor, stats: torch.Tensor,
+              dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, *,
+              sin: Optional[torch.Tensor], cos: Optional[torch.Tensor],
+              kv_mask: Optional[torch.Tensor], causal: bool,
+              scale: float) -> None:
+    """Write the gradients of ``flash_fwd`` into ``dq``, ``dk``, ``dv``
+    (views shaped like ``q``, ``k``, ``v``), from the output gradient
+    ``do``, the forward's ``out`` and its ``stats``."""
+    mask = _check_problem(q, k, v, sin, cos, kv_mask)
+    device = q.device
+    B, H, Lq, Dh = q.shape
+    Lk = k.shape[2]
+    for name, t, like in (("out", out, q), ("do", do, q), ("dq", dq, q),
+                          ("dk", dk, k), ("dv", dv, v)):
+        if t.shape != like.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(like.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("do", do),
+                    ("dq", dq), ("dk", dk), ("dv", dv)):
+        _check_operand(name, t, device)
+    if (stats.shape != (2, B, H, Lq) or stats.dtype != torch.float32
+            or stats.device != device or not stats.is_contiguous()):
+        raise ValueError(f"stats must be a contiguous float32 [2, {B}, {H}, {Lq}] "
+                         f"tensor on {device}")
+    lq_pad = -(-Lq // TILE) * TILE
+    rows = torch.empty((3, B, H, lq_pad), dtype=torch.float32, device=device)
+    q_rot = k_rot = None
+    if sin is not None:  # q and k are rotated once, by a pre-pass, into these
+        q_rot = torch.empty((B, H, Lq, Dh), dtype=torch.bfloat16, device=device)
+        k_rot = torch.empty((B, H, Lk, Dh), dtype=torch.bfloat16, device=device)
+    err = _bwd_fn()(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(do), _ptr(stats), _ptr(sin),
+        _ptr(cos), _ptr(mask), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(rows),
+        _ptr(q_rot), _ptr(k_rot),
+        B, H, Lq, Lk, Dh,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+        float(scale), int(bool(causal)),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd launch failed: CUDA error {err}")
+
+
+def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
+    """[B, L, H*Dh] (any row stride) -> [B, H, L, Dh] view, no copy."""
+    return t.unflatten(2, (H, t.shape[2] // H)).permute(0, 2, 1, 3)
+
+
+def head_views(a, b, c, layout: str, H: int):
+    """The ``[B, H, L, Dh]`` views of the operands of one layout:
+    ``"heads"`` (already so), ``"packed"`` (``[B, L, H*Dh]`` each) or
+    ``"fused"`` (``a`` is one ``[B, L, 3*H*Dh]`` q|k|v tensor)."""
+    if layout == "heads":
+        return a, b, c
+    if layout == "fused":
+        D = a.shape[2] // 3
+        a, b, c = a[..., :D], a[..., D:2 * D], a[..., 2 * D:]
+    return _heads(a, H), _heads(b, H), _heads(c, H)
+
+
+def attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout, H,
+                      counter, stats: bool):
+    """Forward of one layout: returns ``(out, stats or None)`` with ``out``
+    in the layout of the inputs. Launches the kernel on a CUDA tensor and
+    counts it on ``counter.launches``; runs the plain version on a CPU
+    tensor."""
+    qh, kh, vh = head_views(a, b, c, layout, H)
+    B, _, Lq, Dh = qh.shape
+    if qh.device.type == "cpu":
+        m = None if kv_mask is None else kv_mask != 0
+        out = multi_head_attention(qh, kh, vh, sin=sin, cos=cos, kv_mask=m,
+                                   causal=causal, scale=scale)
+        if layout != "heads":
+            out = out.permute(0, 2, 1, 3).reshape(B, Lq, H * Dh)
+        return out, None
+    if layout == "heads":
+        out = torch.empty((B, H, Lq, Dh), dtype=qh.dtype, device=qh.device)
+        oh = out
+    else:
+        out = torch.empty((B, Lq, H * Dh), dtype=qh.dtype, device=qh.device)
+        oh = _heads(out, H)
+    st = torch.empty((2, B, H, Lq), dtype=torch.float32,
+                     device=qh.device) if stats else None
+    flash_fwd(qh, kh, vh, oh, sin=sin, cos=cos, kv_mask=kv_mask, causal=causal,
+              scale=scale, stats=st)
+    counter.launches += 1
+    return out, st
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the CUDA kernels (or, on the CPU, the plain versions)
+    as forward and backward. Inputs ``a, b, c`` are q, k, v in ``layout``
+    (``b`` and ``c`` are None for ``"fused"``); ``counter`` is the entry
+    point whose ``launches`` / ``bwd_launches`` count the kernel launches."""
+
+    @staticmethod
+    def forward(ctx, a, b, c, sin, cos, kv_mask, causal, scale, layout, H, counter):
+        out, stats = attention_forward(a, b, c, sin, cos, kv_mask, causal, scale,
+                                       layout, H, counter, stats=True)
+        ctx.save_for_backward(a, b, c, out, stats, sin, cos, kv_mask)
+        ctx.args = (causal, scale, layout, H, counter)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        a, b, c, out, stats, sin, cos, kv_mask = ctx.saved_tensors
+        causal, scale, layout, H, counter = ctx.args
+        need = ctx.needs_input_grad[:3]
+        if not any(need):
+            return (None,) * 11
+
+        def to_heads(t):
+            return t if layout == "heads" else _heads(t, H)
+
+        qh, kh, vh = head_views(a, b, c, layout, H)
+        oh = to_heads(out)
+        gh = to_heads(grad_out.to(out.dtype))
+        if a.device.type == "cpu":
+            m = None if kv_mask is None else kv_mask != 0
+            dq, dk, dv = flash_bwd_plain(qh, kh, vh, gh, oh, sin=sin, cos=cos,
+                                         kv_mask=m, causal=causal, scale=scale)
+            if layout == "heads":
+                grads = (dq, dk, dv)
+            else:
+                flat = [g.permute(0, 2, 1, 3).flatten(2) for g in (dq, dk, dv)]
+                grads = ((torch.cat(flat, dim=-1), None, None)
+                         if layout == "fused" else tuple(flat))
+        else:
+            if not _aligned(gh):  # the gradient arrives with any strides
+                gh = to_heads(grad_out.to(out.dtype).contiguous())
+            if layout == "fused":
+                # one [B, L, 3D] gradient; the kernels write q|k|v's parts
+                # through strided views, nothing is concatenated
+                da = torch.empty_like(a, memory_format=torch.contiguous_format)
+                grads = (da, None, None)
+                dviews = head_views(da, None, None, layout, H)
+            else:
+                grads = tuple(torch.empty_like(
+                    t, memory_format=torch.contiguous_format) for t in (a, b, c))
+                dviews = head_views(*grads, layout, H)
+            flash_bwd(qh, kh, vh, oh, gh, stats, *dviews, sin=sin, cos=cos,
+                      kv_mask=kv_mask, causal=causal, scale=scale)
+            counter.bwd_launches += 1
+        grads = tuple(g if n else None for g, n in zip(grads, need))
+        return grads + (None,) * 8
+
+
+def attention(a, b, c, *, sin, cos, kv_mask, causal, scale, layout, H, counter):
+    """Attention of one layout, through ``FlashAttention`` when a gradient
+    is wanted and straight through the forward otherwise (then no row
+    statistics are written or kept)."""
+    wants_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (a, b, c))
+    if wants_grad:
+        return FlashAttention.apply(a, b, c, sin, cos, kv_mask, causal, scale,
+                                    layout, H, counter)
+    return attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout,
+                             H, counter, stats=False)[0]

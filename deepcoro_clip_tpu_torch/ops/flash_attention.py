@@ -1,12 +1,13 @@
-"""Flash attention on the ``[B, H, L, Dh]`` layout (K3 of the TPU kernels).
+"""Flash attention on the ``[B, H, L, Dh]`` layout (K3, K4 of the TPU kernels).
 
 Counterpart of the JAX package's ``ops/flash_attention.flash_attention``,
-whose Pallas ``_fwd_kernel`` it replaces on the card with the hand-written
-CUDA kernel of ``csrc/flash_fwd.cu`` (that file's note says what bounds it
-and how it is laid out). On a CPU tensor it runs the plain version,
-``ops/attention.multi_head_attention``; on a CUDA tensor it launches the
-kernel or raises. Forward only: training, with the backward kernel, is
-later work.
+whose Pallas ``_fwd_kernel`` and ``_bwd_kernel`` it replaces on the card
+with the hand-written CUDA kernels of ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu`` (those files' notes say what bounds them and how they
+are laid out). On a CPU tensor it runs the plain versions
+(``ops/attention.py``); on a CUDA tensor it launches the kernels or raises.
+``launches`` and ``bwd_launches`` count the forward and backward kernel
+launches.
 """
 
 from __future__ import annotations
@@ -15,8 +16,7 @@ from typing import Optional
 
 import torch
 
-from deepcoro_clip_tpu_torch.ops._flash_cuda import flash_fwd
-from deepcoro_clip_tpu_torch.ops.attention import multi_head_attention
+from deepcoro_clip_tpu_torch.ops._flash_cuda import attention
 
 
 def flash_attention(
@@ -42,15 +42,11 @@ def flash_attention(
     if sin is not None and Lq != Lk:
         raise ValueError("RoPE flash attention requires self-attention (Lq == Lk)")
     scale_v = float(scale if scale is not None else Dh ** -0.5)
-    if q.device.type == "cpu":
-        m = None if kv_mask is None else kv_mask != 0
-        return multi_head_attention(q, k, v, sin=sin, cos=cos, kv_mask=m,
-                                    causal=causal, scale=scale_v)
-    out = torch.empty((B, H, Lq, Dh), dtype=q.dtype, device=q.device)
-    flash_fwd(q, k, v, out, sin=sin, cos=cos, kv_mask=kv_mask,
-              causal=causal, scale=scale_v)
-    flash_attention.launches += 1
-    return out
+    return attention(q, k, v, sin=sin, cos=cos, kv_mask=kv_mask, causal=causal,
+                     scale=scale_v, layout="heads", H=H,
+                     counter=flash_attention)
 
 
-flash_attention.launches = 0  # kernel launches, for checks that the path ran it
+# kernel launches, for checks that the path ran them
+flash_attention.launches = 0
+flash_attention.bwd_launches = 0

@@ -1,14 +1,17 @@
-"""Flash attention over packed ``[B, L, H*Dh]`` activations (K1).
+"""Flash attention over packed ``[B, L, H*Dh]`` activations (K1, K2).
 
 Counterpart of the JAX package's
 ``ops/flash_attention_packed.flash_attention_packed``, whose Pallas
-``_fwd_kernel`` it replaces on the card with the hand-written CUDA kernel
-of ``csrc/flash_fwd.cu`` (that file's note says what bounds it and how it
-is laid out). Heads stay column blocks of the packed feature axis, and a
+``_fwd_kernel`` and ``_bwd_kernel`` it replaces on the card with the
+hand-written CUDA kernels of ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu`` (those files' notes say what bounds them and how they
+are laid out). Heads stay column blocks of the packed feature axis, and a
 fused ``qkv`` ``[B, L, 3D]`` is read through strided views at column
 offsets 0, D and 2D: no q/k/v slice and no transpose is copied on either
-side of the kernel. On a CPU tensor it runs the plain version; on a CUDA
-tensor it launches the kernel or raises.
+side of the kernels, and the backward writes dq|dk|dv straight into one
+``[B, L, 3D]`` gradient. On a CPU tensor it runs the plain versions; on a
+CUDA tensor it launches the kernels or raises. ``launches`` and
+``bwd_launches`` count the forward and backward kernel launches.
 
 The fused output projection (``wo``) of the JAX function is off by default
 there and not ported yet.
@@ -20,16 +23,9 @@ from typing import Optional
 
 import torch
 
-from deepcoro_clip_tpu_torch.ops._flash_cuda import flash_fwd
-from deepcoro_clip_tpu_torch.ops.attention import multi_head_attention
+from deepcoro_clip_tpu_torch.ops._flash_cuda import attention
 
 LANE = 128
-
-
-def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
-    """[B, L, H*Dh] (any row stride) -> [B, H, L, Dh] view, no copy."""
-    B, L, D = t.shape
-    return t.unflatten(2, (H, D // H)).permute(0, 2, 1, 3)
 
 
 def flash_attention_packed(
@@ -49,12 +45,10 @@ def flash_attention_packed(
     ``[B, L, 3D]`` (self-attention, split q|k|v). Requires
     ``Dh % 128 == 0``. Returns ``[B, Lq, D]``."""
     if qkv is not None:
-        B, Lq, D3 = qkv.shape
+        (B, Lq, D3), Lk = qkv.shape, qkv.shape[1]
         D = D3 // 3
-        q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
     else:
-        B, Lq, D = q.shape
-    Lk = k.shape[1]
+        (B, Lq, D), Lk = q.shape, k.shape[1]
     H = num_heads
     dh = D // H
     if dh % LANE != 0:
@@ -62,17 +56,13 @@ def flash_attention_packed(
     if sin is not None and Lq != Lk:
         raise ValueError("RoPE packed attention requires self-attention")
     scale_v = float(scale if scale is not None else dh ** -0.5)
-    qh, kh, vh = _heads(q, H), _heads(k, H), _heads(v, H)
-    if q.device.type == "cpu":
-        m = None if kv_mask is None else kv_mask != 0
-        out = multi_head_attention(qh, kh, vh, sin=sin, cos=cos, kv_mask=m,
-                                   causal=causal, scale=scale_v)
-        return out.permute(0, 2, 1, 3).reshape(B, Lq, D)
-    out = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
-    flash_fwd(qh, kh, vh, _heads(out, H), sin=sin, cos=cos, kv_mask=kv_mask,
-              causal=causal, scale=scale_v)
-    flash_attention_packed.launches += 1
-    return out
+    kw = dict(sin=sin, cos=cos, kv_mask=kv_mask, causal=causal, scale=scale_v,
+              H=H, counter=flash_attention_packed)
+    if qkv is not None:
+        return attention(qkv, None, None, layout="fused", **kw)
+    return attention(q, k, v, layout="packed", **kw)
 
 
-flash_attention_packed.launches = 0  # kernel launches, for checks that the path ran it
+# kernel launches, for checks that the path ran them
+flash_attention_packed.launches = 0
+flash_attention_packed.bwd_launches = 0

@@ -1,0 +1,272 @@
+"""Contrastive (CLIP) training step assembly.
+
+Port of the JAX package's ``train/clip.py`` for one card: video and text
+forward, the batch contrastive loss, backward (through the CUDA attention
+kernels), the per-group optimizer update with dynamic freeze masks. bf16
+compute, fp32 parameters, no gradient scaler.
+
+A step updates the state it is given in place (parameters, moments, counts)
+and returns it with ``step + 1``; PyTorch runs it eagerly, so
+``make_train_step`` returns a plain function. The SigLIP family, the
+multi-positive losses and the LocCa head of the JAX module are not ported
+yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from deepcoro_clip_tpu_torch.device import resolve_device
+from deepcoro_clip_tpu_torch.losses import contrastive as closs
+from deepcoro_clip_tpu_torch.models.text_encoder import text_encoder_from_config
+from deepcoro_clip_tpu_torch.models.video_encoder import (
+    init_params,
+    video_encoder_from_config,
+)
+from deepcoro_clip_tpu_torch.train import optim as optim_lib
+from deepcoro_clip_tpu_torch.train.schedulers import get_scheduler
+from deepcoro_clip_tpu_torch.train.state import TrainState
+
+MULTI_POSITIVE_LOSSES = {
+    "siglip_pairwise", "siglip2_bce", "siglip2_bce_ddp",
+    "siglip2_multi_positive", "siglip_pairwise_ddp", "weighted_siglip",
+    "multi_positive_infonce", "siglip_single_head",
+}
+CLIP_LOSSES = {"contrastive", "clip", "contrastive_ddp", "infonce_loss",
+               "infonce_loss_ddp", "infonce"}
+
+
+class ClipBundle(NamedTuple):
+    """Everything static needed to run contrastive training."""
+
+    config: Any
+    device: torch.device
+    video_model: Any
+    text_model: Any
+    tx: Any               # optim.ClipOptimizer or optim.MultiSteps
+    schedule: Callable
+    video_fracs: Dict[str, float]   # freeze-order fractions per leaf
+    text_fracs: Dict[str, float]
+
+
+def _check_loss_name(config) -> None:
+    name = config.loss_name.lower()
+    if name in MULTI_POSITIVE_LOSSES or name in ("siglip", "siglip_ddp"):
+        raise NotImplementedError(
+            f"loss_name={config.loss_name!r}: the SigLIP and multi-positive "
+            "losses come with the SigLIP slice of the port")
+    if name not in CLIP_LOSSES:
+        raise ValueError(f"unknown loss_name {config.loss_name!r}")
+    if getattr(config, "locca_enabled", False) or config.extra().get("locca_enabled"):
+        raise NotImplementedError(
+            "locca_enabled: the LocCa head comes with the multitask slice of the port")
+
+
+def training_params(video_model, text_model, log_temp, logit_bias
+                    ) -> Dict[str, torch.Tensor]:
+    """The flat training dict over the models' own parameters."""
+    params = {f"video_encoder.{k}": p for k, p in video_model.named_parameters()}
+    params.update({f"text_encoder.{k}": p for k, p in text_model.named_parameters()})
+    params["log_temp"] = log_temp
+    params["logit_bias"] = logit_bias
+    return params
+
+
+def _tower(params: Dict[str, torch.Tensor], tower: str) -> Dict[str, torch.Tensor]:
+    pre = tower + "."
+    return {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+
+
+def build_clip_bundle(config, seed: int = 0, steps_per_epoch: int = 100,
+                      device: Optional[str] = None
+                      ) -> Tuple[ClipBundle, TrainState]:
+    """Build the models with seeded random weights, the optimizer and the
+    initial ``TrainState`` on ``device`` (CUDA unless the caller passes
+    ``"cpu"``)."""
+    _check_loss_name(config)
+    dev = resolve_device(device)
+    video_model = init_params(video_encoder_from_config(config), seed).to(dev)
+    text_model = init_params(text_encoder_from_config(config), seed + 1).to(dev)
+    # learnable temperature and the SigLIP bias (unused by clip_loss, kept
+    # in the tree as in the JAX package)
+    log_temp = torch.nn.Parameter(torch.tensor(
+        math.log(config.temperature), dtype=torch.float32, device=dev))
+    logit_bias = torch.nn.Parameter(torch.tensor(
+        float(config.siglip_bias_init), dtype=torch.float32, device=dev))
+    params = training_params(video_model, text_model, log_temp, logit_bias)
+
+    schedule = get_scheduler(
+        config.scheduler_name, config.lr, steps_per_epoch, config.epochs,
+        num_warmup_percent=config.num_warmup_percent,
+        factor=config.factor,
+        lr_step_period=config.lr_step_period,
+        num_hard_restarts_cycles=config.num_hard_restarts_cycles,
+        warm_restart_tmult=config.warm_restart_tmult,
+        gradient_accumulation_steps=config.gradient_accumulation_steps,
+    )
+    tx = optim_lib.make_clip_optimizer(config, schedule, params)
+    if config.gradient_accumulation_steps > 1:
+        # the contrastive matrix spans each micro-batch only, as in the
+        # JAX package
+        tx = optim_lib.MultiSteps(tx, config.gradient_accumulation_steps)
+    state = TrainState(step=0, params=params, opt_state=tx.init(params))
+
+    # only the backbone (video) / the BERT body (text) is partially
+    # freezable, never proj, aggregator or pools
+    bundle = ClipBundle(
+        config=config, device=dev, video_model=video_model, text_model=text_model,
+        tx=tx, schedule=schedule,
+        video_fracs=optim_lib.freeze_fractions(
+            _tower(params, "video_encoder"), include=("backbone",)),
+        text_fracs=optim_lib.freeze_fractions(
+            _tower(params, "text_encoder"), exclude=("proj",)),
+    )
+    return bundle, state
+
+
+def to_device_batch(bundle: ClipBundle, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A host batch (numpy arrays or tensors) onto the bundle's device."""
+    return {k: torch.as_tensor(v).to(bundle.device) for k, v in batch.items()}
+
+
+def _forward_embeddings(bundle: ClipBundle, batch, generator, deterministic):
+    """(v_emb, t_emb). Float batches come normalized from the host; integer
+    (uint8) batches go raw into the model, whose patchify folds the dataset
+    statistics into its weights."""
+    v_emb = bundle.video_model(batch["videos"], video_mask=batch.get("video_mask"),
+                               deterministic=deterministic, generator=generator)
+    t_emb = bundle.text_model(batch["input_ids"],
+                              attention_mask=batch["attention_mask"],
+                              deterministic=deterministic, generator=generator)
+    return v_emb, t_emb
+
+
+def compute_loss(bundle: ClipBundle, log_temp, batch, generator=None,
+                 deterministic: bool = False) -> Dict[str, torch.Tensor]:
+    """Forward both towers and the contrastive loss. The models read their
+    own parameters; ``log_temp`` is passed so that a step can pin it."""
+    _check_loss_name(bundle.config)
+    v_emb, t_emb = _forward_embeddings(bundle, batch, generator, deterministic)
+    v_emb = torch.nan_to_num(v_emb)
+    t_emb = torch.nan_to_num(t_emb)
+    out = closs.clip_loss(v_emb, t_emb, log_temp,
+                          label_smoothing=bundle.config.label_smoothing,
+                          sample_mask=batch.get("sample_mask"))
+    out["video_emb"] = v_emb
+    out["text_emb"] = t_emb
+    return out
+
+
+def alignment_score(v_emb, t_emb, positive_mask=None, sample_mask=None):
+    """Mean matched-pair cosine similarity. Paired mode: the mean of the
+    diagonal. Multi-positive mode (``positive_mask`` ``[B, M]`` given): the
+    mean video-text cosine over each video's positives; ``sample_mask``
+    excludes padding rows."""
+    v = closs.l2_normalize(v_emb)
+    t = closs.l2_normalize(t_emb)
+    if positive_mask is None:
+        n = min(v.shape[0], t.shape[0])
+        diag = (v[:n] * t[:n]).sum(dim=-1)
+        if sample_mask is None:
+            return diag.mean()
+        m = sample_mask.float()[:n]
+        return (diag * m).sum() / m.sum().clamp_min(1.0)
+    pos = positive_mask.float()
+    if sample_mask is not None:
+        pos = pos * sample_mask.float()[:, None]
+    return ((v @ t.T) * pos).sum() / pos.sum().clamp_min(1.0)
+
+
+def make_train_step(bundle: ClipBundle):
+    """The train step.
+
+    signature: ``(state, batch, generator, video_freeze_ratio,
+    text_freeze_ratio, temp_override) -> (state, metrics)``. ``generator``
+    is the ``torch.Generator`` (on the bundle's device) the dropout masks
+    are drawn from. The ratios and ``temp_override`` are Python numbers;
+    ``temp_override`` < 0 means "use the learnable temperature", otherwise
+    log_temp is pinned to log(override). Metrics are tensors on the device:
+    reading one is the only time the host waits.
+    """
+    def keep_mask(video_freeze_ratio, text_freeze_ratio) -> Dict[str, bool]:
+        keep = {f"video_encoder.{k}": v for k, v in optim_lib.freeze_keep(
+            bundle.video_fracs, video_freeze_ratio).items()}
+        keep.update({f"text_encoder.{k}": v for k, v in optim_lib.freeze_keep(
+            bundle.text_fracs, text_freeze_ratio).items()})
+        return keep
+
+    def step(state: TrainState, batch, generator=None, video_freeze_ratio=0.0,
+             text_freeze_ratio=0.0, temp_override=-1.0):
+        params = state.params
+        names = list(params)
+        pinned = temp_override > 0
+        log_temp = (torch.full_like(params["log_temp"], math.log(max(temp_override, 1e-6)))
+                    if pinned else params["log_temp"])
+        out = compute_loss(bundle, log_temp, batch, generator, deterministic=False)
+        loss = out["loss"]
+        wanted = [n for n in names if params[n].requires_grad]
+        got = torch.autograd.grad(loss, [params[n] for n in wanted], allow_unused=True)
+        got = dict(zip(wanted, got))
+        # logit_bias, and log_temp when pinned, get no gradient: zeros
+        grads = {n: (torch.nan_to_num_(got[n]) if got.get(n) is not None
+                     else torch.zeros_like(params[n])) for n in names}
+
+        with torch.no_grad():
+            # dynamic partial freeze: mask the gradients before the update,
+            # so the moments accumulate nothing for frozen leaves, then the
+            # updates too, so weight decay cannot move them
+            keep = keep_mask(video_freeze_ratio, text_freeze_ratio)
+            for n, k in keep.items():
+                if not k:
+                    grads[n].zero_()
+            gate = optim_lib.finite_gate(loss)
+            updates = bundle.tx.update(grads, state.opt_state, params, gate)
+            frozen = [n for n, k in keep.items() if not k]
+            if pinned:  # pinned temperature: no log_temp learning
+                frozen.append("log_temp")
+            still = set(frozen)
+            moving = [n for n in names if n not in still]
+            torch._foreach_add_([params[n] for n in moving],
+                                [updates[n] for n in moving])
+
+            towers = {t: [g for n, g in grads.items() if n.startswith(t + ".")]
+                      for t in ("video_encoder", "text_encoder")}
+            metrics = {
+                "loss": loss.detach(),
+                "temperature": out["temperature"].detach(),
+                "alignment": alignment_score(out["video_emb"], out["text_emb"],
+                                             sample_mask=batch.get("sample_mask")),
+                "grad_norm": optim_lib.global_norm(grads),
+                **{f"grad_norm_{t}": optim_lib.global_norm(g)
+                   for t, g in towers.items()},
+                "video_emb_norm": torch.linalg.vector_norm(
+                    out["video_emb"].float(), dim=-1).mean(),
+                "text_emb_norm": torch.linalg.vector_norm(
+                    out["text_emb"].float(), dim=-1).mean(),
+                "lr": bundle.schedule(optim_lib.optimizer_step_count(
+                    state.opt_state, state.step)),
+            }
+        return state.replace(step=state.step + 1), metrics
+
+    return step
+
+
+def make_eval_step(bundle: ClipBundle):
+    """Embedding forward for validation and inference (deterministic)."""
+
+    @torch.no_grad()
+    def step(params: Dict[str, torch.Tensor], batch):
+        out = compute_loss(bundle, params["log_temp"], batch, deterministic=True)
+        return {
+            "loss": out["loss"],
+            "video_emb": out["video_emb"],
+            "text_emb": out["text_emb"],
+            "alignment": alignment_score(out["video_emb"], out["text_emb"],
+                                         sample_mask=batch.get("sample_mask")),
+        }
+
+    return step

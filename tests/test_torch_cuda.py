@@ -8,13 +8,16 @@ card but no JAX it runs without the suite's conftest (which imports JAX):
 
 Tolerance, kernel vs plain in bf16: atol 1e-2, rtol 1e-2 (outputs are
 rounded to bf16, 2^-8 relative, and P is rounded to bf16 against the
-running max in the kernel but the final max in the plain version).
+running max in the kernel but the final max in the plain version). The
+backward kernels against ``flash_bwd_plain``: atol 2e-2, rtol 2e-2 (dq, dk,
+dv are sums over up to 199 bf16-rounded products, each rounded once more
+to bf16 on the way out, and the plain version starts from its own ``out``).
 """
 
 import pytest
 import torch
 
-from deepcoro_clip_tpu_torch.ops.attention import multi_head_attention
+from deepcoro_clip_tpu_torch.ops.attention import flash_bwd_plain, multi_head_attention
 from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
 from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
 from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
@@ -91,4 +94,121 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         flash_attention(q, q, q)
     q = torch.zeros(1, 2, 16, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="Dh in"):
+        flash_attention(q, q, q)
+
+
+# --------------------------------------------------------------------------- #
+# backward kernels (K2, K4)
+
+BWD_TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+def _plain_grads(q4, k4, v4, do4, **kw):
+    out = multi_head_attention(q4, k4, v4, **kw)
+    return flash_bwd_plain(q4, k4, v4, do4, out, **kw)
+
+
+@pytest.mark.parametrize("mode", ["rope", "mask", "causal", "plain"])
+def test_backward_kernels_match_plain(cuda, mode):
+    """Gradients of both entry points on [2, 199|130, 512] bf16 inputs
+    against flash_bwd_plain; the outputs carry a grad_fn and agree with the
+    plain forward (and bit for bit with the forward that keeps no
+    statistics), the launch counters move, and a second backward agrees bit
+    for bit."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    L = 199
+    Lk = 130 if mode == "mask" else L  # Lq != Lk without RoPE
+    q, k, v = (torch.randn(2, n, 512, generator=g, device=cuda).to(torch.bfloat16)
+               for n in (L, Lk, Lk))
+    do = torch.randn(2, L, 512, generator=g, device=cuda).to(torch.bfloat16)
+    kw = {128: {}, 64: {}}
+    for dh in kw:
+        if mode == "rope":
+            sin, cos = _rope(dh, cuda)
+            kw[dh] = dict(sin=sin, cos=cos)
+        elif mode == "causal":
+            kw[dh] = dict(causal=True)
+    if mode == "mask":
+        m = torch.rand(2, Lk, generator=g, device=cuda) > 0.5
+        m[1] = False  # no valid key: uniform P feeds dv, dq = dk = 0
+        kw = {dh: dict(kv_mask=m) for dh in kw}
+
+    def grads(fn, H, dh, to_heads, from_heads):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n_f, n_b = fn.launches, fn.bwd_launches
+        out = fn(*[to_heads(t) for t in leaves], **kw[dh]) if fn is flash_attention \
+            else fn(*leaves, num_heads=H, **kw[dh])
+        assert out.grad_fn is not None
+        # this forward also wrote the row statistics: same bits as without,
+        # and within the forward tolerance of the plain version
+        with torch.no_grad():
+            bare = fn(*[to_heads(t) for t in leaves], **kw[dh]) if fn is flash_attention \
+                else fn(*leaves, num_heads=H, **kw[dh])
+        assert torch.equal(out.detach(), bare)
+        ref_out = multi_head_attention(*[to_heads(t) for t in (q, k, v)], **kw[dh])
+        if fn is not flash_attention:
+            ref_out = from_heads(ref_out)
+        torch.testing.assert_close(out.detach().float(), ref_out.float(), **TOL)
+        n_f += 1
+        got = torch.autograd.grad(out, leaves, to_heads(do) if fn is flash_attention
+                                  else do, retain_graph=True)
+        again = torch.autograd.grad(out, leaves, to_heads(do) if fn is flash_attention
+                                    else do)
+        assert (fn.launches, fn.bwd_launches) == (n_f + 1, n_b + 2)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)  # no atomics: bit-equal run to run
+        ref = _plain_grads(*[to_heads(t) for t in (q, k, v)], to_heads(do), **kw[dh])
+        for name, a, r in zip("qkv", got, ref):
+            assert torch.isfinite(a).all(), name
+            torch.testing.assert_close(a.float(), from_heads(r).float(), **BWD_TOL,
+                                       msg=lambda s, n=name: f"d{n} (Dh {dh}): {s}")
+        return got
+
+    def heads(H):
+        return lambda t: t.unflatten(2, (H, 512 // H)).transpose(1, 2)
+
+    def unheads(t):
+        return t.transpose(1, 2).flatten(2)
+
+    grads(flash_attention_packed, 4, 128, heads(4), unheads)
+    got = grads(flash_attention, 8, 64, heads(8), unheads)
+    if mode == "mask":  # the fully masked batch row: no gradient through scores
+        assert float(got[0][1].abs().max()) == 0.0
+        assert float(got[1][1].abs().max()) == 0.0
+        assert float(got[2][1].abs().max()) > 0.0
+
+
+def test_fused_qkv_backward_matches_separate(cuda):
+    """The fused [B, L, 3D] gradient is dq|dk|dv of the separate call, bit
+    for bit, and a strided (transposed) output gradient is taken."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    sin, cos = _rope(128, cuda)
+    qkv = torch.randn(3, 199, 3 * 256, generator=g, device=cuda).to(torch.bfloat16)
+    do = torch.randn(3, 256, 199, generator=g, device=cuda).to(torch.bfloat16)
+    do = do.transpose(1, 2)  # [3, 199, 256], feature stride 199
+    fused = qkv.clone().requires_grad_()
+    out = flash_attention_packed(qkv=fused, num_heads=2, sin=sin, cos=cos)
+    (dqkv,) = torch.autograd.grad(out, fused, do)
+    parts = [t.clone().contiguous().requires_grad_() for t in qkv.split(256, dim=-1)]
+    out2 = flash_attention_packed(*parts, num_heads=2, sin=sin, cos=cos)
+    assert torch.equal(out, out2)
+    sep = torch.autograd.grad(out2, parts, do)
+    assert torch.equal(dqkv, torch.cat(sep, dim=-1))
+
+
+def test_no_grad_writes_no_statistics_and_matches(cuda):
+    """The serving path: without a gradient the output is the same bits and
+    no graph is kept."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn(2, 150, 3 * 256, generator=g, device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        a = flash_attention_packed(qkv=qkv, num_heads=2)
+    b = flash_attention_packed(qkv=qkv.clone().requires_grad_(), num_heads=2)
+    assert a.grad_fn is None and b.grad_fn is not None
+    assert torch.equal(a, b.detach())
+
+
+def test_backward_rejects_fp32_on_the_card(cuda):
+    q = torch.zeros(1, 2, 16, 64, device=cuda, requires_grad=True)
+    with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(q, q, q)

@@ -26,6 +26,8 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "deepcoro_clip_tpu" or m.startswith("deepcoro_clip_tpu."))
 assert not bad, bad
+for need in ("train.clip", "train.optim", "losses.contrastive", "models.text_encoder"):
+    assert "deepcoro_clip_tpu_torch." + need in mods, need
 print(len(mods))
 """
 
@@ -34,4 +36,4 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", CHECK], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 15  # every module walked
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 28  # every module walked

@@ -188,3 +188,150 @@ def test_cpu_tensors_never_reach_the_kernel():
     flash_attention(q, q, q)
     flash_attention_packed(qkv=torch.zeros(1, 4, 3 * 128), num_heads=1)
     assert (flash_attention_packed.launches, flash_attention.launches) == (n1, n3)
+
+
+# --------------------------------------------------------------------------- #
+# backward: flash_bwd_plain and the two autograd Functions (K2, K4)
+#
+# Held against jax.grad through the JAX functions with backend="interpret":
+# the Pallas _bwd_kernels in interpret mode, as tests/ops/ run them. fp32 on
+# both sides; tolerance 5e-5 (the gradients sum up to 90 products in another
+# order than the Pallas kernel, whose forward and backward each rebuild P).
+
+from deepcoro_clip_tpu_torch.ops.attention import flash_bwd_plain  # noqa: E402
+
+import jax  # noqa: E402
+
+GTOL = dict(atol=5e-5, rtol=5e-5)
+
+
+def _jax_grads(fn, args, do):
+    return jax.grad(lambda *a: jnp.sum(fn(*a) * jnp.asarray(do)),
+                    argnums=tuple(range(len(args))))(*map(jnp.asarray, args))
+
+
+def _torch_grads(fn, args, do):
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    out = fn(*leaves)
+    assert out.grad_fn is not None  # the wrappers keep the graph
+    return out, torch.autograd.grad(out, leaves, torch.from_numpy(do))
+
+
+@pytest.mark.parametrize("case", ["fused_rope_ragged", "qkv_mask_cross", "causal"])
+def test_packed_backward_matches_jax_interpret(case):
+    """K2: flash_attention_packed's Function (flash_bwd_plain on the CPU)
+    against jax.grad of ops/flash_attention_packed.flash_attention_packed."""
+    if case == "fused_rope_ragged":
+        sin, cos = _rope(128, (2, 5, 5))
+        L = sin.shape[0]
+        args, do = [_np((B1, L, 3 * D1), 30)], _np((B1, L, D1), 31)
+        ref = _jax_grads(lambda x: jfap.flash_attention_packed(
+            qkv=x, num_heads=H1, sin=jnp.asarray(sin), cos=jnp.asarray(cos),
+            backend="interpret"), args, do)
+        _, got = _torch_grads(lambda x: flash_attention_packed(
+            qkv=x, num_heads=H1, sin=torch.from_numpy(sin),
+            cos=torch.from_numpy(cos)), args, do)
+    elif case == "qkv_mask_cross":
+        args = [_np((B1, 40, D1), 32), _np((B1, 90, D1), 33), _np((B1, 90, D1), 34)]
+        do, m = _np((B1, 40, D1), 35), _mask(B1, 90, 36)
+        ref = _jax_grads(lambda q, k, v: jfap.flash_attention_packed(
+            q, k, v, num_heads=H1, kv_mask=jnp.asarray(m.astype(np.int32)),
+            backend="interpret"), args, do)
+        _, got = _torch_grads(lambda q, k, v: flash_attention_packed(
+            q, k, v, num_heads=H1, kv_mask=torch.from_numpy(m)), args, do)
+    else:
+        args, do = [_np((B1, 70, D1), s) for s in (37, 38, 39)], _np((B1, 70, D1), 40)
+        ref = _jax_grads(lambda q, k, v: jfap.flash_attention_packed(
+            q, k, v, num_heads=H1, causal=True, backend="interpret"), args, do)
+        _, got = _torch_grads(lambda q, k, v: flash_attention_packed(
+            q, k, v, num_heads=H1, causal=True), args, do)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **GTOL)
+
+
+@pytest.mark.parametrize("case", ["rope_dh64", "mask_cross_dh64", "causal_dh128"])
+def test_standard_backward_matches_jax_interpret(case):
+    """K4: flash_attention's Function against jax.grad of
+    ops/flash_attention.flash_attention."""
+    kw_j, kw_t = {}, {}
+    if case == "rope_dh64":
+        sin, cos = _rope(64, (2, 3, 5))
+        L = Lk = sin.shape[0]
+        Dh = 64
+        kw_j = dict(sin=jnp.asarray(sin), cos=jnp.asarray(cos))
+        kw_t = dict(sin=torch.from_numpy(sin), cos=torch.from_numpy(cos))
+    elif case == "mask_cross_dh64":
+        L, Lk, Dh = 20, 90, 64
+        m = _mask(2, Lk, 41)
+        kw_j, kw_t = dict(kv_mask=jnp.asarray(m)), dict(kv_mask=torch.from_numpy(m))
+    else:
+        L = Lk = 70
+        Dh = 128
+        kw_j = kw_t = dict(causal=True)
+    args = [_np((2, 3, L, Dh), 42), _np((2, 3, Lk, Dh), 43), _np((2, 3, Lk, Dh), 44)]
+    do = _np((2, 3, L, Dh), 45)
+    ref = _jax_grads(lambda q, k, v: jfa.flash_attention(
+        q, k, v, backend="interpret", **kw_j), args, do)
+    out, got = _torch_grads(lambda q, k, v: flash_attention(q, k, v, **kw_t), args, do)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **GTOL)
+    # flash_bwd_plain called directly gives what the Function returned
+    direct = flash_bwd_plain(*map(torch.from_numpy, args), torch.from_numpy(do),
+                             out.detach(), **kw_t)
+    for g, d in zip(got, direct):
+        assert torch.equal(g, d)
+
+
+@pytest.mark.parametrize("mode", ["rope_mask_dead_row", "causal_cross"])
+def test_plain_backward_matches_autograd_and_gradcheck(mode):
+    """flash_bwd_plain against autograd through multi_head_attention (fp32,
+    atol 1e-5), including a row with no valid key, and
+    torch.autograd.gradcheck of the Function in float64."""
+    if mode == "rope_mask_dead_row":
+        sin, cos = _rope(8, (1, 2, 3))
+        L = Lk = sin.shape[0]
+        m = _mask(2, Lk, 46, dead_row=1)
+        kw = dict(sin=torch.from_numpy(sin), cos=torch.from_numpy(cos),
+                  kv_mask=torch.from_numpy(m))
+    else:
+        L, Lk = 5, 9
+        kw = dict(causal=True)
+    q, k, v = (torch.from_numpy(_np((2, 2, n, 8), s)).requires_grad_()
+               for n, s in ((L, 47), (Lk, 48), (Lk, 49)))
+    do = torch.from_numpy(_np((2, 2, L, 8), 50))
+    out = multi_head_attention(q, k, v, **kw)
+    auto = torch.autograd.grad(out, (q, k, v), do)
+    mine = flash_bwd_plain(q.detach(), k.detach(), v.detach(), do, out.detach(), **kw)
+    for a, b in zip(auto, mine):
+        torch.testing.assert_close(b, a, atol=1e-5, rtol=1e-5)
+    if mode == "rope_mask_dead_row":  # no gradient through masked scores
+        assert float(mine[0][1].abs().max()) == 0.0
+        assert float(mine[1][1].abs().max()) == 0.0
+    kw64 = {n: (t.double() if t.is_floating_point() else t) for n, t in kw.items()
+            if isinstance(t, torch.Tensor)}
+    kw64.update({n: t for n, t in kw.items() if not isinstance(t, torch.Tensor)})
+    q64, k64, v64 = (t.detach().double().requires_grad_() for t in (q, k, v))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: flash_attention(a, b, c, **kw64), (q64, k64, v64))
+
+
+def test_wrappers_keep_the_graph_and_count_nothing_on_the_cpu():
+    """With gradients enabled the outputs carry a grad_fn and every input
+    gets its gradient (fused: one [B, L, 3D] tensor); without, no graph."""
+    counts = (flash_attention_packed.launches, flash_attention_packed.bwd_launches,
+              flash_attention.launches, flash_attention.bwd_launches)
+    qkv = torch.from_numpy(_np((1, 6, 3 * 128), 51)).requires_grad_()
+    out = flash_attention_packed(qkv=qkv, num_heads=1)
+    assert out.grad_fn is not None
+    (g,) = torch.autograd.grad(out.sum(), qkv)
+    assert g.shape == qkv.shape and float(g.abs().max()) > 0
+    q = torch.from_numpy(_np((1, 2, 6, 16), 52)).requires_grad_()
+    k = torch.from_numpy(_np((1, 2, 6, 16), 53))  # no gradient wanted for k
+    out = flash_attention(q, k, k)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert q.grad is not None and k.grad is None
+    with torch.no_grad():
+        assert flash_attention(q, k, k).grad_fn is None
+    assert counts == (flash_attention_packed.launches, flash_attention_packed.bwd_launches,
+                      flash_attention.launches, flash_attention.bwd_launches)
