@@ -6,8 +6,9 @@
 Phases, each printing one line (or a few) before the last:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: nvcc builds csrc/flash_fwd.cu and csrc/flash_bwd.cu for sm_90a,
-   side by side (timed, with the ptxas register and spill lines);
+2. build: nvcc builds csrc/flash_fwd.cu, csrc/flash_fwd_proj.cu and
+   csrc/flash_bwd.cu for sm_90a, side by side (timed, with the ptxas
+   register and spill lines);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    in bf16, at the serving path's shapes and in one small case of every
    other mode it takes;
@@ -54,7 +55,36 @@ Phases, each printing one line (or a few) before the last:
    memory, a profiler breakdown of one step, each backward kernel beside
    its plain version, its bound and the backward of
    scaled_dot_product_attention (a yardstick only);
-then one JSON "kernels" line (K1, K3 forward, K2, K4 backward).
+11. fused projection and fp32 kernels: the forward with the output
+   projection fused in (K5) against its plain version on the card at the
+   probing step's own shapes (fused qkv [80,1569,1536] and [80,393,1536]
+   with RoPE: all 80 clips of a step; the text shape [8,512,2304] with a key
+   mask) and in one small case of every other mode, its gradients (dq, dk,
+   dv, dwo) against the plain backward, two launches bit-equal; K3 and K4 on fp32 operands at the probing head's
+   [8,8,11,64] with a mask and at a Dh-128 case, held to 1e-5 + 1e-5|plain|;
+   K3 in bf16 at the AttentionPool shape (one query over 393 keys);
+12. linear probing: build_probe_bundle at the full width of
+   config/linear_probing/stenosis_config.yaml (probe_config() below spells
+   its fields out) with fused_outproj=True: 8 studies x 10 clips (uint8,
+   patch-major, some slots padded), seeded weights, batch and targets; 2
+   warm-up and 5 counted train steps on the frozen backbone, one eval step.
+   Per step 12 K5, 0 K1, 1 K3 and 1 K4 launches (the head's one CLS
+   transformer block, fp32); every loss finite, every head parameter moved,
+   no encoder parameter moved, the loss on the repeated batch (dropout off)
+   falls;
+13. probing end to end: the eval step's per-video embeddings and head
+   outputs through K5 against the same weights with fused_outproj=False (K1
+   then F.linear: 12 K1, 0 K5 launches) and against the plain attention;
+14. a partially frozen step (video_freeze_ratio 0.8, 2 studies x 4 clips):
+   the backward through K5 (K2 launches counted), the trainable encoder
+   leaves' gradients against the plain attention by phase 9's cosine bars,
+   and one train step that moves those leaves and no other encoder leaf;
+15. probing times: step time, studies/s, peak memory, a profiler breakdown
+   of one step; K5 at each shape beside K1 + F.linear, its plain version,
+   its bound and scaled_dot_product_attention + F.linear (a yardstick
+   only), and what the cast of wo costs; the timed K5 and plain outputs are
+   held against each other once more, on these other seeded inputs;
+then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5).
 
 The last line is {"ok": true, "device": {...}}. Any failing phase exits
 non-zero before it, as does a machine without CUDA.
@@ -77,6 +107,7 @@ import numpy as np
 
 # H100 SXM published dense peaks (NVIDIA data sheet) for the bounds
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores, where the fp32 kernels run
 PEAK_BYTES = 3.35e12
 
 # kernel vs plain, both bf16 on the card: the outputs are rounded to bf16
@@ -116,7 +147,24 @@ GRAD_MIN_COSINE = 0.95
 GRAD_MIN_KERNEL_VS_PLAIN = {"video_encoder": 0.97, "text_encoder": 0.985}
 TRAIN_WARMUP, TRAIN_STEPS = 3, 7
 
+# fp32 kernels vs the plain versions in fp32: exp2 with log2(e) folded into
+# the scale for exp, FMA contraction, sums in another order; nothing is
+# rounded below fp32. |kernel - plain| <= F32_ATOL + F32_RTOL * |plain|.
+F32_ATOL = 1e-5
+F32_RTOL = 1e-5
+# head outputs through K5 vs through K1 + F.linear or the plain attention,
+# same weights: the heads read a 1024-wide pooled embedding whose bf16
+# inputs agree to cosine >= 0.999; |d| <= HEAD_ATOL + HEAD_RTOL * |ref|
+HEAD_ATOL = 5e-2
+HEAD_RTOL = 5e-2
+PROBE_WARMUP, PROBE_STEPS = 2, 5
+# clips of one probing step (stenosis_config.yaml: batch_size 8 x num_videos
+# 10), the batch the path launches K5 at and K5 is held to its plain version at
+PROBE_CLIPS = 80
+
 KERNEL_SOURCE = "deepcoro_clip_tpu_torch/csrc/flash_fwd.cu"
+PROJ_SOURCE = "deepcoro_clip_tpu_torch/csrc/flash_fwd_proj.cu"
+K5_REPLACES = "deepcoro_clip_tpu/ops/flash_attention_packed.py:119"
 BWD_SOURCE = "deepcoro_clip_tpu_torch/csrc/flash_bwd.cu"
 K1_REPLACES = "deepcoro_clip_tpu/ops/flash_attention_packed.py:63"
 K2_REPLACES = "deepcoro_clip_tpu/ops/flash_attention_packed.py:210"
@@ -190,8 +238,9 @@ def print_profile(label: str, what: str, per_name, wall_ms: float, top: int) -> 
         print(f"{label}:   {ms:8.3f} ms  {ms / busy:5.1%}  {name[:90]}", flush=True)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS
+          ) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -648,6 +697,22 @@ def bwd_cases(torch):
     return cases
 
 
+def _rel_check(name: str, which: str, a, r) -> float:
+    """The backward bars for one gradient tensor (BWD_MAX_REL, BWD_L2_REL);
+    returns max|kernel - plain|. An all-zero plain gradient (no valid key)
+    must be met exactly."""
+    import torch
+
+    a, r = a.float(), r.float()
+    err, top = float((a - r).abs().max()), float(r.abs().max())
+    l2 = float(torch.linalg.vector_norm(a - r) / torch.linalg.vector_norm(r).clamp_min(1e-30))
+    ok = (bool(torch.isfinite(a).all()) and err <= BWD_MAX_REL * top
+          and (l2 <= BWD_L2_REL or top == 0.0))
+    check(ok, f"{name}: {which} disagrees with the plain version (max|d| {err:.3e} vs "
+              f"max|plain| {top:.3e}, rel l2 {l2:.3e})")
+    return err
+
+
 def phase_bwd_kernels(torch) -> dict:
     """Returns max|kernel - plain| at the train step's shapes: of the
     gradients under K2 and K4, of the forward outputs under K1 and K3."""
@@ -659,18 +724,8 @@ def phase_bwd_kernels(torch) -> dict:
         fwd_err = check_forward(torch, "backward check, its forward (row statistics "
                                 "written):", name.replace("K2", "K1").replace("K4", "K3"),
                                 out, ref_out)
-        worst = 0.0
-        for which, a, r in zip(("dq", "dk", "dv"), got, ref):
-            a, r = a.float(), r.float()
-            d = (a - r).abs()
-            err, top = float(d.max()), float(r.abs().max())
-            l2 = float(torch.linalg.vector_norm(a - r) / torch.linalg.vector_norm(r).clamp_min(1e-30))
-            # an all-zero plain gradient (no valid key) must be met exactly
-            ok = (bool(torch.isfinite(a).all()) and err <= BWD_MAX_REL * top
-                  and (l2 <= BWD_L2_REL or top == 0.0))
-            check(ok, f"backward kernel {name}: {which} disagrees with the plain "
-                      f"version (max|d| {err:.3e} vs max|plain| {top:.3e}, rel l2 {l2:.3e})")
-            worst = max(worst, err)
+        worst = max(_rel_check(f"backward kernel {name}", which, a, r)
+                    for which, a, r in zip(("dq", "dk", "dv"), got, ref))
         print(f"backward check {name}: max|kernel-plain| {worst:.3e} over dq, dk, dv "
               f"(bars: {BWD_MAX_REL} of max|plain|, rel l2 {BWD_L2_REL}); two launches "
               f"bit-equal ok", flush=True)
@@ -713,7 +768,7 @@ def _kernel_counts():
     )
 
     return {"K1": k1.launches, "K2": k1.bwd_launches,
-            "K3": k3.launches, "K4": k3.bwd_launches}
+            "K3": k3.launches, "K4": k3.bwd_launches, "K5": k1.proj_launches}
 
 
 def _zero_kernel_counts():
@@ -723,6 +778,7 @@ def _zero_kernel_counts():
     )
 
     k1.launches = k1.bwd_launches = k3.launches = k3.bwd_launches = 0
+    k1.proj_launches = 0
 
 
 def phase_training(torch):
@@ -860,6 +916,7 @@ def phase_grad_e2e(torch, bundle):
     loss_p, gp = grads(with_weights(use_pallas_attention=False))
     loss_f, gf = grads(with_weights(use_pallas_attention=False, precision="fp32"))
     check(_kernel_counts() == counts, "a plain-attention bundle launched a kernel")
+    check(counts["K5"] == 0, "the contrastive step launched the fused projection")
     print(f"gradients end to end: loss through the kernels {loss_k:.5f}, plain bf16 "
           f"{loss_p:.5f}, plain fp32 {loss_f:.5f}", flush=True)
     for tower in gk:
@@ -1019,6 +1076,676 @@ def phase_train_times(torch, errs, counts):
             entry("flash_attention (K4 backward)", K4_REPLACES, "K4", [row_k4])], k1_text
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: the fused projection (K5) and the fp32 kernels against plain
+
+
+def proj_cases(torch):
+    """(name, at a probing shape, run) with run() -> (y, plain y, gradients,
+    plain gradients): K5 through the entry point, forward and backward, each
+    launched twice and held bit-equal."""
+    from deepcoro_clip_tpu_torch.ops.attention import (
+        flash_bwd_plain,
+        multi_head_attention,
+        project_plain,
+    )
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import (
+        flash_attention_packed,
+    )
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def case(B, Lq, Lk, H, dout, fused, kw):
+        D = H * 128
+        if fused:
+            operands = [randn(B, Lq, 3 * D)]
+        else:
+            operands = [randn(B, Lq, D), randn(B, Lk, D), randn(B, Lk, D)]
+        wo = torch.randn(D, dout, generator=g, device=dev) * D ** -0.5  # fp32, as proj.weight
+        gy = randn(B, Lq, dout)
+
+        def call(leaves):
+            if fused:
+                return flash_attention_packed(qkv=leaves[0], num_heads=H, wo=leaves[-1], **kw)
+            return flash_attention_packed(*leaves[:3], num_heads=H, wo=leaves[-1], **kw)
+
+        def run():
+            leaves = [t.clone().requires_grad_() for t in operands + [wo]]
+            y = call(leaves)
+            check(y.grad_fn is not None, "the wrapper's output carries no grad_fn")
+            with torch.no_grad():
+                bare = call([t.detach() for t in leaves])
+            check(torch.equal(y.detach(), bare),
+                  "two forward launches (with and without residuals) differ")
+            got = torch.autograd.grad(y, leaves, gy, retain_graph=True)
+            again = torch.autograd.grad(y, leaves, gy)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  "two backward launches on the same inputs differ")
+            q, k, v = operands[0].split(D, -1) if fused else operands
+            wo16 = wo.to(torch.bfloat16)
+            heads = [_to_heads(t, H) for t in (q, k, v)]
+            out = multi_head_attention(*heads, **kw)
+            flat = out.transpose(1, 2).flatten(2)
+            ref_y = project_plain(flat, wo16)
+            do = torch.matmul(gy, wo16.t())
+            ref = [t.transpose(1, 2).flatten(2)
+                   for t in flash_bwd_plain(*heads, _to_heads(do, H), out, **kw)]
+            if fused:
+                ref = [torch.cat(ref, dim=-1)]
+            ref.append(torch.matmul(flat.flatten(0, 1).t().float(), gy.flatten(0, 1).float()))
+            return y.detach(), ref_y, got, ref
+        return run
+
+    def rope(T, HW):
+        t = build_rope3d_tables(128, T, HW, HW, n_special=1)
+        return dict(sin=torch.from_numpy(t.sin).to(dev), cos=torch.from_numpy(t.cos).to(dev))
+
+    cases = []
+    B = PROBE_CLIPS  # every clip of a probing step: the batch the path launches K5 at
+    for T, HW in ((8, 14), (8, 7)):  # the backbone before and after the pool
+        kw = rope(T, HW)
+        L = kw["sin"].shape[0]
+        cases.append((f"K5 fused qkv + RoPE [{B},{L},1536] wo [512,512]", True,
+                      case(B, L, L, 4, 512, True, kw)))
+    tmask = torch.ones(8, 512, dtype=torch.bool, device=dev)
+    tmask[1, 300:], tmask[5, 77:] = False, False
+    cases.append(("K5 fused qkv + kv_mask [8,512,2304] wo [768,768]", True,
+                  case(8, 512, 512, 6, 768, True, dict(kv_mask=tmask))))
+    m = torch.rand(3, 200, generator=g, device=dev) > 0.3
+    m[2] = False
+    cases.append(("K5 q/k/v + kv_mask [3,70|200,256] wo [256,384] (one row fully masked)",
+                  False, case(3, 70, 200, 2, 384, False, dict(kv_mask=m))))
+    cases.append(("K5 q/k/v causal [2,150,256] wo [256,256]", False,
+                  case(2, 150, 150, 2, 256, False, dict(causal=True))))
+    return cases
+
+
+def f32_cases(torch):
+    """(name, at the probing head's shape, run) with run() -> (out, plain out,
+    gradients, plain gradients) of flash_attention on fp32 operands."""
+    from deepcoro_clip_tpu_torch.ops.attention import (
+        flash_bwd_plain,
+        multi_head_attention,
+    )
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def case(B, H, Lq, Lk, Dh, kw):
+        # operands as the layer hands them over: strided views of [B, L, 3D]
+        q, k, v = (torch.randn(B, n, H * Dh, generator=g, device=dev) for n in (Lq, Lk, Lk))
+        do = torch.randn(B, Lq, H, Dh, generator=g, device=dev).transpose(1, 2)
+
+        def run():
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = flash_attention(*[_to_heads(t, H) for t in leaves], **kw)
+            check(out.dtype == torch.float32, f"fp32 operands gave {out.dtype}")
+            got = torch.autograd.grad(out, leaves, do, retain_graph=True)
+            again = torch.autograd.grad(out, leaves, do)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  "two fp32 backward launches on the same inputs differ")
+            heads = [_to_heads(t, H) for t in (q, k, v)]
+            ref_out = multi_head_attention(*heads, **kw)
+            ref = [t.transpose(1, 2).flatten(2)
+                   for t in flash_bwd_plain(*heads, do, ref_out, **kw)]
+            return out.detach(), ref_out, got, ref
+        return run
+
+    mask = torch.ones(8, 11, dtype=torch.bool, device=dev)
+    mask[1, 4:], mask[3, 1:], mask[6, 8:] = False, False, False
+    t = build_rope3d_tables(64, 2, 7, 7, n_special=1)
+    rope = dict(sin=torch.from_numpy(t.sin).to(dev), cos=torch.from_numpy(t.cos).to(dev))
+    return [
+        ("fp32 K3/K4 kv_mask [8,8,11,64]", True, case(8, 8, 11, 11, 64, dict(kv_mask=mask))),
+        ("fp32 K3/K4 causal [2,2,130,128]", False, case(2, 2, 130, 130, 128, dict(causal=True))),
+        ("fp32 K3/K4 RoPE [2,3,99,64]", False, case(2, 3, 99, 99, 64, rope)),
+        ("fp32 K3/K4 cross [2,4,37|300,128]", False, case(2, 4, 37, 300, 128, {})),
+    ]
+
+
+def phase_proj_kernels(torch) -> dict:
+    """Returns max|kernel - plain| at the probing shapes: K5 forward and
+    backward, K3 and K4 on fp32 operands, K3 in bf16 at the AttentionPool
+    shape."""
+    from deepcoro_clip_tpu_torch.ops.attention import multi_head_attention
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+
+    errs = {"K5": 0.0, "K5_bwd": 0.0, "K3_f32": 0.0, "K4_f32": 0.0, "K3_pool": 0.0}
+    for name, at_shape, run in proj_cases(torch):
+        y, ref_y, got, ref = run()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the plain backward at 80 clips holds fp32 scores
+        err = check_forward(torch, "fused projection check", name, y, ref_y)
+        names = ("dqkv", "dwo") if len(got) == 2 else ("dq", "dk", "dv", "dwo")
+        worst = max(_rel_check(name, which, a, r) for which, a, r in zip(names, got, ref))
+        print(f"fused projection check {name}: gradients max|kernel-plain| {worst:.3e} "
+              f"over {', '.join(names)} (bars: {BWD_MAX_REL} of max|plain|, rel l2 "
+              f"{BWD_L2_REL}); forward and backward launched twice, bit-equal ok",
+              flush=True)
+        if at_shape:
+            errs["K5"], errs["K5_bwd"] = max(errs["K5"], err), max(errs["K5_bwd"], worst)
+    for name, at_shape, run in f32_cases(torch):
+        out, ref_out, got, ref = run()
+        torch.cuda.synchronize()
+        reached = []
+        for which, a, r in zip(("out", "dq", "dk", "dv"), [out] + list(got), [ref_out] + ref):
+            d = (a - r).abs()
+            ok = bool(torch.isfinite(a).all()) and bool(
+                (d <= F32_ATOL + F32_RTOL * r.abs()).all())
+            check(ok, f"{name}: {which} disagrees with the plain version in fp32 "
+                      f"(max|d| {float(d.max()):.3e})")
+            reached.append(float(d.max()))
+        print(f"fp32 check {name}: max|kernel-plain| forward {reached[0]:.3e}, "
+              f"gradients {max(reached[1:]):.3e} (tol {F32_ATOL}+{F32_RTOL}|plain|); "
+              f"two backward launches bit-equal ok", flush=True)
+        if at_shape:
+            errs["K3_f32"], errs["K4_f32"] = reached[0], max(reached[1:])
+    # K3 in bf16 as AttentionPool calls it: one query over a clip's 393 tokens
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn(80, 8, 1, 64, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(80, 8, 393, 64, generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    errs["K3_pool"] = check_forward(
+        torch, "kernel check", "K3 cross [80,8,1|393,64] (AttentionPool)",
+        flash_attention(q, k, v), multi_head_attention(q, k, v))
+    return errs
+
+
+# --------------------------------------------------------------------------- #
+# phase 12: the linear-probing step on the frozen flagship backbone
+
+
+def probe_config(**over):
+    """config/linear_probing/stenosis_config.yaml, field by field (a CPU test
+    holds this dict equal to the YAML as the port's parser reads it; the
+    machine with the card need not have a YAML reader)."""
+    from deepcoro_clip_tpu_torch.configs import LinearProbingConfig
+
+    heads = ("stenosis", "stenosis_binary", "calcif_binary", "CTO")
+    d = dict(
+        pipeline_project="DeepCORO_video_linear_probing", run_mode="train", epochs=25,
+        num_workers=8, seed=42,
+        data_filename="data/labels.csv", datapoint_loc_label="FileName", frames=16,
+        stride=2, resize=224, batch_size=8, multi_video=True, num_videos=10,
+        groupby_column="StudyInstanceUID",
+        head_structure={h: 1 for h in heads},
+        loss_structure={"stenosis": "huber", "stenosis_binary": "bce_logit",
+                        "calcif_binary": "bce_logit", "CTO": "bce_logit"},
+        head_task={"stenosis": "regression", "stenosis_binary": "binary",
+                   "calcif_binary": "binary", "CTO": "binary"},
+        head_lr={h: 0.0003 for h in heads},
+        head_weight_decay={h: 0.00001 for h in heads},
+        pooling_mode="attention+cls_token", use_cls_token=True,
+        normalization_strategy="pre_norm", attention_hidden=256,
+        dropout_attention=0.24, attention_lr=0.0015, attention_weight_decay=0.00005,
+        model_name="mvit", vit_dim=512, vit_depth=12, vit_heads=4, vit_patch=[2, 16, 16],
+        vit_pool_stages=[3], embedding_dim=512, aggregate_videos_tokens=False,
+        video_encoder_checkpoint_path=None, video_freeze_ratio=1.0,
+        optimizer="AdamW", scheduler_name="cosine_with_warmup", lr=0.001,
+        weight_decay=0.00001, max_grad_norm=1.0,
+        ci_n_bootstrap=1000, ci_confidence_level=0.95, save_embeddings=True,
+        precision="bf16", use_pallas_attention=True, use_wandb=False,
+    )
+    d.update(over)
+    return LinearProbingConfig.from_dict(d)
+
+
+def probe_batch(cfg, studies: int):
+    from deepcoro_clip_tpu_torch.data.patch_wire import patchify_videos
+
+    r = np.random.default_rng(1)
+    videos = r.integers(0, 255, size=(studies, cfg.num_videos, cfg.frames, cfg.resize,
+                                      cfg.resize, 3), dtype=np.uint8)
+    mask = np.ones((studies, cfg.num_videos), bool)
+    mask[1, cfg.num_videos // 2:] = False  # studies with fewer clips: padded slots
+    mask[studies - 1, 1:] = False
+    targets = {h: ((r.random(studies) > 0.5).astype(np.float32)
+                   if cfg.loss_structure[h] == "bce_logit"
+                   else r.random(studies).astype(np.float32))
+               for h in cfg.head_structure}
+    return {"videos": patchify_videos(videos, tuple(cfg.vit_patch)),
+            "video_mask": mask, "targets": targets}
+
+
+def phase_probing(torch):
+    from deepcoro_clip_tpu_torch.train.linear_probe import (
+        build_probe_bundle,
+        make_probe_eval_step,
+        make_probe_train_step,
+        to_device_batch,
+    )
+
+    cfg = probe_config()
+    check(cfg.batch_size * cfg.num_videos == PROBE_CLIPS,
+          f"phases 11 and 15 hold K5 at {PROBE_CLIPS} clips, the step has "
+          f"{cfg.batch_size * cfg.num_videos}")
+    t0 = time.perf_counter()
+    bundle, state = build_probe_bundle(cfg, seed=0, steps_per_epoch=1, fused_outproj=True)
+    step_fn = make_probe_train_step(bundle)
+    eval_fn = make_probe_eval_step(bundle)
+    batch = to_device_batch(bundle, probe_batch(cfg, cfg.batch_size))
+    gen = torch.Generator(device=bundle.device).manual_seed(0)
+    n_enc = sum(p.numel() for k, p in state.params.items() if k.startswith("video_encoder."))
+    n_mil = sum(p.numel() for k, p in state.params.items() if k.startswith("mil."))
+    print(f"probing: bundle built in {time.perf_counter() - t0:.1f} s: encoder "
+          f"{n_enc / 1e6:.1f} M parameters (frozen, bf16 compute, output projection fused "
+          f"into the attention kernel), head {n_mil / 1e6:.2f} M (fp32), {cfg.batch_size} "
+          f"studies x {cfg.num_videos} clips of {cfg.frames}x{cfg.resize}x{cfg.resize}, "
+          f"pooling {cfg.pooling_mode}, dropout {cfg.dropout}/{cfg.dropout_attention}, "
+          f"{cfg.scheduler_name} (steps_per_epoch 1: 25 updates)", flush=True)
+    before = {k: v.detach().clone() for k, v in state.params.items()}
+    ratio = cfg.video_freeze_ratio
+    eval_before = float(eval_fn(state.params, batch)["loss"])
+    torch.cuda.reset_peak_memory_stats()
+
+    losses, lrs = [], []
+    for _ in range(PROBE_WARMUP):
+        state, m = step_fn(state, batch, gen, ratio)
+        losses.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+    _zero_kernel_counts()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    metrics = []
+    for _ in range(PROBE_STEPS):
+        state, m = step_fn(state, batch, gen, ratio)
+        metrics.append(m)  # read after the loop: no host wait inside it
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / PROBE_STEPS
+    dev_ms = start.elapsed_time(end) / PROBE_STEPS
+    counts = _kernel_counts()
+    losses += [float(m["loss"]) for m in metrics]
+    lrs += [float(m["lr"]) for m in metrics]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    _zero_kernel_counts()
+    out = eval_fn(state.params, batch)
+    eval_counts = _kernel_counts()
+    eval_after = float(out["loss"])
+    last = metrics[-1]
+
+    print("probing: losses " + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    print("probing: lr " + " ".join(f"{x:.2e}" for x in lrs), flush=True)
+    print("probing: last step grad_norm {:.3f}, per head {}".format(
+        float(last["grad_norm"]),
+        ", ".join(f"{h} {float(last['loss_' + h]):.4f}" for h in bundle.head_names)),
+        flush=True)
+    print(f"probing: launches over {PROBE_STEPS} steps: K5 {counts['K5']}, K1 "
+          f"{counts['K1']}, K2 {counts['K2']}, K3 {counts['K3']}, K4 {counts['K4']} (per "
+          f"step 12/0/0/1/1); eval step: K5 {eval_counts['K5']}, K1 {eval_counts['K1']}, "
+          f"K3 {eval_counts['K3']}", flush=True)
+    print(f"probing: step {dev_ms:.1f} ms (CUDA events), {host_ms:.1f} ms (host clock), "
+          f"{cfg.batch_size / dev_ms * 1e3:.1f} studies/s, "
+          f"{cfg.batch_size * cfg.num_videos / dev_ms * 1e3:.1f} clips/s, peak memory "
+          f"{peak_gb:.2f} GiB (torch.cuda.max_memory_allocated)", flush=True)
+
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss in {losses}")
+    for key, per_step in (("K5", 12), ("K1", 0), ("K2", 0), ("K3", 1), ("K4", 1)):
+        check(counts[key] == per_step * PROBE_STEPS,
+              f"{key} launched {counts[key]} times in {PROBE_STEPS} probing steps, "
+              f"expected {per_step} per step")
+    check(eval_counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 12},
+          f"the eval step launched {eval_counts}")
+    check(state.step == PROBE_WARMUP + PROBE_STEPS, f"step count {state.step}")
+    moved_enc = [k for k, v in state.params.items()
+                 if k.startswith("video_encoder.") and not torch.equal(v, before[k])]
+    stuck = [k for k, v in state.params.items()
+             if k.startswith("mil.") and torch.equal(v, before[k])]
+    bad = [k for k, v in state.params.items() if not bool(torch.isfinite(v).all())]
+    check(not bad, f"non-finite parameters after probing: {bad[:5]}")
+    check(not moved_enc, f"frozen encoder parameters moved: {moved_enc[:5]}")
+    check(not stuck, f"head parameters that did not move: {stuck[:5]}")
+    emb = out["embeddings"]
+    check(tuple(emb.shape) == (cfg.batch_size, cfg.num_videos, cfg.embedding_dim)
+          and bool(torch.isfinite(emb).all()), f"bad embeddings {tuple(emb.shape)}")
+    for h, n in cfg.head_structure.items():
+        o = out["outputs"][h]
+        check(tuple(o.shape) == (cfg.batch_size, n) and o.dtype == torch.float32
+              and bool(torch.isfinite(o).all()), f"bad output of head {h}")
+    check(math.isfinite(eval_after) and eval_after < eval_before,
+          f"the loss on the repeated batch did not fall: {eval_before} -> {eval_after}")
+    n_mil_t = sum(k.startswith("mil.") for k in state.params)
+    print(f"probing: all {n_mil_t} head tensors moved, none of the "
+          f"{len(state.params) - n_mil_t} encoder tensors did, none NaN; loss on the "
+          f"repeated batch with dropout off {eval_before:.4f} -> {eval_after:.4f}",
+          flush=True)
+    del before
+    times = {"step_ms": dev_ms, "step_host_ms": host_ms, "peak_gib": peak_gb,
+             "studies_per_s": cfg.batch_size / dev_ms * 1e3}
+    return bundle, state, step_fn, batch, gen, counts, times
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: probing end to end against the unfused and the plain attention
+
+
+def phase_probe_e2e(torch, bundle, state, batch):
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from deepcoro_clip_tpu_torch.train.linear_probe import (
+        build_probe_bundle,
+        make_probe_eval_step,
+    )
+
+    def with_weights(fused, **over):
+        b, s = build_probe_bundle(dataclasses.replace(bundle.config, **over), seed=0,
+                                  steps_per_epoch=1, fused_outproj=fused)
+        b.video_model.load_state_dict(bundle.video_model.state_dict())
+        b.mil_model.load_state_dict(bundle.mil_model.state_dict())
+        return b, s
+
+    eval_fn = make_probe_eval_step(bundle)
+    ref = eval_fn(state.params, batch)
+    eval_ms = {"K5": cuda_ms(torch, lambda: eval_fn(state.params, batch), 5)}
+    others = {}
+    for label, fused, over, want in (
+            ("K1 + F.linear", False, {}, {"K1": 12, "K5": 0, "K3": 1}),
+            ("plain attention", False, dict(use_pallas_attention=False),
+             {"K1": 0, "K5": 0, "K3": 0})):
+        b, s = with_weights(fused, **over)
+        _zero_kernel_counts()
+        other_fn = make_probe_eval_step(b)
+        others[label] = other_fn(s.params, batch)
+        counts = _kernel_counts()
+        check(all(counts[k] == n for k, n in want.items()),
+              f"the {label} path launched {counts}, expected {want}")
+        if fused is False and not over:  # the same step with the projection unfused
+            eval_ms[label] = cuda_ms(torch, lambda: other_fn(s.params, batch), 5)
+        del b, s, other_fn
+    for label, out in others.items():
+        a, o = ref["embeddings"].float(), out["embeddings"].float()
+        cos = float(F.cosine_similarity(a.flatten(0, 1), o.flatten(0, 1), dim=1).min())
+        worst = 0.0
+        for h in bundle.head_names:
+            x, y = ref["outputs"][h], out["outputs"][h]
+            d = (x - y).abs()
+            check(bool((d <= HEAD_ATOL + HEAD_RTOL * y.abs()).all()),
+                  f"head {h} through K5 is off the {label} path by {float(d.max()):.3e}")
+            worst = max(worst, float(d.max()))
+        print(f"probing end to end: K5 vs {label}: per-video embeddings min cosine "
+              f"{cos:.6f} (bar >= {E2E_MIN_COSINE}), head outputs max|d| {worst:.3e} "
+              f"(bar {HEAD_ATOL}+{HEAD_RTOL}|ref|), loss {float(ref['loss']):.5f} vs "
+              f"{float(out['loss']):.5f}", flush=True)
+        check(cos >= E2E_MIN_COSINE, f"K5 vs {label}: embedding cosine {cos} below the bar")
+    print("probing end to end: eval step (80 clips forward, head, losses; CUDA events, "
+          "mean of 5): " + ", ".join(f"{k} path {v:.2f} ms" for k, v in eval_ms.items()),
+          flush=True)
+    torch.cuda.empty_cache()
+    return eval_ms
+
+
+# --------------------------------------------------------------------------- #
+# phase 14: a partially frozen step: the backward through K5
+
+
+def phase_probe_partial(torch, bundle):
+    import dataclasses
+
+    from deepcoro_clip_tpu_torch.train import optim as optim_lib
+    from deepcoro_clip_tpu_torch.train.linear_probe import (
+        build_probe_bundle,
+        forward_heads,
+        make_probe_train_step,
+        to_device_batch,
+    )
+    from deepcoro_clip_tpu_torch.losses.heads import multi_head_loss
+
+    ratio = 0.8  # config/linear_probing/cathef_regression_config.yaml
+    base = dataclasses.replace(bundle.config, video_freeze_ratio=ratio, batch_size=2,
+                               num_videos=4)
+
+    def with_weights(fused, **over):
+        b, s = build_probe_bundle(dataclasses.replace(base, **over), seed=0,
+                                  steps_per_epoch=1, fused_outproj=fused)
+        b.video_model.load_state_dict(bundle.video_model.state_dict())
+        b.mil_model.load_state_dict(bundle.mil_model.state_dict())
+        return b, s
+
+    kernel_b, kernel_s = with_weights(True)
+    batch = to_device_batch(kernel_b, probe_batch(base, 2))
+    keep = optim_lib.freeze_keep(kernel_b.video_fracs, ratio)
+    kept = [k for k, v in keep.items() if v]
+    check(0 < len(kept) < len(keep), f"ratio {ratio} keeps {len(kept)} of {len(keep)} leaves")
+
+    def grads(b):
+        """The loss and the flattened gradient of the trainable encoder
+        leaves, dropout off."""
+        outputs, _ = forward_heads(b, batch, deterministic=True)
+        loss = multi_head_loss(outputs, batch["targets"], dict(b.config.loss_structure),
+                               head_weights=dict(b.config.head_weights))["main"]
+        named = dict(b.video_model.named_parameters())
+        got = torch.autograd.grad(loss, [named[k] for k in kept])
+        return float(loss.detach()), torch.cat([x.flatten().double() for x in got])
+
+    def cosine(a, b):
+        return float(torch.dot(a, b) / (torch.linalg.vector_norm(a)
+                                        * torch.linalg.vector_norm(b)))
+
+    _zero_kernel_counts()
+    loss_k, gk = grads(kernel_b)
+    counts = _kernel_counts()
+    # the gradient stops below the lowest trainable leaf: only the blocks
+    # above it run a backward
+    check(counts["K5"] == 12 and counts["K1"] == 0 and 1 <= counts["K2"] <= 12
+          and counts["K4"] == 1, f"the partially frozen backward launched {counts}")
+    plain_b, _ = with_weights(False, use_pallas_attention=False)
+    loss_p, gp = grads(plain_b)
+    del plain_b
+    fp32_b, _ = with_weights(False, use_pallas_attention=False, precision="fp32")
+    loss_f, gf = grads(fp32_b)
+    del fp32_b
+    kf, pf, kp = cosine(gk, gf), cosine(gp, gf), cosine(gk, gp)
+    bar = GRAD_MIN_KERNEL_VS_PLAIN["video_encoder"]
+    print(f"partial freeze: ratio {ratio}, {len(kept)} of {len(keep)} encoder leaves "
+          f"trainable ({gk.numel() / 1e6:.1f} M values), launches K5 {counts['K5']}, K2 "
+          f"{counts['K2']}, K3 {counts['K3']}, K4 {counts['K4']}; loss through K5 "
+          f"{loss_k:.5f}, plain bf16 {loss_p:.5f}, plain fp32 {loss_f:.5f}", flush=True)
+    print(f"partial freeze: cosine to the fp32 gradient: K5 path {kf:.6f}, plain bf16 "
+          f"{pf:.6f} (bar: K5 >= plain - {GRAD_COSINE_SLACK} and >= {GRAD_MIN_COSINE}); "
+          f"K5 path vs plain bf16 {kp:.6f} (bar >= {bar})", flush=True)
+    check(bool(torch.isfinite(gk).all()), "non-finite encoder gradients through K5")
+    check(kf >= pf - GRAD_COSINE_SLACK and kf >= GRAD_MIN_COSINE,
+          f"the K5 path's gradient is further from fp32 ({kf}) than the plain bf16 "
+          f"path's ({pf})")
+    check(kp >= bar, f"cosine of the K5 path's gradient to the plain bf16 path's {kp} "
+                     f"below {bar}")
+
+    # and the step itself: the trainable leaves move, the frozen ones do not
+    before = {k: v.detach().clone() for k, v in kernel_s.params.items()}
+    step_fn = make_probe_train_step(kernel_b)
+    gen = torch.Generator(device=kernel_b.device).manual_seed(0)
+    for _ in range(2):  # the first update has rate 0
+        kernel_s, m = step_fn(kernel_s, batch, gen, ratio)
+    check(math.isfinite(float(m["loss"])), "non-finite loss in the partially frozen step")
+    pre = "video_encoder."
+    wrong = [k for k, v in kernel_s.params.items() if k.startswith(pre)
+             and torch.equal(v, before[k]) == keep[k[len(pre):]]]
+    check(not wrong, f"leaves on the wrong side of the freeze mask: {wrong[:5]}")
+    print(f"partial freeze: after 2 train steps the {len(kept)} trainable encoder leaves "
+          f"moved and the other {len(keep) - len(kept)} did not", flush=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+# --------------------------------------------------------------------------- #
+# phase 15: probing times
+
+
+def phase_probe_profile(torch, state, step_fn, batch, gen, ratio) -> None:
+    per_name, wall_ms = device_events(torch, lambda: step_fn(state, batch, gen, ratio))
+    print_profile("probing profile", "one step", per_name, wall_ms, top=12)
+
+
+def phase_probe_times(torch, errs, counts, partial_counts):
+    import torch.nn.functional as F
+
+    from deepcoro_clip_tpu_torch.ops.attention import (
+        apply_rope,
+        flash_bwd_plain,
+        multi_head_attention,
+        project_plain,
+    )
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import (
+        flash_attention_packed,
+    )
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    rows = []
+    with torch.no_grad():
+        for B, L, H, rope_grid in ((PROBE_CLIPS, 1569, 4, (8, 14)),
+                                   (PROBE_CLIPS, 393, 4, (8, 7)), (8, 512, 6, None)):
+            D = H * 128
+            kw = {}
+            if rope_grid:
+                t = build_rope3d_tables(128, rope_grid[0], rope_grid[1], rope_grid[1],
+                                        n_special=1)
+                kw = dict(sin=torch.from_numpy(t.sin).to(dev),
+                          cos=torch.from_numpy(t.cos).to(dev))
+            else:
+                kw = dict(kv_mask=torch.ones(B, L, dtype=torch.bool, device=dev))
+            qkv = randn(B, L, 3 * D)
+            weight = torch.randn(D, D, generator=g, device=dev) * D ** -0.5  # proj.weight
+            w16 = weight.to(torch.bfloat16)          # [Dout, D], what F.linear takes
+            wo16 = w16.t().contiguous()              # [D, Dout], what the kernel takes
+            heads = [_to_heads(u, H) for u in qkv.split(D, -1)]
+            if rope_grid:
+                sq = [apply_rope(heads[0], **kw), apply_rope(heads[1], **kw), heads[2]]
+                sdpa_kw = {}
+            else:
+                sq, sdpa_kw = heads, dict(attn_mask=kw["kv_mask"][:, None, None, :])
+
+            def fused():
+                return flash_attention_packed(qkv=qkv, num_heads=H, wo=wo16, **kw)
+
+            def fused_with_cast():  # as the layer calls it: fp32 [Dout, D] weights
+                return flash_attention_packed(qkv=qkv, num_heads=H, wo=weight.t(), **kw)
+
+            def unfused():
+                return F.linear(flash_attention_packed(qkv=qkv, num_heads=H, **kw), w16)
+
+            def unfused_with_cast():
+                return F.linear(flash_attention_packed(qkv=qkv, num_heads=H, **kw),
+                                weight.to(torch.bfloat16))
+
+            def plain():
+                out = multi_head_attention(*heads, **kw)
+                return project_plain(out.transpose(1, 2).flatten(2), wo16)
+
+            def library():
+                out = F.scaled_dot_product_attention(*sq, **sdpa_kw)
+                return F.linear(out.transpose(1, 2).flatten(2), w16)
+
+            flops = 4 * B * H * L * L * 128 + 2 * B * L * D * D
+            nbytes = ((B * L * 3 * D + D * D + B * L * D) * 2
+                      + (2 * L * 128 * 4 if rope_grid else B * L))
+            b_ms, b_by = bound(flops, nbytes)
+            row = {"shape": f"qkv [{B},{L},{3 * D}] bf16, H {H}, Dh 128, wo [{D},{D}], "
+                            + ("RoPE" if rope_grid else "kv_mask"),
+                   "ms": cuda_ms(torch, fused, REPS),
+                   "ms_with_cast": cuda_ms(torch, fused_with_cast, REPS),
+                   "unfused_ms": cuda_ms(torch, unfused, REPS),
+                   "unfused_ms_with_cast": cuda_ms(torch, unfused_with_cast, REPS),
+                   "plain_ms": cuda_ms(torch, plain, max(1, REPS // 5)),
+                   "library_ms": cuda_ms(torch, library, REPS),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "device_ms": device_ms(torch, fused, REPS),
+                   "unfused_device_ms": device_ms(torch, unfused, REPS),
+                   "library_device_ms": device_ms(torch, library, REPS)}
+            # the outputs that were timed, against each other
+            row["max_abs_err"] = check_forward(
+                torch, "probing times", f"K5 {row['shape']}", fused(), plain())
+            errs["K5"] = max(errs["K5"], row["max_abs_err"])
+            rows.append(row)
+            print(f"probing times: K5 {row['shape']}: kernel {row['ms']:.4f} ms "
+                  f"({row['ms_with_cast']:.4f} with the cast of wo), K1 + F.linear "
+                  f"{row['unfused_ms']:.4f} ms ({row['unfused_ms_with_cast']:.4f} with the "
+                  f"cast), plain {row['plain_ms']:.4f} ms, sdpa + F.linear "
+                  f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}); card busy: kernel {row['device_ms']:.4f} ms, K1 + "
+                  f"F.linear {row['unfused_device_ms']:.4f} ms, sdpa + F.linear "
+                  f"{row['library_device_ms']:.4f} ms", flush=True)
+            del qkv, heads, sq
+            torch.cuda.empty_cache()
+
+    # K3 and K4 on fp32 operands at the probing head's shape
+    B, H, L, Dh = 8, 8, 11, 64
+    q, k, v = (torch.randn(B, H, L, Dh, generator=g, device=dev) for _ in range(3))
+    do = torch.randn(B, L, H, Dh, generator=g, device=dev).transpose(1, 2)
+    mask = torch.ones(B, L, dtype=torch.bool, device=dev)
+    mask[1, 4:] = False
+    leaves = [u.clone().requires_grad_() for u in (q, k, v)]
+    out = flash_attention(*leaves, kv_mask=mask)
+    sq = [u.clone().requires_grad_() for u in (q, k, v)]
+    sout = F.scaled_dot_product_attention(*sq, attn_mask=mask[:, None, None, :])
+
+    def fwd():
+        with torch.no_grad():
+            return flash_attention(q, k, v, kv_mask=mask)
+
+    def fwd_lib():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None, None, :])
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    def bwd_lib():
+        return torch.autograd.grad(sout, sq, do, retain_graph=True)
+
+    shape = "q/k/v [8,8,11,64] fp32, kv_mask [8,11]"
+    f_ms, f_by = bound(4 * B * H * L * L * Dh, 4 * B * H * L * Dh * 4 + B * L,
+                       PEAK_FP32_FLOPS)
+    g_ms, g_by = bound(10 * B * H * L * L * Dh, 8 * B * H * L * Dh * 4 + B * L,
+                       PEAK_FP32_FLOPS)
+    row_k3 = {"shape": shape, "ms": cuda_ms(torch, fwd, REPS),
+              "plain_ms": cuda_ms(torch, lambda: multi_head_attention(q, k, v, kv_mask=mask),
+                                  max(1, REPS // 5)),
+              "library_ms": cuda_ms(torch, fwd_lib, REPS),
+              "bound_ms": f_ms, "bound_by": f_by,
+              "device_ms": device_ms(torch, fwd, REPS),
+              "library_device_ms": device_ms(torch, fwd_lib, REPS)}
+    row_k4 = {"shape": shape, "ms": cuda_ms(torch, bwd, REPS),
+              "plain_ms": cuda_ms(torch, lambda: flash_bwd_plain(
+                  q, k, v, do, out.detach(), kv_mask=mask), max(1, REPS // 5)),
+              "library_ms": cuda_ms(torch, bwd_lib, REPS),
+              "bound_ms": g_ms, "bound_by": g_by,
+              "device_ms": device_ms(torch, bwd, REPS),
+              "library_device_ms": device_ms(torch, bwd_lib, REPS)}
+    for name, r in (("K3 forward", row_k3), ("K4 backward", row_k4)):
+        print(f"probing times: {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']}); card busy: kernel "
+              f"{r['device_ms']:.4f} ms, sdpa {r['library_device_ms']:.4f} ms", flush=True)
+
+    k5 = {"name": "flash_attention_packed wo= (K5 fused projection forward)",
+          "route": "cuda", "source": PROJ_SOURCE, "replaces": K5_REPLACES,
+          "launches": counts["K5"], "max_abs_err": errs["K5"],
+          "bwd_max_abs_err": errs["K5_bwd"],
+          "partial_freeze_launches": partial_counts["K5"]}
+    k5.update({key: rows[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "device_ms")})
+    k5["shapes"] = rows
+    return k5, row_k3, row_k4
+
+
 def main() -> int:
     import torch
 
@@ -1040,8 +1767,9 @@ def main() -> int:
 
     try:
         t0 = time.perf_counter()
-        _build.build_all(("flash_fwd", "flash_bwd"))  # one nvcc each, side by side
-        for name in ("flash_fwd", "flash_bwd"):
+        sources = ("flash_fwd", "flash_fwd_proj", "flash_bwd")
+        _build.build_all(sources)  # one nvcc each, side by side
+        for name in sources:
             _build.load(name)
             info = _build.build_info.get(name, {})
             print(f"build: {name}.cu ready {time.perf_counter() - t0:.1f} s after the "
@@ -1076,6 +1804,27 @@ def main() -> int:
         kernels["kernels"][0]["shapes"].append(k1_text)
         kernels["kernels"] += bwd_entries
         kernels["train_step"] = times
+
+        proj_errs = phase_proj_kernels(torch)
+        bundle, state, step_fn, batch, gen, p_counts, p_times = phase_probing(torch)
+        p_times["eval_ms"] = phase_probe_e2e(torch, bundle, state, batch)
+        phase_probe_profile(torch, state, step_fn, batch, gen,
+                            bundle.config.video_freeze_ratio)
+        del state, step_fn, batch
+        partial_counts = phase_probe_partial(torch, bundle)
+        del bundle
+        torch.cuda.empty_cache()
+        k5, row_k3, row_k4 = phase_probe_times(torch, proj_errs, p_counts, partial_counts)
+        by_key = dict(zip(("K1", "K3", "K2", "K4"), kernels["kernels"]))
+        for key, e in by_key.items():  # the probing path's launches of the older kernels
+            e["probe_launches"] = p_counts[key]
+            e["partial_freeze_launches"] = partial_counts[key]
+        for key, row, err in (("K3", row_k3, "K3_f32"), ("K4", row_k4, "K4_f32")):
+            by_key[key]["shapes"].append(row)
+            by_key[key]["fp32_max_abs_err"] = proj_errs[err]
+        by_key["K3"]["attention_pool_max_abs_err"] = proj_errs["K3_pool"]
+        kernels["kernels"].append(k5)
+        kernels["probe_step"] = p_times
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

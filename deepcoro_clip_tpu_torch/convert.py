@@ -18,7 +18,14 @@ attention_norm, intermediate, output, output_norm}``, ``proj/proj``) maps
 the same way. ``module_to_jax_tree`` goes back, and
 ``load_training_tree``/``training_tree`` carry the whole training tree
 ``{"video_encoder", "text_encoder", "log_temp", "logit_bias"}`` into the
-port's models and scalars and back.
+port's models and scalars and back. The linear-probing tree
+``{"video_encoder", "mil"}`` maps by the same rules
+(``load_probe_tree``/``probe_tree``): the encoder's ``pool/{query,
+attn/{q,k,v,proj}, norm}`` (``AttentionPool``), the head's
+``{within,across,shared}_gated/{V,U,w}``, ``*_cls/{cls, block{i}/..., norm}``,
+``hier_proj``, ``view_embeddings/embedding`` and ``head_<name>``. A CLIP
+run's video tree goes into a probing encoder, where paths and shapes match,
+through ``train/linear_probe.build_probe_bundle(encoder_params=...)``.
 
 ``save_params_npz``/``load_params_npz`` store such a tree in one ``.npz``
 with ``/``-joined keys, which is what ``serve.py --params`` reads. To
@@ -65,9 +72,10 @@ def unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict:
 
 
 def jax_tree_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX ``VideoEncoder`` or ``TextEncoder`` params (nested dict,
-    optionally under a ``"params"`` key) -> the state dict (fp32) of the
-    port's module of the same name."""
+    """JAX ``VideoEncoder``, ``TextEncoder`` or
+    ``MultiInstanceLinearProbing`` params (nested dict, optionally under a
+    ``"params"`` key) -> the state dict (fp32) of the port's module of the
+    same name."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     sd = {}
@@ -84,7 +92,7 @@ def jax_tree_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def module_to_jax_tree(module: nn.Module) -> dict:
-    """The port's ``VideoEncoder`` or ``TextEncoder`` -> the JAX parameter
+    """One of the port's models -> the JAX parameter
     tree (nested dict of fp32 numpy arrays): the inverse of
     ``jax_tree_to_state_dict``."""
     flat = {}
@@ -118,6 +126,19 @@ def training_tree(video_model: nn.Module, text_model: nn.Module,
             "text_encoder": module_to_jax_tree(text_model),
             "log_temp": log_temp.detach().cpu().numpy().astype(np.float32),
             "logit_bias": logit_bias.detach().cpu().numpy().astype(np.float32)}
+
+
+@torch.no_grad()
+def load_probe_tree(tree: Mapping, video_model: nn.Module, mil_model: nn.Module) -> None:
+    """The JAX linear-probing tree into the port's encoder and head, in place."""
+    video_model.load_state_dict(jax_tree_to_state_dict(tree["video_encoder"]), strict=True)
+    mil_model.load_state_dict(jax_tree_to_state_dict(tree["mil"]), strict=True)
+
+
+def probe_tree(video_model: nn.Module, mil_model: nn.Module) -> dict:
+    """The port's encoder and probing head as the JAX linear-probing tree."""
+    return {"video_encoder": module_to_jax_tree(video_model),
+            "mil": module_to_jax_tree(mil_model)}
 
 
 def save_params_npz(tree: Mapping, path) -> None:

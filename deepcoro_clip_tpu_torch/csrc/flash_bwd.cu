@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), bf16 in/out, fp32 sums.
+// Flash-attention backward for Hopper (sm_90a): bf16 in/out with fp32 sums on
+// the tensor cores, and plain fp32 kernels for fp32 operands (below).
 //
 // Replaces two Pallas TPU kernels of deepcoro_clip_tpu:
 //   - ops/flash_attention_packed.py `_bwd_kernel` (packed [B, L, H*Dh]; in
@@ -504,6 +505,226 @@ cudaError_t launch(BwdParams p, int B, const __nv_bfloat16* o, long long o_sb,
   return err;
 }
 
+// ---- fp32 operands ----------------------------------------------------------
+// The same gradients with nothing rounded below fp32, without tensor cores:
+// one warp per row (a q row for dQ, a key for dK and dV), a lane per
+// partner row of a 32-row chunk for the two dot products, then every lane
+// adds the chunk's weighted rows into its own columns. No atomics: each
+// output row is summed by one warp in a fixed order.
+
+struct BwdParamsF32 {
+  const float* q;   // rotated already when RoPE is on
+  const float* k;   // rotated already when RoPE is on
+  const float* v;
+  const float* dout;
+  float* dq;
+  float* dk;
+  float* dv;
+  const float* rows;  // [3, B*H, Lq_pad]: m, 1/l, delta
+  const float* sin;
+  const float* cos;
+  const uint8_t* mask;
+  long long q_sb, q_sh, q_sl;
+  long long k_sb, k_sh, k_sl;
+  long long v_sb, v_sh, v_sl;
+  long long do_sb, do_sh, do_sl;
+  long long dq_sb, dq_sh, dq_sl;
+  long long dk_sb, dk_sh, dk_sl;
+  long long dv_sb, dv_sh, dv_sl;
+  int H, Lq, Lk, Lq_pad;
+  float scale, scale_log2;
+  int causal;
+};
+
+// Pre-pass: (m, 1/l, delta = rowsum(dO * O)) per row, one warp per row.
+template <int D>
+__global__ void __launch_bounds__(256) bwd_rows_f32_kernel(
+    const float* o, long long o_sb, long long o_sh, long long o_sl,
+    const float* dout, long long do_sb, long long do_sh, long long do_sl,
+    const float* stats, float* rows, int H, int Lq, int Lq_pad) {
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= Lq) return;
+  const float* orow = o + b * o_sb + h * o_sh + row * o_sl;
+  const float* drow = dout + b * do_sb + h * do_sh + row * do_sl;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 32; ++i) acc = fmaf(orow[lane + 32 * i], drow[lane + 32 * i], acc);
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    const long long plane = (long long)gridDim.y * Lq_pad;
+    float* out = rows + (long long)bh * Lq_pad + row;
+    const float* sm = stats + (long long)bh * Lq;
+    out[0] = sm[row];
+    out[plane] = 1.f / sm[(long long)gridDim.y * Lq + row];  // l >= 1
+    out[2 * plane] = acc;
+  }
+}
+
+// Transpose of rotate-half RoPE on a row held as columns lane + 32 i (the
+// partner of column d < D/2 is d + D/2: index i + PER/2 of the same lane),
+// then the store.
+template <int D>
+__device__ __forceinline__ void store_row_f32(float (&acc)[D / 32], float* out,
+                                              const float* sin, const float* cos,
+                                              int row, int lane) {
+  constexpr int PER = D / 32;
+  if (sin != nullptr) {
+    const float* sr = sin + (long long)row * D;
+    const float* cr = cos + (long long)row * D;
+#pragma unroll
+    for (int i = 0; i < PER / 2; ++i) {
+      const int d = lane + 32 * i, d2 = d + D / 2;
+      const float g1 = acc[i], g2 = acc[i + PER / 2];
+      acc[i] = g1 * cr[d] + g2 * sr[d2];
+      acc[i + PER / 2] = g2 * cr[d2] - g1 * sr[d];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) out[lane + 32 * i] = acc[i];
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32_WARPS * 32) flash_bwd_dq_f32_kernel(
+    const BwdParamsF32 p) {
+  constexpr int PER = D / 32;
+  __shared__ float qs[F32_WARPS][D], gs[F32_WARPS][D];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * F32_WARPS + warp;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  if (row >= p.Lq) return;
+  const float* qrow = p.q + b * p.q_sb + h * p.q_sh + row * p.q_sl;
+  const float* grow = p.dout + b * p.do_sb + h * p.do_sh + row * p.do_sl;
+  const float* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vg = p.v + b * p.v_sb + h * p.v_sh;
+  const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    qs[warp][lane + 32 * i] = qrow[lane + 32 * i];
+    gs[warp][lane + 32 * i] = grow[lane + 32 * i];
+  }
+  __syncwarp();
+  const long long plane = (long long)gridDim.y * p.Lq_pad;
+  const float* rv = p.rows + (long long)bh * p.Lq_pad + row;
+  const float m = rv[0], il = rv[plane], delta = rv[2 * plane];
+
+  float acc[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) acc[i] = 0.f;
+  for (int j0 = 0; j0 < p.Lk; j0 += 32) {
+    const int key = j0 + lane;
+    float ds = 0.f;  // no gradient through a masked score
+    if (key < p.Lk && !((mrow != nullptr && mrow[key] == 0) || (p.causal && key > row))) {
+      const float s = dot_row<D>(qs[warp], kg + key * p.k_sl);
+      const float dp = dot_row<D>(gs[warp], vg + key * p.v_sl);
+      ds = exp2f(s * p.scale_log2 - m) * il * (dp - delta) * p.scale;
+    }
+    const int n = min(32, p.Lk - j0);
+    for (int jj = 0; jj < n; ++jj) {
+      const float dsv = __shfl_sync(FULL, ds, jj);
+      const float* krow = kg + (j0 + jj) * p.k_sl;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) acc[i] = fmaf(dsv, krow[lane + 32 * i], acc[i]);
+    }
+  }
+  store_row_f32<D>(acc, p.dq + b * p.dq_sb + h * p.dq_sh + row * p.dq_sl, p.sin, p.cos,
+                   row, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32_WARPS * 32) flash_bwd_dkv_f32_kernel(
+    const BwdParamsF32 p) {
+  constexpr int PER = D / 32;
+  __shared__ float ks[F32_WARPS][D], vs[F32_WARPS][D];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int key = blockIdx.x * F32_WARPS + warp;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  if (key >= p.Lk) return;
+  const float* krow = p.k + b * p.k_sb + h * p.k_sh + key * p.k_sl;
+  const float* vrow = p.v + b * p.v_sb + h * p.v_sh + key * p.v_sl;
+  const float* qg = p.q + b * p.q_sb + h * p.q_sh;
+  const float* gg = p.dout + b * p.do_sb + h * p.do_sh;
+  const bool kmasked = p.mask != nullptr && p.mask[(long long)b * p.Lk + key] == 0;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    ks[warp][lane + 32 * i] = krow[lane + 32 * i];
+    vs[warp][lane + 32 * i] = vrow[lane + 32 * i];
+  }
+  __syncwarp();
+  const long long plane = (long long)gridDim.y * p.Lq_pad;
+  const float* rv = p.rows + (long long)bh * p.Lq_pad;
+
+  float dk[PER], dv[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) dk[i] = dv[i] = 0.f;
+  for (int i0 = 0; i0 < p.Lq; i0 += 32) {
+    const int qi = i0 + lane;
+    float prob = 0.f, ds = 0.f;
+    if (qi < p.Lq) {
+      const bool masked = kmasked || (p.causal && key > qi);
+      const float s = dot_row<D>(ks[warp], qg + qi * p.q_sl);
+      const float x = masked ? -FLT_MAX : s * p.scale_log2;
+      // a row with no valid key has m = -FLT_MAX: P = 1/Lk on every key
+      prob = exp2f(x - rv[qi]) * rv[plane + qi];
+      if (!masked) {
+        const float dp = dot_row<D>(vs[warp], gg + qi * p.do_sl);
+        ds = prob * (dp - rv[2 * plane + qi]) * p.scale;
+      }
+    }
+    const int n = min(32, p.Lq - i0);
+    for (int ii = 0; ii < n; ++ii) {
+      const float pv = __shfl_sync(FULL, prob, ii);
+      const float dsv = __shfl_sync(FULL, ds, ii);
+      const float* grow = gg + (i0 + ii) * p.do_sl;
+      const float* qrow = qg + (i0 + ii) * p.q_sl;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        dv[i] = fmaf(pv, grow[lane + 32 * i], dv[i]);
+        dk[i] = fmaf(dsv, qrow[lane + 32 * i], dk[i]);
+      }
+    }
+  }
+  store_row_f32<D>(dv, p.dv + b * p.dv_sb + h * p.dv_sh + key * p.dv_sl, nullptr, nullptr,
+                   key, lane);
+  store_row_f32<D>(dk, p.dk + b * p.dk_sb + h * p.dk_sh + key * p.dk_sl, p.sin, p.cos,
+                   key, lane);
+}
+
+template <int D>
+cudaError_t launch_f32(BwdParamsF32 p, int B, const float* o, long long o_sb, long long o_sh,
+                       long long o_sl, const float* stats, float* rows, float* q_rot,
+                       float* k_rot, cudaStream_t stream) {
+  cudaError_t err;
+  if (p.sin != nullptr) {  // rotate q and k once into the scratch copies
+    err = launch_rope_rows_f32<D>(p.q, p.q_sb, p.q_sh, p.q_sl, B, p.H, p.Lq, p.sin, p.cos,
+                                  q_rot, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_rope_rows_f32<D>(p.k, p.k_sb, p.k_sh, p.k_sl, B, p.H, p.Lk, p.sin, p.cos,
+                                  k_rot, stream);
+    if (err != cudaSuccess) return err;
+    p.q = q_rot;
+    p.q_sb = (long long)p.H * p.Lq * D; p.q_sh = (long long)p.Lq * D; p.q_sl = D;
+    p.k = k_rot;
+    p.k_sb = (long long)p.H * p.Lk * D; p.k_sh = (long long)p.Lk * D; p.k_sl = D;
+  }
+  bwd_rows_f32_kernel<D><<<dim3((p.Lq + 7) / 8, B * p.H), 256, 0, stream>>>(
+      o, o_sb, o_sh, o_sl, p.dout, p.do_sb, p.do_sh, p.do_sl, stats, rows, p.H, p.Lq,
+      p.Lq_pad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_f32_kernel<D>
+      <<<dim3((p.Lk + F32_WARPS - 1) / F32_WARPS, B * p.H), F32_WARPS * 32, 0, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32_kernel<D>
+      <<<dim3((p.Lq + F32_WARPS - 1) / F32_WARPS, B * p.H), F32_WARPS * 32, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -568,6 +789,66 @@ int deepcoro_flash_bwd_bf16(
       return static_cast<int>(launch<64>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm));
     case 128:
       return static_cast<int>(launch<128>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same for fp32 operands (the scratch copies `q_rot` and `k_rot` then
+// are fp32 too); the arguments mean what they mean above.
+int deepcoro_flash_bwd_f32(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* stats, const void* sin, const void* cos, const void* mask,
+    void* dq, void* dk, void* dv, void* rows, void* q_rot, void* k_rot,
+    int B, int H, int Lq, int Lk, int Dh,
+    long long q_sb, long long q_sh, long long q_sl,
+    long long k_sb, long long k_sh, long long k_sl,
+    long long v_sb, long long v_sh, long long v_sl,
+    long long o_sb, long long o_sh, long long o_sl,
+    long long do_sb, long long do_sh, long long do_sl,
+    long long dq_sb, long long dq_sh, long long dq_sl,
+    long long dk_sb, long long dk_sh, long long dk_sl,
+    long long dv_sb, long long dv_sh, long long dv_sl,
+    float scale, int causal, void* stream) {
+  BwdParamsF32 p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.dout = static_cast<const float*>(dout);
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.rows = static_cast<const float*>(rows);
+  p.sin = static_cast<const float*>(sin);
+  p.cos = static_cast<const float*>(cos);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
+  p.do_sb = do_sb; p.do_sh = do_sh; p.do_sl = do_sl;
+  p.dq_sb = dq_sb; p.dq_sh = dq_sh; p.dq_sl = dq_sl;
+  p.dk_sb = dk_sb; p.dk_sh = dk_sh; p.dk_sl = dk_sl;
+  p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_sl = dv_sl;
+  p.H = H; p.Lq = Lq; p.Lk = Lk;
+  p.Lq_pad = (Lq + BQ - 1) / BQ * BQ;
+  p.scale = scale;
+  p.scale_log2 = scale * LOG2E;
+  p.causal = causal;
+  if (stats == nullptr || rows == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (sin != nullptr && (q_rot == nullptr || k_rot == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* ob = static_cast<const float*>(o);
+  const float* st = static_cast<const float*>(stats);
+  float* rw = static_cast<float*>(rows);
+  float* qr = static_cast<float*>(q_rot);
+  float* kr = static_cast<float*>(k_rot);
+  cudaStream_t sm = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64:
+      return static_cast<int>(launch_f32<64>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm));
+    case 128:
+      return static_cast<int>(launch_f32<128>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,7 +1,9 @@
-// Device helpers shared by the flash-attention forward (flash_fwd.cu) and
+// Device helpers shared by the flash-attention forward (flash_fwd.cu), the
+// forward with the fused output projection (flash_fwd_proj.cu) and the
 // backward (flash_bwd.cu) kernels: mma.sync / ldmatrix / cp.async wrappers,
-// the padded 64-row shared-memory tile loader, and rotate-half RoPE with
-// the plain version's bf16 rounding points.
+// the padded 64-row shared-memory tile loader, rotate-half RoPE with the
+// plain version's bf16 rounding points, the attention of one q tile over
+// one head's keys (`attend_head`), and the warp helpers of the fp32 kernels.
 //
 // Tiles are 64 rows of D bf16 values, each row padded by PAD elements so
 // that ldmatrix reads are free of bank conflicts. Every operand is a base
@@ -99,20 +101,206 @@ __device__ __forceinline__ void rope_pair(float x1, float x2, float s1, float s2
   y2 = __float2bfloat16_rn(bf16_round(x2 * c2) + bf16_round(x1 * s2));
 }
 
-// Rows [row0, row0 + 64) of a strided [L, D] operand into a padded shared
-// tile by cp.async; rows at or past L are zero-filled (so 0-probability
-// keys never meet uninitialised shared memory in a product).
-template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* s, const __nv_bfloat16* g,
-                                                long long sl, int row0, int L) {
+// Rows [row0, row0 + ROWS) of a strided [L, D] operand into shared rows of
+// `ld` elements by cp.async; rows at or past L are zero-filled (so
+// 0-probability keys never meet uninitialised shared memory in a product).
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows_async(__nv_bfloat16* s, int ld,
+                                                const __nv_bfloat16* g, long long sl,
+                                                int row0, int L) {
   constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BK * CH; i += NTHREADS) {
+  for (int i = threadIdx.x; i < ROWS * CH; i += NTHREADS) {
     const int r = i / CH, c = i % CH;
     const bool ok = row0 + r < L;
     const __nv_bfloat16* src = g + (long long)(ok ? row0 + r : 0) * sl + c * 8;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(s + r * (D + PAD) + c * 8)),
+                     smem_u32(s + r * ld + c * 8)),
                  "l"(src), "r"(ok ? 16 : 0));
+  }
+}
+
+// The same for one padded 64-row tile.
+template <int D>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* s, const __nv_bfloat16* g,
+                                                long long sl, int row0, int L) {
+  load_rows_async<D, BK>(s, D + PAD, g, sl, row0, L);
+}
+
+// In-place RoPE on the rows of the shared q tile (rows of `ld` elements)
+// that exist.
+template <int D>
+__device__ __forceinline__ void rope_tile(__nv_bfloat16* s, int ld, const float* sin,
+                                          const float* cos, int row0, int L) {
+  constexpr int HALF = D / 2;
+  for (int i = threadIdx.x; i < BQ * HALF; i += NTHREADS) {
+    const int r = i / HALF, d = i % HALF;
+    const int pos = row0 + r;
+    if (pos >= L) continue;
+    __nv_bfloat16* row = s + r * ld;
+    const float* sr = sin + (long long)pos * D;
+    const float* cr = cos + (long long)pos * D;
+    rope_pair(__bfloat162float(row[d]), __bfloat162float(row[d + HALF]), sr[d],
+              sr[d + HALF], cr[d], cr[d + HALF], row[d], row[d + HALF]);
+  }
+}
+
+// Attention of one 64-row q tile of one (batch, head) over all its keys: the
+// body shared by the forward kernel (flash_fwd.cu) and the forward with the
+// fused output projection (flash_fwd_proj.cu). The whole block calls it.
+// `qg`, `kg`, `vg` point at the head's first row (k rotated already when
+// RoPE is on). Keys stream in tiles of BKT rows; Qs is 64 shared rows of
+// `q_ld` elements, Ks and Vs two padded tiles of BKT rows each. On return
+// this thread holds, for its rows g and g + 8 of the warp's 16, the
+// un-normalised output `acc` (column dn*8 + 2t + (e&1), row g for e < 2),
+// the row maxima `m_r` (log2 units, scale folded in) and the row sums
+// `l_r` (>= 1, reduced over the row), and every warp is done with the
+// shared tiles.
+template <int D, int BKT>
+__device__ __forceinline__ void attend_head(
+    __nv_bfloat16* Qs, int q_ld, __nv_bfloat16* Ks, __nv_bfloat16* Vs,
+    const __nv_bfloat16* qg, long long q_sl, const __nv_bfloat16* kg, long long k_sl,
+    const __nv_bfloat16* vg, long long v_sl, const float* sin, const float* cos,
+    const uint8_t* mrow, int q0, int Lq, int Lk, float scale_log2, int causal,
+    float (&acc)[D / 8][4], float (&m_r)[2], float (&l_r)[2]) {
+  constexpr int TILE = BKT * (D + PAD);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group
+  const int ntiles = (Lk + BKT - 1) / BKT;
+
+  load_rows_async<D, BQ>(Qs, q_ld, qg, q_sl, q0, Lq);
+  load_rows_async<D, BKT>(Ks, D + PAD, kg, k_sl, 0, Lk);
+  load_rows_async<D, BKT>(Vs, D + PAD, vg, v_sl, 0, Lk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (sin) {
+    rope_tile<D>(Qs, q_ld, sin, cos, q0, Lq);
+    __syncthreads();
+  }
+
+  // this warp's 16 q rows as mma A fragments, kept for the whole key loop
+  constexpr int KS = D / 16;
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    ldsm_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * q_ld + ks * 16 + (lane >> 4) * 8);
+  }
+
+  constexpr int NO = D / 8;  // n8 tiles of the output
+#pragma unroll
+  for (int dn = 0; dn < NO; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  m_r[0] = m_r[1] = -INFINITY;  // rows g and g + 8
+  l_r[0] = l_r[1] = 0.f;        // this thread's partial row sums
+  const int row_a = q0 + warp * 16 + g;
+  const int row_b = row_a + 8;
+  // ldmatrix lane offsets: K (x4: n-tiles nt, nt+1 x k-halves), V (x4.trans:
+  // k-halves x d-tiles dn, dn+1)
+  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3), v_col = (lane >> 4) * 8;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int cur = j & 1;
+    if (j + 1 < ntiles) {  // prefetch the next tile into the other buffer
+      load_rows_async<D, BKT>(Ks + (cur ^ 1) * TILE, D + PAD, kg, k_sl, (j + 1) * BKT, Lk);
+      load_rows_async<D, BKT>(Vs + (cur ^ 1) * TILE, D + PAD, vg, v_sl, (j + 1) * BKT, Lk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Kt = Ks + cur * TILE;
+    const __nv_bfloat16* Vt = Vs + cur * TILE;
+    const int kv0 = j * BKT;
+
+    // S = Q K^T for 16 rows x BKT keys
+    float s[BKT / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BKT / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int np = 0; np < BKT / 16; ++np) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t kb[4];
+        ldsm_x4(kb, Kt + (np * 16 + k_row) * (D + PAD) + ks * 16 + k_col);
+        mma_bf16(s[2 * np], qf[ks], kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+      }
+    }
+
+    // scale, mask, and the tile's row maxima
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < BKT / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kv0 + nt * 8 + 2 * t + (e & 1);
+        const int row = (e < 2) ? row_a : row_b;
+        float x;
+        if (key >= Lk) {
+          x = -INFINITY;  // does not exist: probability exactly 0
+        } else {
+          x = s[nt][e] * scale_log2;
+          if ((mrow != nullptr && mrow[key] == 0) || (causal && key > row)) x = -FLT_MAX;
+        }
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // key kv0 < Lk scores finite, so the new max is finite
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      alpha[r] = exp2f(m_r[r] - m_new);
+      m_r[r] = m_new;
+      l_r[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int dn = 0; dn < NO; ++dn) {
+      acc[dn][0] *= alpha[0];
+      acc[dn][1] *= alpha[0];
+      acc[dn][2] *= alpha[1];
+      acc[dn][3] *= alpha[1];
+    }
+
+    // P = exp2(S - m), re-packed as A fragments of the P V product:
+    // n8 tiles 2kk and 2kk+1 of S are the k16 slice kk of P
+    uint32_t pf[BKT / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < BKT / 8; ++nt) {
+      const float p0 = exp2f(s[nt][0] - m_r[0]);
+      const float p1 = exp2f(s[nt][1] - m_r[0]);
+      const float p2 = exp2f(s[nt][2] - m_r[1]);
+      const float p3 = exp2f(s[nt][3] - m_r[1]);
+      l_r[0] += p0 + p1;
+      l_r[1] += p2 + p3;
+      const int kk = nt >> 1, hi = nt & 1;
+      pf[kk][hi * 2 + 0] = pack_bf16(p0, p1);  // row g
+      pf[kk][hi * 2 + 1] = pack_bf16(p2, p3);  // row g + 8
+    }
+
+    // O += P V
+#pragma unroll
+    for (int kk = 0; kk < BKT / 16; ++kk) {
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, Vt + (kk * 16 + v_row) * (D + PAD) + dp * 16 + v_col);
+        mma_bf16(acc[2 * dp], pf[kk], vb[0], vb[1]);
+        mma_bf16(acc[2 * dp + 1], pf[kk], vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it refills
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
   }
 }
 
@@ -157,6 +345,67 @@ cudaError_t launch_rope_rows(const __nv_bfloat16* x, long long sb, long long sh,
   constexpr int CH = D / 16;
   const dim3 grid((L * CH + 255) / 256, B * H);
   rope_rows_kernel<D><<<grid, 256, 0, stream>>>(x, sb, sh, sl, H, L, sin, cos, out);
+  return cudaGetLastError();
+}
+
+// ---- fp32 operands ----------------------------------------------------------
+// The fp32 kernels (flash_fwd.cu, flash_bwd.cu) serve the small attentions
+// that the models run in fp32 (the probing head's transformer over a
+// study's videos). They use no tensor cores: one warp owns one row, a lane
+// owns the columns lane, lane + 32, ... of it, and every product is an fp32
+// FMA, so nothing is rounded below fp32.
+
+constexpr int F32_WARPS = 4;  // rows per block
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, off));
+  return x;
+}
+
+// Dot product of a row in shared memory with a row in device memory.
+template <int D>
+__device__ __forceinline__ float dot_row(const float* s, const float* g) {
+  float acc = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) acc = fmaf(s[d], g[d], acc);
+  return acc;
+}
+
+// fp32 RoPE pre-pass: x [B, H, L, D] (strided) -> out [B, H, L, D]
+// contiguous, rotate-half with fp32 tables. One thread per pair (d, d + D/2).
+template <int D>
+__global__ void __launch_bounds__(256) rope_rows_f32_kernel(
+    const float* x, long long sb, long long sh, long long sl, int H, int L,
+    const float* sin, const float* cos, float* out) {
+  constexpr int HALF = D / 2;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = idx / HALF, d = idx % HALF;
+  if (row >= L) return;
+  const float* src = x + b * sb + h * sh + row * sl;
+  float* dst = out + ((long long)bh * L + row) * D;
+  const float* sr = sin + (long long)row * D;
+  const float* cr = cos + (long long)row * D;
+  const float x1 = src[d], x2 = src[d + HALF];
+  dst[d] = x1 * cr[d] - x2 * sr[d];
+  dst[d + HALF] = x2 * cr[d + HALF] + x1 * sr[d + HALF];
+}
+
+template <int D>
+cudaError_t launch_rope_rows_f32(const float* x, long long sb, long long sh, long long sl,
+                                 int B, int H, int L, const float* sin, const float* cos,
+                                 float* out, cudaStream_t stream) {
+  const dim3 grid((L * (D / 2) + 255) / 256, B * H);
+  rope_rows_f32_kernel<D><<<grid, 256, 0, stream>>>(x, sb, sh, sl, H, L, sin, cos, out);
   return cudaGetLastError();
 }
 

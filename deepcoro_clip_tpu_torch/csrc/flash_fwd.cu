@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in/out, fp32 softmax.
+// Flash-attention forward for Hopper (sm_90a): bf16 in/out with fp32 softmax
+// on the tensor cores, and a plain fp32 kernel for fp32 operands (below).
 //
 // Replaces two Pallas TPU kernels of deepcoro_clip_tpu:
 //   - ops/flash_attention_packed.py `_fwd_kernel` (packed [B, L, H*Dh], with
@@ -65,23 +66,6 @@ struct Params {
   int causal;
 };
 
-// In-place RoPE on the rows of the shared q tile that exist.
-template <int D>
-__device__ __forceinline__ void rope_tile(__nv_bfloat16* s, const float* sin,
-                                          const float* cos, int row0, int L) {
-  constexpr int HALF = D / 2;
-  for (int i = threadIdx.x; i < BQ * HALF; i += NTHREADS) {
-    const int r = i / HALF, d = i % HALF;
-    const int pos = row0 + r;
-    if (pos >= L) continue;
-    __nv_bfloat16* row = s + r * (D + PAD);
-    const float* sr = sin + (long long)pos * D;
-    const float* cr = cos + (long long)pos * D;
-    rope_pair(__bfloat162float(row[d]), __bfloat162float(row[d + HALF]), sr[d],
-              sr[d + HALF], cr[d], cr[d + HALF], row[d], row[d + HALF]);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -97,148 +81,18 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in group
 
-  const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg = p.v + b * p.v_sb + h * p.v_sh;
   __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
-  const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
-  const int ntiles = (p.Lk + BK - 1) / BK;
-
-  load_tile_async<D>(Qs, qg, p.q_sl, q0, p.Lq);
-  load_tile_async<D>(Ks, kg, p.k_sl, 0, p.Lk);
-  load_tile_async<D>(Vs, vg, p.v_sl, 0, p.Lk);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  if (p.sin) {
-    rope_tile<D>(Qs, p.sin, p.cos, q0, p.Lq);
-    __syncthreads();
-  }
-
-  // this warp's 16 q rows as mma A fragments, kept for the whole key loop
-  constexpr int KS = D / 16;
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    ldsm_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * (D + PAD) + ks * 16 + (lane >> 4) * 8);
-  }
-
   constexpr int NO = D / 8;  // n8 tiles of the output
   float acc[NO][4];
-#pragma unroll
-  for (int dn = 0; dn < NO; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
-  float l_r[2] = {0.f, 0.f};              // this thread's partial row sums
+  float m_r[2], l_r[2];  // rows g and g + 8
+  attend_head<D, BK>(Qs, D + PAD, Ks, Vs, p.q + b * p.q_sb + h * p.q_sh, p.q_sl,
+                     p.k + b * p.k_sb + h * p.k_sh, p.k_sl, p.v + b * p.v_sb + h * p.v_sh,
+                     p.v_sl, p.sin, p.cos,
+                     p.mask ? p.mask + (long long)b * p.Lk : nullptr, q0, p.Lq, p.Lk,
+                     p.scale_log2, p.causal, acc, m_r, l_r);
   const int row_a = q0 + warp * 16 + g;
   const int row_b = row_a + 8;
-  // ldmatrix lane offsets: K (x4: n-tiles nt, nt+1 x k-halves), V (x4.trans:
-  // k-halves x d-tiles dn, dn+1)
-  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_col = ((lane >> 3) & 1) * 8;
-  const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3), v_col = (lane >> 4) * 8;
 
-  for (int j = 0; j < ntiles; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < ntiles) {  // prefetch the next tile into the other buffer
-      load_tile_async<D>(Ks + (cur ^ 1) * TILE, kg, p.k_sl, (j + 1) * BK, p.Lk);
-      load_tile_async<D>(Vs + (cur ^ 1) * TILE, vg, p.v_sl, (j + 1) * BK, p.Lk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Kt = Ks + cur * TILE;
-    const __nv_bfloat16* Vt = Vs + cur * TILE;
-    const int kv0 = j * BK;
-
-    // S = Q K^T for 16 rows x 64 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int np = 0; np < BK / 16; ++np) {
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t kb[4];
-        ldsm_x4(kb, Kt + (np * 16 + k_row) * (D + PAD) + ks * 16 + k_col);
-        mma_bf16(s[2 * np], qf[ks], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], kb[2], kb[3]);
-      }
-    }
-
-    // scale, mask, and the tile's row maxima
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + nt * 8 + 2 * t + (e & 1);
-        const int row = (e < 2) ? row_a : row_b;
-        float x;
-        if (key >= p.Lk) {
-          x = -INFINITY;  // does not exist: probability exactly 0
-        } else {
-          x = s[nt][e] * p.scale_log2;
-          if ((mrow != nullptr && mrow[key] == 0) || (p.causal && key > row)) x = -FLT_MAX;
-        }
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // key kv0 < Lk scores finite, so the new max is finite
-      const float m_new = fmaxf(m_r[r], mx[r]);
-      alpha[r] = exp2f(m_r[r] - m_new);
-      m_r[r] = m_new;
-      l_r[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int dn = 0; dn < NO; ++dn) {
-      acc[dn][0] *= alpha[0];
-      acc[dn][1] *= alpha[0];
-      acc[dn][2] *= alpha[1];
-      acc[dn][3] *= alpha[1];
-    }
-
-    // P = exp2(S - m), re-packed as A fragments of the P V product:
-    // n8 tiles 2kk and 2kk+1 of S are the k16 slice kk of P
-    uint32_t pf[BK / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      const float p0 = exp2f(s[nt][0] - m_r[0]);
-      const float p1 = exp2f(s[nt][1] - m_r[0]);
-      const float p2 = exp2f(s[nt][2] - m_r[1]);
-      const float p3 = exp2f(s[nt][3] - m_r[1]);
-      l_r[0] += p0 + p1;
-      l_r[1] += p2 + p3;
-      const int kk = nt >> 1, hi = nt & 1;
-      pf[kk][hi * 2 + 0] = pack_bf16(p0, p1);  // row g
-      pf[kk][hi * 2 + 1] = pack_bf16(p2, p3);  // row g + 8
-    }
-
-    // O += P V
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, Vt + (kk * 16 + v_row) * (D + PAD) + dp * 16 + v_col);
-        mma_bf16(acc[2 * dp], pf[kk], vb[0], vb[1]);
-        mma_bf16(acc[2 * dp + 1], pf[kk], vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it refills
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-  }
   // the backward kernels rebuild P = exp2(s - m) / l from these; written
   // only when a gradient is wanted, and never read on this path
   if (p.stats != nullptr && t == 0) {
@@ -289,6 +143,112 @@ cudaError_t launch(Params p, int B, __nv_bfloat16* k_rot, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- fp32 operands ----------------------------------------------------------
+// One warp per query row, online softmax over 32 keys at a time: each lane
+// scores one key (a full fp32 dot product against the row in shared memory),
+// the warp reduces maximum and sum, then every lane adds the 32 weighted
+// value rows into its own columns. Same masking rules and the same row
+// statistics as the bf16 kernel; P is not rounded (the plain version keeps
+// it in fp32 for fp32 operands). K, when RoPE is on, was rotated by the
+// pre-pass; q is rotated while it is copied into shared memory.
+
+struct ParamsF32 {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  const float* sin;
+  const float* cos;
+  const uint8_t* mask;
+  float* stats;
+  long long q_sb, q_sh, q_sl;
+  long long k_sb, k_sh, k_sl;
+  long long v_sb, v_sh, v_sl;
+  long long o_sb, o_sh, o_sl;
+  int H, Lq, Lk;
+  float scale_log2;
+  int causal;
+};
+
+template <int D>
+__global__ void __launch_bounds__(F32_WARPS * 32) flash_fwd_f32_kernel(const ParamsF32 p) {
+  constexpr int PER = D / 32, HALF = D / 2;
+  __shared__ float qs[F32_WARPS][D];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * F32_WARPS + warp;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  if (row >= p.Lq) return;  // a whole warp leaves; no block-wide barrier follows
+
+  const float* qrow = p.q + b * p.q_sb + h * p.q_sh + row * p.q_sl;
+  const float* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vg = p.v + b * p.v_sb + h * p.v_sh;
+  const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int d = lane + 32 * i;
+    float x = qrow[d];
+    if (p.sin != nullptr) {
+      const float xp = d < HALF ? -qrow[d + HALF] : qrow[d - HALF];
+      x = x * p.cos[(long long)row * D + d] + xp * p.sin[(long long)row * D + d];
+    }
+    qs[warp][d] = x;
+  }
+  __syncwarp();
+
+  float acc[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) acc[i] = 0.f;
+  float m = -INFINITY, l = 0.f;
+  for (int j0 = 0; j0 < p.Lk; j0 += 32) {
+    const int key = j0 + lane;
+    float x = -INFINITY;  // a key that does not exist: probability exactly 0
+    if (key < p.Lk) {
+      x = dot_row<D>(qs[warp], kg + key * p.k_sl) * p.scale_log2;
+      if ((mrow != nullptr && mrow[key] == 0) || (p.causal && key > row)) x = -FLT_MAX;
+    }
+    const float m_new = fmaxf(m, warp_max(x));  // key j0 exists: finite
+    const float alpha = exp2f(m - m_new);
+    const float pj = exp2f(x - m_new);
+    l = l * alpha + warp_sum(pj);
+    m = m_new;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) acc[i] *= alpha;
+    const int n = min(32, p.Lk - j0);
+    for (int jj = 0; jj < n; ++jj) {
+      const float pv = __shfl_sync(FULL, pj, jj);
+      const float* vrow = vg + (j0 + jj) * p.v_sl;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) acc[i] = fmaf(pv, vrow[lane + 32 * i], acc[i]);
+    }
+  }
+  if (p.stats != nullptr && lane == 0) {
+    float* sm = p.stats + (long long)bh * p.Lq;
+    sm[row] = m;
+    sm[(long long)gridDim.y * p.Lq + row] = l;
+  }
+  float* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_sl;
+  const float inv = 1.f / l;  // l >= 1: the row maximum contributes exp2(0)
+#pragma unroll
+  for (int i = 0; i < PER; ++i) orow[lane + 32 * i] = acc[i] * inv;
+}
+
+template <int D>
+cudaError_t launch_f32(ParamsF32 p, int B, float* k_rot, cudaStream_t stream) {
+  if (p.sin != nullptr) {  // rotate K once into the scratch, then read it there
+    cudaError_t err = launch_rope_rows_f32<D>(p.k, p.k_sb, p.k_sh, p.k_sl, B, p.H, p.Lk,
+                                              p.sin, p.cos, k_rot, stream);
+    if (err != cudaSuccess) return err;
+    p.k = k_rot;
+    p.k_sb = (long long)p.H * p.Lk * D;
+    p.k_sh = (long long)p.Lk * D;
+    p.k_sl = D;
+  }
+  const dim3 grid((p.Lq + F32_WARPS - 1) / F32_WARPS, B * p.H);
+  flash_fwd_f32_kernel<D><<<grid, F32_WARPS * 32, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -332,6 +292,43 @@ int deepcoro_flash_fwd_bf16(
   switch (Dh) {
     case 64: return static_cast<int>(launch<64>(p, B, kr, st));
     case 128: return static_cast<int>(launch<128>(p, B, kr, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same for fp32 operands (`k_rot` then is an fp32 scratch); the
+// arguments mean what they mean above.
+int deepcoro_flash_fwd_f32(
+    const void* q, const void* k, const void* v, void* o,
+    const void* sin, const void* cos, const void* mask, void* k_rot, void* stats,
+    int B, int H, int Lq, int Lk, int Dh,
+    long long q_sb, long long q_sh, long long q_sl,
+    long long k_sb, long long k_sh, long long k_sl,
+    long long v_sb, long long v_sh, long long v_sl,
+    long long o_sb, long long o_sh, long long o_sl,
+    float scale, int causal, void* stream) {
+  ParamsF32 p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
+  p.sin = static_cast<const float*>(sin);
+  p.cos = static_cast<const float*>(cos);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.stats = static_cast<float*>(stats);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
+  p.H = H; p.Lq = Lq; p.Lk = Lk;
+  p.scale_log2 = scale * LOG2E;
+  p.causal = causal;
+  if (sin != nullptr && k_rot == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  float* kr = static_cast<float*>(k_rot);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64: return static_cast<int>(launch_f32<64>(p, B, kr, st));
+    case 128: return static_cast<int>(launch_f32<128>(p, B, kr, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -16,6 +16,7 @@ Module and parameter names follow the flax tree (``block{i}``, ``attn``,
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -78,36 +79,75 @@ class MlpBlock(nn.Module):
         return _dropout(self.fc2(x), self.dropout, deterministic, generator)
 
 
+def fused_outproj_default() -> bool:
+    """``DEEPCORO_FUSED_OUTPROJ=1`` in the environment, as the JAX layer
+    reads it when it is traced; read here when a module is constructed."""
+    return os.environ.get("DEEPCORO_FUSED_OUTPROJ", "0") == "1"
+
+
 class Attention(nn.Module):
-    """Multi-head self-attention over a fused q|k|v projection.
+    """Multi-head self- or cross-attention.
+
+    Self-attention goes through one fused q|k|v projection ``qkv``;
+    ``cross=True`` builds the separate ``q``/``k``/``v`` projections of the
+    JAX module's ``context`` path instead (a flax module creates whichever
+    its first call uses; here the constructor says which).
 
     Dispatch as in the JAX package: with ``use_flash`` and a head dim that
-    is a multiple of 128, the packed kernel reads the fused projection
-    directly; otherwise heads are split to ``[B, H, L, Dh]`` for the
-    standard kernel (``use_flash``) or the plain attention. The JAX
-    module's cross-attention (``context``) path is not ported yet.
+    is a multiple of 128, the packed kernel reads the projections directly;
+    otherwise heads are split to ``[B, H, L, Dh]`` for the standard kernel
+    (``use_flash``) or the plain attention. With ``fused_outproj`` (None:
+    read ``DEEPCORO_FUSED_OUTPROJ`` now) the packed self-attention path
+    hands ``proj.weight`` to the kernel and adds ``proj.bias`` itself; the
+    parameters keep their names, so a state dict loads into either path.
     """
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.bfloat16, use_flash: bool = True):
+                 dtype: torch.dtype = torch.bfloat16, use_flash: bool = True,
+                 cross: bool = False, fused_outproj: Optional[bool] = None):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.dropout, self.use_flash = dropout, use_flash
-        self.qkv = Dense(dim, 3 * dim, dtype)
+        self.cross = cross
+        self.fused_outproj = (fused_outproj_default() if fused_outproj is None
+                              else bool(fused_outproj))
+        if cross:
+            self.q = Dense(dim, dim, dtype)
+            self.k = Dense(dim, dim, dtype)
+            self.v = Dense(dim, dim, dtype)
+        else:
+            self.qkv = Dense(dim, 3 * dim, dtype)
         self.proj = Dense(dim, dim, dtype)
 
-    def forward(self, x, sin=None, cos=None, kv_mask=None, causal: bool = False,
-                deterministic: bool = True, generator=None):
-        B, L, _ = x.shape
+    def forward(self, x, context=None, sin=None, cos=None, kv_mask=None,
+                causal: bool = False, deterministic: bool = True, generator=None):
+        if (context is not None) != self.cross:
+            raise ValueError("an Attention built with cross=True takes a context, "
+                             "one built without takes none")
+        B, Lq, _ = x.shape
         H = self.num_heads
         head_dim = self.dim // H
-        qkv = self.qkv(x)
-        if self.use_flash and head_dim % 128 == 0:
-            out = flash_attention_packed(qkv=qkv, num_heads=H, sin=sin, cos=cos,
+        use_packed = self.use_flash and head_dim % 128 == 0
+        if self.cross:
+            q, k, v = self.q(x), self.k(context), self.v(context)
+            packed_kw = dict(q=q, k=k, v=v)
+        else:
+            qkv = self.qkv(x)
+            packed_kw = dict(qkv=qkv)
+        if use_packed and self.fused_outproj and not self.cross:
+            out = flash_attention_packed(**packed_kw, num_heads=H, sin=sin, cos=cos,
+                                         kv_mask=kv_mask, causal=causal,
+                                         wo=self.proj.weight.t())
+            out = out + self.proj.bias.to(out.dtype)
+            return _dropout(out, self.dropout, deterministic, generator)
+        if use_packed:
+            out = flash_attention_packed(**packed_kw, num_heads=H, sin=sin, cos=cos,
                                          kv_mask=kv_mask, causal=causal)
         else:
-            q, k, v = (t.reshape(B, L, H, head_dim).transpose(1, 2)
-                       for t in qkv.split(self.dim, dim=-1))
+            if not self.cross:
+                q, k, v = qkv.split(self.dim, dim=-1)
+            q, k, v = (t.reshape(B, t.shape[1], H, head_dim).transpose(1, 2)
+                       for t in (q, k, v))
             if self.use_flash:
                 out = flash_attention(q, k, v, sin=sin, cos=cos,
                                       kv_mask=kv_mask, causal=causal)
@@ -115,7 +155,7 @@ class Attention(nn.Module):
                 m = None if kv_mask is None else kv_mask != 0
                 out = multi_head_attention(q, k, v, sin=sin, cos=cos,
                                            kv_mask=m, causal=causal)
-            out = out.transpose(1, 2).reshape(B, L, self.dim)
+            out = out.transpose(1, 2).reshape(B, Lq, self.dim)
         return _dropout(self.proj(out), self.dropout, deterministic, generator)
 
 
@@ -124,11 +164,12 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  dropout: float = 0.0, dtype: torch.dtype = torch.bfloat16,
-                 use_flash: bool = True):
+                 use_flash: bool = True, fused_outproj: Optional[bool] = None):
         super().__init__()
         self.dtype = dtype
         self.norm1 = LayerNorm(dim)
-        self.attn = Attention(dim, num_heads, dropout, dtype, use_flash)
+        self.attn = Attention(dim, num_heads, dropout, dtype, use_flash,
+                              fused_outproj=fused_outproj)
         self.norm2 = LayerNorm(dim)
         self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dim, dropout, dtype)
 

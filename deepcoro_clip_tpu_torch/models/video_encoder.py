@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from deepcoro_clip_tpu_torch.configs import ClipConfig
+from deepcoro_clip_tpu_torch.models.attention_pool import AttentionPool
 from deepcoro_clip_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
@@ -43,7 +44,8 @@ class CoroViT(nn.Module):
                  use_cls_token: bool = True, rope_temporal_scale: float = 1.0,
                  dtype: torch.dtype = torch.bfloat16, use_flash: bool = True,
                  pixel_mean=None, pixel_std=None,
-                 patch_grid: Optional[Tuple[int, int, int]] = None):
+                 patch_grid: Optional[Tuple[int, int, int]] = None,
+                 fused_outproj: Optional[bool] = None):
         super().__init__()
         self.dim, self.depth, self.num_heads = dim, depth, num_heads
         self.pool_stages = tuple(pool_stages)
@@ -58,7 +60,8 @@ class CoroViT(nn.Module):
             if i in self.pool_stages:
                 self.add_module(f"pool{i}", Dense(dim, dim, dtype))
             self.add_module(f"block{i}", TransformerBlock(
-                dim, num_heads, dropout=dropout, dtype=dtype, use_flash=use_flash))
+                dim, num_heads, dropout=dropout, dtype=dtype, use_flash=use_flash,
+                fused_outproj=fused_outproj))
         self.norm = LayerNorm(dim)
         self._rope_cache: dict = {}
 
@@ -111,11 +114,9 @@ class VideoEncoder(nn.Module):
                  use_cls_token: bool = True, rope_temporal_scale: float = 1.0,
                  dtype: torch.dtype = torch.bfloat16, use_flash: bool = True,
                  pixel_mean=None, pixel_std=None,
-                 patch_grid: Optional[Tuple[int, int, int]] = None):
+                 patch_grid: Optional[Tuple[int, int, int]] = None,
+                 fused_outproj: Optional[bool] = None):
         super().__init__()
-        if pooling_mode == "attention":
-            raise NotImplementedError(
-                "pooling_mode='attention' needs AttentionPool, not ported yet")
         self.embedding_dim = embedding_dim
         self.aggregate_videos_tokens = aggregate_videos_tokens
         self.per_video_pool = per_video_pool
@@ -126,12 +127,19 @@ class VideoEncoder(nn.Module):
             patch=tuple(patch), pool_stages=tuple(pool_stages), dropout=dropout,
             use_cls_token=use_cls_token, rope_temporal_scale=rope_temporal_scale,
             dtype=dtype, use_flash=use_flash, pixel_mean=pixel_mean,
-            pixel_std=pixel_std, patch_grid=patch_grid)
+            pixel_std=pixel_std, patch_grid=patch_grid, fused_outproj=fused_outproj)
         self.proj = ProjectionHead(backbone_dim, embedding_dim, dropout=dropout,
                                    dtype=dtype)
-        self.aggregator = EnhancedVideoAggregator(
-            dim=embedding_dim, num_heads=num_heads, depth=aggregator_depth,
-            dropout=dropout, dtype=dtype, use_flash=use_flash)
+        # as a flax module creates parameters only for what its first call
+        # reaches, build only what this configuration's forward reaches: the
+        # parameter tree then is the JAX encoder's, name for name
+        if pooling_mode == "attention" and (aggregate_videos_tokens or per_video_pool):
+            self.pool = AttentionPool(embedding_dim, num_heads, dtype=dtype,
+                                      use_flash=use_flash)
+        if aggregate_videos_tokens:
+            self.aggregator = EnhancedVideoAggregator(
+                dim=embedding_dim, num_heads=num_heads, depth=aggregator_depth,
+                dropout=dropout, dtype=dtype, use_flash=use_flash)
 
     @staticmethod
     def _with_video_axis(x):
@@ -146,10 +154,17 @@ class VideoEncoder(nn.Module):
         toks = self.proj(toks, deterministic=deterministic, generator=generator)
         return toks.reshape(B, N, toks.shape[1], self.embedding_dim)
 
-    def _pool_video(self, toks):
-        """[B, N, L, D] -> [B, N, D]."""
+    def _pool_video(self, toks, deterministic: bool = True, generator=None):
+        """[B, N, L, D] -> [B, N, D]. Only the exact modes ``cls_token`` and
+        ``attention`` pool otherwise than by the token mean: a hybrid such as
+        ``attention+cls_token`` is read by the probing head, not here."""
+        B, N, L, D = toks.shape
         if self.pooling_mode == "cls_token" and self.use_cls_token:
             return toks[:, :, 0, :]
+        if self.pooling_mode == "attention":
+            pooled = self.pool(toks.reshape(B * N, L, D), deterministic=deterministic,
+                               generator=generator)
+            return pooled.reshape(B, N, D)
         return toks.mean(dim=2)
 
     def forward(self, x, video_mask: Optional[torch.Tensor] = None,
@@ -161,7 +176,7 @@ class VideoEncoder(nn.Module):
         B, N, L, D = toks.shape
         if not self.aggregate_videos_tokens and not self.per_video_pool:
             return toks.reshape(B, N * L, D)
-        per_video = self._pool_video(toks)
+        per_video = self._pool_video(toks, deterministic, generator)
         if self.per_video_pool and not self.aggregate_videos_tokens:
             return per_video
         return self.aggregator(per_video, mask=video_mask,
@@ -173,7 +188,7 @@ class VideoEncoder(nn.Module):
         "study": [B,D]}."""
         x = self._with_video_axis(x)
         toks = self._encode_clips(x, deterministic, generator)
-        per_video = self._pool_video(toks)
+        per_video = self._pool_video(toks, deterministic, generator)
         study = self.aggregator(per_video, mask=video_mask,
                                 deterministic=deterministic, generator=generator)
         return {"tokens": toks, "video": per_video, "study": study}
@@ -184,7 +199,7 @@ class VideoEncoder(nn.Module):
         toks = self._encode_clips(x, deterministic)
         if mode == "patch":
             return toks
-        per_video = self._pool_video(toks)
+        per_video = self._pool_video(toks, deterministic)
         if mode == "video":
             return per_video
         if mode == "study":
@@ -236,9 +251,12 @@ def _config_patch_grid(cfg, patch) -> Optional[Tuple[int, int, int]]:
     return (frames // pt, size // ph, size // pw)
 
 
-def video_encoder_from_config(cfg, aggregate=None, per_video=None) -> VideoEncoder:
+def video_encoder_from_config(cfg, aggregate=None, per_video=None,
+                              fused_outproj: Optional[bool] = None) -> VideoEncoder:
     """Build the module on the CPU (zero parameters: load a state dict or
-    call ``init_params``)."""
+    call ``init_params``). ``fused_outproj``: run the backbone's attention
+    with the output projection inside the kernel; None reads
+    ``DEEPCORO_FUSED_OUTPROJ``."""
     arch = resolve_architecture(cfg)
     mean, std = config_stats(cfg)
     return VideoEncoder(
@@ -262,6 +280,7 @@ def video_encoder_from_config(cfg, aggregate=None, per_video=None) -> VideoEncod
         pixel_mean=tuple(mean) if mean else None,
         pixel_std=tuple(std) if std else None,
         patch_grid=_config_patch_grid(cfg, tuple(arch["vit_patch"])),
+        fused_outproj=fused_outproj,
     )
 
 

@@ -4,14 +4,19 @@
 (``csrc/flash_bwd.cu``) are shared by ``flash_attention`` and
 ``flash_attention_packed``: both hand them ``[B, H, L, Dh]`` views (any
 batch/head/row strides, head dim contiguous) of their operands and of the
-outputs they allocated. The launchers check what the kernels take, launch
-on PyTorch's current stream, and raise if a launch failed. They count
-nothing: each entry point counts its own launches.
+outputs they allocated, in bf16 (tensor-core kernels) or fp32 (plain fp32
+kernels; nothing is cast on the way). ``flash_fwd_proj``
+(``csrc/flash_fwd_proj.cu``) is the packed forward with the output
+projection fused in (bf16). The launchers check what the kernels take,
+launch on PyTorch's current stream, and raise if a launch failed. They
+count nothing: each entry point counts its own launches.
 
 ``FlashAttention`` is the ``torch.autograd.Function`` both entry points go
-through when a gradient is wanted. On a CUDA tensor its forward and its
-backward launch the kernels or raise; on a CPU tensor they run the plain
-versions (``ops/attention.py``).
+through when a gradient is wanted, ``FlashAttentionProj`` the one of the
+fused projection (its backward is two matrix products and the same
+backward kernels). On a CUDA tensor their forward and backward launch the
+kernels or raise; on a CPU tensor they run the plain versions
+(``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -23,29 +28,39 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from deepcoro_clip_tpu_torch.ops import _build
-from deepcoro_clip_tpu_torch.ops.attention import flash_bwd_plain, multi_head_attention
+from deepcoro_clip_tpu_torch.ops.attention import (
+    flash_bwd_plain,
+    multi_head_attention,
+    project_plain,
+)
 
 HEAD_DIMS = (64, 128)
 TILE = 64  # rows per tile of the kernels; the backward pads its row values to it
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
-def _fwd_fn():
-    fn = _build.load("flash_fwd").deepcoro_flash_fwd_bf16
+def _c_fn(lib: str, symbol: str, argtypes):
+    fn = getattr(_build.load(lib), symbol)
     if fn.argtypes is None:
-        fn.argtypes = ([_P] * 9 + [_I] * 5 + [_LL] * 12
-                       + [ctypes.c_float, _I, _P])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def _bwd_fn():
-    fn = _build.load("flash_bwd").deepcoro_flash_bwd_bf16
-    if fn.argtypes is None:
-        fn.argtypes = ([_P] * 15 + [_I] * 5 + [_LL] * 24
-                       + [ctypes.c_float, _I, _P])
-        fn.restype = ctypes.c_int
-    return fn
+def _fwd_fn(dtype: torch.dtype):
+    return _c_fn("flash_fwd", f"deepcoro_flash_fwd_{_SUFFIX[dtype]}",
+                 [_P] * 9 + [_I] * 5 + [_LL] * 12 + [ctypes.c_float, _I, _P])
+
+
+def _bwd_fn(dtype: torch.dtype):
+    return _c_fn("flash_bwd", f"deepcoro_flash_bwd_{_SUFFIX[dtype]}",
+                 [_P] * 15 + [_I] * 5 + [_LL] * 24 + [ctypes.c_float, _I, _P])
+
+
+def _fwd_proj_fn():
+    return _c_fn("flash_fwd_proj", "deepcoro_flash_fwd_proj_bf16",
+                 [_P] * 11 + [_I] * 6 + [_LL] * 12 + [ctypes.c_float, _I, _P])
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -58,15 +73,21 @@ def _aligned(t: torch.Tensor) -> bool:
             and not any(s % 8 for s in t.stride()[:3]))
 
 
-def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
+def _check_operand(name: str, t: torch.Tensor, device: torch.device,
+                   dtype: torch.dtype) -> None:
+    """``dtype`` is the type of q, which every operand shares: bf16 or, for
+    the ``[B, H, L, Dh]`` entry, fp32."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.bfloat16:
+    if dtype not in _SUFFIX:
         raise TypeError(
-            f"the CUDA flash kernel takes bfloat16, got {name} {t.dtype}")
+            f"the CUDA flash kernels take bfloat16 or float32, got {dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}, expected q's {dtype}")
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: the head dim must be contiguous")
-    if not _aligned(t):
+    # the bf16 kernels load 16 bytes at a time, the fp32 ones single values
+    if dtype == torch.bfloat16 and not _aligned(t):
         raise ValueError(
             f"{name}: base and strides must allow 16-byte loads "
             f"(ptr % 16 == 0, strides % 8 == 0), got strides {t.stride()}")
@@ -109,9 +130,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float,
               stats: Optional[torch.Tensor] = None) -> None:
     """Write attention of ``q`` over ``k``/``v`` into ``out`` (all views
-    ``[B, H, L, Dh]`` on one CUDA device, bf16). ``stats``, a contiguous
-    fp32 ``[2, B, H, Lq]`` buffer, receives each row's softmax maximum and
-    sum for the backward; without it nothing extra is written."""
+    ``[B, H, L, Dh]`` on one CUDA device, all bf16 or all fp32). ``stats``,
+    a contiguous fp32 ``[2, B, H, Lq]`` buffer, receives each row's softmax
+    maximum and sum for the backward; without it nothing extra is written."""
     mask = _check_problem(q, k, v, sin, cos, kv_mask)
     device = q.device
     B, H, Lq, Dh = q.shape
@@ -119,7 +140,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.shape != q.shape:
         raise ValueError(f"out shape {tuple(out.shape)} != q {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        _check_operand(name, t, device)
+        _check_operand(name, t, device, q.dtype)
     if stats is not None and (
             stats.shape != (2, B, H, Lq) or stats.dtype != torch.float32
             or stats.device != device or not stats.is_contiguous()):
@@ -127,8 +148,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"tensor on {device}")
     # RoPE of K is applied once, by a pre-pass, into this scratch copy
     k_rot = None if sin is None else torch.empty(
-        (B, H, Lk, Dh), dtype=torch.bfloat16, device=device)
-    err = _fwd_fn()(
+        (B, H, Lk, Dh), dtype=q.dtype, device=device)
+    err = _fwd_fn(q.dtype)(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(sin), _ptr(cos), _ptr(mask),
         _ptr(k_rot), _ptr(stats),
         B, H, Lq, Lk, Dh,
@@ -159,7 +180,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(like.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("do", do),
                     ("dq", dq), ("dk", dk), ("dv", dv)):
-        _check_operand(name, t, device)
+        _check_operand(name, t, device, q.dtype)
     if (stats.shape != (2, B, H, Lq) or stats.dtype != torch.float32
             or stats.device != device or not stats.is_contiguous()):
         raise ValueError(f"stats must be a contiguous float32 [2, {B}, {H}, {Lq}] "
@@ -168,9 +189,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows = torch.empty((3, B, H, lq_pad), dtype=torch.float32, device=device)
     q_rot = k_rot = None
     if sin is not None:  # q and k are rotated once, by a pre-pass, into these
-        q_rot = torch.empty((B, H, Lq, Dh), dtype=torch.bfloat16, device=device)
-        k_rot = torch.empty((B, H, Lk, Dh), dtype=torch.bfloat16, device=device)
-    err = _bwd_fn()(
+        q_rot = torch.empty((B, H, Lq, Dh), dtype=q.dtype, device=device)
+        k_rot = torch.empty((B, H, Lk, Dh), dtype=q.dtype, device=device)
+    err = _bwd_fn(q.dtype)(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(do), _ptr(stats), _ptr(sin),
         _ptr(cos), _ptr(mask), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(rows),
         _ptr(q_rot), _ptr(k_rot),
@@ -184,9 +205,74 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_bwd launch failed: CUDA error {err}")
 
 
+def flash_fwd_proj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   wo: torch.Tensor, y: torch.Tensor, *,
+                   out: Optional[torch.Tensor], stats: Optional[torch.Tensor],
+                   sin: Optional[torch.Tensor], cos: Optional[torch.Tensor],
+                   kv_mask: Optional[torch.Tensor], causal: bool,
+                   scale: float) -> None:
+    """Write ``concat_h(attention_h) @ wo`` into ``y`` ``[B, Lq, Dout]``
+    (contiguous). ``q``/``k``/``v`` are ``[B, H, L, 128]`` views of packed
+    bf16 operands, ``wo`` is ``[H*128, Dout]`` bf16, contiguous. ``out`` (a
+    ``[B, H, Lq, 128]`` view) and ``stats`` (fp32 ``[2, B, H, Lq]``) receive
+    the attention output and the row statistics for the backward; both or
+    neither are given."""
+    mask = _check_problem(q, k, v, sin, cos, kv_mask)
+    device = q.device
+    B, H, Lq, Dh = q.shape
+    Lk = k.shape[2]
+    D = H * Dh
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the fused-projection kernel takes bfloat16, got {q.dtype}")
+    if Dh != 128 or D > 1024:
+        raise ValueError(f"the fused-projection kernel takes Dh 128 and H*Dh <= 1024, "
+                         f"got Dh={Dh}, H={H}")
+    if wo.dim() != 2 or wo.shape[0] != D or wo.shape[1] % 128:
+        raise ValueError(f"wo must be [{D}, Dout] with Dout % 128 == 0, "
+                         f"got {tuple(wo.shape)}")
+    Dout = wo.shape[1]
+    if (wo.dtype != q.dtype or wo.device != device or not wo.is_contiguous()
+            or wo.data_ptr() % 16):
+        raise ValueError("wo must be a contiguous bfloat16 tensor on q's device")
+    if (y.shape != (B, Lq, Dout) or y.dtype != q.dtype or y.device != device
+            or not y.is_contiguous()):
+        raise ValueError(f"y must be a contiguous bfloat16 [{B}, {Lq}, {Dout}] tensor")
+    if (out is None) != (stats is None):
+        raise ValueError("out and stats are written together: give both or neither")
+    operands = [("q", q), ("k", k), ("v", v)]
+    if out is not None:
+        if out.shape != q.shape:
+            raise ValueError(f"out shape {tuple(out.shape)} != q {tuple(q.shape)}")
+        operands.append(("out", out))
+        if (stats.shape != (2, B, H, Lq) or stats.dtype != torch.float32
+                or stats.device != device or not stats.is_contiguous()):
+            raise ValueError(f"stats must be a contiguous float32 [2, {B}, {H}, {Lq}] "
+                             f"tensor on {device}")
+    for name, t in operands:
+        _check_operand(name, t, device, q.dtype)
+    k_rot = None if sin is None else torch.empty(
+        (B, H, Lk, Dh), dtype=q.dtype, device=device)
+    err = _fwd_proj_fn()(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(wo), _ptr(y), _ptr(out), _ptr(sin),
+        _ptr(cos), _ptr(mask), _ptr(k_rot), _ptr(stats),
+        B, H, Lq, Lk, Dh, Dout,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *(out.stride()[:3] if out is not None else (0, 0, 0)),
+        float(scale), int(bool(causal)),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_proj launch failed: CUDA error {err}")
+
+
 def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
     """[B, L, H*Dh] (any row stride) -> [B, H, L, Dh] view, no copy."""
     return t.unflatten(2, (H, t.shape[2] // H)).permute(0, 2, 1, 3)
+
+
+def _packed(t: torch.Tensor) -> torch.Tensor:
+    """[B, H, L, Dh] -> [B, L, H*Dh]."""
+    return t.permute(0, 2, 1, 3).flatten(2)
 
 
 def head_views(a, b, c, layout: str, H: int):
@@ -213,9 +299,9 @@ def attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout, H,
         m = None if kv_mask is None else kv_mask != 0
         out = multi_head_attention(qh, kh, vh, sin=sin, cos=cos, kv_mask=m,
                                    causal=causal, scale=scale)
-        if layout != "heads":
-            out = out.permute(0, 2, 1, 3).reshape(B, Lq, H * Dh)
-        return out, None
+        return (out if layout == "heads" else _packed(out)), None
+    if layout != "heads" and qh.dtype != torch.bfloat16:
+        raise TypeError(f"the packed CUDA flash kernels take bfloat16, got {qh.dtype}")
     if layout == "heads":
         out = torch.empty((B, H, Lq, Dh), dtype=qh.dtype, device=qh.device)
         oh = out
@@ -228,6 +314,46 @@ def attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout, H,
               scale=scale, stats=st)
     counter.launches += 1
     return out, st
+
+
+def attention_backward(a, b, c, out, stats, grad_out, sin, cos, kv_mask, causal,
+                       scale, layout, H, counter):
+    """Gradients of the attention for the gradient ``grad_out`` of its
+    output ``out`` (both in the layout of the inputs): ``(da, db, dc)`` in
+    that layout, ``(dqkv, None, None)`` for ``"fused"``. Launches the
+    backward kernels on a CUDA tensor and counts them on
+    ``counter.bwd_launches``; runs the plain version on a CPU tensor."""
+    def to_heads(t):
+        return t if layout == "heads" else _heads(t, H)
+
+    qh, kh, vh = head_views(a, b, c, layout, H)
+    oh = to_heads(out)
+    gh = to_heads(grad_out.to(out.dtype))
+    if a.device.type == "cpu":
+        m = None if kv_mask is None else kv_mask != 0
+        dq, dk, dv = flash_bwd_plain(qh, kh, vh, gh, oh, sin=sin, cos=cos,
+                                     kv_mask=m, causal=causal, scale=scale)
+        if layout == "heads":
+            return dq, dk, dv
+        flat = [_packed(g) for g in (dq, dk, dv)]
+        return ((torch.cat(flat, dim=-1), None, None)
+                if layout == "fused" else tuple(flat))
+    if not _aligned(gh):  # the gradient arrives with any strides
+        gh = to_heads(grad_out.to(out.dtype).contiguous())
+    if layout == "fused":
+        # one [B, L, 3D] gradient; the kernels write q|k|v's parts
+        # through strided views, nothing is concatenated
+        da = torch.empty_like(a, memory_format=torch.contiguous_format)
+        grads = (da, None, None)
+        dviews = head_views(da, None, None, layout, H)
+    else:
+        grads = tuple(torch.empty_like(
+            t, memory_format=torch.contiguous_format) for t in (a, b, c))
+        dviews = head_views(*grads, layout, H)
+    flash_bwd(qh, kh, vh, oh, gh, stats, *dviews, sin=sin, cos=cos,
+              kv_mask=kv_mask, causal=causal, scale=scale)
+    counter.bwd_launches += 1
+    return grads
 
 
 class FlashAttention(torch.autograd.Function):
@@ -248,45 +374,73 @@ class FlashAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad_out):
         a, b, c, out, stats, sin, cos, kv_mask = ctx.saved_tensors
-        causal, scale, layout, H, counter = ctx.args
         need = ctx.needs_input_grad[:3]
         if not any(need):
             return (None,) * 11
-
-        def to_heads(t):
-            return t if layout == "heads" else _heads(t, H)
-
-        qh, kh, vh = head_views(a, b, c, layout, H)
-        oh = to_heads(out)
-        gh = to_heads(grad_out.to(out.dtype))
-        if a.device.type == "cpu":
-            m = None if kv_mask is None else kv_mask != 0
-            dq, dk, dv = flash_bwd_plain(qh, kh, vh, gh, oh, sin=sin, cos=cos,
-                                         kv_mask=m, causal=causal, scale=scale)
-            if layout == "heads":
-                grads = (dq, dk, dv)
-            else:
-                flat = [g.permute(0, 2, 1, 3).flatten(2) for g in (dq, dk, dv)]
-                grads = ((torch.cat(flat, dim=-1), None, None)
-                         if layout == "fused" else tuple(flat))
-        else:
-            if not _aligned(gh):  # the gradient arrives with any strides
-                gh = to_heads(grad_out.to(out.dtype).contiguous())
-            if layout == "fused":
-                # one [B, L, 3D] gradient; the kernels write q|k|v's parts
-                # through strided views, nothing is concatenated
-                da = torch.empty_like(a, memory_format=torch.contiguous_format)
-                grads = (da, None, None)
-                dviews = head_views(da, None, None, layout, H)
-            else:
-                grads = tuple(torch.empty_like(
-                    t, memory_format=torch.contiguous_format) for t in (a, b, c))
-                dviews = head_views(*grads, layout, H)
-            flash_bwd(qh, kh, vh, oh, gh, stats, *dviews, sin=sin, cos=cos,
-                      kv_mask=kv_mask, causal=causal, scale=scale)
-            counter.bwd_launches += 1
+        grads = attention_backward(a, b, c, out, stats, grad_out, sin, cos, kv_mask,
+                                   *ctx.args)
         grads = tuple(g if n else None for g, n in zip(grads, need))
         return grads + (None,) * 8
+
+
+def attention_proj_forward(a, b, c, wo, sin, cos, kv_mask, causal, scale, layout, H,
+                           counter, residuals: bool):
+    """Forward of the fused projection for a packed layout: returns
+    ``(y, out or None, stats or None)`` with ``y`` ``[B, Lq, Dout]``.
+    Launches the kernel on a CUDA tensor and counts it on
+    ``counter.proj_launches``; runs the plain versions on a CPU tensor.
+    ``out`` (the attention output, the backward's residual) and ``stats``
+    are produced only with ``residuals``."""
+    qh, kh, vh = head_views(a, b, c, layout, H)
+    B, _, Lq, Dh = qh.shape
+    if qh.device.type == "cpu":
+        m = None if kv_mask is None else kv_mask != 0
+        out = _packed(multi_head_attention(qh, kh, vh, sin=sin, cos=cos, kv_mask=m,
+                                           causal=causal, scale=scale))
+        return project_plain(out, wo), (out if residuals else None), None
+    y = torch.empty((B, Lq, wo.shape[1]), dtype=qh.dtype, device=qh.device)
+    out = st = oh = None
+    if residuals:
+        out = torch.empty((B, Lq, H * Dh), dtype=qh.dtype, device=qh.device)
+        oh = _heads(out, H)
+        st = torch.empty((2, B, H, Lq), dtype=torch.float32, device=qh.device)
+    flash_fwd_proj(qh, kh, vh, wo, y, out=oh, stats=st, sin=sin, cos=cos,
+                   kv_mask=kv_mask, causal=causal, scale=scale)
+    counter.proj_launches += 1
+    return y, out, st
+
+
+class FlashAttentionProj(torch.autograd.Function):
+    """Packed attention with the output projection ``wo`` ``[D, Dout]`` fused
+    into the forward kernel. The backward un-projects the gradient
+    (``do = gy @ wo^T``) and forms ``dwo = out^T gy`` with two matrix
+    products, as the JAX package leaves them to XLA, and hands ``do`` to the
+    backward kernels of the unfused attention."""
+
+    @staticmethod
+    def forward(ctx, a, b, c, wo, sin, cos, kv_mask, causal, scale, layout, H, counter):
+        y, out, stats = attention_proj_forward(a, b, c, wo, sin, cos, kv_mask, causal,
+                                               scale, layout, H, counter, residuals=True)
+        ctx.save_for_backward(a, b, c, wo, out, stats, sin, cos, kv_mask)
+        ctx.args = (causal, scale, layout, H, counter)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_y):
+        a, b, c, wo, out, stats, sin, cos, kv_mask = ctx.saved_tensors
+        need = ctx.needs_input_grad[:4]
+        gy = grad_y.to(out.dtype)
+        dwo = None
+        if need[3]:  # summed in fp32 by the product, rounded once to wo's type
+            dwo = torch.matmul(out.flatten(0, 1).t(), gy.flatten(0, 1))
+        grads = (None, None, None)
+        if any(need[:3]):
+            do = torch.matmul(gy, wo.t())
+            grads = attention_backward(a, b, c, out, stats, do, sin, cos, kv_mask,
+                                       *ctx.args)
+            grads = tuple(g if n else None for g, n in zip(grads, need))
+        return grads + (dwo,) + (None,) * 8
 
 
 def attention(a, b, c, *, sin, cos, kv_mask, causal, scale, layout, H, counter):
@@ -300,3 +454,18 @@ def attention(a, b, c, *, sin, cos, kv_mask, causal, scale, layout, H, counter):
                                     layout, H, counter)
     return attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout,
                              H, counter, stats=False)[0]
+
+
+def attention_proj(a, b, c, wo, *, sin, cos, kv_mask, causal, scale, layout, H,
+                   counter):
+    """Packed attention followed by the projection ``wo`` ``[D, Dout]``, in
+    one kernel on the card: through ``FlashAttentionProj`` when a gradient
+    is wanted, straight through the forward otherwise (then neither the
+    attention output nor the row statistics are written)."""
+    wants_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (a, b, c, wo))
+    if wants_grad:
+        return FlashAttentionProj.apply(a, b, c, wo, sin, cos, kv_mask, causal,
+                                        scale, layout, H, counter)
+    return attention_proj_forward(a, b, c, wo, sin, cos, kv_mask, causal, scale,
+                                  layout, H, counter, residuals=False)[0]

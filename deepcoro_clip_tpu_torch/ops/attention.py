@@ -7,7 +7,8 @@ inputs); masked logits take ``finfo(float32).min`` (a finite value), so a
 query row with no valid key comes out as the uniform mean of ``v`` over
 the real keys.
 
-``flash_bwd_plain`` is the backward written out on tensors (Dao's formula
+``project_plain`` is the output projection as the fused-projection kernel
+rounds it. ``flash_bwd_plain`` is the backward written out on tensors (Dao's formula
 with the rounding points of the JAX package's Pallas ``_bwd_kernel``s): the
 plain version of the CUDA backward kernels, and what the attention
 ``autograd.Function`` runs for a CPU tensor.
@@ -83,6 +84,15 @@ def multi_head_attention(
         logits = logits.masked_fill(masked, NEG)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def project_plain(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``out @ wo`` as the fused-projection kernel computes it: ``out``
+    ``[B, L, D]`` is the attention output already rounded to the operand
+    type, ``wo`` ``[D, Dout]`` has that type too, the products are summed in
+    fp32 (fp64 for fp64 operands) and the sum is rounded once."""
+    acc = _acc_dtype(out.dtype)
+    return torch.matmul(out.to(acc), wo.to(acc)).to(out.dtype)
 
 
 def flash_bwd_plain(

@@ -1,4 +1,4 @@
-"""Flash attention over packed ``[B, L, H*Dh]`` activations (K1, K2).
+"""Flash attention over packed ``[B, L, H*Dh]`` activations (K1, K2, K5).
 
 Counterpart of the JAX package's
 ``ops/flash_attention_packed.flash_attention_packed``, whose Pallas
@@ -13,8 +13,14 @@ side of the kernels, and the backward writes dq|dk|dv straight into one
 CUDA tensor it launches the kernels or raises. ``launches`` and
 ``bwd_launches`` count the forward and backward kernel launches.
 
-The fused output projection (``wo``) of the JAX function is off by default
-there and not ported yet.
+With ``wo`` the output projection rides in the forward kernel
+(``csrc/flash_fwd_proj.cu``, replacing the Pallas ``_fwd_proj_kernel``): the
+attention output never makes its round trip through device memory unless a
+gradient is wanted, when it is the backward's residual. Such a forward
+counts on ``proj_launches``, not on ``launches``; its backward is two
+matrix products and the same backward kernels (``bwd_launches``). The JAX
+wrapper's silent fall-backs to "kernel, then dot" have no counterpart here.
+The kernels of this entry take bf16 on the card.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from deepcoro_clip_tpu_torch.ops._flash_cuda import attention
+from deepcoro_clip_tpu_torch.ops._flash_cuda import attention, attention_proj
 
 LANE = 128
 
@@ -40,10 +46,15 @@ def flash_attention_packed(
     kv_mask: Optional[torch.Tensor] = None,
     causal: bool = False,
     scale: Optional[float] = None,
+    wo: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Either ``q``/``k``/``v`` (each ``[B, L, D]``) or one fused ``qkv``
     ``[B, L, 3D]`` (self-attention, split q|k|v). Requires
-    ``Dh % 128 == 0``. Returns ``[B, Lq, D]``."""
+    ``Dh % 128 == 0``. Returns ``[B, Lq, D]``.
+
+    ``wo`` (``[D, Dout]``, cast to the operands' type): apply the output
+    projection inside the kernel and return the projected ``[B, Lq, Dout]``
+    (the bias stays with the caller)."""
     if qkv is not None:
         (B, Lq, D3), Lk = qkv.shape, qkv.shape[1]
         D = D3 // 3
@@ -58,11 +69,18 @@ def flash_attention_packed(
     scale_v = float(scale if scale is not None else dh ** -0.5)
     kw = dict(sin=sin, cos=cos, kv_mask=kv_mask, causal=causal, scale=scale_v,
               H=H, counter=flash_attention_packed)
-    if qkv is not None:
-        return attention(qkv, None, None, layout="fused", **kw)
-    return attention(q, k, v, layout="packed", **kw)
+    a, b, c, layout = (qkv, None, None, "fused") if qkv is not None else (
+        q, k, v, "packed")
+    if wo is None:
+        return attention(a, b, c, layout=layout, **kw)
+    if wo.dim() != 2 or wo.shape[0] != D:
+        raise ValueError(f"wo must be [{D}, Dout], got {tuple(wo.shape)}")
+    # one cast and one copy of the [D, Dout] weights per call
+    wo = wo.to(a.dtype).contiguous()
+    return attention_proj(a, b, c, wo, layout=layout, **kw)
 
 
 # kernel launches, for checks that the path ran them
 flash_attention_packed.launches = 0
 flash_attention_packed.bwd_launches = 0
+flash_attention_packed.proj_launches = 0  # forwards with the projection fused in

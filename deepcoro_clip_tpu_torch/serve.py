@@ -17,13 +17,15 @@ Endpoints:
 
 Usage:
   python -m deepcoro_clip_tpu_torch.serve [--text_bank bank.npz]
-      [--params video_params.npz] [--port 8080] [--max_batch 4]
+      [--base_config cfg.yaml] [--params video_params.npz] [--port 8080] [--max_batch 4]
       [--batch_window_ms 10] [--num_videos 10] [--top_k 5] [--device cuda]
 
 ``bank.npz`` holds ``text_embeddings`` [M, D] and ``texts`` [M] (as
 written by the JAX package's scripts/generate_embeddings.py). ``--params``
 is the video tower's parameter tree saved by ``convert.save_params_npz``;
-without it the tower is randomly initialized from seed 0.
+without it the tower is randomly initialized from seed 0. ``--base_config``
+is the YAML of a contrastive run (``configs.parse_config``); without it the
+flagship configuration is served.
 """
 
 from __future__ import annotations
@@ -259,6 +261,12 @@ def build_server(args) -> tuple[ThreadingHTTPServer, InferenceEngine]:
 
     if args.tiny:
         cfg = tiny_config(multi_video=True, num_videos=args.num_videos)
+    elif getattr(args, "base_config", None):
+        from deepcoro_clip_tpu_torch.configs import parse_config
+
+        cfg = parse_config(["--base_config", args.base_config])
+        cfg.multi_video = True
+        cfg.num_videos = args.num_videos
     else:
         cfg = flagship_config(multi_video=True, num_videos=args.num_videos)
 
@@ -292,6 +300,8 @@ def build_server(args) -> tuple[ThreadingHTTPServer, InferenceEngine]:
 
 def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    ap.add_argument("--base_config", default=None,
+                    help="YAML of a DeepCORO_clip run (default: the flagship config)")
     ap.add_argument("--params", default=None,
                     help="video-tower params .npz (convert.save_params_npz)")
     ap.add_argument("--text_bank", default=None,

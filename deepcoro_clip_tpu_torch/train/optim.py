@@ -1,13 +1,15 @@
 """Optimizer assembly: per-component parameter groups, clipping, freeze masks.
 
-Port of the JAX package's ``train/optim.py``. Parameters travel as one flat
-dict ``name -> tensor`` with ``.``-joined names under the four top-level
-keys of the training tree (``video_encoder.``, ``text_encoder.``,
-``log_temp``, ``logit_bias``).
+Port of the JAX package's ``train/optim.py`` (and of ``make_probe_optimizer``
+of its ``train/linear_probe.py``). Parameters travel as one flat dict
+``name -> tensor`` with ``.``-joined names under the top-level keys of the
+training tree (``video_encoder.``, ``text_encoder.``, ``log_temp``,
+``logit_bias``; for linear probing ``video_encoder.`` and ``mil.``).
 
 What ``optax`` does there and this module does by hand:
 
-- four groups as in ``optax.multi_transform``: ``video``, ``video_2x``
+- labelled groups as in ``optax.multi_transform`` (``GroupedOptimizer``);
+  for the contrastive step four: ``video``, ``video_2x``
   (aggregator and pools, twice the rate), ``text`` (rate scaled by
   ``text_lr / lr``) and ``scalar`` (``log_temp``, ``logit_bias``: no decay,
   no clipping); the global-norm clip sits inside each group, so ``video``
@@ -132,32 +134,18 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(ts)))
 
 
-class ClipOptimizer:
-    """The contrastive pipeline's optimizer over the flat training dict."""
+class GroupedOptimizer:
+    """One optimizer kind over labelled parameter groups, as
+    ``optax.multi_transform`` of per-group ``clip_by_global_norm`` + update
+    chains: ``hyper`` maps a label to (rate scale, weight decay, clip norm
+    or None), ``labels`` a parameter name to its label."""
 
-    def __init__(self, config, schedule, params: Mapping[str, torch.Tensor]):
-        kind = (config.optimizer or "AdamW").lower()
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"optimizer {config.optimizer!r} is not ported yet "
-                f"(ported: {', '.join(_OPTIMIZERS)})")
-        if kind not in _OPTIMIZERS:
-            raise ValueError(f"unknown optimizer {config.optimizer!r}; "
-                             f"have {sorted(_OPTIMIZERS + _NOT_PORTED)}")
-        self.kind, self.schedule = kind, schedule
-        video_clip = config.video_max_grad_norm or config.max_grad_norm
-        text_clip = config.text_max_grad_norm or config.max_grad_norm
-        # label -> (rate scale, weight decay, clip norm)
-        self.hyper = {
-            "video": (1.0, config.video_weight_decay, video_clip),
-            "video_2x": (2.0, config.video_weight_decay, video_clip),
-            "text": (config.text_lr / max(config.lr, 1e-12),
-                     config.text_weight_decay, text_clip),
-            "scalar": (1.0, 0.0, None),
-        }
+    def __init__(self, kind: str, schedule, hyper: Mapping[str, tuple],
+                 labels: Mapping[str, str]):
+        self.kind, self.schedule, self.hyper = kind, schedule, dict(hyper)
         self.groups: Dict[str, List[str]] = {label: [] for label in self.hyper}
-        for name in params:
-            self.groups[group_label(name)].append(name)
+        for name, label in labels.items():
+            self.groups[label].append(name)
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
         device = next(iter(params.values())).device
@@ -239,7 +227,7 @@ class MultiSteps:
     the updates are zero. ``mini_step`` and ``gradient_step`` live on the
     device, so the window closes without the host reading a flag."""
 
-    def __init__(self, inner: ClipOptimizer, every: int):
+    def __init__(self, inner: GroupedOptimizer, every: int):
         self.inner, self.every = inner, every
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
@@ -263,6 +251,83 @@ class MultiSteps:
         mini.add_(gate.to(torch.int64) * (1 - closed) - closed * mini)
         state["gradient_step"].add_(closed)
         return updates
+
+
+class ClipOptimizer(GroupedOptimizer):
+    """The contrastive pipeline's optimizer over the flat training dict."""
+
+    def __init__(self, config, schedule, params: Mapping[str, torch.Tensor]):
+        kind = (config.optimizer or "AdamW").lower()
+        if kind in _NOT_PORTED:
+            raise NotImplementedError(
+                f"optimizer {config.optimizer!r} is not ported yet "
+                f"(ported: {', '.join(_OPTIMIZERS)})")
+        if kind not in _OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {config.optimizer!r}; "
+                             f"have {sorted(_OPTIMIZERS + _NOT_PORTED)}")
+        video_clip = config.video_max_grad_norm or config.max_grad_norm
+        text_clip = config.text_max_grad_norm or config.max_grad_norm
+        hyper = {
+            "video": (1.0, config.video_weight_decay, video_clip),
+            "video_2x": (2.0, config.video_weight_decay, video_clip),
+            "text": (config.text_lr / max(config.lr, 1e-12),
+                     config.text_weight_decay, text_clip),
+            "scalar": (1.0, 0.0, None),
+        }
+        super().__init__(kind, schedule, hyper, {n: group_label(n) for n in params})
+
+
+def probe_group_label(name: str, head_structure) -> str:
+    """The linear-probing group of a parameter of the flat training dict
+    (``video_encoder.*``, ``mil.*``). The head test is a substring test in
+    ``head_structure`` order, as in the JAX package: a head whose name starts
+    with an earlier head's name (``stenosis_binary`` after ``stenosis``)
+    lands in the earlier head's group."""
+    if name.split(".", 1)[0] == "video_encoder":
+        return "encoder"
+    for head in head_structure:
+        if f"head_{head}" in name:
+            return f"head_{head}"
+    if "view_embeddings" in name:
+        return "view_embedding"
+    if "within" in name:
+        return "attention_within"
+    if "across" in name or "shared" in name:
+        return "attention_across"
+    return "mil_other"
+
+
+def make_probe_optimizer(config, schedule, params: Mapping[str, torch.Tensor]):
+    """The linear-probing AdamW: groups ``encoder``, ``view_embedding``,
+    ``attention_within``, ``attention_across``, ``mil_other`` and one per
+    head, each clipped by its own global norm (``max_grad_norm or 1.0``),
+    with its own rate (as a multiple of the schedule's) and weight decay."""
+    c = config
+    clip = c.max_grad_norm or 1.0
+
+    def group(lr_value, decay):
+        base = c.lr
+        scale = (lr_value if lr_value is not None else base) / max(base, 1e-12)
+        return (scale, decay, clip)
+
+    hyper = {
+        "encoder": group(c.lr, c.weight_decay),
+        "view_embedding": group(c.view_embedding_lr, c.weight_decay),
+        "attention_within": group(
+            c.attention_within_lr or c.attention_lr,
+            c.attention_within_weight_decay or c.attention_weight_decay
+            or c.weight_decay),
+        "attention_across": group(
+            c.attention_across_lr or c.attention_lr,
+            c.attention_across_weight_decay or c.attention_weight_decay
+            or c.weight_decay),
+        "mil_other": group(c.lr, c.weight_decay),
+    }
+    for head in c.head_structure:
+        hyper[f"head_{head}"] = group(c.head_lr.get(head, c.lr),
+                                      c.head_weight_decay.get(head, c.weight_decay))
+    labels = {n: probe_group_label(n, c.head_structure) for n in params}
+    return GroupedOptimizer("adamw", schedule, hyper, labels)
 
 
 def make_clip_optimizer(config, schedule, params: Mapping[str, torch.Tensor]):

@@ -17,7 +17,11 @@ to bf16 on the way out, and the plain version starts from its own ``out``).
 import pytest
 import torch
 
-from deepcoro_clip_tpu_torch.ops.attention import flash_bwd_plain, multi_head_attention
+from deepcoro_clip_tpu_torch.ops.attention import (
+    flash_bwd_plain,
+    multi_head_attention,
+    project_plain,
+)
 from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
 from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
 from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
@@ -89,9 +93,14 @@ def test_results_do_not_depend_on_batch_size(cuda):
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
-    q = torch.zeros(1, 2, 16, 64, device=cuda)
-    with pytest.raises(TypeError, match="bfloat16"):
+    q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         flash_attention(q, q, q)
+    q = torch.zeros(1, 16, 256, device=cuda)  # the packed entry stays bf16-only
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention_packed(q, q, q, num_heads=2)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention_packed(q, q, q, num_heads=2, wo=torch.zeros(256, 256, device=cuda))
     q = torch.zeros(1, 2, 16, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="Dh in"):
         flash_attention(q, q, q)
@@ -209,6 +218,141 @@ def test_no_grad_writes_no_statistics_and_matches(cuda):
 
 
 def test_backward_rejects_fp32_on_the_card(cuda):
-    q = torch.zeros(1, 2, 16, 64, device=cuda, requires_grad=True)
+    """The packed entry: its kernels are bf16-only, with a gradient too."""
+    q = torch.zeros(1, 16, 256, device=cuda, requires_grad=True)
     with pytest.raises(TypeError, match="bfloat16"):
-        flash_attention(q, q, q)
+        flash_attention_packed(q, q, q, num_heads=2)
+
+
+# --------------------------------------------------------------------------- #
+# fp32 operands on the [B, H, L, Dh] entry (K3, K4)
+
+# kernel vs plain, both fp32: the kernel folds log2(e) into the scale and
+# takes exp2, sums in another order and contracts a*b+c into FMAs
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["rope", "mask", "causal", "cross"])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_fp32_kernels_match_plain(cuda, mode, dh):
+    """Forward and gradients of flash_attention on fp32 operands (strided
+    views of a packed [B, L, H*Dh] tensor, as the layers hand them over)
+    against the plain versions in fp32, with nothing cast to bf16."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    H, L = 512 // dh, 199
+    Lk = 77 if mode in ("mask", "cross") else L
+    q, k, v = (torch.randn(2, n, 512, generator=g, device=cuda) for n in (L, Lk, Lk))
+    do = torch.randn(2, L, 512, generator=g, device=cuda)
+    kw = {}
+    if mode == "rope":
+        sin, cos = _rope(dh, cuda)
+        kw = dict(sin=sin, cos=cos)
+    elif mode == "causal":
+        kw = dict(causal=True)
+    elif mode == "mask":
+        m = torch.rand(2, Lk, generator=g, device=cuda) > 0.5
+        m[1] = False
+        kw = dict(kv_mask=m)
+
+    def heads(t):
+        return t.unflatten(2, (H, dh)).transpose(1, 2)
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n_f, n_b = flash_attention.launches, flash_attention.bwd_launches
+    out = flash_attention(*[heads(t) for t in leaves], **kw)
+    assert out.dtype == torch.float32 and out.grad_fn is not None
+    ref = multi_head_attention(*[heads(t) for t in (q, k, v)], **kw)
+    torch.testing.assert_close(out.detach(), ref, **F32_TOL)
+    with torch.no_grad():
+        assert torch.equal(flash_attention(*[heads(t) for t in leaves], **kw), out.detach())
+    got = torch.autograd.grad(out, leaves, heads(do), retain_graph=True)
+    again = torch.autograd.grad(out, leaves, heads(do))
+    assert (flash_attention.launches, flash_attention.bwd_launches) == (n_f + 2, n_b + 2)
+    want = flash_bwd_plain(*[heads(t) for t in (q, k, v)], heads(do), ref, **kw)
+    for name, a, b, r in zip("qkv", got, again, want):
+        assert torch.equal(a, b)
+        # gradients are sums of up to 199 products of O(1) values
+        torch.testing.assert_close(a, r.transpose(1, 2).flatten(2), atol=5e-5, rtol=1e-5,
+                                   msg=lambda s, n=name: f"d{n}: {s}")
+    if mode == "mask":
+        assert float(got[0][1].abs().max()) == 0.0 and float(got[2][1].abs().max()) > 0.0
+
+
+# --------------------------------------------------------------------------- #
+# the forward with the output projection fused in (K5)
+
+
+def _proj_plain(q, k, v, wo, H, **kw):
+    """The plain version, and the attention output it projects."""
+    heads = [t.unflatten(2, (H, t.shape[2] // H)).transpose(1, 2) for t in (q, k, v)]
+    out = multi_head_attention(*heads, **kw).transpose(1, 2).flatten(2)
+    return project_plain(out, wo), out
+
+
+@pytest.mark.parametrize("mode", ["rope", "mask", "causal", "plain"])
+def test_fused_projection_matches_plain(cuda, mode):
+    """K5 on [2, 199|130, 512] bf16 with a [512, 384] projection: y against
+    the plain version (forward tolerance of K1), dqkv/dwo against the plain
+    backward, K1 never launched, K2 launched by the backward, bit-equal run
+    to run, and the same bits with and without a gradient wanted."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    L = 199
+    Lk = 130 if mode == "mask" else L
+    q, k, v = (torch.randn(2, n, 512, generator=g, device=cuda).to(torch.bfloat16)
+               for n in (L, Lk, Lk))
+    wo = (torch.randn(512, 384, generator=g, device=cuda) * 512 ** -0.5)
+    gy = torch.randn(2, L, 384, generator=g, device=cuda).to(torch.bfloat16)
+    kw = {}
+    if mode == "rope":
+        sin, cos = _rope(128, cuda)
+        kw = dict(sin=sin, cos=cos)
+    elif mode == "causal":
+        kw = dict(causal=True)
+    elif mode == "mask":
+        m = torch.rand(2, Lk, generator=g, device=cuda) > 0.5
+        m[1] = False
+        kw = dict(kv_mask=m)
+    fn = flash_attention_packed
+    before = (fn.launches, fn.proj_launches, fn.bwd_launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, wo)]
+    y = fn(*leaves[:3], num_heads=4, wo=leaves[3], **kw)
+    assert y.shape == (2, L, 384) and y.dtype == torch.bfloat16 and y.grad_fn is not None
+    wo16 = wo.to(torch.bfloat16)
+    ref, ref_out = _proj_plain(q, k, v, wo16, 4, **kw)
+    torch.testing.assert_close(y.detach().float(), ref.float(), **TOL)
+    with torch.no_grad():
+        assert torch.equal(fn(q, k, v, num_heads=4, wo=wo, **kw), y.detach())
+    got = torch.autograd.grad(y, leaves, gy, retain_graph=True)
+    again = torch.autograd.grad(y, leaves, gy)
+    assert (fn.launches, fn.proj_launches, fn.bwd_launches) == (
+        before[0], before[1] + 2, before[2] + 2)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert got[3].dtype == torch.float32 and got[3].shape == wo.shape
+    do = torch.matmul(gy, wo16.t())
+    heads = [t.unflatten(2, (4, 128)).transpose(1, 2) for t in (q, k, v, do, ref_out)]
+    want = [t.transpose(1, 2).flatten(2) for t in flash_bwd_plain(*heads, **kw)]
+    want.append(torch.matmul(ref_out.flatten(0, 1).t().float(), gy.flatten(0, 1).float()))
+    for name, a, r in zip(("q", "k", "v", "wo"), got, want):
+        # dwo sums 398 rows: its bf16 rounding (2^-9 relative) is of |dwo| ~ 10
+        tol = dict(atol=1e-1, rtol=2e-2) if name == "wo" else BWD_TOL
+        torch.testing.assert_close(a.float(), r.float(), **tol,
+                                   msg=lambda s, n=name: f"d{n}: {s}")
+
+
+def test_fused_projection_on_fused_qkv(cuda):
+    """The layer's call: one fused [B, L, 3D] operand with RoPE; same bits
+    as the separate-operand call, and one [B, L, 3D] gradient."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    sin, cos = _rope(128, cuda)
+    qkv = torch.randn(3, 199, 3 * 256, generator=g, device=cuda).to(torch.bfloat16)
+    wo = torch.randn(256, 256, generator=g, device=cuda) / 16
+    leaf = qkv.clone().requires_grad_()
+    y = flash_attention_packed(qkv=leaf, num_heads=2, sin=sin, cos=cos, wo=wo)
+    parts = [t.contiguous() for t in qkv.split(256, dim=-1)]
+    y2 = flash_attention_packed(*parts, num_heads=2, sin=sin, cos=cos, wo=wo)
+    assert torch.equal(y.detach(), y2)
+    ref, _ = _proj_plain(*parts, wo.to(torch.bfloat16), 2, sin=sin, cos=cos)
+    torch.testing.assert_close(y.detach().float(), ref.float(), **TOL)
+    (dqkv,) = torch.autograd.grad(y, leaf, torch.ones_like(y))
+    assert dqkv.shape == qkv.shape and torch.isfinite(dqkv).all()

@@ -187,9 +187,23 @@ def test_video_encoder_get_tokens_match_jax(encoders, mode):
     _close(got, ref)
 
 
-def test_attention_pooling_waits_for_a_later_slice():
-    with pytest.raises(NotImplementedError, match="AttentionPool"):
-        tve.video_encoder_from_config(tiny_config(pooling_mode="attention"))
+def test_video_encoder_attention_pooling_matches_jax():
+    """The wait is over: ``pooling_mode="attention"`` builds the AttentionPool
+    (the cross-attention path of ``Attention``) and the study embedding
+    matches the JAX encoder's from the same weights."""
+    jm = jve.video_encoder_from_config(jax_tiny(pooling_mode="attention"))
+    tm = tve.video_encoder_from_config(tiny_config(pooling_mode="attention"))
+    r = np.random.default_rng(9)
+    x = r.normal(size=(2, 2, 4, 32, 32, 3)).astype(np.float32)
+    mask = np.array([[1, 1], [1, 0]], bool)
+    params = jm.init(jax.random.PRNGKey(8), jnp.asarray(x),
+                     video_mask=jnp.asarray(mask))["params"]
+    assert set(params["pool"]) == {"query", "attn", "norm"}
+    tm = _load(tm, params)
+    ref = jm.apply({"params": params}, jnp.asarray(x), video_mask=jnp.asarray(mask))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), video_mask=torch.from_numpy(mask))
+    _close(got, ref)
 
 
 # --------------------------------------------------------------------------- #

@@ -335,3 +335,175 @@ def test_wrappers_keep_the_graph_and_count_nothing_on_the_cpu():
         assert flash_attention(q, k, k).grad_fn is None
     assert counts == (flash_attention_packed.launches, flash_attention_packed.bwd_launches,
                       flash_attention.launches, flash_attention.bwd_launches)
+
+
+# --------------------------------------------------------------------------- #
+# K5: the output projection fused into the packed forward (wo=)
+#
+# Held against the JAX function with wo= and backend="interpret" (the Pallas
+# _fwd_proj_kernel in interpret mode, as tests/ops/test_fused_outproj.py runs
+# it), gradients by jax.grad. fp32 on both sides: 5e-5 forward, 1e-4
+# gradients, the JAX tests' own tolerances.
+
+PTOL = dict(atol=5e-5, rtol=5e-5)
+PGTOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _proj_case(case):
+    """(args, torch kwargs, jax kwargs, fused?) of one mode."""
+    kw_t, kw_j = {}, {}
+    L = Lk = 70
+    if case in ("fused_rope_ragged", "fused_plain"):
+        sin, cos = _rope(128, (2, 5, 5))
+        L = Lk = sin.shape[0]
+        if case == "fused_rope_ragged":
+            kw_t = dict(sin=torch.from_numpy(sin), cos=torch.from_numpy(cos))
+            kw_j = dict(sin=jnp.asarray(sin), cos=jnp.asarray(cos))
+    elif case == "qkv_mask_cross":
+        L, Lk = 40, 90
+        m = _mask(B1, Lk, 60)
+        kw_t = dict(kv_mask=torch.from_numpy(m))
+        kw_j = dict(kv_mask=jnp.asarray(m.astype(np.int32)))
+    elif case == "causal":
+        kw_t = kw_j = dict(causal=True)
+    fused = case.startswith("fused")
+    if fused:
+        args = [_np((B1, L, 3 * D1), 61)]
+    else:
+        args = [_np((B1, L, D1), 62), _np((B1, Lk, D1), 63), _np((B1, Lk, D1), 64)]
+    wo = (np.random.default_rng(65).normal(size=(D1, 384)) * 0.1).astype(np.float32)
+    return args + [wo], kw_t, kw_j, fused, L
+
+
+def _proj_fns(kw_t, kw_j, fused):
+    if fused:
+        return (lambda x, w: flash_attention_packed(qkv=x, num_heads=H1, wo=w, **kw_t),
+                lambda x, w: jfap.flash_attention_packed(
+                    qkv=x, num_heads=H1, wo=w, backend="interpret", **kw_j))
+    return (lambda q, k, v, w: flash_attention_packed(q, k, v, num_heads=H1, wo=w, **kw_t),
+            lambda q, k, v, w: jfap.flash_attention_packed(
+                q, k, v, num_heads=H1, wo=w, backend="interpret", **kw_j))
+
+
+@pytest.mark.parametrize("case", ["fused_rope_ragged", "fused_plain", "qkv_mask_cross",
+                                  "causal"])
+def test_fused_projection_matches_jax_interpret(case):
+    """K5 forward: [B, Lq, Dout] with Dout != D, fused and separate operands,
+    RoPE, key mask with Lq != Lk, causal; and the same numbers as the
+    unfused call followed by the product."""
+    args, kw_t, kw_j, fused, L = _proj_case(case)
+    tfn, jfn = _proj_fns(kw_t, kw_j, fused)
+    ref = jfn(*map(jnp.asarray, args))
+    n = flash_attention_packed.proj_launches
+    got = tfn(*map(torch.from_numpy, args))
+    assert got.shape == (B1, L, 384) == ref.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **PTOL)
+    targs = list(map(torch.from_numpy, args))
+    unfused = (flash_attention_packed(qkv=targs[0], num_heads=H1, **kw_t) if fused
+               else flash_attention_packed(*targs[:3], num_heads=H1, **kw_t))
+    np.testing.assert_allclose(got.numpy(), (unfused @ targs[-1]).numpy(), **PTOL)
+    assert flash_attention_packed.proj_launches == n  # CPU tensors reach no kernel
+
+
+@pytest.mark.parametrize("case", ["fused_rope_ragged", "qkv_mask_cross", "causal"])
+def test_fused_projection_backward_matches_jax_interpret(case):
+    """K5's Function on the CPU (do = gy wo^T and dwo = out^T gy as matrix
+    products, dq/dk/dv from flash_bwd_plain) against jax.grad through the
+    Pallas kernels in interpret mode: one [B, L, 3D] gradient for the fused
+    operand, and dwo."""
+    args, kw_t, kw_j, fused, L = _proj_case(case)
+    tfn, jfn = _proj_fns(kw_t, kw_j, fused)
+    gy = _np((B1, L, 384), 66)
+    ref = _jax_grads(jfn, args, gy)
+    out, got = _torch_grads(tfn, args, gy)
+    assert len(got) == len(args) and got[0].shape == args[0].shape
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **PGTOL)
+
+
+def test_fused_projection_fully_masked_row_matches_oracle():
+    """A row with no valid key follows the XLA oracle, as K1 does: the
+    uniform mean of v over the real keys, projected."""
+    q, k, v = _np((B1, 12, D1), 67), _np((B1, 12, D1), 68), _np((B1, 12, D1), 69)
+    wo = _np((D1, D1), 70)
+    m = _mask(B1, 12, 71, dead_row=1)
+    ref = jfap.flash_attention_packed(*map(jnp.asarray, (q, k, v)), num_heads=H1,
+                                      kv_mask=jnp.asarray(m), wo=jnp.asarray(wo),
+                                      backend="xla")
+    got = flash_attention_packed(*map(torch.from_numpy, (q, k, v)), num_heads=H1,
+                                 kv_mask=torch.from_numpy(m), wo=torch.from_numpy(wo))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **PTOL)
+    np.testing.assert_allclose(got.numpy()[1], np.broadcast_to(v[1].mean(0) @ wo, (12, D1)),
+                               atol=1e-5)
+
+
+def test_fused_projection_rounds_where_the_kernel_does():
+    """bf16 operands: wo is cast to the operands' type, the attention output
+    is rounded to bf16 before the product, the product sums in fp32 and is
+    rounded once; and wo of another height raises."""
+    from deepcoro_clip_tpu_torch.ops.attention import project_plain
+
+    qkv = torch.from_numpy(_np((1, 9, 3 * D1), 72)).to(torch.bfloat16)
+    wo = torch.from_numpy(_np((D1, 128), 73))
+    got = flash_attention_packed(qkv=qkv, num_heads=H1, wo=wo)
+    out = flash_attention_packed(qkv=qkv, num_heads=H1)
+    assert got.dtype == torch.bfloat16 and out.dtype == torch.bfloat16
+    want = (out.float() @ wo.to(torch.bfloat16).float()).to(torch.bfloat16)
+    assert torch.equal(got, want)
+    assert torch.equal(got, project_plain(out, wo.to(torch.bfloat16)))
+    with pytest.raises(ValueError, match="wo must be"):
+        flash_attention_packed(qkv=qkv, num_heads=H1, wo=wo[:100])
+
+
+def test_fused_projection_keeps_the_graph_and_counts_nothing_on_the_cpu():
+    counts = (flash_attention_packed.launches, flash_attention_packed.proj_launches,
+              flash_attention_packed.bwd_launches)
+    qkv = torch.from_numpy(_np((1, 6, 3 * 128), 74)).requires_grad_()
+    wo = torch.from_numpy(_np((128, 128), 75)).requires_grad_()
+    y = flash_attention_packed(qkv=qkv, num_heads=1, wo=wo)
+    assert y.grad_fn is not None
+    y.sum().backward()
+    assert qkv.grad.shape == qkv.shape and wo.grad.shape == wo.shape
+    frozen = flash_attention_packed(qkv=qkv.detach(), num_heads=1, wo=wo)  # only dwo wanted
+    (dwo,) = torch.autograd.grad(frozen.sum(), wo)
+    torch.testing.assert_close(dwo, wo.grad)
+    with torch.no_grad():
+        assert flash_attention_packed(qkv=qkv, num_heads=1, wo=wo).grad_fn is None
+    assert counts == (flash_attention_packed.launches, flash_attention_packed.proj_launches,
+                      flash_attention_packed.bwd_launches)
+
+
+# --------------------------------------------------------------------------- #
+# cross-attention as AttentionPool calls it: one query over a clip's tokens
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_single_query_cross_attention_matches_jax_interpret(dh):
+    """Lq = 1 against Lk = 45 keys with a key mask, forward and gradients:
+    the [B, H, L, Dh] entry at Dh 64 (K3/K4) and the packed entry at Dh 128
+    (K1/K2), each against its JAX function in interpret mode."""
+    H, Lk = 256 // dh, 45
+    m = _mask(2, Lk, 80)
+    do = _np((2, 1, 256), 84)
+    args = [_np((2, 1, 256), 81), _np((2, Lk, 256), 82), _np((2, Lk, 256), 83)]
+    if dh == 128:
+        jfn = lambda q, k, v: jfap.flash_attention_packed(  # noqa: E731
+            q, k, v, num_heads=H, kv_mask=jnp.asarray(m.astype(np.int32)),
+            backend="interpret")
+        tfn = lambda q, k, v: flash_attention_packed(  # noqa: E731
+            q, k, v, num_heads=H, kv_mask=torch.from_numpy(m))
+    else:
+        def jfn(q, k, v):
+            heads = [t.reshape(2, -1, H, dh).transpose(0, 2, 1, 3) for t in (q, k, v)]
+            out = jfa.flash_attention(*heads, kv_mask=jnp.asarray(m), backend="interpret")
+            return out.transpose(0, 2, 1, 3).reshape(2, 1, 256)
+
+        def tfn(q, k, v):
+            heads = [t.reshape(2, -1, H, dh).transpose(1, 2) for t in (q, k, v)]
+            out = flash_attention(*heads, kv_mask=torch.from_numpy(m))
+            return out.transpose(1, 2).reshape(2, 1, 256)
+    ref = jfn(*map(jnp.asarray, args))
+    out, got = _torch_grads(tfn, args, do)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
+    for g, r in zip(got, _jax_grads(jfn, args, do)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **GTOL)

@@ -172,3 +172,25 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.build_server(_args())
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_base_config_yaml_sets_the_served_model(tmp_path):
+    """``--base_config``: the YAML of a contrastive run (here the tiny
+    configuration written out) decides the tower; ``--num_videos`` and
+    multi-video mode are forced on top of it, as scripts/serve.py does."""
+    import yaml
+
+    cfg = tiny_config(num_videos=5, embedding_dim=48)
+    path = tmp_path / "run.yaml"
+    path.write_text(yaml.safe_dump(dict(cfg.to_dict(), pipeline_project="DeepCORO_clip",
+                                        multi_video=False)))
+    args = serve.parse_args(["--base_config", str(path), "--port", "0", "--num_videos", "2",
+                             "--max_batch", "2", "--top_k", "3", "--demo_bank", "16",
+                             "--device", "cpu"])
+    httpd, engine = serve.build_server(args)
+    httpd.server_close()
+    assert engine.cfg.embedding_dim == 48 and engine.cfg.vit_dim == cfg.vit_dim
+    assert engine.cfg.multi_video is True and engine.cfg.num_videos == 2
+    study, mask = engine.load_study([])
+    emb, scores, idx = engine.infer_batch(study[None], mask[None])
+    assert np.asarray(emb).shape == (1, 48) and np.asarray(idx).shape == (1, 3)
