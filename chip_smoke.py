@@ -6,9 +6,9 @@
 Phases, each printing one line (or a few) before the last:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: nvcc builds csrc/flash_fwd.cu, csrc/flash_fwd_proj.cu and
-   csrc/flash_bwd.cu for sm_90a, side by side (timed, with the ptxas
-   register and spill lines);
+2. build: nvcc builds csrc/flash_fwd.cu, csrc/flash_fwd_proj.cu,
+   csrc/flash_bwd.cu and csrc/ring_attention.cu for sm_90a, side by side
+   (timed, with the ptxas register and spill lines);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    in bf16, at the serving path's shapes and in one small case of every
    other mode it takes;
@@ -84,7 +84,32 @@ Phases, each printing one line (or a few) before the last:
    its bound and scaled_dot_product_attention + F.linear (a yardstick
    only), and what the cast of wo costs; the timed K5 and plain outputs are
    held against each other once more, on these other seeded inputs;
-then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5).
+16. ring path: joint attention over a study's 10 clips at flagship head
+   width, q/k/v [2,4,15680,128] bf16 (seeded), through
+   ring_attention(backend="rdma") over a mesh of 4 shards on the card
+   (chunks of 3920 tokens): 16 K6 launches (one per shard per ring step),
+   counted from 0 just before; K6 against its plain version
+   (backend="rdma_interpret") and the "xla" ring by check_forward's bars
+   and a relative L2 of 1e-2; two calls bit-equal. Where several cards are
+   visible (and divide 15680), the ring over them is held bit-equal to the
+   same number of shards on one card;
+17. ring gradients at [2,4,6272,128] (4 clips): through backend="rdma"
+   (K6 forward, the "xla" ring's backward) against the plain ring's, by
+   phase 7's bars;
+18. ring times: K6 at 1, 2 and 4 shards on the card (and over the cards,
+   where there are several) beside its bound, its plain version and
+   scaled_dot_product_attention over the whole unsharded q/k/v (a
+   yardstick only), and the share of the slot copies' device time that
+   lies under a step kernel in a profiler trace;
+19. ring train step: flagship_config(multi_video=True, num_videos=4,
+   batch_size=8, max_text_length=512, use_ring_attention=True) over a mesh
+   of 3 shards on the card (all 12 backbone blocks take the "xla" ring); 1
+   warm-up and 3 timed steps (step time, peak memory), per step 12 K1 / 12
+   K2 (text tower) / 2 K3 / 2 K4 and no K5 or K6 launch, the loss on the
+   repeated batch falls, a profiler breakdown of one step, and the video
+   embeddings of the same weights in eval mode against the dense kernel
+   path at cosine >= 0.999;
+then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6).
 
 The last line is {"ok": true, "device": {...}}. Any failing phase exits
 non-zero before it, as does a machine without CUDA.
@@ -170,6 +195,21 @@ K1_REPLACES = "deepcoro_clip_tpu/ops/flash_attention_packed.py:63"
 K2_REPLACES = "deepcoro_clip_tpu/ops/flash_attention_packed.py:210"
 K3_REPLACES = "deepcoro_clip_tpu/ops/flash_attention.py:84"
 K4_REPLACES = "deepcoro_clip_tpu/ops/flash_attention.py:179"
+RING_SOURCE = "deepcoro_clip_tpu_torch/csrc/ring_attention.cu"
+K6_REPLACES = "deepcoro_clip_tpu/parallel/ring_attention.py:88"
+
+# the ring path (A): joint attention over a study's 10 clips of 1568 tokens
+# at flagship head width, sharded 4 ways on one card (chunks of 3920 tokens);
+# its gradients at 4 clips. K6 against its plain version: check_forward's
+# bars, and ||kernel - plain|| <= RING_L2_REL ||plain||, since the outputs,
+# means over 15680 keys, are far smaller than KERNEL_ATOL.
+RING_B, RING_H, RING_DH = 2, 4, 128
+RING_L, RING_GRAD_L = 10 * 1568, 4 * 1568
+RING_SHARDS = 4
+RING_L2_REL = 1e-2
+# the ring train step (B): 3 shards divide 1569 and 393 tokens
+RING_TRAIN_SHARDS = 3
+RING_TRAIN_WARMUP, RING_TRAIN_STEPS = 1, 3
 
 
 class PhaseError(RuntimeError):
@@ -739,11 +779,11 @@ def phase_bwd_kernels(torch) -> dict:
 # phase 8: the contrastive train step at flagship width
 
 
-def train_config():
+def train_config(**over):
     from deepcoro_clip_tpu_torch.flagship import flagship_config
 
     return flagship_config(multi_video=True, num_videos=4, batch_size=8,
-                           max_text_length=512)
+                           max_text_length=512, **over)
 
 
 def train_batch(cfg, studies: int):
@@ -767,8 +807,11 @@ def _kernel_counts():
         flash_attention_packed as k1,
     )
 
+    from deepcoro_clip_tpu_torch.parallel import ring_attention as k6
+
     return {"K1": k1.launches, "K2": k1.bwd_launches,
-            "K3": k3.launches, "K4": k3.bwd_launches, "K5": k1.proj_launches}
+            "K3": k3.launches, "K4": k3.bwd_launches, "K5": k1.proj_launches,
+            "K6": k6.launches}
 
 
 def _zero_kernel_counts():
@@ -777,8 +820,10 @@ def _zero_kernel_counts():
         flash_attention_packed as k1,
     )
 
+    from deepcoro_clip_tpu_torch.parallel import ring_attention as k6
+
     k1.launches = k1.bwd_launches = k3.launches = k3.bwd_launches = 0
-    k1.proj_launches = 0
+    k1.proj_launches = k6.launches = 0
 
 
 def phase_training(torch):
@@ -916,7 +961,8 @@ def phase_grad_e2e(torch, bundle):
     loss_p, gp = grads(with_weights(use_pallas_attention=False))
     loss_f, gf = grads(with_weights(use_pallas_attention=False, precision="fp32"))
     check(_kernel_counts() == counts, "a plain-attention bundle launched a kernel")
-    check(counts["K5"] == 0, "the contrastive step launched the fused projection")
+    check(counts["K5"] == 0 and counts["K6"] == 0,
+          "the contrastive step launched the fused projection or the ring")
     print(f"gradients end to end: loss through the kernels {loss_k:.5f}, plain bf16 "
           f"{loss_p:.5f}, plain fp32 {loss_f:.5f}", flush=True)
     for tower in gk:
@@ -1393,7 +1439,7 @@ def phase_probing(torch):
         check(counts[key] == per_step * PROBE_STEPS,
               f"{key} launched {counts[key]} times in {PROBE_STEPS} probing steps, "
               f"expected {per_step} per step")
-    check(eval_counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 12},
+    check(eval_counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 12, "K6": 0},
           f"the eval step launched {eval_counts}")
     check(state.step == PROBE_WARMUP + PROBE_STEPS, f"step count {state.step}")
     moved_enc = [k for k, v in state.params.items()
@@ -1746,6 +1792,290 @@ def phase_probe_times(torch, errs, counts, partial_counts):
     return k5, row_k3, row_k4
 
 
+# --------------------------------------------------------------------------- #
+# phases 16 to 19: sequence-parallel ring attention (K6) and the ring train step
+
+
+def ring_mesh(torch, n, devices=None):
+    from deepcoro_clip_tpu_torch.parallel import MeshSpec, make_mesh
+
+    return make_mesh(MeshSpec(data=1, model=n),
+                     devices=devices or [torch.device("cuda", 0)] * n)
+
+
+def ring_inputs(torch, L, seed):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(RING_B, RING_H, L, RING_DH, generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(3)]
+
+
+def _rel_l2(a, r) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(a.float() - r.float())
+                 / torch.linalg.vector_norm(r.float()))
+
+
+def phase_ring_kernel(torch) -> dict:
+    """Path A: joint attention over a study's 10 clips at flagship head
+    width, q/k/v [2, 4, 15680, 128] bf16 over 4 shards on the card (Lc 3920),
+    through ring_attention(backend="rdma"); K6 against its plain version and
+    the "xla" ring, bit-equal run to run; over the real cards as well where
+    there are several."""
+    from deepcoro_clip_tpu_torch.ops import _ring_cuda
+    from deepcoro_clip_tpu_torch.parallel import ring_attention
+
+    q, k, v = ring_inputs(torch, RING_L, seed=11)
+    mesh = ring_mesh(torch, RING_SHARDS)
+    with torch.no_grad():
+        ring_attention.launches = 0
+        out = ring_attention(q, k, v, mesh, backend="rdma")  # the main path
+        torch.cuda.synchronize()
+        launches = ring_attention.launches
+        again = ring_attention(q, k, v, mesh, backend="rdma")
+        plain = ring_attention(q, k, v, mesh, backend="rdma_interpret")
+        xla = ring_attention(q, k, v, mesh, backend="xla")
+        torch.cuda.synchronize()
+    shape = f"[{RING_B},{RING_H},{RING_L},{RING_DH}] bf16 over {RING_SHARDS} shards"
+    print(f"ring path: launches {launches} in one call (n x n = "
+          f"{RING_SHARDS * RING_SHARDS}: one per shard per ring step)", flush=True)
+    check(launches == RING_SHARDS * RING_SHARDS,
+          f"K6 launched {launches} times in one call, expected {RING_SHARDS ** 2}")
+    check(torch.equal(out, again), "two K6 calls on the same inputs differ")
+    err = check_forward(torch, "ring check", f"K6 {shape} vs its plain version", out, plain)
+    err_xla = check_forward(torch, "ring check", f"K6 {shape} vs the xla ring", out, xla)
+    l2 = (_rel_l2(out, plain), _rel_l2(out, xla))
+    print(f"ring check: rel l2 {l2[0]:.3e} (plain), {l2[1]:.3e} (xla), bar "
+          f"{RING_L2_REL}; max|plain| {float(plain.float().abs().max()):.3e}; two calls "
+          f"bit-equal ok", flush=True)
+    check(max(l2) <= RING_L2_REL, f"K6 rel l2 {l2} above {RING_L2_REL}")
+    cards = torch.cuda.device_count()
+    result = {"launches": launches, "max_abs_err": max(err, err_xla), "rel_l2": max(l2),
+              "cards": cards}
+    if cards > 1 and RING_L % cards == 0:
+        devs = [torch.device("cuda", i) for i in range(cards)]
+        with torch.no_grad():
+            many = ring_attention(q, k, v, ring_mesh(torch, cards, devs), backend="rdma")
+            one = (out if cards == RING_SHARDS else
+                   ring_attention(q, k, v, ring_mesh(torch, cards), backend="rdma"))
+            torch.cuda.synchronize()
+        same = torch.equal(many, one)
+        result["peer_access"] = {f"{a}->{b}": ok for (a, b), ok in
+                                 sorted(_ring_cuda.peer_access.items())}
+        print(f"ring check: over {cards} cards (peer copies: {result['peer_access']}) "
+              f"bit-equal to {cards} shards on one card: {same}", flush=True)
+        check(same, "the ring over the cards differs from the same shards on one card")
+    return result
+
+
+def phase_ring_grads(torch) -> float:
+    """Gradients through backend="rdma" (K6 forward, the xla ring's
+    backward) against the plain ring's at [2, 4, 6272, 128] (4 clips)."""
+    from deepcoro_clip_tpu_torch.parallel import ring_attention
+
+    q, k, v = ring_inputs(torch, RING_GRAD_L, seed=12)
+    do = ring_inputs(torch, RING_GRAD_L, seed=13)[0]
+    mesh = ring_mesh(torch, RING_SHARDS)
+    grads = {}
+    for backend in ("rdma", "xla"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ring_attention(*leaves, mesh, backend=backend)
+        grads[backend] = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    worst = max(_rel_check("ring gradients", f"d{w} through rdma", a, r)
+                for w, a, r in zip("qkv", grads["rdma"], grads["xla"]))
+    same = all(torch.equal(a, r) for a, r in zip(grads["rdma"], grads["xla"]))
+    print(f"ring gradients [{RING_B},{RING_H},{RING_GRAD_L},{RING_DH}] over {RING_SHARDS} "
+          f"shards: rdma vs the plain ring max|d| {worst:.3e} (bars: {BWD_MAX_REL} of "
+          f"max|plain|, rel l2 {BWD_L2_REL}); bit-equal: {same}", flush=True)
+    return worst
+
+
+def _copy_overlap(torch, fn) -> tuple:
+    """One call of ``fn`` under torch.profiler: (share of the device time of
+    the device-to-device copies that lies under a K6 step kernel, copy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    copies, steps = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "Memcpy" in e.name:
+            copies.append(span)
+        elif "ring_step" in e.name:
+            steps.append(span)
+    total = sum(b - a for a, b in copies)
+    if not total:
+        return None, 0.0
+    covered = 0.0
+    for a, b in copies:
+        spans = sorted((max(a, s), min(b, t)) for s, t in steps if s < b and t > a)
+        end = a
+        for s, t in spans:  # the union of the kernels' spans inside the copy
+            if t > end:
+                covered += t - max(s, end)
+                end = t
+    return covered / total, total / 1e3
+
+
+def phase_ring_times(torch, ring) -> dict:
+    """K6 at n = 1, 2, 4 shards on the card against its bound, its plain
+    version and SDPA over the whole unsharded q/k/v (a yardstick only)."""
+    import torch.nn.functional as F
+
+    from deepcoro_clip_tpu_torch.parallel import ring_attention
+
+    q, k, v = ring_inputs(torch, RING_L, seed=14)
+    rows = []
+    B, H, L, Dh = RING_B, RING_H, RING_L, RING_DH
+    meshes = [(n, ring_mesh(torch, n), f"{n} shard(s) on one card")
+              for n in (1, 2, RING_SHARDS)]
+    cards = torch.cuda.device_count()
+    if cards > 1 and L % cards == 0:  # q/k/v start and end on card 0
+        devs = [torch.device("cuda", i) for i in range(cards)]
+        meshes.append((cards, ring_mesh(torch, cards, devs), f"{cards} cards"))
+    with torch.no_grad():
+        for n, mesh, where in meshes:
+
+            def kern(mesh=mesh):
+                return ring_attention(q, k, v, mesh, backend="rdma")
+
+            # each shard's q, k, v and output once, plus the chunks the ring moves
+            nbytes = 4 * B * H * L * Dh * 2 + (n - 1) * 2 * B * H * L * Dh * 2
+            b_ms, b_by = bound(4 * B * H * L * L * Dh, nbytes)
+            overlap, copy_ms = _copy_overlap(torch, kern) if n > 1 else (None, 0.0)
+            row = {"shape": f"[{B},{H},{L},{Dh}] bf16, {where}",
+                   "shards": n, "launches_per_call": n * n,
+                   "ms": cuda_ms(torch, kern, REPS),
+                   "plain_ms": cuda_ms(torch, lambda mesh=mesh: ring_attention(
+                       q, k, v, mesh, backend="rdma_interpret"), max(1, REPS // 5)),
+                   "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                       q, k, v), REPS),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "device_ms": device_ms(torch, kern, REPS),
+                   "library_device_ms": device_ms(
+                       torch, lambda: F.scaled_dot_product_attention(q, k, v), REPS),
+                   "copy_ms": copy_ms, "copy_overlap": overlap}
+            rows.append(row)
+            torch.cuda.empty_cache()
+            print(f"ring times: K6 {row['shape']}: kernel {row['ms']:.3f} ms "
+                  f"({row['launches_per_call']} launches), plain {row['plain_ms']:.3f} ms, "
+                  f"sdpa (whole q/k/v) {row['library_ms']:.3f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); card busy: kernel "
+                  f"{row['device_ms']:.3f} ms, sdpa {row['library_device_ms']:.3f} ms; "
+                  f"slot copies {copy_ms:.3f} ms, share under a step kernel "
+                  + ("n/a" if overlap is None else f"{overlap:.2f}"), flush=True)
+    head = rows[2]  # the main path's shards
+    e = {"name": "ring_attention backend=rdma (K6 ring forward)", "route": "cuda",
+         "source": RING_SOURCE, "replaces": K6_REPLACES, "launches": ring["launches"],
+         "max_abs_err": ring["max_abs_err"], "rel_l2": ring["rel_l2"],
+         "bwd_max_abs_err": ring["bwd_max_abs_err"]}
+    e.update({key: head[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "device_ms", "copy_overlap")})
+    if "peer_access" in ring:
+        e["peer_access"] = ring["peer_access"]
+    e["shapes"] = rows
+    return e
+
+
+def phase_ring_training(torch) -> dict:
+    """Path B: the contrastive train step with use_ring_attention over a
+    mesh of 3 shards on the card (3 divides 1569 and 393: all 12 backbone
+    blocks take the ring, its "xla" backend); 1 warm-up and 3 timed steps;
+    the loss on the repeated batch falls; same weights in eval mode, the
+    video embeddings through the ring against the dense kernel path."""
+    from deepcoro_clip_tpu_torch.models.video_encoder import (
+        init_params,
+        video_encoder_from_config,
+    )
+    from deepcoro_clip_tpu_torch.train.clip import (
+        build_clip_bundle,
+        make_eval_step,
+        make_train_step,
+        to_device_batch,
+    )
+
+    cfg = train_config(use_ring_attention=True)
+    mesh = ring_mesh(torch, RING_TRAIN_SHARDS)
+    t0 = time.perf_counter()
+    bundle, state = build_clip_bundle(cfg, seed=0, steps_per_epoch=1, mesh=mesh)
+    step_fn = make_train_step(bundle)
+    batch = to_device_batch(bundle, train_batch(cfg, cfg.batch_size))
+    gen = torch.Generator(device=bundle.device).manual_seed(0)
+    eval_fn = make_eval_step(bundle)
+    eval_before = float(eval_fn(state.params, batch)["loss"])
+    print(f"ring training: bundle built in {time.perf_counter() - t0:.1f} s, mesh "
+          f"{mesh.shape} on one card; {cfg.batch_size} studies x {cfg.num_videos} clips, "
+          f"{cfg.max_text_length} tokens", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(RING_TRAIN_WARMUP):
+        state, m = step_fn(state, batch, gen, 0.0, 0.0, -1.0)
+        losses.append(float(m["loss"]))
+    _zero_kernel_counts()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    metrics = []
+    for _ in range(RING_TRAIN_STEPS):
+        state, m = step_fn(state, batch, gen, 0.0, 0.0, -1.0)
+        metrics.append(m)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / RING_TRAIN_STEPS
+    dev_ms = start.elapsed_time(end) / RING_TRAIN_STEPS
+    counts = _kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses += [float(m["loss"]) for m in metrics]
+    eval_after = float(eval_fn(state.params, batch)["loss"])
+    print("ring training: losses " + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    print(f"ring training: launches over {RING_TRAIN_STEPS} steps: {counts} (per step "
+          f"K1 12, K2 12 in the text tower, K3 2, K4 2 in the aggregator; the backbone "
+          f"takes the xla ring)", flush=True)
+    clips = cfg.batch_size * cfg.num_videos
+    print(f"ring training: step {dev_ms:.1f} ms (CUDA events), {host_ms:.1f} ms (host "
+          f"clock), {clips / dev_ms * 1e3:.1f} clips/s, peak memory {peak_gb:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)", flush=True)
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss in {losses}")
+    for key, per_step in (("K1", 12), ("K2", 12), ("K3", 2), ("K4", 2), ("K5", 0),
+                          ("K6", 0)):
+        check(counts[key] == per_step * RING_TRAIN_STEPS,
+              f"{key} launched {counts[key]} times in {RING_TRAIN_STEPS} ring steps, "
+              f"expected {per_step} per step")
+    check(math.isfinite(eval_after) and eval_after < eval_before,
+          f"the loss on the repeated batch did not fall: {eval_before} -> {eval_after}")
+    print(f"ring training: loss on the repeated batch with dropout off {eval_before:.4f} "
+          f"-> {eval_after:.4f}", flush=True)
+    per_name, wall_ms = device_events(
+        torch, lambda: step_fn(state, batch, gen, 0.0, 0.0, -1.0))
+    print_profile("ring train profile", "one step", per_name, wall_ms, top=12)
+
+    # same weights, eval mode: the ring against the dense kernel path
+    dense = init_params(video_encoder_from_config(train_config()), 0).to(bundle.device)
+    dense.load_state_dict(bundle.video_model.state_dict())
+    with torch.no_grad():
+        v_ring = bundle.video_model(batch["videos"], video_mask=batch["video_mask"])
+        _zero_kernel_counts()
+        v_dense = dense(batch["videos"], video_mask=batch["video_mask"])
+        dense_counts = _kernel_counts()
+    cos = torch.nn.functional.cosine_similarity(v_ring.float(), v_dense.float(), dim=-1)
+    print(f"ring training: video embeddings (eval mode) through the ring vs the dense "
+          f"kernel path ({dense_counts['K1']} K1 launches): min cosine "
+          f"{float(cos.min()):.6f} (bar {E2E_MIN_COSINE})", flush=True)
+    check(dense_counts["K1"] == 12, f"the dense path launched {dense_counts}")
+    check(float(cos.min()) >= E2E_MIN_COSINE, f"ring vs dense cosine {float(cos.min())}")
+    return {"step_ms": dev_ms, "step_host_ms": host_ms, "peak_gib": peak_gb,
+            "shards": RING_TRAIN_SHARDS, "min_cosine_vs_dense": float(cos.min())}
+
+
 def main() -> int:
     import torch
 
@@ -1767,7 +2097,7 @@ def main() -> int:
 
     try:
         t0 = time.perf_counter()
-        sources = ("flash_fwd", "flash_fwd_proj", "flash_bwd")
+        sources = ("flash_fwd", "flash_fwd_proj", "flash_bwd", "ring_attention")
         _build.build_all(sources)  # one nvcc each, side by side
         for name in sources:
             _build.load(name)
@@ -1825,6 +2155,16 @@ def main() -> int:
         by_key["K3"]["attention_pool_max_abs_err"] = proj_errs["K3_pool"]
         kernels["kernels"].append(k5)
         kernels["probe_step"] = p_times
+        del k5, row_k3, row_k4
+        torch.cuda.empty_cache()
+
+        ring = phase_ring_kernel(torch)
+        ring["bwd_max_abs_err"] = phase_ring_grads(torch)
+        torch.cuda.empty_cache()
+        k6 = phase_ring_times(torch, ring)
+        kernels["kernels"].append(k6)
+        torch.cuda.empty_cache()
+        kernels["ring_train_step"] = phase_ring_training(torch)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -142,6 +142,14 @@ class ClipConfig(_ConfigMethods):
     text_dim: int = 768
     text_depth: int = 12
     text_heads: int = 12
+    # the (data, model) mesh the ring runs over (parallel/mesh.py)
+    mesh_data: int = -1  # -1 = all devices / mesh_model
+    mesh_model: int = 1
+    # sequence parallelism: ring attention over the token axis in the video
+    # backbone (parallel/ring_attention.py; active where the token count
+    # divides by the ring-axis size)
+    use_ring_attention: bool = False
+    ring_axis: str = "model"
 
 
 @dataclass

@@ -1,7 +1,8 @@
 // Device helpers shared by the flash-attention forward (flash_fwd.cu), the
-// forward with the fused output projection (flash_fwd_proj.cu) and the
-// backward (flash_bwd.cu) kernels: mma.sync / ldmatrix / cp.async wrappers,
-// the padded 64-row shared-memory tile loader, rotate-half RoPE with the
+// forward with the fused output projection (flash_fwd_proj.cu), the
+// backward (flash_bwd.cu) and the ring-attention step (ring_attention.cu)
+// kernels: mma.sync / ldmatrix / cp.async wrappers, the padded 64-row
+// shared-memory tile loader, rotate-half RoPE with the
 // plain version's bf16 rounding points, the attention of one q tile over
 // one head's keys (`attend_head`), and the warp helpers of the fp32 kernels.
 //
@@ -154,8 +155,12 @@ __device__ __forceinline__ void rope_tile(__nv_bfloat16* s, int ld, const float*
 // un-normalised output `acc` (column dn*8 + 2t + (e&1), row g for e < 2),
 // the row maxima `m_r` (log2 units, scale folded in) and the row sums
 // `l_r` (>= 1, reduced over the row), and every warp is done with the
-// shared tiles.
-template <int D, int BKT>
+// shared tiles. With FRESH (the default) the state starts empty; without,
+// it goes on from the state the caller put in `acc`, `m_r` and `l_r` (a
+// row sum carried whole by one thread of the row's four and 0 in the
+// others, so that the reduction at the end counts it once): the ring
+// kernel (ring_attention.cu) folds one K/V chunk after another in.
+template <int D, int BKT, bool FRESH = true>
 __device__ __forceinline__ void attend_head(
     __nv_bfloat16* Qs, int q_ld, __nv_bfloat16* Ks, __nv_bfloat16* Vs,
     const __nv_bfloat16* qg, long long q_sl, const __nv_bfloat16* kg, long long k_sl,
@@ -188,10 +193,12 @@ __device__ __forceinline__ void attend_head(
   }
 
   constexpr int NO = D / 8;  // n8 tiles of the output
+  if constexpr (FRESH) {
 #pragma unroll
-  for (int dn = 0; dn < NO; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  m_r[0] = m_r[1] = -INFINITY;  // rows g and g + 8
-  l_r[0] = l_r[1] = 0.f;        // this thread's partial row sums
+    for (int dn = 0; dn < NO; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+    m_r[0] = m_r[1] = -INFINITY;  // rows g and g + 8
+    l_r[0] = l_r[1] = 0.f;        // this thread's partial row sums
+  }
   const int row_a = q0 + warp * 16 + g;
   const int row_b = row_a + 8;
   // ldmatrix lane offsets: K (x4: n-tiles nt, nt+1 x k-halves), V (x4.trans:

@@ -1,0 +1,240 @@
+// Ring-attention forward step for Hopper (sm_90a), bf16 in/out: K6.
+//
+// Replaces the Pallas TPU kernel of deepcoro_clip_tpu:
+//   parallel/ring_attention.py `_rdma_ring_kernel` (one device's whole ring
+//   pass: q, its K/V chunk and two K/V slots in VMEM; an async remote copy
+//   of slot `cur` into the right neighbour's slot `nxt` started before the
+//   math, the online-softmax update, a barrier with both neighbours, a wait).
+//
+// Here the pass is split in two. This file holds one kernel, the
+// online-softmax update of one shard's queries [B, H, Lc, D] with the K/V
+// chunk in one of its slots, launched once per shard per ring step, and the
+// slot copy. The host side (ops/_ring_cuda.py) enqueues, at step r, the copy
+// of shard i's slot `cur` into shard i+1's slot `nxt` on shard i's copy
+// stream before shard i's step-r kernel on its compute stream; CUDA events
+// stand in for the semaphores: the copy into a slot waits until the
+// neighbour's step r-1 and its own send of that slot are done (the slot
+// backpressure of the TPU kernel's barrier), and a step waits for the
+// arrival of the chunk it reads.
+//
+// Why the slots live in device memory: one head's K/V chunk at Lc = 3920
+// and D = 128 is 2 MB in bf16, far more than a block's 227 KB of shared
+// memory, so the state cannot stay on chip from step to step as it stays
+// in VMEM on the TPU. The row state (m, l, acc) is carried between the
+// steps in fp32 device buffers, [B*H, Lc], [B*H, Lc] and [B*H, Lc, D]; the
+// last step normalises and writes bf16.
+//
+// What bounds it on an H100: per (batch, head) the whole pass is
+// 4 * L^2 * D FLOP against q, k, v and o read or written once (8 * L * D
+// bytes) plus the chunks the ring moves ((n-1) * 4 * L * D bytes) and the
+// state's round trips; at L = 15680, D = 128 that is thousands of FLOP per
+// byte: the tensor cores bound it.
+//
+// Design. The step is `attend_head` of flash_common.cuh, the body of
+// flash_fwd.cu's kernel, started from the carried state instead of an empty
+// one: one block of 4 warps per (batch*head, 64-row q tile), K/V streamed in
+// 64-key tiles through a cp.async double buffer, mma.sync m16n8k16 bf16 ->
+// fp32, S re-packed in registers as the A operand of P V. m is kept in log2
+// units with log2(e) folded into the scale (exp2 in place of exp) in every
+// step, so the unit never changes across steps. P is rounded to bf16
+// against the running maximum of the 64-key tiles, where the plain ring
+// rounds it against the chunk's maximum: the two round at different
+// points, within the tolerance the tests state. Rows and keys past Lc
+// (Lc is not a multiple of 64 at the main path's sizes) are zero-filled
+// and never stored; a key that does not exist has probability exactly 0.
+// No atomics: every output is summed by one thread in a fixed order, so two
+// calls agree bit for bit. wgmma, TMA and a forward of the slot through
+// peer pointers inside the kernel are left for later work.
+
+#include "flash_common.cuh"
+
+namespace {
+
+struct RingParams {
+  const __nv_bfloat16* q;  // [B, H, Lc, D], strided, head dim contiguous
+  const __nv_bfloat16* k;  // the slot's K: [B*H, Lc, D] contiguous
+  const __nv_bfloat16* v;  // the slot's V: [B*H, Lc, D] contiguous
+  __nv_bfloat16* o;        // [B, H, Lc, D], strided (written by the last step)
+  float* m;                // [B*H, Lc] row maxima, log2 units (not read by the first step)
+  float* l;                // [B*H, Lc] row sums
+  float* acc;              // [B*H, Lc, D] un-normalised outputs
+  long long q_sb, q_sh, q_sl;
+  long long o_sb, o_sh, o_sl;
+  int H, Lc;
+  float scale_log2;
+  int first, last;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS) ring_step_kernel(const RingParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int TILE = BK * (D + PAD);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + BQ * (D + PAD);  // two K tiles, then two V tiles
+  __nv_bfloat16* Vs = Ks + 2 * TILE;
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group
+  const int row_a = q0 + warp * 16 + g;
+  const int row_b = row_a + 8;
+  const bool ok_a = row_a < p.Lc, ok_b = row_b < p.Lc;
+  const long long rows = (long long)bh * p.Lc;  // this head's first state row
+
+  constexpr int NO = D / 8;  // n8 tiles of the output
+  float acc[NO][4];
+  float m_r[2], l_r[2];  // rows g and g + 8
+  if (p.first) {
+#pragma unroll
+    for (int dn = 0; dn < NO; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+    m_r[0] = m_r[1] = -INFINITY;
+    l_r[0] = l_r[1] = 0.f;
+  } else {
+    m_r[0] = ok_a ? p.m[rows + row_a] : -INFINITY;
+    m_r[1] = ok_b ? p.m[rows + row_b] : -INFINITY;
+    // the carried sum is whole: one thread of the row's four takes it
+    l_r[0] = (ok_a && t == 0) ? p.l[rows + row_a] : 0.f;
+    l_r[1] = (ok_b && t == 0) ? p.l[rows + row_b] : 0.f;
+    const float* aa = p.acc + (rows + (ok_a ? row_a : 0)) * D + 2 * t;
+    const float* ab = p.acc + (rows + (ok_b ? row_b : 0)) * D + 2 * t;
+#pragma unroll
+    for (int dn = 0; dn < NO; ++dn) {
+      const float2 xa = ok_a ? *reinterpret_cast<const float2*>(aa + dn * 8) : make_float2(0.f, 0.f);
+      const float2 xb = ok_b ? *reinterpret_cast<const float2*>(ab + dn * 8) : make_float2(0.f, 0.f);
+      acc[dn][0] = xa.x; acc[dn][1] = xa.y;
+      acc[dn][2] = xb.x; acc[dn][3] = xb.y;
+    }
+  }
+
+  attend_head<D, BK, false>(Qs, D + PAD, Ks, Vs, p.q + b * p.q_sb + h * p.q_sh, p.q_sl,
+                            p.k + rows * D, D, p.v + rows * D, D, nullptr, nullptr,
+                            nullptr, q0, p.Lc, p.Lc, p.scale_log2, 0, acc, m_r, l_r);
+
+  if (p.last) {
+    // l >= 1: the row maximum contributes exp2(0) at the step that set it
+    const float inv_a = 1.f / l_r[0];
+    const float inv_b = 1.f / l_r[1];
+    __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
+    if (ok_a) {
+      __nv_bfloat16* orow = og + (long long)row_a * p.o_sl;
+#pragma unroll
+      for (int dn = 0; dn < NO; ++dn) {
+        *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t) =
+            pack_bf16(acc[dn][0] * inv_a, acc[dn][1] * inv_a);
+      }
+    }
+    if (ok_b) {
+      __nv_bfloat16* orow = og + (long long)row_b * p.o_sl;
+#pragma unroll
+      for (int dn = 0; dn < NO; ++dn) {
+        *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t) =
+            pack_bf16(acc[dn][2] * inv_b, acc[dn][3] * inv_b);
+      }
+    }
+    return;
+  }
+  // carry the state to the next step; l_r is whole in every thread of the row
+  if (t == 0) {
+    if (ok_a) { p.m[rows + row_a] = m_r[0]; p.l[rows + row_a] = l_r[0]; }
+    if (ok_b) { p.m[rows + row_b] = m_r[1]; p.l[rows + row_b] = l_r[1]; }
+  }
+  float* aa = p.acc + (rows + row_a) * D + 2 * t;
+  float* ab = p.acc + (rows + row_b) * D + 2 * t;
+#pragma unroll
+  for (int dn = 0; dn < NO; ++dn) {
+    if (ok_a) *reinterpret_cast<float2*>(aa + dn * 8) = make_float2(acc[dn][0], acc[dn][1]);
+    if (ok_b) *reinterpret_cast<float2*>(ab + dn * 8) = make_float2(acc[dn][2], acc[dn][3]);
+  }
+}
+
+template <int D>
+cudaError_t launch_step(const RingParams& p, int BH, cudaStream_t stream) {
+  const int smem = (BQ + 4 * BK) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16));
+  static bool ready[MAX_DEVICES] = {};  // one per head dim: launch_step<D> is a template
+  cudaError_t err = allow_smem_once(
+      reinterpret_cast<const void*>(&ring_step_kernel<D>), smem, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Lc + BQ - 1) / BQ, BH);
+  ring_step_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// One ring step of one shard: fold the K/V chunk of a slot (`k`, `v`, each
+// [B*H, Lc, Dh] contiguous bf16) into the online softmax of the shard's
+// queries `q` ([B, H, Lc, Dh], strides in elements, head dim contiguous).
+// `first`: start from the empty state (m, l, acc are not read); `last`:
+// normalise and write `o` (strided like q) instead of the state. With
+// neither, the state is read and written back in place. Returns 0 on
+// success, else the CUDA error code of the launch (cudaErrorInvalidValue for
+// a head dim the kernel was not built for). The current device must be the
+// stream's.
+int deepcoro_ring_step_bf16(
+    const void* q, const void* k, const void* v, void* o, void* m, void* l, void* acc,
+    int B, int H, int Lc, int Dh,
+    long long q_sb, long long q_sh, long long q_sl,
+    long long o_sb, long long o_sh, long long o_sl,
+    float scale, int first, int last, void* stream) {
+  RingParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
+  p.acc = static_cast<float*>(acc);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
+  p.H = H; p.Lc = Lc;
+  p.scale_log2 = scale * LOG2E;
+  p.first = first;
+  p.last = last;
+  if ((!first || !last) && (m == nullptr || l == nullptr || acc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64: return static_cast<int>(launch_step<64>(p, B * H, st));
+    case 128: return static_cast<int>(launch_step<128>(p, B * H, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The ring's slot copy: `bytes` from `src` on device `src_dev` into `dst`
+// on device `dst_dev`, on `stream` (the sender's copy stream). A copy
+// inside one card is a device-to-device copy; across cards it is a peer
+// copy, which goes card to card where peer access is enabled.
+int deepcoro_ring_copy(void* dst, int dst_dev, const void* src, int src_dev,
+                       long long bytes, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dst_dev == src_dev
+      ? cudaMemcpyAsync(dst, src, static_cast<size_t>(bytes), cudaMemcpyDeviceToDevice, st)
+      : cudaMemcpyPeerAsync(dst, dst_dev, src, src_dev, static_cast<size_t>(bytes), st);
+  return static_cast<int>(err);
+}
+
+// Let `dev` reach `peer`'s memory directly. Returns 0 when access is
+// enabled (now or before), else the CUDA error code. Restores the calling
+// thread's current device.
+int deepcoro_ring_enable_peer(int dev, int peer) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();  // clear it: a later launch check must not see it
+      err = cudaSuccess;
+    }
+  }
+  cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+}  // extern "C"

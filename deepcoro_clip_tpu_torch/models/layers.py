@@ -23,9 +23,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from deepcoro_clip_tpu_torch.ops.attention import multi_head_attention
+from deepcoro_clip_tpu_torch.ops.attention import apply_rope, multi_head_attention
 from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
 from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+from deepcoro_clip_tpu_torch.parallel.ring_attention import ring_attention
 
 
 def _dropout(x: torch.Tensor, rate: float, deterministic: bool,
@@ -100,15 +101,23 @@ class Attention(nn.Module):
     read ``DEEPCORO_FUSED_OUTPROJ`` now) the packed self-attention path
     hands ``proj.weight`` to the kernel and adds ``proj.bias`` itself; the
     parameters keep their names, so a state dict loads into either path.
+
+    With a ``ring_mesh`` (sequence parallelism) the packed path is off, and
+    self-attention without mask or causality whose length divides by the
+    ``ring_axis`` size runs as ring attention over the mesh, after RoPE
+    (``parallel/ring_attention.py``, its default backend); any other call
+    takes the standard kernel or the plain attention as without a mesh.
     """
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16, use_flash: bool = True,
-                 cross: bool = False, fused_outproj: Optional[bool] = None):
+                 cross: bool = False, fused_outproj: Optional[bool] = None,
+                 ring_mesh=None, ring_axis: str = "model"):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.dropout, self.use_flash = dropout, use_flash
         self.cross = cross
+        self.ring_mesh, self.ring_axis = ring_mesh, ring_axis
         self.fused_outproj = (fused_outproj_default() if fused_outproj is None
                               else bool(fused_outproj))
         if cross:
@@ -127,7 +136,7 @@ class Attention(nn.Module):
         B, Lq, _ = x.shape
         H = self.num_heads
         head_dim = self.dim // H
-        use_packed = self.use_flash and head_dim % 128 == 0
+        use_packed = self.use_flash and head_dim % 128 == 0 and self.ring_mesh is None
         if self.cross:
             q, k, v = self.q(x), self.k(context), self.v(context)
             packed_kw = dict(q=q, k=k, v=v)
@@ -148,7 +157,14 @@ class Attention(nn.Module):
                 q, k, v = qkv.split(self.dim, dim=-1)
             q, k, v = (t.reshape(B, t.shape[1], H, head_dim).transpose(1, 2)
                        for t in (q, k, v))
-            if self.use_flash:
+            use_ring = (self.ring_mesh is not None and not self.cross and not causal
+                        and kv_mask is None
+                        and Lq % self.ring_mesh.shape[self.ring_axis] == 0)
+            if use_ring:
+                if sin is not None:
+                    q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+                out = ring_attention(q, k, v, self.ring_mesh, axis=self.ring_axis)
+            elif self.use_flash:
                 out = flash_attention(q, k, v, sin=sin, cos=cos,
                                       kv_mask=kv_mask, causal=causal)
             else:
@@ -164,12 +180,14 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  dropout: float = 0.0, dtype: torch.dtype = torch.bfloat16,
-                 use_flash: bool = True, fused_outproj: Optional[bool] = None):
+                 use_flash: bool = True, fused_outproj: Optional[bool] = None,
+                 ring_mesh=None, ring_axis: str = "model"):
         super().__init__()
         self.dtype = dtype
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads, dropout, dtype, use_flash,
-                              fused_outproj=fused_outproj)
+                              fused_outproj=fused_outproj, ring_mesh=ring_mesh,
+                              ring_axis=ring_axis)
         self.norm2 = LayerNorm(dim)
         self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dim, dropout, dtype)
 

@@ -35,7 +35,9 @@ class CoroViT(nn.Module):
 
     3D RoPE is fused into the attention; at each block index in
     ``pool_stages`` the tokens are merged 2x2 spatially and the RoPE tables
-    are rebuilt for the new grid.
+    are rebuilt for the new grid. With a ``ring_mesh`` every block's
+    attention runs as ring attention over ``ring_axis`` where the token
+    count divides by its size (sequence parallelism).
     """
 
     def __init__(self, dim: int = 512, depth: int = 12, num_heads: int = 4,
@@ -45,7 +47,8 @@ class CoroViT(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, use_flash: bool = True,
                  pixel_mean=None, pixel_std=None,
                  patch_grid: Optional[Tuple[int, int, int]] = None,
-                 fused_outproj: Optional[bool] = None):
+                 fused_outproj: Optional[bool] = None, ring_mesh=None,
+                 ring_axis: str = "model"):
         super().__init__()
         self.dim, self.depth, self.num_heads = dim, depth, num_heads
         self.pool_stages = tuple(pool_stages)
@@ -61,7 +64,7 @@ class CoroViT(nn.Module):
                 self.add_module(f"pool{i}", Dense(dim, dim, dtype))
             self.add_module(f"block{i}", TransformerBlock(
                 dim, num_heads, dropout=dropout, dtype=dtype, use_flash=use_flash,
-                fused_outproj=fused_outproj))
+                fused_outproj=fused_outproj, ring_mesh=ring_mesh, ring_axis=ring_axis))
         self.norm = LayerNorm(dim)
         self._rope_cache: dict = {}
 
@@ -115,7 +118,8 @@ class VideoEncoder(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, use_flash: bool = True,
                  pixel_mean=None, pixel_std=None,
                  patch_grid: Optional[Tuple[int, int, int]] = None,
-                 fused_outproj: Optional[bool] = None):
+                 fused_outproj: Optional[bool] = None, ring_mesh=None,
+                 ring_axis: str = "model"):
         super().__init__()
         self.embedding_dim = embedding_dim
         self.aggregate_videos_tokens = aggregate_videos_tokens
@@ -127,7 +131,8 @@ class VideoEncoder(nn.Module):
             patch=tuple(patch), pool_stages=tuple(pool_stages), dropout=dropout,
             use_cls_token=use_cls_token, rope_temporal_scale=rope_temporal_scale,
             dtype=dtype, use_flash=use_flash, pixel_mean=pixel_mean,
-            pixel_std=pixel_std, patch_grid=patch_grid, fused_outproj=fused_outproj)
+            pixel_std=pixel_std, patch_grid=patch_grid, fused_outproj=fused_outproj,
+            ring_mesh=ring_mesh, ring_axis=ring_axis)
         self.proj = ProjectionHead(backbone_dim, embedding_dim, dropout=dropout,
                                    dtype=dtype)
         # as a flax module creates parameters only for what its first call
@@ -252,11 +257,14 @@ def _config_patch_grid(cfg, patch) -> Optional[Tuple[int, int, int]]:
 
 
 def video_encoder_from_config(cfg, aggregate=None, per_video=None,
-                              fused_outproj: Optional[bool] = None) -> VideoEncoder:
+                              fused_outproj: Optional[bool] = None,
+                              ring_mesh=None) -> VideoEncoder:
     """Build the module on the CPU (zero parameters: load a state dict or
     call ``init_params``). ``fused_outproj``: run the backbone's attention
     with the output projection inside the kernel; None reads
-    ``DEEPCORO_FUSED_OUTPROJ``."""
+    ``DEEPCORO_FUSED_OUTPROJ``. ``ring_mesh``: run the backbone's attention
+    as ring attention over the mesh's ``cfg.ring_axis`` (the parameters do
+    not change)."""
     arch = resolve_architecture(cfg)
     mean, std = config_stats(cfg)
     return VideoEncoder(
@@ -281,6 +289,8 @@ def video_encoder_from_config(cfg, aggregate=None, per_video=None,
         pixel_std=tuple(std) if std else None,
         patch_grid=_config_patch_grid(cfg, tuple(arch["vit_patch"])),
         fused_outproj=fused_outproj,
+        ring_mesh=ring_mesh,
+        ring_axis=getattr(cfg, "ring_axis", "model"),
     )
 
 

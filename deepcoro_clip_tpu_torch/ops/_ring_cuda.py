@@ -1,0 +1,165 @@
+"""ctypes launcher of the ring-attention kernel (K6), and the ring pass that drives it.
+
+``csrc/ring_attention.cu`` holds the step kernel (one shard's queries over
+the K/V chunk in one of its slots, from a carried online-softmax state) and
+the slot copy. ``ring_fwd`` runs one whole ring pass of n shards with the
+TPU kernel's protocol:
+
+- every shard has two K/V slots on its device (``[2 slots, 2 (k|v), B, H,
+  Lc, Dh]`` bf16), its row state (``m``, ``l``: ``[B*H, Lc]``, ``acc``:
+  ``[B*H, Lc, Dh]``, fp32) and a compute and a copy stream of its own, so
+  that shards that share a card can overlap;
+- slot 0 takes the shard's own chunk; at step r, shard i's copy stream
+  copies slot ``r % 2`` into shard i+1's slot ``(r+1) % 2`` (a
+  device-to-device copy on one card, a peer copy across cards) before
+  shard i's step-r kernel is launched on its compute stream;
+- CUDA events take the place of the semaphores: the copy into shard i+1's
+  slot waits for shard i+1's step r-1 and its send of step r-1, which both
+  read that slot (the backpressure of the TPU kernel's neighbour barrier);
+  a step waits for the arrival of its chunk.
+
+The streams start after, and the callers' streams of every device involved
+wait for, all work of the pass, so the result is ordered like any other
+operation on the current stream. The kernel takes bf16 and Dh 64 or 128;
+the wrapper raises on anything else. ``peer_access`` records, per pair of
+cards, whether the copy goes card to card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from deepcoro_clip_tpu_torch.ops._flash_cuda import HEAD_DIMS, _aligned, _c_fn
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# (device, peer) -> True where the slot copy goes card to card
+peer_access: Dict[Tuple[int, int], bool] = {}
+
+
+def _step_fn():
+    return _c_fn("ring_attention", "deepcoro_ring_step_bf16",
+                 [_P] * 7 + [_I] * 4 + [_LL] * 6 + [ctypes.c_float, _I, _I, _P])
+
+
+def _copy_fn():
+    return _c_fn("ring_attention", "deepcoro_ring_copy", [_P, _I, _P, _I, _LL, _P])
+
+
+def _peer_fn():
+    return _c_fn("ring_attention", "deepcoro_ring_enable_peer", [_I, _I])
+
+
+def _check(qs, ks, vs, outs) -> None:
+    shape = qs[0].shape
+    B, H, Lc, Dh = shape
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA ring kernel takes Dh in {HEAD_DIMS}, got {Dh}")
+    if Lc < 1 or B * H > 65535:
+        raise ValueError(f"unsupported sizes B*H={B * H}, Lc={Lc}")
+    for i, group in enumerate(zip(qs, ks, vs, outs)):
+        dev = group[0].device
+        if dev.type != "cuda":
+            raise ValueError(f"the ring kernel needs CUDA tensors, shard {i} is on {dev}")
+        for name, t in zip(("q", "k", "v", "out"), group):
+            if t.device != dev or t.shape != shape:
+                raise ValueError(f"shard {i}: {name} is {tuple(t.shape)} on {t.device}, "
+                                 f"expected {tuple(shape)} on {dev}")
+            if t.dtype != torch.bfloat16:
+                raise TypeError(f"the CUDA ring kernel takes bfloat16, got {name} {t.dtype}")
+        for name, t in (("q", group[0]), ("out", group[3])):
+            if not _aligned(t):
+                raise ValueError(f"shard {i}: {name} must allow 16-byte loads "
+                                 f"(head dim contiguous, ptr % 16 == 0, strides % 8 == 0)")
+
+
+def _enable_peer(src: int, dst: int) -> None:
+    if (src, dst) in peer_access:
+        return
+    ok = torch.cuda.can_device_access_peer(src, dst) and _peer_fn()(src, dst) == 0
+    peer_access[(src, dst)] = ok
+
+
+def ring_fwd(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
+             vs: Sequence[torch.Tensor], outs: Sequence[torch.Tensor], scale: float,
+             counter) -> None:
+    """One ring pass: shard i's queries ``qs[i]`` over every shard's K/V
+    chunk, written into ``outs[i]`` (all ``[B, H, Lc, Dh]`` bf16 on shard
+    i's device; q and out with any batch/head/row strides). Launches the
+    step kernel n x n times, counted on ``counter.launches``."""
+    _check(qs, ks, vs, outs)
+    n = len(qs)
+    B, H, Lc, Dh = qs[0].shape
+    devs = [q.device for q in qs]
+    step, copy = _step_fn(), _copy_fn()
+    for i in range(n):
+        if devs[i] != devs[(i + 1) % n]:
+            _enable_peer(devs[i].index, devs[(i + 1) % n].index)
+
+    callers = {d: torch.cuda.current_stream(d) for d in devs}
+    started = [s.record_event() for s in callers.values()]
+    comp = [torch.cuda.Stream(d) for d in devs]
+    side = [torch.cuda.Stream(d) for d in devs]
+    for s in comp + side:
+        for e in started:
+            s.wait_event(e)
+    # per shard: the slots, and the state a step hands to the next (none
+    # for a ring of one, whose single step is first and last)
+    slots, state = [], []
+    for i, d in enumerate(devs):
+        slots.append(torch.empty((2, 2, B, H, Lc, Dh), dtype=torch.bfloat16, device=d))
+        state.append((None, None, None) if n == 1 else (
+            torch.empty((B * H, Lc), dtype=torch.float32, device=d),
+            torch.empty((B * H, Lc), dtype=torch.float32, device=d),
+            torch.empty((B * H, Lc, Dh), dtype=torch.float32, device=d)))
+    slot_bytes = 2 * B * H * Lc * Dh * 2  # k and v of one slot
+
+    filled = []
+    for i in range(n):
+        with torch.cuda.stream(comp[i]):
+            slots[i][0, 0].copy_(ks[i])
+            slots[i][0, 1].copy_(vs[i])
+        filled.append(comp[i].record_event())
+    done: List[List[torch.cuda.Event]] = [[] for _ in range(n)]    # step r ended
+    sent: List[List[torch.cuda.Event]] = [[] for _ in range(n)]    # send of step r ended
+    arrived: List[Dict[int, torch.cuda.Event]] = [{} for _ in range(n)]  # chunk of step r in
+    for r in range(n):
+        cur, nxt = r % 2, (r + 1) % 2
+        if r < n - 1:
+            for i in range(n):
+                right = (i + 1) % n
+                side[i].wait_event(filled[i] if r == 0 else arrived[i][r])
+                if r > 0:  # the neighbour is done with the slot this copy fills
+                    side[i].wait_event(done[right][r - 1])
+                    side[i].wait_event(sent[right][r - 1])
+                with torch.cuda.device(devs[i]):
+                    err = copy(slots[right][nxt].data_ptr(), devs[right].index,
+                               slots[i][cur].data_ptr(), devs[i].index, slot_bytes,
+                               side[i].cuda_stream)
+                if err != 0:
+                    raise RuntimeError(f"ring slot copy failed: CUDA error {err}")
+                sent[i].append(side[i].record_event())
+                arrived[right][r + 1] = sent[i][r]
+        for i in range(n):
+            if r > 0:
+                comp[i].wait_event(arrived[i][r])
+            q, o = qs[i], outs[i]
+            m, l, acc = state[i]
+            with torch.cuda.device(devs[i]):
+                err = step(q.data_ptr(), slots[i][cur, 0].data_ptr(),
+                           slots[i][cur, 1].data_ptr(), o.data_ptr(),
+                           None if m is None else m.data_ptr(),
+                           None if l is None else l.data_ptr(),
+                           None if acc is None else acc.data_ptr(),
+                           B, H, Lc, Dh, *q.stride()[:3], *o.stride()[:3],
+                           float(scale), int(r == 0), int(r == n - 1),
+                           comp[i].cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"ring attention step launch failed: CUDA error {err}")
+            counter.launches += 1
+            done[i].append(comp[i].record_event())
+    for caller in callers.values():
+        for s in comp + side:
+            caller.wait_stream(s)

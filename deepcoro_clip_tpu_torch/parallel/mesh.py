@@ -1,0 +1,85 @@
+"""Device mesh for the port: a ``(data, model)`` grid of ``torch.device``s.
+
+Port of the JAX package's ``parallel/mesh.py`` (``DATA_AXIS``,
+``MODEL_AXIS``, ``MeshSpec``, ``make_mesh``). The JAX mesh is a grid of
+devices that ``shard_map`` runs one program over; here it is a plain grid
+that one process walks: ``ring_attention`` sends the token chunks of a
+tensor to the devices along one axis and gathers the result back.
+
+A device may appear more than once. That is the counterpart of the JAX
+tests' virtual CPU devices: ``make_mesh(MeshSpec(1, 4), devices=["cpu"] * 4)``
+is a ring of four shards on the CPU, ``devices=["cuda:0"] * 4`` a ring of
+four shards on one card, each shard with buffers and streams of its own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Union
+
+import torch
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+AXES = (DATA_AXIS, MODEL_AXIS)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """How to carve the device list. ``data * model`` must not exceed the
+    device count (remaining devices are dropped only if sizes are explicit)."""
+
+    data: int = -1  # -1: all remaining devices
+    model: int = 1
+
+    def resolve(self, n_devices: int) -> tuple[int, int]:
+        model = max(1, self.model)
+        data = self.data if self.data > 0 else n_devices // model
+        if data * model > n_devices:
+            raise ValueError(
+                f"MeshSpec(data={data}, model={model}) needs {data * model} "
+                f"devices, have {n_devices}"
+            )
+        return data, model
+
+
+class Mesh:
+    """A ``[data, model]`` grid of devices. ``shape`` maps each axis name to
+    its size, as ``jax.sharding.Mesh.shape`` does."""
+
+    def __init__(self, grid: Sequence[Sequence[torch.device]]):
+        self.grid: List[List[torch.device]] = [list(row) for row in grid]
+        self.shape: Dict[str, int] = {DATA_AXIS: len(self.grid),
+                                      MODEL_AXIS: len(self.grid[0])}
+
+    def devices_along(self, axis: str) -> List[torch.device]:
+        """The devices of the first line of the grid along ``axis``: the
+        shards of a tensor sharded over ``axis`` and replicated over the
+        other axis (one replica is all a single process computes)."""
+        if axis == MODEL_AXIS:
+            return list(self.grid[0])
+        if axis == DATA_AXIS:
+            return [row[0] for row in self.grid]
+        raise ValueError(f"unknown mesh axis {axis!r}; the axes are {AXES}")
+
+
+def _device(d: Union[str, torch.device]) -> torch.device:
+    dev = torch.device(d)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def make_mesh(spec: Optional[MeshSpec] = None,
+              devices: Optional[Sequence[Union[str, torch.device]]] = None) -> Mesh:
+    """A ``(data, model)`` mesh over ``devices`` (every visible CUDA device
+    when None; a list may repeat a device)."""
+    spec = spec or MeshSpec()
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devs = [_device(d) for d in devices]
+    data, model = spec.resolve(len(devs))
+    if data < 1:
+        raise ValueError(f"MeshSpec(data={spec.data}, model={model}) needs at least "
+                         f"{model} devices, have {len(devs)}")
+    return Mesh([devs[r * model:(r + 1) * model] for r in range(data)])

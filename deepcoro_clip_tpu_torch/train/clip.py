@@ -27,6 +27,7 @@ from deepcoro_clip_tpu_torch.models.video_encoder import (
     init_params,
     video_encoder_from_config,
 )
+from deepcoro_clip_tpu_torch.parallel.mesh import Mesh, MeshSpec, make_mesh
 from deepcoro_clip_tpu_torch.train import optim as optim_lib
 from deepcoro_clip_tpu_torch.train.schedulers import get_scheduler
 from deepcoro_clip_tpu_torch.train.state import TrainState
@@ -82,14 +83,26 @@ def _tower(params: Dict[str, torch.Tensor], tower: str) -> Dict[str, torch.Tenso
 
 
 def build_clip_bundle(config, seed: int = 0, steps_per_epoch: int = 100,
-                      device: Optional[str] = None
+                      device: Optional[str] = None, mesh: Optional[Mesh] = None
                       ) -> Tuple[ClipBundle, TrainState]:
     """Build the models with seeded random weights, the optimizer and the
     initial ``TrainState`` on ``device`` (CUDA unless the caller passes
-    ``"cpu"``)."""
+    ``"cpu"``).
+
+    With ``config.use_ring_attention`` the video backbone's attention runs
+    as ring attention over ``mesh`` (by default ``make_mesh(MeshSpec(
+    config.mesh_data, config.mesh_model))`` over the visible cards, or over
+    ``device`` alone on the CPU; too few devices raise). A caller may pass
+    a mesh whose device list repeats a device."""
     _check_loss_name(config)
     dev = resolve_device(device)
-    video_model = init_params(video_encoder_from_config(config), seed).to(dev)
+    ring_mesh = None
+    if config.use_ring_attention:
+        ring_mesh = mesh if mesh is not None else make_mesh(
+            MeshSpec(config.mesh_data, config.mesh_model),
+            devices=[dev] if dev.type == "cpu" else None)
+    video_model = init_params(video_encoder_from_config(config, ring_mesh=ring_mesh),
+                              seed).to(dev)
     text_model = init_params(text_encoder_from_config(config), seed + 1).to(dev)
     # learnable temperature and the SigLIP bias (unused by clip_loss, kept
     # in the tree as in the JAX package)

@@ -356,3 +356,84 @@ def test_fused_projection_on_fused_qkv(cuda):
     torch.testing.assert_close(y.detach().float(), ref.float(), **TOL)
     (dqkv,) = torch.autograd.grad(y, leaf, torch.ones_like(y))
     assert dqkv.shape == qkv.shape and torch.isfinite(dqkv).all()
+
+
+# --------------------------------------------------------------------------- #
+# ring attention (K6)
+
+
+def _ring_mesh(n, devices):
+    from deepcoro_clip_tpu_torch.parallel import MeshSpec, make_mesh
+
+    return make_mesh(MeshSpec(data=1, model=n), devices=devices)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_ring_kernel_matches_plain(cuda, n, dh):
+    """K6 over n shards on the card against its plain version and the
+    ``"xla"`` ring; chunks of 199 rows are ragged against the 64-row tiles.
+    n x n launches a call; two calls agree bit for bit."""
+    from deepcoro_clip_tpu_torch.parallel import ring_attention
+
+    g = torch.Generator(device=cuda).manual_seed(20 + n)
+    q, k, v = (torch.randn(2, 3, 199 * n, dh, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    mesh = _ring_mesh(n, [cuda] * n)
+    before = ring_attention.launches
+    got = ring_attention(q, k, v, mesh, backend="rdma")
+    assert ring_attention.launches == before + n * n
+    again = ring_attention(q, k, v, mesh, backend="rdma")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for backend in ("rdma_interpret", "xla"):
+        ref = ring_attention(q, k, v, mesh, backend=backend)
+        torch.testing.assert_close(got.float(), ref.float(), **TOL)
+    assert ring_attention.launches == before + 2 * n * n  # the plain ones launch nothing
+
+
+def test_ring_kernel_gradients_are_the_plain_rings(cuda):
+    """``backend="rdma"`` differentiates through the ``"xla"`` ring (the JAX
+    custom_vjp): the same gradients as the ``"xla"`` ring's own."""
+    from deepcoro_clip_tpu_torch.parallel import ring_attention
+
+    g = torch.Generator(device=cuda).manual_seed(30)
+    q, k, v = (torch.randn(1, 2, 4 * 150, 128, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    mesh = _ring_mesh(4, [cuda] * 4)
+    grads = {}
+    for backend in ("rdma", "xla"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ring_attention(*leaves, mesh, backend=backend)
+        grads[backend] = torch.autograd.grad(out.float().square().sum(), leaves)
+    for a, b in zip(grads["rdma"], grads["xla"]):
+        torch.testing.assert_close(a.float(), b.float(), **BWD_TOL)
+
+
+def test_ring_kernel_rejects_what_it_does_not_take(cuda):
+    from deepcoro_clip_tpu_torch.parallel import ring_attention
+
+    mesh = _ring_mesh(2, [cuda] * 2)
+    q = torch.zeros(1, 2, 64, 128, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ring_attention(q, q, q, mesh, backend="rdma")
+    q = torch.zeros(1, 2, 64, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Dh in"):
+        ring_attention(q, q, q, mesh, backend="rdma")
+
+
+def test_ring_kernel_across_cards_equals_one_card(cuda):
+    """Where the machine has several cards: the ring over them (peer copies)
+    gives the bits of the same number of shards on one card."""
+    from deepcoro_clip_tpu_torch.parallel import ring_attention
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    g = torch.Generator(device=cuda).manual_seed(40)
+    q, k, v = (torch.randn(2, 2, 130 * n, 128, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    cards = [torch.device("cuda", i) for i in range(n)]
+    one = ring_attention(q, k, v, _ring_mesh(n, [cuda] * n), backend="rdma")
+    many = ring_attention(q, k, v, _ring_mesh(n, cards), backend="rdma")
+    assert torch.equal(one, many)

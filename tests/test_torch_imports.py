@@ -30,7 +30,8 @@ bad = sorted(m for m in sys.modules
              if m == "deepcoro_clip_tpu" or m.startswith("deepcoro_clip_tpu."))
 assert not bad, bad
 for need in ("train.clip", "train.optim", "losses.contrastive", "models.text_encoder",
-             "train.linear_probe", "models.mil", "models.attention_pool", "losses.heads"):
+             "train.linear_probe", "models.mil", "models.attention_pool", "losses.heads",
+             "parallel.mesh", "parallel.ring_attention", "ops._ring_cuda"):
     assert "deepcoro_clip_tpu_torch." + need in mods, need
 print(len(mods))
 """
