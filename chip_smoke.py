@@ -8,10 +8,12 @@ Phases, each printing one line (or a few) before the last:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: nvcc builds csrc/flash_fwd.cu, csrc/flash_fwd_proj.cu,
    csrc/flash_bwd.cu and csrc/ring_attention.cu for sm_90a, side by side
-   (timed, with the ptxas register and spill lines);
+   (timed, with the ptxas register and spill lines), and the registers and
+   dynamic shared memory a block of K1's and K5's Hopper kernels;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    in bf16, at the serving path's shapes and in one small case of every
-   other mode it takes;
+   other mode it takes (K1 also at ragged lengths 130 and 10 and the text
+   tower's shape, each K1 case with its time and TFLOP/s);
 4. serving: the retrieval server at flagship width (num_videos 10,
    max_batch 4, seeded random weights, seeded 1000 x 512 demo bank) answers
    concurrent /retrieve requests, one /embed and /stats over HTTP; the
@@ -23,9 +25,9 @@ Phases, each printing one line (or a few) before the last:
    breakdown of one tower pass by kernel, each kernel at its serving
    shapes beside its plain version, its bound and
    scaled_dot_product_attention (a yardstick only; the port never calls
-   it); beside each time between CUDA events the time the card was busy
-   (device events of a profiler trace), which for a call of microseconds
-   is the smaller by the host's share;
+   it), K1 with its TFLOP/s; beside each time between CUDA events the
+   time the card was busy (device events of a profiler trace), which for a
+   call of microseconds is the smaller by the host's share;
 7. backward kernels: dq, dk, dv of the CUDA backward against
    flash_bwd_plain on the card in bf16, at the train step's shapes (the
    video tower at 4 clips) and in one small case of every other mode; two
@@ -60,7 +62,8 @@ Phases, each printing one line (or a few) before the last:
    probing step's own shapes (fused qkv [80,1569,1536] and [80,393,1536]
    with RoPE: all 80 clips of a step; the text shape [8,512,2304] with a key
    mask) and in one small case of every other mode, its gradients (dq, dk,
-   dv, dwo) against the plain backward, two launches bit-equal; K3 and K4 on fp32 operands at the probing head's
+   dv, dwo) against the plain backward, two launches bit-equal, the
+   forward's time and TFLOP/s; K3 and K4 on fp32 operands at the probing head's
    [8,8,11,64] with a mask and at a Dh-128 case, held to 1e-5 + 1e-5|plain|;
    K3 in bf16 at the AttentionPool shape (one query over 393 keys);
 12. linear probing: build_probe_bundle at the full width of
@@ -80,7 +83,7 @@ Phases, each printing one line (or a few) before the last:
    leaves' gradients against the plain attention by phase 9's cosine bars,
    and one train step that moves those leaves and no other encoder leaf;
 15. probing times: step time, studies/s, peak memory, a profiler breakdown
-   of one step; K5 at each shape beside K1 + F.linear, its plain version,
+   of one step; K5 at each shape (and TFLOP/s) beside K1 + F.linear, its plain version,
    its bound and scaled_dot_product_attention + F.linear (a yardstick
    only), and what the cast of wo costs; the timed K5 and plain outputs are
    held against each other once more, on these other seeded inputs;
@@ -165,10 +168,12 @@ BWD_L2_REL = 1e-2
 GRAD_COSINE_SLACK = 0.005
 GRAD_MIN_COSINE = 0.95
 # and the two bf16 paths against each other. On the seeded weights after the
-# ten training steps this reads 0.977796 (video) and 0.988398 (text) on an
-# H100, the same to the last digit in every run (no atomics, seeded batch);
-# the floors leave a margin of 0.008 and 0.003 below the readings for another
-# card or library version, and stand above what one wrong layer would leave.
+# ten training steps this reads 0.974994 (video) and 0.990895 (text) on an
+# H100 with the Hopper K1 (0.977796 and 0.988398 with the mma.sync K1 before
+# it: the weights after ten steps differ), the same to the last digit in
+# every run (no atomics, seeded batch); the floors leave a margin of 0.005
+# and 0.006 below the readings for another card or library version, and
+# stand above what one wrong layer would leave.
 GRAD_MIN_KERNEL_VS_PLAIN = {"video_encoder": 0.97, "text_encoder": 0.985}
 TRAIN_WARMUP, TRAIN_STEPS = 3, 7
 
@@ -289,7 +294,8 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS
 
 
 def kernel_cases(torch):
-    """(name, kernel_fn, plain_fn) at the serving shapes and small modes."""
+    """(name, kernel_fn, plain_fn, at_serving_shape, flops or None) at the
+    serving shapes and small modes; K1's cases carry their FLOP count."""
     from deepcoro_clip_tpu_torch.ops.attention import multi_head_attention
     from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
     from deepcoro_clip_tpu_torch.ops.flash_attention_packed import (
@@ -326,7 +332,30 @@ def kernel_cases(torch):
             lambda qkv=qkv, s=sin, c=cos: flash_attention_packed(
                 qkv=qkv, num_heads=4, sin=s, cos=c),
             lambda q=q, k=k, v=v, s=sin, c=cos: packed_plain(q, k, v, 4, s, c),
-            True))
+            True, 4 * 40 * 4 * L * L * 128))
+    # K1 at ragged lengths below a q tile and a key tile, and the text
+    # tower's shape (H 6, D 768) with padded reports, one fully masked
+    for T, H_, W_ in ((1, 3, 43), (1, 3, 3)):
+        t = build_rope3d_tables(128, T, H_, W_, n_special=1)
+        sin, cos = torch.from_numpy(t.sin).to(dev), torch.from_numpy(t.cos).to(dev)
+        L = sin.shape[0]
+        qkv = randn(6, L, 3 * 512)
+        q, k, v = qkv.split(512, dim=-1)
+        cases.append((
+            f"K1 fused qkv + RoPE [6,{L},1536]",
+            lambda qkv=qkv, s=sin, c=cos: flash_attention_packed(
+                qkv=qkv, num_heads=4, sin=s, cos=c),
+            lambda q=q, k=k, v=v, s=sin, c=cos: packed_plain(q, k, v, 4, s, c),
+            False, 4 * 6 * 4 * L * L * 128))
+    qkv_t = randn(8, 512, 3 * 768)
+    qt, kt, vt = qkv_t.split(768, dim=-1)
+    mt = torch.arange(512, device=dev)[None, :] < torch.tensor(
+        [512, 300, 77, 1, 450, 512, 200, 130], device=dev)[:, None]
+    mt[3] = False
+    cases.append(("K1 fused qkv + kv_mask [8,512,2304] H 6 (one row fully masked)",
+                  lambda: flash_attention_packed(qkv=qkv_t, num_heads=6, kv_mask=mt),
+                  lambda: packed_plain(qt, kt, vt, 6, kv_mask=mt), False,
+                  4 * 8 * 6 * 512 * 512 * 128))
     # K1 small modes: separate q/k/v with a key mask (one row fully masked,
     # Lq != Lk), causal
     q, k, v = randn(3, 70, 256), randn(3, 200, 256), randn(3, 200, 256)
@@ -334,34 +363,36 @@ def kernel_cases(torch):
     mask[2] = False
     cases.append(("K1 q/k/v + kv_mask [3,70|200,256]",
                   lambda: flash_attention_packed(q, k, v, num_heads=2, kv_mask=mask),
-                  lambda: packed_plain(q, k, v, 2, kv_mask=mask), False))
+                  lambda: packed_plain(q, k, v, 2, kv_mask=mask), False,
+                  4 * 3 * 2 * 70 * 200 * 128))
     qc, kc, vc = randn(2, 150, 256), randn(2, 150, 256), randn(2, 150, 256)
     cases.append(("K1 causal [2,150,256]",
                   lambda: flash_attention_packed(qc, kc, vc, num_heads=2, causal=True),
-                  lambda: packed_plain(qc, kc, vc, 2, causal=True), False))
+                  lambda: packed_plain(qc, kc, vc, 2, causal=True), False,
+                  4 * 2 * 2 * 150 * 150 * 128))
     # K3 at the serving shape: the aggregator, one study fully masked
     q3, k3, v3 = randn(4, 8, 10, 64), randn(4, 8, 10, 64), randn(4, 8, 10, 64)
     m3 = torch.zeros(4, 10, dtype=torch.bool, device=dev)
     m3[0, :7], m3[1, :10], m3[2, :1] = True, True, True  # study 3: no video
     cases.append(("K3 kv_mask [4,8,10,64] (one row fully masked)",
                   lambda: flash_attention(q3, k3, v3, kv_mask=m3),
-                  lambda: multi_head_attention(q3, k3, v3, kv_mask=m3), True))
+                  lambda: multi_head_attention(q3, k3, v3, kv_mask=m3), True, None))
     # K3 small modes: cross-attention Lq != Lk with a mask, causal at Dh 128,
     # RoPE at Dh 64
     qx, kx, vx = randn(2, 3, 37, 64), randn(2, 3, 300, 64), randn(2, 3, 300, 64)
     mx = torch.rand(2, 300, generator=g, device=dev) > 0.5
     cases.append(("K3 cross + kv_mask [2,3,37|300,64]",
                   lambda: flash_attention(qx, kx, vx, kv_mask=mx),
-                  lambda: multi_head_attention(qx, kx, vx, kv_mask=mx), False))
+                  lambda: multi_head_attention(qx, kx, vx, kv_mask=mx), False, None))
     qc3, kc3, vc3 = randn(2, 2, 130, 128), randn(2, 2, 130, 128), randn(2, 2, 130, 128)
     cases.append(("K3 causal [2,2,130,128]",
                   lambda: flash_attention(qc3, kc3, vc3, causal=True),
-                  lambda: multi_head_attention(qc3, kc3, vc3, causal=True), False))
+                  lambda: multi_head_attention(qc3, kc3, vc3, causal=True), False, None))
     s64, c64 = rope(64, 2, 7, 7)
     qr, kr, vr = (randn(2, 3, s64.shape[0], 64) for _ in range(3))
     cases.append(("K3 RoPE [2,3,99,64]",
                   lambda: flash_attention(qr, kr, vr, sin=s64, cos=c64),
-                  lambda: multi_head_attention(qr, kr, vr, sin=s64, cos=c64), False))
+                  lambda: multi_head_attention(qr, kr, vr, sin=s64, cos=c64), False, None))
     return cases
 
 
@@ -381,10 +412,14 @@ def check_forward(torch, label: str, name: str, out, ref) -> float:
 
 def phase_kernels(torch) -> dict:
     errs = {"K1": 0.0, "K3": 0.0}
-    for name, kern, plain, at_serving_shape in kernel_cases(torch):
+    for name, kern, plain, at_serving_shape, flops in kernel_cases(torch):
         out = kern()
         torch.cuda.synchronize()
         err = check_forward(torch, "kernel check", name, out, plain())
+        if flops:  # K1 on the Hopper kernel: a time beside the check
+            ms = cuda_ms(torch, kern, 5)
+            print(f"kernel check {name}: {ms:.4f} ms between CUDA events, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
         if at_serving_shape:
             key = name[:2]
             errs[key] = max(errs[key], err)
@@ -579,6 +614,7 @@ def phase_times(torch, engine, x, m, errs, launches):
             lambda: F.scaled_dot_product_attention(qr, kr, heads[2]),
             flops, nbytes)
         row["shape"] = f"qkv [{B},{L},{3 * D}] bf16, H {H}, Dh {Dh}, RoPE"
+        row["tflops"] = flops / row["ms"] / 1e9
         k1_shapes.append(row)
         del qkv, heads, qr, kr
 
@@ -596,7 +632,8 @@ def phase_times(torch, engine, x, m, errs, launches):
 
     for name, rows in (("K1", k1_shapes), ("K3", [k3_row])):
         for r in rows:
-            print(f"times: {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            rate = f" ({r['tflops']:.1f} TFLOP/s)" if "tflops" in r else ""
+            print(f"times: {name} {r['shape']}: kernel {r['ms']:.4f} ms{rate}, plain "
                   f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}); card busy: kernel "
                   f"{r['device_ms']:.4f} ms, sdpa {r['library_device_ms']:.4f} ms",
@@ -1085,6 +1122,7 @@ def phase_train_times(torch, errs, counts):
             "library_device_ms": device_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     *heads, attn_mask=mask[:, None, None, :]), REPS)}
+        k1_text["tflops"] = 4 * B * H * L * L * Dh / k1_text["ms"] / 1e9
     del q, k, v, do, leaves, out, heads, doh, outh, sq, sout
 
     # K4: the aggregator over 4 videos
@@ -1104,7 +1142,8 @@ def phase_train_times(torch, errs, counts):
     for name, rows in (("K2 backward", rows_k2), ("K1 forward (text)", [k1_text]),
                        ("K4 backward", [row_k4])):
         for r in rows:
-            print(f"train times: {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            rate = f" ({r['tflops']:.1f} TFLOP/s)" if "tflops" in r else ""
+            print(f"train times: {name} {r['shape']}: kernel {r['ms']:.4f} ms{rate}, plain "
                   f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}); card busy: kernel "
                   f"{r['device_ms']:.4f} ms, sdpa {r['library_device_ms']:.4f} ms",
@@ -1185,6 +1224,12 @@ def proj_cases(torch):
                 ref = [torch.cat(ref, dim=-1)]
             ref.append(torch.matmul(flat.flatten(0, 1).t().float(), gy.flatten(0, 1).float()))
             return y.detach(), ref_y, got, ref
+
+        def forward():  # no gradient wanted: y alone, no residuals
+            with torch.no_grad():
+                return call(operands + [wo])
+        run.forward = forward
+        run.flops = 4 * B * H * Lq * Lk * 128 + 2 * B * Lq * D * dout
         return run
 
     def rope(T, HW):
@@ -1275,6 +1320,9 @@ def phase_proj_kernels(torch) -> dict:
               f"over {', '.join(names)} (bars: {BWD_MAX_REL} of max|plain|, rel l2 "
               f"{BWD_L2_REL}); forward and backward launched twice, bit-equal ok",
               flush=True)
+        ms = cuda_ms(torch, run.forward, 5)
+        print(f"fused projection check {name}: forward {ms:.4f} ms between CUDA events, "
+              f"{run.flops / ms / 1e9:.1f} TFLOP/s", flush=True)
         if at_shape:
             errs["K5"], errs["K5_bwd"] = max(errs["K5"], err), max(errs["K5_bwd"], worst)
     for name, at_shape, run in f32_cases(torch):
@@ -1719,8 +1767,12 @@ def phase_probe_times(torch, errs, counts, partial_counts):
             row["max_abs_err"] = check_forward(
                 torch, "probing times", f"K5 {row['shape']}", fused(), plain())
             errs["K5"] = max(errs["K5"], row["max_abs_err"])
+            row["tflops"] = flops / row["ms"] / 1e9
+            row["unfused_tflops"] = flops / row["unfused_ms"] / 1e9
             rows.append(row)
             print(f"probing times: K5 {row['shape']}: kernel {row['ms']:.4f} ms "
+                  f"({row['tflops']:.1f} TFLOP/s; K1 + F.linear "
+                  f"{row['unfused_tflops']:.1f}) "
                   f"({row['ms_with_cast']:.4f} with the cast of wo), K1 + F.linear "
                   f"{row['unfused_ms']:.4f} ms ({row['unfused_ms_with_cast']:.4f} with the "
                   f"cast), plain {row['plain_ms']:.4f} ms, sdpa + F.linear "
@@ -2110,6 +2162,16 @@ def main() -> int:
                     print(f"build: ptxas {name}: {fn[fn.index('_cu_') + 13:][:40]}", flush=True)
                 elif "registers" in line or "spill" in line:
                     print(f"build: ptxas   {line.strip()}", flush=True)
+        from deepcoro_clip_tpu_torch.ops._flash_cuda import hopper_kernel_attrs
+
+        for key, a in hopper_kernel_attrs().items():
+            regs = f"{a['registers']} registers a thread"
+            if a["consumers"] == 2:
+                regs += (" at entry (setmaxnreg moves them to 232 a consumer, 40 the "
+                         "producer)")
+            print(f"build: {key} Hopper kernel: {a['consumers']} consumer warpgroup(s), "
+                  f"{regs}, {a['smem_bytes']} B dynamic shared memory a block (of "
+                  f"232448: one block per SM)", flush=True)
 
         errs = phase_kernels(torch)
         with tempfile.TemporaryDirectory() as tmp:

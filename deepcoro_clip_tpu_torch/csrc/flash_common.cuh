@@ -312,7 +312,8 @@ __device__ __forceinline__ void attend_head(
 }
 
 // RoPE pre-pass: x [B, H, L, D] (strided) -> out [B, H, L, D] contiguous,
-// rotated once. One thread per row and 8 rotate-half pairs. Grid:
+// rotated once. One thread per row and 8 rotate-half pairs: two 16-byte
+// loads of x, eight of the tables, two 16-byte stores. Grid:
 // (ceil(L * D / 16 / 256), B * H), 256 threads.
 template <int D>
 __global__ void __launch_bounds__(256) rope_rows_kernel(
@@ -330,16 +331,27 @@ __global__ void __launch_bounds__(256) rope_rows_kernel(
   const uint4 a2 = *reinterpret_cast<const uint4*>(src + c + HALF);
   const __nv_bfloat16* x1 = reinterpret_cast<const __nv_bfloat16*>(&a1);
   const __nv_bfloat16* x2 = reinterpret_cast<const __nv_bfloat16*>(&a2);
-  const float* sr = sin + (long long)row * D;
-  const float* cr = cos + (long long)row * D;
+  const float4* s4 = reinterpret_cast<const float4*>(sin + (long long)row * D + c);
+  const float4* c4 = reinterpret_cast<const float4*>(cos + (long long)row * D + c);
+  float4 t[4][2];  // sin d, sin d + HALF, cos d, cos d + HALF; 4 columns each
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    t[0][j] = __ldg(s4 + j);
+    t[1][j] = __ldg(s4 + HALF / 4 + j);
+    t[2][j] = __ldg(c4 + j);
+    t[3][j] = __ldg(c4 + HALF / 4 + j);
+  }
+  const float* s1 = reinterpret_cast<const float*>(t[0]);
+  const float* s2 = reinterpret_cast<const float*>(t[1]);
+  const float* c1 = reinterpret_cast<const float*>(t[2]);
+  const float* c2 = reinterpret_cast<const float*>(t[3]);
   uint4 o1, o2;
   __nv_bfloat16* y1 = reinterpret_cast<__nv_bfloat16*>(&o1);
   __nv_bfloat16* y2 = reinterpret_cast<__nv_bfloat16*>(&o2);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int d = c + i;
-    rope_pair(__bfloat162float(x1[i]), __bfloat162float(x2[i]), sr[d], sr[d + HALF],
-              cr[d], cr[d + HALF], y1[i], y2[i]);
+    rope_pair(__bfloat162float(x1[i]), __bfloat162float(x2[i]), s1[i], s2[i], c1[i], c2[i],
+              y1[i], y2[i]);
   }
   *reinterpret_cast<uint4*>(dst + c) = o1;
   *reinterpret_cast<uint4*>(dst + c + HALF) = o2;

@@ -19,210 +19,252 @@
 // Design. The Pallas kernel gives every (head block, q block) its own grid
 // step and sums the heads' partial products through an fp32 [Lq, Dout]
 // scratch that one grid step hands to the next; here blocks run in
-// parallel and nothing carries over between them, so one block owns a
-// 64-row tile of y outright:
-//   1. it loops over the H heads; each head's attention is `attend_head`
-//      of flash_common.cuh, the body of flash_fwd.cu's kernel (K/V streamed
-//      in tiles by cp.async, online softmax, mma.sync m16n8k16); the head's
-//      normalised output, rounded to bf16 as the Pallas kernel rounds it
-//      before its product, goes into a shared [64, D] tile (and, when a
-//      gradient is wanted, to device memory);
-//   2. then y = tile @ wo: wo streams through the K/V buffers in [64, 128]
-//      tiles (column chunk by column chunk, double-buffered); a warp keeps
-//      its 16 x 128 fp32 slice of y in registers over the D/64 tiles of a
-//      chunk and rounds it once on the way out.
-// No atomics and no second pass: every y element is summed by one thread
-// in a fixed order, so two launches agree bit for bit.
+// parallel and nothing carries over between them, so one block owns a tile
+// of BQ rows of y outright. It is K1's Hopper kernel (flash_fwd.cu,
+// flash_fwd_sm90_kernel) with a second phase:
+//   - warpgroups: one or two consumers of 64 rows each (BQ = 128 for
+//     H * 128 <= 512, else 64, so that the output tile fits) and a
+//     producer, of which one warp works (setmaxnreg: 232 and 40 registers
+//     with two consumers);
+//   - the producer loads every head's q tile by TMA at once, each into the
+//     columns of the shared [BQ, H * 128] output tile that the head's
+//     output will fill, then streams each head's K and V in tiles of 64
+//     keys through a ring of three 32 KB stages (mbarriers), then wo
+//     ([H * 128, Dout], L2-resident) in [128, 128] tiles through the same
+//     ring;
+//   - each consumer warpgroup rotates its rows of a head's q tile (RoPE,
+//     in place; K was rotated once by a pre-pass) and runs sm90_attend
+//     (sm90_common.cuh: wgmma for S = Q K^T and O += P V, the softmax in
+//     registers while the tensor cores run the previous tile's P V) head
+//     after head; a
+//     head's normalised output, rounded to bf16 as the Pallas kernel rounds
+//     it before its product, overwrites the head's q columns of the output
+//     tile (in the swizzled layout wgmma reads as an A operand) and, when a
+//     gradient is wanted, goes to device memory with the row statistics;
+//   - then y = tile @ wo on wgmma, [64, 128] fp32 accumulators a
+//     warpgroup, one column chunk at a time over all D, rounded once to
+//     bf16 and stored.
+// No atomics and no second pass: every y element is summed by one
+// warpgroup in a fixed order, so two launches agree bit for bit, and the
+// tiles never depend on B.
 //
-// Shared memory per block. The [64, D + 8] output tile (65 KB at D = 512,
-// 97 KB at D = 768) comes on top of the streamed tiles, and with
-// flash_fwd.cu's layout (q tile 17 KB, two K and two V tiles of 64 keys,
-// 68 KB) a block took 150 KB: one block of 4 warps per SM, and the kernel
-// ran 1.7x slower on an H100 than the unfused kernel followed by the product
-// (PERF.md).
-// So here keys stream in tiles of 32 (34 KB for the four tiles), and a
-// head's q tile is staged in the columns of the output tile that the head's
-// output will fill: 99 KB at D = 512, two blocks per SM as in flash_fwd.cu;
-// 131 KB at D = 768, one block. D <= 1024 fits the 227 KB a block may take.
-// Looping over the heads also divides the grid by H: the text tower's
-// [8, 512] rows give 64 blocks for 132 SMs. That is the price of owning y
-// without atomics; wgmma, TMA and a persistent schedule are left for later
-// work.
+// Shared memory per block: the output tile (2 H boxes of BQ x 128 bytes:
+// 128 KB at H 4 with BQ 128, 96 KB at H 6 with BQ 64, 128 KB at H 8 with
+// BQ 64), the ring (96 KB), 192 mask bytes and the barriers: 225 KB at
+// H = 4, one block per SM.
 
-#include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int BKP = 32;  // keys per streamed tile here (flash_fwd.cu: 64)
-static_assert(4 * BKP == 2 * BK, "the four K/V tiles are reused as two wo tiles");
+constexpr int PBK = 64;  // keys per streamed tile
+constexpr int PNST = 3;  // stages of the ring
+using PRing = KVRing<PBK>;
+static_assert(PRing::STAGE == 128 * 128 * 2, "a stage holds one [128, 128] wo tile");
+constexpr int MAX_HEADS = 8;  // H * 128 <= 1024
 
 struct ProjParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* wo;  // [D, Dout] contiguous
   __nv_bfloat16* y;         // [B, Lq, Dout] contiguous
   __nv_bfloat16* o;         // attention output (strided) or null
   const float* sin;         // [Lq, Dh] fp32 or null
   const float* cos;
   const uint8_t* mask;      // [B, Lk], nonzero = attend, or null
   float* stats;             // [2, B*H, Lq] fp32 row max and row sum, or null
-  long long q_sb, q_sh, q_sl;
-  long long k_sb, k_sh, k_sl;
-  long long v_sb, v_sh, v_sl;
   long long o_sb, o_sh, o_sl;
   int B, H, Lq, Lk, Dout;
   float scale_log2;
   int causal;
+  int q_hi, k_hi, v_hi;  // coordinate order of each head map
 };
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_proj_kernel(const ProjParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int TILE = BK * (D + PAD);     // a wo tile: 64 rows
-  constexpr int KTILE = BKP * (D + PAD);   // a K or V tile: BKP keys
-  constexpr int NO = D / 8;
-  // two K tiles then two V tiles of BKP keys; together, later, two wo tiles
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + 2 * KTILE;
-  __nv_bfloat16* Os = Vs + 2 * KTILE;      // [64, H*D + PAD]: all heads' outputs
-  const int DM = p.H * D;
-  const int os_ld = DM + PAD;
+// Byte offsets from the 1024-aligned base for H heads and NWG consumers.
+struct ProjSmem {
+  int obox, ring, mask, bars, bytes;
+  __host__ __device__ ProjSmem(int H, int nwg) {
+    obox = nwg * 64 * BOX_ROW_BYTES;  // one box of the output tile: BQ rows
+    ring = 2 * H * obox;
+    mask = ring + PNST * PRing::STAGE;
+    bars = mask + PNST * PBK;
+    bytes = bars + (2 * PNST + H) * 8 + 1024;  // slack to align the base
+  }
+};
+
+template <int NWG>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+    flash_fwd_proj_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap two, const ProjParams p) {
+  constexpr int BQ = NWG * 64;
+  extern __shared__ __align__(16) unsigned char sm90_smem[];
+  unsigned char* smem = sm90_smem + ((1024 - (smem_u32(sm90_smem) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const ProjSmem lay(p.H, NWG);
+  uint8_t* mask_s = smem + lay.mask;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* empty = full + PNST;
+  uint64_t* q_loaded = empty + PNST;  // one per head
 
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-  const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
-
-  for (int h = 0; h < p.H; ++h) {
-    float acc[NO][4];
-    float m_r[2], l_r[2];
-    // the head's q tile is staged where its output will go: the q rows are
-    // in registers before the key loop's first barrier, the output is
-    // written after its last
-    attend_head<D, BKP>(Os + h * D, os_ld, Ks, Vs, p.q + b * p.q_sb + h * p.q_sh, p.q_sl,
-                        p.k + b * p.k_sb + h * p.k_sh, p.k_sl,
-                        p.v + b * p.v_sb + h * p.v_sh, p.v_sl, p.sin, p.cos, mrow, q0,
-                        p.Lq, p.Lk, p.scale_log2, p.causal, acc, m_r, l_r);
-    if (p.stats != nullptr && t == 0) {
-      float* sm = p.stats + ((long long)b * p.H + h) * p.Lq;
-      float* sl = sm + (long long)p.B * p.H * p.Lq;
-      if (row_a < p.Lq) { sm[row_a] = m_r[0]; sl[row_a] = l_r[0]; }
-      if (row_b < p.Lq) { sm[row_b] = m_r[1]; sl[row_b] = l_r[1]; }
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int nchunks = p.Dout / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PNST; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], NWG * 128);
     }
-    // l >= 1: the row maximum contributes exp2(0)
-    const float inv_a = 1.f / l_r[0];
-    const float inv_b = 1.f / l_r[1];
-    __nv_bfloat16* sa = Os + (warp * 16 + g) * os_ld + h * D + 2 * t;
-    __nv_bfloat16* sb = sa + 8 * os_ld;
-    __nv_bfloat16* ga = nullptr;
-    __nv_bfloat16* gb = nullptr;
-    if (p.o != nullptr) {
-      __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh + 2 * t;
-      if (row_a < p.Lq) ga = og + (long long)row_a * p.o_sl;
-      if (row_b < p.Lq) gb = og + (long long)row_b * p.o_sl;
-    }
-#pragma unroll
-    for (int dn = 0; dn < NO; ++dn) {
-      const uint32_t va = pack_bf16(acc[dn][0] * inv_a, acc[dn][1] * inv_a);
-      const uint32_t vb = pack_bf16(acc[dn][2] * inv_b, acc[dn][3] * inv_b);
-      *reinterpret_cast<uint32_t*>(sa + dn * 8) = va;
-      *reinterpret_cast<uint32_t*>(sb + dn * 8) = vb;
-      if (ga != nullptr) *reinterpret_cast<uint32_t*>(ga + dn * 8) = va;
-      if (gb != nullptr) *reinterpret_cast<uint32_t*>(gb + dn * 8) = vb;
-    }
+    for (int h = 0; h < p.H; ++h) mbar_init(&q_loaded[h], 1);
+    mbar_init_fence();
   }
-  __syncthreads();  // the output tile is whole, the K buffers are free
+  __syncthreads();
 
-  // y[64, Dout] = Os[64, DM] @ wo[DM, Dout], a [64, D]-wide chunk of columns
-  // at a time; tile i is rows (i % nkt) * 64.. of column chunk i / nkt
-  const int nkt = DM / BK;
-  const int total = (p.Dout / D) * nkt;
-  const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3), v_col = (lane >> 4) * 8;
-  load_tile_async<D>(Ks, p.wo, p.Dout, 0, DM);
-  cp_async_commit();
-  float y[NO][4];
-  for (int i = 0; i < total; ++i) {
-    const int cur = i & 1;
-    if (i + 1 < total) {
-      const int c = (i + 1) / nkt, kt = (i + 1) % nkt;
-      load_tile_async<D>(Ks + (cur ^ 1) * TILE, p.wo + c * D, p.Dout, kt * BK, DM);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Wt = Ks + cur * TILE;
-    const int c = i / nkt, kt = i % nkt;
-    if (kt == 0) {
-#pragma unroll
-      for (int dn = 0; dn < NO; ++dn) y[dn][0] = y[dn][1] = y[dn][2] = y[dn][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, Os + (warp * 16 + (lane & 15)) * os_ld + kt * BK + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t wb[4];
-        ldsm_x4_trans(wb, Wt + (kk * 16 + v_row) * (D + PAD) + dp * 16 + v_col);
-        mma_bf16(y[2 * dp], a, wb[0], wb[1]);
-        mma_bf16(y[2 * dp + 1], a, wb[2], wb[3]);
+  if (wg == NWG) {  // producer: one warp loads, the other three leave
+    if constexpr (NWG == 2) setmaxnreg_dec<40>();
+    if ((threadIdx.x / 32) % 4 != 0) return;
+    if (lane == 0) {
+      for (int h = 0; h < p.H; ++h) {
+        mbar_arrive_expect_tx(&q_loaded[h], 2 * lay.obox);
+        tma_load_head(&tq, base + 2 * h * lay.obox, &q_loaded[h], 0, q0, h, b, p.q_hi);
+        tma_load_head(&tq, base + (2 * h + 1) * lay.obox, &q_loaded[h], 64, q0, h, b,
+                      p.q_hi);
       }
     }
-    if (kt == nkt - 1) {  // the chunk is summed over all of D: round once, store
-      __nv_bfloat16* yg = p.y + (long long)b * p.Lq * p.Dout + c * D + 2 * t;
-      if (row_a < p.Lq) {
-        __nv_bfloat16* yrow = yg + (long long)row_a * p.Dout;
+    Pipe pp;
+    const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
+    for (int h = 0; h < p.H; ++h) {
+      produce_kv<PBK, PNST>(&tk, p.k_hi, &tv, p.v_hi, h, b, p.Lk, mrow, base + lay.ring,
+                            mask_s, full, empty, pp, lane);
+    }
+    // wo tile (c, kt): rows kt*128.. (head kt's columns of the output
+    // tile), columns c*128..; four boxes, [K half][N half]
+    for (int c = 0; c < nchunks; ++c) {
+      for (int kt = 0; kt < p.H; ++kt) {
+        mbar_wait(&empty[pp.stage], pp.phase ^ 1);
+        if (lane == 0) {
+          const uint32_t st = base + lay.ring + pp.stage * PRing::STAGE;
+          mbar_arrive_expect_tx(&full[pp.stage], PRing::STAGE);
 #pragma unroll
-        for (int dn = 0; dn < NO; ++dn) {
-          *reinterpret_cast<uint32_t*>(yrow + dn * 8) = pack_bf16(y[dn][0], y[dn][1]);
+          for (int kh = 0; kh < 2; ++kh) {
+#pragma unroll
+            for (int nh = 0; nh < 2; ++nh) {
+              tma_load_matrix(&two, st + (2 * kh + nh) * 64 * BOX_ROW_BYTES, &full[pp.stage],
+                              c * 128 + nh * 64, kt * 128 + kh * 64);
+            }
+          }
+        } else {
+          mbar_arrive(&full[pp.stage]);
         }
+        pp.advance<PNST>();
       }
-      if (row_b < p.Lq) {
-        __nv_bfloat16* yrow = yg + (long long)row_b * p.Dout;
+    }
+  } else {  // consumers: warpgroup wg owns rows q0 + 64 wg .. of y
+    if constexpr (NWG == 2) setmaxnreg_inc<232>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int t = lane & 3;
+    const int rl = wg * 64 + warp * 16 + lane / 4;  // this thread's first row in the tile
+    const int row_a = q0 + rl;
+    Pipe pp;
+    for (int h = 0; h < p.H; ++h) {
+      const uint32_t box0 = 2 * h * lay.obox + wg * 64 * BOX_ROW_BYTES;
+      mbar_wait(&q_loaded[h], 0);
+      if (p.sin != nullptr) {  // RoPE of this warpgroup's q rows, in place
+        rope_q_rows(smem + box0, smem + box0 + lay.obox, p.sin, p.cos, q0 + wg * 64, p.Lq,
+                    tid);
+        fence_async_smem();
+        warpgroup_sync(1 + wg);
+      }
+      float o[64], m_r[2], l_r[2];
+      sm90_attend<PBK, PNST>(base + box0, lay.obox, base + lay.ring, mask_s,
+                             p.mask != nullptr, full, empty, pp, nullptr, row_a, p.Lk,
+                             p.scale_log2, p.causal, o, m_r, l_r);
+      write_stats(p.stats, (long long)b * p.H + h, (long long)p.B * p.H, p.Lq, row_a, m_r,
+                  l_r);
+      warpgroup_sync(1 + wg);  // every product that read this head's q is done
+      // l >= 1: the row maximum contributes exp2(0)
+      const float inv[2] = {1.f / l_r[0], 1.f / l_r[1]};
 #pragma unroll
-        for (int dn = 0; dn < NO; ++dn) {
-          *reinterpret_cast<uint32_t*>(yrow + dn * 8) = pack_bf16(y[dn][2], y[dn][3]);
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_a + 8 * r;
+        unsigned char* srow = smem + 2 * h * lay.obox + (rl + 8 * r) * BOX_ROW_BYTES + 4 * t;
+        __nv_bfloat16* grow = (p.o != nullptr && row < p.Lq)
+                                  ? p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_sl +
+                                        2 * t
+                                  : nullptr;
+#pragma unroll
+        for (int jn = 0; jn < 16; ++jn) {
+          const uint32_t val =
+              pack_bf16(o[4 * jn + 2 * r] * inv[r], o[4 * jn + 2 * r + 1] * inv[r]);
+          // column 8 jn + 2 t: box jn / 8, chunk jn % 8 swizzled by the row
+          *reinterpret_cast<uint32_t*>(srow + (jn / 8) * lay.obox +
+                                       (((jn % 8) ^ ((rl + 8 * r) & 7)) * 16)) = val;
+          if (grow != nullptr) *reinterpret_cast<uint32_t*>(grow + jn * 8) = val;
         }
       }
     }
-    __syncthreads();  // every warp is done with this buffer before it refills
+    fence_async_smem();  // the output tile's rows, written above, feed wgmma
+    warpgroup_sync(1 + wg);
+
+    // y[64, Dout] = O[64, D] @ wo[D, Dout], one [64, 128] chunk of columns
+    // at a time over the H tiles of 128 rows of wo
+    for (int c = 0; c < nchunks; ++c) {
+      float y[64];
+      for (int kt = 0; kt < p.H; ++kt) {
+        const uint32_t st = base + lay.ring + pp.stage * PRing::STAGE;
+        mbar_wait(&full[pp.stage], pp.phase);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          const int kh = ks / 4;
+          const uint64_t da =
+              make_desc(base + (2 * kt + kh) * lay.obox + wg * 64 * BOX_ROW_BYTES, 16, 1024) +
+              (ks % 4) * 2;
+          const uint64_t db =
+              make_desc(st + 2 * kh * 64 * BOX_ROW_BYTES, 64 * BOX_ROW_BYTES, 1024) +
+              (ks % 4) * (16 * BOX_ROW_BYTES / 16);
+          wgmma_ss_n128_tb(y, da, db, kt > 0 || ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(y);
+        mbar_arrive(&empty[pp.stage]);
+        pp.advance<PNST>();
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_a + 8 * r;
+        if (row >= p.Lq) continue;
+        __nv_bfloat16* yrow = p.y + ((long long)b * p.Lq + row) * p.Dout + c * 128 + 2 * t;
+#pragma unroll
+        for (int jn = 0; jn < 16; ++jn) {
+          *reinterpret_cast<uint32_t*>(yrow + jn * 8) =
+              pack_bf16(y[4 * jn + 2 * r], y[4 * jn + 2 * r + 1]);
+        }
+      }
+    }
   }
 }
 
-template <int D>
-cudaError_t launch(ProjParams p, __nv_bfloat16* k_rot, cudaStream_t stream) {
-  if (p.sin != nullptr) {  // rotate K once into the scratch, then read it there
-    cudaError_t err = launch_rope_rows<D>(p.k, p.k_sb, p.k_sh, p.k_sl, p.B, p.H, p.Lk,
-                                          p.sin, p.cos, k_rot, stream);
-    if (err != cudaSuccess) return err;
-    p.k = k_rot;
-    p.k_sb = (long long)p.H * p.Lk * D;
-    p.k_sh = (long long)p.Lk * D;
-    p.k_sl = D;
-  }
-  const int smem = (4 * BKP * (D + PAD) + BQ * (p.H * D + PAD)) *
-                   static_cast<int>(sizeof(__nv_bfloat16));
-  // the attribute is the largest size asked for so far on each device
-  static int allowed[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES || allowed[dev] < smem) {
-    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&flash_fwd_proj_kernel<D>),
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    if (dev < MAX_DEVICES) allowed[dev] = smem;
-  }
-  const dim3 grid((p.Lq + BQ - 1) / BQ, p.B);
-  flash_fwd_proj_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+template <int NWG>
+int launch(const ProjParams& p, const CUtensorMap& tq, const CUtensorMap& tk,
+           const CUtensorMap& tv, const CUtensorMap& two, cudaStream_t stream) {
+  const ProjSmem lay(p.H, NWG);
+  // the attribute is set once, to the most this kernel takes (at its most heads)
+  static bool ready[MAX_DEVICES] = {};
+  cudaError_t err =
+      allow_smem_once(reinterpret_cast<const void*>(&flash_fwd_proj_kernel<NWG>),
+                      ProjSmem(NWG == 2 ? 4 : MAX_HEADS, NWG).bytes, ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.Lq + NWG * 64 - 1) / (NWG * 64), p.B);
+  flash_fwd_proj_kernel<NWG><<<grid, (NWG + 1) * 128, lay.bytes, stream>>>(tq, tk, tv, two, p);
+  return static_cast<int>(cudaGetLastError());
 }
+
+// Consumer warpgroups for H heads: two while the [128, H * 128] output tile
+// fits beside the ring, else one.
+inline int consumers(int H) { return H * 128 <= 512 ? 2 : 1; }
 
 }  // namespace
 
@@ -230,13 +272,15 @@ extern "C" {
 
 // Returns 0 on success, else the CUDA error code of a launch (or
 // cudaErrorInvalidValue for a head dim other than 128, a Dout that is not a
-// multiple of 128, H * Dh above 1024, or RoPE without its scratch). Strides
-// are in elements; the head dim of every operand is contiguous. `wo` is
-// [H * Dh, Dout] and `y` [B, Lq, Dout], both contiguous. `o` (the attention
-// output, strided like q) and `stats` ([2, B, H, Lq] fp32: row maximum in
-// log2 units with the scale folded in, and row sum) are written when not
-// null: they are what the backward starts from. With sin/cos, `k_rot` is a
-// [B, H, Lk, Dh] bf16 scratch buffer that receives the rotated K.
+// multiple of 128, H * Dh above 1024, or RoPE without its scratch; or
+// TMA_ERROR_BASE + the CUresult of cuTensorMapEncodeTiled when a tensor map
+// cannot be encoded). Strides are in elements; the head dim of every operand is
+// contiguous. `wo` is [H * Dh, Dout] and `y` [B, Lq, Dout], both
+// contiguous. `o` (the attention output, strided like q) and `stats` ([2,
+// B, H, Lq] fp32: row maximum in log2 units with the scale folded in, and
+// row sum) are written when not null: they are what the backward starts
+// from. With sin/cos, `k_rot` is a [B, H, Lk, Dh] bf16 scratch buffer that
+// receives the rotated K.
 int deepcoro_flash_fwd_proj_bf16(
     const void* q, const void* k, const void* v, const void* wo, void* y, void* o,
     const void* sin, const void* cos, const void* mask, void* k_rot, void* stats,
@@ -246,30 +290,56 @@ int deepcoro_flash_fwd_proj_bf16(
     long long v_sb, long long v_sh, long long v_sl,
     long long o_sb, long long o_sh, long long o_sl,
     float scale, int causal, void* stream) {
+  if (Dh != 128 || Dout % 128 != 0 || H < 1 || H > MAX_HEADS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (sin != nullptr && k_rot == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sin != nullptr) {  // rotate K once into the scratch, then read it there
+    cudaError_t err = launch_rope_rows<128>(
+        static_cast<const __nv_bfloat16*>(k), k_sb, k_sh, k_sl, B, H, Lk,
+        static_cast<const float*>(sin), static_cast<const float*>(cos),
+        static_cast<__nv_bfloat16*>(k_rot), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    k = k_rot;
+    k_sb = (long long)H * Lk * 128;
+    k_sh = (long long)Lk * 128;
+    k_sl = 128;
+  }
   ProjParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.wo = static_cast<const __nv_bfloat16*>(wo);
   p.y = static_cast<__nv_bfloat16*>(y);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.sin = static_cast<const float*>(sin);
   p.cos = static_cast<const float*>(cos);
   p.mask = static_cast<const uint8_t*>(mask);
   p.stats = static_cast<float*>(stats);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
   p.B = B; p.H = H; p.Lq = Lq; p.Lk = Lk; p.Dout = Dout;
   p.scale_log2 = scale * LOG2E;
   p.causal = causal;
-  if (Dh != 128 || Dout % 128 != 0 || H * Dh > 1024) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (sin != nullptr && k_rot == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<128>(p, static_cast<__nv_bfloat16*>(k_rot),
-                                      static_cast<cudaStream_t>(stream)));
+  const int nwg = consumers(H);
+  CUtensorMap tq, tk, tv, two;
+  int err = encode_head_map(&tq, q, Lq, H, B, q_sl, q_sh, q_sb, nwg * 64, &p.q_hi);
+  if (err == 0) err = encode_head_map(&tk, k, Lk, H, B, k_sl, k_sh, k_sb, PBK, &p.k_hi);
+  if (err == 0) err = encode_head_map(&tv, v, Lk, H, B, v_sl, v_sh, v_sb, PBK, &p.v_hi);
+  if (err == 0) err = encode_matrix_map(&two, wo, H * 128, Dout);
+  if (err != 0) return err;
+  return nwg == 2 ? launch<2>(p, tq, tk, tv, two, st) : launch<1>(p, tq, tk, tv, two, st);
+}
+
+// Registers per thread (at entry) and dynamic shared memory per block of
+// the kernel that H heads launch.
+int deepcoro_flash_fwd_proj_attrs(int H, int* regs, int* smem) {
+  if (H < 1 || H > MAX_HEADS) return static_cast<int>(cudaErrorInvalidValue);
+  const int nwg = consumers(H);
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(
+      &a, nwg == 2 ? reinterpret_cast<const void*>(&flash_fwd_proj_kernel<2>)
+                   : reinterpret_cast<const void*>(&flash_fwd_proj_kernel<1>));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *smem = ProjSmem(H, nwg).bytes;
+  return 0;
 }
 
 }  // extern "C"

@@ -5,11 +5,13 @@
 ``flash_attention_packed``: both hand them ``[B, H, L, Dh]`` views (any
 batch/head/row strides, head dim contiguous) of their operands and of the
 outputs they allocated, in bf16 (tensor-core kernels) or fp32 (plain fp32
-kernels; nothing is cast on the way). ``flash_fwd_proj``
-(``csrc/flash_fwd_proj.cu``) is the packed forward with the output
-projection fused in (bf16). The launchers check what the kernels take,
-launch on PyTorch's current stream, and raise if a launch failed. They
-count nothing: each entry point counts its own launches.
+kernels; nothing is cast on the way). The packed entry's forward (K1)
+runs the Hopper kernel of ``csrc/flash_fwd.cu`` (wgmma, TMA, mbarriers),
+the ``[B, H, L, Dh]`` entry's (K3) the older one in the same file.
+``flash_fwd_proj`` (``csrc/flash_fwd_proj.cu``) is the packed forward with
+the output projection fused in (bf16). The launchers check what the kernels
+take, launch on PyTorch's current stream, and raise if a launch failed.
+They count nothing: each entry point counts its own launches.
 
 ``FlashAttention`` is the ``torch.autograd.Function`` both entry points go
 through when a gradient is wanted, ``FlashAttentionProj`` the one of the
@@ -48,8 +50,10 @@ def _c_fn(lib: str, symbol: str, argtypes):
     return fn
 
 
-def _fwd_fn(dtype: torch.dtype):
-    return _c_fn("flash_fwd", f"deepcoro_flash_fwd_{_SUFFIX[dtype]}",
+def _fwd_fn(dtype: torch.dtype, packed: bool = False):
+    symbol = ("deepcoro_flash_fwd_sm90_bf16" if packed
+              else f"deepcoro_flash_fwd_{_SUFFIX[dtype]}")
+    return _c_fn("flash_fwd", symbol,
                  [_P] * 9 + [_I] * 5 + [_LL] * 12 + [ctypes.c_float, _I, _P])
 
 
@@ -61,6 +65,27 @@ def _bwd_fn(dtype: torch.dtype):
 def _fwd_proj_fn():
     return _c_fn("flash_fwd_proj", "deepcoro_flash_fwd_proj_bf16",
                  [_P] * 11 + [_I] * 6 + [_LL] * 12 + [ctypes.c_float, _I, _P])
+
+
+def hopper_kernel_attrs(heads=(4, 6)) -> dict:
+    """Registers per thread (at the kernel's entry, before ``setmaxnreg``
+    moves them between warpgroups), dynamic shared memory per block and
+    consumer warpgroups of K1's Hopper kernel and of K5's for each head count
+    in ``heads``: what ``chip_smoke.py`` reports beside ptxas. Builds the
+    libraries if need be."""
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    ip = ctypes.POINTER(ctypes.c_int)
+    fn = _c_fn("flash_fwd", "deepcoro_flash_fwd_sm90_attrs", [ip, ip])
+    if fn(ctypes.byref(regs), ctypes.byref(smem)) != 0:
+        raise RuntimeError("cudaFuncGetAttributes failed on the K1 kernel")
+    out = {"K1": {"registers": regs.value, "smem_bytes": smem.value, "consumers": 2}}
+    fn = _c_fn("flash_fwd_proj", "deepcoro_flash_fwd_proj_attrs", [_I, ip, ip])
+    for h in heads:
+        if fn(h, ctypes.byref(regs), ctypes.byref(smem)) != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes failed on the K5 kernel, H {h}")
+        out[f"K5 H{h}"] = {"registers": regs.value, "smem_bytes": smem.value,
+                           "consumers": 2 if h * 128 <= 512 else 1}
+    return out
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -116,6 +141,9 @@ def _check_problem(q, k, v, sin, cos, kv_mask):
                 raise ValueError(
                     f"{name} must be a contiguous float32 [{Lq}, {Dh}] tensor "
                     f"on {device}")
+            # the bf16 RoPE pre-pass and the Hopper kernels read 16 bytes at a time
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary")
     if kv_mask is None:
         return None
     if kv_mask.shape != (B, Lk) or kv_mask.device != device:
@@ -128,15 +156,22 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out: torch.Tensor, *, sin: Optional[torch.Tensor],
               cos: Optional[torch.Tensor], kv_mask: Optional[torch.Tensor],
               causal: bool, scale: float,
-              stats: Optional[torch.Tensor] = None) -> None:
+              stats: Optional[torch.Tensor] = None, packed: bool = False) -> None:
     """Write attention of ``q`` over ``k``/``v`` into ``out`` (all views
     ``[B, H, L, Dh]`` on one CUDA device, all bf16 or all fp32). ``stats``,
     a contiguous fp32 ``[2, B, H, Lq]`` buffer, receives each row's softmax
-    maximum and sum for the backward; without it nothing extra is written."""
+    maximum and sum for the backward; without it nothing extra is written.
+    ``packed``: the views are heads of packed ``[B, L, H*Dh]`` operands
+    (K1), which run the Hopper kernel ``flash_fwd_sm90_kernel`` and take
+    bf16 at Dh 128 only; otherwise (K3) ``flash_fwd_kernel``."""
     mask = _check_problem(q, k, v, sin, cos, kv_mask)
     device = q.device
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
+    if packed:
+        if q.dtype != torch.bfloat16 or Dh != 128:
+            raise ValueError(f"the packed CUDA forward takes bfloat16 at Dh 128, "
+                             f"got {q.dtype} at Dh {Dh}")
     if out.shape != q.shape:
         raise ValueError(f"out shape {tuple(out.shape)} != q {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
@@ -149,7 +184,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # RoPE of K is applied once, by a pre-pass, into this scratch copy
     k_rot = None if sin is None else torch.empty(
         (B, H, Lk, Dh), dtype=q.dtype, device=device)
-    err = _fwd_fn(q.dtype)(
+    err = _fwd_fn(q.dtype, packed)(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(sin), _ptr(cos), _ptr(mask),
         _ptr(k_rot), _ptr(stats),
         B, H, Lq, Lk, Dh,
@@ -311,7 +346,7 @@ def attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout, H,
     st = torch.empty((2, B, H, Lq), dtype=torch.float32,
                      device=qh.device) if stats else None
     flash_fwd(qh, kh, vh, oh, sin=sin, cos=cos, kv_mask=kv_mask, causal=causal,
-              scale=scale, stats=st)
+              scale=scale, stats=st, packed=layout != "heads")
     counter.launches += 1
     return out, st
 

@@ -82,14 +82,119 @@ def test_fused_qkv_matches_separate_views(cuda):
     assert torch.equal(a, b)  # same arithmetic, only the strides differ
 
 
-def test_results_do_not_depend_on_batch_size(cuda):
-    """Fixed tiles: a study's output is bit-identical alone or in a batch."""
+@pytest.mark.parametrize("proj", [False, True])
+def test_results_do_not_depend_on_batch_size(cuda, proj):
+    """Fixed tiles: a study's output is bit-identical alone or in a batch,
+    through K1 and through K5 (whose q-tile height changes with the width
+    but never with the batch)."""
     g = torch.Generator(device=cuda).manual_seed(2)
     sin, cos = _rope(128, cuda)
     qkv = torch.randn(5, 199, 3 * 512, generator=g, device=cuda).to(torch.bfloat16)
-    full = flash_attention_packed(qkv=qkv, num_heads=4, sin=sin, cos=cos)
-    one = flash_attention_packed(qkv=qkv[3:4], num_heads=4, sin=sin, cos=cos)
+    wo = torch.randn(512, 512, generator=g, device=cuda) / 23 if proj else None
+    full = flash_attention_packed(qkv=qkv, num_heads=4, sin=sin, cos=cos, wo=wo)
+    one = flash_attention_packed(qkv=qkv[3:4], num_heads=4, sin=sin, cos=cos, wo=wo)
     assert torch.equal(full[3:4], one)
+
+
+def _ragged_rope(L, device):
+    """RoPE tables of the tower's 1 + T*H*W token layout for L tokens."""
+    thw = {1569: (8, 14, 14), 393: (8, 7, 7), 130: (1, 3, 43), 10: (1, 3, 3)}[L]
+    t = build_rope3d_tables(128, *thw, n_special=1)
+    return (torch.from_numpy(t.sin).to(device), torch.from_numpy(t.cos).to(device))
+
+
+def _packed_plain(q, k, v, H, **kw):
+    B, Lq, D = q.shape
+    heads = [t.unflatten(2, (H, t.shape[2] // H)).transpose(1, 2) for t in (q, k, v)]
+    return multi_head_attention(*heads, **kw).transpose(1, 2).reshape(B, Lq, D)
+
+
+@pytest.mark.parametrize("proj", [False, True])
+def test_rope_in_the_kernel_rotates_as_the_plain_version(cuda, proj):
+    """K1 and K5 rotate q in shared memory and K in a pre-pass, with the
+    plain version's bf16 rounding points: the same bits as the kernel on q
+    and k rotated beforehand by ``apply_rope``."""
+    from deepcoro_clip_tpu_torch.ops.attention import apply_rope
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    sin, cos = _ragged_rope(393, cuda)
+    qkv = torch.randn(3, 393, 3 * 512, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.split(512, dim=-1)
+    qr, kr = (apply_rope(t.unflatten(2, (4, 128)).transpose(1, 2), sin, cos)
+              .transpose(1, 2).reshape(3, 393, 512) for t in (q, k))
+    wo = torch.randn(512, 512, generator=g, device=cuda) / 23 if proj else None
+    got = flash_attention_packed(qkv=qkv, num_heads=4, sin=sin, cos=cos, wo=wo)
+    assert torch.equal(got, flash_attention_packed(qr, kr, v.contiguous(), num_heads=4,
+                                                   wo=wo))
+
+
+@pytest.mark.parametrize("L", [1569, 393, 130, 10])
+def test_packed_kernels_at_ragged_lengths(cuda, L):
+    """K1 and K5 on fused qkv with RoPE at the tower's lengths and two
+    short ones, all ragged against the 128-row q tiles and the 128 / 64-key
+    tiles: against the plain versions, bit-equal run to run, and (below
+    the tower's first length) K2's gradients from the statistics the
+    Hopper forward wrote against flash_bwd_plain."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    B = 2 if L == 1569 else 3
+    sin, cos = _ragged_rope(L, cuda)
+    qkv = torch.randn(B, L, 3 * 512, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.split(512, dim=-1)
+    wo = torch.randn(512, 512, generator=g, device=cuda) / 23
+    ref = _packed_plain(q, k, v, 4, sin=sin, cos=cos)
+    got = flash_attention_packed(qkv=qkv, num_heads=4, sin=sin, cos=cos)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL)
+    assert torch.equal(got, flash_attention_packed(qkv=qkv, num_heads=4, sin=sin, cos=cos))
+    y = flash_attention_packed(qkv=qkv, num_heads=4, sin=sin, cos=cos, wo=wo)
+    torch.testing.assert_close(y.float(), project_plain(ref, wo.to(torch.bfloat16)).float(),
+                               **TOL)
+    assert torch.equal(y, flash_attention_packed(qkv=qkv, num_heads=4, sin=sin, cos=cos,
+                                                 wo=wo))
+    if L == 1569:
+        return
+    leaf = qkv.clone().requires_grad_()
+    out = flash_attention_packed(qkv=leaf, num_heads=4, sin=sin, cos=cos)
+    assert torch.equal(out.detach(), got)
+    do = torch.randn(B, L, 512, generator=g, device=cuda).to(torch.bfloat16)
+    (dqkv,) = torch.autograd.grad(out, leaf, do)
+    heads = [t.unflatten(2, (4, 128)).transpose(1, 2) for t in (q, k, v, do)]
+    ref_h = ref.unflatten(2, (4, 128)).transpose(1, 2)
+    want = flash_bwd_plain(*heads, ref_h, sin=sin, cos=cos)
+    want = torch.cat([t.transpose(1, 2).flatten(2) for t in want], dim=-1)
+    torch.testing.assert_close(dqkv.float(), want.float(), **BWD_TOL)
+
+
+@pytest.mark.parametrize("proj", [False, True])
+def test_text_shape(cuda, proj):
+    """The text tower's shape, H 6 x 128 over [8, 512, 2304] fused qkv with a
+    key mask (padded reports, one fully masked): K1 with its gradients
+    (the text tower trains through K1 and K2), or K5 with Dout 768."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    qkv = torch.randn(8, 512, 3 * 768, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.split(768, dim=-1)
+    m = torch.arange(512, device=cuda)[None, :] < torch.tensor(
+        [512, 300, 77, 1, 450, 512, 200, 130], device=cuda)[:, None]
+    m[3] = False
+    ref = _packed_plain(q, k, v, 6, kv_mask=m)
+    if proj:
+        wo = torch.randn(768, 768, generator=g, device=cuda) / 28
+        y = flash_attention_packed(qkv=qkv, num_heads=6, kv_mask=m, wo=wo)
+        torch.testing.assert_close(
+            y.float(), project_plain(ref, wo.to(torch.bfloat16)).float(), **TOL)
+        assert torch.equal(y, flash_attention_packed(qkv=qkv, num_heads=6, kv_mask=m, wo=wo))
+        return
+    leaf = qkv.clone().requires_grad_()
+    out = flash_attention_packed(qkv=leaf, num_heads=6, kv_mask=m)
+    torch.testing.assert_close(out.detach().float(), ref.float(), **TOL)
+    with torch.no_grad():
+        assert torch.equal(flash_attention_packed(qkv=qkv, num_heads=6, kv_mask=m),
+                           out.detach())
+    do = torch.randn(8, 512, 768, generator=g, device=cuda).to(torch.bfloat16)
+    (dqkv,) = torch.autograd.grad(out, leaf, do)
+    heads = [t.unflatten(2, (6, 128)).transpose(1, 2) for t in (q, k, v, do, ref)]
+    want = flash_bwd_plain(*heads, kv_mask=m)
+    want = torch.cat([t.transpose(1, 2).flatten(2) for t in want], dim=-1)
+    torch.testing.assert_close(dqkv.float(), want.float(), **BWD_TOL)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
