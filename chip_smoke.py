@@ -9,7 +9,8 @@ Phases, each printing one line (or a few) before the last:
 2. build: nvcc builds csrc/flash_fwd.cu, csrc/flash_fwd_proj.cu,
    csrc/flash_bwd.cu and csrc/ring_attention.cu for sm_90a, side by side
    (timed, with the ptxas register and spill lines), and the registers and
-   dynamic shared memory a block of K1's and K5's Hopper kernels;
+   dynamic shared memory a block of the Hopper kernels: K1's, K5's, K2's
+   two and K6's;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    in bf16, at the serving path's shapes and in one small case of every
    other mode it takes (K1 also at ragged lengths 130 and 10 and the text
@@ -35,7 +36,10 @@ Phases, each printing one line (or a few) before the last:
    case the forward that the backward follows (the one that also writes
    the row statistics, as every forward of a train step does) is held
    against the plain forward as in phase 3; phase 10 does the same for
-   the video tower's shapes at 32 clips;
+   the video tower's shapes at 32 clips. A profiler trace of one backward
+   of each entry shows which kernels ran: K2 (the packed layouts) the
+   Hopper flash_bwd_dkv_sm90_kernel and flash_bwd_dq_sm90_kernel, K4 the
+   mma.sync ones;
 8. training: the contrastive train step at
    flagship_config(multi_video=True, num_videos=4, batch_size=8,
    max_text_length=512): 8 studies x 4 clips of 16x224x224 (uint8,
@@ -93,17 +97,21 @@ Phases, each printing one line (or a few) before the last:
    (chunks of 3920 tokens): 16 K6 launches (one per shard per ring step),
    counted from 0 just before; K6 against its plain version
    (backend="rdma_interpret") and the "xla" ring by check_forward's bars
-   and a relative L2 of 1e-2; two calls bit-equal. Where several cards are
-   visible (and divide 15680), the ring over them is held bit-equal to the
-   same number of shards on one card;
+   and a relative L2 of 1e-2; two calls bit-equal; a profiler trace shows
+   the Hopper ring_step_sm90_kernel ran. Where several cards are visible
+   (and divide 15680), the ring over them is held bit-equal to the same
+   number of shards on one card;
 17. ring gradients at [2,4,6272,128] (4 clips): through backend="rdma"
    (K6 forward, the "xla" ring's backward) against the plain ring's, by
    phase 7's bars;
 18. ring times: K6 at 1, 2 and 4 shards on the card (and over the cards,
    where there are several) beside its bound, its plain version and
    scaled_dot_product_attention over the whole unsharded q/k/v (a
-   yardstick only), and the share of the slot copies' device time that
-   lies under a step kernel in a profiler trace;
+   yardstick only), the same pass through ops/_ring_cuda.ring_fwd itself
+   (bit-equal), the host's time to enqueue a pass per step launch (tensor
+   maps included),
+   and the share of the slot copies' device time that lies under a step
+   kernel in a profiler trace;
 19. ring train step: flagship_config(multi_video=True, num_videos=4,
    batch_size=8, max_text_length=512, use_ring_attention=True) over a mesh
    of 3 shards on the card (all 12 backbone blocks take the "xla" ring); 1
@@ -287,6 +295,40 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS
           ) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def hopper_attrs() -> dict:
+    """Registers and shared memory a block of every Hopper kernel (K1, K5,
+    K2's two, K6), by key."""
+    from deepcoro_clip_tpu_torch.ops._flash_cuda import hopper_kernel_attrs
+    from deepcoro_clip_tpu_torch.ops._ring_cuda import step_kernel_attrs
+
+    return {**hopper_kernel_attrs(), "K6": step_kernel_attrs()}
+
+
+def kernels_run(torch, fn) -> list:
+    """The names (without namespace and arguments) of the kernels the card
+    ran during one call of ``fn``, from a profiler trace."""
+    per_name, _ = device_events(torch, fn)
+    return sorted({n.replace("(anonymous namespace)::", "").removeprefix("void ")
+                   .split("(")[0] for n in per_name})
+
+
+def check_route(torch, label: str, fn, want, not_want) -> list:
+    """Hold the kernels one call of ``fn`` runs: every name in ``want`` is
+    among them and none of ``not_want``; prints them with their registers
+    and shared memory a block where they are Hopper kernels."""
+    names = kernels_run(torch, fn)
+    attrs = {a["kernel"]: a for a in hopper_attrs().values()}
+    for w in want:
+        check(any(w in n for n in names), f"{label}: {w} did not run ({names})")
+    for w in not_want:
+        check(not any(w in n for n in names), f"{label}: {w} ran ({names})")
+    ran = [n for n in names if any(w in n for w in want)]
+    print(f"{label}: ran " + ", ".join(
+        f"{n} ({attrs[n]['registers']} registers, {attrs[n]['smem_bytes']} B shared a block)"
+        if n in attrs else n for n in ran), flush=True)
+    return ran
 
 
 # --------------------------------------------------------------------------- #
@@ -812,6 +854,33 @@ def phase_bwd_kernels(torch) -> dict:
     return errs
 
 
+def bwd_routes(torch) -> tuple:
+    """K2 (the packed layouts) runs the Hopper backward kernels, K4 (the
+    [B, H, L, Dh] entry) the mma.sync ones: the kernels of one backward of
+    each, from a profiler trace."""
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import (
+        flash_attention_packed,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    qkv = torch.randn(4, 393, 3 * 512, generator=g, device=dev).to(torch.bfloat16)
+    leaf = qkv.clone().requires_grad_()
+    out = flash_attention_packed(qkv=leaf, num_heads=4)
+    k2 = check_route(torch, "backward kernels, K2 [4,393,1536]",
+                     lambda: torch.autograd.grad(out, leaf, out.detach(), retain_graph=True),
+                     ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel"),
+                     ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
+    leaves = [torch.randn(8, 8, 4, 64, generator=g, device=dev).to(torch.bfloat16)
+              .requires_grad_() for _ in range(3)]
+    out = flash_attention(*leaves)
+    k4 = check_route(torch, "backward kernels, K4 [8,8,4,64]",
+                     lambda: torch.autograd.grad(out, leaves, out.detach(), retain_graph=True),
+                     ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"), ("flash_bwd_dkv_sm90",))
+    return k2, k4
+
+
 # --------------------------------------------------------------------------- #
 # phase 8: the contrastive train step at flagship width
 
@@ -1029,7 +1098,7 @@ def phase_train_profile(torch, state, step_fn, batch, gen) -> None:
     print_profile("train profile", "one step", per_name, wall_ms, top=14)
 
 
-def phase_train_times(torch, errs, counts):
+def phase_train_times(torch, errs, counts, routes):
     import torch.nn.functional as F
 
     from deepcoro_clip_tpu_torch.ops.attention import (
@@ -1151,13 +1220,15 @@ def phase_train_times(torch, errs, counts):
 
     def entry(name, replaces, key, rows):
         e = {"name": name, "route": "cuda", "source": BWD_SOURCE, "replaces": replaces,
-             "launches": counts[key], "max_abs_err": errs[key]}
+             "launches": counts[key], "max_abs_err": errs[key],
+             "kernels": routes[key]}
         e.update({k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "device_ms")})
         e["shapes"] = rows
         return e
 
-    return [entry("flash_attention_packed (K2 backward)", K2_REPLACES, "K2", rows_k2),
+    return [entry("flash_attention_packed backward (K2: flash_bwd_dkv_sm90_kernel, "
+                  "flash_bwd_dq_sm90_kernel)", K2_REPLACES, "K2", rows_k2),
             entry("flash_attention (K4 backward)", K4_REPLACES, "K4", [row_k4])], k1_text
 
 
@@ -1902,9 +1973,12 @@ def phase_ring_kernel(torch) -> dict:
           f"{RING_L2_REL}; max|plain| {float(plain.float().abs().max()):.3e}; two calls "
           f"bit-equal ok", flush=True)
     check(max(l2) <= RING_L2_REL, f"K6 rel l2 {l2} above {RING_L2_REL}")
+    kernels = check_route(torch, f"ring path {shape}",
+                          lambda: ring_attention(q, k, v, mesh, backend="rdma"),
+                          ("ring_step_sm90_kernel",), ("ring_step_kernel",))
     cards = torch.cuda.device_count()
     result = {"launches": launches, "max_abs_err": max(err, err_xla), "rel_l2": max(l2),
-              "cards": cards}
+              "cards": cards, "kernels": kernels}
     if cards > 1 and RING_L % cards == 0:
         devs = [torch.device("cuda", i) for i in range(cards)]
         with torch.no_grad():
@@ -1984,6 +2058,10 @@ def phase_ring_times(torch, ring) -> dict:
 
     from deepcoro_clip_tpu_torch.parallel import ring_attention
 
+    from types import SimpleNamespace
+
+    from deepcoro_clip_tpu_torch.ops import _ring_cuda
+
     q, k, v = ring_inputs(torch, RING_L, seed=14)
     rows = []
     B, H, L, Dh = RING_B, RING_H, RING_L, RING_DH
@@ -1999,6 +2077,26 @@ def phase_ring_times(torch, ring) -> dict:
             def kern(mesh=mesh):
                 return ring_attention(q, k, v, mesh, backend="rdma")
 
+            # the pass through ring_fwd itself, on the same shards, without
+            # ring_attention's sharding and gather
+            devs = mesh.devices_along("model")
+            shards = [[t.chunk(n, dim=2)[i].to(devs[i]) for i in range(n)] for t in (q, k, v)]
+            outs = [torch.empty_like(t) for t in shards[0]]
+
+            def direct(shards=shards, outs=outs):
+                _ring_cuda.ring_fwd(*shards, outs, RING_DH ** -0.5,
+                                    SimpleNamespace(launches=0))
+
+            def enqueue_us():  # host time to enqueue a pass, per step launch
+                best = math.inf
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    direct()
+                    best = min(best, time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                return best / (n * n) * 1e6
+
             # each shard's q, k, v and output once, plus the chunks the ring moves
             nbytes = 4 * B * H * L * Dh * 2 + (n - 1) * 2 * B * H * L * Dh * 2
             b_ms, b_by = bound(4 * B * H * L * L * Dh, nbytes)
@@ -2006,6 +2104,8 @@ def phase_ring_times(torch, ring) -> dict:
             row = {"shape": f"[{B},{H},{L},{Dh}] bf16, {where}",
                    "shards": n, "launches_per_call": n * n,
                    "ms": cuda_ms(torch, kern, REPS),
+                   "ring_fwd_ms": cuda_ms(torch, direct, REPS),
+                   "enqueue_us_per_launch": enqueue_us(),
                    "plain_ms": cuda_ms(torch, lambda mesh=mesh: ring_attention(
                        q, k, v, mesh, backend="rdma_interpret"), max(1, REPS // 5)),
                    "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -2015,20 +2115,29 @@ def phase_ring_times(torch, ring) -> dict:
                    "library_device_ms": device_ms(
                        torch, lambda: F.scaled_dot_product_attention(q, k, v), REPS),
                    "copy_ms": copy_ms, "copy_overlap": overlap}
+            direct()
+            torch.cuda.synchronize()
+            check(torch.equal(torch.cat([o.to(q.device) for o in outs], dim=2), kern()),
+                  "K6 through ring_fwd differs from ring_attention's pass")
             rows.append(row)
+            del shards, outs
             torch.cuda.empty_cache()
             print(f"ring times: K6 {row['shape']}: kernel {row['ms']:.3f} ms "
-                  f"({row['launches_per_call']} launches), plain {row['plain_ms']:.3f} ms, "
+                  f"({row['launches_per_call']} launches; through ring_fwd "
+                  f"{row['ring_fwd_ms']:.3f} ms, bit-equal; host enqueue "
+                  f"{row['enqueue_us_per_launch']:.1f} us a step launch), plain "
+                  f"{row['plain_ms']:.3f} ms, "
                   f"sdpa (whole q/k/v) {row['library_ms']:.3f} ms, bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}); card busy: kernel "
                   f"{row['device_ms']:.3f} ms, sdpa {row['library_device_ms']:.3f} ms; "
                   f"slot copies {copy_ms:.3f} ms, share under a step kernel "
                   + ("n/a" if overlap is None else f"{overlap:.2f}"), flush=True)
     head = rows[2]  # the main path's shards
-    e = {"name": "ring_attention backend=rdma (K6 ring forward)", "route": "cuda",
-         "source": RING_SOURCE, "replaces": K6_REPLACES, "launches": ring["launches"],
-         "max_abs_err": ring["max_abs_err"], "rel_l2": ring["rel_l2"],
-         "bwd_max_abs_err": ring["bwd_max_abs_err"]}
+    e = {"name": "ring_attention backend=rdma (K6 ring forward: ring_step_sm90_kernel)",
+         "route": "cuda", "source": RING_SOURCE, "replaces": K6_REPLACES,
+         "launches": ring["launches"], "max_abs_err": ring["max_abs_err"],
+         "rel_l2": ring["rel_l2"], "bwd_max_abs_err": ring["bwd_max_abs_err"],
+         "kernels": ring["kernels"]}
     e.update({key: head[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "device_ms", "copy_overlap")})
     if "peer_access" in ring:
@@ -2162,16 +2271,16 @@ def main() -> int:
                     print(f"build: ptxas {name}: {fn[fn.index('_cu_') + 13:][:40]}", flush=True)
                 elif "registers" in line or "spill" in line:
                     print(f"build: ptxas   {line.strip()}", flush=True)
-        from deepcoro_clip_tpu_torch.ops._flash_cuda import hopper_kernel_attrs
-
-        for key, a in hopper_kernel_attrs().items():
+        for key, a in hopper_attrs().items():
             regs = f"{a['registers']} registers a thread"
-            if a["consumers"] == 2:
+            if a["setmaxnreg"]:
                 regs += (" at entry (setmaxnreg moves them to 232 a consumer, 40 the "
                          "producer)")
-            print(f"build: {key} Hopper kernel: {a['consumers']} consumer warpgroup(s), "
-                  f"{regs}, {a['smem_bytes']} B dynamic shared memory a block (of "
-                  f"232448: one block per SM)", flush=True)
+            else:
+                regs += " (no producer warpgroup, no setmaxnreg)"
+            print(f"build: {key} Hopper kernel {a['kernel']}: {a['consumers']} consumer "
+                  f"warpgroup(s), {regs}, {a['smem_bytes']} B dynamic shared memory a block "
+                  f"(of 232448: one block per SM)", flush=True)
 
         errs = phase_kernels(torch)
         with tempfile.TemporaryDirectory() as tmp:
@@ -2182,12 +2291,13 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         bwd_errs = phase_bwd_kernels(torch)
+        routes = dict(zip(("K2", "K4"), bwd_routes(torch)))
         bundle, state, step_fn, batch, gen, counts, times = phase_training(torch)
         phase_grad_e2e(torch, bundle)
         phase_train_profile(torch, state, step_fn, batch, gen)
         del bundle, state, step_fn, batch
         torch.cuda.empty_cache()
-        bwd_entries, k1_text = phase_train_times(torch, bwd_errs, counts)
+        bwd_entries, k1_text = phase_train_times(torch, bwd_errs, counts, routes)
         for e, key in zip(kernels["kernels"], ("K1", "K3")):
             e["train_launches"] = counts[key]
             # the forward at the train step's shapes, row statistics written

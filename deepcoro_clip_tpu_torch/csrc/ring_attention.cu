@@ -6,7 +6,7 @@
 //   of slot `cur` into the right neighbour's slot `nxt` started before the
 //   math, the online-softmax update, a barrier with both neighbours, a wait).
 //
-// Here the pass is split in two. This file holds one kernel, the
+// Here the pass is split in two. This file holds the step kernel, the
 // online-softmax update of one shard's queries [B, H, Lc, D] with the K/V
 // chunk in one of its slots, launched once per shard per ring step, and the
 // slot copy. The host side (ops/_ring_cuda.py) enqueues, at step r, the copy
@@ -30,23 +30,41 @@
 // state's round trips; at L = 15680, D = 128 that is thousands of FLOP per
 // byte: the tensor cores bound it.
 //
-// Design. The step is `attend_head` of flash_common.cuh, the body of
-// flash_fwd.cu's kernel, started from the carried state instead of an empty
-// one: one block of 4 warps per (batch*head, 64-row q tile), K/V streamed in
-// 64-key tiles through a cp.async double buffer, mma.sync m16n8k16 bf16 ->
-// fp32, S re-packed in registers as the A operand of P V. m is kept in log2
-// units with log2(e) folded into the scale (exp2 in place of exp) in every
-// step, so the unit never changes across steps. P is rounded to bf16
-// against the running maximum of the 64-key tiles, where the plain ring
-// rounds it against the chunk's maximum: the two round at different
-// points, within the tolerance the tests state. Rows and keys past Lc
-// (Lc is not a multiple of 64 at the main path's sizes) are zero-filled
-// and never stored; a key that does not exist has probability exactly 0.
-// No atomics: every output is summed by one thread in a fixed order, so two
-// calls agree bit for bit. wgmma, TMA and a forward of the slot through
-// peer pointers inside the kernel are left for later work.
+// Two kernels, chosen by the head dim (the host names the choice:
+// ops/_ring_cuda.step_symbol):
+//   - Dh 128, every path of the repository: `ring_step_sm90_kernel`, the
+//     packed forward's Hopper design (flash_fwd.cu `flash_fwd_sm90_kernel`)
+//     started from the carried state. Work items are (batch*head, 128-row q
+//     tile); a block has two consumer warpgroups of 64 rows and a producer
+//     warp that loads the q tile by TMA (a 4-D map over q's strides) and
+//     streams the slot's K/V in 128-key tiles through a ring of three
+//     `mbarrier`-guarded stages (KVRing<128>, produce_kv). Each consumer
+//     loads its rows' state into the accumulator layout (or takes the empty
+//     state at the first step), runs sm90_attend (S = Q K^T and O += P V on
+//     wgmma, the softmax in registers under the other product) and either
+//     writes the state back in place or, at the last step, normalises and
+//     stores bf16 through o's strides. One block per item (248 at Lc =
+//     3920), so the shards' launches on their own streams interleave on the
+//     SMs; a persistent grid of one block per SM was slower at 1, 2 and 4
+//     shards. 225 KB of shared memory: one block per SM. 168 registers a
+//     thread at entry, the consumers' budget too (see the kernel).
+//   - Dh 64: `ring_step_kernel`, the mma.sync design of flash_common.cuh's
+//     `attend_head` from the carried state: one block of 4 warps per
+//     (batch*head, 64-row q tile), K/V in 64-key tiles through a cp.async
+//     double buffer.
+// In both, m is kept in log2 units with log2(e) folded into the scale (exp2
+// in place of exp) in every step, so the unit never changes across steps.
+// P is rounded to bf16 against the running maximum of the key tiles (128
+// or 64 keys), where the plain ring rounds it against the chunk's maximum:
+// the two round at different points, within the tolerance the tests state.
+// Rows and keys past Lc (Lc is not a multiple of the tiles at the main
+// path's sizes) are zero-filled (by TMA, or by cp.async) and never stored;
+// a key that does not exist has probability exactly 0. No atomics: every
+// output is summed by one thread in a fixed order, so two calls agree bit
+// for bit. A forward of the slot through peer pointers inside the kernel
+// is left for later work.
 
-#include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -162,19 +180,185 @@ cudaError_t launch_step(const RingParams& p, int BH, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- Dh 128 on Hopper's own tools ------------------------------------------
+
+constexpr int RS_BQ = 128;  // q rows per item: two consumer warpgroups of 64
+constexpr int RS_BK = 128;  // keys per streamed tile
+constexpr int RS_NST = 3;
+constexpr int RS_THREADS = 3 * 128;
+
+struct RingSm90Params {
+  __nv_bfloat16* o;  // [B, H, Lc, 128], strided (written by the last step)
+  float* m;          // the carried state, as in RingParams
+  float* l;
+  float* acc;
+  long long o_sb, o_sh, o_sl;
+  int B, H, Lc;
+  float scale_log2;
+  int first, last;
+  int q_hi, kv_hi;  // coordinate order of the q map and of the slot's maps
+};
+
+struct RingSmem {  // byte offsets from the 1024-aligned base
+  static constexpr int QTILE = 2 * RS_BQ * BOX_ROW_BYTES;  // two boxes of RS_BQ rows
+  static constexpr int Q = 0;
+  static constexpr int RING = Q + QTILE;
+  // full[NST], empty[NST], q loaded
+  static constexpr int BARS = RING + RS_NST * KVRing<RS_BK>::STAGE;
+  static constexpr int END = BARS + (2 * RS_NST + 1) * 8;
+  static constexpr int BYTES = END + 1024;  // slack to align the base
+};
+
+// One block per work item (batch*head, 128-row q tile); the launch's grid is
+// the item count. Both roles still walk "their" items in a loop, which thus
+// runs once: ptxas compiles the whole kernel to the 168 registers a thread
+// of a 384-thread block starts with, and only in this form did the consumer
+// fit. Written straight, without the loop, it spilled in the key loop and a
+// step took about 1.3x as long on an H100. With one item a block the q
+// tile is loaded once, so no barrier guards its reuse.
+__global__ void __launch_bounds__(RS_THREADS, 1)
+    ring_step_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const RingSm90Params p) {
+  extern __shared__ __align__(16) unsigned char rs_smem[];
+  unsigned char* smem = rs_smem + ((1024 - (smem_u32(rs_smem) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + RingSmem::BARS);
+  uint64_t* empty = full + RS_NST;
+  uint64_t* q_loaded = empty + RS_NST;
+
+  const int nqt = (p.Lc + RS_BQ - 1) / RS_BQ;
+  const int items = nqt * p.B * p.H;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RS_NST; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_init(q_loaded, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: one warp loads, the other three leave
+    setmaxnreg_dec<40>();
+    if ((threadIdx.x / 32) % 4 != 0) return;
+    uint32_t n = 0;
+    Pipe pp;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int qt = item % nqt, bh = item / nqt;
+      const int b = bh / p.H, h = bh % p.H;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(q_loaded, RingSmem::QTILE);
+        tma_load_head(&tq, base + RingSmem::Q, q_loaded, 0, qt * RS_BQ, h, b, p.q_hi);
+        tma_load_head(&tq, base + RingSmem::Q + RS_BQ * BOX_ROW_BYTES, q_loaded, 64,
+                      qt * RS_BQ, h, b, p.q_hi);
+      }
+      produce_kv<RS_BK, RS_NST>(&tk, p.kv_hi, &tv, p.kv_hi, h, b, p.Lc, nullptr,
+                                base + RingSmem::RING, smem, full, empty, pp, lane);
+    }
+  } else {  // consumers: warpgroup wg owns q rows 128 qt + 64 wg .. of the item
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int t = lane & 3;
+    const uint32_t qrows = RingSmem::Q + wg * 64 * BOX_ROW_BYTES;
+    uint32_t n = 0;
+    Pipe pp;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int qt = item % nqt, bh = item / nqt;
+      const int b = bh / p.H, h = bh % p.H;
+      const int row_a = qt * RS_BQ + wg * 64 + warp * 16 + lane / 4;
+      const long long rows = (long long)bh * p.Lc;  // this head's first state row
+      // the carried state of rows row_a and row_a + 8 (the empty state at the
+      // first step and past Lc), read while the q tile arrives
+      float o[64], m_r[2], l_r[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_a + 8 * r;
+        const bool carried = !p.first && row < p.Lc;
+        m_r[r] = carried ? p.m[rows + row] : -INFINITY;
+        l_r[r] = carried && t == 0 ? p.l[rows + row] : 0.f;  // whole, in one thread
+        const float* a = p.acc + (rows + (carried ? row : 0)) * 128 + 2 * t;
+#pragma unroll
+        for (int jn = 0; jn < 16; ++jn) {
+          const float2 x = carried ? *reinterpret_cast<const float2*>(a + jn * 8)
+                                   : make_float2(0.f, 0.f);
+          o[4 * jn + 2 * r] = x.x;
+          o[4 * jn + 2 * r + 1] = x.y;
+        }
+      }
+      mbar_wait(q_loaded, n & 1);
+      sm90_attend<RS_BK, RS_NST, false>(base + qrows, RS_BQ * BOX_ROW_BYTES,
+                                        base + RingSmem::RING, smem, false, full, empty, pp,
+                                        nullptr, row_a, p.Lc, p.scale_log2, 0, o, m_r, l_r);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_a + 8 * r;
+        if (row >= p.Lc) continue;
+        if (p.last) {  // l >= 1: the row maximum contributes exp2(0) at the step that set it
+          const float inv = 1.f / l_r[r];
+          __nv_bfloat16* orow =
+              p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_sl + 2 * t;
+#pragma unroll
+          for (int jn = 0; jn < 16; ++jn) {
+            *reinterpret_cast<uint32_t*>(orow + jn * 8) =
+                pack_bf16(o[4 * jn + 2 * r] * inv, o[4 * jn + 2 * r + 1] * inv);
+          }
+        } else {  // carry the state; l_r is whole in every thread of the row
+          if (t == 0) {
+            p.m[rows + row] = m_r[r];
+            p.l[rows + row] = l_r[r];
+          }
+          float* a = p.acc + (rows + row) * 128 + 2 * t;
+#pragma unroll
+          for (int jn = 0; jn < 16; ++jn) {
+            *reinterpret_cast<float2*>(a + jn * 8) =
+                make_float2(o[4 * jn + 2 * r], o[4 * jn + 2 * r + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+int launch_step_sm90(const RingParams& rp, int B, cudaStream_t stream) {
+  RingSm90Params s;
+  s.o = rp.o; s.m = rp.m; s.l = rp.l; s.acc = rp.acc;
+  s.o_sb = rp.o_sb; s.o_sh = rp.o_sh; s.o_sl = rp.o_sl;
+  s.B = B; s.H = rp.H; s.Lc = rp.Lc;
+  s.scale_log2 = rp.scale_log2;
+  s.first = rp.first; s.last = rp.last;
+  // the slot's K and V are [B, H, Lc, 128] contiguous
+  const long long sl = 128, sh = (long long)rp.Lc * 128, sb = (long long)rp.H * rp.Lc * 128;
+  CUtensorMap tq, tk, tv;
+  int v_hi = 0;
+  int err = encode_head_map(&tq, rp.q, rp.Lc, rp.H, B, rp.q_sl, rp.q_sh, rp.q_sb, RS_BQ, &s.q_hi);
+  if (err == 0) err = encode_head_map(&tk, rp.k, rp.Lc, rp.H, B, sl, sh, sb, RS_BK, &s.kv_hi);
+  if (err == 0) err = encode_head_map(&tv, rp.v, rp.Lc, rp.H, B, sl, sh, sb, RS_BK, &v_hi);
+  if (err != 0) return err;
+  static bool ready[MAX_DEVICES] = {};
+  cudaError_t cerr = allow_smem_once(reinterpret_cast<const void*>(&ring_step_sm90_kernel),
+                                     RingSmem::BYTES, ready);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const int grid = ((rp.Lc + RS_BQ - 1) / RS_BQ) * B * rp.H;
+  ring_step_sm90_kernel<<<grid, RS_THREADS, RingSmem::BYTES, stream>>>(tq, tk, tv, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// One ring step of one shard: fold the K/V chunk of a slot (`k`, `v`, each
+// One ring step of one shard on ring_step_kernel: fold the K/V chunk of a slot (`k`, `v`, each
 // [B*H, Lc, Dh] contiguous bf16) into the online softmax of the shard's
 // queries `q` ([B, H, Lc, Dh], strides in elements, head dim contiguous).
 // `first`: start from the empty state (m, l, acc are not read); `last`:
 // normalise and write `o` (strided like q) instead of the state. With
 // neither, the state is read and written back in place. Returns 0 on
 // success, else the CUDA error code of the launch (cudaErrorInvalidValue for
-// a head dim the kernel was not built for). The current device must be the
-// stream's.
+// a head dim other than 64: Dh 128 runs the Hopper entry below). The
+// current device must be the stream's.
 int deepcoro_ring_step_bf16(
     const void* q, const void* k, const void* v, void* o, void* m, void* l, void* acc,
     int B, int H, int Lc, int Dh,
@@ -197,12 +381,50 @@ int deepcoro_ring_step_bf16(
   p.last = last;
   if ((!first || !last) && (m == nullptr || l == nullptr || acc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 64: return static_cast<int>(launch_step<64>(p, B * H, st));
-    case 128: return static_cast<int>(launch_step<128>(p, B * H, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (Dh != 64) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_step<64>(p, B * H, static_cast<cudaStream_t>(stream)));
+}
+
+// The same step at Dh 128 (cudaErrorInvalidValue otherwise) on
+// ring_step_sm90_kernel; the arguments mean what they mean above. Also
+// returns TMA_ERROR_BASE + the CUresult of cuTensorMapEncodeTiled when a
+// tensor map cannot be encoded.
+int deepcoro_ring_step_sm90_bf16(
+    const void* q, const void* k, const void* v, void* o, void* m, void* l, void* acc,
+    int B, int H, int Lc, int Dh,
+    long long q_sb, long long q_sh, long long q_sl,
+    long long o_sb, long long o_sh, long long o_sl,
+    float scale, int first, int last, void* stream) {
+  RingParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
+  p.acc = static_cast<float*>(acc);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
+  p.H = H; p.Lc = Lc;
+  p.scale_log2 = scale * LOG2E;
+  p.first = first;
+  p.last = last;
+  if (Dh != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if ((!first || !last) && (m == nullptr || l == nullptr || acc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_step_sm90(p, B, static_cast<cudaStream_t>(stream));
+}
+
+// Registers per thread (at entry; setmaxnreg moves them between the
+// warpgroups) and dynamic shared memory per block of ring_step_sm90_kernel.
+int deepcoro_ring_step_sm90_attrs(int* regs, int* smem) {
+  cudaFuncAttributes a;
+  cudaError_t err =
+      cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(&ring_step_sm90_kernel));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *smem = RingSmem::BYTES;
+  return 0;
 }
 
 // The ring's slot copy: `bytes` from `src` on device `src_dev` into `dst`

@@ -1,23 +1,29 @@
-// Hopper (sm_90a) building blocks of the packed flash-attention forwards:
-// K1 (flash_fwd.cu `flash_fwd_sm90_kernel`) and K5 (flash_fwd_proj.cu).
+// Hopper (sm_90a) building blocks of the attention kernels that run on
+// wgmma, TMA and mbarriers: the packed forwards K1 (flash_fwd.cu
+// `flash_fwd_sm90_kernel`) and K5 (flash_fwd_proj.cu), the packed backward K2
+// (flash_bwd.cu `flash_bwd_dkv_sm90_kernel`, `flash_bwd_dq_sm90_kernel`) and
+// the ring step K6 at Dh 128 (ring_attention.cu `ring_step_sm90_kernel`).
 //
 //   - host: TMA tensor maps for one head's [L, 128] rows of a strided
 //     [B, L, H, 128] or [B, H, L, 128] operand, and for a row-major 2-D
 //     matrix, encoded through cuTensorMapEncodeTiled, which the runtime
 //     hands out (cudaGetDriverEntryPoint: the library links no libcuda);
-//   - device: mbarrier, TMA (cp.async.bulk.tensor), wgmma and fence
-//     wrappers in inline PTX, the wgmma shared-memory descriptor for the
-//     128-byte swizzle, rotate-half RoPE of a swizzled q tile in place, the
-//     producer's K/V tile loop and the consumer warpgroup's attention loop
-//     over one head's keys (`sm90_attend`).
+//   - device: mbarrier, TMA (cp.async.bulk.tensor), plain bulk copy, wgmma
+//     and fence wrappers in inline PTX, the wgmma shared-memory descriptor
+//     for the 128-byte swizzle, rotate-half RoPE of a swizzled q tile in
+//     place, the producer's K/V tile loop and the consumer warpgroup's
+//     attention loop over one head's keys (`sm90_attend`), from an empty
+//     state or from one the caller carries (the ring step).
 //
 // Layout. Every tile in shared memory is a stack of "boxes" of R rows x 64
 // bf16 values (128 bytes a row) in the 128-byte swizzle that TMA writes and
 // wgmma reads: the 16-byte chunk c of row r sits at chunk c ^ (r % 8). A
 // 128-wide row (Dh) is two boxes, columns 0-63 and 64-127. Boxes start on
-// 1024-byte boundaries. Operands of S = Q K^T are K-major (Dh contiguous);
-// V and wo are read MN-major (their rows are the reduction axis), with the
-// transpose bit of wgmma set.
+// 1024-byte boundaries. Operands whose rows are the product's output rows
+// or columns (Q and K of S = Q K^T, K and V of the backward's transposed
+// scores) are K-major (Dh contiguous); operands whose rows are the
+// reduction axis (V of P V, wo, dO and Q of the backward's dV and dK, K of
+// its dQ) are read MN-major, with the transpose bit of wgmma set.
 
 #pragma once
 
@@ -174,6 +180,17 @@ __device__ __forceinline__ void tma_load_matrix(const CUtensorMap* map, uint32_t
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// `bytes` of device memory at `src` into shared memory at `dst` (both
+// 16-byte aligned, `bytes` a multiple of 16), completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -476,7 +493,12 @@ __device__ __forceinline__ float fast_exp2(float x) {  // exp2(-inf) = 0
 // the row maxima m_r (log2 units, scale folded in) and the row sums l_r
 // (>= 1, reduced over the row's four threads). The warpgroup has released
 // every stage it read (every consumer thread arrives on `empty`) and, when
-// `q_release` is given, arrived there once its last S product was in.
+// `q_release` is given, arrived there once its last S product was in. With
+// FRESH (the default) the state starts empty; without, it goes on from the
+// state the caller put in `o`, `m_r` and `l_r` (a row sum carried whole by
+// one thread of the row's four and 0 in the others, so that the reduction
+// at the end counts it once; the empty state is o = 0, m = -inf, l = 0):
+// the ring step folds one K/V chunk after another in.
 //
 // Per key tile j: S_j = Q K_j^T as D/16 = 8 wgmma of 64 x BK x 16 from
 // shared memory; the scale, the mask (from the tile's bytes in shared
@@ -486,7 +508,7 @@ __device__ __forceinline__ float fast_exp2(float x) {  // exp2(-inf) = 0
 // products overlap the softmax: S_j is issued together with O += P_{j-1}
 // V_{j-1}, and the softmax of S_j runs while the tensor cores do the
 // latter; O is rescaled once that product is in.
-template <int BK, int NST>
+template <int BK, int NST, bool FRESH = true>
 __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stride,
                                             uint32_t ring, const uint8_t* mask_s,
                                             bool has_mask, uint64_t* full, uint64_t* empty,
@@ -591,10 +613,12 @@ __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stri
     }
   };
 
+  if constexpr (FRESH) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
-  m_r[0] = m_r[1] = -INFINITY;
-  l_r[0] = l_r[1] = 0.f;  // this thread's partial row sums
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    m_r[0] = m_r[1] = -INFINITY;
+    l_r[0] = l_r[1] = 0.f;  // this thread's partial row sums
+  }
 
   float alpha[2];
   mbar_wait(&full[pp.stage], pp.phase);
@@ -603,6 +627,15 @@ __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stri
   wgmma_wait<0>();
   fence_regs(s);
   softmax(0, pp.stage, alpha);  // alpha = 0 against the empty state
+  if constexpr (!FRESH) {  // a carried output is rescaled to the new maxima
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn) {
+      o[4 * jn + 0] *= alpha[0];
+      o[4 * jn + 1] *= alpha[0];
+      o[4 * jn + 2] *= alpha[1];
+      o[4 * jn + 3] *= alpha[1];
+    }
+  }
   pack_p();
   int prev = pp.stage;
   pp.advance<NST>();

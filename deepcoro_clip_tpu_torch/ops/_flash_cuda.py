@@ -5,9 +5,11 @@
 ``flash_attention_packed``: both hand them ``[B, H, L, Dh]`` views (any
 batch/head/row strides, head dim contiguous) of their operands and of the
 outputs they allocated, in bf16 (tensor-core kernels) or fp32 (plain fp32
-kernels; nothing is cast on the way). The packed entry's forward (K1)
-runs the Hopper kernel of ``csrc/flash_fwd.cu`` (wgmma, TMA, mbarriers),
-the ``[B, H, L, Dh]`` entry's (K3) the older one in the same file.
+kernels; nothing is cast on the way). The packed entry's forward (K1) and
+backward (K2) run the Hopper kernels of ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu`` (wgmma, TMA, mbarriers), the ``[B, H, L, Dh]``
+entry's (K3, K4) the ``mma.sync`` ones in the same files; ``bwd_symbol``
+names the backward a call runs.
 ``flash_fwd_proj`` (``csrc/flash_fwd_proj.cu``) is the packed forward with
 the output projection fused in (bf16). The launchers check what the kernels
 take, launch on PyTorch's current stream, and raise if a launch failed.
@@ -57,8 +59,22 @@ def _fwd_fn(dtype: torch.dtype, packed: bool = False):
                  [_P] * 9 + [_I] * 5 + [_LL] * 12 + [ctypes.c_float, _I, _P])
 
 
-def _bwd_fn(dtype: torch.dtype):
-    return _c_fn("flash_bwd", f"deepcoro_flash_bwd_{_SUFFIX[dtype]}",
+def bwd_symbol(dtype: torch.dtype, packed: bool) -> str:
+    """The C entry of ``csrc/flash_bwd.cu`` that runs a backward: the Hopper
+    kernels for the packed and fused layouts (K2: bf16, Dh 128, all that the
+    packed forward admits), the ``mma.sync`` kernels for the ``[B, H, L,
+    Dh]`` entry in bf16 (K4) and the fp32 kernels for its fp32 operands."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"the CUDA flash kernels take bfloat16 or float32, got {dtype}")
+    if packed:
+        if dtype != torch.bfloat16:
+            raise TypeError(f"the packed CUDA backward takes bfloat16, got {dtype}")
+        return "deepcoro_flash_bwd_sm90_bf16"
+    return f"deepcoro_flash_bwd_{_SUFFIX[dtype]}"
+
+
+def _bwd_fn(dtype: torch.dtype, packed: bool = False):
+    return _c_fn("flash_bwd", bwd_symbol(dtype, packed),
                  [_P] * 15 + [_I] * 5 + [_LL] * 24 + [ctypes.c_float, _I, _P])
 
 
@@ -69,22 +85,33 @@ def _fwd_proj_fn():
 
 def hopper_kernel_attrs(heads=(4, 6)) -> dict:
     """Registers per thread (at the kernel's entry, before ``setmaxnreg``
-    moves them between warpgroups), dynamic shared memory per block and
-    consumer warpgroups of K1's Hopper kernel and of K5's for each head count
-    in ``heads``: what ``chip_smoke.py`` reports beside ptxas. Builds the
-    libraries if need be."""
+    moves them between warpgroups, where ``"setmaxnreg"`` says so), dynamic
+    shared memory per block and consumer warpgroups of K1's Hopper kernel,
+    of K5's for each head count in ``heads`` and of K2's two (whose blocks
+    are their two warpgroups alone): what ``chip_smoke.py`` reports beside
+    ptxas. Builds the libraries if need be."""
     regs, smem = ctypes.c_int(), ctypes.c_int()
     ip = ctypes.POINTER(ctypes.c_int)
     fn = _c_fn("flash_fwd", "deepcoro_flash_fwd_sm90_attrs", [ip, ip])
     if fn(ctypes.byref(regs), ctypes.byref(smem)) != 0:
         raise RuntimeError("cudaFuncGetAttributes failed on the K1 kernel")
-    out = {"K1": {"registers": regs.value, "smem_bytes": smem.value, "consumers": 2}}
+    out = {"K1": {"kernel": "flash_fwd_sm90_kernel", "registers": regs.value,
+                  "smem_bytes": smem.value, "consumers": 2, "setmaxnreg": True}}
     fn = _c_fn("flash_fwd_proj", "deepcoro_flash_fwd_proj_attrs", [_I, ip, ip])
     for h in heads:
         if fn(h, ctypes.byref(regs), ctypes.byref(smem)) != 0:
             raise RuntimeError(f"cudaFuncGetAttributes failed on the K5 kernel, H {h}")
-        out[f"K5 H{h}"] = {"registers": regs.value, "smem_bytes": smem.value,
-                           "consumers": 2 if h * 128 <= 512 else 1}
+        two = h * 128 <= 512
+        out[f"K5 H{h}"] = {"kernel": "flash_fwd_proj_kernel", "registers": regs.value,
+                           "smem_bytes": smem.value, "consumers": 2 if two else 1,
+                           "setmaxnreg": two}
+    fn = _c_fn("flash_bwd", "deepcoro_flash_bwd_sm90_attrs", [_I, ip, ip])
+    for which, (key, kernel) in enumerate((("K2 dK/dV", "flash_bwd_dkv_sm90_kernel"),
+                                           ("K2 dQ", "flash_bwd_dq_sm90_kernel"))):
+        if fn(which, ctypes.byref(regs), ctypes.byref(smem)) != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes failed on {kernel}")
+        out[key] = {"kernel": kernel, "registers": regs.value, "smem_bytes": smem.value,
+                    "consumers": 2, "setmaxnreg": False}
     return out
 
 
@@ -201,14 +228,20 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, *,
               sin: Optional[torch.Tensor], cos: Optional[torch.Tensor],
               kv_mask: Optional[torch.Tensor], causal: bool,
-              scale: float) -> None:
+              scale: float, packed: bool = False) -> None:
     """Write the gradients of ``flash_fwd`` into ``dq``, ``dk``, ``dv``
     (views shaped like ``q``, ``k``, ``v``), from the output gradient
-    ``do``, the forward's ``out`` and its ``stats``."""
+    ``do``, the forward's ``out`` and its ``stats``. ``packed``: the views
+    are heads of packed ``[B, L, H*Dh]`` operands (K2), which run the Hopper
+    kernels and take bf16 at Dh 128 only; otherwise (K4) the ``mma.sync``
+    kernels, or the fp32 ones for fp32 operands."""
     mask = _check_problem(q, k, v, sin, cos, kv_mask)
     device = q.device
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
+    if packed and (q.dtype != torch.bfloat16 or Dh != 128):
+        raise ValueError(f"the packed CUDA backward takes bfloat16 at Dh 128, "
+                         f"got {q.dtype} at Dh {Dh}")
     for name, t, like in (("out", out, q), ("do", do, q), ("dq", dq, q),
                           ("dk", dk, k), ("dv", dv, v)):
         if t.shape != like.shape:
@@ -226,7 +259,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sin is not None:  # q and k are rotated once, by a pre-pass, into these
         q_rot = torch.empty((B, H, Lq, Dh), dtype=q.dtype, device=device)
         k_rot = torch.empty((B, H, Lk, Dh), dtype=q.dtype, device=device)
-    err = _bwd_fn(q.dtype)(
+    err = _bwd_fn(q.dtype, packed)(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(do), _ptr(stats), _ptr(sin),
         _ptr(cos), _ptr(mask), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(rows),
         _ptr(q_rot), _ptr(k_rot),
@@ -386,7 +419,7 @@ def attention_backward(a, b, c, out, stats, grad_out, sin, cos, kv_mask, causal,
             t, memory_format=torch.contiguous_format) for t in (a, b, c))
         dviews = head_views(*grads, layout, H)
     flash_bwd(qh, kh, vh, oh, gh, stats, *dviews, sin=sin, cos=cos,
-              kv_mask=kv_mask, causal=causal, scale=scale)
+              kv_mask=kv_mask, causal=causal, scale=scale, packed=layout != "heads")
     counter.bwd_launches += 1
     return grads
 

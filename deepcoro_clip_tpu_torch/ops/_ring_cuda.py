@@ -20,9 +20,12 @@ TPU kernel's protocol:
 
 The streams start after, and the callers' streams of every device involved
 wait for, all work of the pass, so the result is ordered like any other
-operation on the current stream. The kernel takes bf16 and Dh 64 or 128;
-the wrapper raises on anything else. ``peer_access`` records, per pair of
-cards, whether the copy goes card to card.
+operation on the current stream. The step takes bf16 and Dh 64 or 128; the
+wrapper raises on anything else. ``step_symbol`` names the kernel a head
+dim runs: ``ring_step_sm90_kernel`` (wgmma, TMA, mbarriers) at 128, every
+path of the repository, and the ``mma.sync`` ``ring_step_kernel`` at 64.
+``peer_access`` records, per pair of cards, whether the copy goes card to
+card.
 """
 
 from __future__ import annotations
@@ -39,9 +42,30 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 peer_access: Dict[Tuple[int, int], bool] = {}
 
 
-def _step_fn():
-    return _c_fn("ring_attention", "deepcoro_ring_step_bf16",
+def step_symbol(dh: int) -> str:
+    """The C entry of ``csrc/ring_attention.cu`` that runs a ring step at
+    head dim ``dh``: the Hopper kernel at 128, the ``mma.sync`` one at 64."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA ring kernel takes Dh in {HEAD_DIMS}, got {dh}")
+    return "deepcoro_ring_step_sm90_bf16" if dh == 128 else "deepcoro_ring_step_bf16"
+
+
+def _step_fn(dh: int):
+    return _c_fn("ring_attention", step_symbol(dh),
                  [_P] * 7 + [_I] * 4 + [_LL] * 6 + [ctypes.c_float, _I, _I, _P])
+
+
+def step_kernel_attrs() -> dict:
+    """Registers per thread (at entry, before ``setmaxnreg``) and dynamic
+    shared memory per block of ``ring_step_sm90_kernel``: what
+    ``chip_smoke.py`` reports beside ptxas. Builds the library if need be."""
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    ip = ctypes.POINTER(ctypes.c_int)
+    fn = _c_fn("ring_attention", "deepcoro_ring_step_sm90_attrs", [ip, ip])
+    if fn(ctypes.byref(regs), ctypes.byref(smem)) != 0:
+        raise RuntimeError("cudaFuncGetAttributes failed on the K6 kernel")
+    return {"kernel": "ring_step_sm90_kernel", "registers": regs.value,
+            "smem_bytes": smem.value, "consumers": 2, "setmaxnreg": True}
 
 
 def _copy_fn():
@@ -93,7 +117,7 @@ def ring_fwd(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
     n = len(qs)
     B, H, Lc, Dh = qs[0].shape
     devs = [q.device for q in qs]
-    step, copy = _step_fn(), _copy_fn()
+    step, copy = _step_fn(Dh), _copy_fn()
     for i in range(n):
         if devs[i] != devs[(i + 1) % n]:
             _enable_peer(devs[i].index, devs[(i + 1) % n].index)

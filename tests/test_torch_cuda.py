@@ -329,6 +329,104 @@ def test_backward_rejects_fp32_on_the_card(cuda):
         flash_attention_packed(q, q, q, num_heads=2)
 
 
+def _kernels_run(fn):
+    """Names of the kernels the card ran during ``fn()`` (a profiler trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _ran(names, kernel):
+    return any(kernel in n for n in names)
+
+
+@pytest.mark.parametrize("L", [1569, 393, 130, 10])
+def test_packed_backward_at_ragged_lengths(cuda, L):
+    """K2's Hopper kernels on fused qkv with RoPE at the tower's lengths and
+    two short ones (ragged against the 128-key, 64-row and 128-row tiles):
+    dq, dk, dv against flash_bwd_plain, two launches bit-equal, and one
+    clip's gradients the same bits alone (B = 1) as in a batch of 4."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    sin, cos = _ragged_rope(L, cuda)
+    qkv = torch.randn(4, L, 3 * 512, generator=g, device=cuda).to(torch.bfloat16)
+    do = torch.randn(4, L, 512, generator=g, device=cuda).to(torch.bfloat16)
+
+    def grads(x, d):
+        leaf = x.clone().requires_grad_()
+        out = flash_attention_packed(qkv=leaf, num_heads=4, sin=sin, cos=cos)
+        a = torch.autograd.grad(out, leaf, d, retain_graph=True)[0]
+        b = torch.autograd.grad(out, leaf, d)[0]
+        assert torch.equal(a, b)  # no atomics: bit-equal run to run
+        return a, out.detach()
+
+    dqkv, out = grads(qkv, do)
+    one, _ = grads(qkv[2:3], do[2:3])
+    assert torch.equal(dqkv[2:3], one)  # fixed tiles: batch-size invariant
+    heads = [t.unflatten(2, (4, 128)).transpose(1, 2)
+             for t in (*qkv.split(512, dim=-1), do, out)]
+    want = flash_bwd_plain(*heads, sin=sin, cos=cos)
+    want = torch.cat([t.transpose(1, 2).flatten(2) for t in want], dim=-1)
+    torch.testing.assert_close(dqkv.float(), want.float(), **BWD_TOL)
+
+
+@pytest.mark.parametrize("mode", ["cross_mask", "causal", "causal_mask"])
+def test_packed_backward_modes(cuda, mode):
+    """K2's Hopper kernels on separate q/k/v: Lq != Lk with a key mask and a
+    fully masked batch row; causal at a length of several tiles (the tiles
+    the causal mask removes are skipped); causal with a key mask and a fully
+    masked row (nothing skipped: that row's uniform P reaches every key)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    Lq, Lk = (200, 333) if mode == "cross_mask" else (393, 393)
+    q = torch.randn(3, Lq, 512, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(3, Lk, 512, generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    do = torch.randn(3, Lq, 512, generator=g, device=cuda).to(torch.bfloat16)
+    kw = {}
+    if mode != "causal":
+        m = torch.rand(3, Lk, generator=g, device=cuda) > 0.3
+        m[1] = False
+        kw["kv_mask"] = m
+    if mode != "cross_mask":
+        kw["causal"] = True
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention_packed(*leaves, num_heads=4, **kw)
+    got = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, do)
+    heads = [t.unflatten(2, (4, 128)).transpose(1, 2) for t in (q, k, v, do)]
+    want = _plain_grads(*heads, **kw)
+    for name, a, b, r in zip("qkv", got, again, want):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a.float(), r.transpose(1, 2).flatten(2).float(),
+                                   **BWD_TOL, msg=lambda s, n=name: f"d{n}: {s}")
+    if "mask" in mode:  # the fully masked batch row: no gradient through scores
+        assert float(got[0][1].abs().max()) == 0.0 and float(got[1][1].abs().max()) == 0.0
+        assert float(got[2][1].abs().max()) > 0.0
+
+
+def test_backward_kernels_by_layout(cuda):
+    """The packed entry's backward (K2) runs the Hopper kernels, the
+    [B, H, L, Dh] entry's (K4) the mma.sync ones, at both of its head dims."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn(2, 150, 3 * 256, generator=g, device=cuda).to(torch.bfloat16)
+    leaf = x.clone().requires_grad_()
+    out = flash_attention_packed(qkv=leaf, num_heads=2)
+    names = _kernels_run(lambda: torch.autograd.grad(out, leaf, torch.ones_like(out)))
+    assert _ran(names, "flash_bwd_dkv_sm90_kernel") and _ran(names, "flash_bwd_dq_sm90_kernel")
+    assert not _ran(names, "flash_bwd_dkv_kernel") and not _ran(names, "flash_bwd_dq_kernel")
+    for dh in (64, 128):
+        leaves = [t.clone().requires_grad_() for t in x.split(256, dim=-1)]
+        out = flash_attention(*[t.unflatten(2, (256 // dh, dh)).transpose(1, 2)
+                                for t in leaves])
+        names = _kernels_run(lambda: torch.autograd.grad(out, leaves, torch.ones_like(out)))
+        assert _ran(names, "flash_bwd_dkv_kernel") and _ran(names, "flash_bwd_dq_kernel")
+        assert not _ran(names, "sm90")
+
+
 # --------------------------------------------------------------------------- #
 # fp32 operands on the [B, H, L, Dh] entry (K3, K4)
 
@@ -495,6 +593,19 @@ def test_ring_kernel_matches_plain(cuda, n, dh):
         ref = ring_attention(q, k, v, mesh, backend=backend)
         torch.testing.assert_close(got.float(), ref.float(), **TOL)
     assert ring_attention.launches == before + 2 * n * n  # the plain ones launch nothing
+
+
+@pytest.mark.parametrize("dh,kernel", [(128, "ring_step_sm90_kernel"),
+                                       (64, "ring_step_kernel")])
+def test_ring_step_kernel_by_head_dim(cuda, dh, kernel):
+    """Dh 128 runs the Hopper step kernel, Dh 64 the mma.sync one."""
+    from deepcoro_clip_tpu_torch.parallel import ring_attention
+
+    q = torch.zeros(1, 2, 2 * 150, dh, device=cuda, dtype=torch.bfloat16)
+    mesh = _ring_mesh(2, [cuda] * 2)
+    names = _kernels_run(lambda: ring_attention(q, q, q, mesh, backend="rdma"))
+    assert _ran(names, kernel)
+    assert dh == 128 or not _ran(names, "ring_step_sm90_kernel")
 
 
 def test_ring_kernel_gradients_are_the_plain_rings(cuda):

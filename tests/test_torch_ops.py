@@ -190,6 +190,24 @@ def test_cpu_tensors_never_reach_the_kernel():
     assert (flash_attention_packed.launches, flash_attention.launches) == (n1, n3)
 
 
+@pytest.mark.parametrize("dtype,packed,symbol", [
+    (torch.bfloat16, True, "deepcoro_flash_bwd_sm90_bf16"),   # K2: the Hopper kernels
+    (torch.bfloat16, False, "deepcoro_flash_bwd_bf16"),       # K4: the mma.sync ones
+    (torch.float32, False, "deepcoro_flash_bwd_f32"),         # K4 on fp32 operands
+])
+def test_backward_kernel_choice(dtype, packed, symbol):
+    """Which C entry of csrc/flash_bwd.cu a backward runs: a pure function
+    of the operand type and the layout, so it is checked here without a card."""
+    assert _flash_cuda.bwd_symbol(dtype, packed) == symbol
+
+
+def test_backward_kernel_choice_rejects_what_no_kernel_takes():
+    with pytest.raises(TypeError, match="packed CUDA backward takes bfloat16"):
+        _flash_cuda.bwd_symbol(torch.float32, True)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        _flash_cuda.bwd_symbol(torch.float16, False)
+
+
 # --------------------------------------------------------------------------- #
 # backward: flash_bwd_plain and the two autograd Functions (K2, K4)
 #

@@ -114,6 +114,19 @@ def test_ring_attention_rejects_what_jax_rejects():
         ring_attention(q, q, q, _tmesh(2), backend="nccl")
 
 
+@pytest.mark.parametrize("dh,symbol", [(128, "deepcoro_ring_step_sm90_bf16"),
+                                       (64, "deepcoro_ring_step_bf16")])
+def test_ring_step_kernel_choice(dh, symbol):
+    """Which C entry of csrc/ring_attention.cu a ring step runs: the Hopper
+    kernel at Dh 128, the mma.sync one at 64; a pure function of the head
+    dim, checked here without a card."""
+    from deepcoro_clip_tpu_torch.ops import _ring_cuda
+
+    assert _ring_cuda.step_symbol(dh) == symbol
+    with pytest.raises(ValueError, match="Dh in"):
+        _ring_cuda.step_symbol(96)
+
+
 # --------------------------------------------------------------------------- #
 # ring attention against the JAX ring
 
