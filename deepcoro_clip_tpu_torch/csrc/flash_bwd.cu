@@ -57,8 +57,10 @@
 //     producer warp in the block ptxas held every thread to 168 registers
 //     and the dK/dV consumers spilled; causal tiles skipped where nothing
 //     can reach them;
-//   - K4, the [B, H, L, Dh] entry (Dh 64 or 128): `flash_bwd_dkv_kernel`
-//     and `flash_bwd_dq_kernel`, 64-row tiles of 4 warps, mma.sync m16n8k16
+//   - K4, the [B, H, L, Dh] entry (Dh 64 or 128) where Lq or Lk exceeds 64
+//     (shorter calls run flash_short.cu in one launch):
+//     `flash_bwd_dkv_kernel` and `flash_bwd_dq_kernel`, 64-row tiles of 4
+//     warps, mma.sync m16n8k16
 //     with fragments out of padded shared tiles by ldmatrix, the streamed
 //     tiles by cp.async into a double buffer.
 // The fp32 kernels at the end serve fp32 operands of that entry.
@@ -145,42 +147,6 @@ __device__ __forceinline__ void load_rows_async(float* s, const float* rows,
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                      smem_u32(s + pl * BQ + c)),
                  "l"(rows + pl * plane + row0 + c));
-  }
-}
-
-// Un-rotate a [16 x D] fp32 accumulator (the transpose of rotate-half RoPE,
-// tables rounded to bf16 as the forward used them) and store it as bf16.
-// acc[dn][e] holds row g (e < 2) or g + 8 (e >= 2), column dn*8 + 2t + (e&1);
-// the rotate-half partner of column d is d + D/2: tile dn + D/16, same thread.
-template <int D>
-__device__ __forceinline__ void store_rows(float (&acc)[D / 8][4], __nv_bfloat16* base,
-                                           long long sl, int row_a, int L,
-                                           const float* sin, const float* cos, int t) {
-  constexpr int NO = D / 8;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
-    if (row >= L) continue;
-    if (sin != nullptr) {
-      const float* sr = sin + (long long)row * D;
-      const float* cr = cos + (long long)row * D;
-#pragma unroll
-      for (int dn = 0; dn < NO / 2; ++dn) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int d = dn * 8 + 2 * t + c, d2 = d + D / 2;
-          const float g1 = acc[dn][2 * r + c], g2 = acc[dn + NO / 2][2 * r + c];
-          acc[dn][2 * r + c] = g1 * bf16_round(cr[d]) + g2 * bf16_round(sr[d2]);
-          acc[dn + NO / 2][2 * r + c] = g2 * bf16_round(cr[d2]) - g1 * bf16_round(sr[d]);
-        }
-      }
-    }
-    __nv_bfloat16* orow = base + (long long)row * sl;
-#pragma unroll
-    for (int dn = 0; dn < NO; ++dn) {
-      *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t) =
-          pack_bf16(acc[dn][2 * r], acc[dn][2 * r + 1]);
-    }
   }
 }
 
@@ -1103,29 +1069,6 @@ __global__ void __launch_bounds__(256) bwd_rows_f32_kernel(
     out[plane] = 1.f / sm[(long long)gridDim.y * Lq + row];  // l >= 1
     out[2 * plane] = acc;
   }
-}
-
-// Transpose of rotate-half RoPE on a row held as columns lane + 32 i (the
-// partner of column d < D/2 is d + D/2: index i + PER/2 of the same lane),
-// then the store.
-template <int D>
-__device__ __forceinline__ void store_row_f32(float (&acc)[D / 32], float* out,
-                                              const float* sin, const float* cos,
-                                              int row, int lane) {
-  constexpr int PER = D / 32;
-  if (sin != nullptr) {
-    const float* sr = sin + (long long)row * D;
-    const float* cr = cos + (long long)row * D;
-#pragma unroll
-    for (int i = 0; i < PER / 2; ++i) {
-      const int d = lane + 32 * i, d2 = d + D / 2;
-      const float g1 = acc[i], g2 = acc[i + PER / 2];
-      acc[i] = g1 * cr[d] + g2 * sr[d2];
-      acc[i + PER / 2] = g2 * cr[d2] - g1 * sr[d];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < PER; ++i) out[lane + 32 * i] = acc[i];
 }
 
 template <int D>

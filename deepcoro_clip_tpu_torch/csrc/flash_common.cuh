@@ -1,10 +1,12 @@
 // Device helpers shared by the flash-attention forward (flash_fwd.cu), the
 // forward with the fused output projection (flash_fwd_proj.cu), the
-// backward (flash_bwd.cu) and the ring-attention step (ring_attention.cu)
-// kernels: mma.sync / ldmatrix / cp.async wrappers, the padded 64-row
-// shared-memory tile loader, rotate-half RoPE with the
-// plain version's bf16 rounding points, the attention of one q tile over
-// one head's keys (`attend_head`), and the warp helpers of the fp32 kernels.
+// backward (flash_bwd.cu), the short-sequence kernels (flash_short.cu) and
+// the ring-attention step (ring_attention.cu) kernels: mma.sync / ldmatrix /
+// cp.async wrappers, the padded 64-row shared-memory tile loader,
+// rotate-half RoPE with the plain version's bf16 rounding points, the
+// gradient row stores through the transpose of RoPE, the attention of one
+// q tile over one head's keys (`attend_head`), and the warp helpers of the
+// fp32 kernels.
 //
 // Tiles are 64 rows of D bf16 values, each row padded by PAD elements so
 // that ldmatrix reads are free of bank conflicts. Every operand is a base
@@ -142,6 +144,42 @@ __device__ __forceinline__ void rope_tile(__nv_bfloat16* s, int ld, const float*
     const float* cr = cos + (long long)pos * D;
     rope_pair(__bfloat162float(row[d]), __bfloat162float(row[d + HALF]), sr[d],
               sr[d + HALF], cr[d], cr[d + HALF], row[d], row[d + HALF]);
+  }
+}
+
+// Un-rotate a [16 x D] fp32 accumulator (the transpose of rotate-half RoPE,
+// tables rounded to bf16 as the forward used them) and store it as bf16.
+// acc[dn][e] holds row g (e < 2) or g + 8 (e >= 2), column dn*8 + 2t + (e&1);
+// the rotate-half partner of column d is d + D/2: tile dn + D/16, same thread.
+template <int D>
+__device__ __forceinline__ void store_rows(float (&acc)[D / 8][4], __nv_bfloat16* base,
+                                           long long sl, int row_a, int L,
+                                           const float* sin, const float* cos, int t) {
+  constexpr int NO = D / 8;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= L) continue;
+    if (sin != nullptr) {
+      const float* sr = sin + (long long)row * D;
+      const float* cr = cos + (long long)row * D;
+#pragma unroll
+      for (int dn = 0; dn < NO / 2; ++dn) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int d = dn * 8 + 2 * t + c, d2 = d + D / 2;
+          const float g1 = acc[dn][2 * r + c], g2 = acc[dn + NO / 2][2 * r + c];
+          acc[dn][2 * r + c] = g1 * bf16_round(cr[d]) + g2 * bf16_round(sr[d2]);
+          acc[dn + NO / 2][2 * r + c] = g2 * bf16_round(cr[d2]) - g1 * bf16_round(sr[d]);
+        }
+      }
+    }
+    __nv_bfloat16* orow = base + (long long)row * sl;
+#pragma unroll
+    for (int dn = 0; dn < NO; ++dn) {
+      *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t) =
+          pack_bf16(acc[dn][2 * r], acc[dn][2 * r + 1]);
+    }
   }
 }
 
@@ -426,6 +464,29 @@ cudaError_t launch_rope_rows_f32(const float* x, long long sb, long long sh, lon
   const dim3 grid((L * (D / 2) + 255) / 256, B * H);
   rope_rows_f32_kernel<D><<<grid, 256, 0, stream>>>(x, sb, sh, sl, H, L, sin, cos, out);
   return cudaGetLastError();
+}
+
+// Transpose of rotate-half RoPE on a row held as columns lane + 32 i (the
+// partner of column d < D/2 is d + D/2: index i + PER/2 of the same lane),
+// then the store.
+template <int D>
+__device__ __forceinline__ void store_row_f32(float (&acc)[D / 32], float* out,
+                                              const float* sin, const float* cos,
+                                              int row, int lane) {
+  constexpr int PER = D / 32;
+  if (sin != nullptr) {
+    const float* sr = sin + (long long)row * D;
+    const float* cr = cos + (long long)row * D;
+#pragma unroll
+    for (int i = 0; i < PER / 2; ++i) {
+      const int d = lane + 32 * i, d2 = d + D / 2;
+      const float g1 = acc[i], g2 = acc[i + PER / 2];
+      acc[i] = g1 * cr[d] + g2 * sr[d2];
+      acc[i + PER / 2] = g2 * cr[d2] - g1 * sr[d];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) out[lane + 32 * i] = acc[i];
 }
 
 }  // namespace

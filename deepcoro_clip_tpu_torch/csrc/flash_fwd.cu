@@ -31,7 +31,8 @@
 // transposed on the way). RoPE of K is applied once, by a small pre-pass
 // kernel into a scratch copy of K, rather than to every K tile in every
 // q-block; q rows are rotated once, in shared memory. This kernel serves
-// the [B, H, L, Dh] entry (K3) at Dh 64 and 128; every bf16 call of the
+// the [B, H, L, Dh] entry (K3) at Dh 64 and 128 where Lq or Lk exceeds 64
+// (shorter calls run flash_short.cu in one launch); every bf16 call of the
 // packed and fused layouts (K1) runs flash_fwd_sm90_kernel below, the same
 // function on wgmma, TMA and an mbarrier pipeline.
 //

@@ -81,8 +81,8 @@ def build(name: str) -> Path:
     return out
 
 
-def build_all(names=("flash_fwd", "flash_fwd_proj", "flash_bwd", "ring_attention")
-              ) -> None:
+def build_all(names=("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short",
+                     "ring_attention")) -> None:
     """Build several sources side by side, one ``nvcc`` process each."""
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         for fut in [ex.submit(build, n) for n in names]:

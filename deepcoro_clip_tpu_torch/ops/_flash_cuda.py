@@ -8,8 +8,13 @@ outputs they allocated, in bf16 (tensor-core kernels) or fp32 (plain fp32
 kernels; nothing is cast on the way). The packed entry's forward (K1) and
 backward (K2) run the Hopper kernels of ``csrc/flash_fwd.cu`` and
 ``csrc/flash_bwd.cu`` (wgmma, TMA, mbarriers), the ``[B, H, L, Dh]``
-entry's (K3, K4) the ``mma.sync`` ones in the same files; ``bwd_symbol``
-names the backward a call runs.
+entry's (K3, K4) the ``mma.sync`` ones in the same files, except at
+Lq, Lk <= ``SHORT_MAX``: there ``short_forward`` and ``short_backward``
+(behind ``ShortAttention`` when a gradient is wanted) launch the one-kernel
+forward and backward of ``csrc/flash_short.cu`` through a lean host path
+(one packed argument block, no row statistics, no scratch, the caller's
+bool or uint8 key mask as it is). ``fwd_symbol`` and
+``bwd_symbol`` name the C entry a call runs.
 ``flash_fwd_proj`` (``csrc/flash_fwd_proj.cu``) is the packed forward with
 the output projection fused in (bf16). The launchers check what the kernels
 take, launch on PyTorch's current stream, and raise if a launch failed.
@@ -26,6 +31,7 @@ kernels or raise; on a CPU tensor they run the plain versions
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import Optional
 
 import torch
@@ -40,8 +46,15 @@ from deepcoro_clip_tpu_torch.ops.attention import (
 
 HEAD_DIMS = (64, 128)
 TILE = 64  # rows per tile of the kernels; the backward pads its row values to it
+SHORT_MAX = 64  # Lq and Lk up to this run csrc/flash_short.cu ([B, H, L, Dh] entry)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# slots of the argument block of csrc/flash_short.cu (its enum ShortArg)
+(A_Q, A_K, A_V, A_O, A_DO, A_DQ, A_DK, A_DV, A_MASK, A_SIN, A_COS, A_STREAM,
+ A_QS) = range(13)
+A_KS, A_VS, A_DOS = A_QS + 3, A_QS + 6, A_QS + 9
+A_MASK_SB, A_B, A_H, A_LQ, A_LK, A_DH, A_CAUSAL, A_COUNT = range(A_QS + 12, A_QS + 20)
+_ARGS = struct.Struct(f"{A_COUNT}q")
 
 
 def _c_fn(lib: str, symbol: str, argtypes):
@@ -52,30 +65,79 @@ def _c_fn(lib: str, symbol: str, argtypes):
     return fn
 
 
-def _fwd_fn(dtype: torch.dtype, packed: bool = False):
-    symbol = ("deepcoro_flash_fwd_sm90_bf16" if packed
-              else f"deepcoro_flash_fwd_{_SUFFIX[dtype]}")
-    return _c_fn("flash_fwd", symbol,
-                 [_P] * 9 + [_I] * 5 + [_LL] * 12 + [ctypes.c_float, _I, _P])
+def is_short(packed: bool, Lq: int, Lk: int) -> bool:
+    """Whether a call runs the short kernels of ``csrc/flash_short.cu``:
+    the ``[B, H, L, Dh]`` entry with both lengths at most ``SHORT_MAX``."""
+    return not packed and Lq <= SHORT_MAX and Lk <= SHORT_MAX
 
 
-def bwd_symbol(dtype: torch.dtype, packed: bool) -> str:
-    """The C entry of ``csrc/flash_bwd.cu`` that runs a backward: the Hopper
-    kernels for the packed and fused layouts (K2: bf16, Dh 128, all that the
-    packed forward admits), the ``mma.sync`` kernels for the ``[B, H, L,
-    Dh]`` entry in bf16 (K4) and the fp32 kernels for its fp32 operands."""
+def fwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> str:
+    """The C entry that runs a forward: K1's Hopper kernel for the packed
+    and fused layouts (bf16, Dh 128), the short kernel of
+    ``csrc/flash_short.cu`` for the ``[B, H, L, Dh]`` entry at Lq, Lk <=
+    ``SHORT_MAX``, the 64-row tile kernels of ``csrc/flash_fwd.cu`` (bf16
+    ``mma.sync`` or fp32) above."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"the CUDA flash kernels take bfloat16 or float32, got {dtype}")
+    if packed:
+        if dtype != torch.bfloat16 or Dh != 128:
+            raise ValueError(f"the packed CUDA forward takes bfloat16 at Dh 128, "
+                             f"got {dtype} at Dh {Dh}")
+    elif Dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA flash kernel takes Dh in {HEAD_DIMS}, got {Dh}")
+    if is_short(packed, Lq, Lk):
+        return f"deepcoro_flash_short_fwd_{_SUFFIX[dtype]}"
+    return _tile_symbol("fwd", dtype, packed)
+
+
+def bwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int) -> str:
+    """The C entry that runs a backward: the Hopper kernels of
+    ``csrc/flash_bwd.cu`` for the packed and fused layouts (K2: bf16, Dh
+    128, all that the packed forward admits); for the ``[B, H, L, Dh]``
+    entry (K4) the one-launch short backward of ``csrc/flash_short.cu`` at
+    Lq, Lk <= ``SHORT_MAX``, else the ``mma.sync`` kernels in bf16 and the
+    fp32 kernels for fp32 operands."""
     if dtype not in _SUFFIX:
         raise TypeError(f"the CUDA flash kernels take bfloat16 or float32, got {dtype}")
     if packed:
         if dtype != torch.bfloat16:
             raise TypeError(f"the packed CUDA backward takes bfloat16, got {dtype}")
-        return "deepcoro_flash_bwd_sm90_bf16"
-    return f"deepcoro_flash_bwd_{_SUFFIX[dtype]}"
+    elif is_short(packed, Lq, Lk):
+        return f"deepcoro_flash_short_bwd_{_SUFFIX[dtype]}"
+    return _tile_symbol("bwd", dtype, packed)
+
+
+def _tile_symbol(direction: str, dtype: torch.dtype, packed: bool) -> str:
+    """The entry of ``csrc/flash_{direction}.cu``: the Hopper kernels for
+    the packed layouts, the 64-row tile kernels for ``[B, H, L, Dh]``."""
+    return (f"deepcoro_flash_{direction}_sm90_bf16" if packed
+            else f"deepcoro_flash_{direction}_{_SUFFIX[dtype]}")
+
+
+def _fwd_fn(dtype: torch.dtype, packed: bool = False):
+    return _c_fn("flash_fwd", _tile_symbol("fwd", dtype, packed),
+                 [_P] * 9 + [_I] * 5 + [_LL] * 12 + [ctypes.c_float, _I, _P])
 
 
 def _bwd_fn(dtype: torch.dtype, packed: bool = False):
-    return _c_fn("flash_bwd", bwd_symbol(dtype, packed),
+    return _c_fn("flash_bwd", _tile_symbol("bwd", dtype, packed),
                  [_P] * 15 + [_I] * 5 + [_LL] * 24 + [ctypes.c_float, _I, _P])
+
+
+_short_fns: dict = {}  # symbol -> the loaded C entry of csrc/flash_short.cu
+
+
+def _short_fn(symbol: str):
+    """An entry of ``csrc/flash_short.cu``: ``(argument block, scale)``."""
+    fn = _short_fns.get(symbol)
+    if fn is None:
+        lib = _build.load("flash_short")
+        if lib.deepcoro_flash_short_arg_count() != A_COUNT:
+            raise RuntimeError("csrc/flash_short.cu and ops/_flash_cuda.py disagree on "
+                               "the argument block")
+        fn = _c_fn("flash_short", symbol, [ctypes.c_char_p, ctypes.c_float])
+        _short_fns[symbol] = fn
+    return fn
 
 
 def _fwd_proj_fn():
@@ -115,14 +177,22 @@ def hopper_kernel_attrs(heads=(4, 6)) -> dict:
     return out
 
 
+def _raw_stream(device: torch.device) -> int:
+    """The handle of the current stream on ``device``, read without building
+    a ``torch.cuda.Stream`` (which took a measurable share of a short call's
+    host time, ``chip_smoke.py`` phase 21)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
 def _aligned(t: torch.Tensor) -> bool:
     """Head dim contiguous, base and strides fit for 16-byte loads."""
+    e = 16 // t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and not any(s % 8 for s in t.stride()[:3]))
+            and not any(s % e for s in t.stride()[:3]))
 
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device,
@@ -145,8 +215,23 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device,
             f"(ptr % 16 == 0, strides % 8 == 0), got strides {t.stride()}")
 
 
+def mask_arg(kv_mask: Optional[torch.Tensor], strided: bool) -> Optional[torch.Tensor]:
+    """The key mask ``[B, Lk]`` as the kernels read it: one byte a key,
+    nonzero = attend, the keys contiguous; the short kernels also take any
+    batch stride (``strided``), the tile kernels a contiguous mask. A bool
+    or uint8 mask that is so already goes as it is, without a kernel; any
+    other is converted once."""
+    if kv_mask is None:
+        return None
+    if kv_mask.dtype in (torch.bool, torch.uint8) and (
+            (strided and (kv_mask.stride(1) == 1 or kv_mask.shape[1] == 1))
+            or kv_mask.is_contiguous()):
+        return kv_mask
+    return (kv_mask != 0).to(torch.uint8).contiguous()
+
+
 def _check_problem(q, k, v, sin, cos, kv_mask):
-    """Shapes, sizes, tables and mask; returns the uint8 mask or None."""
+    """Shapes, sizes, tables and the mask's shape and device."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"the flash kernels need CUDA tensors, got {device}")
@@ -171,12 +256,9 @@ def _check_problem(q, k, v, sin, cos, kv_mask):
             # the bf16 RoPE pre-pass and the Hopper kernels read 16 bytes at a time
             if t.data_ptr() % 16:
                 raise ValueError(f"{name} must start on a 16-byte boundary")
-    if kv_mask is None:
-        return None
-    if kv_mask.shape != (B, Lk) or kv_mask.device != device:
+    if kv_mask is not None and (kv_mask.shape != (B, Lk) or kv_mask.device != device):
         raise ValueError(f"kv_mask must be [{B}, {Lk}] on {device}, "
                          f"got {tuple(kv_mask.shape)} on {kv_mask.device}")
-    return (kv_mask != 0).to(torch.uint8).contiguous()
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -191,7 +273,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``packed``: the views are heads of packed ``[B, L, H*Dh]`` operands
     (K1), which run the Hopper kernel ``flash_fwd_sm90_kernel`` and take
     bf16 at Dh 128 only; otherwise (K3) ``flash_fwd_kernel``."""
-    mask = _check_problem(q, k, v, sin, cos, kv_mask)
+    _check_problem(q, k, v, sin, cos, kv_mask)
+    mask = mask_arg(kv_mask, strided=False)
     device = q.device
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
@@ -217,7 +300,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, H, Lq, Lk, Dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         float(scale), int(bool(causal)),
-        torch.cuda.current_stream(device).cuda_stream,
+        _raw_stream(device),
     )
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
@@ -235,7 +318,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are heads of packed ``[B, L, H*Dh]`` operands (K2), which run the Hopper
     kernels and take bf16 at Dh 128 only; otherwise (K4) the ``mma.sync``
     kernels, or the fp32 ones for fp32 operands."""
-    mask = _check_problem(q, k, v, sin, cos, kv_mask)
+    _check_problem(q, k, v, sin, cos, kv_mask)
+    mask = mask_arg(kv_mask, strided=False)
     device = q.device
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
@@ -267,7 +351,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
         float(scale), int(bool(causal)),
-        torch.cuda.current_stream(device).cuda_stream,
+        _raw_stream(device),
     )
     if err != 0:
         raise RuntimeError(f"flash_bwd launch failed: CUDA error {err}")
@@ -285,7 +369,8 @@ def flash_fwd_proj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B, H, Lq, 128]`` view) and ``stats`` (fp32 ``[2, B, H, Lq]``) receive
     the attention output and the row statistics for the backward; both or
     neither are given."""
-    mask = _check_problem(q, k, v, sin, cos, kv_mask)
+    _check_problem(q, k, v, sin, cos, kv_mask)
+    mask = mask_arg(kv_mask, strided=False)
     device = q.device
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
@@ -327,10 +412,122 @@ def flash_fwd_proj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *(out.stride()[:3] if out is not None else (0, 0, 0)),
         float(scale), int(bool(causal)),
-        torch.cuda.current_stream(device).cuda_stream,
+        _raw_stream(device),
     )
     if err != 0:
         raise RuntimeError(f"flash_fwd_proj launch failed: CUDA error {err}")
+
+
+def short_args(q, k, v, o, *, sin, cos, mask, causal: bool, stream: int,
+               do=None, dq=None, dk=None, dv=None) -> bytes:
+    """The argument block of ``csrc/flash_short.cu`` for one call: 64-bit
+    integers in the order of its ``ShortArg`` (``A_*`` here). ``q``, ``k``,
+    ``v`` and ``do`` go with their (batch, head, row) strides; ``o``,
+    ``dq``, ``dk``, ``dv`` are contiguous ``[B, H, L, Dh]`` tensors; ``mask``
+    is what ``mask_arg(..., strided=True)`` returned, passed with its batch
+    stride."""
+    B, H, Lq, Dh = q.shape
+    none = (0, 0, 0)
+    return _ARGS.pack(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        0 if do is None else do.data_ptr(), 0 if dq is None else dq.data_ptr(),
+        0 if dk is None else dk.data_ptr(), 0 if dv is None else dv.data_ptr(),
+        0 if mask is None else mask.data_ptr(), 0 if sin is None else sin.data_ptr(),
+        0 if cos is None else cos.data_ptr(), stream,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *(none if do is None else do.stride()[:3]),
+        0 if mask is None else mask.stride(0), B, H, Lq, k.shape[2], Dh, int(causal))
+
+
+def _short_operand(name: str, t: torch.Tensor, device, dtype) -> torch.Tensor:
+    """An input of the short kernels, which copy 16 bytes at a time: bf16
+    ones must allow it, as ``_check_operand`` holds them; an fp32 one that
+    does not is copied once."""
+    if t.device != device or t.dtype != dtype or not _aligned(t):
+        _check_operand(name, t, device, dtype)  # raises where the kernel cannot read t
+        return torch.empty(t.shape, dtype=dtype, device=device).copy_(t)
+    return t
+
+
+def _short_launch(symbol: str, args: bytes, scale: float) -> None:
+    err = _short_fn(symbol)(args, scale)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+
+
+def short_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  sin: Optional[torch.Tensor], cos: Optional[torch.Tensor],
+                  kv_mask: Optional[torch.Tensor], causal: bool, scale: float):
+    """The ``[B, H, L, Dh]`` forward at Lq, Lk <= ``SHORT_MAX``: one launch
+    of ``csrc/flash_short.cu``. Returns the output (contiguous ``[B, H, Lq,
+    Dh]``) and, for ``short_backward``, the mask and q, k, v as the kernel
+    read them. Writes no row statistics: the short backward rebuilds them."""
+    _check_problem(q, k, v, sin, cos, kv_mask)
+    B, H, Lq, Dh = q.shape
+    symbol = fwd_symbol(q.dtype, False, Lq, k.shape[2], Dh)
+    if not symbol.startswith("deepcoro_flash_short"):
+        raise ValueError(f"the short kernels take Lq, Lk <= {SHORT_MAX}, "
+                         f"got {Lq}, {k.shape[2]}")
+    device, dtype = q.device, q.dtype
+    q, k, v = (_short_operand(n, t, device, dtype) for n, t in (("q", q), ("k", k), ("v", v)))
+    mask = mask_arg(kv_mask, strided=True)
+    out = torch.empty((B, H, Lq, Dh), dtype=dtype, device=device)
+    _short_launch(symbol, short_args(q, k, v, out, sin=sin, cos=cos, mask=mask,
+                                     causal=causal, stream=_raw_stream(device)), float(scale))
+    return out, mask, q, k, v
+
+
+def short_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                   do: torch.Tensor, sin: Optional[torch.Tensor],
+                   cos: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+                   causal: bool, scale: float):
+    """The gradients ``(dq, dk, dv)`` (contiguous) of ``short_forward``'s
+    call with the same ``sin``, ``cos``, from the ``out``, ``mask``, ``q``,
+    ``k``, ``v`` it returned, for the output gradient ``do``, in one launch
+    of ``csrc/flash_short.cu``: no row statistics, no scratch. Only ``do``
+    is checked: the rest passed the forward's checks, and autograd keeps
+    saved tensors from changing."""
+    device, dtype = q.device, q.dtype
+    if do.shape != out.shape:
+        raise ValueError(f"do shape {tuple(do.shape)} != out {tuple(out.shape)}")
+    if do.device != device or do.dtype != dtype or not _aligned(do):
+        # the gradient arrives with any strides (and type)
+        do = torch.empty(do.shape, dtype=dtype, device=device).copy_(do)
+    grads = tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                  for t in (q, k, v))
+    dq, dk, dv = grads
+    _short_launch(bwd_symbol(dtype, False, q.shape[2], k.shape[2]), short_args(
+        q, k, v, out, sin=sin, cos=cos, mask=mask, causal=causal,
+        stream=_raw_stream(device), do=do, dq=dq, dk=dk, dv=dv), float(scale))
+    return grads
+
+
+class ShortAttention(torch.autograd.Function):
+    """The ``[B, H, L, Dh]`` entry at Lq, Lk <= ``SHORT_MAX`` on the card,
+    when a gradient is wanted: ``short_forward`` and ``short_backward``,
+    one launch each, with less glue than ``FlashAttention`` (no layouts, no
+    statistics; measured by ``chip_smoke.py`` phase 21). ``counter`` counts
+    the launches as in ``FlashAttention``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sin, cos, kv_mask, causal, scale, counter):
+        out, mask, q, k, v = short_forward(q, k, v, sin, cos, kv_mask, causal, scale)
+        counter.launches += 1
+        ctx.save_for_backward(q, k, v, out, sin, cos, mask)
+        ctx.args = (causal, scale, counter)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        q, k, v, out, sin, cos, mask = ctx.saved_tensors
+        causal, scale, counter = ctx.args
+        need = ctx.needs_input_grad[:3]
+        if not any(need):
+            return (None,) * 9
+        grads = short_backward(q, k, v, out, grad_out, sin, cos, mask, causal, scale)
+        counter.bwd_launches += 1
+        return tuple(g if n else None for g, n in zip(grads, need)) + (None,) * 6
 
 
 def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
@@ -371,6 +568,10 @@ def attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout, H,
     if layout != "heads" and qh.dtype != torch.bfloat16:
         raise TypeError(f"the packed CUDA flash kernels take bfloat16, got {qh.dtype}")
     if layout == "heads":
+        if is_short(False, Lq, kh.shape[2]):  # no statistics: the backward rebuilds them
+            out = short_forward(qh, kh, vh, sin, cos, kv_mask, causal, scale)[0]
+            counter.launches += 1
+            return out, None
         out = torch.empty((B, H, Lq, Dh), dtype=qh.dtype, device=qh.device)
         oh = out
     else:
@@ -512,16 +713,19 @@ class FlashAttentionProj(torch.autograd.Function):
 
 
 def attention(a, b, c, *, sin, cos, kv_mask, causal, scale, layout, H, counter):
-    """Attention of one layout, through ``FlashAttention`` when a gradient
+    """Attention of one layout, through ``FlashAttention`` (or, for a short
+    ``[B, H, L, Dh]`` call on the card, ``ShortAttention``) when a gradient
     is wanted and straight through the forward otherwise (then no row
     statistics are written or kept)."""
     wants_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (a, b, c))
-    if wants_grad:
-        return FlashAttention.apply(a, b, c, sin, cos, kv_mask, causal, scale,
-                                    layout, H, counter)
-    return attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout,
-                             H, counter, stats=False)[0]
+    if not wants_grad:
+        return attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout,
+                                 H, counter, stats=False)[0]
+    if layout == "heads" and a.is_cuda and is_short(False, a.shape[2], b.shape[2]):
+        return ShortAttention.apply(a, b, c, sin, cos, kv_mask, causal, scale, counter)
+    return FlashAttention.apply(a, b, c, sin, cos, kv_mask, causal, scale,
+                                layout, H, counter)
 
 
 def attention_proj(a, b, c, wo, *, sin, cos, kv_mask, causal, scale, layout, H,

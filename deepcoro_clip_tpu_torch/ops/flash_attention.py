@@ -2,9 +2,11 @@
 
 Counterpart of the JAX package's ``ops/flash_attention.flash_attention``,
 whose Pallas ``_fwd_kernel`` and ``_bwd_kernel`` it replaces on the card
-with the hand-written CUDA kernels of ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu`` (those files' notes say what bounds them and how they
-are laid out). On a CPU tensor it runs the plain versions
+with hand-written CUDA kernels: at Lq, Lk <= 64 (every call of the main
+paths: the multi-video aggregator, the probing head's CLS block) the
+one-launch forward and backward of ``csrc/flash_short.cu``, above that the
+64-row tile kernels of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
+(those files' notes say what bounds them and how they are laid out). On a CPU tensor it runs the plain versions
 (``ops/attention.py``); on a CUDA tensor it launches the kernels or raises.
 ``launches`` and ``bwd_launches`` count the forward and backward kernel
 launches.

@@ -196,16 +196,17 @@ def test_cpu_tensors_never_reach_the_kernel():
     (torch.float32, False, "deepcoro_flash_bwd_f32"),         # K4 on fp32 operands
 ])
 def test_backward_kernel_choice(dtype, packed, symbol):
-    """Which C entry of csrc/flash_bwd.cu a backward runs: a pure function
-    of the operand type and the layout, so it is checked here without a card."""
-    assert _flash_cuda.bwd_symbol(dtype, packed) == symbol
+    """Which C entry of csrc/flash_bwd.cu a backward above the short
+    lengths runs: a pure function of the operand type, the layout and the
+    lengths, so it is checked here without a card."""
+    assert _flash_cuda.bwd_symbol(dtype, packed, 393, 393) == symbol
 
 
 def test_backward_kernel_choice_rejects_what_no_kernel_takes():
     with pytest.raises(TypeError, match="packed CUDA backward takes bfloat16"):
-        _flash_cuda.bwd_symbol(torch.float32, True)
+        _flash_cuda.bwd_symbol(torch.float32, True, 393, 393)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
-        _flash_cuda.bwd_symbol(torch.float16, False)
+        _flash_cuda.bwd_symbol(torch.float16, False, 10, 10)
 
 
 # --------------------------------------------------------------------------- #
