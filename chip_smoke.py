@@ -142,8 +142,31 @@ Phases, each printing one line (or a few) before the last:
    mask conversion, allocations, stream lookup, argument packing, the
    ctypes call without and with its launch, the autograd Function's
    share), and the launch floor (a one-element in-place add);
+22. the contrastive training run through the port's main, at
+   config/quality/flagship_quality_train.yaml (quality_train_config() below
+   spells its fields out; data_filename, output_dir, epochs 2 and
+   num_workers are overridden, and printed): a corpus of 48 train and 16
+   val clips of 16x224x224 rendered by data/synthetic_angio.generate_corpus
+   (seed 0), 2 epochs of 3 steps at batch 16 with validation (retrieval
+   metrics over the deduplicated reports) after each. Every loss finite;
+   the launches of the whole run, counted from 0 just before it, equal 12
+   K1 / 12 K2 / 14 K3 / 14 K4 a train step (the text tower's 12 layers at
+   L 128 and the aggregator's 2 blocks) plus the validation's; the latest,
+   best-loss and highest-alignment checkpoints with their meta keys, one of
+   each; the history's keys, grad_norm_video_<block> included. A second
+   run stopped after epoch 0 and resumed through main (resume_training,
+   checkpoint = its run directory) must end bit-equal to the uninterrupted
+   one (epoch-1 loss, every parameter, the generator state). A profiler
+   trace of one step shows the text tower's tile kernels (flash_fwd_kernel,
+   bwd_rows_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel) and the
+   aggregator's short ones; K3 and K4 at [16,12,128,64] bf16 with that
+   batch's padding mask against their plain versions (phase 3's and 7's
+   bars), with times, bound and SDPA's; the step time, clips/s, the
+   loader's wait a step, the validation pass and peak memory, each line
+   with the card's name and power limit;
 then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6; K3
-and K4 list their short and tile kernels and carry phase 21's rows).
+and K4 list their short and tile kernels and carry phase 21's rows; K1 to
+K4 carry phase 22's launches, K3 and K4 its shape).
 
 The last line is {"ok": true, "device": {...}}. Any failing phase exits
 non-zero before it, as does a machine without CUDA.
@@ -2686,25 +2709,56 @@ def _launches(torch, fn, calls: int = 10) -> list:
     launch, from a profiler trace of ``calls`` calls: the launches of the
     first call, after checking that every call made as many. On the H100
     machine the profiler now and then traces no device event in a short
-    window, so the window holds several calls and is traced again, up to
-    three times, if it comes back empty."""
+    window, or drops one (9 kernels of 10 one-kernel calls; once two empty
+    windows and then such a one in a row). So the window holds several
+    calls and is traced again, up to five times, when it comes back empty,
+    or when it is uneven only because the profiler saw fewer events of a
+    port kernel than the wrappers' counters say were launched in the window
+    (each port kernel runs once a wrapper launch). Any other uneven window
+    fails the check."""
+    from collections import Counter
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    tries = 5
+    for attempt in range(1, tries + 1):
+        before = sum(_kernel_counts().values())
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        launched = sum(_kernel_counts().values()) - before
         names = [_short_name(e.name) for e in sorted(
             (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
              and "Memcpy" not in e.name and "Memset" not in e.name),
             key=lambda e: e.time_range.start)]
-        if names:
+        if not names:
+            print(f"launches: no device event traced in {calls} calls (the wrappers "
+                  f"counted {launched} launches)", flush=True)
+            continue
+        if len(names) % calls == 0:
             break
-    check(len(names) % calls == 0, f"{len(names)} kernels in {calls} calls: {names}")
+        seen = Counter(names)
+        ours = [c for n, c in seen.items() if n.startswith(PORT_KERNELS)]
+        dropped = (ours and max(ours) <= launched and min(ours) < launched
+                   and all(c % calls == 0 for n, c in seen.items()
+                           if not n.startswith(PORT_KERNELS)))
+        print(f"launches: {len(names)} kernels traced in {calls} calls, the wrappers "
+              f"counted {launched} launches: "
+              + ("uneven" if not dropped else "a dropped profiler event"
+                 + (", traced again" if attempt < tries else "")), flush=True)
+        if not dropped:
+            break
+    check(len(names) % calls == 0, f"{len(names)} kernels in {calls} calls "
+                                   f"({launched} wrapper launches counted): {names}")
     return names[:len(names) // calls]
+
+
+# the port's own kernels, by their short names: each runs once a launch its
+# wrapper counts
+PORT_KERNELS = ("flash_", "bwd_rows_", "ring_")
 
 
 def _short_name(name: str) -> str:
@@ -2731,6 +2785,320 @@ def build_kernels(torch, sources) -> None:
                 print(f"build: ptxas   {line.strip()}", flush=True)
 
 
+# --------------------------------------------------------------------------- #
+# phase 22: the contrastive training run through main, at the flagship
+# quality recipe, on a rendered corpus
+
+QUALITY_TRAIN, QUALITY_VAL = 48, 16  # clips of the rendered corpus
+QUALITY_WORKERS = 4
+# launches per train step, per eval batch and per bank chunk of 64 reports:
+# K1 / K2 in the 12 video blocks, K3 / K4 in the 12 text layers (L = 128,
+# the tile kernels) and the aggregator's 2 blocks (L = 1, the short kernels)
+QUALITY_PER_STEP = {"K1": 12, "K2": 12, "K3": 14, "K4": 14, "K5": 0, "K6": 0}
+QUALITY_PER_EVAL = {"K1": 12, "K2": 0, "K3": 14, "K4": 0, "K5": 0, "K6": 0}
+QUALITY_PER_BANK = {"K1": 0, "K2": 0, "K3": 12, "K4": 0, "K5": 0, "K6": 0}
+CARD = ""  # nvidia-smi's name and power limit, set by main()
+
+
+def quality_train_config(**over):
+    """config/quality/flagship_quality_train.yaml, field by field (a CPU test
+    holds this dict equal to the YAML as the port's parser reads it; the
+    machine with the card need not have a YAML reader)."""
+    from deepcoro_clip_tpu_torch.configs import ClipConfig
+
+    d = dict(
+        pipeline_project="DeepCORO_clip", run_mode="train",
+        data_filename=".synth_corpus/data.csv", output_dir=".quality_run_v2_s0/outputs",
+        epochs=25, batch_size=16, frames=16, resize=224, stride=1, num_workers=2,
+        multi_video=False, max_text_length=128, lr=1.0e-4,
+        scheduler_name="cosine_with_warmup", loss_name="contrastive", dropout=0.1,
+        optimizer="AdamW", use_wandb=False, recall_k=[1, 5, 10], ndcg_k=[5],
+        early_stopping_patience=5, seed=0, log_layer_grad_norms=True,
+        model_name="mvit", vit_dim=512, vit_depth=12, vit_heads=4, vit_patch=[2, 16, 16],
+        vit_pool_stages=[3], use_cls_token=True, embedding_dim=512, num_heads=8,
+        aggregator_depth=2, text_dim=768, text_depth=12, text_heads=12,
+        text_vocab_size=30522, temperature=0.0588, precision="bf16",
+        use_pallas_attention=True,
+    )
+    d.update(over)
+    return ClipConfig.from_dict(d)
+
+
+def _quality_runs(torch, tmp: Path, manifest: Path):
+    """The uninterrupted run (counted, timed), a run stopped after epoch 0
+    and its resumption, each through main(config=...)."""
+    from deepcoro_clip_tpu_torch.main import main
+    from deepcoro_clip_tpu_torch.runners import contrastive as runner_mod
+
+    def cfg(name, **over):
+        return quality_train_config(data_filename=str(manifest), output_dir=str(tmp / name),
+                                    epochs=2, num_workers=QUALITY_WORKERS, **over)
+
+    print(f"quality run: config/quality/flagship_quality_train.yaml with data_filename="
+          f"{manifest.name} (the rendered corpus), output_dir=<tmp>, epochs=2, "
+          f"num_workers={QUALITY_WORKERS}; nothing else changed", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    full = main(config=cfg("full"))
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    train = runner_mod.VideoContrastiveLearningRunner.train
+    runner_mod.VideoContrastiveLearningRunner.train = (
+        lambda self, start_epoch=0, end_epoch=None: train(self, start_epoch, 1))
+    try:  # stopped after epoch 0, as a killed run would stop
+        cut = main(config=cfg("cut"))
+    finally:
+        runner_mod.VideoContrastiveLearningRunner.train = train
+    resumed = main(config=cfg("cut", resume_training=True, checkpoint=cut["output_dir"]))
+    return full, cut, resumed, counts, wall, peak_gib
+
+
+def _quality_attention(torch, mask):
+    """K3 and K4 at the text tower's [16,12,128,64] bf16 with the corpus
+    reports' padding mask, against their plain versions (phase 3's and
+    phase 7's bars), with their times, bounds and SDPA's."""
+    import torch.nn.functional as F
+
+    from deepcoro_clip_tpu_torch.ops.attention import flash_bwd_plain, multi_head_attention
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(22)
+    B, H, L, Dh = 16, 12, 128, 64
+    shape = f"[{B},{H},{L},{Dh}] bf16, the corpus reports' padding mask"
+
+    def randn(*s):
+        return torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v = randn(B, H, L, Dh), randn(B, H, L, Dh), randn(B, H, L, Dh)
+    do = randn(B, L, H, Dh).transpose(1, 2)  # the layout the text layer hands back
+    with torch.no_grad():
+        err_f = check_forward(torch, "quality attention", f"K3 {shape}",
+                              flash_attention(q, k, v, kv_mask=mask),
+                              multi_head_attention(q, k, v, kv_mask=mask))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, kv_mask=mask)
+    got = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    err_f = max(err_f, check_forward(torch, "quality attention",
+                                     f"K3 {shape}, statistics written", out.detach(),
+                                     multi_head_attention(q, k, v, kv_mask=mask)))
+    ref = flash_bwd_plain(q, k, v, do, out.detach(), kv_mask=mask)
+    err_b = max(_rel_check(f"K4 {shape}", w, a, r)
+                for w, a, r in zip(("dq", "dk", "dv"), got, ref))
+    print(f"quality attention: K4 {shape}: max|kernel-plain| {err_b:.3e} (bars: max|d| <= "
+          f"{BWD_MAX_REL} max|plain|, rel l2 <= {BWD_L2_REL}) ok", flush=True)
+
+    am = mask[:, None, None, :]
+    sq = [t.clone().requires_grad_() for t in (q, k, v)]
+    sout = F.scaled_dot_product_attention(*sq, attn_mask=am)
+    # what this run's data needs: the real keys of each row. K and V are read
+    # at those keys alone; Q, O and dO are read, and O, dQ, dK and dV written,
+    # whole (dK and dV are 0 at a padded key); the mask once.
+    keys = float(mask.sum())
+    whole = B * H * L * Dh * 2  # one bf16 [B, H, L, Dh] tensor
+    kv = 2 * keys * H * Dh * 2
+    b_fwd = bound(4 * keys * H * L * Dh, 2 * whole + kv + B * L)
+    b_bwd = bound(10 * keys * H * L * Dh, 6 * whole + kv + B * L)
+    with torch.no_grad():
+        row_k3 = {"shape": shape,
+                  "ms": cuda_ms(torch, lambda: flash_attention(q, k, v, kv_mask=mask), REPS),
+                  "plain_ms": cuda_ms(torch, lambda: multi_head_attention(
+                      q, k, v, kv_mask=mask), max(1, REPS // 5)),
+                  "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                      q, k, v, attn_mask=am), REPS),
+                  "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
+                  "device_ms": device_ms(torch, lambda: flash_attention(
+                      q, k, v, kv_mask=mask), REPS),
+                  "max_abs_err": err_f}
+    row_k4 = {"shape": shape,
+              "ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                  out, leaves, do, retain_graph=True), REPS),
+              "plain_ms": cuda_ms(torch, lambda: flash_bwd_plain(
+                  q, k, v, do, out.detach(), kv_mask=mask), max(1, REPS // 5)),
+              "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                  sout, sq, do, retain_graph=True), REPS),
+              "bound_ms": b_bwd[0], "bound_by": b_bwd[1],
+              "device_ms": device_ms(torch, lambda: torch.autograd.grad(
+                  out, leaves, do, retain_graph=True), REPS),
+              "max_abs_err": err_b}
+    for name, r in (("K3 forward", row_k3), ("K4 backward", row_k4)):
+        print(f"quality attention: {name} {shape}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {int(mask.sum())} real keys of "
+              f"{B * L}); card busy {r['device_ms']:.4f} ms | {CARD}", flush=True)
+    return row_k3, row_k4
+
+
+def _aggregator_attention(torch, vmask):
+    """K3 and K4 at the aggregator's [16,8,1,64] bf16 (the short kernels),
+    with the video mask the train step passes it and the operands as its
+    blocks hand them over, against their plain versions by phase 3's and
+    phase 7's bars. Returns max|kernel - plain| of the forward and of the
+    gradients."""
+    from deepcoro_clip_tpu_torch.ops.attention import flash_bwd_plain, multi_head_attention
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    (B, N), H, Dh = vmask.shape, 8, 64
+    shape = f"[{B},{H},{N},{Dh}] bf16, the batch's video mask ({str(vmask.dtype)[6:]})"
+    # strided views of the block's [B, N, 3 * H * Dh] projection
+    qkv = torch.randn(B, N, 3 * H * Dh, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (t.reshape(B, N, H, Dh).transpose(1, 2) for t in qkv.split(H * Dh, -1))
+    do = torch.randn(B, N, H, Dh, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, kv_mask=vmask)
+    got = torch.autograd.grad(out, leaves, do)
+    m = vmask != 0
+    ref_out = multi_head_attention(q, k, v, kv_mask=m)
+    err_f = check_forward(torch, "quality attention", f"K3 {shape}", out.detach(), ref_out)
+    err_b = _short_grad_check(f"quality attention: K4 {shape}", got,
+                              flash_bwd_plain(q, k, v, do, ref_out, kv_mask=m), fp32=False)
+    print(f"quality attention: K4 {shape}: max|kernel-plain| {err_b:.3e} (bars: max|d| <= "
+          f"{BWD_MAX_REL} max|plain|, rel l2 <= {BWD_L2_REL}) ok", flush=True)
+    return err_f, err_b
+
+
+def phase_quality_run(torch) -> dict:
+    """Phase 22; returns {"K1".."K4": launches of the run, "rows": (K3 row,
+    K4 row) of the text tower's call, "aggregator_max_abs_err": (K3, K4) at
+    the aggregator's call, "times": ...}."""
+    import dataclasses
+
+    from deepcoro_clip_tpu_torch.data.synthetic_angio import generate_corpus
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        t0 = time.perf_counter()
+        manifest = generate_corpus(tmp / "corpus", n_train=QUALITY_TRAIN, n_val=QUALITY_VAL,
+                                   size=224, frames=16, seed=0)
+        print(f"quality run: corpus of {QUALITY_TRAIN} train + {QUALITY_VAL} val clips "
+              f"16x224x224 (synthetic_angio, seed 0) rendered in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        full, cut, resumed, counts, wall, peak_gib = _quality_runs(torch, tmp, manifest)
+        hist = full["history"]
+        steps = QUALITY_TRAIN // 16
+        n_epochs = len(hist)
+        for h in hist:
+            print(f"quality run: epoch {h['epoch']}: train loss {h['loss']:.4f}, val loss "
+                  f"{h['val_loss']:.4f}, val R@1 {h['val_Recall@1']:.3f} R@5 "
+                  f"{h['val_Recall@5']:.3f} MRR {h['val_MRR']:.3f} NDCG@5 "
+                  f"{h['val_NDCG@5']:.3f} median rank {h['val_MedianRank']:.1f} alignment "
+                  f"{h['val_alignment']:.4f}, temperature {h['temperature']:.5f}, lr "
+                  f"{h['lr']:.2e}, grad_norm {h['grad_norm']:.3f} (block0 "
+                  f"{h['grad_norm_video_block0']:.3f})", flush=True)
+        check(all(math.isfinite(h[k]) for h in hist + resumed["history"]
+                  for k in ("loss", "val_loss")), f"non-finite loss in {hist}")
+        check(n_epochs == 2, f"{n_epochs} epochs in the history")
+        want = {k: QUALITY_PER_STEP[k] * steps * n_epochs + QUALITY_PER_EVAL[k] * n_epochs
+                + QUALITY_PER_BANK[k] * n_epochs for k in QUALITY_PER_STEP}
+        print(f"quality run: launches over {n_epochs} x {steps} train steps, {n_epochs} "
+              f"validation batches and {n_epochs} bank chunks: "
+              + ", ".join(f"{k} {counts[k]} (expected {want[k]})" for k in want)
+              + "; per train step K1 12, K2 12, K3 14, K4 14", flush=True)
+        check(counts == want, f"launches {counts}, expected {want}")
+
+        # the files a run leaves
+        run = Path(full["output_dir"])
+        ck = sorted(p.name for p in (run / "checkpoints").iterdir())
+        print(f"quality run: checkpoints {ck}", flush=True)
+        for prefix in ("checkpoint.", "best_model_epoch_", "highest_alignment_epoch_"):
+            kind = [n for n in ck if n.startswith(prefix)]
+            check(sorted(Path(n).suffix for n in kind) == [".json", ".pt"],
+                  f"checkpoint files {prefix}*: {kind} (one .pt and its .json)")
+        meta = json.loads((run / "checkpoints" / "checkpoint.json").read_text())
+        meta_keys = {"epoch", "train_loss", "val_loss", "alignment", "temperature",
+                     "best_val_loss", "best_epoch", "highest_alignment", "dataset_mean",
+                     "dataset_std"}
+        check(meta_keys <= set(meta) and meta["epoch"] == 1, f"checkpoint meta {meta}")
+        blocks = sorted(k for k in hist[0] if k.startswith("grad_norm_video_")
+                        and k != "grad_norm_video_encoder")
+        hist_keys = {"loss", "alignment", "temperature", "grad_norm", "lr",
+                     "grad_norm_video_encoder", "grad_norm_text_encoder", "epoch_seconds",
+                     "loader_wait_ms", "val_loss", "val_Recall@1", "val_Recall@5",
+                     "val_Recall@10", "val_NDCG@5", "val_MRR", "val_MAP", "val_MedianRank",
+                     "val_alignment", "val_seconds"}
+        check(hist_keys <= set(hist[0]), f"history keys missing: {hist_keys - set(hist[0])}")
+        want_blocks = ({f"grad_norm_video_block{i}" for i in range(12)}
+                       | {"grad_norm_video_pool3", "grad_norm_video_patch_embed",
+                          "grad_norm_video_cls", "grad_norm_video_norm"})
+        check(set(blocks) == want_blocks, f"per-block norms {blocks}")
+        print(f"quality run: meta keys {sorted(meta)}; history keys include "
+              f"{len(blocks)} per-block norms grad_norm_video_<block> ({', '.join(blocks[:3])}, "
+              "...)", flush=True)
+
+        # resume: epoch 0's checkpoint, then epoch 1 as in the uninterrupted run
+        a = torch.load(run / "checkpoints" / "checkpoint.pt", weights_only=True)
+        b = torch.load(Path(resumed["output_dir"]) / "checkpoints" / "checkpoint.pt",
+                       weights_only=True)
+        differ = [k for k in a["params"] if not torch.equal(a["params"][k], b["params"][k])]
+        l_full, l_res = hist[1]["loss"], resumed["history"][0]["loss"]
+        print(f"quality run: resume from epoch 0's checkpoint: epoch-1 train loss "
+              f"{l_res!r} vs {l_full!r} uninterrupted, val loss "
+              f"{resumed['history'][0]['val_loss']!r} vs {hist[1]['val_loss']!r}; "
+              f"{len(differ)} of {len(a['params'])} parameter tensors differ "
+              "(tolerance: none, bit-equal)", flush=True)
+        check([h["epoch"] for h in cut["history"]] == [0]
+              and [h["epoch"] for h in resumed["history"]] == [1],
+              "the cut run or the resumed run ran the wrong epochs")
+        check(l_res == l_full and not differ and a["step"] == b["step"]
+              and torch.equal(a["generator"], b["generator"]),
+              f"the resumed run differs: loss {l_res} vs {l_full}, params {differ[:5]}")
+
+        # times of the uninterrupted run (epoch 1: no first-call set-up)
+        h = hist[1]
+        step_ms = h["epoch_seconds"] * 1e3 / steps
+        times = {"step_ms": step_ms, "clips_per_s": 16 * steps / h["epoch_seconds"],
+                 "loader_wait_ms": h["loader_wait_ms"], "validate_s": h["val_seconds"],
+                 "peak_gib": peak_gib, "run_s": wall,
+                 "epoch0_seconds": hist[0]["epoch_seconds"]}
+        print(f"quality run: step {step_ms:.1f} ms (host clock, epoch 1: "
+              f"{h['epoch_seconds']:.3f} s over {steps} steps), {times['clips_per_s']:.1f} "
+              f"clips/s | {CARD}", flush=True)
+        print(f"quality run: loader wait {h['loader_wait_ms']:.2f} ms a step | {CARD}",
+              flush=True)
+        print(f"quality run: validation pass {h['val_seconds']:.3f} s (16 clips, "
+              f"bank of the deduplicated reports, metrics) | {CARD}", flush=True)
+        print(f"quality run: peak memory {peak_gib:.2f} GiB (torch.cuda.max_memory_allocated); "
+              f"main took {wall:.1f} s (epoch 0 {hist[0]['epoch_seconds']:.2f} s with "
+              f"first-call set-up) | {CARD}", flush=True)
+
+        # one step traced, and K3/K4 on the corpus reports' mask
+        cfg = quality_train_config(data_filename=str(manifest), output_dir=str(tmp / "trace"),
+                                   epochs=2, num_workers=QUALITY_WORKERS)
+        runner = VideoContrastiveLearningRunner(cfg, output_dir=tmp / "trace")
+        batch = runner._to_device(next(iter(runner.loaders["train"])))
+        args = (batch, runner.generator, 0.0, 0.0, -1.0)
+        runner.train_step(runner.state, *args)  # warm
+        per_name, wall_ms = device_events(torch, lambda: runner.train_step(runner.state, *args))
+        print_profile("quality profile", "one step at the quality recipe", per_name,
+                      wall_ms, top=14)
+        check_main_path_kernels(
+            "quality profile, the text tower's K3 and K4 (L 128)", per_name,
+            ("flash_fwd_kernel<", "bwd_rows_kernel", "flash_bwd_dkv_kernel<",
+             "flash_bwd_dq_kernel<"), ())
+        check_main_path_kernels(
+            "quality profile, the aggregator's K3 and K4 (L 1) and K1, K2", per_name,
+            ("flash_short_fwd_bf16_kernel", "flash_short_bwd_bf16_kernel",
+             "flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel"),
+            ("ring_step",))
+        mask = batch["attention_mask"].bool()
+        print(f"quality attention: the mask: {int(mask.sum())} real tokens of {mask.numel()} "
+              f"(shortest report {int(mask.sum(1).min())}, longest {int(mask.sum(1).max())})",
+              flush=True)
+        vmask = batch["video_mask"]
+        del runner, batch, args
+        torch.cuda.empty_cache()
+        rows = _quality_attention(torch, mask)
+        agg = _aggregator_attention(torch, vmask)
+    return {**counts, "rows": rows, "aggregator_max_abs_err": agg, "times": times}
+
+
 def main(argv) -> int:
     """``--host-only``: phase 1, the build and phase 21 alone, against the
     package of the directory the script lies in (an older tree's too: copy
@@ -2750,6 +3118,8 @@ def main(argv) -> int:
     print(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
     print(smi, flush=True)  # name, power limit
+    global CARD
+    CARD = smi
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2771,7 +3141,7 @@ def main(argv) -> int:
 
 
 def run_all(torch) -> dict:
-    """Phases 2 to 21; returns the "kernels" line."""
+    """Phases 2 to 22; returns the "kernels" line."""
     build_kernels(torch, ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short",
                           "ring_attention"))
     for key, a in hopper_attrs().items():
@@ -2855,6 +3225,15 @@ def run_all(torch) -> dict:
         e["short_max_abs_err"] = short_errs["fwd" if key == "K3" else "bwd"]
         e["host"] = [r for r in host[1:] if r["kind"] == key]
     by_key["K3"]["short_bit_equal_to_flash_fwd_kernel"] = short_errs["tile_equal"]
+
+    quality = phase_quality_run(torch)
+    for key, e in by_key.items():  # the training run's launches
+        e["quality_train_launches"] = quality[key]
+    for key, row, agg in zip(("K3", "K4"), quality["rows"], quality["aggregator_max_abs_err"]):
+        by_key[key]["shapes"].append(row)
+        by_key[key]["quality_aggregator_max_abs_err"] = agg
+        by_key[key]["max_abs_err"] = max(by_key[key]["max_abs_err"], row["max_abs_err"], agg)
+    kernels["quality_train"] = quality["times"]
     return kernels
 
 

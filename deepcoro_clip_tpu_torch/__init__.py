@@ -1,9 +1,9 @@
 """PyTorch/CUDA port of deepcoro_clip_tpu for NVIDIA Hopper.
 
 Mirrors the JAX package's module names (``configs``, ``flagship``,
-``ops/*``, ``data/*``, ``models/*``, ``losses/*``, ``train/*``, ``serve``)
-so each module's
-counterpart is easy to find. The package imports ``torch`` and never
+``ops/*``, ``data/*``, ``models/*``, ``losses/*``, ``train/*``,
+``runners/*``, ``projects/*``, ``utils/*``, ``registry``, ``main``,
+``serve``) so each module's counterpart is easy to find. The package imports ``torch`` and never
 ``jax``, ``flax``, ``optax`` or anything of ``deepcoro_clip_tpu``: host
 helpers it needs from there are kept as its own copies.
 

@@ -1,12 +1,15 @@
 """Configuration classes of the ported slices, and the YAML/CLI reader.
 
-``ClipConfig`` is a copy of the JAX package's ``configs/clip.py`` and
-``configs/base.py`` restricted to what the towers, the server and the
-contrastive train step use. ``LinearProbingConfig`` and ``MultiviewConfig``
-have every field of the JAX package's ``configs/linear_probing.py``,
-``BaseConfig``'s included. Names and defaults are the same, so a config dict
-or a shipped YAML means the same thing on both sides; keys a class does not
-know are kept in ``extra()``, as there.
+``BaseConfig``, ``ClipConfig``, ``LinearProbingConfig`` and
+``MultiviewConfig`` have every field of the JAX package's ``configs/base.py``,
+``configs/clip.py`` and ``configs/linear_probing.py``. Names and defaults
+are the same, so a config dict or a shipped YAML means the same thing on
+both sides; keys a class does not know are kept in ``extra()``, as there.
+The port adds one field, ``device`` (``PORT_FIELDS``): None runs on the
+card, ``"cpu"`` on the CPU.
+``set_device_info_in_place`` fills the device fields for one process on
+one card (no ``torch.distributed`` yet), and ``save_json`` writes the
+resolved config as JSON, which a YAML reader also reads.
 
 ``parse_config`` reads ``--base_config file.yaml`` plus ``--field value``
 overrides with the rules of the JAX package's ``configs/parser.py``: the
@@ -83,73 +86,20 @@ class _ConfigMethods:
         d.update(self.extra())
         return d
 
+    def set_device_info_in_place(self) -> None:
+        """One process driving one card: process 0 of 1, world size 1."""
+        self.process_index, self.process_count = 0, 1
+        self.is_ref_device = True
+        self.world_size = 1
 
-@dataclass
-class ClipConfig(_ConfigMethods):
-    # ---- run ----
-    epochs: int = 10
-    # ---- data ----
-    frames: int = 16
-    resize: int = 224
-    batch_size: int = 8
-    multi_video: bool = False
-    num_videos: int = 1
-    max_text_length: int = 512
-    data_mean: Optional[List[float]] = None
-    data_std: Optional[List[float]] = None
-    dataset_mean: Optional[List[float]] = None
-    dataset_std: Optional[List[float]] = None
-    # ---- model ----
-    model_name: str = "mvit"
-    aggregate_videos_tokens: bool = True
-    per_video_pool: bool = False
-    num_heads: int = 8
-    aggregator_depth: int = 2
-    dropout: float = 0.1
-    use_cls_token: bool = False
-    pooling_mode: str = "mean"  # mean | attention | cls_token
-    embedding_dim: int = 512
-    # ---- optimization ----
-    optimizer: str = "AdamW"
-    scheduler_name: str = "cosine"
-    lr: float = 1e-4
-    text_lr: float = 2e-5
-    lr_step_period: int = 20
-    factor: float = 0.3
-    loss_name: str = "contrastive"
-    video_weight_decay: float = 1e-5
-    text_weight_decay: float = 1e-7
-    gradient_accumulation_steps: int = 1
-    num_warmup_percent: float = 0.1
-    num_hard_restarts_cycles: float = 1.0
-    warm_restart_tmult: int = 2
-    max_grad_norm: float = 1.0
-    video_max_grad_norm: Optional[float] = None
-    text_max_grad_norm: Optional[float] = None
-    temperature: float = 0.07
-    label_smoothing: float = 0.0
-    siglip_bias_init: float = -10.0
-    # ---- accelerator knobs ----
-    precision: str = "bf16"  # bf16 | fp32 compute (params always fp32)
-    use_pallas_attention: bool = True  # here: the hand-written CUDA kernels
-    vit_dim: int = 512
-    vit_depth: int = 12
-    vit_heads: int = 4
-    vit_patch: List[int] = field(default_factory=lambda: [2, 16, 16])
-    vit_pool_stages: List[int] = field(default_factory=list)
-    rope_temporal_scale: float = 1.0
-    text_vocab_size: int = 30522
-    text_dim: int = 768
-    text_depth: int = 12
-    text_heads: int = 12
-    # the (data, model) mesh the ring runs over (parallel/mesh.py)
-    mesh_data: int = -1  # -1 = all devices / mesh_model
-    mesh_model: int = 1
-    # sequence parallelism: ring attention over the token axis in the video
-    # backbone (parallel/ring_attention.py; active where the token count
-    # divides by the ring-axis size)
-    use_ring_attention: bool = False
-    ring_axis: str = "model"
+    def save_json(self, path) -> None:
+        """The resolved config, keys sorted; JSON is YAML too."""
+        import json
+        from pathlib import Path
+
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(json.dumps(self.to_dict(), indent=1, sort_keys=True,
+                                         default=str) + "\n")
 
 
 @dataclass
@@ -185,6 +135,166 @@ class BaseConfig(_ConfigMethods):
     process_index: int = 0
     process_count: int = 1
     world_size: int = 1
+    # the port's own: where the run goes, None = the card ("cpu" to ask for
+    # the CPU); not a field of the JAX package
+    device: Optional[str] = None
+
+
+
+@dataclass
+class ClipConfig(BaseConfig):
+    """Every field of the JAX package's ``ClipConfig``, with its default.
+    The SigLIP, multi-positive and LocCa fields are here so that every
+    shipped ``config/clip/*.yaml`` reads; ``unported_settings`` names those
+    set away from their defaults, which the runner refuses."""
+
+    # ---- data ----
+    data_filename: str = "data/reports.csv"
+    root: str = "."
+    target_label: Optional[str] = "Report"
+    datapoint_loc_label: str = "FileName"
+    split_column: str = "Split"
+    frames: int = 16
+    stride: int = 2
+    resize: int = 224
+    rand_augment: bool = False
+    apply_mask: bool = False
+    batch_size: int = 8
+    multi_video: bool = False
+    num_videos: int = 1
+    groupby_column: str = "StudyInstanceUID"
+    shuffle_videos: bool = True
+    data_mean: Optional[List[float]] = None
+    data_std: Optional[List[float]] = None
+    dataset_mean: Optional[List[float]] = None
+    dataset_std: Optional[List[float]] = None
+    max_text_length: int = 512
+    # tokenize each batch to the smallest bucket that fits its longest
+    # report; empty = always max_text_length
+    text_length_buckets: List[int] = field(default_factory=list)
+    # ---- model ----
+    model_name: str = "mvit"
+    pretrained: bool = False
+    aggregate_videos_tokens: bool = True
+    per_video_pool: bool = False
+    num_heads: int = 8
+    aggregator_depth: int = 2
+    dropout: float = 0.1
+    video_freeze_ratio: float = 0.0
+    text_freeze_ratio: float = 0.0
+    use_cls_token: bool = False
+    pooling_mode: str = "mean"  # mean | attention | cls_token
+    embedding_dim: int = 512
+    text_model_name: str = "pubmedbert"
+    # ---- optimization ----
+    optimizer: str = "AdamW"
+    scheduler_name: str = "cosine"
+    lr: float = 1e-4
+    text_lr: float = 2e-5
+    lr_step_period: int = 20
+    factor: float = 0.3
+    loss_name: str = "contrastive"
+    video_weight_decay: float = 1e-5
+    text_weight_decay: float = 1e-7
+    gradient_accumulation_steps: int = 1
+    num_warmup_percent: float = 0.1
+    num_hard_restarts_cycles: float = 1.0
+    warm_restart_tmult: int = 2
+    max_grad_norm: float = 1.0
+    video_max_grad_norm: Optional[float] = None
+    text_max_grad_norm: Optional[float] = None
+    temperature: float = 0.07
+    label_smoothing: float = 0.0
+    temp_schedule: str = "learnable"  # learnable|constant|linear|cosine|exponential
+    temp_start: Optional[float] = None
+    temp_end: Optional[float] = None
+    video_freeze_schedule: Optional[str] = None
+    text_freeze_schedule: Optional[str] = None
+    # ---- checkpoint policy ----
+    save_best: str = "loss"  # loss | alignment
+    # ---- metrics ----
+    recall_k: List[int] = field(default_factory=lambda: [1, 5, 10, 50])
+    ndcg_k: List[int] = field(default_factory=lambda: [5])
+    # ---- SigLIP multi-positive (not ported yet) ----
+    siglip_texts_path: Optional[str] = None
+    siglip_edges_path: Optional[str] = None
+    siglip_max_positive_per_video: int = 8
+    siglip_negatives_per_video: int = 0
+    siglip_round_robin_sampling: bool = True
+    siglip_max_segments_per_video: int = 15
+    siglip_positive_severity_weights: Optional[Dict[str, float]] = None
+    siglip_enable_severity_weighting: bool = False
+    siglip_positive_loss_weight: float = 1.0
+    siglip_negative_loss_weight: float = 1.0
+    siglip_use_class_aware_sampler: bool = False
+    siglip_contradiction_boost: float = 0.0
+    siglip_contradiction_min_severity: str = "moderate"
+    siglip_sampler: str = "pairs"
+    siglip_base_negative_weight: float = 0.04
+    siglip_min_pos_weight: float = 0.0
+    siglip_abnormal_ratio: float = 0.5
+    siglip_use_weighted_loss: bool = False
+    # read by the contrastive bundle too: the initial logit_bias
+    siglip_bias_init: float = -10.0
+    siglip_entropy_reg_weight: float = 0.0
+    siglip_auto_balance: bool = False
+    siglip_logit_clamp: float = 30.0
+    siglip_debug_batches: int = 0
+    siglip_debug_every: int = 1
+    siglip_debug_sample_count: int = 4
+    # ---- LocCa report-generation head (not ported yet) ----
+    locca_enabled: bool = False
+    locca_weight: float = 0.5
+    locca_num_layers: int = 4
+    locca_d_model: int = 512
+    locca_num_heads: int = 8
+    locca_max_seq_len: int = 256
+    locca_task_weights: Optional[Dict[str, float]] = None
+    # ---- inference ----
+    topk: int = 5
+    text_embeddings_path: Optional[str] = None
+    metadata_path: Optional[str] = None
+    inference_results_path: str = "outputs/inference"
+    # ---- early stopping ----
+    early_stopping_patience: Optional[int] = None
+    # ---- accelerator knobs ----
+    precision: str = "bf16"  # bf16 | fp32 compute (params always fp32)
+    use_pallas_attention: bool = True  # here: the hand-written CUDA kernels
+    # sequence parallelism: ring attention over the token axis in the video
+    # backbone (parallel/ring_attention.py; active where the token count
+    # divides by the ring-axis size)
+    use_ring_attention: bool = False
+    ring_axis: str = "model"
+    vit_dim: int = 512
+    vit_depth: int = 12
+    vit_heads: int = 4
+    vit_patch: List[int] = field(default_factory=lambda: [2, 16, 16])
+    vit_pool_stages: List[int] = field(default_factory=list)
+    rope_temporal_scale: float = 1.0
+    text_vocab_size: int = 30522
+    text_dim: int = 768
+    text_depth: int = 12
+    text_heads: int = 12
+
+
+# the roadmap item of each field family the port does not run yet
+_UNPORTED = (("siglip_", "the SigLIP slice (ROADMAP Queue 1 item 7)"),
+             ("locca_", "the multitask slice (ROADMAP Queue 1 item 8)"))
+
+
+def unported_settings(config) -> List[str]:
+    """``"field=value (what brings it)"`` for every field of a path the port
+    does not run yet that ``config`` sets away from its default."""
+    out = []
+    for f in fields(config):
+        for prefix, item in _UNPORTED:
+            if f.name.startswith(prefix) and f.name != "siglip_bias_init":
+                default = (f.default if f.default is not dataclasses.MISSING
+                           else f.default_factory())
+                value = getattr(config, f.name)
+                if value != default:
+                    out.append(f"{f.name}={value!r} ({item})")
+    return out
 
 
 @dataclass
@@ -293,9 +403,13 @@ class MultiviewConfig(LinearProbingConfig):
             self.pipeline_project = "DeepCORO_video_linear_probing"
 
 
+# the fields the port adds to the JAX package's
+PORT_FIELDS = ("device",)
+
 # pipeline_project -> config class, for the pipelines that are ported
 CONFIG_CLASSES = {
     "DeepCORO_clip": ClipConfig,
+    "DeepCORO_clip_simple": ClipConfig,
     "DeepCORO_video_linear_probing": LinearProbingConfig,
     "DeepCORO_Multiview": MultiviewConfig,
     "DeepCORO_Multiview_test": MultiviewConfig,
@@ -344,4 +458,6 @@ def parse_config(argv: Optional[Sequence[str]] = None):
     for k, v in list(overrides.items()):  # dict overrides arrive as YAML text
         if typing.get_origin(hints.get(k)) in (dict, typing.Dict) and isinstance(v, str):
             overrides[k] = yaml.safe_load(v)
-    return config.update_with_args(overrides)
+    config.update_with_args(overrides)
+    config.set_device_info_in_place()
+    return config

@@ -1,0 +1,84 @@
+"""Collation into fixed-shape numpy batches (contrastive mode).
+
+The port's copy of the CLIP parts of the JAX package's ``data/collate.py``:
+``pick_text_bucket``, ``wire_patch``, ``_maybe_patchify`` and
+``collate_clip``. Videos are stacked with their ``video_mask``, reports are
+tokenized to ``max_text_length`` (or to the smallest configured bucket that
+fits the batch's longest report), and with the patch wire the uint8 videos
+leave as patch-major ``[B, N, L, K]`` (``data/patch_wire.py``). The
+multi-positive, single-head and MIL collates come with their slices.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from deepcoro_clip_tpu_torch.data.patch_wire import patchify_videos
+
+
+def pick_text_bucket(
+    texts: List[str], tokenizer, max_text_length: int,
+    buckets: Optional[List[int]] = None,
+) -> int:
+    """Smallest configured bucket that fits the batch's longest report (+2
+    special tokens); ``max_text_length`` without buckets."""
+    if not buckets:
+        return max_text_length
+    need = max((len(tokenizer.tokenize_ids(t)) for t in texts), default=0) + 2
+    for b in sorted(buckets):
+        if b >= need:
+            return min(b, max_text_length)
+    return max_text_length
+
+
+def wire_patch(cfg) -> Optional[tuple]:
+    """Patch dims for ``collate_clip(..., patch=)`` when the config enables
+    the patch-major wire (``patch_wire``, uint8 wire only), else None."""
+    if not getattr(cfg, "patch_wire", False):
+        return None
+    if getattr(cfg, "wire_dtype", "uint8") != "uint8":
+        return None
+    from deepcoro_clip_tpu_torch.models.video_encoder import resolve_architecture
+
+    return tuple(resolve_architecture(cfg)["vit_patch"])
+
+
+def _maybe_patchify(videos: np.ndarray,
+                    patch: Optional[Sequence[int]]) -> np.ndarray:
+    """Host space-to-depth for the patch wire; a float wire keeps the
+    spatial layout."""
+    if patch is None or videos.dtype != np.uint8:
+        return videos
+    return patchify_videos(videos, tuple(patch))
+
+
+def collate_clip(
+    items: List[Dict[str, Any]],
+    tokenizer,
+    max_text_length: int = 512,
+    length_buckets: Optional[List[int]] = None,
+    patch: Optional[Sequence[int]] = None,
+) -> Dict[str, Any]:
+    """Stacked videos + the tokenized per-sample report."""
+    videos = _maybe_patchify(np.stack([it["videos"] for it in items]), patch)
+    mask = np.stack([it["video_mask"] for it in items])
+    texts = [it["text"] for it in items]
+    enc = tokenizer(
+        texts,
+        max_length=pick_text_bucket(texts, tokenizer, max_text_length,
+                                    length_buckets),
+        padding="max_length",
+        truncation=True,
+        return_tensors="np",
+    )
+    return {
+        "videos": videos,
+        "video_mask": mask,
+        "input_ids": np.asarray(enc["input_ids"], np.int32),
+        "attention_mask": np.asarray(enc["attention_mask"], np.int32),
+        "texts": texts,
+        "paths": [it["paths"] for it in items],
+        "study_ids": [it.get("study_id", "") for it in items],
+    }

@@ -1,0 +1,526 @@
+"""Contrastive (CLIP) runner: epochs of train steps, validation with
+retrieval metrics, checkpoints, early stopping, resume.
+
+The port's ``VideoContrastiveLearningRunner`` (the JAX package's
+``runners/contrastive.py``) for the ``contrastive``/``clip`` losses on one
+card:
+
+- ``train``: per epoch the temperature and freeze-ratio schedules, the
+  epoch-seeded batch order, a train epoch, a validation epoch, then the
+  latest, best-loss and highest-alignment checkpoints, and early stopping;
+  a non-finite loss saves a ``nan_debug`` snapshot and raises;
+- the step loop is pipelined: step i's metrics are read (one copy to the
+  host) only after step i+1 has been enqueued, so the card is not left
+  idle while the host reads;
+- ``validate``: embeddings of every validation sample, the reports
+  deduplicated into a bank re-encoded in batches of 64, the similarity
+  matrix, Recall@k, NDCG@k, MRR, MAP, median rank and the alignment score;
+  the bank, the embeddings and a per-video retrieval table are written
+  under ``{run dir}/{split}/``;
+- ``maybe_resume`` / ``restore_best``;
+- ``init_from_checkpoint``: a warm start of the parameters from a port
+  checkpoint (``.pt``) or from an ``.npz`` of the JAX training tree
+  (``convert.save_params_npz``), leaf by leaf where paths and shapes match.
+
+Dropout masks are drawn from one ``torch.Generator`` on the run's device,
+seeded from ``config.seed`` and kept in every checkpoint. The JAX runner
+derives a key per step with ``fold_in``/``split``; the masks differ (a
+deliberate divergence), the arithmetic does not. The qualitative HTML
+panels and the end-of-run plots of the JAX runner are left out (offline
+tools), as are the SigLIP, multi-positive and LocCa paths and
+``run_mode: inference``, which raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import csv
+import math
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from deepcoro_clip_tpu_torch import convert
+from deepcoro_clip_tpu_torch.configs import unported_settings
+from deepcoro_clip_tpu_torch.data.collate import collate_clip, wire_patch
+from deepcoro_clip_tpu_torch.data.datasets import VideoClipDataset
+from deepcoro_clip_tpu_torch.data.loader import PrefetchLoader
+from deepcoro_clip_tpu_torch.data.sampler import ShardedBatchSampler
+from deepcoro_clip_tpu_torch.data.tokenizer import get_tokenizer
+from deepcoro_clip_tpu_torch.device import resolve_device
+from deepcoro_clip_tpu_torch.registry import RunnerRegistry
+from deepcoro_clip_tpu_torch.runners.common import resolve_dataset_stats
+from deepcoro_clip_tpu_torch.train import clip as clip_train
+from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
+from deepcoro_clip_tpu_torch.train.run_schedules import freeze_ratio_at, temperature_at
+from deepcoro_clip_tpu_torch.utils.logging_utils import MetricsLogger
+from deepcoro_clip_tpu_torch.utils.retrieval_metrics import (
+    compute_alignment_score,
+    compute_retrieval_metrics,
+)
+
+
+def check_ported(config) -> None:
+    """Raise ``NotImplementedError`` for what this runner does not run yet."""
+    if config.run_mode == "inference":
+        raise NotImplementedError(
+            "run_mode 'inference' is not ported yet (ROADMAP Queue 1 item 4: "
+            "what is left)")
+    name = config.loss_name.lower()
+    if name in clip_train.MULTI_POSITIVE_LOSSES or name.startswith("siglip"):
+        raise NotImplementedError(
+            f"loss_name={config.loss_name!r}: the SigLIP and multi-positive losses "
+            "come with the SigLIP slice (ROADMAP Queue 1 item 7)")
+    unported = unported_settings(config)
+    if unported:
+        raise NotImplementedError("not ported yet: " + ", ".join(unported))
+
+
+def _merge_params_by_path(new, old):
+    """Leaf-for-leaf transplant where key paths and shapes match; ``new``
+    elsewhere (the JAX runner's ``_merge_params_by_path``)."""
+    if isinstance(new, dict) and isinstance(old, dict):
+        return {k: (_merge_params_by_path(v, old[k]) if k in old else v)
+                for k, v in new.items()}
+    if isinstance(new, dict) or isinstance(old, dict):
+        return new
+    new_arr = np.asarray(new)
+    arr = np.asarray(old)
+    return arr.astype(new_arr.dtype) if arr.shape == new_arr.shape else new
+
+
+def _read_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
+    """A step's metrics on the host, with one device-to-host copy."""
+    keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+    out = {k: float(v) for k, v in metrics.items() if k not in keys}
+    if keys:
+        dev = metrics[keys[0]].device  # (a scalar may live on the host)
+        vals = torch.stack([metrics[k].detach().float().reshape(()).to(dev)
+                            for k in keys])
+        out.update(zip(keys, vals.cpu().tolist()))
+    return {k: out[k] for k in metrics}
+
+
+class NonFiniteLossError(RuntimeError):
+    """A train step's loss was not finite."""
+
+
+@RunnerRegistry.register("DeepCORO_clip", "DeepCORO_clip_simple")
+class VideoContrastiveLearningRunner:
+    def __init__(
+        self,
+        config,
+        output_dir: Optional[str] = None,
+        datasets: Optional[Dict[str, Any]] = None,
+    ):
+        check_ported(config)
+        self.config = config
+        self.output_dir = Path(output_dir or config.output_dir)
+        self.device = resolve_device(config.device)
+        self.tokenizer = get_tokenizer(
+            vocab_size=config.text_vocab_size, max_length=config.max_text_length
+        )
+        self.datasets = datasets if datasets is not None else self._build_datasets()
+        # before the bundle: the uint8 wire's patchify folds the stats in
+        self.stats = resolve_dataset_stats(config, self.datasets)
+        self.loaders = {
+            split: self._make_loader(ds, split == "train")
+            for split, ds in self.datasets.items()
+            if ds is not None
+        }
+        steps_per_epoch = max(1, len(self.loaders.get("train", [])) or 1)
+        self.bundle, self.state = clip_train.build_clip_bundle(
+            config, seed=config.seed, steps_per_epoch=steps_per_epoch,
+            device=self.device,
+        )
+        if getattr(config, "init_from_checkpoint", None):
+            self.init_from_checkpoint(config.init_from_checkpoint)
+        self.train_step = clip_train.make_train_step(self.bundle)
+        self.eval_step = clip_train.make_eval_step(self.bundle)
+        # the dropout masks of the whole run
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.ckpt = CheckpointManager(self.output_dir / "checkpoints")
+        self.logger = MetricsLogger(
+            self.output_dir, use_wandb=config.use_wandb, config=config,
+            is_ref_device=config.is_ref_device,
+        )
+        self.best_val_loss = math.inf
+        self.best_epoch = -1
+        self.highest_alignment = -math.inf
+        self.start_epoch = 0
+
+    # ------------------------------------------------------------------ #
+    # setup
+    # ------------------------------------------------------------------ #
+
+    def _build_datasets(self) -> Dict[str, Any]:
+        cfg = self.config
+        common = dict(
+            data_filename=cfg.data_filename,
+            root=cfg.root,
+            split_column=cfg.split_column,
+            datapoint_loc_label=cfg.datapoint_loc_label,
+            target_label=cfg.target_label,
+            multi_video=cfg.multi_video,
+            num_videos=cfg.num_videos,
+            groupby_column=cfg.groupby_column,
+            shuffle_videos=cfg.shuffle_videos,
+            frames=cfg.frames,
+            stride=cfg.stride,
+            resize=cfg.resize,
+            seed=cfg.seed,
+            wire_dtype=cfg.wire_dtype,
+            mono_wire=cfg.mono_wire,
+        )
+
+        def make(split, augment=False):
+            return VideoClipDataset(split=split, rand_augment=augment, **common)
+
+        out: Dict[str, Any] = {}
+        if cfg.run_mode == "train":
+            out["train"] = make("train", cfg.rand_augment)
+            try:
+                val = make("val")
+                out["val"] = val if len(val) else None
+            except Exception:
+                out["val"] = None
+        else:
+            out[cfg.run_mode] = make(cfg.run_mode)
+        return out
+
+    def _collate(self, items):
+        cfg = self.config
+        # length buckets are per-host batch content: one process only
+        buckets = cfg.text_length_buckets if cfg.process_count == 1 else []
+        return collate_clip(items, self.tokenizer, max_text_length=cfg.max_text_length,
+                            length_buckets=buckets, patch=wire_patch(cfg))
+
+    def _make_loader(self, dataset, training: bool):
+        cfg = self.config
+        sampler = ShardedBatchSampler(
+            len(dataset), cfg.batch_size, shuffle=training, seed=cfg.seed,
+            drop_last=training,
+            process_index=cfg.process_index, process_count=cfg.process_count,
+        )
+        return PrefetchLoader(dataset, sampler, self._collate,
+                              num_workers=max(1, cfg.num_workers),
+                              backend=cfg.loader_backend)
+
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The batch's arrays, and a ``sample_mask`` of ones (every row is
+        real: one card, no padding rows), onto the run's device. On the
+        card the copies leave from pinned memory without a host wait, so
+        the next batch's copy queues behind the running step."""
+        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+        arrays["sample_mask"] = np.ones((len(arrays["videos"]),), np.float32)
+        if self.device.type != "cuda":
+            return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
+        return {k: torch.from_numpy(v).pin_memory().to(self.device, non_blocking=True)
+                for k, v in arrays.items()}
+
+    def init_from_checkpoint(self, path: str) -> None:
+        """Warm start of the parameters (optimizer and step stay fresh) from
+        a port checkpoint ``.pt`` or an ``.npz`` of the JAX training tree,
+        leaf by leaf where the path and the shape match."""
+        p = self.state.params
+        if str(path).endswith(".npz"):
+            tree = convert.load_params_npz(path)
+            if set(tree) == {"params"}:
+                tree = tree["params"]
+            b = self.bundle
+            current = convert.training_tree(b.video_model, b.text_model,
+                                            p["log_temp"], p["logit_bias"])
+            convert.load_training_tree(_merge_params_by_path(current, tree),
+                                       b.video_model, b.text_model,
+                                       p["log_temp"], p["logit_bias"])
+            return
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        with torch.no_grad():
+            for k, v in saved.get("params", saved).items():
+                if k in p and p[k].shape == v.shape:
+                    p[k].copy_(v)
+
+    # ------------------------------------------------------------------ #
+    # training
+    # ------------------------------------------------------------------ #
+
+    def train(self, start_epoch: int = 0, end_epoch: Optional[int] = None) -> Dict:
+        cfg = self.config
+        end_epoch = end_epoch if end_epoch is not None else cfg.epochs
+        patience_left = cfg.early_stopping_patience or math.inf
+        history = []
+
+        for epoch in range(start_epoch, end_epoch):
+            temp = temperature_at(
+                epoch, cfg.epochs, cfg.temp_schedule, cfg.temperature,
+                cfg.temp_start, cfg.temp_end,
+            )
+            vfr = freeze_ratio_at(
+                epoch, cfg.epochs, cfg.video_freeze_ratio, cfg.video_freeze_schedule
+            )
+            tfr = freeze_ratio_at(
+                epoch, cfg.epochs, cfg.text_freeze_ratio, cfg.text_freeze_schedule
+            )
+
+            t_epoch = time.perf_counter()
+            train_metrics = self._run_train_epoch(epoch, temp, vfr, tfr)
+            train_metrics["epoch_seconds"] = time.perf_counter() - t_epoch
+            self.logger.log({f"train/{k}": v for k, v in train_metrics.items()},
+                            step=epoch)
+
+            val_metrics: Dict[str, float] = {}
+            if self.loaders.get("val") is not None:
+                val_metrics = self.validate(epoch)
+                self.logger.log({f"val/{k}": v for k, v in val_metrics.items()},
+                                step=epoch)
+
+            history.append({"epoch": epoch, **train_metrics,
+                            **{f"val_{k}": v for k, v in val_metrics.items()}})
+
+            meta = {
+                "epoch": epoch,
+                "train_loss": train_metrics.get("loss"),
+                "val_loss": val_metrics.get("loss"),
+                "alignment": val_metrics.get("alignment"),
+                "temperature": train_metrics.get("temperature"),
+                "best_val_loss": self.best_val_loss,
+                "best_epoch": self.best_epoch,
+                "highest_alignment": self.highest_alignment,
+                "dataset_mean": self.stats[0],
+                "dataset_std": self.stats[1],
+            }
+            val_loss = val_metrics.get("loss", train_metrics.get("loss"))
+            improved = val_loss is not None and val_loss < self.best_val_loss
+            if improved:
+                self.best_val_loss = float(val_loss)
+                self.best_epoch = epoch
+                meta["best_val_loss"] = self.best_val_loss
+                meta["best_epoch"] = self.best_epoch
+                patience_left = cfg.early_stopping_patience or math.inf
+            else:
+                patience_left -= 1
+            align = val_metrics.get("alignment")
+            new_alignment = align is not None and align > self.highest_alignment
+            if new_alignment:
+                self.highest_alignment = float(align)
+                meta["highest_alignment"] = self.highest_alignment
+
+            if cfg.is_ref_device:
+                self.ckpt.save_latest(self.state, meta, self.generator)
+                if improved:
+                    self.ckpt.save_best(self.state, epoch, meta, self.generator)
+                if new_alignment:
+                    self.ckpt.save_alignment(self.state, epoch, meta, self.generator)
+
+            if patience_left <= 0:
+                break
+        return {"history": history, "best_epoch": self.best_epoch,
+                "best_val_loss": self.best_val_loss,
+                "output_dir": str(self.output_dir)}
+
+    def _run_train_epoch(self, epoch: int, temp: float, vfr: float, tfr: float):
+        """The step loop. Step i's metrics are read only after step i+1 has
+        been enqueued, so a non-finite loss is seen one step late: the
+        ``nan_debug`` snapshot holds the state one step past the failing
+        one (whose update the step's non-finite guard withheld). Besides the
+        mean of every step metric the epoch reports ``loader_wait_ms``, the
+        host's mean wait for the next batch a step."""
+        loader = self.loaders["train"]
+        loader.set_epoch(epoch)
+        agg: Dict[str, float] = {}
+        n = 0
+        wait = 0.0
+        pending = None  # (i, metrics) of the step before
+
+        def consume(entry):
+            nonlocal n
+            i, metrics = entry
+            values = _read_metrics(metrics)
+            loss = values["loss"]
+            if not math.isfinite(loss):
+                if self.config.is_ref_device:
+                    self.ckpt.save_debug(
+                        "nan_debug", self.state,
+                        {"epoch": epoch, "nan_loss_at_step": i,
+                         "state_steps_past_failure": 1,
+                         "nonfinite_update_guard": True},
+                        self.generator,
+                    )
+                raise NonFiniteLossError(
+                    f"non-finite loss {loss} at epoch {epoch} step {i} (the "
+                    "nan_debug snapshot is one step past the failure, finite "
+                    "updates only; resume uses the last epoch checkpoint)"
+                )
+            for k, v in values.items():
+                agg[k] = agg.get(k, 0.0) + v
+            n += 1
+            if i % max(1, self.config.period * 10) == 0:
+                self.logger.log({f"step/{k}": v for k, v in values.items()},
+                                step=int(self.state.step))
+
+        batches = iter(loader)
+        i = 0
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            wait += time.perf_counter() - t0
+            if batch is None:
+                break
+            device_batch = self._to_device(batch)
+            self.state, metrics = self.train_step(
+                self.state, device_batch, self.generator, vfr, tfr, temp
+            )
+            if pending is not None:
+                consume(pending)
+            pending = (i, metrics)
+            i += 1
+        if pending is not None:
+            consume(pending)
+        out = {k: v / max(n, 1) for k, v in agg.items()}
+        out["loader_wait_ms"] = wait * 1e3 / max(n, 1)
+        return out
+
+    # ------------------------------------------------------------------ #
+    # validation with retrieval metrics
+    # ------------------------------------------------------------------ #
+
+    def validate(self, epoch: int = 0, split: str = "val") -> Dict[str, float]:
+        """Validation loss and the retrieval panel; ``seconds`` is the
+        pass's wall time, bank encoding and metrics included."""
+        loader = self.loaders.get(split)
+        if loader is None:
+            return {}
+        t0 = time.perf_counter()
+        losses: List[float] = []
+        v_embs: List[np.ndarray] = []
+        texts: List[List[str]] = []
+        paths: List[str] = []
+
+        def consume(batch, out):
+            losses.append(float(out["loss"]))
+            n_real = len(batch["texts"])
+            v_embs.append(out["video_emb"].float().cpu().numpy()[:n_real])
+            texts.extend([[t] for t in batch["texts"]])
+            paths.extend([p[0] for p in batch["paths"]])
+
+        pending = None
+        for batch in loader:
+            out = self.eval_step(self.state.params, self._to_device(batch))
+            if pending is not None:
+                consume(*pending)
+            pending = (batch, out)
+        if pending is not None:
+            consume(*pending)
+
+        if not v_embs:
+            return {}
+        v_emb = np.concatenate(v_embs)
+        metrics = {"loss": float(np.mean(losses))}
+        metrics.update(self._retrieval_eval(v_emb, texts, epoch, split, paths=paths))
+        metrics["seconds"] = time.perf_counter() - t0
+        return metrics
+
+    @torch.no_grad()
+    def _encode_texts(self, unique_texts: List[str], batch_size: int = 64):
+        """The deduplicated reports, encoded in fixed-size batches."""
+        embs = []
+        for i in range(0, len(unique_texts), batch_size):
+            chunk = unique_texts[i: i + batch_size]
+            pad = batch_size - len(chunk)
+            enc = self.tokenizer(
+                chunk + [""] * pad, max_length=self.config.max_text_length,
+                padding="max_length", truncation=True, return_tensors="np",
+            )
+            e = self.bundle.text_model(
+                torch.from_numpy(enc["input_ids"]).long().to(self.device),
+                attention_mask=torch.from_numpy(enc["attention_mask"]).to(self.device),
+                deterministic=True,
+            )
+            embs.append(e.float().cpu().numpy()[: len(chunk)])
+        return np.concatenate(embs) if embs else np.zeros((0, 1), np.float32)
+
+    def _retrieval_eval(self, v_emb, texts, epoch, split,
+                        paths: Optional[List[str]] = None) -> Dict[str, float]:
+        """Dedup -> encode -> N x M similarity -> metrics -> artifacts.
+        ``texts``: each video's positive reports (one here)."""
+        cfg = self.config
+        uniq: Dict[str, int] = {}
+        pos_ids: List[List[int]] = []
+        for tl in texts:
+            ids = []
+            for t in tl:
+                if t not in uniq:
+                    uniq[t] = len(uniq)
+                ids.append(uniq[t])
+            pos_ids.append(ids)
+        unique_texts = list(uniq)
+        if not unique_texts or len(v_emb) == 0:
+            return {}
+        text_ids = [ids[0] for ids in pos_ids]
+        t_emb = self._encode_texts(unique_texts)
+
+        vn = v_emb / np.maximum(np.linalg.norm(v_emb, axis=1, keepdims=True), 1e-8)
+        tn = t_emb / np.maximum(np.linalg.norm(t_emb, axis=1, keepdims=True), 1e-8)
+        sim = vn @ tn.T
+        gt = np.zeros((len(v_emb), len(unique_texts)), dtype=bool)
+        for i, ids in enumerate(pos_ids):
+            gt[i, ids] = True
+        metrics = compute_retrieval_metrics(sim, gt, recall_k=cfg.recall_k,
+                                            ndcg_k=cfg.ndcg_k)
+        metrics["alignment"] = compute_alignment_score(v_emb, t_emb[np.asarray(text_ids)])
+
+        if cfg.is_ref_device:
+            art = self.output_dir / split
+            art.mkdir(parents=True, exist_ok=True)
+            with open(art / f"unique_texts_epoch_{epoch}.csv", "w", newline="") as f:
+                w = csv.writer(f, lineterminator="\n")
+                w.writerow(["text"])
+                w.writerows([t] for t in unique_texts)
+            np.savez(art / f"text_embeddings_epoch_{epoch}.npz",
+                     text_embeddings=t_emb, video_embeddings=v_emb)
+            k = min(5, sim.shape[1])
+            topk = np.argsort(-sim, axis=1)[:, :k]
+            header = (["path", "gt_text", "gt_rank"]
+                      + [f"top{j + 1}_text" for j in range(k)]
+                      + [f"top{j + 1}_score" for j in range(k)])
+            with open(art / f"retrieval_results_epoch_{epoch}.csv", "w",
+                      newline="") as f:
+                w = csv.writer(f, lineterminator="\n")
+                w.writerow(header)
+                for i in range(len(v_emb)):
+                    # best rank over the positive set
+                    gt_rank = int(1 + min(np.sum(sim[i] > sim[i, j]) for j in pos_ids[i]))
+                    w.writerow([paths[i] if paths and i < len(paths) else "",
+                                unique_texts[text_ids[i]], gt_rank]
+                               + [unique_texts[t] for t in topk[i]]
+                               + [float(sim[i, t]) for t in topk[i]])
+        return metrics
+
+    # ------------------------------------------------------------------ #
+    # resume
+    # ------------------------------------------------------------------ #
+
+    def restore_best(self, fallback_latest: bool = True) -> bool:
+        """Load the best-val-loss checkpoint, else the latest."""
+        name = self.ckpt.find_best()
+        if name is None and fallback_latest and self.ckpt.latest_exists():
+            name = "checkpoint"
+        if name is None:
+            return False
+        self.state = self.ckpt.restore(self.state, name, self.generator)
+        return True
+
+    def maybe_resume(self) -> int:
+        """With ``resume_training`` and a latest checkpoint in this run's
+        directory: its parameters, optimizer state, step, dropout generator
+        and best-so-far trackers; returns the epoch to start from."""
+        if self.config.resume_training and self.ckpt.latest_exists():
+            self.state = self.ckpt.restore(self.state, "checkpoint", self.generator)
+            meta = self.ckpt.load_meta("checkpoint") or {}
+            self.best_val_loss = float(meta.get("best_val_loss", math.inf))
+            self.best_epoch = int(meta.get("best_epoch", -1))
+            self.highest_alignment = float(meta.get("highest_alignment", -math.inf))
+            self.start_epoch = int(meta.get("epoch", -1)) + 1
+        return self.start_epoch

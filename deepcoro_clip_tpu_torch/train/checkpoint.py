@@ -1,0 +1,130 @@
+"""Checkpoints on ``torch.save`` with the JAX package's retention policy.
+
+The port's counterpart of the JAX package's ``train/checkpoint.py`` (orbax
+there). Names and policy are the same: ``checkpoint`` (the latest, every
+epoch), ``best_model_epoch_{e}`` (lowest validation loss) and
+``highest_alignment_epoch_{e}`` (highest alignment), of which only the
+newest of each kind is kept; ``save_debug`` writes a named snapshot that is
+never the resume target. Each is one file ``{name}.pt`` beside a sidecar
+``{name}.json`` with the meta (epoch, losses, best so far, dataset stats).
+
+A ``.pt`` file holds the training step, the parameters (the flat training
+dict, on the CPU), the optimizer state, the state of the run's dropout
+``torch.Generator`` and the meta: enough that a resumed run repeats an
+uninterrupted one. A file is written under a temporary name and moved into
+place, so a crash mid-save leaves the previous checkpoint whole.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import torch
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def _load_into(dst, src):
+    """``src`` (from a file) into the live structure ``dst``: tensors are
+    copied in place, so parameters stay the models' own."""
+    if isinstance(dst, dict):
+        return {k: _load_into(dst[k], src[k]) if k in dst else src[k] for k in src}
+    if isinstance(dst, torch.Tensor):
+        with torch.no_grad():
+            dst.copy_(src)
+        return dst
+    return src
+
+
+class CheckpointManager:
+    def __init__(self, directory: str | Path):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+
+    # ------------------------------------------------------------------ #
+
+    def _save(self, name: str, state: Any, meta: Dict[str, Any],
+              generator: Optional[torch.Generator] = None) -> Path:
+        path = self.dir / f"{name}.pt"
+        tmp = self.dir / f"{name}.pt.tmp"
+        torch.save({
+            "step": int(state.step),
+            "params": _to_cpu(dict(state.params)),
+            "opt_state": _to_cpu(state.opt_state),
+            "generator": None if generator is None else generator.get_state(),
+            "meta": meta,
+        }, tmp)
+        os.replace(tmp, path)
+        (self.dir / f"{name}.json").write_text(json.dumps(meta, default=float))
+        return path
+
+    def _prune(self, prefix: str, keep: str) -> None:
+        for p in self.dir.glob(f"{prefix}*"):
+            if p.name.split(".")[0] != keep:
+                p.unlink(missing_ok=True)
+
+    def save_latest(self, state: Any, meta: Dict[str, Any],
+                    generator: Optional[torch.Generator] = None) -> Path:
+        return self._save("checkpoint", state, meta, generator)
+
+    def save_debug(self, name: str, state: Any, meta: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None) -> Path:
+        """A diagnostic snapshot under its own name; never the resumable
+        ``checkpoint``."""
+        return self._save(name, state, meta, generator)
+
+    def save_best(self, state: Any, epoch: int, meta: Dict[str, Any],
+                  generator: Optional[torch.Generator] = None) -> Path:
+        name = f"best_model_epoch_{epoch}"
+        path = self._save(name, state, meta, generator)
+        self._prune("best_model_epoch_", name)
+        return path
+
+    def save_alignment(self, state: Any, epoch: int, meta: Dict[str, Any],
+                       generator: Optional[torch.Generator] = None) -> Path:
+        name = f"highest_alignment_epoch_{epoch}"
+        path = self._save(name, state, meta, generator)
+        self._prune("highest_alignment_epoch_", name)
+        return path
+
+    # ------------------------------------------------------------------ #
+
+    def load(self, name: str = "checkpoint") -> Dict[str, Any]:
+        """The raw contents of ``{name}.pt``, on the CPU."""
+        return torch.load(self.dir / f"{name}.pt", map_location="cpu",
+                          weights_only=True)
+
+    def restore(self, state_like: Any, name: str = "checkpoint",
+                generator: Optional[torch.Generator] = None) -> Any:
+        """Load ``name`` into ``state_like``'s tensors in place (and its
+        generator state into ``generator``); returns the state with the
+        saved step."""
+        saved = self.load(name)
+        _load_into(state_like.params, saved["params"])
+        opt_state = _load_into(state_like.opt_state, saved["opt_state"])
+        if generator is not None and saved.get("generator") is not None:
+            generator.set_state(saved["generator"])
+        return state_like.replace(step=int(saved["step"]), opt_state=opt_state)
+
+    def load_meta(self, name: str = "checkpoint") -> Optional[Dict[str, Any]]:
+        p = self.dir / f"{name}.json"
+        if not p.exists():
+            return None
+        return json.loads(p.read_text())
+
+    def latest_exists(self) -> bool:
+        return (self.dir / "checkpoint.pt").exists()
+
+    def find_best(self) -> Optional[str]:
+        for p in sorted(self.dir.glob("best_model_epoch_*.pt")):
+            return p.name[: -len(".pt")]
+        return None

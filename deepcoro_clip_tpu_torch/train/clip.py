@@ -248,6 +248,13 @@ def make_train_step(bundle: ClipBundle):
 
             towers = {t: [g for n, g in grads.items() if n.startswith(t + ".")]
                       for t in ("video_encoder", "text_encoder")}
+            # per backbone child (block{i}, pool{s}, patch_embed, cls,
+            # norm), under the JAX tree's names, when asked for
+            blocks: Dict[str, list] = {}
+            if getattr(bundle.config, "log_layer_grad_norms", False):
+                for n, g in grads.items():
+                    if n.startswith("video_encoder.backbone."):
+                        blocks.setdefault(n.split(".")[2], []).append(g)
             metrics = {
                 "loss": loss.detach(),
                 "temperature": out["temperature"].detach(),
@@ -256,6 +263,8 @@ def make_train_step(bundle: ClipBundle):
                 "grad_norm": optim_lib.global_norm(grads),
                 **{f"grad_norm_{t}": optim_lib.global_norm(g)
                    for t, g in towers.items()},
+                **{f"grad_norm_video_{b}": optim_lib.global_norm(g)
+                   for b, g in blocks.items()},
                 "video_emb_norm": torch.linalg.vector_norm(
                     out["video_emb"].float(), dim=-1).mean(),
                 "text_emb_norm": torch.linalg.vector_norm(

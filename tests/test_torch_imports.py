@@ -1,11 +1,11 @@
 """The port imports neither JAX nor anything of the JAX package.
 
 Run in a subprocess: this test process has JAX loaded already
-(tests/conftest.py imports it). There ``jax``, ``flax`` and ``optax`` are
-(and ``yaml``, which the machine with the card need not have) are made
-unimportable, every module of ``deepcoro_clip_tpu_torch`` and
-``chip_smoke`` is imported, and no ``deepcoro_clip_tpu`` module may have
-been loaded.
+(tests/conftest.py imports it). There ``jax``, ``flax`` and ``optax``
+(and ``yaml``, ``pandas`` and ``cv2``, which the machine with the card
+need not have) are made unimportable, every module of
+``deepcoro_clip_tpu_torch`` and ``chip_smoke`` is imported, and no
+``deepcoro_clip_tpu`` module may have been loaded.
 """
 
 import subprocess
@@ -16,9 +16,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 CHECK = """
 import importlib, pkgutil, sys
-# yaml too: the machine with the card need not have it, and only
-# configs.parse_config may ask for it, inside the call
-for name in ("jax", "jaxlib", "flax", "optax", "yaml"):
+# yaml, pandas and cv2 too: the machine with the card need not have them;
+# only configs.parse_config (yaml) and video_io._decode_container (cv2) may
+# ask for one, inside the call
+for name in ("jax", "jaxlib", "flax", "optax", "yaml", "pandas", "cv2"):
     sys.modules[name] = None  # any import of them now raises ImportError
 import deepcoro_clip_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(deepcoro_clip_tpu_torch.__path__,
@@ -31,7 +32,13 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 for need in ("train.clip", "train.optim", "losses.contrastive", "models.text_encoder",
              "train.linear_probe", "models.mil", "models.attention_pool", "losses.heads",
-             "parallel.mesh", "parallel.ring_attention", "ops._ring_cuda"):
+             "parallel.mesh", "parallel.ring_attention", "ops._ring_cuda",
+             "main", "registry", "projects.base", "projects.contrastive",
+             "runners.common", "runners.contrastive", "train.checkpoint",
+             "train.run_schedules", "data.tokenizer", "data.csv_utils", "data.datasets",
+             "data.collate", "data.sampler", "data.loader", "data.synthetic_angio",
+             "data.randaugment", "utils.retrieval_metrics", "utils.logging_utils",
+             "utils.seed", "utils.files"):
     assert "deepcoro_clip_tpu_torch." + need in mods, need
 print(len(mods))
 """
@@ -41,4 +48,4 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", CHECK], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 32  # every module walked
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 54  # every module walked

@@ -286,3 +286,24 @@ def test_alignment_score_matches_jax(mode):
                                 positive_mask=opt(pos, torch.from_numpy),
                                 sample_mask=opt(sm, torch.from_numpy))
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-5, atol=1e-7)
+
+
+def test_layer_grad_norms_match_jax():
+    """``log_layer_grad_norms``: the step emits one ``grad_norm_video_<name>``
+    per child of the video backbone (``block{i}``, ``patch_embed``, ``cls``,
+    ``norm``, ...), as train/clip.py:446-455 does: the same metric keys as
+    the JAX step, and the same values (rtol 1e-4), over two steps."""
+    pair = Pair(log_layer_grad_norms=True)
+    jm, tm, _, _, _ = pair.run(2)
+    for j, t in zip(jm, tm):
+        assert set(t) == set(j)
+        blocks = sorted(k for k in j if k.startswith("grad_norm_video_")
+                        and k != "grad_norm_video_encoder")
+        assert {"grad_norm_video_block0", "grad_norm_video_patch_embed"} <= set(blocks)
+        for key in blocks:
+            assert t[key] > 0.0, key
+            np.testing.assert_allclose(t[key], j[key], err_msg=key, **SCALAR_TOL)
+    pair.tcfg.log_layer_grad_norms = False  # off: the per-tower norms only
+    bundle, state, step = pair.torch_side()
+    _, m = step(state, tclip.to_device_batch(bundle, pair.batch))
+    assert "grad_norm_video_encoder" in m and "grad_norm_video_block0" not in m
