@@ -31,7 +31,11 @@ Phases, each printing one line (or a few) before the last:
    scaled_dot_product_attention (a yardstick only; the port never calls
    it), K1 with its TFLOP/s; beside each time between CUDA events the
    time the card was busy (device events of a profiler trace), which for a
-   call of microseconds is the smaller by the host's share;
+   call of microseconds is the smaller by the host's share. Every busy time
+   of the script is read by device_ms: each kernel at its mean event time
+   times its launches a call, so that an event the profiler drops does not
+   read as a faster call; it fails when a port kernel the caller names has
+   no event, or one it does not name ran;
 7. backward kernels: dq, dk, dv of the CUDA backward against
    flash_bwd_plain on the card in bf16, at the train step's shapes (the
    video tower at 4 clips) and in one small case of every other mode; two
@@ -164,9 +168,33 @@ Phases, each printing one line (or a few) before the last:
    bars), with times, bound and SDPA's; the step time, clips/s, the
    loader's wait a step, the validation pass and peak memory, each line
    with the card's name and power limit;
+23. the multitask run through the port's main, at
+   config/multitask/multitask_config.yaml (multitask_config() below spells
+   its fields out; data_filename, output_dir, epochs 2 and num_workers are
+   overridden, and printed): phase 22's clips grouped into studies of 2 to
+   4 clips by data/synthetic_angio.write_study_manifest, 2 epochs at batch 8
+   studies x 4 clips with validation (the weighted losses, greedy captions
+   of every validation study with the K/V cache, BLEU, ROUGE-L, METEOR)
+   after each. Every loss finite; the launches of the whole run, counted
+   from 0 just before it, equal 12 K1 / 12 K2 / 22 K3 / 22 K4 a train step
+   (the text tower's 12 layers at L 512, the decoder's 4 causal
+   self-attentions at L 128 under the caption mask and 4 cross-attentions
+   over 4 x 393 video tokens, the aggregator's 2 blocks) and 12 K1 / 22 K3
+   a validation batch, no K5 or K6; the latest and best-loss checkpoints,
+   the captions CSV of each epoch with one row a validation study, the
+   caption metrics in the history. A run stopped after epoch 0 and resumed
+   through main ends bit-equal to the uninterrupted one. A profiler trace
+   of one step shows the tile kernels of K3/K4 and the aggregator's short
+   ones; K3 and K4 at the text tower's [8,12,512,64] with the batch's
+   padding mask, at the decoder's [8,8,128,64] causal with the batch's
+   caption mask and at the cross shape [8,8,128|1572,64] against their
+   plain versions (phase 3's and 7's bars), with times, busy times, bounds
+   and SDPA's; the step time (the run has one step an epoch; 5 more on one
+   batch are timed too), the validation pass, peak memory and the profiled
+   step's busy time, each with the card's name and power limit;
 then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6; K3
 and K4 list their short and tile kernels and carry phase 21's rows; K1 to
-K4 carry phase 22's launches, K3 and K4 its shape).
+K4 carry phase 22's and phase 23's launches, K3 and K4 their shapes).
 
 The last line is {"ok": true, "device": {...}}. Any failing phase exits
 non-zero before it, as does a machine without CUDA.
@@ -315,16 +343,46 @@ def device_events(torch, fn):
     return per_name, wall_ms
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """Mean time the card is busy per call of ``fn``: the summed durations of
-    the device events of ``reps`` calls in a profiler trace. Unlike
-    ``cuda_ms`` it leaves out the gaps in which the card waits for the host,
-    which is most of the time between CUDA events for a call of a few
-    microseconds. 0.0 when the trace holds no device event."""
+def device_ms(torch, fn, reps: int, kernels=()) -> float:
+    """Mean time the card is busy per call of ``fn``, from a profiler trace
+    of ``reps`` calls. Unlike ``cuda_ms`` it leaves out the gaps in which
+    the card waits for the host, which is most of the time between CUDA
+    events for a call of a few microseconds.
+
+    ``kernels`` names (by substring) the port's kernels the call runs. On
+    the H100 machine the profiler now and then traces no device event in a
+    window, or drops one, which would read as a faster call. So each kernel
+    counts at its mean event time times its launches a call (its events
+    over ``reps``, rounded up), and the window is traced again, up to five
+    times, when it is empty, when one of ``kernels`` is missing, or when a
+    kernel's events are not a whole number a call. The check fails when
+    the last trace is empty, misses one of ``kernels``, or holds a port
+    kernel that none of them names."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
     fn()
     torch.cuda.synchronize()
-    per_name, _ = device_events(torch, lambda: [fn() for _ in range(reps)])
-    return sum(per_name.values()) / reps
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = defaultdict(list)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                times[e.name].append(e.time_range.elapsed_us())
+        missing = [k for k in kernels if not any(k in n for n in times)]
+        if times and not missing and all(len(t) % reps == 0 for t in times.values()):
+            break
+    check(bool(times), "busy time: no device event traced in five windows")
+    check(not missing, f"busy time: no event of {missing} in five traces: "
+                       f"{sorted(map(_short_name, times))}")
+    stray = sorted({_short_name(n) for n in times if _short_name(n).startswith(PORT_KERNELS)
+                    and not any(k in n for k in kernels)})
+    check(not stray, f"busy time: port kernel(s) {stray} ran, expected {list(kernels)}")
+    return sum(sum(t) / len(t) * math.ceil(len(t) / reps) for t in times.values()) / 1e3
 
 
 def print_profile(label: str, what: str, per_name, wall_ms: float, top: int) -> None:
@@ -677,13 +735,13 @@ def phase_times(torch, engine, x, m, errs, launches):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
 
-    def timed(kern, plain, library, flops, nbytes):
+    def timed(kern, plain, library, flops, nbytes, kernels):
         b_ms, b_by = bound(flops, nbytes)
         return {"ms": cuda_ms(torch, kern, REPS),
                 "plain_ms": cuda_ms(torch, plain, REPS // 5),
                 "library_ms": cuda_ms(torch, library, REPS),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "device_ms": device_ms(torch, kern, REPS),
+                "device_ms": device_ms(torch, kern, REPS, kernels),
                 "library_device_ms": device_ms(torch, library, REPS)}
 
     k1_shapes = []
@@ -702,7 +760,7 @@ def phase_times(torch, engine, x, m, errs, launches):
             lambda: multi_head_attention(*heads, sin=sin, cos=cos),
             # yardstick: SDPA on pre-rotated q/k (RoPE not included)
             lambda: F.scaled_dot_product_attention(qr, kr, heads[2]),
-            flops, nbytes)
+            flops, nbytes, ("flash_fwd_sm90_kernel",))
         row["shape"] = f"qkv [{B},{L},{3 * D}] bf16, H {H}, Dh {Dh}, RoPE"
         row["tflops"] = flops / row["ms"] / 1e9
         k1_shapes.append(row)
@@ -717,7 +775,8 @@ def phase_times(torch, engine, x, m, errs, launches):
                lambda: multi_head_attention(q3, k3, v3, kv_mask=m3),
                lambda: F.scaled_dot_product_attention(
                    q3, k3, v3, attn_mask=m3[:, None, None, :]),
-               4 * B * H * L * L * Dh, 4 * B * H * L * Dh * 2 + B * L)
+               4 * B * H * L * L * Dh, 4 * B * H * L * Dh * 2 + B * L,
+               ("flash_short_fwd_bf16_kernel",))
     k3_row["shape"] = "q/k/v [4,8,10,64] bf16, kv_mask [4,10]"
 
     for name, rows in (("K1", k1_shapes), ("K3", [k3_row])):
@@ -1161,7 +1220,8 @@ def phase_train_times(torch, errs, counts, routes):
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
-    def timed(out, leaves, do, plain, sdpa_out, sdpa_leaves, sdpa_do, flops, nbytes):
+    def timed(out, leaves, do, plain, sdpa_out, sdpa_leaves, sdpa_do, flops, nbytes,
+              kernels):
         b_ms, b_by = bound(flops, nbytes)
         return {
             "ms": cuda_ms(torch, lambda: torch.autograd.grad(
@@ -1171,7 +1231,7 @@ def phase_train_times(torch, errs, counts, routes):
                 sdpa_out, sdpa_leaves, sdpa_do, retain_graph=True), REPS),
             "bound_ms": b_ms, "bound_by": b_by,
             "device_ms": device_ms(torch, lambda: torch.autograd.grad(
-                out, leaves, do, retain_graph=True), REPS),
+                out, leaves, do, retain_graph=True), REPS, kernels),
             "library_device_ms": device_ms(torch, lambda: torch.autograd.grad(
                 sdpa_out, sdpa_leaves, sdpa_do, retain_graph=True), REPS)}
 
@@ -1198,7 +1258,7 @@ def phase_train_times(torch, errs, counts, routes):
         row = timed(out, [leaf], do,
                     lambda: flash_bwd_plain(*heads, doh, outh, sin=sin, cos=cos),
                     sout, sq, doh, 10 * B * H * L * L * Dh,
-                    8 * B * L * D * 2 + 2 * L * Dh * 4)
+                    8 * B * L * D * 2 + 2 * L * Dh * 4, K2_KERNELS)
         row["shape"] = f"qkv [{B},{L},{3 * D}] bf16, H {H}, Dh {Dh}, RoPE"
         rows_k2.append(row)
         del qkv, do, leaf, out, heads, doh, outh, sq, sout
@@ -1215,7 +1275,8 @@ def phase_train_times(torch, errs, counts, routes):
     sout = F.scaled_dot_product_attention(*sq, attn_mask=mask[:, None, None, :])
     row = timed(out, leaves, do,
                 lambda: flash_bwd_plain(*heads, doh, outh, kv_mask=mask),
-                sout, sq, doh, 10 * B * H * L * L * Dh, 8 * B * L * D * 2 + B * L)
+                sout, sq, doh, 10 * B * H * L * L * Dh, 8 * B * L * D * 2 + B * L,
+                K2_KERNELS)
     row["shape"] = f"q/k/v [{B},{L},{D}] bf16, H {H}, Dh {Dh}, kv_mask"
     rows_k2.append(row)
     with torch.no_grad():
@@ -1230,7 +1291,7 @@ def phase_train_times(torch, errs, counts, routes):
                 *heads, attn_mask=mask[:, None, None, :]), REPS),
             "bound_ms": b_ms, "bound_by": b_by,
             "device_ms": device_ms(torch, lambda: flash_attention_packed(
-                q, k, v, num_heads=H, kv_mask=mask), REPS),
+                q, k, v, num_heads=H, kv_mask=mask), REPS, ("flash_fwd_sm90_kernel",)),
             "library_device_ms": device_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     *heads, attn_mask=mask[:, None, None, :]), REPS)}
@@ -1248,7 +1309,8 @@ def phase_train_times(torch, errs, counts, routes):
     sout = F.scaled_dot_product_attention(*sq, attn_mask=m4[:, None, None, :])
     row_k4 = timed(out, leaves, do4,
                    lambda: flash_bwd_plain(q4, k4, v4, do4, out.detach(), kv_mask=m4),
-                   sout, sq, do4, 10 * B * H * L * L * Dh, 8 * B * H * L * Dh * 2 + B * L)
+                   sout, sq, do4, 10 * B * H * L * L * Dh, 8 * B * H * L * Dh * 2 + B * L,
+                   ("flash_short_bwd_bf16_kernel",))
     row_k4["shape"] = "q/k/v [8,8,4,64] bf16, kv_mask [8,4]"
 
     for name, rows in (("K2 backward", rows_k2), ("K1 forward (text)", [k1_text]),
@@ -1878,8 +1940,9 @@ def phase_probe_times(torch, errs, counts, partial_counts):
                    "plain_ms": cuda_ms(torch, plain, max(1, REPS // 5)),
                    "library_ms": cuda_ms(torch, library, REPS),
                    "bound_ms": b_ms, "bound_by": b_by,
-                   "device_ms": device_ms(torch, fused, REPS),
-                   "unfused_device_ms": device_ms(torch, unfused, REPS),
+                   "device_ms": device_ms(torch, fused, REPS, ("flash_fwd_proj_kernel",)),
+                   "unfused_device_ms": device_ms(torch, unfused, REPS,
+                                                  ("flash_fwd_sm90_kernel",)),
                    "library_device_ms": device_ms(torch, library, REPS)}
             # the outputs that were timed, against each other
             row["max_abs_err"] = check_forward(
@@ -1936,14 +1999,14 @@ def phase_probe_times(torch, errs, counts, partial_counts):
                                   max(1, REPS // 5)),
               "library_ms": cuda_ms(torch, fwd_lib, REPS),
               "bound_ms": f_ms, "bound_by": f_by,
-              "device_ms": device_ms(torch, fwd, REPS),
+              "device_ms": device_ms(torch, fwd, REPS, ("flash_short_fwd_f32_kernel",)),
               "library_device_ms": device_ms(torch, fwd_lib, REPS)}
     row_k4 = {"shape": shape, "ms": cuda_ms(torch, bwd, REPS),
               "plain_ms": cuda_ms(torch, lambda: flash_bwd_plain(
                   q, k, v, do, out.detach(), kv_mask=mask), max(1, REPS // 5)),
               "library_ms": cuda_ms(torch, bwd_lib, REPS),
               "bound_ms": g_ms, "bound_by": g_by,
-              "device_ms": device_ms(torch, bwd, REPS),
+              "device_ms": device_ms(torch, bwd, REPS, ("flash_short_bwd_f32_kernel",)),
               "library_device_ms": device_ms(torch, bwd_lib, REPS)}
     for name, r in (("K3 forward", row_k3), ("K4 backward", row_k4)):
         print(f"probing times: {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -2158,7 +2221,7 @@ def phase_ring_times(torch, ring) -> dict:
                    "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                        q, k, v), REPS),
                    "bound_ms": b_ms, "bound_by": b_by,
-                   "device_ms": device_ms(torch, kern, REPS),
+                   "device_ms": device_ms(torch, kern, REPS, ("ring_step_sm90_kernel",)),
                    "library_device_ms": device_ms(
                        torch, lambda: F.scaled_dot_product_attention(q, k, v), REPS),
                    "copy_ms": copy_ms, "copy_overlap": overlap}
@@ -2672,9 +2735,10 @@ def phase_host(torch) -> list:
                                                     kind.startswith("K4"))})
             calls.append(fn)
     for r, fn in zip(rows, calls):  # the profiler, last
-        r["busy_ms"] = device_ms(torch, fn, REPS)
         r["kernels"] = _launches(torch, fn)
         r["kernels_per_call"] = len(r["kernels"])
+        r["busy_ms"] = device_ms(torch, fn, REPS, tuple(
+            n for n in r["kernels"] if n.startswith(PORT_KERNELS)))
     # the host's enqueue again, now that the profiler has run in this process
     for r, fn in zip(rows, calls):
         r["host_us_after_profiler"] = host_us(torch, fn)
@@ -2759,6 +2823,10 @@ def _launches(torch, fn, calls: int = 10) -> list:
 # the port's own kernels, by their short names: each runs once a launch its
 # wrapper counts
 PORT_KERNELS = ("flash_", "bwd_rows_", "ring_")
+# K2's row pre-pass and two Hopper kernels; K3's and K4's tile kernels (L > 64)
+K2_KERNELS = ("bwd_rows_kernel", "flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel")
+TILE_FWD = ("flash_fwd_kernel",)
+TILE_BWD = ("bwd_rows_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 
 
 def _short_name(name: str) -> str:
@@ -2857,80 +2925,99 @@ def _quality_runs(torch, tmp: Path, manifest: Path):
     return full, cut, resumed, counts, wall, peak_gib
 
 
-def _quality_attention(torch, mask):
-    """K3 and K4 at the text tower's [16,12,128,64] bf16 with the corpus
-    reports' padding mask, against their plain versions (phase 3's and
-    phase 7's bars), with their times, bounds and SDPA's."""
+def _attention_rows(torch, label: str, cases, seed: int):
+    """K3 and K4 on the tile kernels at a main path's [B,H,Lq|Lk,64] bf16
+    calls, against their plain versions (phase 3's and phase 7's bars),
+    with their times, busy times, bounds and SDPA's. ``cases``: (what, B,
+    H, Lq, Lk, mask, causal), ``mask`` the batch's own [B, Lk] key mask as
+    the path hands it to the kernel, or None. q/k/v and dO are strided
+    views of [B, L, H * 64] projections, as the layers hand them over.
+    Returns (K3 rows, K4 rows)."""
     import torch.nn.functional as F
 
     from deepcoro_clip_tpu_torch.ops.attention import flash_bwd_plain, multi_head_attention
     from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(22)
-    B, H, L, Dh = 16, 12, 128, 64
-    shape = f"[{B},{H},{L},{Dh}] bf16, the corpus reports' padding mask"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Dh = 64
+    rows_f, rows_b = [], []
+    for what, B, H, L, Lk, mask, causal in cases:
 
-    def randn(*s):
-        return torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+        def heads(n):
+            t = torch.randn(B, n, H * Dh, generator=g, device=dev).to(torch.bfloat16)
+            return t.reshape(B, n, H, Dh).transpose(1, 2)
 
-    q, k, v = randn(B, H, L, Dh), randn(B, H, L, Dh), randn(B, H, L, Dh)
-    do = randn(B, L, H, Dh).transpose(1, 2)  # the layout the text layer hands back
-    with torch.no_grad():
-        err_f = check_forward(torch, "quality attention", f"K3 {shape}",
-                              flash_attention(q, k, v, kv_mask=mask),
-                              multi_head_attention(q, k, v, kv_mask=mask))
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = flash_attention(*leaves, kv_mask=mask)
-    got = torch.autograd.grad(out, leaves, do, retain_graph=True)
-    err_f = max(err_f, check_forward(torch, "quality attention",
-                                     f"K3 {shape}, statistics written", out.detach(),
-                                     multi_head_attention(q, k, v, kv_mask=mask)))
-    ref = flash_bwd_plain(q, k, v, do, out.detach(), kv_mask=mask)
-    err_b = max(_rel_check(f"K4 {shape}", w, a, r)
-                for w, a, r in zip(("dq", "dk", "dv"), got, ref))
-    print(f"quality attention: K4 {shape}: max|kernel-plain| {err_b:.3e} (bars: max|d| <= "
-          f"{BWD_MAX_REL} max|plain|, rel l2 <= {BWD_L2_REL}) ok", flush=True)
+        q, k, v, do = heads(L), heads(Lk), heads(Lk), heads(L)
+        m = None if mask is None else mask.bool()
+        kw, pkw = dict(kv_mask=mask, causal=causal), dict(kv_mask=m, causal=causal)
+        shape = f"[{B},{H},{L}{'' if Lk == L else f'|{Lk}'},{Dh}] bf16, {what}"
+        with torch.no_grad():
+            err_f = check_forward(torch, label, f"K3 {shape}", flash_attention(q, k, v, **kw),
+                                  multi_head_attention(q, k, v, **pkw))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, **kw)
+        got = torch.autograd.grad(out, leaves, do, retain_graph=True)
+        err_f = max(err_f, check_forward(torch, label, f"K3 {shape}, statistics written",
+                                         out.detach(), multi_head_attention(q, k, v, **pkw)))
+        ref = flash_bwd_plain(q, k, v, do, out.detach(), **pkw)
+        err_b = max(_rel_check(f"K4 {shape}", w, a, r)
+                    for w, a, r in zip(("dq", "dk", "dv"), got, ref))
+        print(f"{label}: K4 {shape}: max|kernel-plain| {err_b:.3e} (bars: max|d| <= "
+              f"{BWD_MAX_REL} max|plain|, rel l2 <= {BWD_L2_REL}) ok", flush=True)
 
-    am = mask[:, None, None, :]
-    sq = [t.clone().requires_grad_() for t in (q, k, v)]
-    sout = F.scaled_dot_product_attention(*sq, attn_mask=am)
-    # what this run's data needs: the real keys of each row. K and V are read
-    # at those keys alone; Q, O and dO are read, and O, dQ, dK and dV written,
-    # whole (dK and dV are 0 at a padded key); the mask once.
-    keys = float(mask.sum())
-    whole = B * H * L * Dh * 2  # one bf16 [B, H, L, Dh] tensor
-    kv = 2 * keys * H * Dh * 2
-    b_fwd = bound(4 * keys * H * L * Dh, 2 * whole + kv + B * L)
-    b_bwd = bound(10 * keys * H * L * Dh, 6 * whole + kv + B * L)
-    with torch.no_grad():
-        row_k3 = {"shape": shape,
-                  "ms": cuda_ms(torch, lambda: flash_attention(q, k, v, kv_mask=mask), REPS),
-                  "plain_ms": cuda_ms(torch, lambda: multi_head_attention(
-                      q, k, v, kv_mask=mask), max(1, REPS // 5)),
-                  "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                      q, k, v, attn_mask=am), REPS),
-                  "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
-                  "device_ms": device_ms(torch, lambda: flash_attention(
-                      q, k, v, kv_mask=mask), REPS),
-                  "max_abs_err": err_f}
-    row_k4 = {"shape": shape,
-              "ms": cuda_ms(torch, lambda: torch.autograd.grad(
-                  out, leaves, do, retain_graph=True), REPS),
-              "plain_ms": cuda_ms(torch, lambda: flash_bwd_plain(
-                  q, k, v, do, out.detach(), kv_mask=mask), max(1, REPS // 5)),
-              "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
-                  sout, sq, do, retain_graph=True), REPS),
-              "bound_ms": b_bwd[0], "bound_by": b_bwd[1],
-              "device_ms": device_ms(torch, lambda: torch.autograd.grad(
-                  out, leaves, do, retain_graph=True), REPS),
-              "max_abs_err": err_b}
-    for name, r in (("K3 forward", row_k3), ("K4 backward", row_k4)):
-        print(f"quality attention: {name} {shape}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {int(mask.sum())} real keys of "
-              f"{B * L}); card busy {r['device_ms']:.4f} ms | {CARD}", flush=True)
-    return row_k3, row_k4
+        # what this run's data needs: the (query, key) pairs the mask and
+        # causality leave; Q, dO read and O, dQ, dK, dV written whole (O read
+        # again by the backward), K and V read at the real keys, the mask once
+        allowed = torch.ones(B, L, Lk, dtype=torch.bool, device=dev)
+        if m is not None:
+            allowed &= m[:, None, :]
+        if causal:
+            allowed &= torch.ones(L, Lk, dtype=torch.bool, device=dev).tril()
+        pairs = float(allowed.sum()) * H
+        keys = float(B * Lk if m is None else m.sum())
+        q_bytes = B * H * L * Dh * 2
+        kv = 2 * keys * H * Dh * 2
+        extra = 0 if m is None else B * Lk
+        b_fwd = bound(4 * pairs * Dh, 2 * q_bytes + kv + extra)
+        b_bwd = bound(10 * pairs * Dh, 4 * q_bytes + kv + 2 * B * H * Lk * Dh * 2 + extra)
+        am = allowed[:, None] if m is not None or causal else None
+        sq = [t.detach().requires_grad_() for t in (q, k, v)]
+        sout = F.scaled_dot_product_attention(*sq, attn_mask=am)
+        with torch.no_grad():
+            rows_f.append({
+                "shape": shape,
+                "ms": cuda_ms(torch, lambda: flash_attention(q, k, v, **kw), REPS),
+                "plain_ms": cuda_ms(torch, lambda: multi_head_attention(q, k, v, **pkw),
+                                    max(1, REPS // 5)),
+                "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=am), REPS),
+                "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
+                "device_ms": device_ms(torch, lambda: flash_attention(q, k, v, **kw), REPS,
+                                       TILE_FWD),
+                "max_abs_err": err_f})
+        rows_b.append({
+            "shape": shape,
+            "ms": cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, do,
+                                                             retain_graph=True), REPS),
+            "plain_ms": cuda_ms(torch, lambda: flash_bwd_plain(q, k, v, do, out.detach(),
+                                                               **pkw), max(1, REPS // 5)),
+            "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(sout, sq, do,
+                                                                     retain_graph=True),
+                                  REPS),
+            "bound_ms": b_bwd[0], "bound_by": b_bwd[1],
+            "device_ms": device_ms(torch, lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True), REPS, TILE_BWD),
+            "max_abs_err": err_b})
+        for name, r in (("K3 forward", rows_f[-1]), ("K4 backward", rows_b[-1])):
+            print(f"{label}: {name} {shape}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {pairs:.0f} (q, k) pairs over "
+                  f"the heads, {keys:.0f} real keys of {B * Lk}); card busy "
+                  f"{r['device_ms']:.4f} ms | {CARD}", flush=True)
+        del q, k, v, do, leaves, out, got, ref, sq, sout, allowed, am
+        torch.cuda.empty_cache()
+    return rows_f, rows_b
 
 
 def _aggregator_attention(torch, vmask):
@@ -2963,23 +3050,31 @@ def _aggregator_attention(torch, vmask):
     return err_f, err_b
 
 
-def phase_quality_run(torch) -> dict:
-    """Phase 22; returns {"K1".."K4": launches of the run, "rows": (K3 row,
-    K4 row) of the text tower's call, "aggregator_max_abs_err": (K3, K4) at
-    the aggregator's call, "times": ...}."""
-    import dataclasses
-
+def render_corpus(root: Path) -> Path:
+    """The corpus of phases 22 and 23: QUALITY_TRAIN + QUALITY_VAL clips of
+    16x224x224 by synthetic_angio.generate_corpus (seed 0); returns its
+    manifest."""
     from deepcoro_clip_tpu_torch.data.synthetic_angio import generate_corpus
+
+    t0 = time.perf_counter()
+    manifest = generate_corpus(root / "corpus", n_train=QUALITY_TRAIN, n_val=QUALITY_VAL,
+                               size=224, frames=16, seed=0)
+    print(f"quality run: corpus of {QUALITY_TRAIN} train + {QUALITY_VAL} val clips "
+          f"16x224x224 (synthetic_angio, seed 0) rendered in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return manifest
+
+
+def phase_quality_run(torch, manifest: Path) -> dict:
+    """Phase 22 on the corpus of ``manifest`` (``render_corpus``); returns
+    {"K1".."K4": launches of the run, "rows": (K3 row, K4 row) of the text
+    tower's call, "aggregator_max_abs_err": (K3, K4) at the aggregator's
+    call, "times": ...}."""
+    from deepcoro_clip_tpu_torch.runners.common import batch_to_device
     from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
 
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = Path(tmp_name)
-        t0 = time.perf_counter()
-        manifest = generate_corpus(tmp / "corpus", n_train=QUALITY_TRAIN, n_val=QUALITY_VAL,
-                                   size=224, frames=16, seed=0)
-        print(f"quality run: corpus of {QUALITY_TRAIN} train + {QUALITY_VAL} val clips "
-              f"16x224x224 (synthetic_angio, seed 0) rendered in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
         full, cut, resumed, counts, wall, peak_gib = _quality_runs(torch, tmp, manifest)
         hist = full["history"]
         steps = QUALITY_TRAIN // 16
@@ -3072,7 +3167,7 @@ def phase_quality_run(torch) -> dict:
         cfg = quality_train_config(data_filename=str(manifest), output_dir=str(tmp / "trace"),
                                    epochs=2, num_workers=QUALITY_WORKERS)
         runner = VideoContrastiveLearningRunner(cfg, output_dir=tmp / "trace")
-        batch = runner._to_device(next(iter(runner.loaders["train"])))
+        batch = batch_to_device(next(iter(runner.loaders["train"])), runner.device)
         args = (batch, runner.generator, 0.0, 0.0, -1.0)
         runner.train_step(runner.state, *args)  # warm
         per_name, wall_ms = device_events(torch, lambda: runner.train_step(runner.state, *args))
@@ -3094,9 +3189,252 @@ def phase_quality_run(torch) -> dict:
         vmask = batch["video_mask"]
         del runner, batch, args
         torch.cuda.empty_cache()
-        rows = _quality_attention(torch, mask)
+        B, L = mask.shape
+        rows = tuple(r[0] for r in _attention_rows(
+            torch, "quality attention",
+            [("the corpus reports' padding mask", B, 12, L, L, mask, False)], seed=22))
         agg = _aggregator_attention(torch, vmask)
     return {**counts, "rows": rows, "aggregator_max_abs_err": agg, "times": times}
+
+
+# --------------------------------------------------------------------------- #
+# phase 23: the multitask run through main, at config/multitask/multitask_config.yaml,
+# on phase 22's corpus grouped into studies
+
+MT_BATCH = 8  # studies a batch, 4 clips each
+MT_TIMED_STEPS = 5
+# launches per train step and per validation batch: K1 / K2 in the 12 video
+# blocks; K3 / K4 in the 12 text layers (L 512), the decoder's 4 causal
+# self-attentions (L 128, the captions' padding mask) and 4 cross-attentions
+# (128 queries over 4 x 393 video tokens), all on the tile kernels, and the
+# aggregator's 2 blocks (L 4, the short kernels). Caption generation is
+# plain torch (no kernel); the MVM decoder runs the plain attention.
+MT_PER_STEP = {"K1": 12, "K2": 12, "K3": 22, "K4": 22, "K5": 0, "K6": 0}
+MT_PER_VAL = {"K1": 12, "K2": 0, "K3": 22, "K4": 0, "K5": 0, "K6": 0}
+
+
+def multitask_config(**over):
+    """config/multitask/multitask_config.yaml, field by field (a CPU test
+    holds this dict equal to the YAML as the port's parser reads it)."""
+    from deepcoro_clip_tpu_torch.configs import MultitaskConfig
+
+    d = dict(
+        pipeline_project="DeepCORO_multitask", run_mode="train", epochs=30, num_workers=8,
+        seed=42, data_filename="data/reports.csv", target_label="Report",
+        datapoint_loc_label="FileName", frames=16, stride=2, resize=224, batch_size=8,
+        multi_video=True, num_videos=4, max_text_length=512, model_name="mvit",
+        vit_dim=512, vit_depth=12, vit_heads=4, vit_patch=[2, 16, 16], vit_pool_stages=[3],
+        use_cls_token=True, embedding_dim=512, num_heads=8, aggregator_depth=2,
+        dropout=0.1, decoder_dim=512, decoder_depth=4, decoder_heads=8,
+        decoder_max_length=128, caption_label_smoothing=0.1, locca_enabled=True,
+        locca_weight=0.5, captioning_lr=0.0001, mvm_lr=0.0001, mask_ratio=0.75,
+        mvm_decoder_dim=256, mvm_decoder_depth=2,
+        loss_weights={"contrastive": 1.0, "captioning": 1.0, "mvm": 1.0},
+        optimizer="AdamW", scheduler_name="cosine_with_warmup", lr=0.0001,
+        text_lr=0.00002, temperature=0.0588, precision="bf16", use_pallas_attention=True,
+        use_wandb=False,
+    )
+    d.update(over)
+    return MultitaskConfig.from_dict(d)
+
+
+def _study_counts(manifest: Path) -> dict:
+    """Studies per split of a study manifest."""
+    from deepcoro_clip_tpu_torch.data.csv_utils import read_csv_with_fallback
+
+    table = read_csv_with_fallback(manifest)
+    out: dict = {}
+    for r in table.rows:
+        out.setdefault(r["Split"], set()).add(r["StudyInstanceUID"])
+    return {k: len(v) for k, v in out.items()}
+
+
+def _multitask_runs(torch, tmp: Path, manifest: Path):
+    """The uninterrupted run (counted, timed), a run stopped after epoch 0
+    and its resumption, each through main(config=...)."""
+    from deepcoro_clip_tpu_torch.main import main
+    from deepcoro_clip_tpu_torch.runners import multitask as runner_mod
+
+    def cfg(name, **over):
+        return multitask_config(data_filename=str(manifest), output_dir=str(tmp / name),
+                                epochs=2, num_workers=QUALITY_WORKERS, **over)
+
+    print(f"multitask run: config/multitask/multitask_config.yaml with data_filename="
+          f"{manifest.name} (the corpus grouped into studies), output_dir=<tmp>, "
+          f"epochs=2, num_workers={QUALITY_WORKERS}; nothing else changed", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    full = main(config=cfg("full"))
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    train = runner_mod.MultitaskRunner.train
+    runner_mod.MultitaskRunner.train = (
+        lambda self, start_epoch=0, end_epoch=None: train(self, start_epoch, 1))
+    try:  # stopped after epoch 0, as a killed run would stop
+        cut = main(config=cfg("cut"))
+    finally:
+        runner_mod.MultitaskRunner.train = train
+    resumed = main(config=cfg("cut", resume_training=True, checkpoint=cut["output_dir"]))
+    return full, cut, resumed, counts, wall, peak_gib
+
+
+def phase_multitask_run(torch, manifest: Path) -> dict:
+    """Phase 23 on phase 22's corpus (``manifest``, grouped into studies of
+    2 to 4 clips); returns {"counts": launches of the run, "rows": (K3 rows,
+    K4 rows) at the text tower's and the decoder's shapes, "times": ...}."""
+    from deepcoro_clip_tpu_torch.data.synthetic_angio import write_study_manifest
+    from deepcoro_clip_tpu_torch.runners.common import batch_to_device
+    from deepcoro_clip_tpu_torch.runners.multitask import MultitaskRunner
+
+    studies = write_study_manifest(manifest.parent, seed=0)
+    n = _study_counts(studies)
+    steps = n["train"] // MT_BATCH
+    val_batches = -(-n["val"] // MT_BATCH)
+    print(f"multitask run: {n['train']} train and {n['val']} val studies of 2 to 4 clips "
+          f"(write_study_manifest, group seed 1234): {steps} steps and {val_batches} "
+          "validation batch(es) an epoch", flush=True)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        full, cut, resumed, counts, wall, peak_gib = _multitask_runs(torch, tmp, studies)
+        hist = full["history"]
+        for h in hist:
+            print(f"multitask run: epoch {h['epoch']}: train loss {h['loss']:.4f} "
+                  f"(contrastive {h['loss_contrastive']:.4f}, captioning "
+                  f"{h['loss_captioning']:.4f}, mvm {h['loss_mvm']:.4f}), val loss "
+                  f"{h['val_loss']:.4f}, BLEU-1 {h['val_bleu1']:.4f} BLEU-4 "
+                  f"{h['val_bleu4']:.4f} ROUGE-L {h['val_rouge_l']:.4f} METEOR "
+                  f"{h['val_meteor']:.4f}, temperature {h['temperature']:.5f}, lr "
+                  f"{h['lr']:.2e}", flush=True)
+        loss_keys = ("loss", "loss_contrastive", "loss_captioning", "loss_mvm", "val_loss")
+        check(all(math.isfinite(h[k]) for h in hist + resumed["history"] for k in loss_keys),
+              f"non-finite loss in {hist}")
+        check(len(hist) == 2, f"{len(hist)} epochs in the history")
+        want = {k: 2 * (MT_PER_STEP[k] * steps + MT_PER_VAL[k] * val_batches)
+                for k in MT_PER_STEP}
+        print(f"multitask run: launches over 2 x {steps} train steps and 2 x {val_batches} "
+              "validation batch(es): " + ", ".join(f"{k} {counts[k]} (expected {want[k]})"
+                                                   for k in want)
+              + "; per train step K1 12, K2 12, K3 22, K4 22", flush=True)
+        check(counts == want, f"launches {counts}, expected {want}")
+
+        run = Path(full["output_dir"])
+        ck = sorted(p.name for p in (run / "checkpoints").iterdir())
+        print(f"multitask run: checkpoints {ck}", flush=True)
+        for prefix in ("checkpoint.", "best_model_epoch_"):
+            kind = [c for c in ck if c.startswith(prefix)]
+            check(sorted(Path(c).suffix for c in kind) == [".json", ".pt"],
+                  f"checkpoint files {prefix}*: {kind} (one .pt and its .json)")
+        meta = json.loads((run / "checkpoints" / "checkpoint.json").read_text())
+        check(meta["epoch"] == 1 and meta["global_step"] == 2 * steps,
+              f"checkpoint meta {meta}")
+        metric_keys = {"val_bleu1", "val_bleu2", "val_bleu3", "val_bleu4", "val_rouge_l",
+                       "val_meteor", "val_seconds", "loader_wait_ms", "epoch_seconds"}
+        check(metric_keys <= set(hist[0]), f"history keys missing: {metric_keys - set(hist[0])}")
+        for epoch in (0, 1):
+            caps = (run / "val" / f"captions_epoch_{epoch}.csv").read_text().splitlines()
+            check(caps[0] == "generated,reference" and len(caps) == 1 + n["val"],
+                  f"captions_epoch_{epoch}.csv: {len(caps) - 1} rows for {n['val']} studies")
+        print(f"multitask run: captions of epoch 1, first study: {caps[1][:150]!r}", flush=True)
+
+        a = torch.load(run / "checkpoints" / "checkpoint.pt", weights_only=True)
+        b = torch.load(Path(resumed["output_dir"]) / "checkpoints" / "checkpoint.pt",
+                       weights_only=True)
+        differ = [k for k in a["params"] if not torch.equal(a["params"][k], b["params"][k])]
+        l_full, l_res = hist[1]["loss"], resumed["history"][0]["loss"]
+        print(f"multitask run: resume from epoch 0's checkpoint: epoch-1 train loss "
+              f"{l_res!r} vs {l_full!r} uninterrupted, val loss "
+              f"{resumed['history'][0]['val_loss']!r} vs {hist[1]['val_loss']!r}; "
+              f"{len(differ)} of {len(a['params'])} parameter tensors differ "
+              "(tolerance: none, bit-equal)", flush=True)
+        check([h["epoch"] for h in cut["history"]] == [0]
+              and [h["epoch"] for h in resumed["history"]] == [1],
+              "the cut run or the resumed run ran the wrong epochs")
+        check(l_res == l_full and not differ and a["step"] == b["step"]
+              and torch.equal(a["generator"], b["generator"]),
+              f"the resumed run differs: loss {l_res} vs {l_full}, params {differ[:5]}")
+
+        h = hist[1]
+        step_ms = h["epoch_seconds"] * 1e3 / steps
+        times = {"step_ms": step_ms, "studies_per_s": MT_BATCH * steps / h["epoch_seconds"],
+                 "loader_wait_ms": h["loader_wait_ms"], "validate_s": h["val_seconds"],
+                 "peak_gib": peak_gib, "run_s": wall,
+                 "epoch0_seconds": hist[0]["epoch_seconds"]}
+        print(f"multitask run: step {step_ms:.1f} ms (host clock, epoch 1: "
+              f"{h['epoch_seconds']:.3f} s over {steps} steps), "
+              f"{times['studies_per_s']:.2f} studies/s, loader wait "
+              f"{h['loader_wait_ms']:.2f} ms a step | {CARD}", flush=True)
+        print(f"multitask run: validation pass {h['val_seconds']:.3f} s ({n['val']} studies: "
+              f"the forward, {min(32, 128)}-token greedy captions with the K/V cache, "
+              f"metrics) | {CARD}", flush=True)
+        print(f"multitask run: peak memory {peak_gib:.2f} GiB (torch.cuda.max_memory_allocated);"
+              f" main took {wall:.1f} s (epoch 0 {hist[0]['epoch_seconds']:.2f} s with "
+              f"first-call set-up) | {CARD}", flush=True)
+
+        # one step traced, and K3/K4 at the text tower's and the decoder's shapes on
+        # this batch's masks
+        cfg = multitask_config(data_filename=str(studies), output_dir=str(tmp / "trace"),
+                               epochs=2, num_workers=QUALITY_WORKERS)
+        runner = MultitaskRunner(cfg, output_dir=tmp / "trace")
+        times["parameters"] = sum(p.numel() for p in runner.state.params.values())
+        print(f"multitask run: {times['parameters']} parameters (video, text, decoder, MVM, "
+              "log_temp)", flush=True)
+        batch = batch_to_device(next(iter(runner.loaders["train"])), runner.device)
+        args = (batch, runner.generator, 1.0, 1.0, 1.0, 0.0, 0.0, -1.0)
+        runner.train_step(runner.state, *args)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MT_TIMED_STEPS):  # the run has one step an epoch: time a few more
+            runner.train_step(runner.state, *args)
+        torch.cuda.synchronize()
+        times["step_ms_same_batch"] = (time.perf_counter() - t0) * 1e3 / MT_TIMED_STEPS
+        print(f"multitask run: {MT_TIMED_STEPS} more steps on one batch (no loader): "
+              f"{times['step_ms_same_batch']:.1f} ms a step (host clock, synchronised) | "
+              f"{CARD}", flush=True)
+        per_name, wall_ms = device_events(torch, lambda: runner.train_step(runner.state,
+                                                                          *args))
+        print_profile("multitask profile", "one train step at the multitask recipe",
+                      per_name, wall_ms, top=16)
+        times["busy_ms"] = sum(per_name.values())
+        times["profiled_step_ms"] = wall_ms
+        tile = ("flash_fwd_kernel<", "bwd_rows_kernel", "flash_bwd_dkv_kernel<",
+                "flash_bwd_dq_kernel<")
+        times["tile_k3_k4_busy_ms"] = sum(ms for name, ms in per_name.items()
+                                          if any(t in name for t in tile))
+        print(f"multitask profile: the tile kernels of K3/K4 (text L 512, decoder self "
+              f"and cross) busy {times['tile_k3_k4_busy_ms']:.3f} ms of the step's "
+              f"{times['busy_ms']:.2f} | {CARD}", flush=True)
+        check_main_path_kernels(
+            "multitask profile, K3 and K4 on the tile kernels (text L 512, decoder L 128 "
+            "causal, cross 128|1572)", per_name,
+            ("flash_fwd_kernel<", "bwd_rows_kernel", "flash_bwd_dkv_kernel<",
+             "flash_bwd_dq_kernel<"), ())
+        check_main_path_kernels(
+            "multitask profile, the aggregator's K3 and K4 (L 4) and K1, K2", per_name,
+            ("flash_short_fwd_bf16_kernel", "flash_short_bwd_bf16_kernel",
+             "flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel"),
+            ("ring_step", "flash_fwd_proj"))
+        text_mask, cap_mask = batch["attention_mask"], batch["caption_mask"]
+        n_tok = runner.bundle.mvm.pos_emb.shape[1] * cfg.num_videos
+        for what, m in (("text", text_mask), ("caption", cap_mask)):
+            print(f"multitask attention: the {what} mask [{m.shape[0]},{m.shape[1]}]: "
+                  f"{int(m.sum())} real tokens of {m.numel()} (shortest "
+                  f"{int(m.sum(1).min())}, longest {int(m.sum(1).max())})", flush=True)
+        print(f"multitask attention: {n_tok} video tokens a study", flush=True)
+        del runner, batch, args
+        torch.cuda.empty_cache()
+        B, L = cap_mask.shape
+        rows = _attention_rows(torch, "multitask attention", [
+            ("the text tower, the reports' padding mask", B, cfg.text_heads,
+             text_mask.shape[1], text_mask.shape[1], text_mask, False),
+            ("the decoder's causal self-attention, the captions' padding mask", B,
+             cfg.decoder_heads, L, L, cap_mask, True),
+            ("the decoder's cross-attention over the video tokens, no mask", B,
+             cfg.decoder_heads, L, n_tok, None, False)], seed=23)
+    return {"counts": counts, "rows": rows, "times": times}
 
 
 def main(argv) -> int:
@@ -3141,7 +3479,7 @@ def main(argv) -> int:
 
 
 def run_all(torch) -> dict:
-    """Phases 2 to 22; returns the "kernels" line."""
+    """Phases 2 to 23; returns the "kernels" line."""
     build_kernels(torch, ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short",
                           "ring_attention"))
     for key, a in hopper_attrs().items():
@@ -3226,14 +3564,30 @@ def run_all(torch) -> dict:
         e["host"] = [r for r in host[1:] if r["kind"] == key]
     by_key["K3"]["short_bit_equal_to_flash_fwd_kernel"] = short_errs["tile_equal"]
 
-    quality = phase_quality_run(torch)
-    for key, e in by_key.items():  # the training run's launches
-        e["quality_train_launches"] = quality[key]
-    for key, row, agg in zip(("K3", "K4"), quality["rows"], quality["aggregator_max_abs_err"]):
-        by_key[key]["shapes"].append(row)
-        by_key[key]["quality_aggregator_max_abs_err"] = agg
-        by_key[key]["max_abs_err"] = max(by_key[key]["max_abs_err"], row["max_abs_err"], agg)
-    kernels["quality_train"] = quality["times"]
+    with tempfile.TemporaryDirectory() as corpus_root:
+        manifest = render_corpus(Path(corpus_root))
+        quality = phase_quality_run(torch, manifest)
+        for key, e in by_key.items():  # the training run's launches
+            e["quality_train_launches"] = quality[key]
+        for key, row, agg in zip(("K3", "K4"), quality["rows"],
+                                 quality["aggregator_max_abs_err"]):
+            by_key[key]["shapes"].append(row)
+            by_key[key]["quality_aggregator_max_abs_err"] = agg
+            by_key[key]["max_abs_err"] = max(by_key[key]["max_abs_err"], row["max_abs_err"],
+                                             agg)
+        kernels["quality_train"] = quality["times"]
+        torch.cuda.empty_cache()
+
+        multitask = phase_multitask_run(torch, manifest)
+    for key, e in by_key.items():  # the multitask run's launches
+        e["multitask_train_launches"] = multitask["counts"][key]
+    for key, e in zip(("K5", "K6"), kernels["kernels"][4:]):
+        e["multitask_train_launches"] = multitask["counts"][key]
+    for key, rows in zip(("K3", "K4"), multitask["rows"]):
+        by_key[key]["shapes"] += rows
+        by_key[key]["max_abs_err"] = max([by_key[key]["max_abs_err"]]
+                                         + [r["max_abs_err"] for r in rows])
+    kernels["multitask_train"] = multitask["times"]
     return kernels
 
 

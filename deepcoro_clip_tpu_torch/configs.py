@@ -1,8 +1,9 @@
 """Configuration classes of the ported slices, and the YAML/CLI reader.
 
-``BaseConfig``, ``ClipConfig``, ``LinearProbingConfig`` and
-``MultiviewConfig`` have every field of the JAX package's ``configs/base.py``,
-``configs/clip.py`` and ``configs/linear_probing.py``. Names and defaults
+``BaseConfig``, ``ClipConfig``, ``MultitaskConfig``, ``LinearProbingConfig``
+and ``MultiviewConfig`` have every field of the JAX package's
+``configs/base.py``, ``configs/clip.py``, ``configs/multitask.py`` and
+``configs/linear_probing.py``. Names and defaults
 are the same, so a config dict or a shipped YAML means the same thing on
 both sides; keys a class does not know are kept in ``extra()``, as there.
 The port adds one field, ``device`` (``PORT_FIELDS``): None runs on the
@@ -242,7 +243,8 @@ class ClipConfig(BaseConfig):
     siglip_debug_batches: int = 0
     siglip_debug_every: int = 1
     siglip_debug_sample_count: int = 4
-    # ---- LocCa report-generation head (not ported yet) ----
+    # ---- LocCa (the multitask pipeline runs them; the contrastive
+    # path's LocCa head is not ported yet) ----
     locca_enabled: bool = False
     locca_weight: float = 0.5
     locca_num_layers: int = 4
@@ -279,22 +281,57 @@ class ClipConfig(BaseConfig):
 
 # the roadmap item of each field family the port does not run yet
 _UNPORTED = (("siglip_", "the SigLIP slice (ROADMAP Queue 1 item 7)"),
-             ("locca_", "the multitask slice (ROADMAP Queue 1 item 8)"))
+             ("locca_", "the LocCa head of the contrastive path (ROADMAP Queue 1 item 8)"))
 
 
 def unported_settings(config) -> List[str]:
     """``"field=value (what brings it)"`` for every field of a path the port
-    does not run yet that ``config`` sets away from its default."""
+    does not run yet that ``config`` sets away from its default. The
+    multitask pipeline runs the ``locca_*`` settings."""
+    skip = ("locca_",) if isinstance(config, MultitaskConfig) else ()
     out = []
     for f in fields(config):
         for prefix, item in _UNPORTED:
-            if f.name.startswith(prefix) and f.name != "siglip_bias_init":
+            if (f.name.startswith(prefix) and prefix not in skip
+                    and f.name != "siglip_bias_init"):
                 default = (f.default if f.default is not dataclasses.MISSING
                            else f.default_factory())
                 value = getattr(config, f.name)
                 if value != default:
                     out.append(f"{f.name}={value!r} ({item})")
     return out
+
+
+@dataclass
+class MultitaskConfig(ClipConfig):
+    """Contrastive + captioning + masked video modeling: every field of the
+    JAX package's ``MultitaskConfig``, with its default."""
+
+    # task loss weights
+    loss_weights: Dict[str, float] = field(
+        default_factory=lambda: {"contrastive": 1.0, "captioning": 1.0, "mvm": 1.0}
+    )
+    loss_weight_schedule: Optional[Dict[str, List[float]]] = None
+    # captioning decoder
+    captioning_lr: float = 1e-4
+    decoder_dim: int = 512
+    decoder_depth: int = 4
+    decoder_heads: int = 8
+    decoder_max_length: int = 128
+    caption_label_smoothing: float = 0.1
+    # masked video modeling
+    mvm_lr: float = 1e-4
+    mask_ratio: float = 0.75
+    mvm_decoder_dim: int = 256
+    mvm_decoder_depth: int = 2
+    mvm_norm_targets: bool = True
+    # multi-view consistency
+    consistency_weight: float = 0.0
+    # scheduled sampling for caption training: with probability p the
+    # decoder's inputs at t > 0 are its own first-pass predictions; p ramps
+    # linearly from 0 over ``scheduled_sampling_warmup_steps``; 0.0 = off
+    scheduled_sampling_prob: float = 0.0
+    scheduled_sampling_warmup_steps: int = 0
 
 
 @dataclass
@@ -410,6 +447,7 @@ PORT_FIELDS = ("device",)
 CONFIG_CLASSES = {
     "DeepCORO_clip": ClipConfig,
     "DeepCORO_clip_simple": ClipConfig,
+    "DeepCORO_multitask": MultitaskConfig,
     "DeepCORO_video_linear_probing": LinearProbingConfig,
     "DeepCORO_Multiview": MultiviewConfig,
     "DeepCORO_Multiview_test": MultiviewConfig,

@@ -23,7 +23,14 @@ port's models and scalars and back. The linear-probing tree
 (``load_probe_tree``/``probe_tree``): the encoder's ``pool/{query,
 attn/{q,k,v,proj}, norm}`` (``AttentionPool``), the head's
 ``{within,across,shared}_gated/{V,U,w}``, ``*_cls/{cls, block{i}/..., norm}``,
-``hier_proj``, ``view_embeddings/embedding`` and ``head_<name>``. A CLIP
+``hier_proj``, ``view_embeddings/embedding`` and ``head_<name>``. The
+multitask tree ``{"video_encoder", "text_encoder", "decoder", "mvm",
+"log_temp"}`` goes both ways through ``load_multitask_tree`` /
+``multitask_tree``: the decoder's ``token_emb/embedding``, ``pos_emb``,
+``embed_norm``, ``memory_proj``, ``layer{i}/{norm1, self_attn/{qkv,proj},
+norm2, cross_attn/{q,k,v,proj}, norm3, mlp/{fc1,fc2}}``, ``norm``,
+``lm_head``, and the MVM head's ``enc_proj``, ``mask_token``, ``pos_emb``,
+``block{i}/...``, ``norm``, ``pred``. A CLIP
 run's video tree goes into a probing encoder, where paths and shapes match,
 through ``train/linear_probe.build_probe_bundle(encoder_params=...)``.
 
@@ -139,6 +146,27 @@ def probe_tree(video_model: nn.Module, mil_model: nn.Module) -> dict:
     """The port's encoder and probing head as the JAX linear-probing tree."""
     return {"video_encoder": module_to_jax_tree(video_model),
             "mil": module_to_jax_tree(mil_model)}
+
+
+MULTITASK_MODELS = ("video_encoder", "text_encoder", "decoder", "mvm")
+
+
+@torch.no_grad()
+def load_multitask_tree(tree: Mapping, models: Mapping[str, nn.Module],
+                        log_temp: torch.Tensor) -> None:
+    """The JAX multitask tree into the port's four models (``models`` maps
+    ``video_encoder``, ``text_encoder``, ``decoder``, ``mvm`` to them) and
+    ``log_temp``, in place, name for name."""
+    for key in MULTITASK_MODELS:
+        models[key].load_state_dict(jax_tree_to_state_dict(tree[key]), strict=True)
+    log_temp.fill_(float(np.asarray(tree["log_temp"])))
+
+
+def multitask_tree(models: Mapping[str, nn.Module], log_temp: torch.Tensor) -> dict:
+    """The port's four multitask models and ``log_temp`` as the JAX tree."""
+    out = {key: module_to_jax_tree(models[key]) for key in MULTITASK_MODELS}
+    out["log_temp"] = log_temp.detach().cpu().numpy().astype(np.float32)
+    return out
 
 
 def save_params_npz(tree: Mapping, path) -> None:

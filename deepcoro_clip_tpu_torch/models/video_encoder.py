@@ -198,6 +198,13 @@ class VideoEncoder(nn.Module):
                                 deterministic=deterministic, generator=generator)
         return {"tokens": toks, "video": per_video, "study": study}
 
+    def aggregate(self, per_video, video_mask: Optional[torch.Tensor] = None,
+                  deterministic: bool = True, generator=None):
+        """The aggregator on given per-video embeddings ``[B, N, D]`` ->
+        ``[B, D]`` (the multitask consistency term's single-view target)."""
+        return self.aggregator(per_video, mask=video_mask,
+                               deterministic=deterministic, generator=generator)
+
     def get_tokens(self, x, mode: str = "patch", deterministic: bool = True):
         """'patch' -> [B, N, L, D]; 'video' -> [B, N, D]; 'study' -> [B, D]."""
         x = self._with_video_axis(x)
@@ -256,6 +263,19 @@ def _config_patch_grid(cfg, patch) -> Optional[Tuple[int, int, int]]:
     return (frames // pt, size // ph, size // pw)
 
 
+def clip_token_count(cfg) -> int:
+    """Tokens per clip at the backbone's output (CLS included): the patch
+    grid of ``frames x resize x resize`` (padded right to whole patches),
+    halved in height and width at each pool stage a block reaches."""
+    arch = resolve_architecture(cfg)
+    pt, ph, pw = arch["vit_patch"]
+    T, H, W = (-(-cfg.frames // pt), -(-cfg.resize // ph), -(-cfg.resize // pw))
+    for stage in arch["vit_pool_stages"]:
+        if stage < arch["vit_depth"]:
+            H, W = H // 2, W // 2
+    return T * H * W + (1 if getattr(cfg, "use_cls_token", True) else 0)
+
+
 def video_encoder_from_config(cfg, aggregate=None, per_video=None,
                               fused_outproj: Optional[bool] = None,
                               ring_mesh=None) -> VideoEncoder:
@@ -299,7 +319,7 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     """Random init from ``seed`` with the JAX package's initializers:
     xavier-uniform dense weights, lecun-normal patch kernel, zero biases,
     unit LayerNorm scales, N(0, 1/dim) token embeddings, N(0, 0.02) for
-    cls, positions and query."""
+    cls, positions, query and the mask token."""
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
         if isinstance(mod, Dense):
@@ -319,6 +339,6 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
             nn.init.zeros_(mod.bias)
     for name, p in model.named_parameters():
         if name.split(".")[-1] in ("cls", "pos_embedding", "position_embeddings",
-                                   "query"):
+                                   "query", "pos_emb", "mask_token"):
             nn.init.normal_(p, std=0.02, generator=g)
     return model

@@ -1,15 +1,143 @@
-"""Runner plumbing shared by the pipelines: the dataset statistics.
+"""Runner plumbing shared by the pipelines: the dataset statistics, the
+loader, a batch onto the device, a step's metrics onto the host, and the
+pipelined train epoch.
 
-The port's copy of ``resolve_dataset_stats`` from the JAX package's
-``runners/common.py``. There is no mesh to size: one process drives one
-card.
+``resolve_dataset_stats`` is the port's copy of the JAX package's
+``runners/common.py`` function. There is no mesh to size: one process
+drives one card.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import math
+import time
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
 
 from deepcoro_clip_tpu_torch.data.datasets import StatsDataset
+from deepcoro_clip_tpu_torch.data.loader import PrefetchLoader
+from deepcoro_clip_tpu_torch.data.sampler import ShardedBatchSampler
+
+
+class NonFiniteLossError(RuntimeError):
+    """A train step's loss was not finite."""
+
+
+def dataset_kwargs(config) -> Dict[str, Any]:
+    """The ``VideoClipDataset`` arguments a config gives every split."""
+    c = config
+    return dict(
+        data_filename=c.data_filename, root=c.root, split_column=c.split_column,
+        datapoint_loc_label=c.datapoint_loc_label, target_label=c.target_label,
+        multi_video=c.multi_video, num_videos=c.num_videos,
+        groupby_column=c.groupby_column, shuffle_videos=c.shuffle_videos,
+        frames=c.frames, stride=c.stride, resize=c.resize, seed=c.seed,
+        wire_dtype=c.wire_dtype, mono_wire=c.mono_wire,
+    )
+
+
+def make_loader(config, dataset, collate: Callable, training: bool) -> PrefetchLoader:
+    """The epoch-seeded batch order (shuffled and whole batches only when
+    training) behind the prefetch loader."""
+    sampler = ShardedBatchSampler(
+        len(dataset), config.batch_size, shuffle=training, seed=config.seed,
+        drop_last=training, process_index=config.process_index,
+        process_count=config.process_count,
+    )
+    return PrefetchLoader(dataset, sampler, collate, num_workers=max(1, config.num_workers),
+                          backend=config.loader_backend)
+
+
+def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A host batch's arrays, and a ``sample_mask`` of ones (every row is
+    real: one card, no padding rows), onto ``device``. On the card the
+    copies leave from pinned memory without a host wait, so the next
+    batch's copy queues behind the running step."""
+    arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+    arrays["sample_mask"] = np.ones((len(arrays["videos"]),), np.float32)
+    if device.type != "cuda":
+        return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
+            for k, v in arrays.items()}
+
+
+def read_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
+    """A step's metrics on the host, with one device-to-host copy."""
+    keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+    out = {k: float(v) for k, v in metrics.items() if k not in keys}
+    if keys:
+        dev = metrics[keys[0]].device  # (a scalar may live on the host)
+        vals = torch.stack([metrics[k].detach().float().reshape(()).to(dev)
+                            for k in keys])
+        out.update(zip(keys, vals.cpu().tolist()))
+    return {k: out[k] for k in metrics}
+
+
+def run_pipelined_epoch(runner, epoch: int, step: Callable[[Dict[str, torch.Tensor]], Dict],
+                        log_every: Optional[int] = None) -> Dict[str, float]:
+    """One train epoch of ``runner`` (its ``loaders["train"]``, ``device``,
+    ``state``, ``ckpt``, ``generator``, ``config`` and ``logger``):
+    ``step(device_batch)`` runs one train step, sets ``runner.state`` and
+    returns the step's metrics.
+
+    Step i's metrics are read (one copy to the host) only after step i+1
+    has been enqueued, so the card is not left idle while the host reads,
+    and a non-finite loss is seen one step late: the ``nan_debug`` snapshot
+    holds the state one step past the failing one (whose update the step's
+    non-finite guard withheld), and ``NonFiniteLossError`` is raised. With
+    ``log_every`` every such step's metrics are logged under ``step/``.
+    Returns the mean of every step metric and ``loader_wait_ms``, the
+    host's mean wait for the next batch a step."""
+    loader = runner.loaders["train"]
+    loader.set_epoch(epoch)
+    agg: Dict[str, float] = {}
+    n = 0
+    wait = 0.0
+    pending = None  # (i, metrics) of the step before
+
+    def consume(entry):
+        nonlocal n
+        i, metrics = entry
+        values = read_metrics(metrics)
+        loss = values["loss"]
+        if not math.isfinite(loss):
+            if runner.config.is_ref_device:
+                runner.ckpt.save_debug(
+                    "nan_debug", runner.state,
+                    {"epoch": epoch, "nan_loss_at_step": i, "state_steps_past_failure": 1,
+                     "nonfinite_update_guard": True},
+                    runner.generator)
+            raise NonFiniteLossError(
+                f"non-finite loss {loss} at epoch {epoch} step {i} (the nan_debug "
+                "snapshot is one step past the failure, finite updates only; resume "
+                "uses the last epoch checkpoint)")
+        for k, v in values.items():
+            agg[k] = agg.get(k, 0.0) + v
+        n += 1
+        if log_every and i % log_every == 0:
+            runner.logger.log({f"step/{k}": v for k, v in values.items()},
+                              step=int(runner.state.step))
+
+    batches = iter(loader)
+    i = 0
+    while True:
+        t0 = time.perf_counter()
+        batch = next(batches, None)
+        wait += time.perf_counter() - t0
+        if batch is None:
+            break
+        metrics = step(batch_to_device(batch, runner.device))
+        if pending is not None:
+            consume(pending)
+        pending = (i, metrics)
+        i += 1
+    if pending is not None:
+        consume(pending)
+    out = {k: v / max(n, 1) for k, v in agg.items()}
+    out["loader_wait_ms"] = wait * 1e3 / max(n, 1)
+    return out
 
 
 def resolve_dataset_stats(config, datasets: Dict[str, Optional[Any]]):

@@ -46,12 +46,17 @@ from deepcoro_clip_tpu_torch import convert
 from deepcoro_clip_tpu_torch.configs import unported_settings
 from deepcoro_clip_tpu_torch.data.collate import collate_clip, wire_patch
 from deepcoro_clip_tpu_torch.data.datasets import VideoClipDataset
-from deepcoro_clip_tpu_torch.data.loader import PrefetchLoader
-from deepcoro_clip_tpu_torch.data.sampler import ShardedBatchSampler
 from deepcoro_clip_tpu_torch.data.tokenizer import get_tokenizer
 from deepcoro_clip_tpu_torch.device import resolve_device
 from deepcoro_clip_tpu_torch.registry import RunnerRegistry
-from deepcoro_clip_tpu_torch.runners.common import resolve_dataset_stats
+from deepcoro_clip_tpu_torch.runners.common import (  # noqa: F401 (the error train raises)
+    NonFiniteLossError,
+    batch_to_device,
+    dataset_kwargs,
+    make_loader,
+    resolve_dataset_stats,
+    run_pipelined_epoch,
+)
 from deepcoro_clip_tpu_torch.train import clip as clip_train
 from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
 from deepcoro_clip_tpu_torch.train.run_schedules import freeze_ratio_at, temperature_at
@@ -91,22 +96,6 @@ def _merge_params_by_path(new, old):
     return arr.astype(new_arr.dtype) if arr.shape == new_arr.shape else new
 
 
-def _read_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
-    """A step's metrics on the host, with one device-to-host copy."""
-    keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
-    out = {k: float(v) for k, v in metrics.items() if k not in keys}
-    if keys:
-        dev = metrics[keys[0]].device  # (a scalar may live on the host)
-        vals = torch.stack([metrics[k].detach().float().reshape(()).to(dev)
-                            for k in keys])
-        out.update(zip(keys, vals.cpu().tolist()))
-    return {k: out[k] for k in metrics}
-
-
-class NonFiniteLossError(RuntimeError):
-    """A train step's loss was not finite."""
-
-
 @RunnerRegistry.register("DeepCORO_clip", "DeepCORO_clip_simple")
 class VideoContrastiveLearningRunner:
     def __init__(
@@ -126,7 +115,7 @@ class VideoContrastiveLearningRunner:
         # before the bundle: the uint8 wire's patchify folds the stats in
         self.stats = resolve_dataset_stats(config, self.datasets)
         self.loaders = {
-            split: self._make_loader(ds, split == "train")
+            split: make_loader(config, ds, self._collate, split == "train")
             for split, ds in self.datasets.items()
             if ds is not None
         }
@@ -157,23 +146,7 @@ class VideoContrastiveLearningRunner:
 
     def _build_datasets(self) -> Dict[str, Any]:
         cfg = self.config
-        common = dict(
-            data_filename=cfg.data_filename,
-            root=cfg.root,
-            split_column=cfg.split_column,
-            datapoint_loc_label=cfg.datapoint_loc_label,
-            target_label=cfg.target_label,
-            multi_video=cfg.multi_video,
-            num_videos=cfg.num_videos,
-            groupby_column=cfg.groupby_column,
-            shuffle_videos=cfg.shuffle_videos,
-            frames=cfg.frames,
-            stride=cfg.stride,
-            resize=cfg.resize,
-            seed=cfg.seed,
-            wire_dtype=cfg.wire_dtype,
-            mono_wire=cfg.mono_wire,
-        )
+        common = dataset_kwargs(cfg)
 
         def make(split, augment=False):
             return VideoClipDataset(split=split, rand_augment=augment, **common)
@@ -196,29 +169,6 @@ class VideoContrastiveLearningRunner:
         buckets = cfg.text_length_buckets if cfg.process_count == 1 else []
         return collate_clip(items, self.tokenizer, max_text_length=cfg.max_text_length,
                             length_buckets=buckets, patch=wire_patch(cfg))
-
-    def _make_loader(self, dataset, training: bool):
-        cfg = self.config
-        sampler = ShardedBatchSampler(
-            len(dataset), cfg.batch_size, shuffle=training, seed=cfg.seed,
-            drop_last=training,
-            process_index=cfg.process_index, process_count=cfg.process_count,
-        )
-        return PrefetchLoader(dataset, sampler, self._collate,
-                              num_workers=max(1, cfg.num_workers),
-                              backend=cfg.loader_backend)
-
-    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """The batch's arrays, and a ``sample_mask`` of ones (every row is
-        real: one card, no padding rows), onto the run's device. On the
-        card the copies leave from pinned memory without a host wait, so
-        the next batch's copy queues behind the running step."""
-        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
-        arrays["sample_mask"] = np.ones((len(arrays["videos"]),), np.float32)
-        if self.device.type != "cuda":
-            return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
-        return {k: torch.from_numpy(v).pin_memory().to(self.device, non_blocking=True)
-                for k, v in arrays.items()}
 
     def init_from_checkpoint(self, path: str) -> None:
         """Warm start of the parameters (optimizer and step stay fresh) from
@@ -321,66 +271,16 @@ class VideoContrastiveLearningRunner:
                 "output_dir": str(self.output_dir)}
 
     def _run_train_epoch(self, epoch: int, temp: float, vfr: float, tfr: float):
-        """The step loop. Step i's metrics are read only after step i+1 has
-        been enqueued, so a non-finite loss is seen one step late: the
-        ``nan_debug`` snapshot holds the state one step past the failing
-        one (whose update the step's non-finite guard withheld). Besides the
-        mean of every step metric the epoch reports ``loader_wait_ms``, the
-        host's mean wait for the next batch a step."""
-        loader = self.loaders["train"]
-        loader.set_epoch(epoch)
-        agg: Dict[str, float] = {}
-        n = 0
-        wait = 0.0
-        pending = None  # (i, metrics) of the step before
+        """The pipelined step loop (``run_pipelined_epoch``), with the step
+        metrics logged every ``period * 10`` steps."""
 
-        def consume(entry):
-            nonlocal n
-            i, metrics = entry
-            values = _read_metrics(metrics)
-            loss = values["loss"]
-            if not math.isfinite(loss):
-                if self.config.is_ref_device:
-                    self.ckpt.save_debug(
-                        "nan_debug", self.state,
-                        {"epoch": epoch, "nan_loss_at_step": i,
-                         "state_steps_past_failure": 1,
-                         "nonfinite_update_guard": True},
-                        self.generator,
-                    )
-                raise NonFiniteLossError(
-                    f"non-finite loss {loss} at epoch {epoch} step {i} (the "
-                    "nan_debug snapshot is one step past the failure, finite "
-                    "updates only; resume uses the last epoch checkpoint)"
-                )
-            for k, v in values.items():
-                agg[k] = agg.get(k, 0.0) + v
-            n += 1
-            if i % max(1, self.config.period * 10) == 0:
-                self.logger.log({f"step/{k}": v for k, v in values.items()},
-                                step=int(self.state.step))
+        def step(batch):
+            self.state, metrics = self.train_step(self.state, batch, self.generator,
+                                                  vfr, tfr, temp)
+            return metrics
 
-        batches = iter(loader)
-        i = 0
-        while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            wait += time.perf_counter() - t0
-            if batch is None:
-                break
-            device_batch = self._to_device(batch)
-            self.state, metrics = self.train_step(
-                self.state, device_batch, self.generator, vfr, tfr, temp
-            )
-            if pending is not None:
-                consume(pending)
-            pending = (i, metrics)
-            i += 1
-        if pending is not None:
-            consume(pending)
-        out = {k: v / max(n, 1) for k, v in agg.items()}
-        out["loader_wait_ms"] = wait * 1e3 / max(n, 1)
-        return out
+        return run_pipelined_epoch(self, epoch, step,
+                                   log_every=max(1, self.config.period * 10))
 
     # ------------------------------------------------------------------ #
     # validation with retrieval metrics
@@ -407,7 +307,7 @@ class VideoContrastiveLearningRunner:
 
         pending = None
         for batch in loader:
-            out = self.eval_step(self.state.params, self._to_device(batch))
+            out = self.eval_step(self.state.params, batch_to_device(batch, self.device))
             if pending is not None:
                 consume(*pending)
             pending = (batch, out)

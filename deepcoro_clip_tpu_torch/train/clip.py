@@ -17,7 +17,6 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from deepcoro_clip_tpu_torch.device import resolve_device
@@ -77,11 +76,6 @@ def training_params(video_model, text_model, log_temp, logit_bias
     return params
 
 
-def _tower(params: Dict[str, torch.Tensor], tower: str) -> Dict[str, torch.Tensor]:
-    pre = tower + "."
-    return {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
-
-
 def build_clip_bundle(config, seed: int = 0, steps_per_epoch: int = 100,
                       device: Optional[str] = None, mesh: Optional[Mesh] = None
                       ) -> Tuple[ClipBundle, TrainState]:
@@ -134,9 +128,9 @@ def build_clip_bundle(config, seed: int = 0, steps_per_epoch: int = 100,
         config=config, device=dev, video_model=video_model, text_model=text_model,
         tx=tx, schedule=schedule,
         video_fracs=optim_lib.freeze_fractions(
-            _tower(params, "video_encoder"), include=("backbone",)),
+            optim_lib.tower_params(params, "video_encoder"), include=("backbone",)),
         text_fracs=optim_lib.freeze_fractions(
-            _tower(params, "text_encoder"), exclude=("proj",)),
+            optim_lib.tower_params(params, "text_encoder"), exclude=("proj",)),
     )
     return bundle, state
 
@@ -205,13 +199,6 @@ def make_train_step(bundle: ClipBundle):
     log_temp is pinned to log(override). Metrics are tensors on the device:
     reading one is the only time the host waits.
     """
-    def keep_mask(video_freeze_ratio, text_freeze_ratio) -> Dict[str, bool]:
-        keep = {f"video_encoder.{k}": v for k, v in optim_lib.freeze_keep(
-            bundle.video_fracs, video_freeze_ratio).items()}
-        keep.update({f"text_encoder.{k}": v for k, v in optim_lib.freeze_keep(
-            bundle.text_fracs, text_freeze_ratio).items()})
-        return keep
-
     def step(state: TrainState, batch, generator=None, video_freeze_ratio=0.0,
              text_freeze_ratio=0.0, temp_override=-1.0):
         params = state.params
@@ -232,7 +219,9 @@ def make_train_step(bundle: ClipBundle):
             # dynamic partial freeze: mask the gradients before the update,
             # so the moments accumulate nothing for frozen leaves, then the
             # updates too, so weight decay cannot move them
-            keep = keep_mask(video_freeze_ratio, text_freeze_ratio)
+            keep = optim_lib.towers_keep({
+                "video_encoder": (bundle.video_fracs, video_freeze_ratio),
+                "text_encoder": (bundle.text_fracs, text_freeze_ratio)})
             for n, k in keep.items():
                 if not k:
                     grads[n].zero_()

@@ -102,6 +102,21 @@ def freeze_keep(fracs: Mapping[str, float], ratio: float) -> Dict[str, bool]:
             for k, f in fracs.items()}
 
 
+def tower_params(params: Mapping[str, torch.Tensor], tower: str) -> Dict[str, torch.Tensor]:
+    """One tower's leaves of the flat training dict, under their names in
+    the tower (the ``tower.`` prefix dropped)."""
+    pre = tower + "."
+    return {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+
+
+def towers_keep(fracs_and_ratios: Mapping[str, Tuple[Mapping[str, float], float]]
+                ) -> Dict[str, bool]:
+    """``freeze_keep`` of several towers of the flat training dict
+    (``{tower: (fracs, ratio)}``), under the flat names."""
+    return {f"{tower}.{k}": v for tower, (fracs, ratio) in fracs_and_ratios.items()
+            for k, v in freeze_keep(fracs, ratio).items()}
+
+
 def apply_freeze_mask(tree: Mapping[str, torch.Tensor], fracs: Mapping[str, float],
                       ratio: float) -> Dict[str, torch.Tensor]:
     """Zero the leaves that ``ratio`` freezes (others pass through)."""

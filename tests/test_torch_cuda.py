@@ -813,3 +813,83 @@ def test_ring_kernel_across_cards_equals_one_card(cuda):
     one = ring_attention(q, k, v, _ring_mesh(n, [cuda] * n), backend="rdma")
     many = ring_attention(q, k, v, _ring_mesh(n, cards), backend="rdma")
     assert torch.equal(one, many)
+
+
+# --------------------------------------------------------------------------- #
+# the multitask decoder's calls (K3/K4 on the tile kernels)
+
+
+@pytest.mark.parametrize("mode", ["causal_mask", "cross", "text_mask"])
+def test_decoder_attention_shapes(cuda, mode):
+    """K3/K4 as the multitask path calls them on the tile kernels, strided
+    views of [B, L, H * 64] projections: the captioning decoder's causal
+    self-attention at L 128 under a caption padding mask and its
+    cross-attention of 128 queries over 1572 keys (4 clips x 393 tokens:
+    the last key tile partial), 8 heads; the text tower at L 512, 12 heads,
+    under a report padding mask. Forward against multi_head_attention,
+    gradients against flash_bwd_plain, one launch each way, two backward
+    launches bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    B, H = 2, (12 if mode == "text_mask" else 8)
+    L = 512 if mode == "text_mask" else 128
+    Lk = 1572 if mode == "cross" else L
+
+    def heads(n):
+        t = torch.randn(B, n, H * 64, generator=g, device=cuda).to(torch.bfloat16)
+        return t.unflatten(2, (H, 64)).transpose(1, 2)
+
+    q, k, v, do = heads(L), heads(Lk), heads(Lk), heads(L)
+    kw = {}
+    if mode != "cross":
+        m = torch.ones(B, L, dtype=torch.int32, device=cuda)
+        m[0, 40:] = 0
+        m[1, 97:] = 0
+        kw = dict(kv_mask=m, causal=mode == "causal_mask")
+    pkw = dict(kw, kv_mask=kw["kv_mask"] != 0) if kw else {}
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    n_f, n_b = flash_attention.launches, flash_attention.bwd_launches
+    out = flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, do)
+    assert flash_attention.launches == n_f + 1 and flash_attention.bwd_launches == n_b + 2
+    torch.testing.assert_close(out.float(), multi_head_attention(q, k, v, **pkw).float(),
+                               **TOL)
+    want = _plain_grads(q, k, v, do, **pkw)
+    for name, a, b, r in zip("qkv", got, again, want):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a.float(), r.float(), **BWD_TOL,
+                                   msg=lambda s, n=name: f"d{n}: {s}")
+    names = _kernels_run(lambda: flash_attention(q, k, v, **kw))
+    assert _ran(names, "flash_fwd_kernel") and not _ran(names, "flash_short")
+
+
+def test_captioning_decoder_on_the_card(cuda):
+    """A decoder layer at the multitask widths (512 / 8 heads, L 128, 1572
+    video tokens), bf16: logits through the kernels against the same
+    weights through the plain attention (within 2% of the largest logit),
+    two K3 launches a layer forward and two K4 backward, and the gradients
+    of both paths at cosine >= 0.999."""
+    from deepcoro_clip_tpu_torch.models.captioning_decoder import CaptioningDecoder
+    from deepcoro_clip_tpu_torch.models.video_encoder import init_params
+
+    g = torch.Generator(device=cuda).manual_seed(22)
+    kw = dict(vocab_size=1000, dim=512, depth=1, num_heads=8, max_length=128,
+              memory_dim=512, dropout=0.0)
+    flash = init_params(CaptioningDecoder(**kw, use_flash=True), 3).to(cuda)
+    plain = CaptioningDecoder(**kw, use_flash=False).to(cuda)
+    plain.load_state_dict(flash.state_dict())
+    ids = torch.randint(0, 1000, (2, 128), generator=g, device=cuda)
+    mask = torch.ones(2, 128, dtype=torch.int32, device=cuda)
+    mask[1, 70:] = 0
+    mem = torch.randn(2, 1572, 512, generator=g, device=cuda)
+    n_f, n_b = flash_attention.launches, flash_attention.bwd_launches
+    a = flash(ids, mem, attention_mask=mask)
+    b = plain(ids, mem, attention_mask=mask)
+    assert flash_attention.launches == n_f + 2
+    assert float((a - b).detach().abs().max()) <= 0.02 * float(b.detach().abs().max())
+    ga = torch.autograd.grad(a.square().mean(), list(flash.parameters()))
+    assert flash_attention.bwd_launches == n_b + 2
+    gb = torch.autograd.grad(b.square().mean(), list(plain.parameters()))
+    fa = torch.cat([t.flatten() for t in ga])
+    fb = torch.cat([t.flatten() for t in gb])
+    assert float(torch.nn.functional.cosine_similarity(fa, fb, dim=0)) >= 0.999

@@ -404,8 +404,10 @@ def test_parse_config_matches_jax_parser(path):
 
 
 def test_parse_config_rejects_a_pipeline_that_is_not_ported(tmp_path):
+    # every pipeline of the JAX package has its config class in the port
+    # since the multitask slice: a name outside them stands for one that is not
     p = tmp_path / "c.yaml"
-    p.write_text("pipeline_project: DeepCORO_multitask\n")
+    p.write_text("pipeline_project: DeepCORO_segmentation\n")
     with pytest.raises(NotImplementedError, match="not ported"):
         tconfigs.parse_config(["--base_config", str(p)])
 
