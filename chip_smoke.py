@@ -192,9 +192,34 @@ Phases, each printing one line (or a few) before the last:
    and SDPA's; the step time (the run has one step an epoch; 5 more on one
    batch are timed too), the validation pass, peak memory and the profiled
    step's busy time, each with the card's name and power limit;
+24. SigLIP multi-positive pretraining through the port's main, at
+   config/clip/siglip_multi_positive_config.yaml (siglip_config() below
+   spells its fields out): texts/edges/videos manifests written by
+   data/dataset_creation.build_siglip_manifests from the findings of phase
+   22's clips (siglip_rows), then a memory reckoning (one train step at
+   batch 2 and 4, the line through their peaks at the YAML's 20 and at
+   SIGLIP_BATCH, which must stay within 85% of the card), and 2 epochs at
+   batch_size SIGLIP_BATCH (the one cut besides data and epochs), the
+   class-aware sampler, a bank of batch_size x 40 texts of 512 tokens a
+   step, validation against every video's positives with the semantic
+   panel. Every loss finite; the launches of the whole run, predicted per
+   train step (12 K1 / 12 K2 / 13 K3 / 13 K4), per validation batch and per
+   bank chunk of 64 texts, counted from 0 just before it; logit_bias moved
+   from -10; checkpoints and artifacts; a run stopped after epoch 0 and
+   resumed through main ends bit-equal; step time, peak memory, a profiled
+   step's busy time and its tile K3/K4 share; K3/K4 at the bank's
+   [B*40,12,512,64] with the batch's mask and the aggregator's [B,16,1,32]
+   (run at Dh 64 on zero-padded operands) against their plain versions
+   (phase 3's and 7's bars), with times, busy times, bounds and SDPA's;
+25. multi-video SigLIP through main at config/clip/multivideo_config.yaml
+   (multivideo_config()): phase 23's studies, 2 epochs at 8 studies x 5
+   clip slots, the pairwise siglip loss; the same checks (12 K1 / 12 K2 /
+   14 K3 / 14 K4 a train step), K3/K4 at the text tower's [8,12,512,64] and
+   the aggregator's [8,8,5,64] with the batch's masks;
 then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6; K3
-and K4 list their short and tile kernels and carry phase 21's rows; K1 to
-K4 carry phase 22's and phase 23's launches, K3 and K4 their shapes).
+and K4 list their short and tile kernels and carry phase 21's rows; every
+kernel carries the launches of phases 22 to 25's runs, K3 and K4 their
+shapes).
 
 The last line is {"ok": true, "device": {...}}. Any failing phase exits
 non-zero before it, as does a machine without CUDA.
@@ -324,22 +349,30 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+TRACE_TRIES = 10  # profiler windows a busy time may take (see device_ms)
+
+
 def device_events(torch, fn):
     """Run ``fn`` once under torch.profiler: (device time by kernel name in
-    ms, host wall time in ms including the final synchronise)."""
+    ms, host wall time in ms including the final synchronise). A trace with
+    no device event (the profiler on the H100 machine now and then records
+    none) is taken again, up to TRACE_TRIES times."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    per_name = defaultdict(float)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per_name[e.name] += e.time_range.elapsed_us() / 1e3
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        per_name = defaultdict(float)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                per_name[e.name] += e.time_range.elapsed_us() / 1e3
+        if per_name:
+            break
     return per_name, wall_ms
 
 
@@ -353,8 +386,8 @@ def device_ms(torch, fn, reps: int, kernels=()) -> float:
     the H100 machine the profiler now and then traces no device event in a
     window, or drops one, which would read as a faster call. So each kernel
     counts at its mean event time times its launches a call (its events
-    over ``reps``, rounded up), and the window is traced again, up to five
-    times, when it is empty, when one of ``kernels`` is missing, or when a
+    over ``reps``, rounded up), and the window is traced again, up to
+    TRACE_TRIES times, when it is empty, when one of ``kernels`` is missing, or when a
     kernel's events are not a whole number a call. The check fails when
     the last trace is empty, misses one of ``kernels``, or holds a port
     kernel that none of them names."""
@@ -364,7 +397,7 @@ def device_ms(torch, fn, reps: int, kernels=()) -> float:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(5):
+    for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -376,8 +409,8 @@ def device_ms(torch, fn, reps: int, kernels=()) -> float:
         missing = [k for k in kernels if not any(k in n for n in times)]
         if times and not missing and all(len(t) % reps == 0 for t in times.values()):
             break
-    check(bool(times), "busy time: no device event traced in five windows")
-    check(not missing, f"busy time: no event of {missing} in five traces: "
+    check(bool(times), f"busy time: no device event traced in {TRACE_TRIES} windows")
+    check(not missing, f"busy time: no event of {missing} in {TRACE_TRIES} traces: "
                        f"{sorted(map(_short_name, times))}")
     stray = sorted({_short_name(n) for n in times if _short_name(n).startswith(PORT_KERNELS)
                     and not any(k in n for k in kernels)})
@@ -2775,7 +2808,7 @@ def _launches(torch, fn, calls: int = 10) -> list:
     machine the profiler now and then traces no device event in a short
     window, or drops one (9 kernels of 10 one-kernel calls; once two empty
     windows and then such a one in a row). So the window holds several
-    calls and is traced again, up to five times, when it comes back empty,
+    calls and is traced again, up to TRACE_TRIES times, when it comes back empty,
     or when it is uneven only because the profiler saw fewer events of a
     port kernel than the wrappers' counters say were launched in the window
     (each port kernel runs once a wrapper launch). Any other uneven window
@@ -2786,7 +2819,7 @@ def _launches(torch, fn, calls: int = 10) -> list:
 
     fn()
     torch.cuda.synchronize()
-    tries = 5
+    tries = TRACE_TRIES
     for attempt in range(1, tries + 1):
         before = sum(_kernel_counts().values())
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2892,39 +2925,6 @@ def quality_train_config(**over):
     return ClipConfig.from_dict(d)
 
 
-def _quality_runs(torch, tmp: Path, manifest: Path):
-    """The uninterrupted run (counted, timed), a run stopped after epoch 0
-    and its resumption, each through main(config=...)."""
-    from deepcoro_clip_tpu_torch.main import main
-    from deepcoro_clip_tpu_torch.runners import contrastive as runner_mod
-
-    def cfg(name, **over):
-        return quality_train_config(data_filename=str(manifest), output_dir=str(tmp / name),
-                                    epochs=2, num_workers=QUALITY_WORKERS, **over)
-
-    print(f"quality run: config/quality/flagship_quality_train.yaml with data_filename="
-          f"{manifest.name} (the rendered corpus), output_dir=<tmp>, epochs=2, "
-          f"num_workers={QUALITY_WORKERS}; nothing else changed", flush=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_kernel_counts()
-    t0 = time.perf_counter()
-    full = main(config=cfg("full"))
-    wall = time.perf_counter() - t0
-    counts = _kernel_counts()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-
-    train = runner_mod.VideoContrastiveLearningRunner.train
-    runner_mod.VideoContrastiveLearningRunner.train = (
-        lambda self, start_epoch=0, end_epoch=None: train(self, start_epoch, 1))
-    try:  # stopped after epoch 0, as a killed run would stop
-        cut = main(config=cfg("cut"))
-    finally:
-        runner_mod.VideoContrastiveLearningRunner.train = train
-    resumed = main(config=cfg("cut", resume_training=True, checkpoint=cut["output_dir"]))
-    return full, cut, resumed, counts, wall, peak_gib
-
-
 def _attention_rows(torch, label: str, cases, seed: int):
     """K3 and K4 on the tile kernels at a main path's [B,H,Lq|Lk,64] bf16
     calls, against their plain versions (phase 3's and phase 7's bars),
@@ -3020,18 +3020,21 @@ def _attention_rows(torch, label: str, cases, seed: int):
     return rows_f, rows_b
 
 
-def _aggregator_attention(torch, vmask):
-    """K3 and K4 at the aggregator's [16,8,1,64] bf16 (the short kernels),
-    with the video mask the train step passes it and the operands as its
-    blocks hand them over, against their plain versions by phase 3's and
-    phase 7's bars. Returns max|kernel - plain| of the forward and of the
-    gradients."""
+def _aggregator_attention(torch, vmask, label="quality attention", H=8, Dh=64, timed=False):
+    """K3 and K4 at the aggregator's [B,H,N,Dh] bf16 (the short kernels;
+    Dh 32 runs them at 64 on zero-padded operands), with the video mask the
+    train step passes it and the operands as its blocks hand them over,
+    against their plain versions by phase 3's and phase 7's bars. Returns
+    max|kernel - plain| of the forward and of the gradients, and with
+    ``timed`` a K3 row and a K4 row as ``_attention_rows`` gives them."""
+    import torch.nn.functional as F
+
     from deepcoro_clip_tpu_torch.ops.attention import flash_bwd_plain, multi_head_attention
     from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(23)
-    (B, N), H, Dh = vmask.shape, 8, 64
+    B, N = vmask.shape
     shape = f"[{B},{H},{N},{Dh}] bf16, the batch's video mask ({str(vmask.dtype)[6:]})"
     # strided views of the block's [B, N, 3 * H * Dh] projection
     qkv = torch.randn(B, N, 3 * H * Dh, generator=g, device=dev).to(torch.bfloat16)
@@ -3039,15 +3042,52 @@ def _aggregator_attention(torch, vmask):
     do = torch.randn(B, N, H, Dh, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = flash_attention(*leaves, kv_mask=vmask)
-    got = torch.autograd.grad(out, leaves, do)
+    got = torch.autograd.grad(out, leaves, do, retain_graph=timed)
     m = vmask != 0
     ref_out = multi_head_attention(q, k, v, kv_mask=m)
-    err_f = check_forward(torch, "quality attention", f"K3 {shape}", out.detach(), ref_out)
-    err_b = _short_grad_check(f"quality attention: K4 {shape}", got,
+    err_f = check_forward(torch, label, f"K3 {shape}", out.detach(), ref_out)
+    err_b = _short_grad_check(f"{label}: K4 {shape}", got,
                               flash_bwd_plain(q, k, v, do, ref_out, kv_mask=m), fp32=False)
-    print(f"quality attention: K4 {shape}: max|kernel-plain| {err_b:.3e} (bars: max|d| <= "
+    print(f"{label}: K4 {shape}: max|kernel-plain| {err_b:.3e} (bars: max|d| <= "
           f"{BWD_MAX_REL} max|plain|, rel l2 <= {BWD_L2_REL}) ok", flush=True)
-    return err_f, err_b
+    if not timed:
+        return err_f, err_b
+    # every query (a padded video's too) against the real videos; the bound
+    # counts the call at its own Dh, not the kernel's padded one
+    pairs = float(m.sum()) * N * H
+    nbytes = B * H * N * Dh * 2
+    b_fwd = bound(4 * pairs * Dh, 4 * nbytes + B * N)
+    b_bwd = bound(10 * pairs * Dh, 8 * nbytes + B * N)
+    am = m[:, None, None, :]
+    sq = [t.detach().requires_grad_() for t in (q, k, v)]
+    sout = F.scaled_dot_product_attention(*sq, attn_mask=am)
+    short_f, short_b = ("flash_short_fwd_bf16_kernel",), ("flash_short_bwd_bf16_kernel",)
+    with torch.no_grad():
+        row_f = {"shape": shape, "max_abs_err": err_f,
+                 "ms": cuda_ms(torch, lambda: flash_attention(q, k, v, kv_mask=vmask), REPS),
+                 "plain_ms": cuda_ms(torch, lambda: multi_head_attention(q, k, v, kv_mask=m),
+                                     REPS),
+                 "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=am), REPS),
+                 "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
+                 "device_ms": device_ms(torch, lambda: flash_attention(q, k, v, kv_mask=vmask),
+                                        REPS, short_f)}
+    row_b = {"shape": shape, "max_abs_err": err_b,
+             "ms": cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, do,
+                                                              retain_graph=True), REPS),
+             "plain_ms": cuda_ms(torch, lambda: flash_bwd_plain(q, k, v, do, ref_out,
+                                                                kv_mask=m), REPS),
+             "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                 sout, sq, do, retain_graph=True), REPS),
+             "bound_ms": b_bwd[0], "bound_by": b_bwd[1],
+             "device_ms": device_ms(torch, lambda: torch.autograd.grad(
+                 out, leaves, do, retain_graph=True), REPS, short_b)}
+    for name, r in (("K3 forward", row_f), ("K4 backward", row_b)):
+        print(f"{label}: {name} {shape}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}, {pairs:.0f} (q, k) pairs); card busy {r['device_ms']:.4f} ms "
+              f"| {CARD}", flush=True)
+    return err_f, err_b, row_f, row_b
 
 
 def render_corpus(root: Path) -> Path:
@@ -3075,7 +3115,16 @@ def phase_quality_run(torch, manifest: Path) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = Path(tmp_name)
-        full, cut, resumed, counts, wall, peak_gib = _quality_runs(torch, tmp, manifest)
+
+        def cfg(name, **over):
+            return quality_train_config(data_filename=str(manifest), output_dir=str(tmp / name),
+                                        epochs=2, num_workers=QUALITY_WORKERS, **over)
+
+        print(f"quality run: config/quality/flagship_quality_train.yaml with data_filename="
+              f"{manifest.name} (the rendered corpus), output_dir=<tmp>, epochs=2, "
+              f"num_workers={QUALITY_WORKERS}; nothing else changed", flush=True)
+        full, cut, resumed, counts, wall, peak_gib = _runs_through_main(
+            torch, "quality run", cfg, VideoContrastiveLearningRunner)
         hist = full["history"]
         steps = QUALITY_TRAIN // 16
         n_epochs = len(hist)
@@ -3128,22 +3177,7 @@ def phase_quality_run(torch, manifest: Path) -> dict:
               "...)", flush=True)
 
         # resume: epoch 0's checkpoint, then epoch 1 as in the uninterrupted run
-        a = torch.load(run / "checkpoints" / "checkpoint.pt", weights_only=True)
-        b = torch.load(Path(resumed["output_dir"]) / "checkpoints" / "checkpoint.pt",
-                       weights_only=True)
-        differ = [k for k in a["params"] if not torch.equal(a["params"][k], b["params"][k])]
-        l_full, l_res = hist[1]["loss"], resumed["history"][0]["loss"]
-        print(f"quality run: resume from epoch 0's checkpoint: epoch-1 train loss "
-              f"{l_res!r} vs {l_full!r} uninterrupted, val loss "
-              f"{resumed['history'][0]['val_loss']!r} vs {hist[1]['val_loss']!r}; "
-              f"{len(differ)} of {len(a['params'])} parameter tensors differ "
-              "(tolerance: none, bit-equal)", flush=True)
-        check([h["epoch"] for h in cut["history"]] == [0]
-              and [h["epoch"] for h in resumed["history"]] == [1],
-              "the cut run or the resumed run ran the wrong epochs")
-        check(l_res == l_full and not differ and a["step"] == b["step"]
-              and torch.equal(a["generator"], b["generator"]),
-              f"the resumed run differs: loss {l_res} vs {l_full}, params {differ[:5]}")
+        _check_resume(torch, "quality run", full, cut, resumed)
 
         # times of the uninterrupted run (epoch 1: no first-call set-up)
         h = hist[1]
@@ -3160,8 +3194,8 @@ def phase_quality_run(torch, manifest: Path) -> dict:
         print(f"quality run: validation pass {h['val_seconds']:.3f} s (16 clips, "
               f"bank of the deduplicated reports, metrics) | {CARD}", flush=True)
         print(f"quality run: peak memory {peak_gib:.2f} GiB (torch.cuda.max_memory_allocated); "
-              f"main took {wall:.1f} s (epoch 0 {hist[0]['epoch_seconds']:.2f} s with "
-              f"first-call set-up) | {CARD}", flush=True)
+              f"epoch 0 {hist[0]['epoch_seconds']:.2f} s with first-call set-up | {CARD}",
+              flush=True)
 
         # one step traced, and K3/K4 on the corpus reports' mask
         cfg = quality_train_config(data_filename=str(manifest), output_dir=str(tmp / "trace"),
@@ -3249,39 +3283,6 @@ def _study_counts(manifest: Path) -> dict:
     return {k: len(v) for k, v in out.items()}
 
 
-def _multitask_runs(torch, tmp: Path, manifest: Path):
-    """The uninterrupted run (counted, timed), a run stopped after epoch 0
-    and its resumption, each through main(config=...)."""
-    from deepcoro_clip_tpu_torch.main import main
-    from deepcoro_clip_tpu_torch.runners import multitask as runner_mod
-
-    def cfg(name, **over):
-        return multitask_config(data_filename=str(manifest), output_dir=str(tmp / name),
-                                epochs=2, num_workers=QUALITY_WORKERS, **over)
-
-    print(f"multitask run: config/multitask/multitask_config.yaml with data_filename="
-          f"{manifest.name} (the corpus grouped into studies), output_dir=<tmp>, "
-          f"epochs=2, num_workers={QUALITY_WORKERS}; nothing else changed", flush=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_kernel_counts()
-    t0 = time.perf_counter()
-    full = main(config=cfg("full"))
-    wall = time.perf_counter() - t0
-    counts = _kernel_counts()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-
-    train = runner_mod.MultitaskRunner.train
-    runner_mod.MultitaskRunner.train = (
-        lambda self, start_epoch=0, end_epoch=None: train(self, start_epoch, 1))
-    try:  # stopped after epoch 0, as a killed run would stop
-        cut = main(config=cfg("cut"))
-    finally:
-        runner_mod.MultitaskRunner.train = train
-    resumed = main(config=cfg("cut", resume_training=True, checkpoint=cut["output_dir"]))
-    return full, cut, resumed, counts, wall, peak_gib
-
-
 def phase_multitask_run(torch, manifest: Path) -> dict:
     """Phase 23 on phase 22's corpus (``manifest``, grouped into studies of
     2 to 4 clips); returns {"counts": launches of the run, "rows": (K3 rows,
@@ -3299,7 +3300,16 @@ def phase_multitask_run(torch, manifest: Path) -> dict:
           "validation batch(es) an epoch", flush=True)
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = Path(tmp_name)
-        full, cut, resumed, counts, wall, peak_gib = _multitask_runs(torch, tmp, studies)
+
+        def cfg(name, **over):
+            return multitask_config(data_filename=str(studies), output_dir=str(tmp / name),
+                                    epochs=2, num_workers=QUALITY_WORKERS, **over)
+
+        print(f"multitask run: config/multitask/multitask_config.yaml with data_filename="
+              f"{studies.name} (the corpus grouped into studies), output_dir=<tmp>, epochs=2, "
+              f"num_workers={QUALITY_WORKERS}; nothing else changed", flush=True)
+        full, cut, resumed, counts, wall, peak_gib = _runs_through_main(
+            torch, "multitask run", cfg, MultitaskRunner)
         hist = full["history"]
         for h in hist:
             print(f"multitask run: epoch {h['epoch']}: train loss {h['loss']:.4f} "
@@ -3340,22 +3350,7 @@ def phase_multitask_run(torch, manifest: Path) -> dict:
                   f"captions_epoch_{epoch}.csv: {len(caps) - 1} rows for {n['val']} studies")
         print(f"multitask run: captions of epoch 1, first study: {caps[1][:150]!r}", flush=True)
 
-        a = torch.load(run / "checkpoints" / "checkpoint.pt", weights_only=True)
-        b = torch.load(Path(resumed["output_dir"]) / "checkpoints" / "checkpoint.pt",
-                       weights_only=True)
-        differ = [k for k in a["params"] if not torch.equal(a["params"][k], b["params"][k])]
-        l_full, l_res = hist[1]["loss"], resumed["history"][0]["loss"]
-        print(f"multitask run: resume from epoch 0's checkpoint: epoch-1 train loss "
-              f"{l_res!r} vs {l_full!r} uninterrupted, val loss "
-              f"{resumed['history'][0]['val_loss']!r} vs {hist[1]['val_loss']!r}; "
-              f"{len(differ)} of {len(a['params'])} parameter tensors differ "
-              "(tolerance: none, bit-equal)", flush=True)
-        check([h["epoch"] for h in cut["history"]] == [0]
-              and [h["epoch"] for h in resumed["history"]] == [1],
-              "the cut run or the resumed run ran the wrong epochs")
-        check(l_res == l_full and not differ and a["step"] == b["step"]
-              and torch.equal(a["generator"], b["generator"]),
-              f"the resumed run differs: loss {l_res} vs {l_full}, params {differ[:5]}")
+        _check_resume(torch, "multitask run", full, cut, resumed)
 
         h = hist[1]
         step_ms = h["epoch_seconds"] * 1e3 / steps
@@ -3371,8 +3366,8 @@ def phase_multitask_run(torch, manifest: Path) -> dict:
               f"the forward, {min(32, 128)}-token greedy captions with the K/V cache, "
               f"metrics) | {CARD}", flush=True)
         print(f"multitask run: peak memory {peak_gib:.2f} GiB (torch.cuda.max_memory_allocated);"
-              f" main took {wall:.1f} s (epoch 0 {hist[0]['epoch_seconds']:.2f} s with "
-              f"first-call set-up) | {CARD}", flush=True)
+              f" epoch 0 {hist[0]['epoch_seconds']:.2f} s with first-call set-up | {CARD}",
+              flush=True)
 
         # one step traced, and K3/K4 at the text tower's and the decoder's shapes on
         # this batch's masks
@@ -3437,6 +3432,426 @@ def phase_multitask_run(torch, manifest: Path) -> dict:
     return {"counts": counts, "rows": rows, "times": times}
 
 
+# --------------------------------------------------------------------------- #
+# phases 24 and 25: SigLIP pretraining through main, at
+# config/clip/siglip_multi_positive_config.yaml and config/clip/multivideo_config.yaml
+
+
+def siglip_config(**over):
+    """config/clip/siglip_multi_positive_config.yaml, field by field (a CPU
+    test holds this dict equal to the YAML as the port's parser reads it)."""
+    from deepcoro_clip_tpu_torch.configs import ClipConfig
+
+    d = dict(
+        pipeline_project="DeepCORO_clip", run_mode="train", epochs=30, num_workers=8,
+        seed=42, data_filename="output_dataset/siglip_generated/videos.csv",
+        datapoint_loc_label="FileName", target_label=None, frames=16, stride=1, resize=224,
+        batch_size=20, multi_video=False, max_text_length=512,
+        siglip_texts_path="output_dataset/siglip_generated/texts.csv",
+        siglip_edges_path="output_dataset/siglip_generated/edges.csv",
+        siglip_max_positive_per_video=8, siglip_negatives_per_video=32,
+        siglip_round_robin_sampling=True, siglip_enable_severity_weighting=True,
+        siglip_use_class_aware_sampler=True, siglip_abnormal_ratio=0.5,
+        siglip_bias_init=-10.0, siglip_entropy_reg_weight=0.01, loss_name="siglip_pairwise",
+        model_name="mvit", vit_dim=512, vit_depth=12, vit_heads=4, vit_patch=[2, 16, 16],
+        vit_pool_stages=[3], use_cls_token=True, embedding_dim=512, num_heads=16,
+        aggregator_depth=1, dropout=0.12, optimizer="AdamW", scheduler_name="linear_warmup",
+        lr=0.00002, video_weight_decay=0.00001, text_weight_decay=0.0000001,
+        video_max_grad_norm=1.0, text_max_grad_norm=1.0, video_freeze_ratio=0.8,
+        text_freeze_ratio=0.75, temperature=0.07, precision="bf16",
+        use_pallas_attention=True, use_wandb=False,
+    )
+    d.update(over)
+    return ClipConfig.from_dict(d)
+
+
+def multivideo_config(**over):
+    """config/clip/multivideo_config.yaml, field by field (held equal to the
+    YAML by the same CPU test)."""
+    from deepcoro_clip_tpu_torch.configs import ClipConfig
+
+    d = dict(
+        pipeline_project="DeepCORO_clip", run_mode="train", epochs=30, num_workers=8,
+        seed=42, data_filename="data/reports_study_level.csv", target_label="Report",
+        datapoint_loc_label="FileName", frames=16, stride=1, resize=224, batch_size=8,
+        multi_video=True, num_videos=5, groupby_column="StudyInstanceUID",
+        shuffle_videos=True, max_text_length=512, model_name="mvit", vit_dim=512,
+        vit_depth=12, vit_heads=4, vit_patch=[2, 16, 16], vit_pool_stages=[3],
+        use_cls_token=True, embedding_dim=512, num_heads=8, aggregator_depth=2, dropout=0.1,
+        optimizer="AdamW", scheduler_name="cosine_with_warmup", lr=0.0001,
+        loss_name="siglip", temperature=0.079, max_grad_norm=1.0, recall_k=[1, 5, 10, 50],
+        ndcg_k=[5], precision="bf16", use_pallas_attention=True, use_wandb=False,
+    )
+    d.update(over)
+    return ClipConfig.from_dict(d)
+
+
+def siglip_cto_columns() -> dict:
+    """{segment: its CTO flag column} of ``siglip_rows``."""
+    from deepcoro_clip_tpu_torch.data.dataset_creation import SEGMENT_INFO
+
+    return {seg: f"{seg}_cto" for seg in SEGMENT_INFO}
+
+
+def siglip_rows(manifest: Path, seed: int = 0) -> list:
+    """One row a clip of a rendered corpus (its ``data.csv``), for
+    ``build_siglip_manifests``: FileName, Split, video_id (the clip's
+    StudyInstanceUID) and, for each finding ``synthetic_angio.sample_findings``
+    gave the clip, ``<segment>_stenosis`` (its percent; 100 for a CTO) and
+    ``<segment>_cto``. A corpus segment's key is the one whose aliases name
+    it (``stenosis_extractor.SEGMENT_ALIASES``)."""
+    from deepcoro_clip_tpu_torch.data.csv_utils import read_csv_with_fallback
+    from deepcoro_clip_tpu_torch.data.synthetic_angio import SEGMENTS, sample_findings
+    from deepcoro_clip_tpu_torch.utils.stenosis_extractor import SEGMENT_ALIASES
+
+    keys = [next(k for k, names in SEGMENT_ALIASES.items() if name in names)
+            for name, *_ in SEGMENTS]
+    rows = []
+    for r in read_csv_with_fallback(manifest).rows:
+        row = {"FileName": r["FileName"], "video_id": r["StudyInstanceUID"],
+               "Split": r["Split"]}
+        clip = int(str(r["StudyInstanceUID"]).replace("SYN", ""))
+        for f in sample_findings(clip, seed):
+            key = keys[f.segment]
+            row[f"{key}_stenosis"] = 100.0 if f.severity == "cto" else float(f.pct)
+            row[f"{key}_cto"] = f.severity == "cto"
+        rows.append(row)
+    return rows
+
+
+# batch_size of phase 24's run: 20 in the YAML does not fit one 80 GB card
+# (phase 24's memory reckoning prints why); every other shape is the YAML's
+SIGLIP_BATCH = 7
+SIGLIP_MEASURE = (2, 4)  # batch sizes of the memory reckoning
+CARD_MARGIN = 0.85  # of the card's memory a batch may reckon to use
+# launches per train step and per validation batch of phase 24: K1 / K2 in
+# the 12 video blocks; K3 / K4 in the text tower's 12 layers over the bank of
+# batch_size x 40 texts at L 512 (the tile kernels) and the aggregator's 1
+# block at N 1 (16 heads of 32, padded to 64: the short kernels); each bank
+# chunk of 64 validation texts: 12 K3
+SIGLIP_PER_STEP = {"K1": 12, "K2": 12, "K3": 13, "K4": 13, "K5": 0, "K6": 0}
+SIGLIP_PER_VAL = {"K1": 12, "K2": 0, "K3": 13, "K4": 0, "K5": 0, "K6": 0}
+# phase 25: the text tower's 12 layers at [8,12,512,64] and the aggregator's
+# 2 blocks at [8,8,5,64]
+MV_BATCH = 8
+MV_PER_STEP = {"K1": 12, "K2": 12, "K3": 14, "K4": 14, "K5": 0, "K6": 0}
+MV_PER_VAL = {"K1": 12, "K2": 0, "K3": 14, "K4": 0, "K5": 0, "K6": 0}
+PER_BANK_CHUNK = {"K1": 0, "K2": 0, "K3": 12, "K4": 0, "K5": 0, "K6": 0}
+TILE_KERNELS = ("flash_fwd_kernel<", "bwd_rows_kernel", "flash_bwd_dkv_kernel<",
+                "flash_bwd_dq_kernel<")
+
+
+def _runs_through_main(torch, label: str, cfg, runner):
+    """``cfg(name, **over)``'s run through main, counted from 0 and its peak
+    memory read; a run of it stopped after epoch 0 (``runner.train`` cut at
+    ``end_epoch=1``, as a killed run would stop) and that run resumed.
+    Returns (full, cut, resumed, counts, wall seconds, peak GiB)."""
+    from deepcoro_clip_tpu_torch.main import main
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    full = main(config=cfg("full"))
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    train = runner.train
+    runner.train = lambda self, start_epoch=0, end_epoch=None: train(self, start_epoch, 1)
+    try:
+        cut = main(config=cfg("cut"))
+    finally:
+        runner.train = train
+    resumed = main(config=cfg("cut", resume_training=True, checkpoint=cut["output_dir"]))
+    print(f"{label}: main took {wall:.1f} s for 2 epochs (set-up, dataset statistics and "
+          f"checkpoint writes included) | {CARD}", flush=True)
+    return full, cut, resumed, counts, wall, peak_gib
+
+
+def _check_resume(torch, label: str, full, cut, resumed) -> None:
+    """The resumed run's epoch 1 and final checkpoint bit-equal to the
+    uninterrupted run's."""
+    hist = full["history"]
+    a = torch.load(Path(full["output_dir"]) / "checkpoints" / "checkpoint.pt", weights_only=True)
+    b = torch.load(Path(resumed["output_dir"]) / "checkpoints" / "checkpoint.pt",
+                   weights_only=True)
+    differ = [k for k in a["params"] if not torch.equal(a["params"][k], b["params"][k])]
+    l_full, l_res = hist[1]["loss"], resumed["history"][0]["loss"]
+    print(f"{label}: resume from epoch 0's checkpoint: epoch-1 train loss {l_res!r} vs "
+          f"{l_full!r} uninterrupted, val loss {resumed['history'][0]['val_loss']!r} vs "
+          f"{hist[1]['val_loss']!r}; {len(differ)} of {len(a['params'])} parameter tensors "
+          "differ (tolerance: none, bit-equal)", flush=True)
+    check([h["epoch"] for h in cut["history"]] == [0]
+          and [h["epoch"] for h in resumed["history"]] == [1],
+          f"{label}: the cut run or the resumed run ran the wrong epochs")
+    check(l_res == l_full and not differ and a["step"] == b["step"]
+          and torch.equal(a["generator"], b["generator"]),
+          f"{label}: the resumed run differs: loss {l_res} vs {l_full}, params {differ[:5]}")
+
+
+def _run_checks(torch, label: str, full, counts, want) -> dict:
+    """Losses finite, launches as predicted, logit_bias moved from its
+    initial value, the checkpoints and the validation artifacts; returns
+    the final checkpoint's logit_bias and temperature."""
+    hist = full["history"]
+    check(len(hist) == 2, f"{label}: {len(hist)} epochs in the history")
+    check(all(math.isfinite(h[k]) for h in hist for k in ("loss", "val_loss")),
+          f"{label}: non-finite loss in {hist}")
+    print(f"{label}: launches over the whole run: "
+          + ", ".join(f"{k} {counts[k]} (predicted {want[k]})" for k in want), flush=True)
+    check(counts == want, f"{label}: launches {counts}, predicted {want}")
+    run = Path(full["output_dir"])
+    ck = sorted(p.name for p in (run / "checkpoints").iterdir())
+    for prefix in ("checkpoint.", "best_model_epoch_"):
+        kind = [n for n in ck if n.startswith(prefix)]
+        check(sorted(Path(n).suffix for n in kind) == [".json", ".pt"],
+              f"{label}: checkpoint files {prefix}*: {kind}")
+    for epoch in (0, 1):
+        for name in (f"unique_texts_epoch_{epoch}.csv", f"retrieval_results_epoch_{epoch}.csv",
+                     f"text_embeddings_epoch_{epoch}.npz"):
+            check((run / "val" / name).exists(), f"{label}: no val/{name}")
+    params = torch.load(run / "checkpoints" / "checkpoint.pt", weights_only=True)["params"]
+    bias, temp = float(params["logit_bias"]), math.exp(float(params["log_temp"]))
+    print(f"{label}: checkpoints {ck}; validation artifacts of both epochs written; "
+          f"logit_bias {bias!r} after {len(hist)} epochs (initial -10.0), temperature "
+          f"{temp:.6f}", flush=True)
+    check(bias != -10.0 and math.isfinite(bias), f"{label}: logit_bias {bias} did not move")
+    return {"logit_bias": bias, "temperature": temp}
+
+
+def _bank_chunks(run: Path) -> int:
+    """Chunks of 64 in which validation encoded its bank, over both epochs."""
+    n = 0
+    for epoch in (0, 1):
+        texts = (run / "val" / f"unique_texts_epoch_{epoch}.csv").read_text().splitlines()
+        n += -(-(len(texts) - 1) // 64)
+    return n
+
+
+def _profile_step(torch, label: str, runner, times: dict) -> dict:
+    """One train step of ``runner`` on its first batch traced: busy time, the
+    tile K3/K4 share, the kernels that ran. Returns the device batch."""
+    from deepcoro_clip_tpu_torch.runners.common import batch_to_device
+
+    batch = batch_to_device(next(iter(runner.loaders["train"])), runner.device)
+    cfg = runner.config
+    args = (batch, runner.generator, cfg.video_freeze_ratio, cfg.text_freeze_ratio, -1.0)
+    runner.train_step(runner.state, *args)  # warm
+    per_name, wall_ms = device_events(torch, lambda: runner.train_step(runner.state, *args))
+    print_profile(label, "one train step", per_name, wall_ms, top=14)
+    times["busy_ms"] = sum(per_name.values())
+    times["profiled_step_ms"] = wall_ms
+    times["tile_k3_k4_busy_ms"] = sum(ms for n, ms in per_name.items()
+                                      if any(t in n for t in TILE_KERNELS))
+    print(f"{label}: the tile kernels of K3/K4 (the text tower, L 512) busy "
+          f"{times['tile_k3_k4_busy_ms']:.3f} ms of the step's {times['busy_ms']:.2f} | {CARD}",
+          flush=True)
+    check_main_path_kernels(f"{label}, the text tower's K3 and K4 (L 512)", per_name,
+                            TILE_KERNELS, ())
+    check_main_path_kernels(
+        f"{label}, the aggregator's K3 and K4 and K1, K2", per_name,
+        ("flash_short_fwd_bf16_kernel", "flash_short_bwd_bf16_kernel", "flash_fwd_sm90_kernel",
+         "flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel"), ("ring_step", "flash_fwd_proj"))
+    return batch
+
+
+def _epoch_times(label: str, hist, steps: int, per_step: int, unit: str, peak_gib: float,
+                 wall: float) -> dict:
+    h = hist[1]
+    step_ms = h["epoch_seconds"] * 1e3 / steps
+    times = {"step_ms": step_ms, f"{unit}_per_s": per_step * steps / h["epoch_seconds"],
+             "loader_wait_ms": h["loader_wait_ms"], "validate_s": h["val_seconds"],
+             "peak_gib": peak_gib, "run_s": wall, "epoch0_seconds": hist[0]["epoch_seconds"]}
+    print(f"{label}: step {step_ms:.1f} ms (host clock, epoch 1: {h['epoch_seconds']:.3f} s "
+          f"over {steps} steps, loader wait {h['loader_wait_ms']:.2f} ms a step), "
+          f"{times[f'{unit}_per_s']:.2f} {unit}/s; validation pass {h['val_seconds']:.3f} s; "
+          f"peak memory {peak_gib:.2f} GiB (torch.cuda.max_memory_allocated) | {CARD}",
+          flush=True)
+    return times
+
+
+def _siglip_memory(torch, siglip: dict) -> dict:
+    """Peak memory of one train step at the full recipe and batch sizes
+    SIGLIP_MEASURE (over what the card held before the runner was built:
+    earlier phases' leftovers are not the run's), the line through them
+    reckoned at the YAML's 20 and at SIGLIP_BATCH, which must stay under
+    CARD_MARGIN of the card."""
+    from deepcoro_clip_tpu_torch.runners.common import batch_to_device
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    peaks = {}
+    for b in SIGLIP_MEASURE:
+        cfg = siglip_config(**dict(siglip, output_dir=siglip["output_dir"] + f"_b{b}"),
+                            batch_size=b)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        runner = VideoContrastiveLearningRunner(cfg)
+        batch = batch_to_device(next(iter(runner.loaders["train"])), runner.device)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runner.train_step(runner.state, batch, runner.generator, cfg.video_freeze_ratio,
+                          cfg.text_freeze_ratio, -1.0)
+        torch.cuda.synchronize()
+        peaks[b] = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+        del runner, batch
+        torch.cuda.empty_cache()
+    (b0, p0), (b1, p1) = sorted(peaks.items())
+    per = (p1 - p0) / (b1 - b0)
+    at = {b: p0 + per * (b - b0) for b in (20, SIGLIP_BATCH)}
+    fits = int((CARD_MARGIN * total - p0) // per + b0)
+    print(f"siglip memory: one train step at the recipe's shapes (model, optimizer state, "
+          f"activations, gradients): peak "
+          + ", ".join(f"{p:.2f} GiB at batch {b} ({b * 40} texts x 512 tokens)"
+                      for b, p in sorted(peaks.items()))
+          + f"; {per:.2f} GiB a video with its 40 texts; reckoned {at[20]:.1f} GiB at the "
+          f"YAML's batch 20 against the card's {total:.1f} GiB; at most batch {fits} within "
+          f"{CARD_MARGIN:.0%} of it; this run takes batch {SIGLIP_BATCH} (reckoned "
+          f"{at[SIGLIP_BATCH]:.1f} GiB) | {CARD}", flush=True)
+    check(at[SIGLIP_BATCH] <= CARD_MARGIN * total and SIGLIP_BATCH <= fits,
+          f"siglip memory: batch {SIGLIP_BATCH} reckons {at[SIGLIP_BATCH]:.1f} GiB")
+    return {"peak_gib": peaks, "gib_per_video": per, "reckoned_gib_at_20": at[20],
+            "largest_batch_within_margin": fits, "card_gib": total}
+
+
+def phase_siglip_run(torch, manifest: Path) -> dict:
+    """Phase 24: config/clip/siglip_multi_positive_config.yaml through main
+    on the manifests build_siglip_manifests writes from the corpus of
+    ``manifest``; returns {"counts", "rows" (K3 rows, K4 rows), "times",
+    "aggregator_max_abs_err"}."""
+    from deepcoro_clip_tpu_torch.data.dataset_creation import build_siglip_manifests
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+
+    label = "siglip run"
+    t0 = time.perf_counter()
+    rows = siglip_rows(manifest, seed=0)
+    paths = build_siglip_manifests(rows, manifest.parent / "siglip",
+                                   cto_columns=siglip_cto_columns())
+    n_texts = len(paths["texts"].read_text().splitlines()) - 1
+    n_edges = len(paths["edges"].read_text().splitlines()) - 1
+    print(f"{label}: manifests from the corpus's findings (build_siglip_manifests): "
+          f"{len(rows)} videos, {n_texts} texts, {n_edges} edges, in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        siglip = dict(data_filename=str(paths["videos"]), siglip_texts_path=str(paths["texts"]),
+                      siglip_edges_path=str(paths["edges"]), epochs=2,
+                      num_workers=QUALITY_WORKERS, output_dir=str(tmp / "mem"))
+        memory = _siglip_memory(torch, siglip)
+
+        def cfg(name, **over):
+            return siglip_config(**dict(siglip, output_dir=str(tmp / name)),
+                                 batch_size=SIGLIP_BATCH, **over)
+
+        steps = QUALITY_TRAIN // SIGLIP_BATCH  # the class-aware sampler's batches
+        val_batches = -(-QUALITY_VAL // SIGLIP_BATCH)
+        print(f"{label}: config/clip/siglip_multi_positive_config.yaml with data_filename, "
+              f"siglip_texts_path, siglip_edges_path (the manifests), output_dir=<tmp>, "
+              f"epochs=2, num_workers={QUALITY_WORKERS}, batch_size={SIGLIP_BATCH} (20: see the "
+              f"memory line); {steps} steps and {val_batches} validation batches an epoch, a "
+              f"bank of {SIGLIP_BATCH * 40} texts a step", flush=True)
+        full, cut, resumed, counts, wall, peak_gib = _runs_through_main(
+            torch, label, cfg, VideoContrastiveLearningRunner)
+        hist = full["history"]
+        for h in hist:
+            print(f"{label}: epoch {h['epoch']}: train loss {h['loss']:.4f}, val loss "
+                  f"{h['val_loss']:.4f}, val R@1 {h['val_Recall@1']:.3f} R@5 "
+                  f"{h['val_Recall@5']:.3f} MRR {h['val_MRR']:.3f} alignment "
+                  f"{h['val_alignment']:.4f}, tree_recall@5 "
+                  f"{h['val_semantic/tree_recall@5']:.3f}, segment_severity_alignment@15 "
+                  f"{h.get('val_semantic/segment_severity_alignment@15', float('nan')):.3f}, "
+                  f"temperature {h['temperature']:.5f}, lr {h['lr']:.2e}", flush=True)
+        chunks = _bank_chunks(Path(full["output_dir"]))
+        want = {k: 2 * (SIGLIP_PER_STEP[k] * steps + SIGLIP_PER_VAL[k] * val_batches)
+                + PER_BANK_CHUNK[k] * chunks for k in SIGLIP_PER_STEP}
+        out = _run_checks(torch, label, full, counts, want)
+        semantic = sorted(k for k in hist[1] if k.startswith("val_semantic/"))
+        check("val_semantic/tree_recall@5" in semantic and all(
+            math.isfinite(hist[1][k]) for k in semantic), f"{label}: semantic panel {semantic}")
+        print(f"{label}: semantic panel {', '.join(f'{k[4:]} {hist[1][k]:.3f}' for k in semantic)}",
+              flush=True)
+        _check_resume(torch, label, full, cut, resumed)
+        times = _epoch_times(label, hist, steps, SIGLIP_BATCH, "clips", peak_gib, wall)
+        times.update(out, memory=memory, batch_size=SIGLIP_BATCH)
+
+        runner = VideoContrastiveLearningRunner(cfg("trace"))
+        batch = _profile_step(torch, "siglip profile", runner, times)
+        mask = batch["attention_mask"]
+        valid = batch["text_valid"]
+        real = mask.sum(1)
+        print(f"siglip attention: the bank's mask [{mask.shape[0]},{mask.shape[1]}]: "
+              f"{int(valid.sum())} real texts, {int(mask.sum())} real tokens of {mask.numel()} "
+              f"(shortest {int(real.min())}, longest {int(real.max())})", flush=True)
+        vmask = batch["video_mask"]
+        del runner, batch
+        torch.cuda.empty_cache()
+        rows = _attention_rows(torch, "siglip attention", [
+            ("the SigLIP bank's padding mask", mask.shape[0], 12, mask.shape[1],
+             mask.shape[1], mask, False)], seed=24)
+        *agg, agg_f, agg_b = _aggregator_attention(torch, vmask, "siglip attention", H=16,
+                                                   Dh=32, timed=True)
+    rows = (rows[0] + [agg_f], rows[1] + [agg_b])
+    return {"counts": counts, "rows": rows, "times": times, "aggregator_max_abs_err": agg}
+
+
+def phase_multivideo_run(torch, manifest: Path) -> dict:
+    """Phase 25: config/clip/multivideo_config.yaml through main on the
+    corpus of ``manifest`` grouped into studies; returns as phase 24."""
+    from deepcoro_clip_tpu_torch.data.synthetic_angio import write_study_manifest
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+
+    label = "multivideo run"
+    studies = write_study_manifest(manifest.parent, seed=0)
+    n = _study_counts(studies)
+    steps = n["train"] // MV_BATCH
+    val_batches = -(-n["val"] // MV_BATCH)
+    print(f"{label}: config/clip/multivideo_config.yaml with data_filename={studies.name} "
+          f"({n['train']} train and {n['val']} val studies of 2 to 4 clips, "
+          f"write_study_manifest), output_dir=<tmp>, epochs=2, num_workers={QUALITY_WORKERS}; "
+          f"nothing else changed: {steps} step(s) and {val_batches} validation batch(es) an "
+          "epoch", flush=True)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+
+        def cfg(name, **over):
+            return multivideo_config(data_filename=str(studies), output_dir=str(tmp / name),
+                                     epochs=2, num_workers=QUALITY_WORKERS, **over)
+
+        full, cut, resumed, counts, wall, peak_gib = _runs_through_main(
+            torch, label, cfg, VideoContrastiveLearningRunner)
+        hist = full["history"]
+        for h in hist:
+            print(f"{label}: epoch {h['epoch']}: train loss {h['loss']:.4f}, val loss "
+                  f"{h['val_loss']:.4f}, val R@1 {h['val_Recall@1']:.3f} MRR "
+                  f"{h['val_MRR']:.3f} alignment {h['val_alignment']:.4f}, temperature "
+                  f"{h['temperature']:.5f}, lr {h['lr']:.2e}", flush=True)
+        chunks = _bank_chunks(Path(full["output_dir"]))
+        want = {k: 2 * (MV_PER_STEP[k] * steps + MV_PER_VAL[k] * val_batches)
+                + PER_BANK_CHUNK[k] * chunks for k in MV_PER_STEP}
+        out = _run_checks(torch, label, full, counts, want)
+        _check_resume(torch, label, full, cut, resumed)
+        times = _epoch_times(label, hist, steps, MV_BATCH, "studies", peak_gib, wall)
+        times.update(out)
+
+        runner = VideoContrastiveLearningRunner(cfg("trace"))
+        batch = _profile_step(torch, "multivideo profile", runner, times)
+        mask, vmask = batch["attention_mask"], batch["video_mask"]
+        print(f"multivideo attention: the reports' mask [{mask.shape[0]},{mask.shape[1]}]: "
+              f"{int(mask.sum())} real tokens of {mask.numel()}; {int(vmask.sum())} real clips "
+              f"of {vmask.numel()}", flush=True)
+        del runner, batch
+        torch.cuda.empty_cache()
+        rows = _attention_rows(torch, "multivideo attention", [
+            ("the study reports' padding mask", mask.shape[0], 12, mask.shape[1],
+             mask.shape[1], mask, False)], seed=25)
+        *agg, agg_f, agg_b = _aggregator_attention(torch, vmask, "multivideo attention",
+                                                   timed=True)
+    rows = (rows[0] + [agg_f], rows[1] + [agg_b])
+    return {"counts": counts, "rows": rows, "times": times, "aggregator_max_abs_err": agg}
+
+
 def main(argv) -> int:
     """``--host-only``: phase 1, the build and phase 21 alone, against the
     package of the directory the script lies in (an older tree's too: copy
@@ -3479,7 +3894,7 @@ def main(argv) -> int:
 
 
 def run_all(torch) -> dict:
-    """Phases 2 to 23; returns the "kernels" line."""
+    """Phases 2 to 25; returns the "kernels" line."""
     build_kernels(torch, ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short",
                           "ring_attention"))
     for key, a in hopper_attrs().items():
@@ -3579,15 +3994,23 @@ def run_all(torch) -> dict:
         torch.cuda.empty_cache()
 
         multitask = phase_multitask_run(torch, manifest)
-    for key, e in by_key.items():  # the multitask run's launches
-        e["multitask_train_launches"] = multitask["counts"][key]
-    for key, e in zip(("K5", "K6"), kernels["kernels"][4:]):
-        e["multitask_train_launches"] = multitask["counts"][key]
-    for key, rows in zip(("K3", "K4"), multitask["rows"]):
-        by_key[key]["shapes"] += rows
-        by_key[key]["max_abs_err"] = max([by_key[key]["max_abs_err"]]
-                                         + [r["max_abs_err"] for r in rows])
-    kernels["multitask_train"] = multitask["times"]
+        torch.cuda.empty_cache()
+        siglip = phase_siglip_run(torch, manifest)
+        torch.cuda.empty_cache()
+        multivideo = phase_multivideo_run(torch, manifest)
+    for run, result in (("multitask", multitask), ("siglip", siglip),
+                        ("multivideo", multivideo)):
+        for key, e in zip(("K1", "K3", "K2", "K4", "K5", "K6"), kernels["kernels"]):
+            e[f"{run}_train_launches"] = result["counts"][key]
+        for key, rows in zip(("K3", "K4"), result["rows"]):
+            by_key[key]["shapes"] += rows
+            by_key[key]["max_abs_err"] = max([by_key[key]["max_abs_err"]]
+                                             + [r["max_abs_err"] for r in rows])
+        kernels[f"{run}_train"] = result["times"]
+    for run, result in (("siglip", siglip), ("multivideo", multivideo)):
+        for key, err in zip(("K3", "K4"), result["aggregator_max_abs_err"]):
+            by_key[key][f"{run}_aggregator_max_abs_err"] = err
+            by_key[key]["max_abs_err"] = max(by_key[key]["max_abs_err"], err)
     return kernels
 
 

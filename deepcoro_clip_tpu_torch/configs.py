@@ -145,9 +145,10 @@ class BaseConfig(_ConfigMethods):
 @dataclass
 class ClipConfig(BaseConfig):
     """Every field of the JAX package's ``ClipConfig``, with its default.
-    The SigLIP, multi-positive and LocCa fields are here so that every
-    shipped ``config/clip/*.yaml`` reads; ``unported_settings`` names those
-    set away from their defaults, which the runner refuses."""
+    The contrastive runner runs the SigLIP and multi-positive fields but
+    the single-head sampler; ``unported_settings`` names that one and the
+    LocCa fields when set away from their defaults, which the runner
+    refuses."""
 
     # ---- data ----
     data_filename: str = "data/reports.csv"
@@ -216,7 +217,7 @@ class ClipConfig(BaseConfig):
     # ---- metrics ----
     recall_k: List[int] = field(default_factory=lambda: [1, 5, 10, 50])
     ndcg_k: List[int] = field(default_factory=lambda: [5])
-    # ---- SigLIP multi-positive (not ported yet) ----
+    # ---- SigLIP multi-positive (the single-head sampler is not ported yet) ----
     siglip_texts_path: Optional[str] = None
     siglip_edges_path: Optional[str] = None
     siglip_max_positive_per_video: int = 8
@@ -280,8 +281,10 @@ class ClipConfig(BaseConfig):
 
 
 # the roadmap item of each field family the port does not run yet
-_UNPORTED = (("siglip_", "the SigLIP slice (ROADMAP Queue 1 item 7)"),
-             ("locca_", "the LocCa head of the contrastive path (ROADMAP Queue 1 item 8)"))
+_UNPORTED = (("locca_", "the LocCa head of the contrastive path (ROADMAP Queue 1 item 8)"),)
+# fields the port runs at their default value only
+_DEFAULT_ONLY = {"siglip_sampler": "the single-head SigLIP sampler, "
+                                   "data/single_head_sampler.py (ROADMAP Queue 1 item 7)"}
 
 
 def unported_settings(config) -> List[str]:
@@ -291,14 +294,17 @@ def unported_settings(config) -> List[str]:
     skip = ("locca_",) if isinstance(config, MultitaskConfig) else ()
     out = []
     for f in fields(config):
-        for prefix, item in _UNPORTED:
-            if (f.name.startswith(prefix) and prefix not in skip
-                    and f.name != "siglip_bias_init"):
-                default = (f.default if f.default is not dataclasses.MISSING
-                           else f.default_factory())
-                value = getattr(config, f.name)
-                if value != default:
-                    out.append(f"{f.name}={value!r} ({item})")
+        item = _DEFAULT_ONLY.get(f.name)
+        for prefix, what in _UNPORTED:
+            if f.name.startswith(prefix) and prefix not in skip:
+                item = what
+        if item is None:
+            continue
+        default = (f.default if f.default is not dataclasses.MISSING
+                   else f.default_factory())
+        value = getattr(config, f.name)
+        if value != default:
+            out.append(f"{f.name}={value!r} ({item})")
     return out
 
 

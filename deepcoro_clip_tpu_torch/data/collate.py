@@ -1,12 +1,15 @@
-"""Collation into fixed-shape numpy batches (contrastive mode).
+"""Collation into fixed-shape numpy batches (contrastive modes).
 
-The port's copy of the CLIP parts of the JAX package's ``data/collate.py``:
-``pick_text_bucket``, ``wire_patch``, ``_maybe_patchify`` and
-``collate_clip``. Videos are stacked with their ``video_mask``, reports are
-tokenized to ``max_text_length`` (or to the smallest configured bucket that
-fits the batch's longest report), and with the patch wire the uint8 videos
-leave as patch-major ``[B, N, L, K]`` (``data/patch_wire.py``). The
-multi-positive, single-head and MIL collates come with their slices.
+The port's copy of the contrastive parts of the JAX package's
+``data/collate.py``: ``pick_text_bucket``, ``wire_patch``,
+``_maybe_patchify``, ``collate_clip`` and ``collate_multi_positive``.
+Videos are stacked with their ``video_mask``; ``collate_clip`` tokenizes
+each sample's report to ``max_text_length`` (or to the smallest configured
+bucket that fits the batch's longest report), ``collate_multi_positive``
+the batch's bank of unique texts, padded to exactly ``max_texts``. With the
+patch wire the uint8 videos leave as patch-major ``[B, N, L, K]``
+(``data/patch_wire.py``). The single-head and MIL collates come with their
+slices.
 """
 
 from __future__ import annotations
@@ -81,4 +84,66 @@ def collate_clip(
         "texts": texts,
         "paths": [it["paths"] for it in items],
         "study_ids": [it.get("study_id", "") for it in items],
+    }
+
+
+def collate_multi_positive(
+    items: List[Dict[str, Any]],
+    tokenizer,
+    max_text_length: int = 512,
+    max_texts: int = 64,
+    patch: Optional[Sequence[int]] = None,
+) -> Dict[str, Any]:
+    """SigLIP multi-positive mode: the texts of the items' ``positives`` and
+    ``negatives`` (lists of ``(text, weight)``), deduplicated in order into
+    a bank of at most ``max_texts``, padded with ``""`` to exactly
+    ``max_texts`` (``text_valid`` marks the real slots; texts past a full
+    bank are dropped and counted). ``positive_mask`` ``[B, M]`` marks each
+    item's positives; ``positive_weights`` ``[B, M]`` holds the weight of
+    each positive and sampled negative, 1 elsewhere."""
+    B = len(items)
+    text_to_idx: Dict[str, int] = {}
+    bank: List[str] = []
+    pos = np.zeros((B, max_texts), np.float32)
+    w = np.ones((B, max_texts), np.float32)
+    dropped = 0
+
+    def slot(text):
+        nonlocal dropped
+        j = text_to_idx.get(text)
+        if j is None:
+            if len(bank) >= max_texts:
+                dropped += 1
+                return None
+            j = text_to_idx[text] = len(bank)
+            bank.append(text)
+        return j
+
+    for i, it in enumerate(items):
+        for text, weight in it.get("positives", []):
+            j = slot(text)
+            if j is not None:
+                pos[i, j] = 1.0
+                w[i, j] = np.float32(weight)
+        for text, weight in it.get("negatives", []):
+            j = slot(text)
+            if j is not None:  # a negative: its weight scales the negative term
+                w[i, j] = np.float32(weight)
+
+    M = len(bank)
+    enc = tokenizer(bank + [""] * (max_texts - M), max_length=max_text_length,
+                    padding="max_length", truncation=True, return_tensors="np")
+    valid = np.zeros((max_texts,), np.float32)
+    valid[:M] = 1.0
+    return {
+        "videos": _maybe_patchify(np.stack([it["videos"] for it in items]), patch),
+        "video_mask": np.stack([it["video_mask"] for it in items]),
+        "input_ids": np.asarray(enc["input_ids"], np.int32),
+        "attention_mask": np.asarray(enc["attention_mask"], np.int32),
+        "positive_mask": pos,
+        "positive_weights": w,
+        "text_valid": valid,
+        "unique_texts": bank,
+        "paths": [it.get("paths", []) for it in items],
+        "n_dropped_texts": dropped,
     }

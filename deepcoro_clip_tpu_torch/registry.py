@@ -2,8 +2,8 @@
 
 The port's copy of the JAX package's ``registry.py``, with the registries
 the ported pipelines need: the YAML key ``pipeline_project`` picks the
-project (``main``) and the project picks its runner, by the same strings as
-there. ``register_all`` imports every module under ``runners/`` and
+project (``main``) and the project picks its runner, and the contrastive
+step picks a loss by ``loss_name``, by the same strings as there. ``register_all`` imports every module under ``runners/`` and
 ``projects/`` so that their decorators run. Configs are picked by
 ``configs.CONFIG_CLASSES``.
 """
@@ -54,6 +54,12 @@ class RunnerRegistry(BaseRegistry):
 
 class ProjectRegistry(BaseRegistry):
     """Projects keyed by pipeline_project."""
+
+    _registry: Dict[str, Type] = {}
+
+
+class LossRegistry(BaseRegistry):
+    """Contrastive losses keyed by loss_name (``losses/contrastive.py``)."""
 
     _registry: Dict[str, Type] = {}
 

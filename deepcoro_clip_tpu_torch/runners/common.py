@@ -76,7 +76,8 @@ def read_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
 
 
 def run_pipelined_epoch(runner, epoch: int, step: Callable[[Dict[str, torch.Tensor]], Dict],
-                        log_every: Optional[int] = None) -> Dict[str, float]:
+                        log_every: Optional[int] = None,
+                        after_step: Optional[Callable] = None) -> Dict[str, float]:
     """One train epoch of ``runner`` (its ``loaders["train"]``, ``device``,
     ``state``, ``ckpt``, ``generator``, ``config`` and ``logger``):
     ``step(device_batch)`` runs one train step, sets ``runner.state`` and
@@ -87,7 +88,9 @@ def run_pipelined_epoch(runner, epoch: int, step: Callable[[Dict[str, torch.Tens
     and a non-finite loss is seen one step late: the ``nan_debug`` snapshot
     holds the state one step past the failing one (whose update the step's
     non-finite guard withheld), and ``NonFiniteLossError`` is raised. With
-    ``log_every`` every such step's metrics are logged under ``step/``.
+    ``log_every`` every such step's metrics are logged under ``step/``;
+    ``after_step(i, host batch, device batch, metrics read)`` runs for each
+    step once its metrics are read.
     Returns the mean of every step metric and ``loader_wait_ms``, the
     host's mean wait for the next batch a step."""
     loader = runner.loaders["train"]
@@ -95,11 +98,11 @@ def run_pipelined_epoch(runner, epoch: int, step: Callable[[Dict[str, torch.Tens
     agg: Dict[str, float] = {}
     n = 0
     wait = 0.0
-    pending = None  # (i, metrics) of the step before
+    pending = None  # (i, metrics, host batch, device batch) of the step before
 
     def consume(entry):
         nonlocal n
-        i, metrics = entry
+        i, metrics, batch, device_batch = entry
         values = read_metrics(metrics)
         loss = values["loss"]
         if not math.isfinite(loss):
@@ -119,6 +122,8 @@ def run_pipelined_epoch(runner, epoch: int, step: Callable[[Dict[str, torch.Tens
         if log_every and i % log_every == 0:
             runner.logger.log({f"step/{k}": v for k, v in values.items()},
                               step=int(runner.state.step))
+        if after_step is not None:
+            after_step(i, batch, device_batch, values)
 
     batches = iter(loader)
     i = 0
@@ -128,10 +133,12 @@ def run_pipelined_epoch(runner, epoch: int, step: Callable[[Dict[str, torch.Tens
         wait += time.perf_counter() - t0
         if batch is None:
             break
-        metrics = step(batch_to_device(batch, runner.device))
+        device_batch = batch_to_device(batch, runner.device)
+        metrics = step(device_batch)
         if pending is not None:
             consume(pending)
-        pending = (i, metrics)
+        pending = (i, metrics, batch if after_step else None,
+                   device_batch if after_step else None)
         i += 1
     if pending is not None:
         consume(pending)

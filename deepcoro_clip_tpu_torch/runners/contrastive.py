@@ -1,9 +1,8 @@
-"""Contrastive (CLIP) runner: epochs of train steps, validation with
-retrieval metrics, checkpoints, early stopping, resume.
+"""Contrastive (CLIP / SigLIP) runner: epochs of train steps, validation
+with retrieval metrics, checkpoints, early stopping, resume.
 
 The port's ``VideoContrastiveLearningRunner`` (the JAX package's
-``runners/contrastive.py``) for the ``contrastive``/``clip`` losses on one
-card:
+``runners/contrastive.py``) on one card:
 
 - ``train``: per epoch the temperature and freeze-ratio schedules, the
   epoch-seeded batch order, a train epoch, a validation epoch, then the
@@ -12,11 +11,21 @@ card:
 - the step loop is pipelined: step i's metrics are read (one copy to the
   host) only after step i+1 has been enqueued, so the card is not left
   idle while the host reads;
-- ``validate``: embeddings of every validation sample, the reports
-  deduplicated into a bank re-encoded in batches of 64, the similarity
-  matrix, Recall@k, NDCG@k, MRR, MAP, median rank and the alignment score;
-  the bank, the embeddings and a per-video retrieval table are written
-  under ``{run dir}/{split}/``;
+- SigLIP: with ``siglip_texts_path`` the datasets are
+  ``data/siglip.SiglipVideoDataset`` over the texts/edges manifests (each
+  item a pack of positive and negative texts), with
+  ``siglip_use_class_aware_sampler`` the training batches come from
+  ``ClassAwareBatchSampler``, and a multi-positive loss collates each batch
+  with ``collate_multi_positive`` (a bank of ``batch_size x
+  (siglip_max_positive_per_video + siglip_negatives_per_video)`` texts);
+  the ``siglip_debug_*`` settings gate per-sample logit dumps;
+- ``validate``: embeddings of every validation sample, the reports (with a
+  multi-positive loss: every video's positives) deduplicated into a bank
+  re-encoded in batches of 64, the similarity matrix, Recall@k, NDCG@k,
+  MRR, MAP, median rank and the alignment score, scored against each
+  video's full positive set, and with the SigLIP resources the
+  tree/segment/severity panel; the bank, the embeddings and a per-video
+  retrieval table are written under ``{run dir}/{split}/``;
 - ``maybe_resume`` / ``restore_best``;
 - ``init_from_checkpoint``: a warm start of the parameters from a port
   checkpoint (``.pt``) or from an ``.npz`` of the JAX training tree
@@ -27,8 +36,8 @@ seeded from ``config.seed`` and kept in every checkpoint. The JAX runner
 derives a key per step with ``fold_in``/``split``; the masks differ (a
 deliberate divergence), the arithmetic does not. The qualitative HTML
 panels and the end-of-run plots of the JAX runner are left out (offline
-tools), as are the SigLIP, multi-positive and LocCa paths and
-``run_mode: inference``, which raise ``NotImplementedError``.
+tools); the single-head sampler, the LocCa head and ``run_mode:
+inference`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,8 +53,16 @@ import torch
 
 from deepcoro_clip_tpu_torch import convert
 from deepcoro_clip_tpu_torch.configs import unported_settings
-from deepcoro_clip_tpu_torch.data.collate import collate_clip, wire_patch
+from deepcoro_clip_tpu_torch.data.collate import (
+    collate_clip,
+    collate_multi_positive,
+    wire_patch,
+)
 from deepcoro_clip_tpu_torch.data.datasets import VideoClipDataset
+from deepcoro_clip_tpu_torch.data.loader import PrefetchLoader
+from deepcoro_clip_tpu_torch.data.sampler import ClassAwareBatchSampler
+from deepcoro_clip_tpu_torch.data.siglip import SiglipResources, SiglipVideoDataset
+from deepcoro_clip_tpu_torch.data.siglip_runtime import SiglipRuntimeSettings
 from deepcoro_clip_tpu_torch.data.tokenizer import get_tokenizer
 from deepcoro_clip_tpu_torch.device import resolve_device
 from deepcoro_clip_tpu_torch.registry import RunnerRegistry
@@ -61,10 +78,12 @@ from deepcoro_clip_tpu_torch.train import clip as clip_train
 from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
 from deepcoro_clip_tpu_torch.train.run_schedules import freeze_ratio_at, temperature_at
 from deepcoro_clip_tpu_torch.utils.logging_utils import MetricsLogger
+from deepcoro_clip_tpu_torch.utils import siglip_logging
 from deepcoro_clip_tpu_torch.utils.retrieval_metrics import (
     compute_alignment_score,
     compute_retrieval_metrics,
 )
+from deepcoro_clip_tpu_torch.utils.semantic_metrics import compute_semantic_metrics
 
 
 def check_ported(config) -> None:
@@ -73,11 +92,6 @@ def check_ported(config) -> None:
         raise NotImplementedError(
             "run_mode 'inference' is not ported yet (ROADMAP Queue 1 item 4: "
             "what is left)")
-    name = config.loss_name.lower()
-    if name in clip_train.MULTI_POSITIVE_LOSSES or name.startswith("siglip"):
-        raise NotImplementedError(
-            f"loss_name={config.loss_name!r}: the SigLIP and multi-positive losses "
-            "come with the SigLIP slice (ROADMAP Queue 1 item 7)")
     unported = unported_settings(config)
     if unported:
         raise NotImplementedError("not ported yet: " + ", ".join(unported))
@@ -111,11 +125,14 @@ class VideoContrastiveLearningRunner:
         self.tokenizer = get_tokenizer(
             vocab_size=config.text_vocab_size, max_length=config.max_text_length
         )
+        self.multi_positive = clip_train.is_multi_positive(config)
+        self.siglip_runtime = SiglipRuntimeSettings.from_config(config, str(self.output_dir))
+        self.siglip_resources = None  # set with the texts/edges manifests
         self.datasets = datasets if datasets is not None else self._build_datasets()
         # before the bundle: the uint8 wire's patchify folds the stats in
         self.stats = resolve_dataset_stats(config, self.datasets)
         self.loaders = {
-            split: make_loader(config, ds, self._collate, split == "train")
+            split: self._make_loader(ds, split == "train")
             for split, ds in self.datasets.items()
             if ds is not None
         }
@@ -139,6 +156,7 @@ class VideoContrastiveLearningRunner:
         self.best_epoch = -1
         self.highest_alignment = -math.inf
         self.start_epoch = 0
+        self.siglip_debug = None  # the dump's logger, made at its first batch
 
     # ------------------------------------------------------------------ #
     # setup
@@ -148,8 +166,29 @@ class VideoContrastiveLearningRunner:
         cfg = self.config
         common = dataset_kwargs(cfg)
 
-        def make(split, augment=False):
-            return VideoClipDataset(split=split, rand_augment=augment, **common)
+        if not cfg.siglip_texts_path:
+            def make(split, augment=False):
+                return VideoClipDataset(split=split, rand_augment=augment, **common)
+        else:
+            edges = cfg.siglip_edges_path or str(Path(cfg.siglip_texts_path).parent
+                                                 / "edges.csv")
+            resources = SiglipResources(
+                cfg.siglip_texts_path, edges,
+                severity_weights=cfg.siglip_positive_severity_weights,
+                enable_severity_weighting=cfg.siglip_enable_severity_weighting)
+            self.siglip_resources = resources
+            sampling = self.siglip_runtime.sampling
+
+            def make(split, augment=False):
+                return SiglipVideoDataset(
+                    split=split, rand_augment=augment, siglip=resources,
+                    max_positive_per_video=sampling.max_positive_per_video,
+                    negatives_per_video=sampling.negatives_per_video,
+                    round_robin=sampling.round_robin,
+                    max_segments_per_video=sampling.max_segments_per_video,
+                    contradiction_boost=sampling.contradiction_boost,
+                    contradiction_min_severity=sampling.contradiction_min_severity,
+                    **common)
 
         out: Dict[str, Any] = {}
         if cfg.run_mode == "train":
@@ -165,10 +204,34 @@ class VideoContrastiveLearningRunner:
 
     def _collate(self, items):
         cfg = self.config
+        if self.multi_positive:
+            # room for every video's positives and negatives
+            max_texts = cfg.batch_size * (cfg.siglip_max_positive_per_video
+                                          + cfg.siglip_negatives_per_video)
+            return collate_multi_positive(items, self.tokenizer,
+                                          max_text_length=cfg.max_text_length,
+                                          max_texts=max_texts, patch=wire_patch(cfg))
         # length buckets are per-host batch content: one process only
         buckets = cfg.text_length_buckets if cfg.process_count == 1 else []
         return collate_clip(items, self.tokenizer, max_text_length=cfg.max_text_length,
                             length_buckets=buckets, patch=wire_patch(cfg))
+
+    def _make_loader(self, dataset, training: bool):
+        """The training batches of the class-aware sampler when the SigLIP
+        settings ask for it and the dataset labels its samples; else the
+        epoch-seeded order of ``make_loader``."""
+        cfg = self.config
+        sampling = self.siglip_runtime.sampling
+        if not (training and sampling.use_class_aware_sampler
+                and hasattr(dataset, "abnormal_labels")):
+            return make_loader(cfg, dataset, self._collate, training)
+        sampler = ClassAwareBatchSampler(
+            dataset.abnormal_labels(), cfg.batch_size,
+            abnormal_ratio=sampling.abnormal_ratio, seed=cfg.seed,
+            process_index=cfg.process_index, process_count=cfg.process_count)
+        return PrefetchLoader(dataset, sampler, self._collate,
+                              num_workers=max(1, cfg.num_workers),
+                              backend=cfg.loader_backend)
 
     def init_from_checkpoint(self, path: str) -> None:
         """Warm start of the parameters (optimizer and step stay fresh) from
@@ -279,8 +342,39 @@ class VideoContrastiveLearningRunner:
                                                   vfr, tfr, temp)
             return metrics
 
-        return run_pipelined_epoch(self, epoch, step,
-                                   log_every=max(1, self.config.period * 10))
+        def after_step(i, batch, device_batch, metrics):
+            if self.siglip_runtime.debug.fires(epoch, i) and self.config.is_ref_device:
+                self._siglip_debug_dump(epoch, batch, device_batch, metrics)
+
+        return run_pipelined_epoch(
+            self, epoch, step, log_every=max(1, self.config.period * 10),
+            after_step=after_step if self.multi_positive else None)
+
+    def _siglip_debug_dump(self, epoch, batch, device_batch, metrics):
+        """One deterministic forward on the current parameters (one step
+        past the step whose metrics these are), then each sampled video's
+        logits against the batch's bank, with the step's metrics, into
+        ``siglip_debug/epoch_{e}.jsonl``."""
+        params = self.state.params
+        out = self.eval_step(params, device_batch)
+        bias = params["logit_bias"].item()
+        logits = siglip_logging.siglip_logits(
+            out["video_emb"].float().cpu().numpy(), out["text_emb"].float().cpu().numpy(),
+            params["log_temp"].item(), bias, self.config.siglip_logit_clamp)
+        records = siglip_logging.build_debug_records(
+            [p[0] for p in batch["paths"]], batch.get("unique_texts", []),
+            np.asarray(batch["positive_mask"]), logits,
+            positive_weights=batch.get("positive_weights"),
+            sample_count=self.config.siglip_debug_sample_count)
+        if self.siglip_debug is None:
+            self.siglip_debug = siglip_logging.SiglipDebugLogger(self.output_dir)
+        step = int(self.state.step)
+        self.siglip_debug.log_batch(epoch, step, records, header={
+            "params_step": step, "metrics_step": step - 1,
+            "loss": metrics["loss"], "temperature": metrics["temperature"],
+            "logit_bias": bias, "grad_norm": metrics["grad_norm"],
+            "grad_norm_video": metrics.get("grad_norm_video_encoder", 0.0),
+            "grad_norm_text": metrics.get("grad_norm_text_encoder", 0.0)})
 
     # ------------------------------------------------------------------ #
     # validation with retrieval metrics
@@ -300,9 +394,13 @@ class VideoContrastiveLearningRunner:
 
         def consume(batch, out):
             losses.append(float(out["loss"]))
-            n_real = len(batch["texts"])
+            n_real = len(batch["paths"])
             v_embs.append(out["video_emb"].float().cpu().numpy()[:n_real])
-            texts.extend([[t] for t in batch["texts"]])
+            if self.multi_positive:
+                # every positive of a video, not its first only
+                texts.extend([t or [""] for t in self._positives_of_batch(batch)])
+            else:
+                texts.extend([[t] for t in batch["texts"]])
             paths.extend([p[0] for p in batch["paths"]])
 
         pending = None
@@ -321,6 +419,13 @@ class VideoContrastiveLearningRunner:
         metrics.update(self._retrieval_eval(v_emb, texts, epoch, split, paths=paths))
         metrics["seconds"] = time.perf_counter() - t0
         return metrics
+
+    @staticmethod
+    def _positives_of_batch(batch) -> List[List[str]]:
+        """Each video's positive texts, from the batch's bank."""
+        uniq = batch.get("unique_texts", [])
+        return [[uniq[j] for j in np.flatnonzero(row) if j < len(uniq)]
+                for row in np.asarray(batch["positive_mask"])]
 
     @torch.no_grad()
     def _encode_texts(self, unique_texts: List[str], batch_size: int = 64):
@@ -344,7 +449,9 @@ class VideoContrastiveLearningRunner:
     def _retrieval_eval(self, v_emb, texts, epoch, split,
                         paths: Optional[List[str]] = None) -> Dict[str, float]:
         """Dedup -> encode -> N x M similarity -> metrics -> artifacts.
-        ``texts``: each video's positive reports (one here)."""
+        ``texts``: each video's positive texts (its report alone in CLIP
+        mode); the ground truth marks every positive, the alignment and the
+        artifacts read the first."""
         cfg = self.config
         uniq: Dict[str, int] = {}
         pos_ids: List[List[int]] = []
@@ -370,6 +477,14 @@ class VideoContrastiveLearningRunner:
         metrics = compute_retrieval_metrics(sim, gt, recall_k=cfg.recall_k,
                                             ndcg_k=cfg.ndcg_k)
         metrics["alignment"] = compute_alignment_score(v_emb, t_emb[np.asarray(text_ids)])
+        if self.multi_positive and self.siglip_resources is not None:
+            # the tree/segment/severity panel, keyed by text through the
+            # SigLIP text catalog
+            res = self.siglip_resources
+            meta_by_text: Dict[str, Dict] = {}
+            for tid, meta in res.meta_by_id.items():
+                meta_by_text.setdefault(res.text_by_id.get(tid, ""), meta)
+            metrics.update(compute_semantic_metrics(sim, texts, meta_by_text, unique_texts))
 
         if cfg.is_ref_device:
             art = self.output_dir / split

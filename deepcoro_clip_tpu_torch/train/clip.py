@@ -5,11 +5,17 @@ forward, the batch contrastive loss, backward (through the CUDA attention
 kernels), the per-group optimizer update with dynamic freeze masks. bf16
 compute, fp32 parameters, no gradient scaler.
 
+The loss is picked by ``loss_name`` as in the JAX module: the CLIP
+losses, ``siglip`` (pairwise over the batch, with the learnable
+``logit_bias``) and the multi-positive family (``MULTI_POSITIVE_LOSSES``),
+which scores each video against the batch's bank of unique texts
+(``positive_mask``, ``positive_weights``, ``text_valid`` from
+``data/collate.collate_multi_positive``).
+
 A step updates the state it is given in place (parameters, moments, counts)
 and returns it with ``step + 1``; PyTorch runs it eagerly, so
-``make_train_step`` returns a plain function. The SigLIP family, the
-multi-positive losses and the LocCa head of the JAX module are not ported
-yet and raise ``NotImplementedError``.
+``make_train_step`` returns a plain function. The LocCa head of the JAX
+module is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from deepcoro_clip_tpu_torch.models.video_encoder import (
     video_encoder_from_config,
 )
 from deepcoro_clip_tpu_torch.parallel.mesh import Mesh, MeshSpec, make_mesh
+from deepcoro_clip_tpu_torch.registry import LossRegistry
 from deepcoro_clip_tpu_torch.train import optim as optim_lib
 from deepcoro_clip_tpu_torch.train.schedulers import get_scheduler
 from deepcoro_clip_tpu_torch.train.state import TrainState
@@ -38,6 +45,7 @@ MULTI_POSITIVE_LOSSES = {
 }
 CLIP_LOSSES = {"contrastive", "clip", "contrastive_ddp", "infonce_loss",
                "infonce_loss_ddp", "infonce"}
+SIGLIP_LOSSES = {"siglip", "siglip_ddp"}
 
 
 class ClipBundle(NamedTuple):
@@ -53,13 +61,14 @@ class ClipBundle(NamedTuple):
     text_fracs: Dict[str, float]
 
 
+def is_multi_positive(config) -> bool:
+    """The loss scores each video against a bank of texts."""
+    return config.loss_name.lower() in MULTI_POSITIVE_LOSSES
+
+
 def _check_loss_name(config) -> None:
     name = config.loss_name.lower()
-    if name in MULTI_POSITIVE_LOSSES or name in ("siglip", "siglip_ddp"):
-        raise NotImplementedError(
-            f"loss_name={config.loss_name!r}: the SigLIP and multi-positive "
-            "losses come with the SigLIP slice of the port")
-    if name not in CLIP_LOSSES:
+    if name not in CLIP_LOSSES | SIGLIP_LOSSES | MULTI_POSITIVE_LOSSES:
         raise ValueError(f"unknown loss_name {config.loss_name!r}")
     if getattr(config, "locca_enabled", False) or config.extra().get("locca_enabled"):
         raise NotImplementedError(
@@ -98,8 +107,8 @@ def build_clip_bundle(config, seed: int = 0, steps_per_epoch: int = 100,
     video_model = init_params(video_encoder_from_config(config, ring_mesh=ring_mesh),
                               seed).to(dev)
     text_model = init_params(text_encoder_from_config(config), seed + 1).to(dev)
-    # learnable temperature and the SigLIP bias (unused by clip_loss, kept
-    # in the tree as in the JAX package)
+    # learnable temperature and the SigLIP bias (read by the SigLIP losses;
+    # unused by clip_loss, kept in the tree as in the JAX package)
     log_temp = torch.nn.Parameter(torch.tensor(
         math.log(config.temperature), dtype=torch.float32, device=dev))
     logit_bias = torch.nn.Parameter(torch.tensor(
@@ -153,16 +162,38 @@ def _forward_embeddings(bundle: ClipBundle, batch, generator, deterministic):
 
 
 def compute_loss(bundle: ClipBundle, log_temp, batch, generator=None,
-                 deterministic: bool = False) -> Dict[str, torch.Tensor]:
-    """Forward both towers and the contrastive loss. The models read their
-    own parameters; ``log_temp`` is passed so that a step can pin it."""
-    _check_loss_name(bundle.config)
+                 deterministic: bool = False, logit_bias=None) -> Dict[str, torch.Tensor]:
+    """Forward both towers and the configured loss. The models read their
+    own parameters; ``log_temp`` is passed so that a step can pin it, and
+    ``logit_bias`` (the SigLIP losses') is the model's own scalar."""
+    cfg = bundle.config
+    name = cfg.loss_name.lower()
     v_emb, t_emb = _forward_embeddings(bundle, batch, generator, deterministic)
     v_emb = torch.nan_to_num(v_emb)
     t_emb = torch.nan_to_num(t_emb)
-    out = closs.clip_loss(v_emb, t_emb, log_temp,
-                          label_smoothing=bundle.config.label_smoothing,
-                          sample_mask=batch.get("sample_mask"))
+    sample_mask = batch.get("sample_mask")
+    if name == "multi_positive_infonce":
+        out = closs.multi_positive_infonce_loss(
+            v_emb, t_emb, batch["positive_mask"], log_temp,
+            positive_weights=batch.get("positive_weights"),
+            text_valid=batch.get("text_valid"), sample_mask=sample_mask)
+    elif name in MULTI_POSITIVE_LOSSES:
+        out = LossRegistry.get(name)(
+            v_emb, t_emb, positive_mask=batch["positive_mask"], log_temp=log_temp,
+            bias=logit_bias, positive_weights=batch.get("positive_weights"),
+            text_valid=batch.get("text_valid"),
+            positive_loss_weight=cfg.siglip_positive_loss_weight,
+            negative_loss_weight=cfg.siglip_negative_loss_weight,
+            logit_clamp=cfg.siglip_logit_clamp,
+            entropy_reg_weight=cfg.siglip_entropy_reg_weight,
+            auto_balance=cfg.siglip_auto_balance, sample_mask=sample_mask)
+    elif name in SIGLIP_LOSSES:
+        out = closs.siglip_pairwise_loss(v_emb, t_emb, log_temp, logit_bias,
+                                         logit_clamp=cfg.siglip_logit_clamp,
+                                         sample_mask=sample_mask)
+    else:
+        out = closs.clip_loss(v_emb, t_emb, log_temp, label_smoothing=cfg.label_smoothing,
+                              sample_mask=sample_mask)
     out["video_emb"] = v_emb
     out["text_emb"] = t_emb
     return out
@@ -199,6 +230,8 @@ def make_train_step(bundle: ClipBundle):
     log_temp is pinned to log(override). Metrics are tensors on the device:
     reading one is the only time the host waits.
     """
+    multi_positive = is_multi_positive(bundle.config)
+
     def step(state: TrainState, batch, generator=None, video_freeze_ratio=0.0,
              text_freeze_ratio=0.0, temp_override=-1.0):
         params = state.params
@@ -206,12 +239,14 @@ def make_train_step(bundle: ClipBundle):
         pinned = temp_override > 0
         log_temp = (torch.full_like(params["log_temp"], math.log(max(temp_override, 1e-6)))
                     if pinned else params["log_temp"])
-        out = compute_loss(bundle, log_temp, batch, generator, deterministic=False)
+        out = compute_loss(bundle, log_temp, batch, generator, deterministic=False,
+                           logit_bias=params["logit_bias"])
         loss = out["loss"]
         wanted = [n for n in names if params[n].requires_grad]
         got = torch.autograd.grad(loss, [params[n] for n in wanted], allow_unused=True)
         got = dict(zip(wanted, got))
-        # logit_bias, and log_temp when pinned, get no gradient: zeros
+        # what the loss does not read (logit_bias under clip_loss, log_temp
+        # when pinned) gets no gradient: zeros
         grads = {n: (torch.nan_to_num_(got[n]) if got.get(n) is not None
                      else torch.zeros_like(params[n])) for n in names}
 
@@ -248,6 +283,8 @@ def make_train_step(bundle: ClipBundle):
                 "loss": loss.detach(),
                 "temperature": out["temperature"].detach(),
                 "alignment": alignment_score(out["video_emb"], out["text_emb"],
+                                             positive_mask=(batch["positive_mask"]
+                                                            if multi_positive else None),
                                              sample_mask=batch.get("sample_mask")),
                 "grad_norm": optim_lib.global_norm(grads),
                 **{f"grad_norm_{t}": optim_lib.global_norm(g)
@@ -269,14 +306,19 @@ def make_train_step(bundle: ClipBundle):
 def make_eval_step(bundle: ClipBundle):
     """Embedding forward for validation and inference (deterministic)."""
 
+    multi_positive = is_multi_positive(bundle.config)
+
     @torch.no_grad()
     def step(params: Dict[str, torch.Tensor], batch):
-        out = compute_loss(bundle, params["log_temp"], batch, deterministic=True)
+        out = compute_loss(bundle, params["log_temp"], batch, deterministic=True,
+                           logit_bias=params["logit_bias"])
         return {
             "loss": out["loss"],
             "video_emb": out["video_emb"],
             "text_emb": out["text_emb"],
             "alignment": alignment_score(out["video_emb"], out["text_emb"],
+                                         positive_mask=(batch["positive_mask"]
+                                                        if multi_positive else None),
                                          sample_mask=batch.get("sample_mask")),
         }
 

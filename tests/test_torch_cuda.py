@@ -893,3 +893,87 @@ def test_captioning_decoder_on_the_card(cuda):
     fa = torch.cat([t.flatten() for t in ga])
     fb = torch.cat([t.flatten() for t in gb])
     assert float(torch.nn.functional.cosine_similarity(fa, fb, dim=0)) >= 0.999
+
+
+def _bank_mask(n_texts, L, device, seed=0):
+    """A SigLIP text bank's key mask: the first third real prompts of 6 to
+    20 tokens, the rest "" fillers of 2 ([CLS] [SEP]), as
+    collate_multi_positive pads a bank to batch_size x 40 texts."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.full((n_texts,), 2)
+    real = max(1, n_texts // 3)
+    lengths[:real] = torch.randint(6, 21, (real,), generator=g)
+    return (torch.arange(L)[None, :] < lengths[:, None]).to(torch.int32).to(device)
+
+
+def test_bank_attention_shapes(cuda):
+    """K3/K4 on the tile kernels at the text tower's call on a SigLIP bank,
+    scaled down from [B x 40, 12, 512, 64] to 40 texts: strided views of
+    [40, 512, 768] projections, the bank's per-row mask (2 to 20 real keys
+    of 512, every later key masked). Forward against multi_head_attention;
+    gradients against flash_bwd_plain by the bars of chip_smoke.py's phase
+    7, relative to the call's largest gradient (max |d| <= 2e-2 of it,
+    relative L2 <= 1e-2: the queries of a filler attend to 2 keys, so dv
+    and dq run to tens, where bf16 rounds by ~0.1); one launch each way, two
+    backward launches bit-equal, the masked keys' gradients zero, and each
+    row of the batch bit-equal to that row alone (the tiles do not depend
+    on the batch)."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    B, H, L = 40, 12, 512
+
+    def heads(n):
+        t = torch.randn(n, L, H * 64, generator=g, device=cuda).to(torch.bfloat16)
+        return t.unflatten(2, (H, 64)).transpose(1, 2)
+
+    q, k, v, do = heads(B), heads(B), heads(B), heads(B)
+    m = _bank_mask(B, L, cuda)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    n_f, n_b = flash_attention.launches, flash_attention.bwd_launches
+    out = flash_attention(*leaves, kv_mask=m)
+    got = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, do)
+    assert flash_attention.launches == n_f + 1 and flash_attention.bwd_launches == n_b + 2
+    pm = m != 0
+    torch.testing.assert_close(out.float(), multi_head_attention(q, k, v, kv_mask=pm).float(),
+                               **TOL)
+    want = _plain_grads(q, k, v, do, kv_mask=pm)
+    for name, a, b, r in zip("qkv", got, again, want):
+        assert torch.equal(a, b), name
+        d, r = (a.float() - r.float()), r.float()
+        assert float(d.abs().max()) <= 2e-2 * float(r.abs().max()), name
+        assert float(d.norm()) <= 1e-2 * float(r.norm()), name
+    # the masked keys get no gradient
+    assert not got[1].transpose(1, 2)[~pm].any() and not got[2].transpose(1, 2)[~pm].any()
+    for i in (0, B // 2, B - 1):
+        alone = flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], kv_mask=m[i:i + 1])
+        assert torch.equal(alone[0], out[i].detach()), i
+    names = _kernels_run(lambda: flash_attention(q, k, v, kv_mask=m))
+    assert _ran(names, "flash_fwd_kernel") and not _ran(names, "flash_short")
+
+
+@pytest.mark.parametrize("n", [1, 5])
+def test_padded_head_dim_on_the_card(cuda, n):
+    """Dh 32 (the single-video aggregator of siglip_multi_positive_config.yaml:
+    512 wide, 16 heads, N = 1; and N = 5 with a video mask) runs the short
+    kernel at Dh 64 on zero-padded operands: output and gradients at Dh 32
+    against the plain version at Dh 32, one launch each way."""
+    g = torch.Generator(device=cuda).manual_seed(25)
+    B, H = 4, 16
+    qkv = torch.randn(B, n, 3 * H * 32, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = (t.unflatten(2, (H, 32)).transpose(1, 2) for t in qkv.split(H * 32, -1))
+    do = torch.randn(B, H, n, 32, generator=g, device=cuda).to(torch.bfloat16)
+    m = torch.ones(B, n, dtype=torch.bool, device=cuda)
+    m[1, n // 2 + 1:] = False
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    n_f, n_b = flash_attention.launches, flash_attention.bwd_launches
+    out = flash_attention(*leaves, kv_mask=m)
+    got = torch.autograd.grad(out, leaves, do)
+    assert flash_attention.launches == n_f + 1 and flash_attention.bwd_launches == n_b + 1
+    assert out.shape == (B, H, n, 32) and all(t.shape == q.shape for t in got)
+    torch.testing.assert_close(out.float(), multi_head_attention(q, k, v, kv_mask=m).float(),
+                               **TOL)
+    for name, a, r in zip("qkv", got, _plain_grads(q, k, v, do, kv_mask=m)):
+        torch.testing.assert_close(a.float(), r.float(), **BWD_TOL,
+                                   msg=lambda s, nm=name: f"d{nm}: {s}")
+    names = _kernels_run(lambda: flash_attention(q, k, v, kv_mask=m))
+    assert _ran(names, "flash_short_fwd_bf16_kernel")

@@ -287,25 +287,27 @@ CLIP_YAMLS = sorted((REPO / "config" / "clip").glob("*.yaml")) + [
 @pytest.mark.parametrize("path", CLIP_YAMLS, ids=lambda p: p.stem)
 def test_shipped_clip_yaml_parses_as_in_jax(path):
     """Every shipped contrastive YAML reads, field for field as the JAX
-    parser reads it; those with a SigLIP loss are refused by the runner."""
+    parser reads it; the runner takes each (multivideo_config.yaml and
+    siglip_multi_positive_config.yaml too: tests/test_torch_siglip.py runs
+    them) but the single-head sampler's, which it refuses."""
     got = tconfigs.parse_config(["--base_config", str(path)])
     ref = jax_parse_config(["--base_config", str(path)]).to_dict()
     for key, val in got.to_dict().items():
         if key not in ("is_ref_device", "process_index", "process_count", "world_size",
                        *tconfigs.PORT_FIELDS):
             assert val == ref[key], key
-    if got.loss_name.startswith("siglip"):
-        with pytest.raises(NotImplementedError, match="SigLIP"):
+    if got.siglip_sampler == "single_head":
+        with pytest.raises(NotImplementedError, match="single-head SigLIP sampler"):
             trun.check_ported(got)
     else:
         trun.check_ported(got)
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(loss_name="siglip"), "SigLIP"),
+    (dict(loss_name="siglip_single_head", siglip_sampler="single_head"), "SigLIP"),
     (dict(locca_enabled=True), "locca_enabled"),
     (dict(run_mode="inference"), "inference"),
-    (dict(siglip_texts_path="texts.csv"), "siglip_texts_path"),
+    (dict(siglip_sampler="single_head", siglip_texts_path="texts.csv"), "siglip_sampler"),
 ])
 def test_unported_paths_raise_through_main(workspace, over, match):
     path = _write_yaml(workspace / "unported.yaml",

@@ -250,14 +250,23 @@ def test_gradient_accumulation_matches_jax():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(loss_name="siglip"), NotImplementedError),
-    (dict(loss_name="siglip2_bce"), NotImplementedError),
+    (dict(locca_enabled=True), NotImplementedError),
+    (dict(optimizer="adafactor"), NotImplementedError),
     (dict(optimizer="lion"), NotImplementedError),
     (dict(loss_name="nope"), ValueError),
 ])
 def test_unported_options_raise(kw, exc):
     with pytest.raises(exc):
         tclip.build_clip_bundle(tiny_config(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("loss", ["siglip", "siglip2_bce", "weighted_siglip",
+                                  "multi_positive_infonce"])
+def test_siglip_losses_build(loss):
+    """The SigLIP family builds (tests/test_torch_siglip.py holds it
+    against the JAX package)."""
+    bundle, state = tclip.build_clip_bundle(tiny_config(loss_name=loss), device="cpu")
+    assert float(state.params["logit_bias"].detach()) == bundle.config.siglip_bias_init
 
 
 def test_entry_point_defaults_to_the_card():
