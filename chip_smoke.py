@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --host-only   # phase 21 alone (copy the script
                                         # into an older tree to time its host path)
+    python3 chip_smoke.py --compare     # one run of an A B B A call (run_compare;
+                                        # copy the script into the older tree too)
 
 Phases, each printing one line (or a few) before the last:
 
@@ -13,7 +15,7 @@ Phases, each printing one line (or a few) before the last:
    sm_90a, side by side
    (timed, with the ptxas register and spill lines), and the registers and
    dynamic shared memory a block of the Hopper kernels: K1's, K5's, K2's
-   two and K6's;
+   two, K6's, and the long K3's and K4's two at Dh 64 and 128;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    in bf16, at the serving path's shapes and in one small case of every
    other mode it takes (K1 also at ragged lengths 130 and 10 and the text
@@ -45,7 +47,7 @@ Phases, each printing one line (or a few) before the last:
    against the plain forward as in phase 3; phase 10 does the same for
    the video tower's shapes at 32 clips. A profiler trace of one backward
    of K2 (the packed layouts) shows the Hopper flash_bwd_dkv_sm90_kernel
-   and flash_bwd_dq_sm90_kernel ran (K4's kernels: phase 20);
+   and flash_bwd_dq_sm90_kernel ran (K4's kernels: phases 20 and 26);
 8. training: the contrastive train step at
    flagship_config(multi_video=True, num_videos=4, batch_size=8,
    max_text_length=512): 8 studies x 4 clips of 16x224x224 (uint8,
@@ -133,11 +135,14 @@ Phases, each printing one line (or a few) before the last:
    batch row where masked, in bf16 (phase 3's and 7's bars) and fp32
    (relative L2 1e-5), at Dh 64 and 128; two backward launches and one
    batch row alone against the batch, bit for bit; the bf16 forward
-   against the tile kernel flash_fwd_kernel (bit-equal count). Profiler
-   traces: at the main paths' shapes a K3 forward and a K4 backward are
-   one short kernel each, no mask conversion; at L = 65 the mma.sync tile
-   kernels run. Phases 6, 10 and 15's profiles show the short kernels on
-   the serving, contrastive and probing paths and no tile kernel of K3/K4;
+   against the tile kernel flash_long_fwd_kernel by phase 3's bars (it sums
+   in wgmma's order; the bit-equal cases are counted). Profiler traces: at
+   the main paths' shapes a K3 forward and a K4 backward are one short
+   kernel each, no mask conversion; at L = 65 the long Hopper kernels run
+   (flash_long_fwd_kernel, and bwd_rows_kernel, flash_long_bwd_dkv_kernel,
+   flash_long_bwd_dq_kernel). Phases 6, 10 and 15's profiles show the
+   short kernels on the serving, contrastive and probing paths and no long
+   kernel of K3/K4;
 21. host time of a K3/K4 call, in a process of its own (--host-only): at
    [4,8,10,64] bf16 + mask (forward), [8,8,4,64] bf16 + mask and
    [8,8,11,64] fp32 + mask (forward and backward), the host's enqueue per
@@ -155,17 +160,19 @@ Phases, each printing one line (or a few) before the last:
    metrics over the deduplicated reports) after each. Every loss finite;
    the launches of the whole run, counted from 0 just before it, equal 12
    K1 / 12 K2 / 14 K3 / 14 K4 a train step (the text tower's 12 layers at
-   L 128 and the aggregator's 2 blocks) plus the validation's; the latest,
+   L 128 on the long kernels, counted apart as "K3 long" and "K4 long",
+   and the aggregator's 2 blocks) plus the validation's; the latest,
    best-loss and highest-alignment checkpoints with their meta keys, one of
    each; the history's keys, grad_norm_video_<block> included. A second
    run stopped after epoch 0 and resumed through main (resume_training,
    checkpoint = its run directory) must end bit-equal to the uninterrupted
    one (epoch-1 loss, every parameter, the generator state). A profiler
-   trace of one step shows the text tower's tile kernels (flash_fwd_kernel,
-   bwd_rows_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel) and the
-   aggregator's short ones; K3 and K4 at [16,12,128,64] bf16 with that
+   trace of one step shows the text tower's long kernels
+   (flash_long_fwd_kernel, bwd_rows_kernel, flash_long_bwd_dkv_kernel,
+   flash_long_bwd_dq_kernel) and the aggregator's short ones; K3 and K4 at
+   [16,12,128,64] bf16 with that
    batch's padding mask against their plain versions (phase 3's and 7's
-   bars), with times, bound and SDPA's; the step time, clips/s, the
+   bars), with times, busy times, bound and SDPA's; the step time, clips/s, the
    loader's wait a step, the validation pass and peak memory, each line
    with the card's name and power limit;
 23. the multitask run through the port's main, at
@@ -177,14 +184,14 @@ Phases, each printing one line (or a few) before the last:
    of every validation study with the K/V cache, BLEU, ROUGE-L, METEOR)
    after each. Every loss finite; the launches of the whole run, counted
    from 0 just before it, equal 12 K1 / 12 K2 / 22 K3 / 22 K4 a train step
-   (the text tower's 12 layers at L 512, the decoder's 4 causal
+   (20 of each long: the text tower's 12 layers at L 512, the decoder's 4 causal
    self-attentions at L 128 under the caption mask and 4 cross-attentions
    over 4 x 393 video tokens, the aggregator's 2 blocks) and 12 K1 / 22 K3
    a validation batch, no K5 or K6; the latest and best-loss checkpoints,
    the captions CSV of each epoch with one row a validation study, the
    caption metrics in the history. A run stopped after epoch 0 and resumed
    through main ends bit-equal to the uninterrupted one. A profiler trace
-   of one step shows the tile kernels of K3/K4 and the aggregator's short
+   of one step shows the long kernels of K3/K4 and the aggregator's short
    ones; K3 and K4 at the text tower's [8,12,512,64] with the batch's
    padding mask, at the decoder's [8,8,128,64] causal with the batch's
    caption mask and at the cross shape [8,8,128|1572,64] against their
@@ -216,10 +223,28 @@ Phases, each printing one line (or a few) before the last:
    clip slots, the pairwise siglip loss; the same checks (12 K1 / 12 K2 /
    14 K3 / 14 K4 a train step), K3/K4 at the text tower's [8,12,512,64] and
    the aggregator's [8,8,5,64] with the batch's masks;
-then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6; K3
-and K4 list their short and tile kernels and carry phase 21's rows; every
-kernel carries the launches of phases 22 to 25's runs, K3 and K4 their
-shapes).
+26. the long K3/K4 kernels at phase 24's bank (B x 40 texts of 512 tokens,
+   the step's own mask): the key tiles the skip rule's mirror
+   (_flash_cuda.visited_key_tiles) predicts the forward, dQ and dK/dV
+   kernels visit; K3/K4 against their plain versions with times, busy
+   times, bound and SDPA's at a bank whose every row is a real prompt of 2
+   to 21 tokens and at one whose every key is real (nothing skipped); at
+   the bank's mask the forward and dQ bit-equal to a call whose K, V and
+   mask are cut to _flash_cuda.key_cut keys, dK and dV exactly 0 past the
+   cut, two calls bit-equal, batch rows alone (B = 1) and in fours (B = 4)
+   bit-equal to the batch; the kernels a call runs, by profiler name;
+then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6, and
+the long K3 and K4 kernels an entry each; K3 and K4 list their short and
+long kernels and carry phase 21's rows; every kernel carries the launches
+of phases 22 to 25's runs, K3 and K4 their shapes; the long entries their
+launches over those runs, their row at the SigLIP bank's mask and every
+long row of phases 22 to 26).
+
+--compare runs the build, checksums of the outputs of the kernels meant to
+stay bit-equal (K1, K2, K5, K6, the short K3/K4), K1's and K2's times at
+the video and text towers' shapes, phase 24's train step on
+one batch (step time, busy time and share, tile K3/K4 share) and K3/K4 rows
+at the main paths' long shapes, against the package of the tree it lies in.
 
 The last line is {"ok": true, "device": {...}}. Any failing phase exits
 non-zero before it, as does a machine without CUDA.
@@ -386,8 +411,10 @@ def device_ms(torch, fn, reps: int, kernels=()) -> float:
     the H100 machine the profiler now and then traces no device event in a
     window, or drops one, which would read as a faster call. So each kernel
     counts at its mean event time times its launches a call (its events
-    over ``reps``, rounded up), and the window is traced again, up to
-    TRACE_TRIES times, when it is empty, when one of ``kernels`` is missing, or when a
+    over the window's calls, rounded up), and the window is traced again, up
+    to TRACE_TRIES times, when it is empty (then with twice the calls, up to
+    16 times ``reps``: a run of this script once traced ten empty windows of
+    a 10 us call in a row), when one of ``kernels`` is missing, or when a
     kernel's events are not a whole number a call. The check fails when
     the last trace is empty, misses one of ``kernels``, or holds a port
     kernel that none of them names."""
@@ -397,9 +424,10 @@ def device_ms(torch, fn, reps: int, kernels=()) -> float:
 
     fn()
     torch.cuda.synchronize()
+    calls = reps
     for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         times = defaultdict(list)
@@ -407,15 +435,17 @@ def device_ms(torch, fn, reps: int, kernels=()) -> float:
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 times[e.name].append(e.time_range.elapsed_us())
         missing = [k for k in kernels if not any(k in n for n in times)]
-        if times and not missing and all(len(t) % reps == 0 for t in times.values()):
+        if times and not missing and all(len(t) % calls == 0 for t in times.values()):
             break
+        if not times:  # an empty window: the next one longer, up to 16 times
+            calls = min(2 * calls, 16 * reps)
     check(bool(times), f"busy time: no device event traced in {TRACE_TRIES} windows")
     check(not missing, f"busy time: no event of {missing} in {TRACE_TRIES} traces: "
                        f"{sorted(map(_short_name, times))}")
     stray = sorted({_short_name(n) for n in times if _short_name(n).startswith(PORT_KERNELS)
                     and not any(k in n for k in kernels)})
     check(not stray, f"busy time: port kernel(s) {stray} ran, expected {list(kernels)}")
-    return sum(sum(t) / len(t) * math.ceil(len(t) / reps) for t in times.values()) / 1e3
+    return sum(sum(t) / len(t) * math.ceil(len(t) / calls) for t in times.values()) / 1e3
 
 
 def print_profile(label: str, what: str, per_name, wall_ms: float, top: int) -> None:
@@ -735,7 +765,7 @@ def phase_profile(torch, engine, x, m) -> None:
         per_name, wall_ms = device_events(torch, lambda: engine.model(x, video_mask=m))
     print_profile("profile", "one tower pass", per_name, wall_ms, top=8)
     check_main_path_kernels("profile, the aggregator's K3", per_name,
-                            ("flash_short_fwd_bf16_kernel",), ("flash_fwd_kernel<",))
+                            ("flash_short_fwd_bf16_kernel",), ("flash_long_fwd_kernel",))
 
 
 def phase_times(torch, engine, x, m, errs, launches):
@@ -1009,7 +1039,7 @@ def bwd_routes(torch) -> list:
     return check_route(torch, "backward kernels, K2 [4,393,1536]",
                        lambda: torch.autograd.grad(out, leaf, out.detach(), retain_graph=True),
                        ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel"),
-                       ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
+                       ("flash_long_bwd",))
 
 
 # --------------------------------------------------------------------------- #
@@ -1061,6 +1091,16 @@ def _zero_kernel_counts():
 
     k1.launches = k1.bwd_launches = k3.launches = k3.bwd_launches = 0
     k1.proj_launches = k6.launches = 0
+    k3.long_launches = k3.long_bwd_launches = 0
+
+
+def _long_counts():
+    """The K3 and K4 launches that ran the long Hopper kernels (bf16, Lq or
+    Lk above 64), counted on the wrapper apart from the short ones."""
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention as k3
+
+    return {"K3 long": getattr(k3, "long_launches", 0),
+            "K4 long": getattr(k3, "long_bwd_launches", 0)}
 
 
 def phase_training(torch):
@@ -1229,8 +1269,7 @@ def phase_train_profile(torch, state, step_fn, batch, gen) -> None:
     print_profile("train profile", "one step", per_name, wall_ms, top=14)
     check_main_path_kernels("train profile, the aggregator's K3 and K4", per_name,
                             ("flash_short_fwd_bf16_kernel", "flash_short_bwd_bf16_kernel"),
-                            ("flash_fwd_kernel<", "flash_bwd_dkv_kernel<",
-                             "flash_bwd_dq_kernel<"))
+                            ("flash_long_",))
 
 
 def phase_train_times(torch, errs, counts, routes):
@@ -2427,9 +2466,9 @@ def phase_short_kernels(torch) -> dict:
     """The short forward and backward against multi_head_attention and
     flash_bwd_plain over the grid, in bf16 and fp32 at Dh 64 and 128; two
     backward launches and a batch row alone (B = 1) against the batch of 3,
-    bit for bit; the bf16 forward against the tile kernel flash_fwd_kernel
-    on the same inputs (reported: bit-equal where the order of sums is
-    kept)."""
+    bit for bit; the bf16 forward against the tile kernel
+    flash_long_fwd_kernel on the same inputs by phase 3's bars (it sums in
+    wgmma's order; the cases that come out bit-equal anyway are counted)."""
     from deepcoro_clip_tpu_torch.ops import _flash_cuda
     from deepcoro_clip_tpu_torch.ops.attention import flash_bwd_plain, multi_head_attention
     from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
@@ -2495,6 +2534,11 @@ def phase_short_kernels(torch) -> dict:
                     _flash_cuda.flash_fwd(q, k, v, tile, scale=dh ** -0.5, causal=bool(
                         kw.get("causal")), kv_mask=kw.get("kv_mask"), sin=kw.get("sin"),
                         cos=kw.get("cos"))
+                    torch.cuda.synchronize()
+                    d = (tile.float() - out.float()).abs()
+                    check(bool((d <= KERNEL_ATOL + KERNEL_RTOL * out.float().abs()).all()),
+                          f"{label}: the short forward and the tile kernel differ by "
+                          f"{float(d.max()):.3e}")
                     n_tile_equal += bool(torch.equal(tile, out))
                     n_bf16 += 1
                 gerr = _short_grad_check(label, got, ref, fp32)
@@ -2510,8 +2554,8 @@ def phase_short_kernels(torch) -> dict:
           f"{SHORT_LENGTHS}, causal, cross 1|64 and 37|50, RoPE, a fully masked row) "
           f"within the bars (bf16: phase 3's and phase 7's; fp32: rel l2 "
           f"{SHORT_F32_L2_REL}); two backward launches and B = 1 against B = 3 bit-equal; "
-          f"bf16 forward bit-equal to flash_fwd_kernel in {n_tile_equal} of {n_bf16} cases",
-          flush=True)
+          f"bf16 forward within phase 3's bars of the tile kernel flash_long_fwd_kernel in "
+          f"all {n_bf16} cases, bit-equal in {n_tile_equal}", flush=True)
     for key in errs["fwd"]:
         print(f"short check {key}: max|kernel-plain| forward {errs['fwd'][key]:.3e}, "
               f"gradients {errs['bwd'][key]:.3e}", flush=True)
@@ -2523,7 +2567,7 @@ def short_routes(torch) -> dict:
     """Which kernels a call runs, from profiler traces: at the main paths'
     shapes (operands as the layers hand them over, a bool key mask) the K3
     forward and the K4 backward are one short kernel each, with no mask
-    conversion; at L = 65 the tile kernels run."""
+    conversion; at L = 65 the long Hopper kernels run."""
     from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
 
     dev = torch.device("cuda")
@@ -2547,12 +2591,10 @@ def short_routes(torch) -> dict:
                   f"K3 {label}: expected the one kernel {want_f}, ran {fwd}")
             check(len(bwd) == 1 and want_b in bwd[0],
                   f"K4 {label}: expected the one kernel {want_b}, ran {bwd}")
-        else:  # past SHORT_MAX: the tile kernels, no short kernel
-            check(any("flash_fwd_kernel" in n for n in fwd)
-                  and not any("flash_short" in n for n in fwd + bwd)
-                  and any("flash_bwd_dkv_kernel" in n for n in bwd)
-                  and any("flash_bwd_dq_kernel" in n for n in bwd),
-                  f"{label}: expected the mma.sync tile kernels, ran {fwd} / {bwd}")
+        else:  # past SHORT_MAX: the long Hopper kernels, no short kernel
+            ours = [[n for n in run if n.startswith(PORT_KERNELS)] for run in (fwd, bwd)]
+            check(ours == [list(TILE_FWD), list(TILE_BWD)],
+                  f"{label}: expected the long Hopper kernels, ran {fwd} / {bwd}")
         print(f"short routes {label}: forward ran {fwd} ({len(fwd)} kernel(s)); backward "
               f"ran {bwd} ({len(bwd)} kernel(s))", flush=True)
         routes["K3"] += [n for n in fwd if n not in routes["K3"]]
@@ -2713,7 +2755,7 @@ def _breakdown(torch, fc, q, k, v, m, do, leaves, out, bwd: bool) -> dict:
 
 
 class _Counter:
-    launches = bwd_launches = 0
+    launches = bwd_launches = long_launches = long_bwd_launches = 0
 
 
 def fc_counter():
@@ -2856,10 +2898,29 @@ def _launches(torch, fn, calls: int = 10) -> list:
 # the port's own kernels, by their short names: each runs once a launch its
 # wrapper counts
 PORT_KERNELS = ("flash_", "bwd_rows_", "ring_")
-# K2's row pre-pass and two Hopper kernels; K3's and K4's tile kernels (L > 64)
+# K2's row pre-pass and two Hopper kernels; K3's and K4's long Hopper
+# kernels (Lq or Lk > 64) at the main paths' Dh 64, with K4's row pre-pass
 K2_KERNELS = ("bwd_rows_kernel", "flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel")
-TILE_FWD = ("flash_fwd_kernel",)
-TILE_BWD = ("bwd_rows_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+TILE_FWD = ("flash_long_fwd_kernel<64>",)
+TILE_BWD = ("bwd_rows_kernel<64, 8>", "flash_long_bwd_dkv_kernel<64>",
+            "flash_long_bwd_dq_kernel<64>")
+TILE_KERNELS = TILE_FWD + TILE_BWD
+LONG_SOURCES = {"K3": "deepcoro_clip_tpu_torch/csrc/flash_fwd.cu",
+                "K4": "deepcoro_clip_tpu_torch/csrc/flash_bwd.cu"}
+
+
+def _use_tree_kernel_names() -> None:
+    """The long K3/K4 kernels' names in the tree this script runs against:
+    this tree's Hopper kernels, or an older tree's mma.sync tile kernels
+    (the A B B A call copies the script into the parent's tree)."""
+    from deepcoro_clip_tpu_torch.ops import _flash_cuda
+
+    global TILE_FWD, TILE_BWD, TILE_KERNELS
+    if not hasattr(_flash_cuda, "visit_keys"):
+        TILE_FWD = ("flash_fwd_kernel<64>",)
+        TILE_BWD = ("bwd_rows_kernel<64>", "flash_bwd_dkv_kernel<64>",
+                    "flash_bwd_dq_kernel<64>")
+        TILE_KERNELS = TILE_FWD + TILE_BWD
 
 
 def _short_name(name: str) -> str:
@@ -2895,9 +2956,13 @@ QUALITY_WORKERS = 4
 # launches per train step, per eval batch and per bank chunk of 64 reports:
 # K1 / K2 in the 12 video blocks, K3 / K4 in the 12 text layers (L = 128,
 # the tile kernels) and the aggregator's 2 blocks (L = 1, the short kernels)
-QUALITY_PER_STEP = {"K1": 12, "K2": 12, "K3": 14, "K4": 14, "K5": 0, "K6": 0}
-QUALITY_PER_EVAL = {"K1": 12, "K2": 0, "K3": 14, "K4": 0, "K5": 0, "K6": 0}
-QUALITY_PER_BANK = {"K1": 0, "K2": 0, "K3": 12, "K4": 0, "K5": 0, "K6": 0}
+# ("K3 long", "K4 long": those of them on the long Hopper kernels)
+QUALITY_PER_STEP = {"K1": 12, "K2": 12, "K3": 14, "K4": 14, "K5": 0, "K6": 0,
+                    "K3 long": 12, "K4 long": 12}
+QUALITY_PER_EVAL = {"K1": 12, "K2": 0, "K3": 14, "K4": 0, "K5": 0, "K6": 0,
+                    "K3 long": 12, "K4 long": 0}
+QUALITY_PER_BANK = {"K1": 0, "K2": 0, "K3": 12, "K4": 0, "K5": 0, "K6": 0,
+                    "K3 long": 12, "K4 long": 0}
 CARD = ""  # nvidia-smi's name and power limit, set by main()
 
 
@@ -2926,13 +2991,15 @@ def quality_train_config(**over):
 
 
 def _attention_rows(torch, label: str, cases, seed: int):
-    """K3 and K4 on the tile kernels at a main path's [B,H,Lq|Lk,64] bf16
+    """K3 and K4 on the long kernels at a main path's [B,H,Lq|Lk,64] bf16
     calls, against their plain versions (phase 3's and phase 7's bars),
-    with their times, busy times, bounds and SDPA's. ``cases``: (what, B,
-    H, Lq, Lk, mask, causal), ``mask`` the batch's own [B, Lk] key mask as
-    the path hands it to the kernel, or None. q/k/v and dO are strided
-    views of [B, L, H * 64] projections, as the layers hand them over.
-    Returns (K3 rows, K4 rows)."""
+    with their times, busy times, bounds and SDPA's (and its busy time),
+    and the key tiles the skip rule's mirror predicts the kernels visit.
+    ``cases``: (what, B, H, Lq, Lk, mask, causal), ``mask`` the batch's own
+    [B, Lk] key mask as the path hands it to the kernel, or None. q/k/v and
+    dO are strided views of [B, L, H * 64] projections, as the layers hand
+    them over. Returns (K3 rows, K4 rows)."""
+    from deepcoro_clip_tpu_torch.ops import _flash_cuda
     import torch.nn.functional as F
 
     from deepcoro_clip_tpu_torch.ops.attention import flash_bwd_plain, multi_head_attention
@@ -2984,6 +3051,14 @@ def _attention_rows(torch, label: str, cases, seed: int):
         am = allowed[:, None] if m is not None or causal else None
         sq = [t.detach().requires_grad_() for t in (q, k, v)]
         sout = F.scaled_dot_product_attention(*sq, attn_mask=am)
+        tiles = ""
+        if hasattr(_flash_cuda, "visited_key_tiles"):  # this tree's skip rule
+            nk = {t: -(-Lk // t[1]) for t in (_flash_cuda.FWD_TILES, _flash_cuda.DQ_TILES)}
+            seen = {t: int(_flash_cuda.visited_key_tiles(m, B, L, Lk, causal, t).sum())
+                    for t in nk}
+            tiles = "; key tiles visited (the mirror's prediction, over the batch rows): " + \
+                ", ".join(f"{w} {seen[t]} of {-(-L // t[0]) * nk[t] * B}" for w, t in (
+                    ("forward", _flash_cuda.FWD_TILES), ("dQ", _flash_cuda.DQ_TILES)))
         with torch.no_grad():
             rows_f.append({
                 "shape": shape,
@@ -2995,6 +3070,8 @@ def _attention_rows(torch, label: str, cases, seed: int):
                 "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
                 "device_ms": device_ms(torch, lambda: flash_attention(q, k, v, **kw), REPS,
                                        TILE_FWD),
+                "library_device_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=am), REPS),
                 "max_abs_err": err_f})
         rows_b.append({
             "shape": shape,
@@ -3008,13 +3085,16 @@ def _attention_rows(torch, label: str, cases, seed: int):
             "bound_ms": b_bwd[0], "bound_by": b_bwd[1],
             "device_ms": device_ms(torch, lambda: torch.autograd.grad(
                 out, leaves, do, retain_graph=True), REPS, TILE_BWD),
+            "library_device_ms": device_ms(torch, lambda: torch.autograd.grad(
+                sout, sq, do, retain_graph=True), REPS),
             "max_abs_err": err_b})
         for name, r in (("K3 forward", rows_f[-1]), ("K4 backward", rows_b[-1])):
             print(f"{label}: {name} {shape}: kernel {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {pairs:.0f} (q, k) pairs over "
                   f"the heads, {keys:.0f} real keys of {B * Lk}); card busy "
-                  f"{r['device_ms']:.4f} ms | {CARD}", flush=True)
+                  f"{r['device_ms']:.4f} ms, sdpa {r['library_device_ms']:.4f} ms"
+                  f"{tiles if name.startswith('K3') else ''} | {CARD}", flush=True)
         del q, k, v, do, leaves, out, got, ref, sq, sout, allowed, am
         torch.cuda.empty_cache()
     return rows_f, rows_b
@@ -3144,7 +3224,7 @@ def phase_quality_run(torch, manifest: Path) -> dict:
         print(f"quality run: launches over {n_epochs} x {steps} train steps, {n_epochs} "
               f"validation batches and {n_epochs} bank chunks: "
               + ", ".join(f"{k} {counts[k]} (expected {want[k]})" for k in want)
-              + "; per train step K1 12, K2 12, K3 14, K4 14", flush=True)
+              + "; per train step K1 12, K2 12, K3 14, K4 14 (12 each long)", flush=True)
         check(counts == want, f"launches {counts}, expected {want}")
 
         # the files a run leaves
@@ -3208,9 +3288,7 @@ def phase_quality_run(torch, manifest: Path) -> dict:
         print_profile("quality profile", "one step at the quality recipe", per_name,
                       wall_ms, top=14)
         check_main_path_kernels(
-            "quality profile, the text tower's K3 and K4 (L 128)", per_name,
-            ("flash_fwd_kernel<", "bwd_rows_kernel", "flash_bwd_dkv_kernel<",
-             "flash_bwd_dq_kernel<"), ())
+            "quality profile, the text tower's K3 and K4 (L 128)", per_name, TILE_KERNELS, ())
         check_main_path_kernels(
             "quality profile, the aggregator's K3 and K4 (L 1) and K1, K2", per_name,
             ("flash_short_fwd_bf16_kernel", "flash_short_bwd_bf16_kernel",
@@ -3243,8 +3321,10 @@ MT_TIMED_STEPS = 5
 # (128 queries over 4 x 393 video tokens), all on the tile kernels, and the
 # aggregator's 2 blocks (L 4, the short kernels). Caption generation is
 # plain torch (no kernel); the MVM decoder runs the plain attention.
-MT_PER_STEP = {"K1": 12, "K2": 12, "K3": 22, "K4": 22, "K5": 0, "K6": 0}
-MT_PER_VAL = {"K1": 12, "K2": 0, "K3": 22, "K4": 0, "K5": 0, "K6": 0}
+MT_PER_STEP = {"K1": 12, "K2": 12, "K3": 22, "K4": 22, "K5": 0, "K6": 0,
+               "K3 long": 20, "K4 long": 20}
+MT_PER_VAL = {"K1": 12, "K2": 0, "K3": 22, "K4": 0, "K5": 0, "K6": 0,
+              "K3 long": 20, "K4 long": 0}
 
 
 def multitask_config(**over):
@@ -3328,7 +3408,7 @@ def phase_multitask_run(torch, manifest: Path) -> dict:
         print(f"multitask run: launches over 2 x {steps} train steps and 2 x {val_batches} "
               "validation batch(es): " + ", ".join(f"{k} {counts[k]} (expected {want[k]})"
                                                    for k in want)
-              + "; per train step K1 12, K2 12, K3 22, K4 22", flush=True)
+              + "; per train step K1 12, K2 12, K3 22, K4 22 (20 each long)", flush=True)
         check(counts == want, f"launches {counts}, expected {want}")
 
         run = Path(full["output_dir"])
@@ -3395,18 +3475,14 @@ def phase_multitask_run(torch, manifest: Path) -> dict:
                       per_name, wall_ms, top=16)
         times["busy_ms"] = sum(per_name.values())
         times["profiled_step_ms"] = wall_ms
-        tile = ("flash_fwd_kernel<", "bwd_rows_kernel", "flash_bwd_dkv_kernel<",
-                "flash_bwd_dq_kernel<")
         times["tile_k3_k4_busy_ms"] = sum(ms for name, ms in per_name.items()
-                                          if any(t in name for t in tile))
+                                          if any(t in name for t in TILE_KERNELS))
         print(f"multitask profile: the tile kernels of K3/K4 (text L 512, decoder self "
               f"and cross) busy {times['tile_k3_k4_busy_ms']:.3f} ms of the step's "
               f"{times['busy_ms']:.2f} | {CARD}", flush=True)
         check_main_path_kernels(
-            "multitask profile, K3 and K4 on the tile kernels (text L 512, decoder L 128 "
-            "causal, cross 128|1572)", per_name,
-            ("flash_fwd_kernel<", "bwd_rows_kernel", "flash_bwd_dkv_kernel<",
-             "flash_bwd_dq_kernel<"), ())
+            "multitask profile, K3 and K4 on the long kernels (text L 512, decoder L 128 "
+            "causal, cross 128|1572)", per_name, TILE_KERNELS, ())
         check_main_path_kernels(
             "multitask profile, the aggregator's K3 and K4 (L 4) and K1, K2", per_name,
             ("flash_short_fwd_bf16_kernel", "flash_short_bwd_bf16_kernel",
@@ -3529,16 +3605,19 @@ CARD_MARGIN = 0.85  # of the card's memory a batch may reckon to use
 # batch_size x 40 texts at L 512 (the tile kernels) and the aggregator's 1
 # block at N 1 (16 heads of 32, padded to 64: the short kernels); each bank
 # chunk of 64 validation texts: 12 K3
-SIGLIP_PER_STEP = {"K1": 12, "K2": 12, "K3": 13, "K4": 13, "K5": 0, "K6": 0}
-SIGLIP_PER_VAL = {"K1": 12, "K2": 0, "K3": 13, "K4": 0, "K5": 0, "K6": 0}
+SIGLIP_PER_STEP = {"K1": 12, "K2": 12, "K3": 13, "K4": 13, "K5": 0, "K6": 0,
+                   "K3 long": 12, "K4 long": 12}
+SIGLIP_PER_VAL = {"K1": 12, "K2": 0, "K3": 13, "K4": 0, "K5": 0, "K6": 0,
+                  "K3 long": 12, "K4 long": 0}
 # phase 25: the text tower's 12 layers at [8,12,512,64] and the aggregator's
 # 2 blocks at [8,8,5,64]
 MV_BATCH = 8
-MV_PER_STEP = {"K1": 12, "K2": 12, "K3": 14, "K4": 14, "K5": 0, "K6": 0}
-MV_PER_VAL = {"K1": 12, "K2": 0, "K3": 14, "K4": 0, "K5": 0, "K6": 0}
-PER_BANK_CHUNK = {"K1": 0, "K2": 0, "K3": 12, "K4": 0, "K5": 0, "K6": 0}
-TILE_KERNELS = ("flash_fwd_kernel<", "bwd_rows_kernel", "flash_bwd_dkv_kernel<",
-                "flash_bwd_dq_kernel<")
+MV_PER_STEP = {"K1": 12, "K2": 12, "K3": 14, "K4": 14, "K5": 0, "K6": 0,
+               "K3 long": 12, "K4 long": 12}
+MV_PER_VAL = {"K1": 12, "K2": 0, "K3": 14, "K4": 0, "K5": 0, "K6": 0,
+              "K3 long": 12, "K4 long": 0}
+PER_BANK_CHUNK = {"K1": 0, "K2": 0, "K3": 12, "K4": 0, "K5": 0, "K6": 0,
+                  "K3 long": 12, "K4 long": 0}
 
 
 def _runs_through_main(torch, label: str, cfg, runner):
@@ -3555,7 +3634,7 @@ def _runs_through_main(torch, label: str, cfg, runner):
     t0 = time.perf_counter()
     full = main(config=cfg("full"))
     wall = time.perf_counter() - t0
-    counts = _kernel_counts()
+    counts = {**_kernel_counts(), **_long_counts()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     train = runner.train
     runner.train = lambda self, start_epoch=0, end_epoch=None: train(self, start_epoch, 1)
@@ -3793,7 +3872,8 @@ def phase_siglip_run(torch, manifest: Path) -> dict:
         *agg, agg_f, agg_b = _aggregator_attention(torch, vmask, "siglip attention", H=16,
                                                    Dh=32, timed=True)
     rows = (rows[0] + [agg_f], rows[1] + [agg_b])
-    return {"counts": counts, "rows": rows, "times": times, "aggregator_max_abs_err": agg}
+    return {"counts": counts, "rows": rows, "times": times, "aggregator_max_abs_err": agg,
+            "bank_mask": mask}
 
 
 def phase_multivideo_run(torch, manifest: Path) -> dict:
@@ -3852,10 +3932,295 @@ def phase_multivideo_run(torch, manifest: Path) -> dict:
     return {"counts": counts, "rows": rows, "times": times, "aggregator_max_abs_err": agg}
 
 
+# --------------------------------------------------------------------------- #
+# phase 26: the long K3/K4 kernels at the SigLIP bank: the skip's cases and
+# its exactness
+
+
+def _long_grads(flash_attention, torch, q, k, v, do, mask):
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, kv_mask=mask)
+    return out.detach(), torch.autograd.grad(out, leaves, do)
+
+
+def phase_long_kernels(torch, bank_mask) -> dict:
+    """Phase 26, at phase 24's bank ([B, 12, 512, 64], ``bank_mask`` the
+    step's own [B, 512] text mask): the mirror's prediction of the key
+    tiles the three kernels visit; K3/K4 against their plain versions with
+    times, busy times, bound and SDPA at a bank whose rows are all real
+    prompts of 2 to 21 tokens (the gain must not rest on filler rows) and
+    at one whose every key is real (nothing skipped); at the bank's mask
+    the forward and dQ bit-equal to a call whose K, V and mask are cut to
+    ``key_cut`` keys, dK and dV exactly 0 past the cut, two calls bit-equal,
+    batch rows alone (B = 1) and in fours (B = 4) bit-equal to the batch;
+    the kernels a call runs, by profiler name. Returns {"rows": (K3 rows,
+    K4 rows), "cut": ..., "routes": ...}."""
+    from deepcoro_clip_tpu_torch.ops import _flash_cuda
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+
+    label = "long kernels"
+    dev = torch.device("cuda")
+    B, L = bank_mask.shape
+    H, Dh = 12, 64
+    for what, tiles in (("forward", _flash_cuda.FWD_TILES), ("dQ", _flash_cuda.DQ_TILES),
+                        ("dK/dV", _flash_cuda.DKV_TILES)):
+        seen = int(_flash_cuda.visited_key_tiles(bank_mask, B, L, L, False, tiles).sum())
+        total = B * -(-L // tiles[0]) * -(-L // tiles[1])
+        print(f"{label}: at the bank's mask the {what} kernel visits {seen} of {total} (q "
+              f"tile, key tile) pairs of {tiles[0]} x {tiles[1]} a head (the skip rule's "
+              f"mirror, _flash_cuda.visited_key_tiles)", flush=True)
+    g = torch.Generator().manual_seed(26)
+    lengths = torch.randint(2, 22, (B,), generator=g)
+    prompts = (torch.arange(L)[None, :] < lengths[:, None]).to(bank_mask.dtype).to(dev)
+    every = torch.ones_like(bank_mask)
+    rows = _attention_rows(torch, label, [
+        ("every row a real prompt of 2 to 21 tokens", B, H, L, L, prompts, False),
+        ("every key real (nothing skipped)", B, H, L, L, every, False)], seed=26)
+
+    # exactness at the bank's mask
+    gq = torch.Generator(device=dev).manual_seed(27)
+
+    def heads(n):
+        t = torch.randn(B, n, H * Dh, generator=gq, device=dev).to(torch.bfloat16)
+        return t.reshape(B, n, H, Dh).transpose(1, 2)
+
+    q, k, v, do = heads(L), heads(L), heads(L), heads(L)
+    cut = _flash_cuda.key_cut(bank_mask, B, L)
+    out, got = _long_grads(flash_attention, torch, q, k, v, do, bank_mask)
+    out2, got2 = _long_grads(flash_attention, torch, q, k, v, do, bank_mask)
+    out_c, got_c = _long_grads(flash_attention, torch, q, k[:, :, :cut], v[:, :, :cut], do,
+                               bank_mask[:, :cut].contiguous())
+    torch.cuda.synchronize()
+    check(torch.equal(out, out_c) and torch.equal(got[0], got_c[0]),
+          f"{label}: the forward or dQ differs from the call cut to {cut} keys")
+    check(all(torch.equal(a[:, :, :cut], b) for a, b in zip(got[1:], got_c[1:])),
+          f"{label}: dK or dV differs from the call cut to {cut} keys")
+    past = max(float(a[:, :, cut:].abs().max()) for a in got[1:]) if cut < L else 0.0
+    check(past == 0.0, f"{label}: dK or dV past the cut is {past}, not 0")
+    check(torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(got, got2)),
+          f"{label}: two calls differ")
+    for i in (0, B // 2, B - 4):
+        for n in (1, 4):
+            sl = slice(i, i + n)
+            o1, g1 = _long_grads(flash_attention, torch, q[sl], k[sl], v[sl], do[sl],
+                                 bank_mask[sl])
+            check(torch.equal(out[sl], o1) and all(torch.equal(a[sl], b)
+                                                    for a, b in zip(got, g1)),
+                  f"{label}: batch rows {i}..{i + n - 1} alone differ from the batch of {B}")
+    print(f"{label}: at the bank's mask [{B},{H},{L},{Dh}]: the forward and dQ bit-equal to "
+          f"the call cut to {cut} keys, dK and dV bit-equal there and exactly 0 past it; two "
+          f"calls bit-equal; B = 1 and B = 4 bit-equal to the batch of {B}", flush=True)
+    del out2, got2, out_c, got_c
+
+    # the kernels a call runs
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = flash_attention(*leaves, kv_mask=bank_mask)
+    fwd = _launches(torch, lambda: flash_attention(q, k, v, kv_mask=bank_mask), calls=2)
+    bwd = _launches(torch, lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
+                    calls=2)
+    ours = [[n for n in run if n.startswith(PORT_KERNELS)] for run in (fwd, bwd)]
+    check(ours == [list(TILE_FWD), list(TILE_BWD)],
+          f"{label}: the bank's call ran {fwd} / {bwd}, expected {TILE_FWD} / {TILE_BWD}")
+    print(f"{label}: a forward at the bank ran {fwd}, a backward {bwd}", flush=True)
+    del q, k, v, do, out, got, leaves, o
+    torch.cuda.empty_cache()
+    return {"rows": rows, "cut": cut, "routes": {"K3": ours[0], "K4": ours[1]}}
+
+
+# --------------------------------------------------------------------------- #
+# --compare: one run of an A B B A call against an older tree (copy this
+# script into it), where only what both trees have is measured
+
+
+def _digest(torch, tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def hopper_checksums(torch) -> dict:
+    """sha256 (16 hex digits) of the outputs of the kernels this PR did not
+    mean to change, on seeded inputs: K1 and K2 (fused qkv + RoPE at L 393,
+    the text tower's shape with padded reports, causal), K5 (fused qkv +
+    RoPE at L 393), K6 (4 shards of [2,4,6272,128]), the short K3/K4 in bf16
+    and fp32. Two trees whose kernels compute the same bits print the same
+    digests."""
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+    from deepcoro_clip_tpu_torch.parallel import ring_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    t = build_rope3d_tables(128, 8, 7, 7, n_special=1)
+    sin, cos = torch.from_numpy(t.sin).to(dev), torch.from_numpy(t.cos).to(dev)
+    out = {}
+
+    def fwd_bwd(key, fn, inputs, do):
+        leaves = [x.clone().requires_grad_() for x in inputs]
+        y = fn(*leaves)
+        grads = torch.autograd.grad(y, leaves, do)
+        out[f"{key} forward"] = _digest(torch, [y])
+        out[f"{key} backward"] = _digest(torch, grads)
+
+    qkv = randn(8, 393, 1536)
+    fwd_bwd("K1/K2 fused qkv + RoPE [8,393,1536]",
+            lambda x: flash_attention_packed(qkv=x, num_heads=4, sin=sin, cos=cos), [qkv],
+            randn(8, 393, 512))
+    q, k, v = randn(8, 512, 768), randn(8, 512, 768), randn(8, 512, 768)
+    m = torch.arange(512, device=dev)[None, :] < torch.tensor(
+        [512, 300, 77, 5, 450, 512, 200, 130], device=dev)[:, None]
+    fwd_bwd("K1/K2 q/k/v + kv_mask [8,512,768] H 6",
+            lambda a, b, c: flash_attention_packed(a, b, c, num_heads=6, kv_mask=m),
+            [q, k, v], randn(8, 512, 768))
+    qc = randn(2, 150, 768)
+    fwd_bwd("K1/K2 causal fused [2,150,768]",
+            lambda x: flash_attention_packed(qkv=x, num_heads=2, causal=True), [qc],
+            randn(2, 150, 256))
+    wo = randn(512, 512)
+    with torch.no_grad():
+        out["K5 fused qkv + RoPE [8,393,1536] @ wo"] = _digest(torch, [flash_attention_packed(
+            qkv=qkv, num_heads=4, sin=sin, cos=cos, wo=wo)])
+        rq, rk, rv = ring_inputs(torch, 4 * 1568, seed=30)
+        out["K6 4 shards [2,4,6272,128]"] = _digest(torch, [ring_attention(
+            rq, rk, rv, ring_mesh(torch, 4), backend="rdma")])
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        q4, k4, v4 = (randn(8, 8, 11, 64, dtype=dtype) for _ in range(3))
+        m4 = torch.ones(8, 11, dtype=torch.bool, device=dev)
+        m4[2, 5:] = False
+        fwd_bwd(f"K3/K4 short {name} [8,8,11,64] + mask",
+                lambda a, b, c: flash_attention(a, b, c, kv_mask=m4), [q4, k4, v4],
+                randn(8, 8, 11, 64, dtype=dtype))
+    for key, d in out.items():
+        print(f"compare: checksum {key}: {d}", flush=True)
+    return out
+
+
+def packed_times(torch) -> dict:
+    """K1 and K2, which share the Hopper bodies with the long K3/K4, at the
+    train step's video-tower shape (fused qkv + RoPE, [32,1569,1536]) and
+    the text tower's ([8,512,768] H 6 with padded reports): time between
+    CUDA events and busy time, forward and backward."""
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    t = build_rope3d_tables(128, 8, 14, 14, n_special=1)
+    sin, cos = torch.from_numpy(t.sin).to(dev), torch.from_numpy(t.cos).to(dev)
+    qkv = torch.randn(32, 1569, 1536, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (torch.randn(8, 512, 768, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    m = torch.arange(512, device=dev)[None, :] < torch.tensor(
+        [512, 300, 77, 20, 450, 512, 200, 130], device=dev)[:, None]
+    rows = {}
+    for name, fn, inputs in (
+            ("fused qkv + RoPE [32,1569,1536]",
+             lambda x: flash_attention_packed(qkv=x, num_heads=4, sin=sin, cos=cos), [qkv]),
+            ("q/k/v + kv_mask [8,512,768] H 6",
+             lambda a, b, c: flash_attention_packed(a, b, c, num_heads=6, kv_mask=m),
+             [q, k, v])):
+        leaves = [x.clone().requires_grad_() for x in inputs]
+        out = fn(*leaves)
+        do = torch.randn(out.shape, generator=g, device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            fwd = (cuda_ms(torch, lambda: fn(*inputs), REPS),
+                   device_ms(torch, lambda: fn(*inputs), REPS, ("flash_fwd_sm90_kernel",)))
+        bwd = (cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                       REPS),
+               device_ms(torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                         REPS, K2_KERNELS))
+        rows[name] = {"K1_ms": fwd[0], "K1_device_ms": fwd[1], "K2_ms": bwd[0],
+                      "K2_device_ms": bwd[1]}
+        print(f"compare packed: {name}: K1 {fwd[0]:.4f} ms (busy {fwd[1]:.4f}), K2 "
+              f"{bwd[0]:.4f} ms (busy {bwd[1]:.4f}) | {CARD}", flush=True)
+        del leaves, out, do
+    return rows
+
+
+def _prefix(torch, B, L, lo, hi, seed):
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(lo, hi + 1, (B,), generator=g)
+    return (torch.arange(L)[None, :] < lengths[:, None]).to(torch.int32).to("cuda")
+
+
+def run_compare(torch) -> dict:
+    """One run of an A B B A call: the build, the checksums of the kernels
+    meant to stay bit-equal, K1's and K2's times (packed_times), phase 24's
+    train step on one batch (host-clock
+    step time over 5 steps after a warm one, a profiled step's busy time,
+    busy share and tile K3/K4 share) and K3/K4 rows at the long shapes of
+    the main paths: the bank with that batch's mask, a bank of real prompts
+    of 2 to 21 tokens, one with every key real, the text tower at
+    [16,12,128,64] and [8,12,512,64], the decoder's causal [8,8,128,64] and
+    its cross-attention [8,8,128|1572,64], the masks but the bank's seeded
+    prefixes. Runs against the package of the tree the script lies in."""
+    from deepcoro_clip_tpu_torch.data.dataset_creation import build_siglip_manifests
+    from deepcoro_clip_tpu_torch.ops import _build
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+
+    build_kernels(torch, [n for n in ("flash_fwd", "flash_fwd_proj", "flash_bwd",
+                                      "flash_short", "ring_attention")
+                          if (_build.SRC_DIR / f"{n}.cu").exists()])
+    _use_tree_kernel_names()
+    result = {"checksums": hopper_checksums(torch), "packed": packed_times(torch)}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        manifest = render_corpus(Path(root))
+        paths = build_siglip_manifests(siglip_rows(manifest, seed=0),
+                                       manifest.parent / "siglip",
+                                       cto_columns=siglip_cto_columns())
+        runner = VideoContrastiveLearningRunner(siglip_config(
+            data_filename=str(paths["videos"]), siglip_texts_path=str(paths["texts"]),
+            siglip_edges_path=str(paths["edges"]), epochs=2, num_workers=QUALITY_WORKERS,
+            output_dir=str(Path(root) / "run"), batch_size=SIGLIP_BATCH))
+        times = {}
+        batch = _profile_step(torch, "compare siglip profile", runner, times)
+        cfg = runner.config
+        args = (batch, runner.generator, cfg.video_freeze_ratio, cfg.text_freeze_ratio, -1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            runner.train_step(runner.state, *args)
+        torch.cuda.synchronize()
+        times["step_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+        times["busy_share"] = times["busy_ms"] / times["profiled_step_ms"]
+        print(f"compare siglip step: {times['step_ms']:.1f} ms a step (host clock, 5 steps on "
+              f"one batch), busy {times['busy_ms']:.2f} ms (share {times['busy_share']:.3f}), "
+              f"tile K3/K4 {times['tile_k3_k4_busy_ms']:.3f} ms | {CARD}", flush=True)
+        bank = batch["attention_mask"]
+        del runner, batch, args
+    torch.cuda.empty_cache()
+    B, L = bank.shape
+    result["siglip_step"] = times
+    result["rows"] = _attention_rows(torch, "compare attention", [
+        ("the SigLIP bank's padding mask", B, 12, L, L, bank, False),
+        ("every row a real prompt of 2 to 21 tokens", B, 12, L, L,
+         _prefix(torch, B, L, 2, 21, 26), False),
+        ("every key real (nothing skipped)", B, 12, L, L, torch.ones_like(bank), False),
+        ("text, reports of 8 to 40 tokens", 16, 12, 128, 128, _prefix(torch, 16, 128, 8, 40, 31),
+         False),
+        ("text, reports of 8 to 60 tokens", 8, 12, 512, 512, _prefix(torch, 8, 512, 8, 60, 32),
+         False),
+        ("decoder causal, captions of 8 to 60 tokens", 8, 8, 128, 128,
+         _prefix(torch, 8, 128, 8, 60, 33), True),
+        ("decoder cross-attention, no mask", 8, 8, 128, 1572, None, False)], seed=28)
+    return result
+
+
 def main(argv) -> int:
     """``--host-only``: phase 1, the build and phase 21 alone, against the
     package of the directory the script lies in (an older tree's too: copy
-    the script there)."""
+    the script there). ``--compare``: the A B B A call's measurements
+    (``run_compare``), likewise in any tree."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3881,6 +4246,8 @@ def main(argv) -> int:
             build_kernels(torch, [n for n in ("flash_fwd", "flash_bwd", "flash_short")
                                   if (_build.SRC_DIR / f"{n}.cu").exists()])
             kernels = {"host": phase_host(torch)}
+        elif "--compare" in argv:
+            kernels = {"compare": run_compare(torch)}
         else:
             kernels = run_all(torch)
     except PhaseError as e:
@@ -3906,7 +4273,7 @@ def run_all(torch) -> dict:
             regs += " (no producer warpgroup, no setmaxnreg)"
         print(f"build: {key} Hopper kernel {a['kernel']}: {a['consumers']} consumer "
               f"warpgroup(s), {regs}, {a['smem_bytes']} B dynamic shared memory a block "
-              f"(of 232448: one block per SM)", flush=True)
+              f"(of the 232448 a block may take)", flush=True)
 
     errs = phase_kernels(torch)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3977,7 +4344,7 @@ def run_all(torch) -> dict:
         e["kernels"] = short_rt[key]
         e["short_max_abs_err"] = short_errs["fwd" if key == "K3" else "bwd"]
         e["host"] = [r for r in host[1:] if r["kind"] == key]
-    by_key["K3"]["short_bit_equal_to_flash_fwd_kernel"] = short_errs["tile_equal"]
+    by_key["K3"]["short_bit_equal_to_flash_long_fwd_kernel"] = short_errs["tile_equal"]
 
     with tempfile.TemporaryDirectory() as corpus_root:
         manifest = render_corpus(Path(corpus_root))
@@ -3998,6 +4365,8 @@ def run_all(torch) -> dict:
         siglip = phase_siglip_run(torch, manifest)
         torch.cuda.empty_cache()
         multivideo = phase_multivideo_run(torch, manifest)
+    torch.cuda.empty_cache()
+    long = phase_long_kernels(torch, siglip.pop("bank_mask"))
     for run, result in (("multitask", multitask), ("siglip", siglip),
                         ("multivideo", multivideo)):
         for key, e in zip(("K1", "K3", "K2", "K4", "K5", "K6"), kernels["kernels"]):
@@ -4011,6 +4380,28 @@ def run_all(torch) -> dict:
         for key, err in zip(("K3", "K4"), result["aggregator_max_abs_err"]):
             by_key[key][f"{run}_aggregator_max_abs_err"] = err
             by_key[key]["max_abs_err"] = max(by_key[key]["max_abs_err"], err)
+    # the long calls' Hopper kernels, an entry each: launches over phases 22
+    # to 25's runs, the head row at the SigLIP bank's own mask (phase 24),
+    # every long row of phases 22 to 26 beside it
+    runs = (quality, multitask["counts"], siglip["counts"], multivideo["counts"])
+    for key, names, rows, bank in (
+            ("K3", long["routes"]["K3"], [quality["rows"][0]] + multitask["rows"][0]
+             + siglip["rows"][0][:1] + multivideo["rows"][0][:1] + long["rows"][0],
+             siglip["rows"][0][0]),
+            ("K4", long["routes"]["K4"], [quality["rows"][1]] + multitask["rows"][1]
+             + siglip["rows"][1][:1] + multivideo["rows"][1][:1] + long["rows"][1],
+             siglip["rows"][1][0])):
+        what = "forward" if key == "K3" else "backward"
+        e = {"name": f"flash_attention, Lq or Lk > 64 ({key} {what}: {', '.join(names)})",
+             "route": "cuda", "source": LONG_SOURCES[key],
+             "replaces": K3_REPLACES if key == "K3" else K4_REPLACES,
+             "launches": sum(c[f"{key} long"] for c in runs),
+             "max_abs_err": max(r["max_abs_err"] for r in rows), "kernels": names,
+             "skip_cut_keys_at_the_bank": long["cut"]}
+        e.update({k: bank[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "device_ms", "library_device_ms")})
+        e["shapes"] = rows
+        kernels["kernels"].append(e)
     return kernels
 
 

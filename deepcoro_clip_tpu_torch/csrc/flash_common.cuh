@@ -2,11 +2,11 @@
 // forward with the fused output projection (flash_fwd_proj.cu), the
 // backward (flash_bwd.cu), the short-sequence kernels (flash_short.cu) and
 // the ring-attention step (ring_attention.cu) kernels: mma.sync / ldmatrix /
-// cp.async wrappers, the padded 64-row shared-memory tile loader,
-// rotate-half RoPE with the plain version's bf16 rounding points, the
-// gradient row stores through the transpose of RoPE, the attention of one
-// q tile over one head's keys (`attend_head`), and the warp helpers of the
-// fp32 kernels.
+// cp.async wrappers, the padded shared-memory row loader, rotate-half RoPE
+// with the plain version's bf16 rounding points (and its pre-pass kernels),
+// the gradient row stores through the transpose of RoPE, the mma.sync
+// attention of one q tile over one head's keys (`attend_head`, the ring
+// step's at Dh 64), and the warp helpers of the fp32 kernels.
 //
 // Tiles are 64 rows of D bf16 values, each row padded by PAD elements so
 // that ldmatrix reads are free of bank conflicts. Every operand is a base
@@ -19,6 +19,7 @@
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <climits>
 #include <cmath>
 #include <cstdint>
 
@@ -122,13 +123,6 @@ __device__ __forceinline__ void load_rows_async(__nv_bfloat16* s, int ld,
   }
 }
 
-// The same for one padded 64-row tile.
-template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* s, const __nv_bfloat16* g,
-                                                long long sl, int row0, int L) {
-  load_rows_async<D, BK>(s, D + PAD, g, sl, row0, L);
-}
-
 // In-place RoPE on the rows of the shared q tile (rows of `ld` elements)
 // that exist.
 template <int D>
@@ -183,9 +177,9 @@ __device__ __forceinline__ void store_rows(float (&acc)[D / 8][4], __nv_bfloat16
   }
 }
 
-// Attention of one 64-row q tile of one (batch, head) over all its keys: the
-// body shared by the forward kernel (flash_fwd.cu) and the forward with the
-// fused output projection (flash_fwd_proj.cu). The whole block calls it.
+// Attention of one 64-row q tile of one (batch, head) over all its keys, on
+// mma.sync: the body of the ring step kernel at Dh 64 (ring_attention.cu
+// `ring_step_kernel`). The whole block calls it.
 // `qg`, `kg`, `vg` point at the head's first row (k rotated already when
 // RoPE is on). Keys stream in tiles of BKT rows; Qs is 64 shared rows of
 // `q_ld` elements, Ks and Vs two padded tiles of BKT rows each. On return

@@ -1,40 +1,19 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 in/out with fp32 softmax
-// on the tensor cores, and a plain fp32 kernel for fp32 operands (below).
+// on the tensor cores (wgmma, TMA, mbarriers), and a plain fp32 kernel for
+// fp32 operands (below).
 //
 // Replaces two Pallas TPU kernels of deepcoro_clip_tpu:
-//   - ops/flash_attention_packed.py `_fwd_kernel` (packed [B, L, H*Dh], with
-//     q/k/v read as strided views of one fused [B, L, 3D] QKV tensor);
-//   - ops/flash_attention.py `_fwd_kernel` ([B, H, L, Dh]).
-// One kernel serves both: it takes every operand as a base pointer plus
-// (batch, head, row) strides in elements, with the head dim contiguous, so
-// neither layout is copied or transposed on the way in or out.
-//
-// What bounds it on an H100: per head the work is 4*L*L*Dh FLOP against
-// 4*L*Dh*2 bytes moved (q, k, v read, o written), L/2 FLOP per byte. At the
-// video tower's L = 1569 that is ~780, above the card's ~295 bf16
-// FLOP/byte ridge: the tensor cores bound it. At L = 393 (after the pool,
-// ~200) and in the aggregator (L = 10) it is below the ridge, and the
-// bytes, then the launch, bound it.
-//
-// Design. The Pallas kernels keep ALL of K/V in VMEM and take one exact
-// softmax per q-block. K and V of one head at L = 1569, Dh = 128 are
-// 2 x 402 KB in bf16, more than a block's 227 KB of shared memory, so here
-// K/V stream through shared memory in 64-key tiles with an online softmax
-// (fp32 running max m, sum l and accumulator). One block of 4 warps owns a
-// 64-row q-tile of one (batch, head); each warp owns 16 rows and runs
-// mma.sync m16n8k16 (bf16 x bf16 -> fp32) for S = Q K^T and O += P V, with
-// the S accumulator re-packed in registers as the A operand of P V (no
-// shared-memory round trip for P). Tile sizes are fixed and never depend on
-// the batch, so results do not change with batch size. K/V tiles arrive by
-// cp.async into a double buffer (the next tile loads while this one is
-// computed); fragments come out of padded shared tiles by ldmatrix (V
-// transposed on the way). RoPE of K is applied once, by a small pre-pass
-// kernel into a scratch copy of K, rather than to every K tile in every
-// q-block; q rows are rotated once, in shared memory. This kernel serves
-// the [B, H, L, Dh] entry (K3) at Dh 64 and 128 where Lq or Lk exceeds 64
-// (shorter calls run flash_short.cu in one launch); every bf16 call of the
-// packed and fused layouts (K1) runs flash_fwd_sm90_kernel below, the same
-// function on wgmma, TMA and an mbarrier pipeline.
+//   - ops/flash_attention_packed.py `_fwd_kernel` (K1: packed [B, L, H*Dh],
+//     with q/k/v read as strided views of one fused [B, L, 3D] QKV tensor),
+//     Dh 128, on `flash_fwd_sm90_kernel`;
+//   - ops/flash_attention.py `_fwd_kernel` (K3: [B, H, L, Dh]) where Lq or
+//     Lk exceeds 64, Dh 64 or 128, on `flash_long_fwd_kernel<D>` (shorter
+//     calls run flash_short.cu in one launch).
+// Both kernels are the one body `fwd_sm90<D>` below: it takes every operand
+// as a base pointer plus (batch, head, row) strides in elements, with the
+// head dim contiguous, so no layout is copied or transposed on the way in or
+// out (the text tower hands K3 transposed views of [B, L, 768], heads inside
+// a row). The two names keep the calls apart in a profile.
 //
 // Semantics kept from the plain version (ops/attention.py):
 //   - keys at index >= Lk do not exist: their probability is exactly 0;
@@ -46,6 +25,56 @@
 //     and each product and sum rounded to bf16, as the plain version's ops;
 //   - P is rounded to bf16 before the P V product; l sums the fp32 P.
 // exp2 with log2(e) folded into the score scale computes the same softmax.
+//
+// What bounds it on an H100. Per head the work is 4*Lq*Lk'*D FLOP, Lk' the
+// keys the rows may attend, against (2*Lq + 2*Lk')*D*2 bytes (q read, o
+// written, k and v read). Video tower (K1, L 1569, no mask): ~780 FLOP a
+// byte, above the card's ~295 bf16 ridge: the tensor cores. Text tower at L
+// 512 and 128 with the reports' padding (K3, Dh 64): Lk' a few hundred or
+// less, ~100 to 200 FLOP a byte: the bytes. The SigLIP bank [280, 12, 512,
+// 64], 2 to 21 real keys a row of 512: Lk' <= 21, ~10 FLOP a byte, so q and o
+// alone (0.44 GB, 0.13 ms) bound it; visiting all 512 keys of every row, as
+// the mma.sync kernel this one replaced did, cost 19x that bound.
+//
+// Design (FA3's forward shape), tiles fixed (never dependent on B, so
+// results stay batch-size invariant bit for bit; no atomics, so two
+// launches agree bit for bit):
+//   - a persistent grid (one block per SM) walks the work items, BQ = 128
+//     q rows of one (batch, head) each, q tiles of a head next to each
+//     other so its K/V stay in L2;
+//   - a block has three warpgroups: two consumers of 64 rows each and a
+//     producer; setmaxnreg gives the consumers 232 registers and the
+//     producer 40;
+//   - one warp of the producer loads the item's q tile by TMA (once the
+//     consumers are done with the products of the q tile that slot held),
+//     hands the consumers the item's key tile count beside it (read from the
+//     item's mask row while the consumers work on the item before:
+//     key_extent, visit_keys in sm90_common.cuh; the key tiles past every
+//     row's last real key, and past the last row under causal masking, are
+//     skipped, exactly, see there), and then loads the item's K and V tiles
+//     of 128 keys (cp.async.bulk.tensor over 4-D tensor maps of the strided
+//     operands) into a ring of stages guarded by `full`/`empty` mbarriers,
+//     with each tile's 128 mask bytes beside it; so the next item's tiles
+//     arrive while the consumers finish this one;
+//   - each consumer warpgroup rotates its 64 rows of the q tile (RoPE, in
+//     place, rope_q_rows) and runs sm90_attend (sm90_common.cuh): S = Q K^T
+//     on wgmma from shared memory, the softmax in registers while the
+//     tensor cores run the previous tile's P V, P rounded to bf16 as the
+//     register A operand of O += P V on wgmma; then the epilogue straight
+//     from registers;
+//   - RoPE of K: a pre-pass (launch_rope_rows) into a contiguous scratch.
+// The q-tile height costs padded rows on ragged lengths: 1569 rows take 13
+// tiles (1664 rows, 6% idle), 393 take 4 (512, 23%), 512 take 4 (none).
+// Stages and shared memory: at Dh 128 a stage of 128 keys is 64 KB, so one q
+// tile of 32 KB + 3 stages + mask bytes fill 225 KB of the 227 KB a block
+// may have. At Dh 64 a stage is 32 KB and a q tile 16 KB: the ring has 4
+// stages and there are 2 q slots (161 KB in all), so the next item's q tile
+// loads while the consumers work on this one. That is what the SigLIP bank
+// needs: its items visit one key tile each, and with one q slot every item
+// waited for its q tile's load after the last one's products. Either way
+// one block per SM: the 384 threads take the SM's 64K registers
+// (setmaxnreg), and the q-tile height stays 128 rows at both head dims, 64 a
+// consumer warpgroup, the height wgmma's m64 products take.
 
 #include "sm90_common.cuh"
 
@@ -69,131 +98,13 @@ struct Params {
   int causal;
 };
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int TILE = BK * (D + PAD);
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * (D + PAD);  // two K tiles, then two V tiles
-  __nv_bfloat16* Vs = Ks + 2 * TILE;
-
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-
-  __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh;
-  constexpr int NO = D / 8;  // n8 tiles of the output
-  float acc[NO][4];
-  float m_r[2], l_r[2];  // rows g and g + 8
-  attend_head<D, BK>(Qs, D + PAD, Ks, Vs, p.q + b * p.q_sb + h * p.q_sh, p.q_sl,
-                     p.k + b * p.k_sb + h * p.k_sh, p.k_sl, p.v + b * p.v_sb + h * p.v_sh,
-                     p.v_sl, p.sin, p.cos,
-                     p.mask ? p.mask + (long long)b * p.Lk : nullptr, q0, p.Lq, p.Lk,
-                     p.scale_log2, p.causal, acc, m_r, l_r);
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-
-  // the backward kernels rebuild P = exp2(s - m) / l from these; written
-  // only when a gradient is wanted, and never read on this path
-  if (p.stats != nullptr && t == 0) {
-    float* sm = p.stats + (long long)bh * p.Lq;
-    float* sl = sm + (long long)gridDim.y * p.Lq;
-    if (row_a < p.Lq) { sm[row_a] = m_r[0]; sl[row_a] = l_r[0]; }
-    if (row_b < p.Lq) { sm[row_b] = m_r[1]; sl[row_b] = l_r[1]; }
-  }
-  // l >= 1: the row maximum contributes exp2(0)
-  const float inv_a = 1.f / l_r[0];
-  const float inv_b = 1.f / l_r[1];
-  if (row_a < p.Lq) {
-    __nv_bfloat16* orow = og + (long long)row_a * p.o_sl;
-#pragma unroll
-    for (int dn = 0; dn < NO; ++dn) {
-      *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t) =
-          pack_bf16(acc[dn][0] * inv_a, acc[dn][1] * inv_a);
-    }
-  }
-  if (row_b < p.Lq) {
-    __nv_bfloat16* orow = og + (long long)row_b * p.o_sl;
-#pragma unroll
-    for (int dn = 0; dn < NO; ++dn) {
-      *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t) =
-          pack_bf16(acc[dn][2] * inv_b, acc[dn][3] * inv_b);
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch(Params p, int B, __nv_bfloat16* k_rot, cudaStream_t stream) {
-  if (p.sin != nullptr) {  // rotate K once into the scratch, then read it there
-    cudaError_t err = launch_rope_rows<D>(p.k, p.k_sb, p.k_sh, p.k_sl, B, p.H, p.Lk,
-                                          p.sin, p.cos, k_rot, stream);
-    if (err != cudaSuccess) return err;
-    p.k = k_rot;
-    p.k_sb = (long long)p.H * p.Lk * D;
-    p.k_sh = (long long)p.Lk * D;
-    p.k_sl = D;
-  }
-  const int smem = (BQ + 4 * BK) * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16));
-  static bool ready[MAX_DEVICES] = {};  // one per head dim: launch<D> is a template
-  cudaError_t err = allow_smem_once(
-      reinterpret_cast<const void*>(&flash_fwd_kernel<D>), smem, ready);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Lq + BQ - 1) / BQ, B * p.H);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// ---- the packed layouts on Hopper's own tools (K1) -----------------------------
-// Every bf16 call of the packed [B, L, H*128] and fused [B, L, 3D] layouts
-// (flash_attention_packed) runs this kernel; the [B, H, L, Dh] entry (K3)
-// keeps flash_fwd_kernel above.
-//
-// What bounds it: the tensor cores at L = 1569 (~780 FLOP per byte against
-// the card's ~295 ridge), the bytes at L = 393. What flash_fwd_kernel left on
-// the table there: mma.sync (the older tensor-core path, at most ~2/3 of
-// wgmma's rate), cp.async issued by every thread with a __syncthreads()
-// before and after each key tile, so loads and math never overlap, a mask
-// byte read from device memory per score, and per block a q-tile load,
-// RoPE and pipeline start that short rows (25 key tiles at L = 1569, 7 at
-// 393) do not amortise. Design (FA3's forward shape), tiles fixed (never
-// dependent on B, so results stay batch-size invariant bit for bit; no
-// atomics, so two launches agree bit for bit):
-//   - a persistent grid (one block per SM) walks the work items, BQ = 128
-//     q rows of one (batch, head) each, q tiles of a head next to each
-//     other so its K/V stay in L2;
-//   - a block has three warpgroups: two consumers of 64 rows each and a
-//     producer; setmaxnreg gives the consumers 232 registers and the
-//     producer 40;
-//   - one warp of the producer loads each item's q tile by TMA (once the
-//     consumers are done with the last one's products) and then its K and V
-//     tiles of 128 keys (cp.async.bulk.tensor over 4-D tensor maps of the
-//     strided operands, so fused QKV is read in place) into a ring of three
-//     stages guarded by `full`/`empty` mbarriers, with each tile's 128 mask
-//     bytes beside it; so the next item's tiles arrive while the consumers
-//     finish this one;
-//   - each consumer warpgroup rotates its 64 rows of the q tile (RoPE, in
-//     place, rope_q_rows) and runs sm90_attend (sm90_common.cuh): S = Q K^T
-//     on wgmma from shared memory, the softmax in registers while the
-//     tensor cores run the previous tile's P V, P rounded to bf16 as the
-//     register A operand of O += P V on wgmma; then the epilogue straight
-//     from registers;
-//   - RoPE of K: a pre-pass (launch_rope_rows) into a contiguous scratch.
-// The q-tile height costs padded rows on ragged lengths: 1569 rows take 13
-// tiles (1664 rows, 6% idle), 393 take 4 (512, 23%), 512 take 4 (none).
-// Shared memory: q 32 KB + 3 stages x 64 KB + 384 mask bytes: 225 KB of the
-// 227 KB a block may have, one block per SM.
-
 constexpr int SM90_BQ = 128;
 constexpr int SM90_BK = 128;
-constexpr int SM90_NST = 3;
 constexpr int SM90_THREADS = 3 * 128;
 
 struct Sm90Params {
   __nv_bfloat16* o;
-  const float* sin;     // [Lq, 128] fp32 or null
+  const float* sin;     // [Lq, D] fp32 or null
   const float* cos;
   const uint8_t* mask;  // [B, Lk], nonzero = attend, or null
   float* stats;         // [2, B*H, Lq] fp32 row max and row sum, or null
@@ -204,41 +115,50 @@ struct Sm90Params {
   int q_hi, k_hi, v_hi;  // coordinate order of each tensor map
 };
 
+template <int D>
 struct Sm90Smem {  // byte offsets from the 1024-aligned base
-  static constexpr int QTILE = 2 * SM90_BQ * BOX_ROW_BYTES;  // two boxes of BQ rows
+  static constexpr int NST = D == 64 ? 4 : 3;  // K/V stages
+  static constexpr int QST = D == 64 ? 2 : 1;  // q tiles: the next item's loads early
+  static constexpr int QBOX = SM90_BQ * BOX_ROW_BYTES;  // one box of a q tile
+  static constexpr int QTILE = (D / 64) * QBOX;
   static constexpr int Q = 0;
-  static constexpr int RING = Q + QTILE;
-  static constexpr int MASK = RING + SM90_NST * KVRing<SM90_BK>::STAGE;
-  // full[NST], empty[NST], q loaded, q free
-  static constexpr int BARS = MASK + SM90_NST * SM90_BK;
-  static constexpr int END = BARS + (2 * SM90_NST + 2) * 8;
+  static constexpr int RING = Q + QST * QTILE;
+  static constexpr int MASK = RING + NST * KVRing<SM90_BK, D>::STAGE;
+  // full[NST], empty[NST], q loaded[QST], q free[QST]
+  static constexpr int BARS = MASK + NST * SM90_BK;
+  static constexpr int TILES = BARS + (2 * NST + 2 * QST) * 8;  // each q tile's key tiles
+  static constexpr int END = TILES + 16;
   static constexpr int BYTES = END + 1024;  // slack to align the base
 };
 
-__global__ void __launch_bounds__(SM90_THREADS, 1)
-    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                          const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tv, const Sm90Params p) {
+template <int D>
+__device__ __forceinline__ void fwd_sm90(const CUtensorMap* tq, const CUtensorMap* tk,
+                                         const CUtensorMap* tv, const Sm90Params& p) {
+  using S = Sm90Smem<D>;
+  constexpr int NST = S::NST, QST = S::QST;
   extern __shared__ __align__(16) unsigned char sm90_smem[];
   unsigned char* smem = sm90_smem + ((1024 - (smem_u32(sm90_smem) & 1023)) & 1023);
   const uint32_t base = smem_u32(smem);
-  uint8_t* mask_s = smem + Sm90Smem::MASK;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Sm90Smem::BARS);
-  uint64_t* empty = full + SM90_NST;
-  uint64_t* q_loaded = empty + SM90_NST;
-  uint64_t* q_free = q_loaded + 1;
+  uint8_t* mask_s = smem + S::MASK;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* empty = full + NST;
+  uint64_t* q_loaded = empty + NST;
+  uint64_t* q_free = q_loaded + QST;
+  int* tiles_s = reinterpret_cast<int*>(smem + S::TILES);
 
   const int nqt = (p.Lq + SM90_BQ - 1) / SM90_BQ;
   const int items = nqt * p.B * p.H;
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < SM90_NST; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(&full[s], 32);
       mbar_init(&empty[s], 2 * 128);
     }
-    mbar_init(q_loaded, 1);
-    mbar_init(q_free, 2 * 128);
+    for (int s = 0; s < QST; ++s) {
+      mbar_init(&q_loaded[s], 1);
+      mbar_init(&q_free[s], 2 * 128);
+    }
     mbar_init_fence();
   }
   __syncthreads();
@@ -246,44 +166,65 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   if (wg == 2) {  // producer: one warp loads, the other three leave
     setmaxnreg_dec<40>();
     if ((threadIdx.x / 32) % 4 != 0) return;
+    // the key tiles of an item, read from its mask row
+    auto item_tiles = [&](int item) {
+      const int qt = item % nqt, b = item / nqt / p.H;
+      int e, f;
+      key_extent(p.mask ? p.mask + (long long)b * p.Lk : nullptr, p.Lk, lane, e, f);
+      return (visit_keys(e, f, p.Lq, p.Lk, qt * SM90_BQ, SM90_BQ, p.causal) + SM90_BK - 1) /
+             SM90_BK;
+    };
     uint32_t n = 0;
     Pipe pp;
+    int nt = -1;  // the item's key tiles, once read
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
       const int qt = item % nqt, bh = item / nqt;
       const int b = bh / p.H, h = bh % p.H;
-      mbar_wait(q_free, (n & 1) ^ 1);  // the consumers are done with the last q
+      const int qs = n % QST;
+      const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
+      // the consumers are done with the q tile this slot held
+      mbar_wait(&q_free[qs], ((n / QST) & 1) ^ 1);
       if (lane == 0) {
-        mbar_arrive_expect_tx(q_loaded, Sm90Smem::QTILE);
-        tma_load_head(&tq, base + Sm90Smem::Q, q_loaded, 0, qt * SM90_BQ, h, b, p.q_hi);
-        tma_load_head(&tq, base + Sm90Smem::Q + SM90_BQ * BOX_ROW_BYTES, q_loaded, 64,
-                      qt * SM90_BQ, h, b, p.q_hi);
+        mbar_expect_tx(&q_loaded[qs], S::QTILE);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_head(tq, base + S::Q + qs * S::QTILE + c * S::QBOX, &q_loaded[qs], 64 * c,
+                        qt * SM90_BQ, h, b, p.q_hi);
+        }
       }
-      produce_kv<SM90_BK, SM90_NST>(&tk, p.k_hi, &tv, p.v_hi, h, b, p.Lk,
-                                    p.mask ? p.mask + (long long)b * p.Lk : nullptr,
-                                    base + Sm90Smem::RING, mask_s, full, empty, pp, lane);
+      if (nt < 0) nt = item_tiles(item);  // the first item's, while its q is in flight
+      if (lane == 0) {
+        tiles_s[qs] = nt;  // released to the consumers by this arrival
+        mbar_arrive(&q_loaded[qs]);
+      }
+      produce_kv<SM90_BK, NST, D>(tk, p.k_hi, tv, p.v_hi, h, b, p.Lk, nt, mrow,
+                                  base + S::RING, mask_s, full, empty, pp, lane);
+      // the next item's, while the consumers work on this one
+      nt = item + gridDim.x < items ? item_tiles(item + gridDim.x) : -1;
     }
   } else {  // consumers: warpgroup wg owns q rows q0 + 64 wg .. of each item
     setmaxnreg_inc<232>();
     const int warp = (threadIdx.x % 128) / 32;
-    const uint32_t qrows = Sm90Smem::Q + wg * 64 * BOX_ROW_BYTES;
     uint32_t n = 0;
     Pipe pp;
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
       const int qt = item % nqt, bh = item / nqt;
       const int b = bh / p.H, h = bh % p.H;
       const int row_a = qt * SM90_BQ + wg * 64 + warp * 16 + lane / 4;
-      mbar_wait(q_loaded, n & 1);
+      const int qs = n % QST;
+      const uint32_t qrows = S::Q + qs * S::QTILE + wg * 64 * BOX_ROW_BYTES;
+      mbar_wait(&q_loaded[qs], (n / QST) & 1);
+      const int nt = tiles_s[qs];
       if (p.sin != nullptr) {  // RoPE of this warpgroup's q rows, in place
-        rope_q_rows(smem + qrows, smem + qrows + SM90_BQ * BOX_ROW_BYTES, p.sin, p.cos,
-                    qt * SM90_BQ + wg * 64, p.Lq, threadIdx.x % 128);
+        rope_q_rows<D>(smem + qrows, smem + qrows + S::QBOX, p.sin, p.cos,
+                       qt * SM90_BQ + wg * 64, p.Lq, threadIdx.x % 128);
         fence_async_smem();
         warpgroup_sync(1 + wg);
       }
-      float o[64], m_r[2], l_r[2];
-      sm90_attend<SM90_BK, SM90_NST>(base + qrows, SM90_BQ * BOX_ROW_BYTES,
-                                     base + Sm90Smem::RING, mask_s, p.mask != nullptr, full,
-                                     empty, pp, q_free, row_a, p.Lk, p.scale_log2, p.causal,
-                                     o, m_r, l_r);
+      float o[D / 2], m_r[2], l_r[2];
+      sm90_attend<SM90_BK, NST, true, D>(base + qrows, S::QBOX, base + S::RING, mask_s,
+                                         p.mask != nullptr, full, empty, pp, &q_free[qs],
+                                         row_a, p.Lk, nt, p.scale_log2, p.causal, o, m_r, l_r);
       write_stats(p.stats, bh, (long long)p.B * p.H, p.Lq, row_a, m_r, l_r);
       // l >= 1: the row maximum contributes exp2(0)
       const float inv[2] = {1.f / l_r[0], 1.f / l_r[1]};
@@ -294,7 +235,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
         if (row >= p.Lq) continue;
         __nv_bfloat16* orow = og + (long long)row * p.o_sl;
 #pragma unroll
-        for (int jn = 0; jn < 16; ++jn) {
+        for (int jn = 0; jn < D / 8; ++jn) {
           *reinterpret_cast<uint32_t*>(orow + jn * 8) =
               pack_bf16(o[4 * jn + 2 * r] * inv[r], o[4 * jn + 2 * r + 1] * inv[r]);
         }
@@ -303,15 +244,44 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   }
 }
 
+// K1: the packed and fused layouts, Dh 128.
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const Sm90Params p) {
+  fwd_sm90<128>(&tq, &tk, &tv, p);
+}
+
+// K3: the [B, H, L, Dh] entry above 64 tokens, Dh 64 or 128.
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_long_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const Sm90Params p) {
+  fwd_sm90<D>(&tq, &tk, &tv, p);
+}
+
+// The kernel of an entry: K1's, or K3's long one at D.
+template <int D, bool LONG>
+const void* fwd_kernel() {
+  if constexpr (LONG) {
+    return reinterpret_cast<const void*>(&flash_long_fwd_kernel<D>);
+  } else {
+    static_assert(D == 128, "K1 takes Dh 128");
+    return reinterpret_cast<const void*>(&flash_fwd_sm90_kernel);
+  }
+}
+
+template <int D, bool LONG>
 int launch_sm90(Params p, int B, __nv_bfloat16* k_rot, cudaStream_t stream) {
   if (p.sin != nullptr) {  // rotate K once into the scratch, then read it there
-    cudaError_t err = launch_rope_rows<128>(p.k, p.k_sb, p.k_sh, p.k_sl, B, p.H, p.Lk,
-                                            p.sin, p.cos, k_rot, stream);
+    cudaError_t err = launch_rope_rows<D>(p.k, p.k_sb, p.k_sh, p.k_sl, B, p.H, p.Lk, p.sin,
+                                          p.cos, k_rot, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     p.k = k_rot;
-    p.k_sb = (long long)p.H * p.Lk * 128;
-    p.k_sh = (long long)p.Lk * 128;
-    p.k_sl = 128;
+    p.k_sb = (long long)p.H * p.Lk * D;
+    p.k_sh = (long long)p.Lk * D;
+    p.k_sl = D;
   }
   Sm90Params s;
   s.o = p.o; s.sin = p.sin; s.cos = p.cos; s.mask = p.mask; s.stats = p.stats;
@@ -320,24 +290,28 @@ int launch_sm90(Params p, int B, __nv_bfloat16* k_rot, cudaStream_t stream) {
   s.scale_log2 = p.scale_log2;
   s.causal = p.causal;
   CUtensorMap tq, tk, tv;
-  int err = encode_head_map(&tq, p.q, p.Lq, p.H, B, p.q_sl, p.q_sh, p.q_sb, SM90_BQ, &s.q_hi);
+  int err = encode_head_map(&tq, p.q, p.Lq, p.H, B, p.q_sl, p.q_sh, p.q_sb, SM90_BQ, &s.q_hi,
+                            D);
   if (err == 0) {
-    err = encode_head_map(&tk, p.k, p.Lk, p.H, B, p.k_sl, p.k_sh, p.k_sb, SM90_BK, &s.k_hi);
+    err = encode_head_map(&tk, p.k, p.Lk, p.H, B, p.k_sl, p.k_sh, p.k_sb, SM90_BK, &s.k_hi, D);
   }
   if (err == 0) {
-    err = encode_head_map(&tv, p.v, p.Lk, p.H, B, p.v_sl, p.v_sh, p.v_sb, SM90_BK, &s.v_hi);
+    err = encode_head_map(&tv, p.v, p.Lk, p.H, B, p.v_sl, p.v_sh, p.v_sb, SM90_BK, &s.v_hi, D);
   }
   if (err != 0) return err;
-  static bool ready[MAX_DEVICES] = {};
-  cudaError_t cerr = allow_smem_once(reinterpret_cast<const void*>(&flash_fwd_sm90_kernel),
-                                     Sm90Smem::BYTES, ready);
+  const void* kernel = fwd_kernel<D, LONG>();
+  static bool ready[MAX_DEVICES] = {};  // one per instance: one per kernel
+  cudaError_t cerr = allow_smem_once(kernel, Sm90Smem<D>::BYTES, ready);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   int sms = 0;
   cerr = num_sms(&sms);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const long long items = (long long)((p.Lq + SM90_BQ - 1) / SM90_BQ) * B * p.H;
   const int grid = static_cast<int>(items < sms ? items : sms);
-  flash_fwd_sm90_kernel<<<grid, SM90_THREADS, Sm90Smem::BYTES, stream>>>(tq, tk, tv, s);
+  void* args[] = {&tq, &tk, &tv, &s};
+  cerr = cudaLaunchKernel(kernel, dim3(grid), dim3(SM90_THREADS), args, Sm90Smem<D>::BYTES,
+                          stream);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -447,88 +421,75 @@ cudaError_t launch_f32(ParamsF32 p, int B, float* k_rot, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The C entries below share their arguments. They return 0 on success,
+// else the CUDA error code of a launch (or cudaErrorInvalidValue for a head
+// dim the kernel was not built for, or RoPE without its scratch), or
+// TMA_ERROR_BASE + the CUresult of cuTensorMapEncodeTiled when a tensor map
+// cannot be encoded (the bf16 entries: every operand needs a 16-byte aligned
+// base and strides). Strides are in elements; the head dim of every operand
+// is contiguous. With sin/cos, `k_rot` is a [B, H, Lk, Dh] scratch buffer
+// of the operands' type that receives the rotated K. `stats`, when not
+// null, is a [2, B, H, Lq] fp32 buffer that receives each row's maximum (of
+// the scores in log2 units, scale folded in) and the row's sum of
+// exp2(score - maximum): what the backward needs to rebuild P.
+#define FWD_ARGS                                                                        \
+  const void *q, const void *k, const void *v, void *o, const void *sin, const void *cos, \
+      const void *mask, void *k_rot, void *stats, int B, int H, int Lq, int Lk, int Dh,   \
+      long long q_sb, long long q_sh, long long q_sl, long long k_sb, long long k_sh,     \
+      long long k_sl, long long v_sb, long long v_sh, long long v_sl, long long o_sb,     \
+      long long o_sh, long long o_sl, float scale, int causal, void *stream
+#define FWD_NAMES                                                                          \
+  q, k, v, o, sin, cos, mask, k_rot, stats, B, H, Lq, Lk, Dh, q_sb, q_sh, q_sl, k_sb, k_sh, \
+      k_sl, v_sb, v_sh, v_sl, o_sb, o_sh, o_sl, scale, causal, stream
+
+// The bf16 entries' arguments as the kernels' Params.
+Params fwd_params(FWD_ARGS) {
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.sin = static_cast<const float*>(sin);
+  p.cos = static_cast<const float*>(cos);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.stats = static_cast<float*>(stats);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
+  p.H = H; p.Lq = Lq; p.Lk = Lk;
+  p.scale_log2 = scale * LOG2E;
+  p.causal = causal;
+  return p;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns 0 on success, else the CUDA error code of a launch (or
-// cudaErrorInvalidValue for a head dim the kernel was not built for, or
-// RoPE without its scratch). Strides are in elements; the head dim of every
-// operand is contiguous. With sin/cos, `k_rot` is a [B, H, Lk, Dh] bf16
-// scratch buffer that receives the rotated K. `stats`, when not null, is
-// a [2, B, H, Lq] fp32 buffer that receives each row's maximum (of the
-// scores in log2 units, scale folded in) and the row's sum of
-// exp2(score - maximum): what the backward needs to rebuild P.
-int deepcoro_flash_fwd_bf16(
-    const void* q, const void* k, const void* v, void* o,
-    const void* sin, const void* cos, const void* mask, void* k_rot, void* stats,
-    int B, int H, int Lq, int Lk, int Dh,
-    long long q_sb, long long q_sh, long long q_sl,
-    long long k_sb, long long k_sh, long long k_sl,
-    long long v_sb, long long v_sh, long long v_sl,
-    long long o_sb, long long o_sh, long long o_sl,
-    float scale, int causal, void* stream) {
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.sin = static_cast<const float*>(sin);
-  p.cos = static_cast<const float*>(cos);
-  p.mask = static_cast<const uint8_t*>(mask);
-  p.stats = static_cast<float*>(stats);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
-  p.H = H; p.Lq = Lq; p.Lk = Lk;
-  p.scale_log2 = scale * LOG2E;
-  p.causal = causal;
-  if (sin != nullptr && k_rot == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  __nv_bfloat16* kr = static_cast<__nv_bfloat16*>(k_rot);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 64: return static_cast<int>(launch<64>(p, B, kr, st));
-    case 128: return static_cast<int>(launch<128>(p, B, kr, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// K1: the same arguments and results for the packed and fused layouts
-// (q/k/v strided views with the heads inside a row), bf16, Dh 128 only
-// (cudaErrorInvalidValue otherwise), on flash_fwd_sm90_kernel. Also
-// returns TMA_ERROR_BASE + the CUresult of cuTensorMapEncodeTiled when a
-// tensor map cannot be encoded.
-int deepcoro_flash_fwd_sm90_bf16(
-    const void* q, const void* k, const void* v, void* o,
-    const void* sin, const void* cos, const void* mask, void* k_rot, void* stats,
-    int B, int H, int Lq, int Lk, int Dh,
-    long long q_sb, long long q_sh, long long q_sl,
-    long long k_sb, long long k_sh, long long k_sl,
-    long long v_sb, long long v_sh, long long v_sl,
-    long long o_sb, long long o_sh, long long o_sl,
-    float scale, int causal, void* stream) {
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.sin = static_cast<const float*>(sin);
-  p.cos = static_cast<const float*>(cos);
-  p.mask = static_cast<const uint8_t*>(mask);
-  p.stats = static_cast<float*>(stats);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
-  p.H = H; p.Lq = Lq; p.Lk = Lk;
-  p.scale_log2 = scale * LOG2E;
-  p.causal = causal;
+// K1: the packed and fused layouts (q/k/v strided views with the heads
+// inside a row), bf16, Dh 128 only, on flash_fwd_sm90_kernel.
+int deepcoro_flash_fwd_sm90_bf16(FWD_ARGS) {
   if (Dh != 128 || (sin != nullptr && k_rot == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_sm90(p, B, static_cast<__nv_bfloat16*>(k_rot),
-                     static_cast<cudaStream_t>(stream));
+  const Params p = fwd_params(FWD_NAMES);
+  return launch_sm90<128, false>(p, B, static_cast<__nv_bfloat16*>(k_rot),
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// K3: the [B, H, L, Dh] entry's long calls (Lq or Lk above 64), bf16, Dh 64
+// or 128, on flash_long_fwd_kernel<Dh>.
+int deepcoro_flash_long_fwd_bf16(FWD_ARGS) {
+  if (sin != nullptr && k_rot == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Params p = fwd_params(FWD_NAMES);
+  __nv_bfloat16* kr = static_cast<__nv_bfloat16*>(k_rot);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64: return launch_sm90<64, true>(p, B, kr, st);
+    case 128: return launch_sm90<128, true>(p, B, kr, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Registers per thread (at entry; setmaxnreg moves them between the
@@ -539,21 +500,26 @@ int deepcoro_flash_fwd_sm90_attrs(int* regs, int* smem) {
       cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(&flash_fwd_sm90_kernel));
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = a.numRegs;
-  *smem = Sm90Smem::BYTES;
+  *smem = Sm90Smem<128>::BYTES;
   return 0;
 }
 
-// The same for fp32 operands (`k_rot` then is an fp32 scratch); the
-// arguments mean what they mean above.
-int deepcoro_flash_fwd_f32(
-    const void* q, const void* k, const void* v, void* o,
-    const void* sin, const void* cos, const void* mask, void* k_rot, void* stats,
-    int B, int H, int Lq, int Lk, int Dh,
-    long long q_sb, long long q_sh, long long q_sl,
-    long long k_sb, long long k_sh, long long k_sl,
-    long long v_sb, long long v_sh, long long v_sl,
-    long long o_sb, long long o_sh, long long o_sl,
-    float scale, int causal, void* stream) {
+// The same for flash_long_fwd_kernel<Dh>, Dh 64 or 128.
+int deepcoro_flash_long_fwd_attrs(int Dh, int* regs, int* smem) {
+  if (Dh != 64 && Dh != 128) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(
+      &a, Dh == 64 ? fwd_kernel<64, true>() : fwd_kernel<128, true>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *smem = Dh == 64 ? Sm90Smem<64>::BYTES : Sm90Smem<128>::BYTES;
+  return 0;
+}
+
+// fp32 operands of the [B, H, L, Dh] entry (`k_rot` then is an fp32
+// scratch), Dh 64 or 128, on flash_fwd_f32_kernel; the arguments mean what
+// they mean above.
+int deepcoro_flash_fwd_f32(FWD_ARGS) {
   ParamsF32 p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);

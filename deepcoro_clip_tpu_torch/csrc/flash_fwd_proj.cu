@@ -134,8 +134,8 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
     Pipe pp;
     const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
     for (int h = 0; h < p.H; ++h) {
-      produce_kv<PBK, PNST>(&tk, p.k_hi, &tv, p.v_hi, h, b, p.Lk, mrow, base + lay.ring,
-                            mask_s, full, empty, pp, lane);
+      produce_kv<PBK, PNST>(&tk, p.k_hi, &tv, p.v_hi, h, b, p.Lk, (p.Lk + PBK - 1) / PBK,
+                            mrow, base + lay.ring, mask_s, full, empty, pp, lane);
     }
     // wo tile (c, kt): rows kt*128.. (head kt's columns of the output
     // tile), columns c*128..; four boxes, [K half][N half]
@@ -179,7 +179,7 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
       float o[64], m_r[2], l_r[2];
       sm90_attend<PBK, PNST>(base + box0, lay.obox, base + lay.ring, mask_s,
                              p.mask != nullptr, full, empty, pp, nullptr, row_a, p.Lk,
-                             p.scale_log2, p.causal, o, m_r, l_r);
+                             (p.Lk + PBK - 1) / PBK, p.scale_log2, p.causal, o, m_r, l_r);
       write_stats(p.stats, (long long)b * p.H + h, (long long)p.B * p.H, p.Lq, row_a, m_r,
                   l_r);
       warpgroup_sync(1 + wg);  // every product that read this head's q is done

@@ -34,11 +34,11 @@
 //     rows per warpgroup: at L = 10 it would pad 84% of the work away, so at
 //     these lengths the warp-level instruction is the one that fits. S sits
 //     in registers; one exact softmax per row over all its keys (no online
-//     rescale), with the rounding points of flash_fwd_kernel and of the
+//     rescale), with the rounding points of the tile kernels and of the
 //     plain version: exp2 with log2(e) folded into the scale, P rounded to
-//     bf16 before P V, l summing the fp32 P. At Lk <= 64 flash_fwd_kernel
-//     walks a single key tile and sums in the same order, so the forward
-//     equals it bit for bit (chip_smoke.py phase 20 counts the cases);
+//     bf16 before P V, l summing the fp32 P (the Hopper tile kernel
+//     flash_long_fwd_kernel sums in wgmma's order, so the two agree to
+//     rounding, not bit for bit: chip_smoke.py phase 20 counts the cases);
 //   - fp32 runs on the FMA units in fp32 (no TF32: the probing head
 //     computes in fp32): a group of lanes owns a query row (a key in the
 //     backward's second pass), 32 / Lq rounded to a power of two of them,

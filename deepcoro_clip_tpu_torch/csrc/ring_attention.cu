@@ -255,7 +255,8 @@ __global__ void __launch_bounds__(RS_THREADS, 1)
         tma_load_head(&tq, base + RingSmem::Q + RS_BQ * BOX_ROW_BYTES, q_loaded, 64,
                       qt * RS_BQ, h, b, p.q_hi);
       }
-      produce_kv<RS_BK, RS_NST>(&tk, p.kv_hi, &tv, p.kv_hi, h, b, p.Lc, nullptr,
+      produce_kv<RS_BK, RS_NST>(&tk, p.kv_hi, &tv, p.kv_hi, h, b, p.Lc,
+                                (p.Lc + RS_BK - 1) / RS_BK, nullptr,
                                 base + RingSmem::RING, smem, full, empty, pp, lane);
     }
   } else {  // consumers: warpgroup wg owns q rows 128 qt + 64 wg .. of the item
@@ -291,7 +292,8 @@ __global__ void __launch_bounds__(RS_THREADS, 1)
       mbar_wait(q_loaded, n & 1);
       sm90_attend<RS_BK, RS_NST, false>(base + qrows, RS_BQ * BOX_ROW_BYTES,
                                         base + RingSmem::RING, smem, false, full, empty, pp,
-                                        nullptr, row_a, p.Lc, p.scale_log2, 0, o, m_r, l_r);
+                                        nullptr, row_a, p.Lc, (p.Lc + RS_BK - 1) / RS_BK,
+                                        p.scale_log2, 0, o, m_r, l_r);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row_a + 8 * r;

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks of the attention kernels that run on
 // wgmma, TMA and mbarriers: the packed forwards K1 (flash_fwd.cu
 // `flash_fwd_sm90_kernel`) and K5 (flash_fwd_proj.cu), the packed backward K2
-// (flash_bwd.cu `flash_bwd_dkv_sm90_kernel`, `flash_bwd_dq_sm90_kernel`) and
-// the ring step K6 at Dh 128 (ring_attention.cu `ring_step_sm90_kernel`).
+// (flash_bwd.cu `flash_bwd_dkv_sm90_kernel`, `flash_bwd_dq_sm90_kernel`), the
+// ring step K6 at Dh 128 (ring_attention.cu `ring_step_sm90_kernel`), and the
+// [B, H, L, Dh] entry's long calls at Dh 64 and 128 (K3 `flash_long_fwd_kernel`,
+// K4 `flash_long_bwd_dkv_kernel`, `flash_long_bwd_dq_kernel`).
 //
-//   - host: TMA tensor maps for one head's [L, 128] rows of a strided
-//     [B, L, H, 128] or [B, H, L, 128] operand, and for a row-major 2-D
+//   - host: TMA tensor maps for one head's [L, D] rows (D = 64 or 128) of a
+//     strided [B, L, H, D] or [B, H, L, D] operand, and for a row-major 2-D
 //     matrix, encoded through cuTensorMapEncodeTiled, which the runtime
 //     hands out (cudaGetDriverEntryPoint: the library links no libcuda);
 //   - device: mbarrier, TMA (cp.async.bulk.tensor), plain bulk copy, wgmma
@@ -13,17 +15,21 @@
 //     for the 128-byte swizzle, rotate-half RoPE of a swizzled q tile in
 //     place, the producer's K/V tile loop and the consumer warpgroup's
 //     attention loop over one head's keys (`sm90_attend`), from an empty
-//     state or from one the caller carries (the ring step).
+//     state or from one the caller carries (the ring step), and the key
+//     extent of a q tile (`key_extent`, `visit_keys`): how far into the keys
+//     the tile must look, so that key tiles past each row's last real key
+//     are skipped.
 //
 // Layout. Every tile in shared memory is a stack of "boxes" of R rows x 64
 // bf16 values (128 bytes a row) in the 128-byte swizzle that TMA writes and
 // wgmma reads: the 16-byte chunk c of row r sits at chunk c ^ (r % 8). A
-// 128-wide row (Dh) is two boxes, columns 0-63 and 64-127. Boxes start on
-// 1024-byte boundaries. Operands whose rows are the product's output rows
-// or columns (Q and K of S = Q K^T, K and V of the backward's transposed
-// scores) are K-major (Dh contiguous); operands whose rows are the
-// reduction axis (V of P V, wo, dO and Q of the backward's dV and dK, K of
-// its dQ) are read MN-major, with the transpose bit of wgmma set.
+// 128-wide row (Dh) is two boxes, columns 0-63 and 64-127; a 64-wide row is
+// one box. Boxes start on 1024-byte boundaries. Operands whose rows are the
+// product's output rows or columns (Q and K of S = Q K^T, K and V of the
+// backward's transposed scores) are K-major (Dh contiguous); operands whose
+// rows are the reduction axis (V of P V, wo, dO and Q of the backward's dV
+// and dK, K of its dQ) are read MN-major, with the transpose bit of wgmma
+// set.
 
 #pragma once
 
@@ -59,20 +65,21 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// One head's rows of a bf16 operand with a contiguous head dim of 128 and
-// (row, head, batch) strides in elements. Boxes of `box_rows` rows x 64
-// columns, 128-byte swizzle; rows past L read as zeros. The dims are
-// ordered by stride (the packed layouts have heads inside a row, the
-// [B, H, L, 128] scratch rows inside a head); `heads_inner` tells the
-// kernel which order its coordinates take. Returns 0 or an error code.
+// One head's rows of a bf16 operand with a contiguous head dim of D (64 or
+// 128) and (row, head, batch) strides in elements. Boxes of `box_rows` rows
+// x 64 columns, 128-byte swizzle; rows past L read as zeros. The dims are
+// ordered by stride (the packed layouts and the text tower's views have
+// heads inside a row, the [B, H, L, D] tensors rows inside a head);
+// `heads_inner` tells the kernel which order its coordinates take. Returns
+// 0 or an error code.
 inline int encode_head_map(CUtensorMap* map, const void* base, int L, int H, int B,
                            long long sl, long long sh, long long sb, int box_rows,
-                           int* heads_inner) {
+                           int* heads_inner, int D = 128) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   *heads_inner = sh < sl ? 1 : 0;
-  const cuuint64_t dims_hi[4] = {128, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t dims_lo[4] = {128, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t dims_hi[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t dims_lo[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t str_hi[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2, (cuuint64_t)sb * 2};
   const cuuint64_t str_lo[3] = {(cuuint64_t)sl * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box_hi[4] = {64, 1, (cuuint32_t)box_rows, 1};
@@ -135,6 +142,15 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // Arrive and announce `bytes` of TMA traffic that will complete the phase.
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Announce `bytes` of TMA traffic that will complete the phase, without
+// arriving.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
                    smem_u32(bar)),
                "r"(bytes)
                : "memory");
@@ -329,6 +345,39 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers (per warp, the
+// m16n8k16 A-fragment layout of its 16 rows), B MN-major in shared memory
+// (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x D] += A[64 x 16] B[16 x D] with A in registers and B MN-major: the
+// n128 or the n64 product, by the head dim.
+template <int D>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[D / 2], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128_tb(d, a, db);
+  } else {
+    static_assert(D == 64, "head dims 64 and 128");
+    wgmma_rs_n64_tb(d, a, db);
+  }
+}
+
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A K-major, B MN-major (the
 // transpose bit set), both in shared memory; `accumulate` 0 overwrites D.
 __device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64], uint64_t da, uint64_t db,
@@ -378,19 +427,20 @@ struct Pipe {
 // and sum once, do not: they differ in the last bit of about one value in
 // eight on the H100).
 struct RopeTables {
-  float4 s1[2], s2[2], c1[2], c2[2];  // sin d, sin d + 64, cos d, cos d + 64
+  float4 s1[2], s2[2], c1[2], c2[2];  // sin d, sin d + D/2, cos d, cos d + D/2
 };
 
+template <int D = 128>
 __device__ __forceinline__ void load_rope_tables(RopeTables& t, const float* sin,
                                                  const float* cos, long long pos, int d0) {
-  const float4* s4 = reinterpret_cast<const float4*>(sin + pos * 128 + d0);
-  const float4* c4 = reinterpret_cast<const float4*>(cos + pos * 128 + d0);
+  const float4* s4 = reinterpret_cast<const float4*>(sin + pos * D + d0);
+  const float4* c4 = reinterpret_cast<const float4*>(cos + pos * D + d0);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     t.s1[h] = __ldg(s4 + h);
-    t.s2[h] = __ldg(s4 + 16 + h);
+    t.s2[h] = __ldg(s4 + D / 8 + h);
     t.c1[h] = __ldg(c4 + h);
-    t.c2[h] = __ldg(c4 + 16 + h);
+    t.c2[h] = __ldg(c4 + D / 8 + h);
   }
 }
 
@@ -412,68 +462,171 @@ __device__ __forceinline__ void rope_chunk(uint4& a, uint4& b, const RopeTables&
   }
 }
 
-// Rotate-half RoPE, in place, of 64 rows of a swizzled 128-wide q tile
-// whose first row is token row0 (`box0` holds columns 0-63, `box1` columns
-// 64-127), by the 128 threads of one warpgroup (`tid` 0..127): column d and
-// column d + 64 of a row sit at the same offset of the two boxes, so one
-// 16-byte chunk of each holds 8 whole rotate-half pairs. Rows at or past L
-// stay.
+// Rotate-half RoPE, in place, of 64 rows of a swizzled D-wide q tile whose
+// first row is token row0, by the 128 threads of one warpgroup (`tid`
+// 0..127); rows at or past L stay. At D = 128 `box0` holds columns 0-63 and
+// `box1` columns 64-127: column d and column d + 64 of a row sit at the same
+// offset of the two boxes, so one 16-byte chunk of each holds 8 whole
+// rotate-half pairs. At D = 64 the row is one box (`box1` unused): logical
+// chunk c (columns 8c ..) pairs with chunk c + 4, each at its swizzled place.
+template <int D = 128>
 __device__ __forceinline__ void rope_q_rows(unsigned char* box0, unsigned char* box1,
                                             const float* sin, const float* cos, int row0,
                                             int L, int tid) {
-  for (int i = tid; i < 64 * 8; i += 128) {
-    const int r = i >> 3, pc = i & 7;
-    if (row0 + r >= L) continue;
-    const int off = r * BOX_ROW_BYTES + pc * 16;
-    RopeTables t;
-    load_rope_tables(t, sin, cos, row0 + r, (pc ^ (r & 7)) * 8);
-    uint4 a = *reinterpret_cast<const uint4*>(box0 + off);
-    uint4 b = *reinterpret_cast<const uint4*>(box1 + off);
-    rope_chunk(a, b, t);
-    *reinterpret_cast<uint4*>(box0 + off) = a;
-    *reinterpret_cast<uint4*>(box1 + off) = b;
+  if constexpr (D == 128) {
+    for (int i = tid; i < 64 * 8; i += 128) {
+      const int r = i >> 3, pc = i & 7;
+      if (row0 + r >= L) continue;
+      const int off = r * BOX_ROW_BYTES + pc * 16;
+      RopeTables t;
+      load_rope_tables<128>(t, sin, cos, row0 + r, (pc ^ (r & 7)) * 8);
+      uint4 a = *reinterpret_cast<const uint4*>(box0 + off);
+      uint4 b = *reinterpret_cast<const uint4*>(box1 + off);
+      rope_chunk(a, b, t);
+      *reinterpret_cast<uint4*>(box0 + off) = a;
+      *reinterpret_cast<uint4*>(box1 + off) = b;
+    }
+  } else {
+    static_assert(D == 64, "head dims 64 and 128");
+    for (int i = tid; i < 64 * 4; i += 128) {
+      const int r = i >> 2, c = i & 3;
+      if (row0 + r >= L) continue;
+      const int oa = r * BOX_ROW_BYTES + (c ^ (r & 7)) * 16;
+      const int ob = r * BOX_ROW_BYTES + ((c + 4) ^ (r & 7)) * 16;
+      RopeTables t;
+      load_rope_tables<64>(t, sin, cos, row0 + r, c * 8);
+      uint4 a = *reinterpret_cast<const uint4*>(box0 + oa);
+      uint4 b = *reinterpret_cast<const uint4*>(box0 + ob);
+      rope_chunk(a, b, t);
+      *reinterpret_cast<uint4*>(box0 + oa) = a;
+      *reinterpret_cast<uint4*>(box0 + ob) = b;
+    }
   }
 }
 
-// A tile of BK keys of one head: K's two boxes, then V's two, in one stage
-// of the ring (stage s at `ring + s * 4 * BK * 128`), and the keys' mask
-// bytes in `mask_s[s * BK ..]`.
-template <int BK>
-struct KVRing {
-  static constexpr int BOX = BK * BOX_ROW_BYTES;
-  static constexpr int STAGE = 4 * BOX;
-};
+// ---- the key extent: which key tiles a q tile must visit --------------------
+//
+// A key that a row cannot attend (masked, or after the row under causal
+// masking) scores -FLT_MAX. Once the row's running maximum m is that of a
+// real key (finite, far above -FLT_MAX), such a key's exp2(-FLT_MAX - m) is
+// 0 and the rescale exp2(m - m) is 1, so visiting a tile of such keys leaves
+// (m, l, acc) and every gradient sum bit for bit as they were: the tile may
+// be skipped. Keys past a row's last real key come after every real one, so
+// a q tile stops at the extent below, when each of its rows has a real key.
+// A row with none (a fully masked row: P = 1/Lk on every key) needs every
+// key, and then the tile visits all of them.
 
-// The producer side of one head's keys: one warp (all 32 lanes call it)
-// waits for a free stage, copies the tile's mask bytes (when there is a
-// mask), and lane 0 starts the four TMA loads that complete the stage's
-// `full` barrier (32 arrivals: every lane's, lane 0's with the bytes).
-template <int BK, int NST>
-__device__ __forceinline__ void produce_kv(const CUtensorMap* tk, int k_hi,
-                                           const CUtensorMap* tv, int v_hi, int h, int b,
-                                           int Lk, const uint8_t* mrow, uint32_t ring,
-                                           uint8_t* mask_s, uint64_t* full, uint64_t* empty,
-                                           Pipe& pp, int lane) {
-  using R = KVRing<BK>;
-  const int ntiles = (Lk + BK - 1) / BK;
-  for (int j = 0; j < ntiles; ++j) {
-    mbar_wait(&empty[pp.stage], pp.phase ^ 1);
-    if (mrow != nullptr) {
-      for (int i = lane; i < BK; i += 32) {
-        const int key = j * BK + i;
-        mask_s[pp.stage * BK + i] = key < Lk ? mrow[key] : 0;
+// e: 1 + the index of the last nonzero mask byte of the row (0: none); f:
+// the index of the first (Lk: none). Without a mask, e = Lk and f = 0. All
+// 32 lanes of a warp call it and get the same values.
+__device__ __forceinline__ void key_extent(const uint8_t* mrow, int Lk, int lane, int& e,
+                                           int& f) {
+  if (mrow == nullptr) {
+    e = Lk;
+    f = 0;
+    return;
+  }
+  e = 0;
+  f = Lk;
+  if ((reinterpret_cast<uintptr_t>(mrow) & 15) == 0 && Lk % 16 == 0) {
+    // 16 bytes a lane: a row of 512 bytes in one round
+    for (int c0 = lane * 16; c0 < Lk; c0 += 32 * 16) {
+      const uint4 w = *reinterpret_cast<const uint4*>(mrow + c0);
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int byte = 0; byte < 4; ++byte) {
+          if ((ws[q] >> (8 * byte)) & 0xffu) {
+            e = c0 + 4 * q + byte + 1;
+            f = min(f, c0 + 4 * q + byte);
+          }
+        }
       }
     }
+  } else {
+  constexpr int U = 8;  // loads in flight a lane: a row of 512 bytes takes two rounds
+  for (int i0 = lane; i0 < Lk; i0 += 32 * U) {
+    uint8_t x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) x[u] = i0 + 32 * u < Lk ? mrow[i0 + 32 * u] : 0;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (x[u] != 0) {
+        e = i0 + 32 * u + 1;
+        f = min(f, i0 + 32 * u);
+      }
+    }
+  }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    e = max(e, __shfl_xor_sync(0xffffffffu, e, off));
+    f = min(f, __shfl_xor_sync(0xffffffffu, f, off));
+  }
+}
+
+// The keys [0, n) that the q rows [q0, q0 + rows) (those < Lq) must visit:
+// min(Lk, e, causal ? last row + 1 : Lk) when every row has a real key
+// (e > 0, and under causal masking f <= q0), else Lk. At least 1.
+__device__ __forceinline__ int visit_keys(int e, int f, int Lq, int Lk, int q0, int rows,
+                                          int causal) {
+  if (e == 0 || (causal && f > q0)) return Lk;
+  const int last = min(q0 + rows, Lq) - 1;
+  return causal ? min(min(Lk, e), last + 1) : min(Lk, e);
+}
+
+// A tile of BK keys of one head: K's D/64 boxes, then V's, in one stage of
+// the ring (stage s at `ring + s * STAGE`), and the keys' mask as BK / 32
+// words at `mask_s + s * BK / 8` (bit k % 32 of word k / 32: key k of the
+// tile exists and is not masked; the callers give mask_s BK bytes a stage).
+template <int BK, int D = 128>
+struct KVRing {
+  static constexpr int BOXES = D / 64;  // boxes of one operand's row
+  static constexpr int BOX = BK * BOX_ROW_BYTES;
+  static constexpr int STAGE = 2 * BOXES * BOX;
+};
+
+// The producer side of one head's keys, tiles 0 .. ntiles - 1: one warp
+// (all 32 lanes call it) waits for a free stage, lane 0 starts the TMA
+// loads (announcing their bytes on the stage's `full` barrier), the lanes
+// read the tile's mask bytes (when there is a mask) while those are in
+// flight and vote them into the stage's mask words, and every lane arrives
+// (32 arrivals complete the phase with the bytes).
+template <int BK, int NST, int D = 128>
+__device__ __forceinline__ void produce_kv(const CUtensorMap* tk, int k_hi,
+                                           const CUtensorMap* tv, int v_hi, int h, int b,
+                                           int Lk, int ntiles, const uint8_t* mrow,
+                                           uint32_t ring, uint8_t* mask_s, uint64_t* full,
+                                           uint64_t* empty, Pipe& pp, int lane) {
+  using R = KVRing<BK, D>;
+  for (int j = 0; j < ntiles; ++j) {
+    mbar_wait(&empty[pp.stage], pp.phase ^ 1);
     if (lane == 0) {
       const uint32_t st = ring + pp.stage * R::STAGE;
-      mbar_arrive_expect_tx(&full[pp.stage], R::STAGE);
-      tma_load_head(tk, st, &full[pp.stage], 0, j * BK, h, b, k_hi);
-      tma_load_head(tk, st + R::BOX, &full[pp.stage], 64, j * BK, h, b, k_hi);
-      tma_load_head(tv, st + 2 * R::BOX, &full[pp.stage], 0, j * BK, h, b, v_hi);
-      tma_load_head(tv, st + 3 * R::BOX, &full[pp.stage], 64, j * BK, h, b, v_hi);
-    } else {
-      mbar_arrive(&full[pp.stage]);
+      mbar_expect_tx(&full[pp.stage], R::STAGE);
+#pragma unroll
+      for (int c = 0; c < R::BOXES; ++c) {
+        tma_load_head(tk, st + c * R::BOX, &full[pp.stage], 64 * c, j * BK, h, b, k_hi);
+        tma_load_head(tv, st + (R::BOXES + c) * R::BOX, &full[pp.stage], 64 * c, j * BK, h,
+                      b, v_hi);
+      }
     }
+    if (mrow != nullptr) {  // the loads of a lane in flight together
+      uint8_t x[BK / 32];
+#pragma unroll
+      for (int u = 0; u < BK / 32; ++u) {
+        const int key = j * BK + lane + 32 * u;
+        x[u] = key < Lk ? mrow[key] : 0;
+      }
+      uint32_t* words = reinterpret_cast<uint32_t*>(mask_s + pp.stage * (BK / 8));
+#pragma unroll
+      for (int u = 0; u < BK / 32; ++u) {
+        const uint32_t w = __ballot_sync(0xffffffffu, x[u] != 0);
+        if (lane == 0) words[u] = w;  // released by lane 0's arrival below
+      }
+    }
+    mbar_arrive(&full[pp.stage]);
     pp.advance<NST>();
   }
 }
@@ -484,11 +637,12 @@ __device__ __forceinline__ float fast_exp2(float x) {  // exp2(-inf) = 0
   return y;
 }
 
-// The consumer side: one warpgroup's 64 q rows against all keys of one
-// head, online softmax, everything in registers. `q_box0` is the shared
-// address of the rows' first box (columns 0-63), `q_box_stride` the bytes
-// to their second. On return this thread holds, for its rows row_a = q0 +
-// 16 * warp + lane / 4 and row_b = row_a + 8, the un-normalised output
+// The consumer side: one warpgroup's 64 q rows against the key tiles 0 ..
+// ntiles - 1 of one head (those produce_kv loads; keys >= Lk do not exist),
+// online softmax, everything in registers. `q_box0` is the shared address
+// of the rows' first box (columns 0-63), `q_box_stride` the bytes to their
+// second (at D = 128). On return this thread holds, for its rows row_a = q0
+// + 16 * warp + lane / 4 and row_b = row_a + 8, the un-normalised output
 // (o[4 j + e]: column 8 j + 2 (lane % 4) + (e & 1), row_a for e < 2),
 // the row maxima m_r (log2 units, scale folded in) and the row sums l_r
 // (>= 1, reduced over the row's four threads). The warpgroup has released
@@ -500,42 +654,38 @@ __device__ __forceinline__ float fast_exp2(float x) {  // exp2(-inf) = 0
 // at the end counts it once; the empty state is o = 0, m = -inf, l = 0):
 // the ring step folds one K/V chunk after another in.
 //
-// Per key tile j: S_j = Q K_j^T as D/16 = 8 wgmma of 64 x BK x 16 from
-// shared memory; the scale, the mask (from the tile's bytes in shared
-// memory), the running maximum and P_j = exp2(S_j - m) in registers; P_j
-// rounded to bf16 becomes, without leaving the registers, the A operand of
-// O += P_j V_j, BK/16 wgmma of 64 x 128 x 16 with V read MN-major. The two
+// Per key tile j: S_j = Q K_j^T as D/16 wgmma of 64 x BK x 16 from shared
+// memory; the scale, the mask (from the tile's bytes in shared memory), the
+// running maximum and P_j = exp2(S_j - m) in registers; P_j rounded to bf16
+// becomes, without leaving the registers, the A operand of O += P_j V_j,
+// BK/16 wgmma of 64 x D x 16 with V read MN-major. The two
 // products overlap the softmax: S_j is issued together with O += P_{j-1}
 // V_{j-1}, and the softmax of S_j runs while the tensor cores do the
 // latter; O is rescaled once that product is in.
-template <int BK, int NST, bool FRESH = true>
+template <int BK, int NST, bool FRESH = true, int D = 128>
 __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stride,
                                             uint32_t ring, const uint8_t* mask_s,
                                             bool has_mask, uint64_t* full, uint64_t* empty,
                                             Pipe& pp, uint64_t* q_release, int row_a,
-                                            int Lk, float scale_log2, int causal,
-                                            float (&o)[64], float (&m_r)[2],
+                                            int Lk, int ntiles, float scale_log2, int causal,
+                                            float (&o)[D / 2], float (&m_r)[2],
                                             float (&l_r)[2]) {
-  using R = KVRing<BK>;
+  using R = KVRing<BK, D>;
   constexpr int NS = BK / 2;  // S accumulator registers
+  constexpr int NO = D / 2;   // O accumulator registers
   const int lane = threadIdx.x % 32;
   const int t = lane & 3;
   const int row_b = row_a + 8;
-  const int ntiles = (Lk + BK - 1) / BK;
-  const uint64_t dq0 = make_desc(q_box0, 16, 1024);
-  const uint64_t dq1 = make_desc(q_box0 + q_box_stride, 16, 1024);
 
   float s[NS];
   uint32_t pf[BK / 16][4];  // P of the previous tile, bf16, as A fragments
 
   auto issue_s = [&](int stage) {  // S = Q K^T on the stage's K tile
     const uint32_t st = ring + stage * R::STAGE;
-    const uint64_t dk0 = make_desc(st, 16, 1024);
-    const uint64_t dk1 = make_desc(st + R::BOX, 16, 1024);
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {  // 16 columns of Dh a step: 32 bytes
-      const uint64_t da = (ks < 4 ? dq0 : dq1) + (ks % 4) * 2;
-      const uint64_t db = (ks < 4 ? dk0 : dk1) + (ks % 4) * 2;
+    for (int ks = 0; ks < D / 16; ++ks) {  // 16 columns of Dh a step: 32 bytes
+      const uint64_t da = make_desc(q_box0 + (ks / 4) * q_box_stride, 16, 1024) + (ks % 4) * 2;
+      const uint64_t db = make_desc(st + (ks / 4) * R::BOX, 16, 1024) + (ks % 4) * 2;
       if constexpr (BK == 128) {
         wgmma_ss_n128(s, da, db, ks > 0);
       } else {
@@ -545,10 +695,11 @@ __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stri
     wgmma_commit();
   };
   auto issue_pv = [&](int stage) {  // O += P V on the stage's V tile
-    const uint64_t dv = make_desc(ring + stage * R::STAGE + 2 * R::BOX, R::BOX, 1024);
+    const uint64_t dv =
+        make_desc(ring + stage * R::STAGE + R::BOXES * R::BOX, R::BOX, 1024);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {  // 16 keys a step: 16 rows of 128 bytes
-      wgmma_rs_n128_tb(o, pf[kk], dv + kk * (16 * BOX_ROW_BYTES / 16));
+      wgmma_rs_tb<D>(o, pf[kk], dv + kk * (16 * BOX_ROW_BYTES / 16));
     }
     wgmma_commit();
   };
@@ -557,28 +708,40 @@ __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stri
   auto softmax = [&](int j, int stage, float (&alpha)[2]) {
     const int kv0 = j * BK;
     float mx[2] = {-INFINITY, -INFINITY};
-    if (!has_mask && !causal && kv0 + BK <= Lk) {  // every key exists, none masked
+    uint32_t mw[BK / 32];  // the tile's mask words
+    uint32_t every = ~0u;
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(mask_s + stage * (BK / 8));
+#pragma unroll
+    for (int w = 0; w < BK / 32; ++w) {
+      mw[w] = has_mask ? words[w] : ~0u;
+      every &= mw[w];
+    }
+    if (every == ~0u && !causal && kv0 + BK <= Lk) {  // every key exists, none masked
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
         s[i] *= scale_log2;
         mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
       }
     } else {
-      const uint8_t* ms = mask_s + stage * BK;
+      // this thread's keys nt * 8 + 2 t + c of the tile: bit 8 (nt % 4) + c
+      // of its mask word nt / 4 shifted down by 2 t
+      // (selects, no branches: a branch an element made a masked call far
+      // slower than an unmasked one)
+#pragma unroll
+      for (int w = 0; w < BK / 32; ++w) mw[w] >>= 2 * t;
+      // the tile's keys kl that exist (kl < exist) and that rows a and b may
+      // attend under causal masking (kl <= lim)
+      const int exist = Lk - kv0 - 2 * t;
+      const int lim[2] = {causal ? row_a - kv0 - 2 * t : BK, causal ? row_b - kv0 - 2 * t : BK};
 #pragma unroll
       for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int kl = nt * 8 + 2 * t + (e & 1);
-          const int key = kv0 + kl;
-          const int row = (e < 2) ? row_a : row_b;
-          float x;
-          if (key >= Lk) {
-            x = -INFINITY;  // does not exist: probability exactly 0
-          } else {
-            x = s[4 * nt + e] * scale_log2;
-            if ((has_mask && ms[kl] == 0) || (causal && key > row)) x = -FLT_MAX;
-          }
+          const int kl = nt * 8 + (e & 1);  // the key's place in the tile, less 2 t
+          const bool valid = (mw[nt >> 2] >> (8 * (nt & 3) + (e & 1))) & 1u;
+          float x = s[4 * nt + e] * scale_log2;
+          x = valid && kl <= lim[e >> 1] ? x : -FLT_MAX;
+          x = kl < exist ? x : -INFINITY;  // does not exist: probability exactly 0
           s[4 * nt + e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
@@ -615,7 +778,7 @@ __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stri
 
   if constexpr (FRESH) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
     m_r[0] = m_r[1] = -INFINITY;
     l_r[0] = l_r[1] = 0.f;  // this thread's partial row sums
   }
@@ -629,7 +792,7 @@ __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stri
   softmax(0, pp.stage, alpha);  // alpha = 0 against the empty state
   if constexpr (!FRESH) {  // a carried output is rescaled to the new maxima
 #pragma unroll
-    for (int jn = 0; jn < 16; ++jn) {
+    for (int jn = 0; jn < D / 8; ++jn) {
       o[4 * jn + 0] *= alpha[0];
       o[4 * jn + 1] *= alpha[0];
       o[4 * jn + 2] *= alpha[1];
@@ -653,7 +816,7 @@ __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stri
     fence_regs(pf);
     mbar_arrive(&empty[prev]);
 #pragma unroll
-    for (int jn = 0; jn < 16; ++jn) {
+    for (int jn = 0; jn < D / 8; ++jn) {
       o[4 * jn + 0] *= alpha[0];
       o[4 * jn + 1] *= alpha[0];
       o[4 * jn + 2] *= alpha[1];

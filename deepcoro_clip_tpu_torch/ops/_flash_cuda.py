@@ -5,15 +5,18 @@
 ``flash_attention_packed``: both hand them ``[B, H, L, Dh]`` views (any
 batch/head/row strides, head dim contiguous) of their operands and of the
 outputs they allocated, in bf16 (tensor-core kernels) or fp32 (plain fp32
-kernels; nothing is cast on the way). The packed entry's forward (K1) and
-backward (K2) run the Hopper kernels of ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu`` (wgmma, TMA, mbarriers), the ``[B, H, L, Dh]``
-entry's (K3, K4) the ``mma.sync`` ones in the same files, except at
-Lq, Lk <= ``SHORT_MAX``: there ``short_forward`` and ``short_backward``
-(behind ``ShortAttention`` when a gradient is wanted) launch the one-kernel
-forward and backward of ``csrc/flash_short.cu`` through a lean host path
-(one packed argument block, no row statistics, no scratch, the caller's
-bool or uint8 key mask as it is). ``fwd_symbol`` and
+kernels; nothing is cast on the way). In bf16 both entries run the Hopper
+kernels of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (wgmma, TMA,
+mbarriers): the packed entry's forward (K1) and backward (K2) at Dh 128,
+the ``[B, H, L, Dh]`` entry's (K3, K4) at Dh 64 and 128 under the kernels'
+``long`` names, each skipping the key tiles past a q tile's key extent
+(``visit_keys`` mirrors the rule). At Lq, Lk <= ``SHORT_MAX`` the
+``[B, H, L, Dh]`` entry takes ``short_forward`` and ``short_backward``
+instead (behind ``ShortAttention`` when a gradient is wanted): the
+one-kernel forward and backward of ``csrc/flash_short.cu`` through a lean
+host path (one packed argument block, no row statistics, no scratch, the
+caller's bool or uint8 key mask as it is). fp32 operands of that entry
+above ``SHORT_MAX`` run the plain fp32 kernels. ``fwd_symbol`` and
 ``bwd_symbol`` name the C entry a call runs.
 ``flash_fwd_proj`` (``csrc/flash_fwd_proj.cu``) is the packed forward with
 the output projection fused in (bf16). The launchers check what the kernels
@@ -34,6 +37,7 @@ import ctypes
 import struct
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -47,6 +51,13 @@ from deepcoro_clip_tpu_torch.ops.attention import (
 HEAD_DIMS = (64, 128)
 TILE = 64  # rows per tile of the kernels; the backward pads its row values to it
 SHORT_MAX = 64  # Lq and Lk up to this run csrc/flash_short.cu ([B, H, L, Dh] entry)
+# (q rows, keys) of a tile pair of the Hopper kernels: the forward's items and
+# key tiles, the dK/dV kernel's streamed q tiles and key blocks (64 keys at
+# the main paths' Dh 64; 128 at Dh 128), the dQ kernel's q blocks and
+# streamed key tiles (csrc/flash_fwd.cu, flash_bwd.cu)
+FWD_TILES = (128, 128)
+DKV_TILES = (64, 64)
+DQ_TILES = (128, 64)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # slots of the argument block of csrc/flash_short.cu (its enum ShortArg)
@@ -71,12 +82,69 @@ def is_short(packed: bool, Lq: int, Lk: int) -> bool:
     return not packed and Lq <= SHORT_MAX and Lk <= SHORT_MAX
 
 
+def key_extent(kv_mask, B: int, Lk: int):
+    """The key extent of each batch row as the Hopper kernels read it from
+    the mask (``key_extent`` in ``csrc/sm90_common.cuh``): ``(e, f)``, int
+    arrays ``[B]``, ``e`` 1 + the index of the row's last nonzero mask byte
+    (0: none), ``f`` the index of its first (Lk: none). ``kv_mask``
+    ``[B, Lk]`` (nonzero = attend; a tensor or an array), or None: every
+    key, e = Lk and f = 0."""
+    if kv_mask is None:
+        return np.full(B, Lk, np.int64), np.zeros(B, np.int64)
+    m = np.asarray(kv_mask.detach().cpu() if torch.is_tensor(kv_mask) else kv_mask) != 0
+    any_ = m.any(axis=1)
+    e = np.where(any_, Lk - np.argmax(m[:, ::-1], axis=1), 0)
+    f = np.where(any_, np.argmax(m, axis=1), Lk)
+    return e.astype(np.int64), f.astype(np.int64)
+
+
+def visit_keys(e: int, f: int, Lq: int, Lk: int, q0: int, rows: int, causal: bool) -> int:
+    """The keys ``[0, n)`` that the q rows ``[q0, q0 + rows)`` (those below
+    Lq) of a batch row with key extent ``(e, f)`` visit in the Hopper
+    kernels (``visit_keys`` in ``csrc/sm90_common.cuh``): ``min(Lk, e,
+    last row + 1 under causal masking)`` when every row has a real key (e
+    > 0 and, under causal masking, f <= q0), else all Lk: a row with no
+    real key attends every key uniformly. Past the extent every key of
+    every row scores -FLT_MAX against a finite running maximum, so a tile
+    there adds exactly nothing; the kernels skip it."""
+    if e == 0 or (causal and f > q0):
+        return Lk
+    last = min(q0 + rows, Lq) - 1
+    return min(Lk, e, last + 1) if causal else min(Lk, e)
+
+
+def visited_key_tiles(kv_mask, B: int, Lq: int, Lk: int, causal: bool,
+                      tiles=FWD_TILES) -> np.ndarray:
+    """Key tiles visited by each q tile, ``[B, ceil(Lq / rows)]`` for
+    ``tiles = (rows, keys)``: the forward's items (``FWD_TILES``) or the dQ
+    kernel's blocks (``DQ_TILES``); the dK/dV kernel's block of key tile
+    ``kt`` visits the q tiles (of ``DKV_TILES[0]`` rows) whose extent
+    passes ``kt * DKV_TILES[1]``."""
+    rows, keys = tiles
+    e, f = key_extent(kv_mask, B, Lk)
+    nq = -(-Lq // rows)
+    return np.array([[-(-visit_keys(int(e[b]), int(f[b]), Lq, Lk, j * rows, rows, causal)
+                       // keys) for j in range(nq)] for b in range(B)], np.int64)
+
+
+def key_cut(kv_mask, B: int, Lk: int) -> int:
+    """Without causal masking, the keys past which no kernel of a call
+    looks: the largest extent over the batch rows rounded up to the
+    forward's 128-key tiles (a multiple of the dK/dV and dQ kernels' 64 and
+    of the dK/dV kernel's 128 at Dh 128), at most Lk. A call whose K, V and mask are cut to these
+    keys computes the same forward and dQ bit for bit, and dK, dV past the
+    cut are exactly 0."""
+    e, _ = key_extent(kv_mask, B, Lk)
+    ext = int(max(int(x) if x > 0 else Lk for x in e))
+    return min(Lk, -(-ext // FWD_TILES[1]) * FWD_TILES[1])
+
+
 def fwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> str:
     """The C entry that runs a forward: K1's Hopper kernel for the packed
     and fused layouts (bf16, Dh 128), the short kernel of
     ``csrc/flash_short.cu`` for the ``[B, H, L, Dh]`` entry at Lq, Lk <=
-    ``SHORT_MAX``, the 64-row tile kernels of ``csrc/flash_fwd.cu`` (bf16
-    ``mma.sync`` or fp32) above."""
+    ``SHORT_MAX``, above that K3's Hopper kernel (bf16) or the fp32 kernel
+    of ``csrc/flash_fwd.cu``."""
     if dtype not in _SUFFIX:
         raise TypeError(f"the CUDA flash kernels take bfloat16 or float32, got {dtype}")
     if packed:
@@ -95,8 +163,8 @@ def bwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int) -> str:
     ``csrc/flash_bwd.cu`` for the packed and fused layouts (K2: bf16, Dh
     128, all that the packed forward admits); for the ``[B, H, L, Dh]``
     entry (K4) the one-launch short backward of ``csrc/flash_short.cu`` at
-    Lq, Lk <= ``SHORT_MAX``, else the ``mma.sync`` kernels in bf16 and the
-    fp32 kernels for fp32 operands."""
+    Lq, Lk <= ``SHORT_MAX``, else the Hopper kernels in bf16 and the fp32
+    kernels for fp32 operands."""
     if dtype not in _SUFFIX:
         raise TypeError(f"the CUDA flash kernels take bfloat16 or float32, got {dtype}")
     if packed:
@@ -108,10 +176,14 @@ def bwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int) -> str:
 
 
 def _tile_symbol(direction: str, dtype: torch.dtype, packed: bool) -> str:
-    """The entry of ``csrc/flash_{direction}.cu``: the Hopper kernels for
-    the packed layouts, the 64-row tile kernels for ``[B, H, L, Dh]``."""
-    return (f"deepcoro_flash_{direction}_sm90_bf16" if packed
-            else f"deepcoro_flash_{direction}_{_SUFFIX[dtype]}")
+    """The entry of ``csrc/flash_{direction}.cu``: K1's or K2's Hopper
+    kernels for the packed layouts, K3's or K4's for bf16 ``[B, H, L,
+    Dh]``, the fp32 kernels for fp32 ``[B, H, L, Dh]``."""
+    if packed:
+        return f"deepcoro_flash_{direction}_sm90_bf16"
+    if dtype == torch.bfloat16:
+        return f"deepcoro_flash_long_{direction}_bf16"
+    return f"deepcoro_flash_{direction}_{_SUFFIX[dtype]}"
 
 
 def _fwd_fn(dtype: torch.dtype, packed: bool = False):
@@ -149,9 +221,10 @@ def hopper_kernel_attrs(heads=(4, 6)) -> dict:
     """Registers per thread (at the kernel's entry, before ``setmaxnreg``
     moves them between warpgroups, where ``"setmaxnreg"`` says so), dynamic
     shared memory per block and consumer warpgroups of K1's Hopper kernel,
-    of K5's for each head count in ``heads`` and of K2's two (whose blocks
-    are their two warpgroups alone): what ``chip_smoke.py`` reports beside
-    ptxas. Builds the libraries if need be."""
+    of K5's for each head count in ``heads``, of K2's two (whose blocks are
+    their two warpgroups alone) and of K3's and K4's long kernels at Dh 64
+    and 128: what ``chip_smoke.py`` reports beside ptxas. Builds the
+    libraries if need be."""
     regs, smem = ctypes.c_int(), ctypes.c_int()
     ip = ctypes.POINTER(ctypes.c_int)
     fn = _c_fn("flash_fwd", "deepcoro_flash_fwd_sm90_attrs", [ip, ip])
@@ -167,13 +240,24 @@ def hopper_kernel_attrs(heads=(4, 6)) -> dict:
         out[f"K5 H{h}"] = {"kernel": "flash_fwd_proj_kernel", "registers": regs.value,
                            "smem_bytes": smem.value, "consumers": 2 if two else 1,
                            "setmaxnreg": two}
-    fn = _c_fn("flash_bwd", "deepcoro_flash_bwd_sm90_attrs", [_I, ip, ip])
-    for which, (key, kernel) in enumerate((("K2 dK/dV", "flash_bwd_dkv_sm90_kernel"),
-                                           ("K2 dQ", "flash_bwd_dq_sm90_kernel"))):
-        if fn(which, ctypes.byref(regs), ctypes.byref(smem)) != 0:
+    fn = _c_fn("flash_fwd", "deepcoro_flash_long_fwd_attrs", [_I, ip, ip])
+    for dh in HEAD_DIMS:
+        if fn(dh, ctypes.byref(regs), ctypes.byref(smem)) != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes failed on the K3 kernel, Dh {dh}")
+        out[f"K3 Dh {dh}"] = {"kernel": f"flash_long_fwd_kernel<{dh}>",
+                              "registers": regs.value, "smem_bytes": smem.value,
+                              "consumers": 2, "setmaxnreg": True}
+    fn = _c_fn("flash_bwd", "deepcoro_flash_bwd_sm90_attrs", [_I, _I, ip, ip])
+    kernels = [("K2 dK/dV", "flash_bwd_dkv_sm90_kernel", 0, 0),
+               ("K2 dQ", "flash_bwd_dq_sm90_kernel", 1, 0)]
+    kernels += [(f"K4 {w} Dh {dh}", f"flash_long_bwd_{n}_kernel<{dh}>", which, dh)
+                for dh in HEAD_DIMS for which, (w, n) in enumerate((("dK/dV", "dkv"),
+                                                                    ("dQ", "dq")))]
+    for key, kernel, which, dh in kernels:
+        if fn(which, dh, ctypes.byref(regs), ctypes.byref(smem)) != 0:
             raise RuntimeError(f"cudaFuncGetAttributes failed on {kernel}")
         out[key] = {"kernel": kernel, "registers": regs.value, "smem_bytes": smem.value,
-                    "consumers": 2, "setmaxnreg": False}
+                    "consumers": 1 if (which, dh) == (0, 64) else 2, "setmaxnreg": False}
     return out
 
 
@@ -272,7 +356,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     maximum and sum for the backward; without it nothing extra is written.
     ``packed``: the views are heads of packed ``[B, L, H*Dh]`` operands
     (K1), which run the Hopper kernel ``flash_fwd_sm90_kernel`` and take
-    bf16 at Dh 128 only; otherwise (K3) ``flash_fwd_kernel``."""
+    bf16 at Dh 128 only; otherwise (K3, any lengths) bf16 runs
+    ``flash_long_fwd_kernel<Dh>`` and fp32 ``flash_fwd_f32_kernel<Dh>``."""
     _check_problem(q, k, v, sin, cos, kv_mask)
     mask = mask_arg(kv_mask, strided=False)
     device = q.device
@@ -316,8 +401,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (views shaped like ``q``, ``k``, ``v``), from the output gradient
     ``do``, the forward's ``out`` and its ``stats``. ``packed``: the views
     are heads of packed ``[B, L, H*Dh]`` operands (K2), which run the Hopper
-    kernels and take bf16 at Dh 128 only; otherwise (K4) the ``mma.sync``
-    kernels, or the fp32 ones for fp32 operands."""
+    kernels and take bf16 at Dh 128 only; otherwise (K4, any lengths) the
+    Hopper ``flash_long_bwd_*_kernel<Dh>`` in bf16, or the fp32 kernels for
+    fp32 operands."""
     _check_problem(q, k, v, sin, cos, kv_mask)
     mask = mask_arg(kv_mask, strided=False)
     device = q.device
@@ -556,8 +642,9 @@ def attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout, H,
                       counter, stats: bool):
     """Forward of one layout: returns ``(out, stats or None)`` with ``out``
     in the layout of the inputs. Launches the kernel on a CUDA tensor and
-    counts it on ``counter.launches``; runs the plain version on a CPU
-    tensor."""
+    counts it on ``counter.launches`` (a long bf16 ``[B, H, L, Dh]`` call,
+    K3's Hopper kernel, on ``counter.long_launches`` too); runs the plain
+    version on a CPU tensor."""
     qh, kh, vh = head_views(a, b, c, layout, H)
     B, _, Lq, Dh = qh.shape
     if qh.device.type == "cpu":
@@ -582,6 +669,8 @@ def attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout, H,
     flash_fwd(qh, kh, vh, oh, sin=sin, cos=cos, kv_mask=kv_mask, causal=causal,
               scale=scale, stats=st, packed=layout != "heads")
     counter.launches += 1
+    if layout == "heads" and qh.dtype == torch.bfloat16:
+        counter.long_launches += 1
     return out, st
 
 
@@ -591,7 +680,9 @@ def attention_backward(a, b, c, out, stats, grad_out, sin, cos, kv_mask, causal,
     output ``out`` (both in the layout of the inputs): ``(da, db, dc)`` in
     that layout, ``(dqkv, None, None)`` for ``"fused"``. Launches the
     backward kernels on a CUDA tensor and counts them on
-    ``counter.bwd_launches``; runs the plain version on a CPU tensor."""
+    ``counter.bwd_launches`` (a long bf16 ``[B, H, L, Dh]`` call, K4's
+    Hopper kernels, on ``counter.long_bwd_launches`` too); runs the plain
+    version on a CPU tensor."""
     def to_heads(t):
         return t if layout == "heads" else _heads(t, H)
 
@@ -622,6 +713,8 @@ def attention_backward(a, b, c, out, stats, grad_out, sin, cos, kv_mask, causal,
     flash_bwd(qh, kh, vh, oh, gh, stats, *dviews, sin=sin, cos=cos,
               kv_mask=kv_mask, causal=causal, scale=scale, packed=layout != "heads")
     counter.bwd_launches += 1
+    if layout == "heads" and qh.dtype == torch.bfloat16:
+        counter.long_bwd_launches += 1
     return grads
 
 

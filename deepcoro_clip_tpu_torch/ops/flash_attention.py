@@ -2,18 +2,22 @@
 
 Counterpart of the JAX package's ``ops/flash_attention.flash_attention``,
 whose Pallas ``_fwd_kernel`` and ``_bwd_kernel`` it replaces on the card
-with hand-written CUDA kernels: at Lq, Lk <= 64 (every call of the main
-paths: the multi-video aggregator, the probing head's CLS block) the
-one-launch forward and backward of ``csrc/flash_short.cu``, above that the
-64-row tile kernels of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
-(those files' notes say what bounds them and how they are laid out). On a CPU tensor it runs the plain versions
+with hand-written CUDA kernels: at Lq, Lk <= 64 (the multi-video
+aggregator, the probing head's CLS block) the one-launch forward and
+backward of ``csrc/flash_short.cu``; above that (the text tower, the
+SigLIP bank, the captioning decoder) in bf16 the Hopper kernels of
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (wgmma, TMA, mbarriers; key
+tiles past each q tile's last real key skipped, exactly), in fp32 the plain
+fp32 kernels there (those files' notes say what bounds them and how they
+are laid out). On a CPU tensor it runs the plain versions
 (``ops/attention.py``); on a CUDA tensor it launches the kernels or raises.
 A head dim under 64 (Dh 32: the single-video aggregator of
 ``siglip_multi_positive_config.yaml``, 16 heads of 512) is zero-padded to
 64, as the JAX wrapper pads every head dim to 128 for the Pallas kernels:
 zero columns add nothing to q·k, and the padded output columns are cut
 off. ``launches`` and ``bwd_launches``
-count the forward and backward kernel launches.
+count the forward and backward kernel launches; ``long_launches`` and
+``long_bwd_launches`` those of them that ran the long bf16 Hopper kernels.
 """
 
 from __future__ import annotations
@@ -73,3 +77,5 @@ def flash_attention(
 # kernel launches, for checks that the path ran them
 flash_attention.launches = 0
 flash_attention.bwd_launches = 0
+flash_attention.long_launches = 0
+flash_attention.long_bwd_launches = 0

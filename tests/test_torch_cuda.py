@@ -414,21 +414,23 @@ def test_packed_backward_modes(cuda, mode):
 
 
 def test_backward_kernels_by_layout(cuda):
-    """The packed entry's backward (K2) runs the Hopper kernels, the
-    [B, H, L, Dh] entry's (K4) the mma.sync ones, at both of its head dims."""
+    """The packed entry's backward (K2) runs its Hopper kernels, the
+    [B, H, L, Dh] entry's (K4) above 64 tokens the long Hopper ones, at both
+    of its head dims."""
     g = torch.Generator(device=cuda).manual_seed(14)
     x = torch.randn(2, 150, 3 * 256, generator=g, device=cuda).to(torch.bfloat16)
     leaf = x.clone().requires_grad_()
     out = flash_attention_packed(qkv=leaf, num_heads=2)
     names = _kernels_run(lambda: torch.autograd.grad(out, leaf, torch.ones_like(out)))
     assert _ran(names, "flash_bwd_dkv_sm90_kernel") and _ran(names, "flash_bwd_dq_sm90_kernel")
-    assert not _ran(names, "flash_bwd_dkv_kernel") and not _ran(names, "flash_bwd_dq_kernel")
+    assert not _ran(names, "flash_long_bwd")
     for dh in (64, 128):
         leaves = [t.clone().requires_grad_() for t in x.split(256, dim=-1)]
         out = flash_attention(*[t.unflatten(2, (256 // dh, dh)).transpose(1, 2)
                                 for t in leaves])
         names = _kernels_run(lambda: torch.autograd.grad(out, leaves, torch.ones_like(out)))
-        assert _ran(names, "flash_bwd_dkv_kernel") and _ran(names, "flash_bwd_dq_kernel")
+        assert _ran(names, f"flash_long_bwd_dkv_kernel<{dh}>")
+        assert _ran(names, f"flash_long_bwd_dq_kernel<{dh}>")
         assert not _ran(names, "sm90")
 
 
@@ -609,8 +611,12 @@ def test_short_routing_boundary(cuda, L, short, dtype):
         assert len(bwd) == 4 and _ran(bwd, f"flash_short_bwd_{sfx}_kernel")
     else:
         assert not _ran(fwd + bwd, "flash_short")
-        tile = "flash_fwd_kernel" if dtype == torch.bfloat16 else "flash_fwd_f32_kernel"
-        assert _ran(fwd, tile) and _ran(bwd, "flash_bwd_dkv") and _ran(bwd, "flash_bwd_dq")
+        if dtype == torch.bfloat16:
+            assert _ran(fwd, "flash_long_fwd_kernel<64>")
+            assert _ran(bwd, "flash_long_bwd_dkv") and _ran(bwd, "flash_long_bwd_dq")
+        else:
+            assert _ran(fwd, "flash_fwd_f32_kernel")
+            assert _ran(bwd, "flash_bwd_dkv_f32") and _ran(bwd, "flash_bwd_dq_f32")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -631,11 +637,12 @@ def test_short_kernels_batch_invariant_and_reproducible(cuda, dtype, dh):
 @pytest.mark.parametrize("mode", ["mask", "causal", "cross", "rope"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_short_forward_matches_the_tile_kernel(cuda, mode, dtype):
-    """The short forward against flash_fwd_kernel (the tile kernel, called
-    directly) on the same inputs, Lk <= 64: in bf16 bit for bit (one key
-    tile, the same order of sums and rounding points); in fp32 the tile
-    kernel's online softmax over 32-key chunks sums in another order, so
-    F32_TOL."""
+    """The short forward against the tile kernel (called directly: bf16
+    flash_long_fwd_kernel, fp32 flash_fwd_f32_kernel) on the same inputs,
+    Lk <= 64. In bf16 by TOL: the Hopper tile kernel sums Q K^T and P V in
+    wgmma's order, not the short kernel's mma.sync order, so the two agree
+    to bf16 rounding, not bit for bit; in fp32 the tile kernel's online
+    softmax over 32-key chunks sums in another order, so F32_TOL."""
     from deepcoro_clip_tpu_torch.ops._flash_cuda import flash_fwd
 
     Lq, Lk = (37, 50) if mode == "cross" else (10, 10) if mode == "rope" else (17, 17)
@@ -652,10 +659,8 @@ def test_short_forward_matches_the_tile_kernel(cuda, mode, dtype):
     tile = torch.empty_like(out)
     flash_fwd(q, k, v, tile, sin=kw.get("sin"), cos=kw.get("cos"), kv_mask=kw.get("kv_mask"),
               causal=bool(kw.get("causal")), scale=64 ** -0.5)
-    if dtype == torch.bfloat16:
-        assert torch.equal(out, tile)
-    else:
-        torch.testing.assert_close(out, tile, **F32_TOL)
+    torch.testing.assert_close(out.float(), tile.float(),
+                               **(TOL if dtype == torch.bfloat16 else F32_TOL))
 
 
 @pytest.mark.parametrize("mode", ["mask", "causal", "cross", "rope", "one_key"])
@@ -860,7 +865,7 @@ def test_decoder_attention_shapes(cuda, mode):
         torch.testing.assert_close(a.float(), r.float(), **BWD_TOL,
                                    msg=lambda s, n=name: f"d{n}: {s}")
     names = _kernels_run(lambda: flash_attention(q, k, v, **kw))
-    assert _ran(names, "flash_fwd_kernel") and not _ran(names, "flash_short")
+    assert _ran(names, "flash_long_fwd_kernel<64>") and not _ran(names, "flash_short")
 
 
 def test_captioning_decoder_on_the_card(cuda):
@@ -948,7 +953,7 @@ def test_bank_attention_shapes(cuda):
         alone = flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], kv_mask=m[i:i + 1])
         assert torch.equal(alone[0], out[i].detach()), i
     names = _kernels_run(lambda: flash_attention(q, k, v, kv_mask=m))
-    assert _ran(names, "flash_fwd_kernel") and not _ran(names, "flash_short")
+    assert _ran(names, "flash_long_fwd_kernel<64>") and not _ran(names, "flash_short")
 
 
 @pytest.mark.parametrize("n", [1, 5])
@@ -977,3 +982,138 @@ def test_padded_head_dim_on_the_card(cuda, n):
                                    msg=lambda s, nm=name: f"d{nm}: {s}")
     names = _kernels_run(lambda: flash_attention(q, k, v, kv_mask=m))
     assert _ran(names, "flash_short_fwd_bf16_kernel")
+
+
+# --------------------------------------------------------------------------- #
+# the long K3/K4 calls (Lq or Lk above 64) on the Hopper kernels, which skip
+# the key tiles past each q tile's key extent
+
+
+def _long_inputs(device, B, H, Lq, Lk, dh, seed, mask=None):
+    """q, k, v and the output gradient as strided views of [B, L, H * dh]
+    projections, as the layers hand them over."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def heads(n):
+        t = torch.randn(B, n, H * dh, generator=g, device=device).to(torch.bfloat16)
+        return t.unflatten(2, (H, dh)).transpose(1, 2)
+
+    return heads(Lq), heads(Lk), heads(Lk), heads(Lq)
+
+
+def _prefix_mask(B, L, lo, hi, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(lo, hi + 1, (B,), generator=g)
+    return (torch.arange(L)[None, :] < lengths[:, None]).to(device)
+
+
+def _long_case(case, device):
+    """(B, H, Lq, Lk, dh, kwargs) of the main paths' long calls, scaled in B."""
+    if case == "bank prompts":  # every row a real prompt of 2 to 21 tokens
+        return 24, 12, 512, 512, 64, dict(kv_mask=_prefix_mask(24, 512, 2, 21, device, 1))
+    if case == "all real":
+        return 8, 12, 512, 512, 64, dict(kv_mask=torch.ones(8, 512, dtype=torch.bool,
+                                                            device=device))
+    if case == "text 128":
+        return 16, 12, 128, 128, 64, dict(kv_mask=_prefix_mask(16, 128, 5, 60, device, 2))
+    if case == "caption causal":  # rows 0 and 1 of batch row 1 have no key
+        m = _prefix_mask(8, 128, 3, 100, device, 3)
+        m[1, :2] = False
+        return 8, 8, 128, 128, 64, dict(kv_mask=m, causal=True)
+    if case == "cross":
+        return 4, 8, 128, 1572, 64, {}
+    if case == "holes, a fully masked row":
+        g = torch.Generator(device=device).manual_seed(4)
+        m = torch.rand(3, 300, generator=g, device=device) > 0.8
+        m[1] = False
+        return 3, 4, 200, 300, 64, dict(kv_mask=m)
+    sin, cos = _rope(128, device)  # "Dh 128, RoPE": L = 199
+    return 2, 4, 199, 199, 128, dict(sin=sin, cos=cos)
+
+
+LONG_CASES = ["bank prompts", "all real", "text 128", "caption causal", "cross",
+              "holes, a fully masked row", "Dh 128, RoPE"]
+
+
+@pytest.mark.parametrize("case", LONG_CASES)
+def test_long_kernels_match_plain(cuda, case):
+    """The long forward against multi_head_attention (TOL), its gradients
+    against flash_bwd_plain by chip_smoke.py phase 7's bars, relative to the
+    call's largest gradient; a fully masked row is the uniform mean of v
+    over all keys, and its scores pass no gradient."""
+    B, H, Lq, Lk, dh, kw = _long_case(case, cuda)
+    q, k, v, do = _long_inputs(cuda, B, H, Lq, Lk, dh, 40)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, do)
+    ref = multi_head_attention(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    want = _plain_grads(q, k, v, do, **kw)
+    top = max(float(r.float().abs().max()) for r in want)
+    for name, a, r in zip("qkv", got, want):
+        d = a.float() - r.float()
+        assert float(d.abs().max()) <= 2e-2 * top, name
+        assert float(d.norm()) <= 1e-2 * max(float(r.float().norm()), 1e-30) or \
+            float(r.float().abs().max()) == 0.0, name
+    if case == "holes, a fully masked row":
+        torch.testing.assert_close(out[1].float(), v[1].float().mean(1, keepdim=True)
+                                   .expand(H, Lq, dh), **TOL)
+        assert float(got[0][1].abs().max()) == 0.0 and float(got[1][1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("case", ["bank prompts", "caption causal", "cross", "Dh 128, RoPE"])
+def test_long_kernels_batch_invariant_and_reproducible(cuda, case):
+    """Two launches agree bit for bit, and a batch row alone (B = 1) gives
+    the bits it has in the batch, forward and gradients: the tiles are
+    fixed and the skip never changes a real key's arithmetic."""
+    B, H, Lq, Lk, dh, kw = _long_case(case, cuda)
+    q, k, v, do = _long_inputs(cuda, B, H, Lq, Lk, dh, 41)
+    out, got = _short_grads(q, k, v, do, **kw)
+    out2, got2 = _short_grads(q, k, v, do, **kw)
+    assert torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(got, got2))
+    i = B // 2
+    one_kw = dict(kw, kv_mask=kw["kv_mask"][i:i + 1]) if "kv_mask" in kw else kw
+    one, got1 = _short_grads(q[i:i + 1], k[i:i + 1], v[i:i + 1], do[i:i + 1], **one_kw)
+    assert torch.equal(out[i:i + 1], one)
+    assert all(torch.equal(a[i:i + 1], b) for a, b in zip(got, got1))
+
+
+def test_long_skip_equals_the_cut_call(cuda):
+    """At bank masks (2 to 21 real keys of 512, and one row of 40) the
+    forward and dQ equal, bit for bit, a call whose K, V and mask are cut
+    to ``key_cut`` keys (the largest extent rounded up to the 128-key
+    tiles), and dK and dV past the cut are exactly 0."""
+    from deepcoro_clip_tpu_torch.ops._flash_cuda import key_cut
+
+    B, H, L = 24, 12, 512
+    q, k, v, do = _long_inputs(cuda, B, H, L, L, 64, 42)
+    m = _prefix_mask(B, L, 2, 21, cuda, 5)
+    m[3, :40] = True
+    cut = key_cut(m, B, L)
+    assert cut == 128
+    out, got = _short_grads(q, k, v, do, kv_mask=m)
+    out_c, got_c = _short_grads(q, k[:, :, :cut], v[:, :, :cut], do,
+                                kv_mask=m[:, :cut].contiguous())
+    assert torch.equal(out, out_c) and torch.equal(got[0], got_c[0])
+    for a, b in zip(got[1:], got_c[1:]):
+        assert torch.equal(a[:, :, :cut], b)
+        assert float(a[:, :, cut:].abs().max()) == 0.0
+
+
+def test_long_calls_run_the_hopper_kernels(cuda):
+    """From profiler traces: a long bf16 forward is one flash_long_fwd_kernel
+    (at Dh 64 and 128, with the RoPE pre-pass where RoPE is on), its
+    backward the row pre-pass and the two long backward kernels; no other
+    attention kernel of the port runs."""
+    for case, dh in (("bank prompts", 64), ("Dh 128, RoPE", 128)):
+        B, H, Lq, Lk, _, kw = _long_case(case, cuda)
+        q, k, v, do = _long_inputs(cuda, B, H, Lq, Lk, dh, 43)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, **kw)
+        fwd = _kernels_run(lambda: flash_attention(q, k, v, **kw))
+        bwd = _kernels_run(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+        ours = [n for n in fwd + bwd if "flash_" in n or "bwd_rows" in n]
+        assert sum(f"flash_long_fwd_kernel<{dh}>" in n for n in fwd) == 1
+        assert _ran(bwd, "bwd_rows_kernel") and _ran(bwd, f"flash_long_bwd_dkv_kernel<{dh}>")
+        assert _ran(bwd, f"flash_long_bwd_dq_kernel<{dh}>")
+        assert not any("sm90" in n or "short" in n or "f32" in n for n in ours), ours

@@ -192,7 +192,7 @@ def test_cpu_tensors_never_reach_the_kernel():
 
 @pytest.mark.parametrize("dtype,packed,symbol", [
     (torch.bfloat16, True, "deepcoro_flash_bwd_sm90_bf16"),   # K2: the Hopper kernels
-    (torch.bfloat16, False, "deepcoro_flash_bwd_bf16"),       # K4: the mma.sync ones
+    (torch.bfloat16, False, "deepcoro_flash_long_bwd_bf16"),  # K4: the Hopper ones
     (torch.float32, False, "deepcoro_flash_bwd_f32"),         # K4 on fp32 operands
 ])
 def test_backward_kernel_choice(dtype, packed, symbol):

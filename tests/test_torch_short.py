@@ -48,15 +48,15 @@ SHORT_SRC = (Path(__file__).resolve().parents[1] / "deepcoro_clip_tpu_torch" / "
     (F32, 11, 11, 64, "deepcoro_flash_short_fwd_f32", "deepcoro_flash_short_bwd_f32"),
     (BF16, 1, 64, 128, "deepcoro_flash_short_fwd_bf16", "deepcoro_flash_short_bwd_bf16"),
     (F32, 64, 64, 128, "deepcoro_flash_short_fwd_f32", "deepcoro_flash_short_bwd_f32"),
-    (BF16, 65, 65, 64, "deepcoro_flash_fwd_bf16", "deepcoro_flash_bwd_bf16"),
-    (BF16, 1, 65, 64, "deepcoro_flash_fwd_bf16", "deepcoro_flash_bwd_bf16"),
+    (BF16, 65, 65, 64, "deepcoro_flash_long_fwd_bf16", "deepcoro_flash_long_bwd_bf16"),
+    (BF16, 1, 65, 64, "deepcoro_flash_long_fwd_bf16", "deepcoro_flash_long_bwd_bf16"),
     (F32, 65, 1, 128, "deepcoro_flash_fwd_f32", "deepcoro_flash_bwd_f32"),
-    (BF16, 1, 393, 64, "deepcoro_flash_fwd_bf16", "deepcoro_flash_bwd_bf16"),
+    (BF16, 1, 393, 64, "deepcoro_flash_long_fwd_bf16", "deepcoro_flash_long_bwd_bf16"),
     (F32, 99, 99, 64, "deepcoro_flash_fwd_f32", "deepcoro_flash_bwd_f32"),
 ])
 def test_short_routing_by_length(dtype, Lq, Lk, Dh, fwd, bwd):
     """The [B, H, L, Dh] entry runs the short kernels at Lq, Lk <= 64 and
-    the 64-row tile kernels past that, in both directions."""
+    the tile kernels past that (bf16: the Hopper ones), in both directions."""
     assert _flash_cuda.fwd_symbol(dtype, False, Lq, Lk, Dh) == fwd
     assert _flash_cuda.bwd_symbol(dtype, False, Lq, Lk) == bwd
     assert _flash_cuda.is_short(False, Lq, Lk) == ("short" in fwd)
