@@ -233,12 +233,43 @@ Phases, each printing one line (or a few) before the last:
    mask are cut to _flash_cuda.key_cut keys, dK and dV exactly 0 past the
    cut, two calls bit-equal, batch rows alone (B = 1) and in fours (B = 4)
    bit-equal to the batch; the kernels a call runs, by profiler name;
+27. the linear-probing run through the port's main, at
+   config/linear_probing/stenosis_config.yaml (probe_config()): phase 22's
+   clips grouped into 24 train and 16 val studies of 6 to 10 clips (a clip
+   serves several studies), labelled by synthetic_angio.probe_labels_for of
+   each study's first clip (calcif_binary a seeded draw), the encoder from
+   phase 22's last checkpoint through video_encoder_checkpoint_path (every
+   backbone leaf must load), epochs 2, DEEPCORO_FUSED_OUTPROJ=1 (K5). Every
+   loss finite, launches over the run 12 K5 / 1 K3 / 1 K4 a train step and
+   12 K5 / 1 K3 a validation batch, no K1, K2 or K6; the backbone bit-equal
+   to phase 22's after the run, every head tensor moved; a run stopped after
+   epoch 0 and resumed through main bit-equal; run_mode val with the
+   bootstrap intervals of every head; run_mode inference with the study
+   embeddings through K5 and with the switch off (K1 + F.linear, cosine >=
+   0.999), and at batch 2 against 8 (the largest differences printed,
+   cosine >= 0.999); the step, studies/s and the loader's wait over epoch 1,
+   the validation pass with its metrics (the bootstrap) apart, peak memory,
+   a profiled step's busy time and share;
+28. contrastive inference through the port's main, at
+   config/inference/clip_retrieval_inference.yaml (clip_inference_config()):
+   a text bank of the corpus' reports written from phase 22's checkpoint by
+   python -m deepcoro_clip_tpu_torch.generate_embeddings (its main, in
+   process; 12 long K3 a chunk of 64) and read back by serve's
+   load_text_bank, a metadata CSV a bank text (a number with gaps, a string
+   drawn from four), the corpus in studies of 1 to 4 clips, weights through
+   init_from_checkpoint (every tensor must load). One row a study, launches
+   12 K1 and 2 K3 (the aggregator) a batch; the top-k ranks equal to those
+   from the plain attention's embeddings with the same weights wherever the
+   neighbouring scores are more than 1e-3 apart, scores within 1e-2, each
+   row's string the smallest of its tied modes; bank texts/s, studies/s,
+   peak memory;
 then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6, and
 the long K3 and K4 kernels an entry each; K3 and K4 list their short and
 long kernels and carry phase 21's rows; every kernel carries the launches
-of phases 22 to 25's runs, K3 and K4 their shapes; the long entries their
-launches over those runs, their row at the SigLIP bank's mask and every
-long row of phases 22 to 26).
+of phases 22 to 25's and 27 and 28's runs (K5's "launches" are phase 27's
+train run's), K3 and K4 their shapes; the long entries their launches over
+phases 22 to 25's runs and the bank's, their row at the SigLIP bank's mask
+and every long row of phases 22 to 26).
 
 --compare runs the build, checksums of the outputs of the kernels meant to
 stay bit-equal (K1, K2, K5, K6, the short K3/K4), K1's and K2's times at
@@ -256,6 +287,7 @@ import concurrent.futures
 import http.client
 import json
 import math
+import shutil
 import struct
 import subprocess
 import sys
@@ -263,6 +295,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -3185,11 +3218,12 @@ def render_corpus(root: Path) -> Path:
     return manifest
 
 
-def phase_quality_run(torch, manifest: Path) -> dict:
+def phase_quality_run(torch, manifest: Path, keep: Optional[Path] = None) -> dict:
     """Phase 22 on the corpus of ``manifest`` (``render_corpus``); returns
     {"K1".."K4": launches of the run, "rows": (K3 row, K4 row) of the text
     tower's call, "aggregator_max_abs_err": (K3, K4) at the aggregator's
-    call, "times": ...}."""
+    call, "times": ...}. With ``keep`` the uninterrupted run's last
+    checkpoint is copied there (phases 27 and 28 start from it)."""
     from deepcoro_clip_tpu_torch.runners.common import batch_to_device
     from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
 
@@ -3258,6 +3292,8 @@ def phase_quality_run(torch, manifest: Path) -> dict:
 
         # resume: epoch 0's checkpoint, then epoch 1 as in the uninterrupted run
         _check_resume(torch, "quality run", full, cut, resumed)
+        if keep is not None:
+            shutil.copyfile(run / "checkpoints" / "checkpoint.pt", keep)
 
         # times of the uninterrupted run (epoch 1: no first-call set-up)
         h = hist[1]
@@ -4028,6 +4064,527 @@ def phase_long_kernels(torch, bank_mask) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 27: the linear-probing run through main, at
+# config/linear_probing/stenosis_config.yaml, on phase 22's backbone
+
+PROBE_RUN_STUDIES = (("train", 24), ("val", 16))
+PROBE_RUN_CLIPS = (6, 10)  # clips a study, drawn
+PROBE_RUN_CALCIF = 0.3  # the share of studies calcif_binary marks (a seeded draw)
+# launches per train step and per validation or inference batch, K5 on
+# (DEEPCORO_FUSED_OUTPROJ=1): the 12 backbone blocks (3 at L 1569, 9 at 393)
+# and the head's one fp32 CLS block [8,8,11,64] (the short kernels); with the
+# switch off K1 takes K5's place
+PROBE_RUN_PER_STEP = {"K1": 0, "K2": 0, "K3": 1, "K4": 1, "K5": 12, "K6": 0,
+                      "K3 long": 0, "K4 long": 0}
+PROBE_RUN_PER_BATCH = {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 12, "K6": 0,
+                       "K3 long": 0, "K4 long": 0}
+PROBE_RUN_PER_BATCH_K1 = dict(PROBE_RUN_PER_BATCH, K1=12, K5=0)
+
+
+def probe_study_manifest(manifest: Path, out: Path, seed: int = 0) -> tuple:
+    """Phase 22's clips grouped into studies of 6 to 10 clips, 24 train and
+    16 val (each study's clips drawn from its split's without repeats, so a
+    clip may serve several studies), labelled from the findings that
+    rendered the study's first clip, the row whose targets VideoDataset
+    reads (synthetic_angio.probe_labels_for, the corpus' seed 0; over all
+    of a study's 6 to 10 clips nearly every study would be positive):
+    stenosis <- max_stenosis_pct, stenosis_binary <- severe_any, CTO <-
+    cto_any; calcif_binary is a seeded draw (the corpus renders no
+    calcium). Returns (path, rows)."""
+    from deepcoro_clip_tpu_torch.data.csv_utils import read_csv_with_fallback, write_csv
+    from deepcoro_clip_tpu_torch.data.synthetic_angio import probe_labels_for
+
+    clips = read_csv_with_fallback(manifest).rows
+    rng = np.random.default_rng(seed)
+    rows = []
+    for split, n_studies in PROBE_RUN_STUDIES:
+        pool = [c for c in clips if c["Split"] == split]
+        for s in range(n_studies):
+            n = int(rng.integers(PROBE_RUN_CLIPS[0], PROBE_RUN_CLIPS[1] + 1))
+            members = [pool[int(i)] for i in rng.choice(len(pool), n, replace=False)]
+            first = probe_labels_for(int(str(members[0]["StudyInstanceUID"])
+                                         .replace("SYN", "")), 0)
+            calcif = float(rng.random() < PROBE_RUN_CALCIF)
+            for c in members:
+                rows.append({"FileName": c["FileName"], "StudyInstanceUID": f"P{split}{s:03d}",
+                             "Split": split, "stenosis": first["max_stenosis_pct"],
+                             "stenosis_binary": first["severe_any"], "calcif_binary": calcif,
+                             "CTO": first["cto_any"]})
+    write_csv(out, list(rows[0]), rows)
+    return out, rows
+
+
+def _capture(cls, made: list):
+    """Wrap ``cls.__init__`` so that each instance main builds lands in
+    ``made``; returns the undo."""
+    init = cls.__init__
+
+    def capture(self, *args, **kw):
+        init(self, *args, **kw)
+        made.append(self)
+
+    cls.__init__ = capture
+    return lambda: setattr(cls, "__init__", init)
+
+
+def _fused_switch(on: bool) -> None:
+    """DEEPCORO_FUSED_OUTPROJ, read when a runner builds its encoder."""
+    import os
+
+    os.environ["DEEPCORO_FUSED_OUTPROJ"] = "1" if on else "0"
+
+
+def _inference_files(runner):
+    from deepcoro_clip_tpu_torch.data.csv_utils import read_csv_with_fallback
+
+    run = Path(runner.output_dir) / "inference"
+    preds = read_csv_with_fallback(run / "predictions.csv").rows
+    emb = np.load(run / "study_embeddings.npz")
+    return preds, emb["embeddings"], emb["study_ids"].tolist()
+
+
+def phase_probing_run(torch, manifest: Path, backbone: Path, tmp: Path) -> dict:
+    """Phase 27 on phase 22's corpus and checkpoint ``backbone``; returns
+    {"counts": launches of the train run, "val_counts", "infer_counts":
+    {"K5", "K1"}, "times": ...}."""
+    import os
+
+    import torch.nn.functional as F
+
+    from deepcoro_clip_tpu_torch.convert import flatten_tree, module_to_jax_tree
+    from deepcoro_clip_tpu_torch.main import main
+    from deepcoro_clip_tpu_torch.models.video_encoder import init_params
+    from deepcoro_clip_tpu_torch.runners import linear_probing as lp
+    from deepcoro_clip_tpu_torch.runners.common import batch_to_device
+    from deepcoro_clip_tpu_torch.train.linear_probe import mil_from_config
+
+    studies, rows = probe_study_manifest(manifest, tmp / "probe_studies.csv")
+    heads = ("stenosis", "stenosis_binary", "calcif_binary", "CTO")
+    by_study = {}
+    for r in rows:
+        by_study.setdefault((r["Split"], r["StudyInstanceUID"]), []).append(r)
+    uses = {}
+    for r in rows:
+        uses[r["FileName"]] = uses.get(r["FileName"], 0) + 1
+    for split, n in PROBE_RUN_STUDIES:
+        st = [v for (s, _), v in by_study.items() if s == split]
+        pos = {h: sum(v[0][h] > 0 for v in st) for h in heads[1:]}
+        print(f"probing run: {split}: {n} studies of {min(map(len, st))} to "
+              f"{max(map(len, st))} clips ({sum(map(len, st))} clip slots over "
+              f"{len({r['FileName'] for v in st for r in v})} clips: a clip serves up to "
+              f"{max(uses[r['FileName']] for v in st for r in v)} studies); positives "
+              + ", ".join(f"{h} {pos[h]}" for h in pos)
+              + f"; stenosis {min(v[0]['stenosis'] for v in st):.0f} to "
+              f"{max(v[0]['stenosis'] for v in st):.0f} %", flush=True)
+    print("probing run: labels from synthetic_angio.probe_labels_for of each study's first "
+          "clip (the row VideoDataset reads targets from): stenosis <- max_stenosis_pct, "
+          "stenosis_binary <- severe_any, CTO <- cto_any; calcif_binary a seeded draw (p "
+          f"{PROBE_RUN_CALCIF}: the corpus renders no calcium)", flush=True)
+
+    def cfg(name, **over):
+        return probe_config(data_filename=str(studies), output_dir=str(tmp / "probe" / name),
+                            epochs=2, video_encoder_checkpoint_path=str(backbone), **over)
+
+    print(f"probing run: config/linear_probing/stenosis_config.yaml with data_filename="
+          f"{studies.name} (phase 22's clips as studies), output_dir=<tmp>, "
+          f"video_encoder_checkpoint_path=<phase 22's checkpoint.pt>, epochs=2 (the YAML: "
+          f"25); nothing else changed (ci_n_bootstrap {cfg('x').ci_n_bootstrap}, "
+          f"num_workers {cfg('x').num_workers}); DEEPCORO_FUSED_OUTPROJ=1 (K5) unless "
+          "said", flush=True)
+    made: list = []
+    undo = _capture(lp.LinearProbingRunner, made)
+    switch = os.environ.get("DEEPCORO_FUSED_OUTPROJ")
+    try:
+        _fused_switch(True)
+        full, cut, resumed, counts, wall, peak_gib = _runs_through_main(
+            torch, "probing run", cfg, lp.LinearProbingRunner)
+        hist = full["history"]
+        steps = PROBE_RUN_STUDIES[0][1] // 8
+        val_batches = -(-PROBE_RUN_STUDIES[1][1] // 8)
+        for h in hist:
+            print(f"probing run: epoch {h['epoch']}: train loss {h['loss']:.4f} ("
+                  + ", ".join(f"{k} {h['loss_' + k]:.4f}" for k in heads)
+                  + f"), val loss {h['val_loss']:.4f}, val stenosis MAE "
+                  f"{h['val_stenosis/mae']:.2f}, AUROC stenosis_binary "
+                  f"{h['val_stenosis_binary/auc']:.3f} CTO {h['val_CTO/auc']:.3f} calcif "
+                  f"{h['val_calcif_binary/auc']:.3f}, lr {h['lr']:.2e}", flush=True)
+        check(len(hist) == 2 and all(math.isfinite(h[k]) for h in hist + resumed["history"]
+                                     for k in ("loss", "val_loss")),
+              f"probing run: losses {hist}")
+        want = {k: PROBE_RUN_PER_STEP[k] * steps * 2 + PROBE_RUN_PER_BATCH[k] * val_batches * 2
+                for k in PROBE_RUN_PER_STEP}
+        print(f"probing run: launches over 2 x {steps} train steps and 2 x {val_batches} "
+              "validation batches: " + ", ".join(f"{k} {counts[k]} (predicted {want[k]})"
+                                                 for k in want), flush=True)
+        check(counts == want, f"probing run: launches {counts}, predicted {want}")
+
+        # the encoder from phase 22's checkpoint: every backbone leaf, none moved
+        first = made[0]
+        loaded, total = first.encoder_loaded
+        tree = flatten_tree(module_to_jax_tree(first.bundle.video_model))
+        backbone_leaves = sorted(k for k in tree if k.startswith("backbone/"))
+        missing = sorted(set(backbone_leaves) - set(loaded))
+        print(f"probing run: encoder leaves loaded from phase 22's checkpoint: {len(loaded)} of "
+              f"{total} ({len(backbone_leaves) - len(missing)} of the {len(backbone_leaves)} "
+              f"backbone leaves; not loaded: {sorted(set(tree) - set(loaded))[:6]})",
+              flush=True)
+        check(not missing, f"probing run: backbone leaves not loaded: {missing[:5]}")
+        del first, tree
+        src = torch.load(backbone, map_location="cpu", weights_only=True)["params"]
+        final = torch.load(Path(full["output_dir"]) / "checkpoints" / "checkpoint.pt",
+                           map_location="cpu", weights_only=True)["params"]
+        enc = [k for k in final if k.startswith("video_encoder.backbone.")]
+        moved = [k for k in enc if not torch.equal(final[k], src[k].float())]
+        fresh = dict(init_params(mil_from_config(cfg("x")), cfg("x").seed + 1)
+                     .named_parameters())
+        stuck = [k for k, v in fresh.items() if torch.equal(final["mil." + k], v)]
+        print(f"probing run: after 2 epochs {len(enc) - len(moved)} of {len(enc)} backbone "
+              f"tensors equal to phase 22's (frozen), {len(fresh) - len(stuck)} of "
+              f"{len(fresh)} head tensors moved from their seeded values", flush=True)
+        check(not moved and not stuck, f"probing run: encoder moved {moved[:3]}, head stuck "
+                                       f"{stuck[:3]}")
+        del src, final, fresh
+        _check_resume(torch, "probing run", full, cut, resumed)
+        h = hist[1]
+        times = {"step_ms": h["epoch_seconds"] * 1e3 / steps,
+                 "studies_per_s": 8 * steps / h["epoch_seconds"],
+                 "loader_wait_ms": h["loader_wait_ms"], "validate_s": h["val_seconds"],
+                 "validate_metrics_s": h["val_metrics_seconds"], "peak_gib": peak_gib,
+                 "run_s": wall, "epoch0_seconds": hist[0]["epoch_seconds"]}
+        print(f"probing run: step {times['step_ms']:.1f} ms (host clock, epoch 1: "
+              f"{h['epoch_seconds']:.3f} s over {steps} steps, loader wait "
+              f"{h['loader_wait_ms']:.2f} ms a step), {times['studies_per_s']:.2f} studies/s; "
+              f"validation pass {h['val_seconds']:.3f} s (16 studies, of it per-head metrics "
+              f"{h['val_metrics_seconds']:.3f} s, no bootstrap in training); peak memory "
+              f"{peak_gib:.2f} GiB (torch.cuda.max_memory_allocated) | {CARD}", flush=True)
+
+        # run_mode val: the bootstrap intervals (the head starts from its seed:
+        # neither package reads `checkpoint` outside training)
+        meta = json.loads((Path(full["output_dir"]) / "checkpoints" / "checkpoint.json")
+                          .read_text())
+        stats = dict(dataset_mean=meta["dataset_mean"], dataset_std=meta["dataset_std"])
+        _zero_kernel_counts()
+        val = main(config=cfg("val", run_mode="val", **stats))
+        val_counts = {**_kernel_counts(), **_long_counts()}
+        want = {k: v * val_batches for k, v in PROBE_RUN_PER_BATCH.items()}
+        keys = {"stenosis": "mae", "stenosis_binary": "auc", "calcif_binary": "auc",
+                "CTO": "auc"}
+        print(f"probing run: run_mode val: loss {val['loss']:.4f}; "
+              + ", ".join(f"{h} {keys[h]} {val[f'{h}/{keys[h]}']:.3f} [{val[f'{h}/{keys[h]}_ci']['lo']:.3f}, "
+                          f"{val[f'{h}/{keys[h]}_ci']['hi']:.3f}]" for h in heads)
+              + f" ({cfg('x').ci_confidence_level:.0%} intervals, {cfg('x').ci_n_bootstrap} "
+              f"resamples); pass {val['seconds']:.3f} s, of it per-head metrics with the "
+              f"bootstrap {val['metrics_seconds']:.3f} s | {CARD}", flush=True)
+        print("probing run: run_mode val launches: " + ", ".join(
+            f"{k} {val_counts[k]} (predicted {want[k]})" for k in want), flush=True)
+        check(val_counts == want, f"probing run (val): launches {val_counts}, predicted {want}")
+        check(all(f"{h}/{keys[h]}_ci" in val for h in heads), f"no intervals in {sorted(val)}")
+        times.update(val_s=val["seconds"], val_bootstrap_s=val["metrics_seconds"])
+
+        # run_mode inference with the study embeddings: K5 on, K1 (switch off),
+        # and K5 at batch 2
+        infer = {}
+        infer_counts = {}
+        for label, fused, bs in (("K5", True, 8), ("K1", False, 8), ("K5 batch 2", True, 2)):
+            _fused_switch(fused)
+            _zero_kernel_counts()
+            t0 = time.perf_counter()
+            res = main(config=cfg(f"infer_{len(infer)}", run_mode="inference",
+                                  split_filter="val", batch_size=bs, **stats))
+            seconds = time.perf_counter() - t0
+            counts_i = {**_kernel_counts(), **_long_counts()}
+            per = PROBE_RUN_PER_BATCH if fused else PROBE_RUN_PER_BATCH_K1
+            want = {k: v * -(-PROBE_RUN_STUDIES[1][1] // bs) for k, v in per.items()}
+            print(f"probing run: run_mode inference, {label} ({bs} studies a batch): "
+                  f"{res['rows']} rows in {seconds:.2f} s through main (set-up included); "
+                  "launches " + ", ".join(f"{k} {counts_i[k]} (predicted {want[k]})"
+                                          for k in want), flush=True)
+            check(res["rows"] == PROBE_RUN_STUDIES[1][1] and counts_i == want,
+                  f"probing run (inference, {label}): {res}, launches {counts_i}")
+            infer[label] = _inference_files(made[-1])
+            infer_counts[label] = counts_i
+        (p5, e5, ids5), (p1, e1, ids1), (p2, e2, ids2) = (infer[k] for k in
+                                                          ("K5", "K1", "K5 batch 2"))
+        check(ids5 == ids1 == ids2 and e5.shape == (16, 2 * cfg("x").embedding_dim),
+              f"study ids or embedding shape differ: {e5.shape}")
+        for label, (p, e) in (("K5 vs K1 + F.linear", (p1, e1)),
+                              ("batch 8 vs batch 2", (p2, e2))):
+            cos = float(F.cosine_similarity(torch.from_numpy(e5), torch.from_numpy(e),
+                                            dim=1).min())
+            d_emb = float(np.abs(e5 - e).max())
+            d_out = max(abs(float(a[h]) - float(b[h])) for a, b in zip(p5, p) for h in heads)
+            bits = bool(np.array_equal(e5, e)) and d_out == 0.0
+            print(f"probing run: inference {label}: study embeddings min cosine {cos:.6f} "
+                  f"(bar >= {E2E_MIN_COSINE}), max|d| {d_emb:.3e}; head outputs max|d| "
+                  f"{d_out:.3e}; bit-equal {bits}", flush=True)
+            check(cos >= E2E_MIN_COSINE, f"probing run: {label}: cosine {cos}")
+            times[f"infer_{'k1' if 'K1' in label else 'b2'}_max_abs_emb"] = d_emb
+
+        # one train step traced
+        _fused_switch(True)
+        runner = lp.LinearProbingRunner(cfg("trace", **stats), output_dir=tmp / "probe_trace")
+        batch = batch_to_device(next(iter(runner.loaders["train"])), runner.device)
+        runner.train_step(runner.state, batch, runner.generator, 1.0)  # warm
+        per_name, wall_ms = device_events(
+            torch, lambda: runner.train_step(runner.state, batch, runner.generator, 1.0))
+        print_profile("probing run profile", "one train step of the run", per_name, wall_ms,
+                      top=12)
+        check_main_path_kernels("probing run profile, K5 and the CLS block's K3/K4", per_name,
+                                ("flash_fwd_proj_kernel", "flash_short_fwd_f32_kernel",
+                                 "flash_short_bwd_f32_kernel"),
+                                ("flash_fwd_sm90_kernel", "flash_bwd_dkv", "ring_step"))
+        times["busy_ms"] = sum(per_name.values())
+        times["profiled_step_ms"] = wall_ms
+        times["busy_share"] = times["busy_ms"] / wall_ms
+        print(f"probing run: a profiled step busy {times['busy_ms']:.2f} ms of "
+              f"{wall_ms:.2f} ms (share {times['busy_share']:.2f}) | {CARD}", flush=True)
+        del runner, batch
+    finally:
+        undo()
+        if switch is None:
+            os.environ.pop("DEEPCORO_FUSED_OUTPROJ", None)
+        else:
+            os.environ["DEEPCORO_FUSED_OUTPROJ"] = switch
+    torch.cuda.empty_cache()
+    return {"counts": counts, "val_counts": val_counts, "infer_counts": infer_counts,
+            "times": times}
+
+
+# --------------------------------------------------------------------------- #
+# phase 28: contrastive inference through main, at
+# config/inference/clip_retrieval_inference.yaml, with a bank the port writes
+
+CLIP_INFER_STUDY_CLIPS = (1, 4)  # clips a study, drawn (the YAML's num_videos 4)
+CLIP_INFER_CATEGORIES = ("LAD", "LCX", "RCA", "LM")
+# per inference batch: the video tower's 12 blocks (K1) and the aggregator's
+# 2 blocks (K3, short); per bank chunk of 64 texts: the text tower's 12
+# layers at L 512 (K3, long)
+CLIP_INFER_PER_BATCH = {"K1": 12, "K2": 0, "K3": 2, "K4": 0, "K5": 0, "K6": 0,
+                        "K3 long": 0, "K4 long": 0}
+CLIP_INFER_TOPK_GAP = 1e-3  # ranks compared where the neighbouring scores are this far apart
+CLIP_INFER_SCORE_ATOL = 1e-2
+
+
+def clip_inference_config(**over):
+    """config/inference/clip_retrieval_inference.yaml, field by field (a CPU
+    test holds this dict equal to the YAML as the port's parser reads it)."""
+    from deepcoro_clip_tpu_torch.configs import ClipConfig
+
+    d = dict(
+        pipeline_project="DeepCORO_clip", run_mode="inference", seed=42, use_wandb=False,
+        text_embeddings_path="artifacts/text_embeddings.npz",
+        metadata_path="artifacts/metadata.parquet", topk=5, checkpoint=None,
+        data_filename="data/inference_studies.csv", datapoint_loc_label="FileName",
+        target_label="Report", batch_size=4, num_workers=4, rand_augment=False,
+        shuffle_videos=False, resize=224, frames=16, stride=1, max_text_length=512,
+        dataset_mean=[110.4954833984375] * 3, dataset_std=[37.805782318115234] * 3,
+        model_name="mvit", vit_dim=512, vit_depth=12, vit_heads=4, vit_patch=[2, 16, 16],
+        vit_pool_stages=[3], use_cls_token=True, embedding_dim=512, num_heads=8,
+        aggregator_depth=2, dropout=0.0, text_dim=768, text_depth=12, text_heads=12,
+        text_vocab_size=30522, multi_video=True, num_videos=4,
+        groupby_column="StudyInstanceUID", precision="bf16", use_pallas_attention=True,
+    )
+    d.update(over)
+    return ClipConfig.from_dict(d)
+
+
+def clip_study_manifest(manifest: Path, out: Path, seed: int = 0) -> tuple:
+    """Phase 22's clips in their order grouped into studies of 1 to 4 clips
+    (sizes drawn), Split ``inference``; returns (path, number of studies)."""
+    from deepcoro_clip_tpu_torch.data.csv_utils import read_csv_with_fallback, write_csv
+
+    clips = read_csv_with_fallback(manifest).rows
+    rng = np.random.default_rng(seed)
+    rows, i, s = [], 0, 0
+    while i < len(clips):
+        n = int(rng.integers(CLIP_INFER_STUDY_CLIPS[0], CLIP_INFER_STUDY_CLIPS[1] + 1))
+        for c in clips[i:i + n]:
+            rows.append({"FileName": c["FileName"], "Report": c["Report"],
+                         "StudyInstanceUID": f"Q{s:03d}", "Split": "inference"})
+        i += n
+        s += 1
+    write_csv(out, list(rows[0]), rows)
+    return out, s
+
+
+def _bank_metadata(manifest: Path, texts, out: Path, seed: int = 0) -> None:
+    """One row a bank text: the worst stenosis of the first clip with that
+    report (a number; empty for every seventh text) and a vessel drawn from
+    CLIP_INFER_CATEGORIES (strings, so that a top-5 ties now and then)."""
+    from deepcoro_clip_tpu_torch.data.csv_utils import read_csv_with_fallback, write_csv
+    from deepcoro_clip_tpu_torch.data.synthetic_angio import probe_labels_for
+
+    clips = read_csv_with_fallback(manifest).rows
+    first = {}
+    for c in clips:
+        first.setdefault(c["Report"], int(str(c["StudyInstanceUID"]).replace("SYN", "")))
+    rng = np.random.default_rng(seed)
+    rows = [{"max_stenosis_pct": (None if j % 7 == 3
+                                  else probe_labels_for(first[t], 0)["max_stenosis_pct"]),
+             "vessel": CLIP_INFER_CATEGORIES[int(rng.integers(len(CLIP_INFER_CATEGORIES)))]}
+            for j, t in enumerate(texts)]
+    write_csv(out, ["max_stenosis_pct", "vessel"], rows, sep=",")
+
+
+def phase_clip_inference(torch, manifest: Path, backbone: Path, tmp: Path) -> dict:
+    """Phase 28 on phase 22's corpus and checkpoint ``backbone``; returns
+    {"counts": the inference run's launches, "bank_counts", "times"}."""
+    from collections import Counter
+
+    from deepcoro_clip_tpu_torch import generate_embeddings
+    from deepcoro_clip_tpu_torch.data.csv_utils import read_csv_with_fallback
+    from deepcoro_clip_tpu_torch.main import main
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+    from deepcoro_clip_tpu_torch.serve import load_text_bank
+
+    studies, n_studies = clip_study_manifest(manifest, tmp / "clip_studies.csv")
+    bank_path = tmp / "text_bank.npz"
+    meta_path = tmp / "metadata.csv"
+
+    def cfg(name, **over):
+        return clip_inference_config(
+            data_filename=str(studies), output_dir=str(tmp / "clip" / name),
+            text_embeddings_path=str(bank_path), metadata_path=str(meta_path),
+            inference_results_path=str(tmp / "clip" / name / "inference"), **over)
+
+    print(f"clip inference: config/inference/clip_retrieval_inference.yaml with "
+          f"data_filename={studies.name} (phase 22's {QUALITY_TRAIN + QUALITY_VAL} clips in "
+          f"{n_studies} studies of 1 to 4), text_embeddings_path=<the bank below>, "
+          "metadata_path=<a CSV a bank text>, output_dir and inference_results_path=<tmp>, "
+          "init_from_checkpoint=<phase 22's checkpoint.pt>; nothing else changed", flush=True)
+    made: list = []
+    undo = _capture(VideoContrastiveLearningRunner, made)
+    try:
+        # the bank: generate_embeddings over the corpus' reports
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        generate_embeddings.main(["--checkpoint", str(backbone), "--texts_csv", str(manifest),
+                                  "--text_column", "Report", "--out", str(bank_path)],
+                                 config=cfg("bank"))
+        bank_s = time.perf_counter() - t0
+        bank_counts = {**_kernel_counts(), **_long_counts()}
+        emb, texts = load_text_bank(bank_path)  # serve --text_bank's reader
+        chunks = -(-len(texts) // 64)
+        want = {k: v * chunks for k, v in PER_BANK_CHUNK.items()}
+        print(f"clip inference: bank of {len(texts)} unique reports -> {emb.shape} "
+              f"{emb.dtype} by generate_embeddings in {bank_s:.2f} s (runner set-up "
+              f"included), read back by serve's load_text_bank; launches "
+              + ", ".join(f"{k} {bank_counts[k]} (predicted {want[k]})" for k in want),
+              flush=True)
+        check(bank_counts == want and emb.shape == (len(texts), 512)
+              and bool(np.isfinite(emb).all()), f"bank: {emb.shape}, launches {bank_counts}")
+        bank_runner = made[-1]
+        uniq = texts.tolist()
+        bank_runner._encode_texts(uniq)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = bank_runner._encode_texts(uniq)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        check(np.array_equal(again, emb), "the bank encoded twice differs")
+        times = {"bank_texts": len(texts), "bank_texts_per_s": len(texts) / enc_s,
+                 "bank_encode_s": enc_s}
+        print(f"clip inference: bank encoding {enc_s * 1e3:.1f} ms for {len(texts)} texts "
+              f"({times['bank_texts_per_s']:.0f} texts/s, chunks of 64 at 512 tokens, host "
+              f"clock) | {CARD}", flush=True)
+        del bank_runner
+        made.clear()
+        torch.cuda.empty_cache()
+        _bank_metadata(manifest, uniq, meta_path)
+
+        # inference through main
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        res = main(config=cfg("infer", init_from_checkpoint=str(backbone)))
+        wall = time.perf_counter() - t0
+        counts = {**_kernel_counts(), **_long_counts()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        batches = -(-n_studies // 4)
+        want = {k: v * batches for k, v in CLIP_INFER_PER_BATCH.items()}
+        print(f"clip inference: {res['inference_rows']} rows ({n_studies} studies) through "
+              f"main in {wall:.2f} s (set-up included); launches over {batches} batches: "
+              + ", ".join(f"{k} {counts[k]} (predicted {want[k]})" for k in want), flush=True)
+        check(res["inference_rows"] == n_studies and counts == want,
+              f"clip inference: {res}, launches {counts}")
+        runner = made[-1]
+        src = torch.load(backbone, map_location="cpu", weights_only=True)["params"]
+        differ = [k for k, v in runner.state.params.items()
+                  if not torch.equal(v.detach().cpu(), src[k])]
+        print(f"clip inference: {len(runner.state.params) - len(differ)} of "
+              f"{len(runner.state.params)} parameter tensors from phase 22's checkpoint "
+              "(init_from_checkpoint)", flush=True)
+        check(not differ, f"clip inference: parameters not loaded: {differ[:5]}")
+        del src
+
+        # the output against the plain attention with the same weights
+        out_rows = read_csv_with_fallback(
+            tmp / "clip" / "infer" / "inference" / "averaged_metadata.csv").rows
+        check(len(out_rows) == n_studies and list(out_rows[0])[:3] ==
+              ["path", "topk_indices", "topk_scores"], f"averaged_metadata.csv: {out_rows[:1]}")
+        tn = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-8)
+        loader = runner.loaders["inference"]
+        attn = [m for m in runner.bundle.video_model.modules() if hasattr(m, "use_flash")]
+        for m in attn:
+            m.use_flash = False
+        _zero_kernel_counts()
+        plain = np.concatenate([runner.video_embeddings(b) for b in loader])
+        check(_kernel_counts()["K1"] == 0, "the plain pass launched a kernel")
+        for m in attn:
+            m.use_flash = True
+        plain /= np.maximum(np.linalg.norm(plain, axis=1, keepdims=True), 1e-8)
+        sim = plain @ tn.T
+        compared = agreed = 0
+        worst = 0.0
+        meta_cols = read_csv_with_fallback(meta_path)
+        ties = 0
+        lists = set()
+        for b, row in enumerate(out_rows):
+            got = json.loads(row["topk_indices"])
+            scores = json.loads(row["topk_scores"])
+            order = np.argsort(-sim[b])[: len(got)]
+            ref = sim[b, order]
+            worst = max(worst, float(np.abs(np.asarray(scores) - ref).max()))
+            for j in range(len(got)):
+                gaps = [abs(ref[j] - ref[i]) for i in (j - 1, j + 1) if 0 <= i < len(got)]
+                if all(g > CLIP_INFER_TOPK_GAP for g in gaps):
+                    compared += 1
+                    agreed += got[j] == int(order[j])
+            lists.add(tuple(got))
+            vessels = Counter(meta_cols.rows[i]["vessel"] for i in got)
+            top = max(vessels.values())
+            ties += sum(n == top for n in vessels.values()) > 1
+            check(row["vessel"] == min(v for v, n in vessels.items() if n == top),
+                  f"row {b}: vessel {row['vessel']} is not the smallest mode of {vessels}")
+        print(f"clip inference: top-{len(got)} against the plain attention's with the same "
+              f"weights: {agreed} of {compared} ranks equal where the neighbouring scores are "
+              f"more than {CLIP_INFER_TOPK_GAP} apart ({n_studies * len(got)} ranks in all); "
+              f"scores max|kernel - plain| {worst:.3e} (bar {CLIP_INFER_SCORE_ATOL}); the "
+              f"vessel column's mode tied in {ties} of {n_studies} rows (the smallest taken; "
+              f"{len(lists)} distinct top-{len(got)} lists)", flush=True)
+        check(agreed == compared and worst <= CLIP_INFER_SCORE_ATOL,
+              f"clip inference: top-k {agreed}/{compared}, scores {worst}")
+        # studies/s: the inference again, warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.inference()
+        torch.cuda.synchronize()
+        infer_s = time.perf_counter() - t0
+        times.update(studies_per_s=n_studies / infer_s, infer_s=infer_s, peak_gib=peak_gib,
+                     run_s=wall, topk_compared=compared, mode_ties=ties)
+        print(f"clip inference: {n_studies} studies in {infer_s:.3f} s ("
+              f"{times['studies_per_s']:.1f} studies/s, loader, video tower, top-k and "
+              f"metadata, host clock, warm); peak memory {peak_gib:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated, the inference run) | {CARD}", flush=True)
+        del runner, loader
+    finally:
+        undo()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "bank_counts": bank_counts, "times": times}
+
+
+# --------------------------------------------------------------------------- #
 # --compare: one run of an A B B A call against an older tree (copy this
 # script into it), where only what both trees have is measured
 
@@ -4261,7 +4818,7 @@ def main(argv) -> int:
 
 
 def run_all(torch) -> dict:
-    """Phases 2 to 25; returns the "kernels" line."""
+    """Phases 2 to 28; returns the "kernels" line."""
     build_kernels(torch, ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short",
                           "ring_attention"))
     for key, a in hopper_attrs().items():
@@ -4348,7 +4905,8 @@ def run_all(torch) -> dict:
 
     with tempfile.TemporaryDirectory() as corpus_root:
         manifest = render_corpus(Path(corpus_root))
-        quality = phase_quality_run(torch, manifest)
+        backbone = Path(corpus_root) / "quality_checkpoint.pt"
+        quality = phase_quality_run(torch, manifest, keep=backbone)
         for key, e in by_key.items():  # the training run's launches
             e["quality_train_launches"] = quality[key]
         for key, row, agg in zip(("K3", "K4"), quality["rows"],
@@ -4365,6 +4923,10 @@ def run_all(torch) -> dict:
         siglip = phase_siglip_run(torch, manifest)
         torch.cuda.empty_cache()
         multivideo = phase_multivideo_run(torch, manifest)
+        torch.cuda.empty_cache()
+        probing = phase_probing_run(torch, manifest, backbone, Path(corpus_root))
+        torch.cuda.empty_cache()
+        clip_inference = phase_clip_inference(torch, manifest, backbone, Path(corpus_root))
     torch.cuda.empty_cache()
     long = phase_long_kernels(torch, siglip.pop("bank_mask"))
     for run, result in (("multitask", multitask), ("siglip", siglip),
@@ -4376,6 +4938,19 @@ def run_all(torch) -> dict:
             by_key[key]["max_abs_err"] = max([by_key[key]["max_abs_err"]]
                                              + [r["max_abs_err"] for r in rows])
         kernels[f"{run}_train"] = result["times"]
+    # phases 27 and 28: the launches of the probing run (its train run through
+    # main, K5 on), and of the contrastive inference (the bank apart)
+    for key, e in zip(("K1", "K3", "K2", "K4", "K5", "K6"), kernels["kernels"]):
+        e["probing_run_launches"] = probing["counts"][key]
+        e["probing_val_launches"] = probing["val_counts"][key]
+        e["probing_inference_launches"] = {k: c[key]
+                                           for k, c in probing["infer_counts"].items()}
+        e["clip_inference_launches"] = clip_inference["counts"][key]
+    k5 = kernels["kernels"][4]
+    k5["probe_step_launches"] = k5["launches"]  # phase 12's steps
+    k5["launches"] = probing["counts"]["K5"]  # the probing run through main
+    kernels["probing_run"] = probing["times"]
+    kernels["clip_inference"] = clip_inference["times"]
     for run, result in (("siglip", siglip), ("multivideo", multivideo)):
         for key, err in zip(("K3", "K4"), result["aggregator_max_abs_err"]):
             by_key[key][f"{run}_aggregator_max_abs_err"] = err
@@ -4397,7 +4972,8 @@ def run_all(torch) -> dict:
              "replaces": K3_REPLACES if key == "K3" else K4_REPLACES,
              "launches": sum(c[f"{key} long"] for c in runs),
              "max_abs_err": max(r["max_abs_err"] for r in rows), "kernels": names,
-             "skip_cut_keys_at_the_bank": long["cut"]}
+             "skip_cut_keys_at_the_bank": long["cut"],
+             "bank_launches": clip_inference["bank_counts"][f"{key} long"]}
         e.update({k: bank[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                        "device_ms", "library_device_ms")})
         e["shapes"] = rows

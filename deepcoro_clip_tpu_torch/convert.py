@@ -32,7 +32,9 @@ norm2, cross_attn/{q,k,v,proj}, norm3, mlp/{fc1,fc2}}``, ``norm``,
 ``lm_head``, and the MVM head's ``enc_proj``, ``mask_token``, ``pos_emb``,
 ``block{i}/...``, ``norm``, ``pred``. A CLIP
 run's video tree goes into a probing encoder, where paths and shapes match,
-through ``train/linear_probe.build_probe_bundle(encoder_params=...)``.
+through ``train/linear_probe.build_probe_bundle(encoder_params=...)``;
+``state_dict_to_jax_tree`` renames a port checkpoint's parameters into
+such a tree by a model's layer types.
 
 ``save_params_npz``/``load_params_npz`` store such a tree in one ``.npz``
 with ``/``-joined keys, which is what ``serve.py --params`` reads. To
@@ -98,14 +100,18 @@ def jax_tree_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def module_to_jax_tree(module: nn.Module) -> dict:
-    """One of the port's models -> the JAX parameter
-    tree (nested dict of fp32 numpy arrays): the inverse of
-    ``jax_tree_to_state_dict``."""
+def state_dict_to_jax_tree(state_dict: Mapping[str, torch.Tensor], module: nn.Module) -> dict:
+    """Parameters named as ``module``'s (a flat ``{name: tensor}``, such as
+    the ``video_encoder.*`` entries of a port checkpoint without their
+    prefix) -> the JAX parameter tree, each leaf renamed by the type of the
+    layer of ``module`` that holds it; names ``module`` lacks are left out."""
     flat = {}
     for mod_name, mod in module.named_modules():
-        for name, p in mod.named_parameters(recurse=False):
-            arr = p.detach().cpu().numpy().astype(np.float32)
+        for name, _ in mod.named_parameters(recurse=False):
+            key = f"{mod_name}.{name}" if mod_name else name
+            if key not in state_dict:
+                continue
+            arr = state_dict[key].detach().cpu().numpy().astype(np.float32)
             if name == "weight" and isinstance(mod, nn.Linear):
                 name, arr = "kernel", arr.T
             elif name == "weight" and isinstance(mod, nn.LayerNorm):
@@ -114,6 +120,13 @@ def module_to_jax_tree(module: nn.Module) -> dict:
                 name = "embedding"
             flat["/".join(mod_name.split(".") + [name]) if mod_name else name] = arr.copy()
     return unflatten_tree(flat)
+
+
+def module_to_jax_tree(module: nn.Module) -> dict:
+    """One of the port's models -> the JAX parameter
+    tree (nested dict of fp32 numpy arrays): the inverse of
+    ``jax_tree_to_state_dict``."""
+    return state_dict_to_jax_tree(dict(module.named_parameters(remove_duplicate=False)), module)
 
 
 @torch.no_grad()

@@ -1,15 +1,17 @@
-"""Collation into fixed-shape numpy batches (contrastive modes).
+"""Collation into fixed-shape numpy batches.
 
-The port's copy of the contrastive parts of the JAX package's
-``data/collate.py``: ``pick_text_bucket``, ``wire_patch``,
-``_maybe_patchify``, ``collate_clip`` and ``collate_multi_positive``.
+The port's copy of the JAX package's ``data/collate.py`` but the
+single-head collate: ``pick_text_bucket``, ``wire_patch``,
+``_maybe_patchify``, ``collate_clip``, ``collate_multi_positive`` and
+``collate_mil``.
 Videos are stacked with their ``video_mask``; ``collate_clip`` tokenizes
 each sample's report to ``max_text_length`` (or to the smallest configured
 bucket that fits the batch's longest report), ``collate_multi_positive``
 the batch's bank of unique texts, padded to exactly ``max_texts``. With the
 patch wire the uint8 videos leave as patch-major ``[B, N, L, K]``
-(``data/patch_wire.py``). The single-head and MIL collates come with their
-slices.
+(``data/patch_wire.py``). ``collate_mil`` (linear probing) stacks each
+head's targets into a dict and carries the study ids and the view ids.
+The single-head collate comes with its slice.
 """
 
 from __future__ import annotations
@@ -147,3 +149,24 @@ def collate_multi_positive(
         "paths": [it.get("paths", []) for it in items],
         "n_dropped_texts": dropped,
     }
+
+
+def collate_mil(
+    items: List[Dict[str, Any]],
+    head_names: Sequence[str],
+    patch: Optional[Sequence[int]] = None,
+) -> Dict[str, Any]:
+    """Linear probing: the stacked videos and masks, ``targets`` (one
+    ``[B]`` array a head), the study ids and paths, and ``view_ids`` when
+    the items carry them."""
+    out: Dict[str, Any] = {
+        "videos": _maybe_patchify(np.stack([it["videos"] for it in items]), patch),
+        "video_mask": np.stack([it["video_mask"] for it in items]),
+        "targets": {h: np.stack([np.asarray(it["targets"][h]) for it in items])
+                    for h in head_names},
+        "study_ids": [it.get("study_id", "") for it in items],
+        "paths": [it["paths"] for it in items],
+    }
+    if "view_ids" in items[0]:
+        out["view_ids"] = np.stack([it["view_ids"] for it in items])
+    return out

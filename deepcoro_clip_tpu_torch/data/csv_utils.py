@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import csv
 import io
+import math
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -90,9 +91,13 @@ def read_csv_with_fallback(
 def write_csv(path: str | Path, columns: Sequence[str], rows: Sequence[Dict[str, Any]],
               sep: str = "α") -> None:
     """Rows to a manifest in the format pandas' ``to_csv(sep=sep,
-    index=False)`` writes: minimal quoting, ``\\n`` line ends."""
+    index=False)`` writes: minimal quoting, ``\\n`` line ends, a missing
+    value or a NaN as an empty cell."""
+    def cell(v):
+        return "" if v is None or (isinstance(v, float) and math.isnan(v)) else v
+
     with open(path, "w", encoding="utf-8", newline="") as f:
         w = csv.writer(f, delimiter=sep, lineterminator="\n")
         w.writerow(columns)
         for r in rows:
-            w.writerow(["" if r.get(c) is None else r.get(c) for c in columns])
+            w.writerow([cell(r.get(c)) for c in columns])

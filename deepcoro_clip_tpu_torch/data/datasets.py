@@ -15,7 +15,7 @@ instead of a pandas frame:
 
 Items are pure functions of (seed, epoch, index), so any worker of the
 prefetch loader may build any of them. ``VideoDataset`` (linear probing)
-comes with the probing runner.
+adds one target a head column and the clips' view ids.
 """
 
 from __future__ import annotations
@@ -198,6 +198,65 @@ class VideoClipDataset:
             "study_id": sample.get("study_id", paths[0] if paths else ""),
             "selected_rows": [sample["row_indices"][j] for j in sel],
         }
+        return out
+
+
+class VideoDataset(VideoClipDataset):
+    """Label-targeted studies for linear probing: the port's copy of the JAX
+    package's ``VideoDataset``.
+
+    - ``targets``: one float32 a column of ``target_labels``, read from the
+      study's first row; a string goes through ``labels_map[column]`` (-1
+      when it is not there), an empty cell becomes 0;
+    - ``view_ids`` (with ``view_column``): each selected clip's view, in the
+      selected (possibly shuffled) clip order, a name through
+      ``view_labels_map``, a number as it is, anything else and the padded
+      slots the PAD id ``num_view_classes``.
+    """
+
+    def __init__(
+        self,
+        *args,
+        target_labels: Sequence[str] = (),
+        labels_map: Optional[Dict[str, Dict[str, int]]] = None,
+        view_column: Optional[str] = None,
+        num_view_classes: int = 0,
+        view_labels_map: Optional[Dict[str, int]] = None,
+        **kwargs,
+    ):
+        super().__init__(*args, target_label=None, **kwargs)
+        self.target_labels = list(target_labels)
+        self.labels_map = labels_map or {}
+        self.view_column = view_column
+        self.view_labels_map = view_labels_map or {}
+        self.pad_view_id = num_view_classes
+
+    def __getitem__(self, i: int) -> Dict[str, Any]:
+        out = super().__getitem__(i)
+        first = self.rows[self.samples[i]["row_indices"][0]]
+        targets: Dict[str, np.ndarray] = {}
+        for col in self.target_labels:
+            v = first.get(col)
+            if v is None:
+                v = np.nan
+            if col in self.labels_map and isinstance(v, str):
+                v = self.labels_map[col].get(v, -1)
+            targets[col] = np.float32(np.nan_to_num(np.float32(v)))
+        out["targets"] = targets
+
+        if self.view_column:
+            N = self.num_videos
+            view_ids = np.full((N,), self.pad_view_id, np.int32)
+            views = [self.rows[r].get(self.view_column) for r in out["selected_rows"]]
+            for j, v in enumerate(views[:N]):
+                if isinstance(v, str) and v in self.view_labels_map:
+                    view_ids[j] = int(self.view_labels_map[v])
+                    continue
+                try:
+                    view_ids[j] = int(v)
+                except (TypeError, ValueError):
+                    view_ids[j] = self.pad_view_id
+            out["view_ids"] = view_ids
         return out
 
 

@@ -50,17 +50,23 @@ def make_loader(config, dataset, collate: Callable, training: bool) -> PrefetchL
                           backend=config.loader_backend)
 
 
-def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
-    """A host batch's arrays, and a ``sample_mask`` of ones (every row is
-    real: one card, no padding rows), onto ``device``. On the card the
-    copies leave from pinned memory without a host wait, so the next
-    batch's copy queues behind the running step."""
-    arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
+    """A host batch's arrays (and dicts of arrays, such as the probing
+    ``targets``), and a ``sample_mask`` of ones (every row is real: one
+    card, no padding rows), onto ``device``. On the card the copies leave
+    from pinned memory without a host wait, so the next batch's copy queues
+    behind the running step."""
+    def put(v):
+        if isinstance(v, dict):
+            return {k: put(x) for k, x in v.items()}
+        t = torch.from_numpy(v)
+        if device.type != "cuda":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
+
+    arrays = {k: v for k, v in batch.items() if isinstance(v, (np.ndarray, dict))}
     arrays["sample_mask"] = np.ones((len(arrays["videos"]),), np.float32)
-    if device.type != "cuda":
-        return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
-    return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
-            for k, v in arrays.items()}
+    return {k: put(v) for k, v in arrays.items()}
 
 
 def read_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:

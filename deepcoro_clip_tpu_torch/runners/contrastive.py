@@ -36,8 +36,16 @@ seeded from ``config.seed`` and kept in every checkpoint. The JAX runner
 derives a key per step with ``fold_in``/``split``; the masks differ (a
 deliberate divergence), the arithmetic does not. The qualitative HTML
 panels and the end-of-run plots of the JAX runner are left out (offline
-tools); the single-head sampler, the LocCa head and ``run_mode:
-inference`` raise ``NotImplementedError``.
+tools); the single-head sampler and the LocCa head raise
+``NotImplementedError``.
+
+``inference`` (``run_mode: inference``) ranks a precomputed text bank
+(``python -m deepcoro_clip_tpu_torch.generate_embeddings`` writes one) for
+each study and averages the metadata of its top-k texts by pandas' rules
+(``read_metadata``, ``average_metadata``). As in the JAX runner, the
+weights come from ``init_from_checkpoint``; ``checkpoint`` is not read.
+Where the config names no bank, it writes the study embeddings instead
+(the JAX runner fails there).
 """
 
 from __future__ import annotations
@@ -45,8 +53,9 @@ from __future__ import annotations
 import csv
 import math
 import time
+from collections import Counter
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +67,7 @@ from deepcoro_clip_tpu_torch.data.collate import (
     collate_multi_positive,
     wire_patch,
 )
+from deepcoro_clip_tpu_torch.data.csv_utils import write_csv
 from deepcoro_clip_tpu_torch.data.datasets import VideoClipDataset
 from deepcoro_clip_tpu_torch.data.loader import PrefetchLoader
 from deepcoro_clip_tpu_torch.data.sampler import ClassAwareBatchSampler
@@ -88,13 +98,78 @@ from deepcoro_clip_tpu_torch.utils.semantic_metrics import compute_semantic_metr
 
 def check_ported(config) -> None:
     """Raise ``NotImplementedError`` for what this runner does not run yet."""
-    if config.run_mode == "inference":
-        raise NotImplementedError(
-            "run_mode 'inference' is not ported yet (ROADMAP Queue 1 item 4: "
-            "what is left)")
     unported = unported_settings(config)
     if unported:
         raise NotImplementedError("not ported yet: " + ", ".join(unported))
+
+
+# the cells pandas' CSV reader takes for a missing value (read_csv's na_values)
+_NA_CELLS = {"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
+             "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null"}
+_BOOL_CELLS = {"True": 1.0, "TRUE": 1.0, "true": 1.0,
+               "False": 0.0, "FALSE": 0.0, "false": 0.0}
+
+
+def _number(cell: str):
+    try:
+        return float(cell)
+    except ValueError:
+        return None
+
+
+def read_metadata(path) -> Tuple[List[str], Dict[str, List[Any]], Dict[str, bool]]:
+    """The bank's metadata table: ``(columns, values by column, numeric by
+    column)``, a missing value as None. A CSV (comma-separated) is read by
+    pandas' rules: a column is numeric when every filled cell is a number,
+    or when every cell is a boolean; the rest are strings. A ``.parquet``
+    goes through ``pyarrow`` (imported here; it raises without it), where
+    the column's type says."""
+    path = str(path)
+    if path.endswith("parquet"):
+        try:
+            import pyarrow as pa
+            import pyarrow.parquet as pq
+        except ImportError as e:  # pragma: no cover - depends on the machine
+            raise ImportError("reading a parquet metadata table needs pyarrow") from e
+        table = pq.read_table(path)
+        columns = list(table.column_names)
+        numeric = {c: (pa.types.is_integer(t) or pa.types.is_floating(t)
+                       or pa.types.is_boolean(t))
+                   for c, t in zip(columns, table.schema.types)}
+        values = {c: table.column(c).to_pylist() for c in columns}
+        return columns, values, numeric
+    with open(path, newline="", encoding="utf-8") as f:
+        lines = [r for r in csv.reader(f) if r]
+    columns, body = lines[0], lines[1:]
+    values: Dict[str, List[Any]] = {}
+    numeric: Dict[str, bool] = {}
+    for i, c in enumerate(columns):
+        cells = [r[i] if i < len(r) else "" for r in body]
+        filled = [x for x in cells if x not in _NA_CELLS]
+        if cells and all(x in _BOOL_CELLS for x in cells):
+            numeric[c], values[c] = True, [_BOOL_CELLS[x] for x in cells]
+        elif all(_number(x) is not None for x in filled):
+            numeric[c] = True
+            values[c] = [None if x in _NA_CELLS else float(x) for x in cells]
+        else:
+            numeric[c] = False
+            values[c] = [None if x in _NA_CELLS else x for x in cells]
+    return columns, values, numeric
+
+
+def average_metadata(values: List[Any], numeric: bool):
+    """pandas' ``mean`` of a numeric column's values (missing ones skipped;
+    NaN when none is left), else its ``mode`` (missing ones ignored, the
+    smallest of the tied values; "" when none is left)."""
+    present = [v for v in values
+               if v is not None and not (isinstance(v, float) and math.isnan(v))]
+    if numeric:
+        return float(np.asarray(present, np.float64).mean()) if present else float("nan")
+    if not present:
+        return ""
+    counts = Counter(present)
+    top = max(counts.values())
+    return min(v for v, n in counts.items() if n == top)
 
 
 def _merge_params_by_path(new, old):
@@ -512,6 +587,69 @@ class VideoContrastiveLearningRunner:
                                + [unique_texts[t] for t in topk[i]]
                                + [float(sim[i, t]) for t in topk[i]])
         return metrics
+
+    # ------------------------------------------------------------------ #
+    # inference: a text bank's top-k, and their averaged metadata
+    # ------------------------------------------------------------------ #
+
+    @torch.no_grad()
+    def video_embeddings(self, batch) -> np.ndarray:
+        """The study (or clip) embeddings of a host batch, as the eval step
+        computes them (the video tower alone)."""
+        db = batch_to_device(batch, self.device)
+        v = self.bundle.video_model(db["videos"], video_mask=db.get("video_mask"),
+                                    deterministic=True)
+        return torch.nan_to_num(v).float().cpu().numpy()
+
+    def inference(self) -> List[Dict[str, Any]]:
+        """Each sample's embedding against the text bank of
+        ``text_embeddings_path`` (``text_embeddings`` of an ``.npz``, or a
+        bare array): cosine similarity, the ``topk`` best texts, and over
+        their rows of the ``metadata_path`` table each numeric column's
+        mean and each other column's mode (``average_metadata``), written
+        to ``{inference_results_path}/averaged_metadata.csv``; returns the
+        rows. Without a bank (the embedding-extraction configs) the
+        embeddings are written instead, as ``video_embeddings`` / ``paths``
+        of ``{inference_results_path}/video_embeddings.npz``."""
+        cfg = self.config
+        loader = self.loaders.get(cfg.run_mode) or next(iter(self.loaders.values()))
+        out_dir = Path(cfg.inference_results_path)
+        if not cfg.text_embeddings_path:
+            embs, paths = [], []
+            for batch in loader:
+                embs.append(self.video_embeddings(batch))
+                paths.extend(p[0] for p in batch["paths"])
+            if cfg.is_ref_device:
+                out_dir.mkdir(parents=True, exist_ok=True)
+                np.savez(out_dir / "video_embeddings.npz",
+                         video_embeddings=np.concatenate(embs), paths=np.asarray(paths))
+            return [{"path": p} for p in paths]
+
+        bank = np.load(cfg.text_embeddings_path)
+        t_emb = bank["text_embeddings"] if hasattr(bank, "files") else np.asarray(bank)
+        columns, values, numeric = read_metadata(cfg.metadata_path)
+        tn = t_emb / np.maximum(np.linalg.norm(t_emb, axis=1, keepdims=True), 1e-8)
+        rows: List[Dict[str, Any]] = []
+        for batch in loader:
+            v = self.video_embeddings(batch)
+            v = v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-8)
+            sim = v @ tn.T
+            topk = np.argsort(-sim, axis=1)[:, : cfg.topk]
+            for b, idxs in enumerate(topk):
+                row: Dict[str, Any] = {
+                    "path": batch["paths"][b][0] if batch.get("paths") else "",
+                    "topk_indices": list(map(int, idxs)),
+                    "topk_scores": [float(sim[b, j]) for j in idxs],
+                }
+                for col in columns:
+                    row[col] = average_metadata([values[col][j] for j in idxs], numeric[col])
+                rows.append(row)
+        if cfg.is_ref_device:
+            out_dir.mkdir(parents=True, exist_ok=True)
+            write_csv(out_dir / "averaged_metadata.csv",
+                      list(dict.fromkeys(["path", "topk_indices", "topk_scores"] + columns)),
+                      rows, sep=",")
+        return rows
 
     # ------------------------------------------------------------------ #
     # resume

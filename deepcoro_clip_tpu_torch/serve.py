@@ -256,6 +256,13 @@ def make_handler(engine: InferenceEngine, batcher: MicroBatcher):
     return Handler
 
 
+def load_text_bank(path):
+    """``(text_embeddings, texts)`` of a bank ``.npz``, as
+    ``python -m deepcoro_clip_tpu_torch.generate_embeddings`` writes it."""
+    bank = np.load(path, allow_pickle=True)
+    return bank["text_embeddings"], bank["texts"]
+
+
 def build_server(args) -> tuple[ThreadingHTTPServer, InferenceEngine]:
     from deepcoro_clip_tpu_torch.flagship import flagship_config, tiny_config
 
@@ -280,8 +287,7 @@ def build_server(args) -> tuple[ThreadingHTTPServer, InferenceEngine]:
         video_params = jax_tree_to_state_dict(load_params_npz(args.params))
 
     if args.text_bank:
-        bank = np.load(args.text_bank, allow_pickle=True)
-        bank_emb, bank_texts = bank["text_embeddings"], bank["texts"]
+        bank_emb, bank_texts = load_text_bank(args.text_bank)
     else:  # wire/latency smoke without a bank
         r = np.random.default_rng(0)
         bank_emb = r.normal(size=(args.demo_bank, cfg.embedding_dim))

@@ -21,7 +21,12 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from deepcoro_clip_tpu_torch.convert import jax_tree_to_state_dict, module_to_jax_tree
+from deepcoro_clip_tpu_torch.convert import (
+    flatten_tree,
+    jax_tree_to_state_dict,
+    module_to_jax_tree,
+    state_dict_to_jax_tree,
+)
 from deepcoro_clip_tpu_torch.device import resolve_device
 from deepcoro_clip_tpu_torch.losses.heads import multi_head_loss
 from deepcoro_clip_tpu_torch.models.mil import MultiInstanceLinearProbing
@@ -83,6 +88,26 @@ def merge_encoder_params(new: Any, old: Any) -> Any:
     return arr if arr.shape == np.asarray(new).shape else new
 
 
+def encoder_tree(video_model, encoder_params: Mapping) -> Mapping:
+    """``encoder_params`` as a JAX tree: a tree (under ``"params"`` or not)
+    as it is, a flat dict of tensors named as ``video_model``'s parameters
+    (a port checkpoint's ``video_encoder.*`` entries without the prefix)
+    renamed by ``video_model``'s layer types."""
+    if set(encoder_params) == {"params"}:
+        encoder_params = encoder_params["params"]
+    if encoder_params and all(isinstance(v, torch.Tensor) for v in encoder_params.values()):
+        return state_dict_to_jax_tree(encoder_params, video_model)
+    return encoder_params
+
+
+def loaded_encoder_leaves(video_model, encoder_params: Mapping) -> list:
+    """The paths of ``video_model``'s leaves that ``encoder_params`` (as
+    ``build_probe_bundle`` takes it) replaces: same path, same shape."""
+    have = flatten_tree(encoder_tree(video_model, encoder_params))
+    return sorted(k for k, v in flatten_tree(module_to_jax_tree(video_model)).items()
+                  if k in have and have[k].shape == v.shape)
+
+
 def probe_params(video_model, mil_model) -> Dict[str, torch.Tensor]:
     """The flat training dict over the models' own parameters."""
     params = {f"video_encoder.{k}": p for k, p in video_model.named_parameters()}
@@ -99,6 +124,7 @@ def build_probe_bundle(cfg, seed: int = 0, steps_per_epoch: int = 100,
     the initial ``TrainState`` on ``device`` (CUDA unless the caller passes
     ``"cpu"``). ``encoder_params``: a pretrained video-encoder tree (flax
     names, e.g. ``convert.module_to_jax_tree`` of a CLIP run's video model),
+    or a flat dict of tensors under the port's names (``encoder_tree``),
     transplanted where paths and shapes match. ``fused_outproj``: see
     ``video_encoder_from_config``."""
     dev = resolve_device(device)
@@ -108,9 +134,8 @@ def build_probe_bundle(cfg, seed: int = 0, steps_per_epoch: int = 100,
         cfg, aggregate=False, per_video=not cfg.hierarchical_tokens,
         fused_outproj=fused_outproj), seed)
     if encoder_params is not None:
-        if set(encoder_params) == {"params"}:
-            encoder_params = encoder_params["params"]
-        merged = merge_encoder_params(module_to_jax_tree(video_model), encoder_params)
+        merged = merge_encoder_params(module_to_jax_tree(video_model),
+                                      encoder_tree(video_model, encoder_params))
         video_model.load_state_dict(jax_tree_to_state_dict(merged), strict=True)
     video_model = video_model.to(dev)
     mil_model = init_params(mil_from_config(cfg), seed + 1).to(dev)

@@ -1117,3 +1117,118 @@ def test_long_calls_run_the_hopper_kernels(cuda):
         assert _ran(bwd, "bwd_rows_kernel") and _ran(bwd, f"flash_long_bwd_dkv_kernel<{dh}>")
         assert _ran(bwd, f"flash_long_bwd_dq_kernel<{dh}>")
         assert not any("sm90" in n or "short" in n or "f32" in n for n in ours), ours
+
+
+# --------------------------------------------------------------------------- #
+# the probing run and the contrastive inference through main, at tiny width
+
+TINY_RUN = dict(frames=4, resize=32, batch_size=2, num_workers=1, multi_video=True,
+                num_videos=2, vit_dim=128, vit_depth=1, vit_heads=1, vit_patch=[2, 16, 16],
+                vit_pool_stages=[], embedding_dim=16, num_heads=2, aggregator_depth=1,
+                dropout=0.0, precision="bf16", use_pallas_attention=True, seed=0,
+                dataset_mean=[120.0] * 3, dataset_std=[60.0] * 3, use_wandb=False)
+
+
+def _tiny_workspace(root):
+    import numpy as np
+
+    from deepcoro_clip_tpu_torch.data.csv_utils import write_csv
+
+    r = np.random.default_rng(0)
+    rows = []
+    for i in range(12):
+        p = root / f"clip{i}.npy"
+        np.save(p, r.integers(0, 255, size=(4, 32, 32, 3)).astype(np.uint8))
+        rows.append({"FileName": str(p), "StudyInstanceUID": f"S{i // 2}",
+                     "Split": "train" if i < 8 else "val", "Report": f"report {i % 3}",
+                     "stenosis": float(i * 5), "cto": float(i % 2)})
+    write_csv(root / "data.csv", list(rows[0]), rows)
+    return root / "data.csv"
+
+
+def test_probing_run_on_the_card(cuda, tmp_path, monkeypatch):
+    """The probing runner through main on the card (the backbone at one head
+    of 128, so K1 / K5 take it): with DEEPCORO_FUSED_OUTPROJ=1 a train step
+    launches K5 (one per block) and the head's fp32 K3/K4, no K1; the
+    inference's study embeddings through K5 and through K1 + F.linear agree
+    to cosine 0.999."""
+    import numpy as np
+
+    from deepcoro_clip_tpu_torch.configs import LinearProbingConfig
+    from deepcoro_clip_tpu_torch.main import main
+
+    data = _tiny_workspace(tmp_path)
+    kw = dict(TINY_RUN, pipeline_project="DeepCORO_video_linear_probing",
+              data_filename=str(data), epochs=1, pooling_mode="attention+cls_token",
+              head_structure={"stenosis": 1, "cto": 1},
+              loss_structure={"stenosis": "huber", "cto": "bce_logit"},
+              head_task={"stenosis": "regression", "cto": "binary"}, attention_hidden=8,
+              ci_n_bootstrap=20, save_embeddings=True)
+    monkeypatch.setenv("DEEPCORO_FUSED_OUTPROJ", "1")
+    n5, n1 = flash_attention_packed.proj_launches, flash_attention_packed.launches
+    n3, n4 = flash_attention.launches, flash_attention.bwd_launches
+    res = main(config=LinearProbingConfig.from_dict(dict(kw, output_dir=str(tmp_path / "t"))))
+    assert np.isfinite(res["history"][0]["loss"])
+    # 2 train steps and 1 validation batch, one block
+    assert flash_attention_packed.proj_launches - n5 == 3
+    assert flash_attention_packed.launches == n1
+    assert (flash_attention.launches - n3, flash_attention.bwd_launches - n4) == (3, 2)
+    emb = {}
+    for switch in ("1", "0"):
+        monkeypatch.setenv("DEEPCORO_FUSED_OUTPROJ", switch)
+        out = tmp_path / f"infer{switch}"
+        r = main(config=LinearProbingConfig.from_dict(dict(
+            kw, output_dir=str(out), run_mode="inference", split_filter="all")))
+        assert r["rows"] == 6
+        (npz,) = out.rglob("study_embeddings.npz")
+        emb[switch] = torch.from_numpy(np.load(npz)["embeddings"])
+    assert flash_attention_packed.launches > n1  # the switch off: K1
+    cos = torch.nn.functional.cosine_similarity(emb["1"], emb["0"], dim=1)
+    assert float(cos.min()) >= 0.999
+
+
+def test_clip_inference_on_the_card(cuda, tmp_path):
+    """The contrastive inference through main on the card: one row a study,
+    K1 per block and batch, and the top-1 of each study equal to the plain
+    attention's with the same weights where the two best scores are 1e-3
+    apart."""
+    import csv
+    import json
+
+    import numpy as np
+
+    from deepcoro_clip_tpu_torch.configs import ClipConfig
+    from deepcoro_clip_tpu_torch.main import main
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+
+    data = _tiny_workspace(tmp_path)
+    r = np.random.default_rng(1)
+    np.savez(tmp_path / "bank.npz", text_embeddings=r.normal(size=(8, 16)).astype(np.float32))
+    (tmp_path / "meta.csv").write_text("x,y\n" + "".join(f"{i},{'ab'[i % 2]}\n"
+                                                          for i in range(8)))
+    cfg = ClipConfig.from_dict(dict(
+        TINY_RUN, pipeline_project="DeepCORO_clip", run_mode="inference",
+        data_filename=str(data), split_column="none", output_dir=str(tmp_path / "o"),
+        text_dim=64, text_depth=1, text_heads=1, text_vocab_size=512, max_text_length=16,
+        text_embeddings_path=str(tmp_path / "bank.npz"), topk=3,
+        metadata_path=str(tmp_path / "meta.csv"),
+        inference_results_path=str(tmp_path / "inference")))
+    n1 = flash_attention_packed.launches
+    assert main(config=cfg)["inference_rows"] == 6
+    assert flash_attention_packed.launches - n1 == 3  # 3 batches, one block
+    with open(tmp_path / "inference" / "averaged_metadata.csv") as f:
+        rows = list(csv.DictReader(f))
+    runner = VideoContrastiveLearningRunner(cfg, output_dir=tmp_path / "plain")
+    for m in runner.bundle.video_model.modules():
+        if hasattr(m, "use_flash"):
+            m.use_flash = False
+    v = np.concatenate([runner.video_embeddings(b) for b in runner.loaders["inference"]])
+    bank = np.load(tmp_path / "bank.npz")["text_embeddings"]
+    sim = (v / np.linalg.norm(v, axis=1, keepdims=True)) @ (
+        bank / np.linalg.norm(bank, axis=1, keepdims=True)).T
+    for b, row in enumerate(rows):
+        order = np.argsort(-sim[b])
+        got = json.loads(row["topk_indices"])
+        if sim[b, order[0]] - sim[b, order[1]] > 1e-3:
+            assert got[0] == int(order[0])
+        assert abs(json.loads(row["topk_scores"])[0] - sim[b, order[0]]) <= 1e-2

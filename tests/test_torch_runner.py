@@ -310,6 +310,28 @@ def test_shipped_clip_yaml_parses_as_in_jax(path):
     (dict(siglip_sampler="single_head", siglip_texts_path="texts.csv"), "siglip_sampler"),
 ])
 def test_unported_paths_raise_through_main(workspace, over, match):
+    """What the runner does not run yet raises, naming it. ``run_mode:
+    inference`` is ported now: its case runs it (one row a clip, the
+    averaged metadata of a seeded bank; tests/test_torch_inference.py holds
+    it against the JAX runner)."""
+    if over.get("run_mode") == "inference":
+        r = np.random.default_rng(1)
+        np.savez(workspace / "bank.npz", text_embeddings=r.normal(size=(6, 16)))
+        write_csv(workspace / "meta.csv", ["grade", "finding"],
+                  [{"grade": float(i), "finding": "ab"[i % 2]} for i in range(6)], sep=",")
+        # split_column names no column of the manifest: every clip is read
+        over = dict(over, split_column="Mode", data_filename=str(workspace / "data.csv"),
+                    dataset_mean=[120.0] * 3, dataset_std=[60.0] * 3, topk=3,
+                    text_embeddings_path=str(workspace / "bank.npz"),
+                    metadata_path=str(workspace / "meta.csv"),
+                    inference_results_path=str(workspace / "inference"))
+        path = _write_yaml(workspace / "inference.yaml",
+                           _cfg(workspace, output_dir=str(workspace / "unported"), **over))
+        result = main(["--base_config", str(path), "--device", "cpu"])
+        rows = (workspace / "inference" / "averaged_metadata.csv").read_text().splitlines()
+        assert result["inference_rows"] == 12 and len(rows) == 13
+        assert rows[0] == "path,topk_indices,topk_scores,grade,finding"
+        return
     path = _write_yaml(workspace / "unported.yaml",
                        _cfg(workspace, output_dir=str(workspace / "unported"), **over))
     with pytest.raises(NotImplementedError, match=match):
