@@ -263,11 +263,34 @@ Phases, each printing one line (or a few) before the last:
    neighbouring scores are more than 1e-3 apart, scores within 1e-2, each
    row's string the smallest of its tied modes; bank texts/s, studies/s,
    peak memory;
+29. deployment (phase_deployment): (a) serve --checkpoint from phase 22's
+   checkpoint at its config, multi-video, num_videos 10, max_batch 4, a
+   1000 x 512 bank that generate_embeddings writes from the same checkpoint
+   over synthetic reports: concurrent /retrieve requests, one /embed, /stats,
+   12 K1 + 2 K3 a dispatch, every answer bit-equal to an InferenceEngine
+   given the same tree; (b) the retrieval artifact of the same checkpoint and
+   bank (serving.export_retrieval_artifact): its graph names K1's and K3's
+   operators and no attention taken apart, loaded in a fresh
+   RetrievalArtifact and served through serve --artifact, 12 K1 + 2 K3 a
+   dispatch, top-k, scores and embeddings against the engine, swap_params
+   with phase 22's epoch-0 checkpoint against that checkpoint's engine, the
+   CPU refused; (c) the probing artifact of phase 27's checkpoint at
+   stenosis_config.yaml with the fused projection (12 K5 + 1 fp32 K3 a
+   batch) and without (12 K1 + 1 K3), its logits against the restored
+   runner's inference on the same studies, predict's activations; (d)
+   python -m deepcoro_clip_tpu_torch.external_validation on a CSV of phase
+   27's validation clips in the documented template columns (with view,
+   contrast and stent columns that drop known rows), from phase 27's
+   checkpoint: one prediction a surviving study, equal to a restored runner
+   on the runtime manifest; once more with the same checkpoint as the
+   filter model; (e) dispatch p50/p95 of the artifact and the engine,
+   export and load seconds, artifact bytes, with the card's name and power
+   limit;
 then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6, and
 the long K3 and K4 kernels an entry each; K3 and K4 list their short and
 long kernels and carry phase 21's rows; every kernel carries the launches
-of phases 22 to 25's and 27 and 28's runs (K5's "launches" are phase 27's
-train run's), K3 and K4 their shapes; the long entries their launches over
+of phases 22 to 25's and 27 and 28's runs and of phase 29's paths (K5's
+"launches" are phase 27's train run's), K3 and K4 their shapes; the long entries their launches over
 phases 22 to 25's runs and the bank's, their row at the SigLIP bank's mask
 and every long row of phases 22 to 26).
 
@@ -2883,18 +2906,23 @@ def _launches(torch, fn, calls: int = 10) -> list:
     machine the profiler now and then traces no device event in a short
     window, or drops one (9 kernels of 10 one-kernel calls; once two empty
     windows and then such a one in a row). So the window holds several
-    calls and is traced again, up to TRACE_TRIES times, when it comes back empty,
-    or when it is uneven only because the profiler saw fewer events of a
-    port kernel than the wrappers' counters say were launched in the window
-    (each port kernel runs once a wrapper launch). Any other uneven window
-    fails the check."""
+    calls and is traced again, up to TRACE_TRIES times, when it comes back empty
+    (then with twice the calls, up to 16 times as many: phase 26 once traced
+    seven empty windows of two calls in a row), when it holds fewer port
+    kernels than the wrappers counted launches in the window (each launch
+    runs at least one; once the profiler kept a mask conversion of both
+    calls and dropped both long K3 forwards, an even window that read as a
+    call without its kernel), or when it is uneven
+    only because the profiler saw fewer events of a port kernel than the
+    wrappers' counters say were launched in the window (each port kernel
+    runs once a wrapper launch). Any other uneven window fails the check."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    tries = TRACE_TRIES
+    tries, most = TRACE_TRIES, 16 * calls
     for attempt in range(1, tries + 1):
         before = sum(_kernel_counts().values())
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2906,9 +2934,16 @@ def _launches(torch, fn, calls: int = 10) -> list:
             (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
              and "Memcpy" not in e.name and "Memset" not in e.name),
             key=lambda e: e.time_range.start)]
+        traced = sum(n.startswith(PORT_KERNELS) for n in names)
         if not names:
             print(f"launches: no device event traced in {calls} calls (the wrappers "
                   f"counted {launched} launches)", flush=True)
+            calls = min(2 * calls, most)
+            continue
+        if traced < launched:
+            print(f"launches: {traced} port kernels traced in {calls} calls, fewer than "
+                  f"the {launched} launches the wrappers counted: a dropped profiler "
+                  f"event" + (", traced again" if attempt < tries else ""), flush=True)
             continue
         if len(names) % calls == 0:
             break
@@ -2923,8 +2958,9 @@ def _launches(torch, fn, calls: int = 10) -> list:
                  + (", traced again" if attempt < tries else "")), flush=True)
         if not dropped:
             break
-    check(len(names) % calls == 0, f"{len(names)} kernels in {calls} calls "
-                                   f"({launched} wrapper launches counted): {names}")
+    check(len(names) % calls == 0 and traced >= launched,
+          f"{len(names)} kernels in {calls} calls ({launched} wrapper launches counted, "
+          f"{traced} port kernels traced): {names}")
     return names[:len(names) // calls]
 
 
@@ -3223,7 +3259,9 @@ def phase_quality_run(torch, manifest: Path, keep: Optional[Path] = None) -> dic
     {"K1".."K4": launches of the run, "rows": (K3 row, K4 row) of the text
     tower's call, "aggregator_max_abs_err": (K3, K4) at the aggregator's
     call, "times": ...}. With ``keep`` the uninterrupted run's last
-    checkpoint is copied there (phases 27 and 28 start from it)."""
+    checkpoint is copied there (phases 27 to 29 start from it), and the run
+    stopped after epoch 0 leaves its checkpoint beside it as
+    ``quality_epoch0.pt`` (phase 29 swaps it into an artifact)."""
     from deepcoro_clip_tpu_torch.runners.common import batch_to_device
     from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
 
@@ -3238,7 +3276,8 @@ def phase_quality_run(torch, manifest: Path, keep: Optional[Path] = None) -> dic
               f"{manifest.name} (the rendered corpus), output_dir=<tmp>, epochs=2, "
               f"num_workers={QUALITY_WORKERS}; nothing else changed", flush=True)
         full, cut, resumed, counts, wall, peak_gib = _runs_through_main(
-            torch, "quality run", cfg, VideoContrastiveLearningRunner)
+            torch, "quality run", cfg, VideoContrastiveLearningRunner,
+            keep_cut=None if keep is None else keep.with_name("quality_epoch0.pt"))
         hist = full["history"]
         steps = QUALITY_TRAIN // 16
         n_epochs = len(hist)
@@ -3656,11 +3695,12 @@ PER_BANK_CHUNK = {"K1": 0, "K2": 0, "K3": 12, "K4": 0, "K5": 0, "K6": 0,
                   "K3 long": 12, "K4 long": 0}
 
 
-def _runs_through_main(torch, label: str, cfg, runner):
+def _runs_through_main(torch, label: str, cfg, runner, keep_cut: Optional[Path] = None):
     """``cfg(name, **over)``'s run through main, counted from 0 and its peak
     memory read; a run of it stopped after epoch 0 (``runner.train`` cut at
     ``end_epoch=1``, as a killed run would stop) and that run resumed.
-    Returns (full, cut, resumed, counts, wall seconds, peak GiB)."""
+    ``keep_cut``: the stopped run's checkpoint is copied there before the
+    resume. Returns (full, cut, resumed, counts, wall seconds, peak GiB)."""
     from deepcoro_clip_tpu_torch.main import main
 
     torch.cuda.synchronize()
@@ -3678,6 +3718,8 @@ def _runs_through_main(torch, label: str, cfg, runner):
         cut = main(config=cfg("cut"))
     finally:
         runner.train = train
+    if keep_cut is not None:
+        shutil.copyfile(Path(cut["output_dir"]) / "checkpoints" / "checkpoint.pt", keep_cut)
     resumed = main(config=cfg("cut", resume_training=True, checkpoint=cut["output_dir"]))
     print(f"{label}: main took {wall:.1f} s for 2 epochs (set-up, dataset statistics and "
           f"checkpoint writes included) | {CARD}", flush=True)
@@ -4347,7 +4389,8 @@ def phase_probing_run(torch, manifest: Path, backbone: Path, tmp: Path) -> dict:
             os.environ["DEEPCORO_FUSED_OUTPROJ"] = switch
     torch.cuda.empty_cache()
     return {"counts": counts, "val_counts": val_counts, "infer_counts": infer_counts,
-            "times": times}
+            "times": times, "studies": studies, "stats": stats,
+            "checkpoint": Path(full["output_dir"]) / "checkpoints"}
 
 
 # --------------------------------------------------------------------------- #
@@ -4585,6 +4628,446 @@ def phase_clip_inference(torch, manifest: Path, backbone: Path, tmp: Path) -> di
 
 
 # --------------------------------------------------------------------------- #
+# phase 29: deployment: serve --checkpoint, the frozen artifacts (torch.export
+# programs whose attention is the port's operators), external validation
+
+DEPLOY_BANK = 1000  # texts of the served bank
+DEPLOY_REQUESTS = 8  # concurrent /retrieve requests a server answers
+DEPLOY_TIMED = 20  # dispatches timed a side in (e)
+DEPLOY_MIN_COSINE = 0.9999  # artifact vs engine embeddings
+DEPLOY_PROBE_MIN_COSINE = 0.999  # artifact vs runner logits
+DEPLOY_PER_DISPATCH = CLIP_INFER_PER_BATCH  # 12 K1 + 2 K3 (the aggregator), as phase 4
+DEPLOY_DROP = {"main_structure": 2, "contrast_agent": 0}  # a dropped row's value
+
+
+def _deploy_bank(backbone: Path, tmp: Path) -> Path:
+    """A bank of DEPLOY_BANK distinct synthetic reports (synthetic_angio's
+    report_text of sample_findings, seed 0), written from phase 22's
+    checkpoint by generate_embeddings' main."""
+    from deepcoro_clip_tpu_torch import generate_embeddings
+    from deepcoro_clip_tpu_torch.data.csv_utils import write_csv
+    from deepcoro_clip_tpu_torch.data.synthetic_angio import report_text, sample_findings
+
+    texts, i = {}, 0
+    while len(texts) < DEPLOY_BANK:
+        texts.setdefault(report_text(sample_findings(i, 0), i, 0), i)
+        i += 1
+    # (two columns: the manifest reader takes a one-column file for a wrong separator)
+    write_csv(tmp / "deploy_reports.csv", ["Report", "video_id"],
+              [{"Report": t, "video_id": i} for t, i in texts.items()])
+    out = tmp / "deploy_bank.npz"
+    cfg = clip_inference_config(data_filename=str(tmp / "clip_studies.csv"),
+                                output_dir=str(tmp / "deploy" / "bank"),
+                                text_embeddings_path=str(out),
+                                metadata_path=str(tmp / "metadata.csv"),
+                                inference_results_path=str(tmp / "deploy" / "bank" / "inference"))
+    generate_embeddings.main(["--checkpoint", str(backbone), "--texts_csv",
+                              str(tmp / "deploy_reports.csv"), "--text_column", "Report",
+                              "--out", str(out)], config=cfg)
+    return out
+
+
+def _deploy_studies(tmp: Path, n: int, seed: int = 29) -> list:
+    """``n`` studies of 1 to 10 of the corpus' clips (sizes and clips drawn)."""
+    from deepcoro_clip_tpu_torch.data.csv_utils import read_csv_with_fallback
+
+    clips = [r["FileName"] for r in read_csv_with_fallback(tmp / "clip_studies.csv").rows]
+    rng = np.random.default_rng(seed)
+    return [[clips[int(j)] for j in rng.choice(len(clips), int(rng.integers(1, 11)),
+                                               replace=False)] for _ in range(n)]
+
+
+def _serve_round(httpd, studies) -> tuple:
+    """Concurrent /retrieve requests for ``studies``, one /embed of the first
+    and /stats, launches counted from 0 just before them; returns (the
+    retrieve answers, the embed answer, stats, counts, dispatches)."""
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        b0 = httpd.batcher.stats["batches"]
+        _zero_kernel_counts()
+        with concurrent.futures.ThreadPoolExecutor(len(studies)) as ex:
+            futs = [ex.submit(_post, port, "/retrieve", {"videos": v}) for v in studies]
+            answers = [f.result() for f in futs]
+        embed = _post(port, "/embed", {"videos": studies[0]})
+        counts = {**_kernel_counts(), **_long_counts()}
+        code, stats = _get(port, "/stats")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    check(code == 200 and all(c == 200 for c, _ in answers + [embed]),
+          f"deployment: an answer failed: {[c for c, _ in answers + [embed]]}")
+    return answers, embed[1], stats, counts, stats["batches"] - b0
+
+
+def _check_answers(label: str, answers, embed, ref, studies, texts) -> None:
+    """Each /retrieve answer's top-k against ``ref``'s (an engine's or an
+    artifact's) on the same study alone, and /embed's embedding, bit for
+    bit (a row's numbers do not depend on the studies it is batched with:
+    every dispatch is padded to max_batch)."""
+    worst = 0.0
+    for (_, out), paths in zip(answers, studies):
+        study, mask = ref.load_study(paths)
+        _, scores, idx = ref.infer_batch(study[None], mask[None])
+        got = [t["text"] for t in out["topk"]]
+        check(got == [texts[int(j)] for j in idx[0]] and out["n_clips"] == len(paths),
+              f"{label}: a top-k differs from the reference's")
+        worst = max(worst, float(np.abs(np.asarray([t["score"] for t in out["topk"]])
+                                        - scores[0]).max()))
+    study, mask = ref.load_study(studies[0])
+    emb = ref.infer_batch(study[None], mask[None])[0][0]
+    got = np.asarray(embed["embedding"], np.float32)
+    print(f"{label}: {len(answers)} top-k lists equal to the reference's, scores max|d| "
+          f"{worst:.3e}; /embed bit-equal {bool(np.array_equal(got, emb))}", flush=True)
+    check(worst == 0.0 and np.array_equal(got, emb), f"{label}: answers differ from the "
+                                                     f"reference's (scores {worst})")
+
+
+def _times_ms(torch, fn, n: int) -> list:
+    """Host-clock times of ``n`` calls of ``fn`` after one warm call, sorted
+    (each call ends in a copy of its result to the host)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)
+
+
+def _p(ts, q: float) -> float:
+    return ts[min(len(ts) - 1, int(round(q * (len(ts) - 1))))]
+
+
+def _artifact_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.iterdir())
+
+
+def _per(counts: dict, per: dict, n: int, label: str) -> None:
+    want = {k: v * n for k, v in per.items()}
+    print(f"{label}: launches " + ", ".join(f"{k} {counts[k]} (predicted {want[k]})"
+                                           for k in want), flush=True)
+    check(counts == want, f"{label}: launches {counts}, predicted {want}")
+
+
+def _retrieval_deploy(torch, backbone: Path, tmp: Path, counts: dict, times: dict) -> None:
+    """(a), (b) and (e)'s retrieval half."""
+    from deepcoro_clip_tpu_torch import serve, serving
+    from deepcoro_clip_tpu_torch.serve import InferenceEngine, load_text_bank, load_video_params
+
+    t0 = time.perf_counter()
+    bank_path = _deploy_bank(backbone, tmp)
+    bank, texts = load_text_bank(bank_path)
+    texts = [str(t) for t in texts]
+    check(bank.shape == (DEPLOY_BANK, 512), f"deployment bank {bank.shape}")
+    print(f"deployment: a bank of {DEPLOY_BANK} distinct synthetic reports x 512 written "
+          f"from phase 22's checkpoint by generate_embeddings in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = quality_train_config(multi_video=True, num_videos=10)
+    args = ["--checkpoint", str(backbone.parent), "--ckpt_name", backbone.stem, "--port", "0",
+            "--num_videos", "10", "--max_batch", "4", "--top_k", "5", "--text_bank",
+            str(bank_path), "--batch_window_ms", "20"]
+    studies = _deploy_studies(tmp, DEPLOY_REQUESTS)
+
+    # (a) serve --checkpoint
+    httpd, engine = serve.build_server(serve.parse_args(args), cfg=quality_train_config())
+    study, mask = engine.load_study([])
+    engine.infer_batch(study[None], mask[None])  # warm
+    tree = load_video_params(backbone.parent, backbone.stem)
+    ref = InferenceEngine(cfg, bank, texts, max_batch=4, top_k=5, video_params=tree)
+    sd = engine.model.state_dict()
+    check(sd.keys() == tree.keys() and all(torch.equal(sd[k].cpu(), tree[k]) for k in tree),
+          "deployment: the served tower is not phase 22's video_encoder")
+    answers, embed, stats, c, batches = _serve_round(httpd, studies)
+    print(f"deployment (a) serve --checkpoint {backbone.name}: {len(tree)} video_encoder "
+          f"tensors loaded strictly; {len(studies)} concurrent /retrieve + 1 /embed in "
+          f"{batches} dispatches (avg occupancy {stats['avg_occupancy']}, dispatch p50 "
+          f"{stats['dispatch_p50_ms']} ms host clock) | {CARD}", flush=True)
+    _per(c, DEPLOY_PER_DISPATCH, batches, "deployment (a) serve --checkpoint")
+    counts["serve_checkpoint"] = c
+    _check_answers("deployment (a) against an InferenceEngine on the same tree", answers,
+                   embed, ref, studies, texts)
+    del engine, httpd
+    torch.cuda.empty_cache()
+
+    # (b) the retrieval artifact
+    art_dir = tmp / "deploy" / "retrieval"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = serving.export_retrieval_artifact(cfg, art_dir, bank, texts, max_batch=4, top_k=5,
+                                             video_params=tree)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = serving.RetrievalArtifact(art_dir)
+    load_s = time.perf_counter() - t0
+    ops = serving.program_ops(art.program)
+    bad = serving.decomposed_attention(art.program)
+    nbytes = _artifact_bytes(art_dir)
+    print(f"deployment (b) retrieval artifact: exported in {export_s:.2f} s, loaded in "
+          f"{load_s:.2f} s, {nbytes} bytes ({', '.join(f'{p.name} {p.stat().st_size}' for p in sorted(art_dir.iterdir()))}); "
+          f"platforms {meta['platforms']} {meta['cuda_arch']}, torch {meta['torch_version']}; "
+          f"kernels in the graph {meta['kernels']}, operators "
+          f"{ {k: v for k, v in ops.items() if k.startswith('deepcoro')} }, softmax "
+          f"{ops.get('aten::softmax.int', 0)} (the aggregator's pooling), attention taken "
+          f"apart: {bad or 'none'} | {CARD}", flush=True)
+    check(meta["kernels"] == {"K1": 12, "K3": 2} and not bad
+          and ops.get("aten::softmax.int", 0) == 1,
+          f"deployment (b): graph kernels {meta['kernels']}, decomposed {bad}")
+    times.update(export_s=export_s, load_s=load_s, artifact_bytes=nbytes)
+    loaded = [art.load_study(p) for p in studies]
+    xs, ms = np.stack([a for a, _ in loaded]), np.stack([b for _, b in loaded])
+    emb_a, sc_a, idx_a = zip(*(art.infer_batch(xs[i:i + 4], ms[i:i + 4])
+                               for i in range(0, len(xs), 4)))
+    _zero_kernel_counts()
+    art.infer_batch(xs[:4], ms[:4])
+    c = {**_kernel_counts(), **_long_counts()}
+    _per(c, DEPLOY_PER_DISPATCH, 1, "deployment (b) artifact, one dispatch")
+    counts["retrieval_artifact"] = c
+    emb_r, sc_r, idx_r = zip(*(ref.infer_batch(xs[i:i + 4], ms[i:i + 4])
+                               for i in range(0, len(xs), 4)))
+    emb_a, sc_a, idx_a, emb_r, sc_r, idx_r = map(np.concatenate,
+                                                 (emb_a, sc_a, idx_a, emb_r, sc_r, idx_r))
+    cos = float(((emb_a * emb_r).sum(1) / (np.linalg.norm(emb_a, axis=1)
+                                           * np.linalg.norm(emb_r, axis=1))).min())
+    d_emb, d_sc = float(np.abs(emb_a - emb_r).max()), float(np.abs(sc_a - sc_r).max())
+    compared = agreed = 0
+    for b in range(len(idx_r)):
+        for j in range(idx_r.shape[1]):
+            gaps = [abs(sc_r[b, j] - sc_r[b, i]) for i in (j - 1, j + 1)
+                    if 0 <= i < idx_r.shape[1]]
+            if all(g > CLIP_INFER_TOPK_GAP for g in gaps):
+                compared += 1
+                agreed += int(idx_a[b, j] == idx_r[b, j])
+    bits = bool(np.array_equal(emb_a, emb_r) and np.array_equal(idx_a, idx_r))
+    print(f"deployment (b) artifact vs the in-process engine, {len(xs)} studies: embeddings "
+          f"min cosine {cos:.7f} (bar >= {DEPLOY_MIN_COSINE}), max|d| {d_emb:.3e}; scores "
+          f"max|d| {d_sc:.3e} (bar {CLIP_INFER_SCORE_ATOL}); top-5 ranks {agreed} of "
+          f"{compared} equal where neighbours are more than {CLIP_INFER_TOPK_GAP} apart; "
+          f"bit-equal {bits}", flush=True)
+    check(cos >= DEPLOY_MIN_COSINE and d_sc <= CLIP_INFER_SCORE_ATOL and agreed == compared,
+          f"deployment (b): cosine {cos}, scores {d_sc}, ranks {agreed}/{compared}")
+
+    # serve --artifact
+    httpd, served = serve.build_server(serve.parse_args(["--artifact", str(art_dir),
+                                                         "--port", "0",
+                                                         "--batch_window_ms", "20"]))
+    check(isinstance(served, serving.RetrievalArtifact), "serve --artifact built an engine")
+    answers, embed, stats, c, batches = _serve_round(httpd, studies)
+    _per(c, DEPLOY_PER_DISPATCH, batches, "deployment (b) serve --artifact")
+    counts["serve_artifact"] = c
+    _check_answers("deployment (b) serve --artifact against the artifact alone", answers, embed,
+                   art, studies, texts)
+    del served, httpd
+
+    # swap_params: phase 22's epoch-0 checkpoint
+    epoch0 = backbone.with_name("quality_epoch0.pt")
+    tree0 = load_video_params(epoch0.parent, epoch0.stem)
+    art.swap_params(tree0)
+    ref0 = InferenceEngine(cfg, bank, texts, max_batch=4, top_k=5, video_params=tree0)
+    a0, r0 = art.infer_batch(xs[:4], ms[:4]), ref0.infer_batch(xs[:4], ms[:4])
+    moved = float(np.abs(a0[0] - emb_a[:4]).max())
+    same = all(np.array_equal(a, b) for a, b in zip(a0, r0))
+    print(f"deployment (b) swap_params with {epoch0.name}: outputs bit-equal to that "
+          f"checkpoint's engine {same}, embeddings moved by max|d| {moved:.3e} from the "
+          "epoch-1 tower's", flush=True)
+    check(same and moved > 1e-3, f"deployment (b): swap_params (equal {same}, moved {moved})")
+    try:
+        serving.RetrievalArtifact(art_dir, device="cpu")
+        refused = False
+    except ValueError as e:
+        refused = "exported for" in str(e)
+    print(f"deployment (b) the CUDA artifact on the CPU: refused {refused}", flush=True)
+    check(refused, "deployment (b): a CUDA artifact loaded on the CPU")
+    del ref0
+    art.swap_params(tree)
+
+    # (e) dispatch times: the artifact and the engine, full batches of 4
+    ta = _times_ms(torch, lambda: art.infer_batch(xs[:4], ms[:4]), DEPLOY_TIMED)
+    te = _times_ms(torch, lambda: ref.infer_batch(xs[:4], ms[:4]), DEPLOY_TIMED)
+    for name, ts in (("artifact", ta), ("engine", te)):
+        times[f"{name}_dispatch_p50_ms"], times[f"{name}_dispatch_p95_ms"] = (_p(ts, .5),
+                                                                               _p(ts, .95))
+    print(f"deployment (e) dispatch of 4 studies x 10 clips (host clock, H2D and D2H "
+          f"included, {DEPLOY_TIMED} each): artifact p50 {_p(ta, .5):.2f} ms p95 "
+          f"{_p(ta, .95):.2f} ms, in-process engine p50 {_p(te, .5):.2f} ms p95 "
+          f"{_p(te, .95):.2f} ms; export {export_s:.2f} s, load {load_s:.2f} s, artifact "
+          f"{nbytes} bytes | {CARD}", flush=True)
+    del art, ref
+    torch.cuda.empty_cache()
+
+
+def _ev_input(probing: dict, tmp: Path) -> tuple:
+    """The input CSV of (d): phase 27's validation studies, a row a clip, in
+    the documented template's columns (ids, per-segment cells, DICOMPath ->
+    the clip's .npy), with main_structure / contrast_agent / stent_presence
+    columns that mark known rows to drop: clip 1 of every third study
+    non-coronary, clip 2 of every fourth without contrast, a PCI at clip 0
+    of study 5 (its later clips POST_PCI). Returns (path, the (study, clip)
+    pairs the reference filter keeps, the number of rows)."""
+    from deepcoro_clip_tpu_torch import external_validation as ev
+    from deepcoro_clip_tpu_torch.data.csv_utils import read_csv_with_fallback, write_csv
+
+    ev.write_input_template(tmp / "template.csv")
+    template = read_csv_with_fallback(tmp / "template.csv")
+    blank = {c: template.rows[0][c] for c in template.columns}
+    rows, keep, seen = [], [], {}
+    for r in read_csv_with_fallback(probing["studies"]).rows:
+        if r["Split"] != "val":
+            continue
+        sid = r["StudyInstanceUID"]
+        s, j = int(sid[-3:]), seen.setdefault(sid, 0)
+        seen[sid] += 1
+        row = dict(blank, ss_patient_id=f"P{s}", ss_event_cath_id=sid, DICOMPath=r["FileName"],
+                   main_structure=DEPLOY_DROP["main_structure"] if (s % 3 == 0 and j == 1)
+                   else j % 2, contrast_agent=DEPLOY_DROP["contrast_agent"]
+                   if (s % 4 == 1 and j == 2) else 1, stent_presence=int(s == 5 and j == 0))
+        rows.append(row)
+        if not (s == 5 or (s % 3 == 0 and j == 1) or (s % 4 == 1 and j == 2)):
+            keep.append((sid, r["FileName"]))
+    path = tmp / "ev_input.csv"
+    write_csv(path, list(rows[0]), rows, sep=",")
+    return path, keep, len(rows)
+
+
+def _restored_runner(cfg, ckpt: Path, out: Path):
+    from deepcoro_clip_tpu_torch.runners.linear_probing import LinearProbingRunner
+    from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
+
+    runner = LinearProbingRunner(cfg, output_dir=out)
+    runner.state = CheckpointManager(ckpt).restore(runner.state)
+    return runner
+
+
+def _probing_deploy(torch, probing: dict, tmp: Path, counts: dict, times: dict) -> None:
+    """(c) and (d)."""
+    from deepcoro_clip_tpu_torch import external_validation as ev
+    from deepcoro_clip_tpu_torch import serving
+    from deepcoro_clip_tpu_torch.data.csv_utils import read_csv_with_fallback
+    from deepcoro_clip_tpu_torch.data.patch_wire import patchify_videos
+    from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
+
+    ckpt, stats = probing["checkpoint"], probing["stats"]
+    heads = ("stenosis", "stenosis_binary", "calcif_binary", "CTO")
+    _fused_switch(True)
+    cfg = probe_config(data_filename=str(probing["studies"]), run_mode="inference",
+                       split_filter="val", output_dir=str(tmp / "deploy" / "runner"),
+                       **stats)
+    runner = _restored_runner(cfg, ckpt, tmp / "deploy" / "runner")
+    batches = list(runner.loaders["inference"])
+    # the artifact takes the patch-major wire; the YAML's loader sends
+    # whole clips, which the encoder patchifies on the card (the same bytes)
+    wire = [patchify_videos(b["videos"], tuple(cfg.vit_patch)) for b in batches]
+    rows = runner.inference()
+    ref = np.asarray([[r[h] for h in heads] for r in rows], np.float64)
+    params = CheckpointManager(ckpt).load()["params"]
+    n_batches = len(batches)
+    for label, fused, per in (("K5", True, PROBE_RUN_PER_BATCH),
+                              ("K1", False, PROBE_RUN_PER_BATCH_K1)):
+        out = tmp / "deploy" / f"probing_{label}"
+        t0 = time.perf_counter()
+        meta = serving.export_probing_artifact(cfg, out, max_batch=cfg.batch_size,
+                                               probe_params=params, fused_outproj=fused)
+        export_s = time.perf_counter() - t0
+        art = serving.ProbingArtifact(out)
+        bad = serving.decomposed_attention(art.program)
+        want_k = {"K5": 12, "K3": 1} if fused else {"K1": 12, "K3": 1}
+        print(f"deployment (c) probing artifact, {label} (fused_outproj {fused}): exported "
+              f"in {export_s:.2f} s, {_artifact_bytes(out)} bytes; kernels in the graph "
+              f"{meta['kernels']}, attention taken apart: {bad or 'none'}", flush=True)
+        check(meta["kernels"] == want_k and meta["fused_outproj"] == fused and not bad,
+              f"deployment (c) {label}: graph kernels {meta['kernels']}, decomposed {bad}")
+        _zero_kernel_counts()
+        got = [art.infer_batch(x, b["video_mask"]) for x, b in zip(wire, batches)]
+        c = {**_kernel_counts(), **_long_counts()}
+        _per(c, per, n_batches, f"deployment (c) probing artifact {label}, {n_batches} "
+                                "batches")
+        counts[f"probing_artifact_{label}"] = c
+        logits = np.concatenate([np.concatenate([g[h] for h in heads], 1) for g in got])
+        cos = float((logits * ref).sum() / (np.linalg.norm(logits) * np.linalg.norm(ref)))
+        d = float(np.abs(logits - ref).max())
+        print(f"deployment (c) {label}: logits of {len(ref)} studies x {len(heads)} heads "
+              f"against the restored runner's inference (K5): cosine {cos:.7f} (bar >= "
+              f"{DEPLOY_PROBE_MIN_COSINE}), max|d| {d:.3e}, bit-equal "
+              f"{bool(d == 0.0)}", flush=True)
+        check(cos >= DEPLOY_PROBE_MIN_COSINE, f"deployment (c) {label}: cosine {cos}")
+        probs = art.predict(wire[0], batches[0]["video_mask"])
+        acts = {h: (1 / (1 + np.exp(-got[0][h])) if cfg.head_task[h] == "binary"
+                    else got[0][h]) for h in heads}
+        check(all(np.allclose(probs[h], acts[h], rtol=1e-6, atol=0) for h in heads),
+              f"deployment (c) {label}: predict's activations")
+        times[f"probing_{label}_export_s"] = export_s
+        del art
+    print("deployment (c) predict: sigmoid on the binary heads "
+          f"({', '.join(h for h in heads if cfg.head_task[h] == 'binary')}), identity on "
+          f"the regression head (stenosis)", flush=True)
+    del runner, batches
+
+    # (d) external validation
+    src, keep, n_rows = _ev_input(probing, tmp)
+    ev_cfg = probe_config(**stats)
+    results = {}
+    for label, filt in (("plain", None), ("filter model", ev_cfg)):
+        out = tmp / "deploy" / f"ev_{len(results)}"
+        argv = ["--input_csv", str(src), "--checkpoint", str(ckpt), "--output_dir", str(out)]
+        if filt is not None:
+            argv += ["--filter_checkpoint", str(ckpt)]
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        preds = ev.main(argv, config=ev_cfg, filter_config=filt)
+        seconds = time.perf_counter() - t0
+        c = {**_kernel_counts(), **_long_counts()}
+        counts[f"external_validation_{'filter' if filt else 'plain'}"] = c
+        man = read_csv_with_fallback(out / "runtime_manifest.csv").rows
+        kept = [(r["StudyInstanceUID"], r["FileName"]) for r in man]
+        file_rows = read_csv_with_fallback(out / "predictions.csv").rows
+        studies = sorted({s for s, _ in keep})
+        print(f"deployment (d) external_validation ({label}): {len(kept)} of the input's "
+              f"{n_rows} rows kept by the reference filter (predicted {len(keep)}), "
+              f"{len(file_rows)} predictions for {len(studies)} studies in {seconds:.1f} s "
+              f"(runner set-up included); launches K5 {c['K5']}, K3 {c['K3']} | {CARD}",
+              flush=True)
+        check(kept == keep and [r["study_id"] for r in file_rows] == studies,
+              f"deployment (d) {label}: kept {len(kept)} rows, predicted {len(keep)}")
+        check(c["K5"] > 0 and c["K3"] > 0, f"deployment (d) {label}: launches {c}")
+        results[label] = preds
+        times[f"external_validation_{'filter' if filt else 'plain'}_s"] = seconds
+    rcfg = probe_config(data_filename=str(tmp / "deploy" / "ev_0" / "runtime_manifest.csv"),
+                        run_mode="inference", output_dir=str(tmp / "deploy" / "ev_ref"),
+                        **stats)
+    by_hand = _restored_runner(rcfg, ckpt, tmp / "deploy" / "ev_ref").inference()
+    same = results["plain"] == by_hand == results["filter model"]
+    print(f"deployment (d) predictions equal to a restored runner's inference on the "
+          f"runtime manifest, and with the same checkpoint as the filter model: {same}",
+          flush=True)
+    check(same, "deployment (d): the predictions differ from the runner's")
+    torch.cuda.empty_cache()
+
+
+def phase_deployment(torch, backbone: Path, probing: dict, tmp: Path) -> dict:
+    """Phase 29 on phase 22's checkpoint ``backbone`` (and its epoch-0 one
+    beside it) and phase 27's ``probing`` run; returns {"counts": launches
+    of each path, "times": ...}."""
+    import os
+
+    counts: dict = {}
+    times: dict = {}
+    switch = os.environ.get("DEEPCORO_FUSED_OUTPROJ")
+    try:
+        _fused_switch(False)  # the retrieval tower: K1 + F.linear, as phase 4
+        _retrieval_deploy(torch, backbone, tmp, counts, times)
+        _probing_deploy(torch, probing, tmp, counts, times)
+    finally:
+        if switch is None:
+            os.environ.pop("DEEPCORO_FUSED_OUTPROJ", None)
+        else:
+            os.environ["DEEPCORO_FUSED_OUTPROJ"] = switch
+    return {"counts": counts, "times": times}
+
+
+# --------------------------------------------------------------------------- #
 # --compare: one run of an A B B A call against an older tree (copy this
 # script into it), where only what both trees have is measured
 
@@ -4818,7 +5301,7 @@ def main(argv) -> int:
 
 
 def run_all(torch) -> dict:
-    """Phases 2 to 28; returns the "kernels" line."""
+    """Phases 2 to 29; returns the "kernels" line."""
     build_kernels(torch, ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short",
                           "ring_attention"))
     for key, a in hopper_attrs().items():
@@ -4927,6 +5410,8 @@ def run_all(torch) -> dict:
         probing = phase_probing_run(torch, manifest, backbone, Path(corpus_root))
         torch.cuda.empty_cache()
         clip_inference = phase_clip_inference(torch, manifest, backbone, Path(corpus_root))
+        torch.cuda.empty_cache()
+        deployment = phase_deployment(torch, backbone, probing, Path(corpus_root))
     torch.cuda.empty_cache()
     long = phase_long_kernels(torch, siglip.pop("bank_mask"))
     for run, result in (("multitask", multitask), ("siglip", siglip),
@@ -4946,6 +5431,10 @@ def run_all(torch) -> dict:
         e["probing_inference_launches"] = {k: c[key]
                                            for k, c in probing["infer_counts"].items()}
         e["clip_inference_launches"] = clip_inference["counts"][key]
+    for key, e in zip(("K1", "K3", "K2", "K4", "K5", "K6"), kernels["kernels"]):
+        if key in ("K1", "K3", "K5"):  # phase 29's paths, each counted from 0
+            e["deployment_launches"] = {k: c[key] for k, c in deployment["counts"].items()}
+    kernels["deployment"] = deployment["times"]
     k5 = kernels["kernels"][4]
     k5["probe_step_launches"] = k5["launches"]  # phase 12's steps
     k5["launches"] = probing["counts"]["K5"]  # the probing run through main

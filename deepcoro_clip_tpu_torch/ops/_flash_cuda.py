@@ -28,7 +28,10 @@ through when a gradient is wanted, ``FlashAttentionProj`` the one of the
 fused projection (its backward is two matrix products and the same
 backward kernels). On a CUDA tensor their forward and backward launch the
 kernels or raise; on a CPU tensor they run the plain versions
-(``ops/attention.py``).
+(``ops/attention.py``). Without a gradient, ``attention`` and
+``attention_proj`` call the operators of ``ops/library.py``
+(``deepcoro::attention``, ``deepcoro::attention_proj``), whose kernels are
+``attention_forward`` and ``attention_proj_forward`` below.
 """
 
 from __future__ import annotations
@@ -808,13 +811,13 @@ class FlashAttentionProj(torch.autograd.Function):
 def attention(a, b, c, *, sin, cos, kv_mask, causal, scale, layout, H, counter):
     """Attention of one layout, through ``FlashAttention`` (or, for a short
     ``[B, H, L, Dh]`` call on the card, ``ShortAttention``) when a gradient
-    is wanted and straight through the forward otherwise (then no row
-    statistics are written or kept)."""
+    is wanted, and otherwise through the operator ``deepcoro::attention``
+    (``ops/library.py``: the forward without row statistics, which counts
+    on the layout's entry point; ``torch.export`` keeps it whole)."""
     wants_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (a, b, c))
     if not wants_grad:
-        return attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout,
-                                 H, counter, stats=False)[0]
+        return library.attention(a, b, c, sin, cos, kv_mask, causal, scale, layout, H)
     if layout == "heads" and a.is_cuda and is_short(False, a.shape[2], b.shape[2]):
         return ShortAttention.apply(a, b, c, sin, cos, kv_mask, causal, scale, counter)
     return FlashAttention.apply(a, b, c, sin, cos, kv_mask, causal, scale,
@@ -825,12 +828,17 @@ def attention_proj(a, b, c, wo, *, sin, cos, kv_mask, causal, scale, layout, H,
                    counter):
     """Packed attention followed by the projection ``wo`` ``[D, Dout]``, in
     one kernel on the card: through ``FlashAttentionProj`` when a gradient
-    is wanted, straight through the forward otherwise (then neither the
-    attention output nor the row statistics are written)."""
+    is wanted, otherwise through the operator ``deepcoro::attention_proj``
+    (then neither the attention output nor the row statistics are
+    written)."""
     wants_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (a, b, c, wo))
     if wants_grad:
         return FlashAttentionProj.apply(a, b, c, wo, sin, cos, kv_mask, causal,
                                         scale, layout, H, counter)
-    return attention_proj_forward(a, b, c, wo, sin, cos, kv_mask, causal, scale,
-                                  layout, H, counter, residuals=False)[0]
+    return library.attention_proj(a, b, c, wo, sin, cos, kv_mask, causal, scale, layout, H)
+
+
+# the operators of the no-grad calls; imported last, as ops/library.py
+# builds them on this module's forwards
+from deepcoro_clip_tpu_torch.ops import library  # noqa: E402

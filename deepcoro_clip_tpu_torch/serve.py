@@ -17,15 +17,23 @@ Endpoints:
 
 Usage:
   python -m deepcoro_clip_tpu_torch.serve [--text_bank bank.npz]
-      [--base_config cfg.yaml] [--params video_params.npz] [--port 8080] [--max_batch 4]
+      [--base_config cfg.yaml] [--checkpoint <run>/checkpoints [--ckpt_name checkpoint]]
+      [--params video_params.npz] [--port 8080] [--max_batch 4]
       [--batch_window_ms 10] [--num_videos 10] [--top_k 5] [--device cuda]
+  python -m deepcoro_clip_tpu_torch.serve --artifact <dir> [--port 8080] [--device cuda]
 
 ``bank.npz`` holds ``text_embeddings`` [M, D] and ``texts`` [M] (as
-written by the JAX package's scripts/generate_embeddings.py). ``--params``
-is the video tower's parameter tree saved by ``convert.save_params_npz``;
-without it the tower is randomly initialized from seed 0. ``--base_config``
-is the YAML of a contrastive run (``configs.parse_config``); without it the
-flagship configuration is served.
+``python -m deepcoro_clip_tpu_torch.generate_embeddings`` writes it).
+``--checkpoint`` is the checkpoints directory of a contrastive run of the
+port (``train/checkpoint.py``): its ``video_encoder`` parameters of
+``--ckpt_name`` go into the served tower with a strict load (a missing or
+surplus key raises). ``--params`` is the video tower's parameter tree saved
+by ``convert.save_params_npz`` (a JAX checkpoint's). Without either the
+tower is randomly initialized from seed 0. ``--base_config`` is the YAML of
+a contrastive run (``configs.parse_config``); without it the flagship
+configuration is served. ``--artifact`` serves a frozen retrieval artifact
+(``export_model.py export``) through the same batcher and handler, with no
+model classes on the path (``serving.RetrievalArtifact``).
 """
 
 from __future__ import annotations
@@ -74,7 +82,7 @@ class InferenceEngine:
         if video_params is None:
             init_params(model, seed=0)
         else:
-            model.load_state_dict(video_params)
+            model.load_state_dict(video_params, strict=True)
         self.model = model.eval().to(self.device)
 
         bank = np.asarray(bank_emb, np.float32).copy()
@@ -263,10 +271,46 @@ def load_text_bank(path):
     return bank["text_embeddings"], bank["texts"]
 
 
-def build_server(args) -> tuple[ThreadingHTTPServer, InferenceEngine]:
+def load_video_params(checkpoint, name: str = "checkpoint") -> dict:
+    """The video tower's parameters of a port checkpoint (the
+    ``video_encoder.*`` entries of ``{name}.pt`` in the checkpoints
+    directory ``checkpoint``, without the prefix), read through
+    ``CheckpointManager.load``."""
+    from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
+
+    params = CheckpointManager(checkpoint).load(name)["params"]
+    pre = "video_encoder."
+    out = {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+    if not out:
+        raise ValueError(f"{checkpoint}/{name}.pt holds no video_encoder parameters")
+    return out
+
+
+def _serve(engine, args) -> tuple[ThreadingHTTPServer, object]:
+    batcher = MicroBatcher(engine, window_ms=args.batch_window_ms)
+    httpd = ThreadingHTTPServer((args.host, args.port), make_handler(engine, batcher))
+    httpd.batcher = batcher  # tests reach the stats through the server
+    return httpd, engine
+
+
+def build_server(args, cfg=None) -> tuple[ThreadingHTTPServer, InferenceEngine]:
+    """The server and its engine for parsed ``args``; ``cfg`` (a config
+    object) replaces ``--tiny``/``--base_config``/the flagship for callers
+    without a YAML reader (``--num_videos`` and multi-video mode are forced
+    on it as on a YAML's)."""
     from deepcoro_clip_tpu_torch.flagship import flagship_config, tiny_config
 
-    if args.tiny:
+    if getattr(args, "artifact", None):
+        # a frozen torch.export program: no model classes or config system
+        # on this path; RetrievalArtifact duck-types InferenceEngine
+        from deepcoro_clip_tpu_torch.serving import RetrievalArtifact
+
+        return _serve(RetrievalArtifact(args.artifact, device=getattr(args, "device", None)),
+                      args)
+    if cfg is not None:
+        cfg.multi_video = True
+        cfg.num_videos = args.num_videos
+    elif args.tiny:
         cfg = tiny_config(multi_video=True, num_videos=args.num_videos)
     elif getattr(args, "base_config", None):
         from deepcoro_clip_tpu_torch.configs import parse_config
@@ -278,7 +322,9 @@ def build_server(args) -> tuple[ThreadingHTTPServer, InferenceEngine]:
         cfg = flagship_config(multi_video=True, num_videos=args.num_videos)
 
     video_params = None
-    if getattr(args, "params", None):
+    if getattr(args, "checkpoint", None):
+        video_params = load_video_params(args.checkpoint, args.ckpt_name)
+    elif getattr(args, "params", None):
         from deepcoro_clip_tpu_torch.convert import (
             jax_tree_to_state_dict,
             load_params_npz,
@@ -297,15 +343,17 @@ def build_server(args) -> tuple[ThreadingHTTPServer, InferenceEngine]:
                              max_batch=args.max_batch, top_k=args.top_k,
                              video_params=video_params,
                              device=getattr(args, "device", None))
-    batcher = MicroBatcher(engine, window_ms=args.batch_window_ms)
-    httpd = ThreadingHTTPServer((args.host, args.port),
-                                make_handler(engine, batcher))
-    httpd.batcher = batcher  # tests reach the stats through the server
-    return httpd, engine
+    return _serve(engine, args)
 
 
 def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    ap.add_argument("--artifact", default=None,
+                    help="serve a frozen retrieval artifact dir (export_model.py export); "
+                         "overrides the model arguments")
+    ap.add_argument("--checkpoint", default=None,
+                    help="checkpoints dir of a contrastive run of the port")
+    ap.add_argument("--ckpt_name", default="checkpoint")
     ap.add_argument("--base_config", default=None,
                     help="YAML of a DeepCORO_clip run (default: the flagship config)")
     ap.add_argument("--params", default=None,
@@ -332,7 +380,7 @@ def main(argv: Optional[list] = None) -> None:
     study, mask = engine.load_study([])
     engine.infer_batch(study[None], mask[None])
     print(f"serving on http://{args.host}:{httpd.server_address[1]} "
-          f"(max_batch={args.max_batch}, num_videos={args.num_videos}, "
+          f"(max_batch={engine.max_batch}, num_videos={engine.num_videos}, "
           f"bank={len(engine.bank_texts)}, device={engine.device})", flush=True)
     httpd.serve_forever()
 

@@ -29,6 +29,7 @@ import torch
 
 from deepcoro_clip_tpu.flagship import tiny_config as jax_tiny
 from deepcoro_clip_tpu.models import video_encoder as jve
+from deepcoro_clip_tpu.ops.attention import multi_head_attention as jax_mha
 from deepcoro_clip_tpu.parallel import MeshSpec as JMeshSpec
 from deepcoro_clip_tpu.parallel import make_mesh as jmake_mesh
 from deepcoro_clip_tpu.parallel.ring_attention import ring_attention as jring
@@ -135,11 +136,23 @@ def test_ring_step_kernel_choice(dh, symbol):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", [1, 2, 4, 8])
 def test_ring_attention_matches_jax(n, dtype, jax_backend):
-    """Both port backends against the JAX ring at ``[2,2,64,16]``."""
+    """Both port backends against the JAX ring at ``[2,2,64,16]``: the
+    ``"xla"`` ring, and for the ``"rdma_interpret"`` cases the oracle that
+    the JAX package's own ``tests/test_ring_attention.py`` holds its
+    interpreted Pallas ring to (``multi_head_attention`` over the whole
+    sequence). The interpreted ring is not deterministic under load: in six
+    processes side by side (``tests/ring_determinism_probe.py``) it returned,
+    in 21 of 144 calls at n = 8, outputs 0.34 to 0.60 off the oracle in 949 to
+    2,900 of the 4,096 elements, while the ``"xla"`` ring and both of the
+    port's rings gave the same bits every call (``ROADMAP.md``, Queue 3)."""
     q, k, v = _qkv(n, (2, 2, 64, 16))
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
-    ref = np.asarray(jring(*(jnp.asarray(x, jdt) for x in (q, k, v)), _jmesh(n),
-                           axis="model", backend=jax_backend), np.float32)
+    args = [jnp.asarray(x, jdt) for x in (q, k, v)]
+    if jax_backend == "rdma_interpret":
+        ref = np.asarray(jax_mha(*args), np.float32)
+    else:
+        ref = np.asarray(jring(*args, _jmesh(n), axis="model", backend=jax_backend),
+                         np.float32)
     tdt = getattr(torch, dtype)
     tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
     tol = BF16_TOL if dtype == "bfloat16" else F32_TOL

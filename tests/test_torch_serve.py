@@ -194,3 +194,94 @@ def test_base_config_yaml_sets_the_served_model(tmp_path):
     study, mask = engine.load_study([])
     emb, scores, idx = engine.infer_batch(study[None], mask[None])
     assert np.asarray(emb).shape == (1, 48) and np.asarray(idx).shape == (1, 3)
+
+
+# --------------------------------------------------------------------------- #
+# --checkpoint: a port run's checkpoints
+
+
+@pytest.fixture(scope="module")
+def clip_run(tmp_path_factory):
+    """A tiny contrastive run of the port's ``main`` (1 epoch, 2 steps, CPU):
+    (its YAML, its checkpoints directory)."""
+    import yaml
+
+    from deepcoro_clip_tpu_torch.data.csv_utils import write_csv
+    from deepcoro_clip_tpu_torch.main import main
+
+    root = tmp_path_factory.mktemp("clip_run")
+    r = np.random.default_rng(0)
+    rows = []
+    for i in range(10):
+        p = root / f"clip{i}.npy"
+        np.save(p, r.integers(0, 255, size=(4, 32, 32, 3)).astype(np.uint8))
+        rows.append({"FileName": str(p), "Report": f"stenosis report {i % 3}",
+                     "StudyInstanceUID": f"S{i}", "Split": "train" if i < 8 else "val"})
+    write_csv(root / "data.csv", list(rows[0]), rows)
+    cfg = dict(tiny_config(**CFG_KW).to_dict(), pipeline_project="DeepCORO_clip",
+               data_filename=str(root / "data.csv"), output_dir=str(root / "out"),
+               multi_video=False, num_videos=1, batch_size=4, epochs=1, num_workers=0,
+               use_wandb=False, seed=0)
+    path = root / "run.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    res = main(["--base_config", str(path), "--device", "cpu"])
+    return path, Path(res["output_dir"]) / "checkpoints"
+
+
+def _ckpt_args(path, ck, *extra):
+    return serve.parse_args(["--base_config", str(path), "--checkpoint", str(ck), "--port",
+                             "0", "--num_videos", "3", "--max_batch", "2", "--top_k", "3",
+                             "--demo_bank", "16", "--device", "cpu", *extra])
+
+
+@pytest.mark.parametrize("name", ["checkpoint", "best_model_epoch_0"])
+def test_checkpoint_serves_the_runs_video_tower(clip_run, name):
+    """``--checkpoint``/``--ckpt_name``: the run's ``video_encoder`` tensors
+    are the served tower's, key for key; the server's embeddings are an
+    engine's on the same tree, bit for bit."""
+    from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
+
+    path, ck = clip_run
+    httpd, engine = serve.build_server(_ckpt_args(path, ck, "--ckpt_name", name))
+    httpd.server_close()
+    saved = CheckpointManager(ck).load(name)["params"]
+    tower = {k[len("video_encoder."):]: v for k, v in saved.items()
+             if k.startswith("video_encoder.")}
+    sd = engine.model.state_dict()
+    assert sd.keys() == tower.keys()
+    for k in tower:
+        assert torch.equal(sd[k], tower[k]), k
+    assert serve.load_video_params(ck, name).keys() == tower.keys()
+    other = serve.InferenceEngine(engine.cfg, np.random.default_rng(0).normal(size=(16, 32)),
+                                  engine.bank_texts, max_batch=2, top_k=3, video_params=tower,
+                                  device="cpu")
+    r = np.random.default_rng(5)
+    clips = r.integers(0, 256, size=(2, 3, 4, 32, 32, 3), dtype=np.uint8)
+    studies, masks = patchify_videos(clips, (2, 16, 16)), np.array([[1, 1, 0], [1, 0, 0]], bool)
+    for a, b in zip(engine.infer_batch(studies, masks), other.infer_batch(studies, masks)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_checkpoint_load_is_strict(clip_run, tmp_path):
+    """A probing checkpoint's encoder (no aggregator) does not fit the served
+    tower: the strict load raises; a checkpoint without a video tower too."""
+    from deepcoro_clip_tpu_torch.configs import LinearProbingConfig
+    from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
+    from deepcoro_clip_tpu_torch.train.linear_probe import build_probe_bundle
+    from deepcoro_clip_tpu_torch.train.state import TrainState
+
+    path, _ = clip_run
+    tiny = tiny_config(**CFG_KW)
+    probe = LinearProbingConfig.from_dict(dict(
+        frames=4, resize=32, multi_video=True, num_videos=3, head_structure={"y": 1},
+        loss_structure={"y": "bce_logit"}, vit_dim=tiny.vit_dim, vit_depth=tiny.vit_depth,
+        vit_heads=tiny.vit_heads, vit_patch=[2, 16, 16], embedding_dim=tiny.embedding_dim,
+        num_heads=2, precision="fp32", use_pallas_attention=False))
+    _, state = build_probe_bundle(probe, device="cpu")
+    CheckpointManager(tmp_path / "probe").save_latest(state, {})
+    with pytest.raises(RuntimeError, match="Missing key"):
+        serve.build_server(_ckpt_args(path, tmp_path / "probe"))
+    CheckpointManager(tmp_path / "bare").save_latest(
+        TrainState(step=0, params={"log_temp": torch.zeros(())}, opt_state={}), {})
+    with pytest.raises(ValueError, match="no video_encoder"):
+        serve.build_server(_ckpt_args(path, tmp_path / "bare"))
