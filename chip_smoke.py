@@ -286,13 +286,37 @@ Phases, each printing one line (or a few) before the last:
    filter model; (e) dispatch p50/p95 of the artifact and the engine,
    export and load seconds, artifact bytes, with the card's name and power
    limit;
+30. single-head SigLIP pretraining through the port's main, at
+   config/clip/siglip_single_head_config.yaml (siglip_single_head_config()):
+   phase 24's manifests written anew, 2 epochs at batch_size SIGLIP_BATCH
+   (the cut phase 24's memory reckoning explains: the bank has its shape),
+   the sharded batch order, each batch's bank from one
+   SingleHeadRetrievalSampler a run (collate_single_head). Every loss
+   finite; launches as phase 24's (12 K1 / 12 K2 / 13 K3 / 13 K4 a train
+   step), counted over the run; logit_bias moved from -10; the semantic
+   panel finite; each batch's bank (real texts, dropped, positive pairs,
+   the share of W not 0, no row without a positive); step time, clips/s,
+   peak memory, a profiled step's busy time and share;
+31. phase 30's run with locca_enabled: true (ClipConfig's LocCa defaults:
+   4 layers, d 512, 8 heads, 256 tokens, weight 0.5): launches predicted
+   and counted, 12 K1 / 12 K2 / 21 K3 / 21 K4 a train step (20 of each
+   long) and 12 K1 / 21 K3 a validation batch; the LocCa loss finite at
+   every step, every decoder tensor moved; a run stopped after epoch 0 and
+   resumed through main bit-equal (the sampler's state and the decoder's
+   moments in the checkpoint); the decoder's K3/K4 at the step's own
+   caption mask, [B,8,256,64] causal, and at [B,8,256|393,64] against
+   their plain versions (phase 3's and 7's bars) with times, busy times,
+   bounds and SDPA's; step time, peak memory against phase 30's, the
+   profiled step's busy time and the head's share of it (the same batch
+   without its caption ids);
 then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6, and
 the long K3 and K4 kernels an entry each; K3 and K4 list their short and
 long kernels and carry phase 21's rows; every kernel carries the launches
-of phases 22 to 25's and 27 and 28's runs and of phase 29's paths (K5's
-"launches" are phase 27's train run's), K3 and K4 their shapes; the long entries their launches over
-phases 22 to 25's runs and the bank's, their row at the SigLIP bank's mask
-and every long row of phases 22 to 26).
+of phases 22 to 25's, 27, 28, 30 and 31's runs and of phase 29's paths
+(K5's "launches" are phase 27's train run's), K3 and K4 their shapes; the
+long entries their launches over phases 22 to 25's, 30's and 31's runs and
+the bank's, their row at the SigLIP bank's mask and every long row of
+phases 22 to 26 and 31).
 
 --compare runs the build, checksums of the outputs of the kernels meant to
 stay bit-equal (K1, K2, K5, K6, the short K3/K4), K1's and K2's times at
@@ -3695,12 +3719,14 @@ PER_BANK_CHUNK = {"K1": 0, "K2": 0, "K3": 12, "K4": 0, "K5": 0, "K6": 0,
                   "K3 long": 12, "K4 long": 0}
 
 
-def _runs_through_main(torch, label: str, cfg, runner, keep_cut: Optional[Path] = None):
+def _runs_through_main(torch, label: str, cfg, runner, keep_cut: Optional[Path] = None,
+                       resume: bool = True):
     """``cfg(name, **over)``'s run through main, counted from 0 and its peak
-    memory read; a run of it stopped after epoch 0 (``runner.train`` cut at
-    ``end_epoch=1``, as a killed run would stop) and that run resumed.
-    ``keep_cut``: the stopped run's checkpoint is copied there before the
-    resume. Returns (full, cut, resumed, counts, wall seconds, peak GiB)."""
+    memory read; with ``resume``, a run of it stopped after epoch 0
+    (``runner.train`` cut at ``end_epoch=1``, as a killed run would stop) and
+    that run resumed. ``keep_cut``: the stopped run's checkpoint is copied
+    there before the resume. Returns (full, cut, resumed, counts, wall
+    seconds, peak GiB); cut and resumed are None without ``resume``."""
     from deepcoro_clip_tpu_torch.main import main
 
     torch.cuda.synchronize()
@@ -3712,6 +3738,10 @@ def _runs_through_main(torch, label: str, cfg, runner, keep_cut: Optional[Path] 
     wall = time.perf_counter() - t0
     counts = {**_kernel_counts(), **_long_counts()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label}: main took {wall:.1f} s for 2 epochs (set-up, dataset statistics and "
+          f"checkpoint writes included) | {CARD}", flush=True)
+    if not resume:
+        return full, None, None, counts, wall, peak_gib
     train = runner.train
     runner.train = lambda self, start_epoch=0, end_epoch=None: train(self, start_epoch, 1)
     try:
@@ -3721,14 +3751,13 @@ def _runs_through_main(torch, label: str, cfg, runner, keep_cut: Optional[Path] 
     if keep_cut is not None:
         shutil.copyfile(Path(cut["output_dir"]) / "checkpoints" / "checkpoint.pt", keep_cut)
     resumed = main(config=cfg("cut", resume_training=True, checkpoint=cut["output_dir"]))
-    print(f"{label}: main took {wall:.1f} s for 2 epochs (set-up, dataset statistics and "
-          f"checkpoint writes included) | {CARD}", flush=True)
     return full, cut, resumed, counts, wall, peak_gib
 
 
 def _check_resume(torch, label: str, full, cut, resumed) -> None:
     """The resumed run's epoch 1 and final checkpoint bit-equal to the
-    uninterrupted run's."""
+    uninterrupted run's (the single-head sampler's state too, where the run
+    has one)."""
     hist = full["history"]
     a = torch.load(Path(full["output_dir"]) / "checkpoints" / "checkpoint.pt", weights_only=True)
     b = torch.load(Path(resumed["output_dir"]) / "checkpoints" / "checkpoint.pt",
@@ -3743,7 +3772,8 @@ def _check_resume(torch, label: str, full, cut, resumed) -> None:
           and [h["epoch"] for h in resumed["history"]] == [1],
           f"{label}: the cut run or the resumed run ran the wrong epochs")
     check(l_res == l_full and not differ and a["step"] == b["step"]
-          and torch.equal(a["generator"], b["generator"]),
+          and torch.equal(a["generator"], b["generator"])
+          and a.get("sampler") == b.get("sampler"),
           f"{label}: the resumed run differs: loss {l_res} vs {l_full}, params {differ[:5]}")
 
 
@@ -4008,6 +4038,296 @@ def phase_multivideo_run(torch, manifest: Path) -> dict:
                                                    timed=True)
     rows = (rows[0] + [agg_f], rows[1] + [agg_b])
     return {"counts": counts, "rows": rows, "times": times, "aggregator_max_abs_err": agg}
+
+
+# --------------------------------------------------------------------------- #
+# phases 30 and 31: single-head SigLIP pretraining through main, at
+# config/clip/siglip_single_head_config.yaml, without and with the LocCa head
+
+
+def siglip_single_head_config(**over):
+    """config/clip/siglip_single_head_config.yaml, field by field (a CPU test
+    holds this dict equal to the YAML as the port's parser reads it)."""
+    from deepcoro_clip_tpu_torch.configs import ClipConfig
+
+    d = dict(
+        pipeline_project="DeepCORO_clip", run_mode="train", epochs=30, num_workers=8,
+        seed=42, data_filename="output_dataset/siglip_generated/videos.csv",
+        datapoint_loc_label="FileName", target_label=None, frames=16, stride=1, resize=224,
+        batch_size=20, multi_video=False, max_text_length=512,
+        siglip_texts_path="output_dataset/siglip_generated/texts.csv",
+        siglip_edges_path="output_dataset/siglip_generated/edges.csv",
+        siglip_sampler="single_head", siglip_max_positive_per_video=8,
+        siglip_negatives_per_video=32, siglip_round_robin_sampling=True,
+        siglip_base_negative_weight=0.04, siglip_contradiction_boost=1.0,
+        siglip_contradiction_min_severity="moderate", siglip_enable_severity_weighting=True,
+        siglip_bias_init=-10.0, loss_name="siglip_single_head", model_name="mvit",
+        vit_dim=512, vit_depth=12, vit_heads=4, vit_patch=[2, 16, 16], vit_pool_stages=[3],
+        use_cls_token=True, embedding_dim=512, num_heads=16, aggregator_depth=1, dropout=0.12,
+        optimizer="AdamW", scheduler_name="linear_warmup", lr=0.00002,
+        video_weight_decay=0.00001, text_weight_decay=0.0000001, video_max_grad_norm=1.0,
+        text_max_grad_norm=1.0, video_freeze_ratio=0.8, text_freeze_ratio=0.75,
+        temperature=0.07, precision="bf16", use_pallas_attention=True, use_wandb=False,
+    )
+    d.update(over)
+    return ClipConfig.from_dict(d)
+
+
+# phase 30's launches are phase 24's (the sampler changes what the bank holds,
+# not its shape); phase 31's LocCa head (ClipConfig's defaults: 4 layers, d
+# 512, 8 heads, 256 tokens) adds per layer a causal self-attention at
+# [B,8,256,64] under the caption mask and a cross-attention at [B,8,256|393,64]
+# over the clip's tokens, all on the long kernels, forward and backward in a
+# train step, forward in a validation batch
+LOCCA_LAYERS = 4
+LOCCA_PER_STEP = {k: v + 2 * LOCCA_LAYERS * (k in ("K3", "K4", "K3 long", "K4 long"))
+                  for k, v in SIGLIP_PER_STEP.items()}
+LOCCA_PER_VAL = {k: v + 2 * LOCCA_LAYERS * (k in ("K3", "K3 long"))
+                 for k, v in SIGLIP_PER_VAL.items()}
+
+
+def _held_gib(torch) -> float:
+    """What the card holds before a run, once the garbage of earlier phases
+    is collected: a run's own peak is its peak less this."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def _single_head_cfg(paths: dict, tmp: Path, **fixed):
+    """siglip_single_head_config() on the corpus's manifests, as phase 24
+    cuts it: data, epochs 2, the workers, batch_size SIGLIP_BATCH."""
+    def cfg(name, **over):
+        return siglip_single_head_config(
+            data_filename=str(paths["videos"]), siglip_texts_path=str(paths["texts"]),
+            siglip_edges_path=str(paths["edges"]), epochs=2, num_workers=QUALITY_WORKERS,
+            output_dir=str(tmp / name), batch_size=SIGLIP_BATCH, **fixed, **over)
+    return cfg
+
+
+def _bank_record(record: list):
+    """Wrap the runner's collate_single_head: each batch's bank lands in
+    ``record`` as (real texts, dropped texts, positives, share of the W
+    matrix over the real bank that is not 0, fewest positives a row, rows).
+    Returns the undo."""
+    from deepcoro_clip_tpu_torch.runners import contrastive
+
+    inner = contrastive.collate_single_head
+
+    def wrapped(*args, **kw):
+        b = inner(*args, **kw)
+        m = int(b["text_valid"].sum())
+        w, pos = b["positive_weights"][:, :m], b["positive_mask"]
+        record.append((m, int(b["n_dropped_texts"]), int(pos.sum()),
+                       float((w != 0).mean()) if m else 0.0, int(pos.sum(1).min()),
+                       pos.shape[0]))
+        return b
+
+    contrastive.collate_single_head = wrapped
+    return lambda: setattr(contrastive, "collate_single_head", inner)
+
+
+def _print_banks(label: str, record: list, steps: int, val_batches: int) -> None:
+    """The banks of one run (its collates in order: each epoch's train
+    batches, then its validation batches) and their checks."""
+    check(len(record) == 2 * (steps + val_batches),
+          f"{label}: {len(record)} banks for {2 * (steps + val_batches)} batches")
+    per = steps + val_batches
+    for i, (m, dropped, npos, nz, least, rows) in enumerate(record):
+        epoch, j = divmod(i, per)
+        kind = f"step {j}" if j < steps else f"validation batch {j - steps}"
+        print(f"{label}: epoch {epoch} {kind}: bank of {m} real texts of "
+              f"{SIGLIP_BATCH * 40} slots, {dropped} dropped, {npos} positive pairs, W not 0 "
+              f"on {nz:.1%} of [{rows},{m}], fewest positives a row {least}", flush=True)
+    check(all(r[0] > 0 and r[4] >= 1 for r in record),
+          f"{label}: a bank without texts or a row without a positive: {record}")
+
+
+def phase_single_head_run(torch, manifest: Path, memory: dict) -> dict:
+    """Phase 30: config/clip/siglip_single_head_config.yaml through main on
+    the SigLIP manifests of the corpus of ``manifest``, at phase 24's batch
+    (``memory``: phase 24's reckoning); returns {"counts", "times"}."""
+    from deepcoro_clip_tpu_torch.data.dataset_creation import build_siglip_manifests
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+
+    label = "single-head run"
+    paths = build_siglip_manifests(siglip_rows(manifest, seed=0),
+                                   manifest.parent / "siglip_single_head",
+                                   cto_columns=siglip_cto_columns())
+    steps = QUALITY_TRAIN // SIGLIP_BATCH  # the sharded order drops the last partial batch
+    val_batches = -(-QUALITY_VAL // SIGLIP_BATCH)
+    print(f"{label}: config/clip/siglip_single_head_config.yaml with data_filename, "
+          f"siglip_texts_path, siglip_edges_path (phase 24's manifests, written anew), "
+          f"output_dir=<tmp>, epochs=2, num_workers={QUALITY_WORKERS}, "
+          f"batch_size={SIGLIP_BATCH}; {steps} steps and {val_batches} validation batches an "
+          f"epoch, a bank of at most {SIGLIP_BATCH} x (8 + 32) texts of 512 tokens a batch",
+          flush=True)
+    print(f"{label}: the batch cut: the bank has phase 24's shape, so phase 24's reckoning "
+          f"holds: {memory['gib_per_video']:.2f} GiB a video with its 40 texts, "
+          f"{memory['reckoned_gib_at_20']:.1f} GiB reckoned at the YAML's 20 against the "
+          f"card's {memory['card_gib']:.1f}, at most batch "
+          f"{memory['largest_batch_within_margin']} within {CARD_MARGIN:.0%} of it | {CARD}",
+          flush=True)
+    record: list = []
+    undo = _bank_record(record)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        cfg = _single_head_cfg(paths, tmp)
+        held = _held_gib(torch)
+        try:
+            full, _, _, counts, wall, peak_gib = _runs_through_main(
+                torch, label, cfg, VideoContrastiveLearningRunner, resume=False)
+        finally:
+            undo()
+        hist = full["history"]
+        for h in hist:
+            print(f"{label}: epoch {h['epoch']}: train loss {h['loss']:.4f}, val loss "
+                  f"{h['val_loss']:.4f}, val R@1 {h['val_Recall@1']:.3f} R@5 "
+                  f"{h['val_Recall@5']:.3f} MRR {h['val_MRR']:.3f} alignment "
+                  f"{h['val_alignment']:.4f}, tree_recall@5 "
+                  f"{h['val_semantic/tree_recall@5']:.3f}, temperature "
+                  f"{h['temperature']:.5f}, lr {h['lr']:.2e}", flush=True)
+        _print_banks(label, record, steps, val_batches)
+        chunks = _bank_chunks(Path(full["output_dir"]))
+        want = {k: 2 * (SIGLIP_PER_STEP[k] * steps + SIGLIP_PER_VAL[k] * val_batches)
+                + PER_BANK_CHUNK[k] * chunks for k in SIGLIP_PER_STEP}
+        out = _run_checks(torch, label, full, counts, want)
+        semantic = sorted(k for k in hist[1] if k.startswith("val_semantic/"))
+        check("val_semantic/tree_recall@5" in semantic and all(
+            math.isfinite(hist[1][k]) for k in semantic), f"{label}: semantic panel {semantic}")
+        print(f"{label}: semantic panel {', '.join(f'{k[4:]} {hist[1][k]:.3f}' for k in semantic)}",
+              flush=True)
+        times = _epoch_times(label, hist, steps, SIGLIP_BATCH, "clips", peak_gib, wall)
+        times["run_peak_gib"] = peak_gib - held
+        print(f"{label}: the run's own peak {times['run_peak_gib']:.2f} GiB over the "
+              f"{held:.2f} GiB the card held before it | {CARD}", flush=True)
+        times.update(out, batch_size=SIGLIP_BATCH,
+                     banks=[dict(zip(("texts", "dropped", "positives", "w_nonzero_share",
+                                      "fewest_positives", "rows"), r)) for r in record])
+        runner = VideoContrastiveLearningRunner(cfg("trace"))
+        _profile_step(torch, "single-head profile", runner, times)
+        del runner
+        torch.cuda.empty_cache()
+    return {"counts": counts, "times": times}
+
+
+def phase_locca_run(torch, manifest: Path, single_head: dict) -> dict:
+    """Phase 31: phase 30's run with ``locca_enabled: true`` (ClipConfig's
+    LocCa defaults), resumed once; returns {"counts", "rows" (K3 rows, K4
+    rows), "times"}."""
+    from deepcoro_clip_tpu_torch.models.video_encoder import clip_token_count
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+
+    label = "locca run"
+    paths = {k: manifest.parent / "siglip_single_head" / f"{k}.csv"
+             for k in ("videos", "texts", "edges")}
+    steps = QUALITY_TRAIN // SIGLIP_BATCH
+    val_batches = -(-QUALITY_VAL // SIGLIP_BATCH)
+    made: list = []
+    init = VideoContrastiveLearningRunner.__init__
+
+    def capture(self, *args, **kw):
+        init(self, *args, **kw)
+        # the decoder as built, and each step's LocCa loss (read after the run)
+        self.locca_init = {k: v.detach().clone() for k, v in self.state.params.items()
+                           if k.startswith("locca_decoder.")}
+        self.locca_losses = []
+        step = self.train_step
+
+        def recording(state, *a):
+            state, metrics = step(state, *a)
+            self.locca_losses.append(metrics["locca_loss"])
+            return state, metrics
+
+        self.train_step = recording
+        made.append(self)
+
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        cfg = _single_head_cfg(paths, tmp, locca_enabled=True)
+        c = cfg("probe")
+        tokens = clip_token_count(c)
+        print(f"{label}: phase 30's run with locca_enabled=true and ClipConfig's LocCa "
+              f"defaults: {c.locca_num_layers} layers, d {c.locca_d_model}, "
+              f"{c.locca_num_heads} heads, {c.locca_max_seq_len} tokens, weight "
+              f"{c.locca_weight}; the decoder reads the clip's {tokens} tokens; targets: each "
+              "clip's report rebuilt from its positives (locca_report)", flush=True)
+        check(c.locca_num_layers == LOCCA_LAYERS, f"{label}: {c.locca_num_layers} layers")
+        held = _held_gib(torch)
+        VideoContrastiveLearningRunner.__init__ = capture
+        try:
+            full, cut, resumed, counts, wall, peak_gib = _runs_through_main(
+                torch, label, cfg, VideoContrastiveLearningRunner)
+        finally:
+            VideoContrastiveLearningRunner.__init__ = init
+        hist = full["history"]
+        for h in hist:
+            print(f"{label}: epoch {h['epoch']}: train loss {h['loss']:.4f} (LocCa "
+                  f"{h['locca_loss']:.4f}, decoder grad norm {h['grad_norm_locca_decoder']:.4f}),"
+                  f" val loss {h['val_loss']:.4f} (LocCa {h['val_locca_loss']:.4f}), val R@1 "
+                  f"{h['val_Recall@1']:.3f} MRR {h['val_MRR']:.3f}, temperature "
+                  f"{h['temperature']:.5f}, lr {h['lr']:.2e}", flush=True)
+        chunks = _bank_chunks(Path(full["output_dir"]))
+        want = {k: 2 * (LOCCA_PER_STEP[k] * steps + LOCCA_PER_VAL[k] * val_batches)
+                + PER_BANK_CHUNK[k] * chunks for k in LOCCA_PER_STEP}
+        out = _run_checks(torch, label, full, counts, want)
+        whole = made[0]
+        losses = [float(x) for x in whole.locca_losses]
+        print(f"{label}: LocCa loss of each of the whole run's {len(losses)} steps: "
+              + ", ".join(f"{x:.4f}" for x in losses), flush=True)
+        check(len(losses) == 2 * steps and all(math.isfinite(x) for x in losses),
+              f"{label}: LocCa losses {losses}")
+        final = torch.load(Path(full["output_dir"]) / "checkpoints" / "checkpoint.pt",
+                           weights_only=True)["params"]
+        still = [k for k, v in whole.locca_init.items() if torch.equal(final[k], v.cpu())]
+        print(f"{label}: {len(whole.locca_init) - len(still)} of {len(whole.locca_init)} "
+              f"decoder tensors moved over the run", flush=True)
+        check(whole.locca_init and not still, f"{label}: decoder tensors unmoved: {still[:5]}")
+        _check_resume(torch, label, full, cut, resumed)
+        times = _epoch_times(label, hist, steps, SIGLIP_BATCH, "clips", peak_gib, wall)
+        times.update(out, batch_size=SIGLIP_BATCH, locca_losses=losses)
+        times["run_peak_gib"] = peak_gib - held
+        plain_peak = single_head["times"]["run_peak_gib"]
+        print(f"{label}: the run's own peak {times['run_peak_gib']:.2f} GiB over the "
+              f"{held:.2f} GiB the card held before it, against phase 30's {plain_peak:.2f} "
+              f"(the head's share {times['run_peak_gib'] - plain_peak:+.2f} GiB at batch "
+              f"{SIGLIP_BATCH}) | {CARD}", flush=True)
+        del made, whole
+        runner = VideoContrastiveLearningRunner(cfg("trace"))
+        batch = _profile_step(torch, "locca profile", runner, times)
+        args = (runner.generator, c.video_freeze_ratio, c.text_freeze_ratio, -1.0)
+        plain = {k: v for k, v in batch.items()
+                 if k not in ("caption_ids", "caption_mask", "location_mask")}
+        runner.train_step(runner.state, plain, *args)  # warm
+        per_plain, _ = device_events(torch, lambda: runner.train_step(runner.state, plain,
+                                                                      *args))
+        times["busy_ms_without_head"] = sum(per_plain.values())
+        times["decoder_share"] = 1 - times["busy_ms_without_head"] / times["busy_ms"]
+        print(f"locca profile: the same batch without caption ids (the head not run, its "
+              f"optimizer update still): busy {times['busy_ms_without_head']:.2f} ms; the "
+              f"LocCa head's share of the step's busy {times['busy_ms']:.2f} ms: "
+              f"{times['decoder_share']:.1%} | {CARD}", flush=True)
+        cap_mask = batch["caption_mask"]
+        print(f"locca attention: the caption mask [{cap_mask.shape[0]},{cap_mask.shape[1]}]: "
+              f"{int(cap_mask.sum())} real tokens of {cap_mask.numel()} (shortest "
+              f"{int(cap_mask.sum(1).min())}, longest {int(cap_mask.sum(1).max())})", flush=True)
+        del runner, batch, plain
+        torch.cuda.empty_cache()
+        B, L = cap_mask.shape
+        rows = _attention_rows(torch, "locca attention", [
+            ("the LocCa decoder's causal self-attention, the captions' padding mask", B,
+             c.locca_num_heads, L, L, cap_mask, True),
+            ("the LocCa decoder's cross-attention over the clip's tokens, no mask", B,
+             c.locca_num_heads, L, tokens, None, False)], seed=31)
+        times["decoder_attention_busy_ms"] = LOCCA_LAYERS * sum(
+            r["device_ms"] for r in rows[0] + rows[1])
+        print(f"locca attention: the decoder's K3/K4 a train step, busy "
+              f"{times['decoder_attention_busy_ms']:.3f} ms ({LOCCA_LAYERS} layers x the two "
+              f"calls forward and backward) of the step's {times['busy_ms']:.2f} | {CARD}",
+              flush=True)
+    return {"counts": counts, "rows": rows, "times": times}
 
 
 # --------------------------------------------------------------------------- #
@@ -5301,7 +5621,7 @@ def main(argv) -> int:
 
 
 def run_all(torch) -> dict:
-    """Phases 2 to 29; returns the "kernels" line."""
+    """Phases 2 to 31; returns the "kernels" line."""
     build_kernels(torch, ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short",
                           "ring_attention"))
     for key, a in hopper_attrs().items():
@@ -5407,6 +5727,10 @@ def run_all(torch) -> dict:
         torch.cuda.empty_cache()
         multivideo = phase_multivideo_run(torch, manifest)
         torch.cuda.empty_cache()
+        single_head = phase_single_head_run(torch, manifest, siglip["times"]["memory"])
+        torch.cuda.empty_cache()
+        locca = phase_locca_run(torch, manifest, single_head)
+        torch.cuda.empty_cache()
         probing = phase_probing_run(torch, manifest, backbone, Path(corpus_root))
         torch.cuda.empty_cache()
         clip_inference = phase_clip_inference(torch, manifest, backbone, Path(corpus_root))
@@ -5415,10 +5739,11 @@ def run_all(torch) -> dict:
     torch.cuda.empty_cache()
     long = phase_long_kernels(torch, siglip.pop("bank_mask"))
     for run, result in (("multitask", multitask), ("siglip", siglip),
-                        ("multivideo", multivideo)):
+                        ("multivideo", multivideo), ("single_head", single_head),
+                        ("locca", locca)):
         for key, e in zip(("K1", "K3", "K2", "K4", "K5", "K6"), kernels["kernels"]):
             e[f"{run}_train_launches"] = result["counts"][key]
-        for key, rows in zip(("K3", "K4"), result["rows"]):
+        for key, rows in zip(("K3", "K4"), result.get("rows", ((), ()))):
             by_key[key]["shapes"] += rows
             by_key[key]["max_abs_err"] = max([by_key[key]["max_abs_err"]]
                                              + [r["max_abs_err"] for r in rows])
@@ -5444,22 +5769,27 @@ def run_all(torch) -> dict:
         for key, err in zip(("K3", "K4"), result["aggregator_max_abs_err"]):
             by_key[key][f"{run}_aggregator_max_abs_err"] = err
             by_key[key]["max_abs_err"] = max(by_key[key]["max_abs_err"], err)
+    kernels["single_head_train"] = single_head["times"]
+    kernels["locca_train"] = locca["times"]
     # the long calls' Hopper kernels, an entry each: launches over phases 22
-    # to 25's runs, the head row at the SigLIP bank's own mask (phase 24),
-    # every long row of phases 22 to 26 beside it
-    runs = (quality, multitask["counts"], siglip["counts"], multivideo["counts"])
+    # to 25's, 30's and 31's runs, the head row at the SigLIP bank's own mask
+    # (phase 24), every long row of phases 22 to 26 and 31 beside it
+    runs = (quality, multitask["counts"], siglip["counts"], multivideo["counts"],
+            single_head["counts"], locca["counts"])
     for key, names, rows, bank in (
             ("K3", long["routes"]["K3"], [quality["rows"][0]] + multitask["rows"][0]
-             + siglip["rows"][0][:1] + multivideo["rows"][0][:1] + long["rows"][0],
-             siglip["rows"][0][0]),
+             + siglip["rows"][0][:1] + multivideo["rows"][0][:1] + long["rows"][0]
+             + locca["rows"][0], siglip["rows"][0][0]),
             ("K4", long["routes"]["K4"], [quality["rows"][1]] + multitask["rows"][1]
-             + siglip["rows"][1][:1] + multivideo["rows"][1][:1] + long["rows"][1],
-             siglip["rows"][1][0])):
+             + siglip["rows"][1][:1] + multivideo["rows"][1][:1] + long["rows"][1]
+             + locca["rows"][1], siglip["rows"][1][0])):
         what = "forward" if key == "K3" else "backward"
         e = {"name": f"flash_attention, Lq or Lk > 64 ({key} {what}: {', '.join(names)})",
              "route": "cuda", "source": LONG_SOURCES[key],
              "replaces": K3_REPLACES if key == "K3" else K4_REPLACES,
              "launches": sum(c[f"{key} long"] for c in runs),
+             "locca_train_launches": locca["counts"][f"{key} long"],
+             "single_head_train_launches": single_head["counts"][f"{key} long"],
              "max_abs_err": max(r["max_abs_err"] for r in rows), "kernels": names,
              "skip_cut_keys_at_the_bank": long["cut"],
              "bank_launches": clip_inference["bank_counts"][f"{key} long"]}

@@ -145,10 +145,8 @@ class BaseConfig(_ConfigMethods):
 @dataclass
 class ClipConfig(BaseConfig):
     """Every field of the JAX package's ``ClipConfig``, with its default.
-    The contrastive runner runs the SigLIP and multi-positive fields but
-    the single-head sampler; ``unported_settings`` names that one and the
-    LocCa fields when set away from their defaults, which the runner
-    refuses."""
+    The contrastive runner runs every one of them: the SigLIP and
+    multi-positive fields, the single-head sampler and the LocCa head."""
 
     # ---- data ----
     data_filename: str = "data/reports.csv"
@@ -244,8 +242,8 @@ class ClipConfig(BaseConfig):
     siglip_debug_batches: int = 0
     siglip_debug_every: int = 1
     siglip_debug_sample_count: int = 4
-    # ---- LocCa (the multitask pipeline runs them; the contrastive
-    # path's LocCa head is not ported yet) ----
+    # ---- LocCa: a decoder over the video tokens, trained beside the
+    # contrastive loss (train/clip.py) or the multitask losses ----
     locca_enabled: bool = False
     locca_weight: float = 0.5
     locca_num_layers: int = 4
@@ -280,23 +278,20 @@ class ClipConfig(BaseConfig):
     text_heads: int = 12
 
 
-# the roadmap item of each field family the port does not run yet
-_UNPORTED = (("locca_", "the LocCa head of the contrastive path (ROADMAP Queue 1 item 8)"),)
-# fields the port runs at their default value only
-_DEFAULT_ONLY = {"siglip_sampler": "the single-head SigLIP sampler, "
-                                   "data/single_head_sampler.py (ROADMAP Queue 1 item 7)"}
+# the roadmap item of each field family the port does not run yet, and of
+# each field it runs at its default value only: none is left
+_UNPORTED: tuple = ()
+_DEFAULT_ONLY: Dict[str, str] = {}
 
 
 def unported_settings(config) -> List[str]:
     """``"field=value (what brings it)"`` for every field of a path the port
-    does not run yet that ``config`` sets away from its default. The
-    multitask pipeline runs the ``locca_*`` settings."""
-    skip = ("locca_",) if isinstance(config, MultitaskConfig) else ()
+    does not run yet that ``config`` sets away from its default."""
     out = []
     for f in fields(config):
         item = _DEFAULT_ONLY.get(f.name)
         for prefix, what in _UNPORTED:
-            if f.name.startswith(prefix) and prefix not in skip:
+            if f.name.startswith(prefix):
                 item = what
         if item is None:
             continue

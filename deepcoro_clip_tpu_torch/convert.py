@@ -17,8 +17,11 @@ The patch ``kernel`` ``[pt, ph, pw, C, dim]`` stays a raw parameter. The
 attention_norm, intermediate, output, output_norm}``, ``proj/proj``) maps
 the same way. ``module_to_jax_tree`` goes back, and
 ``load_training_tree``/``training_tree`` carry the whole training tree
-``{"video_encoder", "text_encoder", "log_temp", "logit_bias"}`` into the
-port's models and scalars and back. The linear-probing tree
+``{"video_encoder", "text_encoder", "log_temp", "logit_bias"}`` (and
+``locca_decoder`` with the LocCa head: ``token_emb/embedding``,
+``coord_emb``, ``layer{i}/{norm1, self_attn/{qkv,proj}, norm2,
+cross_attn/{q,k,v,proj}, norm3, mlp/{fc1,fc2}}``, ``norm``, ``lm_head``)
+into the port's models and scalars and back. The linear-probing tree
 ``{"video_encoder", "mil"}`` maps by the same rules
 (``load_probe_tree``/``probe_tree``): the encoder's ``pool/{query,
 attn/{q,k,v,proj}, norm}`` (``AttentionPool``), the head's
@@ -49,7 +52,7 @@ write one from a JAX checkpoint where JAX is installed::
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -131,21 +134,34 @@ def module_to_jax_tree(module: nn.Module) -> dict:
 
 @torch.no_grad()
 def load_training_tree(tree: Mapping, video_model: nn.Module, text_model: nn.Module,
-                       log_temp: torch.Tensor, logit_bias: torch.Tensor) -> None:
-    """The JAX training tree into the port's models and scalars, in place."""
+                       log_temp: torch.Tensor, logit_bias: torch.Tensor,
+                       locca_decoder: Optional[nn.Module] = None) -> None:
+    """The JAX training tree into the port's models and scalars, in place;
+    a tree with a ``locca_decoder`` needs the decoder, and the decoder a
+    tree that has one."""
+    if ("locca_decoder" in tree) != (locca_decoder is not None):
+        raise ValueError("the tree and the models disagree on the LocCa head: tree "
+                         f"{'has' if 'locca_decoder' in tree else 'lacks'} locca_decoder")
     video_model.load_state_dict(jax_tree_to_state_dict(tree["video_encoder"]), strict=True)
     text_model.load_state_dict(jax_tree_to_state_dict(tree["text_encoder"]), strict=True)
+    if locca_decoder is not None:
+        locca_decoder.load_state_dict(jax_tree_to_state_dict(tree["locca_decoder"]),
+                                      strict=True)
     log_temp.fill_(float(np.asarray(tree["log_temp"])))
     logit_bias.fill_(float(np.asarray(tree["logit_bias"])))
 
 
 def training_tree(video_model: nn.Module, text_model: nn.Module,
-                  log_temp: torch.Tensor, logit_bias: torch.Tensor) -> dict:
+                  log_temp: torch.Tensor, logit_bias: torch.Tensor,
+                  locca_decoder: Optional[nn.Module] = None) -> dict:
     """The port's models and scalars as the JAX training tree."""
-    return {"video_encoder": module_to_jax_tree(video_model),
+    tree = {"video_encoder": module_to_jax_tree(video_model),
             "text_encoder": module_to_jax_tree(text_model),
             "log_temp": log_temp.detach().cpu().numpy().astype(np.float32),
             "logit_bias": logit_bias.detach().cpu().numpy().astype(np.float32)}
+    if locca_decoder is not None:
+        tree["locca_decoder"] = module_to_jax_tree(locca_decoder)
+    return tree
 
 
 @torch.no_grad()

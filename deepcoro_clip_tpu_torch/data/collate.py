@@ -1,26 +1,27 @@
 """Collation into fixed-shape numpy batches.
 
-The port's copy of the JAX package's ``data/collate.py`` but the
-single-head collate: ``pick_text_bucket``, ``wire_patch``,
-``_maybe_patchify``, ``collate_clip``, ``collate_multi_positive`` and
-``collate_mil``.
+The port's copy of the JAX package's ``data/collate.py``:
+``pick_text_bucket``, ``wire_patch``, ``_maybe_patchify``, ``collate_clip``,
+``collate_multi_positive``, ``collate_single_head`` and ``collate_mil``.
 Videos are stacked with their ``video_mask``; ``collate_clip`` tokenizes
 each sample's report to ``max_text_length`` (or to the smallest configured
 bucket that fits the batch's longest report), ``collate_multi_positive``
-the batch's bank of unique texts, padded to exactly ``max_texts``. With the
+and ``collate_single_head`` the batch's bank of unique texts, padded to
+exactly ``max_texts``. With the
 patch wire the uint8 videos leave as patch-major ``[B, N, L, K]``
 (``data/patch_wire.py``). ``collate_mil`` (linear probing) stacks each
 head's targets into a dict and carries the study ids and the view ids.
-The single-head collate comes with its slice.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from deepcoro_clip_tpu_torch.data.patch_wire import patchify_videos
+from deepcoro_clip_tpu_torch.data.single_head_sampler import VideoEntry
 
 
 def pick_text_bucket(
@@ -148,6 +149,72 @@ def collate_multi_positive(
         "unique_texts": bank,
         "paths": [it.get("paths", []) for it in items],
         "n_dropped_texts": dropped,
+    }
+
+
+def collate_single_head(
+    items: List[Dict[str, Any]],
+    tokenizer,
+    sampler,
+    text_by_id: Dict[str, str],
+    video_to_positives: Dict[str, List],
+    epoch: int = 0,
+    phase: str = "train",
+    max_text_length: int = 512,
+    max_texts: int = 64,
+    patch: Optional[Sequence[int]] = None,
+) -> Dict[str, Any]:
+    """Batch assembly through ``SingleHeadRetrievalSampler``
+    (``data/single_head_sampler.py``): the sampler builds the batch's
+    deduplicated bank and dense (Y, W) matrices over it, padded here to
+    ``max_texts``. The keys are ``collate_multi_positive``'s; the weights
+    carry W semantics (``loss_name: siglip_single_head``): W weights every
+    sampled pair and 0 excludes one.
+
+    A bank past ``max_texts`` keeps every positive column and cuts
+    negatives only (a stable sort on the is-negative key keeps each
+    group's order), so that no row loses its positives to an earlier
+    video's negatives; it warns when the positives alone overflow.
+
+    The sampler carries round-robin coverage state from call to call, so
+    one instance serves a run, called in batch order."""
+    entries = [VideoEntry(video_id=str(it["video_id"]),
+                          positive_pairs=video_to_positives.get(str(it["video_id"]), []))
+               for it in items]
+    out_s = sampler.prepare_batch(entries, epoch=epoch, phase=phase)
+    B = len(items)
+    n_bank = len(out_s.text_ids)
+    order = np.arange(n_bank)
+    if n_bank > max_texts:
+        is_pos = np.asarray(out_s.labels).max(axis=0) > 0
+        order = np.argsort(~is_pos, kind="stable")
+        if int(is_pos.sum()) > max_texts:
+            warnings.warn(
+                f"collate_single_head: {int(is_pos.sum())} positive texts "
+                f"exceed max_texts={max_texts}; some rows lose positives — "
+                "raise max_texts or lower the sampler's positive budget.")
+    M = min(n_bank, max_texts)
+    sel = order[:M]
+    pos = np.zeros((B, max_texts), np.float32)
+    w = np.zeros((B, max_texts), np.float32)
+    pos[:, :M] = np.asarray(out_s.labels)[:, sel]
+    w[:, :M] = np.asarray(out_s.weights)[:, sel]
+    bank = [text_by_id[out_s.text_ids[j]] for j in sel]
+    enc = tokenizer(bank + [""] * (max_texts - M), max_length=max_text_length,
+                    padding="max_length", truncation=True, return_tensors="np")
+    valid = np.zeros((max_texts,), np.float32)
+    valid[:M] = 1.0
+    return {
+        "videos": _maybe_patchify(np.stack([it["videos"] for it in items]), patch),
+        "video_mask": np.stack([it["video_mask"] for it in items]),
+        "input_ids": np.asarray(enc["input_ids"], np.int32),
+        "attention_mask": np.asarray(enc["attention_mask"], np.int32),
+        "positive_mask": pos,
+        "positive_weights": w,
+        "text_valid": valid,
+        "unique_texts": bank,
+        "paths": [it.get("paths", []) for it in items],
+        "n_dropped_texts": n_bank - M,
     }
 
 

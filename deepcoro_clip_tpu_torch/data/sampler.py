@@ -4,9 +4,9 @@ The port's copies of the JAX package's ``ShardedBatchSampler`` (a
 permutation from ``np.random.default_rng(seed + epoch)``, fixed-size
 batches, then the batches of this process, ``batches[rank::nprocs]``) and
 ``ClassAwareBatchSampler`` (a fixed abnormal:normal ratio a batch, drawn
-with replacement from the same generator). The same seed gives the same
-batches as in the JAX package. The severity-bucket sampler of the
-single-head path is not ported yet.
+with replacement from the same generator), and ``SeverityBucketBatchSampler``
+(a quota a severity bucket, with an optional warmup toward the easy
+buckets). The same seed gives the same batches as in the JAX package.
 """
 
 from __future__ import annotations
@@ -102,6 +102,89 @@ class ClassAwareBatchSampler(ShardedBatchSampler):
                                     rng.choice(neg_pool, n_neg, replace=True)])
             rng.shuffle(batch)
             batches.append(batch)
+        return batches
+
+    def __len__(self) -> int:
+        return len(range(self.rank, self.n_batches, self.nprocs))
+
+
+class SeverityBucketBatchSampler(ShardedBatchSampler):
+    """Batches with a quota from each severity bucket.
+
+    Each batch draws ``round(batch_size * quota)`` indices from every bucket
+    (with replacement), fills the rest from quota-weighted bucket draws, and
+    is shuffled before it is cut to ``batch_size``. ``exam_priors`` multiply
+    the quotas; during the first ``warmup_epochs`` the easy buckets (normal,
+    minimal, mild) weigh 1.5x and the others 0.5x. The quotas are
+    renormalized after both."""
+
+    def __init__(
+        self,
+        severities: Sequence[str],
+        batch_size: int,
+        bucket_quotas: Optional[dict] = None,  # severity -> fraction of batch
+        exam_priors: Optional[dict] = None,  # severity -> prior multiplier
+        warmup_epochs: int = 0,
+        seed: int = 42,
+        process_index: int = 0,
+        process_count: int = 1,
+        n_batches: Optional[int] = None,
+    ):
+        severities = [str(s).lower() for s in severities]
+        super().__init__(
+            len(severities), batch_size, shuffle=True, seed=seed,
+            process_index=process_index, process_count=process_count,
+        )
+        self.buckets: dict = {}
+        for i, s in enumerate(severities):
+            self.buckets.setdefault(s, []).append(i)
+        if bucket_quotas:
+            self.quotas = {str(k).lower(): v for k, v in bucket_quotas.items()}
+            if not set(self.quotas) & set(self.buckets):
+                raise ValueError(
+                    f"bucket_quotas keys {sorted(self.quotas)} match none of "
+                    f"the data's severities {sorted(self.buckets)}"
+                )
+        else:
+            self.quotas = {s: 1.0 / len(self.buckets) for s in self.buckets}
+        self.exam_priors = {str(k).lower(): float(v)
+                            for k, v in (exam_priors or {}).items()}
+        self.warmup_epochs = warmup_epochs
+        self.n_batches = n_batches or max(1, len(severities) // batch_size)
+        self._easy = {"normal", "minimal", "mild"}
+
+    def _effective_quotas(self) -> dict:
+        q = dict(self.quotas)
+        if self.exam_priors:
+            q = {s: v * self.exam_priors.get(s, 1.0) for s, v in q.items()}
+        if self.epoch < self.warmup_epochs:
+            q = {s: v * (1.5 if s in self._easy else 0.5) for s, v in q.items()}
+        total = sum(q.values()) or 1.0
+        return {s: v / total for s, v in q.items()}
+
+    def _batches(self) -> List[np.ndarray]:
+        rng = np.random.default_rng(self.seed + self.epoch)
+        quotas = self._effective_quotas()
+        names = [s for s in quotas if self.buckets.get(s)]
+        if not names:
+            return super()._batches()
+        probs = np.asarray([quotas[s] for s in names], np.float64)
+        probs = probs / probs.sum()
+        batches = []
+        for _ in range(self.n_batches):
+            batch = []
+            for s in names:
+                n = int(round(self.batch_size * quotas[s]))
+                if n and self.buckets[s]:
+                    batch.extend(rng.choice(self.buckets[s], n, replace=True))
+            # shuffled before the cut, so that the round-off overflow does
+            # not always cost the last-listed bucket
+            while len(batch) < self.batch_size:
+                s = names[int(rng.choice(len(names), p=probs))]
+                batch.append(int(rng.choice(self.buckets[s])))
+            batch = np.asarray(batch)
+            rng.shuffle(batch)
+            batches.append(batch[: self.batch_size])
         return batches
 
     def __len__(self) -> int:

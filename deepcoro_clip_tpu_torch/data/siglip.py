@@ -14,17 +14,19 @@ The port's copy of the JAX package's ``data/siglip.py`` on the port's
   up to ``max_positive_per_video``;
 - negatives come same segment, then same tree, then the rest, each tier
   shuffled (a boosted tier of contradicting normal texts first);
+- ``make_single_head_sampler`` builds the batch-level
+  ``SingleHeadRetrievalSampler`` over the texts' catalog, with
+  class-balance statistics computed from the catalog itself;
 - ``SiglipVideoDataset`` adds a per-item pack of ``positives`` and
   ``negatives`` to ``VideoClipDataset``'s items, drawn from a numpy
   generator seeded ``(crc32(video_id), epoch)`` as in the JAX package, and
   ``abnormal_labels`` for the class-aware sampler.
-
-The single-head sampler of the JAX module is not ported yet.
 """
 
 from __future__ import annotations
 
 import collections
+import random
 import zlib
 from typing import Dict, List, Optional, Tuple
 
@@ -32,6 +34,11 @@ import numpy as np
 
 from deepcoro_clip_tpu_torch.data.csv_utils import read_csv_with_fallback
 from deepcoro_clip_tpu_torch.data.datasets import VideoClipDataset
+from deepcoro_clip_tpu_torch.data.single_head_sampler import (
+    SingleHeadRetrievalSampler,
+    build_text_catalog,
+    compute_class_statistics,
+)
 
 # the default ladder of severity weights; a config's
 # siglip_positive_severity_weights replaces it
@@ -120,6 +127,41 @@ class SiglipResources:
                 continue
             w = float(row.get(edge_weight_column, 1.0) or 1.0)
             self.video_to_positives[vid].append((tid, w))
+
+    def make_single_head_sampler(self, config=None, seed: int = 0
+                                 ) -> SingleHeadRetrievalSampler:
+        """The batch-level ``SingleHeadRetrievalSampler`` over this catalog,
+        drawing from ``random.Random(seed)``; a config's ``siglip_*``
+        settings set its quotas and weights."""
+        raw = []
+        for tid in self.all_text_ids:
+            m = self.meta_by_id[tid]
+            raw.append({
+                "text_id": tid,
+                "prompt_text": self.text_by_id[tid],
+                "category": m.get("category"),
+                "segment": m.get("segment"),
+                "bin": m.get("bin"),
+                "tree": m.get("tree"),
+                "stent": m.get("stent"),
+                "soft_weight": m.get("soft_weight", 1.0),
+                "disease_severity": m.get("severity"),
+                "prompt_bucket": m.get("prompt_bucket"),
+            })
+        cw, lb = compute_class_statistics(raw)
+        kw = {}
+        if config is not None:
+            kw = dict(
+                max_negatives=config.siglip_negatives_per_video,
+                base_negative_weight=config.siglip_base_negative_weight,
+                round_robin=config.siglip_round_robin_sampling,
+                min_pos_weight=config.siglip_min_pos_weight,
+                positive_severity_weights=config.siglip_positive_severity_weights,
+                contradiction_boost=config.siglip_contradiction_boost or 1.0,
+                contradiction_min_severity=config.siglip_contradiction_min_severity,
+            )
+        return SingleHeadRetrievalSampler(build_text_catalog(raw, cw, lb),
+                                          rng=random.Random(seed), **kw)
 
     @staticmethod
     def _norm(v) -> Optional[str]:

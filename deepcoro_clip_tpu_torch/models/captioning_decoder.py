@@ -44,14 +44,20 @@ from deepcoro_clip_tpu_torch.models.layers import (
 
 
 class DecoderLayer(nn.Module):
+    """Pre-LN causal self-attention, cross-attention into ``memory`` (of
+    width ``memory_dim``, ``dim`` unless given) and a 4x MLP; the layer of
+    the captioning decoder and of ``models/locca_decoder.LocCaDecoder``."""
+
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.bfloat16, use_flash: bool = True):
+                 dtype: torch.dtype = torch.bfloat16, use_flash: bool = True,
+                 memory_dim: Optional[int] = None):
         super().__init__()
         self.dtype = dtype
         self.norm1 = LayerNorm(dim)
         self.self_attn = Attention(dim, num_heads, dropout, dtype, use_flash)
         self.norm2 = LayerNorm(dim)
-        self.cross_attn = Attention(dim, num_heads, dropout, dtype, use_flash, cross=True)
+        self.cross_attn = Attention(dim, num_heads, dropout, dtype, use_flash, cross=True,
+                                    context_dim=memory_dim)
         self.norm3 = LayerNorm(dim)
         self.mlp = MlpBlock(dim, dim * 4, dim, dropout, dtype)
 
@@ -110,10 +116,11 @@ def _next_token(logits, temperature: float, generator):
 
 
 @torch.no_grad()
-def greedy_generate(decoder: CaptioningDecoder, video_tokens, bos_id: int, eos_id: int,
+def greedy_generate(decoder: nn.Module, video_tokens, bos_id: int, eos_id: int,
                     max_length: Optional[int] = None, temperature: float = 0.0,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Static-shape greedy (or sampled) decoding by full recompute.
+    """Static-shape greedy (or sampled) decoding by full recompute, with a
+    ``CaptioningDecoder`` or a ``models/locca_decoder.LocCaDecoder``.
     Returns ``[B, max_length]`` int32 ids, BOS first, 0 after EOS."""
     max_length = max_length or decoder.max_length
     B = video_tokens.shape[0]

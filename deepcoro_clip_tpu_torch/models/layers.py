@@ -92,7 +92,8 @@ class Attention(nn.Module):
     Self-attention goes through one fused q|k|v projection ``qkv``;
     ``cross=True`` builds the separate ``q``/``k``/``v`` projections of the
     JAX module's ``context`` path instead (a flax module creates whichever
-    its first call uses; here the constructor says which).
+    its first call uses; here the constructor says which), ``k`` and ``v``
+    from a context of width ``context_dim`` (``dim`` unless given).
 
     Dispatch as in the JAX package: with ``use_flash`` and a head dim that
     is a multiple of 128, the packed kernel reads the projections directly;
@@ -112,7 +113,8 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16, use_flash: bool = True,
                  cross: bool = False, fused_outproj: Optional[bool] = None,
-                 ring_mesh=None, ring_axis: str = "model"):
+                 ring_mesh=None, ring_axis: str = "model",
+                 context_dim: Optional[int] = None):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.dropout, self.use_flash = dropout, use_flash
@@ -122,8 +124,8 @@ class Attention(nn.Module):
                               else bool(fused_outproj))
         if cross:
             self.q = Dense(dim, dim, dtype)
-            self.k = Dense(dim, dim, dtype)
-            self.v = Dense(dim, dim, dtype)
+            self.k = Dense(context_dim or dim, dim, dtype)
+            self.v = Dense(context_dim or dim, dim, dtype)
         else:
             self.qkv = Dense(dim, 3 * dim, dtype)
         self.proj = Dense(dim, dim, dtype)

@@ -2,8 +2,9 @@
 
 The port's copy of the JAX package's ``registry.py``, with the registries
 the ported pipelines need: the YAML key ``pipeline_project`` picks the
-project (``main``) and the project picks its runner, and the contrastive
-step picks a loss by ``loss_name``, by the same strings as there. ``register_all`` imports every module under ``runners/`` and
+project (``main``) and the project picks its runner, the contrastive
+step picks a loss by ``loss_name``, by the same strings as there, and
+``ModelRegistry`` names the LocCa decoder as the JAX package does. ``register_all`` imports every module under ``runners/`` and
 ``projects/`` so that their decorators run. Configs are picked by
 ``configs.CONFIG_CLASSES``.
 """
@@ -54,6 +55,12 @@ class RunnerRegistry(BaseRegistry):
 
 class ProjectRegistry(BaseRegistry):
     """Projects keyed by pipeline_project."""
+
+    _registry: Dict[str, Type] = {}
+
+
+class ModelRegistry(BaseRegistry):
+    """Model classes keyed by name (``models/locca_decoder.py``)."""
 
     _registry: Dict[str, Type] = {}
 

@@ -18,7 +18,15 @@ The port's ``VideoContrastiveLearningRunner`` (the JAX package's
   ``ClassAwareBatchSampler``, and a multi-positive loss collates each batch
   with ``collate_multi_positive`` (a bank of ``batch_size x
   (siglip_max_positive_per_video + siglip_negatives_per_video)`` texts);
-  the ``siglip_debug_*`` settings gate per-sample logit dumps;
+  with ``siglip_sampler: single_head`` the bank and its (Y, W) matrices
+  come from one ``SingleHeadRetrievalSampler`` a run instead
+  (``collate_single_head``), whose round-robin and generator state every
+  checkpoint keeps; the ``siglip_debug_*`` settings gate per-sample logit
+  dumps;
+- LocCa: with ``locca_enabled`` each batch carries the decoder's targets
+  (``locca_caption_batch`` over each item's ``locca_report``, its
+  reconstructed report, or its own report), and ``locca_loss`` joins the
+  train and validation history;
 - ``validate``: embeddings of every validation sample, the reports (with a
   multi-positive loss: every video's positives) deduplicated into a bank
   re-encoded in batches of 64, the similarity matrix, Recall@k, NDCG@k,
@@ -36,8 +44,7 @@ seeded from ``config.seed`` and kept in every checkpoint. The JAX runner
 derives a key per step with ``fold_in``/``split``; the masks differ (a
 deliberate divergence), the arithmetic does not. The qualitative HTML
 panels and the end-of-run plots of the JAX runner are left out (offline
-tools); the single-head sampler and the LocCa head raise
-``NotImplementedError``.
+tools).
 
 ``inference`` (``run_mode: inference``) ranks a precomputed text bank
 (``python -m deepcoro_clip_tpu_torch.generate_embeddings`` writes one) for
@@ -65,11 +72,13 @@ from deepcoro_clip_tpu_torch.configs import unported_settings
 from deepcoro_clip_tpu_torch.data.collate import (
     collate_clip,
     collate_multi_positive,
+    collate_single_head,
     wire_patch,
 )
 from deepcoro_clip_tpu_torch.data.csv_utils import write_csv
 from deepcoro_clip_tpu_torch.data.datasets import VideoClipDataset
 from deepcoro_clip_tpu_torch.data.loader import PrefetchLoader
+from deepcoro_clip_tpu_torch.data.locca import locca_caption_batch
 from deepcoro_clip_tpu_torch.data.sampler import ClassAwareBatchSampler
 from deepcoro_clip_tpu_torch.data.siglip import SiglipResources, SiglipVideoDataset
 from deepcoro_clip_tpu_torch.data.siglip_runtime import SiglipRuntimeSettings
@@ -204,6 +213,11 @@ class VideoContrastiveLearningRunner:
         self.siglip_runtime = SiglipRuntimeSettings.from_config(config, str(self.output_dir))
         self.siglip_resources = None  # set with the texts/edges manifests
         self.datasets = datasets if datasets is not None else self._build_datasets()
+        # the batch-level sampler of siglip_sampler: single_head, built at
+        # its first batch (single_head_sampler); one a run
+        self.single_head = (self.multi_positive and config.siglip_sampler == "single_head"
+                            and self.siglip_resources is not None)
+        self._single_head_sampler = None
         # before the bundle: the uint8 wire's patchify folds the stats in
         self.stats = resolve_dataset_stats(config, self.datasets)
         self.loaders = {
@@ -277,19 +291,49 @@ class VideoContrastiveLearningRunner:
             out[cfg.run_mode] = make(cfg.run_mode)
         return out
 
+    def single_head_sampler(self):
+        """The run's ``SingleHeadRetrievalSampler`` (seeded ``config.seed``),
+        built at the first call."""
+        if self._single_head_sampler is None:
+            self._single_head_sampler = self.siglip_resources.make_single_head_sampler(
+                self.config, seed=self.config.seed)
+        return self._single_head_sampler
+
     def _collate(self, items):
         cfg = self.config
-        if self.multi_positive:
-            # room for every video's positives and negatives
-            max_texts = cfg.batch_size * (cfg.siglip_max_positive_per_video
-                                          + cfg.siglip_negatives_per_video)
-            return collate_multi_positive(items, self.tokenizer,
-                                          max_text_length=cfg.max_text_length,
-                                          max_texts=max_texts, patch=wire_patch(cfg))
-        # length buckets are per-host batch content: one process only
-        buckets = cfg.text_length_buckets if cfg.process_count == 1 else []
-        return collate_clip(items, self.tokenizer, max_text_length=cfg.max_text_length,
-                            length_buckets=buckets, patch=wire_patch(cfg))
+        # room for every video's positives and negatives
+        max_texts = cfg.batch_size * (cfg.siglip_max_positive_per_video
+                                      + cfg.siglip_negatives_per_video)
+        if self.single_head:
+            # The sampler's round-robin state runs from batch to batch, so it
+            # must be called once a batch, in batch order: the loader
+            # collates in its one producer thread (process workers only
+            # build items; collation stays in this process). Validation
+            # batches go through here too and advance it, as in the JAX
+            # runner, whose validation calls the same collate.
+            res = self.siglip_resources
+            batch = collate_single_head(
+                items, self.tokenizer, self.single_head_sampler(), res.text_by_id,
+                res.video_to_positives,
+                epoch=getattr(self.datasets.get("train"), "epoch", 0),
+                max_text_length=cfg.max_text_length, max_texts=max_texts,
+                patch=wire_patch(cfg))
+        elif self.multi_positive:
+            batch = collate_multi_positive(items, self.tokenizer,
+                                           max_text_length=cfg.max_text_length,
+                                           max_texts=max_texts, patch=wire_patch(cfg))
+        else:
+            # length buckets are per-host batch content: one process only
+            buckets = cfg.text_length_buckets if cfg.process_count == 1 else []
+            batch = collate_clip(items, self.tokenizer,
+                                 max_text_length=cfg.max_text_length,
+                                 length_buckets=buckets, patch=wire_patch(cfg))
+        if cfg.locca_enabled:
+            # the LocCa targets: the report rebuilt from the positives (SigLIP
+            # items), else the sample's own report
+            texts = [it.get("locca_report") or it.get("text", "") for it in items]
+            batch.update(locca_caption_batch(texts, self.tokenizer, cfg.locca_max_seq_len))
+        return batch
 
     def _make_loader(self, dataset, training: bool):
         """The training batches of the class-aware sampler when the SigLIP
@@ -319,10 +363,10 @@ class VideoContrastiveLearningRunner:
                 tree = tree["params"]
             b = self.bundle
             current = convert.training_tree(b.video_model, b.text_model,
-                                            p["log_temp"], p["logit_bias"])
+                                            p["log_temp"], p["logit_bias"], b.locca_decoder)
             convert.load_training_tree(_merge_params_by_path(current, tree),
                                        b.video_model, b.text_model,
-                                       p["log_temp"], p["logit_bias"])
+                                       p["log_temp"], p["logit_bias"], b.locca_decoder)
             return
         saved = torch.load(path, map_location="cpu", weights_only=True)
         with torch.no_grad():
@@ -396,11 +440,12 @@ class VideoContrastiveLearningRunner:
                 meta["highest_alignment"] = self.highest_alignment
 
             if cfg.is_ref_device:
-                self.ckpt.save_latest(self.state, meta, self.generator)
+                host = (self.generator, self._single_head_sampler)
+                self.ckpt.save_latest(self.state, meta, *host)
                 if improved:
-                    self.ckpt.save_best(self.state, epoch, meta, self.generator)
+                    self.ckpt.save_best(self.state, epoch, meta, *host)
                 if new_alignment:
-                    self.ckpt.save_alignment(self.state, epoch, meta, self.generator)
+                    self.ckpt.save_alignment(self.state, epoch, meta, *host)
 
             if patience_left <= 0:
                 break
@@ -463,12 +508,15 @@ class VideoContrastiveLearningRunner:
             return {}
         t0 = time.perf_counter()
         losses: List[float] = []
+        locca_losses: List[float] = []
         v_embs: List[np.ndarray] = []
         texts: List[List[str]] = []
         paths: List[str] = []
 
         def consume(batch, out):
             losses.append(float(out["loss"]))
+            if "locca_loss" in out:
+                locca_losses.append(float(out["locca_loss"]))
             n_real = len(batch["paths"])
             v_embs.append(out["video_emb"].float().cpu().numpy()[:n_real])
             if self.multi_positive:
@@ -491,6 +539,8 @@ class VideoContrastiveLearningRunner:
             return {}
         v_emb = np.concatenate(v_embs)
         metrics = {"loss": float(np.mean(losses))}
+        if locca_losses:
+            metrics["locca_loss"] = float(np.mean(locca_losses))
         metrics.update(self._retrieval_eval(v_emb, texts, epoch, split, paths=paths))
         metrics["seconds"] = time.perf_counter() - t0
         return metrics
@@ -667,10 +717,12 @@ class VideoContrastiveLearningRunner:
 
     def maybe_resume(self) -> int:
         """With ``resume_training`` and a latest checkpoint in this run's
-        directory: its parameters, optimizer state, step, dropout generator
-        and best-so-far trackers; returns the epoch to start from."""
+        directory: its parameters, optimizer state, step, dropout generator,
+        single-head sampler and best-so-far trackers; returns the epoch to
+        start from."""
         if self.config.resume_training and self.ckpt.latest_exists():
-            self.state = self.ckpt.restore(self.state, "checkpoint", self.generator)
+            sampler = self.single_head_sampler() if self.single_head else None
+            self.state = self.ckpt.restore(self.state, "checkpoint", self.generator, sampler)
             meta = self.ckpt.load_meta("checkpoint") or {}
             self.best_val_loss = float(meta.get("best_val_loss", math.inf))
             self.best_epoch = int(meta.get("best_epoch", -1))

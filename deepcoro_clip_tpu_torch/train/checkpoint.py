@@ -10,8 +10,9 @@ never the resume target. Each is one file ``{name}.pt`` beside a sidecar
 
 A ``.pt`` file holds the training step, the parameters (the flat training
 dict, on the CPU), the optimizer state, the state of the run's dropout
-``torch.Generator`` and the meta: enough that a resumed run repeats an
-uninterrupted one. A file is written under a temporary name and moved into
+``torch.Generator``, the state of a host-side batch sampler where the run
+has one (``sampler``: the single-head SigLIP sampler's ``state_dict``) and
+the meta: enough that a resumed run repeats an uninterrupted one. A file is written under a temporary name and moved into
 place, so a crash mid-save leaves the previous checkpoint whole.
 """
 
@@ -53,7 +54,7 @@ class CheckpointManager:
     # ------------------------------------------------------------------ #
 
     def _save(self, name: str, state: Any, meta: Dict[str, Any],
-              generator: Optional[torch.Generator] = None) -> Path:
+              generator: Optional[torch.Generator] = None, sampler=None) -> Path:
         path = self.dir / f"{name}.pt"
         tmp = self.dir / f"{name}.pt.tmp"
         torch.save({
@@ -61,6 +62,7 @@ class CheckpointManager:
             "params": _to_cpu(dict(state.params)),
             "opt_state": _to_cpu(state.opt_state),
             "generator": None if generator is None else generator.get_state(),
+            "sampler": None if sampler is None else sampler.state_dict(),
             "meta": meta,
         }, tmp)
         os.replace(tmp, path)
@@ -73,8 +75,8 @@ class CheckpointManager:
                 p.unlink(missing_ok=True)
 
     def save_latest(self, state: Any, meta: Dict[str, Any],
-                    generator: Optional[torch.Generator] = None) -> Path:
-        return self._save("checkpoint", state, meta, generator)
+                    generator: Optional[torch.Generator] = None, sampler=None) -> Path:
+        return self._save("checkpoint", state, meta, generator, sampler)
 
     def save_debug(self, name: str, state: Any, meta: Dict[str, Any],
                    generator: Optional[torch.Generator] = None) -> Path:
@@ -83,16 +85,16 @@ class CheckpointManager:
         return self._save(name, state, meta, generator)
 
     def save_best(self, state: Any, epoch: int, meta: Dict[str, Any],
-                  generator: Optional[torch.Generator] = None) -> Path:
+                  generator: Optional[torch.Generator] = None, sampler=None) -> Path:
         name = f"best_model_epoch_{epoch}"
-        path = self._save(name, state, meta, generator)
+        path = self._save(name, state, meta, generator, sampler)
         self._prune("best_model_epoch_", name)
         return path
 
     def save_alignment(self, state: Any, epoch: int, meta: Dict[str, Any],
-                       generator: Optional[torch.Generator] = None) -> Path:
+                       generator: Optional[torch.Generator] = None, sampler=None) -> Path:
         name = f"highest_alignment_epoch_{epoch}"
-        path = self._save(name, state, meta, generator)
+        path = self._save(name, state, meta, generator, sampler)
         self._prune("highest_alignment_epoch_", name)
         return path
 
@@ -104,15 +106,17 @@ class CheckpointManager:
                           weights_only=True)
 
     def restore(self, state_like: Any, name: str = "checkpoint",
-                generator: Optional[torch.Generator] = None) -> Any:
+                generator: Optional[torch.Generator] = None, sampler=None) -> Any:
         """Load ``name`` into ``state_like``'s tensors in place (and its
-        generator state into ``generator``); returns the state with the
-        saved step."""
+        generator state into ``generator``, its sampler state into
+        ``sampler``); returns the state with the saved step."""
         saved = self.load(name)
         _load_into(state_like.params, saved["params"])
         opt_state = _load_into(state_like.opt_state, saved["opt_state"])
         if generator is not None and saved.get("generator") is not None:
             generator.set_state(saved["generator"])
+        if sampler is not None and saved.get("sampler") is not None:
+            sampler.load_state_dict(saved["sampler"])
         return state_like.replace(step=int(saved["step"]), opt_state=opt_state)
 
     def load_meta(self, name: str = "checkpoint") -> Optional[Dict[str, Any]]:

@@ -12,10 +12,19 @@ which scores each video against the batch's bank of unique texts
 (``positive_mask``, ``positive_weights``, ``text_valid`` from
 ``data/collate.collate_multi_positive``).
 
+With ``locca_enabled`` the bundle carries the LocCa head
+(``models/locca_decoder.LocCaDecoder``, the training tree's
+``locca_decoder``): a batch with ``caption_ids`` takes one backbone pass
+(``VideoEncoder.features``) for the study embedding and the unpooled
+tokens, the decoder generates the batch's report from the tokens, and
+``locca_weight`` times its ``locca_combined_loss`` joins the contrastive
+loss ("relative to the SigLIP loss", as the JAX module weighs it). Its
+parameters take the optimizer's ``video`` group, as in the JAX package,
+and no freeze ratio masks them.
+
 A step updates the state it is given in place (parameters, moments, counts)
 and returns it with ``step + 1``; PyTorch runs it eagerly, so
-``make_train_step`` returns a plain function. The LocCa head of the JAX
-module is not ported yet and raises ``NotImplementedError``.
+``make_train_step`` returns a plain function.
 """
 
 from __future__ import annotations
@@ -27,6 +36,11 @@ import torch
 
 from deepcoro_clip_tpu_torch.device import resolve_device
 from deepcoro_clip_tpu_torch.losses import contrastive as closs
+from deepcoro_clip_tpu_torch.losses.locca import locca_combined_loss
+from deepcoro_clip_tpu_torch.models.locca_decoder import (
+    init_locca_decoder,
+    locca_decoder_from_config,
+)
 from deepcoro_clip_tpu_torch.models.text_encoder import text_encoder_from_config
 from deepcoro_clip_tpu_torch.models.video_encoder import (
     init_params,
@@ -59,6 +73,8 @@ class ClipBundle(NamedTuple):
     schedule: Callable
     video_fracs: Dict[str, float]   # freeze-order fractions per leaf
     text_fracs: Dict[str, float]
+    # the LocCa head; None unless config.locca_enabled
+    locca_decoder: Any = None
 
 
 def is_multi_positive(config) -> bool:
@@ -70,18 +86,18 @@ def _check_loss_name(config) -> None:
     name = config.loss_name.lower()
     if name not in CLIP_LOSSES | SIGLIP_LOSSES | MULTI_POSITIVE_LOSSES:
         raise ValueError(f"unknown loss_name {config.loss_name!r}")
-    if getattr(config, "locca_enabled", False) or config.extra().get("locca_enabled"):
-        raise NotImplementedError(
-            "locca_enabled: the LocCa head comes with the multitask slice of the port")
 
 
-def training_params(video_model, text_model, log_temp, logit_bias
+def training_params(video_model, text_model, log_temp, logit_bias, locca_decoder=None
                     ) -> Dict[str, torch.Tensor]:
     """The flat training dict over the models' own parameters."""
     params = {f"video_encoder.{k}": p for k, p in video_model.named_parameters()}
     params.update({f"text_encoder.{k}": p for k, p in text_model.named_parameters()})
     params["log_temp"] = log_temp
     params["logit_bias"] = logit_bias
+    if locca_decoder is not None:
+        params.update({f"locca_decoder.{k}": p
+                       for k, p in locca_decoder.named_parameters()})
     return params
 
 
@@ -96,7 +112,9 @@ def build_clip_bundle(config, seed: int = 0, steps_per_epoch: int = 100,
     as ring attention over ``mesh`` (by default ``make_mesh(MeshSpec(
     config.mesh_data, config.mesh_model))`` over the visible cards, or over
     ``device`` alone on the CPU; too few devices raise). A caller may pass
-    a mesh whose device list repeats a device."""
+    a mesh whose device list repeats a device. With ``config.locca_enabled``
+    the LocCa head is built over the video tower's ``embedding_dim`` tokens,
+    with the token grid of ``locca_token_grid``."""
     _check_loss_name(config)
     dev = resolve_device(device)
     ring_mesh = None
@@ -113,7 +131,12 @@ def build_clip_bundle(config, seed: int = 0, steps_per_epoch: int = 100,
         math.log(config.temperature), dtype=torch.float32, device=dev))
     logit_bias = torch.nn.Parameter(torch.tensor(
         float(config.siglip_bias_init), dtype=torch.float32, device=dev))
-    params = training_params(video_model, text_model, log_temp, logit_bias)
+    locca_decoder = None
+    if config.locca_enabled:
+        locca_decoder = init_locca_decoder(
+            locca_decoder_from_config(config, memory_dim=config.embedding_dim),
+            seed + 2).to(dev)
+    params = training_params(video_model, text_model, log_temp, logit_bias, locca_decoder)
 
     schedule = get_scheduler(
         config.scheduler_name, config.lr, steps_per_epoch, config.epochs,
@@ -140,6 +163,7 @@ def build_clip_bundle(config, seed: int = 0, steps_per_epoch: int = 100,
             optim_lib.tower_params(params, "video_encoder"), include=("backbone",)),
         text_fracs=optim_lib.freeze_fractions(
             optim_lib.tower_params(params, "text_encoder"), exclude=("proj",)),
+        locca_decoder=locca_decoder,
     )
     return bundle, state
 
@@ -150,25 +174,38 @@ def to_device_batch(bundle: ClipBundle, batch: Dict[str, Any]) -> Dict[str, torc
 
 
 def _forward_embeddings(bundle: ClipBundle, batch, generator, deterministic):
-    """(v_emb, t_emb). Float batches come normalized from the host; integer
-    (uint8) batches go raw into the model, whose patchify folds the dataset
+    """(v_emb, t_emb, tokens); ``tokens`` ``[B, N*L, D]`` is None unless the
+    LocCa head reads the unpooled video tokens (one backbone pass either
+    way). Float batches come normalized from the host; integer (uint8)
+    batches go raw into the model, whose patchify folds the dataset
     statistics into its weights."""
-    v_emb = bundle.video_model(batch["videos"], video_mask=batch.get("video_mask"),
-                               deterministic=deterministic, generator=generator)
+    tokens = None
+    if bundle.locca_decoder is not None and "caption_ids" in batch:
+        feats = bundle.video_model.features(batch["videos"],
+                                            video_mask=batch.get("video_mask"),
+                                            deterministic=deterministic, generator=generator)
+        v_emb = feats["study"]
+        B, N, L, D = feats["tokens"].shape
+        tokens = feats["tokens"].reshape(B, N * L, D)
+    else:
+        v_emb = bundle.video_model(batch["videos"], video_mask=batch.get("video_mask"),
+                                   deterministic=deterministic, generator=generator)
     t_emb = bundle.text_model(batch["input_ids"],
                               attention_mask=batch["attention_mask"],
                               deterministic=deterministic, generator=generator)
-    return v_emb, t_emb
+    return v_emb, t_emb, tokens
 
 
 def compute_loss(bundle: ClipBundle, log_temp, batch, generator=None,
                  deterministic: bool = False, logit_bias=None) -> Dict[str, torch.Tensor]:
     """Forward both towers and the configured loss. The models read their
     own parameters; ``log_temp`` is passed so that a step can pin it, and
-    ``logit_bias`` (the SigLIP losses') is the model's own scalar."""
+    ``logit_bias`` (the SigLIP losses') is the model's own scalar. With the
+    LocCa head and ``caption_ids`` in the batch, ``locca_loss`` is its
+    combined loss and ``loss`` adds ``locca_weight`` times it."""
     cfg = bundle.config
     name = cfg.loss_name.lower()
-    v_emb, t_emb = _forward_embeddings(bundle, batch, generator, deterministic)
+    v_emb, t_emb, tokens = _forward_embeddings(bundle, batch, generator, deterministic)
     v_emb = torch.nan_to_num(v_emb)
     t_emb = torch.nan_to_num(t_emb)
     sample_mask = batch.get("sample_mask")
@@ -194,6 +231,17 @@ def compute_loss(bundle: ClipBundle, log_temp, batch, generator=None,
     else:
         out = closs.clip_loss(v_emb, t_emb, log_temp, label_smoothing=cfg.label_smoothing,
                               sample_mask=sample_mask)
+    if tokens is not None:
+        logits = bundle.locca_decoder(batch["caption_ids"], tokens,
+                                      attention_mask=batch.get("caption_mask"),
+                                      deterministic=deterministic, generator=generator)
+        locca = locca_combined_loss(
+            logits, batch["caption_ids"], batch["caption_mask"],
+            location_mask=batch.get("location_mask"),
+            weights=dict(cfg.locca_task_weights) if cfg.locca_task_weights else None,
+            label_smoothing=cfg.label_smoothing, sample_weights=sample_mask)
+        out["locca_loss"] = locca["total"]
+        out["loss"] = out["loss"] + cfg.locca_weight * locca["total"]
     out["video_emb"] = v_emb
     out["text_emb"] = t_emb
     return out
@@ -228,7 +276,9 @@ def make_train_step(bundle: ClipBundle):
     are drawn from. The ratios and ``temp_override`` are Python numbers;
     ``temp_override`` < 0 means "use the learnable temperature", otherwise
     log_temp is pinned to log(override). Metrics are tensors on the device:
-    reading one is the only time the host waits.
+    reading one is the only time the host waits. With the LocCa head they
+    add ``locca_loss`` (which the JAX step leaves out) and
+    ``grad_norm_locca_decoder``.
     """
     multi_positive = is_multi_positive(bundle.config)
 
@@ -271,7 +321,7 @@ def make_train_step(bundle: ClipBundle):
                                 [updates[n] for n in moving])
 
             towers = {t: [g for n, g in grads.items() if n.startswith(t + ".")]
-                      for t in ("video_encoder", "text_encoder")}
+                      for t in ("video_encoder", "text_encoder", "locca_decoder")}
             # per backbone child (block{i}, pool{s}, patch_embed, cls,
             # norm), under the JAX tree's names, when asked for
             blocks: Dict[str, list] = {}
@@ -288,7 +338,7 @@ def make_train_step(bundle: ClipBundle):
                                              sample_mask=batch.get("sample_mask")),
                 "grad_norm": optim_lib.global_norm(grads),
                 **{f"grad_norm_{t}": optim_lib.global_norm(g)
-                   for t, g in towers.items()},
+                   for t, g in towers.items() if g},
                 **{f"grad_norm_video_{b}": optim_lib.global_norm(g)
                    for b, g in blocks.items()},
                 "video_emb_norm": torch.linalg.vector_norm(
@@ -298,13 +348,17 @@ def make_train_step(bundle: ClipBundle):
                 "lr": bundle.schedule(optim_lib.optimizer_step_count(
                     state.opt_state, state.step)),
             }
+            if "locca_loss" in out:
+                metrics["locca_loss"] = out["locca_loss"].detach()
         return state.replace(step=state.step + 1), metrics
 
     return step
 
 
 def make_eval_step(bundle: ClipBundle):
-    """Embedding forward for validation and inference (deterministic)."""
+    """Embedding forward for validation and inference (deterministic); the
+    loss includes the LocCa term where the train step's does, and
+    ``locca_loss`` comes out beside it."""
 
     multi_positive = is_multi_positive(bundle.config)
 
@@ -312,7 +366,9 @@ def make_eval_step(bundle: ClipBundle):
     def step(params: Dict[str, torch.Tensor], batch):
         out = compute_loss(bundle, params["log_temp"], batch, deterministic=True,
                            logit_bias=params["logit_bias"])
+        extra = {"locca_loss": out["locca_loss"]} if "locca_loss" in out else {}
         return {
+            **extra,
             "loss": out["loss"],
             "video_emb": out["video_emb"],
             "text_emb": out["text_emb"],

@@ -146,6 +146,12 @@ def global_norm(tensors) -> torch.Tensor:
     ts = list(tensors.values()) if isinstance(tensors, Mapping) else list(tensors)
     if not ts:
         return torch.zeros(())
+    if ts[0].device.type == "cpu":
+        # the CPU's fp32 norm sums a long tensor serially: 3e-4 off at the
+        # LocCa head's [30522, 16] output projection; a float64 sum stays
+        # within fp32 rounding, as XLA's pairwise sums do
+        norms = torch.stack([torch.linalg.vector_norm(t, dtype=torch.float64) for t in ts])
+        return torch.linalg.vector_norm(norms).to(ts[0].dtype)
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(ts)))
 
 

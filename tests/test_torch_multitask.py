@@ -85,22 +85,34 @@ def test_chip_smoke_multitask_config_is_the_yaml():
 
 
 def test_clip_yaml_with_locca_still_raises(tmp_path):
-    """The contrastive path's LocCa head is not ported: a DeepCORO_clip run
-    with ``locca_enabled`` raises, the multitask run does not."""
+    """A DeepCORO_clip YAML with ``locca_enabled`` raised until the
+    contrastive path's LocCa head was ported: it now passes
+    ``check_ported`` and builds the head over the video tokens, as the
+    multitask config does its decoder. What still raises is a head whose
+    token grid does not tile the backbone's tokens."""
     raw = yaml.safe_load((REPO / "config/clip/base_config.yaml").read_text())
     raw["locca_enabled"] = True
     p = tmp_path / "clip_locca.yaml"
     p.write_text(yaml.safe_dump(raw))
     cfg = tconfigs.parse_config(["--base_config", str(p)])
-    assert any(s.startswith("locca_enabled") for s in tconfigs.unported_settings(cfg))
+    assert cfg.locca_enabled and tconfigs.unported_settings(cfg) == []
+    from deepcoro_clip_tpu_torch.models.locca_decoder import locca_decoder_from_config
     from deepcoro_clip_tpu_torch.runners.contrastive import check_ported
 
-    with pytest.raises(NotImplementedError, match="locca_enabled"):
-        check_ported(cfg)
+    check_ported(cfg)
+    dec = locca_decoder_from_config(cfg, memory_dim=cfg.embedding_dim)
+    assert (dec.dim, dec.depth, dec.num_heads, dec.max_length) == (
+        cfg.locca_d_model, cfg.locca_num_layers, cfg.locca_num_heads, cfg.locca_max_seq_len)
+    n_tok = dec.coords.shape[0]
+    with torch.no_grad():
+        out = dec(torch.zeros(1, 4, dtype=torch.long), torch.zeros(1, 2 * n_tok, cfg.embedding_dim))
+        assert out.shape == (1, 4, cfg.text_vocab_size)
+        with pytest.raises(ValueError, match="not a multiple"):
+            dec(torch.zeros(1, 4, dtype=torch.long), torch.zeros(1, n_tok + 1, cfg.embedding_dim))
     mt = tconfigs.MultitaskConfig.from_dict({"locca_enabled": True, "locca_weight": 0.3})
     assert tconfigs.unported_settings(mt) == []
     mt = tconfigs.MultitaskConfig.from_dict({"siglip_sampler": "x"})
-    assert tconfigs.unported_settings(mt)
+    assert tconfigs.unported_settings(mt) == []
 
 
 # --------------------------------------------------------------------------- #

@@ -19,6 +19,7 @@ checkpointed generator state matters).
 """
 
 import json
+import math
 from pathlib import Path
 
 import jax
@@ -41,6 +42,8 @@ from deepcoro_clip_tpu_torch.data.csv_utils import write_csv
 from deepcoro_clip_tpu_torch.main import main
 from deepcoro_clip_tpu_torch.runners import contrastive as trun
 from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
+
+from tests.single_head_runs import siglip_corpus, single_head_yaml
 
 jax_register_all()
 
@@ -287,33 +290,37 @@ CLIP_YAMLS = sorted((REPO / "config" / "clip").glob("*.yaml")) + [
 @pytest.mark.parametrize("path", CLIP_YAMLS, ids=lambda p: p.stem)
 def test_shipped_clip_yaml_parses_as_in_jax(path):
     """Every shipped contrastive YAML reads, field for field as the JAX
-    parser reads it; the runner takes each (multivideo_config.yaml and
+    parser reads it, and the runner takes each (multivideo_config.yaml and
     siglip_multi_positive_config.yaml too: tests/test_torch_siglip.py runs
-    them) but the single-head sampler's, which it refuses."""
+    them; siglip_single_head_config.yaml: tests/test_torch_single_head.py)."""
     got = tconfigs.parse_config(["--base_config", str(path)])
     ref = jax_parse_config(["--base_config", str(path)]).to_dict()
     for key, val in got.to_dict().items():
         if key not in ("is_ref_device", "process_index", "process_count", "world_size",
                        *tconfigs.PORT_FIELDS):
             assert val == ref[key], key
-    if got.siglip_sampler == "single_head":
-        with pytest.raises(NotImplementedError, match="single-head SigLIP sampler"):
-            trun.check_ported(got)
-    else:
-        trun.check_ported(got)
+    assert tconfigs.unported_settings(got) == []
+    trun.check_ported(got)
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(loss_name="siglip_single_head", siglip_sampler="single_head"), "SigLIP"),
-    (dict(locca_enabled=True), "locca_enabled"),
+    (dict(loss_name="siglip_single_head", siglip_sampler="single_head"), "single_head"),
+    (dict(locca_enabled=True, locca_d_model=16, locca_num_layers=1, locca_num_heads=2,
+          locca_max_seq_len=12), "locca"),
     (dict(run_mode="inference"), "inference"),
-    (dict(siglip_sampler="single_head", siglip_texts_path="texts.csv"), "siglip_sampler"),
+    (dict(siglip_sampler="single_head", loss_name="siglip_single_head",
+          locca_enabled=True, locca_d_model=16, locca_num_layers=1, locca_num_heads=2,
+          locca_max_seq_len=24), "single_head_locca"),
 ])
-def test_unported_paths_raise_through_main(workspace, over, match):
-    """What the runner does not run yet raises, naming it. ``run_mode:
-    inference`` is ported now: its case runs it (one row a clip, the
-    averaged metadata of a seeded bank; tests/test_torch_inference.py holds
-    it against the JAX runner)."""
+def test_unported_paths_raise_through_main(workspace, tmp_path, over, match):
+    """The paths that raised before they were ported run through main now,
+    and nothing is left that ``check_ported`` refuses: ``run_mode:
+    inference`` (one row a clip, the averaged metadata of a seeded bank;
+    tests/test_torch_inference.py holds it against the JAX runner), the
+    single-head SigLIP sampler (on SigLIP manifests of a rendered corpus),
+    the LocCa head on plain CLIP batches (the reports as its targets), and
+    both together (tests/test_torch_single_head.py and
+    tests/test_torch_locca.py hold them against the JAX package)."""
     if over.get("run_mode") == "inference":
         r = np.random.default_rng(1)
         np.savez(workspace / "bank.npz", text_embeddings=r.normal(size=(6, 16)))
@@ -332,10 +339,18 @@ def test_unported_paths_raise_through_main(workspace, over, match):
         assert result["inference_rows"] == 12 and len(rows) == 13
         assert rows[0] == "path,topk_indices,topk_scores,grade,finding"
         return
-    path = _write_yaml(workspace / "unported.yaml",
-                       _cfg(workspace, output_dir=str(workspace / "unported"), **over))
-    with pytest.raises(NotImplementedError, match=match):
-        main(["--base_config", str(path), "--device", "cpu"])
+    cfg = _cfg(workspace, output_dir=str(tmp_path / "run"), epochs=1, **over)
+    if over.get("siglip_sampler") == "single_head":
+        paths = siglip_corpus(tmp_path, seed=2, n_train=8, n_val=4)["paths"]
+        cfg = single_head_yaml(paths, tmp_path / "run", epochs=1, **{
+            k: v for k, v in over.items() if k.startswith("locca_")})
+    assert tconfigs.unported_settings(tconfigs.ClipConfig.from_dict(cfg)) == []
+    path = _write_yaml(tmp_path / f"{match}.yaml", cfg)
+    (h,) = main(["--base_config", str(path), "--device", "cpu"])["history"]
+    assert math.isfinite(h["loss"]) and math.isfinite(h["val_loss"])
+    assert ("locca_loss" in h) == ("locca" in match)
+    if "locca" in match:
+        assert math.isfinite(h["locca_loss"]) and h["grad_norm_locca_decoder"] > 0
 
 
 def test_entry_point_defaults_to_the_card(workspace):

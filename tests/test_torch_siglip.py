@@ -445,11 +445,13 @@ def test_study_items_at_the_multivideo_config_match_jax(corpus):
 
 
 def test_chip_smoke_configs_are_the_shipped_yamls():
-    """chip_smoke.py spells the two SigLIP recipes out as dicts (the card's
+    """chip_smoke.py spells the three SigLIP recipes out as dicts (the card's
     machine need not have PyYAML): each equals its YAML as the port's
-    parser reads it, and both runs pass the runner's check."""
+    parser reads it, and every run passes the runner's check."""
     for fn, name in ((chip_smoke.siglip_config, "siglip_multi_positive_config.yaml"),
-                     (chip_smoke.multivideo_config, "multivideo_config.yaml")):
+                     (chip_smoke.multivideo_config, "multivideo_config.yaml"),
+                     (chip_smoke.siglip_single_head_config,
+                      "siglip_single_head_config.yaml")):
         want = tconfigs.parse_config(["--base_config", str(REPO / "config" / "clip" / name)])
         got = fn()
         assert got.to_dict() == want.to_dict(), name

@@ -250,14 +250,28 @@ def test_gradient_accumulation_matches_jax():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(locca_enabled=True), NotImplementedError),
+    (dict(locca_enabled=True, locca_d_model=32, locca_num_layers=1, locca_num_heads=2,
+          locca_max_seq_len=8), None),
     (dict(optimizer="adafactor"), NotImplementedError),
     (dict(optimizer="lion"), NotImplementedError),
     (dict(loss_name="nope"), ValueError),
 ])
 def test_unported_options_raise(kw, exc):
-    with pytest.raises(exc):
-        tclip.build_clip_bundle(tiny_config(**kw), device="cpu")
+    """What the step does not take raises; ``locca_enabled``, which raised
+    until the LocCa head was ported, builds the head and trains it
+    (tests/test_torch_locca.py holds it against the JAX step)."""
+    if exc is not None:
+        with pytest.raises(exc):
+            tclip.build_clip_bundle(tiny_config(**kw), device="cpu")
+        return
+    bundle, state = tclip.build_clip_bundle(tiny_config(**kw), device="cpu")
+    assert bundle.locca_decoder is not None
+    batch = _batch(bundle.config)
+    r = np.random.default_rng(3)
+    batch.update(caption_ids=r.integers(0, 256, (4, 8)).astype(np.int32),
+                 caption_mask=np.ones((4, 8), np.int32))
+    state, m = tclip.make_train_step(bundle)(state, tclip.to_device_batch(bundle, batch))
+    assert float(m["locca_loss"]) > 0 and float(m["grad_norm_locca_decoder"]) > 0
 
 
 @pytest.mark.parametrize("loss", ["siglip", "siglip2_bce", "weighted_siglip",
