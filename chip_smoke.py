@@ -6,6 +6,8 @@
                                         # into an older tree to time its host path)
     python3 chip_smoke.py --compare     # one run of an A B B A call (run_compare;
                                         # copy the script into the older tree too)
+    python3 chip_smoke.py --ddp-rank <spec.json>   # one rank of phase 32 or 33, as
+                                        # torch.distributed.run starts it there
 
 Phases, each printing one line (or a few) before the last:
 
@@ -309,10 +311,32 @@ Phases, each printing one line (or a few) before the last:
    bounds and SDPA's; step time, peak memory against phase 30's, the
    profiled step's busy time and the head's share of it (the same batch
    without its caption ids);
+32. data-parallel training: phase 22's config at dropout 0 on phase 22's
+   corpus through `python -m torch.distributed.run --nproc_per_node N
+   chip_smoke.py --ddp-rank <spec>` (each rank calls the port's main): N
+   cards over NCCL where the machine shows two or more, else 2 ranks
+   sharing card 0 over gloo; the same config at world 1 in this process.
+   Per-step losses against world 1 (relative 1e-2) and grad_norm where the
+   weights are still the same (1e-3), validation loss, alignment and
+   Recall@k against world 1, parameters bit-equal across the ranks after
+   each epoch (checksums), launches per rank as phase 22's per step, one
+   run directory written by rank 0 alone (an audit hook on every rank),
+   the checkpoint's per-rank generator states, epoch 0's checkpoint resumed
+   at world N bit-equal to the uninterrupted run; step time and global
+   clips/s beside world 1's, peak memory per rank, and a profiled step's
+   gradient all-reduce (host time) and collectives on the card;
+33. one optimizer step each of SigLIP multi-positive (global batch 4, the
+   bank replicated), multitask (8 studies x 4 clips, the MVM mask handed
+   over) and probing (8 x 10 clips) at full width, dropout 0, over the
+   same group against the world-1 step on the same global batch and
+   weights: the loss (relative 1e-2), each tower's averaged gradient by
+   its cosine to world 1's (phase 9's bars), launches per rank equal to
+   world 1's, parameters bit-equal across the ranks after the step;
 then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6, and
 the long K3 and K4 kernels an entry each; K3 and K4 list their short and
 long kernels and carry phase 21's rows; every kernel carries the launches
-of phases 22 to 25's, 27, 28, 30 and 31's runs and of phase 29's paths
+of phases 22 to 25's, 27, 28, 30 and 31's runs, of phase 29's paths and
+a rank's of phases 32 and 33
 (K5's "launches" are phase 27's train run's), K3 and K4 their shapes; the
 long entries their launches over phases 22 to 25's, 30's and 31's runs and
 the bank's, their row at the SigLIP bank's mask and every long row of
@@ -5576,6 +5600,663 @@ def run_compare(torch) -> dict:
     return result
 
 
+# --------------------------------------------------------------------------- #
+# phases 32 and 33: data parallelism over torch.distributed, one process a
+# rank, launched by torch.distributed.run
+
+# Bars, stated before the first run on the card. A world-N run and the
+# world-1 run of the same config differ in rounding only: the bf16 GEMMs at
+# B/N rows a rank against B, the fp32 order of the gathered loss and of the
+# gradient all-reduce. Phase 9 lets two bf16 gradient paths of one step sit
+# at cosine 0.97 (video) / 0.985 (text) from each other
+# (GRAD_MIN_KERNEL_VS_PLAIN), and phase 33 holds the world-N gradient of one
+# step to those bars against the world-1 one. Paths that close move a loss
+# near ln 16 by far less than 1% over phase 32's six steps at lr <= 1e-4;
+# a wrong reduction lands outside: the loss over a rank's 8 rows instead of
+# the global 16 (ln 8 against ln 16 at the start, 25% apart), a gradient
+# summed over the ranks instead of averaged (its norm doubled).
+DDP_LOSS_REL = 1e-2
+# grad_norm is held where the two runs' weights are the same bits (every
+# earlier step at lr 0: the warmup's first step): only the row blocking of
+# the bf16 GEMMs and the order of the fp32 sums differ there. Past the first
+# update the weights drift apart by rounding that Adam's normalised step
+# amplifies, so later steps' norms are printed beside world 1's, not held
+# (a bar of 5% there, stated before the first card run, failed at step 4:
+# 1.65416 against 1.56643, while that step's loss agreed to 2e-4)
+DDP_GRAD_NORM_REL = 1e-3
+# phase 32's validation against world 1: the loss by the loss bar; the
+# alignment, a mean cosine near 0 here, by an absolute bar (a relative one,
+# stated before the first four-card run, failed there at epoch 1: 0.034214
+# against 0.034889, while the train steps' alignments drift by up to 6e-4
+# once the weights part by rounding); Recall@k may move by one of the 16
+# clips swapping ranks
+DDP_VAL_ALIGN_ABS = 5e-3
+DDP_VAL_RECALL_ABS = 1.0 / QUALITY_VAL
+# phase 33's global SigLIP multi-positive batch: a multiple of the world,
+# and two ranks that share one card each hold the bank's 160 texts of 512
+# tokens (SIGLIP_BATCH = 7 is one rank's worth of a card: 7.88 GiB a clip)
+DDP_SIGLIP_BATCH = 4
+DDP_TIMEOUT_S = 420
+DDP_TIMES = ("loader_wait_ms", "epoch_seconds", "val_seconds")
+
+
+def ddp_topology(torch) -> tuple:
+    """(world, backend, description): one rank a card with NCCL where the
+    machine shows two cards or more, else two ranks sharing card 0 with gloo
+    (NCCL refuses two ranks on one device)."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return n, "nccl", f"{n} ranks, one a card (NCCL)"
+    return 2, "gloo", ("2 ranks sharing card 0 (gloo; NCCL refuses two ranks on one "
+                       "device): the times are a correctness run's, not a scaling figure")
+
+
+def _launch(world: int, spec: dict, tmp: Path, label: str) -> tuple:
+    """``python -m torch.distributed.run --standalone --nproc_per_node world
+    chip_smoke.py --ddp-rank <spec>``; its exit code must be 0. Returns (each
+    rank's result, wall seconds). The launch runs in a session of its own,
+    killed whole at DDP_TIMEOUT_S."""
+    import os
+    import signal
+
+    spec = dict(spec, out=str(tmp / label))
+    spec_path = tmp / f"{label}.json"
+    spec_path.write_text(json.dumps(spec))
+    log = tmp / f"{label}.log"
+    here = Path(__file__).resolve()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(world), str(here), "--ddp-rank", str(spec_path)]
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        p = subprocess.Popen(cmd, cwd=here.parent, stdout=f, stderr=subprocess.STDOUT,
+                             start_new_session=True)
+        try:
+            rc = p.wait(timeout=DDP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+            rc = "killed at the time limit"
+    wall = time.perf_counter() - t0
+    text = log.read_text()
+    for line in text.splitlines():
+        if line.startswith(("[deepcoro_clip_tpu_torch] data parallel", "rank ")):
+            print(f"{label}: {line}", flush=True)
+    check(rc == 0, f"{label}: torch.distributed.run exited {rc}:\n{text[-4000:]}")
+    return [json.loads(Path(f"{spec['out']}.rank{r}.json").read_text())
+            for r in range(world)], wall
+
+
+def _audit_writes(torch, root: Path, record: list) -> None:
+    """Record in ``record`` each file this process opens for writing and
+    each directory it makes under ``root`` (an audit hook sees open,
+    io.open and os.open; torch.save, which opens its file in C++, is
+    wrapped)."""
+    import os
+
+    root_s = str(root)
+    flags_w = os.O_WRONLY | os.O_RDWR | os.O_CREAT | os.O_APPEND
+
+    def hook(event, args):
+        if event == "open" and args and isinstance(args[0], (str, os.PathLike)):
+            path, mode, flags = (list(args) + [None, 0])[:3]
+            w = (any(c in mode for c in "wax+") if isinstance(mode, str)
+                 else bool((flags or 0) & flags_w))
+            if w and str(path).startswith(root_s):
+                record.append(str(path))
+        elif event == "os.mkdir" and str(args[0]).startswith(root_s):
+            record.append(str(args[0]))
+
+    sys.addaudithook(hook)
+    save = torch.save
+
+    def recorded_save(obj, f, *a, **kw):
+        if isinstance(f, (str, os.PathLike)) and str(f).startswith(root_s):
+            record.append(str(f))
+        return save(obj, f, *a, **kw)
+
+    torch.save = recorded_save
+
+
+def _quality_recorder(torch, rank: int, keep_epoch0: Optional[str] = None) -> dict:
+    """Patch the contrastive runner so that each train step's loss,
+    grad_norm and alignment are kept (read after the run) and the text
+    head's projection dropout, which no config field reaches, is off; each
+    epoch's checkpoint save records the parameters' checksum, and with
+    ``keep_epoch0`` rank 0 copies epoch 0's checkpoint there (the run a
+    killed run after epoch 0 would leave). Returns the record; ``undo()``
+    restores the classes."""
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+    from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
+
+    rec: dict = {"steps": [], "checksums": []}
+    init, save_latest = VideoContrastiveLearningRunner.__init__, CheckpointManager.save_latest
+
+    def wrapped(self, *a, **kw):
+        init(self, *a, **kw)
+        self.bundle.text_model.proj.dropout = 0.0
+        step = self.train_step
+
+        def recorded(state, *args):
+            state, m = step(state, *args)
+            rec["steps"].append({k: torch.as_tensor(m[k]).detach()
+                                 for k in ("loss", "grad_norm", "alignment", "lr")})
+            return state, m
+
+        self.train_step = recorded
+
+    def saving(self, state, meta, *a):
+        path = save_latest(self, state, meta, *a)
+        rec["checksums"].append(_digest(torch, state.params.values()))
+        if keep_epoch0 and meta["epoch"] == 0 and rank == 0:
+            dst = Path(keep_epoch0) / "checkpoints"
+            dst.mkdir(parents=True)
+            for suffix in (".pt", ".json"):
+                shutil.copyfile(self.dir / f"checkpoint{suffix}", dst / f"checkpoint{suffix}")
+        return path
+
+    def undo():
+        VideoContrastiveLearningRunner.__init__ = init
+        CheckpointManager.save_latest = save_latest
+
+    VideoContrastiveLearningRunner.__init__ = wrapped
+    CheckpointManager.save_latest = saving
+    rec["undo"] = undo
+    return rec
+
+
+def _quality_ddp_config(manifest: str, output_dir: str, **over):
+    """Phase 22's config at dropout 0."""
+    return quality_train_config(data_filename=manifest, output_dir=output_dir, epochs=2,
+                                num_workers=QUALITY_WORKERS, dropout=0.0, **over)
+
+
+def _ddp_profiled_step(torch, cfg) -> dict:
+    """One warm step and one profiled step of a runner built from ``cfg``
+    on every rank (the same calls on every rank: no retrace): the step's
+    host wall, the card's busy time, the gradient all-reduce's host time
+    (synchronised before and after) and the collectives' device time
+    (NCCL kernels; under gloo the copies to and from the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepcoro_clip_tpu_torch.runners.common import batch_to_device
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+    from deepcoro_clip_tpu_torch.train import optim
+
+    cfg.set_device_info_in_place()  # (rank 0 alone writes, as under main)
+    runner = VideoContrastiveLearningRunner(cfg, output_dir=cfg.output_dir)
+    runner.bundle.text_model.proj.dropout = 0.0
+    batch = batch_to_device(next(iter(runner.loaders["train"])), runner.device,
+                            runner.replicated_keys)
+    args = (batch, runner.generator, 0.0, 0.0, -1.0)
+    runner.train_step(runner.state, *args)  # warm
+    torch.cuda.synchronize()
+    reduce = optim.all_reduce_grads
+    timed = {}
+
+    def timed_reduce(grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(grads)
+        torch.cuda.synchronize()
+        timed["ms"] = (time.perf_counter() - t0) * 1e3
+
+    optim.all_reduce_grads = timed_reduce
+    # every rank takes this step whether or not its profiler starts (the
+    # ranks' collectives must pair up); a profiler that fails to start
+    # leaves the busy times "not measured"
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.__enter__()
+    except RuntimeError as e:
+        print(f"rank profiler did not start: {e}", flush=True)
+        prof = None
+    try:
+        t0 = time.perf_counter()
+        runner.train_step(runner.state, *args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        optim.all_reduce_grads = reduce
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    busy = {}
+    for e in (prof.events() if prof is not None else ()):
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    coll = {k: v for k, v in busy.items() if "nccl" in k.lower() or "memcpy" in k.lower()}
+    grad_bytes = sum(p.numel() * 4 for p in runner.state.params.values())
+    del runner, batch, args
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall, "busy_ms": sum(busy.values()) if busy else None,
+            "all_reduce_host_ms": timed.get("ms"), "collective_device_ms": coll,
+            "gradient_bytes": grad_bytes}
+
+
+def _ddp_quality_rank(torch, spec: dict, rank: int) -> dict:
+    """A rank of phase 32: the quality run through main (the group started
+    by main, or with ``resume`` by this function first, so that a profiled
+    step can follow the run on the same group)."""
+    from deepcoro_clip_tpu_torch.main import main as port_main
+    from deepcoro_clip_tpu_torch.parallel import distributed
+
+    written: list = []
+    _audit_writes(torch, Path(spec["root"]), written)
+    rec = _quality_recorder(torch, rank, spec.get("keep_epoch0"))
+    over = {}
+    if spec.get("resume"):
+        over = dict(resume_training=True, checkpoint=spec["resume"])
+        distributed.init_from_env(quality_train_config().device)
+    cfg = _quality_ddp_config(spec["manifest"], spec["output_dir"], **over)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    result = port_main(config=cfg)
+    wall = time.perf_counter() - t0
+    counts = {**_kernel_counts(), **_long_counts()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["undo"]()
+    profiled = None
+    if spec.get("resume"):
+        # (the run's dataset statistics: no second pass over the clips)
+        profiled = _ddp_profiled_step(torch, _quality_ddp_config(
+            spec["manifest"], str(Path(spec["root"]) / "trace"),
+            dataset_mean=cfg.dataset_mean, dataset_std=cfg.dataset_std))
+        distributed.shutdown()
+    steps = [{k: float(v) for k, v in s.items()} for s in rec["steps"]]
+    print(f"rank {rank}: cuda:{torch.cuda.current_device()}, {len(steps)} steps, main "
+          f"{wall:.1f} s, peak {peak:.2f} GiB", flush=True)
+    return {"history": result["history"], "output_dir": result["output_dir"],
+            "steps": steps, "checksums": rec["checksums"], "counts": counts,
+            "peak_gib": peak, "main_s": wall, "written": written, "profile": profiled,
+            "device": torch.cuda.current_device()}
+
+
+def phase_ddp_quality_run(torch, manifest: Path, tmp: Path) -> dict:
+    """Phase 32: phase 22's config at dropout 0 through torch.distributed.run
+    at world N (``ddp_topology``) and through main at world 1, on phase
+    22's corpus; returns {"world", "backend", "counts": a rank's launches,
+    "times": ...}."""
+    world, backend, topology = ddp_topology(torch)
+    steps = QUALITY_TRAIN // 16
+    print(f"ddp quality run: {topology}; config/quality/flagship_quality_train.yaml as "
+          f"phase 22 runs it, dropout 0 (and the text head's projection dropout, which no "
+          f"field reaches), global batch 16 ({16 // world} rows a rank), {steps} steps an "
+          f"epoch, 2 epochs | {CARD}", flush=True)
+    print(f"ddp quality run: bars: per step |loss_N - loss_1| <= {DDP_LOSS_REL} |loss_1|; "
+          f"|grad_norm_N - grad_norm_1| <= {DDP_GRAD_NORM_REL} grad_norm_1 at the steps "
+          f"taken from the same weights (before the first update); validation loss by "
+          f"the loss bar, alignment within {DDP_VAL_ALIGN_ABS} absolute, Recall@k within "
+          f"{DDP_VAL_RECALL_ABS:.4f} (one clip of {QUALITY_VAL})", flush=True)
+    root = tmp / "ddp_quality"
+    keep = root / "epoch0"
+    full, full_s = _launch(world, {"job": "quality", "manifest": str(manifest),
+                                   "root": str(root), "output_dir": str(root / "full"),
+                                   "keep_epoch0": str(keep)}, tmp, "ddp_full")
+    resumed, resume_s = _launch(world, {"job": "quality", "manifest": str(manifest),
+                                        "root": str(root), "output_dir": str(root / "full"),
+                                        "resume": str(keep)}, tmp, "ddp_resume")
+    # world 1, the same config, in this process
+    rec = _quality_recorder(torch, 0)
+    _zero_kernel_counts()
+    from deepcoro_clip_tpu_torch.main import main as port_main
+
+    one = port_main(config=_quality_ddp_config(str(manifest), str(tmp / "ddp_one")))
+    one_counts = {**_kernel_counts(), **_long_counts()}
+    rec["undo"]()
+    one_steps = [{k: float(v) for k, v in s.items()} for s in rec["steps"]]
+    torch.cuda.empty_cache()
+
+    # the ranks agree: every step's metrics and each epoch's parameters
+    for r in full[1:]:
+        check(r["steps"] == full[0]["steps"],
+              f"ddp quality run: rank steps differ: {r['steps']} vs {full[0]['steps']}")
+        check(r["checksums"] == full[0]["checksums"],
+              f"ddp quality run: parameters differ across ranks: {r['checksums']} vs "
+              f"{full[0]['checksums']}")
+        check([{k: v for k, v in h.items() if k not in DDP_TIMES} for h in r["history"]]
+              == [{k: v for k, v in h.items() if k not in DDP_TIMES}
+                  for h in full[0]["history"]], "ddp quality run: rank histories differ")
+    print(f"ddp quality run: parameter checksums after each epoch, every rank: "
+          f"{full[0]['checksums']} (bit-equal across the {world} ranks)", flush=True)
+    got = full[0]["steps"]
+    check(len(got) == len(one_steps) == 2 * steps, f"steps {len(got)} / {len(one_steps)}")
+    same_weights = True  # no update has moved a parameter yet
+    for i, (a, b) in enumerate(zip(got, one_steps)):
+        dl = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        dg = abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+        held = "held" if same_weights else "after an update: not held"
+        print(f"ddp quality run: step {i}: loss {a['loss']:.6f} (world 1 {b['loss']:.6f}, "
+              f"rel {dl:.2e}), grad_norm {a['grad_norm']:.5f} (world 1 "
+              f"{b['grad_norm']:.5f}, rel {dg:.2e}, {held}), alignment "
+              f"{a['alignment']:.5f} ({b['alignment']:.5f}), lr {a['lr']:.2e}", flush=True)
+        check(math.isfinite(a["loss"]) and dl <= DDP_LOSS_REL
+              and (dg <= DDP_GRAD_NORM_REL or not same_weights),
+              f"ddp quality run: step {i} off the world-1 run: {a} vs {b}")
+        same_weights = same_weights and a["lr"] == 0.0 and b["lr"] == 0.0
+    for h, w in zip(full[0]["history"], one["history"]):
+        d = abs(h["val_loss"] - w["val_loss"]) / abs(w["val_loss"])
+        check(d <= DDP_LOSS_REL, f"ddp quality run: epoch {h['epoch']} val_loss "
+              f"{h['val_loss']} vs {w['val_loss']} (rel {d:.2e})")
+        d = abs(h["val_alignment"] - w["val_alignment"])
+        check(d <= DDP_VAL_ALIGN_ABS, f"ddp quality run: epoch {h['epoch']} val_alignment "
+              f"{h['val_alignment']} vs {w['val_alignment']} (|d| {d:.2e})")
+        for key in ("val_Recall@1", "val_Recall@5", "val_Recall@10"):
+            check(abs(h[key] - w[key]) <= DDP_VAL_RECALL_ABS + 1e-9,
+                  f"ddp quality run: epoch {h['epoch']} {key} {h[key]} vs {w[key]}")
+        print(f"ddp quality run: epoch {h['epoch']} validation: loss {h['val_loss']:.6f} "
+              f"(world 1 {w['val_loss']:.6f}), alignment {h['val_alignment']:.5f} "
+              f"({w['val_alignment']:.5f}), R@1/5/10 {h['val_Recall@1']:.3f}/"
+              f"{h['val_Recall@5']:.3f}/{h['val_Recall@10']:.3f} "
+              f"({w['val_Recall@1']:.3f}/{w['val_Recall@5']:.3f}/{w['val_Recall@10']:.3f}), "
+              f"MRR {h['val_MRR']:.4f} ({w['val_MRR']:.4f})", flush=True)
+
+    # launches: a rank runs every step's whole model on its rows, every
+    # validation batch and the whole bank: the one-process counts
+    want = {k: QUALITY_PER_STEP[k] * steps * 2 + QUALITY_PER_EVAL[k] * 2
+            + QUALITY_PER_BANK[k] * 2 for k in QUALITY_PER_STEP}
+    for r, res in enumerate(full):
+        check(res["counts"] == want, f"ddp quality run: rank {r} launches {res['counts']}, "
+              f"expected {want}")
+    check(one_counts == want, f"ddp quality run: world-1 launches {one_counts}")
+    print(f"ddp quality run: launches per rank over the run: "
+          + ", ".join(f"{k} {full[0]['counts'][k]}" for k in ("K1", "K2", "K3", "K4"))
+          + f" = per step K1 12, K2 12, K3 14, K4 14 (phase 22's), as at world 1 "
+          f"({', '.join(f'{k} {one_counts[k]}' for k in ('K1', 'K2', 'K3', 'K4'))})",
+          flush=True)
+
+    # the files: one run directory, written by rank 0 alone
+    run = Path(full[0]["output_dir"])
+    runs = sorted(p.parent for p in (root / "full").rglob("checkpoints"))
+    check(runs == [run], f"ddp quality run: run directories {runs}")
+    for r, res in enumerate(full + resumed):
+        rank = r % world
+        check(bool(res["written"]) == (rank == 0),
+              f"ddp quality run: rank {rank} wrote {res['written'][:5]}")
+    saved = torch.load(run / "checkpoints" / "checkpoint.pt", weights_only=True)
+    check(len(saved["generators"]) == world and saved["step"] == 2 * steps,
+          f"ddp quality run: checkpoint step {saved['step']}, "
+          f"{len(saved['generators'])} generator states")
+    print(f"ddp quality run: one run directory {run.name}; rank 0 wrote "
+          f"{len(full[0]['written'])} files and directories, the other ranks none; the "
+          f"checkpoint holds {world} generator states", flush=True)
+
+    # resume at world N from epoch 0's checkpoint, bit-equal
+    res0 = resumed[0]
+    check([h["epoch"] for h in res0["history"]] == [1],
+          f"ddp quality run: the resumed run ran epochs {res0['history']}")
+    check(res0["history"][0]["loss"] == full[0]["history"][1]["loss"]
+          and res0["checksums"][-1] == full[0]["checksums"][-1]
+          and all(r["checksums"] == res0["checksums"] for r in resumed),
+          f"ddp quality run: resumed epoch 1 loss {res0['history'][0]['loss']!r} vs "
+          f"{full[0]['history'][1]['loss']!r}, checksums {res0['checksums']} vs "
+          f"{full[0]['checksums']}")
+    print(f"ddp quality run: resumed at world {world} from epoch 0's checkpoint: epoch-1 "
+          f"loss {res0['history'][0]['loss']!r} (uninterrupted "
+          f"{full[0]['history'][1]['loss']!r}), parameters {res0['checksums'][-1]} "
+          f"(uninterrupted {full[0]['checksums'][-1]}): bit-equal", flush=True)
+
+    h = full[0]["history"][1]
+    step_ms = h["epoch_seconds"] * 1e3 / steps
+    h1 = one["history"][1]
+    prof = res0["profile"]
+    times = {"world": world, "backend": backend, "step_ms": step_ms,
+             "clips_per_s": 16 * steps / h["epoch_seconds"],
+             "world1_step_ms": h1["epoch_seconds"] * 1e3 / steps,
+             "world1_clips_per_s": 16 * steps / h1["epoch_seconds"],
+             "peak_gib": [r["peak_gib"] for r in full], "launch_s": [full_s, resume_s],
+             "profiled_step": [r["profile"] for r in resumed]}
+    print(f"ddp quality run: step {step_ms:.1f} ms (host clock, epoch 1 over {steps} steps), "
+          f"{times['clips_per_s']:.1f} global clips/s; world 1 {times['world1_step_ms']:.1f} "
+          f"ms, {times['world1_clips_per_s']:.1f} clips/s | {topology} | {CARD}", flush=True)
+    print(f"ddp quality run: peak memory per rank "
+          + ", ".join(f"{g:.2f}" for g in times["peak_gib"])
+          + f" GiB (torch.cuda.max_memory_allocated, each rank's process) | {CARD}",
+          flush=True)
+    for r, p in enumerate(times["profiled_step"]):
+        coll = ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in sorted(
+            p["collective_device_ms"].items(), key=lambda kv: -kv[1])[:4]) or "none traced"
+        busy = "not measured" if p["busy_ms"] is None else f"{p['busy_ms']:.1f} ms"
+        print(f"ddp quality run: rank {r} profiled step: wall {p['wall_ms']:.1f} ms, card "
+              f"busy {busy}; the gradient all-reduce ({p['gradient_bytes'] / 2 ** 20:.0f} "
+              f"MiB fp32, one call) {p['all_reduce_host_ms']:.1f} ms host time; collectives "
+              f"on the card: {coll} | {topology} | {CARD}", flush=True)
+    print(f"ddp quality run: torch.distributed.run launches {full_s:.1f} s (the run) and "
+          f"{resume_s:.1f} s (resume + profiled step), process start and set-up included",
+          flush=True)
+    return {"world": world, "backend": backend, "counts": full[0]["counts"], "times": times}
+
+
+def _ddp_step_cases(torch) -> list:
+    """Phase 33's pipelines at their full widths, dropout 0 (the text head's
+    projection dropout too), each with its seeded global batch: (name, kind,
+    config, batch, the per-tower names)."""
+    r = np.random.default_rng(33)
+    cases = []
+    cfg = siglip_config(dropout=0.0, batch_size=DDP_SIGLIP_BATCH)
+    B = DDP_SIGLIP_BATCH
+    M = B * (cfg.siglip_max_positive_per_video + cfg.siglip_negatives_per_video)
+    L = cfg.max_text_length
+    lengths = r.integers(8, min(48, L), M)
+    lengths[-M // 10:] = 2  # the bank's padded slots: [CLS] [SEP]
+    att = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)
+    pos = np.zeros((B, M), np.float32)
+    for i in range(B):
+        pos[i, r.choice(M - M // 10, size=int(r.integers(1, 6)), replace=False)] = 1.0
+    cases.append(("siglip_multi_positive", "clip", cfg, {
+        "videos": r.integers(0, 255, (B, 1, cfg.frames, cfg.resize, cfg.resize, 3),
+                             dtype=np.uint8),
+        "video_mask": np.ones((B, 1), bool),
+        "input_ids": (r.integers(1000, cfg.text_vocab_size, (M, L)) * att).astype(np.int32),
+        "attention_mask": att, "positive_mask": pos,
+        "positive_weights": r.uniform(0.75, 2.5, (B, M)).astype(np.float32),
+        "text_valid": (lengths > 2).astype(np.float32)}))
+    cfg = multitask_config(dropout=0.0)
+    B, N, C = MT_BATCH, cfg.num_videos, cfg.decoder_max_length
+    vmask = np.ones((B, N), bool)
+    vmask[1, 2:] = vmask[B - 1, 1:] = False
+    tl = r.integers(cfg.max_text_length // 8, cfg.max_text_length * 5 // 8, B)
+    cl = r.integers(C // 6, C, B)
+    cap = (np.arange(C)[None, :] < cl[:, None]).astype(np.int32)
+    cases.append(("multitask", "multitask", cfg, {
+        "videos": r.integers(0, 255, (B, N, cfg.frames, cfg.resize, cfg.resize, 3),
+                             dtype=np.uint8),
+        "video_mask": vmask,
+        "input_ids": r.integers(1000, cfg.text_vocab_size, (B, cfg.max_text_length)
+                                ).astype(np.int32),
+        "attention_mask": (np.arange(cfg.max_text_length)[None, :] < tl[:, None]
+                           ).astype(np.int32),
+        "caption_ids": (r.integers(1000, cfg.text_vocab_size, (B, C)) * cap).astype(np.int32),
+        "caption_mask": cap,
+        "location_mask": ((r.random((B, C)) > 0.8) & (cap > 0)).astype(np.float32),
+        "caption_weights": r.uniform(1.0, 4.0, B).astype(np.float32)}))
+    cfg = probe_config(dropout=0.0, dropout_attention=0.0)
+    cases.append(("probing", "probe", cfg, probe_batch(cfg, 8)))
+    return cases
+
+
+def _ddp_bundle(torch, kind: str, cfg):
+    """(bundle, state) of a phase-33 case, seeded, the text head's projection
+    dropout off."""
+    if kind == "clip":
+        from deepcoro_clip_tpu_torch.train.clip import build_clip_bundle
+
+        bundle, state = build_clip_bundle(cfg, seed=0, steps_per_epoch=1, device=cfg.device)
+    elif kind == "multitask":
+        from deepcoro_clip_tpu_torch.train.multitask import build_multitask_bundle
+
+        bundle, state = build_multitask_bundle(cfg, seed=0, steps_per_epoch=1,
+                                               device=cfg.device)
+    else:
+        from deepcoro_clip_tpu_torch.train.linear_probe import build_probe_bundle
+
+        return build_probe_bundle(cfg, seed=0, steps_per_epoch=1, device=cfg.device)
+    bundle.text_model.proj.dropout = 0.0
+    return bundle, state
+
+
+def _ddp_step_grads(torch, kind: str, bundle, state, batch, mvm_mask):
+    """One optimizer step of the case's train step; returns (state, its loss,
+    {tower: flat fp32 gradient}), the gradients as the step averaged them
+    over the ranks (copied where ``optim.loss_grads`` has them averaged)."""
+    import importlib
+
+    from deepcoro_clip_tpu_torch.train import optim
+
+    module = importlib.import_module("deepcoro_clip_tpu_torch.train." + {
+        "clip": "clip", "multitask": "multitask", "probe": "linear_probe"}[kind])
+    reduce = optim.all_reduce_grads
+    towers: dict = {}
+
+    def kept(grads):
+        reduce(grads)
+        for n, g in grads.items():
+            towers.setdefault(n.split(".")[0], []).append(g.detach().reshape(-1).float())
+        for t, parts in towers.items():
+            towers[t] = [torch.cat(parts)]
+
+    optim.all_reduce_grads = kept
+    try:
+        if kind == "clip":
+            state, m = module.make_train_step(bundle)(state, batch, None, 0.0, 0.0, -1.0)
+        elif kind == "multitask":
+            state, m = module.make_multitask_train_step(bundle)(
+                state, batch, None, 1.0, 1.0, 1.0, 0.0, 0.0, -1.0, mvm_mask=mvm_mask)
+        else:
+            state, m = module.make_probe_train_step(bundle)(state, batch, None,
+                                                            bundle.config.video_freeze_ratio)
+    finally:
+        optim.all_reduce_grads = reduce
+    return state, float(m["loss"]), {t: v[0] for t, v in towers.items()}
+
+
+def _ddp_steps_rank(torch, spec: dict, rank: int) -> dict:
+    """A rank of phase 33: one optimizer step of each case on this rank's
+    rows of the global batch (launches counted), the cosines of its averaged
+    gradients to the world-1 ones the parent wrote, and the parameters'
+    checksum after the step."""
+    from deepcoro_clip_tpu_torch.parallel import distributed
+    from deepcoro_clip_tpu_torch.parallel.batching import make_batch_sharding_fn
+    from deepcoro_clip_tpu_torch.train.clip import replicated_keys
+
+    cases = _ddp_step_cases(torch)
+    _, world, dev = distributed.init_from_env(cases[0][2].device)
+    out = {}
+    for name, kind, cfg, batch in cases:
+        bundle, state = _ddp_bundle(torch, kind, cfg)
+        keys = replicated_keys(cfg) if kind == "clip" else ()
+        local = make_batch_sharding_fn(world, rank, keys)(batch, dev)
+        mask = None
+        if kind == "multitask":
+            full = torch.from_numpy(np.load(Path(spec["dir"]) / f"{name}_mvm_mask.npy"))
+            per = len(full) // world
+            mask = full[rank * per:(rank + 1) * per].to(dev)
+        _zero_kernel_counts()
+        state, loss, towers = _ddp_step_grads(torch, kind, bundle, state, local, mask)
+        counts = _kernel_counts()
+        ref = torch.load(Path(spec["dir"]) / f"{name}_grads.pt", weights_only=True)
+        cos, digest = {}, _digest(torch, towers.values())
+        for t, g in towers.items():
+            r = ref[t].to(dev)
+            ng, nr = torch.linalg.vector_norm(g), torch.linalg.vector_norm(r)
+            cos[t] = (float(torch.dot(g, r) / (ng * nr)) if float(ng) > 0 and float(nr) > 0
+                      else (1.0 if float(ng) == float(nr) == 0 else 0.0))
+        del towers, ref
+        out[name] = {"loss": loss, "counts": counts, "cosines": cos, "grad_digest": digest,
+                     "params": _digest(torch, state.params.values()),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        print(f"rank {rank}: {name}: loss {loss:.6f}, cosines "
+              + ", ".join(f"{t} {c:.6f}" for t, c in cos.items()), flush=True)
+        del bundle, state, local
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    distributed.shutdown()
+    return out
+
+
+def phase_ddp_steps(torch, tmp: Path) -> dict:
+    """Phase 33: one train step each of SigLIP multi-positive (the bank
+    replicated), multitask (LocCa on, the MVM mask handed over) and
+    probing, at full width, over the group against the world-1 step on the
+    same global batch and weights. Returns {case: {"loss", "counts"}}."""
+    world, backend, topology = ddp_topology(torch)
+    d = tmp / "ddp_steps"
+    d.mkdir()
+    print(f"ddp steps: {topology}; global batches: SigLIP multi-positive "
+          f"{DDP_SIGLIP_BATCH} clips (cut from the YAML's 20, phase 24's 7: every rank "
+          f"holds the bank of {DDP_SIGLIP_BATCH * 40} texts, twice on a shared card), "
+          f"multitask "
+          f"{MT_BATCH} studies x 4 clips, probing 8 studies x 10 clips; dropout 0; bars: "
+          f"loss rel <= {DDP_LOSS_REL}, per-tower gradient cosine to world 1 >= phase 9's "
+          f"(video {GRAD_MIN_KERNEL_VS_PLAIN['video_encoder']}, text "
+          f"{GRAD_MIN_KERNEL_VS_PLAIN['text_encoder']}, other towers "
+          f"{GRAD_MIN_KERNEL_VS_PLAIN['video_encoder']}) | {CARD}", flush=True)
+    from deepcoro_clip_tpu_torch.device import resolve_device
+    from deepcoro_clip_tpu_torch.runners.common import batch_to_device
+    from deepcoro_clip_tpu_torch.train.clip import replicated_keys
+
+    want = {}
+    for name, kind, cfg, batch in _ddp_step_cases(torch):
+        dev = resolve_device(cfg.device)
+        bundle, state = _ddp_bundle(torch, kind, cfg)
+        mask = None
+        if kind == "multitask":
+            from deepcoro_clip_tpu_torch.models.masked_video_modeling import (
+                random_token_mask,
+            )
+
+            g = torch.Generator(device=dev).manual_seed(33)
+            mask = random_token_mask(g, batch["videos"].shape[0] * cfg.num_videos,
+                                     bundle.mvm.pos_emb.shape[1], cfg.mask_ratio, dev)
+            np.save(d / f"{name}_mvm_mask.npy", mask.cpu().numpy())
+        db = batch_to_device(batch, dev, replicated_keys(cfg) if kind == "clip" else ())
+        _zero_kernel_counts()
+        state, loss, towers = _ddp_step_grads(torch, kind, bundle, state, db, mask)
+        want[name] = {"loss": loss, "counts": _kernel_counts()}
+        torch.save({t: g.cpu() for t, g in towers.items()}, d / f"{name}_grads.pt")
+        del bundle, state, db, towers
+        torch.cuda.empty_cache()
+    ranks, wall = _launch(world, {"job": "steps", "dir": str(d)}, tmp, "ddp_steps")
+    for name, w in want.items():
+        got = [r[name] for r in ranks]
+        for key in ("loss", "grad_digest", "params", "counts"):
+            check(all(g[key] == got[0][key] for g in got),
+                  f"ddp steps: {name}: ranks differ in {key}: {[g[key] for g in got]}")
+        g = got[0]
+        dl = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+        check(dl <= DDP_LOSS_REL, f"ddp steps: {name}: loss {g['loss']} vs world 1 "
+              f"{w['loss']}")
+        check(g["counts"]["K1"] > 0, f"ddp steps: {name}: no K1 launched: {g['counts']}")
+        for t, c in g["cosines"].items():
+            bar = GRAD_MIN_KERNEL_VS_PLAIN.get(t, GRAD_MIN_KERNEL_VS_PLAIN["video_encoder"])
+            check(c >= bar, f"ddp steps: {name}: {t} gradient cosine {c} below {bar}")
+        check(g["counts"] == w["counts"], f"ddp steps: {name}: launches per rank "
+              f"{g['counts']}, world 1 {w['counts']}")
+        print(f"ddp steps: {name}: loss {g['loss']:.6f} (world 1 {w['loss']:.6f}, rel "
+              f"{dl:.2e}); gradient cosines to world 1: "
+              + ", ".join(f"{t} {c:.6f}" for t, c in g["cosines"].items())
+              + "; launches per rank "
+              + ", ".join(f"{k} {v}" for k, v in g["counts"].items() if v)
+              + f" (world 1 the same); parameters after the step bit-equal across the "
+              f"ranks ({g['params']}); peak per rank "
+              + ", ".join(f"{r[name]['peak_gib']:.2f}" for r in ranks) + " GiB", flush=True)
+    print(f"ddp steps: torch.distributed.run launch {wall:.1f} s | {CARD}", flush=True)
+    return {name: {"loss": [r[name] for r in ranks][0]["loss"],
+                   "counts": ranks[0][name]["counts"]} for name in want}
+
+
+def ddp_rank(torch, spec_path: str) -> int:
+    """A rank of phase 32 or 33 under torch.distributed.run: runs its job
+    and writes its result to ``{spec["out"]}.rank{RANK}.json``."""
+    import os
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank = int(os.environ["RANK"])
+    job = {"quality": _ddp_quality_rank, "steps": _ddp_steps_rank}[spec["job"]]
+    out = job(torch, spec, rank)
+    Path(f"{spec['out']}.rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
 def main(argv) -> int:
     """``--host-only``: phase 1, the build and phase 21 alone, against the
     package of the directory the script lies in (an older tree's too: copy
@@ -5586,6 +6267,8 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+    if argv[:1] == ["--ddp-rank"]:  # a rank of phase 32 or 33
+        return ddp_rank(torch, argv[1])
     # fail fast, before any work, where the port's package is missing
     from deepcoro_clip_tpu_torch.ops import _build
 
@@ -5621,7 +6304,7 @@ def main(argv) -> int:
 
 
 def run_all(torch) -> dict:
-    """Phases 2 to 31; returns the "kernels" line."""
+    """Phases 2 to 33; returns the "kernels" line."""
     build_kernels(torch, ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short",
                           "ring_attention"))
     for key, a in hopper_attrs().items():
@@ -5736,6 +6419,10 @@ def run_all(torch) -> dict:
         clip_inference = phase_clip_inference(torch, manifest, backbone, Path(corpus_root))
         torch.cuda.empty_cache()
         deployment = phase_deployment(torch, backbone, probing, Path(corpus_root))
+        torch.cuda.empty_cache()
+        ddp = phase_ddp_quality_run(torch, manifest, Path(corpus_root))
+        torch.cuda.empty_cache()
+        ddp_steps = phase_ddp_steps(torch, Path(corpus_root))
     torch.cuda.empty_cache()
     long = phase_long_kernels(torch, siglip.pop("bank_mask"))
     for run, result in (("multitask", multitask), ("siglip", siglip),
@@ -5771,6 +6458,13 @@ def run_all(torch) -> dict:
             by_key[key]["max_abs_err"] = max(by_key[key]["max_abs_err"], err)
     kernels["single_head_train"] = single_head["times"]
     kernels["locca_train"] = locca["times"]
+    # phases 32 and 33: a rank's launches over the data-parallel quality run
+    # and in one step of each other pipeline
+    for key, e in zip(("K1", "K3", "K2", "K4", "K5", "K6"), kernels["kernels"]):
+        e["ddp_quality_launches_per_rank"] = ddp["counts"][key]
+        e["ddp_step_launches_per_rank"] = {k: c["counts"][key] for k, c in ddp_steps.items()}
+    kernels["ddp_quality_train"] = ddp["times"]
+    kernels["ddp_steps"] = {k: c["loss"] for k, c in ddp_steps.items()}
     # the long calls' Hopper kernels, an entry each: launches over phases 22
     # to 25's, 30's and 31's runs, the head row at the SigLIP bank's own mask
     # (phase 24), every long row of phases 22 to 26 and 31 beside it

@@ -8,8 +8,8 @@ are the same, so a config dict or a shipped YAML means the same thing on
 both sides; keys a class does not know are kept in ``extra()``, as there.
 The port adds one field, ``device`` (``PORT_FIELDS``): None runs on the
 card, ``"cpu"`` on the CPU.
-``set_device_info_in_place`` fills the device fields for one process on
-one card (no ``torch.distributed`` yet), and ``save_json`` writes the
+``set_device_info_in_place`` fills the device fields from the process
+group (``parallel/distributed.py``; one rank without one), and ``save_json`` writes the
 resolved config as JSON, which a YAML reader also reads.
 
 ``parse_config`` reads ``--base_config file.yaml`` plus ``--field value``
@@ -88,10 +88,36 @@ class _ConfigMethods:
         return d
 
     def set_device_info_in_place(self) -> None:
-        """One process driving one card: process 0 of 1, world size 1."""
+        """The process group's size and this rank (``parallel/distributed.py``;
+        world 1 without one). The ranks are the JAX run's data-axis devices,
+        not its hosts: every rank reads the same global batches, so the
+        samplers stay at process 0 of 1. ``is_ref_device`` is rank 0, which
+        alone writes files. A ``mesh_data`` other than -1 must be the world
+        size, the world size must divide ``batch_size`` (the JAX runner
+        shrinks its data axis to ``gcd(devices, batch_size)`` and leaves the
+        other devices idle; an idle rank is an error here), and the ring
+        across processes is not ported."""
+        from deepcoro_clip_tpu_torch.parallel.distributed import rank, world_size
+
+        world = world_size()
         self.process_index, self.process_count = 0, 1
-        self.is_ref_device = True
-        self.world_size = 1
+        self.is_ref_device = rank() == 0
+        self.world_size = world
+        if world == 1:
+            return
+        if self.mesh_data not in (-1, world):
+            raise ValueError(f"mesh_data={self.mesh_data} but the process group has "
+                             f"{world} ranks; set -1 or {world}")
+        batch = getattr(self, "batch_size", None)
+        if batch is not None and batch % world:
+            raise ValueError(
+                f"batch_size={batch} is not divisible by the {world} ranks: the JAX "
+                f"runner would train on gcd({world}, {batch}) devices and leave the "
+                "rest idle; launch a world size that divides batch_size")
+        if getattr(self, "use_ring_attention", False):
+            raise NotImplementedError(
+                "use_ring_attention with more than one rank: the ring across "
+                "processes is not ported; run the ring in one process")
 
     def save_json(self, path) -> None:
         """The resolved config, keys sorted; JSON is YAML too."""

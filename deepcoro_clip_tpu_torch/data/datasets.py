@@ -179,6 +179,12 @@ class VideoClipDataset:
         return sel[:N]
 
     def __getitem__(self, i: int) -> Dict[str, Any]:
+        return self.get(i)
+
+    def get(self, i: int, load: bool = True) -> Dict[str, Any]:
+        """Item ``i``; with ``load=False`` its videos stay zeros (a row of
+        the global batch that another rank holds: only its metadata is
+        read)."""
         sample = self.samples[i]
         rng = self._item_rng(i)
         N = self.num_videos if self.multi_video else 1
@@ -188,7 +194,8 @@ class VideoClipDataset:
                            self.channels), np.dtype(self.wire_dtype))
         mask = np.zeros((N,), bool)
         for j, p in enumerate(paths):
-            videos[j] = self._load_one(p, rng)
+            if load:
+                videos[j] = self._load_one(p, rng)
             mask[j] = True
         out = {
             "videos": videos,
@@ -231,8 +238,8 @@ class VideoDataset(VideoClipDataset):
         self.view_labels_map = view_labels_map or {}
         self.pad_view_id = num_view_classes
 
-    def __getitem__(self, i: int) -> Dict[str, Any]:
-        out = super().__getitem__(i)
+    def get(self, i: int, load: bool = True) -> Dict[str, Any]:
+        out = super().get(i, load)
         first = self.rows[self.samples[i]["row_indices"][0]]
         targets: Dict[str, np.ndarray] = {}
         for col in self.target_labels:

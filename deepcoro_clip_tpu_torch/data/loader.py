@@ -13,16 +13,25 @@ step i.
   spawned with ``CUDA_VISIBLE_DEVICES`` empty, so none of them can open the
   card, and re-import ``__main__``: the launching script must be
   import-safe.
+
+With ``shard=(world, rank)`` (data parallelism) the sampler still yields
+the global batches; the items of the rows this rank holds
+(``parallel/batching.owned_rows``) are built in full and the others without
+their videos, so every rank collates the same global batch (the same text
+bucket, bank and single-head sampler state) and decodes its own clips only.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import queue
 import threading
 from collections import deque
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
-from typing import Any, Callable, Dict, Iterator
+from typing import Any, Callable, Dict, Iterator, List, Tuple
+
+from deepcoro_clip_tpu_torch.parallel.batching import owned_rows
 
 _PROC_DATASET = None
 
@@ -32,8 +41,13 @@ def _proc_init(dataset) -> None:
     _PROC_DATASET = dataset
 
 
-def _proc_items(idxs):
-    return [_PROC_DATASET[i] for i in idxs]
+def _item(dataset, i, load: bool):
+    """Item ``i`` in full, or (a row another rank holds) without its videos."""
+    return dataset[i] if load else dataset.get(i, load=False)
+
+
+def _proc_items(idxs, loads):
+    return [_item(_PROC_DATASET, i, load) for i, load in zip(idxs, loads)]
 
 
 class PrefetchLoader:
@@ -45,6 +59,7 @@ class PrefetchLoader:
         num_workers: int = 2,
         prefetch_batches: int = 2,
         backend: str = "thread",
+        shard: Tuple[int, int] = (1, 0),
     ):
         if backend not in ("thread", "process"):
             raise ValueError(f"unknown loader backend {backend!r}")
@@ -54,6 +69,15 @@ class PrefetchLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch_batches)
         self.backend = backend
+        self.shard = shard
+
+    def _loads(self, n: int) -> List[bool]:
+        """Which rows of an ``n``-row global batch this rank loads in full."""
+        world, rank = self.shard
+        if world == 1:
+            return [True] * n
+        own = owned_rows(n, world, rank)
+        return [j in own for j in range(n)]
 
     def __len__(self) -> int:
         return len(self.sampler)
@@ -80,7 +104,8 @@ class PrefetchLoader:
                     for idxs in batches:
                         if stop.is_set():
                             return
-                        items = list(pool.map(self.dataset.__getitem__, idxs))
+                        items = list(pool.map(functools.partial(_item, self.dataset),
+                                              idxs, self._loads(len(idxs))))
                         q.put(self.collate_fn(items))
             except Exception as e:  # surface worker errors to the consumer
                 q.put(e)
@@ -122,7 +147,8 @@ class PrefetchLoader:
                         idxs = next(it, None)
                         if idxs is None:
                             return
-                        pending.append(pool.submit(_proc_items, list(idxs)))
+                        pending.append(pool.submit(_proc_items, list(idxs),
+                                                   self._loads(len(idxs))))
 
                 top_up()
                 while pending:

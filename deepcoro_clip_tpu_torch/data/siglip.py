@@ -505,8 +505,8 @@ class SiglipVideoDataset(VideoClipDataset):
         return np.array([int(self.siglip.video_is_abnormal(self._vid_of(s)))
                          for s in self.samples])
 
-    def __getitem__(self, i: int):
-        out = super().__getitem__(i)
+    def get(self, i: int, load: bool = True):
+        out = super().get(i, load)
         sample = self.samples[i]
         vid = self._vid_of(sample)
         # crc32, not hash(): a str hash is salted per interpreter

@@ -19,6 +19,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from deepcoro_clip_tpu_torch.parallel.distributed import global_ratio
+
 
 def token_nll(logits: torch.Tensor, target_ids: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -35,13 +37,14 @@ def masked_token_mean(nll: torch.Tensor, mean_logp: torch.Tensor,
                       sample_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The smoothed CE of ``token_nll``'s output, averaged over the
     positions where ``attention_mask[:, 1:]`` (times ``sample_weights``) is
-    nonzero."""
+    nonzero: those of the global batch, under data parallelism (the sum and
+    the count are summed over the ranks before the division)."""
     mask = attention_mask[:, 1:].float()
     if label_smoothing > 0:
         nll = (1 - label_smoothing) * nll - label_smoothing * mean_logp
     if sample_weights is not None:
         mask = mask * sample_weights[:, None].float()
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return global_ratio((nll * mask).sum(), mask.sum())
 
 
 def captioning_loss(

@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from deepcoro_clip_tpu_torch.models.layers import Dense, LayerNorm, TransformerBlock
+from deepcoro_clip_tpu_torch.parallel.distributed import global_ratio
 
 
 def random_token_mask(generator: Optional[torch.Generator], B: int, L: int,
@@ -74,5 +75,6 @@ class MaskedVideoModeling(nn.Module):
             target = (target - mu) / torch.sqrt(var + 1e-6)
         per_tok = ((pred - target) ** 2).mean(-1)  # [B, L]
         m = mask.float()
-        loss = (per_tok * m).sum() / m.sum().clamp_min(1.0)
+        # the masked patches of the global batch, under data parallelism
+        loss = global_ratio((per_tok * m).sum(), m.sum())
         return {"loss": loss, "pred": pred, "mask": mask}

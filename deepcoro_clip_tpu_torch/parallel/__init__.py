@@ -1,17 +1,32 @@
 """Meshes and sequence parallelism (the JAX package's ``parallel/``).
 
-Ported: ``mesh`` (``MeshSpec``, ``make_mesh``) and ``ring_attention``.
-The batch sharding helpers come with data parallelism.
+Ported: ``mesh`` (``MeshSpec``, ``make_mesh`` and the batch helpers),
+``ring_attention``, ``batching`` (``make_batch_sharding_fn``) and
+``multihost`` (``gather_objects``, ``gather_arrays``,
+``broadcast_from_host0``); ``distributed`` holds the process group and the
+collectives of data parallelism over ``torch.distributed``.
 """
 
+from deepcoro_clip_tpu_torch.parallel.batching import make_batch_sharding_fn
 from deepcoro_clip_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     Mesh,
     MeshSpec,
+    batch_sharding,
+    local_batch_slice,
     make_mesh,
+    pad_to_multiple,
+    shard_batch,
+)
+from deepcoro_clip_tpu_torch.parallel.multihost import (
+    broadcast_from_host0,
+    gather_arrays,
+    gather_objects,
 )
 from deepcoro_clip_tpu_torch.parallel.ring_attention import ring_attention
 
-__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "MeshSpec", "make_mesh",
-           "ring_attention"]
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "MeshSpec", "batch_sharding",
+           "broadcast_from_host0", "gather_arrays", "gather_objects",
+           "local_batch_slice", "make_batch_sharding_fn", "make_mesh",
+           "pad_to_multiple", "ring_attention", "shard_batch"]

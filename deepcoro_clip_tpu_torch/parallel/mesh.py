@@ -10,12 +10,18 @@ A device may appear more than once. That is the counterpart of the JAX
 tests' virtual CPU devices: ``make_mesh(MeshSpec(1, 4), devices=["cpu"] * 4)``
 is a ring of four shards on the CPU, ``devices=["cuda:0"] * 4`` a ring of
 four shards on one card, each shard with buffers and streams of its own.
+
+The batch helpers (``batch_sharding``, ``shard_batch``, ``local_batch_slice``,
+``pad_to_multiple``) carry the JAX file's rules over to data parallelism
+across processes (``parallel/distributed.py``): the data axis is the ranks
+of the process group, and a rank holds the rows that the JAX run's data
+device of the same index holds.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
 
@@ -83,3 +89,39 @@ def make_mesh(spec: Optional[MeshSpec] = None,
         raise ValueError(f"MeshSpec(data={spec.data}, model={model}) needs at least "
                          f"{model} devices, have {len(devs)}")
     return Mesh([devs[r * model:(r + 1) * model] for r in range(data)])
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def local_batch_slice(global_batch: int, world: int, rank: int) -> slice:
+    """The rows of a global batch that rank ``rank`` of ``world`` holds; the
+    batch must divide evenly (``make_batch_sharding_fn`` pads it first)."""
+    if global_batch % world:
+        raise ValueError(
+            f"global batch {global_batch} not divisible by data axis {world}")
+    per = global_batch // world
+    return slice(rank * per, (rank + 1) * per)
+
+
+def batch_sharding(world: int, rank: int) -> Callable[[Any], Any]:
+    """The sharding of an array whose leading axis is the global batch: a
+    function that keeps this rank's rows of it."""
+
+    def shard(x):
+        return x[local_batch_slice(len(x), world, rank)]
+
+    return shard
+
+
+def shard_batch(batch: Mapping[str, Any] | Any, world: int, rank: int):
+    """This rank's rows of every array leaf (dicts are walked)."""
+    shard = batch_sharding(world, rank)
+
+    def walk(x):
+        if isinstance(x, Mapping):
+            return {k: walk(v) for k, v in x.items()}
+        return shard(x)
+
+    return walk(batch)

@@ -13,6 +13,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, Dict, Optional
 
+from deepcoro_clip_tpu_torch.parallel.multihost import broadcast_from_host0
 from deepcoro_clip_tpu_torch.utils.files import backup_config, generate_output_dir_name
 
 
@@ -27,7 +28,8 @@ class BaseProject:
             run = Path(cfg.checkpoint)
             self.output_dir = run.parent if run.name == "checkpoints" else run
         else:
-            self.output_dir = generate_output_dir_name(cfg)
+            # rank 0's name (a timestamp) on every rank
+            self.output_dir = Path(broadcast_from_host0(str(generate_output_dir_name(cfg))))
         if cfg.is_ref_device:
             self.output_dir.mkdir(parents=True, exist_ok=True)
             backup_config(cfg, self.output_dir)

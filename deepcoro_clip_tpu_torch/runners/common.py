@@ -3,15 +3,17 @@ loader, a batch onto the device, a step's metrics onto the host, and the
 pipelined train epoch.
 
 ``resolve_dataset_stats`` is the port's copy of the JAX package's
-``runners/common.py`` function. There is no mesh to size: one process
-drives one card.
+``runners/common.py`` function. The data axis is the process group
+(``parallel/distributed.py``): the loaders yield global batches,
+``batch_to_device`` keeps this rank's rows, and an epoch's metrics are the
+global batch's on every rank.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +21,8 @@ import torch
 from deepcoro_clip_tpu_torch.data.datasets import StatsDataset
 from deepcoro_clip_tpu_torch.data.loader import PrefetchLoader
 from deepcoro_clip_tpu_torch.data.sampler import ShardedBatchSampler
+from deepcoro_clip_tpu_torch.parallel import distributed
+from deepcoro_clip_tpu_torch.parallel.batching import make_batch_sharding_fn
 
 
 class NonFiniteLossError(RuntimeError):
@@ -40,33 +44,37 @@ def dataset_kwargs(config) -> Dict[str, Any]:
 
 def make_loader(config, dataset, collate: Callable, training: bool) -> PrefetchLoader:
     """The epoch-seeded batch order (shuffled and whole batches only when
-    training) behind the prefetch loader."""
+    training) behind the prefetch loader; every rank draws the same global
+    batches and builds its own rows' items in full."""
     sampler = ShardedBatchSampler(
         len(dataset), config.batch_size, shuffle=training, seed=config.seed,
         drop_last=training, process_index=config.process_index,
         process_count=config.process_count,
     )
     return PrefetchLoader(dataset, sampler, collate, num_workers=max(1, config.num_workers),
-                          backend=config.loader_backend)
+                          backend=config.loader_backend, shard=data_shard())
 
 
-def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-    """A host batch's arrays (and dicts of arrays, such as the probing
-    ``targets``), and a ``sample_mask`` of ones (every row is real: one
-    card, no padding rows), onto ``device``. On the card the copies leave
-    from pinned memory without a host wait, so the next batch's copy queues
+def data_shard() -> Tuple[int, int]:
+    """``(world size, rank)`` of the data axis."""
+    return distributed.world_size(), distributed.rank()
+
+
+def batch_to_device(batch: Dict[str, Any], device: torch.device,
+                    replicated_keys: Sequence[str] = ()) -> Dict[str, Any]:
+    """This rank's rows of a global host batch's arrays (and dicts of
+    arrays, such as the probing ``targets``) with their ``sample_mask``, on
+    ``device``, by ``parallel/batching.make_batch_sharding_fn``: with one
+    rank every row, and a mask of ones. On the card the copies leave from
+    pinned memory without a host wait, so the next batch's copy queues
     behind the running step."""
-    def put(v):
-        if isinstance(v, dict):
-            return {k: put(x) for k, x in v.items()}
-        t = torch.from_numpy(v)
-        if device.type != "cuda":
-            return t.to(device)
-        return t.pin_memory().to(device, non_blocking=True)
+    return make_batch_sharding_fn(*data_shard(), replicated_keys)(batch, device)
 
-    arrays = {k: v for k, v in batch.items() if isinstance(v, (np.ndarray, dict))}
-    arrays["sample_mask"] = np.ones((len(arrays["videos"]),), np.float32)
-    return {k: put(v) for k, v in arrays.items()}
+
+def unpad(x, n: int) -> np.ndarray:
+    """The first ``n`` rows of a gathered global output, on the host: the
+    real rows (the padding rows are the last)."""
+    return x[:n].float().cpu().numpy()
 
 
 def read_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
@@ -112,12 +120,12 @@ def run_pipelined_epoch(runner, epoch: int, step: Callable[[Dict[str, torch.Tens
         values = read_metrics(metrics)
         loss = values["loss"]
         if not math.isfinite(loss):
-            if runner.config.is_ref_device:
-                runner.ckpt.save_debug(
-                    "nan_debug", runner.state,
-                    {"epoch": epoch, "nan_loss_at_step": i, "state_steps_past_failure": 1,
-                     "nonfinite_update_guard": True},
-                    runner.generator)
+            # every rank (the loss is the global batch's); rank 0 writes
+            runner.ckpt.save_debug(
+                "nan_debug", runner.state,
+                {"epoch": epoch, "nan_loss_at_step": i, "state_steps_past_failure": 1,
+                 "nonfinite_update_guard": True},
+                runner.generator)
             raise NonFiniteLossError(
                 f"non-finite loss {loss} at epoch {epoch} step {i} (the nan_debug "
                 "snapshot is one step past the failure, finite updates only; resume "
@@ -139,7 +147,8 @@ def run_pipelined_epoch(runner, epoch: int, step: Callable[[Dict[str, torch.Tens
         wait += time.perf_counter() - t0
         if batch is None:
             break
-        device_batch = batch_to_device(batch, runner.device)
+        device_batch = batch_to_device(batch, runner.device,
+                                       getattr(runner, "replicated_keys", ()))
         metrics = step(device_batch)
         if pending is not None:
             consume(pending)

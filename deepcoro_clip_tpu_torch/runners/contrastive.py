@@ -2,7 +2,7 @@
 with retrieval metrics, checkpoints, early stopping, resume.
 
 The port's ``VideoContrastiveLearningRunner`` (the JAX package's
-``runners/contrastive.py``) on one card:
+``runners/contrastive.py``) on one card or over a process group:
 
 - ``train``: per epoch the temperature and freeze-ratio schedules, the
   epoch-seeded batch order, a train epoch, a validation epoch, then the
@@ -39,8 +39,13 @@ The port's ``VideoContrastiveLearningRunner`` (the JAX package's
   checkpoint (``.pt``) or from an ``.npz`` of the JAX training tree
   (``convert.save_params_npz``), leaf by leaf where paths and shapes match.
 
-Dropout masks are drawn from one ``torch.Generator`` on the run's device,
-seeded from ``config.seed`` and kept in every checkpoint. The JAX runner
+Dropout masks are drawn from one ``torch.Generator`` a rank on the run's
+device, seeded from ``(config.seed, rank)`` and kept in every checkpoint.
+Under ``torch.distributed.run`` (``parallel/distributed.py``) every rank
+collates the same global batch, decodes and runs its own rows, and sees
+the same losses, validation outputs (gathered, the padding rows of a short
+last batch dropped) and decisions (early stopping, checkpoints, the
+non-finite raise); rank 0 alone writes files. The JAX runner
 derives a key per step with ``fold_in``/``split``; the masks differ (a
 deliberate divergence), the arithmetic does not. The qualitative HTML
 panels and the end-of-run plots of the JAX runner are left out (offline
@@ -84,14 +89,18 @@ from deepcoro_clip_tpu_torch.data.siglip import SiglipResources, SiglipVideoData
 from deepcoro_clip_tpu_torch.data.siglip_runtime import SiglipRuntimeSettings
 from deepcoro_clip_tpu_torch.data.tokenizer import get_tokenizer
 from deepcoro_clip_tpu_torch.device import resolve_device
+from deepcoro_clip_tpu_torch.parallel import distributed
+from deepcoro_clip_tpu_torch.parallel.distributed import gather_rows, rank_seed
 from deepcoro_clip_tpu_torch.registry import RunnerRegistry
 from deepcoro_clip_tpu_torch.runners.common import (  # noqa: F401 (the error train raises)
     NonFiniteLossError,
     batch_to_device,
+    data_shard,
     dataset_kwargs,
     make_loader,
     resolve_dataset_stats,
     run_pipelined_epoch,
+    unpad,
 )
 from deepcoro_clip_tpu_torch.train import clip as clip_train
 from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
@@ -234,8 +243,11 @@ class VideoContrastiveLearningRunner:
             self.init_from_checkpoint(config.init_from_checkpoint)
         self.train_step = clip_train.make_train_step(self.bundle)
         self.eval_step = clip_train.make_eval_step(self.bundle)
-        # the dropout masks of the whole run
-        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        # the batch keys every rank holds whole (the multi-positive bank)
+        self.replicated_keys = clip_train.replicated_keys(config)
+        # the dropout masks of the whole run, one generator a rank
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(config.seed, distributed.rank()))
         self.ckpt = CheckpointManager(self.output_dir / "checkpoints")
         self.logger = MetricsLogger(
             self.output_dir, use_wandb=config.use_wandb, config=config,
@@ -323,7 +335,9 @@ class VideoContrastiveLearningRunner:
                                            max_text_length=cfg.max_text_length,
                                            max_texts=max_texts, patch=wire_patch(cfg))
         else:
-            # length buckets are per-host batch content: one process only
+            # length buckets are per-host batch content (one process only);
+            # every rank collates the global batch, so its bucket is the
+            # one-process run's
             buckets = cfg.text_length_buckets if cfg.process_count == 1 else []
             batch = collate_clip(items, self.tokenizer,
                                  max_text_length=cfg.max_text_length,
@@ -350,7 +364,7 @@ class VideoContrastiveLearningRunner:
             process_index=cfg.process_index, process_count=cfg.process_count)
         return PrefetchLoader(dataset, sampler, self._collate,
                               num_workers=max(1, cfg.num_workers),
-                              backend=cfg.loader_backend)
+                              backend=cfg.loader_backend, shard=data_shard())
 
     def init_from_checkpoint(self, path: str) -> None:
         """Warm start of the parameters (optimizer and step stay fresh) from
@@ -439,13 +453,13 @@ class VideoContrastiveLearningRunner:
                 self.highest_alignment = float(align)
                 meta["highest_alignment"] = self.highest_alignment
 
-            if cfg.is_ref_device:
-                host = (self.generator, self._single_head_sampler)
-                self.ckpt.save_latest(self.state, meta, *host)
-                if improved:
-                    self.ckpt.save_best(self.state, epoch, meta, *host)
-                if new_alignment:
-                    self.ckpt.save_alignment(self.state, epoch, meta, *host)
+            # every rank (rank 0 writes)
+            host = (self.generator, self._single_head_sampler)
+            self.ckpt.save_latest(self.state, meta, *host)
+            if improved:
+                self.ckpt.save_best(self.state, epoch, meta, *host)
+            if new_alignment:
+                self.ckpt.save_alignment(self.state, epoch, meta, *host)
 
             if patience_left <= 0:
                 break
@@ -463,7 +477,8 @@ class VideoContrastiveLearningRunner:
             return metrics
 
         def after_step(i, batch, device_batch, metrics):
-            if self.siglip_runtime.debug.fires(epoch, i) and self.config.is_ref_device:
+            if self.siglip_runtime.debug.fires(epoch, i):
+                # every rank runs the forward (its gathers); rank 0 writes
                 self._siglip_debug_dump(epoch, batch, device_batch, metrics)
 
         return run_pipelined_epoch(
@@ -486,6 +501,8 @@ class VideoContrastiveLearningRunner:
             np.asarray(batch["positive_mask"]), logits,
             positive_weights=batch.get("positive_weights"),
             sample_count=self.config.siglip_debug_sample_count)
+        if not self.config.is_ref_device:
+            return
         if self.siglip_debug is None:
             self.siglip_debug = siglip_logging.SiglipDebugLogger(self.output_dir)
         step = int(self.state.step)
@@ -517,8 +534,8 @@ class VideoContrastiveLearningRunner:
             losses.append(float(out["loss"]))
             if "locca_loss" in out:
                 locca_losses.append(float(out["locca_loss"]))
-            n_real = len(batch["paths"])
-            v_embs.append(out["video_emb"].float().cpu().numpy()[:n_real])
+            n_real = len(batch["paths"])  # (the gathered padding rows are the last)
+            v_embs.append(unpad(out["video_emb"], n_real))
             if self.multi_positive:
                 # every positive of a video, not its first only
                 texts.extend([t or [""] for t in self._positives_of_batch(batch)])
@@ -528,7 +545,8 @@ class VideoContrastiveLearningRunner:
 
         pending = None
         for batch in loader:
-            out = self.eval_step(self.state.params, batch_to_device(batch, self.device))
+            out = self.eval_step(self.state.params,
+                                 batch_to_device(batch, self.device, self.replicated_keys))
             if pending is not None:
                 consume(*pending)
             pending = (batch, out)
@@ -645,11 +663,12 @@ class VideoContrastiveLearningRunner:
     @torch.no_grad()
     def video_embeddings(self, batch) -> np.ndarray:
         """The study (or clip) embeddings of a host batch, as the eval step
-        computes them (the video tower alone)."""
-        db = batch_to_device(batch, self.device)
+        computes them (the video tower alone): each rank encodes its rows,
+        and every rank gets the batch's, gathered."""
+        db = batch_to_device(batch, self.device, self.replicated_keys)
         v = self.bundle.video_model(db["videos"], video_mask=db.get("video_mask"),
                                     deterministic=True)
-        return torch.nan_to_num(v).float().cpu().numpy()
+        return unpad(gather_rows(torch.nan_to_num(v)), len(batch["paths"]))
 
     def inference(self) -> List[Dict[str, Any]]:
         """Each sample's embedding against the text bank of

@@ -3,7 +3,9 @@ epochs of train steps, per-head metrics with bootstrap intervals, the
 prediction and embedding artifacts, resume.
 
 The port's ``LinearProbingRunner`` (the JAX package's
-``runners/linear_probing.py``) on one card:
+``runners/linear_probing.py``) on one card or over a process group (as the
+contrastive runner: each rank runs its rows of the global batch, the head
+outputs are gathered without the padding rows, rank 0 writes):
 
 - the encoder's weights come from ``video_encoder_checkpoint_path``: a
   port checkpoint (a ``.pt``, or a checkpoints directory, whose
@@ -32,8 +34,8 @@ The port's ``LinearProbingRunner`` (the JAX package's
 - ``maybe_resume``: parameters, optimizer, step, dropout generator and the
   best loss so far.
 
-Dropout masks come from one ``torch.Generator`` on the run's device, seeded
-from ``config.seed`` and kept in every checkpoint. The JAX runner's
+Dropout masks come from one ``torch.Generator`` a rank on the run's device,
+seeded from ``(config.seed, rank)`` and kept in every checkpoint. The JAX runner's
 end-of-run plots (``utils/plot_metrics.plot_run_summary``, an offline tool)
 are left out.
 """
@@ -55,6 +57,8 @@ from deepcoro_clip_tpu_torch.data.collate import collate_mil, wire_patch
 from deepcoro_clip_tpu_torch.data.csv_utils import write_csv
 from deepcoro_clip_tpu_torch.data.datasets import VideoDataset
 from deepcoro_clip_tpu_torch.device import resolve_device
+from deepcoro_clip_tpu_torch.parallel import distributed
+from deepcoro_clip_tpu_torch.parallel.distributed import gather_rows, rank_seed
 from deepcoro_clip_tpu_torch.registry import RunnerRegistry
 from deepcoro_clip_tpu_torch.runners.common import (  # noqa: F401 (the error train raises)
     NonFiniteLossError,
@@ -62,6 +66,7 @@ from deepcoro_clip_tpu_torch.runners.common import (  # noqa: F401 (the error tr
     make_loader,
     resolve_dataset_stats,
     run_pipelined_epoch,
+    unpad,
 )
 from deepcoro_clip_tpu_torch.train import linear_probe as probe_train
 from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
@@ -118,7 +123,9 @@ class LinearProbingRunner:
                       f"{self.encoder_loaded[1]} leaves from the checkpoint", flush=True)
         self.train_step = probe_train.make_probe_train_step(self.bundle)
         self.eval_step = probe_train.make_probe_eval_step(self.bundle)
-        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        # the dropout masks, one generator a rank
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(config.seed, distributed.rank()))
         self.ckpt = CheckpointManager(self.output_dir / "checkpoints")
         self.logger = MetricsLogger(
             self.output_dir, use_wandb=config.use_wandb, config=config,
@@ -203,10 +210,10 @@ class LinearProbingRunner:
                 patience_left -= 1
             meta["best_val_loss"] = self.best_val_loss
             meta["best_epoch"] = self.best_epoch
-            if cfg.is_ref_device:
-                self.ckpt.save_latest(self.state, meta, self.generator)
-                if improved:
-                    self.ckpt.save_best(self.state, epoch, meta, self.generator)
+            # every rank (rank 0 writes)
+            self.ckpt.save_latest(self.state, meta, self.generator)
+            if improved:
+                self.ckpt.save_best(self.state, epoch, meta, self.generator)
             if patience_left <= 0:
                 break
         return {"history": history, "best_epoch": self.best_epoch,
@@ -236,8 +243,9 @@ class LinearProbingRunner:
         for batch in loader:
             out = self.eval_step(self.state.params, batch_to_device(batch, self.device))
             losses.append(float(out["loss"]))
+            n = len(batch["study_ids"])  # (the gathered padding rows are the last)
             for h in heads:
-                preds[h].append(out["outputs"][h].float().cpu().numpy())
+                preds[h].append(unpad(out["outputs"][h], n))
                 targets[h].append(np.asarray(batch["targets"][h]))
             study_ids.extend(batch["study_ids"])
 
@@ -303,9 +311,11 @@ class LinearProbingRunner:
             emb, kw = self._mil_inputs(device_batch)
             outputs, sown = self.bundle.mil_model(emb, deterministic=True,
                                                   return_intermediates=True, **kw)
-            embeddings.append(sown["pooled"].float().cpu().numpy())
+            # each rank's rows, gathered, without the padding rows
+            n = len(batch["study_ids"])
+            embeddings.append(unpad(gather_rows(sown["pooled"]), n))
             study_ids.extend(batch["study_ids"])
-            host = {h: outputs[h].float().cpu().numpy() for h in heads}
+            host = {h: unpad(gather_rows(outputs[h]), n) for h in heads}
             for i, sid in enumerate(batch["study_ids"]):
                 rows.append({"study_id": sid,
                              **{h: float(host[h][i].reshape(-1)[0]) for h in heads}})

@@ -1,7 +1,9 @@
 """Multitask runner: joint contrastive + captioning + MVM training.
 
 The port's ``MultitaskRunner`` (the JAX package's ``runners/multitask.py``)
-on one card:
+on one card or over a process group (as the contrastive runner: every
+rank collates the global batch and runs its rows; captions are generated
+on each rank's rows and gathered; rank 0 writes):
 
 - ``train``: per epoch the temperature and freeze-ratio schedules, the
   step-scheduled task weights (``LossWeightScheduler``), a train epoch
@@ -19,8 +21,8 @@ on one card:
   the captions written to ``{run dir}/val/captions_epoch_{e}.csv``;
 - ``maybe_resume``.
 
-Random draws come from one ``torch.Generator`` on the run's device, seeded
-from ``config.seed`` and kept in every checkpoint, so a resumed run
+Random draws come from one ``torch.Generator`` a rank on the run's device,
+seeded from ``(config.seed, rank)`` and kept in every checkpoint, so a resumed run
 repeats an uninterrupted one bit for bit. The JAX runner derives a key per
 step; its dropout and MVM masks differ from the port's (a deliberate
 divergence), the arithmetic on given masks does not. The end-of-run plots
@@ -46,6 +48,8 @@ from deepcoro_clip_tpu_torch.data.tokenizer import CLS_ID, SEP_ID, get_tokenizer
 from deepcoro_clip_tpu_torch.device import resolve_device
 from deepcoro_clip_tpu_torch.losses.multitask import LossWeightScheduler
 from deepcoro_clip_tpu_torch.models.captioning_decoder import greedy_generate_kv
+from deepcoro_clip_tpu_torch.parallel import distributed
+from deepcoro_clip_tpu_torch.parallel.distributed import gather_rows, rank_seed
 from deepcoro_clip_tpu_torch.registry import RunnerRegistry
 from deepcoro_clip_tpu_torch.runners.common import (  # noqa: F401 (the error train raises)
     NonFiniteLossError,
@@ -90,8 +94,9 @@ class MultitaskRunner:
         self.eval_step = mt_train.make_multitask_eval_step(self.bundle)
         self.weight_sched = LossWeightScheduler(dict(config.loss_weights),
                                                 config.loss_weight_schedule)
-        # the random draws of the whole run
-        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        # the random draws of the whole run, one generator a rank
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(config.seed, distributed.rank()))
         self.ckpt = CheckpointManager(self.output_dir / "checkpoints")
         self.logger = MetricsLogger(
             self.output_dir, use_wandb=config.use_wandb, config=config,
@@ -120,6 +125,7 @@ class MultitaskRunner:
 
     def _collate(self, items):
         cfg = self.config
+        # (the global batch's bucket on every rank: each collates all of it)
         buckets = cfg.text_length_buckets if cfg.process_count == 1 else []
         batch = collate_clip(items, self.tokenizer, max_text_length=cfg.max_text_length,
                              length_buckets=buckets, patch=wire_patch(cfg))
@@ -186,13 +192,13 @@ class MultitaskRunner:
                 patience_left = cfg.early_stopping_patience or math.inf
             else:
                 patience_left -= 1
-            if cfg.is_ref_device:
-                meta = {"epoch": epoch, "best_val_loss": self.best_val_loss,
-                        "best_epoch": self.best_epoch, "global_step": self.global_step,
-                        **train_metrics}
-                self.ckpt.save_latest(self.state, meta, self.generator)
-                if improved:
-                    self.ckpt.save_best(self.state, epoch, meta, self.generator)
+            # every rank (rank 0 writes)
+            meta = {"epoch": epoch, "best_val_loss": self.best_val_loss,
+                    "best_epoch": self.best_epoch, "global_step": self.global_step,
+                    **train_metrics}
+            self.ckpt.save_latest(self.state, meta, self.generator)
+            if improved:
+                self.ckpt.save_best(self.state, epoch, meta, self.generator)
             if patience_left <= 0:
                 break
         return {"history": history, "best_epoch": self.best_epoch,
@@ -241,8 +247,10 @@ class MultitaskRunner:
         w = self.weight_sched.at(self.global_step)
         for batch in loader:
             out = self.eval_step(self.state.params, batch_to_device(batch, self.device))
-            ids = greedy_generate_kv(self.bundle.decoder, out["video_tokens"],
-                                     bos_id=CLS_ID, eos_id=SEP_ID, max_length=gen_len)
+            # this rank's rows, gathered (the padding rows are the last)
+            ids = gather_rows(greedy_generate_kv(
+                self.bundle.decoder, out["video_tokens"], bos_id=CLS_ID, eos_id=SEP_ID,
+                max_length=gen_len))
             terms = torch.stack([out[k].float() for k in ("contrastive", "captioning",
                                                           "mvm")]).cpu().tolist()
             losses.append(w.get("contrastive", 1.0) * terms[0]

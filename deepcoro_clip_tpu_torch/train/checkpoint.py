@@ -14,6 +14,12 @@ dict, on the CPU), the optimizer state, the state of the run's dropout
 has one (``sampler``: the single-head SigLIP sampler's ``state_dict``) and
 the meta: enough that a resumed run repeats an uninterrupted one. A file is written under a temporary name and moved into
 place, so a crash mid-save leaves the previous checkpoint whole.
+
+Under data parallelism every rank calls the saves: the ranks' dropout
+generators are gathered (``generators``, in rank order; ``generator`` is
+rank 0's), rank 0 alone writes, and each rank restores its own generator
+and the shared parameters and moments. A checkpoint of one world size
+loads into a run of another.
 """
 
 from __future__ import annotations
@@ -24,6 +30,9 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 import torch
+
+from deepcoro_clip_tpu_torch.parallel.distributed import barrier, rank
+from deepcoro_clip_tpu_torch.parallel.multihost import gather_objects
 
 
 def _to_cpu(tree):
@@ -49,30 +58,39 @@ def _load_into(dst, src):
 class CheckpointManager:
     def __init__(self, directory: str | Path):
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        if rank() == 0:
+            self.dir.mkdir(parents=True, exist_ok=True)
 
     # ------------------------------------------------------------------ #
 
     def _save(self, name: str, state: Any, meta: Dict[str, Any],
               generator: Optional[torch.Generator] = None, sampler=None) -> Path:
+        """Every rank calls it (the ranks' generator states are gathered);
+        rank 0 writes, and no rank returns before the file is in place."""
+        states = gather_objects([None if generator is None else generator.get_state()])
         path = self.dir / f"{name}.pt"
-        tmp = self.dir / f"{name}.pt.tmp"
-        torch.save({
-            "step": int(state.step),
-            "params": _to_cpu(dict(state.params)),
-            "opt_state": _to_cpu(state.opt_state),
-            "generator": None if generator is None else generator.get_state(),
-            "sampler": None if sampler is None else sampler.state_dict(),
-            "meta": meta,
-        }, tmp)
-        os.replace(tmp, path)
-        (self.dir / f"{name}.json").write_text(json.dumps(meta, default=float))
+        if rank() == 0:
+            tmp = self.dir / f"{name}.pt.tmp"
+            torch.save({
+                "step": int(state.step),
+                "params": _to_cpu(dict(state.params)),
+                "opt_state": _to_cpu(state.opt_state),
+                "generator": states[0],
+                "generators": states,
+                "sampler": None if sampler is None else sampler.state_dict(),
+                "meta": meta,
+            }, tmp)
+            os.replace(tmp, path)
+            (self.dir / f"{name}.json").write_text(json.dumps(meta, default=float))
+        barrier()
         return path
 
     def _prune(self, prefix: str, keep: str) -> None:
-        for p in self.dir.glob(f"{prefix}*"):
-            if p.name.split(".")[0] != keep:
-                p.unlink(missing_ok=True)
+        if rank() == 0:
+            for p in self.dir.glob(f"{prefix}*"):
+                if p.name.split(".")[0] != keep:
+                    p.unlink(missing_ok=True)
+        barrier()
 
     def save_latest(self, state: Any, meta: Dict[str, Any],
                     generator: Optional[torch.Generator] = None, sampler=None) -> Path:
@@ -113,8 +131,11 @@ class CheckpointManager:
         saved = self.load(name)
         _load_into(state_like.params, saved["params"])
         opt_state = _load_into(state_like.opt_state, saved["opt_state"])
-        if generator is not None and saved.get("generator") is not None:
-            generator.set_state(saved["generator"])
+        # this rank's generator; a checkpoint of fewer ranks (or one from
+        # before the per-rank states) leaves the other ranks' fresh
+        states = saved.get("generators") or [saved.get("generator")]
+        if generator is not None and rank() < len(states) and states[rank()] is not None:
+            generator.set_state(states[rank()])
         if sampler is not None and saved.get("sampler") is not None:
             sampler.load_state_dict(saved["sampler"])
         return state_like.replace(step=int(saved["step"]), opt_state=opt_state)

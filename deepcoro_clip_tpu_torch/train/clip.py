@@ -1,9 +1,13 @@
 """Contrastive (CLIP) training step assembly.
 
-Port of the JAX package's ``train/clip.py`` for one card: video and text
-forward, the batch contrastive loss, backward (through the CUDA attention
-kernels), the per-group optimizer update with dynamic freeze masks. bf16
-compute, fp32 parameters, no gradient scaler.
+Port of the JAX package's ``train/clip.py``: video and text forward, the
+batch contrastive loss, backward (through the CUDA attention kernels), the
+per-group optimizer update with dynamic freeze masks. bf16 compute, fp32
+parameters, no gradient scaler. Under data parallelism
+(``parallel/distributed.py``) a rank holds its rows of the global batch,
+the loss is the global batch's and the gradients are averaged over the
+ranks before the freeze masks, the non-finite gate and the clipping, so
+every rank takes the same update.
 
 The loss is picked by ``loss_name`` as in the JAX module: the CLIP
 losses, ``siglip`` (pairwise over the batch, with the learnable
@@ -46,6 +50,7 @@ from deepcoro_clip_tpu_torch.models.video_encoder import (
     init_params,
     video_encoder_from_config,
 )
+from deepcoro_clip_tpu_torch.parallel.distributed import gather_rows
 from deepcoro_clip_tpu_torch.parallel.mesh import Mesh, MeshSpec, make_mesh
 from deepcoro_clip_tpu_torch.registry import LossRegistry
 from deepcoro_clip_tpu_torch.train import optim as optim_lib
@@ -60,6 +65,9 @@ MULTI_POSITIVE_LOSSES = {
 CLIP_LOSSES = {"contrastive", "clip", "contrastive_ddp", "infonce_loss",
                "infonce_loss_ddp", "infonce"}
 SIGLIP_LOSSES = {"siglip", "siglip_ddp"}
+# the per-row masks the loss reads, gathered over the ranks with the
+# embeddings
+ROW_KEYS = ("sample_mask", "positive_mask", "positive_weights")
 
 
 class ClipBundle(NamedTuple):
@@ -80,6 +88,14 @@ class ClipBundle(NamedTuple):
 def is_multi_positive(config) -> bool:
     """The loss scores each video against a bank of texts."""
     return config.loss_name.lower() in MULTI_POSITIVE_LOSSES
+
+
+def replicated_keys(config) -> tuple:
+    """The batch keys every rank holds whole (the JAX bundle's
+    ``batch_sharding_fn``): the multi-positive bank and its ``text_valid``."""
+    if is_multi_positive(config):
+        return ("input_ids", "attention_mask", "text_valid")
+    return ("text_valid",)
 
 
 def _check_loss_name(config) -> None:
@@ -202,22 +218,35 @@ def compute_loss(bundle: ClipBundle, log_temp, batch, generator=None,
     own parameters; ``log_temp`` is passed so that a step can pin it, and
     ``logit_bias`` (the SigLIP losses') is the model's own scalar. With the
     LocCa head and ``caption_ids`` in the batch, ``locca_loss`` is its
-    combined loss and ``loss`` adds ``locca_weight`` times it."""
+    combined loss and ``loss`` adds ``locca_weight`` times it.
+
+    Under data parallelism (``parallel/distributed.py``) ``batch`` holds this
+    rank's rows; the loss is the global batch's, the same on every rank, and
+    ``video_emb``, ``text_emb`` and the row masks of ``ROW_KEYS`` come out
+    gathered, in global order."""
     cfg = bundle.config
     name = cfg.loss_name.lower()
     v_emb, t_emb, tokens = _forward_embeddings(bundle, batch, generator, deterministic)
     v_emb = torch.nan_to_num(v_emb)
     t_emb = torch.nan_to_num(t_emb)
-    sample_mask = batch.get("sample_mask")
+    local_mask = batch.get("sample_mask")
+    # the loss of the global batch: under data parallelism every rank
+    # gathers the others' embeddings and per-row masks (the multi-positive
+    # bank is replicated: every rank encodes it whole)
+    v_emb = gather_rows(v_emb)
+    if name not in MULTI_POSITIVE_LOSSES:
+        t_emb = gather_rows(t_emb)
+    rows = {k: gather_rows(batch[k]) for k in ROW_KEYS if k in batch}
+    sample_mask = rows.get("sample_mask")
     if name == "multi_positive_infonce":
         out = closs.multi_positive_infonce_loss(
-            v_emb, t_emb, batch["positive_mask"], log_temp,
-            positive_weights=batch.get("positive_weights"),
+            v_emb, t_emb, rows["positive_mask"], log_temp,
+            positive_weights=rows.get("positive_weights"),
             text_valid=batch.get("text_valid"), sample_mask=sample_mask)
     elif name in MULTI_POSITIVE_LOSSES:
         out = LossRegistry.get(name)(
-            v_emb, t_emb, positive_mask=batch["positive_mask"], log_temp=log_temp,
-            bias=logit_bias, positive_weights=batch.get("positive_weights"),
+            v_emb, t_emb, positive_mask=rows["positive_mask"], log_temp=log_temp,
+            bias=logit_bias, positive_weights=rows.get("positive_weights"),
             text_valid=batch.get("text_valid"),
             positive_loss_weight=cfg.siglip_positive_loss_weight,
             negative_loss_weight=cfg.siglip_negative_loss_weight,
@@ -232,6 +261,7 @@ def compute_loss(bundle: ClipBundle, log_temp, batch, generator=None,
         out = closs.clip_loss(v_emb, t_emb, log_temp, label_smoothing=cfg.label_smoothing,
                               sample_mask=sample_mask)
     if tokens is not None:
+        # on this rank's rows; the token means are the global batch's
         logits = bundle.locca_decoder(batch["caption_ids"], tokens,
                                       attention_mask=batch.get("caption_mask"),
                                       deterministic=deterministic, generator=generator)
@@ -239,11 +269,12 @@ def compute_loss(bundle: ClipBundle, log_temp, batch, generator=None,
             logits, batch["caption_ids"], batch["caption_mask"],
             location_mask=batch.get("location_mask"),
             weights=dict(cfg.locca_task_weights) if cfg.locca_task_weights else None,
-            label_smoothing=cfg.label_smoothing, sample_weights=sample_mask)
+            label_smoothing=cfg.label_smoothing, sample_weights=local_mask)
         out["locca_loss"] = locca["total"]
         out["loss"] = out["loss"] + cfg.locca_weight * locca["total"]
     out["video_emb"] = v_emb
     out["text_emb"] = t_emb
+    out.update(rows)
     return out
 
 
@@ -267,6 +298,23 @@ def alignment_score(v_emb, t_emb, positive_mask=None, sample_mask=None):
     return ((v @ t.T) * pos).sum() / pos.sum().clamp_min(1.0)
 
 
+def loss_and_grads(bundle: ClipBundle, params: Dict[str, torch.Tensor], batch,
+                   generator=None, temp_override: float = -1.0):
+    """``(compute_loss's outputs, gradients)`` of the train step: every
+    parameter gets a gradient (zeros where the loss does not read it:
+    ``logit_bias`` under ``clip_loss``, ``log_temp`` when ``temp_override``
+    pins it), non-finite entries zeroed, averaged over the ranks under data
+    parallelism (the same on every rank)."""
+    names = list(params)
+    pinned = temp_override > 0
+    log_temp = (torch.full_like(params["log_temp"], math.log(max(temp_override, 1e-6)))
+                if pinned else params["log_temp"])
+    out = compute_loss(bundle, log_temp, batch, generator, deterministic=False,
+                       logit_bias=params["logit_bias"])
+    wanted = [n for n in names if params[n].requires_grad]
+    return out, optim_lib.loss_grads(out["loss"], params, wanted)
+
+
 def make_train_step(bundle: ClipBundle):
     """The train step.
 
@@ -287,18 +335,8 @@ def make_train_step(bundle: ClipBundle):
         params = state.params
         names = list(params)
         pinned = temp_override > 0
-        log_temp = (torch.full_like(params["log_temp"], math.log(max(temp_override, 1e-6)))
-                    if pinned else params["log_temp"])
-        out = compute_loss(bundle, log_temp, batch, generator, deterministic=False,
-                           logit_bias=params["logit_bias"])
+        out, grads = loss_and_grads(bundle, params, batch, generator, temp_override)
         loss = out["loss"]
-        wanted = [n for n in names if params[n].requires_grad]
-        got = torch.autograd.grad(loss, [params[n] for n in wanted], allow_unused=True)
-        got = dict(zip(wanted, got))
-        # what the loss does not read (logit_bias under clip_loss, log_temp
-        # when pinned) gets no gradient: zeros
-        grads = {n: (torch.nan_to_num_(got[n]) if got.get(n) is not None
-                     else torch.zeros_like(params[n])) for n in names}
 
         with torch.no_grad():
             # dynamic partial freeze: mask the gradients before the update,
@@ -333,9 +371,9 @@ def make_train_step(bundle: ClipBundle):
                 "loss": loss.detach(),
                 "temperature": out["temperature"].detach(),
                 "alignment": alignment_score(out["video_emb"], out["text_emb"],
-                                             positive_mask=(batch["positive_mask"]
+                                             positive_mask=(out["positive_mask"]
                                                             if multi_positive else None),
-                                             sample_mask=batch.get("sample_mask")),
+                                             sample_mask=out.get("sample_mask")),
                 "grad_norm": optim_lib.global_norm(grads),
                 **{f"grad_norm_{t}": optim_lib.global_norm(g)
                    for t, g in towers.items() if g},
@@ -373,9 +411,9 @@ def make_eval_step(bundle: ClipBundle):
             "video_emb": out["video_emb"],
             "text_emb": out["text_emb"],
             "alignment": alignment_score(out["video_emb"], out["text_emb"],
-                                         positive_mask=(batch["positive_mask"]
+                                         positive_mask=(out["positive_mask"]
                                                         if multi_positive else None),
-                                         sample_mask=batch.get("sample_mask")),
+                                         sample_mask=out.get("sample_mask")),
         }
 
     return step

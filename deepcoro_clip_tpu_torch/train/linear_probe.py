@@ -1,6 +1,6 @@
 """Linear-probing / multi-instance-learning training step assembly.
 
-Port of the JAX package's ``train/linear_probe.py`` for one card: a (usually
+Port of the JAX package's ``train/linear_probe.py``: a (usually
 frozen) video encoder that emits per-video embeddings ``[B, N, D]`` (or
 ``[B, N, L, D]`` tokens for hierarchical pooling), the
 ``MultiInstanceLinearProbing`` head in fp32, ``multi_head_loss``, and the
@@ -34,6 +34,7 @@ from deepcoro_clip_tpu_torch.models.video_encoder import (
     init_params,
     video_encoder_from_config,
 )
+from deepcoro_clip_tpu_torch.parallel.distributed import gather_rows
 from deepcoro_clip_tpu_torch.train import optim as optim_lib
 from deepcoro_clip_tpu_torch.train.schedulers import get_scheduler
 from deepcoro_clip_tpu_torch.train.state import TrainState
@@ -206,11 +207,42 @@ def forward_heads(bundle: ProbeBundle, batch, generator=None,
     return outputs, emb
 
 
+def global_outputs(outputs, batch):
+    """``(outputs, targets, sample_mask)`` of the global batch: under data
+    parallelism each is gathered over the ranks (differentiably), in
+    global order; with one rank they are this batch's own."""
+    mask = batch.get("sample_mask")
+    return ({h: gather_rows(o) for h, o in outputs.items()},
+            {h: gather_rows(t) for h, t in batch["targets"].items()},
+            None if mask is None else gather_rows(mask))
+
+
 def _losses(bundle: ProbeBundle, outputs, batch):
+    """The head losses of the global batch, and its gathered outputs."""
     cfg = bundle.config
-    return multi_head_loss(outputs, batch["targets"], dict(cfg.loss_structure),
+    outputs, targets, mask = global_outputs(outputs, batch)
+    return multi_head_loss(outputs, targets, dict(cfg.loss_structure),
                            head_weights=dict(cfg.head_weights),
-                           sample_mask=batch.get("sample_mask"))
+                           sample_mask=mask), outputs
+
+
+def probe_loss_and_grads(bundle: ProbeBundle, params, batch, generator=None,
+                         encoder_freeze_ratio: float = 1.0):
+    """``(head losses, gradients, keep)`` of the train step: ``keep`` maps
+    each encoder leaf to whether the ratio leaves it trainable; a fully
+    frozen encoder runs without a graph and gets zero gradients; averaged
+    over the ranks under data parallelism."""
+    pre = "video_encoder."
+    names = list(params)
+    keep = {pre + k: v for k, v in optim_lib.freeze_keep(
+        bundle.video_fracs, encoder_freeze_ratio).items()}
+    encoder_grad = any(keep.values())
+    outputs, _ = forward_heads(bundle, batch, generator, deterministic=False,
+                               encoder_grad=encoder_grad)
+    losses, _ = _losses(bundle, outputs, batch)
+    wanted = [n for n in names if params[n].requires_grad
+              and (encoder_grad or not n.startswith(pre))]
+    return losses, optim_lib.loss_grads(losses["main"], params, wanted), keep
 
 
 def make_probe_train_step(bundle: ProbeBundle):
@@ -222,25 +254,13 @@ def make_probe_train_step(bundle: ProbeBundle):
     Metrics (``loss``, ``lr``, ``grad_norm``, ``loss_<head>``) are tensors
     on the device: reading one is the only time the host waits.
     """
-    pre = "video_encoder."
-
     def step(state: TrainState, batch, generator=None, encoder_freeze_ratio=1.0):
         params = state.params
         _check_own_params(bundle, params)
         names = list(params)
-        keep = {pre + k: v for k, v in optim_lib.freeze_keep(
-            bundle.video_fracs, encoder_freeze_ratio).items()}
-        encoder_grad = any(keep.values())
-        outputs, _ = forward_heads(bundle, batch, generator, deterministic=False,
-                                   encoder_grad=encoder_grad)
-        losses = _losses(bundle, outputs, batch)
+        losses, grads, keep = probe_loss_and_grads(bundle, params, batch, generator,
+                                                   encoder_freeze_ratio)
         loss = losses["main"]
-        wanted = [n for n in names if params[n].requires_grad
-                  and (encoder_grad or not n.startswith(pre))]
-        got = dict(zip(wanted, torch.autograd.grad(
-            loss, [params[n] for n in wanted], allow_unused=True)))
-        grads = {n: (torch.nan_to_num_(got[n]) if got.get(n) is not None
-                     else torch.zeros_like(params[n])) for n in names}
 
         with torch.no_grad():
             # mask the gradients before the update (no moment builds up on a
@@ -263,14 +283,16 @@ def make_probe_train_step(bundle: ProbeBundle):
 
 
 def make_probe_eval_step(bundle: ProbeBundle):
-    """Deterministic forward: ``{"outputs", "loss", "embeddings"}``.
+    """Deterministic forward: ``{"outputs", "loss", "embeddings"}``, the
+    outputs and the loss the global batch's (gathered under data
+    parallelism, padding rows included), the embeddings this rank's.
     ``params`` must be the bundle's own parameters (``state.params``)."""
 
     @torch.no_grad()
     def step(params: Dict[str, torch.Tensor], batch):
         _check_own_params(bundle, params)
         outputs, emb = forward_heads(bundle, batch, deterministic=True)
-        return {"outputs": outputs, "loss": _losses(bundle, outputs, batch)["main"],
-                "embeddings": emb}
+        losses, outputs = _losses(bundle, outputs, batch)
+        return {"outputs": outputs, "loss": losses["main"], "embeddings": emb}
 
     return step

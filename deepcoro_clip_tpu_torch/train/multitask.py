@@ -1,6 +1,6 @@
 """Multitask (contrastive + captioning + MVM) training step assembly.
 
-Port of the JAX package's ``train/multitask.py`` for one card: a shared
+Port of the JAX package's ``train/multitask.py``: a shared
 ``VideoEncoder`` and ``TextEncoder``, the ``CaptioningDecoder`` and
 ``MaskedVideoModeling``, trained jointly with per-task rates and scheduled
 loss weights. One backbone pass (``VideoEncoder.features``) feeds every
@@ -20,6 +20,12 @@ the packages while the arithmetic on a given mask does not. A step may be
 handed the MVM mask (``mvm_mask``) instead. The eval forward draws nothing
 but the MVM mask, from a generator seeded 0 at each call, as the JAX runner
 hands every validation batch ``PRNGKey(0)``.
+
+Under data parallelism (``parallel/distributed.py``) a rank holds its rows
+of the global batch: the contrastive term runs on the gathered embeddings,
+the captioning, LocCa, MVM and consistency means divide by the global
+batch's counts, and the gradients are averaged over the ranks before the
+freeze masks and the update.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from deepcoro_clip_tpu_torch.models.video_encoder import (
     init_params,
     video_encoder_from_config,
 )
+from deepcoro_clip_tpu_torch.parallel.distributed import gather_rows, global_ratio
 from deepcoro_clip_tpu_torch.train import optim as optim_lib
 from deepcoro_clip_tpu_torch.train.schedulers import get_scheduler
 from deepcoro_clip_tpu_torch.train.state import TrainState
@@ -159,9 +166,13 @@ def multitask_forward(bundle: MultitaskBundle, log_temp, batch,
     t_emb = bundle.text_model(batch["input_ids"], attention_mask=batch["attention_mask"],
                               deterministic=deterministic, generator=generator)
     sample_mask = batch.get("sample_mask")
-    contrastive = clip_loss(torch.nan_to_num(feats["study"]), torch.nan_to_num(t_emb),
-                            log_temp, label_smoothing=cfg.label_smoothing,
-                            sample_mask=sample_mask)
+    # the contrastive term over the global batch (gathered embeddings); the
+    # token and patch means below divide by the global batch's counts
+    contrastive = clip_loss(gather_rows(torch.nan_to_num(feats["study"])),
+                            gather_rows(torch.nan_to_num(t_emb)), log_temp,
+                            label_smoothing=cfg.label_smoothing,
+                            sample_mask=None if sample_mask is None
+                            else gather_rows(sample_mask))
 
     toks_flat = feats["tokens"].reshape(B, N * L, D)
     cap_ids = batch["caption_ids"]
@@ -216,7 +227,7 @@ def multitask_forward(bundle: MultitaskBundle, log_temp, batch,
         cos = (_normalize(feats["study"].float()) * _normalize(single)).sum(-1)
         if sample_mask is not None:
             sm = sample_mask.float()
-            consistency = ((1.0 - cos) * sm).sum() / sm.sum().clamp_min(1.0)
+            consistency = global_ratio(((1.0 - cos) * sm).sum(), sm.sum())
         else:
             consistency = (1.0 - cos).mean()
     else:
@@ -236,6 +247,22 @@ def multitask_forward(bundle: MultitaskBundle, log_temp, batch,
         "video_tokens": toks_flat,
         **{f"locca_{k}": v for k, v in locca_parts.items()},
     }
+
+
+def multitask_loss_and_grads(bundle: MultitaskBundle, params, batch, log_temp,
+                             generator=None, w_con=1.0, w_cap=1.0, w_mvm=1.0,
+                             ss_prob=None, mvm_mask=None):
+    """``(multitask_forward's outputs, weighted loss, gradients)`` of the
+    train step: zeros for a leaf the loss does not reach (``log_temp`` when
+    pinned), non-finite entries zeroed, averaged over the ranks under data
+    parallelism."""
+    cfg = bundle.config
+    out = multitask_forward(bundle, log_temp, batch, generator, deterministic=False,
+                            ss_prob=ss_prob, mvm_mask=mvm_mask)
+    loss = (w_con * out["contrastive"] + w_cap * out["captioning"]
+            + w_mvm * out["mvm"] + cfg.consistency_weight * out["consistency"])
+    wanted = [n for n, p in params.items() if p.requires_grad]
+    return out, loss, optim_lib.loss_grads(loss, params, wanted)
 
 
 def make_multitask_train_step(bundle: MultitaskBundle):
@@ -265,16 +292,9 @@ def make_multitask_train_step(bundle: MultitaskBundle):
         pinned = temp_override > 0
         log_temp = (torch.full_like(params["log_temp"], math.log(max(temp_override, 1e-6)))
                     if pinned else params["log_temp"])
-        out = multitask_forward(bundle, log_temp, batch, generator, deterministic=False,
-                                ss_prob=ss_prob, mvm_mask=mvm_mask)
-        loss = (w_con * out["contrastive"] + w_cap * out["captioning"]
-                + w_mvm * out["mvm"] + cfg.consistency_weight * out["consistency"])
-        wanted = [n for n in names if params[n].requires_grad]
-        got = dict(zip(wanted, torch.autograd.grad(
-            loss, [params[n] for n in wanted], allow_unused=True)))
-        # log_temp when pinned (and any leaf the loss does not reach): zeros
-        grads = {n: (torch.nan_to_num_(got[n]) if got.get(n) is not None
-                     else torch.zeros_like(params[n])) for n in names}
+        out, loss, grads = multitask_loss_and_grads(
+            bundle, params, batch, log_temp, generator, w_con, w_cap, w_mvm,
+            ss_prob=ss_prob, mvm_mask=mvm_mask)
 
         with torch.no_grad():
             # dynamic partial freeze: gradients masked before the update (no

@@ -33,6 +33,8 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
+from deepcoro_clip_tpu_torch.parallel.distributed import all_reduce_grads
+
 # start-fraction of leaves outside the freezable subtree (proj, aggregator,
 # pools): above any (1 - ratio) threshold, so a partial ratio never freezes them
 _NEVER_FROZEN = 2.0
@@ -133,6 +135,21 @@ def group_label(name: str) -> str:
     if "aggregator" in name or ("pool" in name and "patch" not in name):
         return "video_2x"
     return "video"
+
+
+def loss_grads(loss: torch.Tensor, params: Mapping[str, torch.Tensor],
+               wanted) -> Dict[str, torch.Tensor]:
+    """The gradient of ``loss`` for every parameter in ``params``: taken for
+    the names in ``wanted``, zeros where the loss does not reach a leaf (or
+    ``wanted`` leaves it out), non-finite entries zeroed, then averaged over
+    the ranks under data parallelism (``parallel/distributed.py``: the same
+    on every rank)."""
+    got = dict(zip(wanted, torch.autograd.grad(loss, [params[n] for n in wanted],
+                                               allow_unused=True)))
+    grads = {n: (torch.nan_to_num_(got[n]) if got.get(n) is not None
+                 else torch.zeros_like(p)) for n, p in params.items()}
+    all_reduce_grads(grads)
+    return grads
 
 
 def finite_gate(loss: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@ Run in a subprocess: this test process has JAX loaded already
 (tests/conftest.py imports it). There ``jax``, ``flax`` and ``optax``
 (and ``yaml``, ``pandas`` and ``cv2``, which the machine with the card
 need not have) are made unimportable, every module of
-``deepcoro_clip_tpu_torch`` and ``chip_smoke`` is imported, and no
+``deepcoro_clip_tpu_torch``, ``chip_smoke`` and the data-parallel tests'
+ranks (``tests/test_torch_ddp_workers.py``) is imported, and no
 ``deepcoro_clip_tpu`` module may have been loaded.
 """
 
@@ -27,6 +28,7 @@ mods = [m.name for m in pkgutil.walk_packages(deepcoro_clip_tpu_torch.__path__,
 for name in mods:
     importlib.import_module(name)
 import chip_smoke
+import tests.test_torch_ddp_workers  # the data-parallel tests' ranks
 bad = sorted(m for m in sys.modules
              if m == "deepcoro_clip_tpu" or m.startswith("deepcoro_clip_tpu."))
 assert not bad, bad
@@ -46,7 +48,8 @@ for need in ("train.clip", "train.optim", "losses.contrastive", "models.text_enc
              "utils.siglip_logging", "utils.metrics", "runners.linear_probing",
              "projects.linear_probing", "generate_embeddings", "ops.library", "serving",
              "export_model", "external_validation", "data.single_head_sampler",
-             "models.locca_decoder"):
+             "models.locca_decoder", "parallel.distributed", "parallel.batching",
+             "parallel.multihost"):
     assert "deepcoro_clip_tpu_torch." + need in mods, need
 print(len(mods))
 """
@@ -56,4 +59,4 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", CHECK], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 79  # every module walked
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 82  # every module walked
