@@ -6,8 +6,10 @@
                                         # into an older tree to time its host path)
     python3 chip_smoke.py --compare     # one run of an A B B A call (run_compare;
                                         # copy the script into the older tree too)
-    python3 chip_smoke.py --ddp-rank <spec.json>   # one rank of phase 32 or 33, as
+    python3 chip_smoke.py --ddp-rank <spec.json>   # one rank of phase 32 to 35, as
                                         # torch.distributed.run starts it there
+    python3 chip_smoke.py --drift       # phase 32's world-1 control against world N,
+                                        # reversed rows and gradient accumulation 2
 
 Phases, each printing one line (or a few) before the last:
 
@@ -165,10 +167,12 @@ Phases, each printing one line (or a few) before the last:
    L 128 on the long kernels, counted apart as "K3 long" and "K4 long",
    and the aggregator's 2 blocks) plus the validation's; the latest,
    best-loss and highest-alignment checkpoints with their meta keys, one of
-   each; the history's keys, grad_norm_video_<block> included. A second
-   run stopped after epoch 0 and resumed through main (resume_training,
-   checkpoint = its run directory) must end bit-equal to the uninterrupted
-   one (epoch-1 loss, every parameter, the generator state). A profiler
+   each; the history's keys, grad_norm_video_<block> included. Epoch 0's
+   checkpoint, copied out of the run as it is written (what a run killed
+   after epoch 0 leaves), resumed
+   through main (resume_training, checkpoint = the copy's directory) must
+   end bit-equal to the uninterrupted run (epoch-1 loss, every parameter,
+   the generator state); phases 23 to 31 resume the same way. A profiler
    trace of one step shows the text tower's long kernels
    (flash_long_fwd_kernel, bwd_rows_kernel, flash_long_bwd_dkv_kernel,
    flash_long_bwd_dq_kernel) and the aggregator's short ones; K3 and K4 at
@@ -191,8 +195,8 @@ Phases, each printing one line (or a few) before the last:
    over 4 x 393 video tokens, the aggregator's 2 blocks) and 12 K1 / 22 K3
    a validation batch, no K5 or K6; the latest and best-loss checkpoints,
    the captions CSV of each epoch with one row a validation study, the
-   caption metrics in the history. A run stopped after epoch 0 and resumed
-   through main ends bit-equal to the uninterrupted one. A profiler trace
+   caption metrics in the history. Epoch 0's checkpoint resumed through
+   main ends bit-equal to the uninterrupted one. A profiler trace
    of one step shows the long kernels of K3/K4 and the aggregator's short
    ones; K3 and K4 at the text tower's [8,12,512,64] with the batch's
    padding mask, at the decoder's [8,8,128,64] causal with the batch's
@@ -214,8 +218,8 @@ Phases, each printing one line (or a few) before the last:
    panel. Every loss finite; the launches of the whole run, predicted per
    train step (12 K1 / 12 K2 / 13 K3 / 13 K4), per validation batch and per
    bank chunk of 64 texts, counted from 0 just before it; logit_bias moved
-   from -10; checkpoints and artifacts; a run stopped after epoch 0 and
-   resumed through main ends bit-equal; step time, peak memory, a profiled
+   from -10; checkpoints and artifacts; epoch 0's checkpoint resumed
+   through main ends bit-equal; step time, peak memory, a profiled
    step's busy time and its tile K3/K4 share; K3/K4 at the bank's
    [B*40,12,512,64] with the batch's mask and the aggregator's [B,16,1,32]
    (run at Dh 64 on zero-padded operands) against their plain versions
@@ -244,8 +248,8 @@ Phases, each printing one line (or a few) before the last:
    backbone leaf must load), epochs 2, DEEPCORO_FUSED_OUTPROJ=1 (K5). Every
    loss finite, launches over the run 12 K5 / 1 K3 / 1 K4 a train step and
    12 K5 / 1 K3 a validation batch, no K1, K2 or K6; the backbone bit-equal
-   to phase 22's after the run, every head tensor moved; a run stopped after
-   epoch 0 and resumed through main bit-equal; run_mode val with the
+   to phase 22's after the run, every head tensor moved; epoch 0's
+   checkpoint resumed through main bit-equal; run_mode val with the
    bootstrap intervals of every head; run_mode inference with the study
    embeddings through K5 and with the switch off (K1 + F.linear, cosine >=
    0.999), and at batch 2 against 8 (the largest differences printed,
@@ -303,8 +307,8 @@ Phases, each printing one line (or a few) before the last:
    4 layers, d 512, 8 heads, 256 tokens, weight 0.5): launches predicted
    and counted, 12 K1 / 12 K2 / 21 K3 / 21 K4 a train step (20 of each
    long) and 12 K1 / 21 K3 a validation batch; the LocCa loss finite at
-   every step, every decoder tensor moved; a run stopped after epoch 0 and
-   resumed through main bit-equal (the sampler's state and the decoder's
+   every step, every decoder tensor moved; epoch 0's checkpoint resumed
+   through main bit-equal (the sampler's state and the decoder's
    moments in the checkpoint); the decoder's K3/K4 at the step's own
    caption mask, [B,8,256,64] causal, and at [B,8,256|393,64] against
    their plain versions (phase 3's and 7's bars) with times, busy times,
@@ -335,9 +339,9 @@ Phases, each printing one line (or a few) before the last:
 then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6, and
 the long K3 and K4 kernels an entry each; K3 and K4 list their short and
 long kernels and carry phase 21's rows; every kernel carries the launches
-of phases 22 to 25's, 27, 28, 30 and 31's runs, of phase 29's paths and
-a rank's of phases 32 and 33
-(K5's "launches" are phase 27's train run's), K3 and K4 their shapes; the
+of phases 22 to 25's, 27, 28, 30 and 31's runs, of phase 29's paths, a
+rank's of phases 32, 33 and 35 and phase 36's; K6 a rank's of phase 34
+with that pass's times (K5's "launches" are phase 27's train run's), K3 and K4 their shapes; the
 long entries their launches over phases 22 to 25's, 30's and 31's runs and
 the bank's, their row at the SigLIP bank's mask and every long row of
 phases 22 to 26 and 31).
@@ -347,6 +351,13 @@ stay bit-equal (K1, K2, K5, K6, the short K3/K4), K1's and K2's times at
 the video and text towers' shapes, phase 24's train step on
 one batch (step time, busy time and share, tile K3/K4 share) and K3/K4 rows
 at the main paths' long shapes, against the package of the tree it lies in.
+
+--drift renders phase 22's corpus and runs phase 32's config at dropout 0
+through main four times: world 1 (the control), world N (ddp_topology),
+world 1 with each batch's rows reversed (the same loss and gradient,
+summed in another order) and world 1 with gradient_accumulation_steps 2;
+it prints each step's loss and grad_norm beside the control's. The
+"timeline" lines of a full run give the seconds after each group of phases.
 
 The last line is {"ok": true, "device": {...}}. Any failing phase exits
 non-zero before it, as does a machine without CUDA.
@@ -3307,9 +3318,9 @@ def phase_quality_run(torch, manifest: Path, keep: Optional[Path] = None) -> dic
     {"K1".."K4": launches of the run, "rows": (K3 row, K4 row) of the text
     tower's call, "aggregator_max_abs_err": (K3, K4) at the aggregator's
     call, "times": ...}. With ``keep`` the uninterrupted run's last
-    checkpoint is copied there (phases 27 to 29 start from it), and the run
-    stopped after epoch 0 leaves its checkpoint beside it as
-    ``quality_epoch0.pt`` (phase 29 swaps it into an artifact)."""
+    checkpoint is copied there (phases 27 to 29 start from it), and epoch 0's
+    checkpoint beside it as ``quality_epoch0.pt`` (phase 29 swaps it into
+    an artifact)."""
     from deepcoro_clip_tpu_torch.runners.common import batch_to_device
     from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
 
@@ -3323,8 +3334,8 @@ def phase_quality_run(torch, manifest: Path, keep: Optional[Path] = None) -> dic
         print(f"quality run: config/quality/flagship_quality_train.yaml with data_filename="
               f"{manifest.name} (the rendered corpus), output_dir=<tmp>, epochs=2, "
               f"num_workers={QUALITY_WORKERS}; nothing else changed", flush=True)
-        full, cut, resumed, counts, wall, peak_gib = _runs_through_main(
-            torch, "quality run", cfg, VideoContrastiveLearningRunner,
+        full, resumed, counts, wall, peak_gib = _runs_through_main(
+            torch, "quality run", cfg,
             keep_cut=None if keep is None else keep.with_name("quality_epoch0.pt"))
         hist = full["history"]
         steps = QUALITY_TRAIN // 16
@@ -3378,7 +3389,7 @@ def phase_quality_run(torch, manifest: Path, keep: Optional[Path] = None) -> dic
               "...)", flush=True)
 
         # resume: epoch 0's checkpoint, then epoch 1 as in the uninterrupted run
-        _check_resume(torch, "quality run", full, cut, resumed)
+        _check_resume(torch, "quality run", full, resumed)
         if keep is not None:
             shutil.copyfile(run / "checkpoints" / "checkpoint.pt", keep)
 
@@ -3511,8 +3522,8 @@ def phase_multitask_run(torch, manifest: Path) -> dict:
         print(f"multitask run: config/multitask/multitask_config.yaml with data_filename="
               f"{studies.name} (the corpus grouped into studies), output_dir=<tmp>, epochs=2, "
               f"num_workers={QUALITY_WORKERS}; nothing else changed", flush=True)
-        full, cut, resumed, counts, wall, peak_gib = _runs_through_main(
-            torch, "multitask run", cfg, MultitaskRunner)
+        full, resumed, counts, wall, peak_gib = _runs_through_main(
+            torch, "multitask run", cfg)
         hist = full["history"]
         for h in hist:
             print(f"multitask run: epoch {h['epoch']}: train loss {h['loss']:.4f} "
@@ -3553,7 +3564,7 @@ def phase_multitask_run(torch, manifest: Path) -> dict:
                   f"captions_epoch_{epoch}.csv: {len(caps) - 1} rows for {n['val']} studies")
         print(f"multitask run: captions of epoch 1, first study: {caps[1][:150]!r}", flush=True)
 
-        _check_resume(torch, "multitask run", full, cut, resumed)
+        _check_resume(torch, "multitask run", full, resumed)
 
         h = hist[1]
         step_ms = h["epoch_seconds"] * 1e3 / steps
@@ -3743,42 +3754,56 @@ PER_BANK_CHUNK = {"K1": 0, "K2": 0, "K3": 12, "K4": 0, "K5": 0, "K6": 0,
                   "K3 long": 12, "K4 long": 0}
 
 
-def _runs_through_main(torch, label: str, cfg, runner, keep_cut: Optional[Path] = None,
+def _runs_through_main(torch, label: str, cfg, keep_cut: Optional[Path] = None,
                        resume: bool = True):
     """``cfg(name, **over)``'s run through main, counted from 0 and its peak
-    memory read; with ``resume``, a run of it stopped after epoch 0
-    (``runner.train`` cut at ``end_epoch=1``, as a killed run would stop) and
-    that run resumed. ``keep_cut``: the stopped run's checkpoint is copied
-    there before the resume. Returns (full, cut, resumed, counts, wall
-    seconds, peak GiB); cut and resumed are None without ``resume``."""
+    memory read; with ``resume``, epoch 0's checkpoint is copied out of that
+    run as it is written (what a run killed after epoch 0 leaves: its
+    ``checkpoints/checkpoint.{pt,json}``) and resumed through main.
+    ``keep_cut``: that checkpoint is copied there too. Returns (full,
+    resumed, counts, wall seconds, peak GiB); resumed is None without
+    ``resume``."""
     from deepcoro_clip_tpu_torch.main import main
+    from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
+
+    copy = Path(cfg("cut").output_dir) / "epoch0"
+    save_latest = CheckpointManager.save_latest
+
+    def saving(self, state, meta, *a, **kw):
+        path = save_latest(self, state, meta, *a, **kw)
+        if resume and meta.get("epoch") == 0:
+            (copy / "checkpoints").mkdir(parents=True, exist_ok=True)
+            for suffix in (".pt", ".json"):
+                shutil.copyfile(self.dir / f"checkpoint{suffix}",
+                                copy / "checkpoints" / f"checkpoint{suffix}")
+        return path
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_kernel_counts()
+    CheckpointManager.save_latest = saving
     t0 = time.perf_counter()
-    full = main(config=cfg("full"))
+    try:
+        full = main(config=cfg("full"))
+    finally:
+        CheckpointManager.save_latest = save_latest
     wall = time.perf_counter() - t0
     counts = {**_kernel_counts(), **_long_counts()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{label}: main took {wall:.1f} s for 2 epochs (set-up, dataset statistics and "
           f"checkpoint writes included) | {CARD}", flush=True)
     if not resume:
-        return full, None, None, counts, wall, peak_gib
-    train = runner.train
-    runner.train = lambda self, start_epoch=0, end_epoch=None: train(self, start_epoch, 1)
-    try:
-        cut = main(config=cfg("cut"))
-    finally:
-        runner.train = train
+        return full, None, counts, wall, peak_gib
+    check((copy / "checkpoints" / "checkpoint.pt").exists(),
+          f"{label}: no checkpoint of epoch 0 was written")
     if keep_cut is not None:
-        shutil.copyfile(Path(cut["output_dir"]) / "checkpoints" / "checkpoint.pt", keep_cut)
-    resumed = main(config=cfg("cut", resume_training=True, checkpoint=cut["output_dir"]))
-    return full, cut, resumed, counts, wall, peak_gib
+        shutil.copyfile(copy / "checkpoints" / "checkpoint.pt", keep_cut)
+    resumed = main(config=cfg("cut", resume_training=True, checkpoint=str(copy)))
+    return full, resumed, counts, wall, peak_gib
 
 
-def _check_resume(torch, label: str, full, cut, resumed) -> None:
+def _check_resume(torch, label: str, full, resumed) -> None:
     """The resumed run's epoch 1 and final checkpoint bit-equal to the
     uninterrupted run's (the single-head sampler's state too, where the run
     has one)."""
@@ -3792,9 +3817,8 @@ def _check_resume(torch, label: str, full, cut, resumed) -> None:
           f"{l_full!r} uninterrupted, val loss {resumed['history'][0]['val_loss']!r} vs "
           f"{hist[1]['val_loss']!r}; {len(differ)} of {len(a['params'])} parameter tensors "
           "differ (tolerance: none, bit-equal)", flush=True)
-    check([h["epoch"] for h in cut["history"]] == [0]
-          and [h["epoch"] for h in resumed["history"]] == [1],
-          f"{label}: the cut run or the resumed run ran the wrong epochs")
+    check([h["epoch"] for h in resumed["history"]] == [1],
+          f"{label}: the resumed run ran epochs {[h['epoch'] for h in resumed['history']]}")
     check(l_res == l_full and not differ and a["step"] == b["step"]
           and torch.equal(a["generator"], b["generator"])
           and a.get("sampler") == b.get("sampler"),
@@ -3963,8 +3987,8 @@ def phase_siglip_run(torch, manifest: Path) -> dict:
               f"epochs=2, num_workers={QUALITY_WORKERS}, batch_size={SIGLIP_BATCH} (20: see the "
               f"memory line); {steps} steps and {val_batches} validation batches an epoch, a "
               f"bank of {SIGLIP_BATCH * 40} texts a step", flush=True)
-        full, cut, resumed, counts, wall, peak_gib = _runs_through_main(
-            torch, label, cfg, VideoContrastiveLearningRunner)
+        full, resumed, counts, wall, peak_gib = _runs_through_main(
+            torch, label, cfg)
         hist = full["history"]
         for h in hist:
             print(f"{label}: epoch {h['epoch']}: train loss {h['loss']:.4f}, val loss "
@@ -3983,7 +4007,7 @@ def phase_siglip_run(torch, manifest: Path) -> dict:
             math.isfinite(hist[1][k]) for k in semantic), f"{label}: semantic panel {semantic}")
         print(f"{label}: semantic panel {', '.join(f'{k[4:]} {hist[1][k]:.3f}' for k in semantic)}",
               flush=True)
-        _check_resume(torch, label, full, cut, resumed)
+        _check_resume(torch, label, full, resumed)
         times = _epoch_times(label, hist, steps, SIGLIP_BATCH, "clips", peak_gib, wall)
         times.update(out, memory=memory, batch_size=SIGLIP_BATCH)
 
@@ -4031,8 +4055,8 @@ def phase_multivideo_run(torch, manifest: Path) -> dict:
             return multivideo_config(data_filename=str(studies), output_dir=str(tmp / name),
                                      epochs=2, num_workers=QUALITY_WORKERS, **over)
 
-        full, cut, resumed, counts, wall, peak_gib = _runs_through_main(
-            torch, label, cfg, VideoContrastiveLearningRunner)
+        full, resumed, counts, wall, peak_gib = _runs_through_main(
+            torch, label, cfg)
         hist = full["history"]
         for h in hist:
             print(f"{label}: epoch {h['epoch']}: train loss {h['loss']:.4f}, val loss "
@@ -4043,7 +4067,7 @@ def phase_multivideo_run(torch, manifest: Path) -> dict:
         want = {k: 2 * (MV_PER_STEP[k] * steps + MV_PER_VAL[k] * val_batches)
                 + PER_BANK_CHUNK[k] * chunks for k in MV_PER_STEP}
         out = _run_checks(torch, label, full, counts, want)
-        _check_resume(torch, label, full, cut, resumed)
+        _check_resume(torch, label, full, resumed)
         times = _epoch_times(label, hist, steps, MV_BATCH, "studies", peak_gib, wall)
         times.update(out)
 
@@ -4201,8 +4225,8 @@ def phase_single_head_run(torch, manifest: Path, memory: dict) -> dict:
         cfg = _single_head_cfg(paths, tmp)
         held = _held_gib(torch)
         try:
-            full, _, _, counts, wall, peak_gib = _runs_through_main(
-                torch, label, cfg, VideoContrastiveLearningRunner, resume=False)
+            full, _, counts, wall, peak_gib = _runs_through_main(
+                torch, label, cfg, resume=False)
         finally:
             undo()
         hist = full["history"]
@@ -4282,8 +4306,8 @@ def phase_locca_run(torch, manifest: Path, single_head: dict) -> dict:
         held = _held_gib(torch)
         VideoContrastiveLearningRunner.__init__ = capture
         try:
-            full, cut, resumed, counts, wall, peak_gib = _runs_through_main(
-                torch, label, cfg, VideoContrastiveLearningRunner)
+            full, resumed, counts, wall, peak_gib = _runs_through_main(
+                torch, label, cfg)
         finally:
             VideoContrastiveLearningRunner.__init__ = init
         hist = full["history"]
@@ -4309,7 +4333,7 @@ def phase_locca_run(torch, manifest: Path, single_head: dict) -> dict:
         print(f"{label}: {len(whole.locca_init) - len(still)} of {len(whole.locca_init)} "
               f"decoder tensors moved over the run", flush=True)
         check(whole.locca_init and not still, f"{label}: decoder tensors unmoved: {still[:5]}")
-        _check_resume(torch, label, full, cut, resumed)
+        _check_resume(torch, label, full, resumed)
         times = _epoch_times(label, hist, steps, SIGLIP_BATCH, "clips", peak_gib, wall)
         times.update(out, batch_size=SIGLIP_BATCH, locca_losses=losses)
         times["run_peak_gib"] = peak_gib - held
@@ -4582,8 +4606,8 @@ def phase_probing_run(torch, manifest: Path, backbone: Path, tmp: Path) -> dict:
     switch = os.environ.get("DEEPCORO_FUSED_OUTPROJ")
     try:
         _fused_switch(True)
-        full, cut, resumed, counts, wall, peak_gib = _runs_through_main(
-            torch, "probing run", cfg, lp.LinearProbingRunner)
+        full, resumed, counts, wall, peak_gib = _runs_through_main(
+            torch, "probing run", cfg)
         hist = full["history"]
         steps = PROBE_RUN_STUDIES[0][1] // 8
         val_batches = -(-PROBE_RUN_STUDIES[1][1] // 8)
@@ -4630,7 +4654,7 @@ def phase_probing_run(torch, manifest: Path, backbone: Path, tmp: Path) -> dict:
         check(not moved and not stuck, f"probing run: encoder moved {moved[:3]}, head stuck "
                                        f"{stuck[:3]}")
         del src, final, fresh
-        _check_resume(torch, "probing run", full, cut, resumed)
+        _check_resume(torch, "probing run", full, resumed)
         h = hist[1]
         times = {"step_ms": h["epoch_seconds"] * 1e3 / steps,
                  "studies_per_s": 8 * steps / h["epoch_seconds"],
@@ -5833,42 +5857,50 @@ def _ddp_profiled_step(torch, cfg) -> dict:
 
 
 def _ddp_quality_rank(torch, spec: dict, rank: int) -> dict:
-    """A rank of phase 32: the quality run through main (the group started
-    by main, or with ``resume`` by this function first, so that a profiled
-    step can follow the run on the same group)."""
+    """A rank of phase 32 or 35 (or of ``--drift``): the quality run through
+    main, with the config overrides ``over``. With ``resume`` the group is
+    started here and outlives main: the run (epoch 0's checkpoint copied to
+    ``keep_epoch0``), that checkpoint resumed through main, then (unless
+    ``profile`` is false) a profiled step, all on one group; the result's
+    ``resumed`` holds the resumed run's, ``grid`` the process grid's shape."""
     from deepcoro_clip_tpu_torch.main import main as port_main
     from deepcoro_clip_tpu_torch.parallel import distributed
 
     written: list = []
     _audit_writes(torch, Path(spec["root"]), written)
-    rec = _quality_recorder(torch, rank, spec.get("keep_epoch0"))
-    over = {}
     if spec.get("resume"):
-        over = dict(resume_training=True, checkpoint=spec["resume"])
         distributed.init_from_env(quality_train_config().device)
-    cfg = _quality_ddp_config(spec["manifest"], spec["output_dir"], **over)
-    torch.cuda.reset_peak_memory_stats()
-    _zero_kernel_counts()
-    t0 = time.perf_counter()
-    result = port_main(config=cfg)
-    wall = time.perf_counter() - t0
-    counts = {**_kernel_counts(), **_long_counts()}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    rec["undo"]()
-    profiled = None
+
+    def run(keep_epoch0=None, **over):
+        rec = _quality_recorder(torch, rank, keep_epoch0)
+        cfg = _quality_ddp_config(spec["manifest"], spec["output_dir"],
+                                  **spec.get("over", {}), **over)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        result = port_main(config=cfg)
+        wall = time.perf_counter() - t0
+        rec["undo"]()
+        return cfg, {"history": result["history"], "output_dir": result["output_dir"],
+                     "steps": [{k: float(v) for k, v in s.items()} for s in rec["steps"]],
+                     "checksums": rec["checksums"],
+                     "counts": {**_kernel_counts(), **_long_counts()},
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "main_s": wall}
+
+    cfg, out = run(spec.get("keep_epoch0"))
     if spec.get("resume"):
-        # (the run's dataset statistics: no second pass over the clips)
-        profiled = _ddp_profiled_step(torch, _quality_ddp_config(
-            spec["manifest"], str(Path(spec["root"]) / "trace"),
-            dataset_mean=cfg.dataset_mean, dataset_std=cfg.dataset_std))
+        out["grid"] = dict(distributed.grid().shape)
+        _, out["resumed"] = run(resume_training=True, checkpoint=spec["resume"])
+        if spec.get("profile", True):
+            # (the run's dataset statistics: no second pass over the clips)
+            out["profile"] = _ddp_profiled_step(torch, _quality_ddp_config(
+                spec["manifest"], str(Path(spec["root"]) / "trace"),
+                dataset_mean=cfg.dataset_mean, dataset_std=cfg.dataset_std))
         distributed.shutdown()
-    steps = [{k: float(v) for k, v in s.items()} for s in rec["steps"]]
-    print(f"rank {rank}: cuda:{torch.cuda.current_device()}, {len(steps)} steps, main "
-          f"{wall:.1f} s, peak {peak:.2f} GiB", flush=True)
-    return {"history": result["history"], "output_dir": result["output_dir"],
-            "steps": steps, "checksums": rec["checksums"], "counts": counts,
-            "peak_gib": peak, "main_s": wall, "written": written, "profile": profiled,
-            "device": torch.cuda.current_device()}
+    print(f"rank {rank}: cuda:{torch.cuda.current_device()}, {len(out['steps'])} steps, "
+          f"main {out['main_s']:.1f} s, peak {out['peak_gib']:.2f} GiB", flush=True)
+    out.update(written=written, device=torch.cuda.current_device())
+    return out
 
 
 def phase_ddp_quality_run(torch, manifest: Path, tmp: Path) -> dict:
@@ -5889,22 +5921,25 @@ def phase_ddp_quality_run(torch, manifest: Path, tmp: Path) -> dict:
           f"{DDP_VAL_RECALL_ABS:.4f} (one clip of {QUALITY_VAL})", flush=True)
     root = tmp / "ddp_quality"
     keep = root / "epoch0"
-    full, full_s = _launch(world, {"job": "quality", "manifest": str(manifest),
-                                   "root": str(root), "output_dir": str(root / "full"),
-                                   "keep_epoch0": str(keep)}, tmp, "ddp_full")
-    resumed, resume_s = _launch(world, {"job": "quality", "manifest": str(manifest),
-                                        "root": str(root), "output_dir": str(root / "full"),
-                                        "resume": str(keep)}, tmp, "ddp_resume")
-    # world 1, the same config, in this process
+    # world 1, the same config, in this process; its dataset statistics go
+    # to the ranks (the same values, without a pass over the clips a run)
     rec = _quality_recorder(torch, 0)
     _zero_kernel_counts()
     from deepcoro_clip_tpu_torch.main import main as port_main
 
-    one = port_main(config=_quality_ddp_config(str(manifest), str(tmp / "ddp_one")))
+    cfg_one = _quality_ddp_config(str(manifest), str(tmp / "ddp_one"))
+    one = port_main(config=cfg_one)
     one_counts = {**_kernel_counts(), **_long_counts()}
     rec["undo"]()
     one_steps = [{k: float(v) for k, v in s.items()} for s in rec["steps"]]
     torch.cuda.empty_cache()
+    stats = {"dataset_mean": cfg_one.dataset_mean, "dataset_std": cfg_one.dataset_std}
+    # the run, epoch 0's checkpoint resumed and a profiled step: one launch
+    full, full_s = _launch(world, {"job": "quality", "manifest": str(manifest),
+                                   "root": str(root), "output_dir": str(root / "full"),
+                                   "keep_epoch0": str(keep), "resume": str(keep),
+                                   "over": stats}, tmp, "ddp_full")
+    resumed = [r["resumed"] for r in full]
 
     # the ranks agree: every step's metrics and each epoch's parameters
     for r in full[1:]:
@@ -5968,8 +6003,7 @@ def phase_ddp_quality_run(torch, manifest: Path, tmp: Path) -> dict:
     run = Path(full[0]["output_dir"])
     runs = sorted(p.parent for p in (root / "full").rglob("checkpoints"))
     check(runs == [run], f"ddp quality run: run directories {runs}")
-    for r, res in enumerate(full + resumed):
-        rank = r % world
+    for rank, res in enumerate(full):  # (the run and the resumed run)
         check(bool(res["written"]) == (rank == 0),
               f"ddp quality run: rank {rank} wrote {res['written'][:5]}")
     saved = torch.load(run / "checkpoints" / "checkpoint.pt", weights_only=True)
@@ -5998,13 +6032,12 @@ def phase_ddp_quality_run(torch, manifest: Path, tmp: Path) -> dict:
     h = full[0]["history"][1]
     step_ms = h["epoch_seconds"] * 1e3 / steps
     h1 = one["history"][1]
-    prof = res0["profile"]
     times = {"world": world, "backend": backend, "step_ms": step_ms,
              "clips_per_s": 16 * steps / h["epoch_seconds"],
              "world1_step_ms": h1["epoch_seconds"] * 1e3 / steps,
              "world1_clips_per_s": 16 * steps / h1["epoch_seconds"],
-             "peak_gib": [r["peak_gib"] for r in full], "launch_s": [full_s, resume_s],
-             "profiled_step": [r["profile"] for r in resumed]}
+             "peak_gib": [r["peak_gib"] for r in full], "launch_s": full_s,
+             "profiled_step": [r["profile"] for r in full]}
     print(f"ddp quality run: step {step_ms:.1f} ms (host clock, epoch 1 over {steps} steps), "
           f"{times['clips_per_s']:.1f} global clips/s; world 1 {times['world1_step_ms']:.1f} "
           f"ms, {times['world1_clips_per_s']:.1f} clips/s | {topology} | {CARD}", flush=True)
@@ -6020,9 +6053,8 @@ def phase_ddp_quality_run(torch, manifest: Path, tmp: Path) -> dict:
               f"busy {busy}; the gradient all-reduce ({p['gradient_bytes'] / 2 ** 20:.0f} "
               f"MiB fp32, one call) {p['all_reduce_host_ms']:.1f} ms host time; collectives "
               f"on the card: {coll} | {topology} | {CARD}", flush=True)
-    print(f"ddp quality run: torch.distributed.run launches {full_s:.1f} s (the run) and "
-          f"{resume_s:.1f} s (resume + profiled step), process start and set-up included",
-          flush=True)
+    print(f"ddp quality run: torch.distributed.run launch {full_s:.1f} s (the run, its "
+          f"resumption and a profiled step), process start and set-up included", flush=True)
     return {"world": world, "backend": backend, "counts": full[0]["counts"], "times": times}
 
 
@@ -6244,14 +6276,486 @@ def phase_ddp_steps(torch, tmp: Path) -> dict:
                    "counts": ranks[0][name]["counts"]} for name in want}
 
 
+# --------------------------------------------------------------------------- #
+# phases 34 to 36: the ring across processes (K6 on each rank's chunk, the
+# ring train run through main on a (data, model) grid of ranks) and the
+# reference-checkpoint importers
+
+# Bars, stated before the first run on the card. Phase 34's ranks run the
+# step kernel on the chunks the one-process pass of phase 16 gives its
+# shards, in the same order from the same state: bit-equal to it; against
+# the plain version, phase 16's bars (check_forward's and RING_L2_REL).
+# Phase 35: a rank of the 3-rank grid computes what the one-process ring of
+# 3 shards computes, but its ring's backward forms the probabilities from
+# the final row statistics where autograd goes back through each step's,
+# so the runs part by rounding from the first backward on: per-step loss
+# within DDP_LOSS_REL of the one-process run's, as phase 32 holds world N
+# to world 1.
+RINGP_RANKS = 4  # phase 34: one chunk of 3920 tokens a rank
+RING_MAIN_RANKS = 3  # phase 35: 3 divides 1569 and 393, as in phase 19
+RINGP_REPS = 10
+IMPORT_MIN_COSINE = 0.999
+IMPORT_TEXTS = 8  # phase 36: reports of 512 tokens through the imported text tower
+
+
+def ring_topology(torch, n: int) -> tuple:
+    """(backend, description) of n ranks: one a card over NCCL where the
+    machine shows n cards or more, else n ranks sharing card 0 over gloo."""
+    if torch.cuda.device_count() >= n:
+        return "nccl", f"{n} ranks, one a card (NCCL)"
+    return "gloo", (f"{n} ranks sharing card 0 (gloo; NCCL refuses two ranks on one "
+                    "device): each chunk goes through pinned host memory; the times "
+                    "are a correctness run's, not a scaling figure")
+
+
+def _rank_ms(torch, dist, fn, reps: int) -> float:
+    """Median host time of ``fn``, each call started together on every rank
+    (a barrier) and synchronised before and after."""
+    ts = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def _ring_pass_rank(torch, spec: dict, rank: int) -> dict:
+    """A rank of phase 34: its chunk of q/k/v through ring_attention over the
+    process group (backend "rdma": K6 on this rank's card), launches counted
+    from 0 just before; against K6's plain version across the same ranks
+    and the one-process pass's chunk; the pass, its plain version and the
+    exchanges alone timed; the pass's peak memory above its inputs."""
+    import torch.distributed as dist
+
+    from deepcoro_clip_tpu_torch.parallel import distributed, ring_attention
+    from deepcoro_clip_tpu_torch.parallel.mesh import MODEL_AXIS
+    from deepcoro_clip_tpu_torch.parallel.ring_attention import _Link
+
+    _, world, dev = distributed.init_from_env(None)
+    mesh = distributed.init_grid(world)
+    m = mesh.index[MODEL_AXIS]
+    saved = torch.load(spec["inputs"], weights_only=True)
+    c = slice(m * RING_L // world, (m + 1) * RING_L // world)
+    q, k, v, one = (saved[x][:, :, c].to(dev).contiguous() for x in ("q", "k", "v", "one"))
+    del saved
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        _zero_kernel_counts()
+        out = ring_attention(q, k, v, mesh, backend="rdma")  # the main path
+        torch.cuda.synchronize()
+        launches = _kernel_counts()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        again = ring_attention(q, k, v, mesh, backend="rdma")
+        plain = ring_attention(q, k, v, mesh, backend="rdma_interpret")
+        torch.cuda.synchronize()
+        d = (out.float() - plain.float()).abs()
+        within = bool(torch.isfinite(out).all()) and bool(
+            (d <= KERNEL_ATOL + KERNEL_RTOL * plain.float().abs()).all())
+        link = _Link(mesh, MODEL_AXIS)
+        slots = torch.empty((2, 2) + tuple(q.shape), dtype=torch.bfloat16, device=dev)
+        side = torch.cuda.Stream(dev)
+
+        def exchanges():  # the pass's n - 1 slot exchanges, no kernel
+            side.wait_stream(torch.cuda.current_stream())
+            for r in range(world - 1):
+                torch.cuda.current_stream().wait_event(
+                    link.post(slots[r % 2], slots[(r + 1) % 2], None, side).finish())
+
+        times = {"ms": _rank_ms(torch, dist, lambda: ring_attention(q, k, v, mesh,
+                                                                     backend="rdma"),
+                                RINGP_REPS),
+                 "plain_ms": _rank_ms(torch, dist, lambda: ring_attention(
+                     q, k, v, mesh, backend="rdma_interpret"), 3),
+                 "exchange_ms": _rank_ms(torch, dist, exchanges, RINGP_REPS)}
+    result = {"chunk": m, "launches": launches, "max_abs_err": float(d.max()),
+              "within": within, "rel_l2": _rel_l2(out, plain),
+              "bit_equal_run_to_run": bool(torch.equal(out, again)),
+              "bit_equal_to_one_process": bool(torch.equal(out, one)),
+              "max_abs_vs_one_process": float((out.float() - one.float()).abs().max()),
+              "peak_gib": peak, "device": torch.cuda.current_device(),
+              "backend": dist.get_backend(), **times}
+    print(f"rank {rank}: chunk {m} on cuda:{result['device']} ({result['backend']}): "
+          f"K6 {launches['K6']} launches, max|K6 - plain| {result['max_abs_err']:.3e}, "
+          f"pass {times['ms']:.2f} ms, exchanges alone {times['exchange_ms']:.2f} ms",
+          flush=True)
+    distributed.shutdown()
+    return result
+
+
+def phase_ring_processes(torch, tmp: Path) -> dict:
+    """Phase 34: the ring pass of phase 16 ([2,4,15680,128] bf16) over 4
+    ranks of a process group (torch.distributed.run, as phase 32 launches
+    it), each rank's chunk of 3920 tokens through K6 on its card; returns
+    the K6 entry's additions."""
+    from deepcoro_clip_tpu_torch.parallel import ring_attention
+
+    n = RINGP_RANKS
+    backend, topology = ring_topology(torch, n)
+    print(f"ring processes: [{RING_B},{RING_H},{RING_L},{RING_DH}] bf16 over {n} ranks "
+          f"(chunks of {RING_L // n} tokens), ring_attention(backend=\"rdma\") on each "
+          f"rank's chunk; {topology} | {CARD}", flush=True)
+    q, k, v = ring_inputs(torch, RING_L, seed=34)
+    mesh = ring_mesh(torch, n)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        one = ring_attention(q, k, v, mesh, backend="rdma")
+        torch.cuda.synchronize()
+        one_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        one_ms = cuda_ms(torch, lambda: ring_attention(q, k, v, mesh, backend="rdma"), REPS)
+    path = tmp / "ring_inputs.pt"
+    torch.save({"q": q.cpu(), "k": k.cpu(), "v": v.cpu(), "one": one.cpu()}, path)
+    del q, k, v, one
+    torch.cuda.empty_cache()
+    ranks, wall = _launch(n, {"job": "ring_pass", "inputs": str(path)}, tmp, "ring_pass")
+    path.unlink()
+    check(sorted(r["chunk"] for r in ranks) == list(range(n)), f"chunks {ranks}")
+    for r, res in enumerate(ranks):
+        check(res["launches"]["K6"] == n and sum(res["launches"].values()) == n,
+              f"ring processes: rank {r} launched {res['launches']}, expected {n} K6")
+        check(res["within"] and res["rel_l2"] <= RING_L2_REL,
+              f"ring processes: rank {r}: K6 against its plain version: max "
+              f"{res['max_abs_err']}, rel l2 {res['rel_l2']}")
+        check(res["bit_equal_run_to_run"], f"ring processes: rank {r}: two passes differ")
+        check(res["bit_equal_to_one_process"], f"ring processes: rank {r}: its chunk "
+              f"differs from the one-process pass's by {res['max_abs_vs_one_process']}")
+    B, H, L, Dh = RING_B, RING_H, RING_L, RING_DH
+    Lc = L // n
+    # a rank: its q, k, v and output once, and the n - 1 chunks it receives
+    b_ms, b_by = bound(4 * B * H * Lc * L * Dh, 4 * B * H * Lc * Dh * 2
+                       + (n - 1) * 2 * B * H * Lc * Dh * 2)
+    ms = max(r["ms"] for r in ranks)
+    share = [r["exchange_ms"] / r["ms"] for r in ranks]
+    print(f"ring processes: K6 against its plain version on every rank (phase 16's bars: "
+          f"max|d| {max(r['max_abs_err'] for r in ranks):.3e}, rel l2 "
+          f"{max(r['rel_l2'] for r in ranks):.3e} <= {RING_L2_REL}); every chunk bit-equal "
+          f"to the one-process pass of {n} shards and run to run", flush=True)
+    print(f"ring processes: launches per rank "
+          + ", ".join(str(r["launches"]["K6"]) for r in ranks)
+          + f" K6 (n = {n} a rank a pass, the one-process pass {n * n})", flush=True)
+    print(f"ring processes: pass {ms:.2f} ms (slowest rank, host clock, median of "
+          f"{RINGP_REPS} passes started together), plain version "
+          f"{max(r['plain_ms'] for r in ranks):.2f} ms; the exchanges alone "
+          + ", ".join(f"{r['exchange_ms']:.2f}" for r in ranks)
+          + " ms, share of the pass " + ", ".join(f"{s:.2f}" for s in share)
+          + f"; the one-process pass {one_ms:.3f} ms (CUDA events); a rank's bound "
+          f"{b_ms:.4f} ms ({b_by}) | {topology} | {CARD}", flush=True)
+    print(f"ring processes: peak memory of the pass above its inputs per rank "
+          + ", ".join(f"{r['peak_gib']:.3f}" for r in ranks)
+          + f" GiB; the one-process pass of {n} shards {one_peak:.3f} GiB | {CARD}",
+          flush=True)
+    print(f"ring processes: torch.distributed.run launch {wall:.1f} s", flush=True)
+    return {"process_ring_launches_per_rank": [r["launches"]["K6"] for r in ranks],
+            "process_ring": {
+                "ranks": n, "backend": backend, "ms": ms,
+                "plain_ms": max(r["plain_ms"] for r in ranks), "bound_ms": b_ms,
+                "bound_by": b_by, "exchange_share": share, "one_process_ms": one_ms,
+                "max_abs_err": max(r["max_abs_err"] for r in ranks),
+                "peak_gib": [r["peak_gib"] for r in ranks],
+                "one_process_peak_gib": one_peak}}
+
+
+def phase_ring_main_run(torch, manifest: Path, tmp: Path) -> dict:
+    """Phase 35: phase 22's config at dropout 0 with use_ring_attention and
+    mesh_model 3 through main on 3 ranks (the grid (1, 3): each rank's model
+    group holds the ring's three chunks), 2 epochs of 3 steps, then resumed
+    from epoch 0's checkpoint; against the same config in this process as a
+    one-process ring of 3 shards on card 0."""
+    from deepcoro_clip_tpu_torch.main import main as port_main
+    from deepcoro_clip_tpu_torch.train import clip as clip_train
+
+    n = RING_MAIN_RANKS
+    backend, topology = ring_topology(torch, n)
+    steps = QUALITY_TRAIN // 16
+    over = {"use_ring_attention": True, "mesh_model": n}
+    print(f"ring main run: config/quality/flagship_quality_train.yaml as phase 22 runs it, "
+          f"dropout 0, use_ring_attention true, mesh_model {n}: {n} ranks on the grid "
+          f"(data 1, model {n}), batch 16 on every rank, {steps} steps an epoch, 2 epochs, "
+          f"then resumed from epoch 0; {topology}; bar: per step |loss - loss_one| <= "
+          f"{DDP_LOSS_REL} |loss_one| | {CARD}", flush=True)
+    root = tmp / "ring_main"
+    keep = root / "epoch0"
+    # the same config in this process, the ring over 3 shards on card 0; its
+    # dataset statistics go to the ranks (as in phase 32)
+    build = clip_train.build_clip_bundle
+    clip_train.build_clip_bundle = lambda *a, **kw: build(*a, mesh=ring_mesh(torch, n), **kw)
+    rec = _quality_recorder(torch, 0)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    cfg_one = _quality_ddp_config(str(manifest), str(tmp / "ring_one"), **over)
+    try:
+        one = port_main(config=cfg_one)
+    finally:
+        clip_train.build_clip_bundle = build
+        rec["undo"]()
+    one_counts = {**_kernel_counts(), **_long_counts()}
+    one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    one_steps = [{k: float(v) for k, v in s.items()} for s in rec["steps"]]
+    torch.cuda.empty_cache()
+    over = dict(over, dataset_mean=cfg_one.dataset_mean, dataset_std=cfg_one.dataset_std)
+    ranks, wall = _launch(n, {"job": "quality", "manifest": str(manifest),
+                              "root": str(root), "output_dir": str(root / "full"),
+                              "keep_epoch0": str(keep), "resume": str(keep), "over": over,
+                              "profile": False}, tmp, "ring_main")
+
+    for r, res in enumerate(ranks):
+        check(res["grid"] == {"data": 1, "model": n}, f"ring main run: rank {r} grid "
+              f"{res['grid']}")
+    first = ranks[0]
+    for r in ranks[1:]:
+        check(r["steps"] == first["steps"], "ring main run: rank steps differ: "
+              f"{r['steps']} vs {first['steps']}")
+        check(r["checksums"] == first["checksums"],
+              "ring main run: parameters differ across ranks: "
+              f"{r['checksums']} vs {first['checksums']}")
+    print(f"ring main run: parameter checksums after each epoch, every rank: "
+          f"{first['checksums']} (bit-equal across the {n} ranks)", flush=True)
+    got = first["steps"]
+    check(len(got) == len(one_steps) == 2 * steps, f"steps {len(got)} / {len(one_steps)}")
+    for i, (a, b) in enumerate(zip(got, one_steps)):
+        dl = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        print(f"ring main run: step {i}: loss {a['loss']:.6f} (one process "
+              f"{b['loss']:.6f}, rel {dl:.2e}), grad_norm {a['grad_norm']:.5f} "
+              f"({b['grad_norm']:.5f}), alignment {a['alignment']:.5f} "
+              f"({b['alignment']:.5f})", flush=True)
+        check(math.isfinite(a["loss"]) and dl <= DDP_LOSS_REL,
+              f"ring main run: step {i} off the one-process ring: {a} vs {b}")
+    for r, res in enumerate(ranks):
+        check(res["counts"] == one_counts, f"ring main run: rank {r} launches "
+              f"{res['counts']}, one process {one_counts}")
+    check(one_counts["K3"] > 0 and one_counts["K4"] > 0 and one_counts["K6"] == 0,
+          f"ring main run: launches {one_counts}")
+    print(f"ring main run: launches per rank over the run "
+          + ", ".join(f"{k} {first['counts'][k]}" for k in ("K1", "K2", "K3", "K4", "K6"))
+          + " (the backbone's 12 blocks on the \"xla\" ring: no K1, K2; the text tower's "
+          f"and the aggregator's K3, K4), as the one-process ring "
+          + ", ".join(f"{k} {one_counts[k]}" for k in ("K1", "K2", "K3", "K4", "K6")),
+          flush=True)
+    run = Path(first["output_dir"])
+    runs = sorted(p.parent for p in (root / "full").rglob("checkpoints"))
+    check(runs == [run], f"ring main run: run directories {runs}")
+    for r, res in enumerate(ranks):
+        check(bool(res["written"]) == (r == 0),
+              f"ring main run: rank {r} wrote {res['written'][:5]}")
+    saved = torch.load(run / "checkpoints" / "checkpoint.pt", weights_only=True)
+    check(len(saved["generators"]) == 1 and saved["step"] == 2 * steps,
+          f"ring main run: checkpoint step {saved['step']}, {len(saved['generators'])} "
+          "generator states (one a data index)")
+    res_h = first["resumed"]["history"]
+    check([h["epoch"] for h in res_h] == [1] and res_h[0]["loss"] == first["history"][1]["loss"]
+          and all(r["resumed"]["checksums"][-1:] == first["checksums"][-1:] for r in ranks),
+          f"ring main run: resumed {res_h} vs {first['history'][1]}, checksums "
+          f"{[r['resumed']['checksums'] for r in ranks]} vs {first['checksums']}")
+    print(f"ring main run: one run directory, written by rank 0 alone; the checkpoint "
+          f"holds 1 generator state (one a data index); resumed from epoch 0: epoch-1 loss "
+          f"{res_h[0]['loss']!r} (uninterrupted {first['history'][1]['loss']!r}), "
+          f"parameters bit-equal on every rank", flush=True)
+    h, h1 = first["history"][1], one["history"][1]
+    times = {"ranks": n, "backend": backend,
+             "step_ms": h["epoch_seconds"] * 1e3 / steps,
+             "one_process_step_ms": h1["epoch_seconds"] * 1e3 / steps,
+             "peak_gib": [r["peak_gib"] for r in ranks], "one_process_peak_gib": one_peak,
+             "launch_s": wall}
+    print(f"ring main run: step {times['step_ms']:.1f} ms (host clock, epoch 1 over "
+          f"{steps} steps; every rank runs the whole batch), the one-process ring "
+          f"{times['one_process_step_ms']:.1f} ms; peak memory per rank "
+          + ", ".join(f"{g:.2f}" for g in times["peak_gib"])
+          + f" GiB, one process {one_peak:.2f} GiB | {topology} | {CARD}", flush=True)
+    print(f"ring main run: torch.distributed.run launch {wall:.1f} s (the run and its "
+          f"resumption, process start and set-up included)", flush=True)
+    return {"counts": first["counts"], "times": times}
+
+
+def reference_text_checkpoint(cfg, seed: int = 36) -> dict:
+    """A reference-named checkpoint (the layout the upstream runners save:
+    component-keyed state dicts) at the text tower's width: ``text_encoder``
+    as HF BERT names under ``bert.`` (pooler, token types) and the ``proj.1``
+    head; a video encoder of mVIT keys and its head, optimizer state and
+    metadata beside it. Seeded: BERT's init scale (std 0.02), LayerNorm
+    weights 1."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    D, M = cfg.text_dim, cfg.text_dim * 4
+
+    def t(*shape, std=0.02):
+        return torch.from_numpy((std * r.standard_normal(shape)).astype(np.float32))
+
+    def ln(name):
+        return {f"{name}.weight": 1.0 + t(D, std=0.05), f"{name}.bias": t(D)}
+
+    def lin(name, dout, din):
+        return {f"{name}.weight": t(dout, din), f"{name}.bias": t(dout)}
+
+    bert = {"embeddings.word_embeddings.weight": t(cfg.text_vocab_size, D),
+            "embeddings.position_embeddings.weight": t(512, D),
+            "embeddings.token_type_embeddings.weight": t(2, D),
+            **ln("embeddings.LayerNorm"), **lin("pooler.dense", D, D)}
+    for i in range(cfg.text_depth):
+        b = f"encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            bert.update(lin(f"{b}.attention.self.{name}", D, D))
+        bert.update(lin(f"{b}.attention.output.dense", D, D))
+        bert.update(ln(f"{b}.attention.output.LayerNorm"))
+        bert.update(lin(f"{b}.intermediate.dense", M, D))
+        bert.update(lin(f"{b}.output.dense", D, M))
+        bert.update(ln(f"{b}.output.LayerNorm"))
+    text = {f"bert.{k}": v for k, v in bert.items()}
+    text.update(lin("proj.1", cfg.embedding_dim, D))
+    video = {"model.blocks.0.attn.qkv.weight": t(3 * 96, 96),
+             "model.patch_embed.proj.weight": t(96, 3, 3, 7, 7),
+             **lin("proj.1", cfg.embedding_dim, 768)}
+    return {"epoch": 11, "best_val_loss": 1.25, "text_encoder": text,
+            "video_encoder": video,
+            "optimizer": {"state": {0: {"exp_avg": t(4)}}, "param_groups": [{"lr": 1e-4}]}}
+
+
+def phase_checkpoint_import(torch, tmp: Path) -> dict:
+    """Phase 36: a seeded reference-named checkpoint at the text tower's
+    width through ``python -m deepcoro_clip_tpu_torch.convert_checkpoint``,
+    its text tower loaded strictly into the port's TextEncoder on the card
+    (flagship width: 12 layers, 6 heads of 128: K1), embeddings of 8 seeded
+    reports of 512 tokens through K1 against the plain attention."""
+    from deepcoro_clip_tpu_torch.models.text_encoder import text_encoder_from_config
+    from deepcoro_clip_tpu_torch.utils.torch_import import load_converted
+
+    cfg = train_config(dropout=0.0)
+    t0 = time.perf_counter()
+    src, out, rep = tmp / "reference.pt", tmp / "converted.pt", tmp / "report.json"
+    torch.save(reference_text_checkpoint(cfg), src)
+    here = Path(__file__).resolve().parent
+    proc = subprocess.run([sys.executable, "-m", "deepcoro_clip_tpu_torch.convert_checkpoint",
+                           str(src), "--out", str(out), "--report", str(rep)], cwd=here,
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"convert_checkpoint exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    for line in proc.stdout.splitlines():
+        print(f"checkpoint import: {line}", flush=True)
+    convert_s = time.perf_counter() - t0
+    report = json.loads(rep.read_text())
+    check(report["converted"] == ["text_encoder", "video_encoder (partial)"]
+          and report["skipped"] == {
+              "video_encoder.model (mVIT backbone — no CoroViT mapping)": 2,
+              "optimizer": 2} and report["meta"] == {"epoch": 11, "best_val_loss": 1.25},
+          f"checkpoint import: report {report}")
+    states = load_converted(str(out))
+    dev = torch.device("cuda")
+    models = {}
+    for flash in (True, False):
+        cfg_ = train_config(dropout=0.0, use_pallas_attention=flash)
+        model = text_encoder_from_config(cfg_)
+        model.load_state_dict(states["text_encoder"], strict=True)
+        models[flash] = model.to(dev).eval()
+    r = np.random.default_rng(36)
+    L = cfg.max_text_length
+    lengths = r.integers(16, L, IMPORT_TEXTS)
+    lengths[0] = L
+    mask = torch.from_numpy((np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)).to(dev)
+    ids = torch.from_numpy(r.integers(1000, cfg.text_vocab_size, (IMPORT_TEXTS, L))
+                           .astype(np.int64)).to(dev) * mask
+    with torch.no_grad():
+        _zero_kernel_counts()
+        emb = models[True](ids, mask)
+        torch.cuda.synchronize()
+        counts = _kernel_counts()
+        ref = models[False](ids, mask)
+    cos = torch.nn.functional.cosine_similarity(emb.float(), ref.float(), dim=-1)
+    check(counts["K1"] == cfg.text_depth and sum(counts.values()) == cfg.text_depth,
+          f"checkpoint import: launches {counts}, expected {cfg.text_depth} K1")
+    check(bool(torch.isfinite(emb).all()) and float(cos.min()) >= IMPORT_MIN_COSINE,
+          f"checkpoint import: K1 vs plain attention cosine {float(cos.min())}")
+    print(f"checkpoint import: the text tower ({sum(v.numel() for v in states['text_encoder'].values())} "
+          f"parameters, loaded strictly) on the card: {counts['K1']} K1 launches for "
+          f"{IMPORT_TEXTS} reports of {L} tokens; embeddings through K1 against the plain "
+          f"attention: min cosine {float(cos.min()):.6f} (bar {IMPORT_MIN_COSINE}); write, "
+          f"convert and read back {convert_s:.1f} s", flush=True)
+    for p in (src, out, rep):
+        p.unlink()
+    del models, states
+    torch.cuda.empty_cache()
+    return {"counts": counts, "min_cosine": float(cos.min())}
+
+
+def run_drift(torch) -> dict:
+    """``--drift``: phase 32's world-1 control against runs that compute
+    the same function another way, to size the grad_norm drift phase 32
+    prints past the first update: world 2 (``ddp_topology``), world 1 with
+    each batch's rows in reverse order (the same loss and gradient, summed
+    in another order), and world 1 with gradient_accumulation_steps 2 (an
+    update over two batches: another trajectory after the first update).
+    Each step's loss and grad_norm beside the control's."""
+    from deepcoro_clip_tpu_torch.main import main as port_main
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+
+    build_kernels(torch, ("flash_fwd", "flash_bwd", "flash_short"))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        manifest = render_corpus(tmp)
+
+        def world1(name, reverse=False, **over):
+            rec = _quality_recorder(torch, 0)
+            init = VideoContrastiveLearningRunner.__init__
+
+            def reversed_rows(self, *a, **kw):
+                init(self, *a, **kw)
+                step = self.train_step
+
+                def flipped(state, batch, *args):
+                    n = len(batch["videos"])
+                    return step(state, {k: v.flip(0) if hasattr(v, "flip") and len(v) == n
+                                        else v for k, v in batch.items()}, *args)
+
+                self.train_step = flipped
+
+            if reverse:
+                VideoContrastiveLearningRunner.__init__ = reversed_rows
+            try:
+                port_main(config=_quality_ddp_config(str(manifest), str(tmp / name), **over))
+            finally:
+                VideoContrastiveLearningRunner.__init__ = init
+                rec["undo"]()
+            torch.cuda.empty_cache()
+            return [{k: float(v) for k, v in s.items()} for s in rec["steps"]]
+
+        world, _, topology = ddp_topology(torch)
+        ranks, _ = _launch(world, {"job": "quality", "manifest": str(manifest),
+                                   "root": str(tmp / "drift"),
+                                   "output_dir": str(tmp / "drift" / "full")}, tmp, "drift")
+        out = {"control": world1("control"), f"world {world}": ranks[0]["steps"],
+               "reversed rows": world1("reversed", reverse=True),
+               "accumulation 2": world1("accumulation", gradient_accumulation_steps=2)}
+    ctl = out["control"]
+    print(f"drift: phase 32's config at world 1 (control) against world {world} "
+          f"({topology}), the rows of each batch reversed, and gradient_accumulation_steps "
+          f"2 | {CARD}", flush=True)
+    for i, c in enumerate(ctl):
+        print(f"drift: step {i} (lr {c['lr']:.2e}): control loss {c['loss']:.6f} grad_norm "
+              f"{c['grad_norm']:.5f}; " + "; ".join(
+                  f"{name} loss {s[i]['loss']:.6f} grad_norm {s[i]['grad_norm']:.5f} (rel "
+                  f"{abs(s[i]['grad_norm'] - c['grad_norm']) / c['grad_norm']:.2e})"
+                  for name, s in out.items() if name != "control"), flush=True)
+    return {name: [{k: s[k] for k in ("loss", "grad_norm")} for s in steps]
+            for name, steps in out.items()}
+
+
 def ddp_rank(torch, spec_path: str) -> int:
-    """A rank of phase 32 or 33 under torch.distributed.run: runs its job
-    and writes its result to ``{spec["out"]}.rank{RANK}.json``."""
+    """A rank of phase 32, 33, 34 or 35 (or of ``--drift``) under
+    torch.distributed.run: runs its job and writes its result to
+    ``{spec["out"]}.rank{RANK}.json``."""
     import os
 
     spec = json.loads(Path(spec_path).read_text())
     rank = int(os.environ["RANK"])
-    job = {"quality": _ddp_quality_rank, "steps": _ddp_steps_rank}[spec["job"]]
+    job = {"quality": _ddp_quality_rank, "steps": _ddp_steps_rank,
+           "ring_pass": _ring_pass_rank}[spec["job"]]
     out = job(torch, spec, rank)
     Path(f"{spec['out']}.rank{rank}.json").write_text(json.dumps(out))
     return 0
@@ -6261,13 +6765,15 @@ def main(argv) -> int:
     """``--host-only``: phase 1, the build and phase 21 alone, against the
     package of the directory the script lies in (an older tree's too: copy
     the script there). ``--compare``: the A B B A call's measurements
-    (``run_compare``), likewise in any tree."""
+    (``run_compare``), likewise in any tree. ``--drift``: phase 32's
+    world-1 control against world N and two other world-1 runs
+    (``run_drift``)."""
     import torch
 
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
-    if argv[:1] == ["--ddp-rank"]:  # a rank of phase 32 or 33
+    if argv[:1] == ["--ddp-rank"]:  # a rank of phase 32, 33, 34 or 35
         return ddp_rank(torch, argv[1])
     # fail fast, before any work, where the port's package is missing
     from deepcoro_clip_tpu_torch.ops import _build
@@ -6291,6 +6797,8 @@ def main(argv) -> int:
             kernels = {"host": phase_host(torch)}
         elif "--compare" in argv:
             kernels = {"compare": run_compare(torch)}
+        elif "--drift" in argv:
+            kernels = {"drift": run_drift(torch)}
         else:
             kernels = run_all(torch)
     except PhaseError as e:
@@ -6303,8 +6811,17 @@ def main(argv) -> int:
     return 0
 
 
+_STARTED = [time.perf_counter()]
+
+
+def _mark(label: str) -> None:
+    """The script's seconds so far, after ``label``."""
+    print(f"timeline: {label} done at {time.perf_counter() - _STARTED[0]:.1f} s", flush=True)
+
+
 def run_all(torch) -> dict:
-    """Phases 2 to 33; returns the "kernels" line."""
+    """Phases 2 to 36; returns the "kernels" line."""
+    _STARTED[0] = time.perf_counter()
     build_kernels(torch, ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short",
                           "ring_attention"))
     for key, a in hopper_attrs().items():
@@ -6378,6 +6895,7 @@ def run_all(torch) -> dict:
     torch.cuda.empty_cache()
     kernels["ring_train_step"] = phase_ring_training(torch)
     torch.cuda.empty_cache()
+    _mark("phases 2 to 19")
 
     host = phase_host_process()
     kernels["launch_floor"] = host[0]
@@ -6392,6 +6910,7 @@ def run_all(torch) -> dict:
     with tempfile.TemporaryDirectory() as corpus_root:
         manifest = render_corpus(Path(corpus_root))
         backbone = Path(corpus_root) / "quality_checkpoint.pt"
+        _mark("phases 20 and 21")
         quality = phase_quality_run(torch, manifest, keep=backbone)
         for key, e in by_key.items():  # the training run's launches
             e["quality_train_launches"] = quality[key]
@@ -6420,9 +6939,20 @@ def run_all(torch) -> dict:
         torch.cuda.empty_cache()
         deployment = phase_deployment(torch, backbone, probing, Path(corpus_root))
         torch.cuda.empty_cache()
+        _mark("phases 22 to 31")
         ddp = phase_ddp_quality_run(torch, manifest, Path(corpus_root))
         torch.cuda.empty_cache()
         ddp_steps = phase_ddp_steps(torch, Path(corpus_root))
+        torch.cuda.empty_cache()
+        _mark("phases 32 and 33")
+        ring_processes = phase_ring_processes(torch, Path(corpus_root))
+        torch.cuda.empty_cache()
+        _mark("phase 34")
+        ring_main = phase_ring_main_run(torch, manifest, Path(corpus_root))
+        torch.cuda.empty_cache()
+        _mark("phase 35")
+        imported = phase_checkpoint_import(torch, Path(corpus_root))
+        _mark("phase 36")
     torch.cuda.empty_cache()
     long = phase_long_kernels(torch, siglip.pop("bank_mask"))
     for run, result in (("multitask", multitask), ("siglip", siglip),
@@ -6465,6 +6995,14 @@ def run_all(torch) -> dict:
         e["ddp_step_launches_per_rank"] = {k: c["counts"][key] for k, c in ddp_steps.items()}
     kernels["ddp_quality_train"] = ddp["times"]
     kernels["ddp_steps"] = {k: c["loss"] for k, c in ddp_steps.items()}
+    # phases 34 to 36: K6 on each rank of the ring across processes, a rank's
+    # launches over the ring run through main, K1 behind the importer
+    kernels["kernels"][5].update(ring_processes)
+    for key, e in zip(("K1", "K3", "K2", "K4", "K5", "K6"), kernels["kernels"]):
+        e["ring_main_launches_per_rank"] = ring_main["counts"][key]
+        e["checkpoint_import_launches"] = imported["counts"][key]
+    kernels["ring_main_train"] = ring_main["times"]
+    kernels["checkpoint_import"] = {"min_cosine": imported["min_cosine"]}
     # the long calls' Hopper kernels, an entry each: launches over phases 22
     # to 25's, 30's and 31's runs, the head row at the SigLIP bank's own mask
     # (phase 24), every long row of phases 22 to 26 and 31 beside it

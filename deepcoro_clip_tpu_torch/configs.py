@@ -9,7 +9,8 @@ both sides; keys a class does not know are kept in ``extra()``, as there.
 The port adds one field, ``device`` (``PORT_FIELDS``): None runs on the
 card, ``"cpu"`` on the CPU.
 ``set_device_info_in_place`` fills the device fields from the process
-group (``parallel/distributed.py``; one rank without one), and ``save_json`` writes the
+group and arranges its ranks as the ``(data, model)`` grid
+(``parallel/distributed.py``; one rank without a group), and ``save_json`` writes the
 resolved config as JSON, which a YAML reader also reads.
 
 ``parse_config`` reads ``--base_config file.yaml`` plus ``--field value``
@@ -88,36 +89,50 @@ class _ConfigMethods:
         return d
 
     def set_device_info_in_place(self) -> None:
-        """The process group's size and this rank (``parallel/distributed.py``;
-        world 1 without one). The ranks are the JAX run's data-axis devices,
-        not its hosts: every rank reads the same global batches, so the
-        samplers stay at process 0 of 1. ``is_ref_device`` is rank 0, which
-        alone writes files. A ``mesh_data`` other than -1 must be the world
-        size, the world size must divide ``batch_size`` (the JAX runner
-        shrinks its data axis to ``gcd(devices, batch_size)`` and leaves the
-        other devices idle; an idle rank is an error here), and the ring
-        across processes is not ported."""
-        from deepcoro_clip_tpu_torch.parallel.distributed import rank, world_size
+        """The process grid (``parallel/distributed.py``; one rank without a
+        group) and this rank's place in it. The ranks are the devices of the
+        JAX run's ``(data, model)`` mesh, not its hosts: with ``mesh_model``
+        M, rank r is cell ``(r // M, r % M)`` of a ``(world / M, M)`` grid
+        (``distributed.init_grid``, which this call makes); every rank reads
+        the same global batches, so the samplers stay at process 0 of 1, and
+        keeps the rows of its data index. ``is_ref_device`` is rank 0, which
+        alone writes files.
 
+        A ``mesh_model`` above 1 needs ``use_ring_attention`` (the JAX
+        runner reads it otherwise as tensor parallelism, which is not ported)
+        and must divide the world; a ``mesh_data`` other than -1 must be
+        ``world / mesh_model``; the data size must divide ``batch_size`` (the
+        JAX runner shrinks its data axis to ``gcd(devices, batch_size)`` and
+        leaves the other devices idle; an idle rank is an error here)."""
+        from deepcoro_clip_tpu_torch.parallel.distributed import init_grid, rank, world_size
+
+        model = max(1, int(self.mesh_model))
+        if model > 1 and not getattr(self, "use_ring_attention", False):
+            raise NotImplementedError(
+                f"mesh_model={self.mesh_model} without use_ring_attention: the JAX "
+                "runner shards the Dense kernels over the model axis (tensor "
+                "parallelism), which is not ported; set mesh_model: 1, or "
+                "use_ring_attention: true for the ring over the model axis")
         world = world_size()
         self.process_index, self.process_count = 0, 1
         self.is_ref_device = rank() == 0
         self.world_size = world
         if world == 1:
             return
-        if self.mesh_data not in (-1, world):
+        if world % model:
+            raise ValueError(f"mesh_model={model} does not divide the {world} ranks of "
+                             "the process group")
+        data = world // model
+        if self.mesh_data not in (-1, data):
             raise ValueError(f"mesh_data={self.mesh_data} but the process group has "
-                             f"{world} ranks; set -1 or {world}")
+                             f"{world} ranks and mesh_model={model}; set -1 or {data}")
         batch = getattr(self, "batch_size", None)
-        if batch is not None and batch % world:
+        if batch is not None and batch % data:
             raise ValueError(
-                f"batch_size={batch} is not divisible by the {world} ranks: the JAX "
-                f"runner would train on gcd({world}, {batch}) devices and leave the "
-                "rest idle; launch a world size that divides batch_size")
-        if getattr(self, "use_ring_attention", False):
-            raise NotImplementedError(
-                "use_ring_attention with more than one rank: the ring across "
-                "processes is not ported; run the ring in one process")
+                f"batch_size={batch} is not divisible by the data axis of {data} "
+                f"ranks: the JAX runner would train on gcd({data}, {batch}) devices "
+                "and leave the rest idle; launch a world size that divides batch_size")
+        init_grid(model)
 
     def save_json(self, path) -> None:
         """The resolved config, keys sorted; JSON is YAML too."""

@@ -26,6 +26,8 @@ import torch.nn.functional as F
 from deepcoro_clip_tpu_torch.ops.attention import apply_rope, multi_head_attention
 from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
 from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+from deepcoro_clip_tpu_torch.parallel.distributed import gather_chunks, take_chunk
+from deepcoro_clip_tpu_torch.parallel.mesh import ProcessMesh
 from deepcoro_clip_tpu_torch.parallel.ring_attention import ring_attention
 
 
@@ -108,6 +110,12 @@ class Attention(nn.Module):
     ``ring_axis`` size runs as ring attention over the mesh, after RoPE
     (``parallel/ring_attention.py``, its default backend); any other call
     takes the standard kernel or the plain attention as without a mesh.
+    Over a ``ProcessMesh`` (the ranks of a process group) q/k/v are
+    replicated over the axis's group: each rank cuts its chunk of the tokens
+    (``distributed.take_chunk``), runs the ring on it and all-gathers the
+    output chunks (``distributed.gather_chunks``), so the model ranks end
+    with the same output and, through the two collectives' backwards, the
+    same parameter gradients as one process.
     """
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
@@ -165,7 +173,12 @@ class Attention(nn.Module):
             if use_ring:
                 if sin is not None:
                     q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
-                out = ring_attention(q, k, v, self.ring_mesh, axis=self.ring_axis)
+                if isinstance(self.ring_mesh, ProcessMesh):
+                    q, k, v = (take_chunk(t, 2) for t in (q, k, v))
+                    out = gather_chunks(ring_attention(q, k, v, self.ring_mesh,
+                                                       axis=self.ring_axis), 2)
+                else:
+                    out = ring_attention(q, k, v, self.ring_mesh, axis=self.ring_axis)
             elif self.use_flash:
                 out = flash_attention(q, k, v, sin=sin, cos=cos,
                                       kv_mask=kv_mask, causal=causal)

@@ -26,6 +26,16 @@ dim runs: ``ring_step_sm90_kernel`` (wgmma, TMA, mbarriers) at 128, every
 path of the repository, and the ``mma.sync`` ``ring_step_kernel`` at 64.
 ``peer_access`` records, per pair of cards, whether the copy goes card to
 card.
+
+``ring_fwd_rank`` is one rank's part of the same pass when the shards are
+the ranks of a process group (``parallel/ring_attention.py`` drives it):
+the rank's two slots and its ``(m, l, acc)`` state on its card, a compute
+and a side stream; at step r the send of slot ``r % 2`` to the right
+neighbour and the receive into slot ``(r+1) % 2`` from the left are posted
+(by the caller's ``link``) before the step kernel is launched on slot
+``r % 2``, and step r+1 waits for the arrival: the receive stands where the
+TPU kernel waits on its semaphores, and the receive into a slot waits for
+the step that last read it.
 """
 
 from __future__ import annotations
@@ -104,6 +114,56 @@ def _enable_peer(src: int, dst: int) -> None:
         return
     ok = torch.cuda.can_device_access_peer(src, dst) and _peer_fn()(src, dst) == 0
     peer_access[(src, dst)] = ok
+
+
+def ring_fwd_rank(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  scale: float, n: int, link, counter) -> None:
+    """This rank's part of a ring pass over the ``n`` ranks of a process
+    group: its queries ``q`` over every rank's K/V chunk, written into
+    ``out`` (``[B, H, Lc, Dh]`` bf16 on this rank's card; q and out with any
+    batch/head/row strides). ``link.post(send, recv, free, stream)`` posts
+    the exchange of slot ``send`` (to the right) and ``recv`` (from the
+    left) behind ``stream``'s work, the receive's write behind the event
+    ``free`` (None: nothing to wait for), and returns a handle whose
+    ``finish()`` returns an event recorded once the chunk is in ``recv``.
+    Launches the step kernel n times, counted on ``counter.launches``."""
+    _check([q], [k], [v], [out])
+    B, H, Lc, Dh = q.shape
+    dev = q.device
+    step = _step_fn(Dh)
+    caller = torch.cuda.current_stream(dev)
+    comp, side = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    comp.wait_stream(caller)
+    slots = torch.empty((2, 2, B, H, Lc, Dh), dtype=torch.bfloat16, device=dev)
+    m, l, acc = (None, None, None) if n == 1 else (
+        torch.empty((B * H, Lc), dtype=torch.float32, device=dev),
+        torch.empty((B * H, Lc), dtype=torch.float32, device=dev),
+        torch.empty((B * H, Lc, Dh), dtype=torch.float32, device=dev))
+    with torch.cuda.stream(comp):
+        slots[0, 0].copy_(k)
+        slots[0, 1].copy_(v)
+    side.wait_stream(comp)  # slot 0 is filled
+    handle, done = None, None
+    for r in range(n):
+        cur, nxt = r % 2, (r + 1) % 2
+        if r > 0:  # the chunk of this step has arrived (on the side stream)
+            comp.wait_event(handle.finish())
+        if r < n - 1:
+            handle = link.post(slots[cur], slots[nxt], done, side)
+        with torch.cuda.device(dev):
+            err = step(q.data_ptr(), slots[cur, 0].data_ptr(), slots[cur, 1].data_ptr(),
+                       out.data_ptr(),
+                       None if m is None else m.data_ptr(),
+                       None if l is None else l.data_ptr(),
+                       None if acc is None else acc.data_ptr(),
+                       B, H, Lc, Dh, *q.stride()[:3], *out.stride()[:3],
+                       float(scale), int(r == 0), int(r == n - 1), comp.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"ring attention step launch failed: CUDA error {err}")
+        counter.launches += 1
+        done = comp.record_event()  # step r has read slot cur
+    caller.wait_stream(comp)
+    caller.wait_stream(side)
 
 
 def ring_fwd(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],

@@ -1,28 +1,49 @@
-"""Data parallelism over a ``torch.distributed`` process group, one rank a card.
+"""Data and sequence parallelism over a ``torch.distributed`` process group,
+one rank a card.
 
 The JAX package runs one program over a ``("data", "model")`` mesh: the
-global batch is sharded over ``data`` and XLA inserts the collectives. The
-port runs one process a rank instead, launched by ``torch.distributed.run``;
-each rank is one device of the JAX run's data axis (not one of its hosts),
-holds ``batch_size / world`` rows of every global batch and computes the
-loss of the whole batch through the collectives below:
+global batch is sharded over ``data``, the token axis of the ring
+attention over ``model``, and XLA inserts the collectives. The port runs
+one process a rank instead, launched by ``torch.distributed.run``, and
+arranges the ranks as the same grid (``init_grid``, ``mesh.ProcessMesh``):
+with ``mesh_model = M`` rank ``r`` is cell ``(r // M, r % M)`` of a
+``(world / M, M)`` grid, and each rank is one device of the JAX mesh (not
+one of its hosts). A rank holds the rows of the global batch that its data
+index ``r // M`` holds (``batch_size / (world / M)`` of them); the ranks of
+one model group hold the same rows and every activation outside the ring
+attention replicated, and each takes its chunk of the tokens in the ring
+(``parallel/ring_attention.py``). Without ``init_grid`` the grid is
+``(world, 1)``: data parallelism alone.
+
+The collectives of data parallelism go over this rank's data group (the
+ranks of its model index), so that each row of the global batch counts once:
 
 - ``gather_rows``: the differentiable all-gather of ``[b, ...]`` into
-  ``[world*b, ...]`` (the reference's ``GatherLayer``). It writes the local
+  ``[D*b, ...]`` (the reference's ``GatherLayer``). It writes the local
   rows into a zero buffer and all-reduces it, so it needs only
   ``all_reduce`` on every backend; its backward sums the incoming gradient
-  over the ranks (an all-reduce again) and keeps the local rows;
-- ``all_reduce_sum``: the differentiable sum over the ranks, backward the
-  same sum: a loss that divides by a count (tokens under a caption mask,
-  masked patches) sums numerator and count over the ranks before it divides;
+  over the data group (an all-reduce again) and keeps the local rows;
+- ``all_reduce_sum``: the differentiable sum over the data group, backward
+  the same sum: a loss that divides by a count (tokens under a caption
+  mask, masked patches) sums numerator and count before it divides;
 - ``all_reduce_grads``: the gradients of a step, flattened into one buffer,
-  summed in one call and divided by the world size.
+  summed in one call over the data group and divided by its size. The
+  model ranks of a data index hold the same bits of every gradient (the
+  ring's gather and cut below make them so), so the average over the data
+  group is the average over the grid, without summing equal copies.
 
-Every rank so evaluates the same global loss; the backward of each
-collective hands each rank ``world`` times the gradient of its own rows, and
-the average over the ranks is the gradient of the global loss. Terms on
-replicated inputs (the temperature, the SigLIP bank) get the same gradient
-on every rank, which the average keeps.
+The model group's two collectives serve the ring attention's cut of the
+replicated q/k/v: ``take_chunk`` (forward: this rank's chunk of an axis;
+backward: the chunks' gradients all-gathered, every model rank with the
+whole) and ``gather_chunks`` (forward: the all-gather of every rank's chunk
+into zeros by an all-reduce; backward: this rank's chunk of the gradient,
+summed with nothing).
+
+Every rank so evaluates the same global loss; the backward of each data
+collective hands each rank ``D`` times the gradient of its own rows, and
+the average over the data group is the gradient of the global loss. Terms
+on replicated inputs (the temperature, the SigLIP bank) get the same
+gradient on every rank, which the average keeps.
 
 Without a process group (or with one rank) every function here is the
 identity and a run is the one-process run.
@@ -31,10 +52,14 @@ identity and a run is the one-process run.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from deepcoro_clip_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, ProcessMesh
+
+_GRID: Optional[ProcessMesh] = None  # the process grid of the running group
 
 
 def is_active() -> bool:
@@ -51,9 +76,65 @@ def rank() -> int:
 
 
 def rank_seed(seed: int, rank_: int) -> int:
-    """The seed of a rank's own generator (dropout masks): ``seed`` on rank
-    0, as in a one-process run, and apart from every other rank's."""
+    """The seed of a data index's own generator (dropout masks): ``seed``
+    at index 0, as in a one-process run, and apart from every other
+    index's. The model ranks of one data index share it: their activations
+    are replicated, so they draw the same masks."""
     return int(seed) + (int(rank_) << 32)
+
+
+def init_grid(model: int = 1) -> ProcessMesh:
+    """Arrange the running group's ranks as a ``(world / model, model)``
+    grid and make it the grid of the collectives here; returns it. Every
+    rank must call it, in the same order, with the same ``model``
+    (``dist.new_group`` is collective): one model group per data index and
+    one data group per model index, beside the world group (used where a
+    line is the whole world; a line of one rank has no group). Without a
+    group, one rank: the grid ``(1, 1)``. Asking again for the grid in place
+    returns it."""
+    global _GRID
+    world, r = world_size(), rank()
+    model = max(1, int(model))
+    if world % model:
+        raise ValueError(f"mesh_model={model} does not divide the {world} ranks of the "
+                         f"process group")
+    if _GRID is not None and _GRID.world == world and _GRID.shape[MODEL_AXIS] == model:
+        return _GRID
+    data = world // model
+    d, m = divmod(r, model)
+    groups: Dict[str, object] = {DATA_AXIS: None, MODEL_AXIS: None}
+    for axis, n_lines, size, line, mine in (
+            (MODEL_AXIS, data, model, lambda i: [i * model + j for j in range(model)], d),
+            (DATA_AXIS, model, data, lambda j: [i * model + j for i in range(data)], m)):
+        if size == world and world > 1:
+            groups[axis] = dist.group.WORLD
+        elif size > 1:
+            for i in range(n_lines):  # every rank makes every group
+                g = dist.new_group(line(i))
+                if i == mine:
+                    groups[axis] = g
+    _GRID = ProcessMesh(data, model, r, groups)
+    if r == 0 and model > 1:
+        print(f"[deepcoro_clip_tpu_torch] process grid: data {data} x model {model} "
+              f"(rank r is cell (r // {model}, r % {model}))", flush=True)
+    return _GRID
+
+
+def grid() -> ProcessMesh:
+    """The grid of the running group: ``init_grid``'s, else ``(world, 1)``."""
+    if _GRID is not None and _GRID.world == world_size():
+        return _GRID
+    return init_grid(1)
+
+
+def data_size() -> int:
+    """The data axis of the grid: the ranks that hold different rows."""
+    return grid().shape[DATA_AXIS]
+
+
+def data_rank() -> int:
+    """This rank's data index: which rows of a global batch it holds."""
+    return grid().index[DATA_AXIS]
 
 
 def _backend_for(device: Optional[str], local_world: int) -> Tuple[str, str]:
@@ -108,7 +189,9 @@ def init_from_env(device: Optional[str] = None, init_method: str = "env://"
 
 
 def shutdown() -> None:
-    """Tear the process group down, where one runs."""
+    """Tear the process group down, where one runs, and forget its grid."""
+    global _GRID
+    _GRID = None
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
@@ -124,79 +207,124 @@ def _wide(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
 
 
+def _axis(axis: str) -> Tuple[object, int, int]:
+    """(group, size, this rank's index) of the grid's ``axis``."""
+    g = grid()
+    return g.groups[axis], g.shape[axis], g.index[axis]
+
+
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        world, r = dist.get_world_size(), dist.get_rank()
-        b = x.shape[0]
-        ctx.rows = (r * b, (r + 1) * b)
-        out = x.new_zeros((world * b,) + tuple(x.shape[1:]), dtype=_wide(x.dtype))
-        out[r * b:(r + 1) * b] = x
-        dist.all_reduce(out)
+    def forward(ctx, x, dim, axis):
+        group, n, i = _axis(axis)
+        b = x.shape[dim]
+        ctx.rows, ctx.dim, ctx.axis = (i * b, b), dim, axis
+        shape = list(x.shape)
+        shape[dim] = n * b
+        out = x.new_zeros(shape, dtype=_wide(x.dtype))
+        out.narrow(dim, i * b, b).copy_(x)
+        dist.all_reduce(out, group=group)
         return out.to(x.dtype)
 
     @staticmethod
     def backward(ctx, grad):
-        full = grad.to(_wide(grad.dtype), copy=True).contiguous()
-        dist.all_reduce(full)
-        lo, hi = ctx.rows
-        return full[lo:hi].to(grad.dtype)
+        start, b = ctx.rows
+        dtype = grad.dtype
+        if ctx.axis == DATA_AXIS:  # the rows' gradient, summed over the group
+            grad = grad.to(_wide(dtype), copy=True).contiguous()
+            dist.all_reduce(grad, group=_axis(ctx.axis)[0])
+        # (on the model axis every rank holds the whole gradient of the
+        # replicated output: this rank's chunk is its part, summed with nothing)
+        part = grad.narrow(ctx.dim, start, b)
+        return part.to(dtype, memory_format=torch.contiguous_format, copy=True), None, None
+
+
+class _TakeChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        _, n, i = _axis(MODEL_AXIS)
+        c = x.shape[dim] // n
+        ctx.dim = dim
+        return x.narrow(dim, i * c, c).clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherRows.apply(grad.contiguous(), ctx.dim, MODEL_AXIS), None
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         out = x.detach().clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=_axis(DATA_AXIS)[0])
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
+        dist.all_reduce(grad, group=_axis(DATA_AXIS)[0])
         return grad
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """``[b, ...]`` of every rank -> ``[world*b, ...]`` in rank order, on
+    """``[b, ...]`` of every data index -> ``[D*b, ...]`` in data order, on
     every rank (every rank holds the same ``b``); differentiable."""
-    if not is_active():
+    if data_size() == 1:
         return x
-    return _GatherRows.apply(x)
+    return _GatherRows.apply(x, 0, DATA_AXIS)
+
+
+def take_chunk(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's chunk of axis ``dim`` of ``x``, replicated over the model
+    group (chunk ``m`` of ``M`` equal ones); the backward all-gathers the
+    chunks' gradients, so every model rank holds the gradient of the whole
+    ``x``, bit for bit the same."""
+    if grid().shape[MODEL_AXIS] == 1:
+        return x
+    return _TakeChunk.apply(x, dim)
+
+
+def gather_chunks(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every model rank's chunk of axis ``dim``, concatenated in model order
+    on every rank (zeros and one all-reduce: exact); the backward keeps this
+    rank's chunk of the gradient and sums nothing."""
+    if grid().shape[MODEL_AXIS] == 1:
+        return x
+    return _GatherRows.apply(x, dim, MODEL_AXIS)
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, on every rank; differentiable."""
-    if not is_active():
+    """The sum of ``x`` over the data group, on every rank; differentiable."""
+    if data_size() == 1:
         return x
     return _AllReduceSum.apply(x)
 
 
 def global_ratio(num: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
-    """``sum(num) / max(sum(count), 1)`` over the ranks: a masked mean of the
-    global batch from each rank's sums, in one all-reduce."""
-    if not is_active():
+    """``sum(num) / max(sum(count), 1)`` over the data group: a masked mean
+    of the global batch from each rank's sums, in one all-reduce."""
+    if data_size() == 1:
         return num / count.clamp_min(1.0)
     s = all_reduce_sum(torch.stack([num.float(), count.float().detach()]))
     return s[0] / s[1].clamp_min(1.0)
 
 
 def all_reduce_grads(grads: Dict[str, torch.Tensor]) -> None:
-    """Average ``grads`` over the ranks in place: one all-reduce over the
-    flattened gradients (one bucket a dtype), then a division by the world
-    size. Every rank ends with the same bits."""
-    if not is_active():
+    """Average ``grads`` over the data group in place: one all-reduce over
+    the flattened gradients (one bucket a dtype), then a division by the
+    group's size. Every rank ends with the same bits."""
+    group, n, _ = _axis(DATA_AXIS)
+    if n == 1:
         return
-    world = dist.get_world_size()
-    by_dtype: Dict[torch.dtype, list] = {}
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for g in grads.values():
         by_dtype.setdefault(g.dtype, []).append(g)
     for tensors in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in tensors])
-        dist.all_reduce(flat)
-        flat.div_(world)
+        dist.all_reduce(flat, group=group)
+        flat.div_(n)
         offset = 0
         for t in tensors:
-            n = t.numel()
-            t.copy_(flat[offset:offset + n].view_as(t))
-            offset += n
+            k = t.numel()
+            t.copy_(flat[offset:offset + k].view_as(t))
+            offset += k

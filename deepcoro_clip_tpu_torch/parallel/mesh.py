@@ -1,21 +1,29 @@
-"""Device mesh for the port: a ``(data, model)`` grid of ``torch.device``s.
+"""Device meshes for the port: a ``(data, model)`` grid of ``torch.device``s
+in one process, or of ranks across processes.
 
 Port of the JAX package's ``parallel/mesh.py`` (``DATA_AXIS``,
 ``MODEL_AXIS``, ``MeshSpec``, ``make_mesh``). The JAX mesh is a grid of
-devices that ``shard_map`` runs one program over; here it is a plain grid
-that one process walks: ``ring_attention`` sends the token chunks of a
-tensor to the devices along one axis and gathers the result back.
+devices that ``shard_map`` runs one program over. The port has two kinds:
 
-A device may appear more than once. That is the counterpart of the JAX
-tests' virtual CPU devices: ``make_mesh(MeshSpec(1, 4), devices=["cpu"] * 4)``
-is a ring of four shards on the CPU, ``devices=["cuda:0"] * 4`` a ring of
-four shards on one card, each shard with buffers and streams of its own.
+- ``Mesh``: a plain grid of devices that one process walks:
+  ``ring_attention`` sends the token chunks of a tensor to the devices along
+  one axis and gathers the result back. A device may appear more than once,
+  the counterpart of the JAX tests' virtual CPU devices:
+  ``make_mesh(MeshSpec(1, 4), devices=["cpu"] * 4)`` is a ring of four
+  shards on the CPU, ``devices=["cuda:0"] * 4`` a ring of four shards on one
+  card, each shard with buffers and streams of its own.
+- ``ProcessMesh``: the grid of the ranks of a ``torch.distributed`` group,
+  seen from one rank (``parallel/distributed.init_grid`` builds it). Rank
+  ``r`` of a ``(data=D, model=M)`` grid is cell ``(r // M, r % M)``, the
+  JAX layout ``devices[:D*M].reshape(D, M)``; each axis has the process
+  group of this rank's line along it. Every rank runs its own program:
+  ``ring_attention`` over it takes this rank's token chunk.
 
 The batch helpers (``batch_sharding``, ``shard_batch``, ``local_batch_slice``,
 ``pad_to_multiple``) carry the JAX file's rules over to data parallelism
-across processes (``parallel/distributed.py``): the data axis is the ranks
-of the process group, and a rank holds the rows that the JAX run's data
-device of the same index holds.
+across processes (``parallel/distributed.py``): the data axis is the rows
+of the grid, and a rank holds the rows that the JAX run's data device of
+its row index holds.
 """
 
 from __future__ import annotations
@@ -67,6 +75,29 @@ class Mesh:
         if axis == DATA_AXIS:
             return [row[0] for row in self.grid]
         raise ValueError(f"unknown mesh axis {axis!r}; the axes are {AXES}")
+
+
+class ProcessMesh:
+    """This rank's view of a ``(data, model)`` grid of the process group's
+    ranks: ``shape`` (axis -> size, as ``Mesh.shape``), ``index`` (axis ->
+    this rank's coordinate), ``ranks`` (axis -> the global ranks of this
+    rank's line along the axis, in order) and ``groups`` (axis -> the process
+    group of that line; None where the line is this rank alone)."""
+
+    def __init__(self, data: int, model: int, rank: int,
+                 groups: Mapping[str, Any]):
+        d, m = divmod(rank, model)
+        self.shape: Dict[str, int] = {DATA_AXIS: data, MODEL_AXIS: model}
+        self.index: Dict[str, int] = {DATA_AXIS: d, MODEL_AXIS: m}
+        self.ranks: Dict[str, List[int]] = {
+            DATA_AXIS: [i * model + m for i in range(data)],
+            MODEL_AXIS: [d * model + j for j in range(model)]}
+        self.groups: Dict[str, Any] = dict(groups)
+        self.world = data * model
+
+    def __repr__(self) -> str:
+        return (f"ProcessMesh(data={self.shape[DATA_AXIS]}, model="
+                f"{self.shape[MODEL_AXIS]}, at {self.index})")
 
 
 def _device(d: Union[str, torch.device]) -> torch.device:

@@ -3,10 +3,10 @@ loader, a batch onto the device, a step's metrics onto the host, and the
 pipelined train epoch.
 
 ``resolve_dataset_stats`` is the port's copy of the JAX package's
-``runners/common.py`` function. The data axis is the process group
-(``parallel/distributed.py``): the loaders yield global batches,
-``batch_to_device`` keeps this rank's rows, and an epoch's metrics are the
-global batch's on every rank.
+``runners/common.py`` function. The data axis is the rows of the process
+grid (``parallel/distributed.py``): the loaders yield global batches,
+``batch_to_device`` keeps the rows of this rank's data index, and an
+epoch's metrics are the global batch's on every rank.
 """
 
 from __future__ import annotations
@@ -56,8 +56,8 @@ def make_loader(config, dataset, collate: Callable, training: bool) -> PrefetchL
 
 
 def data_shard() -> Tuple[int, int]:
-    """``(world size, rank)`` of the data axis."""
-    return distributed.world_size(), distributed.rank()
+    """``(size, this rank's index)`` of the grid's data axis."""
+    return distributed.data_size(), distributed.data_rank()
 
 
 def batch_to_device(batch: Dict[str, Any], device: torch.device,

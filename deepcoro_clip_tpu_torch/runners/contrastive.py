@@ -40,7 +40,7 @@ The port's ``VideoContrastiveLearningRunner`` (the JAX package's
   (``convert.save_params_npz``), leaf by leaf where paths and shapes match.
 
 Dropout masks are drawn from one ``torch.Generator`` a rank on the run's
-device, seeded from ``(config.seed, rank)`` and kept in every checkpoint.
+device, seeded from ``(config.seed, data index)`` and kept in every checkpoint.
 Under ``torch.distributed.run`` (``parallel/distributed.py``) every rank
 collates the same global batch, decodes and runs its own rows, and sees
 the same losses, validation outputs (gathered, the padding rows of a short
@@ -245,9 +245,9 @@ class VideoContrastiveLearningRunner:
         self.eval_step = clip_train.make_eval_step(self.bundle)
         # the batch keys every rank holds whole (the multi-positive bank)
         self.replicated_keys = clip_train.replicated_keys(config)
-        # the dropout masks of the whole run, one generator a rank
+        # the dropout masks of the whole run, one generator a data index
         self.generator = torch.Generator(device=self.device).manual_seed(
-            rank_seed(config.seed, distributed.rank()))
+            rank_seed(config.seed, distributed.data_rank()))
         self.ckpt = CheckpointManager(self.output_dir / "checkpoints")
         self.logger = MetricsLogger(
             self.output_dir, use_wandb=config.use_wandb, config=config,

@@ -35,7 +35,7 @@ outputs are gathered without the padding rows, rank 0 writes):
   best loss so far.
 
 Dropout masks come from one ``torch.Generator`` a rank on the run's device,
-seeded from ``(config.seed, rank)`` and kept in every checkpoint. The JAX runner's
+seeded from ``(config.seed, data index)`` and kept in every checkpoint. The JAX runner's
 end-of-run plots (``utils/plot_metrics.plot_run_summary``, an offline tool)
 are left out.
 """
@@ -123,9 +123,9 @@ class LinearProbingRunner:
                       f"{self.encoder_loaded[1]} leaves from the checkpoint", flush=True)
         self.train_step = probe_train.make_probe_train_step(self.bundle)
         self.eval_step = probe_train.make_probe_eval_step(self.bundle)
-        # the dropout masks, one generator a rank
+        # the dropout masks, one generator a data index
         self.generator = torch.Generator(device=self.device).manual_seed(
-            rank_seed(config.seed, distributed.rank()))
+            rank_seed(config.seed, distributed.data_rank()))
         self.ckpt = CheckpointManager(self.output_dir / "checkpoints")
         self.logger = MetricsLogger(
             self.output_dir, use_wandb=config.use_wandb, config=config,

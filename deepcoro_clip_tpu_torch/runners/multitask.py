@@ -22,7 +22,7 @@ on each rank's rows and gathered; rank 0 writes):
 - ``maybe_resume``.
 
 Random draws come from one ``torch.Generator`` a rank on the run's device,
-seeded from ``(config.seed, rank)`` and kept in every checkpoint, so a resumed run
+seeded from ``(config.seed, data index)`` and kept in every checkpoint, so a resumed run
 repeats an uninterrupted one bit for bit. The JAX runner derives a key per
 step; its dropout and MVM masks differ from the port's (a deliberate
 divergence), the arithmetic on given masks does not. The end-of-run plots
@@ -94,9 +94,9 @@ class MultitaskRunner:
         self.eval_step = mt_train.make_multitask_eval_step(self.bundle)
         self.weight_sched = LossWeightScheduler(dict(config.loss_weights),
                                                 config.loss_weight_schedule)
-        # the random draws of the whole run, one generator a rank
+        # the random draws of the whole run, one generator a data index
         self.generator = torch.Generator(device=self.device).manual_seed(
-            rank_seed(config.seed, distributed.rank()))
+            rank_seed(config.seed, distributed.data_rank()))
         self.ckpt = CheckpointManager(self.output_dir / "checkpoints")
         self.logger = MetricsLogger(
             self.output_dir, use_wandb=config.use_wandb, config=config,

@@ -15,11 +15,12 @@ has one (``sampler``: the single-head SigLIP sampler's ``state_dict``) and
 the meta: enough that a resumed run repeats an uninterrupted one. A file is written under a temporary name and moved into
 place, so a crash mid-save leaves the previous checkpoint whole.
 
-Under data parallelism every rank calls the saves: the ranks' dropout
-generators are gathered (``generators``, in rank order; ``generator`` is
-rank 0's), rank 0 alone writes, and each rank restores its own generator
-and the shared parameters and moments. A checkpoint of one world size
-loads into a run of another.
+Under data parallelism every rank calls the saves: the dropout generators
+are gathered, one a data index of the process grid (``generators``, in
+data order; ``generator`` is index 0's; the model ranks of an index share
+theirs), rank 0 alone writes, and each rank restores its index's generator
+and the shared parameters and moments. A checkpoint of one grid loads into
+a run of another.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from deepcoro_clip_tpu_torch.parallel.distributed import barrier, rank
+from deepcoro_clip_tpu_torch.parallel.distributed import barrier, data_rank, grid, rank
+from deepcoro_clip_tpu_torch.parallel.mesh import MODEL_AXIS
 from deepcoro_clip_tpu_torch.parallel.multihost import gather_objects
 
 
@@ -65,9 +67,11 @@ class CheckpointManager:
 
     def _save(self, name: str, state: Any, meta: Dict[str, Any],
               generator: Optional[torch.Generator] = None, sampler=None) -> Path:
-        """Every rank calls it (the ranks' generator states are gathered);
-        rank 0 writes, and no rank returns before the file is in place."""
+        """Every rank calls it (the generator states are gathered, those of
+        model index 0 kept: one a data index); rank 0 writes, and no rank
+        returns before the file is in place."""
         states = gather_objects([None if generator is None else generator.get_state()])
+        states = states[::grid().shape[MODEL_AXIS]]
         path = self.dir / f"{name}.pt"
         if rank() == 0:
             tmp = self.dir / f"{name}.pt.tmp"
@@ -131,11 +135,12 @@ class CheckpointManager:
         saved = self.load(name)
         _load_into(state_like.params, saved["params"])
         opt_state = _load_into(state_like.opt_state, saved["opt_state"])
-        # this rank's generator; a checkpoint of fewer ranks (or one from
-        # before the per-rank states) leaves the other ranks' fresh
+        # this rank's data index's generator; a checkpoint of fewer indices
+        # (or one from before the per-index states) leaves the others fresh
         states = saved.get("generators") or [saved.get("generator")]
-        if generator is not None and rank() < len(states) and states[rank()] is not None:
-            generator.set_state(states[rank()])
+        d = data_rank()
+        if generator is not None and d < len(states) and states[d] is not None:
+            generator.set_state(states[d])
         if sampler is not None and saved.get("sampler") is not None:
             sampler.load_state_dict(saved["sampler"])
         return state_like.replace(step=int(saved["step"]), opt_state=opt_state)

@@ -4,10 +4,12 @@ Port of the JAX package's ``train/clip.py``: video and text forward, the
 batch contrastive loss, backward (through the CUDA attention kernels), the
 per-group optimizer update with dynamic freeze masks. bf16 compute, fp32
 parameters, no gradient scaler. Under data parallelism
-(``parallel/distributed.py``) a rank holds its rows of the global batch,
-the loss is the global batch's and the gradients are averaged over the
-ranks before the freeze masks, the non-finite gate and the clipping, so
-every rank takes the same update.
+(``parallel/distributed.py``) a rank holds its data index's rows of the
+global batch, the loss is the global batch's and the gradients are
+averaged over the data group before the freeze masks, the non-finite gate
+and the clipping, so every rank takes the same update. With
+``use_ring_attention`` under a process group the backbone's ring runs
+across the ranks of each model group, which hold the same rows.
 
 The loss is picked by ``loss_name`` as in the JAX module: the CLIP
 losses, ``siglip`` (pairwise over the batch, with the learnable
@@ -34,7 +36,7 @@ and returns it with ``step + 1``; PyTorch runs it eagerly, so
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -50,8 +52,9 @@ from deepcoro_clip_tpu_torch.models.video_encoder import (
     init_params,
     video_encoder_from_config,
 )
+from deepcoro_clip_tpu_torch.parallel import distributed
 from deepcoro_clip_tpu_torch.parallel.distributed import gather_rows
-from deepcoro_clip_tpu_torch.parallel.mesh import Mesh, MeshSpec, make_mesh
+from deepcoro_clip_tpu_torch.parallel.mesh import Mesh, MeshSpec, ProcessMesh, make_mesh
 from deepcoro_clip_tpu_torch.registry import LossRegistry
 from deepcoro_clip_tpu_torch.train import optim as optim_lib
 from deepcoro_clip_tpu_torch.train.schedulers import get_scheduler
@@ -118,26 +121,33 @@ def training_params(video_model, text_model, log_temp, logit_bias, locca_decoder
 
 
 def build_clip_bundle(config, seed: int = 0, steps_per_epoch: int = 100,
-                      device: Optional[str] = None, mesh: Optional[Mesh] = None
+                      device: Optional[str] = None,
+                      mesh: Optional[Union[Mesh, ProcessMesh]] = None
                       ) -> Tuple[ClipBundle, TrainState]:
     """Build the models with seeded random weights, the optimizer and the
     initial ``TrainState`` on ``device`` (CUDA unless the caller passes
     ``"cpu"``).
 
     With ``config.use_ring_attention`` the video backbone's attention runs
-    as ring attention over ``mesh`` (by default ``make_mesh(MeshSpec(
-    config.mesh_data, config.mesh_model))`` over the visible cards, or over
-    ``device`` alone on the CPU; too few devices raise). A caller may pass
-    a mesh whose device list repeats a device. With ``config.locca_enabled``
+    as ring attention over ``mesh``: by default, where a process group runs,
+    its ``(data, model)`` grid of ranks with ``config.mesh_model`` ranks a
+    model group (``distributed.init_grid``; each rank takes its chunk of the
+    tokens), else ``make_mesh(MeshSpec(config.mesh_data, config.mesh_model))``
+    over the visible cards, or over ``device`` alone on the CPU (too few
+    devices raise). A caller may pass a mesh whose device list repeats a
+    device. With ``config.locca_enabled``
     the LocCa head is built over the video tower's ``embedding_dim`` tokens,
     with the token grid of ``locca_token_grid``."""
     _check_loss_name(config)
     dev = resolve_device(device)
     ring_mesh = None
     if config.use_ring_attention:
-        ring_mesh = mesh if mesh is not None else make_mesh(
-            MeshSpec(config.mesh_data, config.mesh_model),
-            devices=[dev] if dev.type == "cpu" else None)
+        ring_mesh = mesh
+        if ring_mesh is None and distributed.is_active():
+            ring_mesh = distributed.init_grid(config.mesh_model)
+        elif ring_mesh is None:
+            ring_mesh = make_mesh(MeshSpec(config.mesh_data, config.mesh_model),
+                                  devices=[dev] if dev.type == "cpu" else None)
     video_model = init_params(video_encoder_from_config(config, ring_mesh=ring_mesh),
                               seed).to(dev)
     text_model = init_params(text_encoder_from_config(config), seed + 1).to(dev)

@@ -24,8 +24,9 @@ dropout, which no config field reaches, is off on every side.
   parameters of an uninterrupted world-2 run, bit for bit, at dropout 0.1
   (each rank's generator is restored from the checkpoint).
 - A one-process checkpoint resumed at world 2.
-- A ``batch_size`` the world does not divide, and the ring with 2 ranks,
-  raise on both ranks.
+- A ``batch_size`` the world does not divide, and ``mesh_model`` 2 without
+  the ring (the JAX runner's tensor parallelism, not ported), raise on both
+  ranks.
 - ``run_mode: inference`` (``embedding_extraction.yaml``) sharded and
   gathered: the same file as the one-process run's; a multitask and a
   probing run (one epoch each, the heads' labels added to the workspace)
@@ -151,7 +152,7 @@ def runs(tmp_path_factory):
              + ["--resume_training", "true", "--checkpoint", one["cut"]["output_dir"]]},
             {"argv": ["--base_config", _yaml(root, "odd", batch_size=3)] + cpu,
              "expect_error": True},
-            {"argv": ["--base_config", _yaml(root, "ring", use_ring_attention=True)] + cpu,
+            {"argv": ["--base_config", _yaml(root, "tp", mesh_model=2)] + cpu,
              "expect_error": True},
             {"argv": _inference_argv(root, root / "world2" / "inference")},
             {"argv": _multitask_argv(root, "multitask2")},
@@ -339,7 +340,7 @@ def test_batch_size_and_ring_raise_on_every_rank(runs):
     for r in ranks:
         odd, ring = r[5]["error"], r[6]["error"]
         assert odd.startswith("ValueError") and "gcd(2, 3)" in odd
-        assert ring.startswith("NotImplementedError") and "ring" in ring
+        assert ring.startswith("NotImplementedError") and "tensor parallelism" in ring
 
 
 VIDEO_CLI = ["--frames", "4", "--resize", "32", "--vit_dim", "32", "--vit_depth", "1",

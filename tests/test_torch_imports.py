@@ -4,8 +4,9 @@ Run in a subprocess: this test process has JAX loaded already
 (tests/conftest.py imports it). There ``jax``, ``flax`` and ``optax``
 (and ``yaml``, ``pandas`` and ``cv2``, which the machine with the card
 need not have) are made unimportable, every module of
-``deepcoro_clip_tpu_torch``, ``chip_smoke`` and the data-parallel tests'
-ranks (``tests/test_torch_ddp_workers.py``) is imported, and no
+``deepcoro_clip_tpu_torch``, ``chip_smoke`` and the ranks of the
+data-parallel and process-group ring tests (``tests/test_torch_ddp_workers.py``,
+``tests/test_torch_ring_workers.py``) is imported, and no
 ``deepcoro_clip_tpu`` module may have been loaded.
 """
 
@@ -29,6 +30,7 @@ for name in mods:
     importlib.import_module(name)
 import chip_smoke
 import tests.test_torch_ddp_workers  # the data-parallel tests' ranks
+import tests.test_torch_ring_workers  # the process-group ring tests' ranks
 bad = sorted(m for m in sys.modules
              if m == "deepcoro_clip_tpu" or m.startswith("deepcoro_clip_tpu."))
 assert not bad, bad
@@ -49,7 +51,8 @@ for need in ("train.clip", "train.optim", "losses.contrastive", "models.text_enc
              "projects.linear_probing", "generate_embeddings", "ops.library", "serving",
              "export_model", "external_validation", "data.single_head_sampler",
              "models.locca_decoder", "parallel.distributed", "parallel.batching",
-             "parallel.multihost"):
+             "parallel.multihost", "utils.hf_import", "utils.torch_import",
+             "convert_checkpoint"):
     assert "deepcoro_clip_tpu_torch." + need in mods, need
 print(len(mods))
 """
