@@ -6,7 +6,7 @@
                                         # into an older tree to time its host path)
     python3 chip_smoke.py --compare     # one run of an A B B A call (run_compare;
                                         # copy the script into the older tree too)
-    python3 chip_smoke.py --ddp-rank <spec.json>   # one rank of phase 32 to 35, as
+    python3 chip_smoke.py --ddp-rank <spec.json>   # one rank of phases 32 to 38, as
                                         # torch.distributed.run starts it there
     python3 chip_smoke.py --drift       # phase 32's world-1 control against world N,
                                         # reversed rows and gradient accumulation 2
@@ -331,16 +331,36 @@ Phases, each printing one line (or a few) before the last:
    gradient all-reduce (host time) and collectives on the card;
 33. one optimizer step each of SigLIP multi-positive (global batch 4, the
    bank replicated), multitask (8 studies x 4 clips, the MVM mask handed
-   over) and probing (8 x 10 clips) at full width, dropout 0, over the
+   over) and probing (8 x 10 clips) at full width and depth 4 (MP_DEPTH),
+   dropout 0, on phase 32's ranks, over the
    same group against the world-1 step on the same global batch and
    weights: the loss (relative 1e-2), each tower's averaged gradient by
    its cosine to world 1's (phase 9's bars), launches per rank equal to
    world 1's, parameters bit-equal across the ranks after the step;
+37. tensor parallelism: phase 32's config with mesh_model 2 and no ring
+   through main on 2 ranks (gloo on one card; phase 32's ranks where they
+   are the same, as phase 33 runs on them), each rank holding half of
+   every attention's heads and MLP's hidden width, against phase 32's
+   world-1 run: per-step loss and grad_norm (the bars printed before the
+   run), launches of K1 to K4 per rank equal to world 1's, the replicated
+   parameters bit-equal across the model group, resume bit-equal, rank 0
+   alone writing, the checkpoint (the whole tree) restored at mesh_model 1
+   against the mesh_model-2 model's embeddings (cosine >= 0.9999), K1/K2
+   at 2 heads, K3/K4 at the text tower's 6 and the aggregator's 4 against
+   their plain versions with times and bounds, step time, the model
+   group's all-reduces and peak memory a rank against world 1;
+38. the probing step at full width and depth 4 with DEEPCORO_FUSED_OUTPROJ
+   and mesh_model 2 on phase 37's ranks against world 1: K5 at a rank's 2
+   heads with its [256, 512] rows of wo against its plain version, the
+   ranks' partials summed against K5 over the whole layer, K5 launches per
+   rank, the head outputs against world 1's, step time, all-reduces and
+   memory;
 then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6, and
 the long K3 and K4 kernels an entry each; K3 and K4 list their short and
 long kernels and carry phase 21's rows; every kernel carries the launches
 of phases 22 to 25's, 27, 28, 30 and 31's runs, of phase 29's paths, a
-rank's of phases 32, 33 and 35 and phase 36's; K6 a rank's of phase 34
+rank's of phases 32, 33, 35, 37 and 38 and phase 36's, K1 to K5 their
+rows at a rank's shapes under tensor parallelism; K6 a rank's of phase 34
 with that pass's times (K5's "launches" are phase 27's train run's), K3 and K4 their shapes; the
 long entries their launches over phases 22 to 25's, 30's and 31's runs and
 the bank's, their row at the SigLIP bank's mask and every long row of
@@ -489,7 +509,9 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-TRACE_TRIES = 10  # profiler windows a busy time may take (see device_ms)
+# profiler windows a busy time may take (see device_ms): a run once traced
+# ten empty windows in a row at phase 24's bank row
+TRACE_TRIES = 20
 
 
 def device_events(torch, fn):
@@ -527,9 +549,9 @@ def device_ms(torch, fn, reps: int, kernels=()) -> float:
     window, or drops one, which would read as a faster call. So each kernel
     counts at its mean event time times its launches a call (its events
     over the window's calls, rounded up), and the window is traced again, up
-    to TRACE_TRIES times, when it is empty (then with twice the calls, up to
-    16 times ``reps``: a run of this script once traced ten empty windows of
-    a 10 us call in a row), when one of ``kernels`` is missing, or when a
+    to TRACE_TRIES times, when it is empty (then after a 0.2 s pause and with
+    twice the calls, up to 16 times ``reps``: runs of this script traced ten
+    empty windows in a row, of a 10 us call and of a 0.3 ms one), when one of ``kernels`` is missing, or when a
     kernel's events are not a whole number a call. The check fails when
     the last trace is empty, misses one of ``kernels``, or holds a port
     kernel that none of them names."""
@@ -552,8 +574,9 @@ def device_ms(torch, fn, reps: int, kernels=()) -> float:
         missing = [k for k in kernels if not any(k in n for n in times)]
         if times and not missing and all(len(t) % calls == 0 for t in times.values()):
             break
-        if not times:  # an empty window: the next one longer, up to 16 times
-            calls = min(2 * calls, 16 * reps)
+        if not times:  # an empty window: the next one longer, up to 16 times,
+            calls = min(2 * calls, 16 * reps)  # after a pause for the tracer
+            time.sleep(0.2)
     check(bool(times), f"busy time: no device event traced in {TRACE_TRIES} windows")
     check(not missing, f"busy time: no event of {missing} in {TRACE_TRIES} traces: "
                        f"{sorted(map(_short_name, times))}")
@@ -3091,6 +3114,14 @@ QUALITY_PER_EVAL = {"K1": 12, "K2": 0, "K3": 14, "K4": 0, "K5": 0, "K6": 0,
                     "K3 long": 12, "K4 long": 0}
 QUALITY_PER_BANK = {"K1": 0, "K2": 0, "K3": 12, "K4": 0, "K5": 0, "K6": 0,
                     "K3 long": 12, "K4 long": 0}
+# phases 33 and 38 run the towers at this depth (full width, the pool at
+# block 3 kept; each against its own world-1 step at the same depth), so
+# that the script stays within its time limit on the slower machines.
+# (Phases 32 and 37 stay at 12: at 4, phase 37's grad_norm from the same
+# weights read 8.8e-3 off world 1's, past its bar of 5e-3, set at 12 blocks
+# where it read 3.9e-4: a rank's bf16 partial products add a rounding that
+# the shallow random model amplifies more.)
+MP_DEPTH = 4
 CARD = ""  # nvidia-smi's name and power limit, set by main()
 
 
@@ -3760,7 +3791,8 @@ def _runs_through_main(torch, label: str, cfg, keep_cut: Optional[Path] = None,
     memory read; with ``resume``, epoch 0's checkpoint is copied out of that
     run as it is written (what a run killed after epoch 0 leaves: its
     ``checkpoints/checkpoint.{pt,json}``) and resumed through main.
-    ``keep_cut``: that checkpoint is copied there too. Returns (full,
+    ``keep_cut``: that checkpoint is copied there too; the resumed run
+    takes the first run's dataset statistics. Returns (full,
     resumed, counts, wall seconds, peak GiB); resumed is None without
     ``resume``."""
     from deepcoro_clip_tpu_torch.main import main
@@ -3784,8 +3816,9 @@ def _runs_through_main(torch, label: str, cfg, keep_cut: Optional[Path] = None,
     _zero_kernel_counts()
     CheckpointManager.save_latest = saving
     t0 = time.perf_counter()
+    c_full = cfg("full")
     try:
-        full = main(config=cfg("full"))
+        full = main(config=c_full)
     finally:
         CheckpointManager.save_latest = save_latest
     wall = time.perf_counter() - t0
@@ -3799,7 +3832,9 @@ def _runs_through_main(torch, label: str, cfg, keep_cut: Optional[Path] = None,
           f"{label}: no checkpoint of epoch 0 was written")
     if keep_cut is not None:
         shutil.copyfile(copy / "checkpoints" / "checkpoint.pt", keep_cut)
-    resumed = main(config=cfg("cut", resume_training=True, checkpoint=str(copy)))
+    # (the run's dataset statistics: the same values, no second pass over the clips)
+    resumed = main(config=cfg("cut", resume_training=True, checkpoint=str(copy),
+                              dataset_mean=c_full.dataset_mean, dataset_std=c_full.dataset_std))
     return full, resumed, counts, wall, peak_gib
 
 
@@ -5741,18 +5776,23 @@ def _audit_writes(torch, root: Path, record: list) -> None:
     torch.save = recorded_save
 
 
-def _quality_recorder(torch, rank: int, keep_epoch0: Optional[str] = None) -> dict:
+def _quality_recorder(torch, rank: int, keep_epoch0: Optional[str] = None,
+                      time_reduce_step: Optional[int] = None) -> dict:
     """Patch the contrastive runner so that each train step's loss,
     grad_norm and alignment are kept (read after the run) and the text
     head's projection dropout, which no config field reaches, is off; each
-    epoch's checkpoint save records the parameters' checksum, and with
+    epoch's checkpoint save records the parameters' checksum (and that of
+    the replicated ones alone), and with
     ``keep_epoch0`` rank 0 copies epoch 0's checkpoint there (the run a
-    killed run after epoch 0 would leave). Returns the record; ``undo()``
-    restores the classes."""
+    killed run after epoch 0 would leave). With ``time_reduce_step`` the
+    model group's all-reduces of that step (its index in the run) are timed
+    on the host, each synchronised (``_model_reduce_timer``), and the step
+    synchronised after (``model_all_reduce``). Returns the record;
+    ``undo()`` restores the classes."""
     from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
     from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
 
-    rec: dict = {"steps": [], "checksums": []}
+    rec: dict = {"steps": [], "checksums": [], "replicated": []}
     init, save_latest = VideoContrastiveLearningRunner.__init__, CheckpointManager.save_latest
 
     def wrapped(self, *a, **kw):
@@ -5761,7 +5801,18 @@ def _quality_recorder(torch, rank: int, keep_epoch0: Optional[str] = None) -> di
         step = self.train_step
 
         def recorded(state, *args):
-            state, m = step(state, *args)
+            if time_reduce_step is None or len(rec["steps"]) != time_reduce_step:
+                state, m = step(state, *args)
+            else:
+                torch.cuda.synchronize()
+                timer, undo_timer = _model_reduce_timer(torch)
+                t0 = time.perf_counter()
+                try:
+                    state, m = step(state, *args)
+                    torch.cuda.synchronize()
+                finally:
+                    undo_timer()
+                rec["model_all_reduce"] = dict(timer, step_ms=(time.perf_counter() - t0) * 1e3)
             rec["steps"].append({k: torch.as_tensor(m[k]).detach()
                                  for k in ("loss", "grad_norm", "alignment", "lr")})
             return state, m
@@ -5771,6 +5822,9 @@ def _quality_recorder(torch, rank: int, keep_epoch0: Optional[str] = None) -> di
     def saving(self, state, meta, *a):
         path = save_latest(self, state, meta, *a)
         rec["checksums"].append(_digest(torch, state.params.values()))
+        # (under tensor parallelism the leaves every rank holds whole)
+        rec["replicated"].append(_digest(torch, [
+            p for p in state.params.values() if getattr(p, "model_split", None) is None]))
         if keep_epoch0 and meta["epoch"] == 0 and rank == 0:
             dst = Path(keep_epoch0) / "checkpoints"
             dst.mkdir(parents=True)
@@ -5859,10 +5913,14 @@ def _ddp_profiled_step(torch, cfg) -> dict:
 def _ddp_quality_rank(torch, spec: dict, rank: int) -> dict:
     """A rank of phase 32 or 35 (or of ``--drift``): the quality run through
     main, with the config overrides ``over``. With ``resume`` the group is
-    started here and outlives main: the run (epoch 0's checkpoint copied to
+    started here (``ddp_rank`` ends it) and outlives main: the run (epoch 0's checkpoint copied to
     ``keep_epoch0``), that checkpoint resumed through main, then (unless
     ``profile`` is false) a profiled step, all on one group; the result's
-    ``resumed`` holds the resumed run's, ``grid`` the process grid's shape."""
+    ``resumed`` holds the resumed run's, ``grid`` the process grid's shape.
+    With ``embed`` (phase 37) the run's checkpoint, restored on the same
+    grid, embeds ``_tp_embed_batch`` (``embeddings``); with ``probe`` the
+    ranks then take phase 38's probing step (``_tp_probe_step``) at the
+    run's ``mesh_model`` (``probe``)."""
     from deepcoro_clip_tpu_torch.main import main as port_main
     from deepcoro_clip_tpu_torch.parallel import distributed
 
@@ -5872,7 +5930,7 @@ def _ddp_quality_rank(torch, spec: dict, rank: int) -> dict:
         distributed.init_from_env(quality_train_config().device)
 
     def run(keep_epoch0=None, **over):
-        rec = _quality_recorder(torch, rank, keep_epoch0)
+        rec = _quality_recorder(torch, rank, keep_epoch0, spec.get("time_reduce_step"))
         cfg = _quality_ddp_config(spec["manifest"], spec["output_dir"],
                                   **spec.get("over", {}), **over)
         torch.cuda.reset_peak_memory_stats()
@@ -5883,7 +5941,8 @@ def _ddp_quality_rank(torch, spec: dict, rank: int) -> dict:
         rec["undo"]()
         return cfg, {"history": result["history"], "output_dir": result["output_dir"],
                      "steps": [{k: float(v) for k, v in s.items()} for s in rec["steps"]],
-                     "checksums": rec["checksums"],
+                     "checksums": rec["checksums"], "replicated": rec["replicated"],
+                     "model_all_reduce": rec.get("model_all_reduce"),
                      "counts": {**_kernel_counts(), **_long_counts()},
                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "main_s": wall}
 
@@ -5891,23 +5950,58 @@ def _ddp_quality_rank(torch, spec: dict, rank: int) -> dict:
     if spec.get("resume"):
         out["grid"] = dict(distributed.grid().shape)
         _, out["resumed"] = run(resume_training=True, checkpoint=spec["resume"])
+        if spec.get("embed"):  # phase 37: the run's model on fixed clips and reports
+            out["embeddings"] = _tp_embeddings(torch, cfg, Path(out["output_dir"])
+                                               / "checkpoints")
+        if spec.get("probe"):  # phase 38's probing step, on the same ranks
+            pcfg = probe_config(dropout=0.0, dropout_attention=0.0, vit_depth=MP_DEPTH,
+                                mesh_model=cfg.mesh_model)
+            pcfg.set_device_info_in_place()
+            out["probe"] = dict(_tp_probe_step(torch, pcfg),
+                                grid=dict(distributed.grid().shape))
         if spec.get("profile", True):
             # (the run's dataset statistics: no second pass over the clips)
             out["profile"] = _ddp_profiled_step(torch, _quality_ddp_config(
                 spec["manifest"], str(Path(spec["root"]) / "trace"),
                 dataset_mean=cfg.dataset_mean, dataset_std=cfg.dataset_std))
-        distributed.shutdown()
     print(f"rank {rank}: cuda:{torch.cuda.current_device()}, {len(out['steps'])} steps, "
           f"main {out['main_s']:.1f} s, peak {out['peak_gib']:.2f} GiB", flush=True)
     out.update(written=written, device=torch.cuda.current_device())
     return out
 
 
-def phase_ddp_quality_run(torch, manifest: Path, tmp: Path) -> dict:
+def _quality_world1(torch, manifest: Path, tmp: Path) -> dict:
+    """Phase 32's control: its config at world 1 in this process; returns
+    the run's steps, history, launches, peak memory and dataset statistics
+    (which go to the ranks: the same values, without a pass over the clips
+    a run)."""
+    from deepcoro_clip_tpu_torch.main import main as port_main
+
+    rec = _quality_recorder(torch, 0)
+    _zero_kernel_counts()
+    cfg_one = _quality_ddp_config(str(manifest), str(tmp / "ddp_one"))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        one = port_main(config=cfg_one)
+    finally:
+        rec["undo"]()
+    out = {"run": one, "history": one["history"],
+           "counts": {**_kernel_counts(), **_long_counts()},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "steps": [{k: float(v) for k, v in s.items()} for s in rec["steps"]],
+           "stats": {"dataset_mean": cfg_one.dataset_mean, "dataset_std": cfg_one.dataset_std}}
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ddp_quality_run(torch, manifest: Path, tmp: Path, world1: dict,
+                          then: tuple = ()) -> dict:
     """Phase 32: phase 22's config at dropout 0 through torch.distributed.run
-    at world N (``ddp_topology``) and through main at world 1, on phase
-    22's corpus; returns {"world", "backend", "counts": a rank's launches,
-    "times": ...}."""
+    at world N (``ddp_topology``) against ``world1`` (``_quality_world1``),
+    on phase 22's corpus; the jobs of ``then`` (phase 33's, and phase 37's
+    where its ranks are these) run on the same launch after it. Returns
+    {"world", "backend", "counts": a rank's launches, "times": ..., "then":
+    each chained job's results by rank}."""
     world, backend, topology = ddp_topology(torch)
     steps = QUALITY_TRAIN // 16
     print(f"ddp quality run: {topology}; config/quality/flagship_quality_train.yaml as "
@@ -5921,24 +6015,14 @@ def phase_ddp_quality_run(torch, manifest: Path, tmp: Path) -> dict:
           f"{DDP_VAL_RECALL_ABS:.4f} (one clip of {QUALITY_VAL})", flush=True)
     root = tmp / "ddp_quality"
     keep = root / "epoch0"
-    # world 1, the same config, in this process; its dataset statistics go
-    # to the ranks (the same values, without a pass over the clips a run)
-    rec = _quality_recorder(torch, 0)
-    _zero_kernel_counts()
-    from deepcoro_clip_tpu_torch.main import main as port_main
-
-    cfg_one = _quality_ddp_config(str(manifest), str(tmp / "ddp_one"))
-    one = port_main(config=cfg_one)
-    one_counts = {**_kernel_counts(), **_long_counts()}
-    rec["undo"]()
-    one_steps = [{k: float(v) for k, v in s.items()} for s in rec["steps"]]
-    torch.cuda.empty_cache()
-    stats = {"dataset_mean": cfg_one.dataset_mean, "dataset_std": cfg_one.dataset_std}
-    # the run, epoch 0's checkpoint resumed and a profiled step: one launch
+    one, one_counts, one_steps = world1["run"], world1["counts"], world1["steps"]
+    stats = world1["stats"]
+    # the run, epoch 0's checkpoint resumed and a profiled step (then the
+    # chained jobs): one launch
     full, full_s = _launch(world, {"job": "quality", "manifest": str(manifest),
                                    "root": str(root), "output_dir": str(root / "full"),
                                    "keep_epoch0": str(keep), "resume": str(keep),
-                                   "over": stats}, tmp, "ddp_full")
+                                   "over": stats, "then": list(then)}, tmp, "ddp_full")
     resumed = [r["resumed"] for r in full]
 
     # the ranks agree: every step's metrics and each epoch's parameters
@@ -6054,8 +6138,10 @@ def phase_ddp_quality_run(torch, manifest: Path, tmp: Path) -> dict:
               f"MiB fp32, one call) {p['all_reduce_host_ms']:.1f} ms host time; collectives "
               f"on the card: {coll} | {topology} | {CARD}", flush=True)
     print(f"ddp quality run: torch.distributed.run launch {full_s:.1f} s (the run, its "
-          f"resumption and a profiled step), process start and set-up included", flush=True)
-    return {"world": world, "backend": backend, "counts": full[0]["counts"], "times": times}
+          f"resumption and a profiled step, then {[j['job'] for j in then]}), process start "
+          f"and set-up included", flush=True)
+    return {"world": world, "backend": backend, "counts": full[0]["counts"], "times": times,
+            "then": [[r["then"][i] for r in full] for i in range(len(then))]}
 
 
 def _ddp_step_cases(torch) -> list:
@@ -6064,7 +6150,8 @@ def _ddp_step_cases(torch) -> list:
     config, batch, the per-tower names)."""
     r = np.random.default_rng(33)
     cases = []
-    cfg = siglip_config(dropout=0.0, batch_size=DDP_SIGLIP_BATCH)
+    depth = dict(vit_depth=MP_DEPTH, text_depth=MP_DEPTH)
+    cfg = siglip_config(dropout=0.0, batch_size=DDP_SIGLIP_BATCH, **depth)
     B = DDP_SIGLIP_BATCH
     M = B * (cfg.siglip_max_positive_per_video + cfg.siglip_negatives_per_video)
     L = cfg.max_text_length
@@ -6082,7 +6169,7 @@ def _ddp_step_cases(torch) -> list:
         "attention_mask": att, "positive_mask": pos,
         "positive_weights": r.uniform(0.75, 2.5, (B, M)).astype(np.float32),
         "text_valid": (lengths > 2).astype(np.float32)}))
-    cfg = multitask_config(dropout=0.0)
+    cfg = multitask_config(dropout=0.0, **depth)
     B, N, C = MT_BATCH, cfg.num_videos, cfg.decoder_max_length
     vmask = np.ones((B, N), bool)
     vmask[1, 2:] = vmask[B - 1, 1:] = False
@@ -6101,7 +6188,7 @@ def _ddp_step_cases(torch) -> list:
         "caption_mask": cap,
         "location_mask": ((r.random((B, C)) > 0.8) & (cap > 0)).astype(np.float32),
         "caption_weights": r.uniform(1.0, 4.0, B).astype(np.float32)}))
-    cfg = probe_config(dropout=0.0, dropout_attention=0.0)
+    cfg = probe_config(dropout=0.0, dropout_attention=0.0, vit_depth=MP_DEPTH)
     cases.append(("probing", "probe", cfg, probe_batch(cfg, 8)))
     return cases
 
@@ -6172,6 +6259,7 @@ def _ddp_steps_rank(torch, spec: dict, rank: int) -> dict:
 
     cases = _ddp_step_cases(torch)
     _, world, dev = distributed.init_from_env(cases[0][2].device)
+    distributed.init_grid(1)  # data parallelism alone (a job before may have cut the grid)
     out = {}
     for name, kind, cfg, batch in cases:
         bundle, state = _ddp_bundle(torch, kind, cfg)
@@ -6201,19 +6289,18 @@ def _ddp_steps_rank(torch, spec: dict, rank: int) -> dict:
         del bundle, state, local
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    distributed.shutdown()
     return out
 
 
-def phase_ddp_steps(torch, tmp: Path) -> dict:
-    """Phase 33: one train step each of SigLIP multi-positive (the bank
-    replicated), multitask (LocCa on, the MVM mask handed over) and
-    probing, at full width, over the group against the world-1 step on the
-    same global batch and weights. Returns {case: {"loss", "counts"}}."""
+def _ddp_steps_prepare(torch, tmp: Path) -> dict:
+    """Phase 33's world-1 side, before the ranks run: each case's world-1
+    step (its loss and launches kept, its gradients and the MVM mask written
+    for the ranks); returns {"dir", "want"}."""
     world, backend, topology = ddp_topology(torch)
     d = tmp / "ddp_steps"
     d.mkdir()
-    print(f"ddp steps: {topology}; global batches: SigLIP multi-positive "
+    print(f"ddp steps: {topology}; the towers at depth {MP_DEPTH}; global batches: SigLIP "
+          f"multi-positive "
           f"{DDP_SIGLIP_BATCH} clips (cut from the YAML's 20, phase 24's 7: every rank "
           f"holds the bank of {DDP_SIGLIP_BATCH * 40} texts, twice on a shared card), "
           f"multitask "
@@ -6247,7 +6334,17 @@ def phase_ddp_steps(torch, tmp: Path) -> dict:
         torch.save({t: g.cpu() for t, g in towers.items()}, d / f"{name}_grads.pt")
         del bundle, state, db, towers
         torch.cuda.empty_cache()
-    ranks, wall = _launch(world, {"job": "steps", "dir": str(d)}, tmp, "ddp_steps")
+    return {"dir": str(d), "want": want}
+
+
+def phase_ddp_steps(torch, prepared: dict, ranks: list) -> dict:
+    """Phase 33: one train step each of SigLIP multi-positive (the bank
+    replicated), multitask (LocCa on, the MVM mask handed over) and
+    probing, at full width, over the group against the world-1 step on the
+    same global batch and weights (``_ddp_steps_prepare``); ``ranks``: the
+    ranks' results (the job ``steps``, run on phase 32's launch). Returns
+    {case: {"loss", "counts"}}."""
+    want = prepared["want"]
     for name, w in want.items():
         got = [r[name] for r in ranks]
         for key in ("loss", "grad_digest", "params", "counts"):
@@ -6271,7 +6368,6 @@ def phase_ddp_steps(torch, tmp: Path) -> dict:
               + f" (world 1 the same); parameters after the step bit-equal across the "
               f"ranks ({g['params']}); peak per rank "
               + ", ".join(f"{r[name]['peak_gib']:.2f}" for r in ranks) + " GiB", flush=True)
-    print(f"ddp steps: torch.distributed.run launch {wall:.1f} s | {CARD}", flush=True)
     return {name: {"loss": [r[name] for r in ranks][0]["loss"],
                    "counts": ranks[0][name]["counts"]} for name in want}
 
@@ -6293,6 +6389,9 @@ def phase_ddp_steps(torch, tmp: Path) -> dict:
 # to world 1.
 RINGP_RANKS = 4  # phase 34: one chunk of 3920 tokens a rank
 RING_MAIN_RANKS = 3  # phase 35: 3 divides 1569 and 393, as in phase 19
+# phase 35's towers cut from 12 blocks to 2, so that the script holds
+# phases 37 and 38 within its limit (3 ranks still divide the 1569 tokens)
+RING_MAIN_DEPTH = 2
 RINGP_REPS = 10
 IMPORT_MIN_COSINE = 0.999
 IMPORT_TEXTS = 8  # phase 36: reports of 512 tokens through the imported text tower
@@ -6463,8 +6562,8 @@ def phase_ring_processes(torch, tmp: Path) -> dict:
 
 
 def phase_ring_main_run(torch, manifest: Path, tmp: Path) -> dict:
-    """Phase 35: phase 22's config at dropout 0 with use_ring_attention and
-    mesh_model 3 through main on 3 ranks (the grid (1, 3): each rank's model
+    """Phase 35: phase 22's config at dropout 0 and depth RING_MAIN_DEPTH
+    with use_ring_attention and mesh_model 3 through main on 3 ranks (the grid (1, 3): each rank's model
     group holds the ring's three chunks), 2 epochs of 3 steps, then resumed
     from epoch 0's checkpoint; against the same config in this process as a
     one-process ring of 3 shards on card 0."""
@@ -6474,8 +6573,10 @@ def phase_ring_main_run(torch, manifest: Path, tmp: Path) -> dict:
     n = RING_MAIN_RANKS
     backend, topology = ring_topology(torch, n)
     steps = QUALITY_TRAIN // 16
-    over = {"use_ring_attention": True, "mesh_model": n}
+    over = {"use_ring_attention": True, "mesh_model": n, "vit_depth": RING_MAIN_DEPTH,
+            "text_depth": RING_MAIN_DEPTH}
     print(f"ring main run: config/quality/flagship_quality_train.yaml as phase 22 runs it, "
+          f"at depth {RING_MAIN_DEPTH} (video and text towers), "
           f"dropout 0, use_ring_attention true, mesh_model {n}: {n} ranks on the grid "
           f"(data 1, model {n}), batch 16 on every rank, {steps} steps an epoch, 2 epochs, "
           f"then resumed from epoch 0; {topology}; bar: per step |loss - loss_one| <= "
@@ -6534,8 +6635,8 @@ def phase_ring_main_run(torch, manifest: Path, tmp: Path) -> dict:
           f"ring main run: launches {one_counts}")
     print(f"ring main run: launches per rank over the run "
           + ", ".join(f"{k} {first['counts'][k]}" for k in ("K1", "K2", "K3", "K4", "K6"))
-          + " (the backbone's 12 blocks on the \"xla\" ring: no K1, K2; the text tower's "
-          f"and the aggregator's K3, K4), as the one-process ring "
+          + f" (the backbone's {RING_MAIN_DEPTH} blocks on the \"xla\" ring: no K1, K2; the "
+          "text tower's and the aggregator's K3, K4), as the one-process ring "
           + ", ".join(f"{k} {one_counts[k]}" for k in ("K1", "K2", "K3", "K4", "K6")),
           flush=True)
     run = Path(first["output_dir"])
@@ -6746,17 +6847,583 @@ def run_drift(torch) -> dict:
             for name, steps in out.items()}
 
 
+# --------------------------------------------------------------------------- #
+# phases 37 and 38: tensor parallelism over the model axis
+
+TP_RANKS = 2  # mesh_model: every attention's heads and MLP's hidden width cut in two
+# the bars, written before the first run on the card. Per step, the loss
+# against world 1 by phase 32's bar at every step; at the steps taken from the
+# same weights (before the first update: lr 0 in the warmup) tighter: there
+# only the bf16 rounding of each row-parallel product's partial (summed in
+# fp32 over the model group) and the order of the sums differ, as the GEMMs'
+# row blocking does between world N and world 1 in phase 32 (grad_norm
+# within 5e-5 there); a wrong cut (a head, a bias added twice) moves both
+# by far more. After an update Adam amplifies rounding (phase 32's
+# --drift): the loss bar alone holds there.
+TP_LOSS_REL = DDP_LOSS_REL
+TP_SAME_WEIGHTS_LOSS_REL = 1e-3
+TP_GRAD_NORM_REL = 5e-3
+# the M = 2 run's checkpoint restored at M = 1 against the M = 2 model on
+# the same clips and reports: the cosine of each embedding
+TP_MIN_COSINE = 0.9999
+TP_EMBED_ROWS = 4
+TP_PROBE_STEPS = 1  # timed probing steps after one warm step
+# a rank's heads at M = 2: the aggregator's 8 / 2, the text tower's 12 / 2,
+# the video tower's 4 / 2
+TP_AGG_HEADS, TP_TEXT_HEADS, TP_VIDEO_HEADS = 4, 6, 2
+
+
+def _tp_embed_batch(cfg) -> dict:
+    """Seeded clips and reports for the embedding check: TP_EMBED_ROWS uint8
+    clips at the run's frames and size, reports of max_text_length tokens
+    with padding."""
+    r = np.random.default_rng(37)
+    n, L = TP_EMBED_ROWS, cfg.max_text_length
+    lengths = r.integers(L // 8, L, n)
+    att = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)
+    return {"videos": r.integers(0, 255, (n, cfg.frames, cfg.resize, cfg.resize, 3),
+                                 dtype=np.uint8),
+            "input_ids": (r.integers(1000, cfg.text_vocab_size, (n, L)) * att).astype(np.int32),
+            "attention_mask": att}
+
+
+def _tp_embeddings(torch, cfg, checkpoints: Path) -> list:
+    """The video and text embeddings of ``_tp_embed_batch`` by the models of
+    ``cfg`` (on the grid it asks for) restored from ``checkpoints``, as
+    nested lists ``[rows, 2 * embedding_dim]``."""
+    from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
+    from deepcoro_clip_tpu_torch.train.clip import build_clip_bundle
+
+    bundle, state = build_clip_bundle(cfg, seed=0, steps_per_epoch=1, device=cfg.device)
+    CheckpointManager(checkpoints).restore(state, "checkpoint")
+    b = {k: torch.as_tensor(v).to(bundle.device) for k, v in _tp_embed_batch(cfg).items()}
+    with torch.no_grad():
+        v = bundle.video_model(b["videos"], deterministic=True)
+        t = bundle.text_model(b["input_ids"], attention_mask=b["attention_mask"],
+                              deterministic=True)
+    out = torch.cat([v.float(), t.float()], dim=1).cpu().tolist()
+    del bundle, state, b, v, t
+    torch.cuda.empty_cache()
+    return out
+
+
+def _model_reduce_timer(torch) -> tuple:
+    """Wrap torch.distributed.all_reduce so that the calls on the grid's
+    model group are timed on the host, the card synchronised before and
+    after each (every other call passes through); returns (record, undo)."""
+    import torch.distributed as dist
+
+    from deepcoro_clip_tpu_torch.parallel import distributed
+    from deepcoro_clip_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    group = distributed.grid().groups[MODEL_AXIS]
+    reduce = dist.all_reduce
+    rec = {"calls": 0, "ms": 0.0, "bytes": 0}
+
+    def timed(tensor, *a, **kw):
+        if group is None or kw.get("group") is not group:
+            return reduce(tensor, *a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work = reduce(tensor, *a, **kw)
+        torch.cuda.synchronize()
+        rec["ms"] += (time.perf_counter() - t0) * 1e3
+        rec["calls"] += 1
+        rec["bytes"] += tensor.numel() * tensor.element_size()
+        return work
+
+    def undo():
+        dist.all_reduce = reduce
+
+    dist.all_reduce = timed
+    return rec, undo
+
+
+def _tp_packed_rows(torch, label: str, B: int, H: int) -> tuple:
+    """K1 and K2 at a rank's heads of the video tower: the fused qkv
+    ``[B, L, 3*H*128]`` with RoPE at 1569 and 393 tokens (before and after
+    the pool), against their plain versions (phase 3's and phase 7's bars),
+    with times, busy times, bounds and SDPA's. Returns (K1 rows, K2 rows)."""
+    import torch.nn.functional as F
+
+    from deepcoro_clip_tpu_torch.ops.attention import (
+        apply_rope,
+        flash_bwd_plain,
+        multi_head_attention,
+    )
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(37)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    rows_f, rows_b = [], []
+    for T, HW in ((8, 14), (8, 7)):
+        t = build_rope3d_tables(128, T, HW, HW, n_special=1)
+        sin, cos = torch.from_numpy(t.sin).to(dev), torch.from_numpy(t.cos).to(dev)
+        D, L, Dh = H * 128, sin.shape[0], 128
+        qkv, do = randn(B, L, 3 * D), randn(B, L, D)
+        heads = [_to_heads(u, H) for u in qkv.split(D, -1)]
+        shape = f"qkv [{B},{L},{3 * D}] bf16, H {H}, Dh 128, RoPE"
+        with torch.no_grad():
+            ref_out = multi_head_attention(*heads, sin=sin, cos=cos)
+            err_f = check_forward(torch, label, f"K1 {shape}", _to_heads(
+                flash_attention_packed(qkv=qkv, num_heads=H, sin=sin, cos=cos), H), ref_out)
+        leaf = qkv.clone().requires_grad_()
+        out = flash_attention_packed(qkv=leaf, num_heads=H, sin=sin, cos=cos)
+        (dqkv,) = torch.autograd.grad(out, [leaf], do, retain_graph=True)
+        doh, outh = _to_heads(do, H), _to_heads(out.detach(), H)
+        ref = flash_bwd_plain(*heads, doh, ref_out, sin=sin, cos=cos)
+        err_b = max(_rel_check(f"K2 {shape}", w, _to_heads(a, H), r)
+                    for w, a, r in zip(("dq", "dk", "dv"), dqkv.split(D, -1), ref))
+        print(f"{label}: K2 {shape}: max|kernel-plain| {err_b:.3e} (bars: max|d| <= "
+              f"{BWD_MAX_REL} max|plain|, rel l2 <= {BWD_L2_REL}) ok", flush=True)
+        sq = [apply_rope(heads[0], sin, cos), apply_rope(heads[1], sin, cos), heads[2]]
+        sl = [u.detach().clone().requires_grad_() for u in sq]
+        sout = F.scaled_dot_product_attention(*sl)
+        tables = 2 * L * Dh * 4
+        b_fwd = bound(4 * B * H * L * L * Dh, (B * L * 3 * D + B * L * D) * 2 + tables)
+        b_bwd = bound(10 * B * H * L * L * Dh, 8 * B * L * D * 2 + tables)
+        with torch.no_grad():
+            row = {"shape": shape, "max_abs_err": err_f,
+                   "ms": cuda_ms(torch, lambda: flash_attention_packed(
+                       qkv=qkv, num_heads=H, sin=sin, cos=cos), REPS),
+                   "plain_ms": cuda_ms(torch, lambda: multi_head_attention(
+                       *heads, sin=sin, cos=cos), max(1, REPS // 5)),
+                   "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(*sq),
+                                         REPS),
+                   "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
+                   "device_ms": device_ms(torch, lambda: flash_attention_packed(
+                       qkv=qkv, num_heads=H, sin=sin, cos=cos), REPS,
+                       ("flash_fwd_sm90_kernel",))}
+            row["tflops"] = 4 * B * H * L * L * Dh / row["ms"] / 1e9
+        rows_f.append(row)
+        rows_b.append({
+            "shape": shape, "max_abs_err": err_b,
+            "ms": cuda_ms(torch, lambda: torch.autograd.grad(out, [leaf], do,
+                                                             retain_graph=True), REPS),
+            "plain_ms": cuda_ms(torch, lambda: flash_bwd_plain(*heads, doh, outh, sin=sin,
+                                                               cos=cos), max(1, REPS // 5)),
+            "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(sout, sl, doh,
+                                                                     retain_graph=True),
+                                  REPS),
+            "bound_ms": b_bwd[0], "bound_by": b_bwd[1],
+            "device_ms": device_ms(torch, lambda: torch.autograd.grad(
+                out, [leaf], do, retain_graph=True), REPS, K2_KERNELS)})
+        for name, r in (("K1 forward", rows_f[-1]), ("K2 backward", rows_b[-1])):
+            print(f"{label}: {name} {shape}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}); card busy "
+                  f"{r['device_ms']:.4f} ms | {CARD}", flush=True)
+        del qkv, do, heads, leaf, out, dqkv, doh, outh, ref, ref_out, sq, sl, sout
+        torch.cuda.empty_cache()
+    return rows_f, rows_b
+
+
+def _tp_quality_spec(manifest: Path, tmp: Path, world1: dict) -> dict:
+    """The ranks' job of phases 37 and 38: phase 22's config at dropout 0
+    with mesh_model TP_RANKS and the world-1 run's dataset statistics, 2
+    epochs (the model group's all-reduces of the last step timed), resumed
+    from epoch 0's checkpoint, the embeddings of the run's checkpoint, then
+    phase 38's probing step."""
+    root = tmp / "tp_quality"
+    keep = root / "epoch0"
+    return {"job": "quality", "manifest": str(manifest), "root": str(root),
+            "output_dir": str(root / "full"), "keep_epoch0": str(keep), "resume": str(keep),
+            "over": dict(world1["stats"], mesh_model=TP_RANKS), "embed": True, "probe": True,
+            "profile": False, "time_reduce_step": 2 * (QUALITY_TRAIN // 16) - 1}
+
+
+def _tp_bars(torch) -> None:
+    """Phases 37 and 38's configurations and bars, printed before their
+    ranks run."""
+    n = TP_RANKS
+    _, topology = ring_topology(torch, n)
+    print(f"tensor-parallel run: config/quality/flagship_quality_train.yaml as phase 22 "
+          f"runs it, dropout 0, mesh_model {n} without the ring: {n} ranks on the grid "
+          f"(data 1, model {n}), each with {TP_VIDEO_HEADS} of the video tower's 4 heads, "
+          f"{TP_TEXT_HEADS} of the text tower's 12, {TP_AGG_HEADS} of the aggregator's 8 and "
+          f"half of every MLP; batch 16 on every rank, {QUALITY_TRAIN // 16} steps an epoch, "
+          f"2 epochs, then resumed from epoch 0; {topology} | {CARD}", flush=True)
+    print(f"tensor-parallel run: bars: per step |loss - loss_1| <= {TP_LOSS_REL} |loss_1|; "
+          f"at the steps from the same weights (before the first update) |loss - loss_1| "
+          f"<= {TP_SAME_WEIGHTS_LOSS_REL} |loss_1| and |grad_norm - grad_norm_1| <= "
+          f"{TP_GRAD_NORM_REL} grad_norm_1; launches of K1 to K4 on each rank equal to "
+          f"world 1's; the replicated parameters bit-equal across the model group; resume "
+          f"bit-equal; rank 0 alone writes; the checkpoint restored at mesh_model 1: cosine "
+          f">= {TP_MIN_COSINE} of each embedding to the mesh_model-2 model's", flush=True)
+    print(f"tensor-parallel probing: config/linear_probing/stenosis_config.yaml (phase 12's "
+          f"step: {PROBE_CLIPS} clips, the encoder frozen at depth {MP_DEPTH}, "
+          f"DEEPCORO_FUSED_OUTPROJ on), "
+          f"dropout 0, mesh_model {n} on the same {n} ranks: each rank's K5 at "
+          f"{TP_VIDEO_HEADS} heads with its [256, 512] rows of wo, the partial summed over "
+          f"the model group; bars: head outputs |d| <= {HEAD_ATOL} + {HEAD_RTOL}|world 1|, "
+          f"the first step's loss and grad_norm within {TP_LOSS_REL} of world 1's, K5 "
+          f"launches per rank equal to world 1's | {CARD}", flush=True)
+
+
+def phase_tp_quality_run(torch, manifest: Path, tmp: Path, world1: dict,
+                         ranks: Optional[list] = None) -> dict:
+    """Phase 37: ``_tp_quality_spec``'s job on 2 ranks through main
+    (tensor parallelism: each rank holds half of every attention's heads
+    and of every MLP's hidden width) against phase 32's world-1 run of the
+    same config (``world1``); ``ranks``: the ranks' results where phase
+    32's launch ran the job, else it is launched here (after ``_tp_bars``).
+    Then the run's checkpoint restored at M = 1 in this process against the
+    M = 2 model, and every kernel at a rank's shapes against its plain
+    version. Returns the ranks' probing results too (``probe``, phase
+    38's)."""
+    n = TP_RANKS
+    backend, topology = ring_topology(torch, n)
+    steps = QUALITY_TRAIN // 16
+    root = tmp / "tp_quality"
+    wall = None
+    if ranks is None:
+        _tp_bars(torch)
+        ranks, wall = _launch(n, _tp_quality_spec(manifest, tmp, world1), tmp, "tp_quality")
+    first = ranks[0]
+    for r, res in enumerate(ranks):
+        check(res["grid"] == {"data": 1, "model": n}, f"tensor-parallel run: rank {r} grid "
+              f"{res['grid']}")
+    for r in ranks[1:]:
+        check(r["steps"] == first["steps"], "tensor-parallel run: rank steps differ: "
+              f"{r['steps']} vs {first['steps']}")
+        check(r["replicated"] == first["replicated"],
+              "tensor-parallel run: replicated parameters differ across the model group: "
+              f"{r['replicated']} vs {first['replicated']}")
+    check(first["checksums"] != ranks[1]["checksums"],
+          "tensor-parallel run: the ranks hold the same parameters (nothing was cut)")
+    print(f"tensor-parallel run: checksums after each epoch of the replicated parameters "
+          f"{first['replicated']} (bit-equal across the {n} ranks), of each rank's whole "
+          f"share {[r['checksums'][-1] for r in ranks]} (its own parts)", flush=True)
+
+    got, one_steps = first["steps"], world1["steps"]
+    check(len(got) == len(one_steps) == 2 * steps, f"steps {len(got)} / {len(one_steps)}")
+    same_weights = True
+    for i, (a, b) in enumerate(zip(got, one_steps)):
+        dl = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        dg = abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+        held = "held" if same_weights else "after an update: not held"
+        print(f"tensor-parallel run: step {i}: loss {a['loss']:.6f} (world 1 "
+              f"{b['loss']:.6f}, rel {dl:.2e}), grad_norm {a['grad_norm']:.5f} (world 1 "
+              f"{b['grad_norm']:.5f}, rel {dg:.2e}, {held}), alignment {a['alignment']:.5f} "
+              f"({b['alignment']:.5f}), lr {a['lr']:.2e}", flush=True)
+        check(math.isfinite(a["loss"]) and dl <= TP_LOSS_REL,
+              f"tensor-parallel run: step {i} off the world-1 run: {a} vs {b}")
+        check(not same_weights or (dl <= TP_SAME_WEIGHTS_LOSS_REL and dg <= TP_GRAD_NORM_REL),
+              f"tensor-parallel run: step {i}, from the same weights, off the world-1 run: "
+              f"{a} vs {b}")
+        same_weights = same_weights and a["lr"] == 0.0 and b["lr"] == 0.0
+    for h, w in zip(first["history"], world1["history"]):
+        d = abs(h["val_loss"] - w["val_loss"]) / abs(w["val_loss"])
+        check(d <= TP_LOSS_REL, f"tensor-parallel run: epoch {h['epoch']} val_loss "
+              f"{h['val_loss']} vs {w['val_loss']}")
+        print(f"tensor-parallel run: epoch {h['epoch']} validation loss {h['val_loss']:.6f} "
+              f"(world 1 {w['val_loss']:.6f}, rel {d:.2e}), alignment "
+              f"{h['val_alignment']:.5f} ({w['val_alignment']:.5f})", flush=True)
+
+    for r, res in enumerate(ranks):
+        check(all(res["counts"][k] == world1["counts"][k] for k in ("K1", "K2", "K3", "K4",
+                                                                   "K5", "K6")),
+              f"tensor-parallel run: rank {r} launches {res['counts']}, world 1 "
+              f"{world1['counts']}")
+    print(f"tensor-parallel run: launches per rank over the run "
+          + ", ".join(f"{k} {first['counts'][k]}" for k in ("K1", "K2", "K3", "K4"))
+          + " (each at the rank's heads), as at world 1 ("
+          + ", ".join(f"{k} {world1['counts'][k]}" for k in ("K1", "K2", "K3", "K4"))
+          + ")", flush=True)
+
+    run = Path(first["output_dir"])
+    runs = sorted(p.parent for p in (root / "full").rglob("checkpoints"))
+    check(runs == [run], f"tensor-parallel run: run directories {runs}")
+    for r, res in enumerate(ranks):
+        check(bool(res["written"]) == (r == 0),
+              f"tensor-parallel run: rank {r} wrote {res['written'][:5]}")
+    res_h = first["resumed"]["history"]
+    check([h["epoch"] for h in res_h] == [1] and res_h[0]["loss"] == first["history"][1]["loss"]
+          and all(r["resumed"]["checksums"][-1:] == r["checksums"][-1:] for r in ranks),
+          f"tensor-parallel run: resumed {res_h} vs {first['history'][1]}, checksums "
+          f"{[r['resumed']['checksums'] for r in ranks]} vs {[r['checksums'] for r in ranks]}")
+    print(f"tensor-parallel run: one run directory, written by rank 0 alone; resumed from "
+          f"epoch 0: epoch-1 loss {res_h[0]['loss']!r} (uninterrupted "
+          f"{first['history'][1]['loss']!r}), each rank's parameters bit-equal to its "
+          f"uninterrupted run's", flush=True)
+
+    # the whole tree in the file: it restores at mesh_model 1, here
+    saved = torch.load(run / "checkpoints" / "checkpoint.pt", weights_only=True)
+    qkv = saved["params"]["video_encoder.backbone.block0.attn.qkv.weight"]
+    mu = saved["opt_state"]["mu"]["text_encoder.layer0.intermediate.weight"]
+    check(tuple(qkv.shape) == (3 * 512, 512) and tuple(mu.shape) == (3072, 768),
+          f"tensor-parallel run: the checkpoint holds qkv {tuple(qkv.shape)}, a moment of "
+          f"intermediate {tuple(mu.shape)}: not the whole tree")
+    del saved
+    cfg_one = _quality_ddp_config(str(manifest), str(root / "restore"), **world1["stats"])
+    one = _tp_embeddings(torch, cfg_one, run / "checkpoints")
+    cos = []
+    for r, res in enumerate(ranks):
+        a, b = torch.tensor(res["embeddings"]), torch.tensor(one)
+        for part in (slice(0, 512), slice(512, 1024)):
+            cos += torch.nn.functional.cosine_similarity(a[:, part], b[:, part], dim=1).tolist()
+    check(min(cos) >= TP_MIN_COSINE, f"tensor-parallel run: the checkpoint at mesh_model 1 "
+          f"against the mesh_model-2 model: cosines {cos}")
+    print(f"tensor-parallel run: the checkpoint holds the whole tree (qkv "
+          f"{tuple(qkv.shape)}, Adam moments whole); restored at mesh_model 1 in this "
+          f"process, its {TP_EMBED_ROWS} video and text embeddings against the mesh_model-2 "
+          f"model's on each rank: min cosine {min(cos):.7f}", flush=True)
+
+    # each kernel at a rank's shapes against its plain version, timed
+    k1_rows, k2_rows = _tp_packed_rows(torch, "tensor-parallel kernels", 16, TP_VIDEO_HEADS)
+    tmask = torch.from_numpy(_tp_embed_batch(cfg_one)["attention_mask"]).cuda()
+    tmask = tmask.repeat(4, 1)  # 16 reports of the run's lengths
+    k3_rows, k4_rows = _attention_rows(torch, "tensor-parallel kernels", (
+        ("the text tower at a rank's 6 of 12 heads, the batch's padding mask", 16,
+         TP_TEXT_HEADS, 128, 128, tmask.to(torch.int32), False),), seed=37)
+    vmask = torch.ones(16, 1, dtype=torch.bool, device="cuda")
+    _, _, agg_f, agg_b = _aggregator_attention(torch, vmask, label="tensor-parallel kernels",
+                                               H=TP_AGG_HEADS, timed=True)
+    k3_rows.append(agg_f)
+    k4_rows.append(agg_b)
+
+    h, h1 = first["history"][1], world1["history"][1]
+    times = {"ranks": n, "backend": backend,
+             "step_ms": h["epoch_seconds"] * 1e3 / steps,
+             "world1_step_ms": h1["epoch_seconds"] * 1e3 / steps,
+             "peak_gib": [r["peak_gib"] for r in ranks], "world1_peak_gib": world1["peak_gib"],
+             "model_all_reduce": [r["model_all_reduce"] for r in ranks], "launch_s": wall}
+    print(f"tensor-parallel run: step {times['step_ms']:.1f} ms (host clock, epoch 1 over "
+          f"{steps} steps), world 1 {times['world1_step_ms']:.1f} ms; peak memory per rank "
+          + ", ".join(f"{g:.2f}" for g in times["peak_gib"])
+          + f" GiB, world 1 {world1['peak_gib']:.2f} GiB (torch.cuda.max_memory_allocated) "
+          f"| {topology} | {CARD}", flush=True)
+    for r, m in enumerate(times["model_all_reduce"]):
+        print(f"tensor-parallel run: rank {r}, the run's last step: the model group's "
+              f"all-reduces {m['calls']} calls, {m['bytes'] / 2 ** 30:.3f} GiB, {m['ms']:.1f} ms "
+              f"host time (each synchronised before and after) in a step of {m['step_ms']:.1f} "
+              f"ms (synchronised) | {topology} | {CARD}", flush=True)
+    if wall is not None:
+        print(f"tensor-parallel run: torch.distributed.run launch {wall:.1f} s (the run, its "
+              f"resumption, the embeddings and phase 38's probing step; process start and "
+              f"set-up included)", flush=True)
+    return {"counts": first["counts"], "times": times,
+            "rows": {"K1": k1_rows, "K2": k2_rows, "K3": k3_rows, "K4": k4_rows},
+            "probe": [r["probe"] for r in ranks]}
+
+
+def _tp_probe_step(torch, cfg) -> dict:
+    """The probing bundle of ``cfg`` (K5 on: the output projection fused into
+    the attention kernel; on the grid ``cfg`` asks for): the eval step's
+    head outputs on the seeded batch, then one warm and TP_PROBE_STEPS timed
+    train steps, with the launches of each and the model group's
+    all-reduces in one more step."""
+    from deepcoro_clip_tpu_torch.parallel import distributed
+    from deepcoro_clip_tpu_torch.train.linear_probe import (
+        build_probe_bundle,
+        make_probe_eval_step,
+        make_probe_train_step,
+        to_device_batch,
+    )
+
+    bundle, state = build_probe_bundle(cfg, seed=0, steps_per_epoch=1, device=cfg.device,
+                                       fused_outproj=True)
+    batch = to_device_batch(bundle, probe_batch(cfg, cfg.batch_size))
+    step_fn, eval_fn = make_probe_train_step(bundle), make_probe_eval_step(bundle)
+    ratio = cfg.video_freeze_ratio
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    out = eval_fn(state.params, batch)
+    eval_counts = _kernel_counts()
+    outputs = {h: o.float().cpu().tolist() for h, o in out["outputs"].items()}
+    state, m = step_fn(state, batch, None, ratio)
+    first = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    _zero_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TP_PROBE_STEPS):
+        state, m = step_fn(state, batch, None, ratio)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TP_PROBE_STEPS
+    counts = _kernel_counts()
+    reduce = {"calls": 0, "ms": 0.0, "bytes": 0, "step_ms": 0.0}
+    if distributed.is_active():
+        rec, undo = _model_reduce_timer(torch)
+        t0 = time.perf_counter()
+        try:
+            state, m = step_fn(state, batch, None, ratio)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        reduce = dict(rec, step_ms=(time.perf_counter() - t0) * 1e3)
+    res = {"outputs": outputs, "eval_counts": eval_counts, "counts": counts,
+           "step_ms": step_ms, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "model_all_reduce": reduce, **first}
+    del bundle, state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp_k5_rows(torch) -> list:
+    """K5 at a rank's share of the probing path: the fused qkv of its 2 heads
+    ``[80, L, 768]`` with RoPE and its rows ``[256, 512]`` of wo, against the
+    plain version (phase 11's bars), timed with its bound; and the two
+    ranks' partial products, summed in fp32, against K5 over all 4 heads and
+    the whole wo (the same bars)."""
+    import torch.nn.functional as F
+
+    from deepcoro_clip_tpu_torch.ops.attention import (
+        apply_rope,
+        multi_head_attention,
+        project_plain,
+    )
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(38)
+    rows = []
+    B, H, Dout, Dh = PROBE_CLIPS, TP_VIDEO_HEADS, 512, 128
+    D = H * Dh
+    with torch.no_grad():
+        for T, HW in ((8, 14), (8, 7)):
+            t = build_rope3d_tables(128, T, HW, HW, n_special=1)
+            kw = dict(sin=torch.from_numpy(t.sin).to(dev), cos=torch.from_numpy(t.cos).to(dev))
+            L = kw["sin"].shape[0]
+            # the whole layer: 4 heads, wo [512, 512]; rank r holds heads 2r, 2r+1
+            qkv_all = torch.randn(B, L, 3 * 2 * D, generator=g, device=dev).to(torch.bfloat16)
+            wo_all = (torch.randn(2 * D, Dout, generator=g, device=dev)
+                      * (2 * D) ** -0.5).to(torch.bfloat16)
+            q, k, v = qkv_all.split(2 * D, -1)
+            parts = []
+            for r in range(2):
+                cols = slice(r * D, (r + 1) * D)
+                qkv = torch.cat([q[..., cols], k[..., cols], v[..., cols]], -1).contiguous()
+                wo = wo_all[cols].contiguous()
+                parts.append(flash_attention_packed(qkv=qkv, num_heads=H, wo=wo, **kw))
+            shape = (f"qkv [{B},{L},{3 * D}] bf16, H {H}, Dh 128, wo [{D},{Dout}] (a rank's "
+                     "heads and rows), RoPE")
+            heads = [_to_heads(u, H) for u in qkv.split(D, -1)]
+
+            def fused():
+                return flash_attention_packed(qkv=qkv, num_heads=H, wo=wo, **kw)
+
+            def plain():
+                out = multi_head_attention(*heads, **kw)
+                return project_plain(out.transpose(1, 2).flatten(2), wo)
+
+            sq = [apply_rope(heads[0], **kw), apply_rope(heads[1], **kw), heads[2]]
+            w_t = wo.t().contiguous()
+
+            def library():
+                return F.linear(F.scaled_dot_product_attention(*sq).transpose(1, 2).flatten(2),
+                                w_t)
+
+            err = check_forward(torch, "tensor-parallel K5", f"K5 {shape}", fused(), plain())
+            whole = flash_attention_packed(qkv=qkv_all, num_heads=2 * H, wo=wo_all, **kw)
+            summed = (parts[0].float() + parts[1].float()).to(torch.bfloat16)
+            err_sum = check_forward(torch, "tensor-parallel K5",
+                                    f"the 2 ranks' partials summed vs K5 over qkv "
+                                    f"[{B},{L},{6 * D}] and wo [{2 * D},{Dout}]", summed, whole)
+            flops = 4 * B * H * L * L * Dh + 2 * B * L * D * Dout
+            nbytes = (B * L * 3 * D + D * Dout + B * L * Dout) * 2 + 2 * L * Dh * 4
+            b_ms, b_by = bound(flops, nbytes)
+            row = {"shape": shape, "max_abs_err": max(err, err_sum),
+                   "ms": cuda_ms(torch, fused, REPS),
+                   "plain_ms": cuda_ms(torch, plain, max(1, REPS // 5)),
+                   "library_ms": cuda_ms(torch, library, REPS),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "device_ms": device_ms(torch, fused, REPS, ("flash_fwd_proj_kernel",)),
+                   "partial_sum_max_abs_err": err_sum}
+            row["tflops"] = flops / row["ms"] / 1e9
+            print(f"tensor-parallel K5 {shape}: kernel {row['ms']:.4f} ms "
+                  f"({row['tflops']:.1f} TFLOP/s), plain {row['plain_ms']:.4f} ms, sdpa + "
+                  f"F.linear {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); card "
+                  f"busy {row['device_ms']:.4f} ms | {CARD}", flush=True)
+            rows.append(row)
+            del qkv_all, wo_all, q, k, v, parts, qkv, wo, heads, sq, whole, summed
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_tp_probe(torch, ranks: list) -> dict:
+    """Phase 38: the probing step of phases 12 to 15
+    (config/linear_probing/stenosis_config.yaml at full width, K5 on,
+    dropout 0) with mesh_model 2 on phase 37's 2 ranks (``ranks``: their
+    results) against the same step at world 1 in this process: each rank
+    launches K5 at its 2 heads with its rows of wo, and the head outputs,
+    summed over the model group, match world 1's."""
+    n = TP_RANKS
+    backend, topology = ring_topology(torch, n)
+    rows = _tp_k5_rows(torch)
+    cfg = probe_config(dropout=0.0, dropout_attention=0.0, vit_depth=MP_DEPTH)
+    one = _tp_probe_step(torch, cfg)
+    for r, res in enumerate(ranks):
+        check(res["grid"] == {"data": 1, "model": n}, f"tensor-parallel probing: rank {r} "
+              f"grid {res['grid']}")
+        check(res["eval_counts"] == one["eval_counts"] and res["counts"] == one["counts"]
+              and res["counts"]["K5"] == MP_DEPTH * TP_PROBE_STEPS,
+              f"tensor-parallel probing: rank {r} launches {res['eval_counts']} / "
+              f"{res['counts']}, world 1 {one['eval_counts']} / {one['counts']}")
+        worst = 0.0
+        for h, ref in one["outputs"].items():
+            a, b = torch.tensor(res["outputs"][h]), torch.tensor(ref)
+            d = (a - b).abs()
+            check(bool((d <= HEAD_ATOL + HEAD_RTOL * b.abs()).all()),
+                  f"tensor-parallel probing: rank {r} head {h} {a.tolist()} vs world 1 "
+                  f"{b.tolist()}")
+            worst = max(worst, float(d.max()))
+        for key in ("loss", "grad_norm"):
+            d = abs(res[key] - one[key]) / abs(one[key])
+            check(d <= TP_LOSS_REL, f"tensor-parallel probing: rank {r} {key} {res[key]} vs "
+                  f"world 1 {one[key]}")
+        print(f"tensor-parallel probing: rank {r}: head outputs max|d| {worst:.3e} from "
+              f"world 1's; first step loss {res['loss']:.6f} (world 1 {one['loss']:.6f}), "
+              f"grad_norm {res['grad_norm']:.5f} ({one['grad_norm']:.5f}); launches: eval "
+              f"K5 {res['eval_counts']['K5']}, K3 {res['eval_counts']['K3']}, over "
+              f"{TP_PROBE_STEPS} steps K5 {res['counts']['K5']}, K3 {res['counts']['K3']}, K4 "
+              f"{res['counts']['K4']} (world 1 the same)", flush=True)
+    times = {"ranks": n, "backend": backend,
+             "step_ms": [r["step_ms"] for r in ranks], "world1_step_ms": one["step_ms"],
+             "peak_gib": [r["peak_gib"] for r in ranks], "world1_peak_gib": one["peak_gib"],
+             "model_all_reduce": [r["model_all_reduce"] for r in ranks]}
+    print(f"tensor-parallel probing: step "
+          + ", ".join(f"{s:.1f}" for s in times["step_ms"])
+          + f" ms a rank (host clock, synchronised, {TP_PROBE_STEPS} steps), world 1 "
+          f"{one['step_ms']:.1f} ms; peak memory per rank "
+          + ", ".join(f"{g:.2f}" for g in times["peak_gib"])
+          + f" GiB, world 1 {one['peak_gib']:.2f} GiB | {topology} | {CARD}", flush=True)
+    for r, m in enumerate(times["model_all_reduce"]):
+        print(f"tensor-parallel probing: rank {r}: the model group's all-reduces in a step: "
+              f"{m['calls']} calls, {m['bytes'] / 2 ** 20:.1f} MiB, {m['ms']:.1f} ms host time "
+              f"(synchronised, in a step of {m['step_ms']:.1f} ms) | {topology} | {CARD}",
+              flush=True)
+    return {"counts": ranks[0]["counts"], "eval_counts": ranks[0]["eval_counts"],
+            "times": times, "rows": rows}
+
+
 def ddp_rank(torch, spec_path: str) -> int:
-    """A rank of phase 32, 33, 34 or 35 (or of ``--drift``) under
-    torch.distributed.run: runs its job and writes its result to
+    """A rank of phase 32, 33, 34, 35, 37 or 38 (or of ``--drift``) under
+    torch.distributed.run: runs its job, then each job of ``then`` in the
+    same process (``then`` of the result holds theirs), ends the process
+    group where one runs, and writes the result to
     ``{spec["out"]}.rank{RANK}.json``."""
+    import gc
     import os
+
+    from deepcoro_clip_tpu_torch.parallel import distributed
 
     spec = json.loads(Path(spec_path).read_text())
     rank = int(os.environ["RANK"])
-    job = {"quality": _ddp_quality_rank, "steps": _ddp_steps_rank,
-           "ring_pass": _ring_pass_rank}[spec["job"]]
-    out = job(torch, spec, rank)
+    jobs = {"quality": _ddp_quality_rank, "steps": _ddp_steps_rank,
+            "ring_pass": _ring_pass_rank}
+    out = jobs[spec["job"]](torch, spec, rank)
+    out["then"] = []
+    for job in spec.get("then", ()):
+        gc.collect()  # (a runner's closures hold it in reference cycles)
+        torch.cuda.empty_cache()
+        out["then"].append(jobs[job["job"]](torch, job, rank))
+    distributed.shutdown()
     Path(f"{spec['out']}.rank{rank}.json").write_text(json.dumps(out))
     return 0
 
@@ -6820,7 +7487,7 @@ def _mark(label: str) -> None:
 
 
 def run_all(torch) -> dict:
-    """Phases 2 to 36; returns the "kernels" line."""
+    """Phases 2 to 38; returns the "kernels" line."""
     _STARTED[0] = time.perf_counter()
     build_kernels(torch, ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short",
                           "ring_attention"))
@@ -6912,6 +7579,7 @@ def run_all(torch) -> dict:
         backbone = Path(corpus_root) / "quality_checkpoint.pt"
         _mark("phases 20 and 21")
         quality = phase_quality_run(torch, manifest, keep=backbone)
+        _mark("phase 22")
         for key, e in by_key.items():  # the training run's launches
             e["quality_train_launches"] = quality[key]
         for key, row, agg in zip(("K3", "K4"), quality["rows"],
@@ -6924,25 +7592,42 @@ def run_all(torch) -> dict:
         torch.cuda.empty_cache()
 
         multitask = phase_multitask_run(torch, manifest)
+        _mark("phase 23")
         torch.cuda.empty_cache()
         siglip = phase_siglip_run(torch, manifest)
+        _mark("phase 24")
         torch.cuda.empty_cache()
         multivideo = phase_multivideo_run(torch, manifest)
+        _mark("phase 25")
         torch.cuda.empty_cache()
         single_head = phase_single_head_run(torch, manifest, siglip["times"]["memory"])
+        _mark("phase 30")
         torch.cuda.empty_cache()
         locca = phase_locca_run(torch, manifest, single_head)
+        _mark("phase 31")
         torch.cuda.empty_cache()
         probing = phase_probing_run(torch, manifest, backbone, Path(corpus_root))
+        _mark("phase 27")
         torch.cuda.empty_cache()
         clip_inference = phase_clip_inference(torch, manifest, backbone, Path(corpus_root))
+        _mark("phase 28")
         torch.cuda.empty_cache()
         deployment = phase_deployment(torch, backbone, probing, Path(corpus_root))
         torch.cuda.empty_cache()
         _mark("phases 22 to 31")
-        ddp = phase_ddp_quality_run(torch, manifest, Path(corpus_root))
+        # phase 32's ranks also run phase 33's steps, and phases 37 and 38's
+        # job where their ranks are the same (one launch: each process's
+        # start-up once)
+        world1 = _quality_world1(torch, manifest, Path(corpus_root))
+        steps_prep = _ddp_steps_prepare(torch, Path(corpus_root))
+        then = [{"job": "steps", "dir": steps_prep["dir"]}]
+        chain_tp = ddp_topology(torch)[0] == TP_RANKS
+        if chain_tp:
+            _tp_bars(torch)
+            then.append(_tp_quality_spec(manifest, Path(corpus_root), world1))
+        ddp = phase_ddp_quality_run(torch, manifest, Path(corpus_root), world1, then)
         torch.cuda.empty_cache()
-        ddp_steps = phase_ddp_steps(torch, Path(corpus_root))
+        ddp_steps = phase_ddp_steps(torch, steps_prep, ddp["then"][0])
         torch.cuda.empty_cache()
         _mark("phases 32 and 33")
         ring_processes = phase_ring_processes(torch, Path(corpus_root))
@@ -6953,6 +7638,13 @@ def run_all(torch) -> dict:
         _mark("phase 35")
         imported = phase_checkpoint_import(torch, Path(corpus_root))
         _mark("phase 36")
+        torch.cuda.empty_cache()
+        tp = phase_tp_quality_run(torch, manifest, Path(corpus_root), world1,
+                                  ddp["then"][1] if chain_tp else None)
+        torch.cuda.empty_cache()
+        _mark("phase 37")
+        tp_probe = phase_tp_probe(torch, tp.pop("probe"))
+        _mark("phase 38")
     torch.cuda.empty_cache()
     long = phase_long_kernels(torch, siglip.pop("bank_mask"))
     for run, result in (("multitask", multitask), ("siglip", siglip),
@@ -7003,6 +7695,18 @@ def run_all(torch) -> dict:
         e["checkpoint_import_launches"] = imported["counts"][key]
     kernels["ring_main_train"] = ring_main["times"]
     kernels["checkpoint_import"] = {"min_cosine": imported["min_cosine"]}
+    # phases 37 and 38: a rank's launches under tensor parallelism (the
+    # quality run through main; the probing path's TP_PROBE_STEPS steps) and
+    # each kernel at a rank's shapes
+    for key, e in zip(("K1", "K3", "K2", "K4", "K5", "K6"), kernels["kernels"]):
+        e["tp_quality_launches_per_rank"] = tp["counts"][key]
+        e["tp_probe_launches_per_rank"] = tp_probe["counts"][key]
+        rows = tp["rows"].get(key, []) + (tp_probe["rows"] if key == "K5" else [])
+        if rows:
+            e["tp_shapes"] = rows
+            e["max_abs_err"] = max([e["max_abs_err"]] + [r["max_abs_err"] for r in rows])
+    kernels["tp_quality_train"] = tp["times"]
+    kernels["tp_probe"] = tp_probe["times"]
     # the long calls' Hopper kernels, an entry each: launches over phases 22
     # to 25's, 30's and 31's runs, the head row at the SigLIP bank's own mask
     # (phase 24), every long row of phases 22 to 26 and 31 beside it

@@ -98,26 +98,30 @@ class _ConfigMethods:
         keeps the rows of its data index. ``is_ref_device`` is rank 0, which
         alone writes files.
 
-        A ``mesh_model`` above 1 needs ``use_ring_attention`` (the JAX
-        runner reads it otherwise as tensor parallelism, which is not ported)
-        and must divide the world; a ``mesh_data`` other than -1 must be
-        ``world / mesh_model``; the data size must divide ``batch_size`` (the
+        A ``mesh_model`` above 1 must divide the world; it runs the ring
+        over each model group with ``use_ring_attention``, and tensor
+        parallelism without (every attention's heads and every MLP's hidden
+        width cut over the model group, as the JAX runner shards its Dense
+        kernels), which needs ``mesh_model`` processes at least: at world 1
+        it raises, naming the launch command. A ``mesh_data`` other than -1
+        must be ``world / mesh_model``; the data size must divide ``batch_size`` (the
         JAX runner shrinks its data axis to ``gcd(devices, batch_size)`` and
         leaves the other devices idle; an idle rank is an error here)."""
         from deepcoro_clip_tpu_torch.parallel.distributed import init_grid, rank, world_size
 
         model = max(1, int(self.mesh_model))
-        if model > 1 and not getattr(self, "use_ring_attention", False):
-            raise NotImplementedError(
-                f"mesh_model={self.mesh_model} without use_ring_attention: the JAX "
-                "runner shards the Dense kernels over the model axis (tensor "
-                "parallelism), which is not ported; set mesh_model: 1, or "
-                "use_ring_attention: true for the ring over the model axis")
         world = world_size()
         self.process_index, self.process_count = 0, 1
         self.is_ref_device = rank() == 0
         self.world_size = world
         if world == 1:
+            if model > 1 and not getattr(self, "use_ring_attention", False):
+                raise ValueError(
+                    f"mesh_model={model} without use_ring_attention cuts the attention "
+                    f"and MLP layers over {model} ranks (tensor parallelism), and this "
+                    "run is one process: launch it as python -m torch.distributed.run "
+                    f"--nproc_per_node {model} -m deepcoro_clip_tpu_torch.main "
+                    "--base_config <yaml> (or a multiple of it), or set mesh_model: 1")
             return
         if world % model:
             raise ValueError(f"mesh_model={model} does not divide the {world} ranks of "

@@ -39,6 +39,15 @@ through ``train/linear_probe.build_probe_bundle(encoder_params=...)``;
 ``state_dict_to_jax_tree`` renames a port checkpoint's parameters into
 such a tree by a model's layer types.
 
+Under tensor parallelism (``models/layers.shard_layers``) a rank's models
+hold their parts of the cut leaves: the ``load_*`` functions take a whole
+tree and load each rank's part, and ``module_to_jax_tree`` and the
+``*_tree`` functions gather the parts over the model group (collective:
+every rank of the group calls them) and return the whole tree.
+``shard_tree`` cuts a whole tree into one rank's state dict by the
+partition rules of ``train/state.py``, and ``gather_state_dicts`` joins the
+ranks' state dicts back into the whole one, both without a process group.
+
 ``save_params_npz``/``load_params_npz`` store such a tree in one ``.npz``
 with ``/``-joined keys, which is what ``serve.py --params`` reads. To
 write one from a JAX checkpoint where JAX is installed::
@@ -52,11 +61,20 @@ write one from a JAX checkpoint where JAX is installed::
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
+
+from deepcoro_clip_tpu_torch.parallel.distributed import gather_shard, grid
+from deepcoro_clip_tpu_torch.parallel.mesh import MODEL_AXIS
+from deepcoro_clip_tpu_torch.train.state import (
+    join_shards,
+    model_splits,
+    partition_rule,
+    take_shard,
+)
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -128,8 +146,45 @@ def state_dict_to_jax_tree(state_dict: Mapping[str, torch.Tensor], module: nn.Mo
 def module_to_jax_tree(module: nn.Module) -> dict:
     """One of the port's models -> the JAX parameter
     tree (nested dict of fp32 numpy arrays): the inverse of
-    ``jax_tree_to_state_dict``."""
-    return state_dict_to_jax_tree(dict(module.named_parameters(remove_duplicate=False)), module)
+    ``jax_tree_to_state_dict``; the whole tree under tensor parallelism."""
+    params = dict(module.named_parameters(remove_duplicate=False))
+    for k, split in model_splits(params).items():
+        params[k] = gather_shard(params[k], split)
+    return state_dict_to_jax_tree(params, module)
+
+
+def _load(module: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """A whole state dict into ``module``, each cut parameter taking this
+    rank's part (``strict``: names and shapes must match)."""
+    g = grid()
+    n, i = g.shape[MODEL_AXIS], g.index[MODEL_AXIS]
+    sd = dict(state_dict)
+    for k, split in model_splits(dict(module.named_parameters())).items():
+        sd[k] = take_shard(sd[k], split, n, i)
+    module.load_state_dict(sd, strict=True)
+
+
+def shard_tree(tree: Mapping, n: int, i: int) -> Dict[str, torch.Tensor]:
+    """A whole JAX tree (numpy leaves: one model's, or a training tree whose
+    top keys prefix the names) -> rank ``i`` of ``n``'s state dict under the
+    port's names, each leaf cut by ``train/state.partition_rule``."""
+    sd = jax_tree_to_state_dict(tree)
+    for k, t in sd.items():
+        split = partition_rule(k)
+        if split is not None:
+            sd[k] = take_shard(t, split, n, i)
+    return sd
+
+
+def gather_state_dicts(parts: Sequence[Mapping[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """The ranks' state dicts (``shard_tree``'s, in model order) -> the
+    whole state dict, which ``state_dict_to_jax_tree`` renames into the
+    tree."""
+    out = {}
+    for k, t in parts[0].items():
+        split = partition_rule(k)
+        out[k] = t if split is None else join_shards([p[k] for p in parts], split)
+    return out
 
 
 @torch.no_grad()
@@ -142,11 +197,10 @@ def load_training_tree(tree: Mapping, video_model: nn.Module, text_model: nn.Mod
     if ("locca_decoder" in tree) != (locca_decoder is not None):
         raise ValueError("the tree and the models disagree on the LocCa head: tree "
                          f"{'has' if 'locca_decoder' in tree else 'lacks'} locca_decoder")
-    video_model.load_state_dict(jax_tree_to_state_dict(tree["video_encoder"]), strict=True)
-    text_model.load_state_dict(jax_tree_to_state_dict(tree["text_encoder"]), strict=True)
+    _load(video_model, jax_tree_to_state_dict(tree["video_encoder"]))
+    _load(text_model, jax_tree_to_state_dict(tree["text_encoder"]))
     if locca_decoder is not None:
-        locca_decoder.load_state_dict(jax_tree_to_state_dict(tree["locca_decoder"]),
-                                      strict=True)
+        _load(locca_decoder, jax_tree_to_state_dict(tree["locca_decoder"]))
     log_temp.fill_(float(np.asarray(tree["log_temp"])))
     logit_bias.fill_(float(np.asarray(tree["logit_bias"])))
 
@@ -167,8 +221,8 @@ def training_tree(video_model: nn.Module, text_model: nn.Module,
 @torch.no_grad()
 def load_probe_tree(tree: Mapping, video_model: nn.Module, mil_model: nn.Module) -> None:
     """The JAX linear-probing tree into the port's encoder and head, in place."""
-    video_model.load_state_dict(jax_tree_to_state_dict(tree["video_encoder"]), strict=True)
-    mil_model.load_state_dict(jax_tree_to_state_dict(tree["mil"]), strict=True)
+    _load(video_model, jax_tree_to_state_dict(tree["video_encoder"]))
+    _load(mil_model, jax_tree_to_state_dict(tree["mil"]))
 
 
 def probe_tree(video_model: nn.Module, mil_model: nn.Module) -> dict:
@@ -187,7 +241,7 @@ def load_multitask_tree(tree: Mapping, models: Mapping[str, nn.Module],
     ``video_encoder``, ``text_encoder``, ``decoder``, ``mvm`` to them) and
     ``log_temp``, in place, name for name."""
     for key in MULTITASK_MODELS:
-        models[key].load_state_dict(jax_tree_to_state_dict(tree[key]), strict=True)
+        _load(models[key], jax_tree_to_state_dict(tree[key]))
     log_temp.fill_(float(np.asarray(tree["log_temp"])))
 
 

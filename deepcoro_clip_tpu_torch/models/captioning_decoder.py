@@ -142,7 +142,7 @@ def _ln(norm: LayerNorm, x):
 
 
 def _d(dense: Dense, x):
-    return F.linear(x, dense.weight, dense.bias)
+    return dense.linear(x, x.dtype)
 
 
 @torch.no_grad()
@@ -155,10 +155,13 @@ def greedy_generate_kv(decoder: CaptioningDecoder, video_tokens, bos_id: int,
     Same contract as ``greedy_generate``, O(L) work a step instead of
     O(L^2): a preallocated fp32 cache ``[depth, B, H, max_length, Dh]``,
     the cross-attention K/V computed once per layer, one token a step
-    through the decoder's own parameters, all in fp32."""
+    through the decoder's own parameters, all in fp32. Under tensor
+    parallelism ``H`` is this rank's heads and the row-parallel products
+    sum over the model group (``Dense.linear``)."""
     max_length = max_length or decoder.max_length
-    H, D = decoder.num_heads, decoder.dim
-    Dh = D // H
+    Dh = decoder.dim // decoder.num_heads
+    H = decoder.layer0.self_attn.heads if decoder.depth else decoder.num_heads
+    D = H * Dh
     B = video_tokens.shape[0]
     dev = video_tokens.device
     layers = [getattr(decoder, f"layer{i}") for i in range(decoder.depth)]

@@ -12,12 +12,21 @@ so a train step is a function of its generator, as the JAX step is of its
 
 Module and parameter names follow the flax tree (``block{i}``, ``attn``,
 ``qkv``, ``norm1`` ...), so ``convert.py`` maps one onto the other by name.
+
+Tensor parallelism over the ``model`` axis of a process grid
+(``shard_layers``, after the weights are set): each rank of a model group
+keeps ``H/M`` heads of every attention and ``hidden/M`` of every MLP's
+hidden width, by the cuts of ``train/state.partition_rule``. A layer takes
+``distributed.copy_to_model`` of its input before its column-parallel
+products and ends in ``distributed.reduce_from_model`` after its
+row-parallel one, then adds that product's bias once. Activations between
+layers stay replicated over the group.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -26,33 +35,83 @@ import torch.nn.functional as F
 from deepcoro_clip_tpu_torch.ops.attention import apply_rope, multi_head_attention
 from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
 from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
-from deepcoro_clip_tpu_torch.parallel.distributed import gather_chunks, take_chunk
-from deepcoro_clip_tpu_torch.parallel.mesh import ProcessMesh
+from deepcoro_clip_tpu_torch.parallel.distributed import (
+    copy_to_model,
+    gather_chunks,
+    rank,
+    reduce_from_model,
+    take_chunk,
+)
+from deepcoro_clip_tpu_torch.parallel.mesh import MODEL_AXIS, ProcessMesh
 from deepcoro_clip_tpu_torch.parallel.ring_attention import ring_attention
+from deepcoro_clip_tpu_torch.train.state import COLUMN, QKV, ROW, Split, take_shard
 
 
 def _dropout(x: torch.Tensor, rate: float, deterministic: bool,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             part: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout; the keep mask comes from ``generator``, which must
-    live on ``x``'s device."""
+    live on ``x``'s device. ``part`` ``(n, i)``: ``x`` is part ``i`` of ``n``
+    of the last axis of a wider activation; the mask is drawn at the whole
+    width and cut, so that it holds the bits the whole activation draws."""
     if deterministic or rate == 0.0:
         return x
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    if part is None:
+        keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    else:
+        n, i = part
+        w = x.shape[-1]
+        keep = x.new_empty(x.shape[:-1] + (w * n,)).bernoulli_(
+            1.0 - rate, generator=generator).narrow(-1, i * w, w)
     return x * keep * (1.0 / (1.0 - rate))
 
 
+def _model_axis(grid: ProcessMesh) -> Tuple[int, int]:
+    return grid.shape[MODEL_AXIS], grid.index[MODEL_AXIS]
+
+
 class Dense(nn.Linear):
-    """Linear with fp32 parameters computed in ``compute_dtype``."""
+    """Linear with fp32 parameters computed in ``compute_dtype``.
+
+    After ``shard_`` it holds this rank's part of the weight: a
+    column-parallel Dense (``split.dim`` 0) its rows of ``[out, in]`` and of
+    the bias, and its input must be ``copy_to_model``'s; a row-parallel one
+    (``split.dim`` 1) its columns, and its forward sums the partial
+    products over the model group before it adds the whole bias."""
+
+    model_split: Optional[Split] = None
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.bfloat16, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
+    @torch.no_grad()
+    def shard_(self, split: Split, n: int, i: int) -> None:
+        """Keep part ``i`` of ``n`` of the weight (and of a column-parallel
+        bias); the parameters carry their cut as ``model_split``."""
+        self.weight = nn.Parameter(take_shard(self.weight, split, n, i))
+        self.weight.model_split = split
+        if split.dim == 0 and self.bias is not None:
+            self.bias = nn.Parameter(take_shard(self.bias, split, n, i))
+            self.bias.model_split = split
+        self.model_split = split
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        return self.linear(x.to(self.compute_dtype), self.compute_dtype)
+
+    def linear(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        """``x @ weight.T + bias`` with the weights in ``dt``."""
+        w = self.weight.to(dt)
+        if self.model_split is not None and self.model_split.dim == 1:
+            return self.add_bias(reduce_from_model(F.linear(x, w)), dt)
+        return F.linear(x, w, None if self.bias is None else self.bias.to(dt))
+
+    def add_bias(self, y: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        """``y`` (a row-parallel product, summed) plus the bias, in ``dt``."""
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y.to(dt)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -69,6 +128,8 @@ class LayerNorm(nn.LayerNorm):
 class MlpBlock(nn.Module):
     """Dense -> GELU(tanh) -> Dense."""
 
+    part: Optional[Tuple[int, int]] = None  # (M, index) once cut
+
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  dropout: float = 0.0, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -76,9 +137,22 @@ class MlpBlock(nn.Module):
         self.fc2 = Dense(hidden_dim, out_dim, dtype)
         self.dropout = dropout
 
+    def shard_(self, grid: ProcessMesh) -> Optional[str]:
+        """Keep this rank's ``hidden/M`` of the hidden width; returns why
+        the layer stays whole, or None."""
+        n, i = _model_axis(grid)
+        if self.fc1.out_features % n:
+            return f"hidden width {self.fc1.out_features}"
+        self.fc1.shard_(COLUMN, n, i)
+        self.fc2.shard_(ROW, n, i)
+        self.part = (n, i)
+        return None
+
     def forward(self, x, deterministic: bool = True, generator=None):
+        if self.part is not None:
+            x = copy_to_model(x)
         x = F.gelu(self.fc1(x), approximate="tanh")
-        x = _dropout(x, self.dropout, deterministic, generator)
+        x = _dropout(x, self.dropout, deterministic, generator, self.part)
         return _dropout(self.fc2(x), self.dropout, deterministic, generator)
 
 
@@ -116,6 +190,12 @@ class Attention(nn.Module):
     output chunks (``distributed.gather_chunks``), so the model ranks end
     with the same output and, through the two collectives' backwards, the
     same parameter gradients as one process.
+
+    After ``shard_`` (tensor parallelism) the rank holds ``heads`` =
+    ``num_heads / M`` of the heads: its ``[q_r | k_r | v_r]`` rows of
+    ``qkv`` (or of ``q``/``k``/``v``), which the kernels read at ``heads``
+    heads, and its columns of ``proj``, whose partial product (K5's too)
+    is summed over the model group before ``proj.bias``.
     """
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
@@ -125,6 +205,7 @@ class Attention(nn.Module):
                  context_dim: Optional[int] = None):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
+        self.heads = num_heads  # this rank's
         self.dropout, self.use_flash = dropout, use_flash
         self.cross = cross
         self.ring_mesh, self.ring_axis = ring_mesh, ring_axis
@@ -138,15 +219,31 @@ class Attention(nn.Module):
             self.qkv = Dense(dim, 3 * dim, dtype)
         self.proj = Dense(dim, dim, dtype)
 
+    def shard_(self, grid: ProcessMesh) -> Optional[str]:
+        """Keep this rank's ``num_heads / M`` heads; returns why the layer
+        stays whole, or None."""
+        n, i = _model_axis(grid)
+        if self.num_heads % n:
+            return f"{self.num_heads} heads"
+        for d in ((self.q, self.k, self.v) if self.cross else (self.qkv,)):
+            d.shard_(COLUMN if self.cross else QKV, n, i)
+        self.proj.shard_(ROW, n, i)
+        self.heads = self.num_heads // n
+        return None
+
     def forward(self, x, context=None, sin=None, cos=None, kv_mask=None,
                 causal: bool = False, deterministic: bool = True, generator=None):
         if (context is not None) != self.cross:
             raise ValueError("an Attention built with cross=True takes a context, "
                              "one built without takes none")
         B, Lq, _ = x.shape
-        H = self.num_heads
-        head_dim = self.dim // H
+        H = self.heads
+        head_dim = self.dim // self.num_heads
+        width = H * head_dim
         use_packed = self.use_flash and head_dim % 128 == 0 and self.ring_mesh is None
+        if self.proj.model_split is not None:
+            x = copy_to_model(x)
+            context = None if context is None else copy_to_model(context)
         if self.cross:
             q, k, v = self.q(x), self.k(context), self.v(context)
             packed_kw = dict(q=q, k=k, v=v)
@@ -157,14 +254,17 @@ class Attention(nn.Module):
             out = flash_attention_packed(**packed_kw, num_heads=H, sin=sin, cos=cos,
                                          kv_mask=kv_mask, causal=causal,
                                          wo=self.proj.weight.t())
-            out = out + self.proj.bias.to(out.dtype)
+            if self.proj.model_split is not None:  # this rank's heads' partial
+                out = self.proj.add_bias(reduce_from_model(out), out.dtype)
+            else:
+                out = out + self.proj.bias.to(out.dtype)
             return _dropout(out, self.dropout, deterministic, generator)
         if use_packed:
             out = flash_attention_packed(**packed_kw, num_heads=H, sin=sin, cos=cos,
                                          kv_mask=kv_mask, causal=causal)
         else:
             if not self.cross:
-                q, k, v = qkv.split(self.dim, dim=-1)
+                q, k, v = qkv.split(width, dim=-1)
             q, k, v = (t.reshape(B, t.shape[1], H, head_dim).transpose(1, 2)
                        for t in (q, k, v))
             use_ring = (self.ring_mesh is not None and not self.cross and not causal
@@ -186,7 +286,7 @@ class Attention(nn.Module):
                 m = None if kv_mask is None else kv_mask != 0
                 out = multi_head_attention(q, k, v, sin=sin, cos=cos,
                                            kv_mask=m, causal=causal)
-            out = out.transpose(1, 2).reshape(B, Lq, self.dim)
+            out = out.transpose(1, 2).reshape(B, Lq, width)
         return _dropout(self.proj(out), self.dropout, deterministic, generator)
 
 
@@ -213,6 +313,31 @@ class TransformerBlock(nn.Module):
                           deterministic=deterministic, generator=generator)
         h = self.norm2(x).to(self.dtype)
         return x + self.mlp(h, deterministic=deterministic, generator=generator)
+
+
+def shard_layers(model: nn.Module, grid: ProcessMesh) -> Dict[str, str]:
+    """Tensor parallelism over ``grid``'s model axis: every layer of
+    ``model`` with a ``shard_`` (``Attention``, ``MlpBlock``,
+    ``BertSelfAttention``, ``BertLayer``) keeps this rank's part of its
+    weights. A layer whose heads or hidden width ``M`` does not divide
+    stays whole on every rank (the same function, its parameters
+    replicated); returns those layers' names with the reason, which rank 0
+    prints once. Call it once, after the weights are set."""
+    n, _ = _model_axis(grid)
+    whole: Dict[str, str] = {}
+    if n == 1:
+        return whole
+    for name, mod in model.named_modules():
+        if hasattr(mod, "shard_") and not isinstance(mod, Dense):
+            why = mod.shard_(grid)
+            if why is not None:
+                whole[name] = why
+    if whole and rank() == 0:
+        for name, why in whole.items():
+            print(f"[deepcoro_clip_tpu_torch] tensor parallelism: {type(model).__name__}."
+                  f"{name} stays whole on every rank ({why}; mesh_model {n} does not "
+                  "divide it)", flush=True)
+    return whole
 
 
 class ProjectionHead(nn.Module):

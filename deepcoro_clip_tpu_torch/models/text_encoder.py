@@ -11,6 +11,12 @@ when the head dim is a multiple of 128, else the ``[B, H, L, Dh]`` one.
 Module names follow the flax tree (``word_embeddings``, ``layer{i}``,
 ``attention``, ``attention_norm`` ...), so ``convert.py`` maps one onto the
 other by name.
+
+Under tensor parallelism (``models/layers.shard_layers``) a rank keeps
+``H/M`` heads of each ``BertSelfAttention`` (its rows of ``query``/``key``/
+``value``, its columns of ``out``) and ``mlp_dim/M`` of each ``BertLayer``'s
+``intermediate`` width (its columns of ``output``), as the JAX specs shard
+them.
 """
 
 from __future__ import annotations
@@ -26,10 +32,14 @@ from deepcoro_clip_tpu_torch.models.layers import (
     LayerNorm,
     ProjectionHead,
     _dropout,
+    _model_axis,
 )
 from deepcoro_clip_tpu_torch.ops.attention import multi_head_attention
 from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
 from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+from deepcoro_clip_tpu_torch.parallel.distributed import copy_to_model
+from deepcoro_clip_tpu_torch.parallel.mesh import ProcessMesh
+from deepcoro_clip_tpu_torch.train.state import COLUMN, ROW
 
 
 class BertSelfAttention(nn.Module):
@@ -37,16 +47,30 @@ class BertSelfAttention(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, use_flash: bool = True):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
+        self.heads = num_heads  # this rank's
         self.dropout, self.use_flash = dropout, use_flash
         self.query = Dense(dim, dim, dtype)
         self.key = Dense(dim, dim, dtype)
         self.value = Dense(dim, dim, dtype)
         self.out = Dense(dim, dim, dtype)
 
+    def shard_(self, grid: ProcessMesh) -> Optional[str]:
+        """Keep this rank's ``num_heads / M`` heads, or say why not."""
+        n, i = _model_axis(grid)
+        if self.num_heads % n:
+            return f"{self.num_heads} heads"
+        for d in (self.query, self.key, self.value):
+            d.shard_(COLUMN, n, i)
+        self.out.shard_(ROW, n, i)
+        self.heads = self.num_heads // n
+        return None
+
     def forward(self, x, attention_mask, deterministic: bool = True, generator=None):
         B, L, _ = x.shape
-        H = self.num_heads
-        hd = self.dim // H
+        H = self.heads
+        hd = self.dim // self.num_heads
+        if self.out.model_split is not None:
+            x = copy_to_model(x)
         q, k, v = self.query(x), self.key(x), self.value(x)
         if self.use_flash and hd % 128 == 0:
             out = flash_attention_packed(q, k, v, num_heads=H, kv_mask=attention_mask)
@@ -57,7 +81,7 @@ class BertSelfAttention(nn.Module):
             else:
                 m = None if attention_mask is None else attention_mask != 0
                 out = multi_head_attention(qh, kh, vh, kv_mask=m)
-            out = out.transpose(1, 2).reshape(B, L, self.dim)
+            out = out.transpose(1, 2).reshape(B, L, H * hd)
         return _dropout(self.out(out), self.dropout, deterministic, generator)
 
 
@@ -74,10 +98,21 @@ class BertLayer(nn.Module):
         self.output = Dense(mlp_dim, dim, dtype)
         self.output_norm = LayerNorm(dim)
 
+    def shard_(self, grid: ProcessMesh) -> Optional[str]:
+        """Keep this rank's ``mlp_dim / M`` of the intermediate width, or
+        say why not (the attention is cut on its own)."""
+        n, i = _model_axis(grid)
+        if self.intermediate.out_features % n:
+            return f"intermediate width {self.intermediate.out_features}"
+        self.intermediate.shard_(COLUMN, n, i)
+        self.output.shard_(ROW, n, i)
+        return None
+
     def forward(self, x, attention_mask, deterministic: bool = True, generator=None):
         attn = self.attention(x, attention_mask, deterministic, generator)
         x = self.attention_norm(x + attn).to(self.dtype)
-        h = F.gelu(self.intermediate(x))  # exact erf
+        h = x if self.output.model_split is None else copy_to_model(x)
+        h = F.gelu(self.intermediate(h))  # exact erf
         h = _dropout(self.output(h), self.dropout, deterministic, generator)
         return self.output_norm(x + h).to(self.dtype)
 

@@ -39,6 +39,18 @@ whole) and ``gather_chunks`` (forward: the all-gather of every rank's chunk
 into zeros by an all-reduce; backward: this rank's chunk of the gradient,
 summed with nothing).
 
+Tensor parallelism (``models/layers.py``: a Dense cut over the model
+axis) has the two conjugate collectives of Megatron-style layers, over the
+model group: ``copy_to_model`` (forward: the identity; backward: the
+gradient summed over the group) before every column-parallel product, and
+``reduce_from_model`` (forward: the partial products summed over the group,
+in fp32 for the half types; backward: the identity) after every
+row-parallel one. ``gather_shard`` all-gathers the parts of a cut tensor
+into the whole (no gradient; checkpoints and whole trees). The gradient of
+a cut parameter is this rank's part of the whole gradient, that of a
+replicated one the whole gradient on every model rank, so
+``all_reduce_grads`` stays an average over the data group alone.
+
 Every rank so evaluates the same global loss; the backward of each data
 collective hands each rank ``D`` times the gradient of its own rows, and
 the average over the data group is the gradient of the global loss. Terms
@@ -58,6 +70,7 @@ import torch
 import torch.distributed as dist
 
 from deepcoro_clip_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, ProcessMesh
+from deepcoro_clip_tpu_torch.train.state import Split, join_shards
 
 _GRID: Optional[ProcessMesh] = None  # the process grid of the running group
 
@@ -118,6 +131,16 @@ def init_grid(model: int = 1) -> ProcessMesh:
         print(f"[deepcoro_clip_tpu_torch] process grid: data {data} x model {model} "
               f"(rank r is cell (r // {model}, r % {model}))", flush=True)
     return _GRID
+
+
+def tensor_parallel_grid(mesh_model: int, ring: bool = False) -> Optional[ProcessMesh]:
+    """The grid whose model axis the attention and MLP layers are cut over
+    (``models/layers.shard_layers``): ``init_grid(mesh_model)`` for a
+    ``mesh_model`` above 1 without the ring, else None (the ring keeps
+    every Dense whole)."""
+    if int(mesh_model) <= 1 or ring:
+        return None
+    return init_grid(mesh_model)
 
 
 def grid() -> ProcessMesh:
@@ -264,6 +287,93 @@ class _AllReduceSum(torch.autograd.Function):
         grad = grad.contiguous().clone()
         dist.all_reduce(grad, group=_axis(DATA_AXIS)[0])
         return grad
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dtype = grad.dtype
+        grad = grad.to(_wide(dtype), memory_format=torch.contiguous_format, copy=True)
+        dist.all_reduce(grad, group=_axis(MODEL_AXIS)[0])
+        return grad.to(dtype)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        out = x.to(_wide(x.dtype), memory_format=torch.contiguous_format, copy=True)
+        dist.all_reduce(out, group=_axis(MODEL_AXIS)[0])
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x``, replicated over the model group, as the input of a
+    column-parallel product: the backward sums its gradient over the group
+    (each rank's product reaches only its part of the columns)."""
+    if grid().shape[MODEL_AXIS] == 1:
+        return x
+    return _CopyToModel.apply(x)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the model group of the partial products ``x`` of a
+    row-parallel product, on every rank, in fp32 for the half types (``M``
+    bf16 partials are not summed in bf16); the backward hands each rank the
+    whole gradient."""
+    if grid().shape[MODEL_AXIS] == 1:
+        return x.to(_wide(x.dtype))
+    return _ReduceFromModel.apply(x)
+
+
+@torch.no_grad()
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the model group, on every rank (no gradient)."""
+    group, n, _ = _axis(MODEL_AXIS)
+    if n == 1:
+        return x
+    out = x.detach().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+@torch.no_grad()
+def share_over_model(batch: Dict[str, object]) -> Dict[str, object]:
+    """``batch`` (tensors, and dicts of them) as the first rank of the model
+    group holds it, on every rank of the group, in place: the ranks of a
+    model group compute on the same rows, and host data that a process
+    draws in an order of its own (Python's string hashing orders the SigLIP
+    sampler's sets) must not make them differ. One broadcast a tensor, of
+    its bytes; other values stay as each rank has them."""
+    group, n, _ = _axis(MODEL_AXIS)
+    if n == 1:
+        return batch
+    src = grid().ranks[MODEL_AXIS][0]
+    for v in batch.values():
+        for t in (v.values() if isinstance(v, dict) else (v,)):
+            if isinstance(t, torch.Tensor):
+                dist.broadcast(t.view(-1).view(torch.uint8), src=src, group=group)
+    return batch
+
+
+@torch.no_grad()
+def gather_shard(t: torch.Tensor, split: Split) -> torch.Tensor:
+    """The whole tensor from every model rank's part ``t`` of it (cut by
+    ``split``, ``state.take_shard``); collective over the model group."""
+    group, n, _ = _axis(MODEL_AXIS)
+    if n == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return join_shards(parts, split)
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:

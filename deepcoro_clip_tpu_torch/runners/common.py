@@ -5,8 +5,9 @@ pipelined train epoch.
 ``resolve_dataset_stats`` is the port's copy of the JAX package's
 ``runners/common.py`` function. The data axis is the rows of the process
 grid (``parallel/distributed.py``): the loaders yield global batches,
-``batch_to_device`` keeps the rows of this rank's data index, and an
-epoch's metrics are the global batch's on every rank.
+``batch_to_device`` keeps the rows of this rank's data index (the same
+bits on every rank of its model group), and an epoch's metrics are the
+global batch's on every rank.
 """
 
 from __future__ import annotations
@@ -67,8 +68,10 @@ def batch_to_device(batch: Dict[str, Any], device: torch.device,
     ``device``, by ``parallel/batching.make_batch_sharding_fn``: with one
     rank every row, and a mask of ones. On the card the copies leave from
     pinned memory without a host wait, so the next batch's copy queues
-    behind the running step."""
-    return make_batch_sharding_fn(*data_shard(), replicated_keys)(batch, device)
+    behind the running step. The ranks of a model group take its first
+    rank's tensors (``distributed.share_over_model``)."""
+    return distributed.share_over_model(
+        make_batch_sharding_fn(*data_shard(), replicated_keys)(batch, device))
 
 
 def unpad(x, n: int) -> np.ndarray:

@@ -91,6 +91,7 @@ from deepcoro_clip_tpu_torch.data.tokenizer import get_tokenizer
 from deepcoro_clip_tpu_torch.device import resolve_device
 from deepcoro_clip_tpu_torch.parallel import distributed
 from deepcoro_clip_tpu_torch.parallel.distributed import gather_rows, rank_seed
+from deepcoro_clip_tpu_torch.parallel.mesh import MODEL_AXIS
 from deepcoro_clip_tpu_torch.registry import RunnerRegistry
 from deepcoro_clip_tpu_torch.runners.common import (  # noqa: F401 (the error train raises)
     NonFiniteLossError,
@@ -105,6 +106,7 @@ from deepcoro_clip_tpu_torch.runners.common import (  # noqa: F401 (the error tr
 from deepcoro_clip_tpu_torch.train import clip as clip_train
 from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
 from deepcoro_clip_tpu_torch.train.run_schedules import freeze_ratio_at, temperature_at
+from deepcoro_clip_tpu_torch.train.state import model_splits, take_shard
 from deepcoro_clip_tpu_torch.utils.logging_utils import MetricsLogger
 from deepcoro_clip_tpu_torch.utils import siglip_logging
 from deepcoro_clip_tpu_torch.utils.retrieval_metrics import (
@@ -383,8 +385,13 @@ class VideoContrastiveLearningRunner:
                                        p["log_temp"], p["logit_bias"], b.locca_decoder)
             return
         saved = torch.load(path, map_location="cpu", weights_only=True)
+        splits = model_splits(p)  # (a checkpoint holds whole leaves)
+        g = distributed.grid()
+        n, i = g.shape[MODEL_AXIS], g.index[MODEL_AXIS]
         with torch.no_grad():
             for k, v in saved.get("params", saved).items():
+                if k in splits and v.shape[splits[k].dim] == p[k].shape[splits[k].dim] * n:
+                    v = take_shard(v, splits[k], n, i)
                 if k in p and p[k].shape == v.shape:
                     p[k].copy_(v)
 

@@ -21,6 +21,13 @@ data order; ``generator`` is index 0's; the model ranks of an index share
 theirs), rank 0 alone writes, and each rank restores its index's generator
 and the shared parameters and moments. A checkpoint of one grid loads into
 a run of another.
+
+Under tensor parallelism a rank holds its part of each cut leaf
+(``train/state.model_splits``); a save gathers the parts of every cut
+parameter, moment and accumulator over the model group first, so a file
+always holds the whole tree, and a restore hands each rank its part
+(``state.take_shard``). A checkpoint written at one ``mesh_model`` so
+restores at any other.
 """
 
 from __future__ import annotations
@@ -32,25 +39,42 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from deepcoro_clip_tpu_torch.parallel.distributed import barrier, data_rank, grid, rank
+from deepcoro_clip_tpu_torch.parallel.distributed import (
+    barrier,
+    data_rank,
+    gather_shard,
+    grid,
+    rank,
+)
 from deepcoro_clip_tpu_torch.parallel.mesh import MODEL_AXIS
 from deepcoro_clip_tpu_torch.parallel.multihost import gather_objects
+from deepcoro_clip_tpu_torch.train.state import Split, model_splits, take_shard
 
 
-def _to_cpu(tree):
+def _to_cpu(tree, splits: Dict[str, Split], key: str = ""):
+    """A copy of ``tree`` on the CPU, each leaf under a cut parameter's
+    name gathered whole (collective over the model group: every rank calls
+    it)."""
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: _to_cpu(v, splits, k) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
+        if key in splits:
+            tree = gather_shard(tree, splits[key])
         return tree.detach().to("cpu", copy=True)
     return tree
 
 
-def _load_into(dst, src):
+def _load_into(dst, src, splits: Dict[str, Split], key: str = ""):
     """``src`` (from a file) into the live structure ``dst``: tensors are
-    copied in place, so parameters stay the models' own."""
+    copied in place, so parameters stay the models' own; a leaf under a cut
+    parameter's name takes this rank's part of the whole."""
     if isinstance(dst, dict):
-        return {k: _load_into(dst[k], src[k]) if k in dst else src[k] for k in src}
+        return {k: _load_into(dst[k], src[k], splits, k) if k in dst else src[k]
+                for k in src}
     if isinstance(dst, torch.Tensor):
+        if key in splits:
+            g = grid()
+            src = take_shard(src, splits[key], g.shape[MODEL_AXIS], g.index[MODEL_AXIS])
         with torch.no_grad():
             dst.copy_(src)
         return dst
@@ -72,13 +96,16 @@ class CheckpointManager:
         returns before the file is in place."""
         states = gather_objects([None if generator is None else generator.get_state()])
         states = states[::grid().shape[MODEL_AXIS]]
+        splits = model_splits(state.params)
+        params = _to_cpu(dict(state.params), splits)
+        opt_state = _to_cpu(state.opt_state, splits)
         path = self.dir / f"{name}.pt"
         if rank() == 0:
             tmp = self.dir / f"{name}.pt.tmp"
             torch.save({
                 "step": int(state.step),
-                "params": _to_cpu(dict(state.params)),
-                "opt_state": _to_cpu(state.opt_state),
+                "params": params,
+                "opt_state": opt_state,
                 "generator": states[0],
                 "generators": states,
                 "sampler": None if sampler is None else sampler.state_dict(),
@@ -133,8 +160,9 @@ class CheckpointManager:
         generator state into ``generator``, its sampler state into
         ``sampler``); returns the state with the saved step."""
         saved = self.load(name)
-        _load_into(state_like.params, saved["params"])
-        opt_state = _load_into(state_like.opt_state, saved["opt_state"])
+        splits = model_splits(state_like.params)
+        _load_into(state_like.params, saved["params"], splits)
+        opt_state = _load_into(state_like.opt_state, saved["opt_state"], splits)
         # this rank's data index's generator; a checkpoint of fewer indices
         # (or one from before the per-index states) leaves the others fresh
         states = saved.get("generators") or [saved.get("generator")]

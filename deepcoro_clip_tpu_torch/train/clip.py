@@ -9,7 +9,10 @@ global batch, the loss is the global batch's and the gradients are
 averaged over the data group before the freeze masks, the non-finite gate
 and the clipping, so every rank takes the same update. With
 ``use_ring_attention`` under a process group the backbone's ring runs
-across the ranks of each model group, which hold the same rows.
+across the ranks of each model group, which hold the same rows; without
+it a ``mesh_model`` above 1 cuts every attention's heads and every MLP's
+hidden width over the model group (tensor parallelism,
+``models/layers.shard_layers``).
 
 The loss is picked by ``loss_name`` as in the JAX module: the CLIP
 losses, ``siglip`` (pairwise over the batch, with the learnable
@@ -43,6 +46,7 @@ import torch
 from deepcoro_clip_tpu_torch.device import resolve_device
 from deepcoro_clip_tpu_torch.losses import contrastive as closs
 from deepcoro_clip_tpu_torch.losses.locca import locca_combined_loss
+from deepcoro_clip_tpu_torch.models.layers import shard_layers
 from deepcoro_clip_tpu_torch.models.locca_decoder import (
     init_locca_decoder,
     locca_decoder_from_config,
@@ -135,7 +139,10 @@ def build_clip_bundle(config, seed: int = 0, steps_per_epoch: int = 100,
     tokens), else ``make_mesh(MeshSpec(config.mesh_data, config.mesh_model))``
     over the visible cards, or over ``device`` alone on the CPU (too few
     devices raise). A caller may pass a mesh whose device list repeats a
-    device. With ``config.locca_enabled``
+    device. Without the ring, ``config.mesh_model`` above 1 under a process
+    group cuts the layers over the grid's model axis after the seeded init
+    (the weights are the one-process run's, each rank keeping its part).
+    With ``config.locca_enabled``
     the LocCa head is built over the video tower's ``embedding_dim`` tokens,
     with the token grid of ``locca_token_grid``."""
     _check_loss_name(config)
@@ -148,9 +155,9 @@ def build_clip_bundle(config, seed: int = 0, steps_per_epoch: int = 100,
         elif ring_mesh is None:
             ring_mesh = make_mesh(MeshSpec(config.mesh_data, config.mesh_model),
                                   devices=[dev] if dev.type == "cpu" else None)
-    video_model = init_params(video_encoder_from_config(config, ring_mesh=ring_mesh),
-                              seed).to(dev)
-    text_model = init_params(text_encoder_from_config(config), seed + 1).to(dev)
+    tp = distributed.tensor_parallel_grid(config.mesh_model, config.use_ring_attention)
+    video_model = init_params(video_encoder_from_config(config, ring_mesh=ring_mesh), seed)
+    text_model = init_params(text_encoder_from_config(config), seed + 1)
     # learnable temperature and the SigLIP bias (read by the SigLIP losses;
     # unused by clip_loss, kept in the tree as in the JAX package)
     log_temp = torch.nn.Parameter(torch.tensor(
@@ -160,8 +167,12 @@ def build_clip_bundle(config, seed: int = 0, steps_per_epoch: int = 100,
     locca_decoder = None
     if config.locca_enabled:
         locca_decoder = init_locca_decoder(
-            locca_decoder_from_config(config, memory_dim=config.embedding_dim),
-            seed + 2).to(dev)
+            locca_decoder_from_config(config, memory_dim=config.embedding_dim), seed + 2)
+    for m in (video_model, text_model, locca_decoder):
+        if m is not None:
+            if tp is not None:
+                shard_layers(m, tp)
+            m.to(dev)
     params = training_params(video_model, text_model, log_temp, logit_bias, locca_decoder)
 
     schedule = get_scheduler(

@@ -29,11 +29,13 @@ from deepcoro_clip_tpu_torch.convert import (
 )
 from deepcoro_clip_tpu_torch.device import resolve_device
 from deepcoro_clip_tpu_torch.losses.heads import multi_head_loss
+from deepcoro_clip_tpu_torch.models.layers import shard_layers
 from deepcoro_clip_tpu_torch.models.mil import MultiInstanceLinearProbing
 from deepcoro_clip_tpu_torch.models.video_encoder import (
     init_params,
     video_encoder_from_config,
 )
+from deepcoro_clip_tpu_torch.parallel import distributed
 from deepcoro_clip_tpu_torch.parallel.distributed import gather_rows
 from deepcoro_clip_tpu_torch.train import optim as optim_lib
 from deepcoro_clip_tpu_torch.train.schedulers import get_scheduler
@@ -127,7 +129,9 @@ def build_probe_bundle(cfg, seed: int = 0, steps_per_epoch: int = 100,
     names, e.g. ``convert.module_to_jax_tree`` of a CLIP run's video model),
     or a flat dict of tensors under the port's names (``encoder_tree``),
     transplanted where paths and shapes match. ``fused_outproj``: see
-    ``video_encoder_from_config``."""
+    ``video_encoder_from_config``. A ``mesh_model`` above 1 under a process
+    group cuts the layers of both models over the grid's model axis once
+    their weights are set (``models/layers.shard_layers``)."""
     dev = resolve_device(device)
     # the encoder emits per-video embeddings [B, N, D] (aggregation forced
     # off), or patch tokens for hierarchical pooling
@@ -138,8 +142,12 @@ def build_probe_bundle(cfg, seed: int = 0, steps_per_epoch: int = 100,
         merged = merge_encoder_params(module_to_jax_tree(video_model),
                                       encoder_tree(video_model, encoder_params))
         video_model.load_state_dict(jax_tree_to_state_dict(merged), strict=True)
-    video_model = video_model.to(dev)
-    mil_model = init_params(mil_from_config(cfg), seed + 1).to(dev)
+    mil_model = init_params(mil_from_config(cfg), seed + 1)
+    tp = distributed.tensor_parallel_grid(cfg.mesh_model)
+    for m in (video_model, mil_model):
+        if tp is not None:
+            shard_layers(m, tp)
+        m.to(dev)
     params = probe_params(video_model, mil_model)
 
     schedule = get_scheduler(

@@ -41,6 +41,7 @@ from deepcoro_clip_tpu_torch.losses.contrastive import clip_loss
 from deepcoro_clip_tpu_torch.losses.locca import locca_combined_loss
 from deepcoro_clip_tpu_torch.losses.multitask import captioning_loss
 from deepcoro_clip_tpu_torch.models.captioning_decoder import CaptioningDecoder
+from deepcoro_clip_tpu_torch.models.layers import shard_layers
 from deepcoro_clip_tpu_torch.models.masked_video_modeling import (
     MaskedVideoModeling,
     random_token_mask,
@@ -51,6 +52,7 @@ from deepcoro_clip_tpu_torch.models.video_encoder import (
     init_params,
     video_encoder_from_config,
 )
+from deepcoro_clip_tpu_torch.parallel import distributed
 from deepcoro_clip_tpu_torch.parallel.distributed import gather_rows, global_ratio
 from deepcoro_clip_tpu_torch.train import optim as optim_lib
 from deepcoro_clip_tpu_torch.train.schedulers import get_scheduler
@@ -88,22 +90,29 @@ def build_multitask_bundle(config, seed: int = 0, steps_per_epoch: int = 100,
                            ) -> Tuple[MultitaskBundle, TrainState]:
     """The four models with seeded random weights, the optimizer and the
     initial ``TrainState`` on ``device`` (CUDA unless the caller passes
-    ``"cpu"``)."""
+    ``"cpu"``). A ``mesh_model`` above 1 under a process group cuts the
+    layers of the four over the grid's model axis after the seeded init
+    (``models/layers.shard_layers``)."""
     cfg = config
     dev = resolve_device(device)
     dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
-    video_model = init_params(video_encoder_from_config(cfg), seed).to(dev)
-    text_model = init_params(text_encoder_from_config(cfg), seed + 1).to(dev)
+    video_model = init_params(video_encoder_from_config(cfg), seed)
+    text_model = init_params(text_encoder_from_config(cfg), seed + 1)
     decoder = init_params(CaptioningDecoder(
         vocab_size=cfg.text_vocab_size, dim=cfg.decoder_dim, depth=cfg.decoder_depth,
         num_heads=cfg.decoder_heads, max_length=cfg.decoder_max_length,
         memory_dim=cfg.embedding_dim, dropout=cfg.dropout, dtype=dtype,
-        use_flash=cfg.use_pallas_attention), seed + 2).to(dev)
+        use_flash=cfg.use_pallas_attention), seed + 2)
     mvm = init_params(MaskedVideoModeling(
         dim=cfg.embedding_dim, num_tokens=clip_token_count(cfg),
         decoder_dim=cfg.mvm_decoder_dim, decoder_depth=cfg.mvm_decoder_depth,
         num_heads=cfg.num_heads, mask_ratio=cfg.mask_ratio,
-        norm_targets=cfg.mvm_norm_targets, dtype=dtype, use_flash=False), seed + 3).to(dev)
+        norm_targets=cfg.mvm_norm_targets, dtype=dtype, use_flash=False), seed + 3)
+    tp = distributed.tensor_parallel_grid(cfg.mesh_model)
+    for m in (video_model, text_model, decoder, mvm):
+        if tp is not None:
+            shard_layers(m, tp)
+        m.to(dev)
     log_temp = torch.nn.Parameter(torch.tensor(
         math.log(cfg.temperature), dtype=torch.float32, device=dev))
     params = multitask_params(video_model, text_model, decoder, mvm, log_temp)

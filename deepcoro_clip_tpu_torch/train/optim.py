@@ -24,6 +24,14 @@ What ``optax`` does there and this module does by hand:
 
 The update works in place on the state it is given, with ``torch._foreach``
 calls over each group's tensors.
+
+Under tensor parallelism a parameter cut over the model group
+(``model_split``, ``models/layers.Dense.shard_``) holds this rank's part of
+the whole leaf, as do its gradient, its moments and its accumulator (the
+gradient and the accumulator carry its ``model_split``): ``global_norm``
+sums the squares of such parts over the model group and counts the
+replicated leaves once, and the freeze fractions count the whole leaf, so
+every rank clips, gates and freezes as the one-process run does.
 """
 
 from __future__ import annotations
@@ -33,7 +41,9 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
+from deepcoro_clip_tpu_torch.parallel import distributed
 from deepcoro_clip_tpu_torch.parallel.distributed import all_reduce_grads
+from deepcoro_clip_tpu_torch.parallel.mesh import MODEL_AXIS
 
 # start-fraction of leaves outside the freezable subtree (proj, aggregator,
 # pools): above any (1 - ratio) threshold, so a partial ratio never freezes them
@@ -75,10 +85,12 @@ def freeze_fractions(params: Mapping[str, torch.Tensor],
     freeze the same leaves at the same ratio.
     """
     named = []
+    cut = distributed.grid().shape[MODEL_AXIS]
     for name, t in params.items():
         top = name.split(".", 1)[0]
         freezable = (include is None or top in include) and top not in exclude
-        named.append((name, name.replace(".", "/"), t.numel(), freezable))
+        size = t.numel() * (cut if _is_cut(t) else 1)  # the whole leaf's
+        named.append((name, name.replace(".", "/"), size, freezable))
     ordered = sorted((n for n in named if n[3]), key=lambda n: _freeze_order_key(n[1]))
     total = sum(n[2] for n in ordered)
     fracs = {n[0]: _NEVER_FROZEN for n in named}
@@ -87,6 +99,17 @@ def freeze_fractions(params: Mapping[str, torch.Tensor],
         fracs[name] = cum / max(total, 1)
         cum += size
     return fracs
+
+
+def _is_cut(t: torch.Tensor) -> bool:
+    return getattr(t, "model_split", None) is not None
+
+
+def _same_cut(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` marked with ``like``'s ``model_split``, where it has one."""
+    if _is_cut(like):
+        t.model_split = like.model_split
+    return t
 
 
 def freeze_keep(fracs: Mapping[str, float], ratio: float) -> Dict[str, bool]:
@@ -146,8 +169,8 @@ def loss_grads(loss: torch.Tensor, params: Mapping[str, torch.Tensor],
     on every rank)."""
     got = dict(zip(wanted, torch.autograd.grad(loss, [params[n] for n in wanted],
                                                allow_unused=True)))
-    grads = {n: (torch.nan_to_num_(got[n]) if got.get(n) is not None
-                 else torch.zeros_like(p)) for n, p in params.items()}
+    grads = {n: _same_cut(torch.nan_to_num_(got[n]) if got.get(n) is not None
+                          else torch.zeros_like(p), p) for n, p in params.items()}
     all_reduce_grads(grads)
     return grads
 
@@ -159,7 +182,9 @@ def finite_gate(loss: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """L2 norm over all the tensors (a mapping's values or an iterable)."""
+    """L2 norm over all the tensors (a mapping's values or an iterable);
+    a tensor cut over the model group (``model_split``) counts with the
+    other ranks' parts, the same norm on every rank."""
     ts = list(tensors.values()) if isinstance(tensors, Mapping) else list(tensors)
     if not ts:
         return torch.zeros(())
@@ -168,8 +193,16 @@ def global_norm(tensors) -> torch.Tensor:
         # LocCa head's [30522, 16] output projection; a float64 sum stays
         # within fp32 rounding, as XLA's pairwise sums do
         norms = torch.stack([torch.linalg.vector_norm(t, dtype=torch.float64) for t in ts])
+    else:
+        norms = torch.stack(torch._foreach_norm(ts))
+    cut = [_is_cut(t) for t in ts]
+    if not any(cut):
         return torch.linalg.vector_norm(norms).to(ts[0].dtype)
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(ts)))
+    squares = norms.square()
+    mask = torch.tensor(cut, device=squares.device)
+    parts = torch.stack([squares[~mask].sum(), squares[mask].sum()])
+    parts[1] = distributed.sum_over_model(parts[1])
+    return parts.sum().sqrt().to(ts[0].dtype)
 
 
 class GroupedOptimizer:
@@ -272,7 +305,8 @@ class MultiSteps:
         inner = self.inner.init(params)
         zero = torch.zeros_like(inner["count"])
         return {"mini_step": zero.clone(), "gradient_step": zero.clone(),
-                "acc_grads": {k: torch.zeros_like(p) for k, p in params.items()},
+                "acc_grads": {k: _same_cut(torch.zeros_like(p), p)
+                              for k, p in params.items()},
                 "inner": inner}
 
     def update(self, grads, state, params, gate):

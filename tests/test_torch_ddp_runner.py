@@ -24,9 +24,10 @@ dropout, which no config field reaches, is off on every side.
   parameters of an uninterrupted world-2 run, bit for bit, at dropout 0.1
   (each rank's generator is restored from the checkpoint).
 - A one-process checkpoint resumed at world 2.
-- A ``batch_size`` the world does not divide, and ``mesh_model`` 2 without
-  the ring (the JAX runner's tensor parallelism, not ported), raise on both
-  ranks.
+- A ``batch_size`` the world does not divide raises on both ranks; so does
+  ``mesh_model`` 2 (tensor parallelism) with ``mesh_data`` 2, which the
+  two ranks cannot hold, while the same config with ``mesh_data`` -1
+  builds the grid ``(data 1, model 2)`` on both.
 - ``run_mode: inference`` (``embedding_extraction.yaml``) sharded and
   gathered: the same file as the one-process run's; a multitask and a
   probing run (one epoch each, the heads' labels added to the workspace)
@@ -157,6 +158,8 @@ def runs(tmp_path_factory):
             {"argv": _inference_argv(root, root / "world2" / "inference")},
             {"argv": _multitask_argv(root, "multitask2")},
             {"argv": _probing_argv(root, "probing2")},
+            {"argv": ["--base_config", _yaml(root, "tp_grid", mesh_model=2, mesh_data=-1)]
+             + cpu, "grid_only": True},
         ]
         waits.append(workers.start(workers.run_mains, WORLD, root / "ranks", jobs,
                                    str(root / "world2")))
@@ -336,11 +339,16 @@ def test_one_process_checkpoint_resumes_at_world_2(runs):
 
 
 def test_batch_size_and_ring_raise_on_every_rank(runs):
+    """A batch the data axis does not divide raises; ``mesh_model`` 2
+    without the ring (tensor parallelism) builds its grid on both ranks,
+    and with a ``mesh_data`` the ranks cannot hold still raises."""
     _, ranks, _, _ = runs
     for r in ranks:
-        odd, ring = r[5]["error"], r[6]["error"]
+        odd, tp_data, tp = r[5]["error"], r[6]["error"], r[10]
         assert odd.startswith("ValueError") and "gcd(2, 3)" in odd
-        assert ring.startswith("NotImplementedError") and "tensor parallelism" in ring
+        assert tp_data.startswith("ValueError") and "mesh_data=2" in tp_data
+        assert "set -1 or 1" in tp_data
+        assert tp == {"grid": {"data": 1, "model": 2}}
 
 
 VIDEO_CLI = ["--frames", "4", "--resize", "32", "--vit_dim", "32", "--vit_depth", "1",

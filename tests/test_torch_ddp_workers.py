@@ -270,7 +270,9 @@ def run_mains(rank: int, world: int, jobs: List[Dict[str, Any]], audit_root: str
     index of an earlier job whose run it resumes (``--resume_training true
     --checkpoint <its run dir>``); ``cut``: stop after epoch 0, as a killed
     run would (``train`` cut at ``end_epoch=1``); ``expect_error``: return
-    the error ``main`` raises. The text head's projection dropout, which no
+    the error ``main`` raises; ``grid_only``: parse the config and make its
+    process grid (``set_device_info_in_place``), and return the grid's shape
+    instead of running. The text head's projection dropout, which no
     config field reaches, is off (as on the JAX side of the tests). Each
     result holds the history and the run directory; the last entry lists
     what this rank wrote under ``audit_root``."""
@@ -290,6 +292,12 @@ def run_mains(rank: int, world: int, jobs: List[Dict[str, Any]], audit_root: str
         if "resume_from" in job:
             argv += ["--resume_training", "true", "--checkpoint",
                      results[job["resume_from"]]["output_dir"]]
+        if job.get("grid_only"):
+            from deepcoro_clip_tpu_torch.configs import parse_config
+
+            parse_config(argv).set_device_info_in_place()
+            results.append({"grid": dict(distributed.grid().shape)})
+            continue
         runner.train = (
             (lambda self, start_epoch=0, end_epoch=None: train(self, start_epoch, 1))
             if job.get("cut") else train)

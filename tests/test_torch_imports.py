@@ -31,6 +31,7 @@ for name in mods:
 import chip_smoke
 import tests.test_torch_ddp_workers  # the data-parallel tests' ranks
 import tests.test_torch_ring_workers  # the process-group ring tests' ranks
+import tests.test_torch_tp_workers  # the tensor-parallel tests' ranks
 bad = sorted(m for m in sys.modules
              if m == "deepcoro_clip_tpu" or m.startswith("deepcoro_clip_tpu."))
 assert not bad, bad
@@ -52,7 +53,7 @@ for need in ("train.clip", "train.optim", "losses.contrastive", "models.text_enc
              "export_model", "external_validation", "data.single_head_sampler",
              "models.locca_decoder", "parallel.distributed", "parallel.batching",
              "parallel.multihost", "utils.hf_import", "utils.torch_import",
-             "convert_checkpoint"):
+             "convert_checkpoint", "train.state", "models.layers", "convert"):
     assert "deepcoro_clip_tpu_torch." + need in mods, need
 print(len(mods))
 """

@@ -32,10 +32,10 @@ at ``(2, 2)``, runs through ``main`` at ``(2, 2)``) and two (the step at
   is resolved, the key bias's middle third left out): the bars of
   ``tests/test_torch_distributed.py``. Loss, gradients, metrics and
   parameters are bit-equal across all the ranks of a grid.
-- ``set_device_info_in_place``: ``mesh_model`` > 1 without the ring raises
-  (tensor parallelism, not ported; at world 1 too), a ``mesh_model`` that
-  does not divide the world, a wrong ``mesh_data`` and a batch the data
-  axis does not divide raise; the ring with ``mesh_model`` 2 makes the grid.
+- ``set_device_info_in_place``: a ``mesh_model`` that does not divide the
+  world, a wrong ``mesh_data`` and a batch the data axis does not divide
+  raise; ``mesh_model`` 2 makes the grid with the ring and without it
+  (tensor parallelism), and at world 1 raises without the ring only.
 - ``main`` at ``(data=2, model=2)`` with the ring, dropout 0.1: every rank
   the same history, rank 0 alone writes, the checkpoint holds one
   generator a data index, and a run cut after epoch 0 and resumed ends
@@ -193,7 +193,7 @@ def runs(tmp_path_factory):
              {"argv": ["--base_config", _main_yaml(root, "cut")], "cut": True},
              {"argv": ["--base_config", _main_yaml(root, "cut")], "resume_from": 1}]
     base = dict(STEP, use_pallas_attention=False)
-    errors = [dict(base, use_ring_attention=False),  # tensor parallelism
+    errors = [dict(base, use_ring_attention=False),  # tensor parallelism: the grid
               dict(base, mesh_model=3),  # does not divide 2 ranks
               dict(base, mesh_data=2),  # the data axis is 1
               dict(base, batch_size=3, mesh_model=1),  # 2 data ranks, batch 3
@@ -357,7 +357,7 @@ def test_configs_raise_on_two_ranks(runs):
     _, _, two, _ = runs
     for r in two:
         tp, odd_model, data, batch, ok = r["errors"]
-        assert tp.startswith("NotImplementedError") and "tensor parallelism" in tp
+        assert tp == str({"data": 1, "model": 2})
         assert odd_model.startswith("ValueError") and "does not divide the 2 ranks" in odd_model
         assert data.startswith("ValueError") and "mesh_data=2" in data and "set -1 or 1" in data
         assert batch.startswith("ValueError") and "gcd(2, 3)" in batch
@@ -365,11 +365,11 @@ def test_configs_raise_on_two_ranks(runs):
 
 
 def test_tensor_parallelism_raises_at_world_1():
-    """Without a process group too: ``mesh_model`` 2 without the ring is the
-    JAX runner's tensor parallelism; with the ring it is the one-process
-    ring's mesh, and nothing raises."""
+    """Without a process group: ``mesh_model`` 2 without the ring is tensor
+    parallelism, which needs 2 processes (the message names the launch);
+    with the ring it is the one-process ring's mesh, and nothing raises."""
     cfg = tiny_config(mesh_model=2)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="tensor parallelism.*torch.distributed.run"):
         cfg.set_device_info_in_place()
     cfg = dataclasses.replace(cfg, use_ring_attention=True)
     cfg.set_device_info_in_place()
