@@ -355,6 +355,30 @@ Phases, each printing one line (or a few) before the last:
    ranks' partials summed against K5 over the whole layer, K5 launches per
    rank, the head outputs against world 1's, step time, all-reduces and
    memory;
+39. the attention at every precision and head width the JAX wrappers take
+   (after phase 38, outside the corpus): K1/K2 on the SIMT kernels in fp32
+   at [16,1569,1536] H 4 (fused and split) and [16,393,1536], in bf16 and
+   fp32 at Dh 256 (H 2) and 512 (H 1); K3/K4 at phase 40's fp32 calls (the
+   text tower's [16,12,128,64] with a real-prefix key mask, the
+   aggregator's [16,8,1,64]) and at head dims padded as the JAX wrapper
+   pads (Dh 32 with RoPE, 96, 192 in bf16; 192 in fp32); K5 in fp32 at
+   phase 41's [80,1569,1536] and [80,393,1536] with wo [512,512] and in
+   bf16 at Dh 256; K6 in fp32 at [2,4,15680,128] over 4 shards (phase 34
+   also runs it across its 4 ranks through ring_fwd_rank, bit-equal to the
+   one-process pass): each against its plain version (fp32: F32_ATOL /
+   F32_BWD_REL bars, a short call's gradients by F32_ATOL; bf16: phases 3's
+   and 7's), with times (CUDA events), bounds (fp32 at 67 TFLOP/s) and the
+   library call's;
+40. (inside the corpus, after phase 38) config/quality/flagship_quality_train.yaml
+   through main at precision fp32, one epoch of 3 steps and its validation,
+   against the same run with the plain attention from the same seed, both
+   at dropout 0: per-step and validation losses (FP32_RUN_LOSS_REL),
+   launches per step K1 12, K2 12, K3 14, K4 14 on the fp32 kernels, the
+   run's checkpoint written and read back in fp32, a traced step (busy
+   share, the SIMT kernels by name), step time, peak memory;
+41. phase 12's probing step at precision fp32 with DEEPCORO_FUSED_OUTPROJ=1:
+   12 fp32 K5 launches a step, the heads against the plain attention's
+   (FP32_HEAD_ATOL + FP32_HEAD_RTOL|plain|), step time, peak memory;
 then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6, and
 the long K3 and K4 kernels an entry each; K3 and K4 list their short and
 long kernels and carry phase 21's rows; every kernel carries the launches
@@ -364,7 +388,9 @@ rows at a rank's shapes under tensor parallelism; K6 a rank's of phase 34
 with that pass's times (K5's "launches" are phase 27's train run's), K3 and K4 their shapes; the
 long entries their launches over phases 22 to 25's, 30's and 31's runs and
 the bank's, their row at the SigLIP bank's mask and every long row of
-phases 22 to 26 and 31).
+phases 22 to 26 and 31; then an entry each for the SIMT routes of K1 to K6
+with phase 39's rows, their launches on phase 40's fp32 run (K1 to K4),
+phase 41's step (K5) and phase 39's pass (K6)).
 
 --compare runs the build, checksums of the outputs of the kernels meant to
 stay bit-equal (K1, K2, K5, K6, the short K3/K4), K1's and K2's times at
@@ -387,6 +413,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import http.client
+import inspect
 import json
 import math
 import shutil
@@ -2789,6 +2816,8 @@ def _breakdown(torch, fc, q, k, v, m, do, leaves, out, bwd: bool) -> dict:
     dev, dt = q.device, q.dtype
     scale = Dh ** -0.5
     new = hasattr(fc, "short_args")  # this tree's lean host path
+    # (an older tree's bwd_symbol takes no head dim)
+    dh = (Dh,) if "Dh" in inspect.signature(fc.bwd_symbol).parameters else ()
     r = {}
     stream = torch.cuda.current_stream(dev).cuda_stream
     lookup = getattr(fc, "_raw_stream", lambda d: torch.cuda.current_stream(d).cuda_stream)
@@ -2798,7 +2827,7 @@ def _breakdown(torch, fc, q, k, v, m, do, leaves, out, bwd: bool) -> dict:
         if bwd:
             r["checks"] = host_us(torch, lambda: (
                 fc._aligned(do), fc._check_operand("do", do, dev, dt),
-                fc.bwd_symbol(dt, False, Lq, k.shape[2])))
+                fc.bwd_symbol(dt, False, Lq, k.shape[2], *dh)))
         else:
             r["checks"] = host_us(torch, lambda: (
                 fc._check_problem(q, k, v, None, None, m),
@@ -2817,7 +2846,7 @@ def _breakdown(torch, fc, q, k, v, m, do, leaves, out, bwd: bool) -> dict:
         o = out.detach() if bwd else torch.empty_like(q, memory_format=torch.contiguous_format)
         r["argument packing"] = host_us(torch, lambda: fc.short_args(
             q, k, v, o, sin=None, cos=None, mask=m, causal=False, stream=stream, **kw))
-        symbol = (fc.bwd_symbol(dt, False, Lq, k.shape[2]) if bwd
+        symbol = (fc.bwd_symbol(dt, False, Lq, k.shape[2], *dh) if bwd
                   else fc.fwd_symbol(dt, False, Lq, k.shape[2], Dh))
         fn = fc._short_fn(symbol)
         good = fc.short_args(q, k, v, o, sin=None, cos=None, mask=m, causal=False,
@@ -3890,10 +3919,10 @@ def _run_checks(torch, label: str, full, counts, want) -> dict:
     return {"logit_bias": bias, "temperature": temp}
 
 
-def _bank_chunks(run: Path) -> int:
-    """Chunks of 64 in which validation encoded its bank, over both epochs."""
+def _bank_chunks(run: Path, epochs=(0, 1)) -> int:
+    """Chunks of 64 in which validation encoded its bank, over ``epochs``."""
     n = 0
-    for epoch in (0, 1):
+    for epoch in epochs:
         texts = (run / "val" / f"unique_texts_epoch_{epoch}.csv").read_text().splitlines()
         n += -(-(len(texts) - 1) // 64)
     return n
@@ -6438,7 +6467,8 @@ def _ring_pass_rank(torch, spec: dict, rank: int) -> dict:
     m = mesh.index[MODEL_AXIS]
     saved = torch.load(spec["inputs"], weights_only=True)
     c = slice(m * RING_L // world, (m + 1) * RING_L // world)
-    q, k, v, one = (saved[x][:, :, c].to(dev).contiguous() for x in ("q", "k", "v", "one"))
+    q, k, v, one, one_f32 = (saved[x][:, :, c].to(dev).contiguous()
+                             for x in ("q", "k", "v", "one", "one_f32"))
     del saved
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -6471,7 +6501,24 @@ def _ring_pass_rank(torch, spec: dict, rank: int) -> dict:
                  "plain_ms": _rank_ms(torch, dist, lambda: ring_attention(
                      q, k, v, mesh, backend="rdma_interpret"), 3),
                  "exchange_ms": _rank_ms(torch, dist, exchanges, RINGP_REPS)}
-    result = {"chunk": m, "launches": launches, "max_abs_err": float(d.max()),
+        # the same chunks in fp32 (phase 39's route across ranks): K6's fp32
+        # SIMT step on each rank, against the plain version and the
+        # one-process fp32 pass's chunk
+        qf, kf, vf = q.float(), k.float(), v.float()
+        _zero_kernel_counts()
+        out_f = ring_attention(qf, kf, vf, mesh, backend="rdma")
+        torch.cuda.synchronize()
+        f32_launches = _kernel_counts()["K6"]
+        plain_f = ring_attention(qf, kf, vf, mesh, backend="rdma_interpret")
+        d_f = (out_f - plain_f).abs()
+        f32 = {"launches": f32_launches, "max_abs_err": float(d_f.max()),
+               "within": bool(torch.isfinite(out_f).all()) and bool(
+                   (d_f <= F32_ATOL + F32_RTOL * plain_f.abs()).all()),
+               "bit_equal_to_one_process": bool(torch.equal(out_f, one_f32)),
+               "ms": _rank_ms(torch, dist, lambda: ring_attention(qf, kf, vf, mesh,
+                                                                  backend="rdma"), 2)}
+        del qf, kf, vf, out_f, plain_f, d_f
+    result = {"chunk": m, "launches": launches, "max_abs_err": float(d.max()), "f32": f32,
               "within": within, "rel_l2": _rel_l2(out, plain),
               "bit_equal_run_to_run": bool(torch.equal(out, again)),
               "bit_equal_to_one_process": bool(torch.equal(out, one)),
@@ -6509,8 +6556,11 @@ def phase_ring_processes(torch, tmp: Path) -> dict:
         torch.cuda.synchronize()
         one_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
         one_ms = cuda_ms(torch, lambda: ring_attention(q, k, v, mesh, backend="rdma"), REPS)
+        one_f32 = ring_attention(q.float(), k.float(), v.float(), mesh, backend="rdma")
     path = tmp / "ring_inputs.pt"
-    torch.save({"q": q.cpu(), "k": k.cpu(), "v": v.cpu(), "one": one.cpu()}, path)
+    torch.save({"q": q.cpu(), "k": k.cpu(), "v": v.cpu(), "one": one.cpu(),
+                "one_f32": one_f32.cpu()}, path)
+    del one_f32
     del q, k, v, one
     torch.cuda.empty_cache()
     ranks, wall = _launch(n, {"job": "ring_pass", "inputs": str(path)}, tmp, "ring_pass")
@@ -6525,6 +6575,11 @@ def phase_ring_processes(torch, tmp: Path) -> dict:
         check(res["bit_equal_run_to_run"], f"ring processes: rank {r}: two passes differ")
         check(res["bit_equal_to_one_process"], f"ring processes: rank {r}: its chunk "
               f"differs from the one-process pass's by {res['max_abs_vs_one_process']}")
+        f = res["f32"]
+        check(f["launches"] == n and f["within"] and f["bit_equal_to_one_process"],
+              f"ring processes: rank {r}: the fp32 pass: {f['launches']} K6 launches, max "
+              f"|K6 - plain| {f['max_abs_err']} (bars {F32_ATOL}+{F32_RTOL}|plain|), "
+              f"bit-equal to the one-process fp32 pass: {f['bit_equal_to_one_process']}")
     B, H, L, Dh = RING_B, RING_H, RING_L, RING_DH
     Lc = L // n
     # a rank: its q, k, v and output once, and the n - 1 chunks it receives
@@ -6550,8 +6605,18 @@ def phase_ring_processes(torch, tmp: Path) -> dict:
           + ", ".join(f"{r['peak_gib']:.3f}" for r in ranks)
           + f" GiB; the one-process pass of {n} shards {one_peak:.3f} GiB | {CARD}",
           flush=True)
+    print(f"ring processes: the same chunks in fp32 (K6's fp32 SIMT step through "
+          f"ring_fwd_rank): {', '.join(str(r['f32']['launches']) for r in ranks)} launches a "
+          f"rank, max|K6 - plain| {max(r['f32']['max_abs_err'] for r in ranks):.3e} (bars "
+          f"{F32_ATOL}+{F32_RTOL}|plain|), every chunk bit-equal to the one-process fp32 pass; "
+          f"pass {max(r['f32']['ms'] for r in ranks):.2f} ms (slowest rank, median of 2) | "
+          f"{topology} | {CARD}", flush=True)
     print(f"ring processes: torch.distributed.run launch {wall:.1f} s", flush=True)
     return {"process_ring_launches_per_rank": [r["launches"]["K6"] for r in ranks],
+            "process_ring_f32": {
+                "ranks": n, "launches_per_rank": [r["f32"]["launches"] for r in ranks],
+                "ms": max(r["f32"]["ms"] for r in ranks),
+                "max_abs_err": max(r["f32"]["max_abs_err"] for r in ranks)},
             "process_ring": {
                 "ranks": n, "backend": backend, "ms": ms,
                 "plain_ms": max(r["plain_ms"] for r in ranks), "bound_ms": b_ms,
@@ -7402,6 +7467,651 @@ def phase_tp_probe(torch, ranks: list) -> dict:
             "times": times, "rows": rows}
 
 
+# --------------------------------------------------------------------------- #
+# phases 39 to 41: the attention kernels at every precision and head width
+# the JAX wrappers take: the SIMT kernels (fp32 K1, K2, K5, K6 and bf16 at
+# Dh 256 to 512), the padded K3/K4 head dims, and precision fp32 through main
+
+# fp32 gradients against flash_bwd_plain in fp32 on the card, per tensor:
+# max|kernel - plain| <= F32_BWD_REL max|plain| and ||kernel - plain|| <=
+# F32_BWD_L2 ||plain||: nothing is rounded below fp32, but a gradient sums
+# up to 1569 products a row in another order than the plain matrix products
+# (about sqrt(1569) * 2^-24 relative a sum), so an elementwise bar at the
+# forward's F32_ATOL would read the sums' size, not the kernel
+F32_BWD_REL = 1e-4
+F32_BWD_L2 = 1e-5
+# fused projection, fp32 (K5 SIMT vs attention then @ wo in fp32): the
+# product sums 512 more terms a row, |d| <= F32_PROJ_ATOL + F32_PROJ_RTOL|ref|
+F32_PROJ_ATOL = 2e-5
+F32_PROJ_RTOL = 2e-5
+# phase 41: the fp32 probing heads through K5 against the plain attention's,
+# |d| <= FP32_HEAD_ATOL + FP32_HEAD_RTOL |plain| (fp32 throughout: the runs
+# read 1.9e-6; HEAD_ATOL, phase 13's bf16 bar, would pass a K5 in TF32)
+FP32_HEAD_ATOL = 1e-5
+FP32_HEAD_RTOL = 1e-5
+# timed launches of a SIMT kernel (tens of ms a call at the video tower's
+# shapes in fp32: REPS would take a while)
+SIMT_REPS = 5
+# phase 40: the fp32 quality run through main with the kernels against the
+# same run with the plain attention, from the same seed at dropout 0: per
+# step |loss - loss_plain| <= FP32_RUN_LOSS_REL |loss_plain| (both fp32: the
+# two attentions' sums differ in order only, and Adam carries that rounding
+# from one step to the next); the validation loss by the same bar
+FP32_RUN_LOSS_REL = 1e-4
+# launches per train step, validation batch and bank chunk of the fp32 run:
+# K1 / K2 on the SIMT fp32 kernels in the 12 video blocks, K3 / K4 on them
+# in the 12 text layers (none long: the long kernels are bf16's) and the
+# short fp32 kernels in the aggregator's 2 blocks
+FP32_PER_STEP = {"K1": 12, "K2": 12, "K3": 14, "K4": 14, "K5": 0, "K6": 0,
+                 "K3 long": 0, "K4 long": 0}
+FP32_PER_EVAL = {"K1": 12, "K2": 0, "K3": 14, "K4": 0, "K5": 0, "K6": 0,
+                 "K3 long": 0, "K4 long": 0}
+FP32_PER_BANK = {"K1": 0, "K2": 0, "K3": 12, "K4": 0, "K5": 0, "K6": 0,
+                 "K3 long": 0, "K4 long": 0}
+SIMT_FWD = {"float32": ("flash_fwd_f32_kernel",), "bfloat16": ("flash_fwd_wide_bf16_kernel",)}
+SIMT_BWD = {"float32": ("bwd_rows_f32_kernel", "flash_bwd_dkv_f32_kernel",
+                        "flash_bwd_dq_f32_kernel"),
+            "bfloat16": ("bwd_rows_wide_bf16_kernel", "flash_bwd_dkv_wide_bf16_kernel",
+                         "flash_bwd_dq_wide_bf16_kernel")}
+SIMT_PROJ = {"float32": ("flash_fwd_proj_f32_kernel",),
+             "bfloat16": ("flash_fwd_proj_wide_bf16_kernel",)}
+
+
+def _f32_check(name: str, which: str, a, r, grad: bool) -> float:
+    """An fp32 output against its plain version: the forward by F32_ATOL +
+    F32_RTOL|plain| elementwise, a gradient by F32_BWD_REL and F32_BWD_L2;
+    returns max|kernel - plain|."""
+    import torch
+
+    a, r = a.float(), r.float()
+    d = (a - r).abs()
+    err, top = float(d.max()), float(r.abs().max())
+    if grad:
+        l2 = float(torch.linalg.vector_norm(a - r) / torch.linalg.vector_norm(r).clamp_min(1e-30))
+        ok = err <= F32_BWD_REL * top and (l2 <= F32_BWD_L2 or top == 0.0)
+    else:
+        ok = bool((d <= F32_ATOL + F32_RTOL * r.abs()).all())
+    check(bool(torch.isfinite(a).all()) and ok,
+          f"{name}: {which} disagrees with the plain version in fp32 (max|d| {err:.3e}, "
+          f"max|plain| {top:.3e})")
+    return err
+
+
+def _float_leaves(tree):
+    """The floating-point tensors of a checkpoint's tree, depth first."""
+    import torch
+
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _float_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _float_leaves(v)
+    elif torch.is_tensor(tree) and tree.is_floating_point():
+        yield tree
+
+
+def _simt_row(torch, label: str, shape: str, fn, plain, lib, flops: float, nbytes: float,
+              fp32: bool, kernels, err: float) -> dict:
+    """Times of one call (CUDA events over SIMT_REPS after 3 warm-up calls,
+    the plain version once, the library call) and its bound (fp32: the
+    card's 67 TFLOP/s outside the tensor cores, no TF32; bf16: 989). No
+    profiler window: a call of milliseconds reads the same between events,
+    and which kernels ran is phase 40's trace's and the counters' to show."""
+    b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+    row = {"shape": shape, "max_abs_err": err, "ms": cuda_ms(torch, fn, SIMT_REPS),
+           "plain_ms": cuda_ms(torch, plain, 1),
+           "library_ms": None if lib is None else cuda_ms(torch, lib, SIMT_REPS),
+           "bound_ms": b_ms, "bound_by": b_by, "kernels": list(kernels)}
+    row["tflops"] = flops / row["ms"] / 1e9
+    lib_s = "none" if lib is None else f"{row['library_ms']:.4f} ms"
+    print(f"{label}: {shape}: kernel {row['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s; "
+          f"{', '.join(kernels)}), plain {row['plain_ms']:.4f} ms, library {lib_s}, bound "
+          f"{b_ms:.4f} ms ({b_by}) | {CARD}", flush=True)
+    return row
+
+
+def _packed_simt_rows(torch, dtype, B, H, Dh, L, split=False) -> tuple:
+    """K1 and K2 on the SIMT kernels at a packed shape: ``qkv`` ``[B, L,
+    3*H*Dh]`` with the video tower's 3D RoPE (fused, or ``split`` into three
+    tensors), against their plain versions (fp32: ``_f32_check``'s bars;
+    bf16: phase 3's and 7's), with times and bounds. Returns (K1 row, K2 row)."""
+    import torch.nn.functional as F
+
+    from deepcoro_clip_tpu_torch.ops.attention import (
+        apply_rope,
+        flash_bwd_plain,
+        multi_head_attention,
+    )
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(39 + Dh + L)
+    fp32 = dtype == torch.float32
+    name = "fp32" if fp32 else "bf16"
+    hw = {1569: 14, 393: 7}[L]
+    t = build_rope3d_tables(Dh, 8, hw, hw, n_special=1)
+    sin, cos = torch.from_numpy(t.sin).to(dev), torch.from_numpy(t.cos).to(dev)
+    D = H * Dh
+    qkv = (torch.randn(B, L, 3 * D, generator=g, device=dev) * 0.5).to(dtype)
+    do = (torch.randn(B, L, D, generator=g, device=dev) * 0.5).to(dtype)
+    heads = [_to_heads(u, H) for u in qkv.split(D, -1)]
+    rope = dict(sin=sin, cos=cos)
+    shape = (f"{'q, k, v' if split else 'qkv'} [{B},{L},{3 * D if not split else D}] "
+             f"{name}, H {H}, Dh {Dh}, RoPE")
+    leaves = ([u.clone().requires_grad_() for u in qkv.split(D, -1)] if split
+              else [qkv.clone().requires_grad_()])
+
+    def call(args):
+        return (flash_attention_packed(*args, num_heads=H, **rope) if split
+                else flash_attention_packed(qkv=args[0], num_heads=H, **rope))
+
+    plain_args = [u.contiguous() for u in qkv.split(D, -1)] if split else [qkv]
+    with torch.no_grad():
+        ref = multi_head_attention(*heads, **rope)
+        got = _to_heads(call(plain_args), H)
+    err_f = (_f32_check(f"K1 {shape}", "out", got, ref, False) if fp32
+             else check_forward(torch, "simt check", f"K1 {shape}", got, ref))
+    out = call(leaves)
+    grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    grads = list(grads[0].split(D, -1)) if not split else list(grads)
+    want = flash_bwd_plain(*heads, _to_heads(do, H), ref, **rope)
+    err_b = max((_f32_check(f"K2 {shape}", w, _to_heads(a, H), r, True) if fp32
+                 else _rel_check(f"K2 {shape}", w, _to_heads(a, H), r))
+                for w, a, r in zip(("dq", "dk", "dv"), grads, want))
+    bars = (f"fp32: forward {F32_ATOL}+{F32_RTOL}|plain|, gradients {F32_BWD_REL} max|plain|, "
+            f"rel l2 {F32_BWD_L2}" if fp32 else
+            f"bf16: phase 3's {KERNEL_ATOL}+{KERNEL_RTOL}|plain|, phase 7's {BWD_MAX_REL} "
+            f"max|plain| and rel l2 {BWD_L2_REL}")
+    print(f"simt check: K1/K2 {shape}: max|kernel-plain| forward {err_f:.3e}, gradients "
+          f"{err_b:.3e} ({bars}) ok", flush=True)
+    esz = qkv.element_size()
+    tables = 2 * L * Dh * 4
+    sq = [apply_rope(heads[0], sin, cos), apply_rope(heads[1], sin, cos), heads[2]]
+    sl = [u.detach().clone().requires_grad_() for u in sq]
+    sout = F.scaled_dot_product_attention(*sl)
+    doh, outh = _to_heads(do, H), _to_heads(out.detach(), H)
+    with torch.no_grad():
+        row_f = _simt_row(torch, "simt times K1", shape, lambda: call(plain_args),
+                          lambda: multi_head_attention(*heads, **rope),
+                          lambda: F.scaled_dot_product_attention(*sq),
+                          4 * B * H * L * L * Dh, 4 * B * L * D * esz + tables, fp32,
+                          SIMT_FWD[str(dtype).split(".")[1]], err_f)
+    row_b = _simt_row(torch, "simt times K2", shape,
+                      lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                      lambda: flash_bwd_plain(*heads, doh, outh, **rope),
+                      lambda: torch.autograd.grad(sout, sl, doh, retain_graph=True),
+                      10 * B * H * L * L * Dh, 8 * B * L * D * esz + tables, fp32,
+                      SIMT_BWD[str(dtype).split(".")[1]], err_b)
+    del qkv, do, heads, leaves, out, grads, want, sq, sl, sout, ref, got
+    torch.cuda.empty_cache()
+    return row_f, row_b
+
+
+def _padded_rows(torch, dtype, B, H, L, Dh, rope: bool, what: str = "") -> tuple:
+    """K3 and K4 at ``[B, H, L, Dh]``: a head dim no kernel is built for is
+    padded as the JAX wrapper pads (``pad_head_dim``) to
+    ``kernel_head_dim(Dh)``; q/k/v strided views of ``[B, L, H*Dh]``, a key
+    mask of the text tower's kind (a real prefix a row, at least one key),
+    against the plain version at Dh. ``what`` names the main path's call
+    the shape is. Returns (K3 row, K4 row)."""
+    import torch.nn.functional as F
+
+    from deepcoro_clip_tpu_torch.ops.attention import (
+        apply_rope,
+        flash_bwd_plain,
+        multi_head_attention,
+    )
+    from deepcoro_clip_tpu_torch.ops._flash_cuda import SHORT_MAX
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention, kernel_head_dim
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(Dh + L)
+    width = kernel_head_dim(Dh)
+    fp32 = dtype == torch.float32
+    q, k, v, do = ((torch.randn(B, L, H * Dh, generator=g, device=dev) * 0.5).to(dtype)
+                   .unflatten(2, (H, Dh)).transpose(1, 2) for _ in range(4))
+    kw = {}
+    if rope:
+        t = build_rope3d_tables(Dh, 8, 7, 7, n_special=L - 392)
+        kw = dict(sin=torch.from_numpy(t.sin).to(dev), cos=torch.from_numpy(t.cos).to(dev))
+    lengths = torch.randint(max(1, L // 4), L + 1, (B,), generator=g, device=dev)
+    mask = torch.arange(L, device=dev)[None] < lengths[:, None]
+    kw["kv_mask"] = mask
+    name = "fp32" if fp32 else "bf16"
+    shape = (f"[{B},{H},{L},{Dh}] {name}{', RoPE' if rope else ''}{what}, a real prefix a row"
+             + (f": padded to {width}" if width != Dh else ""))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    with torch.no_grad():
+        ref = multi_head_attention(q, k, v, **kw)
+        err_f = (_f32_check(f"K3 {shape}", "out", flash_attention(q, k, v, **kw), ref, False)
+                 if fp32 else check_forward(torch, "simt check", f"K3 {shape}",
+                                            flash_attention(q, k, v, **kw), ref))
+    out = flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    want = flash_bwd_plain(q, k, v, do, ref, **kw)
+    # (a short call's fp32 gradients by the forward's elementwise bar, as
+    # phase 13 holds the short fp32 K4: at one key dq and dk are rounding
+    # noise around 0, which a bar relative to max|plain| would read)
+    err_b = max((_f32_check(f"K4 {shape}", w, a, r, L > SHORT_MAX) if fp32
+                 else _rel_check(f"K4 {shape}", w, a, r))
+                for w, a, r in zip(("dq", "dk", "dv"), grads, want))
+    print(f"simt check: K3/K4 {shape}: max|kernel-plain| forward {err_f:.3e}, gradients "
+          f"{err_b:.3e} ok", flush=True)
+    if L <= SHORT_MAX and width <= 128:
+        suffix = "f32" if fp32 else "bf16"
+        kf, kb = (f"flash_short_fwd_{suffix}_kernel",), (f"flash_short_bwd_{suffix}_kernel",)
+    elif width > 128:
+        kf, kb = SIMT_FWD[str(dtype).split(".")[1]], SIMT_BWD[str(dtype).split(".")[1]]
+    elif fp32:
+        kf, kb = SIMT_FWD["float32"], SIMT_BWD["float32"]
+    else:
+        kf = (f"flash_long_fwd_kernel<{width}>",)
+        kb = (f"bwd_rows_kernel<{width}", f"flash_long_bwd_dkv_kernel<{width}>",
+              f"flash_long_bwd_dq_kernel<{width}>")
+    pairs = float(mask.sum()) * L * H
+    esz = q.element_size()
+    qd = B * H * L * Dh * esz
+    sq = [apply_rope(t, kw["sin"], kw["cos"]) if rope else t for t in (q, k)] + [v]
+    am = mask[:, None, None, :]
+    sl = [t.detach().clone().requires_grad_() for t in sq]
+    sout = F.scaled_dot_product_attention(*sl, attn_mask=am)
+    with torch.no_grad():
+        row_f = _simt_row(torch, "simt times K3", shape, lambda: flash_attention(q, k, v, **kw),
+                          lambda: multi_head_attention(q, k, v, **kw),
+                          lambda: F.scaled_dot_product_attention(*sq, attn_mask=am),
+                          4 * pairs * Dh, 4 * qd, fp32, kf, err_f)
+    row_b = _simt_row(torch, "simt times K4", shape,
+                      lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                      lambda: flash_bwd_plain(q, k, v, do, out.detach(), **kw),
+                      lambda: torch.autograd.grad(sout, sl, do, retain_graph=True),
+                      10 * pairs * Dh, 8 * qd, fp32, kb, err_b)
+    del q, k, v, do, leaves, out, grads, want, sq, sl, sout
+    torch.cuda.empty_cache()
+    return row_f, row_b
+
+
+def _proj_simt_row(torch, dtype, B, H, Dh, L) -> dict:
+    """K5 on the SIMT kernel: ``qkv`` ``[B, L, 3*H*Dh]`` with 3D RoPE and
+    ``wo`` ``[H*Dh, 512]`` as the probing encoder calls it (no gradient),
+    against the plain attention then ``wo`` (``project_plain``)."""
+    import torch.nn.functional as F
+
+    from deepcoro_clip_tpu_torch.ops.attention import (
+        apply_rope,
+        multi_head_attention,
+        project_plain,
+    )
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(41 + Dh)
+    fp32 = dtype == torch.float32
+    hw = {1569: 14, 393: 7}[L]
+    t = build_rope3d_tables(Dh, 8, hw, hw, n_special=1)
+    sin, cos = torch.from_numpy(t.sin).to(dev), torch.from_numpy(t.cos).to(dev)
+    D, Dout = H * Dh, 512
+    qkv = (torch.randn(B, L, 3 * D, generator=g, device=dev) * 0.5).to(dtype)
+    wo = (torch.randn(D, Dout, generator=g, device=dev) * D ** -0.5).to(dtype)
+    heads = [_to_heads(u, H) for u in qkv.split(D, -1)]
+    name = "fp32" if fp32 else "bf16"
+    shape = f"qkv [{B},{L},{3 * D}] {name}, H {H}, Dh {Dh}, RoPE, wo [{D},{Dout}]"
+
+    def plain():
+        return project_plain(multi_head_attention(*heads, sin=sin, cos=cos)
+                             .transpose(1, 2).flatten(2), wo)
+
+    with torch.no_grad():
+        y = flash_attention_packed(qkv=qkv, num_heads=H, sin=sin, cos=cos, wo=wo)
+        ref = plain()
+        d = (y.float() - ref.float()).abs()
+        if fp32:
+            ok = bool((d <= F32_PROJ_ATOL + F32_PROJ_RTOL * ref.abs()).all())
+            bars = f"{F32_PROJ_ATOL}+{F32_PROJ_RTOL}|plain|"
+        else:
+            ok = bool((d <= KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()).all())
+            bars = f"{KERNEL_ATOL}+{KERNEL_RTOL}|plain|"
+        err = float(d.max())
+        check(ok and bool(torch.isfinite(y).all()),
+              f"K5 {shape}: disagrees with its plain version (max|d| {err:.3e})")
+        print(f"simt check: K5 {shape}: max|kernel-plain| {err:.3e} ({bars}) ok", flush=True)
+        sq = [apply_rope(heads[0], sin, cos), apply_rope(heads[1], sin, cos), heads[2]]
+        wt = wo.t().contiguous()
+        row = _simt_row(
+            torch, "simt times K5", shape,
+            lambda: flash_attention_packed(qkv=qkv, num_heads=H, sin=sin, cos=cos, wo=wo),
+            plain, lambda: F.linear(F.scaled_dot_product_attention(*sq).transpose(1, 2)
+                                    .flatten(2), wt),
+            4 * B * H * L * L * Dh + 2 * B * L * D * Dout,
+            (3 * B * L * D + B * L * Dout + D * Dout) * qkv.element_size() + 2 * L * Dh * 4,
+            fp32, SIMT_PROJ[str(dtype).split(".")[1]], err)
+    del qkv, wo, heads, y, ref, d, sq
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ring_f32_row(torch) -> dict:
+    """K6's fp32 SIMT step at phase 16's ``[2,4,15680,128]`` over 4 shards on
+    one card, against the whole sequence's plain attention in fp32 (phase
+    16's rel-l2 bar and the fp32 forward bar)."""
+    import torch.nn.functional as F
+
+    from deepcoro_clip_tpu_torch.ops.attention import multi_head_attention
+    from deepcoro_clip_tpu_torch.parallel import ring_attention
+
+    q, k, v = (t.float() for t in ring_inputs(torch, RING_L, seed=39))
+    mesh = ring_mesh(torch, RING_SHARDS)
+    shape = f"[{RING_B},{RING_H},{RING_L},{RING_DH}] fp32 over {RING_SHARDS} shards"
+    with torch.no_grad():
+        _zero_kernel_counts()
+        out = ring_attention(q, k, v, mesh, backend="rdma")
+        launches = _kernel_counts()["K6"]
+        ref = multi_head_attention(q, k, v)
+        err = _f32_check(f"K6 {shape}", "out", out, ref, False)
+        l2 = _rel_l2(out, ref)
+        check(l2 <= RING_L2_REL, f"K6 {shape}: rel l2 {l2}")
+        check(launches == RING_SHARDS ** 2, f"K6 {shape}: {launches} launches")
+        print(f"simt check: K6 {shape}: max|kernel-plain| {err:.3e}, rel l2 {l2:.3e}; "
+              f"{launches} launches (n x n) ok", flush=True)
+        del ref
+        torch.cuda.empty_cache()
+        B, H, L, Dh = RING_B, RING_H, RING_L, RING_DH
+        row = _simt_row(torch, "simt times K6", shape,
+                        lambda: ring_attention(q, k, v, mesh, backend="rdma"),
+                        lambda: multi_head_attention(q, k, v),
+                        lambda: F.scaled_dot_product_attention(q, k, v),
+                        4 * B * H * L * L * Dh, 4 * B * H * L * Dh * 4, True,
+                        ("ring_step_f32_kernel",), err)
+    row["launches"] = launches
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_simt_kernels(torch) -> dict:
+    """Phase 39: each SIMT route and padded head dim against its plain
+    version, at the fp32 main paths' shapes and the widths the JAX wrappers
+    take, with times and bounds; returns rows by key (K1 to K6)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = {k: [] for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+    for dtype, B, H, Dh, L, split in ((f32, 16, 4, 128, 1569, False),
+                                      (f32, 16, 4, 128, 1569, True),
+                                      (f32, 16, 4, 128, 393, False),
+                                      (bf16, 16, 2, 256, 393, False),
+                                      (f32, 16, 2, 256, 393, False),
+                                      (bf16, 16, 1, 512, 393, False),
+                                      (f32, 16, 1, 512, 393, False)):
+        f, b = _packed_simt_rows(torch, dtype, B, H, Dh, L, split)
+        rows["K1"].append(f)
+        rows["K2"].append(b)
+    # (phase 40's fp32 calls first: the text tower's [16,12,128,64] on the
+    # SIMT kernels, the aggregator's [16,8,1,64] on the short fp32 ones)
+    for dtype, B, H, L, Dh, rope, what in (
+            (f32, 16, 12, 128, 64, False, ", the text tower (phase 40)"),
+            (f32, 16, 8, 1, 64, False, ", the aggregator (phase 40)"),
+            (bf16, 8, 8, 393, 32, True, ""), (bf16, 8, 4, 512, 96, False, ""),
+            (bf16, 8, 2, 512, 192, False, ""), (f32, 8, 2, 512, 192, False, "")):
+        f, b = _padded_rows(torch, dtype, B, H, L, Dh, rope, what)
+        rows["K3"].append(f)
+        rows["K4"].append(b)
+    # (phase 41's fp32 calls: the probing encoder's 1569 and 393 tokens)
+    rows["K5"].append(_proj_simt_row(torch, f32, PROBE_CLIPS, 4, 128, 1569))
+    rows["K5"].append(_proj_simt_row(torch, f32, PROBE_CLIPS, 4, 128, 393))
+    rows["K5"].append(_proj_simt_row(torch, bf16, PROBE_CLIPS, 2, 256, 393))
+    rows["K6"].append(_ring_f32_row(torch))
+    return rows
+
+
+def phase_fp32_quality_run(torch, manifest: Path, stats: dict) -> dict:
+    """Phase 40: config/quality/flagship_quality_train.yaml through main at
+    ``precision: fp32`` (CoroViT 512/12 at Dh 128 on the SIMT fp32 K1/K2,
+    the text tower 768/12 and the aggregator on the fp32 K3/K4), one epoch
+    of 3 steps and its validation, against the same run with the plain
+    attention from the same seed, both at dropout 0 with phase 22's dataset
+    statistics; launches counted over the kernels' run; a step traced.
+    Returns the launches and the times."""
+    from deepcoro_clip_tpu_torch.main import main as port_main
+    from deepcoro_clip_tpu_torch.runners.common import batch_to_device
+    from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
+
+    steps = QUALITY_TRAIN // 16
+    print(f"fp32 quality run: config/quality/flagship_quality_train.yaml with "
+          f"precision=fp32, dropout 0, epochs 1 ({steps} steps of 16 clips, one validation "
+          f"pass), phase 22's corpus and dataset statistics; against the same run with "
+          f"use_pallas_attention=false; bars: per step |loss - loss_plain| <= "
+          f"{FP32_RUN_LOSS_REL} |loss_plain|, the validation loss by the same bar, launches "
+          f"per step K1 12, K2 12, K3 14, K4 14 (the fp32 kernels; no long bf16 one) | {CARD}",
+          flush=True)
+    runs = {}
+    # the kernels run writes its checkpoints as main does (read back below);
+    # the plain run, the reference, writes none: an fp32 checkpoint of the
+    # towers and their moments is ~1.9 GB a file, and the machine's disk
+    # budget counts every byte the script writes
+    save = CheckpointManager._save
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        for name, over in (("kernels", {}), ("plain", {"use_pallas_attention": False})):
+            rec = _quality_recorder(torch, 0)
+            cfg = quality_train_config(
+                data_filename=str(manifest), output_dir=str(tmp / name), epochs=1,
+                num_workers=QUALITY_WORKERS, dropout=0.0, precision="fp32", **stats, **over)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_kernel_counts()
+            t0 = time.perf_counter()
+            if name == "plain":
+                CheckpointManager._save = lambda self, name, *a, **kw: self.dir / f"{name}.pt"
+            try:
+                out = port_main(config=cfg)
+            finally:
+                rec["undo"]()
+                CheckpointManager._save = save
+            runs[name] = {"history": out["history"], "wall": time.perf_counter() - t0,
+                          "output_dir": Path(out["output_dir"]),
+                          "counts": {**_kernel_counts(), **_long_counts()},
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                          "losses": [float(s["loss"]) for s in rec["steps"]]}
+            print(f"fp32 quality run ({name}): main took {runs[name]['wall']:.1f} s; losses "
+                  + " ".join(f"{x:.6f}" for x in runs[name]["losses"])
+                  + f"; val loss {out['history'][0]['val_loss']:.6f}; peak memory "
+                  f"{runs[name]['peak_gib']:.2f} GiB | {CARD}", flush=True)
+        k, p = runs["kernels"], runs["plain"]
+        check(len(k["losses"]) == steps == len(p["losses"]),
+              f"fp32 quality run: steps {len(k['losses'])} / {len(p['losses'])}")
+        for i, (a, b) in enumerate(zip(k["losses"], p["losses"])):
+            check(math.isfinite(a) and abs(a - b) <= FP32_RUN_LOSS_REL * abs(b),
+                  f"fp32 quality run: step {i} loss {a} vs plain {b}")
+        va, vb = k["history"][0]["val_loss"], p["history"][0]["val_loss"]
+        check(abs(va - vb) <= FP32_RUN_LOSS_REL * abs(vb),
+              f"fp32 quality run: val loss {va} vs plain {vb}")
+        want = {key: FP32_PER_STEP[key] * steps + FP32_PER_EVAL[key]
+                + FP32_PER_BANK[key] * _bank_chunks(k["output_dir"], (0,))
+                for key in FP32_PER_STEP}
+        print(f"fp32 quality run: launches over {steps} train steps, one validation batch "
+              f"and its bank: " + ", ".join(f"{key} {k['counts'][key]} (expected "
+                                            f"{want[key]})" for key in want), flush=True)
+        check(k["counts"] == want, f"fp32 quality run: launches {k['counts']}, expected {want}")
+        check(p["counts"]["K1"] == 0 and p["counts"]["K3"] == 0,
+              f"fp32 quality run: the plain run launched {p['counts']}")
+        # the kernels run's checkpoint: written after its epoch, every
+        # parameter and moment fp32 and finite, at step 3
+        ckpt = torch.load(k["output_dir"] / "checkpoints" / "checkpoint.pt", weights_only=True)
+        params = list(_float_leaves(ckpt["params"]))
+        moments = list(_float_leaves(ckpt["opt_state"]))
+        check(ckpt["step"] == steps and len(params) == len(ckpt["params"])
+              and len(moments) >= len(params)
+              and all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+                      for t in params + moments),
+              f"fp32 quality run: checkpoint at step {ckpt['step']}, {len(params)} float "
+              f"parameters of {len(ckpt['params'])}, {len(moments)} moments, dtypes "
+              f"{sorted({str(t.dtype) for t in params + moments})}")
+        written = sorted(x.name for x in (k["output_dir"] / "checkpoints").glob("*.pt"))
+        print(f"fp32 quality run: the kernels run wrote {written}; checkpoint.pt read back: "
+              f"step {ckpt['step']}, {len(params)} parameters and {len(moments)} optimizer "
+              f"moments, every one fp32 and finite", flush=True)
+        del ckpt, params, moments
+        print(f"fp32 quality run: per-step loss max |d| "
+              f"{max(abs(a - b) for a, b in zip(k['losses'], p['losses'])):.3e}, val loss "
+              f"|d| {abs(va - vb):.3e} (bar {FP32_RUN_LOSS_REL} relative) ok", flush=True)
+
+        # one step traced: busy share, the SIMT kernels by name
+        from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+
+        cfg = quality_train_config(data_filename=str(manifest), output_dir=str(tmp / "trace"),
+                                   epochs=1, num_workers=QUALITY_WORKERS, dropout=0.0,
+                                   precision="fp32", **stats)
+        runner = VideoContrastiveLearningRunner(cfg, output_dir=tmp / "trace")
+        batch = batch_to_device(next(iter(runner.loaders["train"])), runner.device)
+        args = (batch, runner.generator, 0.0, 0.0, -1.0)
+        runner.train_step(runner.state, *args)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            runner.train_step(runner.state, *args)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 2
+        per_name, wall_ms = device_events(torch, lambda: runner.train_step(runner.state, *args))
+        print_profile("fp32 quality profile", "one step at precision fp32", per_name, wall_ms,
+                      top=12)
+        check_main_path_kernels(
+            "fp32 quality profile, the video tower's K1/K2 and the text tower's K3/K4", per_name,
+            SIMT_FWD["float32"] + SIMT_BWD["float32"]
+            + ("flash_short_fwd_f32_kernel", "flash_short_bwd_f32_kernel"),
+            ("flash_fwd_sm90_kernel", "flash_long_fwd_kernel", "flash_bwd_dkv_sm90_kernel"))
+        busy = sum(per_name.values())
+        attn = sum(ms for n, ms in per_name.items()
+                   if any(s in n for s in SIMT_FWD["float32"] + SIMT_BWD["float32"]))
+        del runner, batch, args
+        torch.cuda.empty_cache()
+    times = {"step_ms": step_ms, "busy_ms": busy, "busy_share": busy / wall_ms,
+             "simt_attention_busy_ms": attn, "peak_gib": k["peak_gib"],
+             "plain_peak_gib": p["peak_gib"], "run_s": k["wall"], "plain_run_s": p["wall"],
+             "epoch_seconds": k["history"][0]["epoch_seconds"],
+             "plain_epoch_seconds": p["history"][0]["epoch_seconds"],
+             "max_loss_abs_diff": max(abs(a - b) for a, b in zip(k["losses"], p["losses"]))}
+    print(f"fp32 quality run: step {step_ms:.1f} ms (host clock, 2 steps on one batch), busy "
+          f"{busy:.1f} ms of a traced {wall_ms:.1f} ms (share {busy / wall_ms:.2f}), the SIMT "
+          f"K1/K2/K3/K4 {attn:.1f} ms of it; epoch {times['epoch_seconds']:.2f} s against the "
+          f"plain attention's {times['plain_epoch_seconds']:.2f} s; peak memory "
+          f"{k['peak_gib']:.2f} GiB (plain {p['peak_gib']:.2f}) | {CARD}", flush=True)
+    return {"counts": k["counts"], "times": times}
+
+
+def phase_fp32_probe(torch) -> dict:
+    """Phase 41: phase 12's probing step (stenosis_config.yaml, 80 clips) at
+    ``precision: fp32`` with DEEPCORO_FUSED_OUTPROJ=1: the frozen encoder's
+    attention on the fp32 K5 (12 a step), against the same bundle with the
+    plain attention (``use_flash`` off on the encoder's modules); the heads'
+    outputs by the fp32 bars FP32_HEAD_ATOL / FP32_HEAD_RTOL."""
+    from deepcoro_clip_tpu_torch.train.linear_probe import (
+        build_probe_bundle,
+        make_probe_eval_step,
+        make_probe_train_step,
+        to_device_batch,
+    )
+
+    _fused_switch(True)
+    try:
+        cfg = probe_config(precision="fp32")
+        bundle, state = build_probe_bundle(cfg, seed=0, steps_per_epoch=1)
+    finally:
+        _fused_switch(False)
+    step_fn, eval_fn = make_probe_train_step(bundle), make_probe_eval_step(bundle)
+    batch = to_device_batch(bundle, probe_batch(cfg, cfg.batch_size))
+    gen = torch.Generator(device=bundle.device).manual_seed(0)
+    state, _ = step_fn(state, batch, gen, cfg.video_freeze_ratio)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batch, gen, cfg.video_freeze_ratio)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(math.isfinite(float(m["loss"])), f"fp32 probing: loss {float(m['loss'])}")
+    check(counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 1, "K5": 12, "K6": 0},
+          f"fp32 probing: a step launched {counts}, expected K5 12, K3 1, K4 1")
+    with torch.no_grad():
+        fused = eval_fn(state.params, batch)["outputs"]
+        mods = [mm for mm in bundle.video_model.modules() if hasattr(mm, "use_flash")]
+        for mm in mods:
+            mm.use_flash = False
+        plain = eval_fn(state.params, batch)["outputs"]
+        for mm in mods:
+            mm.use_flash = True
+    worst = 0.0
+    for h in fused:
+        a, r = fused[h].float(), plain[h].float()
+        d = (a - r).abs()
+        worst = max(worst, float(d.max()))
+        check(bool(torch.isfinite(a).all())
+              and bool((d <= FP32_HEAD_ATOL + FP32_HEAD_RTOL * r.abs()).all()),
+              f"fp32 probing: head {h} through K5 vs the plain attention: max|d| {float(d.max())}")
+    print(f"fp32 probing: stenosis_config.yaml at precision fp32, DEEPCORO_FUSED_OUTPROJ=1, "
+          f"{PROBE_CLIPS} clips: a step launched K5 {counts['K5']} (fp32 SIMT), K3 "
+          f"{counts['K3']}, K4 {counts['K4']}; heads against the plain attention's max|d| "
+          f"{worst:.3e} (bars {FP32_HEAD_ATOL}+{FP32_HEAD_RTOL}|plain|) ok; step {step_ms:.1f} ms "
+          f"(host clock, synchronised), peak {peak:.2f} GiB | {CARD}", flush=True)
+    del bundle, state, step_fn, eval_fn, batch
+    torch.cuda.empty_cache()
+    return {"counts": counts, "times": {"step_ms": step_ms, "peak_gib": peak,
+                                        "heads_max_abs_diff": worst}}
+
+
+SIMT_NAMES = {
+    "K1": ("flash_attention_packed, fp32 and bf16 at Dh 256 to 512 (K1 on the SIMT kernels: "
+           "flash_fwd_f32_kernel<Dh>, flash_fwd_wide_bf16_kernel<Dh>)", KERNEL_SOURCE,
+           K1_REPLACES),
+    "K2": ("flash_attention_packed backward, fp32 and bf16 at Dh 256 to 512 (K2 on the SIMT "
+           "kernels: bwd_rows_f32_kernel, flash_bwd_dkv_f32_kernel, flash_bwd_dq_f32_kernel "
+           "and their _wide_bf16 forms)", BWD_SOURCE, K2_REPLACES),
+    "K3": ("flash_attention, fp32 above 64 tokens and every padded head dim (K3: "
+           "flash_fwd_f32_kernel, flash_fwd_wide_bf16_kernel, the long kernels at a padded "
+           "64 / 128)", KERNEL_SOURCE, K3_REPLACES),
+    "K4": ("flash_attention backward, fp32 above 64 tokens and every padded head dim (K4 on "
+           "the SIMT kernels and the long ones at a padded 64 / 128)", BWD_SOURCE,
+           K4_REPLACES),
+    "K5": ("flash_attention_packed(wo=), fp32 and bf16 at Dh 256 to 512 (K5 on the SIMT "
+           "kernel: flash_fwd_proj_f32_kernel<Dh>, flash_fwd_proj_wide_bf16_kernel<Dh>)",
+           PROJ_SOURCE, K5_REPLACES),
+    "K6": ("ring_attention(backend=\"rdma\"), fp32 and bf16 at Dh 256 to 512 (K6 on the SIMT "
+           "step: ring_step_f32_kernel<Dh>, ring_step_wide_bf16_kernel<Dh>)", RING_SOURCE,
+           K6_REPLACES),
+}
+
+
+def simt_entries(rows: dict, quality: dict, probe: dict, ranks: dict) -> list:
+    """The kernels line's entries of the SIMT routes: launches on their main
+    paths (phase 40's fp32 run for K1 to K4, phase 41's step for K5, phase
+    39's one-process pass for K6, with phase 34's ranks beside it), the
+    first row's numbers (the main path's shape) and every row under
+    ``shapes``."""
+    out = []
+    launches = {"K1": quality["counts"]["K1"], "K2": quality["counts"]["K2"],
+                "K3": quality["counts"]["K3"], "K4": quality["counts"]["K4"],
+                "K5": probe["counts"]["K5"], "K6": rows["K6"][0]["launches"]}
+    for key, (name, source, replaces) in SIMT_NAMES.items():
+        r = rows[key][0]
+        e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches[key],
+             "max_abs_err": max(x["max_abs_err"] for x in rows[key]),
+             **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             "shapes": rows[key]}
+        if key in ("K1", "K2", "K3", "K4"):
+            e["fp32_quality_train_launches"] = quality["counts"][key]
+        if key == "K5":
+            e["fp32_probe_step_launches"] = probe["counts"]["K5"]
+        if key == "K6":
+            e.update(ranks)
+        out.append(e)
+    return out
+
+
 def ddp_rank(torch, spec_path: str) -> int:
     """A rank of phase 32, 33, 34, 35, 37 or 38 (or of ``--drift``) under
     torch.distributed.run: runs its job, then each job of ``then`` in the
@@ -7487,7 +8197,7 @@ def _mark(label: str) -> None:
 
 
 def run_all(torch) -> dict:
-    """Phases 2 to 38; returns the "kernels" line."""
+    """Phases 2 to 41; returns the "kernels" line."""
     _STARTED[0] = time.perf_counter()
     build_kernels(torch, ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short",
                           "ring_attention"))
@@ -7509,6 +8219,7 @@ def run_all(torch) -> dict:
     kernels = phase_times(torch, engine, x, m, errs, launches)
     del engine, x, m
     torch.cuda.empty_cache()
+    _mark("phases 2 to 6")
 
     bwd_errs = phase_bwd_kernels(torch)
     # phase 20 here: traced after the training phases, a short call showed no
@@ -7516,6 +8227,7 @@ def run_all(torch) -> dict:
     short_errs = phase_short_kernels(torch)
     short_rt = short_routes(torch)
     routes = {"K2": bwd_routes(torch), "K4": short_rt["K4"]}
+    _mark("phases 7 and 20")
     bundle, state, step_fn, batch, gen, counts, times = phase_training(torch)
     phase_grad_e2e(torch, bundle)
     phase_train_profile(torch, state, step_fn, batch, gen)
@@ -7530,6 +8242,7 @@ def run_all(torch) -> dict:
     kernels["kernels"][0]["shapes"].append(k1_text)
     kernels["kernels"] += bwd_entries
     kernels["train_step"] = times
+    _mark("phases 8 to 10")
 
     proj_errs = phase_proj_kernels(torch)
     bundle, state, step_fn, batch, gen, p_counts, p_times = phase_probing(torch)
@@ -7553,6 +8266,7 @@ def run_all(torch) -> dict:
     kernels["probe_step"] = p_times
     del k5, row_k3, row_k4
     torch.cuda.empty_cache()
+    _mark("phases 11 to 15")
 
     ring = phase_ring_kernel(torch)
     ring["bwd_max_abs_err"] = phase_ring_grads(torch)
@@ -7645,6 +8359,26 @@ def run_all(torch) -> dict:
         _mark("phase 37")
         tp_probe = phase_tp_probe(torch, tp.pop("probe"))
         _mark("phase 38")
+        torch.cuda.empty_cache()
+        # (phases 27 to 38's trees, read by no later phase, go before phase
+        # 40 writes its fp32 checkpoints, so that the file system can give
+        # their blocks to those: the machine's disk budget counts every block
+        # the script first writes, deleted or not)
+        for name in ("probe", "clip", "deploy", "ddp_one", "ddp_quality", "ddp_steps",
+                     "ring_inputs.pt", "ring_one", "ring_main", "reference.pt",
+                     "converted.pt", "tp_quality"):
+            path = Path(corpus_root) / name
+            if path.is_dir():
+                shutil.rmtree(path)
+            else:
+                path.unlink(missing_ok=True)
+        fp32_quality = phase_fp32_quality_run(torch, manifest, world1["stats"])
+        _mark("phase 40")
+    torch.cuda.empty_cache()
+    simt = phase_simt_kernels(torch)
+    _mark("phase 39")
+    fp32_probe = phase_fp32_probe(torch)
+    _mark("phase 41")
     torch.cuda.empty_cache()
     long = phase_long_kernels(torch, siglip.pop("bank_mask"))
     for run, result in (("multitask", multitask), ("siglip", siglip),
@@ -7689,6 +8423,7 @@ def run_all(torch) -> dict:
     kernels["ddp_steps"] = {k: c["loss"] for k, c in ddp_steps.items()}
     # phases 34 to 36: K6 on each rank of the ring across processes, a rank's
     # launches over the ring run through main, K1 behind the importer
+    f32_ranks = ring_processes.pop("process_ring_f32")
     kernels["kernels"][5].update(ring_processes)
     for key, e in zip(("K1", "K3", "K2", "K4", "K5", "K6"), kernels["kernels"]):
         e["ring_main_launches_per_rank"] = ring_main["counts"][key]
@@ -7733,6 +8468,12 @@ def run_all(torch) -> dict:
                                        "device_ms", "library_device_ms")})
         e["shapes"] = rows
         kernels["kernels"].append(e)
+    # phases 39 to 41: the SIMT routes (fp32, bf16 at Dh 256 to 512) and the
+    # padded head dims, an entry each, with their main paths' launches
+    kernels["kernels"] += simt_entries(simt, fp32_quality, fp32_probe,
+                                       {"process_ring_f32": f32_ranks})
+    kernels["fp32_quality_train"] = fp32_quality["times"]
+    kernels["fp32_probe_step"] = fp32_probe["times"]
     return kernels
 
 

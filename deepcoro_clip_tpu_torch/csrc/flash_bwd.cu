@@ -1,16 +1,18 @@
 // Flash-attention backward for Hopper (sm_90a): bf16 in/out with fp32 sums on
-// the tensor cores (wgmma, TMA, mbarriers), and plain fp32 kernels for fp32
-// operands (below).
+// the tensor cores (wgmma, TMA, mbarriers), and SIMT kernels for fp32
+// operands and for bf16 at head dims 256 to 512 (below).
 //
 // Replaces two Pallas TPU kernels of deepcoro_clip_tpu:
 //   - ops/flash_attention_packed.py `_bwd_kernel` (K2: packed [B, L, H*Dh];
 //     in fused mode dq, dk, dv are written through strided views straight
-//     into one [B, L, 3D] gradient of the fused QKV tensor), Dh 128, on
-//     `flash_bwd_dkv_sm90_kernel` and `flash_bwd_dq_sm90_kernel`;
+//     into one [B, L, 3D] gradient of the fused QKV tensor), bf16 at Dh 128
+//     on `flash_bwd_dkv_sm90_kernel` and `flash_bwd_dq_sm90_kernel`, fp32
+//     and bf16 at Dh 256 to 512 on the SIMT kernels below;
 //   - ops/flash_attention.py `_bwd_kernel` (K4: [B, H, L, Dh]) where Lq or
-//     Lk exceeds 64, Dh 64 or 128, on `flash_long_bwd_dkv_kernel<D>` and
-//     `flash_long_bwd_dq_kernel<D>` (shorter calls run flash_short.cu in one
-//     launch).
+//     Lk exceeds 64 (or Dh exceeds 128), bf16 at Dh 64 or 128 on
+//     `flash_long_bwd_dkv_kernel<D>` and `flash_long_bwd_dq_kernel<D>`, fp32
+//     and bf16 at the padded widths 256 to 512 on the SIMT kernels (shorter
+//     calls at Dh <= 128 run flash_short.cu in one launch).
 // Each pair is one body (`bwd_dkv_sm90<D>`, `bwd_dq_sm90<D>` below) under two
 // names; every operand is a base pointer plus (batch, head, row) strides in
 // elements.
@@ -62,7 +64,8 @@
 // real key, and past the last row under causal masking, when every row of
 // the q tile has a real key): a dK/dV block whose keys no q tile reaches
 // writes zeros without looping, and the dQ loop stops at its tile's extent.
-// The fp32 kernels at the end serve fp32 operands of the [B, H, L, Dh] entry.
+// The SIMT kernels at the end serve fp32 operands of every layout (K2 and
+// K4 at Dh 64 to 512) and bf16 at Dh 256 to 512.
 //
 // Semantics kept from the plain version (ops/attention.py and
 // flash_bwd_plain): keys at index >= Lk do not exist (P = 0); masked keys
@@ -851,21 +854,33 @@ int launch_sm90(BwdParams p, int B, const __nv_bfloat16* o, long long o_sb, long
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- fp32 operands ----------------------------------------------------------
-// The same gradients with nothing rounded below fp32, without tensor cores:
-// one warp per row (a q row for dQ, a key for dK and dV), a lane per
-// partner row of a 32-row chunk for the two dot products, then every lane
-// adds the chunk's weighted rows into its own columns. No atomics: each
-// output row is summed by one warp in a fixed order.
+// ---- SIMT kernels: fp32 operands, and bf16 at Dh 256 to 512 ----------------
+// The same gradients without tensor cores, tiled as the SIMT forward
+// (flash_common.cuh, simt_attend_tiles): a block of 4 or 8 warps owns 16 or
+// 32 rows (q rows for dQ, keys for dK and dV), 4 a warp, held transposed in
+// shared memory; the partner rows (keys for dQ, q rows for dK and dV)
+// stream through shared memory 32 at a time, one a lane for the two dot
+// products, then every lane adds the tile's weighted rows into its own
+// columns. No atomics: each output row is summed by one warp in a fixed
+// order. fp32 operands (K2 and K4, every layout, D 64 to 512) round nothing
+// below fp32; bf16 at D 256 to 512 (K2 at those head dims, K4 at the padded
+// widths) rounds where the Hopper kernels round (bf16(P) for dV, bf16(dS)
+// for dQ and dK, the RoPE tables). In the fused layout dq, dk and dv are
+// column blocks of one [B, L, 3D] gradient: the dK/dV kernel writes the
+// dk and dv rows of its keys and the dQ kernel the dq rows of its queries,
+// each only its own columns, nothing is zeroed, so no kernel touches
+// another's block. What bounds them, as the forward: 10*Lq*Lk*D FLOP on the
+// CUDA cores, paced by the shared-memory pipe (PERF.md has their times).
 
-struct BwdParamsF32 {
-  const float* q;   // rotated already when RoPE is on
-  const float* k;   // rotated already when RoPE is on
-  const float* v;
-  const float* dout;
-  float* dq;
-  float* dk;
-  float* dv;
+template <typename T>
+struct BwdParamsSimt {
+  const T* q;   // rotated already when RoPE is on
+  const T* k;   // rotated already when RoPE is on
+  const T* v;
+  const T* dout;
+  T* dq;
+  T* dk;
+  T* dv;
   const float* rows;  // [3, B*H, Lq_pad]: m, 1/l, delta
   const float* sin;
   const float* cos;
@@ -883,21 +898,23 @@ struct BwdParamsF32 {
 };
 
 // Pre-pass: (m, 1/l, delta = rowsum(dO * O)) per row, one warp per row.
-template <int D>
-__global__ void __launch_bounds__(256) bwd_rows_f32_kernel(
-    const float* o, long long o_sb, long long o_sh, long long o_sl,
-    const float* dout, long long do_sb, long long do_sh, long long do_sl,
+template <typename T, int D>
+__device__ __forceinline__ void bwd_rows_simt(
+    const T* o, long long o_sb, long long o_sh, long long o_sl,
+    const T* dout, long long do_sb, long long do_sh, long long do_sl,
     const float* stats, float* rows, int H, int Lq, int Lq_pad) {
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int row = blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= Lq) return;
-  const float* orow = o + b * o_sb + h * o_sh + row * o_sl;
-  const float* drow = dout + b * do_sb + h * do_sh + row * do_sl;
+  const T* orow = o + b * o_sb + h * o_sh + row * o_sl;
+  const T* drow = dout + b * do_sb + h * do_sh + row * do_sl;
   float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) acc = fmaf(orow[lane + 32 * i], drow[lane + 32 * i], acc);
+  for (int i = 0; i < D / 32; ++i) {
+    acc = fmaf(to_f(orow[lane + 32 * i]), to_f(drow[lane + 32 * i]), acc);
+  }
   acc = warp_sum(acc);
   if (lane == 0) {
     const long long plane = (long long)gridDim.y * Lq_pad;
@@ -910,141 +927,303 @@ __global__ void __launch_bounds__(256) bwd_rows_f32_kernel(
 }
 
 template <int D>
-__global__ void __launch_bounds__(F32_WARPS * 32) flash_bwd_dq_f32_kernel(
-    const BwdParamsF32 p) {
-  constexpr int PER = D / 32;
-  __shared__ float qs[F32_WARPS][D], gs[F32_WARPS][D];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * F32_WARPS + warp;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  if (row >= p.Lq) return;
-  const float* qrow = p.q + b * p.q_sb + h * p.q_sh + row * p.q_sl;
-  const float* grow = p.dout + b * p.do_sb + h * p.do_sh + row * p.do_sl;
-  const float* kg = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vg = p.v + b * p.v_sb + h * p.v_sh;
-  const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    qs[warp][lane + 32 * i] = qrow[lane + 32 * i];
-    gs[warp][lane + 32 * i] = grow[lane + 32 * i];
-  }
-  __syncwarp();
-  const long long plane = (long long)gridDim.y * p.Lq_pad;
-  const float* rv = p.rows + (long long)bh * p.Lq_pad + row;
-  const float m = rv[0], il = rv[plane], delta = rv[2 * plane];
-
-  float acc[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) acc[i] = 0.f;
-  for (int j0 = 0; j0 < p.Lk; j0 += 32) {
-    const int key = j0 + lane;
-    float ds = 0.f;  // no gradient through a masked score
-    if (key < p.Lk && !((mrow != nullptr && mrow[key] == 0) || (p.causal && key > row))) {
-      const float s = dot_row<D>(qs[warp], kg + key * p.k_sl);
-      const float dp = dot_row<D>(gs[warp], vg + key * p.v_sl);
-      ds = exp2f(s * p.scale_log2 - m) * il * (dp - delta) * p.scale;
-    }
-    const int n = min(32, p.Lk - j0);
-    for (int jj = 0; jj < n; ++jj) {
-      const float dsv = __shfl_sync(FULL, ds, jj);
-      const float* krow = kg + (j0 + jj) * p.k_sl;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) acc[i] = fmaf(dsv, krow[lane + 32 * i], acc[i]);
-    }
-  }
-  store_row_f32<D>(acc, p.dq + b * p.dq_sb + h * p.dq_sh + row * p.dq_sl, p.sin, p.cos,
-                   row, lane);
+__global__ void __launch_bounds__(256) bwd_rows_f32_kernel(
+    const float* o, long long o_sb, long long o_sh, long long o_sl, const float* dout,
+    long long do_sb, long long do_sh, long long do_sl, const float* stats, float* rows, int H,
+    int Lq, int Lq_pad) {
+  bwd_rows_simt<float, D>(o, o_sb, o_sh, o_sl, dout, do_sb, do_sh, do_sl, stats, rows, H, Lq,
+                          Lq_pad);
 }
 
 template <int D>
-__global__ void __launch_bounds__(F32_WARPS * 32) flash_bwd_dkv_f32_kernel(
-    const BwdParamsF32 p) {
-  constexpr int PER = D / 32;
-  __shared__ float ks[F32_WARPS][D], vs[F32_WARPS][D];
+__global__ void __launch_bounds__(256) bwd_rows_wide_bf16_kernel(
+    const __nv_bfloat16* o, long long o_sb, long long o_sh, long long o_sl,
+    const __nv_bfloat16* dout, long long do_sb, long long do_sh, long long do_sl,
+    const float* stats, float* rows, int H, int Lq, int Lq_pad) {
+  bwd_rows_simt<__nv_bfloat16, D>(o, o_sb, o_sh, o_sl, dout, do_sb, do_sh, do_sl, stats, rows,
+                                  H, Lq, Lq_pad);
+}
+
+// Shared memory of the tiled dQ kernel, in floats: Q^T and dO^T [D][BQ + 4]
+// (a warp's 4 rows one float4), K and V [SBK][D + 1] (a lane reads its key's
+// row); of the dK/dV kernel: K^T and V^T [D][BK + 4] (a warp's 4 keys one
+// float4), the streamed Q and dO tiles [SBK][D + 1] (a lane reads its row).
+template <int D, int NW>
+struct BwdTiles {
+  static constexpr int B4 = NW * SR;  // the block's rows (dQ) or keys (dK/dV)
+  static constexpr int TLD = B4 + 4;
+  static constexpr int RLD = D + 1;
+  static constexpr int T1 = 0;
+  static constexpr int T2 = T1 + D * TLD;
+  static constexpr int R1 = T2 + D * TLD;
+  static constexpr int R2 = R1 + SBK * RLD;
+  static constexpr int BYTES = (R2 + SBK * RLD) * 4;
+};
+
+// dQ: a block owns B4 q rows (4 a warp) and streams the head's K and V in
+// tiles of 32 keys, a lane scoring one key against the warp's 4 rows (S and
+// dP from float4s of the transposed Q and dO tiles), then dQ += dS K with
+// the warp's dS shuffled key by key, in the order of the one-warp-a-row
+// version.
+template <typename T, int D>
+__device__ __forceinline__ void bwd_dq_simt(const BwdParamsSimt<T>& p) {
+  constexpr int NW = SIMT_WARPS<D>, PER = D / 32;
+  using S = BwdTiles<D, NW>;
+  extern __shared__ __align__(16) float simt_smem[];
+  float* qs = simt_smem + S::T1;
+  float* gs = simt_smem + S::T2;
+  float* ks = simt_smem + S::R1;
+  float* vs = simt_smem + S::R2;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int key = blockIdx.x * F32_WARPS + warp;
+  const int q0 = blockIdx.x * S::B4, row0 = q0 + SR * warp;
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
-  if (key >= p.Lk) return;
-  const float* krow = p.k + b * p.k_sb + h * p.k_sh + key * p.k_sl;
-  const float* vrow = p.v + b * p.v_sb + h * p.v_sh + key * p.v_sl;
-  const float* qg = p.q + b * p.q_sb + h * p.q_sh;
-  const float* gg = p.dout + b * p.do_sb + h * p.do_sh;
-  const bool kmasked = p.mask != nullptr && p.mask[(long long)b * p.Lk + key] == 0;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    ks[warp][lane + 32 * i] = krow[lane + 32 * i];
-    vs[warp][lane + 32 * i] = vrow[lane + 32 * i];
-  }
-  __syncwarp();
+  const T* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const T* vg = p.v + b * p.v_sb + h * p.v_sh;
+  const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
+  load_tile_cols<T, D>(qs, S::TLD, p.q + b * p.q_sb + h * p.q_sh, p.q_sl, q0, S::B4, p.Lq,
+                       nullptr, nullptr);
+  load_tile_cols<T, D>(gs, S::TLD, p.dout + b * p.do_sb + h * p.do_sh, p.do_sl, q0, S::B4,
+                       p.Lq, nullptr, nullptr);
   const long long plane = (long long)gridDim.y * p.Lq_pad;
   const float* rv = p.rows + (long long)bh * p.Lq_pad;
-
-  float dk[PER], dv[PER];
+  float m[SR], il[SR], delta[SR], acc[SR][PER];
 #pragma unroll
-  for (int i = 0; i < PER; ++i) dk[i] = dv[i] = 0.f;
-  for (int i0 = 0; i0 < p.Lq; i0 += 32) {
-    const int qi = i0 + lane;
-    float prob = 0.f, ds = 0.f;
-    if (qi < p.Lq) {
-      const bool masked = kmasked || (p.causal && key > qi);
-      const float s = dot_row<D>(ks[warp], qg + qi * p.q_sl);
-      const float x = masked ? -FLT_MAX : s * p.scale_log2;
-      // a row with no valid key has m = -FLT_MAX: P = 1/Lk on every key
-      prob = exp2f(x - rv[qi]) * rv[plane + qi];
-      if (!masked) {
-        const float dp = dot_row<D>(vs[warp], gg + qi * p.do_sl);
-        ds = prob * (dp - rv[2 * plane + qi]) * p.scale;
-      }
+  for (int r = 0; r < SR; ++r) {
+    const int row = row0 + r;  // a row past Lq: P = 0, so dS = 0 (never stored)
+    m[r] = row < p.Lq ? rv[row] : 0.f;
+    il[r] = row < p.Lq ? rv[plane + row] : 0.f;
+    delta[r] = row < p.Lq ? rv[2 * plane + row] : 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) acc[r][i] = 0.f;
+  }
+  for (int j0 = 0; j0 < p.Lk; j0 += SBK) {
+    __syncthreads();
+    load_tile_rows<T, D>(ks, S::RLD, kg, p.k_sl, j0, SBK, p.Lk);
+    load_tile_rows<T, D>(vs, S::RLD, vg, p.v_sl, j0, SBK, p.Lk);
+    __syncthreads();
+    const int key = j0 + lane;
+    float sc[SR] = {0.f, 0.f, 0.f, 0.f}, dp[SR] = {0.f, 0.f, 0.f, 0.f};
+    const float* krow = ks + lane * S::RLD;
+    const float* vrow = vs + lane * S::RLD;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float kv = krow[d], vv = vrow[d];
+      const float4 q4 = *reinterpret_cast<const float4*>(qs + d * S::TLD + SR * warp);
+      const float4 g4 = *reinterpret_cast<const float4*>(gs + d * S::TLD + SR * warp);
+      sc[0] = fmaf(q4.x, kv, sc[0]); sc[1] = fmaf(q4.y, kv, sc[1]);
+      sc[2] = fmaf(q4.z, kv, sc[2]); sc[3] = fmaf(q4.w, kv, sc[3]);
+      dp[0] = fmaf(g4.x, vv, dp[0]); dp[1] = fmaf(g4.y, vv, dp[1]);
+      dp[2] = fmaf(g4.z, vv, dp[2]); dp[3] = fmaf(g4.w, vv, dp[3]);
     }
-    const int n = min(32, p.Lq - i0);
-    for (int ii = 0; ii < n; ++ii) {
-      const float pv = __shfl_sync(FULL, prob, ii);
-      const float dsv = __shfl_sync(FULL, ds, ii);
-      const float* grow = gg + (i0 + ii) * p.do_sl;
-      const float* qrow = qg + (i0 + ii) * p.q_sl;
+    const bool open = key < p.Lk && !(mrow != nullptr && mrow[key] == 0);
+    float ds[SR];
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {  // no gradient through a masked score
+      ds[r] = (open && !(p.causal && key > row0 + r))
+                  ? round_to<T>(exp2f(sc[r] * p.scale_log2 - m[r]) * il[r] * (dp[r] - delta[r]) *
+                                p.scale)
+                  : 0.f;
+    }
+    const int n = min(SBK, p.Lk - j0);
+    for (int jj = 0; jj < n; ++jj) {
+      float dv_[SR];
+#pragma unroll
+      for (int r = 0; r < SR; ++r) dv_[r] = __shfl_sync(FULL, ds[r], jj);
+      const float* kr = ks + jj * S::RLD + lane;
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
-        dv[i] = fmaf(pv, grow[lane + 32 * i], dv[i]);
-        dk[i] = fmaf(dsv, qrow[lane + 32 * i], dk[i]);
+        const float kv = kr[32 * i];
+#pragma unroll
+        for (int r = 0; r < SR; ++r) acc[r][i] = fmaf(dv_[r], kv, acc[r][i]);
       }
     }
   }
-  store_row_f32<D>(dv, p.dv + b * p.dv_sb + h * p.dv_sh + key * p.dv_sl, nullptr, nullptr,
-                   key, lane);
-  store_row_f32<D>(dk, p.dk + b * p.dk_sb + h * p.dk_sh + key * p.dk_sl, p.sin, p.cos,
-                   key, lane);
+#pragma unroll
+  for (int r = 0; r < SR; ++r) {
+    const int row = row0 + r;
+    if (row < p.Lq) {
+      store_row<T, D>(acc[r], p.dq + b * p.dq_sb + h * p.dq_sh + row * p.dq_sl, p.sin, p.cos,
+                      row, lane);
+    }
+  }
+}
+
+// dK and dV: a block owns B4 keys (4 a warp) and streams the head's q rows
+// and dO in tiles of 32, a lane taking one q row against the warp's 4 keys
+// (S^T and dP^T from float4s of the transposed K and V tiles), then dV +=
+// P^T dO and dK += dS^T Q with the warp's P and dS shuffled row by row.
+template <typename T, int D>
+__device__ __forceinline__ void bwd_dkv_simt(const BwdParamsSimt<T>& p) {
+  constexpr int NW = SIMT_WARPS<D>, PER = D / 32;
+  using S = BwdTiles<D, NW>;
+  extern __shared__ __align__(16) float simt_smem[];
+  float* kt = simt_smem + S::T1;
+  float* vt = simt_smem + S::T2;
+  float* qs = simt_smem + S::R1;
+  float* gs = simt_smem + S::R2;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = blockIdx.x * S::B4, key0 = k0 + SR * warp;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const T* qg = p.q + b * p.q_sb + h * p.q_sh;
+  const T* gg = p.dout + b * p.do_sb + h * p.do_sh;
+  load_tile_cols<T, D>(kt, S::TLD, p.k + b * p.k_sb + h * p.k_sh, p.k_sl, k0, S::B4, p.Lk,
+                       nullptr, nullptr);
+  load_tile_cols<T, D>(vt, S::TLD, p.v + b * p.v_sb + h * p.v_sh, p.v_sl, k0, S::B4, p.Lk,
+                       nullptr, nullptr);
+  bool kmasked[SR];
+  float dk[SR][PER], dv[SR][PER];
+#pragma unroll
+  for (int r = 0; r < SR; ++r) {
+    const int key = key0 + r;
+    kmasked[r] = key < p.Lk && p.mask != nullptr && p.mask[(long long)b * p.Lk + key] == 0;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) dk[r][i] = dv[r][i] = 0.f;
+  }
+  const long long plane = (long long)gridDim.y * p.Lq_pad;
+  const float* rv = p.rows + (long long)bh * p.Lq_pad;
+  for (int i0 = 0; i0 < p.Lq; i0 += SBK) {
+    __syncthreads();
+    load_tile_rows<T, D>(qs, S::RLD, qg, p.q_sl, i0, SBK, p.Lq);
+    load_tile_rows<T, D>(gs, S::RLD, gg, p.do_sl, i0, SBK, p.Lq);
+    __syncthreads();
+    const int qi = i0 + lane;
+    float sc[SR] = {0.f, 0.f, 0.f, 0.f}, dp[SR] = {0.f, 0.f, 0.f, 0.f};
+    const float* qrow = qs + lane * S::RLD;
+    const float* grow = gs + lane * S::RLD;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float qv = qrow[d], gv = grow[d];
+      const float4 k4 = *reinterpret_cast<const float4*>(kt + d * S::TLD + SR * warp);
+      const float4 v4 = *reinterpret_cast<const float4*>(vt + d * S::TLD + SR * warp);
+      sc[0] = fmaf(k4.x, qv, sc[0]); sc[1] = fmaf(k4.y, qv, sc[1]);
+      sc[2] = fmaf(k4.z, qv, sc[2]); sc[3] = fmaf(k4.w, qv, sc[3]);
+      dp[0] = fmaf(v4.x, gv, dp[0]); dp[1] = fmaf(v4.y, gv, dp[1]);
+      dp[2] = fmaf(v4.z, gv, dp[2]); dp[3] = fmaf(v4.w, gv, dp[3]);
+    }
+    float prob[SR] = {0.f, 0.f, 0.f, 0.f}, ds[SR] = {0.f, 0.f, 0.f, 0.f};
+    if (qi < p.Lq) {
+      const float mq = rv[qi], ilq = rv[plane + qi], dlt = rv[2 * plane + qi];
+#pragma unroll
+      for (int r = 0; r < SR; ++r) {
+        const bool masked = kmasked[r] || (p.causal && key0 + r > qi);
+        const float x = masked ? -FLT_MAX : sc[r] * p.scale_log2;
+        // a row with no valid key has m = -FLT_MAX: P = 1/Lk on every key
+        const float pr = exp2f(x - mq) * ilq;
+        if (!masked) ds[r] = round_to<T>(pr * (dp[r] - dlt) * p.scale);
+        prob[r] = round_to<T>(pr);
+      }
+    }
+    const int n = min(SBK, p.Lq - i0);
+    for (int ii = 0; ii < n; ++ii) {
+      float pv[SR], dsv[SR];
+#pragma unroll
+      for (int r = 0; r < SR; ++r) {
+        pv[r] = __shfl_sync(FULL, prob[r], ii);
+        dsv[r] = __shfl_sync(FULL, ds[r], ii);
+      }
+      const float* gr = gs + ii * S::RLD + lane;
+      const float* qr = qs + ii * S::RLD + lane;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const float gv = gr[32 * i], qv = qr[32 * i];
+#pragma unroll
+        for (int r = 0; r < SR; ++r) {
+          dv[r][i] = fmaf(pv[r], gv, dv[r][i]);
+          dk[r][i] = fmaf(dsv[r], qv, dk[r][i]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < SR; ++r) {
+    const int key = key0 + r;
+    if (key >= p.Lk) continue;
+    store_row<T, D>(dv[r], p.dv + b * p.dv_sb + h * p.dv_sh + key * p.dv_sl, nullptr, nullptr,
+                    key, lane);
+    store_row<T, D>(dk[r], p.dk + b * p.dk_sb + h * p.dk_sh + key * p.dk_sl, p.sin, p.cos, key,
+                    lane);
+  }
+}
+
+// fp32 operands, every layout: K2 and K4.
+template <int D>
+__global__ void __launch_bounds__(SIMT_WARPS<D> * 32) flash_bwd_dq_f32_kernel(
+    const BwdParamsSimt<float> p) {
+  bwd_dq_simt<float, D>(p);
 }
 
 template <int D>
-cudaError_t launch_f32(BwdParamsF32 p, int B, const float* o, long long o_sb, long long o_sh,
-                       long long o_sl, const float* stats, float* rows, float* q_rot,
-                       float* k_rot, cudaStream_t stream) {
+__global__ void __launch_bounds__(SIMT_WARPS<D> * 32) flash_bwd_dkv_f32_kernel(
+    const BwdParamsSimt<float> p) {
+  bwd_dkv_simt<float, D>(p);
+}
+
+// bf16 at D 256 to 512: K2 at those head dims, K4 at the padded widths.
+template <int D>
+__global__ void __launch_bounds__(SIMT_WARPS<D> * 32) flash_bwd_dq_wide_bf16_kernel(
+    const BwdParamsSimt<__nv_bfloat16> p) {
+  bwd_dq_simt<__nv_bfloat16, D>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(SIMT_WARPS<D> * 32) flash_bwd_dkv_wide_bf16_kernel(
+    const BwdParamsSimt<__nv_bfloat16> p) {
+  bwd_dkv_simt<__nv_bfloat16, D>(p);
+}
+
+template <typename T, int D>
+cudaError_t launch_simt(BwdParamsSimt<T> p, int B, const T* o, long long o_sb,
+                        long long o_sh, long long o_sl, const float* stats, float* rows,
+                        T* q_rot, T* k_rot, cudaStream_t stream) {
   cudaError_t err;
   if (p.sin != nullptr) {  // rotate q and k once into the scratch copies
-    err = launch_rope_rows_f32<D>(p.q, p.q_sb, p.q_sh, p.q_sl, B, p.H, p.Lq, p.sin, p.cos,
-                                  q_rot, stream);
+    err = launch_rope_rows_t<D>(p.q, p.q_sb, p.q_sh, p.q_sl, B, p.H, p.Lq, p.sin, p.cos,
+                                q_rot, stream);
     if (err != cudaSuccess) return err;
-    err = launch_rope_rows_f32<D>(p.k, p.k_sb, p.k_sh, p.k_sl, B, p.H, p.Lk, p.sin, p.cos,
-                                  k_rot, stream);
+    err = launch_rope_rows_t<D>(p.k, p.k_sb, p.k_sh, p.k_sl, B, p.H, p.Lk, p.sin, p.cos,
+                                k_rot, stream);
     if (err != cudaSuccess) return err;
     p.q = q_rot;
     p.q_sb = (long long)p.H * p.Lq * D; p.q_sh = (long long)p.Lq * D; p.q_sl = D;
     p.k = k_rot;
     p.k_sb = (long long)p.H * p.Lk * D; p.k_sh = (long long)p.Lk * D; p.k_sl = D;
   }
-  bwd_rows_f32_kernel<D><<<dim3((p.Lq + 7) / 8, B * p.H), 256, 0, stream>>>(
-      o, o_sb, o_sh, o_sl, p.dout, p.do_sb, p.do_sh, p.do_sl, stats, rows, p.H, p.Lq,
-      p.Lq_pad);
+  const dim3 grows((p.Lq + 7) / 8, B * p.H);
+  if constexpr (sizeof(T) == 4) {
+    bwd_rows_f32_kernel<D><<<grows, 256, 0, stream>>>(o, o_sb, o_sh, o_sl, p.dout, p.do_sb,
+                                                      p.do_sh, p.do_sl, stats, rows, p.H,
+                                                      p.Lq, p.Lq_pad);
+  } else {
+    bwd_rows_wide_bf16_kernel<D><<<grows, 256, 0, stream>>>(o, o_sb, o_sh, o_sl, p.dout,
+                                                            p.do_sb, p.do_sh, p.do_sl, stats,
+                                                            rows, p.H, p.Lq, p.Lq_pad);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_f32_kernel<D>
-      <<<dim3((p.Lk + F32_WARPS - 1) / F32_WARPS, B * p.H), F32_WARPS * 32, 0, stream>>>(p);
-  err = cudaGetLastError();
+  using S = BwdTiles<D, SIMT_WARPS<D>>;
+  const void* kdkv;
+  const void* kdq;
+  if constexpr (sizeof(T) == 4) {
+    kdkv = reinterpret_cast<const void*>(&flash_bwd_dkv_f32_kernel<D>);
+    kdq = reinterpret_cast<const void*>(&flash_bwd_dq_f32_kernel<D>);
+  } else {
+    kdkv = reinterpret_cast<const void*>(&flash_bwd_dkv_wide_bf16_kernel<D>);
+    kdq = reinterpret_cast<const void*>(&flash_bwd_dq_wide_bf16_kernel<D>);
+  }
+  static bool ready_kv[MAX_DEVICES] = {}, ready_q[MAX_DEVICES] = {};
+  err = allow_smem_once(kdkv, S::BYTES, ready_kv);
+  if (err == cudaSuccess) err = allow_smem_once(kdq, S::BYTES, ready_q);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_f32_kernel<D>
-      <<<dim3((p.Lq + F32_WARPS - 1) / F32_WARPS, B * p.H), F32_WARPS * 32, 0, stream>>>(p);
+  void* args[] = {&p};
+  const dim3 block(SIMT_WARPS<D> * 32);
+  err = cudaLaunchKernel(kdkv, dim3((p.Lk + S::B4 - 1) / S::B4, B * p.H), block, args,
+                         S::BYTES, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernel(kdq, dim3((p.Lq + S::B4 - 1) / S::B4, B * p.H), block, args,
+                         S::BYTES, stream);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1112,6 +1291,67 @@ int bwd_bf16(bool long_entry, BWD_ARGS) {
   }
 }
 
+// The SIMT entries: fp32 at Dh 64 to 512, bf16 at Dh 256 to 512.
+template <typename T>
+int bwd_simt(BWD_ARGS) {
+  BwdParamsSimt<T> p;
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.dout = static_cast<const T*>(dout);
+  p.dq = static_cast<T*>(dq);
+  p.dk = static_cast<T*>(dk);
+  p.dv = static_cast<T*>(dv);
+  p.rows = static_cast<const float*>(rows);
+  p.sin = static_cast<const float*>(sin);
+  p.cos = static_cast<const float*>(cos);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
+  p.do_sb = do_sb; p.do_sh = do_sh; p.do_sl = do_sl;
+  p.dq_sb = dq_sb; p.dq_sh = dq_sh; p.dq_sl = dq_sl;
+  p.dk_sb = dk_sb; p.dk_sh = dk_sh; p.dk_sl = dk_sl;
+  p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_sl = dv_sl;
+  p.H = H; p.Lq = Lq; p.Lk = Lk;
+  p.Lq_pad = (Lq + BQ - 1) / BQ * BQ;
+  p.scale = scale;
+  p.scale_log2 = scale * LOG2E;
+  p.causal = causal;
+  if (stats == nullptr || rows == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (sin != nullptr && (q_rot == nullptr || k_rot == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const T* ob = static_cast<const T*>(o);
+  const float* st = static_cast<const float*>(stats);
+  float* rw = static_cast<float*>(rows);
+  T* qr = static_cast<T*>(q_rot);
+  T* kr = static_cast<T*>(k_rot);
+  cudaStream_t sm = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (Dh) {
+    case 64:  // fp32 only: bf16 runs the Hopper kernels there
+      if constexpr (sizeof(T) == 4) {
+        err = launch_simt<T, 64>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
+        break;
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+    case 128:  // fp32 only: bf16 runs the Hopper kernels there
+      if constexpr (sizeof(T) == 4) {
+        err = launch_simt<T, 128>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
+        break;
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+    case 256: err = launch_simt<T, 256>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm); break;
+    case 384: err = launch_simt<T, 384>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm); break;
+    case 512: err = launch_simt<T, 512>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1165,51 +1405,10 @@ int deepcoro_flash_bwd_sm90_attrs(int which, int Dh, int* regs, int* smem) {
   return 0;
 }
 
-// fp32 operands of the [B, H, L, Dh] entry, Dh 64 or 128, on the fp32
-// kernels above.
-int deepcoro_flash_bwd_f32(BWD_ARGS) {
-  BwdParamsF32 p;
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.dout = static_cast<const float*>(dout);
-  p.dq = static_cast<float*>(dq);
-  p.dk = static_cast<float*>(dk);
-  p.dv = static_cast<float*>(dv);
-  p.rows = static_cast<const float*>(rows);
-  p.sin = static_cast<const float*>(sin);
-  p.cos = static_cast<const float*>(cos);
-  p.mask = static_cast<const uint8_t*>(mask);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
-  p.do_sb = do_sb; p.do_sh = do_sh; p.do_sl = do_sl;
-  p.dq_sb = dq_sb; p.dq_sh = dq_sh; p.dq_sl = dq_sl;
-  p.dk_sb = dk_sb; p.dk_sh = dk_sh; p.dk_sl = dk_sl;
-  p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_sl = dv_sl;
-  p.H = H; p.Lq = Lq; p.Lk = Lk;
-  p.Lq_pad = (Lq + BQ - 1) / BQ * BQ;
-  p.scale = scale;
-  p.scale_log2 = scale * LOG2E;
-  p.causal = causal;
-  if (stats == nullptr || rows == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (sin != nullptr && (q_rot == nullptr || k_rot == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const float* ob = static_cast<const float*>(o);
-  const float* st = static_cast<const float*>(stats);
-  float* rw = static_cast<float*>(rows);
-  float* qr = static_cast<float*>(q_rot);
-  float* kr = static_cast<float*>(k_rot);
-  cudaStream_t sm = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 64:
-      return static_cast<int>(launch_f32<64>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm));
-    case 128:
-      return static_cast<int>(launch_f32<128>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
+// fp32 operands of every layout, Dh 64, 128, 256, 384 or 512, and bf16 at
+// Dh 256, 384 or 512, on the SIMT kernels above.
+int deepcoro_flash_bwd_f32(BWD_ARGS) { return bwd_simt<float>(BWD_NAMES); }
+
+int deepcoro_flash_wide_bwd_bf16(BWD_ARGS) { return bwd_simt<__nv_bfloat16>(BWD_NAMES); }
 
 }  // extern "C"

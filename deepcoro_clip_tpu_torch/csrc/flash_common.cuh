@@ -399,15 +399,36 @@ cudaError_t launch_rope_rows(const __nv_bfloat16* x, long long sb, long long sh,
   return cudaGetLastError();
 }
 
-// ---- fp32 operands ----------------------------------------------------------
-// The fp32 kernels (flash_fwd.cu, flash_bwd.cu) serve the small attentions
-// that the models run in fp32 (the probing head's transformer over a
-// study's videos). They use no tensor cores: one warp owns one row, a lane
-// owns the columns lane, lane + 32, ... of it, and every product is an fp32
-// FMA, so nothing is rounded below fp32.
+// ---- SIMT kernels: fp32 operands, and bf16 at Dh 256 to 512 ---------------
+// The SIMT kernels (flash_fwd.cu, flash_bwd.cu, flash_fwd_proj.cu,
+// ring_attention.cu) serve what the tensor-core kernels do not take: the
+// fp32 calls past the short kernels of flash_short.cu (every attention of a
+// model built with `precision: fp32` but its aggregator's) and the bf16
+// calls at head dims of 256 to 512.
+// They use no tensor cores: a warp owns 4 rows, a lane owns the columns
+// lane, lane + 32, ... of each, and every product is an fp32 FMA. Operands of
+// type T (float or bf16) are read into fp32; in bf16 the values are rounded
+// where the plain version rounds them (P before P V, dS before its
+// products, the RoPE tables and products), in fp32 nothing is rounded below
+// fp32. The head dims are 64 to 512: D / 32 columns a lane.
 
-constexpr int F32_WARPS = 4;  // rows per block
 constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T's precision, as a float: the identity for fp32.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -421,13 +442,157 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Dot product of a row in shared memory with a row in device memory.
+// One element of rotate-half RoPE, x * cos + partner * sin (the partner of
+// column d < D/2 is -x[d + D/2], of the others x[d - D/2]): in fp32 as it
+// is; in bf16 with the tables rounded to bf16 and each product and the sum
+// rounded, as rope_pair rounds (the plain version's elementwise bf16 ops).
+template <typename T>
+__device__ __forceinline__ float rope_elem(float x, float partner, float s, float c) {
+  if constexpr (sizeof(T) == 4) {
+    return x * c + partner * s;
+  } else {
+    return round_to<T>(round_to<T>(x * round_to<T>(c)) + round_to<T>(partner * round_to<T>(s)));
+  }
+}
+
+// ---- tiled SIMT attention ---------------------------------------------------
+// The forward of K1 / K3 and the ring step (K6) on the CUDA cores, a block
+// of NW warps over one (batch, head): a warp owns SR = 4 query rows, so a
+// block owns BQ = 4 NW rows, and the keys stream through shared memory in
+// tiles of SBK = 32, one key a lane. Each K and V tile is read from device
+// memory once a block (coalesced, a row a warp-wide load) for its 4 NW
+// rows; a lane scores its key against the warp's 4 rows with one shared K
+// value and one float4 of the transposed Q tile an FMA quad, the warp
+// reduces each row's maximum and sum, and every lane adds the tile's
+// weighted value rows into its own columns. NW is 8 up to D 256 and 4
+// above, so that the
+// tiles fit (FwdTiles). Rows past the operand's end are zero in Q and never
+// stored; keys past Lk are zero in K and V and have probability exactly 0.
+
+constexpr int SR = 4;    // rows (the dK/dV kernel: keys) a warp owns
+constexpr int SBK = 32;  // keys (the dK/dV kernel: q rows) a streamed tile: one a lane
+
 template <int D>
-__device__ __forceinline__ float dot_row(const float* s, const float* g) {
-  float acc = 0.f;
+constexpr int SIMT_WARPS = D <= 256 ? 8 : 4;
+
+// Shared memory of the tiled forward, in floats: Q^T [D][BQ + 4] (the rows
+// of a column 16-byte aligned for the float4 reads, and fewer bank conflicts
+// on the transposing store), K [SBK][D + 1] (a lane reads its key's row:
+// conflict-free), V [SBK][D].
+template <int D, int NW>
+struct FwdTiles {
+  static constexpr int BQ = NW * SR;
+  static constexpr int QLD = BQ + 4;
+  static constexpr int KLD = D + 1;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + D * QLD;
+  static constexpr int V = K + SBK * KLD;
+  static constexpr int BYTES = (V + SBK * D) * 4;
+};
+
+// Rows [r0, r0 + n) of a [L, D] operand of type T (rows `sl` apart) into
+// shared fp32 rows dst[r * ld + d], a row a warp-wide coalesced load; rows
+// at or past L are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile_rows(float* dst, int ld, const T* g, long long sl,
+                                               int r0, int n, int L) {
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
+    const int r = i / D, d = i % D;
+    dst[r * ld + d] = r0 + r < L ? to_f(g[(long long)(r0 + r) * sl + d]) : 0.f;
+  }
+}
+
+// The same rows transposed, dst[d * ld + r], rotated by RoPE (the operand
+// type's rounding, rope_elem) when `sin` is given.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile_cols(float* dst, int ld, const T* g, long long sl,
+                                               int r0, int n, int L, const float* sin,
+                                               const float* cos) {
+  constexpr int HALF = D / 2;
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
+    const int r = i / D, d = i % D, row = r0 + r;
+    float x = 0.f;
+    if (row < L) {
+      const T* gr = g + (long long)row * sl;
+      x = to_f(gr[d]);
+      if (sin != nullptr) {
+        const float xp = d < HALF ? -to_f(gr[d + HALF]) : to_f(gr[d - HALF]);
+        x = rope_elem<T>(x, xp, sin[(long long)row * D + d], cos[(long long)row * D + d]);
+      }
+    }
+    dst[d * ld + r] = x;
+  }
+}
+
+// The online softmax of the block's BQ query rows q0 .. (warp w: rows q0 +
+// SR w + r) over the keys [0, Lk) of one head, continuing the state (m in
+// log2 units with the scale folded in, l, acc; m = -inf, l = 0, acc = 0 is
+// the empty state). Masked keys (mask byte 0, or key > row under causal
+// masking) score -FLT_MAX; in bf16, P is rounded to bf16 before P V and l
+// sums the fp32 P. Every thread of the block calls it (it synchronises the
+// block).
+template <typename T, int D, int NW>
+__device__ __forceinline__ void simt_attend_tiles(
+    float* smem, const T* qg, long long q_sl, int q0, int Lq, const float* sin,
+    const float* cos, const T* kg, long long k_sl, const T* vg, long long v_sl,
+    const uint8_t* mrow, int Lk, int causal, float scale_log2, float (&acc)[SR][D / 32],
+    float (&m)[SR], float (&l)[SR]) {
+  static_assert(SR == 4, "a warp's rows are one float4 of the transposed Q tile");
+  using S = FwdTiles<D, NW>;
+  constexpr int PER = D / 32;
+  float* qs = smem + S::Q;
+  float* ks = smem + S::K;
+  float* vs = smem + S::V;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = q0 + SR * warp;
+  load_tile_cols<T, D>(qs, S::QLD, qg, q_sl, q0, S::BQ, Lq, sin, cos);
+  for (int j0 = 0; j0 < Lk; j0 += SBK) {
+    __syncthreads();  // Q is written; the last tile's readers are done
+    load_tile_rows<T, D>(ks, S::KLD, kg, k_sl, j0, SBK, Lk);
+    load_tile_rows<T, D>(vs, D, vg, v_sl, j0, SBK, Lk);
+    __syncthreads();
+    const int key = j0 + lane;
+    float s[SR] = {0.f, 0.f, 0.f, 0.f};
+    const float* krow = ks + lane * S::KLD;
+    const float* qcol = qs + SR * warp;
 #pragma unroll 8
-  for (int d = 0; d < D; ++d) acc = fmaf(s[d], g[d], acc);
-  return acc;
+    for (int d = 0; d < D; ++d) {
+      const float kv = krow[d];
+      const float4 q4 = *reinterpret_cast<const float4*>(qcol + d * S::QLD);
+      s[0] = fmaf(q4.x, kv, s[0]);
+      s[1] = fmaf(q4.y, kv, s[1]);
+      s[2] = fmaf(q4.z, kv, s[2]);
+      s[3] = fmaf(q4.w, kv, s[3]);
+    }
+    const bool live = key < Lk;
+    const bool kmasked = live && mrow != nullptr && mrow[key] == 0;
+    float pj[SR];
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+      float x = -INFINITY;  // a key that does not exist: probability exactly 0
+      if (live) x = (kmasked || (causal && key > row0 + r)) ? -FLT_MAX : s[r] * scale_log2;
+      const float m_new = fmaxf(m[r], warp_max(x));  // key j0 exists: finite
+      const float alpha = exp2f(m[r] - m_new);
+      pj[r] = exp2f(x - m_new);
+      l[r] = l[r] * alpha + warp_sum(pj[r]);
+      m[r] = m_new;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) acc[r][i] *= alpha;
+    }
+    const int n = min(SBK, Lk - j0);
+    for (int jj = 0; jj < n; ++jj) {
+      float pv[SR];
+#pragma unroll
+      for (int r = 0; r < SR; ++r) pv[r] = round_to<T>(__shfl_sync(FULL, pj[r], jj));
+      const float* vrow = vs + jj * D + lane;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const float vv = vrow[32 * i];
+#pragma unroll
+        for (int r = 0; r < SR; ++r) acc[r][i] = fmaf(pv[r], vv, acc[r][i]);
+      }
+    }
+  }
 }
 
 // fp32 RoPE pre-pass: x [B, H, L, D] (strided) -> out [B, H, L, D]
@@ -460,13 +625,29 @@ cudaError_t launch_rope_rows_f32(const float* x, long long sb, long long sh, lon
   return cudaGetLastError();
 }
 
+// The RoPE pre-pass of the operand type: the fp32 one, or the bf16 one with
+// the forward's rounding (rope_rows_kernel).
+template <int D>
+cudaError_t launch_rope_rows_t(const float* x, long long sb, long long sh, long long sl, int B,
+                               int H, int L, const float* sin, const float* cos, float* out,
+                               cudaStream_t stream) {
+  return launch_rope_rows_f32<D>(x, sb, sh, sl, B, H, L, sin, cos, out, stream);
+}
+
+template <int D>
+cudaError_t launch_rope_rows_t(const __nv_bfloat16* x, long long sb, long long sh,
+                               long long sl, int B, int H, int L, const float* sin,
+                               const float* cos, __nv_bfloat16* out, cudaStream_t stream) {
+  return launch_rope_rows<D>(x, sb, sh, sl, B, H, L, sin, cos, out, stream);
+}
+
 // Transpose of rotate-half RoPE on a row held as columns lane + 32 i (the
 // partner of column d < D/2 is d + D/2: index i + PER/2 of the same lane),
-// then the store.
-template <int D>
-__device__ __forceinline__ void store_row_f32(float (&acc)[D / 32], float* out,
-                                              const float* sin, const float* cos,
-                                              int row, int lane) {
+// in fp32 with the tables rounded to T as the forward used them, then the
+// store in T.
+template <typename T, int D>
+__device__ __forceinline__ void store_row(float (&acc)[D / 32], T* out, const float* sin,
+                                          const float* cos, int row, int lane) {
   constexpr int PER = D / 32;
   if (sin != nullptr) {
     const float* sr = sin + (long long)row * D;
@@ -475,12 +656,12 @@ __device__ __forceinline__ void store_row_f32(float (&acc)[D / 32], float* out,
     for (int i = 0; i < PER / 2; ++i) {
       const int d = lane + 32 * i, d2 = d + D / 2;
       const float g1 = acc[i], g2 = acc[i + PER / 2];
-      acc[i] = g1 * cr[d] + g2 * sr[d2];
-      acc[i + PER / 2] = g2 * cr[d2] - g1 * sr[d];
+      acc[i] = g1 * round_to<T>(cr[d]) + g2 * round_to<T>(sr[d2]);
+      acc[i + PER / 2] = g2 * round_to<T>(cr[d2]) - g1 * round_to<T>(sr[d]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < PER; ++i) out[lane + 32 * i] = acc[i];
+  for (int i = 0; i < PER; ++i) out[lane + 32 * i] = from_f<T>(acc[i]);
 }
 
 }  // namespace

@@ -1,14 +1,18 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 in/out with fp32 softmax
-// on the tensor cores (wgmma, TMA, mbarriers), and a plain fp32 kernel for
-// fp32 operands (below).
+// on the tensor cores (wgmma, TMA, mbarriers), and SIMT kernels for fp32
+// operands and for bf16 at head dims 256 to 512 (below).
 //
 // Replaces two Pallas TPU kernels of deepcoro_clip_tpu:
 //   - ops/flash_attention_packed.py `_fwd_kernel` (K1: packed [B, L, H*Dh],
 //     with q/k/v read as strided views of one fused [B, L, 3D] QKV tensor),
-//     Dh 128, on `flash_fwd_sm90_kernel`;
+//     bf16 at Dh 128 on `flash_fwd_sm90_kernel`; fp32 at Dh 128 to 512 on
+//     `flash_fwd_f32_kernel<D>` and bf16 at Dh 256 to 512 on
+//     `flash_fwd_wide_bf16_kernel<D>`;
 //   - ops/flash_attention.py `_fwd_kernel` (K3: [B, H, L, Dh]) where Lq or
-//     Lk exceeds 64, Dh 64 or 128, on `flash_long_fwd_kernel<D>` (shorter
-//     calls run flash_short.cu in one launch).
+//     Lk exceeds 64 (or Dh exceeds 128), bf16 at Dh 64 or 128 on
+//     `flash_long_fwd_kernel<D>`, fp32 on `flash_fwd_f32_kernel<D>`, bf16 at
+//     the padded widths 256 to 512 on `flash_fwd_wide_bf16_kernel<D>`
+//     (shorter calls at Dh <= 128 run flash_short.cu in one launch).
 // Both kernels are the one body `fwd_sm90<D>` below: it takes every operand
 // as a base pointer plus (batch, head, row) strides in elements, with the
 // head dim contiguous, so no layout is copied or transposed on the way in or
@@ -315,20 +319,34 @@ int launch_sm90(Params p, int B, __nv_bfloat16* k_rot, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- fp32 operands ----------------------------------------------------------
-// One warp per query row, online softmax over 32 keys at a time: each lane
-// scores one key (a full fp32 dot product against the row in shared memory),
-// the warp reduces maximum and sum, then every lane adds the 32 weighted
-// value rows into its own columns. Same masking rules and the same row
-// statistics as the bf16 kernel; P is not rounded (the plain version keeps
-// it in fp32 for fp32 operands). K, when RoPE is on, was rotated by the
-// pre-pass; q is rotated while it is copied into shared memory.
+// ---- SIMT kernels: fp32 operands, and bf16 at Dh 256 to 512 ----------------
+// The tiled SIMT attention of flash_common.cuh (simt_attend_tiles): a block
+// of 4 or 8 warps owns 16 or 32 query rows of one (batch, head), 4 a warp,
+// and streams the head's K and V through shared memory in tiles of 32 keys,
+// one key a lane. Same masking rules and the same row statistics as the
+// Hopper kernels. fp32 (flash_fwd_f32_kernel<D>, D 64 to 512) serves K1 and
+// K3 for fp32 operands in every layout: the packed [B, L, H*Dh] and fused
+// [B, L, 3D] views are strides like any other (in a fused view the head
+// stride Dh is smaller than the row stride 3D; nothing here assumes
+// otherwise). bf16 at D 256, 384, 512 (flash_fwd_wide_bf16_kernel<D>)
+// serves K1 at those head dims and K3 at the widths a head dim is padded to
+// above 128: it reads bf16, computes in fp32, rounds P to bf16 before P V,
+// writes bf16. K, when RoPE is on, was rotated by the pre-pass of the
+// operands' type; q is rotated while it is copied into shared memory.
+//
+// What bounds it: the same 4*Lq*Lk*D FLOP as the Hopper kernels, here on the
+// CUDA cores (67 TFLOP/s fp32 on an H100, no TF32 for fp32 operands), and
+// it stays well short of that: a score takes a shared-memory K value and a
+// broadcast float4 of Q for 4 FMAs, a P V step 4 shuffles and D / 32 shared
+// loads for 4 D / 32 FMAs, so the shared-memory pipe, not the FMA units,
+// sets its pace. PERF.md has its times.
 
-struct ParamsF32 {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
+template <typename T>
+struct SimtParams {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
   const float* sin;
   const float* cos;
   const uint8_t* mask;
@@ -342,82 +360,82 @@ struct ParamsF32 {
   int causal;
 };
 
-template <int D>
-__global__ void __launch_bounds__(F32_WARPS * 32) flash_fwd_f32_kernel(const ParamsF32 p) {
-  constexpr int PER = D / 32, HALF = D / 2;
-  __shared__ float qs[F32_WARPS][D];
+template <typename T, int D>
+__device__ __forceinline__ void fwd_simt(const SimtParams<T>& p) {
+  constexpr int NW = SIMT_WARPS<D>, PER = D / 32;
+  extern __shared__ __align__(16) float simt_smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * F32_WARPS + warp;
+  const int q0 = blockIdx.x * FwdTiles<D, NW>::BQ;
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
-  if (row >= p.Lq) return;  // a whole warp leaves; no block-wide barrier follows
-
-  const float* qrow = p.q + b * p.q_sb + h * p.q_sh + row * p.q_sl;
-  const float* kg = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vg = p.v + b * p.v_sb + h * p.v_sh;
-  const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
+  float acc[SR][PER], m[SR], l[SR];
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int d = lane + 32 * i;
-    float x = qrow[d];
-    if (p.sin != nullptr) {
-      const float xp = d < HALF ? -qrow[d + HALF] : qrow[d - HALF];
-      x = x * p.cos[(long long)row * D + d] + xp * p.sin[(long long)row * D + d];
-    }
-    qs[warp][d] = x;
+  for (int r = 0; r < SR; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) acc[r][i] = 0.f;
   }
-  __syncwarp();
-
-  float acc[PER];
+  simt_attend_tiles<T, D, NW>(simt_smem, p.q + b * p.q_sb + h * p.q_sh, p.q_sl, q0, p.Lq,
+                              p.sin, p.cos, p.k + b * p.k_sb + h * p.k_sh, p.k_sl,
+                              p.v + b * p.v_sb + h * p.v_sh, p.v_sl,
+                              p.mask ? p.mask + (long long)b * p.Lk : nullptr, p.Lk, p.causal,
+                              p.scale_log2, acc, m, l);
 #pragma unroll
-  for (int i = 0; i < PER; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
-  for (int j0 = 0; j0 < p.Lk; j0 += 32) {
-    const int key = j0 + lane;
-    float x = -INFINITY;  // a key that does not exist: probability exactly 0
-    if (key < p.Lk) {
-      x = dot_row<D>(qs[warp], kg + key * p.k_sl) * p.scale_log2;
-      if ((mrow != nullptr && mrow[key] == 0) || (p.causal && key > row)) x = -FLT_MAX;
+  for (int r = 0; r < SR; ++r) {
+    const int row = q0 + SR * warp + r;
+    if (row >= p.Lq) continue;
+    if (p.stats != nullptr && lane == 0) {
+      float* sm = p.stats + (long long)bh * p.Lq;
+      sm[row] = m[r];
+      sm[(long long)gridDim.y * p.Lq + row] = l[r];
     }
-    const float m_new = fmaxf(m, warp_max(x));  // key j0 exists: finite
-    const float alpha = exp2f(m - m_new);
-    const float pj = exp2f(x - m_new);
-    l = l * alpha + warp_sum(pj);
-    m = m_new;
+    T* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_sl;
+    const float inv = 1.f / l[r];  // l >= 1: the row maximum contributes exp2(0)
 #pragma unroll
-    for (int i = 0; i < PER; ++i) acc[i] *= alpha;
-    const int n = min(32, p.Lk - j0);
-    for (int jj = 0; jj < n; ++jj) {
-      const float pv = __shfl_sync(FULL, pj, jj);
-      const float* vrow = vg + (j0 + jj) * p.v_sl;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) acc[i] = fmaf(pv, vrow[lane + 32 * i], acc[i]);
-    }
+    for (int i = 0; i < PER; ++i) orow[lane + 32 * i] = from_f<T>(acc[r][i] * inv);
   }
-  if (p.stats != nullptr && lane == 0) {
-    float* sm = p.stats + (long long)bh * p.Lq;
-    sm[row] = m;
-    sm[(long long)gridDim.y * p.Lq + row] = l;
-  }
-  float* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_sl;
-  const float inv = 1.f / l;  // l >= 1: the row maximum contributes exp2(0)
-#pragma unroll
-  for (int i = 0; i < PER; ++i) orow[lane + 32 * i] = acc[i] * inv;
 }
 
+// fp32 operands, every layout: K1 and K3.
 template <int D>
-cudaError_t launch_f32(ParamsF32 p, int B, float* k_rot, cudaStream_t stream) {
+__global__ void __launch_bounds__(SIMT_WARPS<D> * 32) flash_fwd_f32_kernel(
+    const SimtParams<float> p) {
+  fwd_simt<float, D>(p);
+}
+
+// bf16 at D 256 to 512: K1 at those head dims, K3 at the padded widths.
+template <int D>
+__global__ void __launch_bounds__(SIMT_WARPS<D> * 32) flash_fwd_wide_bf16_kernel(
+    const SimtParams<__nv_bfloat16> p) {
+  fwd_simt<__nv_bfloat16, D>(p);
+}
+
+template <typename T, int D>
+cudaError_t launch_simt(SimtParams<T> p, int B, T* k_rot, cudaStream_t stream) {
   if (p.sin != nullptr) {  // rotate K once into the scratch, then read it there
-    cudaError_t err = launch_rope_rows_f32<D>(p.k, p.k_sb, p.k_sh, p.k_sl, B, p.H, p.Lk,
-                                              p.sin, p.cos, k_rot, stream);
+    cudaError_t err = launch_rope_rows_t<D>(p.k, p.k_sb, p.k_sh, p.k_sl, B, p.H, p.Lk, p.sin,
+                                            p.cos, k_rot, stream);
     if (err != cudaSuccess) return err;
     p.k = k_rot;
     p.k_sb = (long long)p.H * p.Lk * D;
     p.k_sh = (long long)p.Lk * D;
     p.k_sl = D;
   }
-  const dim3 grid((p.Lq + F32_WARPS - 1) / F32_WARPS, B * p.H);
-  flash_fwd_f32_kernel<D><<<grid, F32_WARPS * 32, 0, stream>>>(p);
+  using S = FwdTiles<D, SIMT_WARPS<D>>;
+  const void* kernel;
+  if constexpr (sizeof(T) == 4) {
+    kernel = reinterpret_cast<const void*>(&flash_fwd_f32_kernel<D>);
+  } else {
+    kernel = reinterpret_cast<const void*>(&flash_fwd_wide_bf16_kernel<D>);
+  }
+  static bool ready[MAX_DEVICES] = {};  // one per instance: one per kernel
+  cudaError_t err = allow_smem_once(kernel, S::BYTES, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Lq + S::BQ - 1) / S::BQ, B * p.H);
+  void* args[] = {&p};
+  err = cudaLaunchKernel(kernel, grid, dim3(SIMT_WARPS<D> * 32), args, S::BYTES, stream);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -449,6 +467,28 @@ Params fwd_params(FWD_ARGS) {
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.sin = static_cast<const float*>(sin);
+  p.cos = static_cast<const float*>(cos);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.stats = static_cast<float*>(stats);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
+  p.H = H; p.Lq = Lq; p.Lk = Lk;
+  p.scale_log2 = scale * LOG2E;
+  p.causal = causal;
+  return p;
+}
+
+// The SIMT kernels' arguments as their Params.
+template <typename T>
+SimtParams<T> simt_params(FWD_ARGS) {
+  SimtParams<T> p;
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.o = static_cast<T*>(o);
   p.sin = static_cast<const float*>(sin);
   p.cos = static_cast<const float*>(cos);
   p.mask = static_cast<const uint8_t*>(mask);
@@ -516,32 +556,34 @@ int deepcoro_flash_long_fwd_attrs(int Dh, int* regs, int* smem) {
   return 0;
 }
 
-// fp32 operands of the [B, H, L, Dh] entry (`k_rot` then is an fp32
-// scratch), Dh 64 or 128, on flash_fwd_f32_kernel; the arguments mean what
-// they mean above.
+// fp32 operands of every layout (`k_rot` then is an fp32 scratch), Dh 64,
+// 128, 256, 384 or 512, on flash_fwd_f32_kernel<Dh>; the arguments mean
+// what they mean above.
 int deepcoro_flash_fwd_f32(FWD_ARGS) {
-  ParamsF32 p;
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.o = static_cast<float*>(o);
-  p.sin = static_cast<const float*>(sin);
-  p.cos = static_cast<const float*>(cos);
-  p.mask = static_cast<const uint8_t*>(mask);
-  p.stats = static_cast<float*>(stats);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
-  p.H = H; p.Lq = Lq; p.Lk = Lk;
-  p.scale_log2 = scale * LOG2E;
-  p.causal = causal;
   if (sin != nullptr && k_rot == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const SimtParams<float> p = simt_params<float>(FWD_NAMES);
   float* kr = static_cast<float*>(k_rot);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
-    case 64: return static_cast<int>(launch_f32<64>(p, B, kr, st));
-    case 128: return static_cast<int>(launch_f32<128>(p, B, kr, st));
+    case 64: return static_cast<int>(launch_simt<float, 64>(p, B, kr, st));
+    case 128: return static_cast<int>(launch_simt<float, 128>(p, B, kr, st));
+    case 256: return static_cast<int>(launch_simt<float, 256>(p, B, kr, st));
+    case 384: return static_cast<int>(launch_simt<float, 384>(p, B, kr, st));
+    case 512: return static_cast<int>(launch_simt<float, 512>(p, B, kr, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// bf16 of every layout at Dh 256, 384 or 512, on flash_fwd_wide_bf16_kernel<Dh>.
+int deepcoro_flash_wide_fwd_bf16(FWD_ARGS) {
+  if (sin != nullptr && k_rot == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const SimtParams<__nv_bfloat16> p = simt_params<__nv_bfloat16>(FWD_NAMES);
+  __nv_bfloat16* kr = static_cast<__nv_bfloat16*>(k_rot);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 256: return static_cast<int>(launch_simt<__nv_bfloat16, 256>(p, B, kr, st));
+    case 384: return static_cast<int>(launch_simt<__nv_bfloat16, 384>(p, B, kr, st));
+    case 512: return static_cast<int>(launch_simt<__nv_bfloat16, 512>(p, B, kr, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,6 @@
 // Flash-attention forward with the output projection fused in, for Hopper
-// (sm_90a), bf16 in/out: y = concat_h(attention_h(q, k, v)) @ wo.
+// (sm_90a), bf16 in/out at Dh 128: y = concat_h(attention_h(q, k, v)) @ wo;
+// fp32 operands and bf16 at Dh 256 to 512 on a SIMT kernel (at the end).
 //
 // Replaces the Pallas TPU kernel of deepcoro_clip_tpu:
 //   ops/flash_attention_packed.py `_fwd_proj_kernel` (packed [B, L, H*Dh],
@@ -54,6 +55,8 @@
 // H = 4, one block per SM.
 
 #include "sm90_common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -266,6 +269,241 @@ int launch(const ProjParams& p, const CUtensorMap& tq, const CUtensorMap& tk,
 // fits beside the ring, else one.
 inline int consumers(int H) { return H * 128 <= 512 ? 2 : 1; }
 
+
+// ---- SIMT kernel: fp32 operands, and bf16 at Dh 256 to 512 ----------------
+// K5 where the Hopper kernel above does not go: fp32 (Dh 128 to 512) and
+// bf16 at Dh 256 to 512, H * Dh <= 1024 (flash_fwd_proj_f32_kernel<D>,
+// flash_fwd_proj_wide_bf16_kernel<D>). A block owns BQ rows of one batch
+// row (8, 16 or 32: 4 a warp) and all of y's columns for them: head after
+// head it runs the tiled SIMT attention of flash_common.cuh
+// (simt_attend_tiles, as the SIMT forward of flash_fwd.cu) and puts the
+// head's normalised output, rounded to the operand type as the Pallas kernel
+// rounds it before its product (and, when a gradient is wanted, written to
+// `o` with the row statistics), into a shared fp32 [H * Dh, BQ] tile; then
+// the block computes y = tile @ wo with CUDA-core FMAs, a thread a column,
+// summed in fp32 in a fixed order and rounded once: no TF32, no atomics.
+// What bounds it: the attention's 4*Lq*Lk*D FLOP a head on the CUDA cores,
+// as the SIMT forward; wo (L2-resident) is read once a block.
+
+constexpr int PROJ_SIMT_MAX = 1024;  // H * Dh
+
+template <typename T>
+struct ProjSimtParams {
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* wo;          // [H * Dh, Dout] contiguous
+  T* y;                 // [B, Lq, Dout] contiguous
+  T* o;                 // attention output (strided) or null
+  const float* sin;
+  const float* cos;
+  const uint8_t* mask;
+  float* stats;         // [2, B*H, Lq] or null
+  long long q_sb, q_sh, q_sl;
+  long long k_sb, k_sh, k_sl;
+  long long v_sb, v_sh, v_sl;
+  long long o_sb, o_sh, o_sl;
+  int B, H, Lq, Lk, Dout;
+  float scale_log2;
+  int causal;
+};
+
+// Warps a block of the SIMT kernel at D: the attention's tiles and the
+// [H * D, BQ] output tile share the block's shared memory (ProjSimtSmem).
+template <int D>
+constexpr int PROJ_WARPS = D <= 128 ? 8 : (D <= 384 ? 4 : 2);
+
+template <int D>
+struct ProjSimtSmem {
+  using A = FwdTiles<D, PROJ_WARPS<D>>;
+  static constexpr int BQ = A::BQ;
+  static constexpr int OLD = BQ + 4;  // the output tile transposed: a column's rows in float4s
+  static constexpr int O = A::BYTES / 4;
+  static constexpr int BYTES = (O + PROJ_SIMT_MAX * OLD) * 4;
+};
+
+template <typename T, int D>
+__device__ __forceinline__ void fwd_proj_simt(const ProjSimtParams<T>& p) {
+  constexpr int NW = PROJ_WARPS<D>, PER = D / 32;
+  using S = ProjSimtSmem<D>;
+  constexpr int BQ = S::BQ;
+  extern __shared__ __align__(16) float simt_smem[];
+  float* ot = simt_smem + S::O;  // [H * D][OLD]: the attention output, transposed
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * BQ, row0 = q0 + SR * warp;
+  const int b = blockIdx.y;
+  const int HD = p.H * D;
+  const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
+  for (int h = 0; h < p.H; ++h) {
+    __syncthreads();  // every warp is done with the last head's Q tile
+    float acc[SR][PER], m[SR], l[SR];
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) acc[r][i] = 0.f;
+    }
+    simt_attend_tiles<T, D, NW>(simt_smem, p.q + b * p.q_sb + h * p.q_sh, p.q_sl, q0, p.Lq,
+                                p.sin, p.cos, p.k + b * p.k_sb + h * p.k_sh, p.k_sl,
+                                p.v + b * p.v_sb + h * p.v_sh, p.v_sl, mrow, p.Lk, p.causal,
+                                p.scale_log2, acc, m, l);
+    const long long bh = (long long)b * p.H + h;
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+      const int row = row0 + r;
+      const bool live = row < p.Lq;
+      if (live && p.stats != nullptr && lane == 0) {
+        p.stats[bh * p.Lq + row] = m[r];
+        p.stats[((long long)p.B * p.H + bh) * p.Lq + row] = l[r];
+      }
+      const float inv = 1.f / l[r];  // l >= 1: the row maximum contributes exp2(0)
+      T* orow = (live && p.o != nullptr) ? p.o + b * p.o_sb + h * p.o_sh + row * p.o_sl
+                                         : nullptr;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const T val = from_f<T>(acc[r][i] * inv);
+        ot[(h * D + lane + 32 * i) * S::OLD + SR * warp + r] = to_f(val);
+        if (orow != nullptr) orow[lane + 32 * i] = val;
+      }
+    }
+  }
+  __syncthreads();
+  // y = tile @ wo: a thread a column of y at a time, the block's BQ rows of
+  // it summed over H * D in order
+  for (int c = threadIdx.x; c < p.Dout; c += NW * 32) {
+    float y[BQ];
+#pragma unroll
+    for (int r = 0; r < BQ; ++r) y[r] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < HD; ++d) {  // (8 loads of wo in flight: HD is a multiple of 128)
+      const float w = to_f(p.wo[(long long)d * p.Dout + c]);
+      const float4* t4 = reinterpret_cast<const float4*>(ot + d * S::OLD);
+#pragma unroll
+      for (int j = 0; j < BQ / 4; ++j) {
+        const float4 x = t4[j];
+        y[4 * j] = fmaf(x.x, w, y[4 * j]);
+        y[4 * j + 1] = fmaf(x.y, w, y[4 * j + 1]);
+        y[4 * j + 2] = fmaf(x.z, w, y[4 * j + 2]);
+        y[4 * j + 3] = fmaf(x.w, w, y[4 * j + 3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < BQ; ++r) {
+      if (q0 + r < p.Lq) p.y[((long long)b * p.Lq + q0 + r) * p.Dout + c] = from_f<T>(y[r]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(PROJ_WARPS<D> * 32) flash_fwd_proj_f32_kernel(
+    const ProjSimtParams<float> p) {
+  fwd_proj_simt<float, D>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(PROJ_WARPS<D> * 32) flash_fwd_proj_wide_bf16_kernel(
+    const ProjSimtParams<__nv_bfloat16> p) {
+  fwd_proj_simt<__nv_bfloat16, D>(p);
+}
+
+template <typename T, int D>
+cudaError_t launch_proj_simt(ProjSimtParams<T> p, cudaStream_t stream) {
+  using S = ProjSimtSmem<D>;
+  const void* kernel;
+  if constexpr (sizeof(T) == 4) {
+    kernel = reinterpret_cast<const void*>(&flash_fwd_proj_f32_kernel<D>);
+  } else {
+    kernel = reinterpret_cast<const void*>(&flash_fwd_proj_wide_bf16_kernel<D>);
+  }
+  // the attribute once, at the most the kernel takes (H * D = PROJ_SIMT_MAX)
+  static bool ready[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem_once(kernel, S::BYTES, ready);
+  if (err != cudaSuccess) return err;
+  const int bytes = (S::O + p.H * D * S::OLD) * 4;
+  void* args[] = {&p};
+  err = cudaLaunchKernel(kernel, dim3((p.Lq + S::BQ - 1) / S::BQ, p.B),
+                         dim3(PROJ_WARPS<D> * 32), args, bytes, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+#define PROJ_ARGS                                                                        \
+  const void *q, const void *k, const void *v, const void *wo, void *y, void *o,          \
+      const void *sin, const void *cos, const void *mask, void *k_rot, void *stats, int B, \
+      int H, int Lq, int Lk, int Dh, int Dout, long long q_sb, long long q_sh,             \
+      long long q_sl, long long k_sb, long long k_sh, long long k_sl, long long v_sb,      \
+      long long v_sh, long long v_sl, long long o_sb, long long o_sh, long long o_sl,      \
+      float scale, int causal, void *stream
+
+// The SIMT entries: fp32 at Dh 128 to 512, bf16 at Dh 256 to 512.
+template <typename T>
+int proj_simt(PROJ_ARGS) {
+  if (H < 1 || H * Dh > PROJ_SIMT_MAX || Dout < 1 || (sin != nullptr && k_rot == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (sizeof(T) != 4) {
+    if (Dh < 256) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ProjSimtParams<T> p;
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.wo = static_cast<const T*>(wo);
+  p.y = static_cast<T*>(y);
+  p.o = static_cast<T*>(o);
+  p.sin = static_cast<const float*>(sin);
+  p.cos = static_cast<const float*>(cos);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.stats = static_cast<float*>(stats);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
+  p.B = B; p.H = H; p.Lq = Lq; p.Lk = Lk; p.Dout = Dout;
+  p.scale_log2 = scale * LOG2E;
+  p.causal = causal;
+  // rotate K once into the scratch, then read it there
+  auto rope_k = [&](auto dim) -> cudaError_t {
+    constexpr int DD = decltype(dim)::value;
+    if (p.sin == nullptr) return cudaSuccess;
+    cudaError_t err = launch_rope_rows_t<DD>(p.k, p.k_sb, p.k_sh, p.k_sl, B, H, Lk, p.sin,
+                                             p.cos, static_cast<T*>(k_rot), st);
+    p.k = static_cast<const T*>(k_rot);
+    p.k_sb = (long long)H * Lk * DD;
+    p.k_sh = (long long)Lk * DD;
+    p.k_sl = DD;
+    return err;
+  };
+  cudaError_t err;
+  switch (Dh) {
+    case 128:
+      if constexpr (sizeof(T) == 4) {
+        err = rope_k(std::integral_constant<int, 128>());
+        if (err == cudaSuccess) err = launch_proj_simt<T, 128>(p, st);
+        break;
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+    case 256:
+      err = rope_k(std::integral_constant<int, 256>());
+      if (err == cudaSuccess) err = launch_proj_simt<T, 256>(p, st);
+      break;
+    case 384:
+      err = rope_k(std::integral_constant<int, 384>());
+      if (err == cudaSuccess) err = launch_proj_simt<T, 384>(p, st);
+      break;
+    case 512:
+      err = rope_k(std::integral_constant<int, 512>());
+      if (err == cudaSuccess) err = launch_proj_simt<T, 512>(p, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -340,6 +578,22 @@ int deepcoro_flash_fwd_proj_attrs(int H, int* regs, int* smem) {
   *regs = a.numRegs;
   *smem = ProjSmem(H, nwg).bytes;
   return 0;
+}
+
+
+// fp32 operands (Dh 128, 256, 384 or 512) and bf16 at Dh 256, 384 or 512,
+// H * Dh <= 1024, any Dout, on the SIMT kernels: the arguments mean what
+// they mean above (`wo`, `y`, `o` and `k_rot` of the operands' type).
+int deepcoro_flash_fwd_proj_f32(PROJ_ARGS) {
+  return proj_simt<float>(q, k, v, wo, y, o, sin, cos, mask, k_rot, stats, B, H, Lq, Lk, Dh,
+                          Dout, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl, o_sb,
+                          o_sh, o_sl, scale, causal, stream);
+}
+
+int deepcoro_flash_fwd_proj_wide_bf16(PROJ_ARGS) {
+  return proj_simt<__nv_bfloat16>(q, k, v, wo, y, o, sin, cos, mask, k_rot, stats, B, H, Lq,
+                                  Lk, Dh, Dout, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh,
+                                  v_sl, o_sb, o_sh, o_sl, scale, causal, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// Ring-attention forward step for Hopper (sm_90a), bf16 in/out: K6.
+// Ring-attention forward step for Hopper (sm_90a): K6, bf16 in/out on the
+// tensor cores at Dh 64 and 128, SIMT for fp32 and for bf16 at Dh 256 to 512.
 //
 // Replaces the Pallas TPU kernel of deepcoro_clip_tpu:
 //   parallel/ring_attention.py `_rdma_ring_kernel` (one device's whole ring
@@ -348,6 +349,157 @@ int launch_step_sm90(const RingParams& rp, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- SIMT step: fp32 operands, and bf16 at Dh 256 to 512 -------------------
+// The same step where the two kernels above do not go: fp32 at Dh 64 to 512
+// (ring_step_f32_kernel<D>) and bf16 at Dh 256 to 512
+// (ring_step_wide_bf16_kernel<D>). The SIMT forward's tiled body
+// (simt_attend_tiles, flash_common.cuh: 4 query rows a warp, the slot's K/V
+// through shared memory 32 keys at a time) started from the carried state:
+// m and l of each row and its D accumulators in the same [B*H, Lc] /
+// [B*H, Lc, D] fp32 buffers, so the carried state means the same in every
+// kernel. In bf16 P is rounded to bf16 against the running maximum of each
+// 32-key tile. What bounds it: 4*Lc*Lc*D FLOP a step and head on the CUDA
+// cores; the shared-memory pipe sets its pace, as in the SIMT forward of
+// flash_fwd.cu.
+
+template <typename T>
+struct RingSimtParams {
+  const T* q;  // [B, H, Lc, D], strided, head dim contiguous
+  const T* k;  // the slot's K: [B*H, Lc, D] contiguous
+  const T* v;  // the slot's V: [B*H, Lc, D] contiguous
+  T* o;        // [B, H, Lc, D], strided (written by the last step)
+  float* m;
+  float* l;
+  float* acc;
+  long long q_sb, q_sh, q_sl;
+  long long o_sb, o_sh, o_sl;
+  int H, Lc;
+  float scale_log2;
+  int first, last;
+};
+
+template <typename T, int D>
+__device__ __forceinline__ void ring_step_simt(const RingSimtParams<T>& p) {
+  constexpr int NW = SIMT_WARPS<D>, PER = D / 32;
+  extern __shared__ __align__(16) float simt_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * FwdTiles<D, NW>::BQ;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const long long rows = (long long)bh * p.Lc;  // this head's first state row
+  float acc[SR][PER], m[SR], l[SR];
+#pragma unroll
+  for (int r = 0; r < SR; ++r) {
+    const int row = q0 + SR * warp + r;
+    const bool fresh = p.first || row >= p.Lc;  // (a row past Lc is never stored)
+    m[r] = fresh ? -INFINITY : p.m[rows + row];
+    l[r] = fresh ? 0.f : p.l[rows + row];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      acc[r][i] = fresh ? 0.f : p.acc[(rows + row) * D + lane + 32 * i];
+    }
+  }
+  const long long chunk = rows * D;
+  simt_attend_tiles<T, D, NW>(simt_smem, p.q + b * p.q_sb + h * p.q_sh, p.q_sl, q0, p.Lc,
+                              nullptr, nullptr, p.k + chunk, D, p.v + chunk, D, nullptr, p.Lc,
+                              0, p.scale_log2, acc, m, l);
+#pragma unroll
+  for (int r = 0; r < SR; ++r) {
+    const int row = q0 + SR * warp + r;
+    if (row >= p.Lc) continue;
+    if (p.last) {
+      const float inv = 1.f / l[r];  // l >= 1: the row maximum contributes exp2(0)
+      T* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_sl;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) orow[lane + 32 * i] = from_f<T>(acc[r][i] * inv);
+      continue;
+    }
+    if (lane == 0) {
+      p.m[rows + row] = m[r];
+      p.l[rows + row] = l[r];
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) p.acc[(rows + row) * D + lane + 32 * i] = acc[r][i];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(SIMT_WARPS<D> * 32) ring_step_f32_kernel(
+    const RingSimtParams<float> p) {
+  ring_step_simt<float, D>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(SIMT_WARPS<D> * 32) ring_step_wide_bf16_kernel(
+    const RingSimtParams<__nv_bfloat16> p) {
+  ring_step_simt<__nv_bfloat16, D>(p);
+}
+
+template <typename T, int D>
+cudaError_t launch_step_simt(RingSimtParams<T> p, int BH, cudaStream_t stream) {
+  using S = FwdTiles<D, SIMT_WARPS<D>>;
+  const void* kernel;
+  if constexpr (sizeof(T) == 4) {
+    kernel = reinterpret_cast<const void*>(&ring_step_f32_kernel<D>);
+  } else {
+    kernel = reinterpret_cast<const void*>(&ring_step_wide_bf16_kernel<D>);
+  }
+  static bool ready[MAX_DEVICES] = {};  // one per instance: one per kernel
+  cudaError_t err = allow_smem_once(kernel, S::BYTES, ready);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&p};
+  err = cudaLaunchKernel(kernel, dim3((p.Lc + S::BQ - 1) / S::BQ, BH),
+                         dim3(SIMT_WARPS<D> * 32), args, S::BYTES, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+#define STEP_ARGS                                                                         \
+  const void *q, const void *k, const void *v, void *o, void *m, void *l, void *acc, int B, \
+      int H, int Lc, int Dh, long long q_sb, long long q_sh, long long q_sl, long long o_sb, \
+      long long o_sh, long long o_sl, float scale, int first, int last, void *stream
+
+template <typename T>
+int step_simt(STEP_ARGS) {
+  RingSimtParams<T> p;
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.o = static_cast<T*>(o);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
+  p.acc = static_cast<float*>(acc);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
+  p.H = H; p.Lc = Lc;
+  p.scale_log2 = scale * LOG2E;
+  p.first = first;
+  p.last = last;
+  if ((!first || !last) && (m == nullptr || l == nullptr || acc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int BH = B * H;
+  switch (Dh) {
+    case 64:
+      if constexpr (sizeof(T) == 4) {
+        return static_cast<int>(launch_step_simt<T, 64>(p, BH, st));
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+    case 128:
+      if constexpr (sizeof(T) == 4) {
+        return static_cast<int>(launch_step_simt<T, 128>(p, BH, st));
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+    case 256: return static_cast<int>(launch_step_simt<T, 256>(p, BH, st));
+    case 384: return static_cast<int>(launch_step_simt<T, 384>(p, BH, st));
+    case 512: return static_cast<int>(launch_step_simt<T, 512>(p, BH, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -415,6 +567,19 @@ int deepcoro_ring_step_sm90_bf16(
   if ((!first || !last) && (m == nullptr || l == nullptr || acc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_step_sm90(p, B, static_cast<cudaStream_t>(stream));
+}
+
+// The same step for fp32 operands at Dh 64, 128, 256, 384 or 512 (`k`, `v`,
+// `o` fp32), on ring_step_f32_kernel<Dh>, and for bf16 at Dh 256, 384 or 512
+// on ring_step_wide_bf16_kernel<Dh>; the arguments mean what they mean above.
+int deepcoro_ring_step_f32(STEP_ARGS) {
+  return step_simt<float>(q, k, v, o, m, l, acc, B, H, Lc, Dh, q_sb, q_sh, q_sl, o_sb, o_sh,
+                          o_sl, scale, first, last, stream);
+}
+
+int deepcoro_ring_step_wide_bf16(STEP_ARGS) {
+  return step_simt<__nv_bfloat16>(q, k, v, o, m, l, acc, B, H, Lc, Dh, q_sb, q_sh, q_sl, o_sb,
+                                  o_sh, o_sl, scale, first, last, stream);
 }
 
 // Registers per thread (at entry; setmaxnreg moves them between the

@@ -4,24 +4,28 @@
 (``csrc/flash_bwd.cu``) are shared by ``flash_attention`` and
 ``flash_attention_packed``: both hand them ``[B, H, L, Dh]`` views (any
 batch/head/row strides, head dim contiguous) of their operands and of the
-outputs they allocated, in bf16 (tensor-core kernels) or fp32 (plain fp32
-kernels; nothing is cast on the way). In bf16 both entries run the Hopper
-kernels of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (wgmma, TMA,
-mbarriers): the packed entry's forward (K1) and backward (K2) at Dh 128,
-the ``[B, H, L, Dh]`` entry's (K3, K4) at Dh 64 and 128 under the kernels'
-``long`` names, each skipping the key tiles past a q tile's key extent
-(``visit_keys`` mirrors the rule). At Lq, Lk <= ``SHORT_MAX`` the
-``[B, H, L, Dh]`` entry takes ``short_forward`` and ``short_backward``
-instead (behind ``ShortAttention`` when a gradient is wanted): the
-one-kernel forward and backward of ``csrc/flash_short.cu`` through a lean
-host path (one packed argument block, no row statistics, no scratch, the
-caller's bool or uint8 key mask as it is). fp32 operands of that entry
-above ``SHORT_MAX`` run the plain fp32 kernels. ``fwd_symbol`` and
-``bwd_symbol`` name the C entry a call runs.
-``flash_fwd_proj`` (``csrc/flash_fwd_proj.cu``) is the packed forward with
-the output projection fused in (bf16). The launchers check what the kernels
-take, launch on PyTorch's current stream, and raise if a launch failed.
-They count nothing: each entry point counts its own launches.
+outputs they allocated, in bf16 or fp32 (nothing is cast on the way), at a
+head dim of ``HEAD_DIMS`` (64 to 512; the packed layouts at multiples of
+128). In bf16 at Dh 64 and 128 both entries run the Hopper kernels of
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (wgmma, TMA, mbarriers):
+the packed entry's forward (K1) and backward (K2) at Dh 128, the ``[B, H,
+L, Dh]`` entry's (K3, K4) at Dh 64 and 128 under the kernels' ``long``
+names, each skipping the key tiles past a q tile's key extent
+(``visit_keys`` mirrors the rule). At Lq, Lk <= ``SHORT_MAX`` (and Dh <=
+128) the ``[B, H, L, Dh]`` entry takes ``short_forward`` and
+``short_backward`` instead (behind ``ShortAttention`` when a gradient is
+wanted): the one-kernel forward and backward of ``csrc/flash_short.cu``
+through a lean host path (one packed argument block, no row statistics, no
+scratch, the caller's bool or uint8 key mask as it is). Every other call
+runs the SIMT kernels of the same files: fp32 operands of every layout at
+every head dim (``*_f32``), and bf16 at Dh 256 to 512 (``*_wide_bf16``).
+``fwd_symbol``, ``bwd_symbol`` and ``proj_symbol`` name the C entry a call
+runs; a call no kernel takes raises there. ``flash_fwd_proj``
+(``csrc/flash_fwd_proj.cu``) is the packed forward with the output
+projection fused in: the Hopper kernel in bf16 at Dh 128, the SIMT kernel
+for fp32 and for bf16 at Dh 256 to 512. The launchers check what the
+kernels take, launch on PyTorch's current stream, and raise if a launch
+failed. They count nothing: each entry point counts its own launches.
 
 ``FlashAttention`` is the ``torch.autograd.Function`` both entry points go
 through when a gradient is wanted, ``FlashAttentionProj`` the one of the
@@ -51,7 +55,9 @@ from deepcoro_clip_tpu_torch.ops.attention import (
     project_plain,
 )
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256, 384, 512)  # the head dims a kernel takes
+HOPPER_DIMS = (64, 128)  # bf16 on the tensor cores; wider bf16 runs the SIMT kernels
+PROJ_MAX = 1024  # H * Dh of the fused-projection kernels' shared output tile
 TILE = 64  # rows per tile of the kernels; the backward pads its row values to it
 SHORT_MAX = 64  # Lq and Lk up to this run csrc/flash_short.cu ([B, H, L, Dh] entry)
 # (q rows, keys) of a tile pair of the Hopper kernels: the forward's items and
@@ -79,10 +85,22 @@ def _c_fn(lib: str, symbol: str, argtypes):
     return fn
 
 
-def is_short(packed: bool, Lq: int, Lk: int) -> bool:
+def kernel_head_dim(Dh: int) -> int:
+    """The head dim a CUDA call at ``Dh`` runs at: the smallest of
+    ``HEAD_DIMS`` that holds it (the ``[B, H, L, Dh]`` entry and the ring
+    pad to it); above 512 it raises, naming the width."""
+    for width in HEAD_DIMS:
+        if Dh <= width:
+            return width
+    raise ValueError(f"the CUDA flash kernels take Dh up to {HEAD_DIMS[-1]}, got {Dh}")
+
+
+def is_short(packed: bool, Lq: int, Lk: int, Dh: int) -> bool:
     """Whether a call runs the short kernels of ``csrc/flash_short.cu``:
-    the ``[B, H, L, Dh]`` entry with both lengths at most ``SHORT_MAX``."""
-    return not packed and Lq <= SHORT_MAX and Lk <= SHORT_MAX
+    the ``[B, H, L, Dh]`` entry with both lengths at most ``SHORT_MAX`` and
+    Dh at most 128 (a wider head runs the SIMT kernels at every length)."""
+    return (not packed and Lq <= SHORT_MAX and Lk <= SHORT_MAX
+            and Dh <= HOPPER_DIMS[-1])
 
 
 def key_extent(kv_mask, B: int, Lk: int):
@@ -142,60 +160,85 @@ def key_cut(kv_mask, B: int, Lk: int) -> int:
     return min(Lk, -(-ext // FWD_TILES[1]) * FWD_TILES[1])
 
 
+def _check_choice(dtype: torch.dtype, packed: bool, Dh: int) -> None:
+    """Raise for what no kernel takes: a type other than bf16 and fp32, a
+    head dim outside ``HEAD_DIMS``, a packed head dim that is not a multiple
+    of 128 (as the JAX packed wrapper requires)."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"the CUDA flash kernels take bfloat16 or float32, got {dtype}")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA flash kernels take Dh in {HEAD_DIMS}, got {Dh}")
+    if packed and Dh % 128:
+        raise ValueError(f"the packed CUDA kernels take Dh % 128 == 0, got Dh {Dh}")
+
+
 def fwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> str:
-    """The C entry that runs a forward: K1's Hopper kernel for the packed
-    and fused layouts (bf16, Dh 128), the short kernel of
+    """The C entry that runs a forward: the short kernel of
     ``csrc/flash_short.cu`` for the ``[B, H, L, Dh]`` entry at Lq, Lk <=
-    ``SHORT_MAX``, above that K3's Hopper kernel (bf16) or the fp32 kernel
-    of ``csrc/flash_fwd.cu``."""
-    if dtype not in _SUFFIX:
-        raise TypeError(f"the CUDA flash kernels take bfloat16 or float32, got {dtype}")
-    if packed:
-        if dtype != torch.bfloat16 or Dh != 128:
-            raise ValueError(f"the packed CUDA forward takes bfloat16 at Dh 128, "
-                             f"got {dtype} at Dh {Dh}")
-    elif Dh not in HEAD_DIMS:
-        raise ValueError(f"the CUDA flash kernel takes Dh in {HEAD_DIMS}, got {Dh}")
-    if is_short(packed, Lq, Lk):
+    ``SHORT_MAX`` and Dh <= 128; else a kernel of ``csrc/flash_fwd.cu``:
+    in bf16 at Dh 128 K1's Hopper kernel for the packed and fused layouts,
+    at Dh 64 and 128 K3's Hopper kernel for ``[B, H, L, Dh]``, at Dh 256 to
+    512 the wide SIMT kernel for both; in fp32 the SIMT fp32 kernel for
+    every layout and head dim."""
+    _check_choice(dtype, packed, Dh)
+    if is_short(packed, Lq, Lk, Dh):
         return f"deepcoro_flash_short_fwd_{_SUFFIX[dtype]}"
-    return _tile_symbol("fwd", dtype, packed)
+    return _tile_symbol("fwd", dtype, packed, Dh)
 
 
-def bwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int) -> str:
-    """The C entry that runs a backward: the Hopper kernels of
-    ``csrc/flash_bwd.cu`` for the packed and fused layouts (K2: bf16, Dh
-    128, all that the packed forward admits); for the ``[B, H, L, Dh]``
-    entry (K4) the one-launch short backward of ``csrc/flash_short.cu`` at
-    Lq, Lk <= ``SHORT_MAX``, else the Hopper kernels in bf16 and the fp32
-    kernels for fp32 operands."""
-    if dtype not in _SUFFIX:
-        raise TypeError(f"the CUDA flash kernels take bfloat16 or float32, got {dtype}")
-    if packed:
-        if dtype != torch.bfloat16:
-            raise TypeError(f"the packed CUDA backward takes bfloat16, got {dtype}")
-    elif is_short(packed, Lq, Lk):
+def bwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> str:
+    """The C entry that runs a backward, by the forward's rule: the
+    one-launch short backward of ``csrc/flash_short.cu`` (``[B, H, L,
+    Dh]``, Lq, Lk <= ``SHORT_MAX``, Dh <= 128), else the kernels of
+    ``csrc/flash_bwd.cu``: K2's Hopper kernels (packed, bf16, Dh 128), K4's
+    (``[B, H, L, Dh]``, bf16, Dh 64 and 128), the wide SIMT kernels (bf16,
+    Dh 256 to 512) or the fp32 SIMT kernels."""
+    _check_choice(dtype, packed, Dh)
+    if is_short(packed, Lq, Lk, Dh):
         return f"deepcoro_flash_short_bwd_{_SUFFIX[dtype]}"
-    return _tile_symbol("bwd", dtype, packed)
+    return _tile_symbol("bwd", dtype, packed, Dh)
 
 
-def _tile_symbol(direction: str, dtype: torch.dtype, packed: bool) -> str:
-    """The entry of ``csrc/flash_{direction}.cu``: K1's or K2's Hopper
-    kernels for the packed layouts, K3's or K4's for bf16 ``[B, H, L,
-    Dh]``, the fp32 kernels for fp32 ``[B, H, L, Dh]``."""
+def _tile_symbol(direction: str, dtype: torch.dtype, packed: bool, Dh: int) -> str:
+    """The entry of ``csrc/flash_{direction}.cu``: the fp32 SIMT kernels for
+    fp32, the wide SIMT kernels for bf16 above Dh 128, else K1's or K2's
+    Hopper kernels for the packed layouts and K3's or K4's for ``[B, H, L,
+    Dh]``."""
+    if dtype == torch.float32:
+        return f"deepcoro_flash_{direction}_f32"
+    if Dh > HOPPER_DIMS[-1]:
+        return f"deepcoro_flash_wide_{direction}_bf16"
     if packed:
         return f"deepcoro_flash_{direction}_sm90_bf16"
-    if dtype == torch.bfloat16:
-        return f"deepcoro_flash_long_{direction}_bf16"
-    return f"deepcoro_flash_{direction}_{_SUFFIX[dtype]}"
+    return f"deepcoro_flash_long_{direction}_bf16"
 
 
-def _fwd_fn(dtype: torch.dtype, packed: bool = False):
-    return _c_fn("flash_fwd", _tile_symbol("fwd", dtype, packed),
+def proj_symbol(dtype: torch.dtype, Dh: int, H: int, Dout: int) -> str:
+    """The C entry of ``csrc/flash_fwd_proj.cu`` that runs a forward with
+    the fused projection (K5): the Hopper kernel in bf16 at Dh 128 (``Dout
+    % 128 == 0``), the SIMT kernel for fp32 at Dh 128 to 512 and for bf16 at
+    Dh 256 to 512; every one at ``H * Dh <= PROJ_MAX``."""
+    _check_choice(dtype, True, Dh)
+    if H * Dh > PROJ_MAX:
+        raise ValueError(f"the fused-projection kernels take H*Dh <= {PROJ_MAX}, "
+                         f"got H={H}, Dh={Dh}")
+    if dtype == torch.float32:
+        return "deepcoro_flash_fwd_proj_f32"
+    if Dh > HOPPER_DIMS[-1]:
+        return "deepcoro_flash_fwd_proj_wide_bf16"
+    if Dout % 128:
+        raise ValueError(f"the Hopper fused-projection kernel takes Dout % 128 == 0, "
+                         f"got {Dout}")
+    return "deepcoro_flash_fwd_proj_bf16"
+
+
+def _fwd_fn(symbol: str):
+    return _c_fn("flash_fwd", symbol,
                  [_P] * 9 + [_I] * 5 + [_LL] * 12 + [ctypes.c_float, _I, _P])
 
 
-def _bwd_fn(dtype: torch.dtype, packed: bool = False):
-    return _c_fn("flash_bwd", _tile_symbol("bwd", dtype, packed),
+def _bwd_fn(symbol: str):
+    return _c_fn("flash_bwd", symbol,
                  [_P] * 15 + [_I] * 5 + [_LL] * 24 + [ctypes.c_float, _I, _P])
 
 
@@ -215,8 +258,8 @@ def _short_fn(symbol: str):
     return fn
 
 
-def _fwd_proj_fn():
-    return _c_fn("flash_fwd_proj", "deepcoro_flash_fwd_proj_bf16",
+def _fwd_proj_fn(symbol: str):
+    return _c_fn("flash_fwd_proj", symbol,
                  [_P] * 11 + [_I] * 6 + [_LL] * 12 + [ctypes.c_float, _I, _P])
 
 
@@ -244,7 +287,7 @@ def hopper_kernel_attrs(heads=(4, 6)) -> dict:
                            "smem_bytes": smem.value, "consumers": 2 if two else 1,
                            "setmaxnreg": two}
     fn = _c_fn("flash_fwd", "deepcoro_flash_long_fwd_attrs", [_I, ip, ip])
-    for dh in HEAD_DIMS:
+    for dh in HOPPER_DIMS:
         if fn(dh, ctypes.byref(regs), ctypes.byref(smem)) != 0:
             raise RuntimeError(f"cudaFuncGetAttributes failed on the K3 kernel, Dh {dh}")
         out[f"K3 Dh {dh}"] = {"kernel": f"flash_long_fwd_kernel<{dh}>",
@@ -254,7 +297,7 @@ def hopper_kernel_attrs(heads=(4, 6)) -> dict:
     kernels = [("K2 dK/dV", "flash_bwd_dkv_sm90_kernel", 0, 0),
                ("K2 dQ", "flash_bwd_dq_sm90_kernel", 1, 0)]
     kernels += [(f"K4 {w} Dh {dh}", f"flash_long_bwd_{n}_kernel<{dh}>", which, dh)
-                for dh in HEAD_DIMS for which, (w, n) in enumerate((("dK/dV", "dkv"),
+                for dh in HOPPER_DIMS for which, (w, n) in enumerate((("dK/dV", "dkv"),
                                                                     ("dQ", "dq")))]
     for key, kernel, which, dh in kernels:
         if fn(which, dh, ctypes.byref(regs), ctypes.byref(smem)) != 0:
@@ -284,8 +327,10 @@ def _aligned(t: torch.Tensor) -> bool:
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device,
                    dtype: torch.dtype) -> None:
-    """``dtype`` is the type of q, which every operand shares: bf16 or, for
-    the ``[B, H, L, Dh]`` entry, fp32."""
+    """``dtype`` is the type of q, which every operand shares: bf16 or
+    fp32. bf16 operands must allow 16-byte loads (the Hopper kernels' TMA,
+    the bf16 RoPE pre-pass); fp32 ones are read a value (4 bytes) at a
+    time, which any fp32 tensor allows."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if dtype not in _SUFFIX:
@@ -296,6 +341,8 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device,
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: the head dim must be contiguous")
     # the bf16 kernels load 16 bytes at a time, the fp32 ones single values
+    if dtype == torch.float32 and t.data_ptr() % 4:
+        raise ValueError(f"{name}: an fp32 operand must start on a 4-byte boundary")
     if dtype == torch.bfloat16 and not _aligned(t):
         raise ValueError(
             f"{name}: base and strides must allow 16-byte loads "
@@ -358,18 +405,17 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a contiguous fp32 ``[2, B, H, Lq]`` buffer, receives each row's softmax
     maximum and sum for the backward; without it nothing extra is written.
     ``packed``: the views are heads of packed ``[B, L, H*Dh]`` operands
-    (K1), which run the Hopper kernel ``flash_fwd_sm90_kernel`` and take
-    bf16 at Dh 128 only; otherwise (K3, any lengths) bf16 runs
-    ``flash_long_fwd_kernel<Dh>`` and fp32 ``flash_fwd_f32_kernel<Dh>``."""
+    (K1), whose Dh is a multiple of 128; otherwise (K3, any lengths). The
+    kernel is ``_tile_symbol``'s: bf16 at Dh 128 packed
+    ``flash_fwd_sm90_kernel``, bf16 at Dh 64 / 128 otherwise
+    ``flash_long_fwd_kernel<Dh>``, bf16 at Dh 256 to 512
+    ``flash_fwd_wide_bf16_kernel<Dh>``, fp32 ``flash_fwd_f32_kernel<Dh>``."""
     _check_problem(q, k, v, sin, cos, kv_mask)
     mask = mask_arg(kv_mask, strided=False)
     device = q.device
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
-    if packed:
-        if q.dtype != torch.bfloat16 or Dh != 128:
-            raise ValueError(f"the packed CUDA forward takes bfloat16 at Dh 128, "
-                             f"got {q.dtype} at Dh {Dh}")
+    _check_choice(q.dtype, packed, Dh)
     if out.shape != q.shape:
         raise ValueError(f"out shape {tuple(out.shape)} != q {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
@@ -382,7 +428,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # RoPE of K is applied once, by a pre-pass, into this scratch copy
     k_rot = None if sin is None else torch.empty(
         (B, H, Lk, Dh), dtype=q.dtype, device=device)
-    err = _fwd_fn(q.dtype, packed)(
+    err = _fwd_fn(_tile_symbol("fwd", q.dtype, packed, Dh))(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(sin), _ptr(cos), _ptr(mask),
         _ptr(k_rot), _ptr(stats),
         B, H, Lq, Lk, Dh,
@@ -403,18 +449,16 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Write the gradients of ``flash_fwd`` into ``dq``, ``dk``, ``dv``
     (views shaped like ``q``, ``k``, ``v``), from the output gradient
     ``do``, the forward's ``out`` and its ``stats``. ``packed``: the views
-    are heads of packed ``[B, L, H*Dh]`` operands (K2), which run the Hopper
-    kernels and take bf16 at Dh 128 only; otherwise (K4, any lengths) the
-    Hopper ``flash_long_bwd_*_kernel<Dh>`` in bf16, or the fp32 kernels for
-    fp32 operands."""
+    are heads of packed ``[B, L, H*Dh]`` operands (K2); otherwise (K4, any
+    lengths). The kernels are ``_tile_symbol``'s, as for ``flash_fwd``:
+    the Hopper ones in bf16 at Dh 128 (packed) or 64 / 128, the wide SIMT
+    ones in bf16 at Dh 256 to 512, the fp32 SIMT ones for fp32."""
     _check_problem(q, k, v, sin, cos, kv_mask)
     mask = mask_arg(kv_mask, strided=False)
     device = q.device
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
-    if packed and (q.dtype != torch.bfloat16 or Dh != 128):
-        raise ValueError(f"the packed CUDA backward takes bfloat16 at Dh 128, "
-                         f"got {q.dtype} at Dh {Dh}")
+    _check_choice(q.dtype, packed, Dh)
     for name, t, like in (("out", out, q), ("do", do, q), ("dq", dq, q),
                           ("dk", dk, k), ("dv", dv, v)):
         if t.shape != like.shape:
@@ -432,7 +476,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sin is not None:  # q and k are rotated once, by a pre-pass, into these
         q_rot = torch.empty((B, H, Lq, Dh), dtype=q.dtype, device=device)
         k_rot = torch.empty((B, H, Lk, Dh), dtype=q.dtype, device=device)
-    err = _bwd_fn(q.dtype, packed)(
+    err = _bwd_fn(_tile_symbol("bwd", q.dtype, packed, Dh))(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(do), _ptr(stats), _ptr(sin),
         _ptr(cos), _ptr(mask), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(rows),
         _ptr(q_rot), _ptr(k_rot),
@@ -453,32 +497,28 @@ def flash_fwd_proj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_mask: Optional[torch.Tensor], causal: bool,
                    scale: float) -> None:
     """Write ``concat_h(attention_h) @ wo`` into ``y`` ``[B, Lq, Dout]``
-    (contiguous). ``q``/``k``/``v`` are ``[B, H, L, 128]`` views of packed
-    bf16 operands, ``wo`` is ``[H*128, Dout]`` bf16, contiguous. ``out`` (a
-    ``[B, H, Lq, 128]`` view) and ``stats`` (fp32 ``[2, B, H, Lq]``) receive
-    the attention output and the row statistics for the backward; both or
-    neither are given."""
+    (contiguous). ``q``/``k``/``v`` are ``[B, H, L, Dh]`` views of packed
+    operands (bf16 or fp32, Dh a multiple of 128, ``H*Dh <= PROJ_MAX``),
+    ``wo`` is ``[H*Dh, Dout]`` of their type, contiguous; the kernel is
+    ``proj_symbol``'s. ``out`` (a ``[B, H, Lq, Dh]`` view) and ``stats``
+    (fp32 ``[2, B, H, Lq]``) receive the attention output and the row
+    statistics for the backward; both or neither are given."""
     _check_problem(q, k, v, sin, cos, kv_mask)
     mask = mask_arg(kv_mask, strided=False)
     device = q.device
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
     D = H * Dh
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the fused-projection kernel takes bfloat16, got {q.dtype}")
-    if Dh != 128 or D > 1024:
-        raise ValueError(f"the fused-projection kernel takes Dh 128 and H*Dh <= 1024, "
-                         f"got Dh={Dh}, H={H}")
-    if wo.dim() != 2 or wo.shape[0] != D or wo.shape[1] % 128:
-        raise ValueError(f"wo must be [{D}, Dout] with Dout % 128 == 0, "
-                         f"got {tuple(wo.shape)}")
+    if wo.dim() != 2 or wo.shape[0] != D:
+        raise ValueError(f"wo must be [{D}, Dout], got {tuple(wo.shape)}")
     Dout = wo.shape[1]
+    symbol = proj_symbol(q.dtype, Dh, H, Dout)
     if (wo.dtype != q.dtype or wo.device != device or not wo.is_contiguous()
             or wo.data_ptr() % 16):
-        raise ValueError("wo must be a contiguous bfloat16 tensor on q's device")
+        raise ValueError(f"wo must be a contiguous {q.dtype} tensor on q's device")
     if (y.shape != (B, Lq, Dout) or y.dtype != q.dtype or y.device != device
             or not y.is_contiguous()):
-        raise ValueError(f"y must be a contiguous bfloat16 [{B}, {Lq}, {Dout}] tensor")
+        raise ValueError(f"y must be a contiguous {q.dtype} [{B}, {Lq}, {Dout}] tensor")
     if (out is None) != (stats is None):
         raise ValueError("out and stats are written together: give both or neither")
     operands = [("q", q), ("k", k), ("v", v)]
@@ -494,7 +534,7 @@ def flash_fwd_proj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_operand(name, t, device, q.dtype)
     k_rot = None if sin is None else torch.empty(
         (B, H, Lk, Dh), dtype=q.dtype, device=device)
-    err = _fwd_proj_fn()(
+    err = _fwd_proj_fn(symbol)(
         _ptr(q), _ptr(k), _ptr(v), _ptr(wo), _ptr(y), _ptr(out), _ptr(sin),
         _ptr(cos), _ptr(mask), _ptr(k_rot), _ptr(stats),
         B, H, Lq, Lk, Dh, Dout,
@@ -555,8 +595,8 @@ def short_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Lq, Dh = q.shape
     symbol = fwd_symbol(q.dtype, False, Lq, k.shape[2], Dh)
     if not symbol.startswith("deepcoro_flash_short"):
-        raise ValueError(f"the short kernels take Lq, Lk <= {SHORT_MAX}, "
-                         f"got {Lq}, {k.shape[2]}")
+        raise ValueError(f"the short kernels take Lq, Lk <= {SHORT_MAX} and Dh <= "
+                         f"{HOPPER_DIMS[-1]}, got {Lq}, {k.shape[2]}, Dh {Dh}")
     device, dtype = q.device, q.dtype
     q, k, v = (_short_operand(n, t, device, dtype) for n, t in (("q", q), ("k", k), ("v", v)))
     mask = mask_arg(kv_mask, strided=True)
@@ -585,7 +625,7 @@ def short_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     grads = tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
                   for t in (q, k, v))
     dq, dk, dv = grads
-    _short_launch(bwd_symbol(dtype, False, q.shape[2], k.shape[2]), short_args(
+    _short_launch(bwd_symbol(dtype, False, q.shape[2], k.shape[2], q.shape[3]), short_args(
         q, k, v, out, sin=sin, cos=cos, mask=mask, causal=causal,
         stream=_raw_stream(device), do=do, dq=dq, dk=dk, dv=dv), float(scale))
     return grads
@@ -641,13 +681,19 @@ def head_views(a, b, c, layout: str, H: int):
     return _heads(a, H), _heads(b, H), _heads(c, H)
 
 
+def _is_long(layout: str, dtype: torch.dtype, Dh: int) -> bool:
+    """Whether a ``[B, H, L, Dh]`` call past the short lengths runs K3's or
+    K4's long Hopper kernels (bf16 at Dh 64 / 128)."""
+    return layout == "heads" and dtype == torch.bfloat16 and Dh in HOPPER_DIMS
+
+
 def attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout, H,
                       counter, stats: bool):
     """Forward of one layout: returns ``(out, stats or None)`` with ``out``
     in the layout of the inputs. Launches the kernel on a CUDA tensor and
-    counts it on ``counter.launches`` (a long bf16 ``[B, H, L, Dh]`` call,
-    K3's Hopper kernel, on ``counter.long_launches`` too); runs the plain
-    version on a CPU tensor."""
+    counts it on ``counter.launches`` (a long bf16 ``[B, H, L, Dh]`` call
+    at Dh 64 / 128, K3's Hopper kernel, on ``counter.long_launches`` too);
+    runs the plain version on a CPU tensor."""
     qh, kh, vh = head_views(a, b, c, layout, H)
     B, _, Lq, Dh = qh.shape
     if qh.device.type == "cpu":
@@ -655,10 +701,8 @@ def attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout, H,
         out = multi_head_attention(qh, kh, vh, sin=sin, cos=cos, kv_mask=m,
                                    causal=causal, scale=scale)
         return (out if layout == "heads" else _packed(out)), None
-    if layout != "heads" and qh.dtype != torch.bfloat16:
-        raise TypeError(f"the packed CUDA flash kernels take bfloat16, got {qh.dtype}")
     if layout == "heads":
-        if is_short(False, Lq, kh.shape[2]):  # no statistics: the backward rebuilds them
+        if is_short(False, Lq, kh.shape[2], Dh):  # no statistics: the backward rebuilds them
             out = short_forward(qh, kh, vh, sin, cos, kv_mask, causal, scale)[0]
             counter.launches += 1
             return out, None
@@ -672,7 +716,7 @@ def attention_forward(a, b, c, sin, cos, kv_mask, causal, scale, layout, H,
     flash_fwd(qh, kh, vh, oh, sin=sin, cos=cos, kv_mask=kv_mask, causal=causal,
               scale=scale, stats=st, packed=layout != "heads")
     counter.launches += 1
-    if layout == "heads" and qh.dtype == torch.bfloat16:
+    if _is_long(layout, qh.dtype, Dh):
         counter.long_launches += 1
     return out, st
 
@@ -683,9 +727,9 @@ def attention_backward(a, b, c, out, stats, grad_out, sin, cos, kv_mask, causal,
     output ``out`` (both in the layout of the inputs): ``(da, db, dc)`` in
     that layout, ``(dqkv, None, None)`` for ``"fused"``. Launches the
     backward kernels on a CUDA tensor and counts them on
-    ``counter.bwd_launches`` (a long bf16 ``[B, H, L, Dh]`` call, K4's
-    Hopper kernels, on ``counter.long_bwd_launches`` too); runs the plain
-    version on a CPU tensor."""
+    ``counter.bwd_launches`` (a long bf16 ``[B, H, L, Dh]`` call at Dh 64 /
+    128, K4's Hopper kernels, on ``counter.long_bwd_launches`` too); runs
+    the plain version on a CPU tensor."""
     def to_heads(t):
         return t if layout == "heads" else _heads(t, H)
 
@@ -716,7 +760,7 @@ def attention_backward(a, b, c, out, stats, grad_out, sin, cos, kv_mask, causal,
     flash_bwd(qh, kh, vh, oh, gh, stats, *dviews, sin=sin, cos=cos,
               kv_mask=kv_mask, causal=causal, scale=scale, packed=layout != "heads")
     counter.bwd_launches += 1
-    if layout == "heads" and qh.dtype == torch.bfloat16:
+    if _is_long(layout, qh.dtype, qh.shape[3]):
         counter.long_bwd_launches += 1
     return grads
 
@@ -818,7 +862,7 @@ def attention(a, b, c, *, sin, cos, kv_mask, causal, scale, layout, H, counter):
         t is not None and t.requires_grad for t in (a, b, c))
     if not wants_grad:
         return library.attention(a, b, c, sin, cos, kv_mask, causal, scale, layout, H)
-    if layout == "heads" and a.is_cuda and is_short(False, a.shape[2], b.shape[2]):
+    if layout == "heads" and a.is_cuda and is_short(False, a.shape[2], b.shape[2], a.shape[3]):
         return ShortAttention.apply(a, b, c, sin, cos, kv_mask, causal, scale, counter)
     return FlashAttention.apply(a, b, c, sin, cos, kv_mask, causal, scale,
                                 layout, H, counter)

@@ -6,7 +6,7 @@ the slot copy. ``ring_fwd`` runs one whole ring pass of n shards with the
 TPU kernel's protocol:
 
 - every shard has two K/V slots on its device (``[2 slots, 2 (k|v), B, H,
-  Lc, Dh]`` bf16), its row state (``m``, ``l``: ``[B*H, Lc]``, ``acc``:
+  Lc, Dh]`` of the operands' type), its row state (``m``, ``l``: ``[B*H, Lc]``, ``acc``:
   ``[B*H, Lc, Dh]``, fp32) and a compute and a copy stream of its own, so
   that shards that share a card can overlap;
 - slot 0 takes the shard's own chunk; at step r, shard i's copy stream
@@ -20,10 +20,16 @@ TPU kernel's protocol:
 
 The streams start after, and the callers' streams of every device involved
 wait for, all work of the pass, so the result is ordered like any other
-operation on the current stream. The step takes bf16 and Dh 64 or 128; the
-wrapper raises on anything else. ``step_symbol`` names the kernel a head
-dim runs: ``ring_step_sm90_kernel`` (wgmma, TMA, mbarriers) at 128, every
-path of the repository, and the ``mma.sync`` ``ring_step_kernel`` at 64.
+operation on the current stream. The step takes bf16 or fp32 at the head
+dims of ``HEAD_DIMS`` (64 to 512); any other Dh up to 512 is zero-padded to
+the next of them before the pass (``kernel_head_dim``: RoPE, where a model
+has it, is applied before the ring, so zero columns add nothing to q·k)
+and the output is cut back; the scale is the caller's. fp16 and Dh above
+512 raise. ``step_symbol`` names the kernel a step runs:
+``ring_step_sm90_kernel`` (wgmma, TMA, mbarriers) in bf16 at 128, every
+bf16 path of the repository, the ``mma.sync`` ``ring_step_kernel`` at 64,
+the SIMT ``ring_step_wide_bf16_kernel`` at 256 to 512, and the SIMT
+``ring_step_f32_kernel`` for fp32 at every width.
 ``peer_access`` records, per pair of cards, whether the copy goes card to
 card.
 
@@ -44,24 +50,36 @@ import ctypes
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from deepcoro_clip_tpu_torch.ops._flash_cuda import HEAD_DIMS, _aligned, _c_fn
+from deepcoro_clip_tpu_torch.ops._flash_cuda import HEAD_DIMS, _aligned, _c_fn, kernel_head_dim
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (device, peer) -> True where the slot copy goes card to card
 peer_access: Dict[Tuple[int, int], bool] = {}
 
 
-def step_symbol(dh: int) -> str:
+_TYPES = (torch.bfloat16, torch.float32)
+
+
+def step_symbol(dh: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The C entry of ``csrc/ring_attention.cu`` that runs a ring step at
-    head dim ``dh``: the Hopper kernel at 128, the ``mma.sync`` one at 64."""
+    head dim ``dh`` (one of ``HEAD_DIMS``) on operands of ``dtype``: in
+    bf16 the Hopper kernel at 128, the ``mma.sync`` one at 64, the SIMT one
+    at 256 to 512; in fp32 the SIMT one."""
+    if dtype not in _TYPES:
+        raise TypeError(f"the CUDA ring kernels take bfloat16 or float32, got {dtype}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"the CUDA ring kernel takes Dh in {HEAD_DIMS}, got {dh}")
+    if dtype == torch.float32:
+        return "deepcoro_ring_step_f32"
+    if dh > 128:
+        return "deepcoro_ring_step_wide_bf16"
     return "deepcoro_ring_step_sm90_bf16" if dh == 128 else "deepcoro_ring_step_bf16"
 
 
-def _step_fn(dh: int):
-    return _c_fn("ring_attention", step_symbol(dh),
+def _step_fn(dh: int, dtype: torch.dtype):
+    return _c_fn("ring_attention", step_symbol(dh, dtype),
                  [_P] * 7 + [_I] * 4 + [_LL] * 6 + [ctypes.c_float, _I, _I, _P])
 
 
@@ -89,8 +107,8 @@ def _peer_fn():
 def _check(qs, ks, vs, outs) -> None:
     shape = qs[0].shape
     B, H, Lc, Dh = shape
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"the CUDA ring kernel takes Dh in {HEAD_DIMS}, got {Dh}")
+    dtype = qs[0].dtype
+    step_symbol(Dh, dtype)  # raises for what no kernel takes
     if Lc < 1 or B * H > 65535:
         raise ValueError(f"unsupported sizes B*H={B * H}, Lc={Lc}")
     for i, group in enumerate(zip(qs, ks, vs, outs)):
@@ -101,12 +119,39 @@ def _check(qs, ks, vs, outs) -> None:
             if t.device != dev or t.shape != shape:
                 raise ValueError(f"shard {i}: {name} is {tuple(t.shape)} on {t.device}, "
                                  f"expected {tuple(shape)} on {dev}")
-            if t.dtype != torch.bfloat16:
-                raise TypeError(f"the CUDA ring kernel takes bfloat16, got {name} {t.dtype}")
+            if t.dtype != dtype:
+                raise TypeError(f"the CUDA ring kernel takes one type, got {name} "
+                                f"{t.dtype} beside q's {dtype}")
+            if t.stride(-1) != 1:
+                raise ValueError(f"shard {i}: {name}: the head dim must be contiguous")
         for name, t in (("q", group[0]), ("out", group[3])):
-            if not _aligned(t):
+            if dtype == torch.bfloat16 and not _aligned(t):
                 raise ValueError(f"shard {i}: {name} must allow 16-byte loads "
                                  f"(head dim contiguous, ptr % 16 == 0, strides % 8 == 0)")
+
+
+def _pad_operands(qs, ks, vs, outs):
+    """The operands at the head dim a kernel takes: ``(qs, ks, vs, outs,
+    cut)``; where Dh is no kernel's, q, k and v zero-padded to
+    ``kernel_head_dim`` and fresh padded outputs, with ``cut`` the callers'
+    outputs to copy the first Dh columns into after the pass (None when
+    nothing was padded)."""
+    dh = qs[0].shape[-1]
+    width = kernel_head_dim(dh)
+    if width == dh:
+        return qs, ks, vs, outs, None
+    pad = [[F.pad(t, (0, width - dh)) for t in group] for group in (qs, ks, vs)]
+    padded_outs = [torch.empty(o.shape[:-1] + (width,), dtype=o.dtype, device=o.device)
+                   for o in outs]
+    return (*pad, padded_outs, outs)
+
+
+def _cut(padded_outs, outs) -> None:
+    """The first Dh columns of each padded output into the caller's, on
+    the current stream of the output's card."""
+    for p, o in zip(padded_outs, outs):
+        with torch.cuda.device(o.device):
+            o.copy_(p[..., :o.shape[-1]])
 
 
 def _enable_peer(src: int, dst: int) -> None:
@@ -120,21 +165,23 @@ def ring_fwd_rank(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
                   scale: float, n: int, link, counter) -> None:
     """This rank's part of a ring pass over the ``n`` ranks of a process
     group: its queries ``q`` over every rank's K/V chunk, written into
-    ``out`` (``[B, H, Lc, Dh]`` bf16 on this rank's card; q and out with any
-    batch/head/row strides). ``link.post(send, recv, free, stream)`` posts
+    ``out`` (``[B, H, Lc, Dh]`` bf16 or fp32 on this rank's card; q and out
+    with any batch/head/row strides; a Dh no kernel takes is padded, see
+    the module's note). ``link.post(send, recv, free, stream)`` posts
     the exchange of slot ``send`` (to the right) and ``recv`` (from the
     left) behind ``stream``'s work, the receive's write behind the event
     ``free`` (None: nothing to wait for), and returns a handle whose
     ``finish()`` returns an event recorded once the chunk is in ``recv``.
     Launches the step kernel n times, counted on ``counter.launches``."""
+    (q,), (k,), (v,), (out,), cut = _pad_operands([q], [k], [v], [out])
     _check([q], [k], [v], [out])
     B, H, Lc, Dh = q.shape
     dev = q.device
-    step = _step_fn(Dh)
+    step = _step_fn(Dh, q.dtype)
     caller = torch.cuda.current_stream(dev)
     comp, side = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
     comp.wait_stream(caller)
-    slots = torch.empty((2, 2, B, H, Lc, Dh), dtype=torch.bfloat16, device=dev)
+    slots = torch.empty((2, 2, B, H, Lc, Dh), dtype=q.dtype, device=dev)
     m, l, acc = (None, None, None) if n == 1 else (
         torch.empty((B * H, Lc), dtype=torch.float32, device=dev),
         torch.empty((B * H, Lc), dtype=torch.float32, device=dev),
@@ -164,20 +211,25 @@ def ring_fwd_rank(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
         done = comp.record_event()  # step r has read slot cur
     caller.wait_stream(comp)
     caller.wait_stream(side)
+    if cut is not None:
+        _cut([out], cut)
 
 
 def ring_fwd(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
              vs: Sequence[torch.Tensor], outs: Sequence[torch.Tensor], scale: float,
              counter) -> None:
     """One ring pass: shard i's queries ``qs[i]`` over every shard's K/V
-    chunk, written into ``outs[i]`` (all ``[B, H, Lc, Dh]`` bf16 on shard
-    i's device; q and out with any batch/head/row strides). Launches the
-    step kernel n x n times, counted on ``counter.launches``."""
+    chunk, written into ``outs[i]`` (all ``[B, H, Lc, Dh]`` bf16 or fp32 on
+    shard i's device; q and out with any batch/head/row strides; a Dh no
+    kernel takes is padded, see the module's note). Launches the step
+    kernel n x n times, counted on ``counter.launches``."""
+    qs, ks, vs, outs, cut = _pad_operands(qs, ks, vs, outs)
     _check(qs, ks, vs, outs)
     n = len(qs)
     B, H, Lc, Dh = qs[0].shape
+    dtype = qs[0].dtype
     devs = [q.device for q in qs]
-    step, copy = _step_fn(Dh), _copy_fn()
+    step, copy = _step_fn(Dh, dtype), _copy_fn()
     for i in range(n):
         if devs[i] != devs[(i + 1) % n]:
             _enable_peer(devs[i].index, devs[(i + 1) % n].index)
@@ -193,12 +245,12 @@ def ring_fwd(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
     # for a ring of one, whose single step is first and last)
     slots, state = [], []
     for i, d in enumerate(devs):
-        slots.append(torch.empty((2, 2, B, H, Lc, Dh), dtype=torch.bfloat16, device=d))
+        slots.append(torch.empty((2, 2, B, H, Lc, Dh), dtype=dtype, device=d))
         state.append((None, None, None) if n == 1 else (
             torch.empty((B * H, Lc), dtype=torch.float32, device=d),
             torch.empty((B * H, Lc), dtype=torch.float32, device=d),
             torch.empty((B * H, Lc, Dh), dtype=torch.float32, device=d)))
-    slot_bytes = 2 * B * H * Lc * Dh * 2  # k and v of one slot
+    slot_bytes = 2 * B * H * Lc * Dh * qs[0].element_size()  # k and v of one slot
 
     filled = []
     for i in range(n):
@@ -247,3 +299,5 @@ def ring_fwd(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
     for caller in callers.values():
         for s in comp + side:
             caller.wait_stream(s)
+    if cut is not None:
+        _cut(outs, cut)

@@ -7,15 +7,20 @@ aggregator, the probing head's CLS block) the one-launch forward and
 backward of ``csrc/flash_short.cu``; above that (the text tower, the
 SigLIP bank, the captioning decoder) in bf16 the Hopper kernels of
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (wgmma, TMA, mbarriers; key
-tiles past each q tile's last real key skipped, exactly), in fp32 the plain
-fp32 kernels there (those files' notes say what bounds them and how they
-are laid out). On a CPU tensor it runs the plain versions
+tiles past each q tile's last real key skipped, exactly) at Dh 64 and 128,
+the SIMT kernels there in fp32 and in bf16 at the padded widths 256 to 512
+(those files' notes say what bounds them and how they are laid out). On a CPU tensor it runs the plain versions
 (``ops/attention.py``); on a CUDA tensor it launches the kernels or raises.
-A head dim under 64 (Dh 32: the single-video aggregator of
-``siglip_multi_positive_config.yaml``, 16 heads of 512) is zero-padded to
-64, as the JAX wrapper pads every head dim to 128 for the Pallas kernels:
-zero columns add nothing to q·k, and the padded output columns are cut
-off. ``launches`` and ``bwd_launches``
+Every even head dim is padded up to the next width a kernel takes
+(``HEAD_DIMS``: 64, 128, 256, 384, 512; ``pad_head_dim``), as the JAX
+wrapper pads every head dim up to a multiple of 128 for the Pallas kernels
+(``_repack_halves``): zero columns add nothing to q·k, with RoPE each
+rotate-half half is padded apart (sin 0, cos 1 in the pad, so the pad stays
+0 and the pairs stay aligned), the scale stays the original
+``Dh ** -0.5``, and the padded output columns are cut off. Dh 32 (the
+single-video aggregator of ``siglip_multi_positive_config.yaml``, 16 heads
+of 512, and the JAX tests' 3D-RoPE case) runs at 64; Dh 96 at 128; Dh 192
+at 256; above 512 it raises. ``launches`` and ``bwd_launches``
 count the forward and backward kernel launches; ``long_launches`` and
 ``long_bwd_launches`` those of them that ran the long bf16 Hopper kernels.
 """
@@ -27,19 +32,30 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from deepcoro_clip_tpu_torch.ops._flash_cuda import HEAD_DIMS, attention
+from deepcoro_clip_tpu_torch.ops._flash_cuda import HEAD_DIMS, attention, kernel_head_dim
 
 
-def kernel_head_dim(Dh: int, rope: bool) -> int:
-    """The head dim a CUDA call at ``Dh`` runs at: ``Dh`` itself if the
-    kernels take it, 64 for a smaller one without RoPE (the rotated halves
-    would have to move apart); anything else raises."""
-    if Dh in HEAD_DIMS:
-        return Dh
-    if Dh < HEAD_DIMS[0] and not rope:
-        return HEAD_DIMS[0]
-    raise ValueError(f"the CUDA flash kernel takes Dh in {HEAD_DIMS}, got {Dh}"
-                     + (" with RoPE" if rope and Dh < HEAD_DIMS[0] else ""))
+def pad_head_dim(q, k, v, sin, cos, width: int):
+    """q, k, v (``[..., Dh]``) and the RoPE tables (``[L, Dh]`` or None)
+    zero-padded to ``width`` columns, as the JAX wrapper's ``_repack_halves``
+    pads them: without RoPE every tensor at its end; with RoPE q, k and the
+    tables half by half (``[x1, pad, x2, pad]``: the rotate-half partner of
+    column i stays i + width / 2), sin padded with 0 and cos with 1, v at
+    its end. The output's first Dh columns are the unpadded call's."""
+    Dh = q.shape[-1]
+    if width == Dh:
+        return q, k, v, sin, cos
+    if sin is None:
+        q, k, v = (F.pad(t, (0, width - Dh)) for t in (q, k, v))
+        return q, k, v, None, None
+    half, pad = Dh // 2, (width - Dh) // 2
+
+    def halves(t, fill):
+        z = torch.full(t.shape[:-1] + (pad,), fill, dtype=t.dtype, device=t.device)
+        return torch.cat([t[..., :half], z, t[..., half:], z], dim=-1)
+
+    return (halves(q, 0.0), halves(k, 0.0), F.pad(v, (0, width - Dh)),
+            halves(sin, 0.0), halves(cos, 1.0))
 
 
 def flash_attention(
@@ -56,8 +72,8 @@ def flash_attention(
     Lk without RoPE); sin/cos: ``[L, Dh]`` RoPE tables (self-attention);
     kv_mask: ``[B, Lk]``, nonzero = attend. Returns ``[B, H, Lq, Dh]``.
 
-    On CUDA the kernel takes bf16 or fp32 at Dh 64 or 128 (a Dh under 64
-    without RoPE is padded, see above); anything else raises.
+    On CUDA the kernels take bf16 or fp32 at every even Dh up to 512
+    (padded, see above); anything else raises.
     """
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
@@ -66,9 +82,8 @@ def flash_attention(
     if sin is not None and Lq != Lk:
         raise ValueError("RoPE flash attention requires self-attention (Lq == Lk)")
     scale_v = float(scale if scale is not None else Dh ** -0.5)
-    dk = kernel_head_dim(Dh, sin is not None) if q.is_cuda else Dh
-    if dk != Dh:
-        q, k, v = (F.pad(t, (0, dk - Dh)) for t in (q, k, v))
+    dk = kernel_head_dim(Dh) if q.is_cuda else Dh
+    q, k, v, sin, cos = pad_head_dim(q, k, v, sin, cos, dk)
     out = attention(q, k, v, sin=sin, cos=cos, kv_mask=kv_mask, causal=causal,
                     scale=scale_v, layout="heads", H=H, counter=flash_attention)
     return out if dk == Dh else out[..., :Dh]

@@ -20,7 +20,14 @@ gradient is wanted, when it is the backward's residual. Such a forward
 counts on ``proj_launches``, not on ``launches``; its backward is two
 matrix products and the same backward kernels (``bwd_launches``). The JAX
 wrapper's silent fall-backs to "kernel, then dot" have no counterpart here.
-The kernels of this entry take bf16 on the card.
+On the card the kernels of this entry take what the JAX wrapper takes at
+Dh up to 512: bf16 or fp32 at any ``Dh % 128 == 0``. bf16 at Dh 128 runs
+the Hopper kernels (K1, K2, K5); fp32 at Dh 128 to 512 and bf16 at Dh 256
+to 512 run the SIMT kernels of the same files (``_flash_cuda.fwd_symbol``,
+``bwd_symbol``, ``proj_symbol`` name them). With ``wo``, ``H*Dh`` is at most
+1024 (the fused kernels' shared output tile) and, on the Hopper kernel,
+``Dout % 128 == 0``; a call past those, at Dh above 512, or in another
+type raises.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ def flash_attention_packed(
 ) -> torch.Tensor:
     """Either ``q``/``k``/``v`` (each ``[B, L, D]``) or one fused ``qkv``
     ``[B, L, 3D]`` (self-attention, split q|k|v). Requires
-    ``Dh % 128 == 0``. Returns ``[B, Lq, D]``.
+    ``Dh % 128 == 0`` (on the card also Dh <= 512). Returns ``[B, Lq, D]``.
 
     ``wo`` (``[D, Dout]``, cast to the operands' type): apply the output
     projection inside the kernel and return the projected ``[B, Lq, Dout]``

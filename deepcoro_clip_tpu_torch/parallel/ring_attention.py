@@ -392,8 +392,10 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Numerically the plain attention of ``ops/attention.py`` (the online
     softmax is exact).
 
-    ``backend="rdma"`` on CUDA takes bf16 operands with Dh 64 or 128 and
-    raises on anything else; it never falls back to the plain version."""
+    ``backend="rdma"`` on CUDA takes bf16 or fp32 operands at any Dh up to
+    512 (a Dh no kernel takes is zero-padded to the next that one does and
+    the output cut back, ``_flash_cuda.kernel_head_dim``) and raises on
+    anything else; it never falls back to the plain version."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown ring attention backend {backend!r}")
     if k.shape != q.shape or v.shape != q.shape:

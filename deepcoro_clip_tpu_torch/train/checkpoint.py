@@ -13,7 +13,11 @@ dict, on the CPU), the optimizer state, the state of the run's dropout
 ``torch.Generator``, the state of a host-side batch sampler where the run
 has one (``sampler``: the single-head SigLIP sampler's ``state_dict``) and
 the meta: enough that a resumed run repeats an uninterrupted one. A file is written under a temporary name and moved into
-place, so a crash mid-save leaves the previous checkpoint whole.
+place, so a crash mid-save leaves the previous checkpoint whole. A best or
+alignment snapshot of the very state the latest checkpoint was just written
+from (the same step, meta, generator and sampler states) is a hard link to
+that file (a copy where the file system has no links): the same bytes,
+serialised and written once.
 
 Under data parallelism every rank calls the saves: the dropout generators
 are gathered, one a data index of the process grid (``generators``, in
@@ -34,6 +38,9 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
+import shutil
+import weakref
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -81,25 +88,56 @@ def _load_into(dst, src, splits: Dict[str, Split], key: str = ""):
     return src
 
 
+def _snapshot_key(state: Any, meta: Dict[str, Any], states, sampler) -> bytes:
+    """What a file written from ``state`` holds besides its tensors: the
+    step, the meta, the generator states and the sampler's state."""
+    return pickle.dumps((int(state.step), json.dumps(meta, default=float, sort_keys=True),
+                         [None if g is None else bytes(g.numpy()) for g in states],
+                         None if sampler is None else sampler.state_dict()))
+
+
 class CheckpointManager:
     def __init__(self, directory: str | Path):
         self.dir = Path(directory)
+        # the latest checkpoint's file, the state it was written from (a
+        # weak reference) and its snapshot key
+        self._latest = None
         if rank() == 0:
             self.dir.mkdir(parents=True, exist_ok=True)
 
     # ------------------------------------------------------------------ #
 
     def _save(self, name: str, state: Any, meta: Dict[str, Any],
-              generator: Optional[torch.Generator] = None, sampler=None) -> Path:
+              generator: Optional[torch.Generator] = None, sampler=None,
+              reuse: bool = False) -> Path:
         """Every rank calls it (the generator states are gathered, those of
         model index 0 kept: one a data index); rank 0 writes, and no rank
-        returns before the file is in place."""
+        returns before the file is in place. ``reuse``: where the latest
+        checkpoint was written from this same state (every rank agreeing),
+        the file is linked to it instead of written again."""
         states = gather_objects([None if generator is None else generator.get_state()])
         states = states[::grid().shape[MODEL_AXIS]]
+        path = self.dir / f"{name}.pt"
+        if reuse or name == "checkpoint":
+            key = _snapshot_key(state, meta, states, sampler)
+        if reuse:
+            last = self._latest
+            same = last is not None and last[1]() is state and last[2] == key
+            if all(gather_objects([same])):
+                if rank() == 0:
+                    tmp = self.dir / f"{name}.pt.tmp"
+                    tmp.unlink(missing_ok=True)
+                    try:
+                        os.link(last[0], tmp)
+                    except OSError:
+                        shutil.copyfile(last[0], tmp)
+                    os.replace(tmp, path)
+                    (self.dir / f"{name}.json").write_text(json.dumps(meta, default=float))
+                barrier()
+                return path
         splits = model_splits(state.params)
         params = _to_cpu(dict(state.params), splits)
         opt_state = _to_cpu(state.opt_state, splits)
-        path = self.dir / f"{name}.pt"
         if rank() == 0:
             tmp = self.dir / f"{name}.pt.tmp"
             torch.save({
@@ -113,6 +151,11 @@ class CheckpointManager:
             }, tmp)
             os.replace(tmp, path)
             (self.dir / f"{name}.json").write_text(json.dumps(meta, default=float))
+        if name == "checkpoint":
+            try:
+                self._latest = (path, weakref.ref(state), key)
+            except TypeError:  # a state that takes no weak reference
+                self._latest = None
         barrier()
         return path
 
@@ -136,14 +179,14 @@ class CheckpointManager:
     def save_best(self, state: Any, epoch: int, meta: Dict[str, Any],
                   generator: Optional[torch.Generator] = None, sampler=None) -> Path:
         name = f"best_model_epoch_{epoch}"
-        path = self._save(name, state, meta, generator, sampler)
+        path = self._save(name, state, meta, generator, sampler, reuse=True)
         self._prune("best_model_epoch_", name)
         return path
 
     def save_alignment(self, state: Any, epoch: int, meta: Dict[str, Any],
                        generator: Optional[torch.Generator] = None, sampler=None) -> Path:
         name = f"highest_alignment_epoch_{epoch}"
-        path = self._save(name, state, meta, generator, sampler)
+        path = self._save(name, state, meta, generator, sampler, reuse=True)
         self._prune("highest_alignment_epoch_", name)
         return path
 

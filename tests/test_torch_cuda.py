@@ -205,16 +205,30 @@ def test_text_shape(cuda, proj):
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
+    """fp16, a head dim above 512 and the fused projection past H*Dh 1024
+    raise; fp32 packed operands and a Dh of 96, which raised before the
+    SIMT kernels and the padding, now run a kernel (each launch counted)."""
     q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         flash_attention(q, q, q)
-    q = torch.zeros(1, 16, 256, device=cuda)  # the packed entry stays bf16-only
-    with pytest.raises(TypeError, match="bfloat16"):
+    q = torch.zeros(1, 16, 256, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         flash_attention_packed(q, q, q, num_heads=2)
-    with pytest.raises(TypeError, match="bfloat16"):
-        flash_attention_packed(q, q, q, num_heads=2, wo=torch.zeros(256, 256, device=cuda))
+    q = torch.zeros(1, 16, 256, device=cuda)  # fp32 packed: the SIMT kernels
+    n = flash_attention_packed.launches, flash_attention_packed.proj_launches
+    flash_attention_packed(q, q, q, num_heads=2)
+    flash_attention_packed(q, q, q, num_heads=2, wo=torch.zeros(256, 256, device=cuda))
+    assert (flash_attention_packed.launches, flash_attention_packed.proj_launches) == (
+        n[0] + 1, n[1] + 1)
+    q = torch.zeros(1, 16, 2048, device=cuda)
+    with pytest.raises(ValueError, match="H\\*Dh <= 1024"):
+        flash_attention_packed(q, q, q, num_heads=4, wo=torch.zeros(2048, 256, device=cuda))
     q = torch.zeros(1, 2, 16, 96, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="Dh in"):
+    n = flash_attention.launches
+    assert flash_attention(q, q, q).shape == q.shape  # padded to 128
+    assert flash_attention.launches == n + 1
+    q = torch.zeros(1, 2, 16, 640, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Dh up to 512"):
         flash_attention(q, q, q)
 
 
@@ -330,10 +344,22 @@ def test_no_grad_writes_no_statistics_and_matches(cuda):
 
 
 def test_backward_rejects_fp32_on_the_card(cuda):
-    """The packed entry: its kernels are bf16-only, with a gradient too."""
-    q = torch.zeros(1, 16, 256, device=cuda, requires_grad=True)
-    with pytest.raises(TypeError, match="bfloat16"):
+    """The packed entry with a gradient: fp16 raises; fp32, which raised
+    before the SIMT kernels took it, now runs the fp32 forward and backward
+    kernels (one launch each, counted) and gives the plain gradients."""
+    q = torch.zeros(1, 16, 256, device=cuda, dtype=torch.float16, requires_grad=True)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         flash_attention_packed(q, q, q, num_heads=2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(1, 16, 256, generator=g, device=cuda, requires_grad=True)
+    n = flash_attention_packed.launches, flash_attention_packed.bwd_launches
+    (dq,) = torch.autograd.grad(flash_attention_packed(q, q, q, num_heads=2).sum(), [q])
+    assert (flash_attention_packed.launches, flash_attention_packed.bwd_launches) == (
+        n[0] + 1, n[1] + 1)
+    qp = q.detach().clone().requires_grad_()
+    heads = qp.unflatten(2, (2, 128)).transpose(1, 2)
+    (want,) = torch.autograd.grad(multi_head_attention(heads, heads, heads).sum(), [qp])
+    torch.testing.assert_close(dq, want, atol=1e-4, rtol=1e-4)
 
 
 def _kernels_run(fn):
@@ -802,12 +828,16 @@ def test_ring_kernel_rejects_what_it_does_not_take(cuda):
     from deepcoro_clip_tpu_torch.parallel import ring_attention
 
     mesh = _ring_mesh(2, [cuda] * 2)
-    q = torch.zeros(1, 2, 64, 128, device=cuda)
-    with pytest.raises(TypeError, match="bfloat16"):
+    q = torch.zeros(1, 2, 64, 128, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         ring_attention(q, q, q, mesh, backend="rdma")
-    q = torch.zeros(1, 2, 64, 96, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="Dh in"):
+    q = torch.zeros(1, 2, 64, 640, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Dh up to 512"):
         ring_attention(q, q, q, mesh, backend="rdma")
+    # fp32, and a Dh of 96 (padded to 128), which raised before, run K6
+    for dtype, dh in ((torch.float32, 128), (torch.bfloat16, 96)):
+        q = torch.zeros(1, 2, 64, dh, device=cuda, dtype=dtype)
+        assert ring_attention(q, q, q, mesh, backend="rdma").shape == q.shape
 
 
 def test_ring_kernel_across_cards_equals_one_card(cuda):
@@ -1242,3 +1272,108 @@ def test_clip_inference_on_the_card(cuda, tmp_path):
         if sim[b, order[0]] - sim[b, order[1]] > 1e-3:
             assert got[0] == int(order[0])
         assert abs(json.loads(row["topk_scores"])[0] - sim[b, order[0]]) <= 1e-2
+
+
+# --------------------------------------------------------------------------- #
+# the SIMT kernels: fp32 packed (K1, K2, K5), bf16 at Dh 256 to 512, the
+# padded K3/K4 widths, K6 in fp32 and padded
+
+# fp32 kernels vs the plain versions in fp32 (nothing rounded below fp32;
+# exp2 with the scale folded in, sums in another order)
+SIMT_F32_TOL = dict(atol=2e-5, rtol=2e-5)
+SIMT_F32_BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _tables(L, dh, device):
+    pos = torch.arange(L, dtype=torch.float32)[:, None]
+    f = 1.0 / 10000 ** (torch.arange(dh // 2, dtype=torch.float32) / (dh // 2))
+    a = torch.cat([pos * f, pos * f], dim=1)
+    return a.sin().to(device).contiguous(), a.cos().to(device).contiguous()
+
+
+@pytest.mark.parametrize("dtype,dh,H,L", [
+    (torch.float32, 128, 2, 200), (torch.float32, 256, 2, 136),
+    (torch.float32, 512, 1, 70), (torch.bfloat16, 256, 2, 200),
+    (torch.bfloat16, 384, 1, 70), (torch.bfloat16, 512, 1, 70)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_simt_packed_kernels_match_plain(cuda, dtype, dh, H, L, causal):
+    """K1, K2 (fused qkv, RoPE, a key mask with a half-masked row) and K5
+    (``wo`` 384 wide) on the SIMT kernels against the plain versions: fp32
+    at SIMT_F32_TOL, bf16 at the bf16 bars; one launch each, counted."""
+    g = torch.Generator(device=cuda).manual_seed(dh + L)
+    D = H * dh
+    qkv = (torch.randn(2, L, 3 * D, generator=g, device=cuda) * 0.5).to(dtype)
+    do = (torch.randn(2, L, D, generator=g, device=cuda) * 0.5).to(dtype)
+    sin, cos = _tables(L, dh, cuda)
+    m = torch.ones(2, L, dtype=torch.bool, device=cuda)
+    m[1, L // 2:] = False
+    kw = dict(sin=sin, cos=cos, kv_mask=m, causal=causal)
+    tol, btol = (SIMT_F32_TOL, SIMT_F32_BWD_TOL) if dtype == torch.float32 else (TOL, BWD_TOL)
+    n = flash_attention_packed.launches, flash_attention_packed.bwd_launches
+    leaf = qkv.clone().requires_grad_()
+    out = flash_attention_packed(qkv=leaf, num_heads=H, **kw)
+    (dqkv,) = torch.autograd.grad(out, [leaf], do)
+    assert (flash_attention_packed.launches, flash_attention_packed.bwd_launches) == (
+        n[0] + 1, n[1] + 1)
+    heads = [t.unflatten(2, (H, dh)).transpose(1, 2) for t in qkv.split(D, -1)]
+    ref = multi_head_attention(*heads, **kw)
+    torch.testing.assert_close(out.detach().float(),
+                               ref.transpose(1, 2).flatten(2).float(), **tol)
+    want = flash_bwd_plain(*heads, do.unflatten(2, (H, dh)).transpose(1, 2), ref, **kw)
+    want = torch.cat([w.transpose(1, 2).flatten(2) for w in want], -1)
+    torch.testing.assert_close(dqkv.float(), want.float(), **btol)
+    if not causal:
+        wo = (torch.randn(D, 384, generator=g, device=cuda) * D ** -0.5).to(dtype)
+        n5 = flash_attention_packed.proj_launches
+        with torch.no_grad():
+            y = flash_attention_packed(qkv=qkv, num_heads=H, wo=wo, **kw)
+        assert flash_attention_packed.proj_launches == n5 + 1
+        yref = torch.matmul(ref.transpose(1, 2).flatten(2).float(), wo.float())
+        torch.testing.assert_close(y.float(), yref, **(tol if dtype == torch.float32
+                                                        else dict(atol=3e-2, rtol=3e-2)))
+
+
+@pytest.mark.parametrize("dtype,dh,rope", [
+    (torch.float32, 32, True), (torch.bfloat16, 32, True), (torch.float32, 96, False),
+    (torch.bfloat16, 96, True), (torch.bfloat16, 192, True), (torch.float32, 192, False)])
+def test_padded_head_dims_match_plain(cuda, dtype, dh, rope):
+    """K3/K4 at head dims no kernel is built for, padded as the JAX
+    wrapper pads (``pad_head_dim``): the output and gradients against the
+    plain version at the original width."""
+    g = torch.Generator(device=cuda).manual_seed(dh)
+    L = 130
+    q, k, v, do = ((torch.randn(2, 3, L, dh, generator=g, device=cuda) * 0.5).to(dtype)
+                   for _ in range(4))
+    sin, cos = _tables(L, dh, cuda) if rope else (None, None)
+    m = torch.ones(2, L, dtype=torch.bool, device=cuda)
+    m[0, 100:] = False
+    tol, btol = (SIMT_F32_TOL, SIMT_F32_BWD_TOL) if dtype == torch.float32 else (TOL, BWD_TOL)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = flash_attention.launches
+    out = flash_attention(*leaves, sin=sin, cos=cos, kv_mask=m)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert flash_attention.launches == n + 1
+    ref = multi_head_attention(q, k, v, sin=sin, cos=cos, kv_mask=m)
+    torch.testing.assert_close(out.detach().float(), ref.float(), **tol)
+    want = flash_bwd_plain(q, k, v, do, ref, sin=sin, cos=cos, kv_mask=m)
+    for got, w in zip(grads, want):
+        torch.testing.assert_close(got.float(), w.float(), **btol)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 128), (torch.float32, 96),
+                                      (torch.bfloat16, 256)])
+def test_ring_kernel_in_fp32_and_padded(cuda, dtype, dh):
+    """K6's fp32 SIMT step (at Dh 128, and at 96 padded to 128) and the wide
+    bf16 one (Dh 256) over 4 shards on one card against the whole
+    sequence's plain attention; n x n launches."""
+    from deepcoro_clip_tpu_torch.parallel import ring_attention
+
+    g = torch.Generator(device=cuda).manual_seed(dh)
+    q, k, v = ((torch.randn(2, 2, 512, dh, generator=g, device=cuda)).to(dtype)
+               for _ in range(3))
+    n = ring_attention.launches
+    with torch.no_grad():
+        out = ring_attention(q, k, v, _ring_mesh(4, [cuda] * 4), backend="rdma")
+    assert ring_attention.launches == n + 16
+    tol = SIMT_F32_TOL if dtype == torch.float32 else TOL
+    torch.testing.assert_close(out.float(), multi_head_attention(q, k, v).float(), **tol)

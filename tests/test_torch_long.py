@@ -55,14 +55,14 @@ CUT_TOL = dict(atol=1e-6, rtol=1e-6)
                                       (70, 10, 128)])
 def test_long_bf16_calls_take_the_hopper_kernels(Lq, Lk, Dh):
     assert _flash_cuda.fwd_symbol(BF16, False, Lq, Lk, Dh) == "deepcoro_flash_long_fwd_bf16"
-    assert _flash_cuda.bwd_symbol(BF16, False, Lq, Lk) == "deepcoro_flash_long_bwd_bf16"
-    assert not _flash_cuda.is_short(False, Lq, Lk)
+    assert _flash_cuda.bwd_symbol(BF16, False, Lq, Lk, Dh) == "deepcoro_flash_long_bwd_bf16"
+    assert not _flash_cuda.is_short(False, Lq, Lk, Dh)
 
 
 @pytest.mark.parametrize("Lq,Lk,Dh", [(65, 65, 64), (99, 99, 128), (11, 200, 64)])
 def test_long_fp32_calls_keep_the_fp32_kernels(Lq, Lk, Dh):
     assert _flash_cuda.fwd_symbol(F32, False, Lq, Lk, Dh) == "deepcoro_flash_fwd_f32"
-    assert _flash_cuda.bwd_symbol(F32, False, Lq, Lk) == "deepcoro_flash_bwd_f32"
+    assert _flash_cuda.bwd_symbol(F32, False, Lq, Lk, Dh) == "deepcoro_flash_bwd_f32"
 
 
 @pytest.mark.parametrize("dtype,suffix", [(BF16, "bf16"), (F32, "f32")])
@@ -70,19 +70,25 @@ def test_short_and_packed_routes_are_unchanged(dtype, suffix):
     for L in (1, 10, 64):
         assert _flash_cuda.fwd_symbol(dtype, False, L, L, 64) == \
             f"deepcoro_flash_short_fwd_{suffix}"
-        assert _flash_cuda.bwd_symbol(dtype, False, L, L) == f"deepcoro_flash_short_bwd_{suffix}"
+        assert _flash_cuda.bwd_symbol(dtype, False, L, L, 64) == \
+            f"deepcoro_flash_short_bwd_{suffix}"
     for L in (10, 512, 1569):
         assert _flash_cuda.fwd_symbol(BF16, True, L, L, 128) == "deepcoro_flash_fwd_sm90_bf16"
-        assert _flash_cuda.bwd_symbol(BF16, True, L, L) == "deepcoro_flash_bwd_sm90_bf16"
+        assert _flash_cuda.bwd_symbol(BF16, True, L, L, 128) == "deepcoro_flash_bwd_sm90_bf16"
 
 
 def test_head_dims_no_kernel_takes_raise():
+    """No kernel is built at Dh 96: the entry point pads it to 128 first
+    (``kernel_head_dim``), as it pads 32 to 64 and 192 to 256; above 512
+    nothing takes it, and the width is named."""
     for dtype in (BF16, F32):
         with pytest.raises(ValueError, match="Dh in"):
             _flash_cuda.fwd_symbol(dtype, False, 512, 512, 96)
-    with pytest.raises(ValueError, match="Dh in"):
-        kernel_head_dim(96, rope=False)
-    assert kernel_head_dim(32, rope=False) == 64  # padded, as the aggregator's Dh 32
+        with pytest.raises(ValueError, match="Dh in"):
+            _flash_cuda.fwd_symbol(dtype, False, 512, 512, 1024)
+    assert [kernel_head_dim(d) for d in (32, 96, 192, 320, 512)] == [64, 128, 256, 384, 512]
+    with pytest.raises(ValueError, match="Dh up to 512, got 640"):
+        kernel_head_dim(640)
 
 
 # --------------------------------------------------------------------------- #

@@ -199,14 +199,17 @@ def test_backward_kernel_choice(dtype, packed, symbol):
     """Which C entry of csrc/flash_bwd.cu a backward above the short
     lengths runs: a pure function of the operand type, the layout and the
     lengths, so it is checked here without a card."""
-    assert _flash_cuda.bwd_symbol(dtype, packed, 393, 393) == symbol
+    assert _flash_cuda.bwd_symbol(dtype, packed, 393, 393, 128) == symbol
 
 
 def test_backward_kernel_choice_rejects_what_no_kernel_takes():
-    with pytest.raises(TypeError, match="packed CUDA backward takes bfloat16"):
-        _flash_cuda.bwd_symbol(torch.float32, True, 393, 393)
+    """fp16 and a head dim above 512 raise; fp32 packed operands, which
+    raised before the SIMT kernels took the packed layouts, run them."""
+    assert _flash_cuda.bwd_symbol(torch.float32, True, 393, 393, 128) == "deepcoro_flash_bwd_f32"
     with pytest.raises(TypeError, match="bfloat16 or float32"):
-        _flash_cuda.bwd_symbol(torch.float16, False, 10, 10)
+        _flash_cuda.bwd_symbol(torch.float16, False, 10, 10, 64)
+    with pytest.raises(ValueError, match="Dh in"):
+        _flash_cuda.bwd_symbol(torch.float32, True, 393, 393, 640)
 
 
 # --------------------------------------------------------------------------- #

@@ -115,17 +115,31 @@ def test_ring_attention_rejects_what_jax_rejects():
         ring_attention(q, q, q, _tmesh(2), backend="nccl")
 
 
-@pytest.mark.parametrize("dh,symbol", [(128, "deepcoro_ring_step_sm90_bf16"),
-                                       (64, "deepcoro_ring_step_bf16")])
-def test_ring_step_kernel_choice(dh, symbol):
-    """Which C entry of csrc/ring_attention.cu a ring step runs: the Hopper
-    kernel at Dh 128, the mma.sync one at 64; a pure function of the head
-    dim, checked here without a card."""
+@pytest.mark.parametrize("dh,dtype,symbol", [
+    (128, torch.bfloat16, "deepcoro_ring_step_sm90_bf16"),
+    (64, torch.bfloat16, "deepcoro_ring_step_bf16"),
+    (256, torch.bfloat16, "deepcoro_ring_step_wide_bf16"),
+    (64, torch.float32, "deepcoro_ring_step_f32"),
+    (128, torch.float32, "deepcoro_ring_step_f32"),
+    (512, torch.float32, "deepcoro_ring_step_f32"),
+])
+def test_ring_step_kernel_choice(dh, dtype, symbol):
+    """Which C entry of csrc/ring_attention.cu a ring step runs: in bf16 the
+    Hopper kernel at Dh 128, the mma.sync one at 64, the SIMT one at 256 to
+    512; the fp32 SIMT one at every width; a pure function of the head dim
+    and the type, checked here without a card. Dh 96 is no kernel's: the
+    ring pads it to 128 first (``kernel_head_dim``); fp16 and Dh above 512
+    raise."""
     from deepcoro_clip_tpu_torch.ops import _ring_cuda
 
-    assert _ring_cuda.step_symbol(dh) == symbol
+    assert _ring_cuda.step_symbol(dh, dtype) == symbol
     with pytest.raises(ValueError, match="Dh in"):
-        _ring_cuda.step_symbol(96)
+        _ring_cuda.step_symbol(96, dtype)
+    with pytest.raises(ValueError, match="Dh in"):
+        _ring_cuda.step_symbol(640, dtype)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        _ring_cuda.step_symbol(dh, torch.float16)
+    assert _ring_cuda.kernel_head_dim(96) == 128 and _ring_cuda.kernel_head_dim(dh) == dh
 
 
 # --------------------------------------------------------------------------- #

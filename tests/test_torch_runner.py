@@ -206,6 +206,46 @@ def test_checkpoint_pruning_matches_jax(tmp_path):
     assert restored.step == 3 and torch.equal(restored.params["w"], torch.ones(2))
 
 
+def test_snapshots_of_the_latest_state_link_its_file(tmp_path):
+    """A best or alignment snapshot of the state the latest checkpoint was
+    just written from is that file (one write); another step, another meta
+    or a generator drawn from since is written anew; the next latest
+    checkpoint leaves the snapshot as it was."""
+    from deepcoro_clip_tpu_torch.train.state import TrainState
+
+    def state(step):
+        return TrainState(step=step, params={"w": torch.full((2,), float(step))},
+                          opt_state={"count": torch.tensor(step)})
+
+    m, gen = CheckpointManager(tmp_path), torch.Generator().manual_seed(0)
+    ck = tmp_path / "checkpoint.pt"
+    s3 = state(3)
+    m.save_latest(s3, {"epoch": 0}, gen)
+    best = m.save_best(s3, 0, {"epoch": 0}, gen)
+    align = m.save_alignment(s3, 0, {"epoch": 0}, gen)
+    assert best.samefile(ck) and align.samefile(ck)
+    assert json.loads((tmp_path / "best_model_epoch_0.json").read_text()) == {"epoch": 0}
+    m.save_latest(state(5), {"epoch": 1}, gen)  # a new file moved into the latest's name
+    assert torch.load(best, weights_only=True)["step"] == 3
+
+    s4 = state(4)
+    assert not m.save_best(s4, 1, {"epoch": 1}, gen).samefile(ck)  # not the latest's state
+    m.save_latest(s4, {"epoch": 1}, gen)
+    assert not m.save_best(s4, 1, {"epoch": 1, "best_epoch": 1}, gen).samefile(ck)  # meta
+    torch.rand(1, generator=gen)
+    drawn = m.save_alignment(s4, 1, {"epoch": 1}, gen)  # the generator moved
+    assert not drawn.samefile(ck)
+    assert not torch.equal(torch.load(drawn, weights_only=True)["generator"],
+                           torch.load(ck, weights_only=True)["generator"])
+
+    m.save_latest(state(9), {"epoch": 2}, gen)
+    for name, step in (("best_model_epoch_1", 4), ("highest_alignment_epoch_1", 4),
+                       ("checkpoint", 9)):
+        saved = torch.load(tmp_path / f"{name}.pt", weights_only=True)
+        assert saved["step"] == step and torch.equal(saved["params"]["w"],
+                                                     torch.full((2,), float(step)))
+
+
 def _final_params(run_dir: Path):
     return torch.load(Path(run_dir) / "checkpoints" / "checkpoint.pt",
                       weights_only=True)["params"]

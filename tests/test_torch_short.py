@@ -58,23 +58,32 @@ def test_short_routing_by_length(dtype, Lq, Lk, Dh, fwd, bwd):
     """The [B, H, L, Dh] entry runs the short kernels at Lq, Lk <= 64 and
     the tile kernels past that (bf16: the Hopper ones), in both directions."""
     assert _flash_cuda.fwd_symbol(dtype, False, Lq, Lk, Dh) == fwd
-    assert _flash_cuda.bwd_symbol(dtype, False, Lq, Lk) == bwd
-    assert _flash_cuda.is_short(False, Lq, Lk) == ("short" in fwd)
+    assert _flash_cuda.bwd_symbol(dtype, False, Lq, Lk, Dh) == bwd
+    assert _flash_cuda.is_short(False, Lq, Lk, Dh) == ("short" in fwd)
 
 
 @pytest.mark.parametrize("L", [10, 1569])
 def test_packed_layouts_never_take_the_short_kernels(L):
     assert _flash_cuda.fwd_symbol(BF16, True, L, L, 128) == "deepcoro_flash_fwd_sm90_bf16"
-    assert _flash_cuda.bwd_symbol(BF16, True, L, L) == "deepcoro_flash_bwd_sm90_bf16"
+    assert _flash_cuda.bwd_symbol(BF16, True, L, L, 128) == "deepcoro_flash_bwd_sm90_bf16"
 
 
 def test_forward_routing_rejects_what_no_kernel_takes():
+    """fp16, a head dim no kernel takes (96 is padded by the entry point
+    before the choice; above 512 nothing takes it) and a packed head dim
+    that is not a multiple of 128 raise; fp32 packed at short lengths and a
+    wide head at short lengths take the SIMT kernels."""
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         _flash_cuda.fwd_symbol(torch.float16, False, 10, 10, 64)
     with pytest.raises(ValueError, match="Dh in"):
         _flash_cuda.fwd_symbol(BF16, False, 10, 10, 96)
-    with pytest.raises(ValueError, match="packed CUDA forward takes bfloat16 at Dh 128"):
-        _flash_cuda.fwd_symbol(F32, True, 10, 10, 128)
+    with pytest.raises(ValueError, match="Dh in"):
+        _flash_cuda.fwd_symbol(F32, False, 10, 10, 640)
+    with pytest.raises(ValueError, match="Dh % 128"):
+        _flash_cuda.fwd_symbol(F32, True, 10, 10, 64)
+    assert _flash_cuda.fwd_symbol(F32, True, 10, 10, 128) == "deepcoro_flash_fwd_f32"
+    assert _flash_cuda.fwd_symbol(BF16, False, 10, 10, 256) == "deepcoro_flash_wide_fwd_bf16"
+    assert not _flash_cuda.is_short(False, 10, 10, 256)
 
 
 def test_argument_block_mirrors_the_c_source():

@@ -461,13 +461,13 @@ def test_chip_smoke_configs_are_the_shipped_yamls():
 def test_kernel_head_dim():
     """The head dim a CUDA K3/K4 call runs at: 64 and 128 as they are, 32
     (the single-video aggregator of siglip_multi_positive_config.yaml: 512
-    wide, 16 heads) and 8 padded to 64; with RoPE, between the two, or
-    above 128 it raises."""
-    assert [kernel_head_dim(d, False) for d in (8, 32, 64, 128)] == [64, 64, 64, 128]
-    assert kernel_head_dim(64, True) == 64
-    for d, rope in ((32, True), (96, False), (256, False), (130, False)):
-        with pytest.raises(ValueError, match="Dh"):
-            kernel_head_dim(d, rope)
+    wide, 16 heads) and 8 padded to 64; 96 and 130 to the next width a
+    kernel takes (with or without RoPE: ``pad_head_dim`` keeps the rotated
+    halves apart); 256 as it is; above 512 it raises."""
+    assert [kernel_head_dim(d) for d in (8, 32, 64, 128)] == [64, 64, 64, 128]
+    assert [kernel_head_dim(d) for d in (96, 130, 256)] == [128, 256, 256]
+    with pytest.raises(ValueError, match="Dh"):
+        kernel_head_dim(514)
     cfg = chip_smoke.siglip_config()
     assert cfg.embedding_dim // cfg.num_heads == 32 and not cfg.multi_video
 
