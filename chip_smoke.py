@@ -356,7 +356,8 @@ Phases, each printing one line (or a few) before the last:
    rank, the head outputs against world 1's, step time, all-reduces and
    memory;
 39. the attention at every precision and head width the JAX wrappers take
-   (after phase 38, outside the corpus): K1/K2 on the SIMT kernels in fp32
+   (after phase 38, outside the corpus): K1/K2 in fp32 (K1 on the
+   register-tiled flash_fwd_f32_regtile_kernel<128>, K2 on the SIMT ones)
    at [16,1569,1536] H 4 (fused and split) and [16,393,1536], in bf16 and
    fp32 at Dh 256 (H 2) and 512 (H 1); K3/K4 at phase 40's fp32 calls (the
    text tower's [16,12,128,64] with a real-prefix key mask, the
@@ -368,17 +369,21 @@ Phases, each printing one line (or a few) before the last:
    one-process pass): each against its plain version (fp32: F32_ATOL /
    F32_BWD_REL bars, a short call's gradients by F32_ATOL; bf16: phases 3's
    and 7's), with times (CUDA events), bounds (fp32 at 67 TFLOP/s) and the
-   library call's;
+   library call's; fp32 K1 and K3 at Dh 64 / 128 and K5 at 128 traced by
+   name on the register-tiled kernels, whose registers and shared memory
+   (against the Python mirror, _flash_cuda.regtile_smem_bytes) it prints;
 40. (inside the corpus, after phase 38) config/quality/flagship_quality_train.yaml
    through main at precision fp32, one epoch of 3 steps and its validation,
    against the same run with the plain attention from the same seed, both
    at dropout 0: per-step and validation losses (FP32_RUN_LOSS_REL),
    launches per step K1 12, K2 12, K3 14, K4 14 on the fp32 kernels, the
    run's checkpoint written and read back in fp32, a traced step (busy
-   share, the SIMT kernels by name), step time, peak memory;
+   share, the fp32 kernels by name, the forward's share), step time, peak
+   memory;
 41. phase 12's probing step at precision fp32 with DEEPCORO_FUSED_OUTPROJ=1:
    12 fp32 K5 launches a step, the heads against the plain attention's
-   (FP32_HEAD_ATOL + FP32_HEAD_RTOL|plain|), step time, peak memory;
+   (FP32_HEAD_ATOL + FP32_HEAD_RTOL|plain|), step time, a traced step (busy
+   time, K5 by name and its share), peak memory;
 then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6, and
 the long K3 and K4 kernels an entry each; K3 and K4 list their short and
 long kernels and carry phase 21's rows; every kernel carries the launches
@@ -397,6 +402,11 @@ stay bit-equal (K1, K2, K5, K6, the short K3/K4), K1's and K2's times at
 the video and text towers' shapes, phase 24's train step on
 one batch (step time, busy time and share, tile K3/K4 share) and K3/K4 rows
 at the main paths' long shapes, against the package of the tree it lies in.
+
+--fp32-rows runs the build, phase 39's fp32 rows of K1 (with K2), K3 at the
+text tower's shape (with K4) and K5, phase 41's step and phase 40's traced
+step (on a rendered corpus), against the package of the tree it lies in:
+the fp32 forward's A B B A call (an older tree's SIMT kernels by name).
 
 --drift renders phase 22's corpus and runs phase 32's config at dropout 0
 through main four times: world 1 (the control), world N (ddp_topology),
@@ -537,31 +547,46 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 
 # profiler windows a busy time may take (see device_ms): a run once traced
-# ten empty windows in a row at phase 24's bank row
+# ten empty windows in a row at phase 24's bank row; windows a trace that
+# shows fewer events than launched may take (device_events)
 TRACE_TRIES = 20
+SHORT_TRIES = 5
 
 
-def device_events(torch, fn):
+def device_events(torch, fn, expect=None):
     """Run ``fn`` once under torch.profiler: (device time by kernel name in
     ms, host wall time in ms including the final synchronise). A trace with
     no device event (the profiler on the H100 machine now and then records
-    none) is taken again, up to TRACE_TRIES times."""
+    none) is taken again, up to TRACE_TRIES times; so is one in which the
+    kernels ``expect`` names (``{name part: launches}``) show fewer events
+    than they launched, up to SHORT_TRIES times (it also drops events: late
+    in whole runs of this script, phase 40's fp32 forward traced 2.2 to 2.4
+    ms a step in every window where a fresh process traced 10.5). A trace
+    still short is returned, and said so."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
 
+    tries = 0  # windows with events
     for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        per_name = defaultdict(float)
+        per_name, events = defaultdict(float), defaultdict(int)
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 per_name[e.name] += e.time_range.elapsed_us() / 1e3
-        if per_name:
+                events[e.name] += 1
+        short = [k for k, n in (expect or {}).items()
+                 if sum(c for name, c in events.items() if k in name) < n]
+        tries += bool(per_name)
+        if per_name and (not short or tries == SHORT_TRIES):
             break
+    if short:
+        print(f"trace: {short} traced fewer events than launched in {tries} windows with events "
+              f"({TRACE_TRIES} at most); the times read from it undercount", flush=True)
     return per_name, wall_ms
 
 
@@ -639,20 +664,28 @@ def hopper_attrs() -> dict:
     return {**hopper_kernel_attrs(), "K6": step_kernel_attrs()}
 
 
-def kernels_run(torch, fn) -> list:
+def kernels_run(torch, fn, expect=None) -> list:
     """The names (without namespace and arguments) of the kernels the card
-    ran during one call of ``fn``, from a profiler trace."""
-    per_name, _ = device_events(torch, fn)
+    ran during one call of ``fn``, from a profiler trace (``expect``: as
+    device_events')."""
+    per_name, _ = device_events(torch, fn, expect)
     return sorted({_short_name(n) for n in per_name})
 
 
-def check_route(torch, label: str, fn, want, not_want) -> list:
+def check_route(torch, label: str, fn, want, not_want, untraced_ok: bool = False) -> list:
     """Hold the kernels one call of ``fn`` runs: every name in ``want`` is
     among them and none of ``not_want``; prints them with their registers
-    and shared memory a block where they are Hopper kernels."""
-    names = kernels_run(torch, fn)
+    and shared memory a block where they are Hopper kernels. A trace that
+    misses a name of ``want`` is taken again; with ``untraced_ok`` (the
+    caller counted the launch) one that still misses it is said so, not
+    failed: the profiler drops events late in a whole run."""
+    names = kernels_run(torch, fn, expect={w: 1 for w in want})
     attrs = {a["kernel"]: a for a in hopper_attrs().values()}
     for w in want:
+        if untraced_ok and not any(w in n for n in names):
+            print(f"{label}: the profiler traced no event of {w} ({names}); its launch was "
+                  f"counted", flush=True)
+            continue
         check(any(w in n for n in names), f"{label}: {w} did not run ({names})")
     for w in not_want:
         check(not any(w in n for n in names), f"{label}: {w} ran ({names})")
@@ -2094,8 +2127,9 @@ def phase_probe_profile(torch, state, step_fn, batch, gen, ratio) -> None:
     print_profile("probing profile", "one step", per_name, wall_ms, top=12)
     check_main_path_kernels("probing profile, the CLS block's K3 and K4", per_name,
                             ("flash_short_fwd_f32_kernel", "flash_short_bwd_f32_kernel"),
-                            ("flash_fwd_f32_kernel", "bwd_rows_f32_kernel",
-                             "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel"))
+                            ("flash_fwd_f32_kernel", "flash_fwd_f32_regtile_kernel",
+                             "bwd_rows_f32_kernel", "flash_bwd_dkv_f32_kernel",
+                             "flash_bwd_dq_f32_kernel"))
 
 
 def phase_probe_times(torch, errs, counts, partial_counts):
@@ -3091,16 +3125,19 @@ LONG_SOURCES = {"K3": "deepcoro_clip_tpu_torch/csrc/flash_fwd.cu",
 
 def _use_tree_kernel_names() -> None:
     """The long K3/K4 kernels' names in the tree this script runs against:
-    this tree's Hopper kernels, or an older tree's mma.sync tile kernels
-    (the A B B A call copies the script into the parent's tree)."""
+    this tree's Hopper kernels, or an older tree's mma.sync tile kernels;
+    and the fp32 forward's: the register-tiled kernels, or an older tree's
+    SIMT ones (the A B B A call copies the script into the parent's tree)."""
     from deepcoro_clip_tpu_torch.ops import _flash_cuda
 
-    global TILE_FWD, TILE_BWD, TILE_KERNELS
+    global TILE_FWD, TILE_BWD, TILE_KERNELS, REGTILE_FWD, REGTILE_PROJ
     if not hasattr(_flash_cuda, "visit_keys"):
         TILE_FWD = ("flash_fwd_kernel<64>",)
         TILE_BWD = ("bwd_rows_kernel<64>", "flash_bwd_dkv_kernel<64>",
                     "flash_bwd_dq_kernel<64>")
         TILE_KERNELS = TILE_FWD + TILE_BWD
+    if not hasattr(_flash_cuda, "regtile_smem_bytes"):  # the fp32 forward on the SIMT kernels
+        REGTILE_FWD, REGTILE_PROJ = SIMT_FWD["float32"], SIMT_PROJ["float32"]
 
 
 def _short_name(name: str) -> str:
@@ -7469,8 +7506,9 @@ def phase_tp_probe(torch, ranks: list) -> dict:
 
 # --------------------------------------------------------------------------- #
 # phases 39 to 41: the attention kernels at every precision and head width
-# the JAX wrappers take: the SIMT kernels (fp32 K1, K2, K5, K6 and bf16 at
-# Dh 256 to 512), the padded K3/K4 head dims, and precision fp32 through main
+# the JAX wrappers take: the CUDA-core kernels (fp32 K1, K2, K5, K6 and bf16
+# at Dh 256 to 512; the fp32 forward at Dh 64 / 128 register-tiled), the
+# padded K3/K4 head dims, and precision fp32 through main
 
 # fp32 gradients against flash_bwd_plain in fp32 on the card, per tensor:
 # max|kernel - plain| <= F32_BWD_REL max|plain| and ||kernel - plain|| <=
@@ -7515,6 +7553,26 @@ SIMT_BWD = {"float32": ("bwd_rows_f32_kernel", "flash_bwd_dkv_f32_kernel",
                          "flash_bwd_dq_wide_bf16_kernel")}
 SIMT_PROJ = {"float32": ("flash_fwd_proj_f32_kernel",),
              "bfloat16": ("flash_fwd_proj_wide_bf16_kernel",)}
+# fp32 at Dh 64 and 128 (K1, K3) and K5 at Dh 128: the register-tiled
+# kernels of csrc/fwd_f32_regtile.cuh (the SIMT names above serve the wider
+# heads; neither name is a substring of the other)
+REGTILE_FWD = ("flash_fwd_f32_regtile_kernel",)
+REGTILE_PROJ = ("flash_fwd_proj_f32_regtile_kernel",)
+
+
+def fwd_names(dtype, Dh: int) -> tuple:
+    """The forward kernel a tile call (past the short lengths) runs at
+    ``dtype`` and ``Dh``, as the trace lookups name it."""
+    if str(dtype) == "torch.float32" and Dh <= 128:
+        return REGTILE_FWD
+    return SIMT_FWD[str(dtype).split(".")[1]]
+
+
+def proj_names(dtype, Dh: int) -> tuple:
+    """The same for K5 off the bf16 Hopper kernel."""
+    if str(dtype) == "torch.float32" and Dh == 128:
+        return REGTILE_PROJ
+    return SIMT_PROJ[str(dtype).split(".")[1]]
 
 
 def _f32_check(name: str, which: str, a, r, grad: bool) -> float:
@@ -7637,7 +7695,7 @@ def _packed_simt_rows(torch, dtype, B, H, Dh, L, split=False) -> tuple:
                           lambda: multi_head_attention(*heads, **rope),
                           lambda: F.scaled_dot_product_attention(*sq),
                           4 * B * H * L * L * Dh, 4 * B * L * D * esz + tables, fp32,
-                          SIMT_FWD[str(dtype).split(".")[1]], err_f)
+                          fwd_names(dtype, Dh), err_f)
     row_b = _simt_row(torch, "simt times K2", shape,
                       lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
                       lambda: flash_bwd_plain(*heads, doh, outh, **rope),
@@ -7706,7 +7764,7 @@ def _padded_rows(torch, dtype, B, H, L, Dh, rope: bool, what: str = "") -> tuple
     elif width > 128:
         kf, kb = SIMT_FWD[str(dtype).split(".")[1]], SIMT_BWD[str(dtype).split(".")[1]]
     elif fp32:
-        kf, kb = SIMT_FWD["float32"], SIMT_BWD["float32"]
+        kf, kb = REGTILE_FWD, SIMT_BWD["float32"]
     else:
         kf = (f"flash_long_fwd_kernel<{width}>",)
         kb = (f"bwd_rows_kernel<{width}", f"flash_long_bwd_dkv_kernel<{width}>",
@@ -7787,7 +7845,7 @@ def _proj_simt_row(torch, dtype, B, H, Dh, L) -> dict:
                                     .flatten(2), wt),
             4 * B * H * L * L * Dh + 2 * B * L * D * Dout,
             (3 * B * L * D + B * L * Dout + D * Dout) * qkv.element_size() + 2 * L * Dh * 4,
-            fp32, SIMT_PROJ[str(dtype).split(".")[1]], err)
+            fp32, proj_names(dtype, Dh), err)
     del qkv, wo, heads, y, ref, d, sq
     torch.cuda.empty_cache()
     return row
@@ -7831,6 +7889,68 @@ def _ring_f32_row(torch) -> dict:
     return row
 
 
+def _regtile_routes(torch) -> dict:
+    """Phase 39's traces of the register-tiled fp32 kernels by name: K1 at
+    the video tower's ``[16,393,1536]`` (Dh 128, RoPE), K3 at the text
+    tower's ``[16,12,128,64]`` with a key mask (Dh 64) and K5 at
+    ``[8,393,1536]``, ``wo`` ``[512,512]``: each call counts one launch on
+    its entry point and runs its new kernel, not the SIMT one (a trace that
+    drops the new kernel's event is said so: the launch was counted, and
+    the SIMT kernel did not run). Prints each kernel's registers and shared
+    memory a block, the latter held against
+    ``_flash_cuda.regtile_smem_bytes``."""
+    from deepcoro_clip_tpu_torch.ops._flash_cuda import (
+        REGTILE_KEYS,
+        REGTILE_PROJ_KEYS,
+        regtile_kernel_attrs,
+        regtile_smem_bytes,
+    )
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(390)
+    attrs = regtile_kernel_attrs()
+    for key, a in attrs.items():
+        want = regtile_smem_bytes(int(key.split()[-1]), REGTILE_PROJ_KEYS if key.startswith("K5")
+                                  else REGTILE_KEYS)
+        check(a["smem_bytes"] == want,
+              f"{key}: {a['smem_bytes']} B of shared memory, the Python mirror says {want}")
+        print(f"regtile attrs: {key}: {a['kernel']} {a['registers']} registers, "
+              f"{a['smem_bytes']} B shared a block (the mirror's) | {CARD}", flush=True)
+    t = build_rope3d_tables(128, 8, 7, 7, n_special=1)
+    rope = dict(sin=torch.from_numpy(t.sin).to(dev), cos=torch.from_numpy(t.cos).to(dev))
+    qkv = torch.randn(16, 393, 1536, generator=g, device=dev) * 0.5
+    text = [torch.randn(16, 128, 768, generator=g, device=dev).unflatten(2, (12, 64))
+            .transpose(1, 2) for _ in range(3)]
+    tmask = torch.arange(128, device=dev)[None] < torch.randint(
+        8, 129, (16, 1), generator=g, device=dev)
+    wo = torch.randn(512, 512, generator=g, device=dev) * 512 ** -0.5
+    cases = {
+        "K1": ("regtile route K1 fp32 [16,393,1536] Dh 128", (flash_attention_packed, "launches"),
+               lambda: flash_attention_packed(qkv=qkv, num_heads=4, **rope), REGTILE_FWD,
+               SIMT_FWD["float32"]),
+        "K3": ("regtile route K3 fp32 [16,12,128,64] + mask", (flash_attention, "launches"),
+               lambda: flash_attention(*text, kv_mask=tmask), REGTILE_FWD, SIMT_FWD["float32"]),
+        "K5": ("regtile route K5 fp32 [8,393,1536] wo [512,512]",
+               (flash_attention_packed, "proj_launches"),
+               lambda: flash_attention_packed(qkv=qkv[:8], num_heads=4, wo=wo, **rope),
+               REGTILE_PROJ, SIMT_PROJ["float32"]),
+    }
+    ran = {}
+    with torch.no_grad():
+        for key, (label, (entry, counter), fn, want, not_want) in cases.items():
+            n = getattr(entry, counter)
+            fn()
+            check(getattr(entry, counter) == n + 1,
+                  f"{label}: {getattr(entry, counter) - n} launches counted, expected 1")
+            ran[key] = check_route(torch, label, fn, want, not_want, untraced_ok=True)
+    del qkv, text, wo
+    torch.cuda.empty_cache()
+    return {"ran": ran, "attrs": attrs}
+
+
 def phase_simt_kernels(torch) -> dict:
     """Phase 39: each SIMT route and padded head dim against its plain
     version, at the fp32 main paths' shapes and the widths the JAX wrappers
@@ -7862,19 +7982,19 @@ def phase_simt_kernels(torch) -> dict:
     rows["K5"].append(_proj_simt_row(torch, f32, PROBE_CLIPS, 4, 128, 393))
     rows["K5"].append(_proj_simt_row(torch, bf16, PROBE_CLIPS, 2, 256, 393))
     rows["K6"].append(_ring_f32_row(torch))
+    rows["regtile"] = _regtile_routes(torch)
     return rows
 
 
 def phase_fp32_quality_run(torch, manifest: Path, stats: dict) -> dict:
     """Phase 40: config/quality/flagship_quality_train.yaml through main at
-    ``precision: fp32`` (CoroViT 512/12 at Dh 128 on the SIMT fp32 K1/K2,
-    the text tower 768/12 and the aggregator on the fp32 K3/K4), one epoch
+    ``precision: fp32`` (CoroViT 512/12 at Dh 128 on the fp32 K1/K2, the
+    text tower 768/12 and the aggregator on the fp32 K3/K4), one epoch
     of 3 steps and its validation, against the same run with the plain
     attention from the same seed, both at dropout 0 with phase 22's dataset
     statistics; launches counted over the kernels' run; a step traced.
     Returns the launches and the times."""
     from deepcoro_clip_tpu_torch.main import main as port_main
-    from deepcoro_clip_tpu_torch.runners.common import batch_to_device
     from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
 
     steps = QUALITY_TRAIN // 16
@@ -7958,47 +8078,65 @@ def phase_fp32_quality_run(torch, manifest: Path, stats: dict) -> dict:
               f"{max(abs(a - b) for a, b in zip(k['losses'], p['losses'])):.3e}, val loss "
               f"|d| {abs(va - vb):.3e} (bar {FP32_RUN_LOSS_REL} relative) ok", flush=True)
 
-        # one step traced: busy share, the SIMT kernels by name
-        from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
-
-        cfg = quality_train_config(data_filename=str(manifest), output_dir=str(tmp / "trace"),
-                                   epochs=1, num_workers=QUALITY_WORKERS, dropout=0.0,
-                                   precision="fp32", **stats)
-        runner = VideoContrastiveLearningRunner(cfg, output_dir=tmp / "trace")
-        batch = batch_to_device(next(iter(runner.loaders["train"])), runner.device)
-        args = (batch, runner.generator, 0.0, 0.0, -1.0)
-        runner.train_step(runner.state, *args)  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(2):
-            runner.train_step(runner.state, *args)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / 2
-        per_name, wall_ms = device_events(torch, lambda: runner.train_step(runner.state, *args))
-        print_profile("fp32 quality profile", "one step at precision fp32", per_name, wall_ms,
-                      top=12)
-        check_main_path_kernels(
-            "fp32 quality profile, the video tower's K1/K2 and the text tower's K3/K4", per_name,
-            SIMT_FWD["float32"] + SIMT_BWD["float32"]
-            + ("flash_short_fwd_f32_kernel", "flash_short_bwd_f32_kernel"),
-            ("flash_fwd_sm90_kernel", "flash_long_fwd_kernel", "flash_bwd_dkv_sm90_kernel"))
-        busy = sum(per_name.values())
-        attn = sum(ms for n, ms in per_name.items()
-                   if any(s in n for s in SIMT_FWD["float32"] + SIMT_BWD["float32"]))
-        del runner, batch, args
-        torch.cuda.empty_cache()
-    times = {"step_ms": step_ms, "busy_ms": busy, "busy_share": busy / wall_ms,
-             "simt_attention_busy_ms": attn, "peak_gib": k["peak_gib"],
+        step = _fp32_quality_step(torch, manifest, stats, tmp / "trace")
+    times = {**step, "peak_gib": k["peak_gib"],
              "plain_peak_gib": p["peak_gib"], "run_s": k["wall"], "plain_run_s": p["wall"],
              "epoch_seconds": k["history"][0]["epoch_seconds"],
              "plain_epoch_seconds": p["history"][0]["epoch_seconds"],
              "max_loss_abs_diff": max(abs(a - b) for a, b in zip(k["losses"], p["losses"]))}
-    print(f"fp32 quality run: step {step_ms:.1f} ms (host clock, 2 steps on one batch), busy "
-          f"{busy:.1f} ms of a traced {wall_ms:.1f} ms (share {busy / wall_ms:.2f}), the SIMT "
-          f"K1/K2/K3/K4 {attn:.1f} ms of it; epoch {times['epoch_seconds']:.2f} s against the "
-          f"plain attention's {times['plain_epoch_seconds']:.2f} s; peak memory "
+    print(f"fp32 quality run: epoch {times['epoch_seconds']:.2f} s against the plain "
+          f"attention's {times['plain_epoch_seconds']:.2f} s; peak memory "
           f"{k['peak_gib']:.2f} GiB (plain {p['peak_gib']:.2f}) | {CARD}", flush=True)
     return {"counts": k["counts"], "times": times}
+
+
+def _fp32_quality_step(torch, manifest: Path, stats: dict, out_dir: Path) -> dict:
+    """Phase 40's traced step: flagship_quality_train.yaml at ``precision:
+    fp32`` on one batch of the corpus (``stats``: the dataset statistics,
+    or {} for the runner to compute them), a warm step, two on the host
+    clock, one traced: the busy time and share, the fp32 attention's part
+    and the forward's (K1 and K3, REGTILE_FWD) by name."""
+    from deepcoro_clip_tpu_torch.runners.common import batch_to_device
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+
+    cfg = quality_train_config(data_filename=str(manifest), output_dir=str(out_dir),
+                               epochs=1, num_workers=QUALITY_WORKERS, dropout=0.0,
+                               precision="fp32", **stats)
+    runner = VideoContrastiveLearningRunner(cfg, output_dir=out_dir)
+    batch = batch_to_device(next(iter(runner.loaders["train"])), runner.device)
+    args = (batch, runner.generator, 0.0, 0.0, -1.0)
+    runner.train_step(runner.state, *args)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        runner.train_step(runner.state, *args)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 2
+    # a step's forward: K1 in the 12 video blocks, K3 in the 12 text layers
+    # (the aggregator's 2 K3 run the short kernel)
+    per_name, wall_ms = device_events(torch, lambda: runner.train_step(runner.state, *args),
+                                      expect={REGTILE_FWD[0]: 24})
+    print_profile("fp32 quality profile", "one step at precision fp32", per_name, wall_ms,
+                  top=12)
+    check_main_path_kernels(
+        "fp32 quality profile, the video tower's K1/K2 and the text tower's K3/K4", per_name,
+        REGTILE_FWD + SIMT_BWD["float32"]
+        + ("flash_short_fwd_f32_kernel", "flash_short_bwd_f32_kernel"),
+        ("flash_fwd_sm90_kernel", "flash_long_fwd_kernel", "flash_bwd_dkv_sm90_kernel")
+        + tuple(n for n in SIMT_FWD["float32"] if n not in REGTILE_FWD))
+    busy = sum(per_name.values())
+    attn = sum(ms for n, ms in per_name.items()
+               if any(k in n for k in REGTILE_FWD + SIMT_BWD["float32"]))
+    fwd = sum(ms for n, ms in per_name.items() if REGTILE_FWD[0] in n)
+    print(f"fp32 quality run: step {step_ms:.1f} ms (host clock, 2 steps on one batch), busy "
+          f"{busy:.1f} ms of a traced {wall_ms:.1f} ms (share {busy / wall_ms:.2f}), the fp32 "
+          f"K1/K2/K3/K4 {attn:.1f} ms of it, the forward ({REGTILE_FWD[0]}, K1 and K3) "
+          f"{fwd:.2f} ms (share {fwd / busy:.3f}) | {CARD}", flush=True)
+    del runner, batch, args
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "busy_ms": busy, "busy_share": busy / wall_ms,
+            "simt_attention_busy_ms": attn, "regtile_fwd_busy_ms": fwd,
+            "regtile_fwd_share": fwd / busy}
 
 
 def phase_fp32_probe(torch) -> dict:
@@ -8052,32 +8190,78 @@ def phase_fp32_probe(torch) -> dict:
         check(bool(torch.isfinite(a).all())
               and bool((d <= FP32_HEAD_ATOL + FP32_HEAD_RTOL * r.abs()).all()),
               f"fp32 probing: head {h} through K5 vs the plain attention: max|d| {float(d.max())}")
+    # one step traced: the busy step, K5 by name and its share
+    per_name, wall_ms = device_events(torch, lambda: step_fn(state, batch, gen,
+                                                             cfg.video_freeze_ratio),
+                                      expect={REGTILE_PROJ[0]: counts["K5"]})
+    print_profile("fp32 probing profile", "one step at precision fp32", per_name, wall_ms, top=8)
+    check_main_path_kernels("fp32 probing profile, the encoder's K5", per_name, REGTILE_PROJ,
+                            tuple(n for n in SIMT_PROJ["float32"] if n not in REGTILE_PROJ)
+                            + ("flash_fwd_proj_kernel",))
+    busy = sum(per_name.values())
+    k5 = sum(ms for n, ms in per_name.items() if REGTILE_PROJ[0] in n)
     print(f"fp32 probing: stenosis_config.yaml at precision fp32, DEEPCORO_FUSED_OUTPROJ=1, "
-          f"{PROBE_CLIPS} clips: a step launched K5 {counts['K5']} (fp32 SIMT), K3 "
+          f"{PROBE_CLIPS} clips: a step launched K5 {counts['K5']} ({REGTILE_PROJ[0]}), K3 "
           f"{counts['K3']}, K4 {counts['K4']}; heads against the plain attention's max|d| "
           f"{worst:.3e} (bars {FP32_HEAD_ATOL}+{FP32_HEAD_RTOL}|plain|) ok; step {step_ms:.1f} ms "
-          f"(host clock, synchronised), peak {peak:.2f} GiB | {CARD}", flush=True)
+          f"(host clock, synchronised), busy {busy:.1f} ms of a traced {wall_ms:.1f} ms, K5 "
+          f"{k5:.1f} ms of it (share {k5 / busy:.3f}), peak {peak:.2f} GiB | {CARD}", flush=True)
     del bundle, state, step_fn, eval_fn, batch
     torch.cuda.empty_cache()
     return {"counts": counts, "times": {"step_ms": step_ms, "peak_gib": peak,
+                                        "busy_ms": busy, "busy_share": busy / wall_ms,
+                                        "k5_busy_ms": k5, "k5_share": k5 / busy,
                                         "heads_max_abs_diff": worst}}
 
 
+def run_fp32_rows(torch) -> dict:
+    """One run of the fp32 forward's A B B A call (``--fp32-rows``) against
+    the package of the tree the script lies in (copy it into an older
+    tree): the build; phase 39's fp32 rows of K1 at ``[16,1569|393,1536]``
+    (with K2 from its statistics), K3 at the text tower's ``[16,12,128,64]``
+    with a real-prefix mask (with K4) and K5 at ``[80,1569|393,1536]``,
+    ``wo`` ``[512,512]``; phase 41's fp32 probing step and phase 40's traced
+    fp32 quality step on a rendered corpus."""
+    from deepcoro_clip_tpu_torch.ops import _build
+
+    build_kernels(torch, [n for n in ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short")
+                          if (_build.SRC_DIR / f"{n}.cu").exists()])
+    _use_tree_kernel_names()
+    f32 = torch.float32
+    rows = {k: [] for k in ("K1", "K2", "K3", "K4", "K5")}
+    for L in (1569, 393):
+        f, b = _packed_simt_rows(torch, f32, 16, 4, 128, L)
+        rows["K1"].append(f)
+        rows["K2"].append(b)
+    f, b = _padded_rows(torch, f32, 16, 12, 128, 64, False, ", the text tower (phase 40)")
+    rows["K3"].append(f)
+    rows["K4"].append(b)
+    for L in (1569, 393):
+        rows["K5"].append(_proj_simt_row(torch, f32, PROBE_CLIPS, 4, 128, L))
+    probe = phase_fp32_probe(torch)
+    with tempfile.TemporaryDirectory() as root:
+        quality = _fp32_quality_step(torch, render_corpus(Path(root)), {}, Path(root) / "trace")
+    return {"kernels": {"fwd": REGTILE_FWD, "proj": REGTILE_PROJ}, "rows": rows,
+            "fp32_probe_step": probe["times"], "fp32_quality_step": quality}
+
+
 SIMT_NAMES = {
-    "K1": ("flash_attention_packed, fp32 and bf16 at Dh 256 to 512 (K1 on the SIMT kernels: "
-           "flash_fwd_f32_kernel<Dh>, flash_fwd_wide_bf16_kernel<Dh>)", KERNEL_SOURCE,
-           K1_REPLACES),
+    "K1": ("flash_attention_packed, fp32 and bf16 at Dh 256 to 512 (K1 on the CUDA cores: "
+           "flash_fwd_f32_regtile_kernel<128> in fp32 at Dh 128, flash_fwd_f32_kernel<Dh>, "
+           "flash_fwd_wide_bf16_kernel<Dh>)", KERNEL_SOURCE, K1_REPLACES),
     "K2": ("flash_attention_packed backward, fp32 and bf16 at Dh 256 to 512 (K2 on the SIMT "
            "kernels: bwd_rows_f32_kernel, flash_bwd_dkv_f32_kernel, flash_bwd_dq_f32_kernel "
            "and their _wide_bf16 forms)", BWD_SOURCE, K2_REPLACES),
     "K3": ("flash_attention, fp32 above 64 tokens and every padded head dim (K3: "
-           "flash_fwd_f32_kernel, flash_fwd_wide_bf16_kernel, the long kernels at a padded "
-           "64 / 128)", KERNEL_SOURCE, K3_REPLACES),
+           "flash_fwd_f32_regtile_kernel<64|128> in fp32 at Dh 64 / 128, flash_fwd_f32_kernel, "
+           "flash_fwd_wide_bf16_kernel, the long kernels at a padded 64 / 128)", KERNEL_SOURCE,
+           K3_REPLACES),
     "K4": ("flash_attention backward, fp32 above 64 tokens and every padded head dim (K4 on "
            "the SIMT kernels and the long ones at a padded 64 / 128)", BWD_SOURCE,
            K4_REPLACES),
-    "K5": ("flash_attention_packed(wo=), fp32 and bf16 at Dh 256 to 512 (K5 on the SIMT "
-           "kernel: flash_fwd_proj_f32_kernel<Dh>, flash_fwd_proj_wide_bf16_kernel<Dh>)",
+    "K5": ("flash_attention_packed(wo=), fp32 and bf16 at Dh 256 to 512 (K5 on the CUDA "
+           "cores: flash_fwd_proj_f32_regtile_kernel in fp32 at Dh 128, "
+           "flash_fwd_proj_f32_kernel<Dh>, flash_fwd_proj_wide_bf16_kernel<Dh>)",
            PROJ_SOURCE, K5_REPLACES),
     "K6": ("ring_attention(backend=\"rdma\"), fp32 and bf16 at Dh 256 to 512 (K6 on the SIMT "
            "step: ring_step_f32_kernel<Dh>, ring_step_wide_bf16_kernel<Dh>)", RING_SOURCE,
@@ -8086,11 +8270,12 @@ SIMT_NAMES = {
 
 
 def simt_entries(rows: dict, quality: dict, probe: dict, ranks: dict) -> list:
-    """The kernels line's entries of the SIMT routes: launches on their main
-    paths (phase 40's fp32 run for K1 to K4, phase 41's step for K5, phase
-    39's one-process pass for K6, with phase 34's ranks beside it), the
-    first row's numbers (the main path's shape) and every row under
-    ``shapes``."""
+    """The kernels line's entries of the SIMT and register-tiled routes:
+    launches on their main paths (phase 40's fp32 run for K1 to K4, phase
+    41's step for K5, phase 39's one-process pass for K6, with phase 34's
+    ranks beside it), the first row's numbers (the main path's shape),
+    every row under ``shapes`` and, for K1, K3 and K5, the register-tiled
+    kernel phase 39 traced by name."""
     out = []
     launches = {"K1": quality["counts"]["K1"], "K2": quality["counts"]["K2"],
                 "K3": quality["counts"]["K3"], "K4": quality["counts"]["K4"],
@@ -8106,6 +8291,10 @@ def simt_entries(rows: dict, quality: dict, probe: dict, ranks: dict) -> list:
             e["fp32_quality_train_launches"] = quality["counts"][key]
         if key == "K5":
             e["fp32_probe_step_launches"] = probe["counts"]["K5"]
+        if key in ("K1", "K3", "K5"):  # the register-tiled kernels by name, and their blocks
+            e["regtile_ran"] = rows["regtile"]["ran"][key]
+            e["regtile_attrs"] = {k: a for k, a in rows["regtile"]["attrs"].items()
+                                  if k.startswith("K5") == (key == "K5")}
         if key == "K6":
             e.update(ranks)
         out.append(e)
@@ -8142,7 +8331,8 @@ def main(argv) -> int:
     """``--host-only``: phase 1, the build and phase 21 alone, against the
     package of the directory the script lies in (an older tree's too: copy
     the script there). ``--compare``: the A B B A call's measurements
-    (``run_compare``), likewise in any tree. ``--drift``: phase 32's
+    (``run_compare``), likewise in any tree; ``--fp32-rows``: those of the
+    fp32 forward's (``run_fp32_rows``). ``--drift``: phase 32's
     world-1 control against world N and two other world-1 runs
     (``run_drift``)."""
     import torch
@@ -8174,6 +8364,8 @@ def main(argv) -> int:
             kernels = {"host": phase_host(torch)}
         elif "--compare" in argv:
             kernels = {"compare": run_compare(torch)}
+        elif "--fp32-rows" in argv:
+            kernels = {"fp32_rows": run_fp32_rows(torch)}
         elif "--drift" in argv:
             kernels = {"drift": run_drift(torch)}
         else:

@@ -404,7 +404,9 @@ cudaError_t launch_rope_rows(const __nv_bfloat16* x, long long sb, long long sh,
 // ring_attention.cu) serve what the tensor-core kernels do not take: the
 // fp32 calls past the short kernels of flash_short.cu (every attention of a
 // model built with `precision: fp32` but its aggregator's) and the bf16
-// calls at head dims of 256 to 512.
+// calls at head dims of 256 to 512; the fp32 forward at head dims 64 and
+// 128 (K1, K3, K5) runs the register-tiled body of fwd_f32_regtile.cuh
+// instead.
 // They use no tensor cores: a warp owns 4 rows, a lane owns the columns
 // lane, lane + 32, ... of each, and every product is an fp32 FMA. Operands of
 // type T (float or bf16) are read into fp32; in bf16 the values are rounded
@@ -456,7 +458,8 @@ __device__ __forceinline__ float rope_elem(float x, float partner, float s, floa
 }
 
 // ---- tiled SIMT attention ---------------------------------------------------
-// The forward of K1 / K3 and the ring step (K6) on the CUDA cores, a block
+// The forward of K1 / K3 / K5 (fp32 above Dh 128, bf16 at 256 to 512) and
+// the ring step (K6) on the CUDA cores, a block
 // of NW warps over one (batch, head): a warp owns SR = 4 query rows, so a
 // block owns BQ = 4 NW rows, and the keys stream through shared memory in
 // tiles of SBK = 32, one key a lane. Each K and V tile is read from device

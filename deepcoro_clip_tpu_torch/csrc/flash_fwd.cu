@@ -5,13 +5,15 @@
 // Replaces two Pallas TPU kernels of deepcoro_clip_tpu:
 //   - ops/flash_attention_packed.py `_fwd_kernel` (K1: packed [B, L, H*Dh],
 //     with q/k/v read as strided views of one fused [B, L, 3D] QKV tensor),
-//     bf16 at Dh 128 on `flash_fwd_sm90_kernel`; fp32 at Dh 128 to 512 on
-//     `flash_fwd_f32_kernel<D>` and bf16 at Dh 256 to 512 on
+//     bf16 at Dh 128 on `flash_fwd_sm90_kernel`; fp32 at Dh 128 on
+//     `flash_fwd_f32_regtile_kernel<128>`, at Dh 256 to 512 on
+//     `flash_fwd_f32_kernel<D>`, and bf16 at Dh 256 to 512 on
 //     `flash_fwd_wide_bf16_kernel<D>`;
 //   - ops/flash_attention.py `_fwd_kernel` (K3: [B, H, L, Dh]) where Lq or
 //     Lk exceeds 64 (or Dh exceeds 128), bf16 at Dh 64 or 128 on
-//     `flash_long_fwd_kernel<D>`, fp32 on `flash_fwd_f32_kernel<D>`, bf16 at
-//     the padded widths 256 to 512 on `flash_fwd_wide_bf16_kernel<D>`
+//     `flash_long_fwd_kernel<D>`, fp32 on `flash_fwd_f32_regtile_kernel<D>`
+//     (Dh 64, 128) or `flash_fwd_f32_kernel<D>` (above), bf16 at the padded
+//     widths 256 to 512 on `flash_fwd_wide_bf16_kernel<D>`
 //     (shorter calls at Dh <= 128 run flash_short.cu in one launch).
 // Both kernels are the one body `fwd_sm90<D>` below: it takes every operand
 // as a base pointer plus (batch, head, row) strides in elements, with the
@@ -80,6 +82,7 @@
 // (setmaxnreg), and the q-tile height stays 128 rows at both head dims, 64 a
 // consumer warpgroup, the height wgmma's m64 products take.
 
+#include "fwd_f32_regtile.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -324,7 +327,8 @@ int launch_sm90(Params p, int B, __nv_bfloat16* k_rot, cudaStream_t stream) {
 // of 4 or 8 warps owns 16 or 32 query rows of one (batch, head), 4 a warp,
 // and streams the head's K and V through shared memory in tiles of 32 keys,
 // one key a lane. Same masking rules and the same row statistics as the
-// Hopper kernels. fp32 (flash_fwd_f32_kernel<D>, D 64 to 512) serves K1 and
+// Hopper kernels. fp32 at D 256 to 512 (flash_fwd_f32_kernel<D>; at D 64 and
+// 128 the register-tiled kernel below) serves K1 and
 // K3 for fp32 operands in every layout: the packed [B, L, H*Dh] and fused
 // [B, L, 3D] views are strides like any other (in a fused view the head
 // stride Dh is smaller than the row stride 3D; nothing here assumes
@@ -435,6 +439,80 @@ cudaError_t launch_simt(SimtParams<T> p, int B, T* k_rot, cudaStream_t stream) {
   const dim3 grid((p.Lq + S::BQ - 1) / S::BQ, B * p.H);
   void* args[] = {&p};
   err = cudaLaunchKernel(kernel, grid, dim3(SIMT_WARPS<D> * 32), args, S::BYTES, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---- fp32 at Dh 64 and 128: the register-tiled body ------------------------
+// K1 and K3 for fp32 operands at Dh 64 and 128, every layout, on
+// fwd_f32_regtile.cuh (rt_attend: a block of 4 warps over 64 rows of one
+// (batch, head), a 4 x 8 register tile of S and 4 x D / 8 of O a thread,
+// K and V through shared memory 64 keys a tile by cp.async). Two blocks an
+// SM at D 128 (98 KB of shared memory each), more at 64 (50 KB).
+
+template <int D>
+__global__ void __launch_bounds__(RT_THREADS) flash_fwd_f32_regtile_kernel(
+    const SimtParams<float> p, int vec, int o_vec) {
+  extern __shared__ __align__(16) float rt_smem[];
+  const int q0 = blockIdx.x * RT_BQ;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  float o[RT_RPT][D / 32][4], m[RT_RPT], l[RT_RPT];
+  rt_attend<D, RT_BK>(rt_smem, p.q + b * p.q_sb + h * p.q_sh, p.q_sl, q0, p.Lq, p.sin,
+                      p.cos, p.k + b * p.k_sb + h * p.k_sh, p.k_sl,
+                      p.v + b * p.v_sb + h * p.v_sh, p.v_sl,
+                      p.mask ? p.mask + (long long)b * p.Lk : nullptr, p.Lk, p.causal,
+                      p.scale_log2, vec != 0, o, m, l);
+  const int rg = rt_rg(), kx = rt_kx();
+#pragma unroll
+  for (int r = 0; r < RT_RPT; ++r) {
+    const int row = q0 + rg + 16 * r;
+    if (row >= p.Lq) continue;
+    if (p.stats != nullptr && kx == 0) {
+      float* sm = p.stats + (long long)bh * p.Lq;
+      sm[row] = m[r];
+      sm[(long long)gridDim.y * p.Lq + row] = l[r];
+    }
+    const float inv = 1.f / l[r];  // l >= 1: the row maximum contributes exp2(0)
+    float* orow = p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_sl + 4 * kx;
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j) {
+      const float4 val = make_float4(o[r][j][0] * inv, o[r][j][1] * inv, o[r][j][2] * inv,
+                                     o[r][j][3] * inv);
+      if (o_vec) {
+        *reinterpret_cast<float4*>(orow + 32 * j) = val;
+      } else {
+        orow[32 * j] = val.x;
+        orow[32 * j + 1] = val.y;
+        orow[32 * j + 2] = val.z;
+        orow[32 * j + 3] = val.w;
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_regtile(SimtParams<float> p, int B, float* k_rot, cudaStream_t stream) {
+  if (p.sin != nullptr) {  // rotate K once into the scratch, then read it there
+    cudaError_t err = launch_rope_rows_f32<D>(p.k, p.k_sb, p.k_sh, p.k_sl, B, p.H, p.Lk, p.sin,
+                                              p.cos, k_rot, stream);
+    if (err != cudaSuccess) return err;
+    p.k = k_rot;
+    p.k_sb = (long long)p.H * p.Lk * D;
+    p.k_sh = (long long)p.Lk * D;
+    p.k_sl = D;
+  }
+  int vec = aligned16(p.q, p.q_sb, p.q_sh, p.q_sl) && aligned16(p.k, p.k_sb, p.k_sh, p.k_sl) &&
+            aligned16(p.v, p.v_sb, p.v_sh, p.v_sl);
+  int o_vec = aligned16(p.o, p.o_sb, p.o_sh, p.o_sl);
+  const void* kernel = reinterpret_cast<const void*>(&flash_fwd_f32_regtile_kernel<D>);
+  static bool ready[MAX_DEVICES] = {};  // one per instance: one per kernel
+  cudaError_t err = allow_smem_once(kernel, RtTiles<D, RT_BK>::BYTES, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Lq + RT_BQ - 1) / RT_BQ, B * p.H);
+  void* args[] = {&p, &vec, &o_vec};
+  err = cudaLaunchKernel(kernel, grid, dim3(RT_THREADS), args, RtTiles<D, RT_BK>::BYTES,
+                         stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -557,21 +635,36 @@ int deepcoro_flash_long_fwd_attrs(int Dh, int* regs, int* smem) {
 }
 
 // fp32 operands of every layout (`k_rot` then is an fp32 scratch), Dh 64,
-// 128, 256, 384 or 512, on flash_fwd_f32_kernel<Dh>; the arguments mean
-// what they mean above.
+// 128, 256, 384 or 512: on flash_fwd_f32_regtile_kernel<Dh> at 64 and 128,
+// on flash_fwd_f32_kernel<Dh> above; the arguments mean what they mean
+// above.
 int deepcoro_flash_fwd_f32(FWD_ARGS) {
   if (sin != nullptr && k_rot == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const SimtParams<float> p = simt_params<float>(FWD_NAMES);
   float* kr = static_cast<float*>(k_rot);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
-    case 64: return static_cast<int>(launch_simt<float, 64>(p, B, kr, st));
-    case 128: return static_cast<int>(launch_simt<float, 128>(p, B, kr, st));
+    case 64: return static_cast<int>(launch_regtile<64>(p, B, kr, st));
+    case 128: return static_cast<int>(launch_regtile<128>(p, B, kr, st));
     case 256: return static_cast<int>(launch_simt<float, 256>(p, B, kr, st));
     case 384: return static_cast<int>(launch_simt<float, 384>(p, B, kr, st));
     case 512: return static_cast<int>(launch_simt<float, 512>(p, B, kr, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Registers per thread and dynamic shared memory per block of
+// flash_fwd_f32_regtile_kernel<Dh>, Dh 64 or 128.
+int deepcoro_flash_fwd_f32_regtile_attrs(int Dh, int* regs, int* smem) {
+  if (Dh != 64 && Dh != 128) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(
+      &a, Dh == 64 ? reinterpret_cast<const void*>(&flash_fwd_f32_regtile_kernel<64>)
+                   : reinterpret_cast<const void*>(&flash_fwd_f32_regtile_kernel<128>));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *smem = Dh == 64 ? RtTiles<64, RT_BK>::BYTES : RtTiles<128, RT_BK>::BYTES;
+  return 0;
 }
 
 // bf16 of every layout at Dh 256, 384 or 512, on flash_fwd_wide_bf16_kernel<Dh>.

@@ -1,6 +1,7 @@
 // Flash-attention forward with the output projection fused in, for Hopper
 // (sm_90a), bf16 in/out at Dh 128: y = concat_h(attention_h(q, k, v)) @ wo;
-// fp32 operands and bf16 at Dh 256 to 512 on a SIMT kernel (at the end).
+// fp32 at Dh 128 on a register-tiled CUDA-core kernel, fp32 and bf16 at Dh
+// 256 to 512 on a SIMT kernel (both at the end).
 //
 // Replaces the Pallas TPU kernel of deepcoro_clip_tpu:
 //   ops/flash_attention_packed.py `_fwd_proj_kernel` (packed [B, L, H*Dh],
@@ -54,6 +55,7 @@
 // BQ 64), the ring (96 KB), 192 mask bytes and the barriers: 225 KB at
 // H = 4, one block per SM.
 
+#include "fwd_f32_regtile.cuh"
 #include "sm90_common.cuh"
 
 #include <type_traits>
@@ -270,11 +272,12 @@ int launch(const ProjParams& p, const CUtensorMap& tq, const CUtensorMap& tk,
 inline int consumers(int H) { return H * 128 <= 512 ? 2 : 1; }
 
 
-// ---- SIMT kernel: fp32 operands, and bf16 at Dh 256 to 512 ----------------
-// K5 where the Hopper kernel above does not go: fp32 (Dh 128 to 512) and
-// bf16 at Dh 256 to 512, H * Dh <= 1024 (flash_fwd_proj_f32_kernel<D>,
-// flash_fwd_proj_wide_bf16_kernel<D>). A block owns BQ rows of one batch
-// row (8, 16 or 32: 4 a warp) and all of y's columns for them: head after
+// ---- SIMT kernel: fp32 and bf16 at Dh 256 to 512 ---------------------------
+// K5 where the Hopper kernel above and the register-tiled one below do not
+// go: fp32 and bf16 at Dh 256 to 512, H * Dh <= 1024
+// (flash_fwd_proj_f32_kernel<D>, flash_fwd_proj_wide_bf16_kernel<D>). A
+// block owns BQ rows of one batch row (8 or 16: 4 a warp) and all of y's
+// columns for them: head after
 // head it runs the tiled SIMT attention of flash_common.cuh
 // (simt_attend_tiles, as the SIMT forward of flash_fwd.cu) and puts the
 // head's normalised output, rounded to the operand type as the Pallas kernel
@@ -311,7 +314,7 @@ struct ProjSimtParams {
 // Warps a block of the SIMT kernel at D: the attention's tiles and the
 // [H * D, BQ] output tile share the block's shared memory (ProjSimtSmem).
 template <int D>
-constexpr int PROJ_WARPS = D <= 128 ? 8 : (D <= 384 ? 4 : 2);
+constexpr int PROJ_WARPS = D <= 384 ? 4 : 2;
 
 template <int D>
 struct ProjSimtSmem {
@@ -428,6 +431,194 @@ cudaError_t launch_proj_simt(ProjSimtParams<T> p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- fp32 at Dh 128: the register-tiled kernel ----------------------------
+// flash_fwd_proj_f32_regtile_kernel: a block of 4 warps owns RT_BQ = 64 rows
+// of one batch row and every column of y for them. Head after head in
+// order: the register-tiled attention of fwd_f32_regtile.cuh (rt_attend, 32
+// keys a tile); the head's normalised output goes into the Q tile's shared
+// memory (and, when a gradient is wanted, to `o` with the row statistics);
+// then y += O_h @ wo[h*128 : (h+1)*128, :] as a tiled GEMM from shared
+// memory: wo streams through the K and V tiles' memory in [32, 128] slabs
+// (rows of wo x columns of y) by cp.async, the next slab's copies under
+// this one's FMAs, so a block reads wo once; a thread accumulates a 4 x 16
+// register tile of y (the rows of its attention, float4 columns kx + 8 j of
+// a 128-column chunk) over the head's 128 rows of wo. Between heads the
+// running sum of y waits in y itself: each element is read and written by
+// the one thread that owns it, summed in fp32 in a fixed order over heads
+// and rows of wo, with no atomics and nothing rounded below fp32 (y is
+// fp32). Kept in shared memory instead, y [64, 512] (128 KB) would leave
+// room for one 4-warp block an SM, where the body's 66 KB leave room for
+// two (three by shared memory; the registers hold it to two), whose warps
+// hide each other's waits; at 32 keys a tile (against K1's 64) the smaller
+// tiles and the tail of 393 keys cost less. Shared memory: 66 KB at any H
+// and Dout. What bounds it: the attention's 4*Lq*Lk*128 FLOP a head and
+// the projection's 2*Lq*H*128*Dout, on the CUDA cores.
+
+constexpr int RT_WROWS = 32;   // rows of wo a slab
+constexpr int RT_WK = 128 / RT_WROWS;  // slabs a head's 128 rows of wo take
+constexpr int RT_WCOLS = 128;  // columns of y a slab, and a register tile's chunk
+
+__global__ void __launch_bounds__(RT_THREADS, 2) flash_fwd_proj_f32_regtile_kernel(
+    const ProjSimtParams<float> p, int vec, int o_vec, int w_vec, int y_vec) {
+  constexpr int D = 128, NJ = D / 32;
+  using S = RtTiles<D, RT_PROJ_BK>;
+  static_assert(2 * RT_WROWS * RT_WCOLS <= S::END - S::K, "two wo slabs fit where K and V were");
+  static_assert(RT_WROWS % 4 == 0 && 128 % RT_WROWS == 0, "slabs of whole fours of rows");
+  extern __shared__ __align__(16) float rt_smem[];
+  float* os = rt_smem + S::Q;  // the head's output, [RT_BQ][S::LD]: the Q tile's place
+  float* ws = rt_smem + S::K;  // two wo slabs [RT_WROWS][RT_WCOLS]: the K and V tiles' place
+  const int rg = rt_rg(), kx = rt_kx();
+  const int q0 = blockIdx.x * RT_BQ, b = blockIdx.y;
+  const int nslabs = RT_WK * ((p.Dout + RT_WCOLS - 1) / RT_WCOLS);  // (chunk, rows of wo) pairs
+  const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
+  float* y = p.y + ((long long)b * p.Lq + q0) * p.Dout + 4 * kx;  // row q0, this lane's columns
+  for (int h = 0; h < p.H; ++h) {
+    float o[RT_RPT][NJ][4], m[RT_RPT], l[RT_RPT];
+    rt_attend<D, RT_PROJ_BK>(rt_smem, p.q + b * p.q_sb + h * p.q_sh, p.q_sl, q0, p.Lq, p.sin,
+                             p.cos, p.k + b * p.k_sb + h * p.k_sh, p.k_sl,
+                             p.v + b * p.v_sb + h * p.v_sh, p.v_sl, mrow, p.Lk, p.causal,
+                             p.scale_log2, vec != 0, o, m, l);
+    // (rt_attend returns after a barrier: every warp is done with Q, K and V)
+    const long long bh = (long long)b * p.H + h;
+#pragma unroll
+    for (int r = 0; r < RT_RPT; ++r) {
+      const int row = q0 + rg + 16 * r;
+      const bool out = row < p.Lq;
+      if (out && p.stats != nullptr && kx == 0) {
+        p.stats[bh * p.Lq + row] = m[r];
+        p.stats[((long long)p.B * p.H + bh) * p.Lq + row] = l[r];
+      }
+      const float inv = 1.f / l[r];  // l >= 1: the row maximum contributes exp2(0)
+      float* orow = (out && p.o != nullptr)
+                        ? p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_sl + 4 * kx
+                        : nullptr;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 val = make_float4(o[r][j][0] * inv, o[r][j][1] * inv, o[r][j][2] * inv,
+                                       o[r][j][3] * inv);
+        *reinterpret_cast<float4*>(os + (rg + 16 * r) * S::LD + 4 * kx + 32 * j) = val;
+        if (orow == nullptr) continue;
+        if (o_vec) {
+          *reinterpret_cast<float4*>(orow + 32 * j) = val;
+        } else {
+          orow[32 * j] = val.x;
+          orow[32 * j + 1] = val.y;
+          orow[32 * j + 2] = val.z;
+          orow[32 * j + 3] = val.w;
+        }
+      }
+    }
+    // y += O_h @ wo[h*128 .., :]: slab t holds RT_WROWS rows of wo from
+    // h*128 + RT_WROWS (t % RT_WK) and the columns 128 (t / RT_WK) .. of the
+    // chunk t / RT_WK
+    const float* wo_h = p.wo + (long long)h * D * p.Dout;
+    auto load_slab = [&](int t) {
+      const int cc = (t / RT_WK) * RT_WCOLS;
+      rt_load<RT_WCOLS, RT_WROWS>(ws + (t & 1) * RT_WROWS * RT_WCOLS, RT_WCOLS,
+                                  wo_h + (long long)(t % RT_WK) * RT_WROWS * p.Dout + cc,
+                                  p.Dout, 0, RT_WROWS, p.Dout - cc, w_vec != 0);
+      cp_async_commit();
+    };
+    load_slab(0);
+    float acc[RT_RPT][4][4];
+    for (int t = 0; t < nslabs; ++t) {
+      cp_async_wait<0>();
+      __syncthreads();  // slab t (and at t = 0 the head's output) is in; slab t - 1 is done
+      if (t + 1 < nslabs) load_slab(t + 1);
+      const int cc = (t / RT_WK) * RT_WCOLS, ks = t % RT_WK;
+      if (ks == 0) {  // the chunk's running sum: 0 at the first head
+#pragma unroll
+        for (int r = 0; r < RT_RPT; ++r) {
+          const bool live = h > 0 && q0 + rg + 16 * r < p.Lq;
+          const float* yr = y + (long long)(rg + 16 * r) * p.Dout + cc;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = cc + 4 * kx + 32 * j;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.f;
+            if (!live) continue;
+            if (y_vec && col + 4 <= p.Dout) {
+              const float4 v = *reinterpret_cast<const float4*>(yr + 32 * j);
+              acc[r][j][0] = v.x;
+              acc[r][j][1] = v.y;
+              acc[r][j][2] = v.z;
+              acc[r][j][3] = v.w;
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                if (col + e < p.Dout) acc[r][j][e] = yr[32 * j + e];
+              }
+            }
+          }
+        }
+      }
+      const float* w = ws + (t & 1) * RT_WROWS * RT_WCOLS + 4 * kx;
+      const float* orows = os + ks * RT_WROWS;
+#pragma unroll 2
+      for (int k = 0; k < RT_WROWS; k += 4) {
+        float4 ov[RT_RPT];
+#pragma unroll
+        for (int r = 0; r < RT_RPT; ++r) {
+          ov[r] = *reinterpret_cast<const float4*>(orows + (rg + 16 * r) * S::LD + k);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float4 wv = *reinterpret_cast<const float4*>(w + (k + kk) * RT_WCOLS + 32 * j);
+#pragma unroll
+            for (int r = 0; r < RT_RPT; ++r) {
+              const float a = kk == 0 ? ov[r].x : kk == 1 ? ov[r].y : kk == 2 ? ov[r].z : ov[r].w;
+              acc[r][j][0] = fmaf(a, wv.x, acc[r][j][0]);
+              acc[r][j][1] = fmaf(a, wv.y, acc[r][j][1]);
+              acc[r][j][2] = fmaf(a, wv.z, acc[r][j][2]);
+              acc[r][j][3] = fmaf(a, wv.w, acc[r][j][3]);
+            }
+          }
+        }
+      }
+      if (ks + 1 < RT_WK) continue;
+#pragma unroll
+      for (int r = 0; r < RT_RPT; ++r) {  // the chunk's sum after this head, rows below Lq
+        if (q0 + rg + 16 * r >= p.Lq) continue;
+        float* yr = y + (long long)(rg + 16 * r) * p.Dout + cc;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = cc + 4 * kx + 32 * j;
+          if (y_vec && col + 4 <= p.Dout) {
+            *reinterpret_cast<float4*>(yr + 32 * j) =
+                make_float4(acc[r][j][0], acc[r][j][1], acc[r][j][2], acc[r][j][3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (col + e < p.Dout) yr[32 * j + e] = acc[r][j][e];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with the head's output and the slabs
+  }
+}
+
+cudaError_t launch_proj_regtile(ProjSimtParams<float> p, cudaStream_t stream) {
+  int vec = aligned16(p.q, p.q_sb, p.q_sh, p.q_sl) && aligned16(p.k, p.k_sb, p.k_sh, p.k_sl) &&
+            aligned16(p.v, p.v_sb, p.v_sh, p.v_sl);
+  int o_vec = p.o != nullptr && aligned16(p.o, p.o_sb, p.o_sh, p.o_sl);
+  int w_vec = aligned16(p.wo, 0, 0, p.Dout);
+  int y_vec = aligned16(p.y, 0, 0, p.Dout);
+  const void* kernel = reinterpret_cast<const void*>(&flash_fwd_proj_f32_regtile_kernel);
+  static bool ready[MAX_DEVICES] = {};
+  constexpr int bytes = RtTiles<128, RT_PROJ_BK>::BYTES;
+  cudaError_t err = allow_smem_once(kernel, bytes, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Lq + RT_BQ - 1) / RT_BQ, p.B);
+  void* args[] = {&p, &vec, &o_vec, &w_vec, &y_vec};
+  err = cudaLaunchKernel(kernel, grid, dim3(RT_THREADS), args, bytes, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 #define PROJ_ARGS                                                                        \
   const void *q, const void *k, const void *v, const void *wo, void *y, void *o,          \
       const void *sin, const void *cos, const void *mask, void *k_rot, void *stats, int B, \
@@ -481,7 +672,7 @@ int proj_simt(PROJ_ARGS) {
     case 128:
       if constexpr (sizeof(T) == 4) {
         err = rope_k(std::integral_constant<int, 128>());
-        if (err == cudaSuccess) err = launch_proj_simt<T, 128>(p, st);
+        if (err == cudaSuccess) err = launch_proj_regtile(p, st);
         break;
       } else {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -582,12 +773,26 @@ int deepcoro_flash_fwd_proj_attrs(int H, int* regs, int* smem) {
 
 
 // fp32 operands (Dh 128, 256, 384 or 512) and bf16 at Dh 256, 384 or 512,
-// H * Dh <= 1024, any Dout, on the SIMT kernels: the arguments mean what
-// they mean above (`wo`, `y`, `o` and `k_rot` of the operands' type).
+// H * Dh <= 1024, any Dout: fp32 at Dh 128 on
+// flash_fwd_proj_f32_regtile_kernel, the rest on the SIMT kernels; the
+// arguments mean what they mean above (`wo`, `y`, `o` and `k_rot` of the
+// operands' type).
 int deepcoro_flash_fwd_proj_f32(PROJ_ARGS) {
   return proj_simt<float>(q, k, v, wo, y, o, sin, cos, mask, k_rot, stats, B, H, Lq, Lk, Dh,
                           Dout, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl, o_sb,
                           o_sh, o_sl, scale, causal, stream);
+}
+
+// Registers per thread and dynamic shared memory per block of
+// flash_fwd_proj_f32_regtile_kernel.
+int deepcoro_flash_fwd_proj_f32_regtile_attrs(int* regs, int* smem) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(
+      &a, reinterpret_cast<const void*>(&flash_fwd_proj_f32_regtile_kernel));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *smem = RtTiles<128, RT_PROJ_BK>::BYTES;
+  return 0;
 }
 
 int deepcoro_flash_fwd_proj_wide_bf16(PROJ_ARGS) {

@@ -17,10 +17,13 @@ names, each skipping the key tiles past a q tile's key extent
 wanted): the one-kernel forward and backward of ``csrc/flash_short.cu``
 through a lean host path (one packed argument block, no row statistics, no
 scratch, the caller's bool or uint8 key mask as it is). Every other call
-runs the SIMT kernels of the same files: fp32 operands of every layout at
-every head dim (``*_f32``), and bf16 at Dh 256 to 512 (``*_wide_bf16``).
+runs the CUDA-core kernels of the same files: fp32 operands of every layout
+at every head dim (``*_f32``: the forward at Dh 64 and 128, and K5 at 128,
+on the register-tiled kernels of ``csrc/fwd_f32_regtile.cuh``, the rest on
+the SIMT ones), and bf16 at Dh 256 to 512 (``*_wide_bf16``).
 ``fwd_symbol``, ``bwd_symbol`` and ``proj_symbol`` name the C entry a call
-runs; a call no kernel takes raises there. ``flash_fwd_proj``
+runs, ``fwd_kernel_name`` and ``proj_kernel_name`` the kernel that entry
+launches; a call no kernel takes raises there. ``flash_fwd_proj``
 (``csrc/flash_fwd_proj.cu``) is the packed forward with the output
 projection fused in: the Hopper kernel in bf16 at Dh 128, the SIMT kernel
 for fp32 and for bf16 at Dh 256 to 512. The launchers check what the
@@ -67,6 +70,13 @@ SHORT_MAX = 64  # Lq and Lk up to this run csrc/flash_short.cu ([B, H, L, Dh] en
 FWD_TILES = (128, 128)
 DKV_TILES = (64, 64)
 DQ_TILES = (128, 64)
+# the fp32 forward's register-tiled kernels (csrc/fwd_f32_regtile.cuh): head
+# dims, q rows a block, keys a streamed tile (K1 / K3, K5), row padding in
+# floats
+REGTILE_DIMS = (64, 128)
+REGTILE_PROJ_DIM = 128
+REGTILE_ROWS, REGTILE_KEYS, REGTILE_PROJ_KEYS, REGTILE_PAD = 64, 64, 32, 4
+SMEM_MAX = 232_448  # dynamic shared memory a block may take on an H100
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # slots of the argument block of csrc/flash_short.cu (its enum ShortArg)
@@ -178,8 +188,9 @@ def fwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> s
     ``SHORT_MAX`` and Dh <= 128; else a kernel of ``csrc/flash_fwd.cu``:
     in bf16 at Dh 128 K1's Hopper kernel for the packed and fused layouts,
     at Dh 64 and 128 K3's Hopper kernel for ``[B, H, L, Dh]``, at Dh 256 to
-    512 the wide SIMT kernel for both; in fp32 the SIMT fp32 kernel for
-    every layout and head dim."""
+    512 the wide SIMT kernel for both; in fp32 the fp32 entry for every
+    layout and head dim (``fwd_kernel_name``: the register-tiled kernel at
+    Dh 64 and 128, the SIMT one above)."""
     _check_choice(dtype, packed, Dh)
     if is_short(packed, Lq, Lk, Dh):
         return f"deepcoro_flash_short_fwd_{_SUFFIX[dtype]}"
@@ -200,8 +211,8 @@ def bwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> s
 
 
 def _tile_symbol(direction: str, dtype: torch.dtype, packed: bool, Dh: int) -> str:
-    """The entry of ``csrc/flash_{direction}.cu``: the fp32 SIMT kernels for
-    fp32, the wide SIMT kernels for bf16 above Dh 128, else K1's or K2's
+    """The entry of ``csrc/flash_{direction}.cu``: the fp32 CUDA-core kernels
+    for fp32, the wide SIMT kernels for bf16 above Dh 128, else K1's or K2's
     Hopper kernels for the packed layouts and K3's or K4's for ``[B, H, L,
     Dh]``."""
     if dtype == torch.float32:
@@ -216,8 +227,9 @@ def _tile_symbol(direction: str, dtype: torch.dtype, packed: bool, Dh: int) -> s
 def proj_symbol(dtype: torch.dtype, Dh: int, H: int, Dout: int) -> str:
     """The C entry of ``csrc/flash_fwd_proj.cu`` that runs a forward with
     the fused projection (K5): the Hopper kernel in bf16 at Dh 128 (``Dout
-    % 128 == 0``), the SIMT kernel for fp32 at Dh 128 to 512 and for bf16 at
-    Dh 256 to 512; every one at ``H * Dh <= PROJ_MAX``."""
+    % 128 == 0``), the fp32 entry at Dh 128 to 512 (``proj_kernel_name``:
+    the register-tiled kernel at 128, the SIMT one above) and the SIMT
+    kernel for bf16 at Dh 256 to 512; every one at ``H * Dh <= PROJ_MAX``."""
     _check_choice(dtype, True, Dh)
     if H * Dh > PROJ_MAX:
         raise ValueError(f"the fused-projection kernels take H*Dh <= {PROJ_MAX}, "
@@ -230,6 +242,53 @@ def proj_symbol(dtype: torch.dtype, Dh: int, H: int, Dout: int) -> str:
         raise ValueError(f"the Hopper fused-projection kernel takes Dout % 128 == 0, "
                          f"got {Dout}")
     return "deepcoro_flash_fwd_proj_bf16"
+
+
+def fwd_kernel_name(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> str:
+    """The kernel that ``fwd_symbol``'s entry launches for a call, as a
+    profiler names it: in fp32 ``flash_fwd_f32_regtile_kernel<Dh>`` at Dh
+    64 and 128 (K1, K3) and ``flash_fwd_f32_kernel<Dh>`` above; in bf16
+    the Hopper, long, short or wide kernels."""
+    symbol = fwd_symbol(dtype, packed, Lq, Lk, Dh)
+    if symbol.startswith("deepcoro_flash_short"):
+        return f"flash_short_fwd_{_SUFFIX[dtype]}_kernel"
+    if dtype == torch.float32:
+        if Dh in REGTILE_DIMS:
+            return f"flash_fwd_f32_regtile_kernel<{Dh}>"
+        return f"flash_fwd_f32_kernel<{Dh}>"
+    if symbol == "deepcoro_flash_wide_fwd_bf16":
+        return f"flash_fwd_wide_bf16_kernel<{Dh}>"
+    if packed:
+        return "flash_fwd_sm90_kernel"
+    return f"flash_long_fwd_kernel<{Dh}>"
+
+
+def proj_kernel_name(dtype: torch.dtype, Dh: int, H: int, Dout: int) -> str:
+    """The kernel that ``proj_symbol``'s entry launches: in fp32
+    ``flash_fwd_proj_f32_regtile_kernel`` at Dh 128 and
+    ``flash_fwd_proj_f32_kernel<Dh>`` above; in bf16 the Hopper kernel
+    (``flash_fwd_proj_kernel<NWG>``, two consumer warpgroups up to H * 128
+    = 512) or the wide one."""
+    proj_symbol(dtype, Dh, H, Dout)  # raises for what no kernel takes
+    if dtype == torch.float32:
+        if Dh == REGTILE_PROJ_DIM:
+            return "flash_fwd_proj_f32_regtile_kernel"
+        return f"flash_fwd_proj_f32_kernel<{Dh}>"
+    if Dh > HOPPER_DIMS[-1]:
+        return f"flash_fwd_proj_wide_bf16_kernel<{Dh}>"
+    return f"flash_fwd_proj_kernel<{2 if H * Dh <= 512 else 1}>"
+
+
+def regtile_smem_bytes(Dh: int, keys: int = REGTILE_KEYS) -> int:
+    """Dynamic shared memory a block of the register-tiled fp32 kernels
+    takes (``RtTiles`` in ``csrc/fwd_f32_regtile.cuh``) at ``keys`` a key
+    tile (``REGTILE_KEYS`` for K1 and K3, ``REGTILE_PROJ_KEYS`` for K5): the
+    Q tile ``[64][Dh + 4]``, the K tile ``[keys][Dh + 4]`` and the V tile
+    ``[keys][Dh]`` floats. K5 takes no more at any H and Dout: its ``wo``
+    slabs use the K and V tiles' place, the head's output the Q tile's,
+    and y's running sum waits in y."""
+    ld = Dh + REGTILE_PAD
+    return 4 * (REGTILE_ROWS * ld + keys * (ld + Dh))
 
 
 def _fwd_fn(symbol: str):
@@ -304,6 +363,28 @@ def hopper_kernel_attrs(heads=(4, 6)) -> dict:
             raise RuntimeError(f"cudaFuncGetAttributes failed on {kernel}")
         out[key] = {"kernel": kernel, "registers": regs.value, "smem_bytes": smem.value,
                     "consumers": 1 if (which, dh) == (0, 64) else 2, "setmaxnreg": False}
+    return out
+
+
+def regtile_kernel_attrs() -> dict:
+    """Registers per thread and dynamic shared memory per block of the
+    register-tiled fp32 kernels, from the built libraries: the forward at
+    Dh 64 and 128, and K5. What ``chip_smoke.py`` reports beside ptxas and
+    holds against ``regtile_smem_bytes``."""
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    ip = ctypes.POINTER(ctypes.c_int)
+    out = {}
+    fn = _c_fn("flash_fwd", "deepcoro_flash_fwd_f32_regtile_attrs", [_I, ip, ip])
+    for dh in REGTILE_DIMS:
+        if fn(dh, ctypes.byref(regs), ctypes.byref(smem)) != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes failed on the fp32 forward, Dh {dh}")
+        out[f"K1/K3 fp32 Dh {dh}"] = {"kernel": f"flash_fwd_f32_regtile_kernel<{dh}>",
+                                      "registers": regs.value, "smem_bytes": smem.value}
+    fn = _c_fn("flash_fwd_proj", "deepcoro_flash_fwd_proj_f32_regtile_attrs", [ip, ip])
+    if fn(ctypes.byref(regs), ctypes.byref(smem)) != 0:
+        raise RuntimeError("cudaFuncGetAttributes failed on the fp32 K5")
+    out["K5 fp32 Dh 128"] = {"kernel": "flash_fwd_proj_f32_regtile_kernel",
+                             "registers": regs.value, "smem_bytes": smem.value}
     return out
 
 
@@ -409,7 +490,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel is ``_tile_symbol``'s: bf16 at Dh 128 packed
     ``flash_fwd_sm90_kernel``, bf16 at Dh 64 / 128 otherwise
     ``flash_long_fwd_kernel<Dh>``, bf16 at Dh 256 to 512
-    ``flash_fwd_wide_bf16_kernel<Dh>``, fp32 ``flash_fwd_f32_kernel<Dh>``."""
+    ``flash_fwd_wide_bf16_kernel<Dh>``, fp32 ``flash_fwd_f32_regtile_kernel<Dh>``
+    at Dh 64 / 128 and ``flash_fwd_f32_kernel<Dh>`` above
+    (``fwd_kernel_name``)."""
     _check_problem(q, k, v, sin, cos, kv_mask)
     mask = mask_arg(kv_mask, strided=False)
     device = q.device

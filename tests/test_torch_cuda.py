@@ -647,8 +647,8 @@ def test_short_routing_boundary(cuda, L, short, dtype):
         if dtype == torch.bfloat16:
             assert _ran(fwd, "flash_long_fwd_kernel<64>")
             assert _ran(bwd, "flash_long_bwd_dkv") and _ran(bwd, "flash_long_bwd_dq")
-        else:
-            assert _ran(fwd, "flash_fwd_f32_kernel")
+        else:  # the fp32 forward at Dh 64 on the register-tiled kernel
+            assert _ran(fwd, "flash_fwd_f32_regtile_kernel<64>")
             assert _ran(bwd, "flash_bwd_dkv_f32") and _ran(bwd, "flash_bwd_dq_f32")
 
 
@@ -671,11 +671,11 @@ def test_short_kernels_batch_invariant_and_reproducible(cuda, dtype, dh):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_short_forward_matches_the_tile_kernel(cuda, mode, dtype):
     """The short forward against the tile kernel (called directly: bf16
-    flash_long_fwd_kernel, fp32 flash_fwd_f32_kernel) on the same inputs,
-    Lk <= 64. In bf16 by TOL: the Hopper tile kernel sums Q K^T and P V in
-    wgmma's order, not the short kernel's mma.sync order, so the two agree
-    to bf16 rounding, not bit for bit; in fp32 the tile kernel's online
-    softmax over 32-key chunks sums in another order, so F32_TOL."""
+    flash_long_fwd_kernel, fp32 flash_fwd_f32_regtile_kernel) on the same
+    inputs, Lk <= 64. In bf16 by TOL: the Hopper tile kernel sums Q K^T and
+    P V in wgmma's order, not the short kernel's mma.sync order, so the two
+    agree to bf16 rounding, not bit for bit; in fp32 the tile kernel's
+    online softmax sums in another order, so F32_TOL."""
     from deepcoro_clip_tpu_torch.ops._flash_cuda import flash_fwd
 
     Lq, Lk = (37, 50) if mode == "cross" else (10, 10) if mode == "rope" else (17, 17)
@@ -1377,3 +1377,201 @@ def test_ring_kernel_in_fp32_and_padded(cuda, dtype, dh):
     assert ring_attention.launches == n + 16
     tol = SIMT_F32_TOL if dtype == torch.float32 else TOL
     torch.testing.assert_close(out.float(), multi_head_attention(q, k, v).float(), **tol)
+
+
+# --------------------------------------------------------------------------- #
+# the register-tiled fp32 forward (csrc/fwd_f32_regtile.cuh): K1 and K3 at
+# Dh 64 / 128, K5 at Dh 128. Bars: the forward by F32_TOL (1e-5 +
+# 1e-5|plain|; nothing rounded below fp32, sums in another order), the
+# gradients (K2 / K4 from the new forward's statistics) by REGTILE_GRAD_REL
+# of max|plain|; where every row sees one key (one key, or one query row
+# under causal masking) dq and dk are 0 up to rounding, and held by the
+# forward's F32_TOL elementwise instead, as chip_smoke.py holds a short
+# call's fp32 gradients: a bar relative to their max|plain| would read noise.
+
+REGTILE_GRAD_REL = 1e-4
+
+
+def _grad_close(name, got, want, one_key=False):
+    """``one_key``: every row sees one key, so dq and dk are 0 up to
+    rounding."""
+    if one_key and name in ("dq", "dk"):
+        torch.testing.assert_close(got, want, **F32_TOL, msg=lambda s: f"{name}: {s}")
+        return
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= REGTILE_GRAD_REL * top, f"{name}: max|d| {err:.3e}, max|plain| {top:.3e}"
+
+
+def _regtile_kw(mode, Lq, Lk, dh, B, g, device):
+    """rope (Lq = Lk), a key mask whose batch row 1 is fully masked, or causal."""
+    if mode == "rope":
+        sin, cos = _tables(Lq, dh, device)
+        return dict(sin=sin, cos=cos)
+    if mode == "causal":
+        return dict(causal=True)
+    m = torch.rand(B, Lk, generator=g, device=device) > 0.3
+    m[1] = False
+    return dict(kv_mask=m)
+
+
+@pytest.mark.parametrize("layout", ["fused", "split"])
+@pytest.mark.parametrize("mode", ["rope", "mask", "causal", "plain"])
+@pytest.mark.parametrize("L", [1569, 393, 128, 65, 1])
+def test_regtile_packed_forward_and_gradients(cuda, L, mode, layout):
+    """fp32 K1 at Dh 128 on ``flash_fwd_f32_regtile_kernel<128>`` (fused
+    qkv or split q/k/v, at the video tower's lengths, a 64-row tile, one row
+    past it and one row), against the plain version; K2's gradients from the
+    new forward's statistics against ``flash_bwd_plain``."""
+    g = torch.Generator(device=cuda).manual_seed(L + len(mode))
+    B, H, dh = 2, 4, 128
+    D = H * dh
+    kw = {} if mode == "plain" else _regtile_kw(mode, L, L, dh, B, g, cuda)
+    qkv = torch.randn(B, L, 3 * D, generator=g, device=cuda) * 0.5
+    do = torch.randn(B, L, D, generator=g, device=cuda) * 0.5
+    heads = [t.unflatten(2, (H, dh)).transpose(1, 2) for t in qkv.split(D, -1)]
+    if layout == "fused":
+        leaves = [qkv.clone().requires_grad_()]
+        out = flash_attention_packed(qkv=leaves[0], num_heads=H, **kw)
+    else:
+        leaves = [t.contiguous().requires_grad_() for t in qkv.split(D, -1)]
+        out = flash_attention_packed(*leaves, num_heads=H, **kw)
+    ref = multi_head_attention(*heads, **kw)
+    torch.testing.assert_close(out.detach(), ref.transpose(1, 2).flatten(2), **F32_TOL)
+    grads = torch.autograd.grad(out, leaves, do)
+    grads = grads[0].split(D, -1) if layout == "fused" else grads
+    want = flash_bwd_plain(*heads, do.unflatten(2, (H, dh)).transpose(1, 2), ref, **kw)
+    for name, a, w in zip("qkv", grads, want):
+        _grad_close(f"d{name}", a, w.transpose(1, 2).flatten(2), one_key=L == 1)
+    if mode == "mask":  # a row with no real key: the uniform mean, its dq 0
+        assert float(grads[0][1].abs().max()) == 0.0
+
+
+REGTILE_HEADS_CASES = [(Lq, Lk, mode) for Lq, Lk in ((393, 393), (128, 128), (65, 65),
+                                                      (130, 77), (1, 200), (200, 1))
+                       for mode in ("rope", "mask", "causal") if mode != "rope" or Lq == Lk]
+
+
+@pytest.mark.parametrize("Lq,Lk,mode", REGTILE_HEADS_CASES)
+@pytest.mark.parametrize("dh", [64, 128])
+def test_regtile_heads_forward_and_gradients(cuda, dh, Lq, Lk, mode):
+    """fp32 K3 (the ``[B, H, L, Dh]`` entry past the short lengths) at Dh 64
+    and 128 on ``flash_fwd_f32_regtile_kernel<Dh>``, Lq = Lk and not (RoPE
+    only at Lq = Lk, as the entry takes it), with strided views of packed
+    operands; K4's gradients from its statistics."""
+    g = torch.Generator(device=cuda).manual_seed(dh + Lq + 7 * Lk)
+    B, H = 2, 512 // dh
+    kw = _regtile_kw(mode, Lq, Lk, dh, B, g, cuda)
+    q, k, v = ((torch.randn(B, n, 512, generator=g, device=cuda) * 0.5)
+               .unflatten(2, (H, dh)).transpose(1, 2) for n in (Lq, Lk, Lk))
+    do = torch.randn(B, H, Lq, dh, generator=g, device=cuda) * 0.5
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    n = flash_attention.launches
+    out = flash_attention(*leaves, **kw)
+    assert flash_attention.launches == n + 1
+    ref = multi_head_attention(q, k, v, **kw)
+    torch.testing.assert_close(out.detach(), ref, **F32_TOL)
+    grads = torch.autograd.grad(out, leaves, do)
+    want = flash_bwd_plain(q, k, v, do, ref, **kw)
+    one_key = Lk == 1 or (Lq == 1 and mode == "causal")
+    for name, a, w in zip("qkv", grads, want):
+        _grad_close(f"d{name}", a, w, one_key=one_key)
+
+
+@pytest.mark.parametrize("mode", ["rope", "mask", "causal"])
+@pytest.mark.parametrize("H,dout", [(4, 512), (4, 300), (8, 512), (8, 300), (2, 640)])
+def test_regtile_fused_projection(cuda, H, dout, mode):
+    """fp32 K5 at Dh 128 on ``flash_fwd_proj_f32_regtile_kernel``: H*Dh 512
+    and 1024, Dout 512, a ragged 300 and 640 (five 128-column chunks),
+    y against the plain attention and product; with a gradient the same
+    kernel writes ``o`` and the statistics, and the backward's dq, dk, dv,
+    dwo match autograd through the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(H * dout + len(mode))
+    B, L, dh = 2, 393, 128
+    D = H * dh
+    kw = _regtile_kw(mode, L, L, dh, B, g, cuda)
+    qkv = torch.randn(B, L, 3 * D, generator=g, device=cuda) * 0.5
+    wo = torch.randn(D, dout, generator=g, device=cuda) * D ** -0.5
+    gy = torch.randn(B, L, dout, generator=g, device=cuda)
+    n = flash_attention_packed.proj_launches
+    with torch.no_grad():
+        y = flash_attention_packed(qkv=qkv, num_heads=H, wo=wo, **kw)
+    leaves = [qkv.clone().requires_grad_(), wo.clone().requires_grad_()]
+    y2 = flash_attention_packed(qkv=leaves[0], num_heads=H, wo=leaves[1], **kw)
+    assert flash_attention_packed.proj_launches == n + 2
+    assert torch.equal(y, y2.detach())
+    plain = [qkv.clone().requires_grad_(), wo.clone().requires_grad_()]
+    heads = [t.unflatten(2, (H, dh)).transpose(1, 2) for t in plain[0].split(D, -1)]
+    yref = project_plain(multi_head_attention(*heads, **kw).transpose(1, 2).flatten(2), plain[1])
+    torch.testing.assert_close(y, yref.detach(), **F32_TOL)
+    got = torch.autograd.grad(y2, leaves, gy)
+    want = torch.autograd.grad(yref, plain, gy)
+    for name, a, w in zip(("dqkv", "dwo"), got, want):
+        _grad_close(name, a, w)
+
+
+@pytest.mark.parametrize("which", ["K1", "K3 Dh 64", "K3 Dh 128", "K5"])
+def test_regtile_batch_invariant_and_reproducible(cuda, which):
+    """Every row of a B = 4 call bit-equal to the same row called alone (B
+    = 1), and two calls bit-equal: fixed tiles, fixed sums, no atomics."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    sin, cos = _tables(393, 128, cuda)
+    qkv = torch.randn(4, 393, 1536, generator=g, device=cuda) * 0.5
+    wo = torch.randn(512, 512, generator=g, device=cuda) * 512 ** -0.5
+    text = torch.randn(4, 3, 200, 768, generator=g, device=cuda) * 0.5
+    mask = torch.rand(4, 200, generator=g, device=cuda) > 0.3
+
+    def call(rows):
+        if which == "K1":
+            return flash_attention_packed(qkv=qkv[rows], num_heads=4, sin=sin, cos=cos)
+        if which == "K5":
+            return flash_attention_packed(qkv=qkv[rows], num_heads=4, sin=sin, cos=cos, wo=wo)
+        dh = int(which.split()[-1])
+        q, k, v = (text[rows, i].unflatten(2, (768 // dh, dh)).transpose(1, 2)
+                   for i in range(3))
+        return flash_attention(q, k, v, kv_mask=mask[rows])
+
+    with torch.no_grad():
+        full = call(slice(0, 4))
+        assert torch.equal(full, call(slice(0, 4)))
+        for b in range(4):
+            assert torch.equal(full[b:b + 1], call(slice(b, b + 1))), f"row {b}"
+
+
+def test_regtile_kernels_by_name(cuda):
+    """The profiler names the new kernels for fp32 at Dh 64 / 128 and K5 at
+    128, and the SIMT ones for fp32 at Dh 256 (K1) and 512 (K5)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn(2, 200, 1536, generator=g, device=cuda)
+    wo = torch.randn(512, 512, generator=g, device=cuda) * 0.05
+    x = torch.randn(2, 8, 200, 64, generator=g, device=cuda)
+    with torch.no_grad():
+        for fn, want, not_want in (
+                (lambda: flash_attention_packed(qkv=qkv, num_heads=4),
+                 "flash_fwd_f32_regtile_kernel<128>", "flash_fwd_f32_kernel"),
+                (lambda: flash_attention(x, x, x), "flash_fwd_f32_regtile_kernel<64>",
+                 "flash_fwd_f32_kernel"),
+                (lambda: flash_attention_packed(qkv=qkv, num_heads=4, wo=wo),
+                 "flash_fwd_proj_f32_regtile_kernel", "flash_fwd_proj_f32_kernel"),
+                (lambda: flash_attention_packed(qkv=qkv, num_heads=2),
+                 "flash_fwd_f32_kernel<256>", "regtile"),
+                (lambda: flash_attention_packed(qkv=qkv, num_heads=1, wo=wo),
+                 "flash_fwd_proj_f32_kernel<512>", "regtile")):
+            names = _kernels_run(fn)
+            assert _ran(names, want) and not _ran(names, not_want), names
+
+
+def test_regtile_takes_unaligned_operands(cuda):
+    """fp32 operands that do not allow 16-byte copies (an odd offset, an odd
+    row stride) go through the 4-byte copies and match the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    base = torch.randn(2 * 130 * 513 + 1, generator=g, device=cuda)
+    x = base[1:].view(2, 130, 513)[..., :512]  # offset 4 bytes, row stride 513
+    q, k, v = (x.unflatten(2, (8, 64)).transpose(1, 2) for _ in range(3))
+    wo = torch.randn(512, 301, generator=g, device=cuda) * 0.05
+    with torch.no_grad():
+        out = flash_attention(q, k, v)
+        torch.testing.assert_close(out, multi_head_attention(q, k, v), **F32_TOL)
+        y = flash_attention_packed(x, x, x, num_heads=4, wo=wo)
+        heads = [t.unflatten(2, (4, 128)).transpose(1, 2) for t in (x, x, x)]
+        ref = project_plain(multi_head_attention(*heads).transpose(1, 2).flatten(2), wo)
+        torch.testing.assert_close(y, ref, **F32_TOL)
