@@ -357,7 +357,9 @@ Phases, each printing one line (or a few) before the last:
    memory;
 39. the attention at every precision and head width the JAX wrappers take
    (after phase 38, outside the corpus): K1/K2 in fp32 (K1 on the
-   register-tiled flash_fwd_f32_regtile_kernel<128>, K2 on the SIMT ones)
+   register-tiled flash_fwd_f32_regtile_kernel<128>, K2 on the register-
+   tiled flash_bwd_dkv_f32_regtile_kernel<128> and
+   flash_bwd_dq_f32_regtile_kernel<128>)
    at [16,1569,1536] H 4 (fused and split) and [16,393,1536], in bf16 and
    fp32 at Dh 256 (H 2) and 512 (H 1); K3/K4 at phase 40's fp32 calls (the
    text tower's [16,12,128,64] with a real-prefix key mask, the
@@ -369,17 +371,18 @@ Phases, each printing one line (or a few) before the last:
    one-process pass): each against its plain version (fp32: F32_ATOL /
    F32_BWD_REL bars, a short call's gradients by F32_ATOL; bf16: phases 3's
    and 7's), with times (CUDA events), bounds (fp32 at 67 TFLOP/s) and the
-   library call's; fp32 K1 and K3 at Dh 64 / 128 and K5 at 128 traced by
+   library call's; fp32 K1 to K4 at Dh 64 / 128 and K5 at 128 traced by
    name on the register-tiled kernels, whose registers and shared memory
-   (against the Python mirror, _flash_cuda.regtile_smem_bytes) it prints;
+   (against the Python mirrors, _flash_cuda.regtile_smem_bytes and
+   regtile_bwd_smem_bytes) it prints;
 40. (inside the corpus, after phase 38) config/quality/flagship_quality_train.yaml
    through main at precision fp32, one epoch of 3 steps and its validation,
    against the same run with the plain attention from the same seed, both
    at dropout 0: per-step and validation losses (FP32_RUN_LOSS_REL),
    launches per step K1 12, K2 12, K3 14, K4 14 on the fp32 kernels, the
    run's checkpoint written and read back in fp32, a traced step (busy
-   share, the fp32 kernels by name, the forward's share), step time, peak
-   memory;
+   share, the fp32 kernels by name, the forward's and the backward's
+   shares, K2's and K4's busy time a call), step time, peak memory;
 41. phase 12's probing step at precision fp32 with DEEPCORO_FUSED_OUTPROJ=1:
    12 fp32 K5 launches a step, the heads against the plain attention's
    (FP32_HEAD_ATOL + FP32_HEAD_RTOL|plain|), step time, a traced step (busy
@@ -406,7 +409,8 @@ at the main paths' long shapes, against the package of the tree it lies in.
 --fp32-rows runs the build, phase 39's fp32 rows of K1 (with K2), K3 at the
 text tower's shape (with K4) and K5, phase 41's step and phase 40's traced
 step (on a rendered corpus), against the package of the tree it lies in:
-the fp32 forward's A B B A call (an older tree's SIMT kernels by name).
+the fp32 forward's and backward's A B B A call (an older tree's SIMT kernels
+by name).
 
 --drift renders phase 22's corpus and runs phase 32's config at dropout 0
 through main four times: world 1 (the control), world N (ddp_topology),
@@ -2129,7 +2133,7 @@ def phase_probe_profile(torch, state, step_fn, batch, gen, ratio) -> None:
                             ("flash_short_fwd_f32_kernel", "flash_short_bwd_f32_kernel"),
                             ("flash_fwd_f32_kernel", "flash_fwd_f32_regtile_kernel",
                              "bwd_rows_f32_kernel", "flash_bwd_dkv_f32_kernel",
-                             "flash_bwd_dq_f32_kernel"))
+                             "flash_bwd_dq_f32_kernel") + REGTILE_BWD)
 
 
 def phase_probe_times(torch, errs, counts, partial_counts):
@@ -3126,11 +3130,12 @@ LONG_SOURCES = {"K3": "deepcoro_clip_tpu_torch/csrc/flash_fwd.cu",
 def _use_tree_kernel_names() -> None:
     """The long K3/K4 kernels' names in the tree this script runs against:
     this tree's Hopper kernels, or an older tree's mma.sync tile kernels;
-    and the fp32 forward's: the register-tiled kernels, or an older tree's
-    SIMT ones (the A B B A call copies the script into the parent's tree)."""
+    and the fp32 forward's and backward's: the register-tiled kernels, or
+    an older tree's SIMT ones (the A B B A call copies the script into the
+    parent's tree)."""
     from deepcoro_clip_tpu_torch.ops import _flash_cuda
 
-    global TILE_FWD, TILE_BWD, TILE_KERNELS, REGTILE_FWD, REGTILE_PROJ
+    global TILE_FWD, TILE_BWD, TILE_KERNELS, REGTILE_FWD, REGTILE_PROJ, REGTILE_BWD
     if not hasattr(_flash_cuda, "visit_keys"):
         TILE_FWD = ("flash_fwd_kernel<64>",)
         TILE_BWD = ("bwd_rows_kernel<64>", "flash_bwd_dkv_kernel<64>",
@@ -3138,6 +3143,8 @@ def _use_tree_kernel_names() -> None:
         TILE_KERNELS = TILE_FWD + TILE_BWD
     if not hasattr(_flash_cuda, "regtile_smem_bytes"):  # the fp32 forward on the SIMT kernels
         REGTILE_FWD, REGTILE_PROJ = SIMT_FWD["float32"], SIMT_PROJ["float32"]
+    if not hasattr(_flash_cuda, "regtile_bwd_smem_bytes"):  # the fp32 backward on the SIMT ones
+        REGTILE_BWD = SIMT_BWD["float32"][1:]
 
 
 def _short_name(name: str) -> str:
@@ -7558,6 +7565,12 @@ SIMT_PROJ = {"float32": ("flash_fwd_proj_f32_kernel",),
 # heads; neither name is a substring of the other)
 REGTILE_FWD = ("flash_fwd_f32_regtile_kernel",)
 REGTILE_PROJ = ("flash_fwd_proj_f32_regtile_kernel",)
+# fp32 at Dh 64 and 128 (K2, K4): the register-tiled dK/dV and dQ kernels of
+# csrc/bwd_f32_regtile.cuh after the SIMT row pre-pass F32_ROWS (the SIMT
+# dK/dV and dQ names above serve the wider heads; no name of the two is a
+# substring of another)
+REGTILE_BWD = ("flash_bwd_dkv_f32_regtile_kernel", "flash_bwd_dq_f32_regtile_kernel")
+F32_ROWS = ("bwd_rows_f32_kernel",)
 
 
 def fwd_names(dtype, Dh: int) -> tuple:
@@ -7566,6 +7579,14 @@ def fwd_names(dtype, Dh: int) -> tuple:
     if str(dtype) == "torch.float32" and Dh <= 128:
         return REGTILE_FWD
     return SIMT_FWD[str(dtype).split(".")[1]]
+
+
+def bwd_names(dtype, Dh: int) -> tuple:
+    """The backward kernels a tile call (past the short lengths) runs at
+    ``dtype`` and ``Dh``: the row pre-pass, then the dK/dV and dQ kernels."""
+    if str(dtype) == "torch.float32" and Dh <= 128:
+        return F32_ROWS + REGTILE_BWD
+    return SIMT_BWD[str(dtype).split(".")[1]]
 
 
 def proj_names(dtype, Dh: int) -> tuple:
@@ -7610,30 +7631,37 @@ def _float_leaves(tree):
 
 
 def _simt_row(torch, label: str, shape: str, fn, plain, lib, flops: float, nbytes: float,
-              fp32: bool, kernels, err: float) -> dict:
+              fp32: bool, kernels, err: float, busy: bool = False) -> dict:
     """Times of one call (CUDA events over SIMT_REPS after 3 warm-up calls,
     the plain version once, the library call) and its bound (fp32: the
     card's 67 TFLOP/s outside the tensor cores, no TF32; bf16: 989). No
-    profiler window: a call of milliseconds reads the same between events,
-    and which kernels ran is phase 40's trace's and the counters' to show."""
+    profiler window (a call of milliseconds reads the same between events,
+    and which kernels ran is phase 40's trace's and the counters' to show),
+    but with ``busy`` (``--fp32-rows``' backward rows, whose host enqueue can
+    outlast the card's work) also the card's busy time a call."""
     b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
     row = {"shape": shape, "max_abs_err": err, "ms": cuda_ms(torch, fn, SIMT_REPS),
            "plain_ms": cuda_ms(torch, plain, 1),
            "library_ms": None if lib is None else cuda_ms(torch, lib, SIMT_REPS),
            "bound_ms": b_ms, "bound_by": b_by, "kernels": list(kernels)}
     row["tflops"] = flops / row["ms"] / 1e9
+    busy_s = ""
+    if busy:
+        row["busy_ms"] = device_ms(torch, fn, SIMT_REPS, kernels)
+        busy_s = f" (busy {row['busy_ms']:.4f} ms)"
     lib_s = "none" if lib is None else f"{row['library_ms']:.4f} ms"
-    print(f"{label}: {shape}: kernel {row['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s; "
+    print(f"{label}: {shape}: kernel {row['ms']:.4f} ms{busy_s} ({row['tflops']:.2f} TFLOP/s; "
           f"{', '.join(kernels)}), plain {row['plain_ms']:.4f} ms, library {lib_s}, bound "
           f"{b_ms:.4f} ms ({b_by}) | {CARD}", flush=True)
     return row
 
 
-def _packed_simt_rows(torch, dtype, B, H, Dh, L, split=False) -> tuple:
+def _packed_simt_rows(torch, dtype, B, H, Dh, L, split=False, busy=False) -> tuple:
     """K1 and K2 on the SIMT kernels at a packed shape: ``qkv`` ``[B, L,
     3*H*Dh]`` with the video tower's 3D RoPE (fused, or ``split`` into three
     tensors), against their plain versions (fp32: ``_f32_check``'s bars;
-    bf16: phase 3's and 7's), with times and bounds. Returns (K1 row, K2 row)."""
+    bf16: phase 3's and 7's), with times and bounds (``busy``: K2's busy
+    time too). Returns (K1 row, K2 row)."""
     import torch.nn.functional as F
 
     from deepcoro_clip_tpu_torch.ops.attention import (
@@ -7701,19 +7729,19 @@ def _packed_simt_rows(torch, dtype, B, H, Dh, L, split=False) -> tuple:
                       lambda: flash_bwd_plain(*heads, doh, outh, **rope),
                       lambda: torch.autograd.grad(sout, sl, doh, retain_graph=True),
                       10 * B * H * L * L * Dh, 8 * B * L * D * esz + tables, fp32,
-                      SIMT_BWD[str(dtype).split(".")[1]], err_b)
+                      bwd_names(dtype, Dh), err_b, busy)
     del qkv, do, heads, leaves, out, grads, want, sq, sl, sout, ref, got
     torch.cuda.empty_cache()
     return row_f, row_b
 
 
-def _padded_rows(torch, dtype, B, H, L, Dh, rope: bool, what: str = "") -> tuple:
+def _padded_rows(torch, dtype, B, H, L, Dh, rope: bool, what: str = "", busy=False) -> tuple:
     """K3 and K4 at ``[B, H, L, Dh]``: a head dim no kernel is built for is
     padded as the JAX wrapper pads (``pad_head_dim``) to
     ``kernel_head_dim(Dh)``; q/k/v strided views of ``[B, L, H*Dh]``, a key
     mask of the text tower's kind (a real prefix a row, at least one key),
     against the plain version at Dh. ``what`` names the main path's call
-    the shape is. Returns (K3 row, K4 row)."""
+    the shape is; ``busy``: K4's busy time too. Returns (K3 row, K4 row)."""
     import torch.nn.functional as F
 
     from deepcoro_clip_tpu_torch.ops.attention import (
@@ -7764,7 +7792,7 @@ def _padded_rows(torch, dtype, B, H, L, Dh, rope: bool, what: str = "") -> tuple
     elif width > 128:
         kf, kb = SIMT_FWD[str(dtype).split(".")[1]], SIMT_BWD[str(dtype).split(".")[1]]
     elif fp32:
-        kf, kb = REGTILE_FWD, SIMT_BWD["float32"]
+        kf, kb = REGTILE_FWD, F32_ROWS + REGTILE_BWD
     else:
         kf = (f"flash_long_fwd_kernel<{width}>",)
         kb = (f"bwd_rows_kernel<{width}", f"flash_long_bwd_dkv_kernel<{width}>",
@@ -7785,7 +7813,7 @@ def _padded_rows(torch, dtype, B, H, L, Dh, rope: bool, what: str = "") -> tuple
                       lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
                       lambda: flash_bwd_plain(q, k, v, do, out.detach(), **kw),
                       lambda: torch.autograd.grad(sout, sl, do, retain_graph=True),
-                      10 * pairs * Dh, 8 * qd, fp32, kb, err_b)
+                      10 * pairs * Dh, 8 * qd, fp32, kb, err_b, busy)
     del q, k, v, do, leaves, out, grads, want, sq, sl, sout
     torch.cuda.empty_cache()
     return row_f, row_b
@@ -7892,16 +7920,19 @@ def _ring_f32_row(torch) -> dict:
 def _regtile_routes(torch) -> dict:
     """Phase 39's traces of the register-tiled fp32 kernels by name: K1 at
     the video tower's ``[16,393,1536]`` (Dh 128, RoPE), K3 at the text
-    tower's ``[16,12,128,64]`` with a key mask (Dh 64) and K5 at
-    ``[8,393,1536]``, ``wo`` ``[512,512]``: each call counts one launch on
-    its entry point and runs its new kernel, not the SIMT one (a trace that
-    drops the new kernel's event is said so: the launch was counted, and
-    the SIMT kernel did not run). Prints each kernel's registers and shared
-    memory a block, the latter held against
-    ``_flash_cuda.regtile_smem_bytes``."""
+    tower's ``[16,12,128,64]`` with a key mask (Dh 64), K5 at
+    ``[8,393,1536]``, ``wo`` ``[512,512]``, and the backward of the K1 and
+    K3 calls (K2 at Dh 128, K4 at Dh 64): each call counts one launch on its
+    entry point and runs its new kernels, not the SIMT ones (a trace that
+    drops a new kernel's event is said so: the launch was counted, and the
+    SIMT kernel did not run). Prints each kernel's registers and shared
+    memory a block, the latter held against ``_flash_cuda.regtile_smem_bytes``
+    and ``regtile_bwd_smem_bytes``."""
     from deepcoro_clip_tpu_torch.ops._flash_cuda import (
         REGTILE_KEYS,
         REGTILE_PROJ_KEYS,
+        regtile_bwd_kernel_attrs,
+        regtile_bwd_smem_bytes,
         regtile_kernel_attrs,
         regtile_smem_bytes,
     )
@@ -7917,6 +7948,13 @@ def _regtile_routes(torch) -> dict:
                                   else REGTILE_KEYS)
         check(a["smem_bytes"] == want,
               f"{key}: {a['smem_bytes']} B of shared memory, the Python mirror says {want}")
+    bwd_attrs = regtile_bwd_kernel_attrs()
+    for key, a in bwd_attrs.items():
+        want = regtile_bwd_smem_bytes(int(key.split()[-1]))["dQ" in key]
+        check(a["smem_bytes"] == want,
+              f"{key}: {a['smem_bytes']} B of shared memory, the Python mirror says {want}")
+    attrs.update(bwd_attrs)
+    for key, a in attrs.items():
         print(f"regtile attrs: {key}: {a['kernel']} {a['registers']} registers, "
               f"{a['smem_bytes']} B shared a block (the mirror's) | {CARD}", flush=True)
     t = build_rope3d_tables(128, 8, 7, 7, n_special=1)
@@ -7927,6 +7965,11 @@ def _regtile_routes(torch) -> dict:
     tmask = torch.arange(128, device=dev)[None] < torch.randint(
         8, 129, (16, 1), generator=g, device=dev)
     wo = torch.randn(512, 512, generator=g, device=dev) * 512 ** -0.5
+    qkv_leaf = qkv.clone().requires_grad_()
+    text_leaves = [u.clone().requires_grad_() for u in text]
+    k1_out = flash_attention_packed(qkv=qkv_leaf, num_heads=4, **rope)
+    k3_out = flash_attention(*text_leaves, kv_mask=tmask)
+    simt_bwd = SIMT_BWD["float32"][1:]
     cases = {
         "K1": ("regtile route K1 fp32 [16,393,1536] Dh 128", (flash_attention_packed, "launches"),
                lambda: flash_attention_packed(qkv=qkv, num_heads=4, **rope), REGTILE_FWD,
@@ -7937,16 +7980,23 @@ def _regtile_routes(torch) -> dict:
                (flash_attention_packed, "proj_launches"),
                lambda: flash_attention_packed(qkv=qkv[:8], num_heads=4, wo=wo, **rope),
                REGTILE_PROJ, SIMT_PROJ["float32"]),
+        "K2": ("regtile route K2 fp32 [16,393,1536] Dh 128",
+               (flash_attention_packed, "bwd_launches"),
+               lambda: torch.autograd.grad(k1_out, [qkv_leaf], torch.ones_like(k1_out),
+                                           retain_graph=True), REGTILE_BWD, simt_bwd),
+        "K4": ("regtile route K4 fp32 [16,12,128,64] + mask", (flash_attention, "bwd_launches"),
+               lambda: torch.autograd.grad(k3_out, text_leaves, torch.ones_like(k3_out),
+                                           retain_graph=True), REGTILE_BWD, simt_bwd),
     }
     ran = {}
-    with torch.no_grad():
-        for key, (label, (entry, counter), fn, want, not_want) in cases.items():
-            n = getattr(entry, counter)
+    for key, (label, (entry, counter), fn, want, not_want) in cases.items():
+        n = getattr(entry, counter)
+        with torch.set_grad_enabled(key in ("K2", "K4")):
             fn()
             check(getattr(entry, counter) == n + 1,
                   f"{label}: {getattr(entry, counter) - n} launches counted, expected 1")
             ran[key] = check_route(torch, label, fn, want, not_want, untraced_ok=True)
-    del qkv, text, wo
+    del qkv, text, wo, qkv_leaf, text_leaves, k1_out, k3_out
     torch.cuda.empty_cache()
     return {"ran": ran, "attrs": attrs}
 
@@ -8094,8 +8144,9 @@ def _fp32_quality_step(torch, manifest: Path, stats: dict, out_dir: Path) -> dic
     """Phase 40's traced step: flagship_quality_train.yaml at ``precision:
     fp32`` on one batch of the corpus (``stats``: the dataset statistics,
     or {} for the runner to compute them), a warm step, two on the host
-    clock, one traced: the busy time and share, the fp32 attention's part
-    and the forward's (K1 and K3, REGTILE_FWD) by name."""
+    clock, one traced: the busy time and share, the fp32 attention's part,
+    the forward's (K1 and K3, REGTILE_FWD) and the backward's (K2 and K4,
+    F32_ROWS + REGTILE_BWD) by name, and the backward's busy time a call."""
     from deepcoro_clip_tpu_torch.runners.common import batch_to_device
     from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
 
@@ -8115,28 +8166,41 @@ def _fp32_quality_step(torch, manifest: Path, stats: dict, out_dir: Path) -> dic
     # a step's forward: K1 in the 12 video blocks, K3 in the 12 text layers
     # (the aggregator's 2 K3 run the short kernel)
     per_name, wall_ms = device_events(torch, lambda: runner.train_step(runner.state, *args),
-                                      expect={REGTILE_FWD[0]: 24})
+                                      expect={REGTILE_FWD[0]: 24, REGTILE_BWD[0]: 24,
+                                              REGTILE_BWD[1]: 24})
     print_profile("fp32 quality profile", "one step at precision fp32", per_name, wall_ms,
                   top=12)
     check_main_path_kernels(
         "fp32 quality profile, the video tower's K1/K2 and the text tower's K3/K4", per_name,
-        REGTILE_FWD + SIMT_BWD["float32"]
+        REGTILE_FWD + F32_ROWS + REGTILE_BWD
         + ("flash_short_fwd_f32_kernel", "flash_short_bwd_f32_kernel"),
         ("flash_fwd_sm90_kernel", "flash_long_fwd_kernel", "flash_bwd_dkv_sm90_kernel")
-        + tuple(n for n in SIMT_FWD["float32"] if n not in REGTILE_FWD))
+        + tuple(n for n in SIMT_FWD["float32"] if n not in REGTILE_FWD)
+        + tuple(n for n in SIMT_BWD["float32"][1:] if n not in REGTILE_BWD))
     busy = sum(per_name.values())
-    attn = sum(ms for n, ms in per_name.items()
-               if any(k in n for k in REGTILE_FWD + SIMT_BWD["float32"]))
+    bwd_names_ = F32_ROWS + REGTILE_BWD
+    attn = sum(ms for n, ms in per_name.items() if any(k in n for k in REGTILE_FWD + bwd_names_))
     fwd = sum(ms for n, ms in per_name.items() if REGTILE_FWD[0] in n)
+    bwd = sum(ms for n, ms in per_name.items() if any(k in n for k in bwd_names_))
+    # a step's backward: K2 at Dh 128 in the 12 video blocks, K4 at Dh 64 in
+    # the 12 text layers (each with its row pre-pass)
+    k2 = sum(ms for n, ms in per_name.items()
+             if any(k in n for k in bwd_names_) and "<128>" in n) / 12
+    k4 = sum(ms for n, ms in per_name.items()
+             if any(k in n for k in bwd_names_) and "<64>" in n) / 12
     print(f"fp32 quality run: step {step_ms:.1f} ms (host clock, 2 steps on one batch), busy "
           f"{busy:.1f} ms of a traced {wall_ms:.1f} ms (share {busy / wall_ms:.2f}), the fp32 "
           f"K1/K2/K3/K4 {attn:.1f} ms of it, the forward ({REGTILE_FWD[0]}, K1 and K3) "
-          f"{fwd:.2f} ms (share {fwd / busy:.3f}) | {CARD}", flush=True)
+          f"{fwd:.2f} ms (share {fwd / busy:.3f}), the backward ({', '.join(bwd_names_)}, K2 "
+          f"and K4) {bwd:.2f} ms (share {bwd / busy:.3f}; busy a call: K2 [16,1569|393,1536] "
+          f"{k2:.3f} ms over 3 + 9, K4 [16,12,128,64] {k4:.4f} ms) | {CARD}", flush=True)
     del runner, batch, args
     torch.cuda.empty_cache()
     return {"step_ms": step_ms, "busy_ms": busy, "busy_share": busy / wall_ms,
             "simt_attention_busy_ms": attn, "regtile_fwd_busy_ms": fwd,
-            "regtile_fwd_share": fwd / busy}
+            "regtile_fwd_share": fwd / busy, "regtile_bwd_busy_ms": bwd,
+            "regtile_bwd_share": bwd / busy, "k2_busy_ms_a_call": k2,
+            "k4_text_busy_ms_a_call": k4}
 
 
 def phase_fp32_probe(torch) -> dict:
@@ -8218,8 +8282,9 @@ def run_fp32_rows(torch) -> dict:
     """One run of the fp32 forward's A B B A call (``--fp32-rows``) against
     the package of the tree the script lies in (copy it into an older
     tree): the build; phase 39's fp32 rows of K1 at ``[16,1569|393,1536]``
-    (with K2 from its statistics), K3 at the text tower's ``[16,12,128,64]``
-    with a real-prefix mask (with K4) and K5 at ``[80,1569|393,1536]``,
+    (with K2 from its statistics, and its busy time), K3 at the text tower's
+    ``[16,12,128,64]`` with a real-prefix mask (with K4, and its busy time)
+    and K5 at ``[80,1569|393,1536]``,
     ``wo`` ``[512,512]``; phase 41's fp32 probing step and phase 40's traced
     fp32 quality step on a rendered corpus."""
     from deepcoro_clip_tpu_torch.ops import _build
@@ -8230,10 +8295,11 @@ def run_fp32_rows(torch) -> dict:
     f32 = torch.float32
     rows = {k: [] for k in ("K1", "K2", "K3", "K4", "K5")}
     for L in (1569, 393):
-        f, b = _packed_simt_rows(torch, f32, 16, 4, 128, L)
+        f, b = _packed_simt_rows(torch, f32, 16, 4, 128, L, busy=True)
         rows["K1"].append(f)
         rows["K2"].append(b)
-    f, b = _padded_rows(torch, f32, 16, 12, 128, 64, False, ", the text tower (phase 40)")
+    f, b = _padded_rows(torch, f32, 16, 12, 128, 64, False, ", the text tower (phase 40)",
+                        busy=True)
     rows["K3"].append(f)
     rows["K4"].append(b)
     for L in (1569, 393):
@@ -8241,7 +8307,8 @@ def run_fp32_rows(torch) -> dict:
     probe = phase_fp32_probe(torch)
     with tempfile.TemporaryDirectory() as root:
         quality = _fp32_quality_step(torch, render_corpus(Path(root)), {}, Path(root) / "trace")
-    return {"kernels": {"fwd": REGTILE_FWD, "proj": REGTILE_PROJ}, "rows": rows,
+    return {"kernels": {"fwd": REGTILE_FWD, "proj": REGTILE_PROJ, "bwd": REGTILE_BWD},
+            "rows": rows,
             "fp32_probe_step": probe["times"], "fp32_quality_step": quality}
 
 
@@ -8249,16 +8316,19 @@ SIMT_NAMES = {
     "K1": ("flash_attention_packed, fp32 and bf16 at Dh 256 to 512 (K1 on the CUDA cores: "
            "flash_fwd_f32_regtile_kernel<128> in fp32 at Dh 128, flash_fwd_f32_kernel<Dh>, "
            "flash_fwd_wide_bf16_kernel<Dh>)", KERNEL_SOURCE, K1_REPLACES),
-    "K2": ("flash_attention_packed backward, fp32 and bf16 at Dh 256 to 512 (K2 on the SIMT "
-           "kernels: bwd_rows_f32_kernel, flash_bwd_dkv_f32_kernel, flash_bwd_dq_f32_kernel "
-           "and their _wide_bf16 forms)", BWD_SOURCE, K2_REPLACES),
+    "K2": ("flash_attention_packed backward, fp32 and bf16 at Dh 256 to 512 (K2 on the CUDA "
+           "cores: bwd_rows_f32_kernel, then flash_bwd_dkv_f32_regtile_kernel<128> and "
+           "flash_bwd_dq_f32_regtile_kernel<128> in fp32 at Dh 128, flash_bwd_dkv_f32_kernel<Dh>"
+           " and flash_bwd_dq_f32_kernel<Dh> above, and their _wide_bf16 forms)", BWD_SOURCE,
+           K2_REPLACES),
     "K3": ("flash_attention, fp32 above 64 tokens and every padded head dim (K3: "
            "flash_fwd_f32_regtile_kernel<64|128> in fp32 at Dh 64 / 128, flash_fwd_f32_kernel, "
            "flash_fwd_wide_bf16_kernel, the long kernels at a padded 64 / 128)", KERNEL_SOURCE,
            K3_REPLACES),
-    "K4": ("flash_attention backward, fp32 above 64 tokens and every padded head dim (K4 on "
-           "the SIMT kernels and the long ones at a padded 64 / 128)", BWD_SOURCE,
-           K4_REPLACES),
+    "K4": ("flash_attention backward, fp32 above 64 tokens and every padded head dim (K4: "
+           "flash_bwd_dkv_f32_regtile_kernel<64|128> and flash_bwd_dq_f32_regtile_kernel<64|128>"
+           " in fp32 at Dh 64 / 128, the SIMT kernels above, the long ones at a padded 64 / 128)",
+           BWD_SOURCE, K4_REPLACES),
     "K5": ("flash_attention_packed(wo=), fp32 and bf16 at Dh 256 to 512 (K5 on the CUDA "
            "cores: flash_fwd_proj_f32_regtile_kernel in fp32 at Dh 128, "
            "flash_fwd_proj_f32_kernel<Dh>, flash_fwd_proj_wide_bf16_kernel<Dh>)",
@@ -8274,8 +8344,8 @@ def simt_entries(rows: dict, quality: dict, probe: dict, ranks: dict) -> list:
     launches on their main paths (phase 40's fp32 run for K1 to K4, phase
     41's step for K5, phase 39's one-process pass for K6, with phase 34's
     ranks beside it), the first row's numbers (the main path's shape),
-    every row under ``shapes`` and, for K1, K3 and K5, the register-tiled
-    kernel phase 39 traced by name."""
+    every row under ``shapes`` and, for K1 to K5, the register-tiled
+    kernels phase 39 traced by name."""
     out = []
     launches = {"K1": quality["counts"]["K1"], "K2": quality["counts"]["K2"],
                 "K3": quality["counts"]["K3"], "K4": quality["counts"]["K4"],
@@ -8291,10 +8361,11 @@ def simt_entries(rows: dict, quality: dict, probe: dict, ranks: dict) -> list:
             e["fp32_quality_train_launches"] = quality["counts"][key]
         if key == "K5":
             e["fp32_probe_step_launches"] = probe["counts"]["K5"]
-        if key in ("K1", "K3", "K5"):  # the register-tiled kernels by name, and their blocks
+        if key != "K6":  # the register-tiled kernels by name, and their blocks
+            group = {"K1": "K1/K3", "K3": "K1/K3", "K2": "K2/K4", "K4": "K2/K4"}.get(key, key)
             e["regtile_ran"] = rows["regtile"]["ran"][key]
             e["regtile_attrs"] = {k: a for k, a in rows["regtile"]["attrs"].items()
-                                  if k.startswith("K5") == (key == "K5")}
+                                  if k.startswith(group)}
         if key == "K6":
             e.update(ranks)
         out.append(e)

@@ -1,18 +1,22 @@
 // Flash-attention backward for Hopper (sm_90a): bf16 in/out with fp32 sums on
-// the tensor cores (wgmma, TMA, mbarriers), and SIMT kernels for fp32
-// operands and for bf16 at head dims 256 to 512 (below).
+// the tensor cores (wgmma, TMA, mbarriers), register-tiled CUDA-core
+// kernels for fp32 at head dims 64 and 128 (bwd_f32_regtile.cuh), and SIMT
+// kernels for fp32 and bf16 at head dims 256 to 512 (below).
 //
 // Replaces two Pallas TPU kernels of deepcoro_clip_tpu:
 //   - ops/flash_attention_packed.py `_bwd_kernel` (K2: packed [B, L, H*Dh];
 //     in fused mode dq, dk, dv are written through strided views straight
 //     into one [B, L, 3D] gradient of the fused QKV tensor), bf16 at Dh 128
-//     on `flash_bwd_dkv_sm90_kernel` and `flash_bwd_dq_sm90_kernel`, fp32
-//     and bf16 at Dh 256 to 512 on the SIMT kernels below;
+//     on `flash_bwd_dkv_sm90_kernel` and `flash_bwd_dq_sm90_kernel`, fp32 at
+//     Dh 128 on `flash_bwd_dkv_f32_regtile_kernel<128>` and
+//     `flash_bwd_dq_f32_regtile_kernel<128>`, fp32 and bf16 at Dh 256 to 512
+//     on the SIMT kernels below;
 //   - ops/flash_attention.py `_bwd_kernel` (K4: [B, H, L, Dh]) where Lq or
 //     Lk exceeds 64 (or Dh exceeds 128), bf16 at Dh 64 or 128 on
 //     `flash_long_bwd_dkv_kernel<D>` and `flash_long_bwd_dq_kernel<D>`, fp32
-//     and bf16 at the padded widths 256 to 512 on the SIMT kernels (shorter
-//     calls at Dh <= 128 run flash_short.cu in one launch).
+//     at Dh 64 or 128 on the register-tiled kernels, fp32 and bf16 at the
+//     padded widths 256 to 512 on the SIMT kernels (shorter calls at Dh <=
+//     128 run flash_short.cu in one launch).
 // Each pair is one body (`bwd_dkv_sm90<D>`, `bwd_dq_sm90<D>` below) under two
 // names; every operand is a base pointer plus (batch, head, row) strides in
 // elements.
@@ -64,8 +68,9 @@
 // real key, and past the last row under causal masking, when every row of
 // the q tile has a real key): a dK/dV block whose keys no q tile reaches
 // writes zeros without looping, and the dQ loop stops at its tile's extent.
-// The SIMT kernels at the end serve fp32 operands of every layout (K2 and
-// K4 at Dh 64 to 512) and bf16 at Dh 256 to 512.
+// The CUDA-core kernels at the end serve fp32 operands of every layout (K2
+// and K4: register-tiled at Dh 64 and 128, SIMT at 256 to 512) and bf16 at
+// Dh 256 to 512 (SIMT).
 //
 // Semantics kept from the plain version (ops/attention.py and
 // flash_bwd_plain): keys at index >= Lk do not exist (P = 0); masked keys
@@ -73,6 +78,7 @@
 // every key: it feeds dV, while dS is 0 wherever the score was masked (no
 // gradient flows through a masked score); rows at index >= Lq add nothing.
 
+#include "bwd_f32_regtile.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -854,7 +860,7 @@ int launch_sm90(BwdParams p, int B, const __nv_bfloat16* o, long long o_sb, long
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- SIMT kernels: fp32 operands, and bf16 at Dh 256 to 512 ----------------
+// ---- SIMT kernels: fp32 and bf16 at Dh 256 to 512 ----------------------------
 // The same gradients without tensor cores, tiled as the SIMT forward
 // (flash_common.cuh, simt_attend_tiles): a block of 4 or 8 warps owns 16 or
 // 32 rows (q rows for dQ, keys for dK and dV), 4 a warp, held transposed in
@@ -862,8 +868,8 @@ int launch_sm90(BwdParams p, int B, const __nv_bfloat16* o, long long o_sb, long
 // stream through shared memory 32 at a time, one a lane for the two dot
 // products, then every lane adds the tile's weighted rows into its own
 // columns. No atomics: each output row is summed by one warp in a fixed
-// order. fp32 operands (K2 and K4, every layout, D 64 to 512) round nothing
-// below fp32; bf16 at D 256 to 512 (K2 at those head dims, K4 at the padded
+// order. fp32 operands (K2 and K4, every layout, D 256 to 512; D 64 and
+// 128 run the register-tiled kernels further down) round nothing below fp32; bf16 at D 256 to 512 (K2 at those head dims, K4 at the padded
 // widths) rounds where the Hopper kernels round (bf16(P) for dV, bf16(dS)
 // for dQ and dK, the RoPE tables). In the fused layout dq, dk and dv are
 // column blocks of one [B, L, 3D] gradient: the dK/dV kernel writes the
@@ -882,6 +888,7 @@ struct BwdParamsSimt {
   T* dk;
   T* dv;
   const float* rows;  // [3, B*H, Lq_pad]: m, 1/l, delta
+  float* dst;         // fp32 [B*H, Lk, Lq_pad]: dS^T (the register-tiled kernels)
   const float* sin;
   const float* cos;
   const uint8_t* mask;
@@ -1147,7 +1154,7 @@ __device__ __forceinline__ void bwd_dkv_simt(const BwdParamsSimt<T>& p) {
   }
 }
 
-// fp32 operands, every layout: K2 and K4.
+// fp32 operands, every layout, D 256 to 512: K2 and K4.
 template <int D>
 __global__ void __launch_bounds__(SIMT_WARPS<D> * 32) flash_bwd_dq_f32_kernel(
     const BwdParamsSimt<float> p) {
@@ -1173,10 +1180,13 @@ __global__ void __launch_bounds__(SIMT_WARPS<D> * 32) flash_bwd_dkv_wide_bf16_ke
   bwd_dkv_simt<__nv_bfloat16, D>(p);
 }
 
+// The pre-passes of the SIMT and register-tiled kernels: q and k rotated
+// once into the scratch copies (then `p` points at those), and the rows'
+// (m, 1/l, delta).
 template <typename T, int D>
-cudaError_t launch_simt(BwdParamsSimt<T> p, int B, const T* o, long long o_sb,
-                        long long o_sh, long long o_sl, const float* stats, float* rows,
-                        T* q_rot, T* k_rot, cudaStream_t stream) {
+cudaError_t simt_prepass(BwdParamsSimt<T>& p, int B, const T* o, long long o_sb,
+                         long long o_sh, long long o_sl, const float* stats, float* rows,
+                         T* q_rot, T* k_rot, cudaStream_t stream) {
   cudaError_t err;
   if (p.sin != nullptr) {  // rotate q and k once into the scratch copies
     err = launch_rope_rows_t<D>(p.q, p.q_sb, p.q_sh, p.q_sl, B, p.H, p.Lq, p.sin, p.cos,
@@ -1200,7 +1210,15 @@ cudaError_t launch_simt(BwdParamsSimt<T> p, int B, const T* o, long long o_sb,
                                                             p.do_sb, p.do_sh, p.do_sl, stats,
                                                             rows, p.H, p.Lq, p.Lq_pad);
   }
-  err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_simt(BwdParamsSimt<T> p, int B, const T* o, long long o_sb,
+                        long long o_sh, long long o_sl, const float* stats, float* rows,
+                        T* q_rot, T* k_rot, cudaStream_t stream) {
+  cudaError_t err = simt_prepass<T, D>(p, B, o, o_sb, o_sh, o_sl, stats, rows, q_rot, k_rot,
+                                       stream);
   if (err != cudaSuccess) return err;
   using S = BwdTiles<D, SIMT_WARPS<D>>;
   const void* kdkv;
@@ -1227,19 +1245,249 @@ cudaError_t launch_simt(BwdParamsSimt<T> p, int B, const T* o, long long o_sb,
   return cudaGetLastError();
 }
 
+// ---- fp32 at Dh 64 and 128: the register-tiled kernels ---------------------
+// K2 and K4 for fp32 operands at Dh 64 and 128, every layout, on
+// bwd_f32_regtile.cuh (8 x 4 micro-tiles of the products, 8 own rows x D / 16
+// columns of the accumulators a thread, the streamed tiles by cp.async).
+// The pre-passes are the SIMT kernels' (simt_prepass).
+
+// dK and dV: a block owns 64 keys; warpgroup 0 holds K and streams Q (S^T,
+// P^T, then dK += dS^T Q), warpgroup 1 holds V and streams dO (dP^T, dS^T
+// from P^T, then dV += P^T dO). `vec`: the inputs allow 16-byte copies;
+// `o_vec`: dK and dV allow float4 stores.
+template <int D>
+__global__ void __launch_bounds__(RB_THREADS, 1) flash_bwd_dkv_f32_regtile_kernel(
+    const BwdParamsSimt<float> p, int vec, int o_vec) {
+  using S = RbDkvTiles<D>;
+  constexpr int LD = S::LD;
+  extern __shared__ __align__(16) float rb_smem[];
+  const int wg = threadIdx.x / RB_WG, t = threadIdx.x % RB_WG;
+  const int og = t >> 4, px = t & 15;
+  const int k0 = blockIdx.x * RB_KEYS;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const float* own_g = wg == 0 ? p.k + b * p.k_sb + h * p.k_sh : p.v + b * p.v_sb + h * p.v_sh;
+  const long long own_sl = wg == 0 ? p.k_sl : p.v_sl;
+  const float* str_g = wg == 0 ? p.q + b * p.q_sb + h * p.q_sh
+                               : p.dout + b * p.do_sb + h * p.do_sh;
+  const long long str_sl = wg == 0 ? p.q_sl : p.do_sl;
+  float* own_s = rb_smem + (wg == 0 ? S::K : S::V);
+  float* str_s = rb_smem + (wg == 0 ? S::Q : S::G);
+  float4* ex = reinterpret_cast<float4*>(rb_smem + S::E);
+  rb_load<D, RB_KEYS, RB_WG>(own_s, LD, own_g, own_sl, k0, p.Lk, vec != 0, t);
+  rb_load<D, RB_ROWS, RB_WG>(str_s, LD, str_g, str_sl, 0, p.Lq, vec != 0, t);
+  cp_async_commit();
+  bool kmasked[RB_OWN];
+  float acc[RB_OWN][D / 64][4];
+#pragma unroll
+  for (int r = 0; r < RB_OWN; ++r) {
+    const int key = k0 + og + 8 * r;
+    kmasked[r] = key < p.Lk && p.mask != nullptr && p.mask[(long long)b * p.Lk + key] == 0;
+#pragma unroll
+    for (int j = 0; j < D / 64; ++j) acc[r][j][0] = acc[r][j][1] = acc[r][j][2] = acc[r][j][3] = 0.f;
+  }
+  const long long plane = (long long)gridDim.y * p.Lq_pad;
+  const float* rv = p.rows + (long long)bh * p.Lq_pad;
+  float* dst = p.dst + (long long)bh * p.Lk * p.Lq_pad;
+  const int ntiles = (p.Lq + RB_ROWS - 1) / RB_ROWS;
+  for (int jt = 0; jt < ntiles; ++jt) {
+    const int r0 = jt * RB_ROWS;
+    const float* cur = str_s + (jt & 1) * RB_ROWS * LD;
+    cp_async_wait<0>();
+    rb_wg_sync(wg);  // tile jt is in; the warpgroup is done with the other buffer
+    if (jt + 1 < ntiles) {  // the next tile, under this tile's two products
+      rb_load<D, RB_ROWS, RB_WG>(str_s + ((jt + 1) & 1) * RB_ROWS * LD, LD, str_g, str_sl,
+                                 r0 + RB_ROWS, p.Lq, vec != 0, t);
+      cp_async_commit();
+    }
+    // the partner rows' statistics: (m, 1/l) for P, delta for dS
+    float sa[RB_PART], sb[RB_PART];
+#pragma unroll
+    for (int i = 0; i < RB_PART; ++i) {
+      const int row = r0 + px + 16 * i;
+      const bool in = row < p.Lq;  // the pre-pass leaves rows past Lq unwritten
+      sa[i] = in ? rv[(wg == 0 ? 0 : 2 * plane) + row] : 0.f;
+      sb[i] = in && wg == 0 ? rv[plane + row] : 0.f;
+    }
+    float s[RB_OWN][RB_PART];
+#pragma unroll
+    for (int r = 0; r < RB_OWN; ++r) {
+#pragma unroll
+      for (int i = 0; i < RB_PART; ++i) s[r][i] = 0.f;
+    }
+    rb_product<D>(s, own_s, cur, og, px);  // S^T = K Q^T, or dP^T = V dO^T
+    if (wg == 0) {  // P^T, to the exchange tile
+#pragma unroll
+      for (int r = 0; r < RB_OWN; ++r) {
+        const int key = k0 + og + 8 * r;
+#pragma unroll
+        for (int i = 0; i < RB_PART; ++i) {
+          const int row = r0 + px + 16 * i;
+          const bool masked = kmasked[r] || (p.causal && key > row);
+          // a row with no valid key has m = -FLT_MAX: P = 1/Lk on every key
+          const float x = masked ? -FLT_MAX : s[r][i] * p.scale_log2;
+          s[r][i] = key < p.Lk && row < p.Lq ? exp2f(x - sa[i]) * sb[i] : 0.f;
+        }
+        ex[r * RB_WG + t] = make_float4(s[r][0], s[r][1], s[r][2], s[r][3]);
+      }
+    }
+    __syncthreads();  // P^T is in the exchange tile
+    if (wg == 1) {  // dS^T = P^T (dP^T - delta) scale, 0 where masked: back, and to
+                    // the scratch for the dQ kernel (rows past Lq: 0); keep P^T
+#pragma unroll
+      for (int r = 0; r < RB_OWN; ++r) {
+        const int key = k0 + og + 8 * r;
+        const float4 p4 = ex[r * RB_WG + t];
+        const float pr[RB_PART] = {p4.x, p4.y, p4.z, p4.w};
+        float ds[RB_PART];
+#pragma unroll
+        for (int i = 0; i < RB_PART; ++i) {
+          const int row = r0 + px + 16 * i;
+          const bool masked = kmasked[r] || (p.causal && key > row);
+          ds[i] = masked ? 0.f : pr[i] * (s[r][i] - sa[i]) * p.scale;
+          s[r][i] = pr[i];
+        }
+        ex[r * RB_WG + t] = make_float4(ds[0], ds[1], ds[2], ds[3]);
+        if (key < p.Lk) {
+          float* drow = dst + (long long)key * p.Lq_pad + r0 + px;
+#pragma unroll
+          for (int i = 0; i < RB_PART; ++i) drow[16 * i] = ds[i];
+        }
+      }
+    }
+    __syncthreads();  // dS^T is in the exchange tile
+    if (wg == 0) {
+#pragma unroll
+      for (int r = 0; r < RB_OWN; ++r) {
+        const float4 d4 = ex[r * RB_WG + t];
+        s[r][0] = d4.x;
+        s[r][1] = d4.y;
+        s[r][2] = d4.z;
+        s[r][3] = d4.w;
+      }
+    }
+    rb_accumulate<D>(acc, s, cur, px);  // dK += dS^T Q, or dV += P^T dO
+  }
+  if (wg == 0) {
+    rb_store<D>(acc, p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_sl, k0 + og, 8, p.Lk, p.sin, p.cos,
+                px, o_vec != 0);
+  } else {
+    rb_store<D>(acc, p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_sl, k0 + og, 8, p.Lk, nullptr,
+                nullptr, px, o_vec != 0);
+  }
+}
+
+// dQ = dS K, from the dS^T the dK/dV kernel wrote: a block of 128 threads
+// owns 64 query rows; dS^T (the rows' columns of 64 keys) and K stream in
+// 64-key tiles, double-buffered by cp.async; a thread holds rows 8 og + r
+// (r < 8) x the float4 columns px + 16 j, a key's two float4s of dS^T read
+// by its 16-lane group at once.
+template <int D>
+__global__ void __launch_bounds__(RB_WG) flash_bwd_dq_f32_regtile_kernel(
+    const BwdParamsSimt<float> p, int vec, int o_vec) {
+  using S = RbDqTiles<D>;
+  constexpr int LD = S::LD, DLD = S::DLD, NJ = D / 64;
+  extern __shared__ __align__(16) float rb_smem[];
+  const int t = threadIdx.x, og = t >> 4, px = t & 15;
+  const int q0 = blockIdx.x * RB_ROWS;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const float* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const float* dg = p.dst + (long long)bh * p.Lk * p.Lq_pad + q0;  // 16-byte aligned rows
+  float* ds_s = rb_smem + S::DS;
+  float* k_s = rb_smem + S::K;
+  rb_load<RB_ROWS, RB_KEYS, RB_WG>(ds_s, DLD, dg, p.Lq_pad, 0, p.Lk, true, t);
+  rb_load<D, RB_KEYS, RB_WG>(k_s, LD, kg, p.k_sl, 0, p.Lk, vec != 0, t);
+  cp_async_commit();
+  float acc[RB_OWN][NJ][4];
+#pragma unroll
+  for (int r = 0; r < RB_OWN; ++r) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[r][j][0] = acc[r][j][1] = acc[r][j][2] = acc[r][j][3] = 0.f;
+  }
+  const int ntiles = (p.Lk + RB_KEYS - 1) / RB_KEYS;
+  for (int jt = 0; jt < ntiles; ++jt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile jt is in; every warp is done with the other buffers
+    if (jt + 1 < ntiles) {  // the next tile, under this one's FMAs
+      const int nb = (jt + 1) & 1, kv1 = (jt + 1) * RB_KEYS;
+      rb_load<RB_ROWS, RB_KEYS, RB_WG>(ds_s + nb * RB_KEYS * DLD, DLD, dg, p.Lq_pad, kv1, p.Lk,
+                                       true, t);
+      rb_load<D, RB_KEYS, RB_WG>(k_s + nb * RB_KEYS * LD, LD, kg, p.k_sl, kv1, p.Lk, vec != 0,
+                                 t);
+      cp_async_commit();
+    }
+    const float* dcur = ds_s + (jt & 1) * RB_KEYS * DLD + 8 * og;
+    const float* kcur = k_s + (jt & 1) * RB_KEYS * LD + 4 * px;
+#pragma unroll 8
+    for (int key = 0; key < RB_KEYS; ++key) {  // keys past Lk: dS^T and K zero-filled
+      const float4 d0 = *reinterpret_cast<const float4*>(dcur + key * DLD);
+      const float4 d1 = *reinterpret_cast<const float4*>(dcur + key * DLD + 4);
+      const float w[RB_OWN] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+      float4 kv[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) kv[j] = *reinterpret_cast<const float4*>(kcur + key * LD + 64 * j);
+#pragma unroll
+      for (int r = 0; r < RB_OWN; ++r) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          acc[r][j][0] = fmaf(w[r], kv[j].x, acc[r][j][0]);
+          acc[r][j][1] = fmaf(w[r], kv[j].y, acc[r][j][1]);
+          acc[r][j][2] = fmaf(w[r], kv[j].z, acc[r][j][2]);
+          acc[r][j][3] = fmaf(w[r], kv[j].w, acc[r][j][3]);
+        }
+      }
+    }
+  }
+  rb_store<D>(acc, p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_sl, q0 + 8 * og, 1, p.Lq, p.sin, p.cos,
+              px, o_vec != 0);
+}
+
+template <int D>
+cudaError_t launch_regtile(BwdParamsSimt<float> p, int B, const float* o, long long o_sb,
+                           long long o_sh, long long o_sl, const float* stats, float* rows,
+                           float* q_rot, float* k_rot, cudaStream_t stream) {
+  if (p.dst == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = simt_prepass<float, D>(p, B, o, o_sb, o_sh, o_sl, stats, rows, q_rot,
+                                           k_rot, stream);
+  if (err != cudaSuccess) return err;
+  int vec = aligned16(p.q, p.q_sb, p.q_sh, p.q_sl) && aligned16(p.k, p.k_sb, p.k_sh, p.k_sl) &&
+            aligned16(p.v, p.v_sb, p.v_sh, p.v_sl) &&
+            aligned16(p.dout, p.do_sb, p.do_sh, p.do_sl);
+  int kv_vec = aligned16(p.dk, p.dk_sb, p.dk_sh, p.dk_sl) &&
+               aligned16(p.dv, p.dv_sb, p.dv_sh, p.dv_sl);
+  int q_vec = aligned16(p.dq, p.dq_sb, p.dq_sh, p.dq_sl);
+  const void* kdkv = reinterpret_cast<const void*>(&flash_bwd_dkv_f32_regtile_kernel<D>);
+  const void* kdq = reinterpret_cast<const void*>(&flash_bwd_dq_f32_regtile_kernel<D>);
+  static bool ready_kv[MAX_DEVICES] = {}, ready_q[MAX_DEVICES] = {};  // one per instance
+  err = allow_smem_once(kdkv, RbDkvTiles<D>::BYTES, ready_kv);
+  if (err == cudaSuccess) err = allow_smem_once(kdq, RbDqTiles<D>::BYTES, ready_q);
+  if (err != cudaSuccess) return err;
+  void* args_kv[] = {&p, &vec, &kv_vec};
+  err = cudaLaunchKernel(kdkv, dim3((p.Lk + RB_KEYS - 1) / RB_KEYS, B * p.H), dim3(RB_THREADS),
+                         args_kv, RbDkvTiles<D>::BYTES, stream);
+  if (err != cudaSuccess) return err;
+  void* args_q[] = {&p, &vec, &q_vec};
+  err = cudaLaunchKernel(kdq, dim3(p.Lq_pad / RB_ROWS, B * p.H), dim3(RB_WG), args_q,
+                         RbDqTiles<D>::BYTES, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 // The arguments of the C entries below, and their names.
 #define BWD_ARGS                                                                      \
   const void *q, const void *k, const void *v, const void *o, const void *dout,       \
       const void *stats, const void *sin, const void *cos, const void *mask, void *dq, \
-      void *dk, void *dv, void *rows, void *q_rot, void *k_rot, int B, int H, int Lq,  \
-      int Lk, int Dh, long long q_sb, long long q_sh, long long q_sl, long long k_sb,  \
+      void *dk, void *dv, void *rows, void *q_rot, void *k_rot, void *ds, int B, int H, \
+      int Lq, int Lk, int Dh, long long q_sb, long long q_sh, long long q_sl,         \
+      long long k_sb,                                                                  \
       long long k_sh, long long k_sl, long long v_sb, long long v_sh, long long v_sl,  \
       long long o_sb, long long o_sh, long long o_sl, long long do_sb, long long do_sh, \
       long long do_sl, long long dq_sb, long long dq_sh, long long dq_sl,              \
       long long dk_sb, long long dk_sh, long long dk_sl, long long dv_sb,              \
       long long dv_sh, long long dv_sl, float scale, int causal, void *stream
 #define BWD_NAMES                                                                      \
-  q, k, v, o, dout, stats, sin, cos, mask, dq, dk, dv, rows, q_rot, k_rot, B, H, Lq, Lk, \
+  q, k, v, o, dout, stats, sin, cos, mask, dq, dk, dv, rows, q_rot, k_rot, ds, B, H, Lq, Lk, \
       Dh, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl, o_sb, o_sh, o_sl, do_sb, \
       do_sh, do_sl, dq_sb, dq_sh, dq_sl, dk_sb, dk_sh, dk_sl, dv_sb, dv_sh, dv_sl, scale, \
       causal, stream
@@ -1291,10 +1539,12 @@ int bwd_bf16(bool long_entry, BWD_ARGS) {
   }
 }
 
-// The SIMT entries: fp32 at Dh 64 to 512, bf16 at Dh 256 to 512.
+// The CUDA-core entries: fp32 at Dh 64 to 512 (register-tiled at 64 and
+// 128), bf16 at Dh 256 to 512.
 template <typename T>
 int bwd_simt(BWD_ARGS) {
   BwdParamsSimt<T> p;
+  p.dst = static_cast<float*>(ds);
   p.q = static_cast<const T*>(q);
   p.k = static_cast<const T*>(k);
   p.v = static_cast<const T*>(v);
@@ -1330,16 +1580,16 @@ int bwd_simt(BWD_ARGS) {
   cudaStream_t sm = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (Dh) {
-    case 64:  // fp32 only: bf16 runs the Hopper kernels there
+    case 64:  // fp32 only, register-tiled: bf16 runs the Hopper kernels there
       if constexpr (sizeof(T) == 4) {
-        err = launch_simt<T, 64>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
+        err = launch_regtile<64>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
         break;
       } else {
         return static_cast<int>(cudaErrorInvalidValue);
       }
-    case 128:  // fp32 only: bf16 runs the Hopper kernels there
+    case 128:  // fp32 only, register-tiled: bf16 runs the Hopper kernels there
       if constexpr (sizeof(T) == 4) {
-        err = launch_simt<T, 128>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
+        err = launch_regtile<128>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
         break;
       } else {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -1365,7 +1615,9 @@ extern "C" {
 // of every operand is contiguous. `stats` is the [2, B, H, Lq] fp32 buffer
 // the forward filled. Scratch, allocated by the caller: `rows`
 // [3, B, H, Lq_pad] fp32 with Lq_pad = Lq rounded up to 64; with sin/cos,
-// `q_rot` [B, H, Lq, Dh] and `k_rot` [B, H, Lk, Dh] of the operands' type.
+// `q_rot` [B, H, Lq, Dh] and `k_rot` [B, H, Lk, Dh] of the operands' type;
+// for fp32 at Dh 64 and 128 `ds` [B, H, Lk, Lq_pad] fp32 (dS^T, from the
+// dK/dV kernel to the dQ kernel), else unread (may be null).
 
 // K2: the packed and fused layouts, bf16, Dh 128 only, on
 // flash_bwd_dkv_sm90_kernel and flash_bwd_dq_sm90_kernel.
@@ -1405,9 +1657,33 @@ int deepcoro_flash_bwd_sm90_attrs(int which, int Dh, int* regs, int* smem) {
   return 0;
 }
 
-// fp32 operands of every layout, Dh 64, 128, 256, 384 or 512, and bf16 at
-// Dh 256, 384 or 512, on the SIMT kernels above.
+// fp32 operands of every layout, Dh 64, 128, 256, 384 or 512: on
+// flash_bwd_dkv_f32_regtile_kernel<Dh> and flash_bwd_dq_f32_regtile_kernel<Dh>
+// at 64 and 128, on the SIMT kernels above; and bf16 at Dh 256, 384 or 512
+// on the SIMT kernels.
 int deepcoro_flash_bwd_f32(BWD_ARGS) { return bwd_simt<float>(BWD_NAMES); }
+
+// Registers per thread and dynamic shared memory per block of
+// flash_bwd_dkv_f32_regtile_kernel<Dh> (`which` 0) or
+// flash_bwd_dq_f32_regtile_kernel<Dh> (`which` 1), Dh 64 or 128.
+int deepcoro_flash_bwd_f32_regtile_attrs(int which, int Dh, int* regs, int* smem) {
+  if (Dh != 64 && Dh != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn;
+  if (which == 0) {
+    fn = Dh == 64 ? reinterpret_cast<const void*>(&flash_bwd_dkv_f32_regtile_kernel<64>)
+                  : reinterpret_cast<const void*>(&flash_bwd_dkv_f32_regtile_kernel<128>);
+    *smem = Dh == 64 ? RbDkvTiles<64>::BYTES : RbDkvTiles<128>::BYTES;
+  } else {
+    fn = Dh == 64 ? reinterpret_cast<const void*>(&flash_bwd_dq_f32_regtile_kernel<64>)
+                  : reinterpret_cast<const void*>(&flash_bwd_dq_f32_regtile_kernel<128>);
+    *smem = Dh == 64 ? RbDqTiles<64>::BYTES : RbDqTiles<128>::BYTES;
+  }
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  return 0;
+}
 
 int deepcoro_flash_wide_bwd_bf16(BWD_ARGS) { return bwd_simt<__nv_bfloat16>(BWD_NAMES); }
 

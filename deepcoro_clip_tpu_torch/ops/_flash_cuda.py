@@ -18,12 +18,13 @@ wanted): the one-kernel forward and backward of ``csrc/flash_short.cu``
 through a lean host path (one packed argument block, no row statistics, no
 scratch, the caller's bool or uint8 key mask as it is). Every other call
 runs the CUDA-core kernels of the same files: fp32 operands of every layout
-at every head dim (``*_f32``: the forward at Dh 64 and 128, and K5 at 128,
-on the register-tiled kernels of ``csrc/fwd_f32_regtile.cuh``, the rest on
+at every head dim (``*_f32``: the forward and the backward at Dh 64 and
+128, and K5 at 128, on the register-tiled kernels of
+``csrc/fwd_f32_regtile.cuh`` and ``csrc/bwd_f32_regtile.cuh``, the rest on
 the SIMT ones), and bf16 at Dh 256 to 512 (``*_wide_bf16``).
 ``fwd_symbol``, ``bwd_symbol`` and ``proj_symbol`` name the C entry a call
-runs, ``fwd_kernel_name`` and ``proj_kernel_name`` the kernel that entry
-launches; a call no kernel takes raises there. ``flash_fwd_proj``
+runs, ``fwd_kernel_name``, ``bwd_kernel_names`` and ``proj_kernel_name``
+the kernels that entry launches; a call no kernel takes raises there. ``flash_fwd_proj``
 (``csrc/flash_fwd_proj.cu``) is the packed forward with the output
 projection fused in: the Hopper kernel in bf16 at Dh 128, the SIMT kernel
 for fp32 and for bf16 at Dh 256 to 512. The launchers check what the
@@ -76,6 +77,10 @@ DQ_TILES = (128, 64)
 REGTILE_DIMS = (64, 128)
 REGTILE_PROJ_DIM = 128
 REGTILE_ROWS, REGTILE_KEYS, REGTILE_PROJ_KEYS, REGTILE_PAD = 64, 64, 32, 4
+# the fp32 backward's register-tiled kernels (csrc/bwd_f32_regtile.cuh), at
+# REGTILE_DIMS: keys a dK/dV block (and a streamed dQ tile), q rows a
+# streamed dK/dV tile (and a dQ block), row padding in floats
+REGTILE_BWD_KEYS, REGTILE_BWD_ROWS, REGTILE_BWD_PAD = 64, 64, 4
 SMEM_MAX = 232_448  # dynamic shared memory a block may take on an H100
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -203,7 +208,9 @@ def bwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> s
     Dh]``, Lq, Lk <= ``SHORT_MAX``, Dh <= 128), else the kernels of
     ``csrc/flash_bwd.cu``: K2's Hopper kernels (packed, bf16, Dh 128), K4's
     (``[B, H, L, Dh]``, bf16, Dh 64 and 128), the wide SIMT kernels (bf16,
-    Dh 256 to 512) or the fp32 SIMT kernels."""
+    Dh 256 to 512) or the fp32 entry for every layout and head dim
+    (``bwd_kernel_names``: the register-tiled kernels at Dh 64 and 128, the
+    SIMT ones above)."""
     _check_choice(dtype, packed, Dh)
     if is_short(packed, Lq, Lk, Dh):
         return f"deepcoro_flash_short_bwd_{_SUFFIX[dtype]}"
@@ -279,6 +286,40 @@ def proj_kernel_name(dtype: torch.dtype, Dh: int, H: int, Dout: int) -> str:
     return f"flash_fwd_proj_kernel<{2 if H * Dh <= 512 else 1}>"
 
 
+def bwd_kernel_names(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> tuple:
+    """The dK/dV and dQ kernels that ``bwd_symbol``'s entry launches for a
+    call (after its row pre-pass), as a profiler names them: in fp32
+    ``flash_bwd_dkv_f32_regtile_kernel<Dh>`` and
+    ``flash_bwd_dq_f32_regtile_kernel<Dh>`` at Dh 64 and 128 (K2, K4) and
+    the SIMT ``flash_bwd_{dkv,dq}_f32_kernel<Dh>`` above; in bf16 the
+    Hopper, long or wide kernels. A short call's one kernel alone."""
+    symbol = bwd_symbol(dtype, packed, Lq, Lk, Dh)
+    if symbol.startswith("deepcoro_flash_short"):
+        return (f"flash_short_bwd_{_SUFFIX[dtype]}_kernel",)
+    if dtype == torch.float32:
+        kind = "f32_regtile" if Dh in REGTILE_DIMS else "f32"
+        return (f"flash_bwd_dkv_{kind}_kernel<{Dh}>", f"flash_bwd_dq_{kind}_kernel<{Dh}>")
+    if symbol == "deepcoro_flash_wide_bwd_bf16":
+        return (f"flash_bwd_dkv_wide_bf16_kernel<{Dh}>", f"flash_bwd_dq_wide_bf16_kernel<{Dh}>")
+    if packed:
+        return ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel")
+    return (f"flash_long_bwd_dkv_kernel<{Dh}>", f"flash_long_bwd_dq_kernel<{Dh}>")
+
+
+def regtile_bwd_smem_bytes(Dh: int) -> tuple:
+    """Dynamic shared memory a block of the register-tiled fp32 backward
+    kernels takes (``RbDkvTiles`` and ``RbDqTiles`` in
+    ``csrc/bwd_f32_regtile.cuh``), as (dK/dV, dQ): the dK/dV block's K and
+    V ``[64][Dh + 4]``, Q and dO ``[2][64][Dh + 4]`` (double-buffered) and
+    its exchange tile ``[64][64]`` floats; the dQ block's dS^T ``[2][64][64
+    + 4]`` and K ``[2][64][Dh + 4]``."""
+    ld, pad = Dh + REGTILE_BWD_PAD, REGTILE_BWD_PAD
+    keys, rows = REGTILE_BWD_KEYS, REGTILE_BWD_ROWS
+    dkv = 2 * keys * ld + 4 * rows * ld + keys * rows
+    dq = 2 * keys * (rows + pad) + 2 * keys * ld
+    return 4 * dkv, 4 * dq
+
+
 def regtile_smem_bytes(Dh: int, keys: int = REGTILE_KEYS) -> int:
     """Dynamic shared memory a block of the register-tiled fp32 kernels
     takes (``RtTiles`` in ``csrc/fwd_f32_regtile.cuh``) at ``keys`` a key
@@ -296,9 +337,14 @@ def _fwd_fn(symbol: str):
                  [_P] * 9 + [_I] * 5 + [_LL] * 12 + [ctypes.c_float, _I, _P])
 
 
+# the arguments of csrc/flash_bwd.cu's C entries (its BWD_ARGS): 16 pointers
+# (operands, outputs, statistics, tables, mask, scratch), B, H, Lq, Lk, Dh,
+# 24 strides, the scale, causal, the stream
+BWD_ARGTYPES = [_P] * 16 + [_I] * 5 + [_LL] * 24 + [ctypes.c_float, _I, _P]
+
+
 def _bwd_fn(symbol: str):
-    return _c_fn("flash_bwd", symbol,
-                 [_P] * 15 + [_I] * 5 + [_LL] * 24 + [ctypes.c_float, _I, _P])
+    return _c_fn("flash_bwd", symbol, BWD_ARGTYPES)
 
 
 _short_fns: dict = {}  # symbol -> the loaded C entry of csrc/flash_short.cu
@@ -385,6 +431,25 @@ def regtile_kernel_attrs() -> dict:
         raise RuntimeError("cudaFuncGetAttributes failed on the fp32 K5")
     out["K5 fp32 Dh 128"] = {"kernel": "flash_fwd_proj_f32_regtile_kernel",
                              "registers": regs.value, "smem_bytes": smem.value}
+    return out
+
+
+def regtile_bwd_kernel_attrs() -> dict:
+    """Registers per thread and dynamic shared memory per block of the
+    register-tiled fp32 backward kernels (dK/dV and dQ at Dh 64 and 128),
+    from the built library: what ``chip_smoke.py`` reports beside ptxas and
+    holds against ``regtile_bwd_smem_bytes``."""
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    ip = ctypes.POINTER(ctypes.c_int)
+    fn = _c_fn("flash_bwd", "deepcoro_flash_bwd_f32_regtile_attrs", [_I, _I, ip, ip])
+    out = {}
+    for dh in REGTILE_DIMS:
+        for which, (label, name) in enumerate((("dK/dV", "dkv"), ("dQ", "dq"))):
+            kernel = f"flash_bwd_{name}_f32_regtile_kernel<{dh}>"
+            if fn(which, dh, ctypes.byref(regs), ctypes.byref(smem)) != 0:
+                raise RuntimeError(f"cudaFuncGetAttributes failed on {kernel}")
+            out[f"K2/K4 {label} fp32 Dh {dh}"] = {"kernel": kernel, "registers": regs.value,
+                                                  "smem_bytes": smem.value}
     return out
 
 
@@ -535,7 +600,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are heads of packed ``[B, L, H*Dh]`` operands (K2); otherwise (K4, any
     lengths). The kernels are ``_tile_symbol``'s, as for ``flash_fwd``:
     the Hopper ones in bf16 at Dh 128 (packed) or 64 / 128, the wide SIMT
-    ones in bf16 at Dh 256 to 512, the fp32 SIMT ones for fp32."""
+    ones in bf16 at Dh 256 to 512, for fp32 the register-tiled ones at Dh
+    64 / 128 and the fp32 SIMT ones above (``bwd_kernel_names``)."""
     _check_problem(q, k, v, sin, cos, kv_mask)
     mask = mask_arg(kv_mask, strided=False)
     device = q.device
@@ -555,14 +621,16 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"tensor on {device}")
     lq_pad = -(-Lq // TILE) * TILE
     rows = torch.empty((3, B, H, lq_pad), dtype=torch.float32, device=device)
-    q_rot = k_rot = None
+    q_rot = k_rot = ds_t = None
     if sin is not None:  # q and k are rotated once, by a pre-pass, into these
         q_rot = torch.empty((B, H, Lq, Dh), dtype=q.dtype, device=device)
         k_rot = torch.empty((B, H, Lk, Dh), dtype=q.dtype, device=device)
+    if q.dtype == torch.float32 and Dh in REGTILE_DIMS:  # dS^T, dK/dV kernel -> dQ kernel
+        ds_t = torch.empty((B, H, Lk, lq_pad), dtype=torch.float32, device=device)
     err = _bwd_fn(_tile_symbol("bwd", q.dtype, packed, Dh))(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(do), _ptr(stats), _ptr(sin),
         _ptr(cos), _ptr(mask), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(rows),
-        _ptr(q_rot), _ptr(k_rot),
+        _ptr(q_rot), _ptr(k_rot), _ptr(ds_t),
         B, H, Lq, Lk, Dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],

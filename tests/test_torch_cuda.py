@@ -649,7 +649,8 @@ def test_short_routing_boundary(cuda, L, short, dtype):
             assert _ran(bwd, "flash_long_bwd_dkv") and _ran(bwd, "flash_long_bwd_dq")
         else:  # the fp32 forward at Dh 64 on the register-tiled kernel
             assert _ran(fwd, "flash_fwd_f32_regtile_kernel<64>")
-            assert _ran(bwd, "flash_bwd_dkv_f32") and _ran(bwd, "flash_bwd_dq_f32")
+            assert _ran(bwd, "flash_bwd_dkv_f32_regtile_kernel<64>")
+            assert _ran(bwd, "flash_bwd_dq_f32_regtile_kernel<64>")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1575,3 +1576,217 @@ def test_regtile_takes_unaligned_operands(cuda):
         heads = [t.unflatten(2, (4, 128)).transpose(1, 2) for t in (x, x, x)]
         ref = project_plain(multi_head_attention(*heads).transpose(1, 2).flatten(2), wo)
         torch.testing.assert_close(y, ref, **F32_TOL)
+
+
+# --------------------------------------------------------------------------- #
+# the register-tiled fp32 backward (csrc/bwd_f32_regtile.cuh): K2 and K4 at
+# Dh 64 / 128 on flash_bwd_dkv_f32_regtile_kernel<Dh> and
+# flash_bwd_dq_f32_regtile_kernel<Dh>. The gradients against
+# flash_bwd_plain (from the plain output) by REGTILE_GRAD_REL of max|plain|,
+# as the forward's tests hold them: nothing rounded below fp32, sums in
+# another order.
+
+
+def _packed_leaves(qkv, D, layout):
+    """fused: one [B, L, 3D] leaf; packed: three contiguous [B, L, D];
+    split: three strided views of one [B, L, 3D] (rows 3D apart)."""
+    if layout == "fused":
+        return [qkv.clone().requires_grad_()]
+    if layout == "packed":
+        return [t.contiguous().requires_grad_() for t in qkv.split(D, -1)]
+    base = qkv.clone().requires_grad_()
+    return [base]
+
+
+def _packed_call(leaves, D, layout, **kw):
+    if layout == "fused":
+        return flash_attention_packed(qkv=leaves[0], **kw)
+    if layout == "packed":
+        return flash_attention_packed(*leaves, **kw)
+    return flash_attention_packed(*leaves[0].split(D, -1), **kw)
+
+
+@pytest.mark.parametrize("layout", ["fused", "packed", "split"])
+@pytest.mark.parametrize("L,mode", [(1569, "rope"), (393, "rope"), (393, "mask"),
+                                    (393, "causal"), (130, "rope")])
+def test_regtile_bwd_packed_layouts(cuda, L, mode, layout):
+    """fp32 K2 at Dh 128 on the register-tiled dK/dV and dQ kernels, every
+    packed layout (fused qkv, three contiguous tensors, three strided views
+    of one), at the video tower's lengths (1569 = 24 * 64 + 33, 393 = 6 *
+    64 + 9: the tails of the 64-key and 64- / 128-row tiles), with RoPE, a
+    key mask whose batch row 1 has no real key, or causal: one backward
+    launch a call, dq, dk, dv against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(L + 3 * len(mode) + len(layout))
+    B, H, dh = 2, 4, 128
+    D = H * dh
+    kw = _regtile_kw(mode, L, L, dh, B, g, cuda)
+    qkv = torch.randn(B, L, 3 * D, generator=g, device=cuda) * 0.5
+    do = torch.randn(B, L, D, generator=g, device=cuda) * 0.5
+    leaves = _packed_leaves(qkv, D, layout)
+    out = _packed_call(leaves, D, layout, num_heads=H, **kw)
+    n = flash_attention_packed.bwd_launches
+    grads = torch.autograd.grad(out, leaves, do)
+    assert flash_attention_packed.bwd_launches == n + 1
+    grads = grads[0].split(D, -1) if layout != "packed" else grads
+    heads = [t.unflatten(2, (H, dh)).transpose(1, 2) for t in qkv.split(D, -1)]
+    ref = multi_head_attention(*heads, **kw)
+    want = flash_bwd_plain(*heads, do.unflatten(2, (H, dh)).transpose(1, 2), ref, **kw)
+    for name, a, w in zip("qkv", grads, want):
+        _grad_close(f"d{name}", a, w.transpose(1, 2).flatten(2))
+    if mode == "mask":  # batch row 1 has no real key: no gradient through its scores
+        assert float(grads[0][1].abs().max()) == 0.0 and float(grads[1][1].abs().max()) == 0.0
+
+
+REGTILE_BWD_HEADS_CASES = [(128, 128, "mask"), (393, 393, "causal"), (200, 200, "rope"),
+                           (128, 1572, "mask"), (1572, 128, "mask"), (65, 65, "mask"),
+                           (393, 393, "mask")]
+
+
+@pytest.mark.parametrize("Lq,Lk,mode", REGTILE_BWD_HEADS_CASES)
+@pytest.mark.parametrize("dh", [64, 128])
+def test_regtile_bwd_heads(cuda, dh, Lq, Lk, mode):
+    """fp32 K4 (the ``[B, H, L, Dh]`` entry past the short lengths) at Dh 64
+    and 128 on the register-tiled backward: a padding mask (a real prefix
+    a row, batch row 1 with none), causal, RoPE, and Lq != Lk (the
+    decoder's cross attention 128|1572, and the other way round), with
+    strided views of packed operands."""
+    g = torch.Generator(device=cuda).manual_seed(dh + 3 * Lq + Lk)
+    B, H = 3, 512 // dh
+    if mode == "mask":  # the text tower's kind: a real prefix a row, row 1 none
+        lengths = torch.randint(1, Lk + 1, (B,), generator=g, device=cuda)
+        kw = dict(kv_mask=torch.arange(Lk, device=cuda)[None] < lengths[:, None])
+        kw["kv_mask"][1] = False
+    else:
+        kw = _regtile_kw(mode, Lq, Lk, dh, B, g, cuda)
+    q, k, v = ((torch.randn(B, n, 512, generator=g, device=cuda) * 0.5)
+               .unflatten(2, (H, dh)).transpose(1, 2) for n in (Lq, Lk, Lk))
+    do = torch.randn(B, H, Lq, dh, generator=g, device=cuda) * 0.5
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, **kw)
+    n = flash_attention.bwd_launches
+    grads = torch.autograd.grad(out, leaves, do)
+    assert flash_attention.bwd_launches == n + 1
+    ref = multi_head_attention(q, k, v, **kw)
+    want = flash_bwd_plain(q, k, v, do, ref, **kw)
+    for name, a, w in zip("qkv", grads, want):
+        _grad_close(f"d{name}", a, w)
+    if mode == "mask":
+        assert float(grads[0][1].abs().max()) == 0.0  # no real key: dq 0
+        assert bool(torch.isfinite(grads[2]).all())
+
+
+@pytest.mark.parametrize("which", ["K2", "K4 Dh 64", "K4 Dh 128"])
+def test_regtile_bwd_batch_invariant_and_reproducible(cuda, which):
+    """Every row's gradients of a B = 4 call bit-equal to the same row
+    called alone (B = 1), and two calls bit-equal: fixed tiles, fixed sums,
+    no atomics."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    sin, cos = _tables(393, 128, cuda)
+    qkv = torch.randn(4, 393, 1536, generator=g, device=cuda) * 0.5
+    do_p = torch.randn(4, 393, 512, generator=g, device=cuda) * 0.5
+    text = torch.randn(4, 3, 200, 768, generator=g, device=cuda) * 0.5
+    do_t = torch.randn(4, 200, 768, generator=g, device=cuda) * 0.5
+    mask = torch.rand(4, 200, generator=g, device=cuda) > 0.3
+
+    def grads(rows):
+        if which == "K2":
+            leaf = qkv[rows].clone().requires_grad_()
+            out = flash_attention_packed(qkv=leaf, num_heads=4, sin=sin, cos=cos)
+            return torch.autograd.grad(out, [leaf], do_p[rows])
+        dh = int(which.split()[-1])
+        leaves = [text[rows, i].unflatten(2, (768 // dh, dh)).transpose(1, 2).clone()
+                  .requires_grad_() for i in range(3)]
+        out = flash_attention(*leaves, kv_mask=mask[rows])
+        return torch.autograd.grad(out, leaves,
+                                   do_t[rows].unflatten(2, (768 // dh, dh)).transpose(1, 2))
+
+    full = grads(slice(0, 4))
+    for a, c in zip(full, grads(slice(0, 4))):
+        assert torch.equal(a, c)
+    for b in range(4):
+        for a, c in zip(full, grads(slice(b, b + 1))):
+            assert torch.equal(a[b:b + 1], c), f"row {b}"
+
+
+def test_regtile_bwd_takes_unaligned_operands(cuda):
+    """fp32 operands that allow only 4-byte copies (q, k, v and dO at a
+    4-byte offset with rows 513 floats apart) through the register-tiled
+    backward, K4 at Dh 64 and 128 and K2."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = [torch.randn(2 * 130 * 513 + 1, generator=g, device=cuda)[1:].view(2, 130, 513)[..., :512]
+         for _ in range(4)]  # q, k, v, dO
+    for H, dh, packed in ((8, 64, False), (4, 128, False), (4, 128, True)):
+        heads = [t.unflatten(2, (H, dh)).transpose(1, 2) for t in x]
+        if packed:
+            leaves = [t.detach().requires_grad_() for t in x[:3]]
+            grads = torch.autograd.grad(flash_attention_packed(*leaves, num_heads=H), leaves, x[3])
+            grads = [t.unflatten(2, (H, dh)).transpose(1, 2) for t in grads]
+        else:
+            leaves = [t.detach().requires_grad_() for t in heads[:3]]
+            grads = torch.autograd.grad(flash_attention(*leaves), leaves, heads[3])
+        want = flash_bwd_plain(*heads, multi_head_attention(*heads[:3]))
+        for name, a, w in zip("qkv", grads, want):
+            _grad_close(f"d{name} Dh {dh}{' packed' if packed else ''}", a, w)
+
+
+def test_regtile_bwd_fused_writes_only_its_columns(cuda):
+    """K2's fused layout through ``_flash_cuda.flash_bwd``: dq, dk, dv are
+    column blocks of one gradient buffer (here inside a wider one filled
+    with a sentinel); each kernel writes only its own block (bit-equal to
+    the gradients written into three separate tensors) and nothing
+    outside them."""
+    from deepcoro_clip_tpu_torch.ops._flash_cuda import flash_bwd, flash_fwd
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    B, L, H, dh = 2, 393, 4, 128
+    D = H * dh
+    sin, cos = _tables(L, dh, cuda)
+    qkv = torch.randn(B, L, 3 * D, generator=g, device=cuda) * 0.5
+    q, k, v = (t.unflatten(2, (H, dh)).transpose(1, 2) for t in qkv.split(D, -1))
+    do = ((torch.randn(B, L, D, generator=g, device=cuda) * 0.5).unflatten(2, (H, dh))
+          .transpose(1, 2))
+    out = torch.empty(B, L, D, device=cuda).unflatten(2, (H, dh)).transpose(1, 2)
+    stats = torch.empty(2, B, H, L, device=cuda)
+    kw = dict(sin=sin, cos=cos, kv_mask=None, causal=False, scale=dh ** -0.5)
+    flash_fwd(q, k, v, out, stats=stats, packed=True, **kw)
+    wide = torch.full((B, L, 3 * D + 96), 7.25, device=cuda)
+    blocks = [wide[..., 32 + i * D:32 + (i + 1) * D].unflatten(2, (H, dh)).transpose(1, 2)
+              for i in range(3)]
+    flash_bwd(q, k, v, out, do, stats, *blocks, packed=True, **kw)
+    apart = [torch.empty(B, L, D, device=cuda).unflatten(2, (H, dh)).transpose(1, 2)
+             for _ in range(3)]
+    flash_bwd(q, k, v, out, do, stats, *apart, packed=True, **kw)
+    for name, a, c in zip("qkv", blocks, apart):
+        assert torch.equal(a, c), f"d{name}"
+    assert bool((wide[..., :32] == 7.25).all()) and bool((wide[..., 32 + 3 * D:] == 7.25).all())
+
+
+def test_regtile_bwd_kernels_by_name(cuda):
+    """The profiler names the new dK/dV and dQ kernels for fp32 K2 at Dh 128
+    and K4 at Dh 64 / 128 (the old SIMT ones not), and the SIMT ones for
+    fp32 K2 at Dh 256."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    qkv = torch.randn(2, 200, 1536, generator=g, device=cuda)
+    x = torch.randn(2, 8, 200, 64, generator=g, device=cuda)
+    y = torch.randn(2, 4, 200, 128, generator=g, device=cuda)
+
+    def backward(fn, leaves):
+        out = fn(*leaves)
+        do = torch.ones_like(out)
+        return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    for fn, leaves, want, not_want in (
+            (lambda a: flash_attention_packed(qkv=a, num_heads=4), [qkv.clone().requires_grad_()],
+             ("flash_bwd_dkv_f32_regtile_kernel<128>", "flash_bwd_dq_f32_regtile_kernel<128>"),
+             ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")),
+            (flash_attention, [x.clone().requires_grad_() for _ in range(3)],
+             ("flash_bwd_dkv_f32_regtile_kernel<64>", "flash_bwd_dq_f32_regtile_kernel<64>"),
+             ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")),
+            (flash_attention, [y.clone().requires_grad_() for _ in range(3)],
+             ("flash_bwd_dkv_f32_regtile_kernel<128>", "flash_bwd_dq_f32_regtile_kernel<128>"),
+             ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")),
+            (lambda a: flash_attention_packed(qkv=a, num_heads=2), [qkv.clone().requires_grad_()],
+             ("flash_bwd_dkv_f32_kernel<256>", "flash_bwd_dq_f32_kernel<256>"), ("regtile",))):
+        names = _kernels_run(backward(fn, leaves))
+        assert all(_ran(names, w) for w in want), names
+        assert not any(_ran(names, w) for w in not_want), names
