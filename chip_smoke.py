@@ -10,6 +10,8 @@
                                         # torch.distributed.run starts it there
     python3 chip_smoke.py --drift       # phase 32's world-1 control against world N,
                                         # reversed rows and gradient accumulation 2
+    python3 chip_smoke.py --wide-rows   # the wide bf16 forward's rows and phase 42
+                                        # (copy the script into an older tree too)
 
 Phases, each printing one line (or a few) before the last:
 
@@ -361,12 +363,17 @@ Phases, each printing one line (or a few) before the last:
    tiled flash_bwd_dkv_f32_regtile_kernel<128> and
    flash_bwd_dq_f32_regtile_kernel<128>)
    at [16,1569,1536] H 4 (fused and split) and [16,393,1536], in bf16 and
-   fp32 at Dh 256 (H 2) and 512 (H 1); K3/K4 at phase 40's fp32 calls (the
+   fp32 at Dh 256 (H 2) and 512 (H 1), and K1 alone in bf16 at
+   [16,1569,1536] Dh 256 and 512 (bf16 K1, K3 and K5 at Dh 256 to 512 on
+   the wide Hopper kernels flash_fwd_wide_sm90_kernel<Dh> and
+   flash_fwd_proj_wide_sm90_kernel<Dh>); K3/K4 at phase 40's fp32 calls (the
    text tower's [16,12,128,64] with a real-prefix key mask, the
    aggregator's [16,8,1,64]) and at head dims padded as the JAX wrapper
    pads (Dh 32 with RoPE, 96, 192 in bf16; 192 in fp32); K5 in fp32 at
-   phase 41's [80,1569,1536] and [80,393,1536] with wo [512,512] and in
-   bf16 at Dh 256; K6 in fp32 at [2,4,15680,128] over 4 shards (phase 34
+   phase 41's [80,1569,1536] and [80,393,1536] with wo [512,512] and at Dh
+   256 (H 2, 393 tokens), and in bf16 at Dh 256 at both lengths; K6 in fp32
+   at [2,4,15680,128] and in bf16 at [2,4,15680,64] (the mma.sync step) and
+   [2,2,15680,256] (the wide SIMT step) over 4 shards (phase 34
    also runs it across its 4 ranks through ring_fwd_rank, bit-equal to the
    one-process pass): each against its plain version (fp32: F32_ATOL /
    F32_BWD_REL bars, a short call's gradients by F32_ATOL; bf16: phases 3's
@@ -374,7 +381,15 @@ Phases, each printing one line (or a few) before the last:
    library call's; fp32 K1 to K4 at Dh 64 / 128 and K5 at 128 traced by
    name on the register-tiled kernels, whose registers and shared memory
    (against the Python mirrors, _flash_cuda.regtile_smem_bytes and
-   regtile_bwd_smem_bytes) it prints;
+   regtile_bwd_smem_bytes) it prints; the bf16 K1 at Dh 256 and 512, K3
+   padded to 256 and K5 at Dh 256 and 512 traced by name on the wide Hopper
+   kernels (one launch each, counted; the SIMT kernels they replaced not
+   run), their registers and local (spilled) bytes as the runtime reads
+   them; the wide rows' q and k drawn WIDE_QK_SCALE times wider (a peaked
+   softmax), held by a relative l2 (WIDE_L2_REL) too, and the plain
+   version under a mis-paired RoPE shown to fail the bars; the K3 row's
+   time split into the host's issue time, pad_head_dim's and the card's
+   busy time by kernel;
 40. (inside the corpus, after phase 38) config/quality/flagship_quality_train.yaml
    through main at precision fp32, one epoch of 3 steps and its validation,
    against the same run with the plain attention from the same seed, both
@@ -387,6 +402,14 @@ Phases, each printing one line (or a few) before the last:
    12 fp32 K5 launches a step, the heads against the plain attention's
    (FP32_HEAD_ATOL + FP32_HEAD_RTOL|plain|), step time, a traced step (busy
    time, K5 by name and its share), peak memory;
+42. the wide-head forward path: phase 12's probing step (probe_config(), 80
+   clips, bf16) at vit_heads 2 (Dh 256) and 1 (Dh 512), each with the
+   projection fused (12 wide K5 launches a step) and without (12 wide K1,
+   then F.linear), counted from 0 against the prediction; the heads against
+   the same bundle with the plain attention (HEAD_ATOL + HEAD_RTOL|plain|),
+   step time (synchronised), a traced step's busy time and the wide
+   kernel's share of it by name (the SIMT kernels it replaced not run),
+   peak memory;
 then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6, and
 the long K3 and K4 kernels an entry each; K3 and K4 list their short and
 long kernels and carry phase 21's rows; every kernel carries the launches
@@ -398,7 +421,8 @@ long entries their launches over phases 22 to 25's, 30's and 31's runs and
 the bank's, their row at the SigLIP bank's mask and every long row of
 phases 22 to 26 and 31; then an entry each for the SIMT routes of K1 to K6
 with phase 39's rows, their launches on phase 40's fp32 run (K1 to K4),
-phase 41's step (K5) and phase 39's pass (K6)).
+phase 41's step (K5) and phase 39's pass (K6), K1 and K5 with phase 42's,
+K1, K3 and K5 with the wide kernels phase 39 traced; phase 42's steps).
 
 --compare runs the build, checksums of the outputs of the kernels meant to
 stay bit-equal (K1, K2, K5, K6, the short K3/K4), K1's and K2's times at
@@ -411,6 +435,12 @@ text tower's shape (with K4) and K5, phase 41's step and phase 40's traced
 step (on a rendered corpus), against the package of the tree it lies in:
 the fp32 forward's and backward's A B B A call (an older tree's SIMT kernels
 by name).
+
+--wide-rows runs the build, phase 39's bf16 rows of K1 at Dh 256 and 512
+([16,393|1569,1536], the forward alone), K3 at [8,2,512,192] padded to 256
+(with K4) and K5 at [80,393|1569,1536] Dh 256, and phase 42's four steps,
+against the package of the tree it lies in: the wide bf16 forward's A B B A
+call (an older tree's SIMT kernels by name).
 
 --drift renders phase 22's corpus and runs phase 32's config at dropout 0
 through main four times: world 1 (the control), world N (ddp_topology),
@@ -453,6 +483,16 @@ PEAK_BYTES = 3.35e12
 # another order. |kernel - plain| <= ATOL + RTOL * |plain| elementwise.
 KERNEL_ATOL = 1e-2
 KERNEL_RTOL = 1e-2
+# the bf16 forwards at Dh 256 to 512 (phase 39's wide rows): q and k drawn
+# WIDE_QK_SCALE times wider than the other inputs (std 1.5: q k^T / sqrt(Dh)
+# has a std of 2.25, the softmax over 393 or 1569 keys is peaked and the
+# output is O(0.1), not the near-uniform mean of v that 0.5-scaled q and k
+# give, which the elementwise bar above is as large as); the output also by
+# a relative l2 of WIDE_L2_REL, and the plain version under a mis-paired
+# RoPE (each column's rotate-half partner one 64-column box off) must fail
+# the two bars together
+WIDE_QK_SCALE = 3.0
+WIDE_L2_REL = 1e-2
 # end to end, bf16 tower through the kernels vs through the plain attention
 E2E_MIN_COSINE = 0.999
 # timed launches per kernel (the plain version: a fifth of them)
@@ -555,6 +595,38 @@ def cuda_ms(torch, fn, reps: int) -> float:
 # shows fewer events than launched may take (device_events)
 TRACE_TRIES = 20
 SHORT_TRIES = 5
+# readings for which the profiler traced no device event in any window (its
+# tracing dead for a stretch of a run: a run of this script once traced none
+# in 20 windows of a busy time): each is "not traced", and its caller goes on
+# with what the wrappers' counters and CUDA events show. Until a window traces
+# again, a reading takes DEAD_TRIES windows at most.
+UNTRACED: list = []
+DEAD_TRIES = 2
+_PROFILER_DEAD = [False]
+
+
+def _windows() -> int:
+    return DEAD_TRIES if _PROFILER_DEAD[0] else TRACE_TRIES
+
+
+def _traced(ok: bool, fn, windows: int) -> bool:
+    """Note whether the profiler traced a device event for ``fn``."""
+    _PROFILER_DEAD[0] = not ok
+    if not ok:
+        what = getattr(fn, "__qualname__", repr(fn))
+        UNTRACED.append(what)
+        print(f"trace: {what}: the profiler traced no device event in {windows} windows; "
+              f"not traced", flush=True)
+    return ok
+
+
+def share(part: float, whole: float):
+    """``part / whole``, or None where the trace held no device event."""
+    return part / whole if whole else None
+
+
+def fmt(x, spec: str) -> str:
+    return "not traced" if x is None else format(x, spec)
 
 
 def device_events(torch, fn, expect=None):
@@ -566,13 +638,15 @@ def device_events(torch, fn, expect=None):
     than they launched, up to SHORT_TRIES times (it also drops events: late
     in whole runs of this script, phase 40's fp32 forward traced 2.2 to 2.4
     ms a step in every window where a fresh process traced 10.5). A trace
-    still short is returned, and said so."""
+    still short is returned, and said so; one with no event at all is
+    returned empty, as "not traced" (``_traced``)."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
 
     tries = 0  # windows with events
-    for _ in range(TRACE_TRIES):
+    windows = _windows()
+    for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
@@ -588,6 +662,8 @@ def device_events(torch, fn, expect=None):
         tries += bool(per_name)
         if per_name and (not short or tries == SHORT_TRIES):
             break
+    if not _traced(bool(per_name), fn, windows):
+        return per_name, wall_ms
     if short:
         print(f"trace: {short} traced fewer events than launched in {tries} windows with events "
               f"({TRACE_TRIES} at most); the times read from it undercount", flush=True)
@@ -609,8 +685,10 @@ def device_ms(torch, fn, reps: int, kernels=()) -> float:
     twice the calls, up to 16 times ``reps``: runs of this script traced ten
     empty windows in a row, of a 10 us call and of a 0.3 ms one), when one of ``kernels`` is missing, or when a
     kernel's events are not a whole number a call. The check fails when
-    the last trace is empty, misses one of ``kernels``, or holds a port
-    kernel that none of them names."""
+    the last trace misses one of ``kernels`` or holds a port kernel that
+    none of them names. When no window traced a device event at all, the
+    time is read between CUDA events instead (``cuda_ms``: it includes the
+    gaps) and said so."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -618,7 +696,8 @@ def device_ms(torch, fn, reps: int, kernels=()) -> float:
     fn()
     torch.cuda.synchronize()
     calls = reps
-    for _ in range(TRACE_TRIES):
+    windows = _windows()
+    for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -633,8 +712,12 @@ def device_ms(torch, fn, reps: int, kernels=()) -> float:
         if not times:  # an empty window: the next one longer, up to 16 times,
             calls = min(2 * calls, 16 * reps)  # after a pause for the tracer
             time.sleep(0.2)
-    check(bool(times), f"busy time: no device event traced in {TRACE_TRIES} windows")
-    check(not missing, f"busy time: no event of {missing} in {TRACE_TRIES} traces: "
+    if not _traced(bool(times), fn, windows):
+        ms = cuda_ms(torch, fn, reps)
+        print(f"busy time: not traced; {ms:.4f} ms a call between CUDA events instead",
+              flush=True)
+        return ms
+    check(not missing, f"busy time: no event of {missing} in {windows} traces: "
                        f"{sorted(map(_short_name, times))}")
     stray = sorted({_short_name(n) for n in times if _short_name(n).startswith(PORT_KERNELS)
                     and not any(k in n for k in kernels)})
@@ -684,6 +767,10 @@ def check_route(torch, label: str, fn, want, not_want, untraced_ok: bool = False
     caller counted the launch) one that still misses it is said so, not
     failed: the profiler drops events late in a whole run."""
     names = kernels_run(torch, fn, expect={w: 1 for w in want})
+    if not names:
+        print(f"{label}: not traced (the profiler traced no device event); the wrappers' "
+              f"counters hold the launches", flush=True)
+        return []
     attrs = {a["kernel"]: a for a in hopper_attrs().values()}
     for w in want:
         if untraced_ok and not any(w in n for n in names):
@@ -818,6 +905,41 @@ def check_forward(torch, label: str, name: str, out, ref) -> float:
           f"(tol {KERNEL_ATOL}+{KERNEL_RTOL}|plain|) {'ok' if ok else 'FAIL'}",
           flush=True)
     check(ok, f"kernel {name} disagrees with its plain version")
+    return err
+
+
+def misrotated(x, sin, cos):
+    """``x`` ([..., L, Dh]) under RoPE with each column's rotate-half
+    partner one 64-column box off: what a wide kernel that paired the
+    wrong boxes would compute (the sensitivity check of ``check_wide``)."""
+    import torch
+
+    h = x.shape[-1] // 2
+    r = torch.cat([-x[..., h:].roll(64, -1), x[..., :h].roll(-64, -1)], dim=-1)
+    return x * cos.to(x.dtype) + r * sin.to(x.dtype)
+
+
+def check_wide(torch, label: str, name: str, out, ref, wrong=None) -> float:
+    """A wide bf16 forward against its plain version: ``check_forward``'s
+    elementwise bar and a relative l2 of WIDE_L2_REL; ``wrong``, the plain
+    version under a mis-paired RoPE (``misrotated``), must fail them
+    together. Returns max|kernel - plain|."""
+    err = check_forward(torch, label, name, out, ref)
+    l2 = _rel_l2(out, ref)
+    check(l2 <= WIDE_L2_REL and math.isfinite(l2),
+          f"kernel {name}: rel l2 {l2:.3e} against its plain version, bar {WIDE_L2_REL}")
+    seen = ""
+    if wrong is not None:
+        d = (wrong.float() - ref.float()).abs()
+        w_elem = bool((d <= KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()).all())
+        w_l2 = _rel_l2(wrong, ref)
+        check(not (w_elem and w_l2 <= WIDE_L2_REL),
+              f"{name}: the plain version under a mis-paired RoPE passes the bars")
+        seen = (f"; a mis-paired RoPE: max|d| {float(d.max()):.3e} "
+                f"({'passes' if w_elem else 'fails'} the elementwise bar), rel l2 {w_l2:.3e} "
+                f"({'passes' if w_l2 <= WIDE_L2_REL else 'fails'})")
+    print(f"{label} {name}: rel l2 {l2:.3e} (bar {WIDE_L2_REL}; q, k at {WIDE_QK_SCALE}x)"
+          f"{seen} ok", flush=True)
     return err
 
 
@@ -2788,6 +2910,10 @@ def short_routes(torch) -> dict:
         label = f"[{B},8,{L},64] {str(dtype)[6:]} + mask"
         fwd = _launches(torch, lambda: flash_attention(q, k, v, kv_mask=m))
         bwd = _launches(torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+        if fwd is None or bwd is None:
+            print(f"short routes {label}: not traced (the profiler traced no device event)",
+                  flush=True)
+            continue
         if sfx:
             want_f, want_b = f"flash_short_fwd_{sfx}_kernel", f"flash_short_bwd_{sfx}_kernel"
             check(len(fwd) == 1 and want_f in fwd[0],
@@ -2807,7 +2933,11 @@ def short_routes(torch) -> dict:
 
 def check_main_path_kernels(label: str, per_name, want, not_want) -> None:
     """The kernels of a profiled main-path pass: each of ``want`` ran, none
-    of ``not_want``."""
+    of ``not_want``; a trace with no device event is "not traced"."""
+    if not per_name:
+        print(f"{label}: not traced (the profiler traced no device event); the wrappers' "
+              f"counters hold the launches", flush=True)
+        return
     names = list(per_name)
     for w in want:
         check(any(w in n for n in names), f"{label}: {w} did not run")
@@ -3015,7 +3145,7 @@ def phase_host(torch) -> list:
                                                     kind.startswith("K4"))})
             calls.append(fn)
     for r, fn in zip(rows, calls):  # the profiler, last
-        r["kernels"] = _launches(torch, fn)
+        r["kernels"] = _launches(torch, fn) or []
         r["kernels_per_call"] = len(r["kernels"])
         r["busy_ms"] = device_ms(torch, fn, REPS, tuple(
             n for n in r["kernels"] if n.startswith(PORT_KERNELS)))
@@ -3064,14 +3194,15 @@ def _launches(torch, fn, calls: int = 10) -> list:
     call without its kernel), or when it is uneven
     only because the profiler saw fewer events of a port kernel than the
     wrappers' counters say were launched in the window (each port kernel
-    runs once a wrapper launch). Any other uneven window fails the check."""
+    runs once a wrapper launch). Any other uneven window fails the check.
+    None when no window traced a device event ("not traced")."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    tries, most = TRACE_TRIES, 16 * calls
+    tries, most = _windows(), 16 * calls
     for attempt in range(1, tries + 1):
         before = sum(_kernel_counts().values())
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3107,6 +3238,8 @@ def _launches(torch, fn, calls: int = 10) -> list:
                  + (", traced again" if attempt < tries else "")), flush=True)
         if not dropped:
             break
+    if not _traced(bool(names), fn, tries):
+        return None
     check(len(names) % calls == 0 and traced >= launched,
           f"{len(names)} kernels in {calls} calls ({launched} wrapper launches counted, "
           f"{traced} port kernels traced): {names}")
@@ -3131,8 +3264,9 @@ def _use_tree_kernel_names() -> None:
     """The long K3/K4 kernels' names in the tree this script runs against:
     this tree's Hopper kernels, or an older tree's mma.sync tile kernels;
     and the fp32 forward's and backward's: the register-tiled kernels, or
-    an older tree's SIMT ones (the A B B A call copies the script into the
-    parent's tree)."""
+    an older tree's SIMT ones; the wide bf16 forwards': the Hopper kernels,
+    or an older tree's SIMT ones (the A B B A call copies the script into
+    the parent's tree)."""
     from deepcoro_clip_tpu_torch.ops import _flash_cuda
 
     global TILE_FWD, TILE_BWD, TILE_KERNELS, REGTILE_FWD, REGTILE_PROJ, REGTILE_BWD
@@ -3145,6 +3279,8 @@ def _use_tree_kernel_names() -> None:
         REGTILE_FWD, REGTILE_PROJ = SIMT_FWD["float32"], SIMT_PROJ["float32"]
     if not hasattr(_flash_cuda, "regtile_bwd_smem_bytes"):  # the fp32 backward on the SIMT ones
         REGTILE_BWD = SIMT_BWD["float32"][1:]
+    if not hasattr(_flash_cuda, "wide_smem_bytes"):  # the wide bf16 forwards on the SIMT ones
+        SIMT_FWD["bfloat16"], SIMT_PROJ["bfloat16"] = WIDE_OLD[:1], WIDE_OLD[1:]
 
 
 def _short_name(name: str) -> str:
@@ -3166,7 +3302,7 @@ def build_kernels(torch, sources) -> None:
         for line in info.get("log", "").splitlines():
             if "Compiling entry" in line:
                 fn = line.split("'")[1]
-                print(f"build: ptxas {name}: {fn[fn.index('_cu_') + 13:][:40]}", flush=True)
+                print(f"build: ptxas {name}: {fn[fn.index('_cu_') + 13:][:56]}", flush=True)
             elif "registers" in line or "spill" in line:
                 print(f"build: ptxas   {line.strip()}", flush=True)
 
@@ -4460,11 +4596,12 @@ def phase_locca_run(torch, manifest: Path, single_head: dict) -> dict:
         per_plain, _ = device_events(torch, lambda: runner.train_step(runner.state, plain,
                                                                       *args))
         times["busy_ms_without_head"] = sum(per_plain.values())
-        times["decoder_share"] = 1 - times["busy_ms_without_head"] / times["busy_ms"]
+        without = share(times["busy_ms_without_head"], times["busy_ms"])
+        times["decoder_share"] = None if without is None else 1 - without
         print(f"locca profile: the same batch without caption ids (the head not run, its "
               f"optimizer update still): busy {times['busy_ms_without_head']:.2f} ms; the "
               f"LocCa head's share of the step's busy {times['busy_ms']:.2f} ms: "
-              f"{times['decoder_share']:.1%} | {CARD}", flush=True)
+              f"{fmt(times['decoder_share'], '.1%')} | {CARD}", flush=True)
         cap_mask = batch["caption_mask"]
         print(f"locca attention: the caption mask [{cap_mask.shape[0]},{cap_mask.shape[1]}]: "
               f"{int(cap_mask.sum())} real tokens of {cap_mask.numel()} (shortest "
@@ -4572,10 +4709,15 @@ def phase_long_kernels(torch, bank_mask) -> dict:
     fwd = _launches(torch, lambda: flash_attention(q, k, v, kv_mask=bank_mask), calls=2)
     bwd = _launches(torch, lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
                     calls=2)
-    ours = [[n for n in run if n.startswith(PORT_KERNELS)] for run in (fwd, bwd)]
-    check(ours == [list(TILE_FWD), list(TILE_BWD)],
-          f"{label}: the bank's call ran {fwd} / {bwd}, expected {TILE_FWD} / {TILE_BWD}")
-    print(f"{label}: a forward at the bank ran {fwd}, a backward {bwd}", flush=True)
+    if fwd is None or bwd is None:
+        ours = [["not traced"], ["not traced"]]
+        print(f"{label}: the kernels of a call at the bank not traced (the profiler traced "
+              f"no device event)", flush=True)
+    else:
+        ours = [[n for n in run if n.startswith(PORT_KERNELS)] for run in (fwd, bwd)]
+        check(ours == [list(TILE_FWD), list(TILE_BWD)],
+              f"{label}: the bank's call ran {fwd} / {bwd}, expected {TILE_FWD} / {TILE_BWD}")
+        print(f"{label}: a forward at the bank ran {fwd}, a backward {bwd}", flush=True)
     del q, k, v, do, out, got, leaves, o
     torch.cuda.empty_cache()
     return {"rows": rows, "cut": cut, "routes": {"K3": ours[0], "K4": ours[1]}}
@@ -7553,13 +7695,17 @@ FP32_PER_EVAL = {"K1": 12, "K2": 0, "K3": 14, "K4": 0, "K5": 0, "K6": 0,
                  "K3 long": 0, "K4 long": 0}
 FP32_PER_BANK = {"K1": 0, "K2": 0, "K3": 12, "K4": 0, "K5": 0, "K6": 0,
                  "K3 long": 0, "K4 long": 0}
-SIMT_FWD = {"float32": ("flash_fwd_f32_kernel",), "bfloat16": ("flash_fwd_wide_bf16_kernel",)}
+# (bf16 at Dh 256 to 512: the wide Hopper forwards of csrc/flash_fwd.cu and
+# csrc/flash_fwd_proj.cu, which took the SIMT kernels' place; WIDE_OLD names
+# those for an older tree, --wide-rows' A runs)
+SIMT_FWD = {"float32": ("flash_fwd_f32_kernel",), "bfloat16": ("flash_fwd_wide_sm90_kernel",)}
 SIMT_BWD = {"float32": ("bwd_rows_f32_kernel", "flash_bwd_dkv_f32_kernel",
                         "flash_bwd_dq_f32_kernel"),
             "bfloat16": ("bwd_rows_wide_bf16_kernel", "flash_bwd_dkv_wide_bf16_kernel",
                          "flash_bwd_dq_wide_bf16_kernel")}
 SIMT_PROJ = {"float32": ("flash_fwd_proj_f32_kernel",),
-             "bfloat16": ("flash_fwd_proj_wide_bf16_kernel",)}
+             "bfloat16": ("flash_fwd_proj_wide_sm90_kernel",)}
+WIDE_OLD = ("flash_fwd_wide_bf16_kernel", "flash_fwd_proj_wide_bf16_kernel")
 # fp32 at Dh 64 and 128 (K1, K3) and K5 at Dh 128: the register-tiled
 # kernels of csrc/fwd_f32_regtile.cuh (the SIMT names above serve the wider
 # heads; neither name is a substring of the other)
@@ -7656,12 +7802,46 @@ def _simt_row(torch, label: str, shape: str, fn, plain, lib, flops: float, nbyte
     return row
 
 
-def _packed_simt_rows(torch, dtype, B, H, Dh, L, split=False, busy=False) -> tuple:
-    """K1 and K2 on the SIMT kernels at a packed shape: ``qkv`` ``[B, L,
-    3*H*Dh]`` with the video tower's 3D RoPE (fused, or ``split`` into three
-    tensors), against their plain versions (fp32: ``_f32_check``'s bars;
-    bf16: phase 3's and 7's), with times and bounds (``busy``: K2's busy
-    time too). Returns (K1 row, K2 row)."""
+def call_split(torch, label: str, fn, kernels, host_parts: dict, reps: int = SIMT_REPS) -> dict:
+    """Where a call's time between CUDA events goes: the host's time a call
+    to issue it (``reps`` calls back to back, timed before the final
+    synchronise: the card keeps up whenever it is busy for less), that of
+    each of ``host_parts`` (name: a part of the call, issued alone), and the
+    card's busy time a call, split into ``kernels`` and the rest (copies,
+    fills) from one trace of ``reps`` calls. Between events the card idles
+    for the rest."""
+    def host_ms(f):
+        for _ in range(3):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return ms
+
+    out = {"host_ms": host_ms(fn), "host_parts_ms": {k: host_ms(f) for k, f in host_parts.items()}}
+    per_name, _ = device_events(torch, lambda: [fn() for _ in range(reps)])
+    mine = [n for n in per_name if any(k in n for k in kernels)]
+    out["kernel_ms"] = sum(per_name[n] for n in mine) / reps
+    out["other_ms"] = sum(ms for n, ms in per_name.items() if n not in mine) / reps
+    out["other"] = {_short_name(n)[:60]: ms / reps for n, ms in per_name.items() if n not in mine}
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in out["host_parts_ms"].items())
+    print(f"{label}: split of a call: host {out['host_ms']:.4f} ms to issue it ({parts}); card "
+          f"busy {out['kernel_ms']:.4f} ms in {', '.join(kernels)}, {out['other_ms']:.4f} ms in "
+          f"{len(out['other'])} other kernels ({', '.join(out['other'])}) | {CARD}", flush=True)
+    return out
+
+
+def _packed_simt_rows(torch, dtype, B, H, Dh, L, split=False, busy=False,
+                      busy_fwd=False, fwd_only=False) -> tuple:
+    """K1 and K2 on the SIMT kernels (bf16 K1 at Dh 256 to 512 on the wide
+    Hopper kernel) at a packed shape: ``qkv`` ``[B, L, 3*H*Dh]`` with the
+    video tower's 3D RoPE (fused, or ``split`` into three tensors), against
+    their plain versions (fp32: ``_f32_check``'s bars; bf16: phase 3's and
+    7's), with times and bounds (``busy``, ``busy_fwd``: K2's, K1's busy
+    time too; ``fwd_only``: K1 alone). Returns (K1 row, K2 row or None)."""
     import torch.nn.functional as F
 
     from deepcoro_clip_tpu_torch.ops.attention import (
@@ -7680,8 +7860,13 @@ def _packed_simt_rows(torch, dtype, B, H, Dh, L, split=False, busy=False) -> tup
     t = build_rope3d_tables(Dh, 8, hw, hw, n_special=1)
     sin, cos = torch.from_numpy(t.sin).to(dev), torch.from_numpy(t.cos).to(dev)
     D = H * Dh
-    qkv = (torch.randn(B, L, 3 * D, generator=g, device=dev) * 0.5).to(dtype)
+    wide = not fp32 and Dh > 128
+    x = torch.randn(B, L, 3 * D, generator=g, device=dev) * 0.5
+    if wide:
+        x[..., :2 * D] *= WIDE_QK_SCALE
+    qkv = x.to(dtype)
     do = (torch.randn(B, L, D, generator=g, device=dev) * 0.5).to(dtype)
+    del x
     heads = [_to_heads(u, H) for u in qkv.split(D, -1)]
     rope = dict(sin=sin, cos=cos)
     shape = (f"{'q, k, v' if split else 'qkv'} [{B},{L},{3 * D if not split else D}] "
@@ -7697,8 +7882,26 @@ def _packed_simt_rows(torch, dtype, B, H, Dh, L, split=False, busy=False) -> tup
     with torch.no_grad():
         ref = multi_head_attention(*heads, **rope)
         got = _to_heads(call(plain_args), H)
+        wrong = (multi_head_attention(misrotated(heads[0], sin, cos),
+                                      misrotated(heads[1], sin, cos), heads[2])
+                 if wide else None)
     err_f = (_f32_check(f"K1 {shape}", "out", got, ref, False) if fp32
+             else check_wide(torch, "simt check", f"K1 {shape}", got, ref, wrong) if wide
              else check_forward(torch, "simt check", f"K1 {shape}", got, ref))
+    del wrong
+    esz = qkv.element_size()
+    tables = 2 * L * Dh * 4
+    sq = [apply_rope(heads[0], sin, cos), apply_rope(heads[1], sin, cos), heads[2]]
+    with torch.no_grad():
+        row_f = _simt_row(torch, "simt times K1", shape, lambda: call(plain_args),
+                          lambda: multi_head_attention(*heads, **rope),
+                          lambda: F.scaled_dot_product_attention(*sq),
+                          4 * B * H * L * L * Dh, 4 * B * L * D * esz + tables, fp32,
+                          fwd_names(dtype, Dh), err_f, busy_fwd)
+    if fwd_only:
+        del qkv, do, heads, leaves, sq, ref, got
+        torch.cuda.empty_cache()
+        return row_f, None
     out = call(leaves)
     grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
     grads = list(grads[0].split(D, -1)) if not split else list(grads)
@@ -7712,18 +7915,9 @@ def _packed_simt_rows(torch, dtype, B, H, Dh, L, split=False, busy=False) -> tup
             f"max|plain| and rel l2 {BWD_L2_REL}")
     print(f"simt check: K1/K2 {shape}: max|kernel-plain| forward {err_f:.3e}, gradients "
           f"{err_b:.3e} ({bars}) ok", flush=True)
-    esz = qkv.element_size()
-    tables = 2 * L * Dh * 4
-    sq = [apply_rope(heads[0], sin, cos), apply_rope(heads[1], sin, cos), heads[2]]
     sl = [u.detach().clone().requires_grad_() for u in sq]
     sout = F.scaled_dot_product_attention(*sl)
     doh, outh = _to_heads(do, H), _to_heads(out.detach(), H)
-    with torch.no_grad():
-        row_f = _simt_row(torch, "simt times K1", shape, lambda: call(plain_args),
-                          lambda: multi_head_attention(*heads, **rope),
-                          lambda: F.scaled_dot_product_attention(*sq),
-                          4 * B * H * L * L * Dh, 4 * B * L * D * esz + tables, fp32,
-                          fwd_names(dtype, Dh), err_f)
     row_b = _simt_row(torch, "simt times K2", shape,
                       lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
                       lambda: flash_bwd_plain(*heads, doh, outh, **rope),
@@ -7735,13 +7929,15 @@ def _packed_simt_rows(torch, dtype, B, H, Dh, L, split=False, busy=False) -> tup
     return row_f, row_b
 
 
-def _padded_rows(torch, dtype, B, H, L, Dh, rope: bool, what: str = "", busy=False) -> tuple:
+def _padded_rows(torch, dtype, B, H, L, Dh, rope: bool, what: str = "", busy=False,
+                 busy_fwd=False) -> tuple:
     """K3 and K4 at ``[B, H, L, Dh]``: a head dim no kernel is built for is
     padded as the JAX wrapper pads (``pad_head_dim``) to
     ``kernel_head_dim(Dh)``; q/k/v strided views of ``[B, L, H*Dh]``, a key
     mask of the text tower's kind (a real prefix a row, at least one key),
     against the plain version at Dh. ``what`` names the main path's call
-    the shape is; ``busy``: K4's busy time too. Returns (K3 row, K4 row)."""
+    the shape is; ``busy``, ``busy_fwd``: K4's, K3's busy time too. Returns
+    (K3 row, K4 row)."""
     import torch.nn.functional as F
 
     from deepcoro_clip_tpu_torch.ops.attention import (
@@ -7750,15 +7946,21 @@ def _padded_rows(torch, dtype, B, H, L, Dh, rope: bool, what: str = "", busy=Fal
         multi_head_attention,
     )
     from deepcoro_clip_tpu_torch.ops._flash_cuda import SHORT_MAX
-    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention, kernel_head_dim
+    from deepcoro_clip_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        kernel_head_dim,
+        pad_head_dim,
+    )
     from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(Dh + L)
     width = kernel_head_dim(Dh)
     fp32 = dtype == torch.float32
-    q, k, v, do = ((torch.randn(B, L, H * Dh, generator=g, device=dev) * 0.5).to(dtype)
-                   .unflatten(2, (H, Dh)).transpose(1, 2) for _ in range(4))
+    wide = not fp32 and width > 128
+    q, k, v, do = ((torch.randn(B, L, H * Dh, generator=g, device=dev)
+                    * (0.5 * WIDE_QK_SCALE if wide and i < 2 else 0.5)).to(dtype)
+                   .unflatten(2, (H, Dh)).transpose(1, 2) for i in range(4))
     kw = {}
     if rope:
         t = build_rope3d_tables(Dh, 8, 7, 7, n_special=L - 392)
@@ -7772,9 +7974,11 @@ def _padded_rows(torch, dtype, B, H, L, Dh, rope: bool, what: str = "", busy=Fal
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     with torch.no_grad():
         ref = multi_head_attention(q, k, v, **kw)
-        err_f = (_f32_check(f"K3 {shape}", "out", flash_attention(q, k, v, **kw), ref, False)
-                 if fp32 else check_forward(torch, "simt check", f"K3 {shape}",
-                                            flash_attention(q, k, v, **kw), ref))
+        got = flash_attention(q, k, v, **kw)
+        err_f = (_f32_check(f"K3 {shape}", "out", got, ref, False) if fp32
+                 else check_wide(torch, "simt check", f"K3 {shape}", got, ref) if wide
+                 else check_forward(torch, "simt check", f"K3 {shape}", got, ref))
+        del got
     out = flash_attention(*leaves, **kw)
     grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
     want = flash_bwd_plain(q, k, v, do, ref, **kw)
@@ -7808,7 +8012,13 @@ def _padded_rows(torch, dtype, B, H, L, Dh, rope: bool, what: str = "", busy=Fal
         row_f = _simt_row(torch, "simt times K3", shape, lambda: flash_attention(q, k, v, **kw),
                           lambda: multi_head_attention(q, k, v, **kw),
                           lambda: F.scaled_dot_product_attention(*sq, attn_mask=am),
-                          4 * pairs * Dh, 4 * qd, fp32, kf, err_f)
+                          4 * pairs * Dh, 4 * qd, fp32, kf, err_f, busy_fwd)
+        if busy_fwd and wide:  # the events hold more than the kernel: where it goes
+            pw = kernel_head_dim(Dh)
+            row_f["split"] = call_split(
+                torch, f"simt times K3 {shape}", lambda: flash_attention(q, k, v, **kw), kf,
+                {"pad_head_dim": lambda: pad_head_dim(q, k, v, kw.get("sin"), kw.get("cos"), pw)},
+                REPS)
     row_b = _simt_row(torch, "simt times K4", shape,
                       lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
                       lambda: flash_bwd_plain(q, k, v, do, out.detach(), **kw),
@@ -7819,10 +8029,11 @@ def _padded_rows(torch, dtype, B, H, L, Dh, rope: bool, what: str = "", busy=Fal
     return row_f, row_b
 
 
-def _proj_simt_row(torch, dtype, B, H, Dh, L) -> dict:
-    """K5 on the SIMT kernel: ``qkv`` ``[B, L, 3*H*Dh]`` with 3D RoPE and
-    ``wo`` ``[H*Dh, 512]`` as the probing encoder calls it (no gradient),
-    against the plain attention then ``wo`` (``project_plain``)."""
+def _proj_simt_row(torch, dtype, B, H, Dh, L, busy=False) -> dict:
+    """K5 on the SIMT kernel (bf16 at Dh 256 to 512 on the wide Hopper
+    kernel): ``qkv`` ``[B, L, 3*H*Dh]`` with 3D RoPE and ``wo`` ``[H*Dh,
+    512]`` as the probing encoder calls it (no gradient), against the plain
+    attention then ``wo`` (``project_plain``); ``busy``: its busy time too."""
     import torch.nn.functional as F
 
     from deepcoro_clip_tpu_torch.ops.attention import (
@@ -7840,7 +8051,12 @@ def _proj_simt_row(torch, dtype, B, H, Dh, L) -> dict:
     t = build_rope3d_tables(Dh, 8, hw, hw, n_special=1)
     sin, cos = torch.from_numpy(t.sin).to(dev), torch.from_numpy(t.cos).to(dev)
     D, Dout = H * Dh, 512
-    qkv = (torch.randn(B, L, 3 * D, generator=g, device=dev) * 0.5).to(dtype)
+    wide = not fp32 and Dh > 128
+    x = torch.randn(B, L, 3 * D, generator=g, device=dev) * 0.5
+    if wide:
+        x[..., :2 * D] *= WIDE_QK_SCALE
+    qkv = x.to(dtype)
+    del x
     wo = (torch.randn(D, Dout, generator=g, device=dev) * D ** -0.5).to(dtype)
     heads = [_to_heads(u, H) for u in qkv.split(D, -1)]
     name = "fp32" if fp32 else "bf16"
@@ -7864,6 +8080,12 @@ def _proj_simt_row(torch, dtype, B, H, Dh, L) -> dict:
         check(ok and bool(torch.isfinite(y).all()),
               f"K5 {shape}: disagrees with its plain version (max|d| {err:.3e})")
         print(f"simt check: K5 {shape}: max|kernel-plain| {err:.3e} ({bars}) ok", flush=True)
+        if wide:
+            wrong = project_plain(multi_head_attention(
+                misrotated(heads[0], sin, cos), misrotated(heads[1], sin, cos), heads[2])
+                .transpose(1, 2).flatten(2), wo)
+            check_wide(torch, "simt check", f"K5 {shape}", y, ref, wrong)
+            del wrong
         sq = [apply_rope(heads[0], sin, cos), apply_rope(heads[1], sin, cos), heads[2]]
         wt = wo.t().contiguous()
         row = _simt_row(
@@ -7873,30 +8095,43 @@ def _proj_simt_row(torch, dtype, B, H, Dh, L) -> dict:
                                     .flatten(2), wt),
             4 * B * H * L * L * Dh + 2 * B * L * D * Dout,
             (3 * B * L * D + B * L * Dout + D * Dout) * qkv.element_size() + 2 * L * Dh * 4,
-            fp32, proj_names(dtype, Dh), err)
+            fp32, proj_names(dtype, Dh), err, busy)
     del qkv, wo, heads, y, ref, d, sq
     torch.cuda.empty_cache()
     return row
 
 
-def _ring_f32_row(torch) -> dict:
-    """K6's fp32 SIMT step at phase 16's ``[2,4,15680,128]`` over 4 shards on
-    one card, against the whole sequence's plain attention in fp32 (phase
-    16's rel-l2 bar and the fp32 forward bar)."""
+def _ring_row(torch, dtype, H: int = RING_H, Dh: int = RING_DH) -> dict:
+    """K6's step over phase 16's 15680 tokens (2 batch rows) at ``H`` heads
+    of ``Dh`` over 4 shards on one card, against the whole sequence's plain
+    attention (phase 16's rel-l2 bar, and in fp32 the fp32 forward bar; in
+    bf16 phase 3's): fp32 at ``[2,4,15680,128]`` on the SIMT step, bf16 at
+    ``[2,4,15680,64]`` (the ``mma.sync`` step) and ``[2,2,15680,256]`` (the
+    wide SIMT step)."""
     import torch.nn.functional as F
 
+    from deepcoro_clip_tpu_torch.ops._ring_cuda import step_symbol
     from deepcoro_clip_tpu_torch.ops.attention import multi_head_attention
     from deepcoro_clip_tpu_torch.parallel import ring_attention
 
-    q, k, v = (t.float() for t in ring_inputs(torch, RING_L, seed=39))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(39 + Dh)
+    q, k, v = (torch.randn(RING_B, H, RING_L, Dh, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    fp32 = dtype == torch.float32
+    kernel = {"deepcoro_ring_step_f32": "ring_step_f32_kernel",
+              "deepcoro_ring_step_bf16": "ring_step_kernel",
+              "deepcoro_ring_step_wide_bf16": "ring_step_wide_bf16_kernel"}[step_symbol(Dh, dtype)]
     mesh = ring_mesh(torch, RING_SHARDS)
-    shape = f"[{RING_B},{RING_H},{RING_L},{RING_DH}] fp32 over {RING_SHARDS} shards"
+    shape = (f"[{RING_B},{H},{RING_L},{Dh}] {'fp32' if fp32 else 'bf16'} over {RING_SHARDS} "
+             f"shards")
     with torch.no_grad():
         _zero_kernel_counts()
         out = ring_attention(q, k, v, mesh, backend="rdma")
         launches = _kernel_counts()["K6"]
         ref = multi_head_attention(q, k, v)
-        err = _f32_check(f"K6 {shape}", "out", out, ref, False)
+        err = (_f32_check(f"K6 {shape}", "out", out, ref, False) if fp32
+               else check_forward(torch, "simt check", f"K6 {shape}", out, ref))
         l2 = _rel_l2(out, ref)
         check(l2 <= RING_L2_REL, f"K6 {shape}: rel l2 {l2}")
         check(launches == RING_SHARDS ** 2, f"K6 {shape}: {launches} launches")
@@ -7904,13 +8139,12 @@ def _ring_f32_row(torch) -> dict:
               f"{launches} launches (n x n) ok", flush=True)
         del ref
         torch.cuda.empty_cache()
-        B, H, L, Dh = RING_B, RING_H, RING_L, RING_DH
         row = _simt_row(torch, "simt times K6", shape,
                         lambda: ring_attention(q, k, v, mesh, backend="rdma"),
                         lambda: multi_head_attention(q, k, v),
                         lambda: F.scaled_dot_product_attention(q, k, v),
-                        4 * B * H * L * L * Dh, 4 * B * H * L * Dh * 4, True,
-                        ("ring_step_f32_kernel",), err)
+                        4 * RING_B * H * RING_L * RING_L * Dh,
+                        4 * RING_B * H * RING_L * Dh * q.element_size(), fp32, (kernel,), err)
     row["launches"] = launches
     del q, k, v, out
     torch.cuda.empty_cache()
@@ -8014,9 +8248,10 @@ def phase_simt_kernels(torch) -> dict:
                                       (f32, 16, 2, 256, 393, False),
                                       (bf16, 16, 1, 512, 393, False),
                                       (f32, 16, 1, 512, 393, False)):
-        f, b = _packed_simt_rows(torch, dtype, B, H, Dh, L, split)
+        f, b = _packed_simt_rows(torch, dtype, B, H, Dh, L, split, busy_fwd=dtype == bf16)
         rows["K1"].append(f)
         rows["K2"].append(b)
+    rows["K1"] += wide_k1_rows(torch)
     # (phase 40's fp32 calls first: the text tower's [16,12,128,64] on the
     # SIMT kernels, the aggregator's [16,8,1,64] on the short fp32 ones)
     for dtype, B, H, L, Dh, rope, what in (
@@ -8024,16 +8259,106 @@ def phase_simt_kernels(torch) -> dict:
             (f32, 16, 8, 1, 64, False, ", the aggregator (phase 40)"),
             (bf16, 8, 8, 393, 32, True, ""), (bf16, 8, 4, 512, 96, False, ""),
             (bf16, 8, 2, 512, 192, False, ""), (f32, 8, 2, 512, 192, False, "")):
-        f, b = _padded_rows(torch, dtype, B, H, L, Dh, rope, what)
+        f, b = _padded_rows(torch, dtype, B, H, L, Dh, rope, what,
+                            busy_fwd=dtype == bf16 and Dh > 128)
         rows["K3"].append(f)
         rows["K4"].append(b)
     # (phase 41's fp32 calls: the probing encoder's 1569 and 393 tokens)
     rows["K5"].append(_proj_simt_row(torch, f32, PROBE_CLIPS, 4, 128, 1569))
     rows["K5"].append(_proj_simt_row(torch, f32, PROBE_CLIPS, 4, 128, 393))
-    rows["K5"].append(_proj_simt_row(torch, bf16, PROBE_CLIPS, 2, 256, 393))
-    rows["K6"].append(_ring_f32_row(torch))
+    rows["K5"] += wide_k5_rows(torch)
+    rows["K5"].append(_proj_simt_row(torch, f32, PROBE_CLIPS, 2, 256, 393))
+    rows["K6"].append(_ring_row(torch, f32))
+    # (bf16 K6 at Dh 64, which no other phase times, and on its wide step)
+    rows["K6"] += [_ring_row(torch, bf16, 4, 64), _ring_row(torch, bf16, 2, 256)]
     rows["regtile"] = _regtile_routes(torch)
+    rows["wide"] = _wide_routes(torch)
     return rows
+
+
+def wide_k1_rows(torch) -> list:
+    """Phase 39's rows of K1 in bf16 at Dh 256 and 512 at the video tower's
+    1569 tokens (16 clips, H 2 and 1; the forward alone: phase 42's
+    probing step), the wide Hopper kernel's aim rows beside the 393-token
+    ones (with K2) above."""
+    return [_packed_simt_rows(torch, torch.bfloat16, 16, H, Dh, 1569, busy_fwd=True,
+                              fwd_only=True)[0] for H, Dh in ((2, 256), (1, 512))]
+
+
+def wide_k5_rows(torch) -> list:
+    """Phase 39's rows of K5 in bf16 at Dh 256 (H 2, ``wo`` ``[512, 512]``):
+    the probing step's 80 clips at 393 and 1569 tokens."""
+    return [_proj_simt_row(torch, torch.bfloat16, PROBE_CLIPS, 2, 256, L, busy=True)
+            for L in (393, 1569)]
+
+
+def _wide_routes(torch) -> dict:
+    """Phase 39's traces of the wide bf16 Hopper forwards by name: K1 at
+    ``[16,393,1536]`` (Dh 256, H 2, RoPE; Dh 512, H 1), K3 at
+    ``[8,2,512,192]`` with a key mask (padded to 256), K5 at
+    ``[8,393,1536]`` Dh 256 H 2 and Dh 512 H 1, ``wo`` ``[512,512]``: each
+    call counts one launch on its entry point and runs the new kernel, not
+    the SIMT one it replaced. Prints each kernel's registers and local
+    (spilled) bytes a thread as the runtime reads them."""
+    from deepcoro_clip_tpu_torch.ops._flash_cuda import wide_kernel_attrs
+    from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(392)
+    attrs = wide_kernel_attrs()
+    for key, a in attrs.items():
+        print(f"wide attrs: {key}: {a['kernel']} {a['registers']} registers a thread at entry "
+              f"(setmaxnreg: 232 a consumer, 40 the producer), {a['local_bytes']} B of local "
+              f"memory a thread (spills) | {CARD}", flush=True)
+    bf = torch.bfloat16
+    qkv = {dh: (torch.randn(16, 393, 1536, generator=g, device=dev) * 0.5).to(bf)
+           for dh in (256, 512)}
+    rope = {}
+    for dh in (256, 512):
+        t = build_rope3d_tables(dh, 8, 7, 7, n_special=1)
+        rope[dh] = dict(sin=torch.from_numpy(t.sin).to(dev), cos=torch.from_numpy(t.cos).to(dev))
+    q3 = [(torch.randn(8, 512, 384, generator=g, device=dev) * 0.5).to(bf).unflatten(
+        2, (2, 192)).transpose(1, 2) for _ in range(3)]
+    m3 = torch.arange(512, device=dev)[None] < torch.randint(
+        64, 513, (8, 1), generator=g, device=dev)
+    wo = (torch.randn(512, 512, generator=g, device=dev) * 512 ** -0.5).to(bf)
+    old_f, old_p = (WIDE_OLD[0],), (WIDE_OLD[1],)
+    cases = {
+        "K1 Dh 256": ("wide route K1 bf16 [16,393,1536] H 2 Dh 256, RoPE",
+                      (flash_attention_packed, "launches"),
+                      lambda: flash_attention_packed(qkv=qkv[256], num_heads=2, **rope[256]),
+                      ("flash_fwd_wide_sm90_kernel<256>",), old_f),
+        "K1 Dh 512": ("wide route K1 bf16 [16,393,1536] H 1 Dh 512, RoPE",
+                      (flash_attention_packed, "launches"),
+                      lambda: flash_attention_packed(qkv=qkv[512], num_heads=1, **rope[512]),
+                      ("flash_fwd_wide_sm90_kernel<512>",), old_f),
+        "K3": ("wide route K3 bf16 [8,2,512,192] + mask, padded to 256",
+               (flash_attention, "launches"), lambda: flash_attention(*q3, kv_mask=m3),
+               ("flash_fwd_wide_sm90_kernel<256>",), old_f),
+        "K5 Dh 256": ("wide route K5 bf16 [8,393,1536] H 2 Dh 256, wo [512,512]",
+                      (flash_attention_packed, "proj_launches"),
+                      lambda: flash_attention_packed(qkv=qkv[256][:8], num_heads=2, wo=wo,
+                                                     **rope[256]),
+                      ("flash_fwd_proj_wide_sm90_kernel<256>",), old_p),
+        "K5 Dh 512": ("wide route K5 bf16 [8,393,1536] H 1 Dh 512, wo [512,512]",
+                      (flash_attention_packed, "proj_launches"),
+                      lambda: flash_attention_packed(qkv=qkv[512][:8], num_heads=1, wo=wo,
+                                                     **rope[512]),
+                      ("flash_fwd_proj_wide_sm90_kernel<512>",), old_p),
+    }
+    ran = {}
+    with torch.no_grad():
+        for key, (label, (entry, counter), fn, want, not_want) in cases.items():
+            n = getattr(entry, counter)
+            fn()
+            check(getattr(entry, counter) == n + 1,
+                  f"{label}: {getattr(entry, counter) - n} launches counted, expected 1")
+            ran[key] = check_route(torch, label, fn, want, not_want, untraced_ok=True)
+    del qkv, rope, q3, m3, wo
+    torch.cuda.empty_cache()
+    return {"ran": ran, "attrs": attrs}
 
 
 def phase_fp32_quality_run(torch, manifest: Path, stats: dict) -> dict:
@@ -8191,15 +8516,16 @@ def _fp32_quality_step(torch, manifest: Path, stats: dict, out_dir: Path) -> dic
     print(f"fp32 quality run: step {step_ms:.1f} ms (host clock, 2 steps on one batch), busy "
           f"{busy:.1f} ms of a traced {wall_ms:.1f} ms (share {busy / wall_ms:.2f}), the fp32 "
           f"K1/K2/K3/K4 {attn:.1f} ms of it, the forward ({REGTILE_FWD[0]}, K1 and K3) "
-          f"{fwd:.2f} ms (share {fwd / busy:.3f}), the backward ({', '.join(bwd_names_)}, K2 "
-          f"and K4) {bwd:.2f} ms (share {bwd / busy:.3f}; busy a call: K2 [16,1569|393,1536] "
+          f"{fwd:.2f} ms (share {fmt(share(fwd, busy), '.3f')}), the backward "
+          f"({', '.join(bwd_names_)}, K2 and K4) {bwd:.2f} ms (share "
+          f"{fmt(share(bwd, busy), '.3f')}; busy a call: K2 [16,1569|393,1536] "
           f"{k2:.3f} ms over 3 + 9, K4 [16,12,128,64] {k4:.4f} ms) | {CARD}", flush=True)
     del runner, batch, args
     torch.cuda.empty_cache()
     return {"step_ms": step_ms, "busy_ms": busy, "busy_share": busy / wall_ms,
             "simt_attention_busy_ms": attn, "regtile_fwd_busy_ms": fwd,
-            "regtile_fwd_share": fwd / busy, "regtile_bwd_busy_ms": bwd,
-            "regtile_bwd_share": bwd / busy, "k2_busy_ms_a_call": k2,
+            "regtile_fwd_share": share(fwd, busy), "regtile_bwd_busy_ms": bwd,
+            "regtile_bwd_share": share(bwd, busy), "k2_busy_ms_a_call": k2,
             "k4_text_busy_ms_a_call": k4}
 
 
@@ -8269,13 +8595,129 @@ def phase_fp32_probe(torch) -> dict:
           f"{counts['K3']}, K4 {counts['K4']}; heads against the plain attention's max|d| "
           f"{worst:.3e} (bars {FP32_HEAD_ATOL}+{FP32_HEAD_RTOL}|plain|) ok; step {step_ms:.1f} ms "
           f"(host clock, synchronised), busy {busy:.1f} ms of a traced {wall_ms:.1f} ms, K5 "
-          f"{k5:.1f} ms of it (share {k5 / busy:.3f}), peak {peak:.2f} GiB | {CARD}", flush=True)
+          f"{k5:.1f} ms of it (share {fmt(share(k5, busy), '.3f')}), peak {peak:.2f} GiB | "
+          f"{CARD}", flush=True)
     del bundle, state, step_fn, eval_fn, batch
     torch.cuda.empty_cache()
     return {"counts": counts, "times": {"step_ms": step_ms, "peak_gib": peak,
                                         "busy_ms": busy, "busy_share": busy / wall_ms,
-                                        "k5_busy_ms": k5, "k5_share": k5 / busy,
+                                        "k5_busy_ms": k5, "k5_share": share(k5, busy),
                                         "heads_max_abs_diff": worst}}
+
+
+# --------------------------------------------------------------------------- #
+# phase 42: the wide-head forward path: phase 12's probing step with a head
+# of 256 or 512 columns, its attention on the wide bf16 Hopper forwards
+
+WIDE_HEADS = (2, 1)  # vit_heads at vit_dim 512: Dh 256 and 512
+
+
+def _wide_probe_step(torch, heads: int, fused: bool) -> dict:
+    """Phase 12's probing step (``probe_config()``, 80 clips, bf16) at
+    ``vit_heads`` ``heads``, with the output projection fused into the
+    attention (12 wide K5 a step) or not (12 wide K1 a step, then
+    ``F.linear``): launches against the prediction, the heads against the
+    same bundle with the plain attention (HEAD_ATOL / HEAD_RTOL), step time
+    (host clock, synchronised), a traced step's busy time and the wide
+    kernel's share of it by name, peak memory."""
+    from deepcoro_clip_tpu_torch.train.linear_probe import (
+        build_probe_bundle,
+        make_probe_eval_step,
+        make_probe_train_step,
+        to_device_batch,
+    )
+
+    cfg = probe_config(vit_heads=heads)
+    dh = cfg.vit_dim // heads
+    bundle, state = build_probe_bundle(cfg, seed=0, steps_per_epoch=1, fused_outproj=fused)
+    step_fn, eval_fn = make_probe_train_step(bundle), make_probe_eval_step(bundle)
+    batch = to_device_batch(bundle, probe_batch(cfg, cfg.batch_size))
+    gen = torch.Generator(device=bundle.device).manual_seed(0)
+    ratio = cfg.video_freeze_ratio
+    label = (f"wide probing vit_heads {heads} (Dh {dh}), "
+             f"{'K5 fused' if fused else 'K1 + F.linear'}")
+    state, _ = step_fn(state, batch, gen, ratio)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batch, gen, ratio)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"K1": 0 if fused else 12, "K2": 0, "K3": 1, "K4": 1, "K5": 12 if fused else 0,
+            "K6": 0}
+    check(math.isfinite(float(m["loss"])), f"{label}: loss {float(m['loss'])}")
+    check(counts == want, f"{label}: a step launched {counts}, expected {want}")
+    with torch.no_grad():
+        got = eval_fn(state.params, batch)["outputs"]
+        mods = [mm for mm in bundle.video_model.modules() if hasattr(mm, "use_flash")]
+        for mm in mods:
+            mm.use_flash = False
+        plain = eval_fn(state.params, batch)["outputs"]
+        for mm in mods:
+            mm.use_flash = True
+    worst = 0.0
+    for h in got:
+        a, r = got[h].float(), plain[h].float()
+        d = (a - r).abs()
+        worst = max(worst, float(d.max()))
+        check(bool(torch.isfinite(a).all()) and bool((d <= HEAD_ATOL + HEAD_RTOL * r.abs()).all()),
+              f"{label}: head {h} against the plain attention: max|d| {float(d.max())}")
+    name = (SIMT_PROJ if fused else SIMT_FWD)["bfloat16"][0]
+    others = tuple(n for n in WIDE_OLD + ("flash_fwd_wide_sm90_kernel",
+                                          "flash_fwd_proj_wide_sm90_kernel") if n != name)
+    per_name, wall_ms = device_events(torch, lambda: step_fn(state, batch, gen, ratio),
+                                      expect={name: 12})
+    print_profile(f"{label} profile", "one step", per_name, wall_ms, top=6)
+    check_main_path_kernels(f"{label} profile", per_name, (name,), others)
+    busy = sum(per_name.values())
+    ms = sum(t for n, t in per_name.items() if name in n)
+    print(f"{label}: stenosis_config.yaml, {PROBE_CLIPS} clips: a step launched K5 "
+          f"{counts['K5']}, K1 {counts['K1']}, K3 {counts['K3']}, K4 {counts['K4']} (predicted "
+          f"{want['K5']}, {want['K1']}, 1, 1; {name}); heads against the plain attention's "
+          f"max|d| {worst:.3e} (bars {HEAD_ATOL}+{HEAD_RTOL}|plain|) ok; step {step_ms:.1f} ms "
+          f"(host clock, synchronised), busy {busy:.2f} ms of a traced {wall_ms:.1f} ms, "
+          f"{name} {ms:.2f} ms of it (share {fmt(share(ms, busy), '.3f')}), peak {peak:.2f} GiB "
+          f"| {CARD}",
+          flush=True)
+    del bundle, state, step_fn, eval_fn, batch, got, plain
+    torch.cuda.empty_cache()
+    return {"vit_heads": heads, "dh": dh, "fused": fused, "counts": counts,
+            "predicted": want, "kernel": name, "step_ms": step_ms, "busy_ms": busy,
+            "traced_wall_ms": wall_ms, "kernel_busy_ms": ms, "kernel_share": share(ms, busy),
+            "peak_gib": peak, "heads_max_abs_diff": worst}
+
+
+def phase_wide_probe(torch) -> list:
+    """Phase 42: ``_wide_probe_step`` at each of WIDE_HEADS, with and
+    without the fused projection (DEEPCORO_FUSED_OUTPROJ: the switch a run
+    through main reads)."""
+    return [_wide_probe_step(torch, heads, fused) for heads in WIDE_HEADS
+            for fused in (True, False)]
+
+
+def run_wide_rows(torch) -> dict:
+    """One run of the wide bf16 forward's A B B A call (``--wide-rows``)
+    against the package of the tree the script lies in (copy it into an
+    older tree): the build; phase 39's bf16 rows of K1 at Dh 256 and 512
+    (``[16,393|1569,1536]``, the forward alone), K3 at ``[8,2,512,192]``
+    padded to 256 (with K4) and K5 at ``[80,393|1569,1536]`` Dh 256, ``wo``
+    ``[512,512]``; phase 42's four probing steps."""
+    from deepcoro_clip_tpu_torch.ops import _build
+
+    build_kernels(torch, [n for n in ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short")
+                          if (_build.SRC_DIR / f"{n}.cu").exists()])
+    _use_tree_kernel_names()
+    bf16 = torch.bfloat16
+    rows = {"K1": [_packed_simt_rows(torch, bf16, 16, H, Dh, 393, busy_fwd=True,
+                                     fwd_only=True)[0] for H, Dh in ((2, 256), (1, 512))]}
+    rows["K1"] += wide_k1_rows(torch)
+    rows["K3"] = [_padded_rows(torch, bf16, 8, 2, 512, 192, False, busy_fwd=True)[0]]
+    rows["K5"] = wide_k5_rows(torch)
+    return {"kernels": {"fwd": SIMT_FWD["bfloat16"], "proj": SIMT_PROJ["bfloat16"]},
+            "rows": rows, "wide_probe": phase_wide_probe(torch)}
 
 
 def run_fp32_rows(torch) -> dict:
@@ -8314,8 +8756,9 @@ def run_fp32_rows(torch) -> dict:
 
 SIMT_NAMES = {
     "K1": ("flash_attention_packed, fp32 and bf16 at Dh 256 to 512 (K1 on the CUDA cores: "
-           "flash_fwd_f32_regtile_kernel<128> in fp32 at Dh 128, flash_fwd_f32_kernel<Dh>, "
-           "flash_fwd_wide_bf16_kernel<Dh>)", KERNEL_SOURCE, K1_REPLACES),
+           "flash_fwd_f32_regtile_kernel<128> in fp32 at Dh 128, flash_fwd_f32_kernel<Dh>; "
+           "bf16 on the tensor cores: flash_fwd_wide_sm90_kernel<Dh>)", KERNEL_SOURCE,
+           K1_REPLACES),
     "K2": ("flash_attention_packed backward, fp32 and bf16 at Dh 256 to 512 (K2 on the CUDA "
            "cores: bwd_rows_f32_kernel, then flash_bwd_dkv_f32_regtile_kernel<128> and "
            "flash_bwd_dq_f32_regtile_kernel<128> in fp32 at Dh 128, flash_bwd_dkv_f32_kernel<Dh>"
@@ -8323,29 +8766,30 @@ SIMT_NAMES = {
            K2_REPLACES),
     "K3": ("flash_attention, fp32 above 64 tokens and every padded head dim (K3: "
            "flash_fwd_f32_regtile_kernel<64|128> in fp32 at Dh 64 / 128, flash_fwd_f32_kernel, "
-           "flash_fwd_wide_bf16_kernel, the long kernels at a padded 64 / 128)", KERNEL_SOURCE,
-           K3_REPLACES),
+           "flash_fwd_wide_sm90_kernel<Dh> in bf16 at a padded 256 to 512, the long kernels at a "
+           "padded 64 / 128)", KERNEL_SOURCE, K3_REPLACES),
     "K4": ("flash_attention backward, fp32 above 64 tokens and every padded head dim (K4: "
            "flash_bwd_dkv_f32_regtile_kernel<64|128> and flash_bwd_dq_f32_regtile_kernel<64|128>"
            " in fp32 at Dh 64 / 128, the SIMT kernels above, the long ones at a padded 64 / 128)",
            BWD_SOURCE, K4_REPLACES),
     "K5": ("flash_attention_packed(wo=), fp32 and bf16 at Dh 256 to 512 (K5 on the CUDA "
            "cores: flash_fwd_proj_f32_regtile_kernel in fp32 at Dh 128, "
-           "flash_fwd_proj_f32_kernel<Dh>, flash_fwd_proj_wide_bf16_kernel<Dh>)",
-           PROJ_SOURCE, K5_REPLACES),
+           "flash_fwd_proj_f32_kernel<Dh>; bf16 on the tensor cores: "
+           "flash_fwd_proj_wide_sm90_kernel<Dh>)", PROJ_SOURCE, K5_REPLACES),
     "K6": ("ring_attention(backend=\"rdma\"), fp32 and bf16 at Dh 256 to 512 (K6 on the SIMT "
            "step: ring_step_f32_kernel<Dh>, ring_step_wide_bf16_kernel<Dh>)", RING_SOURCE,
            K6_REPLACES),
 }
 
 
-def simt_entries(rows: dict, quality: dict, probe: dict, ranks: dict) -> list:
-    """The kernels line's entries of the SIMT and register-tiled routes:
-    launches on their main paths (phase 40's fp32 run for K1 to K4, phase
-    41's step for K5, phase 39's one-process pass for K6, with phase 34's
-    ranks beside it), the first row's numbers (the main path's shape),
-    every row under ``shapes`` and, for K1 to K5, the register-tiled
-    kernels phase 39 traced by name."""
+def simt_entries(rows: dict, quality: dict, probe: dict, ranks: dict, wide: list) -> list:
+    """The kernels line's entries of the SIMT, register-tiled and wide
+    routes: launches on their main paths (phase 40's fp32 run for K1 to K4,
+    phase 41's step for K5, phase 39's one-process pass for K6, with phase
+    34's ranks beside it; phase 42's steps for the wide K1 and K5), the
+    first row's numbers (the main path's shape), every row under
+    ``shapes`` and, for K1 to K5, the register-tiled kernels and for K1, K3
+    and K5 the wide ones that phase 39 traced by name."""
     out = []
     launches = {"K1": quality["counts"]["K1"], "K2": quality["counts"]["K2"],
                 "K3": quality["counts"]["K3"], "K4": quality["counts"]["K4"],
@@ -8366,6 +8810,14 @@ def simt_entries(rows: dict, quality: dict, probe: dict, ranks: dict) -> list:
             e["regtile_ran"] = rows["regtile"]["ran"][key]
             e["regtile_attrs"] = {k: a for k, a in rows["regtile"]["attrs"].items()
                                   if k.startswith(group)}
+        if key in ("K1", "K5"):  # phase 42's steps, each counted from 0
+            e["wide_probe_launches"] = {
+                f"vit_heads {w['vit_heads']}, {'fused' if w['fused'] else 'unfused'}":
+                    w["counts"][key] for w in wide}
+        if key in ("K1", "K3", "K5"):  # the wide bf16 Hopper kernels by name, and their blocks
+            e["wide_ran"] = {k: v for k, v in rows["wide"]["ran"].items() if k.startswith(key)}
+            e["wide_attrs"] = {k: a for k, a in rows["wide"]["attrs"].items()
+                               if k.startswith("K5" if key == "K5" else "K1/K3")}
         if key == "K6":
             e.update(ranks)
         out.append(e)
@@ -8403,7 +8855,8 @@ def main(argv) -> int:
     package of the directory the script lies in (an older tree's too: copy
     the script there). ``--compare``: the A B B A call's measurements
     (``run_compare``), likewise in any tree; ``--fp32-rows``: those of the
-    fp32 forward's (``run_fp32_rows``). ``--drift``: phase 32's
+    fp32 forward's (``run_fp32_rows``); ``--wide-rows``: those of the wide
+    bf16 forward's (``run_wide_rows``). ``--drift``: phase 32's
     world-1 control against world N and two other world-1 runs
     (``run_drift``)."""
     import torch
@@ -8437,6 +8890,8 @@ def main(argv) -> int:
             kernels = {"compare": run_compare(torch)}
         elif "--fp32-rows" in argv:
             kernels = {"fp32_rows": run_fp32_rows(torch)}
+        elif "--wide-rows" in argv:
+            kernels = {"wide_rows": run_wide_rows(torch)}
         elif "--drift" in argv:
             kernels = {"drift": run_drift(torch)}
         else:
@@ -8460,7 +8915,7 @@ def _mark(label: str) -> None:
 
 
 def run_all(torch) -> dict:
-    """Phases 2 to 41; returns the "kernels" line."""
+    """Phases 2 to 42; returns the "kernels" line."""
     _STARTED[0] = time.perf_counter()
     build_kernels(torch, ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short",
                           "ring_attention"))
@@ -8643,6 +9098,9 @@ def run_all(torch) -> dict:
     fp32_probe = phase_fp32_probe(torch)
     _mark("phase 41")
     torch.cuda.empty_cache()
+    wide = phase_wide_probe(torch)
+    _mark("phase 42")
+    torch.cuda.empty_cache()
     long = phase_long_kernels(torch, siglip.pop("bank_mask"))
     for run, result in (("multitask", multitask), ("siglip", siglip),
                         ("multivideo", multivideo), ("single_head", single_head),
@@ -8734,9 +9192,13 @@ def run_all(torch) -> dict:
     # phases 39 to 41: the SIMT routes (fp32, bf16 at Dh 256 to 512) and the
     # padded head dims, an entry each, with their main paths' launches
     kernels["kernels"] += simt_entries(simt, fp32_quality, fp32_probe,
-                                       {"process_ring_f32": f32_ranks})
+                                       {"process_ring_f32": f32_ranks}, wide)
+    kernels["wide_probe"] = wide
     kernels["fp32_quality_train"] = fp32_quality["times"]
     kernels["fp32_probe_step"] = fp32_probe["times"]
+    kernels["untraced"] = UNTRACED
+    print(f"trace: {len(UNTRACED)} reading(s) not traced (no device event in the profiler's "
+          f"windows){': ' + ', '.join(UNTRACED) if UNTRACED else ''}", flush=True)
     return kernels
 
 

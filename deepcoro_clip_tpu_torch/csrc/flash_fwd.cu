@@ -1,21 +1,22 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 in/out with fp32 softmax
-// on the tensor cores (wgmma, TMA, mbarriers), and SIMT kernels for fp32
-// operands and for bf16 at head dims 256 to 512 (below).
+// on the tensor cores (wgmma, TMA, mbarriers) at every head dim, and CUDA-core
+// kernels for fp32 operands (below).
 //
 // Replaces two Pallas TPU kernels of deepcoro_clip_tpu:
 //   - ops/flash_attention_packed.py `_fwd_kernel` (K1: packed [B, L, H*Dh],
 //     with q/k/v read as strided views of one fused [B, L, 3D] QKV tensor),
-//     bf16 at Dh 128 on `flash_fwd_sm90_kernel`; fp32 at Dh 128 on
+//     bf16 at Dh 128 on `flash_fwd_sm90_kernel`, at Dh 256 to 512 on
+//     `flash_fwd_wide_sm90_kernel<D>`; fp32 at Dh 128 on
 //     `flash_fwd_f32_regtile_kernel<128>`, at Dh 256 to 512 on
-//     `flash_fwd_f32_kernel<D>`, and bf16 at Dh 256 to 512 on
-//     `flash_fwd_wide_bf16_kernel<D>`;
+//     `flash_fwd_f32_kernel<D>`;
 //   - ops/flash_attention.py `_fwd_kernel` (K3: [B, H, L, Dh]) where Lq or
 //     Lk exceeds 64 (or Dh exceeds 128), bf16 at Dh 64 or 128 on
-//     `flash_long_fwd_kernel<D>`, fp32 on `flash_fwd_f32_regtile_kernel<D>`
-//     (Dh 64, 128) or `flash_fwd_f32_kernel<D>` (above), bf16 at the padded
-//     widths 256 to 512 on `flash_fwd_wide_bf16_kernel<D>`
+//     `flash_long_fwd_kernel<D>`, at the padded widths 256 to 512 on
+//     `flash_fwd_wide_sm90_kernel<D>`, fp32 on
+//     `flash_fwd_f32_regtile_kernel<D>` (Dh 64, 128) or
+//     `flash_fwd_f32_kernel<D>` (above)
 //     (shorter calls at Dh <= 128 run flash_short.cu in one launch).
-// Both kernels are the one body `fwd_sm90<D>` below: it takes every operand
+// The three bf16 kernels are the one body `fwd_sm90<D>` below: it takes every operand
 // as a base pointer plus (batch, head, row) strides in elements, with the
 // head dim contiguous, so no layout is copied or transposed on the way in or
 // out (the text tower hands K3 transposed views of [B, L, 768], heads inside
@@ -71,6 +72,22 @@
 //   - RoPE of K: a pre-pass (launch_rope_rows) into a contiguous scratch.
 // The q-tile height costs padded rows on ragged lengths: 1569 rows take 13
 // tiles (1664 rows, 6% idle), 393 take 4 (512, 23%), 512 take 4 (none).
+//
+// Head dims 256 to 512 (flash_fwd_wide_sm90_kernel<D>; FwdCfg). A consumer
+// warpgroup keeps its 64 rows x D of O in fp32 registers: D / 2 a thread,
+// 128 at D 256 (beside S and P: about 200 of the 232 setmaxnreg gives), 192
+// and 256 at 384 and 512, which do not fit. So at 384 and 512 the two
+// consumer warpgroups share one 64-row q tile and split O's columns, each
+// P V for its D / 2 columns, and the depth of Q K^T: each sums S over its
+// half of the head dim, the two partial S meet in shared memory (a pair
+// barrier a key tile), and each adds the other's to its own: the same S bit
+// for bit in both (s0 + s1 == s1 + s0), so their P agree. (Each computing
+// the whole S instead costs 1.5x the FLOPs; the fused K5 still does.)
+// Shared memory sets the key tile: one stage of K and V is 4 * BK * D bytes,
+// so at 384 and 512 a tile takes 32 keys (48 and 64 KB), three and two stages
+// beside the 48 and 64 KB q tile and the 32 KB of partial S; at 256 a 128-row
+// q tile (64 KB) and two stages of 64 keys (64 KB each). 192 KB of tiles in
+// each case (the `wide_smem_bytes` mirror in ops/_flash_cuda.py).
 // Stages and shared memory: at Dh 128 a stage of 128 keys is 64 KB, so one q
 // tile of 32 KB + 3 stages + mask bytes fill 225 KB of the 227 KB a block
 // may have. At Dh 64 a stage is 32 KB and a q tile 16 KB: the ring has 4
@@ -105,9 +122,24 @@ struct Params {
   int causal;
 };
 
-constexpr int SM90_BQ = 128;
-constexpr int SM90_BK = 128;
 constexpr int SM90_THREADS = 3 * 128;
+
+// Tiles of the Hopper forward by head dim: q rows an item (BQ), keys a K/V
+// tile (BK), stages of the K/V ring (NST), q tiles in flight (QST), and the
+// consumer warpgroups that share each 64 rows of the item, splitting O's
+// columns (SPLIT: 2 where one warpgroup cannot hold 64 x D of O).
+template <int D>
+struct FwdCfg;
+template <>
+struct FwdCfg<64> { static constexpr int BQ = 128, BK = 128, NST = 4, QST = 2, SPLIT = 1; };
+template <>
+struct FwdCfg<128> { static constexpr int BQ = 128, BK = 128, NST = 3, QST = 1, SPLIT = 1; };
+template <>
+struct FwdCfg<256> { static constexpr int BQ = 128, BK = 64, NST = 2, QST = 1, SPLIT = 1; };
+template <>
+struct FwdCfg<384> { static constexpr int BQ = 64, BK = 32, NST = 3, QST = 1, SPLIT = 2; };
+template <>
+struct FwdCfg<512> { static constexpr int BQ = 64, BK = 32, NST = 2, QST = 1, SPLIT = 2; };
 
 struct Sm90Params {
   __nv_bfloat16* o;
@@ -124,15 +156,19 @@ struct Sm90Params {
 
 template <int D>
 struct Sm90Smem {  // byte offsets from the 1024-aligned base
-  static constexpr int NST = D == 64 ? 4 : 3;  // K/V stages
-  static constexpr int QST = D == 64 ? 2 : 1;  // q tiles: the next item's loads early
-  static constexpr int QBOX = SM90_BQ * BOX_ROW_BYTES;  // one box of a q tile
+  using C = FwdCfg<D>;
+  static constexpr int NST = C::NST;  // K/V stages
+  static constexpr int QST = C::QST;  // q tiles: the next item's loads early
+  static constexpr int QBOX = C::BQ * BOX_ROW_BYTES;  // one box of a q tile
   static constexpr int QTILE = (D / 64) * QBOX;
   static constexpr int Q = 0;
   static constexpr int RING = Q + QST * QTILE;
-  static constexpr int MASK = RING + NST * KVRing<SM90_BK, D>::STAGE;
+  // SPLIT 2: the two warpgroups' partial S of a tile, two tiles' worth
+  // (sm90_attend's depth split): [2][2][BK / 8][128] float4
+  static constexpr int X = RING + NST * KVRing<C::BK, D>::STAGE;
+  static constexpr int MASK = X + (C::SPLIT == 2 ? 2 * 2 * 128 * (C::BK / 2) * 4 : 0);
   // full[NST], empty[NST], q loaded[QST], q free[QST]
-  static constexpr int BARS = MASK + NST * SM90_BK;
+  static constexpr int BARS = MASK + NST * C::BK;
   static constexpr int TILES = BARS + (2 * NST + 2 * QST) * 8;  // each q tile's key tiles
   static constexpr int END = TILES + 16;
   static constexpr int BYTES = END + 1024;  // slack to align the base
@@ -142,7 +178,9 @@ template <int D>
 __device__ __forceinline__ void fwd_sm90(const CUtensorMap* tq, const CUtensorMap* tk,
                                          const CUtensorMap* tv, const Sm90Params& p) {
   using S = Sm90Smem<D>;
+  using C = FwdCfg<D>;
   constexpr int NST = S::NST, QST = S::QST;
+  constexpr int SM90_BQ = C::BQ, SM90_BK = C::BK, SPLIT = C::SPLIT, DO = D / SPLIT;
   extern __shared__ __align__(16) unsigned char sm90_smem[];
   unsigned char* smem = sm90_smem + ((1024 - (smem_u32(sm90_smem) & 1023)) & 1023);
   const uint32_t base = smem_u32(smem);
@@ -210,39 +248,52 @@ __device__ __forceinline__ void fwd_sm90(const CUtensorMap* tq, const CUtensorMa
       nt = item + gridDim.x < items ? item_tiles(item + gridDim.x) : -1;
     }
   } else {  // consumers: warpgroup wg owns q rows q0 + 64 wg .. of each item
+            // (SPLIT 2: both own rows q0 .., wg the columns DO wg ..)
     setmaxnreg_inc<232>();
     const int warp = (threadIdx.x % 128) / 32;
+    const int rw = SPLIT == 1 ? wg : 0;       // the warpgroup's 64 rows of the item
+    const int c0 = SPLIT == 1 ? 0 : wg * DO;  // its columns of O
     uint32_t n = 0;
     Pipe pp;
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
       const int qt = item % nqt, bh = item / nqt;
       const int b = bh / p.H, h = bh % p.H;
-      const int row_a = qt * SM90_BQ + wg * 64 + warp * 16 + lane / 4;
+      const int row_a = qt * SM90_BQ + rw * 64 + warp * 16 + lane / 4;
       const int qs = n % QST;
-      const uint32_t qrows = S::Q + qs * S::QTILE + wg * 64 * BOX_ROW_BYTES;
+      const uint32_t qrows = S::Q + qs * S::QTILE + rw * 64 * BOX_ROW_BYTES;
       mbar_wait(&q_loaded[qs], (n / QST) & 1);
       const int nt = tiles_s[qs];
       if (p.sin != nullptr) {  // RoPE of this warpgroup's q rows, in place
-        rope_q_rows<D>(smem + qrows, smem + qrows + S::QBOX, p.sin, p.cos,
-                       qt * SM90_BQ + wg * 64, p.Lq, threadIdx.x % 128);
+        if constexpr (D <= 128) {
+          rope_q_rows<D>(smem + qrows, smem + qrows + S::QBOX, p.sin, p.cos,
+                         qt * SM90_BQ + wg * 64, p.Lq, threadIdx.x % 128);
+        } else {  // SPLIT 2: the two warpgroups rotate their shared rows together
+          rope_q_rows_wide<D>(smem + qrows, S::QBOX, p.sin, p.cos, qt * SM90_BQ + rw * 64,
+                              p.Lq, threadIdx.x % (128 * SPLIT), 128 * SPLIT);
+        }
         fence_async_smem();
-        warpgroup_sync(1 + wg);
+        if constexpr (SPLIT == 1) {
+          warpgroup_sync(1 + wg);
+        } else {
+          pair_sync();
+        }
       }
-      float o[D / 2], m_r[2], l_r[2];
-      sm90_attend<SM90_BK, NST, true, D>(base + qrows, S::QBOX, base + S::RING, mask_s,
-                                         p.mask != nullptr, full, empty, pp, &q_free[qs],
-                                         row_a, p.Lk, nt, p.scale_log2, p.causal, o, m_r, l_r);
-      write_stats(p.stats, bh, (long long)p.B * p.H, p.Lq, row_a, m_r, l_r);
+      float o[DO / 2], m_r[2], l_r[2];
+      sm90_attend<SM90_BK, NST, true, D, DO, SPLIT == 2>(
+          base + qrows, S::QBOX, base + S::RING, mask_s, p.mask != nullptr, full, empty, pp,
+          &q_free[qs], row_a, p.Lk, nt, p.scale_log2, p.causal, o, m_r, l_r, c0,
+          reinterpret_cast<float*>(smem + S::X));
+      if (c0 == 0) write_stats(p.stats, bh, (long long)p.B * p.H, p.Lq, row_a, m_r, l_r);
       // l >= 1: the row maximum contributes exp2(0)
       const float inv[2] = {1.f / l_r[0], 1.f / l_r[1]};
-      __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh + 2 * (lane & 3);
+      __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh + c0 + 2 * (lane & 3);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row_a + 8 * r;
         if (row >= p.Lq) continue;
         __nv_bfloat16* orow = og + (long long)row * p.o_sl;
 #pragma unroll
-        for (int jn = 0; jn < D / 8; ++jn) {
+        for (int jn = 0; jn < DO / 8; ++jn) {
           *reinterpret_cast<uint32_t*>(orow + jn * 8) =
               pack_bf16(o[4 * jn + 2 * r] * inv[r], o[4 * jn + 2 * r + 1] * inv[r]);
         }
@@ -268,10 +319,23 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   fwd_sm90<D>(&tq, &tk, &tv, p);
 }
 
-// The kernel of an entry: K1's, or K3's long one at D.
+// K1 and K3 in bf16 at Dh 256, 384 or 512 (K3 at the widths a head dim is
+// padded to above 128).
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv, const Sm90Params p) {
+  fwd_sm90<D>(&tq, &tk, &tv, p);
+}
+
+// The kernel of an entry: K1's, K3's long one at D, or the wide one (both
+// entries) at D above 128.
 template <int D, bool LONG>
 const void* fwd_kernel() {
-  if constexpr (LONG) {
+  if constexpr (D > 128) {
+    return reinterpret_cast<const void*>(&flash_fwd_wide_sm90_kernel<D>);
+  } else if constexpr (LONG) {
     return reinterpret_cast<const void*>(&flash_long_fwd_kernel<D>);
   } else {
     static_assert(D == 128, "K1 takes Dh 128");
@@ -296,14 +360,14 @@ int launch_sm90(Params p, int B, __nv_bfloat16* k_rot, cudaStream_t stream) {
   s.B = B; s.H = p.H; s.Lq = p.Lq; s.Lk = p.Lk;
   s.scale_log2 = p.scale_log2;
   s.causal = p.causal;
+  using C = FwdCfg<D>;
   CUtensorMap tq, tk, tv;
-  int err = encode_head_map(&tq, p.q, p.Lq, p.H, B, p.q_sl, p.q_sh, p.q_sb, SM90_BQ, &s.q_hi,
-                            D);
+  int err = encode_head_map(&tq, p.q, p.Lq, p.H, B, p.q_sl, p.q_sh, p.q_sb, C::BQ, &s.q_hi, D);
   if (err == 0) {
-    err = encode_head_map(&tk, p.k, p.Lk, p.H, B, p.k_sl, p.k_sh, p.k_sb, SM90_BK, &s.k_hi, D);
+    err = encode_head_map(&tk, p.k, p.Lk, p.H, B, p.k_sl, p.k_sh, p.k_sb, C::BK, &s.k_hi, D);
   }
   if (err == 0) {
-    err = encode_head_map(&tv, p.v, p.Lk, p.H, B, p.v_sl, p.v_sh, p.v_sb, SM90_BK, &s.v_hi, D);
+    err = encode_head_map(&tv, p.v, p.Lk, p.H, B, p.v_sl, p.v_sh, p.v_sb, C::BK, &s.v_hi, D);
   }
   if (err != 0) return err;
   const void* kernel = fwd_kernel<D, LONG>();
@@ -313,7 +377,7 @@ int launch_sm90(Params p, int B, __nv_bfloat16* k_rot, cudaStream_t stream) {
   int sms = 0;
   cerr = num_sms(&sms);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  const long long items = (long long)((p.Lq + SM90_BQ - 1) / SM90_BQ) * B * p.H;
+  const long long items = (long long)((p.Lq + C::BQ - 1) / C::BQ) * B * p.H;
   const int grid = static_cast<int>(items < sms ? items : sms);
   void* args[] = {&tq, &tk, &tv, &s};
   cerr = cudaLaunchKernel(kernel, dim3(grid), dim3(SM90_THREADS), args, Sm90Smem<D>::BYTES,
@@ -322,7 +386,7 @@ int launch_sm90(Params p, int B, __nv_bfloat16* k_rot, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- SIMT kernels: fp32 operands, and bf16 at Dh 256 to 512 ----------------
+// ---- SIMT kernel: fp32 operands at Dh 256 to 512 ---------------------------
 // The tiled SIMT attention of flash_common.cuh (simt_attend_tiles): a block
 // of 4 or 8 warps owns 16 or 32 query rows of one (batch, head), 4 a warp,
 // and streams the head's K and V through shared memory in tiles of 32 keys,
@@ -332,11 +396,8 @@ int launch_sm90(Params p, int B, __nv_bfloat16* k_rot, cudaStream_t stream) {
 // K3 for fp32 operands in every layout: the packed [B, L, H*Dh] and fused
 // [B, L, 3D] views are strides like any other (in a fused view the head
 // stride Dh is smaller than the row stride 3D; nothing here assumes
-// otherwise). bf16 at D 256, 384, 512 (flash_fwd_wide_bf16_kernel<D>)
-// serves K1 at those head dims and K3 at the widths a head dim is padded to
-// above 128: it reads bf16, computes in fp32, rounds P to bf16 before P V,
-// writes bf16. K, when RoPE is on, was rotated by the pre-pass of the
-// operands' type; q is rotated while it is copied into shared memory.
+// otherwise). K, when RoPE is on, was rotated by the fp32 pre-pass; q is
+// rotated while it is copied into shared memory.
 //
 // What bounds it: the same 4*Lq*Lk*D FLOP as the Hopper kernels, here on the
 // CUDA cores (67 TFLOP/s fp32 on an H100, no TF32 for fp32 operands), and
@@ -408,13 +469,6 @@ __global__ void __launch_bounds__(SIMT_WARPS<D> * 32) flash_fwd_f32_kernel(
   fwd_simt<float, D>(p);
 }
 
-// bf16 at D 256 to 512: K1 at those head dims, K3 at the padded widths.
-template <int D>
-__global__ void __launch_bounds__(SIMT_WARPS<D> * 32) flash_fwd_wide_bf16_kernel(
-    const SimtParams<__nv_bfloat16> p) {
-  fwd_simt<__nv_bfloat16, D>(p);
-}
-
 template <typename T, int D>
 cudaError_t launch_simt(SimtParams<T> p, int B, T* k_rot, cudaStream_t stream) {
   if (p.sin != nullptr) {  // rotate K once into the scratch, then read it there
@@ -427,12 +481,7 @@ cudaError_t launch_simt(SimtParams<T> p, int B, T* k_rot, cudaStream_t stream) {
     p.k_sl = D;
   }
   using S = FwdTiles<D, SIMT_WARPS<D>>;
-  const void* kernel;
-  if constexpr (sizeof(T) == 4) {
-    kernel = reinterpret_cast<const void*>(&flash_fwd_f32_kernel<D>);
-  } else {
-    kernel = reinterpret_cast<const void*>(&flash_fwd_wide_bf16_kernel<D>);
-  }
+  const void* kernel = reinterpret_cast<const void*>(&flash_fwd_f32_kernel<D>);
   static bool ready[MAX_DEVICES] = {};  // one per instance: one per kernel
   cudaError_t err = allow_smem_once(kernel, S::BYTES, ready);
   if (err != cudaSuccess) return err;
@@ -667,18 +716,39 @@ int deepcoro_flash_fwd_f32_regtile_attrs(int Dh, int* regs, int* smem) {
   return 0;
 }
 
-// bf16 of every layout at Dh 256, 384 or 512, on flash_fwd_wide_bf16_kernel<Dh>.
+// bf16 of every layout (K1's packed and fused views, K3's [B, H, L, Dh] and
+// its transposed views) at Dh 256, 384 or 512, on
+// flash_fwd_wide_sm90_kernel<Dh>.
 int deepcoro_flash_wide_fwd_bf16(FWD_ARGS) {
   if (sin != nullptr && k_rot == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const SimtParams<__nv_bfloat16> p = simt_params<__nv_bfloat16>(FWD_NAMES);
+  const Params p = fwd_params(FWD_NAMES);
   __nv_bfloat16* kr = static_cast<__nv_bfloat16*>(k_rot);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
-    case 256: return static_cast<int>(launch_simt<__nv_bfloat16, 256>(p, B, kr, st));
-    case 384: return static_cast<int>(launch_simt<__nv_bfloat16, 384>(p, B, kr, st));
-    case 512: return static_cast<int>(launch_simt<__nv_bfloat16, 512>(p, B, kr, st));
+    case 256: return launch_sm90<256, false>(p, B, kr, st);
+    case 384: return launch_sm90<384, false>(p, B, kr, st);
+    case 512: return launch_sm90<512, false>(p, B, kr, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Registers and local memory (spilled) bytes per thread of
+// flash_fwd_wide_sm90_kernel<Dh>, Dh 256, 384 or 512, as the runtime reads
+// them.
+int deepcoro_flash_wide_fwd_attrs(int Dh, int* regs, int* local) {
+  const void* kernel;
+  switch (Dh) {
+    case 256: kernel = fwd_kernel<256, false>(); break;
+    case 384: kernel = fwd_kernel<384, false>(); break;
+    case 512: kernel = fwd_kernel<512, false>(); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *local = static_cast<int>(a.localSizeBytes);
+  return 0;
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 // Flash-attention forward with the output projection fused in, for Hopper
-// (sm_90a), bf16 in/out at Dh 128: y = concat_h(attention_h(q, k, v)) @ wo;
-// fp32 at Dh 128 on a register-tiled CUDA-core kernel, fp32 and bf16 at Dh
-// 256 to 512 on a SIMT kernel (both at the end).
+// (sm_90a), bf16 in/out on the tensor cores: y = concat_h(attention_h(q, k,
+// v)) @ wo, at Dh 128 (flash_fwd_proj_kernel<NWG>) and at 256 to 512
+// (flash_fwd_proj_wide_sm90_kernel<D>); fp32 at Dh 128 on a
+// register-tiled CUDA-core kernel, at 256 to 512 on a SIMT kernel (both at
+// the end).
 //
 // Replaces the Pallas TPU kernel of deepcoro_clip_tpu:
 //   ops/flash_attention_packed.py `_fwd_proj_kernel` (packed [B, L, H*Dh],
@@ -54,6 +56,24 @@
 // 128 KB at H 4 with BQ 128, 96 KB at H 6 with BQ 64, 128 KB at H 8 with
 // BQ 64), the ring (96 KB), 192 mask bytes and the barriers: 225 KB at
 // H = 4, one block per SM.
+//
+// Head dims 256 to 512 (the wide kernel, the same body fwd_proj_sm90): a
+// head's q tile is D / 64 boxes of the output tile, and its K and V stream
+// through the ring in tiles of ProjCfg<D>::BK keys. O of 64 rows x D does
+// not fit one warpgroup's registers at 384 and 512 (see flash_fwd.cu); at
+// 256 a warpgroup of 64 rows of its own spilled and ran no faster over the
+// probing step (PERF.md). So at every wide D the two consumer warpgroups
+// share 64 rows (kSplit): each computes the same S and its half of O's
+// columns (1.5x the attention's FLOPs: the depth split of flash_fwd.cu's
+// partial S needs 16 to 32 KB that the output tile and the ring leave at 256
+// and 512 only with fewer stages), and of each 128-column chunk of y its 64
+// columns. The output tile [64, H * Dh] is at most 128 KB;
+// `wide_proj_smem_bytes` in
+// ops/_flash_cuda.py mirrors the layout. Any Dout: wo's columns past the
+// last whole 64 are read as zeros by TMA, a box wholly past them is not
+// read, and y's columns past Dout are not stored; wo's rows are 16-byte
+// aligned only at a multiple of 8 columns, so the caller pads wo to that
+// width (`wo_cols`).
 
 #include "fwd_f32_regtile.cuh"
 #include "sm90_common.cuh"
@@ -62,11 +82,25 @@
 
 namespace {
 
-constexpr int PBK = 64;  // keys per streamed tile
-constexpr int PNST = 3;  // stages of the ring
-using PRing = KVRing<PBK>;
-static_assert(PRing::STAGE == 128 * 128 * 2, "a stage holds one [128, 128] wo tile");
+constexpr int PBK = 64;  // keys per streamed tile at Dh 128
+constexpr int PNST = 3;  // stages of the ring at Dh 128
 constexpr int MAX_HEADS = 8;  // H * 128 <= 1024
+constexpr int WO_TILE = 128 * 128 * 2;  // bytes of a [128, 128] tile of wo
+
+// Tiles by head dim: keys a K/V tile (BK) and stages of the ring (NST). A
+// stage holds one [128, 128] tile of wo too. The output tile [BQ, H * D]
+// takes up to 128 KB, so the ring has what is left: at 256 three stages of 32
+// keys (32 KB each), at 384 two of 32 (48 KB), at 512 three of 16 (32 KB).
+template <int D>
+struct ProjCfg;
+template <>
+struct ProjCfg<128> { static constexpr int BK = PBK, NST = PNST; };
+template <>
+struct ProjCfg<256> { static constexpr int BK = 32, NST = 3; };
+template <>
+struct ProjCfg<384> { static constexpr int BK = 32, NST = 2; };
+template <>
+struct ProjCfg<512> { static constexpr int BK = 16, NST = 3; };
 
 struct ProjParams {
   __nv_bfloat16* y;         // [B, Lq, Dout] contiguous
@@ -77,46 +111,65 @@ struct ProjParams {
   float* stats;             // [2, B*H, Lq] fp32 row max and row sum, or null
   long long o_sb, o_sh, o_sl;
   int B, H, Lq, Lk, Dout;
+  int wo_cols;              // columns of wo in device memory (Dout, or more)
   float scale_log2;
   int causal;
   int q_hi, k_hi, v_hi;  // coordinate order of each head map
 };
 
-// Byte offsets from the 1024-aligned base for H heads and NWG consumers.
+// Byte offsets from the 1024-aligned base for H heads of D columns and BQ
+// rows a block.
+template <int D>
 struct ProjSmem {
   int obox, ring, mask, bars, bytes;
-  __host__ __device__ ProjSmem(int H, int nwg) {
-    obox = nwg * 64 * BOX_ROW_BYTES;  // one box of the output tile: BQ rows
-    ring = 2 * H * obox;
-    mask = ring + PNST * PRing::STAGE;
-    bars = mask + PNST * PBK;
-    bytes = bars + (2 * PNST + H) * 8 + 1024;  // slack to align the base
+  __host__ __device__ ProjSmem(int H, int bq) {
+    using C = ProjCfg<D>;
+    obox = bq * BOX_ROW_BYTES;  // one box of the output tile: BQ rows
+    ring = H * (D / 64) * obox;
+    mask = ring + C::NST * KVRing<C::BK, D>::STAGE;
+    bars = mask + C::NST * C::BK;
+    bytes = bars + (2 * C::NST + H) * 8 + 1024;  // slack to align the base
   }
 };
 
-template <int NWG>
-__global__ void __launch_bounds__((NWG + 1) * 128, 1)
-    flash_fwd_proj_kernel(const __grid_constant__ CUtensorMap tq,
-                          const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ CUtensorMap two, const ProjParams p) {
-  constexpr int BQ = NWG * 64;
+// Consumer warpgroups that share a row of y: one at Dh 128, two at 256 to
+// 512 (each with half of O's columns and half of each 128-column chunk of y).
+template <int D>
+constexpr int kSplit = D == 128 ? 1 : 2;
+
+// The body of both kernels: NWG consumer warpgroups, kSplit<D> to a row.
+template <int D, int NWG>
+__device__ __forceinline__ void fwd_proj_sm90(const CUtensorMap* tq, const CUtensorMap* tk,
+                                              const CUtensorMap* tv, const CUtensorMap* two,
+                                              const ProjParams& p) {
+  using C = ProjCfg<D>;
+  constexpr int BK = C::BK, NST = C::NST;
+  using R = KVRing<BK, D>;
+  static_assert(R::STAGE >= WO_TILE, "a stage holds one [128, 128] tile of wo");
+  constexpr int SPLIT = kSplit<D>;
+  static_assert(SPLIT == 1 || NWG == 2, "two warpgroups share rows");
+  constexpr int BQ = NWG * 64 / SPLIT;
+  constexpr int DO = D / SPLIT;   // columns of O a warpgroup computes
+  constexpr int NB = D / 64;      // boxes of a head's columns
+  constexpr int YN = 128 / SPLIT; // columns of a chunk of y a warpgroup sums
+  constexpr int OBOX = BQ * BOX_ROW_BYTES;  // one box of the output tile: BQ rows
   extern __shared__ __align__(16) unsigned char sm90_smem[];
   unsigned char* smem = sm90_smem + ((1024 - (smem_u32(sm90_smem) & 1023)) & 1023);
   const uint32_t base = smem_u32(smem);
-  const ProjSmem lay(p.H, NWG);
+  const ProjSmem<D> lay(p.H, BQ);
   uint8_t* mask_s = smem + lay.mask;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
-  uint64_t* empty = full + PNST;
-  uint64_t* q_loaded = empty + PNST;  // one per head
+  uint64_t* empty = full + NST;
+  uint64_t* q_loaded = empty + NST;  // one per head
 
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
-  const int nchunks = p.Dout / 128;
+  const int nchunks = (p.Dout + 127) / 128;
+  const int kts = p.H * D / 128;  // [128, 128] tiles of wo down a chunk
   if (threadIdx.x == 0) {
-    for (int s = 0; s < PNST; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(&full[s], 32);
       mbar_init(&empty[s], NWG * 128);
     }
@@ -130,159 +183,229 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
     if ((threadIdx.x / 32) % 4 != 0) return;
     if (lane == 0) {
       for (int h = 0; h < p.H; ++h) {
-        mbar_arrive_expect_tx(&q_loaded[h], 2 * lay.obox);
-        tma_load_head(&tq, base + 2 * h * lay.obox, &q_loaded[h], 0, q0, h, b, p.q_hi);
-        tma_load_head(&tq, base + (2 * h + 1) * lay.obox, &q_loaded[h], 64, q0, h, b,
-                      p.q_hi);
+        mbar_arrive_expect_tx(&q_loaded[h], NB * OBOX);
+        for (int c = 0; c < NB; ++c) {
+          tma_load_head(tq, base + (h * NB + c) * OBOX, &q_loaded[h], 64 * c, q0, h, b,
+                        p.q_hi);
+        }
       }
     }
     Pipe pp;
     const uint8_t* mrow = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
     for (int h = 0; h < p.H; ++h) {
-      produce_kv<PBK, PNST>(&tk, p.k_hi, &tv, p.v_hi, h, b, p.Lk, (p.Lk + PBK - 1) / PBK,
-                            mrow, base + lay.ring, mask_s, full, empty, pp, lane);
+      produce_kv<BK, NST, D>(tk, p.k_hi, tv, p.v_hi, h, b, p.Lk, (p.Lk + BK - 1) / BK, mrow,
+                             base + lay.ring, mask_s, full, empty, pp, lane);
     }
-    // wo tile (c, kt): rows kt*128.. (head kt's columns of the output
-    // tile), columns c*128..; four boxes, [K half][N half]
+    // wo tile (c, kt): rows kt*128.. (the output tile's columns kt*128..),
+    // columns c*128..; four boxes, [K half][N half]; a box wholly past wo's
+    // columns is not loaded (its columns of y are not stored)
     for (int c = 0; c < nchunks; ++c) {
-      for (int kt = 0; kt < p.H; ++kt) {
+      const int nh_live = p.wo_cols - c * 128 > 64 ? 2 : 1;
+      for (int kt = 0; kt < kts; ++kt) {
         mbar_wait(&empty[pp.stage], pp.phase ^ 1);
         if (lane == 0) {
-          const uint32_t st = base + lay.ring + pp.stage * PRing::STAGE;
-          mbar_arrive_expect_tx(&full[pp.stage], PRing::STAGE);
-#pragma unroll
+          const uint32_t st = base + lay.ring + pp.stage * R::STAGE;
+          mbar_arrive_expect_tx(&full[pp.stage], 2 * nh_live * 64 * BOX_ROW_BYTES);
           for (int kh = 0; kh < 2; ++kh) {
-#pragma unroll
-            for (int nh = 0; nh < 2; ++nh) {
-              tma_load_matrix(&two, st + (2 * kh + nh) * 64 * BOX_ROW_BYTES, &full[pp.stage],
+            for (int nh = 0; nh < nh_live; ++nh) {
+              tma_load_matrix(two, st + (2 * kh + nh) * 64 * BOX_ROW_BYTES, &full[pp.stage],
                               c * 128 + nh * 64, kt * 128 + kh * 64);
             }
           }
         } else {
           mbar_arrive(&full[pp.stage]);
         }
-        pp.advance<PNST>();
+        pp.advance<NST>();
       }
     }
-  } else {  // consumers: warpgroup wg owns rows q0 + 64 wg .. of y
+  } else {  // consumers: warpgroup wg owns rows q0 + 64 wg .. of y (SPLIT 2:
+            // both rows q0 .., wg the columns DO wg .. of O and 64 wg .. of a chunk)
     if constexpr (NWG == 2) setmaxnreg_inc<232>();
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
     const int t = lane & 3;
-    const int rl = wg * 64 + warp * 16 + lane / 4;  // this thread's first row in the tile
+    const int rw = SPLIT == 1 ? wg : 0;
+    const int cw = SPLIT == 1 ? 0 : wg;
+    const int c0 = cw * DO;
+    const int rl = rw * 64 + warp * 16 + lane / 4;  // this thread's first row in the tile
     const int row_a = q0 + rl;
+    auto sync_rows = [&]() {  // the warpgroups that share these rows
+      if constexpr (SPLIT == 1) {
+        warpgroup_sync(1 + wg);
+      } else {
+        pair_sync();
+      }
+    };
     Pipe pp;
     for (int h = 0; h < p.H; ++h) {
-      const uint32_t box0 = 2 * h * lay.obox + wg * 64 * BOX_ROW_BYTES;
+      const uint32_t box0 = h * NB * OBOX + rw * 64 * BOX_ROW_BYTES;
       mbar_wait(&q_loaded[h], 0);
       if (p.sin != nullptr) {  // RoPE of this warpgroup's q rows, in place
-        rope_q_rows(smem + box0, smem + box0 + lay.obox, p.sin, p.cos, q0 + wg * 64, p.Lq,
-                    tid);
+        if constexpr (D == 128) {
+          rope_q_rows(smem + box0, smem + box0 + OBOX, p.sin, p.cos, q0 + rw * 64, p.Lq,
+                      tid);
+        } else {
+          rope_q_rows_wide<D>(smem + box0, OBOX, p.sin, p.cos, q0 + rw * 64, p.Lq,
+                              threadIdx.x % (128 * SPLIT), 128 * SPLIT);
+        }
         fence_async_smem();
-        warpgroup_sync(1 + wg);
+        sync_rows();
       }
-      float o[64], m_r[2], l_r[2];
-      sm90_attend<PBK, PNST>(base + box0, lay.obox, base + lay.ring, mask_s,
-                             p.mask != nullptr, full, empty, pp, nullptr, row_a, p.Lk,
-                             (p.Lk + PBK - 1) / PBK, p.scale_log2, p.causal, o, m_r, l_r);
-      write_stats(p.stats, (long long)b * p.H + h, (long long)p.B * p.H, p.Lq, row_a, m_r,
-                  l_r);
-      warpgroup_sync(1 + wg);  // every product that read this head's q is done
+      float o[DO / 2], m_r[2], l_r[2];
+      sm90_attend<BK, NST, true, D, DO>(base + box0, OBOX, base + lay.ring, mask_s,
+                                        p.mask != nullptr, full, empty, pp, nullptr, row_a,
+                                        p.Lk, (p.Lk + BK - 1) / BK, p.scale_log2, p.causal, o,
+                                        m_r, l_r, c0);
+      if (c0 == 0) {
+        write_stats(p.stats, (long long)b * p.H + h, (long long)p.B * p.H, p.Lq, row_a, m_r,
+                    l_r);
+      }
+      sync_rows();  // every product that read this head's q is done
       // l >= 1: the row maximum contributes exp2(0)
       const float inv[2] = {1.f / l_r[0], 1.f / l_r[1]};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row_a + 8 * r;
-        unsigned char* srow = smem + 2 * h * lay.obox + (rl + 8 * r) * BOX_ROW_BYTES + 4 * t;
+        unsigned char* srow =
+            smem + (h * NB + c0 / 64) * OBOX + (rl + 8 * r) * BOX_ROW_BYTES + 4 * t;
         __nv_bfloat16* grow = (p.o != nullptr && row < p.Lq)
                                   ? p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_sl +
-                                        2 * t
+                                        c0 + 2 * t
                                   : nullptr;
 #pragma unroll
-        for (int jn = 0; jn < 16; ++jn) {
+        for (int jn = 0; jn < DO / 8; ++jn) {
           const uint32_t val =
               pack_bf16(o[4 * jn + 2 * r] * inv[r], o[4 * jn + 2 * r + 1] * inv[r]);
-          // column 8 jn + 2 t: box jn / 8, chunk jn % 8 swizzled by the row
-          *reinterpret_cast<uint32_t*>(srow + (jn / 8) * lay.obox +
+          // column c0 + 8 jn + 2 t: box jn / 8 from c0's, chunk jn % 8 swizzled by the row
+          *reinterpret_cast<uint32_t*>(srow + (jn / 8) * OBOX +
                                        (((jn % 8) ^ ((rl + 8 * r) & 7)) * 16)) = val;
           if (grow != nullptr) *reinterpret_cast<uint32_t*>(grow + jn * 8) = val;
         }
       }
     }
     fence_async_smem();  // the output tile's rows, written above, feed wgmma
-    warpgroup_sync(1 + wg);
+    sync_rows();
 
-    // y[64, Dout] = O[64, D] @ wo[D, Dout], one [64, 128] chunk of columns
-    // at a time over the H tiles of 128 rows of wo
+    // y[rows, Dout] = O[rows, H D] @ wo[H D, Dout], one chunk of 128 columns
+    // (SPLIT 2: this warpgroup's 64 of them) at a time over the tiles of 128
+    // rows of wo
+    const bool pairs = (p.Dout & 1) == 0;  // two columns a 4-byte store
     for (int c = 0; c < nchunks; ++c) {
-      float y[64];
-      for (int kt = 0; kt < p.H; ++kt) {
-        const uint32_t st = base + lay.ring + pp.stage * PRing::STAGE;
+      float y[YN / 2];
+      for (int kt = 0; kt < kts; ++kt) {
+        const uint32_t st = base + lay.ring + pp.stage * R::STAGE;
         mbar_wait(&full[pp.stage], pp.phase);
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < 8; ++ks) {
           const int kh = ks / 4;
           const uint64_t da =
-              make_desc(base + (2 * kt + kh) * lay.obox + wg * 64 * BOX_ROW_BYTES, 16, 1024) +
+              make_desc(base + (2 * kt + kh) * OBOX + rw * 64 * BOX_ROW_BYTES, 16, 1024) +
               (ks % 4) * 2;
           const uint64_t db =
-              make_desc(st + 2 * kh * 64 * BOX_ROW_BYTES, 64 * BOX_ROW_BYTES, 1024) +
+              make_desc(st + (2 * kh + cw) * 64 * BOX_ROW_BYTES, 64 * BOX_ROW_BYTES, 1024) +
               (ks % 4) * (16 * BOX_ROW_BYTES / 16);
-          wgmma_ss_n128_tb(y, da, db, kt > 0 || ks > 0);
+          if constexpr (SPLIT == 1) {
+            wgmma_ss_n128_tb(y, da, db, kt > 0 || ks > 0);
+          } else {
+            wgmma_ss_n64_tb(y, da, db, kt > 0 || ks > 0);
+          }
         }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(y);
         mbar_arrive(&empty[pp.stage]);
-        pp.advance<PNST>();
+        pp.advance<NST>();
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row_a + 8 * r;
         if (row >= p.Lq) continue;
-        __nv_bfloat16* yrow = p.y + ((long long)b * p.Lq + row) * p.Dout + c * 128 + 2 * t;
+        const int col0 = c * 128 + cw * 64 + 2 * t;
+        __nv_bfloat16* yrow = p.y + ((long long)b * p.Lq + row) * p.Dout + col0;
 #pragma unroll
-        for (int jn = 0; jn < 16; ++jn) {
-          *reinterpret_cast<uint32_t*>(yrow + jn * 8) =
-              pack_bf16(y[4 * jn + 2 * r], y[4 * jn + 2 * r + 1]);
+        for (int jn = 0; jn < YN / 8; ++jn) {
+          const int col = col0 + jn * 8;
+          const float lo = y[4 * jn + 2 * r], hi = y[4 * jn + 2 * r + 1];
+          if (pairs) {
+            if (col < p.Dout) *reinterpret_cast<uint32_t*>(yrow + jn * 8) = pack_bf16(lo, hi);
+          } else {
+            if (col < p.Dout) yrow[jn * 8] = __float2bfloat16_rn(lo);
+            if (col + 1 < p.Dout) yrow[jn * 8 + 1] = __float2bfloat16_rn(hi);
+          }
         }
       }
     }
   }
 }
 
+// K5 at Dh 128: NWG consumer warpgroups of 64 rows each.
 template <int NWG>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+    flash_fwd_proj_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap two, const ProjParams p) {
+  fwd_proj_sm90<128, NWG>(&tq, &tk, &tv, &two, p);
+}
+
+// K5 in bf16 at Dh 256, 384 or 512: two consumer warpgroups sharing 64 rows.
+template <int D>
+__global__ void __launch_bounds__(3 * 128, 1)
+    flash_fwd_proj_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                                    const __grid_constant__ CUtensorMap tk,
+                                    const __grid_constant__ CUtensorMap tv,
+                                    const __grid_constant__ CUtensorMap two,
+                                    const ProjParams p) {
+  fwd_proj_sm90<D, 2>(&tq, &tk, &tv, &two, p);
+}
+
+// The kernel of (D, NWG), and the most heads it takes: its shared memory
+// attribute is set once, at those heads.
+template <int D, int NWG>
+const void* proj_kernel() {
+  if constexpr (D == 128) {
+    return reinterpret_cast<const void*>(&flash_fwd_proj_kernel<NWG>);
+  } else {
+    return reinterpret_cast<const void*>(&flash_fwd_proj_wide_sm90_kernel<D>);
+  }
+}
+
+template <int D, int NWG>
+constexpr int proj_max_heads() {
+  return D == 128 ? (NWG == 2 ? 4 : MAX_HEADS) : 1024 / D;
+}
+
+template <int D, int NWG>
 int launch(const ProjParams& p, const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, const CUtensorMap& two, cudaStream_t stream) {
-  const ProjSmem lay(p.H, NWG);
-  // the attribute is set once, to the most this kernel takes (at its most heads)
+  constexpr int BQ = NWG * 64 / kSplit<D>;
+  const ProjSmem<D> lay(p.H, BQ);
   static bool ready[MAX_DEVICES] = {};
-  cudaError_t err =
-      allow_smem_once(reinterpret_cast<const void*>(&flash_fwd_proj_kernel<NWG>),
-                      ProjSmem(NWG == 2 ? 4 : MAX_HEADS, NWG).bytes, ready);
+  cudaError_t err = allow_smem_once(proj_kernel<D, NWG>(),
+                                    ProjSmem<D>(proj_max_heads<D, NWG>(), BQ).bytes, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.Lq + NWG * 64 - 1) / (NWG * 64), p.B);
-  flash_fwd_proj_kernel<NWG><<<grid, (NWG + 1) * 128, lay.bytes, stream>>>(tq, tk, tv, two, p);
+  const void* args[] = {&tq, &tk, &tv, &two, &p};
+  err = cudaLaunchKernel(proj_kernel<D, NWG>(), dim3((p.Lq + BQ - 1) / BQ, p.B),
+                         dim3((NWG + 1) * 128), const_cast<void**>(args), lay.bytes, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Consumer warpgroups for H heads: two while the [128, H * 128] output tile
-// fits beside the ring, else one.
+// Consumer warpgroups for H heads at Dh 128: two while the [128, H * 128]
+// output tile fits beside the ring, else one.
 inline int consumers(int H) { return H * 128 <= 512 ? 2 : 1; }
 
 
-// ---- SIMT kernel: fp32 and bf16 at Dh 256 to 512 ---------------------------
-// K5 where the Hopper kernel above and the register-tiled one below do not
-// go: fp32 and bf16 at Dh 256 to 512, H * Dh <= 1024
-// (flash_fwd_proj_f32_kernel<D>, flash_fwd_proj_wide_bf16_kernel<D>). A
-// block owns BQ rows of one batch row (8 or 16: 4 a warp) and all of y's
+// ---- SIMT kernel: fp32 at Dh 256 to 512 ------------------------------------
+// K5 where the Hopper kernels above and the register-tiled one below do not
+// go: fp32 at Dh 256 to 512, H * Dh <= 1024 (flash_fwd_proj_f32_kernel<D>).
+// A block owns BQ rows of one batch row (8 or 16: 4 a warp) and all of y's
 // columns for them: head after
 // head it runs the tiled SIMT attention of flash_common.cuh
 // (simt_attend_tiles, as the SIMT forward of flash_fwd.cu) and puts the
-// head's normalised output, rounded to the operand type as the Pallas kernel
-// rounds it before its product (and, when a gradient is wanted, written to
-// `o` with the row statistics), into a shared fp32 [H * Dh, BQ] tile; then
+// head's normalised output (and, when a gradient is wanted, writes it to
+// `o` with the row statistics) into a shared fp32 [H * Dh, BQ] tile; then
 // the block computes y = tile @ wo with CUDA-core FMAs, a thread a column,
 // summed in fp32 in a fixed order and rounded once: no TF32, no atomics.
 // What bounds it: the attention's 4*Lq*Lk*D FLOP a head on the CUDA cores,
@@ -404,21 +527,10 @@ __global__ void __launch_bounds__(PROJ_WARPS<D> * 32) flash_fwd_proj_f32_kernel(
   fwd_proj_simt<float, D>(p);
 }
 
-template <int D>
-__global__ void __launch_bounds__(PROJ_WARPS<D> * 32) flash_fwd_proj_wide_bf16_kernel(
-    const ProjSimtParams<__nv_bfloat16> p) {
-  fwd_proj_simt<__nv_bfloat16, D>(p);
-}
-
 template <typename T, int D>
 cudaError_t launch_proj_simt(ProjSimtParams<T> p, cudaStream_t stream) {
   using S = ProjSimtSmem<D>;
-  const void* kernel;
-  if constexpr (sizeof(T) == 4) {
-    kernel = reinterpret_cast<const void*>(&flash_fwd_proj_f32_kernel<D>);
-  } else {
-    kernel = reinterpret_cast<const void*>(&flash_fwd_proj_wide_bf16_kernel<D>);
-  }
+  const void* kernel = reinterpret_cast<const void*>(&flash_fwd_proj_f32_kernel<D>);
   // the attribute once, at the most the kernel takes (H * D = PROJ_SIMT_MAX)
   static bool ready[MAX_DEVICES] = {};
   cudaError_t err = allow_smem_once(kernel, S::BYTES, ready);
@@ -626,15 +738,15 @@ cudaError_t launch_proj_regtile(ProjSimtParams<float> p, cudaStream_t stream) {
       long long q_sl, long long k_sb, long long k_sh, long long k_sl, long long v_sb,      \
       long long v_sh, long long v_sl, long long o_sb, long long o_sh, long long o_sl,      \
       float scale, int causal, void *stream
+#define PROJ_NAMES                                                                      \
+  q, k, v, wo, y, o, sin, cos, mask, k_rot, stats, B, H, Lq, Lk, Dh, Dout, q_sb, q_sh, q_sl, \
+      k_sb, k_sh, k_sl, v_sb, v_sh, v_sl, o_sb, o_sh, o_sl, scale, causal, stream
 
-// The SIMT entries: fp32 at Dh 128 to 512, bf16 at Dh 256 to 512.
+// The fp32 entry's launches, at Dh 128 to 512.
 template <typename T>
 int proj_simt(PROJ_ARGS) {
   if (H < 1 || H * Dh > PROJ_SIMT_MAX || Dout < 1 || (sin != nullptr && k_rot == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if constexpr (sizeof(T) != 4) {
-    if (Dh < 256) return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   ProjSimtParams<T> p;
@@ -670,13 +782,9 @@ int proj_simt(PROJ_ARGS) {
   cudaError_t err;
   switch (Dh) {
     case 128:
-      if constexpr (sizeof(T) == 4) {
-        err = rope_k(std::integral_constant<int, 128>());
-        if (err == cudaSuccess) err = launch_proj_regtile(p, st);
-        break;
-      } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
+      err = rope_k(std::integral_constant<int, 128>());
+      if (err == cudaSuccess) err = launch_proj_regtile(p, st);
+      break;
     case 256:
       err = rope_k(std::integral_constant<int, 256>());
       if (err == cudaSuccess) err = launch_proj_simt<T, 256>(p, st);
@@ -695,6 +803,55 @@ int proj_simt(PROJ_ARGS) {
   return static_cast<int>(err);
 }
 
+// The bf16 entries' work at head dim D: K's RoPE pre-pass into `k_rot`,
+// the tensor maps (q, k, v by head; wo [H * D, wo_cols]) and the launch of
+// the kernel of (D, NWG).
+template <int D, int NWG>
+int proj_bf16(PROJ_ARGS, int wo_cols) {
+  constexpr int BQ = NWG * 64 / kSplit<D>;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sin != nullptr) {  // rotate K once into the scratch, then read it there
+    cudaError_t err = launch_rope_rows<D>(
+        static_cast<const __nv_bfloat16*>(k), k_sb, k_sh, k_sl, B, H, Lk,
+        static_cast<const float*>(sin), static_cast<const float*>(cos),
+        static_cast<__nv_bfloat16*>(k_rot), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    k = k_rot;
+    k_sb = (long long)H * Lk * D;
+    k_sh = (long long)Lk * D;
+    k_sl = D;
+  }
+  ProjParams p;
+  p.y = static_cast<__nv_bfloat16*>(y);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.sin = static_cast<const float*>(sin);
+  p.cos = static_cast<const float*>(cos);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.stats = static_cast<float*>(stats);
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
+  p.B = B; p.H = H; p.Lq = Lq; p.Lk = Lk; p.Dout = Dout;
+  p.wo_cols = wo_cols;
+  p.scale_log2 = scale * LOG2E;
+  p.causal = causal;
+  constexpr int BK = ProjCfg<D>::BK;
+  CUtensorMap tq, tk, tv, two;
+  int err = encode_head_map(&tq, q, Lq, H, B, q_sl, q_sh, q_sb, BQ, &p.q_hi, D);
+  if (err == 0) err = encode_head_map(&tk, k, Lk, H, B, k_sl, k_sh, k_sb, BK, &p.k_hi, D);
+  if (err == 0) err = encode_head_map(&tv, v, Lk, H, B, v_sl, v_sh, v_sb, BK, &p.v_hi, D);
+  if (err == 0) err = encode_matrix_map(&two, wo, H * D, wo_cols);
+  if (err != 0) return err;
+  return launch<D, NWG>(p, tq, tk, tv, two, st);
+}
+
+inline int kernel_attrs(const void* kernel, int bytes, int* regs, int* smem) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *smem = bytes;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -710,50 +867,14 @@ extern "C" {
 // row sum) are written when not null: they are what the backward starts
 // from. With sin/cos, `k_rot` is a [B, H, Lk, Dh] bf16 scratch buffer that
 // receives the rotated K.
-int deepcoro_flash_fwd_proj_bf16(
-    const void* q, const void* k, const void* v, const void* wo, void* y, void* o,
-    const void* sin, const void* cos, const void* mask, void* k_rot, void* stats,
-    int B, int H, int Lq, int Lk, int Dh, int Dout,
-    long long q_sb, long long q_sh, long long q_sl,
-    long long k_sb, long long k_sh, long long k_sl,
-    long long v_sb, long long v_sh, long long v_sl,
-    long long o_sb, long long o_sh, long long o_sl,
-    float scale, int causal, void* stream) {
+int deepcoro_flash_fwd_proj_bf16(PROJ_ARGS) {
   if (Dh != 128 || Dout % 128 != 0 || H < 1 || H > MAX_HEADS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (sin != nullptr && k_rot == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (sin != nullptr) {  // rotate K once into the scratch, then read it there
-    cudaError_t err = launch_rope_rows<128>(
-        static_cast<const __nv_bfloat16*>(k), k_sb, k_sh, k_sl, B, H, Lk,
-        static_cast<const float*>(sin), static_cast<const float*>(cos),
-        static_cast<__nv_bfloat16*>(k_rot), st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    k = k_rot;
-    k_sb = (long long)H * Lk * 128;
-    k_sh = (long long)Lk * 128;
-    k_sl = 128;
-  }
-  ProjParams p;
-  p.y = static_cast<__nv_bfloat16*>(y);
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.sin = static_cast<const float*>(sin);
-  p.cos = static_cast<const float*>(cos);
-  p.mask = static_cast<const uint8_t*>(mask);
-  p.stats = static_cast<float*>(stats);
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
-  p.B = B; p.H = H; p.Lq = Lq; p.Lk = Lk; p.Dout = Dout;
-  p.scale_log2 = scale * LOG2E;
-  p.causal = causal;
-  const int nwg = consumers(H);
-  CUtensorMap tq, tk, tv, two;
-  int err = encode_head_map(&tq, q, Lq, H, B, q_sl, q_sh, q_sb, nwg * 64, &p.q_hi);
-  if (err == 0) err = encode_head_map(&tk, k, Lk, H, B, k_sl, k_sh, k_sb, PBK, &p.k_hi);
-  if (err == 0) err = encode_head_map(&tv, v, Lk, H, B, v_sl, v_sh, v_sb, PBK, &p.v_hi);
-  if (err == 0) err = encode_matrix_map(&two, wo, H * 128, Dout);
-  if (err != 0) return err;
-  return nwg == 2 ? launch<2>(p, tq, tk, tv, two, st) : launch<1>(p, tq, tk, tv, two, st);
+  return consumers(H) == 2
+             ? proj_bf16<128, 2>(PROJ_NAMES, Dout)
+             : proj_bf16<128, 1>(PROJ_NAMES, Dout);
 }
 
 // Registers per thread (at entry) and dynamic shared memory per block of
@@ -761,44 +882,57 @@ int deepcoro_flash_fwd_proj_bf16(
 int deepcoro_flash_fwd_proj_attrs(int H, int* regs, int* smem) {
   if (H < 1 || H > MAX_HEADS) return static_cast<int>(cudaErrorInvalidValue);
   const int nwg = consumers(H);
+  return kernel_attrs(nwg == 2 ? proj_kernel<128, 2>() : proj_kernel<128, 1>(),
+                      ProjSmem<128>(H, nwg * 64).bytes, regs, smem);
+}
+
+// bf16 at Dh 256, 384 or 512, H * Dh <= 1024, any Dout >= 1, on
+// flash_fwd_proj_wide_sm90_kernel<Dh>; the arguments mean what they mean
+// above, but `wo` is [H * Dh, Dout rounded up to a multiple of 8] (its rows
+// 16-byte aligned for TMA; the columns past Dout are read and not used).
+int deepcoro_flash_fwd_proj_wide_bf16(PROJ_ARGS) {
+  if (H < 1 || H * Dh > PROJ_SIMT_MAX || Dout < 1 || (sin != nullptr && k_rot == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int wo_cols = (Dout + 7) / 8 * 8;
+  switch (Dh) {
+    case 256: return proj_bf16<256, 2>(PROJ_NAMES, wo_cols);
+    case 384: return proj_bf16<384, 2>(PROJ_NAMES, wo_cols);
+    case 512: return proj_bf16<512, 2>(PROJ_NAMES, wo_cols);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Registers and local memory (spilled) bytes per thread of
+// flash_fwd_proj_wide_sm90_kernel<Dh>, as the runtime reads them.
+int deepcoro_flash_fwd_proj_wide_attrs(int Dh, int* regs, int* local) {
+  const void* kernel;
+  switch (Dh) {
+    case 256: kernel = proj_kernel<256, 2>(); break;
+    case 384: kernel = proj_kernel<384, 2>(); break;
+    case 512: kernel = proj_kernel<512, 2>(); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(
-      &a, nwg == 2 ? reinterpret_cast<const void*>(&flash_fwd_proj_kernel<2>)
-                   : reinterpret_cast<const void*>(&flash_fwd_proj_kernel<1>));
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = a.numRegs;
-  *smem = ProjSmem(H, nwg).bytes;
+  *local = static_cast<int>(a.localSizeBytes);
   return 0;
 }
 
-
-// fp32 operands (Dh 128, 256, 384 or 512) and bf16 at Dh 256, 384 or 512,
-// H * Dh <= 1024, any Dout: fp32 at Dh 128 on
-// flash_fwd_proj_f32_regtile_kernel, the rest on the SIMT kernels; the
-// arguments mean what they mean above (`wo`, `y`, `o` and `k_rot` of the
-// operands' type).
+// fp32 operands (Dh 128, 256, 384 or 512), H * Dh <= 1024, any Dout: at Dh
+// 128 on flash_fwd_proj_f32_regtile_kernel, above on the SIMT kernel; the
+// arguments mean what they mean above (`wo`, `y`, `o` and `k_rot` fp32).
 int deepcoro_flash_fwd_proj_f32(PROJ_ARGS) {
-  return proj_simt<float>(q, k, v, wo, y, o, sin, cos, mask, k_rot, stats, B, H, Lq, Lk, Dh,
-                          Dout, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl, o_sb,
-                          o_sh, o_sl, scale, causal, stream);
+  return proj_simt<float>(PROJ_NAMES);
 }
 
 // Registers per thread and dynamic shared memory per block of
 // flash_fwd_proj_f32_regtile_kernel.
 int deepcoro_flash_fwd_proj_f32_regtile_attrs(int* regs, int* smem) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(
-      &a, reinterpret_cast<const void*>(&flash_fwd_proj_f32_regtile_kernel));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *regs = a.numRegs;
-  *smem = RtTiles<128, RT_PROJ_BK>::BYTES;
-  return 0;
-}
-
-int deepcoro_flash_fwd_proj_wide_bf16(PROJ_ARGS) {
-  return proj_simt<__nv_bfloat16>(q, k, v, wo, y, o, sin, cos, mask, k_rot, stats, B, H, Lq,
-                                  Lk, Dh, Dout, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh,
-                                  v_sl, o_sb, o_sh, o_sl, scale, causal, stream);
+  return kernel_attrs(reinterpret_cast<const void*>(&flash_fwd_proj_f32_regtile_kernel),
+                      RtTiles<128, RT_PROJ_BK>::BYTES, regs, smem);
 }
 
 }  // extern "C"

@@ -4,9 +4,12 @@
 // (flash_bwd.cu `flash_bwd_dkv_sm90_kernel`, `flash_bwd_dq_sm90_kernel`), the
 // ring step K6 at Dh 128 (ring_attention.cu `ring_step_sm90_kernel`), and the
 // [B, H, L, Dh] entry's long calls at Dh 64 and 128 (K3 `flash_long_fwd_kernel`,
-// K4 `flash_long_bwd_dkv_kernel`, `flash_long_bwd_dq_kernel`).
+// K4 `flash_long_bwd_dkv_kernel`, `flash_long_bwd_dq_kernel`); and the
+// bf16 forwards at head dims 256 to 512 (flash_fwd.cu
+// `flash_fwd_wide_sm90_kernel`, K1 and K3; flash_fwd_proj.cu
+// `flash_fwd_proj_wide_sm90_kernel`, K5).
 //
-//   - host: TMA tensor maps for one head's [L, D] rows (D = 64 or 128) of a
+//   - host: TMA tensor maps for one head's [L, D] rows (D = 64 to 512) of a
 //     strided [B, L, H, D] or [B, H, L, D] operand, and for a row-major 2-D
 //     matrix, encoded through cuTensorMapEncodeTiled, which the runtime
 //     hands out (cudaGetDriverEntryPoint: the library links no libcuda);
@@ -23,8 +26,9 @@
 // Layout. Every tile in shared memory is a stack of "boxes" of R rows x 64
 // bf16 values (128 bytes a row) in the 128-byte swizzle that TMA writes and
 // wgmma reads: the 16-byte chunk c of row r sits at chunk c ^ (r % 8). A
-// 128-wide row (Dh) is two boxes, columns 0-63 and 64-127; a 64-wide row is
-// one box. Boxes start on 1024-byte boundaries. Operands whose rows are the
+// D-wide row (Dh) is D / 64 boxes, box i holding columns 64 i .. 64 i + 63
+// (a 128-wide row two, a 64-wide row one). Boxes start on 1024-byte
+// boundaries. Operands whose rows are the
 // product's output rows or columns (Q and K of S = Q K^T, K and V of the
 // backward's transposed scores) are K-major (Dh contiguous); operands whose
 // rows are the reduction axis (V of P V, wo, dO and Q of the backward's dV
@@ -65,8 +69,9 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// One head's rows of a bf16 operand with a contiguous head dim of D (64 or
-// 128) and (row, head, batch) strides in elements. Boxes of `box_rows` rows
+// One head's rows of a bf16 operand with a contiguous head dim of D (64 to
+// 512, a multiple of 64: D / 64 boxes a row) and (row, head, batch) strides
+// in elements. Boxes of `box_rows` rows
 // x 64 columns, 128-byte swizzle; rows past L read as zeros. The dims are
 // ordered by stride (the packed layouts and the text tower's views have
 // heads inside a row, the [B, H, L, D] tensors rows inside a head);
@@ -221,6 +226,12 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
+// Barrier over the 256 threads of two consumer warpgroups (id 3) that share
+// their q rows (the wide forwards' split 2, flash_fwd.cu and flash_fwd_proj.cu).
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -292,6 +303,34 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32]: A and B K-major in shared memory
+// (descriptors), D in the accumulator layout; `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16]: as wgmma_ss_n32.
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A and B K-major in shared memory
 // (descriptors), D in the accumulator layout; `accumulate` 0 overwrites D.
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
@@ -316,6 +355,22 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// S (+)= Q K^T for a key tile of BK (16 to 128) keys: the n-BK product.
+template <int BK>
+__device__ __forceinline__ void wgmma_ss_keys(float (&d)[BK / 2], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  if constexpr (BK == 128) {
+    wgmma_ss_n128(d, da, db, accumulate);
+  } else if constexpr (BK == 64) {
+    wgmma_ss_n64(d, da, db, accumulate);
+  } else if constexpr (BK == 32) {
+    wgmma_ss_n32(d, da, db, accumulate);
+  } else {
+    static_assert(BK == 16, "key tiles of 16, 32, 64 or 128");
+    wgmma_ss_n16(d, da, db, accumulate);
+  }
 }
 
 // D[64 x 128] += A[64 x 16] B[16 x 128]: A in registers (per warp, the
@@ -402,6 +457,39 @@ __device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64], uint64_t da, ui
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A K-major, B MN-major (the
+// transpose bit set), both in shared memory; `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[32], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The 64-column slice j (columns 64 j ..) of an accumulator in the wgmma
+// layout, as the accumulator of an n64 product (32 registers), and the
+// 128-column slice j (columns 128 j ..) as that of an n128 product: the
+// registers of a column block are contiguous (4 a block of 8 columns).
+template <int N>
+__device__ __forceinline__ float (&acc_cols64(float (&d)[N], int j))[32] {
+  return *reinterpret_cast<float(*)[32]>(&d[32 * j]);
+}
+
+template <int N>
+__device__ __forceinline__ float (&acc_cols128(float (&d)[N], int j))[64] {
+  return *reinterpret_cast<float(*)[64]>(&d[64 * j]);
 }
 
 // ---- device: the attention of one head ------------------------------------
@@ -504,6 +592,32 @@ __device__ __forceinline__ void rope_q_rows(unsigned char* box0, unsigned char* 
   }
 }
 
+// Rotate-half RoPE, in place, of 64 rows of a swizzled q tile of D = 256 to
+// 512 columns (D / 64 boxes `box_stride` bytes apart from `box0`) whose
+// first row is token row0, by `nthr` threads (`tid` 0 .. nthr - 1); rows at
+// or past L stay. Column d pairs with d + D / 2: box i with box i + D / 128,
+// at the same offset of the two (the box width divides D / 2), so one 16-byte
+// chunk of each holds 8 whole rotate-half pairs, as at D = 128.
+template <int D>
+__device__ __forceinline__ void rope_q_rows_wide(unsigned char* box0, int box_stride,
+                                                 const float* sin, const float* cos, int row0,
+                                                 int L, int tid, int nthr) {
+  constexpr int HB = D / 128;  // box pairs of a row
+  static_assert(D % 128 == 0 && D >= 256, "head dims 256, 384, 512");
+  for (int i = tid; i < 64 * HB * 8; i += nthr) {
+    const int r = i / (HB * 8), bi = (i / 8) % HB, pc = i & 7;
+    if (row0 + r >= L) continue;
+    const int off = bi * box_stride + r * BOX_ROW_BYTES + pc * 16;
+    RopeTables t;
+    load_rope_tables<D>(t, sin, cos, row0 + r, 64 * bi + (pc ^ (r & 7)) * 8);
+    uint4 a = *reinterpret_cast<const uint4*>(box0 + off);
+    uint4 b = *reinterpret_cast<const uint4*>(box0 + off + HB * box_stride);
+    rope_chunk(a, b, t);
+    *reinterpret_cast<uint4*>(box0 + off) = a;
+    *reinterpret_cast<uint4*>(box0 + off + HB * box_stride) = b;
+  }
+}
+
 // ---- the key extent: which key tiles a q tile must visit --------------------
 //
 // A key that a row cannot attend (masked, or after the row under causal
@@ -577,14 +691,17 @@ __device__ __forceinline__ int visit_keys(int e, int f, int Lq, int Lk, int q0, 
 }
 
 // A tile of BK keys of one head: K's D/64 boxes, then V's, in one stage of
-// the ring (stage s at `ring + s * STAGE`), and the keys' mask as BK / 32
-// words at `mask_s + s * BK / 8` (bit k % 32 of word k / 32: key k of the
-// tile exists and is not masked; the callers give mask_s BK bytes a stage).
+// the ring (stage s at `ring + s * STAGE`), and the keys' mask as MW words
+// (BK / 32, or one for a tile of 16 keys) at `mask_s + s * MASK` (bit k % 32
+// of word k / 32: key k of the tile exists and is not masked; the callers
+// give mask_s at least MASK bytes a stage).
 template <int BK, int D = 128>
 struct KVRing {
   static constexpr int BOXES = D / 64;  // boxes of one operand's row
   static constexpr int BOX = BK * BOX_ROW_BYTES;
   static constexpr int STAGE = 2 * BOXES * BOX;
+  static constexpr int MW = (BK + 31) / 32;
+  static constexpr int MASK = 4 * MW;
 };
 
 // The producer side of one head's keys, tiles 0 .. ntiles - 1: one warp
@@ -613,15 +730,15 @@ __device__ __forceinline__ void produce_kv(const CUtensorMap* tk, int k_hi,
       }
     }
     if (mrow != nullptr) {  // the loads of a lane in flight together
-      uint8_t x[BK / 32];
+      uint8_t x[R::MW];
 #pragma unroll
-      for (int u = 0; u < BK / 32; ++u) {
+      for (int u = 0; u < R::MW; ++u) {
         const int key = j * BK + lane + 32 * u;
-        x[u] = key < Lk ? mrow[key] : 0;
+        x[u] = (lane + 32 * u < BK && key < Lk) ? mrow[key] : 0;
       }
-      uint32_t* words = reinterpret_cast<uint32_t*>(mask_s + pp.stage * (BK / 8));
+      uint32_t* words = reinterpret_cast<uint32_t*>(mask_s + pp.stage * R::MASK);
 #pragma unroll
-      for (int u = 0; u < BK / 32; ++u) {
+      for (int u = 0; u < R::MW; ++u) {
         const uint32_t w = __ballot_sync(0xffffffffu, x[u] != 0);
         if (lane == 0) words[u] = w;  // released by lane 0's arrival below
       }
@@ -640,10 +757,15 @@ __device__ __forceinline__ float fast_exp2(float x) {  // exp2(-inf) = 0
 // The consumer side: one warpgroup's 64 q rows against the key tiles 0 ..
 // ntiles - 1 of one head (those produce_kv loads; keys >= Lk do not exist),
 // online softmax, everything in registers. `q_box0` is the shared address
-// of the rows' first box (columns 0-63), `q_box_stride` the bytes to their
-// second (at D = 128). On return this thread holds, for its rows row_a = q0
-// + 16 * warp + lane / 4 and row_b = row_a + 8, the un-normalised output
-// (o[4 j + e]: column 8 j + 2 (lane % 4) + (e & 1), row_a for e < 2),
+// of the rows' first box (columns 0-63), `q_box_stride` the bytes from one
+// of their boxes to the next. The warpgroup computes the output columns c0
+// .. c0 + DO - 1 (c0 a multiple of 64; all D by default): at head dims 384
+// and 512 two warpgroups share 64 rows, each with half the columns, and
+// their P must agree bit for bit: each computes the same S with the same
+// products in the same order or, with XS, half of its depth, the two halves
+// summed through `sx` (exchange below). On return this thread holds, for its rows
+// row_a = q0 + 16 * warp + lane / 4 and row_b = row_a + 8, the un-normalised
+// output (o[4 j + e]: column c0 + 8 j + 2 (lane % 4) + (e & 1), row_a for e < 2),
 // the row maxima m_r (log2 units, scale folded in) and the row sums l_r
 // (>= 1, reduced over the row's four threads). The warpgroup has released
 // every stage it read (every consumer thread arrives on `empty`) and, when
@@ -658,21 +780,30 @@ __device__ __forceinline__ float fast_exp2(float x) {  // exp2(-inf) = 0
 // memory; the scale, the mask (from the tile's bytes in shared memory), the
 // running maximum and P_j = exp2(S_j - m) in registers; P_j rounded to bf16
 // becomes, without leaving the registers, the A operand of O += P_j V_j,
-// BK/16 wgmma of 64 x D x 16 with V read MN-major. The two
+// BK/16 steps of wgmma of 64 x 128 x 16 (and one of 64 x 64 x 16 where DO is
+// not a multiple of 128) over the DO columns, with V read MN-major. The two
 // products overlap the softmax: S_j is issued together with O += P_{j-1}
 // V_{j-1}, and the softmax of S_j runs while the tensor cores do the
 // latter; O is rescaled once that product is in.
-template <int BK, int NST, bool FRESH = true, int D = 128>
+template <int BK, int NST, bool FRESH = true, int D = 128, int DO = D, bool XS = false>
 __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stride,
                                             uint32_t ring, const uint8_t* mask_s,
                                             bool has_mask, uint64_t* full, uint64_t* empty,
                                             Pipe& pp, uint64_t* q_release, int row_a,
                                             int Lk, int ntiles, float scale_log2, int causal,
-                                            float (&o)[D / 2], float (&m_r)[2],
-                                            float (&l_r)[2]) {
+                                            float (&o)[DO / 2], float (&m_r)[2],
+                                            float (&l_r)[2], int c0 = 0, float* sx = nullptr) {
   using R = KVRing<BK, D>;
   constexpr int NS = BK / 2;  // S accumulator registers
-  constexpr int NO = D / 2;   // O accumulator registers
+  constexpr int NO = DO / 2;  // O accumulator registers
+  constexpr uint32_t WFULL = BK >= 32 ? ~0u : (1u << BK) - 1u;  // a mask word, every key
+  static_assert(DO % 64 == 0 && D % DO == 0, "O in whole 64-column blocks");
+  // XS: the two warpgroups that share these rows (DO = D / 2) split the
+  // depth of Q K^T too, each the half at its own columns (KS of the D / 16
+  // steps), and sum the two partial S through `sx`
+  constexpr int KS = XS ? D / 32 : D / 16;
+  static_assert(!XS || (2 * DO == D && KS % 4 == 0), "a depth split of two whole-box halves");
+  const int ks0 = XS ? (c0 / DO) * KS : 0;
   const int lane = threadIdx.x % 32;
   const int t = lane & 3;
   const int row_b = row_a + 8;
@@ -681,25 +812,55 @@ __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stri
   uint32_t pf[BK / 16][4];  // P of the previous tile, bf16, as A fragments
 
   auto issue_s = [&](int stage) {  // S = Q K^T on the stage's K tile
-    const uint32_t st = ring + stage * R::STAGE;
+    const uint32_t qb = q_box0 + (ks0 / 4) * q_box_stride;
+    const uint32_t kb = ring + stage * R::STAGE + (ks0 / 4) * R::BOX;
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {  // 16 columns of Dh a step: 32 bytes
-      const uint64_t da = make_desc(q_box0 + (ks / 4) * q_box_stride, 16, 1024) + (ks % 4) * 2;
-      const uint64_t db = make_desc(st + (ks / 4) * R::BOX, 16, 1024) + (ks % 4) * 2;
-      if constexpr (BK == 128) {
-        wgmma_ss_n128(s, da, db, ks > 0);
-      } else {
-        wgmma_ss_n64(s, da, db, ks > 0);
-      }
+    for (int ks = 0; ks < KS; ++ks) {  // 16 columns of Dh a step: 32 bytes
+      const uint64_t da = make_desc(qb + (ks / 4) * q_box_stride, 16, 1024) + (ks % 4) * 2;
+      const uint64_t db = make_desc(kb + (ks / 4) * R::BOX, 16, 1024) + (ks % 4) * 2;
+      wgmma_ss_keys<BK>(s, da, db, ks > 0);
     }
     wgmma_commit();
   };
-  auto issue_pv = [&](int stage) {  // O += P V on the stage's V tile
-    const uint64_t dv =
-        make_desc(ring + stage * R::STAGE + R::BOXES * R::BOX, R::BOX, 1024);
+  // XS: this warpgroup's partial S of tile j into its half of the buffer of
+  // the tile's parity, the other's added once both are in (two buffers: the
+  // next tile's write waits for no reader); each thread holds the same S
+  // entries in both, and s0 + s1 == s1 + s0, so both sums agree bit for bit
+  auto exchange = [&](int j) {
+    if constexpr (XS) {
+      constexpr int N4 = NS / 4;
+      const int tid = threadIdx.x % 128, cw = c0 / DO;
+      float4* buf = reinterpret_cast<float4*>(sx) + (j & 1) * 2 * N4 * 128 + tid;
+#pragma unroll
+      for (int i = 0; i < N4; ++i) {
+        buf[(cw * N4 + i) * 128] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+      }
+      pair_sync();
+#pragma unroll
+      for (int i = 0; i < N4; ++i) {
+        const float4 v = buf[((1 - cw) * N4 + i) * 128];
+        s[4 * i] += v.x;
+        s[4 * i + 1] += v.y;
+        s[4 * i + 2] += v.z;
+        s[4 * i + 3] += v.w;
+      }
+    }
+  };
+  auto issue_pv = [&](int stage) {  // O += P V on the stage's V tile, columns c0 ..
+    const uint32_t vt = ring + stage * R::STAGE + (R::BOXES + c0 / 64) * R::BOX;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {  // 16 keys a step: 16 rows of 128 bytes
-      wgmma_rs_tb<D>(o, pf[kk], dv + kk * (16 * BOX_ROW_BYTES / 16));
+#pragma unroll
+      for (int c = 0; c < DO / 128; ++c) {  // 128 columns (two boxes) a product
+        wgmma_rs_n128_tb(acc_cols128(o, c), pf[kk],
+                         make_desc(vt + 2 * c * R::BOX, R::BOX, 1024) +
+                             kk * (16 * BOX_ROW_BYTES / 16));
+      }
+      if constexpr (DO % 128 != 0) {  // the last 64 columns
+        wgmma_rs_n64_tb(acc_cols64(o, DO / 64 - 1), pf[kk],
+                        make_desc(vt + (DO / 64 - 1) * R::BOX, R::BOX, 1024) +
+                            kk * (16 * BOX_ROW_BYTES / 16));
+      }
     }
     wgmma_commit();
   };
@@ -708,15 +869,15 @@ __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stri
   auto softmax = [&](int j, int stage, float (&alpha)[2]) {
     const int kv0 = j * BK;
     float mx[2] = {-INFINITY, -INFINITY};
-    uint32_t mw[BK / 32];  // the tile's mask words
-    uint32_t every = ~0u;
-    const uint32_t* words = reinterpret_cast<const uint32_t*>(mask_s + stage * (BK / 8));
+    uint32_t mw[R::MW];  // the tile's mask words
+    uint32_t every = WFULL;
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(mask_s + stage * R::MASK);
 #pragma unroll
-    for (int w = 0; w < BK / 32; ++w) {
-      mw[w] = has_mask ? words[w] : ~0u;
+    for (int w = 0; w < R::MW; ++w) {
+      mw[w] = has_mask ? words[w] : WFULL;
       every &= mw[w];
     }
-    if (every == ~0u && !causal && kv0 + BK <= Lk) {  // every key exists, none masked
+    if (every == WFULL && !causal && kv0 + BK <= Lk) {  // every key exists, none masked
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
         s[i] *= scale_log2;
@@ -728,7 +889,7 @@ __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stri
       // (selects, no branches: a branch an element made a masked call far
       // slower than an unmasked one)
 #pragma unroll
-      for (int w = 0; w < BK / 32; ++w) mw[w] >>= 2 * t;
+      for (int w = 0; w < R::MW; ++w) mw[w] >>= 2 * t;
       // the tile's keys kl that exist (kl < exist) and that rows a and b may
       // attend under causal masking (kl <= lim)
       const int exist = Lk - kv0 - 2 * t;
@@ -789,10 +950,11 @@ __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stri
   issue_s(pp.stage);
   wgmma_wait<0>();
   fence_regs(s);
+  exchange(0);
   softmax(0, pp.stage, alpha);  // alpha = 0 against the empty state
   if constexpr (!FRESH) {  // a carried output is rescaled to the new maxima
 #pragma unroll
-    for (int jn = 0; jn < D / 8; ++jn) {
+    for (int jn = 0; jn < DO / 8; ++jn) {
       o[4 * jn + 0] *= alpha[0];
       o[4 * jn + 1] *= alpha[0];
       o[4 * jn + 2] *= alpha[1];
@@ -810,13 +972,14 @@ __device__ __forceinline__ void sm90_attend(uint32_t q_box0, uint32_t q_box_stri
     issue_pv(prev);
       wgmma_wait<1>();  // S_j is in; O += P_{j-1} V_{j-1} may still run
     fence_regs(s);
+    exchange(j);
     softmax(j, pp.stage, alpha);
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(pf);
     mbar_arrive(&empty[prev]);
 #pragma unroll
-    for (int jn = 0; jn < D / 8; ++jn) {
+    for (int jn = 0; jn < DO / 8; ++jn) {
       o[4 * jn + 0] *= alpha[0];
       o[4 * jn + 1] *= alpha[0];
       o[4 * jn + 2] *= alpha[1];

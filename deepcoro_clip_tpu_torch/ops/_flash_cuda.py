@@ -11,7 +11,10 @@ head dim of ``HEAD_DIMS`` (64 to 512; the packed layouts at multiples of
 the packed entry's forward (K1) and backward (K2) at Dh 128, the ``[B, H,
 L, Dh]`` entry's (K3, K4) at Dh 64 and 128 under the kernels' ``long``
 names, each skipping the key tiles past a q tile's key extent
-(``visit_keys`` mirrors the rule). At Lq, Lk <= ``SHORT_MAX`` (and Dh <=
+(``visit_keys`` mirrors the rule). In bf16 at Dh 256 to 512
+(``WIDE_DIMS``) the forward of both entries runs the wide Hopper kernel
+``flash_fwd_wide_sm90_kernel<Dh>`` on the same body (``WIDE_FWD_TILES``,
+``wide_smem_bytes``). At Lq, Lk <= ``SHORT_MAX`` (and Dh <=
 128) the ``[B, H, L, Dh]`` entry takes ``short_forward`` and
 ``short_backward`` instead (behind ``ShortAttention`` when a gradient is
 wanted): the one-kernel forward and backward of ``csrc/flash_short.cu``
@@ -21,13 +24,14 @@ runs the CUDA-core kernels of the same files: fp32 operands of every layout
 at every head dim (``*_f32``: the forward and the backward at Dh 64 and
 128, and K5 at 128, on the register-tiled kernels of
 ``csrc/fwd_f32_regtile.cuh`` and ``csrc/bwd_f32_regtile.cuh``, the rest on
-the SIMT ones), and bf16 at Dh 256 to 512 (``*_wide_bf16``).
+the SIMT ones), and the bf16 backward at Dh 256 to 512 (``*_wide_bf16``).
 ``fwd_symbol``, ``bwd_symbol`` and ``proj_symbol`` name the C entry a call
 runs, ``fwd_kernel_name``, ``bwd_kernel_names`` and ``proj_kernel_name``
 the kernels that entry launches; a call no kernel takes raises there. ``flash_fwd_proj``
 (``csrc/flash_fwd_proj.cu``) is the packed forward with the output
-projection fused in: the Hopper kernel in bf16 at Dh 128, the SIMT kernel
-for fp32 and for bf16 at Dh 256 to 512. The launchers check what the
+projection fused in: the Hopper kernels in bf16 (at Dh 128, and the wide
+one at Dh 256 to 512: ``WIDE_PROJ_TILES``, ``wide_proj_smem_bytes``), the
+CUDA-core kernels for fp32. The launchers check what the
 kernels take, launch on PyTorch's current stream, and raise if a launch
 failed. They count nothing: each entry point counts its own launches.
 
@@ -60,7 +64,18 @@ from deepcoro_clip_tpu_torch.ops.attention import (
 )
 
 HEAD_DIMS = (64, 128, 256, 384, 512)  # the head dims a kernel takes
-HOPPER_DIMS = (64, 128)  # bf16 on the tensor cores; wider bf16 runs the SIMT kernels
+HOPPER_DIMS = (64, 128)  # bf16 on the Hopper kernels of every entry, forward and backward
+# bf16 forwards (K1, K3, K5) at these head dims run the wide Hopper kernels
+# (csrc/flash_fwd.cu flash_fwd_wide_sm90_kernel, csrc/flash_fwd_proj.cu
+# flash_fwd_proj_wide_sm90_kernel); the backward there runs the SIMT kernels
+WIDE_DIMS = (256, 384, 512)
+# the wide K1/K3 kernel's tiles by head dim (FwdCfg in csrc/flash_fwd.cu): q
+# rows an item, keys a K/V tile, stages of the K/V ring, and the consumer
+# warpgroups that share 64 rows, splitting O's columns
+WIDE_FWD_TILES = {256: (128, 64, 2, 1), 384: (64, 32, 3, 2), 512: (64, 32, 2, 2)}
+# the wide K5 kernel's (ProjCfg in csrc/flash_fwd_proj.cu): keys a K/V tile,
+# stages of the ring
+WIDE_PROJ_TILES = {256: (32, 3), 384: (32, 2), 512: (16, 3)}
 PROJ_MAX = 1024  # H * Dh of the fused-projection kernels' shared output tile
 TILE = 64  # rows per tile of the kernels; the backward pads its row values to it
 SHORT_MAX = 64  # Lq and Lk up to this run csrc/flash_short.cu ([B, H, L, Dh] entry)
@@ -193,7 +208,7 @@ def fwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> s
     ``SHORT_MAX`` and Dh <= 128; else a kernel of ``csrc/flash_fwd.cu``:
     in bf16 at Dh 128 K1's Hopper kernel for the packed and fused layouts,
     at Dh 64 and 128 K3's Hopper kernel for ``[B, H, L, Dh]``, at Dh 256 to
-    512 the wide SIMT kernel for both; in fp32 the fp32 entry for every
+    512 the wide Hopper kernel for both; in fp32 the fp32 entry for every
     layout and head dim (``fwd_kernel_name``: the register-tiled kernel at
     Dh 64 and 128, the SIMT one above)."""
     _check_choice(dtype, packed, Dh)
@@ -219,9 +234,9 @@ def bwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> s
 
 def _tile_symbol(direction: str, dtype: torch.dtype, packed: bool, Dh: int) -> str:
     """The entry of ``csrc/flash_{direction}.cu``: the fp32 CUDA-core kernels
-    for fp32, the wide SIMT kernels for bf16 above Dh 128, else K1's or K2's
-    Hopper kernels for the packed layouts and K3's or K4's for ``[B, H, L,
-    Dh]``."""
+    for fp32, the wide entries for bf16 above Dh 128 (the wide Hopper
+    forward, the SIMT backward), else K1's or K2's Hopper kernels for the
+    packed layouts and K3's or K4's for ``[B, H, L, Dh]``."""
     if dtype == torch.float32:
         return f"deepcoro_flash_{direction}_f32"
     if Dh > HOPPER_DIMS[-1]:
@@ -235,8 +250,9 @@ def proj_symbol(dtype: torch.dtype, Dh: int, H: int, Dout: int) -> str:
     """The C entry of ``csrc/flash_fwd_proj.cu`` that runs a forward with
     the fused projection (K5): the Hopper kernel in bf16 at Dh 128 (``Dout
     % 128 == 0``), the fp32 entry at Dh 128 to 512 (``proj_kernel_name``:
-    the register-tiled kernel at 128, the SIMT one above) and the SIMT
-    kernel for bf16 at Dh 256 to 512; every one at ``H * Dh <= PROJ_MAX``."""
+    the register-tiled kernel at 128, the SIMT one above) and the wide
+    Hopper kernel for bf16 at Dh 256 to 512 (any Dout); every one at ``H *
+    Dh <= PROJ_MAX``."""
     _check_choice(dtype, True, Dh)
     if H * Dh > PROJ_MAX:
         raise ValueError(f"the fused-projection kernels take H*Dh <= {PROJ_MAX}, "
@@ -255,7 +271,8 @@ def fwd_kernel_name(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int)
     """The kernel that ``fwd_symbol``'s entry launches for a call, as a
     profiler names it: in fp32 ``flash_fwd_f32_regtile_kernel<Dh>`` at Dh
     64 and 128 (K1, K3) and ``flash_fwd_f32_kernel<Dh>`` above; in bf16
-    the Hopper, long, short or wide kernels."""
+    the Hopper, long or short kernels, and at Dh 256 to 512
+    ``flash_fwd_wide_sm90_kernel<Dh>`` (K1 and K3)."""
     symbol = fwd_symbol(dtype, packed, Lq, Lk, Dh)
     if symbol.startswith("deepcoro_flash_short"):
         return f"flash_short_fwd_{_SUFFIX[dtype]}_kernel"
@@ -264,7 +281,7 @@ def fwd_kernel_name(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int)
             return f"flash_fwd_f32_regtile_kernel<{Dh}>"
         return f"flash_fwd_f32_kernel<{Dh}>"
     if symbol == "deepcoro_flash_wide_fwd_bf16":
-        return f"flash_fwd_wide_bf16_kernel<{Dh}>"
+        return f"flash_fwd_wide_sm90_kernel<{Dh}>"
     if packed:
         return "flash_fwd_sm90_kernel"
     return f"flash_long_fwd_kernel<{Dh}>"
@@ -275,15 +292,47 @@ def proj_kernel_name(dtype: torch.dtype, Dh: int, H: int, Dout: int) -> str:
     ``flash_fwd_proj_f32_regtile_kernel`` at Dh 128 and
     ``flash_fwd_proj_f32_kernel<Dh>`` above; in bf16 the Hopper kernel
     (``flash_fwd_proj_kernel<NWG>``, two consumer warpgroups up to H * 128
-    = 512) or the wide one."""
+    = 512) or, at Dh 256 to 512, the wide one
+    (``flash_fwd_proj_wide_sm90_kernel<Dh>``)."""
     proj_symbol(dtype, Dh, H, Dout)  # raises for what no kernel takes
     if dtype == torch.float32:
         if Dh == REGTILE_PROJ_DIM:
             return "flash_fwd_proj_f32_regtile_kernel"
         return f"flash_fwd_proj_f32_kernel<{Dh}>"
     if Dh > HOPPER_DIMS[-1]:
-        return f"flash_fwd_proj_wide_bf16_kernel<{Dh}>"
+        return f"flash_fwd_proj_wide_sm90_kernel<{Dh}>"
     return f"flash_fwd_proj_kernel<{2 if H * Dh <= 512 else 1}>"
+
+
+def _ring_stage(Dh: int, keys: int) -> int:
+    """Bytes of a stage of the Hopper kernels' K/V ring (``KVRing``): K's
+    and V's ``Dh / 64`` boxes of ``keys`` rows of 128 bytes."""
+    return 2 * (Dh // 64) * keys * 128
+
+
+def wide_smem_bytes(Dh: int) -> int:
+    """Dynamic shared memory a block of ``flash_fwd_wide_sm90_kernel<Dh>``
+    takes (``Sm90Smem`` in ``csrc/flash_fwd.cu``): the q tile (``Dh / 64``
+    boxes of ``rows x 128`` bytes), the K/V ring, at split 2 the two
+    warpgroups' partial S of two key tiles (fp32), a mask byte a key a
+    stage, the barriers (full and empty a stage, loaded and free a q tile),
+    the q tile's key-tile count and 1 KB to align the base."""
+    rows, keys, stages, split = WIDE_FWD_TILES[Dh]
+    q = (Dh // 64) * rows * 128
+    partial_s = 2 * 2 * 128 * (keys // 2) * 4 if split == 2 else 0
+    bars = q + stages * _ring_stage(Dh, keys) + partial_s + stages * keys
+    return bars + (2 * stages + 2) * 8 + 16 + 1024
+
+
+def wide_proj_smem_bytes(Dh: int, H: int) -> int:
+    """Dynamic shared memory a block of the wide K5 kernel takes at ``H``
+    heads (``ProjSmem`` in ``csrc/flash_fwd_proj.cu``): the output tile
+    ``[64, H*Dh]`` bf16 (the two consumer warpgroups share its rows), the
+    K/V ring, a mask byte a key a stage, the barriers (full and empty a
+    stage, a q tile's a head) and 1 KB to align the base."""
+    keys, stages = WIDE_PROJ_TILES[Dh]
+    mask = H * Dh * 64 * 2 + stages * _ring_stage(Dh, keys)
+    return mask + stages * keys + (2 * stages + H) * 8 + 1024
 
 
 def bwd_kernel_names(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> tuple:
@@ -409,6 +458,29 @@ def hopper_kernel_attrs(heads=(4, 6)) -> dict:
             raise RuntimeError(f"cudaFuncGetAttributes failed on {kernel}")
         out[key] = {"kernel": kernel, "registers": regs.value, "smem_bytes": smem.value,
                     "consumers": 1 if (which, dh) == (0, 64) else 2, "setmaxnreg": False}
+    return out
+
+
+def wide_kernel_attrs() -> dict:
+    """Registers per thread (at entry; ``setmaxnreg`` gives a consumer
+    warpgroup 232) and local memory (spilled) bytes per thread of the wide
+    Hopper forwards, as the runtime reads them from the built libraries
+    (``cudaFuncGetAttributes``): ``flash_fwd_wide_sm90_kernel<Dh>`` and
+    ``flash_fwd_proj_wide_sm90_kernel<Dh>`` at each of ``WIDE_DIMS``. What
+    ``chip_smoke.py`` reports beside ptxas."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    ip = ctypes.POINTER(ctypes.c_int)
+    out = {}
+    for key, lib, entry, kernel in (
+            ("K1/K3", "flash_fwd", "deepcoro_flash_wide_fwd_attrs", "flash_fwd_wide_sm90_kernel"),
+            ("K5", "flash_fwd_proj", "deepcoro_flash_fwd_proj_wide_attrs",
+             "flash_fwd_proj_wide_sm90_kernel")):
+        fn = _c_fn(lib, entry, [_I, ip, ip])
+        for dh in WIDE_DIMS:
+            if fn(dh, ctypes.byref(regs), ctypes.byref(local)) != 0:
+                raise RuntimeError(f"cudaFuncGetAttributes failed on {kernel}<{dh}>")
+            out[f"{key} wide Dh {dh}"] = {"kernel": f"{kernel}<{dh}>", "registers": regs.value,
+                                          "local_bytes": local.value, "dh": dh}
     return out
 
 
@@ -555,7 +627,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel is ``_tile_symbol``'s: bf16 at Dh 128 packed
     ``flash_fwd_sm90_kernel``, bf16 at Dh 64 / 128 otherwise
     ``flash_long_fwd_kernel<Dh>``, bf16 at Dh 256 to 512
-    ``flash_fwd_wide_bf16_kernel<Dh>``, fp32 ``flash_fwd_f32_regtile_kernel<Dh>``
+    ``flash_fwd_wide_sm90_kernel<Dh>``, fp32 ``flash_fwd_f32_regtile_kernel<Dh>``
     at Dh 64 / 128 and ``flash_fwd_f32_kernel<Dh>`` above
     (``fwd_kernel_name``)."""
     _check_problem(q, k, v, sin, cos, kv_mask)
@@ -653,7 +725,9 @@ def flash_fwd_proj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``wo`` is ``[H*Dh, Dout]`` of their type, contiguous; the kernel is
     ``proj_symbol``'s. ``out`` (a ``[B, H, Lq, Dh]`` view) and ``stats``
     (fp32 ``[2, B, H, Lq]``) receive the attention output and the row
-    statistics for the backward; both or neither are given."""
+    statistics for the backward; both or neither are given. The wide bf16
+    kernel reads ``wo`` padded to a multiple of 8 columns (a copy, where
+    Dout is not one)."""
     _check_problem(q, k, v, sin, cos, kv_mask)
     mask = mask_arg(kv_mask, strided=False)
     device = q.device
@@ -683,6 +757,10 @@ def flash_fwd_proj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"tensor on {device}")
     for name, t in operands:
         _check_operand(name, t, device, q.dtype)
+    if symbol == "deepcoro_flash_fwd_proj_wide_bf16" and Dout % 8:
+        # TMA reads wo by rows of a multiple of 16 bytes: the entry takes it
+        # padded to a multiple of 8 columns
+        wo = torch.nn.functional.pad(wo, (0, 8 - Dout % 8))
     k_rot = None if sin is None else torch.empty(
         (B, H, Lk, Dh), dtype=q.dtype, device=device)
     err = _fwd_proj_fn(symbol)(

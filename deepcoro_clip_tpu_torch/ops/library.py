@@ -6,12 +6,12 @@ opaque node whose body launches the hand-written kernel:
 
 - ``deepcoro::attention``: ``attention_forward`` of ``ops/_flash_cuda.py``
   without row statistics. The ``"packed"`` and ``"fused"`` layouts are K1
-  (``csrc/flash_fwd.cu``: the Hopper kernel in bf16 at Dh 128, the SIMT
-  kernels in fp32 and in bf16 at Dh 256 to 512; RoPE, key mask, causal);
-  the ``"heads"`` layout is K3 (``csrc/flash_short.cu`` at Lq, Lk <= 64 and
-  Dh <= 128, else the long bf16 Hopper kernel at Dh 64 / 128 or a SIMT
-  kernel of ``csrc/flash_fwd.cu``; bf16 or fp32, Dh 64 to 512, the caller
-  having padded any other Dh);
+  (``csrc/flash_fwd.cu``: the Hopper kernels in bf16 at Dh 128 and at 256
+  to 512, the CUDA-core kernels in fp32; RoPE, key mask, causal); the
+  ``"heads"`` layout is K3 (``csrc/flash_short.cu`` at Lq, Lk <= 64 and Dh
+  <= 128, else the long bf16 Hopper kernel at Dh 64 / 128, the wide one at
+  256 to 512, or an fp32 kernel of ``csrc/flash_fwd.cu``; bf16 or fp32, Dh
+  64 to 512, the caller having padded any other Dh);
 - ``deepcoro::attention_proj``: ``attention_proj_forward`` without
   residuals, K5 (``csrc/flash_fwd_proj.cu``, packed or fused, bf16 or fp32,
   the output projection ``wo`` inside the kernel).

@@ -1790,3 +1790,221 @@ def test_regtile_bwd_kernels_by_name(cuda):
         names = _kernels_run(backward(fn, leaves))
         assert all(_ran(names, w) for w in want), names
         assert not any(_ran(names, w) for w in not_want), names
+
+
+# --------------------------------------------------------------------------- #
+# the wide bf16 forwards on the tensor cores: K1 and K3 at Dh 256 to 512 on
+# flash_fwd_wide_sm90_kernel<Dh>, K5 there on
+# flash_fwd_proj_wide_sm90_kernel<Dh>. The forward against the plain
+# version by TOL; K5's y against the plain output's product with wo in fp32
+# by WIDE_PROJ_TOL (y is rounded once to bf16 from a sum over up to 1024
+# bf16 products of the bf16-rounded output, as test_simt_packed_kernels_
+# match_plain holds it); the gradients (the wide SIMT backward from the new
+# forward's row statistics) by chip_smoke.py's relative l2 of 1e-2
+# (BWD_L2_REL). q and k are drawn WIDE_QK times wider than v (std 1.5: the
+# scores' std is 2.25 and the softmax peaked, as chip_smoke.py's
+# WIDE_QK_SCALE), so that a wrong rotation or mask moves the output far past
+# the bars; the forward is held by a relative l2 of WIDE_FWD_L2 too.
+
+WIDE_PROJ_TOL = dict(atol=3e-2, rtol=3e-2)
+WIDE_BWD_L2 = 1e-2
+WIDE_FWD_L2 = 1e-2
+WIDE_QK = 3.0
+BF = torch.bfloat16
+
+
+def _wide_randn(shape, D, g, device):
+    """A ``[..., 3D]`` qkv at std 0.5, its first 2D columns (q and k)
+    WIDE_QK times wider, in bf16."""
+    x = torch.randn(*shape, generator=g, device=device) * 0.5
+    x[..., :2 * D] *= WIDE_QK
+    return x.to(BF)
+
+
+def _fwd_close(got, want, tol=TOL):
+    """Elementwise by ``tol`` and by a relative l2 of WIDE_FWD_L2."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, **tol)
+    err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    assert err <= WIDE_FWD_L2, f"forward rel l2 {err:.3e}"
+
+
+def _rel_l2(name, got, want, one_key=False):
+    """``one_key``: every row sees one key, so dq and dk are 0 up to
+    rounding (held by F32_TOL elementwise, as ``_grad_close`` holds them)."""
+    got, want = got.float(), want.float()
+    if one_key and name in ("dq", "dk"):
+        torch.testing.assert_close(got, want, **F32_TOL, msg=lambda s: f"{name}: {s}")
+        return
+    err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    assert err <= WIDE_BWD_L2 and bool(torch.isfinite(got).all()), f"{name}: rel l2 {err:.3e}"
+
+
+def _wide_kw(mode, Lq, Lk, dh, B, g, device):
+    """rope (Lq = Lk), a key mask whose batch row 1 is fully masked, causal,
+    or nothing."""
+    if mode == "rope":
+        sin, cos = _tables(Lq, dh, device)
+        return dict(sin=sin, cos=cos)
+    if mode == "causal":
+        return dict(causal=True)
+    if mode == "mask":
+        m = torch.rand(B, Lk, generator=g, device=device) > 0.3
+        m[1] = False
+        return dict(kv_mask=m)
+    return {}
+
+
+WIDE_PACKED_CASES = [(256, 2, 393), (256, 4, 200), (384, 1, 130), (384, 2, 65), (512, 1, 65),
+                     (512, 2, 1)]
+
+
+@pytest.mark.parametrize("layout", ["fused", "packed"])
+@pytest.mark.parametrize("mode", ["rope", "mask", "causal", "plain"])
+@pytest.mark.parametrize("dh,H,L", WIDE_PACKED_CASES)
+def test_wide_packed_forward_and_gradients(cuda, dh, H, L, mode, layout):
+    """K1 at Dh 256 to 512 on fused qkv (the fused strides) or three
+    contiguous packed tensors, at lengths ragged against the tiles and at L 1; one launch
+    counted; the wide backward's gradients from the new forward's
+    statistics against flash_bwd_plain."""
+    g = torch.Generator(device=cuda).manual_seed(dh + L)
+    B, D = 2, H * dh
+    qkv = _wide_randn((B, L, 3 * D), D, g, cuda)
+    do = (torch.randn(B, L, D, generator=g, device=cuda) * 0.5).to(BF)
+    kw = _wide_kw(mode, L, L, dh, B, g, cuda)
+    leaves = _packed_leaves(qkv, D, layout)
+    n = flash_attention_packed.launches
+    out = _packed_call(leaves, D, layout, num_heads=H, **kw)
+    assert flash_attention_packed.launches == n + 1
+    heads = [t.unflatten(2, (H, dh)).transpose(1, 2) for t in qkv.split(D, -1)]
+    ref = multi_head_attention(*heads, **kw)
+    _fwd_close(out.detach(), ref.transpose(1, 2).flatten(2))
+    grads = torch.autograd.grad(out, leaves, do)
+    grads = grads[0].split(D, -1) if len(grads) == 1 else grads
+    want = flash_bwd_plain(*heads, do.unflatten(2, (H, dh)).transpose(1, 2), ref, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), grads, want):
+        _rel_l2(name, a.unflatten(2, (H, dh)).transpose(1, 2), w, one_key=L == 1)
+
+
+WIDE_HEADS_CASES = [(192, 130, 130, "rope"), (256, 100, 300, "mask"), (256, 300, 100, "causal"),
+                    (320, 65, 65, "mask"), (384, 1, 200, "mask"), (448, 200, 70, "plain"),
+                    (512, 130, 130, "causal")]
+
+
+@pytest.mark.parametrize("dh,Lq,Lk,mode", WIDE_HEADS_CASES)
+def test_wide_heads_forward_and_gradients(cuda, dh, Lq, Lk, mode):
+    """K3 at the widths a head dim is padded to above 128 (192 -> 256, 320
+    and 384 -> 384, 448 and 512 -> 512), on transposed views of ``[B, L,
+    H*Dh]`` as the text tower hands them, Lq != Lk, Lq 1, a fully masked
+    row; one launch counted; K4's gradients from the new statistics."""
+    g = torch.Generator(device=cuda).manual_seed(dh + Lq + Lk)
+    B, H = 2, 2
+    q, do = ((torch.randn(B, Lq, H * dh, generator=g, device=cuda) * s).to(BF)
+             .unflatten(2, (H, dh)).transpose(1, 2) for s in (0.5 * WIDE_QK, 0.5))
+    k, v = ((torch.randn(B, Lk, H * dh, generator=g, device=cuda) * s).to(BF)
+            .unflatten(2, (H, dh)).transpose(1, 2) for s in (0.5 * WIDE_QK, 0.5))
+    kw = _wide_kw(mode, Lq, Lk, dh, B, g, cuda)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    n = flash_attention.launches
+    out = flash_attention(*leaves, **kw)
+    assert flash_attention.launches == n + 1
+    ref = multi_head_attention(q, k, v, **kw)
+    _fwd_close(out.detach(), ref)
+    want = flash_bwd_plain(q, k, v, do, ref, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), torch.autograd.grad(out, leaves, do), want):
+        _rel_l2(name, a, w)
+
+
+WIDE_PROJ_CASES = [(256, 2, 512), (256, 1, 320), (256, 4, 96), (256, 3, 101), (384, 2, 320),
+                   (384, 1, 96), (512, 2, 512), (512, 1, 7)]
+
+
+@pytest.mark.parametrize("mode", ["rope", "mask", "causal"])
+@pytest.mark.parametrize("dh,H,dout", WIDE_PROJ_CASES)
+def test_wide_fused_projection(cuda, dh, H, dout, mode):
+    """K5 at Dh 256 to 512, H*Dh up to 1024, Dout on and off the 128 grid
+    (96, 320, an odd 101 and 7): y without a gradient against the plain
+    output's product with wo, the same y with the residuals written (one
+    launch each, bit-equal), and the gradients of qkv and wo (the wide
+    backward from the new statistics, two products) against the plain
+    path's."""
+    g = torch.Generator(device=cuda).manual_seed(dh + H + dout)
+    B, L, D = 2, 130, H * dh
+    qkv = _wide_randn((B, L, 3 * D), D, g, cuda)
+    wo = (torch.randn(D, dout, generator=g, device=cuda) * D ** -0.5).to(BF)
+    gy = (torch.randn(B, L, dout, generator=g, device=cuda) * 0.5).to(BF)
+    kw = _wide_kw(mode, L, L, dh, B, g, cuda)
+    heads = [t.unflatten(2, (H, dh)).transpose(1, 2) for t in qkv.split(D, -1)]
+    ref = multi_head_attention(*heads, **kw).transpose(1, 2).flatten(2)
+    n = flash_attention_packed.proj_launches
+    with torch.no_grad():
+        y = flash_attention_packed(qkv=qkv, num_heads=H, wo=wo, **kw)
+    assert y.shape == (B, L, dout)
+    _fwd_close(y, ref.float() @ wo.float(), WIDE_PROJ_TOL)
+    leaves = [qkv.clone().requires_grad_(), wo.clone().requires_grad_()]
+    y2 = flash_attention_packed(qkv=leaves[0], num_heads=H, wo=leaves[1], **kw)
+    assert flash_attention_packed.proj_launches == n + 2
+    assert torch.equal(y, y2.detach())
+    plain = [qkv.clone().requires_grad_(), wo.clone().requires_grad_()]
+    pheads = [t.unflatten(2, (H, dh)).transpose(1, 2) for t in plain[0].split(D, -1)]
+    yref = project_plain(multi_head_attention(*pheads, **kw).transpose(1, 2).flatten(2),
+                         plain[1])
+    for name, a, w in zip(("dqkv", "dwo"), torch.autograd.grad(y2, leaves, gy),
+                          torch.autograd.grad(yref, plain, gy)):
+        _rel_l2(name, a, w)
+
+
+@pytest.mark.parametrize("which", ["K1 Dh 256", "K1 Dh 512", "K3 Dh 384", "K5 Dh 256 H 2",
+                                   "K5 Dh 256 H 4", "K5 Dh 512 H 2"])
+def test_wide_batch_invariant_and_reproducible(cuda, which):
+    """Every row of a B = 4 call bit-equal to the same row called alone (B
+    = 1), and two calls bit-equal: fixed tiles, fixed sums, no atomics."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    dh = int(which.split()[2])
+    H = int(which.split()[-1]) if which.startswith("K5") else 1024 // dh // 2
+    L, D = 393, H * dh
+    sin, cos = _tables(L, dh, cuda)
+    qkv = (torch.randn(4, L, 3 * D, generator=g, device=cuda) * 0.5).to(BF)
+    wo = (torch.randn(D, 512, generator=g, device=cuda) * D ** -0.5).to(BF)
+    mask = torch.rand(4, L, generator=g, device=cuda) > 0.3
+
+    def call(rows):
+        if which.startswith("K1"):
+            return flash_attention_packed(qkv=qkv[rows], num_heads=H, sin=sin, cos=cos)
+        if which.startswith("K5"):
+            return flash_attention_packed(qkv=qkv[rows], num_heads=H, sin=sin, cos=cos, wo=wo)
+        q, k, v = (t.unflatten(2, (H, dh)).transpose(1, 2) for t in qkv[rows].split(D, -1))
+        return flash_attention(q, k, v, kv_mask=mask[rows])
+
+    with torch.no_grad():
+        full = call(slice(0, 4))
+        assert torch.equal(full, call(slice(0, 4)))
+        for b in range(4):
+            assert torch.equal(full[b:b + 1], call(slice(b, b + 1))), f"row {b}"
+
+
+def test_wide_kernels_by_name(cuda):
+    """The profiler names the wide Hopper kernels for bf16 K1 (Dh 256, 384,
+    512), K3 padded (192 -> 256) and K5 (split 1 and 2), and never the
+    SIMT kernels they replaced."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    qkv = (torch.randn(2, 200, 3 * 768, generator=g, device=cuda) * 0.5).to(BF)
+    x = (torch.randn(2, 2, 200, 192, generator=g, device=cuda) * 0.5).to(BF)
+    wo = (torch.randn(768, 512, generator=g, device=cuda) * 0.03).to(BF)
+    wide = qkv[..., :3 * 512]
+    with torch.no_grad():
+        for fn, want in (
+                (lambda: flash_attention_packed(qkv=wide, num_heads=2),
+                 "flash_fwd_wide_sm90_kernel<256>"),
+                (lambda: flash_attention_packed(qkv=qkv, num_heads=2),
+                 "flash_fwd_wide_sm90_kernel<384>"),
+                (lambda: flash_attention_packed(qkv=wide, num_heads=1),
+                 "flash_fwd_wide_sm90_kernel<512>"),
+                (lambda: flash_attention(x, x, x), "flash_fwd_wide_sm90_kernel<256>"),
+                (lambda: flash_attention_packed(qkv=wide, num_heads=2, wo=wo[:512]),
+                 "flash_fwd_proj_wide_sm90_kernel<256>"),
+                (lambda: flash_attention_packed(qkv=qkv, num_heads=2, wo=wo),
+                 "flash_fwd_proj_wide_sm90_kernel<384>")):
+            names = _kernels_run(fn)
+            assert _ran(names, want), names
+            assert not _ran(names, "wide_bf16_kernel"), names

@@ -64,12 +64,13 @@ def test_fp32_forward_runs_the_register_tiled_kernel(packed, L, dh):
     (BF16, True, 1569, 128, "flash_fwd_sm90_kernel"),
     (BF16, False, 512, 64, "flash_long_fwd_kernel<64>"),
     (BF16, False, 10, 64, "flash_short_fwd_bf16_kernel"),
-    (BF16, True, 393, 256, "flash_fwd_wide_bf16_kernel<256>"),
-    (BF16, False, 10, 512, "flash_fwd_wide_bf16_kernel<512>"),
+    (BF16, True, 393, 256, "flash_fwd_wide_sm90_kernel<256>"),
+    (BF16, False, 10, 512, "flash_fwd_wide_sm90_kernel<512>"),
 ])
 def test_other_forward_routes_keep_their_kernels(dtype, packed, L, dh, kernel):
     """Short calls, fp32 past Dh 128, the bf16 Hopper, long and wide
-    kernels: as before the register-tiled kernels came."""
+    kernels: as before the register-tiled kernels came (the wide bf16
+    forward on its Hopper kernel since)."""
     assert fwd_kernel_name(dtype, packed, L, L, dh) == kernel
 
 
@@ -107,7 +108,7 @@ def test_ring_step_unchanged(dh, dtype):
     (F32, 512, 2, 300, "flash_fwd_proj_f32_kernel<512>"),
     (BF16, 128, 4, 512, "flash_fwd_proj_kernel<2>"),
     (BF16, 128, 6, 768, "flash_fwd_proj_kernel<1>"),
-    (BF16, 256, 2, 512, "flash_fwd_proj_wide_bf16_kernel<256>"),
+    (BF16, 256, 2, 512, "flash_fwd_proj_wide_sm90_kernel<256>"),
 ])
 def test_fused_projection_kernel_by_route(dtype, dh, H, dout, kernel):
     """K5 in fp32 at Dh 128 on the register-tiled kernel at any H*Dh up to
