@@ -12,6 +12,8 @@
                                         # reversed rows and gradient accumulation 2
     python3 chip_smoke.py --wide-rows   # the wide bf16 forward's rows and phase 42
                                         # (copy the script into an older tree too)
+    python3 chip_smoke.py --wide-bwd-rows   # the wide bf16 backward's rows and
+                                        # phase 43's steps (likewise)
 
 Phases, each printing one line (or a few) before the last:
 
@@ -363,10 +365,12 @@ Phases, each printing one line (or a few) before the last:
    tiled flash_bwd_dkv_f32_regtile_kernel<128> and
    flash_bwd_dq_f32_regtile_kernel<128>)
    at [16,1569,1536] H 4 (fused and split) and [16,393,1536], in bf16 and
-   fp32 at Dh 256 (H 2) and 512 (H 1), and K1 alone in bf16 at
-   [16,1569,1536] Dh 256 and 512 (bf16 K1, K3 and K5 at Dh 256 to 512 on
-   the wide Hopper kernels flash_fwd_wide_sm90_kernel<Dh> and
-   flash_fwd_proj_wide_sm90_kernel<Dh>); K3/K4 at phase 40's fp32 calls (the
+   fp32 at Dh 256 (H 2) and 512 (H 1), and in bf16 at [16,1569,1536] Dh
+   256 and 512 (bf16 K1, K3 and K5 at Dh 256 to 512 on the wide Hopper
+   kernels flash_fwd_wide_sm90_kernel<Dh> and
+   flash_fwd_proj_wide_sm90_kernel<Dh>, K2 and K4 on
+   flash_bwd_dkv_wide_sm90_kernel<Dh> and flash_bwd_dq_wide_sm90_kernel<Dh>,
+   the bf16 rows with busy times); K3/K4 at phase 40's fp32 calls (the
    text tower's [16,12,128,64] with a real-prefix key mask, the
    aggregator's [16,8,1,64]) and at head dims padded as the JAX wrapper
    pads (Dh 32 with RoPE, 96, 192 in bf16; 192 in fp32); K5 in fp32 at
@@ -382,10 +386,12 @@ Phases, each printing one line (or a few) before the last:
    name on the register-tiled kernels, whose registers and shared memory
    (against the Python mirrors, _flash_cuda.regtile_smem_bytes and
    regtile_bwd_smem_bytes) it prints; the bf16 K1 at Dh 256 and 512, K3
-   padded to 256 and K5 at Dh 256 and 512 traced by name on the wide Hopper
-   kernels (one launch each, counted; the SIMT kernels they replaced not
-   run), their registers and local (spilled) bytes as the runtime reads
-   them; the wide rows' q and k drawn WIDE_QK_SCALE times wider (a peaked
+   padded to 256 and K5 at Dh 256 and 512, and the backward of the K1 and
+   K3 calls (K2, K4), traced by name on the wide Hopper kernels (one launch
+   each, counted; the SIMT kernels they replaced not run), their registers
+   and local (spilled) bytes as the runtime reads them, the backward's
+   shared memory against _flash_cuda.wide_bwd_smem_bytes; the wide rows' q
+   and k drawn WIDE_QK_SCALE times wider (a peaked
    softmax), held by a relative l2 (WIDE_L2_REL) too, and the plain
    version under a mis-paired RoPE shown to fail the bars; the K3 row's
    time split into the host's issue time, pad_head_dim's and the card's
@@ -410,6 +416,21 @@ Phases, each printing one line (or a few) before the last:
    step time (synchronised), a traced step's busy time and the wide
    kernel's share of it by name (the SIMT kernels it replaced not run),
    peak memory;
+43. (inside the corpus, after phase 40) the wide-head training path:
+   config/quality/flagship_quality_train.yaml through main at vit_heads 2
+   (Dh 256) and 1 (Dh 512), one epoch of 3 steps and its validation, each
+   against the same run with the plain attention from the same seed, both
+   at dropout 0 and writing no checkpoint: the first step's loss within
+   WIDE_RUN_FIRST_REL, the later steps' and the validation loss within
+   WIDE_RUN_LOSS_REL, launches per step K1 12, K2 12 (the wide kernels), K3
+   14, K4 14; at the initial weights each video-tower attention parameter's
+   gradient through the kernels, and the tower's, no further from the fp32
+   gradient than the plain bf16 attention's, by cosine (WIDE_GRAD_SLACK;
+   the cosine to the plain bf16 gradient printed; the same check at the
+   recipe's 4 heads, K2's Hopper kernels at Dh 128, as its control); a
+   traced step (the wide kernels by name, no SIMT
+   one; busy time and share, K1's and K2's shares, K2's busy time a call),
+   step time, peak memory;
 then one JSON "kernels" line (K1, K3 forward, K2, K4 backward, K5, K6, and
 the long K3 and K4 kernels an entry each; K3 and K4 list their short and
 long kernels and carry phase 21's rows; every kernel carries the launches
@@ -422,7 +443,9 @@ the bank's, their row at the SigLIP bank's mask and every long row of
 phases 22 to 26 and 31; then an entry each for the SIMT routes of K1 to K6
 with phase 39's rows, their launches on phase 40's fp32 run (K1 to K4),
 phase 41's step (K5) and phase 39's pass (K6), K1 and K5 with phase 42's,
-K1, K3 and K5 with the wide kernels phase 39 traced; phase 42's steps).
+K1 to K4 with phase 43's, K1 to K5 with the wide kernels phase 39 traced;
+then the wide bf16 backward's own entry: launches over phase 43's runs,
+its [16,1569,1536] Dh 256 row, every wide backward row; phase 42's steps).
 
 --compare runs the build, checksums of the outputs of the kernels meant to
 stay bit-equal (K1, K2, K5, K6, the short K3/K4), K1's and K2's times at
@@ -441,6 +464,15 @@ by name).
 (with K4) and K5 at [80,393|1569,1536] Dh 256, and phase 42's four steps,
 against the package of the tree it lies in: the wide bf16 forward's A B B A
 call (an older tree's SIMT kernels by name).
+
+--wide-bwd-rows runs the build, phase 39's bf16 rows of K1 and K2 at Dh
+256 and 512 ([16,393|1569,1536], busy times) and K3 / K4 at [8,2,512,192]
+padded to 256, the split of K2's [16,393,1536] Dh 256 call into the host's
+issue time (flash_bwd's alone beside it) and the card's busy time, and
+phase 43's step at vit_heads 2 and 1 (the gradient
+cosines at the initial weights, step, busy and K2's share, on a rendered
+corpus), against the package of the tree it lies in: the wide bf16
+backward's A B B A call (an older tree's SIMT kernels by name).
 
 --drift renders phase 22's corpus and runs phase 32's config at dropout 0
 through main four times: world 1 (the control), world N (ddp_topology),
@@ -3264,9 +3296,9 @@ def _use_tree_kernel_names() -> None:
     """The long K3/K4 kernels' names in the tree this script runs against:
     this tree's Hopper kernels, or an older tree's mma.sync tile kernels;
     and the fp32 forward's and backward's: the register-tiled kernels, or
-    an older tree's SIMT ones; the wide bf16 forwards': the Hopper kernels,
-    or an older tree's SIMT ones (the A B B A call copies the script into
-    the parent's tree)."""
+    an older tree's SIMT ones; the wide bf16 forwards' and backward's: the
+    Hopper kernels, or an older tree's SIMT ones (the A B B A call copies
+    the script into the parent's tree)."""
     from deepcoro_clip_tpu_torch.ops import _flash_cuda
 
     global TILE_FWD, TILE_BWD, TILE_KERNELS, REGTILE_FWD, REGTILE_PROJ, REGTILE_BWD
@@ -3280,7 +3312,9 @@ def _use_tree_kernel_names() -> None:
     if not hasattr(_flash_cuda, "regtile_bwd_smem_bytes"):  # the fp32 backward on the SIMT ones
         REGTILE_BWD = SIMT_BWD["float32"][1:]
     if not hasattr(_flash_cuda, "wide_smem_bytes"):  # the wide bf16 forwards on the SIMT ones
-        SIMT_FWD["bfloat16"], SIMT_PROJ["bfloat16"] = WIDE_OLD[:1], WIDE_OLD[1:]
+        SIMT_FWD["bfloat16"], SIMT_PROJ["bfloat16"] = WIDE_OLD[:1], WIDE_OLD[1:2]
+    if not hasattr(_flash_cuda, "wide_bwd_smem_bytes"):  # the wide bf16 backward on the SIMT ones
+        SIMT_BWD["bfloat16"] = WIDE_OLD_BWD
 
 
 def _short_name(name: str) -> str:
@@ -7695,17 +7729,22 @@ FP32_PER_EVAL = {"K1": 12, "K2": 0, "K3": 14, "K4": 0, "K5": 0, "K6": 0,
                  "K3 long": 0, "K4 long": 0}
 FP32_PER_BANK = {"K1": 0, "K2": 0, "K3": 12, "K4": 0, "K5": 0, "K6": 0,
                  "K3 long": 0, "K4 long": 0}
-# (bf16 at Dh 256 to 512: the wide Hopper forwards of csrc/flash_fwd.cu and
-# csrc/flash_fwd_proj.cu, which took the SIMT kernels' place; WIDE_OLD names
-# those for an older tree, --wide-rows' A runs)
+# (bf16 at Dh 256 to 512: the wide Hopper kernels of csrc/flash_fwd.cu,
+# csrc/flash_fwd_proj.cu and csrc/flash_bwd.cu, which took the SIMT kernels'
+# place; WIDE_OLD names those SIMT kernels, the forward's, K5's and the
+# backward's pre-pass and pair: an older tree's, --wide-rows' and
+# --wide-bwd-rows' A runs, and what no trace of this tree may show)
 SIMT_FWD = {"float32": ("flash_fwd_f32_kernel",), "bfloat16": ("flash_fwd_wide_sm90_kernel",)}
 SIMT_BWD = {"float32": ("bwd_rows_f32_kernel", "flash_bwd_dkv_f32_kernel",
                         "flash_bwd_dq_f32_kernel"),
-            "bfloat16": ("bwd_rows_wide_bf16_kernel", "flash_bwd_dkv_wide_bf16_kernel",
-                         "flash_bwd_dq_wide_bf16_kernel")}
+            "bfloat16": ("bwd_rows_kernel", "flash_bwd_dkv_wide_sm90_kernel",
+                         "flash_bwd_dq_wide_sm90_kernel")}
 SIMT_PROJ = {"float32": ("flash_fwd_proj_f32_kernel",),
              "bfloat16": ("flash_fwd_proj_wide_sm90_kernel",)}
-WIDE_OLD = ("flash_fwd_wide_bf16_kernel", "flash_fwd_proj_wide_bf16_kernel")
+WIDE_OLD = ("flash_fwd_wide_bf16_kernel", "flash_fwd_proj_wide_bf16_kernel",
+            "bwd_rows_wide_bf16_kernel", "flash_bwd_dkv_wide_bf16_kernel",
+            "flash_bwd_dq_wide_bf16_kernel")
+WIDE_OLD_BWD = WIDE_OLD[2:]
 # fp32 at Dh 64 and 128 (K1, K3) and K5 at Dh 128: the register-tiled
 # kernels of csrc/fwd_f32_regtile.cuh (the SIMT names above serve the wider
 # heads; neither name is a substring of the other)
@@ -8248,10 +8287,13 @@ def phase_simt_kernels(torch) -> dict:
                                       (f32, 16, 2, 256, 393, False),
                                       (bf16, 16, 1, 512, 393, False),
                                       (f32, 16, 1, 512, 393, False)):
-        f, b = _packed_simt_rows(torch, dtype, B, H, Dh, L, split, busy_fwd=dtype == bf16)
+        f, b = _packed_simt_rows(torch, dtype, B, H, Dh, L, split, busy=dtype == bf16,
+                                 busy_fwd=dtype == bf16)
         rows["K1"].append(f)
         rows["K2"].append(b)
-    rows["K1"] += wide_k1_rows(torch)
+    for f, b in wide_1569_rows(torch):
+        rows["K1"].append(f)
+        rows["K2"].append(b)
     # (phase 40's fp32 calls first: the text tower's [16,12,128,64] on the
     # SIMT kernels, the aggregator's [16,8,1,64] on the short fp32 ones)
     for dtype, B, H, L, Dh, rope, what in (
@@ -8260,7 +8302,7 @@ def phase_simt_kernels(torch) -> dict:
             (bf16, 8, 8, 393, 32, True, ""), (bf16, 8, 4, 512, 96, False, ""),
             (bf16, 8, 2, 512, 192, False, ""), (f32, 8, 2, 512, 192, False, "")):
         f, b = _padded_rows(torch, dtype, B, H, L, Dh, rope, what,
-                            busy_fwd=dtype == bf16 and Dh > 128)
+                            busy=dtype == bf16 and Dh > 128, busy_fwd=dtype == bf16 and Dh > 128)
         rows["K3"].append(f)
         rows["K4"].append(b)
     # (phase 41's fp32 calls: the probing encoder's 1569 and 393 tokens)
@@ -8276,13 +8318,13 @@ def phase_simt_kernels(torch) -> dict:
     return rows
 
 
-def wide_k1_rows(torch) -> list:
-    """Phase 39's rows of K1 in bf16 at Dh 256 and 512 at the video tower's
-    1569 tokens (16 clips, H 2 and 1; the forward alone: phase 42's
-    probing step), the wide Hopper kernel's aim rows beside the 393-token
-    ones (with K2) above."""
-    return [_packed_simt_rows(torch, torch.bfloat16, 16, H, Dh, 1569, busy_fwd=True,
-                              fwd_only=True)[0] for H, Dh in ((2, 256), (1, 512))]
+def wide_1569_rows(torch, fwd_only: bool = False) -> list:
+    """Phase 39's rows of K1 and K2 in bf16 at Dh 256 and 512 at the video
+    tower's 1569 tokens (16 clips, H 2 and 1: phase 43's training step; the
+    forward alone with ``fwd_only``: phase 42's probing step), beside the
+    393-token ones above; (K1 row, K2 row or None) each, with busy times."""
+    return [_packed_simt_rows(torch, torch.bfloat16, 16, H, Dh, 1569, busy=not fwd_only,
+                              busy_fwd=True, fwd_only=fwd_only) for H, Dh in ((2, 256), (1, 512))]
 
 
 def wide_k5_rows(torch) -> list:
@@ -8293,14 +8335,21 @@ def wide_k5_rows(torch) -> list:
 
 
 def _wide_routes(torch) -> dict:
-    """Phase 39's traces of the wide bf16 Hopper forwards by name: K1 at
+    """Phase 39's traces of the wide bf16 Hopper kernels by name: K1 at
     ``[16,393,1536]`` (Dh 256, H 2, RoPE; Dh 512, H 1), K3 at
     ``[8,2,512,192]`` with a key mask (padded to 256), K5 at
-    ``[8,393,1536]`` Dh 256 H 2 and Dh 512 H 1, ``wo`` ``[512,512]``: each
-    call counts one launch on its entry point and runs the new kernel, not
-    the SIMT one it replaced. Prints each kernel's registers and local
-    (spilled) bytes a thread as the runtime reads them."""
-    from deepcoro_clip_tpu_torch.ops._flash_cuda import wide_kernel_attrs
+    ``[8,393,1536]`` Dh 256 H 2 and Dh 512 H 1, ``wo`` ``[512,512]``, and
+    the backward of the K1 and K3 calls (K2 at Dh 256 and 512, K4 at the
+    padded 256): each call counts one launch on its entry point and runs
+    the new kernels, not the SIMT ones they replaced. Prints each kernel's
+    registers and local (spilled) bytes a thread as the runtime reads them,
+    and the backward's shared memory a block, held against
+    ``_flash_cuda.wide_bwd_smem_bytes``."""
+    from deepcoro_clip_tpu_torch.ops._flash_cuda import (
+        wide_bwd_kernel_attrs,
+        wide_bwd_smem_bytes,
+        wide_kernel_attrs,
+    )
     from deepcoro_clip_tpu_torch.ops.flash_attention import flash_attention
     from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
     from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
@@ -8312,6 +8361,14 @@ def _wide_routes(torch) -> dict:
         print(f"wide attrs: {key}: {a['kernel']} {a['registers']} registers a thread at entry "
               f"(setmaxnreg: 232 a consumer, 40 the producer), {a['local_bytes']} B of local "
               f"memory a thread (spills) | {CARD}", flush=True)
+    for key, a in wide_bwd_kernel_attrs().items():
+        want = wide_bwd_smem_bytes(a["dh"])["dQ" in key]
+        check(a["smem_bytes"] == want,
+              f"{key}: {a['smem_bytes']} B of shared memory, the Python mirror says {want}")
+        print(f"wide attrs: {key}: {a['kernel']} {a['registers']} registers a thread (two "
+              f"warpgroups, no setmaxnreg), {a['local_bytes']} B of local memory a thread "
+              f"(spills), {a['smem_bytes']} B shared a block (the mirror's) | {CARD}", flush=True)
+        attrs[key] = a
     bf = torch.bfloat16
     qkv = {dh: (torch.randn(16, 393, 1536, generator=g, device=dev) * 0.5).to(bf)
            for dh in (256, 512)}
@@ -8325,6 +8382,16 @@ def _wide_routes(torch) -> dict:
         64, 513, (8, 1), generator=g, device=dev)
     wo = (torch.randn(512, 512, generator=g, device=dev) * 512 ** -0.5).to(bf)
     old_f, old_p = (WIDE_OLD[0],), (WIDE_OLD[1],)
+    # the backward of a K1 and a K3 call: K2 at Dh 256 and 512, K4 padded to 256
+    leaves = {dh: qkv[dh].clone().requires_grad_() for dh in (256, 512)}
+    k1_out = {dh: flash_attention_packed(qkv=leaves[dh], num_heads=1024 // dh // 2, **rope[dh])
+              for dh in (256, 512)}
+    q3_leaves = [u.clone().requires_grad_() for u in q3]
+    k3_out = flash_attention(*q3_leaves, kv_mask=m3)
+
+    def bwd(out, inputs):
+        return lambda: torch.autograd.grad(out, inputs, torch.ones_like(out), retain_graph=True)
+
     cases = {
         "K1 Dh 256": ("wide route K1 bf16 [16,393,1536] H 2 Dh 256, RoPE",
                       (flash_attention_packed, "launches"),
@@ -8347,16 +8414,28 @@ def _wide_routes(torch) -> dict:
                       lambda: flash_attention_packed(qkv=qkv[512][:8], num_heads=1, wo=wo,
                                                      **rope[512]),
                       ("flash_fwd_proj_wide_sm90_kernel<512>",), old_p),
+        "K2 Dh 256": ("wide route K2 bf16 [16,393,1536] H 2 Dh 256, RoPE",
+                      (flash_attention_packed, "bwd_launches"), bwd(k1_out[256], [leaves[256]]),
+                      ("flash_bwd_dkv_wide_sm90_kernel<256>", "flash_bwd_dq_wide_sm90_kernel<256>"),
+                      WIDE_OLD_BWD),
+        "K2 Dh 512": ("wide route K2 bf16 [16,393,1536] H 1 Dh 512, RoPE",
+                      (flash_attention_packed, "bwd_launches"), bwd(k1_out[512], [leaves[512]]),
+                      ("flash_bwd_dkv_wide_sm90_kernel<512>", "flash_bwd_dq_wide_sm90_kernel<512>"),
+                      WIDE_OLD_BWD),
+        "K4": ("wide route K4 bf16 [8,2,512,192] + mask, padded to 256",
+               (flash_attention, "bwd_launches"), bwd(k3_out, q3_leaves),
+               ("flash_bwd_dkv_wide_sm90_kernel<256>", "flash_bwd_dq_wide_sm90_kernel<256>"),
+               WIDE_OLD_BWD),
     }
     ran = {}
-    with torch.no_grad():
-        for key, (label, (entry, counter), fn, want, not_want) in cases.items():
-            n = getattr(entry, counter)
+    for key, (label, (entry, counter), fn, want, not_want) in cases.items():
+        n = getattr(entry, counter)
+        with torch.set_grad_enabled(key.startswith(("K2", "K4"))):
             fn()
             check(getattr(entry, counter) == n + 1,
                   f"{label}: {getattr(entry, counter) - n} launches counted, expected 1")
             ran[key] = check_route(torch, label, fn, want, not_want, untraced_ok=True)
-    del qkv, rope, q3, m3, wo
+    del qkv, rope, q3, m3, wo, leaves, k1_out, q3_leaves, k3_out
     torch.cuda.empty_cache()
     return {"ran": ran, "attrs": attrs}
 
@@ -8698,6 +8777,340 @@ def phase_wide_probe(torch) -> list:
             for fused in (True, False)]
 
 
+# phase 43: the wide-head training path: config/quality/flagship_quality_train.yaml
+# through main at vit_heads 2 and 1 (heads of 256 and 512), its video
+# tower's attention on the wide bf16 Hopper kernels, forward and backward,
+# against the same run with the plain attention from the same seed at
+# dropout 0: the first step's loss within WIDE_RUN_FIRST_REL relative (the
+# same weights, the same batch: the two attentions' bf16 rounding alone),
+# every later step and the validation loss within WIDE_RUN_LOSS_REL (Adam
+# carries that rounding from one step to the next); at the initial weights,
+# the video tower's attention gradients through the kernels, each parameter's
+# and all of them concatenated, no further from the fp32 gradient (the same
+# weights in fp32, the plain attention) than the plain bf16 attention's, by
+# cosine, within WIDE_GRAD_SLACK. The kernels' cosine to the plain bf16
+# attention's is printed, not held: bf16 rounding alone keeps it under
+# 0.999 on the deep blocks' qkv weights whatever the attention (the
+# control at the recipe's 4 heads, K2's Hopper kernels at Dh 128, reads
+# ~0.998 there, and the plain bf16 attention reads ~0.9985 against fp32).
+# Launches a train step,
+# validation batch and bank chunk as phase 22's (QUALITY_PER_*): K1 and K2
+# on the wide kernels in the 12 video blocks.
+WIDE_RUN_FIRST_REL = 1e-3
+WIDE_RUN_LOSS_REL = 1e-2
+WIDE_GRAD_SLACK = 1e-3
+
+
+def _attention_grads(torch, runner, batch, label: str) -> dict:
+    """At the runner's initial weights, its video tower's attention
+    parameters' gradients (``compute_loss``, deterministic) through the
+    kernels (12 K2 launches), with every module's ``use_flash`` off, and in
+    fp32 (the same weights, the plain attention), by cosine: held to
+    WIDE_GRAD_SLACK, each parameter's and the tower's concatenated; the
+    cosine to the plain bf16 gradient printed."""
+    import dataclasses
+
+    from deepcoro_clip_tpu_torch.models.layers import Attention
+    from deepcoro_clip_tpu_torch.train.clip import build_clip_bundle, compute_loss
+
+    b, cfg = runner.bundle, runner.bundle.config
+    flash_mods = [m for tower in (b.video_model, b.text_model) for m in tower.modules()
+                  if hasattr(m, "use_flash")]
+
+    def grads(bundle):
+        params = [prm for m in bundle.video_model.modules() if isinstance(m, Attention)
+                  for prm in m.parameters()]
+        log_temp = torch.tensor(math.log(cfg.temperature), device=bundle.device)
+        out = compute_loss(bundle, log_temp, batch, deterministic=True)
+        return float(out["loss"].detach()), torch.autograd.grad(out["loss"], params)
+
+    def cosine(a, r):
+        a, r = a.double().flatten(), r.double().flatten()
+        return float(torch.dot(a, r) / (torch.linalg.vector_norm(a)
+                                        * torch.linalg.vector_norm(r)).clamp_min(1e-300))
+
+    names = [f"{mn}.{pn}" for mn, m in b.video_model.named_modules() if isinstance(m, Attention)
+             for pn, _ in m.named_parameters()]
+    _zero_kernel_counts()
+    loss_k, gk = grads(b)
+    counts = _kernel_counts()
+    check(counts["K2"] == 12, f"{label}: the gradient launched K2 {counts['K2']}, expected 12")
+    for m in flash_mods:
+        m.use_flash = False
+    try:
+        loss_p, gp = grads(b)
+    finally:
+        for m in flash_mods:
+            m.use_flash = True
+    fb, _ = build_clip_bundle(dataclasses.replace(cfg, precision="fp32",
+                                                  use_pallas_attention=False),
+                              seed=0, steps_per_epoch=QUALITY_TRAIN // 16,
+                              device=str(b.device))
+    fb.video_model.load_state_dict(b.video_model.state_dict())
+    fb.text_model.load_state_dict(b.text_model.state_dict())
+    fb.text_model.proj.dropout = 0.0
+    loss_f, gf = grads(fb)
+    del fb
+    check(_kernel_counts()["K1"] == counts["K1"], f"{label}: a plain gradient launched K1")
+    kf, pf, kp = {}, {}, {}
+    for name, a, r, f in zip(names, gk, gp, gf):
+        kf[name], pf[name], kp[name] = cosine(a, f), cosine(r, f), cosine(a, r)
+        check(bool(torch.isfinite(a).all()) and kf[name] >= pf[name] - WIDE_GRAD_SLACK,
+              f"{label}: {name}'s gradient through the kernels at cosine {kf[name]} to the "
+              f"fp32 gradient, the plain bf16 attention's at {pf[name]} (slack "
+              f"{WIDE_GRAD_SLACK})")
+    whole = [torch.cat([x.flatten() for x in g]) for g in (gk, gp, gf)]
+    tk, tp, tkp = cosine(whole[0], whole[2]), cosine(whole[1], whole[2]), cosine(*whole[:2])
+    check(tk >= tp - WIDE_GRAD_SLACK,
+          f"{label}: the tower's attention gradients through the kernels at cosine {tk} to the "
+          f"fp32 gradient, the plain bf16 attention's at {tp} (slack {WIDE_GRAD_SLACK})")
+    wk, wp = min(kf, key=kf.get), min(kp, key=kp.get)
+    print(f"{label}: at the initial weights, loss through the kernels {loss_k:.6f}, plain bf16 "
+          f"{loss_p:.6f}, fp32 {loss_f:.6f}; the {len(kf)} video-tower attention parameters' "
+          f"gradients at cosine >= {kf[wk]:.6f} to the fp32 gradient ({wk}; the plain bf16 "
+          f"attention's {pf[wk]:.6f}, >= {min(pf.values()):.6f} over all), the tower's "
+          f"{tk:.6f} (plain bf16 {tp:.6f}; bar: no further than it, within {WIDE_GRAD_SLACK}) "
+          f"ok; to the plain bf16 attention's gradient >= {kp[wp]:.6f} ({wp}), the tower's "
+          f"{tkp:.6f}", flush=True)
+    return {"grad_min_cosine_fp32": kf[wk], "grad_worst": wk,
+            "plain_grad_min_cosine_fp32": min(pf.values()), "grad_min_cosine_plain": kp[wp],
+            "grad_worst_plain": wp, "grad_tower_cosine_fp32": tk,
+            "plain_grad_tower_cosine_fp32": tp, "grad_tower_cosine_plain": tkp,
+            "initial_loss": loss_k, "initial_loss_plain": loss_p, "initial_loss_fp32": loss_f}
+
+
+def _quality_runner(torch, manifest: Path, stats: dict, heads: int, out_dir: Path):
+    """The quality recipe's runner at ``vit_heads`` ``heads`` (dropout 0,
+    the text head's projection dropout off as ``_quality_recorder`` sets it)
+    and its first train batch on the card."""
+    from deepcoro_clip_tpu_torch.runners.common import batch_to_device
+    from deepcoro_clip_tpu_torch.runners.contrastive import VideoContrastiveLearningRunner
+
+    cfg = quality_train_config(data_filename=str(manifest), output_dir=str(out_dir), epochs=1,
+                               num_workers=QUALITY_WORKERS, dropout=0.0, vit_heads=heads,
+                               **stats)
+    runner = VideoContrastiveLearningRunner(cfg, output_dir=out_dir)
+    runner.bundle.text_model.proj.dropout = 0.0
+    return runner, batch_to_device(next(iter(runner.loaders["train"])), runner.device)
+
+
+def _wide_train_step(torch, manifest: Path, stats: dict, heads: int, out_dir: Path) -> dict:
+    """Phase 43's step: flagship_quality_train.yaml at ``vit_heads``
+    ``heads`` on one batch of the corpus (``stats``: the dataset statistics,
+    or {} for the runner to compute them). At the runner's initial weights
+    the attention gradients (``_attention_grads``); then a warm step, two
+    on the host clock, one traced: busy time and share, the wide forward's
+    and backward's parts by name (no SIMT wide kernel), K2's busy time a
+    call, peak memory."""
+    dh = 512 // heads
+    label = f"wide training vit_heads {heads} (Dh {dh})"
+    runner, batch = _quality_runner(torch, manifest, stats, heads, out_dir)
+    grads = _attention_grads(torch, runner, batch, label)
+    args = (batch, runner.generator, 0.0, 0.0, -1.0)
+    runner.train_step(runner.state, *args)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        runner.train_step(runner.state, *args)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # this tree's wide kernels (an older tree's SIMT backward: _use_tree_kernel_names)
+    fwd_k = f"{SIMT_FWD['bfloat16'][0]}<{dh}>"
+    rows_k, bwd_k = SIMT_BWD["bfloat16"][0], tuple(f"{n}<{dh}>" for n in SIMT_BWD["bfloat16"][1:])
+    others = tuple(n for n in WIDE_OLD + ("flash_bwd_dkv_wide_sm90_kernel",
+                                          "flash_bwd_dq_wide_sm90_kernel")
+                   if n not in SIMT_FWD["bfloat16"] + SIMT_BWD["bfloat16"])
+    per_name, wall_ms = device_events(torch, lambda: runner.train_step(runner.state, *args),
+                                      expect={fwd_k: 12, bwd_k[0]: 12, bwd_k[1]: 12})
+    print_profile(f"{label} profile", "one step", per_name, wall_ms, top=12)
+    check_main_path_kernels(f"{label} profile, the video tower's K1/K2", per_name,
+                            (fwd_k,) + bwd_k, others + ("flash_fwd_sm90_kernel",
+                                                        "flash_bwd_dkv_sm90_kernel"))
+    busy = sum(per_name.values())
+    fwd = sum(ms for n, ms in per_name.items() if fwd_k in n)
+    # K2: the two wide kernels and their row pre-pass (the video tower's
+    # only rows kernel at Dh 256 / 512)
+    k2 = sum(ms for n, ms in per_name.items()
+             if any(k in n for k in bwd_k) or (rows_k in n and f"<{dh}" in n))
+    print(f"{label}: step {step_ms:.1f} ms (host clock, 2 steps on one batch), busy "
+          f"{busy:.2f} ms of a traced {wall_ms:.1f} ms (share {fmt(share(busy, wall_ms), '.2f')}), "
+          f"the wide K1 {fwd:.2f} ms (share {fmt(share(fwd, busy), '.3f')}), K2 {k2:.2f} ms "
+          f"(share {fmt(share(k2, busy), '.3f')}; {k2 / 12:.3f} ms a call over 3 at 1569 tokens "
+          f"and 9 at 393), peak {peak:.2f} GiB | {CARD}", flush=True)
+    del runner, batch, args
+    torch.cuda.empty_cache()
+    return {"vit_heads": heads, "dh": dh, **grads, "step_ms": step_ms,
+            "busy_ms": busy, "traced_wall_ms": wall_ms, "busy_share": share(busy, wall_ms),
+            "k1_busy_ms": fwd, "k1_share": share(fwd, busy), "k2_busy_ms": k2,
+            "k2_share": share(k2, busy), "k2_busy_ms_a_call": k2 / 12, "step_peak_gib": peak}
+
+
+def _wide_train_run(torch, manifest: Path, stats: dict, heads: int, tmp: Path) -> dict:
+    """Phase 43 at ``vit_heads`` ``heads``: the kernels run and the plain run
+    through main (one epoch, no checkpoint written: the quality run's are
+    phase 22's to check), held to the bars above; launches counted over the
+    kernels run; then ``_wide_train_step``."""
+    from deepcoro_clip_tpu_torch.main import main as port_main
+    from deepcoro_clip_tpu_torch.train.checkpoint import CheckpointManager
+
+    steps = QUALITY_TRAIN // 16
+    dh = 512 // heads
+    label = f"wide training vit_heads {heads} (Dh {dh})"
+    print(f"{label}: config/quality/flagship_quality_train.yaml with vit_heads={heads}, dropout "
+          f"0, epochs 1 ({steps} steps of 16 clips, one validation pass), phase 22's corpus and "
+          f"dataset statistics; against the same run with use_pallas_attention=false; bars: "
+          f"step 0 |loss - loss_plain| <= {WIDE_RUN_FIRST_REL} |loss_plain|, later steps and "
+          f"the validation loss {WIDE_RUN_LOSS_REL}, the attention gradients by cosine no "
+          f"further from fp32 than the plain bf16 attention's (slack {WIDE_GRAD_SLACK}), "
+          f"launches per step K1 12, K2 12 (wide), K3 14, K4 14 | "
+          f"{CARD}", flush=True)
+    runs = {}
+    save = CheckpointManager._save
+    for name, over in (("kernels", {}), ("plain", {"use_pallas_attention": False})):
+        rec = _quality_recorder(torch, 0)
+        cfg = quality_train_config(
+            data_filename=str(manifest), output_dir=str(tmp / f"wide{heads}_{name}"), epochs=1,
+            num_workers=QUALITY_WORKERS, dropout=0.0, vit_heads=heads, **stats, **over)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        CheckpointManager._save = lambda self, name, *a, **kw: self.dir / f"{name}.pt"
+        try:
+            out = port_main(config=cfg)
+        finally:
+            rec["undo"]()
+            CheckpointManager._save = save
+        runs[name] = {"history": out["history"], "wall": time.perf_counter() - t0,
+                      "output_dir": Path(out["output_dir"]),
+                      "counts": {**_kernel_counts(), **_long_counts()},
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "losses": [float(x["loss"]) for x in rec["steps"]]}
+        print(f"{label} ({name}): main took {runs[name]['wall']:.1f} s; losses "
+              + " ".join(f"{x:.6f}" for x in runs[name]["losses"])
+              + f"; val loss {out['history'][0]['val_loss']:.6f}; peak memory "
+              f"{runs[name]['peak_gib']:.2f} GiB | {CARD}", flush=True)
+    k, p = runs["kernels"], runs["plain"]
+    check(len(k["losses"]) == steps == len(p["losses"]),
+          f"{label}: steps {len(k['losses'])} / {len(p['losses'])}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"])]
+    for i, (a, b) in enumerate(zip(k["losses"], p["losses"])):
+        bar = WIDE_RUN_FIRST_REL if i == 0 else WIDE_RUN_LOSS_REL
+        check(math.isfinite(a) and abs(a - b) <= bar * abs(b),
+              f"{label}: step {i} loss {a} vs plain {b} (bar {bar} relative)")
+    va, vb = k["history"][0]["val_loss"], p["history"][0]["val_loss"]
+    check(math.isfinite(va) and abs(va - vb) <= WIDE_RUN_LOSS_REL * abs(vb),
+          f"{label}: val loss {va} vs plain {vb}")
+    want = {key: QUALITY_PER_STEP[key] * steps + QUALITY_PER_EVAL[key]
+            + QUALITY_PER_BANK[key] * _bank_chunks(k["output_dir"], (0,))
+            for key in QUALITY_PER_STEP}
+    print(f"{label}: launches over {steps} train steps, one validation batch and its bank: "
+          + ", ".join(f"{key} {k['counts'][key]} (expected {want[key]})" for key in want),
+          flush=True)
+    check(k["counts"] == want, f"{label}: launches {k['counts']}, expected {want}")
+    check(p["counts"]["K1"] == 0 and p["counts"]["K2"] == 0 and p["counts"]["K3"] == 0,
+          f"{label}: the plain run launched {p['counts']}")
+    print(f"{label}: per-step loss rel |d| " + " ".join(f"{x:.3e}" for x in rel)
+          + f", val loss rel |d| {abs(va - vb) / abs(vb):.3e} (bars {WIDE_RUN_FIRST_REL} at step "
+          f"0, {WIDE_RUN_LOSS_REL} after) ok", flush=True)
+    step = _wide_train_step(torch, manifest, stats, heads, tmp / f"wide{heads}_trace")
+    out = {**step, "counts": k["counts"], "predicted": want, "losses": k["losses"],
+           "plain_losses": p["losses"], "loss_rel_diff": rel,
+           "val_loss_rel_diff": abs(va - vb) / abs(vb), "peak_gib": k["peak_gib"],
+           "plain_peak_gib": p["peak_gib"], "run_s": k["wall"], "plain_run_s": p["wall"],
+           "epoch_seconds": k["history"][0]["epoch_seconds"],
+           "plain_epoch_seconds": p["history"][0]["epoch_seconds"]}
+    print(f"{label}: epoch {out['epoch_seconds']:.2f} s against the plain attention's "
+          f"{out['plain_epoch_seconds']:.2f} s; peak memory {k['peak_gib']:.2f} GiB (plain "
+          f"{p['peak_gib']:.2f}) | {CARD}", flush=True)
+    return out
+
+
+def phase_wide_train_run(torch, manifest: Path, stats: dict, tmp: Path) -> dict:
+    """Phase 43: ``_wide_train_run`` at each of WIDE_HEADS, and the gradient
+    check's control: the same at the recipe's own 4 heads (Dh 128, K2's
+    Hopper kernels)."""
+    runs = [_wide_train_run(torch, manifest, stats, heads, tmp) for heads in WIDE_HEADS]
+    runner, batch = _quality_runner(torch, manifest, stats, 4, tmp / "grad_control")
+    control = _attention_grads(torch, runner, batch, "wide training control: vit_heads 4 (Dh 128)")
+    del runner, batch
+    torch.cuda.empty_cache()
+    return {"runs": runs, "grad_control_vit_heads_4": control}
+
+
+def run_wide_bwd_rows(torch) -> dict:
+    """One run of the wide bf16 backward's A B B A call (``--wide-bwd-rows``)
+    against the package of the tree the script lies in (copy it into an
+    older tree): the build; phase 39's bf16 rows of K1 and K2 at Dh 256 and
+    512 at ``[16,393|1569,1536]`` (with busy times) and of K3 / K4 at
+    ``[8,2,512,192]`` padded to 256; phase 43's step at vit_heads 2 and 1
+    (``_wide_train_step``) on a rendered corpus."""
+    from deepcoro_clip_tpu_torch.ops import _build
+
+    build_kernels(torch, [n for n in ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short")
+                          if (_build.SRC_DIR / f"{n}.cu").exists()])
+    _use_tree_kernel_names()
+    bf16 = torch.bfloat16
+    rows = {k: [] for k in ("K1", "K2", "K3", "K4")}
+    for H, Dh in ((2, 256), (1, 512)):
+        f, b = _packed_simt_rows(torch, bf16, 16, H, Dh, 393, busy=True, busy_fwd=True)
+        rows["K1"].append(f)
+        rows["K2"].append(b)
+    for f, b in wide_1569_rows(torch):
+        rows["K1"].append(f)
+        rows["K2"].append(b)
+    f, b = _padded_rows(torch, bf16, 8, 2, 512, 192, False, busy=True, busy_fwd=True)
+    rows["K3"].append(f)
+    rows["K4"].append(b)
+    split = _wide_bwd_split(torch)
+    with tempfile.TemporaryDirectory() as root:
+        manifest = render_corpus(Path(root))
+        steps = [_wide_train_step(torch, manifest, {}, heads, Path(root) / f"trace{heads}")
+                 for heads in WIDE_HEADS]
+    return {"kernels": {"fwd": SIMT_FWD["bfloat16"], "bwd": SIMT_BWD["bfloat16"]},
+            "rows": rows, "k2_393_split": split, "wide_train_steps": steps}
+
+
+def _wide_bwd_split(torch) -> dict:
+    """Where the time of K2's backward call at ``[16,393,1536]`` Dh 256 (H 2,
+    RoPE) goes (``call_split``): the host's time to issue the
+    ``autograd.grad`` call, that of ``_flash_cuda.flash_bwd`` called alone
+    on the same views (its checks, scratch and the C entry), and the card's
+    busy time by kernel."""
+    from deepcoro_clip_tpu_torch.ops import _flash_cuda
+    from deepcoro_clip_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+    from deepcoro_clip_tpu_torch.ops.rope3d import build_rope3d_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(43)
+    B, L, H, Dh = 16, 393, 2, 256
+    D = H * Dh
+    t = build_rope3d_tables(Dh, 8, 7, 7, n_special=1)
+    rope = dict(sin=torch.from_numpy(t.sin).to(dev), cos=torch.from_numpy(t.cos).to(dev))
+    x = torch.randn(B, L, 3 * D, generator=g, device=dev) * 0.5
+    x[..., :2 * D] *= WIDE_QK_SCALE
+    qkv = x.to(torch.bfloat16).requires_grad_()
+    do = (torch.randn(B, L, D, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    out = flash_attention_packed(qkv=qkv, num_heads=H, **rope)
+    q, k, v = (_to_heads(u, H) for u in qkv.detach().split(D, -1))
+    o, doh = _to_heads(out.detach(), H), _to_heads(do, H)
+    stats = torch.empty(2, B, H, L, device=dev)
+    kw = dict(kv_mask=None, causal=False, scale=Dh ** -0.5, packed=True, **rope)
+    _flash_cuda.flash_fwd(q, k, v, torch.empty_like(o), stats=stats, **kw)
+    grads = [torch.empty_like(u) for u in (q, k, v)]
+    split = call_split(torch, "wide bwd split K2 qkv [16,393,1536] bf16, H 2, Dh 256, RoPE",
+                       lambda: torch.autograd.grad(out, [qkv], do, retain_graph=True),
+                       SIMT_BWD["bfloat16"],
+                       {"flash_bwd alone": lambda: _flash_cuda.flash_bwd(q, k, v, o, doh, stats,
+                                                                         *grads, **kw)})
+    del qkv, do, out, q, k, v, o, doh, grads
+    torch.cuda.empty_cache()
+    return split
+
+
 def run_wide_rows(torch) -> dict:
     """One run of the wide bf16 forward's A B B A call (``--wide-rows``)
     against the package of the tree the script lies in (copy it into an
@@ -8713,7 +9126,7 @@ def run_wide_rows(torch) -> dict:
     bf16 = torch.bfloat16
     rows = {"K1": [_packed_simt_rows(torch, bf16, 16, H, Dh, 393, busy_fwd=True,
                                      fwd_only=True)[0] for H, Dh in ((2, 256), (1, 512))]}
-    rows["K1"] += wide_k1_rows(torch)
+    rows["K1"] += [f for f, _ in wide_1569_rows(torch, fwd_only=True)]
     rows["K3"] = [_padded_rows(torch, bf16, 8, 2, 512, 192, False, busy_fwd=True)[0]]
     rows["K5"] = wide_k5_rows(torch)
     return {"kernels": {"fwd": SIMT_FWD["bfloat16"], "proj": SIMT_PROJ["bfloat16"]},
@@ -8762,16 +9175,18 @@ SIMT_NAMES = {
     "K2": ("flash_attention_packed backward, fp32 and bf16 at Dh 256 to 512 (K2 on the CUDA "
            "cores: bwd_rows_f32_kernel, then flash_bwd_dkv_f32_regtile_kernel<128> and "
            "flash_bwd_dq_f32_regtile_kernel<128> in fp32 at Dh 128, flash_bwd_dkv_f32_kernel<Dh>"
-           " and flash_bwd_dq_f32_kernel<Dh> above, and their _wide_bf16 forms)", BWD_SOURCE,
-           K2_REPLACES),
+           " and flash_bwd_dq_f32_kernel<Dh> above; bf16 on the tensor cores: bwd_rows_kernel, "
+           "then flash_bwd_dkv_wide_sm90_kernel<Dh> and flash_bwd_dq_wide_sm90_kernel<Dh>)",
+           BWD_SOURCE, K2_REPLACES),
     "K3": ("flash_attention, fp32 above 64 tokens and every padded head dim (K3: "
            "flash_fwd_f32_regtile_kernel<64|128> in fp32 at Dh 64 / 128, flash_fwd_f32_kernel, "
            "flash_fwd_wide_sm90_kernel<Dh> in bf16 at a padded 256 to 512, the long kernels at a "
            "padded 64 / 128)", KERNEL_SOURCE, K3_REPLACES),
     "K4": ("flash_attention backward, fp32 above 64 tokens and every padded head dim (K4: "
            "flash_bwd_dkv_f32_regtile_kernel<64|128> and flash_bwd_dq_f32_regtile_kernel<64|128>"
-           " in fp32 at Dh 64 / 128, the SIMT kernels above, the long ones at a padded 64 / 128)",
-           BWD_SOURCE, K4_REPLACES),
+           " in fp32 at Dh 64 / 128, the SIMT kernels above, the long ones at a padded 64 / 128, "
+           "flash_bwd_dkv_wide_sm90_kernel<Dh> and flash_bwd_dq_wide_sm90_kernel<Dh> in bf16 at "
+           "a padded 256 to 512)", BWD_SOURCE, K4_REPLACES),
     "K5": ("flash_attention_packed(wo=), fp32 and bf16 at Dh 256 to 512 (K5 on the CUDA "
            "cores: flash_fwd_proj_f32_regtile_kernel in fp32 at Dh 128, "
            "flash_fwd_proj_f32_kernel<Dh>; bf16 on the tensor cores: "
@@ -8782,14 +9197,16 @@ SIMT_NAMES = {
 }
 
 
-def simt_entries(rows: dict, quality: dict, probe: dict, ranks: dict, wide: list) -> list:
+def simt_entries(rows: dict, quality: dict, probe: dict, ranks: dict, wide: list,
+                 wide_train: list) -> list:
     """The kernels line's entries of the SIMT, register-tiled and wide
     routes: launches on their main paths (phase 40's fp32 run for K1 to K4,
     phase 41's step for K5, phase 39's one-process pass for K6, with phase
-    34's ranks beside it; phase 42's steps for the wide K1 and K5), the
-    first row's numbers (the main path's shape), every row under
-    ``shapes`` and, for K1 to K5, the register-tiled kernels and for K1, K3
-    and K5 the wide ones that phase 39 traced by name."""
+    34's ranks beside it; phase 42's steps for the wide K1 and K5, phase
+    43's runs for the wide K1 to K4), the first row's numbers (the main
+    path's shape), every row under ``shapes`` and, for K1 to K5, the
+    register-tiled kernels and the wide ones that phase 39 traced by name;
+    then the wide backward's own entry (``wide_bwd_entry``)."""
     out = []
     launches = {"K1": quality["counts"]["K1"], "K2": quality["counts"]["K2"],
                 "K3": quality["counts"]["K3"], "K4": quality["counts"]["K4"],
@@ -8814,14 +9231,46 @@ def simt_entries(rows: dict, quality: dict, probe: dict, ranks: dict, wide: list
             e["wide_probe_launches"] = {
                 f"vit_heads {w['vit_heads']}, {'fused' if w['fused'] else 'unfused'}":
                     w["counts"][key] for w in wide}
-        if key in ("K1", "K3", "K5"):  # the wide bf16 Hopper kernels by name, and their blocks
+        if key in ("K1", "K2", "K3", "K4"):  # phase 43's runs, each counted from 0
+            e["wide_train_launches"] = {f"vit_heads {w['vit_heads']}": w["counts"][key]
+                                        for w in wide_train}
+        if key != "K6":  # the wide bf16 Hopper kernels by name, and their blocks
+            group = {"K1": "K1/K3", "K3": "K1/K3", "K2": "K2/K4", "K4": "K2/K4"}.get(key, key)
             e["wide_ran"] = {k: v for k, v in rows["wide"]["ran"].items() if k.startswith(key)}
             e["wide_attrs"] = {k: a for k, a in rows["wide"]["attrs"].items()
-                               if k.startswith("K5" if key == "K5" else "K1/K3")}
+                               if k.startswith(group)}
         if key == "K6":
             e.update(ranks)
         out.append(e)
+    out.append(wide_bwd_entry(rows, wide_train))
     return out
+
+
+def wide_bwd_entry(rows: dict, wide_train: list) -> dict:
+    """The kernels line's entry of the wide bf16 backward (K2 at Dh 256 to
+    512, K4 at the padded widths): launches over phase 43's two kernels
+    runs, its numbers at the training step's ``[16,1569,1536]`` Dh 256 row,
+    every wide row of phase 39 under ``shapes``, the kernels phase 39 traced
+    by name with their blocks, and phase 43's steps."""
+    mine = [r for key in ("K2", "K4") for r in rows[key]
+            if any("wide_sm90" in k for k in r["kernels"])]
+    head = next(r for r in mine if r["shape"].startswith("qkv [16,1569,") and "Dh 256" in r["shape"])
+    e = {"name": "flash_attention_packed and flash_attention backward, bf16 at Dh 256 to 512 (K2 "
+                 "at those head dims, K4 at the padded widths; on the tensor cores: "
+                 "bwd_rows_kernel<Dh, 32>, then flash_bwd_dkv_wide_sm90_kernel<Dh> and "
+                 "flash_bwd_dq_wide_sm90_kernel<Dh>)",
+         "route": "cuda", "source": BWD_SOURCE, "replaces": K2_REPLACES,
+         "also_replaces": K4_REPLACES,
+         "launches": sum(w["counts"]["K2"] for w in wide_train),
+         "wide_train_launches": {f"vit_heads {w['vit_heads']}": w["counts"]["K2"]
+                                 for w in wide_train},
+         "max_abs_err": max(r["max_abs_err"] for r in mine),
+         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "busy_ms": head.get("busy_ms"), "shapes": mine,
+         "wide_ran": {k: v for k, v in rows["wide"]["ran"].items() if k.startswith(("K2", "K4"))},
+         "wide_attrs": {k: a for k, a in rows["wide"]["attrs"].items() if k.startswith("K2/K4")},
+         "wide_train": wide_train}
+    return e
 
 
 def ddp_rank(torch, spec_path: str) -> int:
@@ -8856,7 +9305,8 @@ def main(argv) -> int:
     the script there). ``--compare``: the A B B A call's measurements
     (``run_compare``), likewise in any tree; ``--fp32-rows``: those of the
     fp32 forward's (``run_fp32_rows``); ``--wide-rows``: those of the wide
-    bf16 forward's (``run_wide_rows``). ``--drift``: phase 32's
+    bf16 forward's (``run_wide_rows``); ``--wide-bwd-rows``: those of the
+    wide bf16 backward's (``run_wide_bwd_rows``). ``--drift``: phase 32's
     world-1 control against world N and two other world-1 runs
     (``run_drift``)."""
     import torch
@@ -8892,6 +9342,8 @@ def main(argv) -> int:
             kernels = {"fp32_rows": run_fp32_rows(torch)}
         elif "--wide-rows" in argv:
             kernels = {"wide_rows": run_wide_rows(torch)}
+        elif "--wide-bwd-rows" in argv:
+            kernels = {"wide_bwd_rows": run_wide_bwd_rows(torch)}
         elif "--drift" in argv:
             kernels = {"drift": run_drift(torch)}
         else:
@@ -8915,7 +9367,7 @@ def _mark(label: str) -> None:
 
 
 def run_all(torch) -> dict:
-    """Phases 2 to 42; returns the "kernels" line."""
+    """Phases 2 to 43; returns the "kernels" line."""
     _STARTED[0] = time.perf_counter()
     build_kernels(torch, ("flash_fwd", "flash_fwd_proj", "flash_bwd", "flash_short",
                           "ring_attention"))
@@ -9092,6 +9544,11 @@ def run_all(torch) -> dict:
                 path.unlink(missing_ok=True)
         fp32_quality = phase_fp32_quality_run(torch, manifest, world1["stats"])
         _mark("phase 40")
+        torch.cuda.empty_cache()
+        wide_train = phase_wide_train_run(torch, manifest, world1["stats"], Path(corpus_root))
+        _mark("phase 43")
+        kernels["wide_train_grad_control"] = wide_train["grad_control_vit_heads_4"]
+        wide_train = wide_train["runs"]
     torch.cuda.empty_cache()
     simt = phase_simt_kernels(torch)
     _mark("phase 39")
@@ -9192,7 +9649,7 @@ def run_all(torch) -> dict:
     # phases 39 to 41: the SIMT routes (fp32, bf16 at Dh 256 to 512) and the
     # padded head dims, an entry each, with their main paths' launches
     kernels["kernels"] += simt_entries(simt, fp32_quality, fp32_probe,
-                                       {"process_ring_f32": f32_ranks}, wide)
+                                       {"process_ring_f32": f32_ranks}, wide, wide_train)
     kernels["wide_probe"] = wide
     kernels["fp32_quality_train"] = fp32_quality["times"]
     kernels["fp32_probe_step"] = fp32_probe["times"]

@@ -1,25 +1,29 @@
 // Flash-attention backward for Hopper (sm_90a): bf16 in/out with fp32 sums on
-// the tensor cores (wgmma, TMA, mbarriers), register-tiled CUDA-core
-// kernels for fp32 at head dims 64 and 128 (bwd_f32_regtile.cuh), and SIMT
-// kernels for fp32 and bf16 at head dims 256 to 512 (below).
+// the tensor cores (wgmma, TMA, mbarriers) at every head dim, register-tiled
+// CUDA-core kernels for fp32 at head dims 64 and 128 (bwd_f32_regtile.cuh),
+// and SIMT kernels for fp32 at head dims 256 to 512 (below).
 //
 // Replaces two Pallas TPU kernels of deepcoro_clip_tpu:
 //   - ops/flash_attention_packed.py `_bwd_kernel` (K2: packed [B, L, H*Dh];
 //     in fused mode dq, dk, dv are written through strided views straight
 //     into one [B, L, 3D] gradient of the fused QKV tensor), bf16 at Dh 128
-//     on `flash_bwd_dkv_sm90_kernel` and `flash_bwd_dq_sm90_kernel`, fp32 at
-//     Dh 128 on `flash_bwd_dkv_f32_regtile_kernel<128>` and
-//     `flash_bwd_dq_f32_regtile_kernel<128>`, fp32 and bf16 at Dh 256 to 512
-//     on the SIMT kernels below;
+//     on `flash_bwd_dkv_sm90_kernel` and `flash_bwd_dq_sm90_kernel`, bf16 at
+//     Dh 256 to 512 on `flash_bwd_dkv_wide_sm90_kernel<Dh>` and
+//     `flash_bwd_dq_wide_sm90_kernel<Dh>`, fp32 at Dh 128 on
+//     `flash_bwd_dkv_f32_regtile_kernel<128>` and
+//     `flash_bwd_dq_f32_regtile_kernel<128>`, fp32 at Dh 256 to 512 on the
+//     SIMT kernels below;
 //   - ops/flash_attention.py `_bwd_kernel` (K4: [B, H, L, Dh]) where Lq or
 //     Lk exceeds 64 (or Dh exceeds 128), bf16 at Dh 64 or 128 on
-//     `flash_long_bwd_dkv_kernel<D>` and `flash_long_bwd_dq_kernel<D>`, fp32
-//     at Dh 64 or 128 on the register-tiled kernels, fp32 and bf16 at the
-//     padded widths 256 to 512 on the SIMT kernels (shorter calls at Dh <=
-//     128 run flash_short.cu in one launch).
-// Each pair is one body (`bwd_dkv_sm90<D>`, `bwd_dq_sm90<D>` below) under two
-// names; every operand is a base pointer plus (batch, head, row) strides in
-// elements.
+//     `flash_long_bwd_dkv_kernel<D>` and `flash_long_bwd_dq_kernel<D>`, bf16
+//     at the padded widths 256 to 512 on the wide kernels, fp32 at Dh 64 or
+//     128 on the register-tiled kernels, fp32 at the padded widths 256 to
+//     512 on the SIMT kernels (shorter calls at Dh <= 128 run flash_short.cu
+//     in one launch).
+// K2's and K4's long pairs are one body (`bwd_dkv_sm90<D>`, `bwd_dq_sm90<D>`
+// below) under two names, the wide pair the same design cut to the wider
+// rows (`bwd_dkv_wide<D>`, `bwd_dq_wide<D>`, `BwdWideCfg<D>`); every operand
+// is a base pointer plus (batch, head, row) strides in elements.
 //
 // What it computes (Dao's backward, with the Pallas kernel's rounding
 // points), per (batch, head):
@@ -69,8 +73,7 @@
 // the q tile has a real key): a dK/dV block whose keys no q tile reaches
 // writes zeros without looping, and the dQ loop stops at its tile's extent.
 // The CUDA-core kernels at the end serve fp32 operands of every layout (K2
-// and K4: register-tiled at Dh 64 and 128, SIMT at 256 to 512) and bf16 at
-// Dh 256 to 512 (SIMT).
+// and K4: register-tiled at Dh 64 and 128, SIMT at 256 to 512).
 //
 // Semantics kept from the plain version (ops/attention.py and
 // flash_bwd_plain): keys at index >= Lk do not exist (P = 0); masked keys
@@ -317,36 +320,39 @@ __device__ __forceinline__ void store_acc_rows(float (&acc)[D / 2], __nv_bfloat1
   }
 }
 
-// A [64 x 64] fp32 accumulator rounded to bf16 as the A fragments of four
-// k16 slices: its n8 column blocks 2 kk and 2 kk + 1 are slice kk.
-__device__ __forceinline__ void pack_a(const float (&x)[32], uint32_t (&f)[4][4]) {
+// A [64 x N] fp32 accumulator (NS = N / 2 registers a thread) rounded to
+// bf16 as the A fragments of N / 16 k16 slices: its n8 column blocks 2 kk
+// and 2 kk + 1 are slice kk.
+template <int NS>
+__device__ __forceinline__ void pack_a(const float (&x)[NS], uint32_t (&f)[NS / 8][4]) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < NS / 4; ++nt) {
     const int kk = nt >> 1, hi = nt & 1;
     f[kk][hi * 2 + 0] = pack_bf16(x[4 * nt + 0], x[4 * nt + 1]);  // row a
     f[kk][hi * 2 + 1] = pack_bf16(x[4 * nt + 2], x[4 * nt + 3]);  // row a + 8
   }
 }
 
-// D[64 x 64] = A[64 x D] B[64 x D]^T, both K-major in shared memory, each
-// as D/64 boxes (columns 64 c .. at a0 + c a_box / b0 + c b_box); issued,
-// not committed.
-template <int D>
-__device__ __forceinline__ void wgmma_nt_64x64(float (&d)[32], uint32_t a0, int a_box,
-                                               uint32_t b0, int b_box) {
+// D[64 x N] = A[64 x D] B[N x D]^T, both K-major in shared memory, each as
+// D/64 boxes (columns 64 c .. at a0 + c a_box / b0 + c b_box); N 16 to 128;
+// issued, not committed.
+template <int D, int N = 64>
+__device__ __forceinline__ void wgmma_nt(float (&d)[N / 2], uint32_t a0, int a_box, uint32_t b0,
+                                         int b_box) {
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {  // 16 columns of Dh a step: 32 bytes
     const uint64_t da = make_desc(a0 + (ks / 4) * a_box, 16, 1024) + (ks % 4) * 2;
     const uint64_t db = make_desc(b0 + (ks / 4) * b_box, 16, 1024) + (ks % 4) * 2;
-    wgmma_ss_n64(d, da, db, ks > 0);
+    wgmma_ss_keys<N>(d, da, db, ks > 0);
   }
 }
 
-// The stage before `pp`'s, and the parity of the phase in which it held the
-// tile before the current one.
+// The stage before `pp`'s in a ring of NST, and the parity of the phase in
+// which it held the tile before the current one.
+template <int NST = B9_NST>
 __device__ __forceinline__ Pipe prev_stage(const Pipe& pp) {
   Pipe q;
-  q.stage = pp.stage == 0 ? B9_NST - 1 : pp.stage - 1;
+  q.stage = pp.stage == 0 ? NST - 1 : pp.stage - 1;
   q.phase = pp.stage == 0 ? pp.phase ^ 1 : pp.phase;
   return q;
 }
@@ -507,8 +513,8 @@ __device__ __forceinline__ void bwd_dkv_sm90(const CUtensorMap* tk, const CUtens
         reinterpret_cast<const float*>(smem + S::ROWS + pp.stage * S::ROWS_STAGE);
     float s[32], dp[32];
     wgmma_fence();
-    wgmma_nt_64x64<D>(s, krows, S::KBOX, st, S::QBOX);  // S^T = K Q^T
-    wgmma_nt_64x64<D>(dp, vrows, S::KBOX, st + S::NB * S::QBOX, S::QBOX);  // dP^T = V dO^T
+    wgmma_nt<D>(s, krows, S::KBOX, st, S::QBOX);  // S^T = K Q^T
+    wgmma_nt<D>(dp, vrows, S::KBOX, st + S::NB * S::QBOX, S::QBOX);  // dP^T = V dO^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -680,8 +686,8 @@ __device__ __forceinline__ void bwd_dq_sm90(const CUtensorMap* tq, const CUtenso
     const uint32_t st = base + S::RING + pp.stage * R::STAGE;
     float s[32], dp[32];
     wgmma_fence();
-    wgmma_nt_64x64<D>(s, qrows, S::QBOX, st, R::BOX);                        // S = Q K^T
-    wgmma_nt_64x64<D>(dp, grows, S::QBOX, st + R::BOXES * R::BOX, R::BOX);  // dP = dO V^T
+    wgmma_nt<D>(s, qrows, S::QBOX, st, R::BOX);                        // S = Q K^T
+    wgmma_nt<D>(dp, grows, S::QBOX, st + R::BOXES * R::BOX, R::BOX);  // dP = dO V^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -804,13 +810,9 @@ const void* dq_kernel() {
   }
 }
 
-template <int D, bool LONG>
-int launch_sm90(BwdParams p, int B, const __nv_bfloat16* o, long long o_sb, long long o_sh,
-                long long o_sl, const float* stats, float* rows, __nv_bfloat16* q_rot,
-                __nv_bfloat16* k_rot, cudaStream_t stream) {
-  cudaError_t cerr = prepare<D, LONG ? D / 8 : 32>(p, B, o, o_sb, o_sh, o_sl, stats, rows,
-                                                   q_rot, k_rot, stream);
-  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+// The main kernels' arguments, once `prepare` has pointed `p` at the rotated
+// copies (the tensor maps' coordinate orders are set as they are encoded).
+inline Bwd9Params bwd9_params(const BwdParams& p, int B, const float* rows) {
   Bwd9Params s;
   s.dq = p.dq; s.dk = p.dk; s.dv = p.dv;
   s.rows = rows; s.sin = p.sin; s.cos = p.cos; s.mask = p.mask;
@@ -820,6 +822,17 @@ int launch_sm90(BwdParams p, int B, const __nv_bfloat16* o, long long o_sb, long
   s.B = B; s.H = p.H; s.Lq = p.Lq; s.Lk = p.Lk; s.Lq_pad = p.Lq_pad;
   s.scale = p.scale; s.scale_log2 = p.scale_log2;
   s.causal = p.causal;
+  return s;
+}
+
+template <int D, bool LONG>
+int launch_sm90(BwdParams p, int B, const __nv_bfloat16* o, long long o_sb, long long o_sh,
+                long long o_sl, const float* stats, float* rows, __nv_bfloat16* q_rot,
+                __nv_bfloat16* k_rot, cudaStream_t stream) {
+  cudaError_t cerr = prepare<D, LONG ? D / 8 : 32>(p, B, o, o_sb, o_sh, o_sl, stats, rows,
+                                                   q_rot, k_rot, stream);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  Bwd9Params s = bwd9_params(p, B, rows);
   // each operand twice: in the dK/dV kernel's boxes and in the dQ kernel's
   CUtensorMap k_kv, v_kv, q_kv, do_kv, q_q, do_q, k_q, v_q;
   int hi = 0;
@@ -860,7 +873,626 @@ int launch_sm90(BwdParams p, int B, const __nv_bfloat16* o, long long o_sb, long
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- SIMT kernels: fp32 and bf16 at Dh 256 to 512 ----------------------------
+
+// ---- the wide Hopper kernels: bf16 at Dh 256 to 512 ---------------------------
+// K2 at head dims 256, 384 and 512 (packed and fused layouts, and the
+// backward of the wide K5) and K4 at the widths pad_head_dim reaches above
+// 128, at every length: the Hopper design above (the same pre-passes, the
+// same key-tile skip, no atomics, tiles fixed whatever B: two launches agree
+// bit for bit and a row's gradients do not depend on the batch), cut to rows
+// of D / 64 TMA boxes. What changes with D:
+//   - Registers. A 64-row accumulator of D fp32 columns is D / 2 registers a
+//     thread: dK and dV of one warpgroup's 64 keys are D at 256 (K2 at 128
+//     holds both in 128). So the two warpgroups of a block SHARE 64 keys (64
+//     q rows in the dQ kernel) and split the work by role, each with one
+//     accumulator of at most 128 registers: in the dK/dV kernel warpgroup 0
+//     computes S^T = K Q^T, P^T and dV += bf16(P^T) dO, warpgroup 1 dP^T = V
+//     dO^T, dS^T = P^T (dP^T - delta) scale (P^T read in fp32 from an
+//     exchange tile that warpgroup 0 wrote, two tiles' worth so that one
+//     pair barrier a tile serves) and dK += bf16(dS^T) Q; in the dQ kernel
+//     warpgroup 0 computes S and P, warpgroup 1 dP and dS (P read from the
+//     exchange, bf16(dS) written back as A fragments, two pair barriers a
+//     tile), and each adds dS K into its own columns of dQ. (Decoupling the
+//     two warpgroups with written / read mbarriers instead, warpgroup 0 a
+//     tile ahead, read no faster on the card, and slower in the dQ kernel,
+//     whose lookahead ran it at the register limit.)
+//   - Columns. A head's columns are held as rotate-half pairs of boxes (box
+//     i with box i + D / 128: column d with d + D / 2), so that dK and dQ are
+//     un-rotated in registers by the thread that holds both columns. The dQ
+//     warpgroups split the D / 128 pairs (1 + 1 at 256, 2 + 1 at 384, 2 + 2
+//     at 512); a dK/dV block holds at most two pairs of dK and dV (a "slab"),
+//     so at 384 and 512 a grid axis repeats each 64-key block for its two
+//     slabs, and each repeats S^T and dP^T: 1.5x the dK/dV kernel's products
+//     there (~1.4x the backward's).
+//   - Shared memory. The resident 64 rows of K and V (Q and dO in the dQ
+//     kernel) take 16 KB a box pair, 128 KB at 512; the streamed tile is what
+//     the 227 KB leave: 64 rows (keys) at 256, 32 at 384, 16 at 512, in two
+//     stages (`BwdWideCfg`; `wide_bwd_smem_bytes` in ops/_flash_cuda.py
+//     mirrors the layouts).
+// What bounds them: the operations, as K2 at 128 (10*Lq*Lk'*D FLOP a head:
+// at one H*Dh the same at every D), with the slab repeat on top at 384 /
+// 512; the 32- and 16-row tiles there give the score products n32 / n16
+// shapes, whose A operand is read from shared memory for few columns.
+template <int D>
+struct BwdWideCfg;
+template <>
+struct BwdWideCfg<256> { static constexpr int T = 64, NST = 2; };
+template <>
+struct BwdWideCfg<384> { static constexpr int T = 32, NST = 2; };
+template <>
+struct BwdWideCfg<512> { static constexpr int T = 16, NST = 2; };
+// rows of the resident tile (keys of a dK/dV block, q rows of a dQ block),
+// and the box pairs a dK/dV slab holds
+constexpr int WB_ROWS = 64;
+constexpr int WB_SLAB = 2;
+
+template <int D>
+struct DkvWideSmem {  // byte offsets from the 1024-aligned base
+  using C = BwdWideCfg<D>;
+  static constexpr int NB = D / 64;                      // boxes of a row
+  static constexpr int KBOX = WB_ROWS * BOX_ROW_BYTES;   // one box of the 64 keys
+  static constexpr int TBOX = C::T * BOX_ROW_BYTES;      // one box of a streamed q tile
+  static constexpr int K = 0;                            // K's boxes, V's
+  static constexpr int V = K + NB * KBOX;
+  static constexpr int RING = V + NB * KBOX;             // a stage: Q's boxes, dO's
+  static constexpr int STAGE = 2 * NB * TBOX;
+  static constexpr int ROWS = RING + C::NST * STAGE;     // a stage's m, 1/l, delta [3][T]
+  static constexpr int ROWS_STAGE = 3 * C::T * 4;
+  static constexpr int XP = ROWS + C::NST * ROWS_STAGE;  // P^T of two tiles, fp32
+  static constexpr int XP_TILE = WB_ROWS * C::T * 4;
+  // full[NST], empty[NST], K/V loaded
+  static constexpr int BARS = XP + 2 * XP_TILE;
+  static constexpr int END = BARS + (2 * C::NST + 1) * 8;
+  static constexpr int BYTES = END + 1024;  // slack to align the base
+};
+
+template <int D>
+struct DqWideSmem {  // byte offsets from the 1024-aligned base
+  using C = BwdWideCfg<D>;
+  using R = KVRing<C::T, D>;
+  static constexpr int NB = D / 64;
+  static constexpr int QBOX = WB_ROWS * BOX_ROW_BYTES;  // one box of the 64 q rows
+  static constexpr int Q = 0;                           // Q's boxes, dO's
+  static constexpr int DO = Q + NB * QBOX;
+  static constexpr int RING = DO + NB * QBOX;           // K/V stages, KVRing<T, D>
+  static constexpr int XP = RING + C::NST * R::STAGE;   // P, fp32
+  static constexpr int XS = XP + WB_ROWS * C::T * 4;    // dS, bf16 A fragments
+  // full[NST], empty[NST], Q/dO loaded
+  static constexpr int BARS = XS + WB_ROWS * C::T * 2;
+  static constexpr int END = BARS + (2 * C::NST + 1) * 8;
+  static constexpr int BYTES = END + 1024;  // slack to align the base
+};
+
+// acc[64 * NP] += A B over the box pairs [p0, p0 + np) (np <= NP): A the
+// bf16 fragments of a [64 x T] tile (T / 16 k16 slices), B a tile of T rows
+// read MN-major, its D / 64 boxes `box` bytes apart from b0. Pair lp's box
+// p0 + lp accumulates into acc_cols64(acc, 2 lp), its rotate-half partner
+// box p0 + lp + D / 128 into acc_cols64(acc, 2 lp + 1). Issued, not
+// committed.
+template <int D, int T, int NP>
+__device__ __forceinline__ void wgmma_pairs(float (&acc)[64 * NP], const uint32_t (&a)[T / 16][4],
+                                            uint32_t b0, int box, int p0, int np) {
+#pragma unroll
+  for (int kk = 0; kk < T / 16; ++kk) {  // 16 rows of B a step
+#pragma unroll
+    for (int lp = 0; lp < NP; ++lp) {
+      if (lp >= np) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int bi = p0 + lp + hh * (D / 128);
+        wgmma_rs_n64_tb(acc_cols64(acc, 2 * lp + hh), a[kk],
+                        make_desc(b0 + bi * box, box, 1024) + kk * (16 * BOX_ROW_BYTES / 16));
+      }
+    }
+  }
+}
+
+// Un-rotate (as store_acc_rows) and store as bf16 the box pairs [p0, p0 +
+// np) of a warpgroup's [64 x D] accumulator held as wgmma_pairs leaves it:
+// this thread's rows row_a and row_a + 8 (those < L), in each box the
+// columns 8 j + 2 t + c at [4 j + 2 r + c]; the rotate-half partner of a
+// column is the same place of the pair's other box.
+template <int D, int NP>
+__device__ __forceinline__ void store_pairs(float (&acc)[64 * NP], __nv_bfloat16* base,
+                                            long long sl, int row_a, int L, const float* sin,
+                                            const float* cos, int t, int p0, int np) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= L) continue;
+#pragma unroll
+    for (int lp = 0; lp < NP; ++lp) {
+      if (lp >= np) continue;
+      float(&x1)[32] = acc_cols64(acc, 2 * lp);
+      float(&x2)[32] = acc_cols64(acc, 2 * lp + 1);
+      const int c1 = 64 * (p0 + lp), c2 = c1 + D / 2;
+      if (sin != nullptr) {
+        const float* sr = sin + (long long)row * D;
+        const float* cr = cos + (long long)row * D;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int d = c1 + 8 * j + 2 * t + c, d2 = d + D / 2;
+            const int i = 4 * j + 2 * r + c;
+            const float g1 = x1[i], g2 = x2[i];
+            x1[i] = g1 * bf16_round(cr[d]) + g2 * bf16_round(sr[d2]);
+            x2[i] = g2 * bf16_round(cr[d2]) - g1 * bf16_round(sr[d]);
+          }
+        }
+      }
+      __nv_bfloat16* orow = base + (long long)row * sl + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + c1 + 8 * j) =
+            pack_bf16(x1[4 * j + 2 * r], x1[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(orow + c2 + 8 * j) =
+            pack_bf16(x2[4 * j + 2 * r], x2[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// The issuing thread: q tile j (rows j * T ..) of Q, dO and the row values
+// into stage `stage` of the wide dK/dV kernel's ring, completing `full[stage]`.
+template <int D>
+__device__ __forceinline__ void load_q_tile_wide(const CUtensorMap* tq, const CUtensorMap* tdo,
+                                                 const Bwd9Params& p, const float* rows,
+                                                 long long plane, uint32_t base, uint64_t* full,
+                                                 int stage, int j, int h, int b) {
+  using S = DkvWideSmem<D>;
+  constexpr int T = BwdWideCfg<D>::T;
+  uint64_t* bar = &full[stage];
+  const uint32_t st = base + S::RING + stage * S::STAGE;
+  const uint32_t rs = base + S::ROWS + stage * S::ROWS_STAGE;
+  const int q0 = j * T;
+  mbar_arrive_expect_tx(bar, S::STAGE + S::ROWS_STAGE);
+#pragma unroll
+  for (int c = 0; c < S::NB; ++c) {
+    tma_load_head(tq, st + c * S::TBOX, bar, 64 * c, q0, h, b, p.q_hi);
+    tma_load_head(tdo, st + (S::NB + c) * S::TBOX, bar, 64 * c, q0, h, b, p.do_hi);
+  }
+#pragma unroll
+  for (int pl = 0; pl < 3; ++pl) bulk_load(rs + pl * T * 4, rows + pl * plane + q0, T * 4, bar);
+}
+
+// dK/dV: one block per (64-key block, slab, batch*head); blockIdx.x = key
+// block * slabs + slab. K and V of the keys are loaded once by TMA; the
+// T-row Q and dO tiles, with their rows' (m, 1/l, delta), stream through
+// NST stages, refilled by one thread of warpgroup 1 as in bwd_dkv_sm90. The
+// q tiles visited are bwd_dkv_sm90's (the same rule at T rows a tile).
+template <int D>
+__device__ __forceinline__ void bwd_dkv_wide(const CUtensorMap* tk, const CUtensorMap* tv,
+                                             const CUtensorMap* tq, const CUtensorMap* tdo,
+                                             const Bwd9Params& p) {
+  using S = DkvWideSmem<D>;
+  constexpr int T = BwdWideCfg<D>::T, NST = BwdWideCfg<D>::NST, NS = T / 2;
+  constexpr int HB = D / 128, NSLAB = (HB + WB_SLAB - 1) / WB_SLAB;
+  extern __shared__ __align__(16) unsigned char dkvw_smem[];
+  unsigned char* smem = dkvw_smem + ((1024 - (smem_u32(dkvw_smem) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* empty = full + NST;
+  uint64_t* kv_loaded = empty + NST;
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int slab = blockIdx.x % NSLAB;
+  const int k0 = blockIdx.x / NSLAB * WB_ROWS;
+  const int p0 = slab * WB_SLAB, np = min(WB_SLAB, HB - p0);  // the slab's box pairs
+  const int wg = threadIdx.x / 128;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const int ntq = p.Lq_pad / T;
+  const uint8_t* mrow = p.mask != nullptr ? p.mask + (long long)b * p.Lk : nullptr;
+  // the q tiles whose key extent reaches this block's keys, as bwd_dkv_sm90
+  int e, f;
+  key_extent(mrow, p.Lk, lane, e, f);
+  const int reach = min(p.Lk, e);
+  int pre = 0, post = k0 < reach ? 0 : ntq;
+  if (e == 0) {
+    pre = ntq;
+  } else if (p.causal) {
+    pre = min(ntq, (f + T - 1) / T);
+    if (post == 0) post = max(pre, k0 / T);
+    if (post < ntq && min(post * T + T, p.Lq) <= k0) post = ntq;
+  }
+  auto next_tile = [&](int j) { return j < pre ? j : max(j, post); };  // ntq: none
+  // this thread's keys are rows key_a and key_a + 8 of S^T (both warpgroups)
+  const int key_a = k0 + warp * 16 + lane / 4;
+  // warpgroup 0: dV, warpgroup 1: dK, over the slab's box pairs
+  __nv_bfloat16* out = wg == 0 ? p.dv + b * p.dv_sb + h * p.dv_sh
+                               : p.dk + b * p.dk_sb + h * p.dk_sh;
+  const long long out_sl = wg == 0 ? p.dv_sl : p.dk_sl;
+  const float* out_sin = wg == 0 ? nullptr : p.sin;
+  float acc[64 * WB_SLAB];
+#pragma unroll
+  for (int i = 0; i < 64 * WB_SLAB; ++i) acc[i] = 0.f;
+  const int jfirst = next_tile(0);
+  if (jfirst == ntq) {  // no q tile reaches these keys: dK = dV = 0
+    store_pairs<D, WB_SLAB>(acc, out, out_sl, key_a, p.Lk, nullptr, nullptr, t, p0, np);
+    return;
+  }
+  const bool issuer = threadIdx.x == B9_ISSUER;
+  const long long plane = (long long)p.B * p.H * p.Lq_pad;
+  const float* rows = p.rows + (long long)bh * p.Lq_pad;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], B9_THREADS);
+    }
+    mbar_init(kv_loaded, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  int jload = jfirst;  // the issuer's next q tile to load
+  if (issuer) {
+    mbar_arrive_expect_tx(kv_loaded, 2 * S::NB * S::KBOX);
+#pragma unroll
+    for (int c = 0; c < S::NB; ++c) {
+      tma_load_head(tk, base + S::K + c * S::KBOX, kv_loaded, 64 * c, k0, h, b, p.k_hi);
+      tma_load_head(tv, base + S::V + c * S::KBOX, kv_loaded, 64 * c, k0, h, b, p.v_hi);
+    }
+    for (int i = 0; i < NST && jload < ntq; ++i) {
+      load_q_tile_wide<D>(tq, tdo, p, rows, plane, base, full, i, jload, h, b);
+      jload = next_tile(jload + 1);
+    }
+  }
+
+  bool exists[2], kmasked[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_a + 8 * r;
+    exists[r] = key < p.Lk;
+    kmasked[r] = mrow != nullptr && exists[r] && mrow[key] == 0;
+  }
+  // the score product's A (K or V, resident) and B (Q or dO, in the stage),
+  // and the accumulation's B (dO for dV, Q for dK)
+  const uint32_t own = base + (wg == 0 ? S::K : S::V);
+  const int score_b = wg == 0 ? 0 : S::NB * S::TBOX;
+  const int acc_b = wg == 0 ? S::NB * S::TBOX : 0;
+  float4* xp = reinterpret_cast<float4*>(smem + S::XP) + threadIdx.x % 128;
+  mbar_wait(kv_loaded, 0);
+  Pipe pp;
+  for (int j = jfirst, i = 0; j < ntq; j = next_tile(j + 1), ++i) {
+    if (issuer && i > 0 && jload < ntq) {
+      // the stage of the tile before takes the next tile to load once both
+      // warpgroups are done with it
+      const Pipe pv = prev_stage<NST>(pp);
+      mbar_wait(&empty[pv.stage], pv.phase);
+      load_q_tile_wide<D>(tq, tdo, p, rows, plane, base, full, pv.stage, jload, h, b);
+      jload = next_tile(jload + 1);
+    }
+    mbar_wait(&full[pp.stage], pp.phase);
+    const uint32_t st = base + S::RING + pp.stage * S::STAGE;
+    const float* rs = reinterpret_cast<const float*>(smem + S::ROWS + pp.stage * S::ROWS_STAGE);
+    float s[NS];  // S^T (warpgroup 0) or dP^T (warpgroup 1)
+    wgmma_fence();
+    wgmma_nt<D, T>(s, own, S::KBOX, st + score_b, S::TBOX);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    // column c of the tile is q row q0 + c, whose (m, 1/l, delta) are
+    // rs[c], rs[T + c], rs[2 T + c]; under causal masking key k is masked
+    // for the rows before it: column nt * 8 + hi (less 2 t) < after[r]
+    const int q0 = j * T;
+    const int after[2] = {p.causal ? key_a - q0 - 2 * t : INT_MIN,
+                          p.causal ? key_a + 8 - q0 - 2 * t : INT_MIN};
+    float4* xb = xp + (i & 1) * (NS / 4) * 128;
+    uint32_t fr[T / 16][4];  // bf16(P^T) or bf16(dS^T), as A fragments
+    if (wg == 0) {  // P^T in place, and to the exchange in fp32
+#pragma unroll
+      for (int nt = 0; nt < T / 8; ++nt) {
+        const int c = nt * 8 + 2 * t;
+        const float2 mv = *reinterpret_cast<const float2*>(rs + c);
+        const float2 iv = *reinterpret_cast<const float2*>(rs + T + c);
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          const int r = e4 >> 1, hi = e4 & 1;
+          const bool masked = kmasked[r] | (nt * 8 + hi < after[r]);
+          const float x = masked ? -FLT_MAX : s[4 * nt + e4] * p.scale_log2;
+          // a row with no valid key has m = -FLT_MAX: P = 1/Lk on every key
+          s[4 * nt + e4] =
+              exists[r] ? fast_exp2(x - (hi ? mv.y : mv.x)) * (hi ? iv.y : iv.x) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i4 = 0; i4 < NS / 4; ++i4) {
+        xb[i4 * 128] = make_float4(s[4 * i4], s[4 * i4 + 1], s[4 * i4 + 2], s[4 * i4 + 3]);
+      }
+      pack_a(s, fr);
+    }
+    pair_sync();  // P^T is in the exchange
+    if (wg == 1) {  // dS^T = P^T (dP^T - delta) scale, 0 where the score was masked
+#pragma unroll
+      for (int nt = 0; nt < T / 8; ++nt) {
+        const int c = nt * 8 + 2 * t;
+        const float2 dl = *reinterpret_cast<const float2*>(rs + 2 * T + c);
+        const float4 pr = xb[nt * 128];  // P^T's entries 4 nt .. 4 nt + 3 of this thread
+        const float prob[4] = {pr.x, pr.y, pr.z, pr.w};
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          const int r = e4 >> 1, hi = e4 & 1;
+          const bool masked = kmasked[r] | (nt * 8 + hi < after[r]);
+          s[4 * nt + e4] =
+              masked ? 0.f : prob[e4] * (s[4 * nt + e4] - (hi ? dl.y : dl.x)) * p.scale;
+        }
+      }
+      pack_a(s, fr);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+    // dV += P^T dO or dK += dS^T Q over the tile's T q rows, the slab's columns
+    wgmma_pairs<D, T, WB_SLAB>(acc, fr, st + acc_b, S::TBOX, p0, np);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(fr);
+    mbar_arrive(&empty[pp.stage]);
+    pp.advance<NST>();
+  }
+  store_pairs<D, WB_SLAB>(acc, out, out_sl, key_a, p.Lk, out_sin, p.cos, t, p0, np);
+}
+
+// dQ: one block per (64-row q tile, batch*head). Q and dO are loaded once;
+// K and V stream in T-key tiles through NST stages (KVRing<T, D>) up to the
+// q tile's key extent, refilled by one thread of warpgroup 1 as in
+// bwd_dq_sm90. Warpgroup 0 holds dQ's box pairs [0, NP), warpgroup 1 the rest.
+template <int D>
+__device__ __forceinline__ void bwd_dq_wide(const CUtensorMap* tq, const CUtensorMap* tdo,
+                                            const CUtensorMap* tk, const CUtensorMap* tv,
+                                            const Bwd9Params& p) {
+  using S = DqWideSmem<D>;
+  constexpr int T = BwdWideCfg<D>::T, NST = BwdWideCfg<D>::NST, NS = T / 2;
+  using R = KVRing<T, D>;
+  constexpr int HB = D / 128, NP = (HB + 1) / 2;
+  extern __shared__ __align__(16) unsigned char dqw_smem[];
+  unsigned char* smem = dqw_smem + ((1024 - (smem_u32(dqw_smem) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* empty = full + NST;
+  uint64_t* qd_loaded = empty + NST;
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * WB_ROWS;
+  const int wg = threadIdx.x / 128;  // 0: S, P; 1: dP, dS
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const uint8_t* mrow = p.mask != nullptr ? p.mask + (long long)b * p.Lk : nullptr;
+  const bool issuer = threadIdx.x == B9_ISSUER;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], B9_THREADS);
+    }
+    mbar_init(qd_loaded, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // key tile j of K and V into stage `stage`, completing `full[stage]`
+  auto load_kv = [&](int stage, int j) {
+    uint64_t* bar = &full[stage];
+    const uint32_t st = base + S::RING + stage * R::STAGE;
+    mbar_arrive_expect_tx(bar, R::STAGE);
+#pragma unroll
+    for (int c = 0; c < R::BOXES; ++c) {
+      tma_load_head(tk, st + c * R::BOX, bar, 64 * c, j * T, h, b, p.k_hi);
+      tma_load_head(tv, st + (R::BOXES + c) * R::BOX, bar, 64 * c, j * T, h, b, p.v_hi);
+    }
+  };
+  if (issuer) {
+    mbar_arrive_expect_tx(qd_loaded, 2 * S::NB * S::QBOX);
+#pragma unroll
+    for (int c = 0; c < S::NB; ++c) {
+      tma_load_head(tq, base + S::Q + c * S::QBOX, qd_loaded, 64 * c, q0, h, b, p.q_hi);
+      tma_load_head(tdo, base + S::DO + c * S::QBOX, qd_loaded, 64 * c, q0, h, b, p.do_hi);
+    }
+  }
+  // key tiles past the q tile's key extent add exactly nothing
+  int e, f;
+  key_extent(mrow, p.Lk, lane, e, f);
+  const int ntiles = (visit_keys(e, f, p.Lq, p.Lk, q0, WB_ROWS, p.causal) + T - 1) / T;
+  if (issuer) {
+    for (int i = 0; i < NST && i < ntiles; ++i) load_kv(i, i);
+  }
+
+  const int row_a = q0 + warp * 16 + lane / 4;  // both warpgroups: rows row_a, row_a + 8
+  const long long plane = (long long)p.B * p.H * p.Lq_pad;
+  const float* rows = p.rows + (long long)bh * p.Lq_pad;
+  float m_r[2], il_r[2], dl_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    const bool ok = row < p.Lq;  // rows past Lq add nothing
+    m_r[r] = ok ? rows[row] : 0.f;
+    il_r[r] = ok ? rows[plane + row] : 0.f;
+    dl_r[r] = ok ? rows[2 * plane + row] : 0.f;
+  }
+  const int p0 = wg == 0 ? 0 : NP, np = wg == 0 ? NP : HB - NP;  // this warpgroup's pairs of dQ
+  float dq[64 * NP];
+#pragma unroll
+  for (int i = 0; i < 64 * NP; ++i) dq[i] = 0.f;
+  // the score product: S = Q K^T (warpgroup 0) or dP = dO V^T (warpgroup 1)
+  const uint32_t own = base + (wg == 0 ? S::Q : S::DO);
+  const int score_b = wg == 0 ? 0 : R::BOXES * R::BOX;
+  float4* xp = reinterpret_cast<float4*>(smem + S::XP) + threadIdx.x % 128;
+  uint4* xs = reinterpret_cast<uint4*>(smem + S::XS) + threadIdx.x % 128;
+  mbar_wait(qd_loaded, 0);
+  Pipe pp;
+  for (int j = 0; j < ntiles; ++j) {
+    if (issuer && j > 0 && j - 1 + NST < ntiles) {
+      // the stage of tile j - 1 takes tile j - 1 + NST once both warpgroups are done with it
+      const Pipe pv = prev_stage<NST>(pp);
+      mbar_wait(&empty[pv.stage], pv.phase);
+      load_kv(pv.stage, j - 1 + NST);
+    }
+    mbar_wait(&full[pp.stage], pp.phase);
+    const uint32_t st = base + S::RING + pp.stage * R::STAGE;
+    float s[NS];
+    wgmma_fence();
+    wgmma_nt<D, T>(s, own, S::QBOX, st + score_b, R::BOX);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    uint32_t fr[T / 16][4];  // bf16(dS), as A fragments
+    if (wg == 0) {
+      // P, 0 where the score was masked or the key does not exist (so dS is
+      // 0 there): which of the tile's keys exist and are not masked, bit k of
+      // word k / 32, one key a lane, gathered by a warp vote; this thread's
+      // keys nt * 8 + 2 t + c are bit 8 (nt % 4) + c of word nt / 4 shifted
+      // down by 2 t. Under causal masking the row's keys after it (key kl,
+      // less 2 t, past upto[r]) are masked. Selects, no branches.
+      const int kv0 = j * T;
+      if (mrow == nullptr && !p.causal && kv0 + T <= p.Lk) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          const int r = (i >> 1) & 1;
+          s[i] = fast_exp2(s[i] * p.scale_log2 - m_r[r]) * il_r[r];
+        }
+      } else {
+        constexpr int MW = (T + 31) / 32;
+        uint32_t valid[MW];
+#pragma unroll
+        for (int w = 0; w < MW; ++w) {
+          const int kl = 32 * w + lane, key = kv0 + kl;
+          valid[w] = __ballot_sync(0xffffffffu, kl < T && key < p.Lk &&
+                                                    (mrow == nullptr || mrow[key] != 0)) >>
+                     (2 * t);
+        }
+        const int upto[2] = {p.causal ? row_a - kv0 - 2 * t : INT_MAX,
+                             p.causal ? row_a + 8 - kv0 - 2 * t : INT_MAX};
+#pragma unroll
+        for (int nt = 0; nt < T / 8; ++nt) {
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4) {
+            const int r = e4 >> 1;
+            const bool keep = ((valid[nt >> 2] >> (8 * (nt & 3) + (e4 & 1))) & 1u) &&
+                              nt * 8 + (e4 & 1) <= upto[r];
+            const float prob = fast_exp2(s[4 * nt + e4] * p.scale_log2 - m_r[r]) * il_r[r];
+            s[4 * nt + e4] = keep ? prob : 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int i4 = 0; i4 < NS / 4; ++i4) {
+        xp[i4 * 128] = make_float4(s[4 * i4], s[4 * i4 + 1], s[4 * i4 + 2], s[4 * i4 + 3]);
+      }
+    }
+    pair_sync();  // P is in the exchange
+    if (wg == 1) {  // dS = P (dP - delta) scale, to the exchange as bf16 fragments
+#pragma unroll
+      for (int i4 = 0; i4 < NS / 4; ++i4) {
+        const float4 pr = xp[i4 * 128];
+        const float prob[4] = {pr.x, pr.y, pr.z, pr.w};
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          const int r = e4 >> 1;
+          s[4 * i4 + e4] = prob[e4] * (s[4 * i4 + e4] - dl_r[r]) * p.scale;
+        }
+      }
+      pack_a(s, fr);
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) {
+        xs[kk * 128] = make_uint4(fr[kk][0], fr[kk][1], fr[kk][2], fr[kk][3]);
+      }
+    }
+    pair_sync();  // dS is in the exchange
+    if (wg == 0) {
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) {
+        const uint4 v = xs[kk * 128];
+        fr[kk][0] = v.x;
+        fr[kk][1] = v.y;
+        fr[kk][2] = v.z;
+        fr[kk][3] = v.w;
+      }
+    }
+    fence_regs(dq);
+    wgmma_fence();
+    // dQ += dS K over the tile's T keys, this warpgroup's columns
+    wgmma_pairs<D, T, NP>(dq, fr, st, R::BOX, p0, np);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(fr);
+    mbar_arrive(&empty[pp.stage]);
+    pp.advance<NST>();
+  }
+  store_pairs<D, NP>(dq, p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_sl, row_a, p.Lq, p.sin, p.cos, t,
+                     p0, np);
+}
+
+// K2 at Dh 256, 384 and 512, and K4 at the padded widths.
+template <int D>
+__global__ void __launch_bounds__(B9_THREADS, 1)
+    flash_bwd_dkv_wide_sm90_kernel(const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tdo, const Bwd9Params p) {
+  bwd_dkv_wide<D>(&tk, &tv, &tq, &tdo, p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(B9_THREADS, 1)
+    flash_bwd_dq_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tdo,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv, const Bwd9Params p) {
+  bwd_dq_wide<D>(&tq, &tdo, &tk, &tv, p);
+}
+
+template <int D>
+int launch_wide(BwdParams p, int B, const __nv_bfloat16* o, long long o_sb, long long o_sh,
+                long long o_sl, const float* stats, float* rows, __nv_bfloat16* q_rot,
+                __nv_bfloat16* k_rot, cudaStream_t stream) {
+  constexpr int T = BwdWideCfg<D>::T, NSLAB = (D / 128 + WB_SLAB - 1) / WB_SLAB;
+  cudaError_t cerr = prepare<D, 32>(p, B, o, o_sb, o_sh, o_sl, stats, rows, q_rot, k_rot,
+                                    stream);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  Bwd9Params s = bwd9_params(p, B, rows);
+  // each operand twice: resident (64 rows a box) and streamed (T rows a box)
+  CUtensorMap k_res, v_res, q_str, do_str, q_res, do_res, k_str, v_str;
+  int hi = 0;
+  int err = encode_head_map(&k_res, p.k, p.Lk, p.H, B, p.k_sl, p.k_sh, p.k_sb, WB_ROWS, &s.k_hi,
+                            D);
+  if (err == 0)
+    err = encode_head_map(&v_res, p.v, p.Lk, p.H, B, p.v_sl, p.v_sh, p.v_sb, WB_ROWS, &s.v_hi, D);
+  if (err == 0)
+    err = encode_head_map(&q_str, p.q, p.Lq, p.H, B, p.q_sl, p.q_sh, p.q_sb, T, &s.q_hi, D);
+  if (err == 0)
+    err = encode_head_map(&do_str, p.dout, p.Lq, p.H, B, p.do_sl, p.do_sh, p.do_sb, T, &s.do_hi,
+                          D);
+  if (err == 0)
+    err = encode_head_map(&q_res, p.q, p.Lq, p.H, B, p.q_sl, p.q_sh, p.q_sb, WB_ROWS, &hi, D);
+  if (err == 0)
+    err = encode_head_map(&do_res, p.dout, p.Lq, p.H, B, p.do_sl, p.do_sh, p.do_sb, WB_ROWS, &hi,
+                          D);
+  if (err == 0)
+    err = encode_head_map(&k_str, p.k, p.Lk, p.H, B, p.k_sl, p.k_sh, p.k_sb, T, &hi, D);
+  if (err == 0)
+    err = encode_head_map(&v_str, p.v, p.Lk, p.H, B, p.v_sl, p.v_sh, p.v_sb, T, &hi, D);
+  if (err != 0) return err;
+  const void* kdkv = reinterpret_cast<const void*>(&flash_bwd_dkv_wide_sm90_kernel<D>);
+  const void* kdq = reinterpret_cast<const void*>(&flash_bwd_dq_wide_sm90_kernel<D>);
+  static bool ready_kv[MAX_DEVICES] = {}, ready_q[MAX_DEVICES] = {};  // one per instance
+  cerr = allow_smem_once(kdkv, DkvWideSmem<D>::BYTES, ready_kv);
+  if (cerr == cudaSuccess) cerr = allow_smem_once(kdq, DqWideSmem<D>::BYTES, ready_q);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  void* args_kv[] = {&k_res, &v_res, &q_str, &do_str, &s};
+  cerr = cudaLaunchKernel(kdkv, dim3((p.Lk + WB_ROWS - 1) / WB_ROWS * NSLAB, B * p.H),
+                          dim3(B9_THREADS), args_kv, DkvWideSmem<D>::BYTES, stream);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  void* args_q[] = {&q_res, &do_res, &k_str, &v_str, &s};
+  cerr = cudaLaunchKernel(kdq, dim3((p.Lq + WB_ROWS - 1) / WB_ROWS, B * p.H), dim3(B9_THREADS),
+                          args_q, DqWideSmem<D>::BYTES, stream);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- SIMT kernels: fp32 at Dh 256 to 512 -------------------------------------
 // The same gradients without tensor cores, tiled as the SIMT forward
 // (flash_common.cuh, simt_attend_tiles): a block of 4 or 8 warps owns 16 or
 // 32 rows (q rows for dQ, keys for dK and dV), 4 a warp, held transposed in
@@ -869,13 +1501,12 @@ int launch_sm90(BwdParams p, int B, const __nv_bfloat16* o, long long o_sb, long
 // products, then every lane adds the tile's weighted rows into its own
 // columns. No atomics: each output row is summed by one warp in a fixed
 // order. fp32 operands (K2 and K4, every layout, D 256 to 512; D 64 and
-// 128 run the register-tiled kernels further down) round nothing below fp32; bf16 at D 256 to 512 (K2 at those head dims, K4 at the padded
-// widths) rounds where the Hopper kernels round (bf16(P) for dV, bf16(dS)
-// for dQ and dK, the RoPE tables). In the fused layout dq, dk and dv are
-// column blocks of one [B, L, 3D] gradient: the dK/dV kernel writes the
-// dk and dv rows of its keys and the dQ kernel the dq rows of its queries,
-// each only its own columns, nothing is zeroed, so no kernel touches
-// another's block. What bounds them, as the forward: 10*Lq*Lk*D FLOP on the
+// 128 run the register-tiled kernels further down) round nothing below
+// fp32. In the fused layout dq, dk and dv are column blocks of one [B, L,
+// 3D] gradient: the dK/dV kernel writes the dk and dv rows of its keys and
+// the dQ kernel the dq rows of its queries, each only its own columns,
+// nothing is zeroed, so no kernel touches another's block (as every kernel
+// of this file). What bounds them, as the forward: 10*Lq*Lk*D FLOP on the
 // CUDA cores, paced by the shared-memory pipe (PERF.md has their times).
 
 template <typename T>
@@ -940,15 +1571,6 @@ __global__ void __launch_bounds__(256) bwd_rows_f32_kernel(
     int Lq, int Lq_pad) {
   bwd_rows_simt<float, D>(o, o_sb, o_sh, o_sl, dout, do_sb, do_sh, do_sl, stats, rows, H, Lq,
                           Lq_pad);
-}
-
-template <int D>
-__global__ void __launch_bounds__(256) bwd_rows_wide_bf16_kernel(
-    const __nv_bfloat16* o, long long o_sb, long long o_sh, long long o_sl,
-    const __nv_bfloat16* dout, long long do_sb, long long do_sh, long long do_sl,
-    const float* stats, float* rows, int H, int Lq, int Lq_pad) {
-  bwd_rows_simt<__nv_bfloat16, D>(o, o_sb, o_sh, o_sl, dout, do_sb, do_sh, do_sl, stats, rows,
-                                  H, Lq, Lq_pad);
 }
 
 // Shared memory of the tiled dQ kernel, in floats: Q^T and dO^T [D][BQ + 4]
@@ -1167,26 +1789,13 @@ __global__ void __launch_bounds__(SIMT_WARPS<D> * 32) flash_bwd_dkv_f32_kernel(
   bwd_dkv_simt<float, D>(p);
 }
 
-// bf16 at D 256 to 512: K2 at those head dims, K4 at the padded widths.
-template <int D>
-__global__ void __launch_bounds__(SIMT_WARPS<D> * 32) flash_bwd_dq_wide_bf16_kernel(
-    const BwdParamsSimt<__nv_bfloat16> p) {
-  bwd_dq_simt<__nv_bfloat16, D>(p);
-}
-
-template <int D>
-__global__ void __launch_bounds__(SIMT_WARPS<D> * 32) flash_bwd_dkv_wide_bf16_kernel(
-    const BwdParamsSimt<__nv_bfloat16> p) {
-  bwd_dkv_simt<__nv_bfloat16, D>(p);
-}
-
 // The pre-passes of the SIMT and register-tiled kernels: q and k rotated
 // once into the scratch copies (then `p` points at those), and the rows'
 // (m, 1/l, delta).
-template <typename T, int D>
-cudaError_t simt_prepass(BwdParamsSimt<T>& p, int B, const T* o, long long o_sb,
+template <int D>
+cudaError_t simt_prepass(BwdParamsSimt<float>& p, int B, const float* o, long long o_sb,
                          long long o_sh, long long o_sl, const float* stats, float* rows,
-                         T* q_rot, T* k_rot, cudaStream_t stream) {
+                         float* q_rot, float* k_rot, cudaStream_t stream) {
   cudaError_t err;
   if (p.sin != nullptr) {  // rotate q and k once into the scratch copies
     err = launch_rope_rows_t<D>(p.q, p.q_sb, p.q_sh, p.q_sl, B, p.H, p.Lq, p.sin, p.cos,
@@ -1201,35 +1810,22 @@ cudaError_t simt_prepass(BwdParamsSimt<T>& p, int B, const T* o, long long o_sb,
     p.k_sb = (long long)p.H * p.Lk * D; p.k_sh = (long long)p.Lk * D; p.k_sl = D;
   }
   const dim3 grows((p.Lq + 7) / 8, B * p.H);
-  if constexpr (sizeof(T) == 4) {
-    bwd_rows_f32_kernel<D><<<grows, 256, 0, stream>>>(o, o_sb, o_sh, o_sl, p.dout, p.do_sb,
-                                                      p.do_sh, p.do_sl, stats, rows, p.H,
-                                                      p.Lq, p.Lq_pad);
-  } else {
-    bwd_rows_wide_bf16_kernel<D><<<grows, 256, 0, stream>>>(o, o_sb, o_sh, o_sl, p.dout,
-                                                            p.do_sb, p.do_sh, p.do_sl, stats,
-                                                            rows, p.H, p.Lq, p.Lq_pad);
-  }
+  bwd_rows_f32_kernel<D><<<grows, 256, 0, stream>>>(o, o_sb, o_sh, o_sl, p.dout, p.do_sb,
+                                                    p.do_sh, p.do_sl, stats, rows, p.H, p.Lq,
+                                                    p.Lq_pad);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_simt(BwdParamsSimt<T> p, int B, const T* o, long long o_sb,
+template <int D>
+cudaError_t launch_simt(BwdParamsSimt<float> p, int B, const float* o, long long o_sb,
                         long long o_sh, long long o_sl, const float* stats, float* rows,
-                        T* q_rot, T* k_rot, cudaStream_t stream) {
-  cudaError_t err = simt_prepass<T, D>(p, B, o, o_sb, o_sh, o_sl, stats, rows, q_rot, k_rot,
-                                       stream);
+                        float* q_rot, float* k_rot, cudaStream_t stream) {
+  cudaError_t err = simt_prepass<D>(p, B, o, o_sb, o_sh, o_sl, stats, rows, q_rot, k_rot,
+                                    stream);
   if (err != cudaSuccess) return err;
   using S = BwdTiles<D, SIMT_WARPS<D>>;
-  const void* kdkv;
-  const void* kdq;
-  if constexpr (sizeof(T) == 4) {
-    kdkv = reinterpret_cast<const void*>(&flash_bwd_dkv_f32_kernel<D>);
-    kdq = reinterpret_cast<const void*>(&flash_bwd_dq_f32_kernel<D>);
-  } else {
-    kdkv = reinterpret_cast<const void*>(&flash_bwd_dkv_wide_bf16_kernel<D>);
-    kdq = reinterpret_cast<const void*>(&flash_bwd_dq_wide_bf16_kernel<D>);
-  }
+  const void* kdkv = reinterpret_cast<const void*>(&flash_bwd_dkv_f32_kernel<D>);
+  const void* kdq = reinterpret_cast<const void*>(&flash_bwd_dq_f32_kernel<D>);
   static bool ready_kv[MAX_DEVICES] = {}, ready_q[MAX_DEVICES] = {};
   err = allow_smem_once(kdkv, S::BYTES, ready_kv);
   if (err == cudaSuccess) err = allow_smem_once(kdq, S::BYTES, ready_q);
@@ -1448,8 +2044,8 @@ cudaError_t launch_regtile(BwdParamsSimt<float> p, int B, const float* o, long l
                            long long o_sh, long long o_sl, const float* stats, float* rows,
                            float* q_rot, float* k_rot, cudaStream_t stream) {
   if (p.dst == nullptr) return cudaErrorInvalidValue;
-  cudaError_t err = simt_prepass<float, D>(p, B, o, o_sb, o_sh, o_sl, stats, rows, q_rot,
-                                           k_rot, stream);
+  cudaError_t err = simt_prepass<D>(p, B, o, o_sb, o_sh, o_sl, stats, rows, q_rot, k_rot,
+                                    stream);
   if (err != cudaSuccess) return err;
   int vec = aligned16(p.q, p.q_sb, p.q_sh, p.q_sl) && aligned16(p.k, p.k_sb, p.k_sh, p.k_sl) &&
             aligned16(p.v, p.v_sb, p.v_sh, p.v_sl) &&
@@ -1492,8 +2088,11 @@ cudaError_t launch_regtile(BwdParamsSimt<float> p, int B, const float* o, long l
       do_sh, do_sl, dq_sb, dq_sh, dq_sl, dk_sb, dk_sh, dk_sl, dv_sb, dv_sh, dv_sl, scale, \
       causal, stream
 
-// `long_entry`: K4's kernels (Dh 64 or 128), else K2's (Dh 128).
-int bwd_bf16(bool long_entry, BWD_ARGS) {
+// The bf16 entries' kernels: K2's (Dh 128), K4's long ones (Dh 64 or 128),
+// or the wide ones (Dh 256, 384 or 512, both layouts).
+enum class Bf16Entry { K2, LONG, WIDE };
+
+int bwd_bf16(Bf16Entry entry, BWD_ARGS) {
   BwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -1528,21 +2127,28 @@ int bwd_bf16(bool long_entry, BWD_ARGS) {
   __nv_bfloat16* qr = static_cast<__nv_bfloat16*>(q_rot);
   __nv_bfloat16* kr = static_cast<__nv_bfloat16*>(k_rot);
   cudaStream_t sm = static_cast<cudaStream_t>(stream);
-  if (!long_entry) {
+  if (entry == Bf16Entry::K2) {
     if (Dh != 128) return static_cast<int>(cudaErrorInvalidValue);
     return launch_sm90<128, false>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
   }
+  if (entry == Bf16Entry::LONG) {
+    switch (Dh) {
+      case 64: return launch_sm90<64, true>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
+      case 128: return launch_sm90<128, true>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (Dh) {
-    case 64: return launch_sm90<64, true>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
-    case 128: return launch_sm90<128, true>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
+    case 256: return launch_wide<256>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
+    case 384: return launch_wide<384>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
+    case 512: return launch_wide<512>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The CUDA-core entries: fp32 at Dh 64 to 512 (register-tiled at 64 and
-// 128), bf16 at Dh 256 to 512.
-template <typename T>
-int bwd_simt(BWD_ARGS) {
+// The CUDA-core entry: fp32 at Dh 64 to 512 (register-tiled at 64 and 128).
+int bwd_f32(BWD_ARGS) {
+  using T = float;
   BwdParamsSimt<T> p;
   p.dst = static_cast<float*>(ds);
   p.q = static_cast<const T*>(q);
@@ -1580,23 +2186,11 @@ int bwd_simt(BWD_ARGS) {
   cudaStream_t sm = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (Dh) {
-    case 64:  // fp32 only, register-tiled: bf16 runs the Hopper kernels there
-      if constexpr (sizeof(T) == 4) {
-        err = launch_regtile<64>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
-        break;
-      } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-    case 128:  // fp32 only, register-tiled: bf16 runs the Hopper kernels there
-      if constexpr (sizeof(T) == 4) {
-        err = launch_regtile<128>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm);
-        break;
-      } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-    case 256: err = launch_simt<T, 256>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm); break;
-    case 384: err = launch_simt<T, 384>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm); break;
-    case 512: err = launch_simt<T, 512>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm); break;
+    case 64: err = launch_regtile<64>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm); break;
+    case 128: err = launch_regtile<128>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm); break;
+    case 256: err = launch_simt<256>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm); break;
+    case 384: err = launch_simt<384>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm); break;
+    case 512: err = launch_simt<512>(p, B, ob, o_sb, o_sh, o_sl, st, rw, qr, kr, sm); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
@@ -1621,11 +2215,11 @@ extern "C" {
 
 // K2: the packed and fused layouts, bf16, Dh 128 only, on
 // flash_bwd_dkv_sm90_kernel and flash_bwd_dq_sm90_kernel.
-int deepcoro_flash_bwd_sm90_bf16(BWD_ARGS) { return bwd_bf16(false, BWD_NAMES); }
+int deepcoro_flash_bwd_sm90_bf16(BWD_ARGS) { return bwd_bf16(Bf16Entry::K2, BWD_NAMES); }
 
 // K4: the [B, H, L, Dh] entry's long calls (Lq or Lk above 64), bf16, Dh 64
 // or 128, on flash_long_bwd_dkv_kernel<Dh> and flash_long_bwd_dq_kernel<Dh>.
-int deepcoro_flash_long_bwd_bf16(BWD_ARGS) { return bwd_bf16(true, BWD_NAMES); }
+int deepcoro_flash_long_bwd_bf16(BWD_ARGS) { return bwd_bf16(Bf16Entry::LONG, BWD_NAMES); }
 
 // Registers per thread and dynamic shared memory per block of the dK/dV
 // (`which` 0) or the dQ (`which` 1) kernel: K2's at Dh 0, K4's long ones at
@@ -1659,9 +2253,8 @@ int deepcoro_flash_bwd_sm90_attrs(int which, int Dh, int* regs, int* smem) {
 
 // fp32 operands of every layout, Dh 64, 128, 256, 384 or 512: on
 // flash_bwd_dkv_f32_regtile_kernel<Dh> and flash_bwd_dq_f32_regtile_kernel<Dh>
-// at 64 and 128, on the SIMT kernels above; and bf16 at Dh 256, 384 or 512
-// on the SIMT kernels.
-int deepcoro_flash_bwd_f32(BWD_ARGS) { return bwd_simt<float>(BWD_NAMES); }
+// at 64 and 128, on the SIMT kernels above.
+int deepcoro_flash_bwd_f32(BWD_ARGS) { return bwd_f32(BWD_NAMES); }
 
 // Registers per thread and dynamic shared memory per block of
 // flash_bwd_dkv_f32_regtile_kernel<Dh> (`which` 0) or
@@ -1685,6 +2278,42 @@ int deepcoro_flash_bwd_f32_regtile_attrs(int which, int Dh, int* regs, int* smem
   return 0;
 }
 
-int deepcoro_flash_wide_bwd_bf16(BWD_ARGS) { return bwd_simt<__nv_bfloat16>(BWD_NAMES); }
+// bf16 of every layout (K2's packed and fused views, K4's [B, H, L, Dh] and
+// its transposed views) at Dh 256, 384 or 512, on
+// flash_bwd_dkv_wide_sm90_kernel<Dh> and flash_bwd_dq_wide_sm90_kernel<Dh>.
+int deepcoro_flash_wide_bwd_bf16(BWD_ARGS) { return bwd_bf16(Bf16Entry::WIDE, BWD_NAMES); }
+
+// Registers and local memory (spilled) bytes per thread of
+// flash_bwd_dkv_wide_sm90_kernel<Dh> (`which` 0) or
+// flash_bwd_dq_wide_sm90_kernel<Dh> (`which` 1), Dh 256, 384 or 512, as the
+// runtime reads them, and the dynamic shared memory a block takes.
+int deepcoro_flash_wide_bwd_attrs(int which, int Dh, int* regs, int* local, int* smem) {
+  const void* fn;
+  switch (Dh) {
+    case 256:
+      fn = which == 0 ? reinterpret_cast<const void*>(&flash_bwd_dkv_wide_sm90_kernel<256>)
+                      : reinterpret_cast<const void*>(&flash_bwd_dq_wide_sm90_kernel<256>);
+      *smem = which == 0 ? DkvWideSmem<256>::BYTES : DqWideSmem<256>::BYTES;
+      break;
+    case 384:
+      fn = which == 0 ? reinterpret_cast<const void*>(&flash_bwd_dkv_wide_sm90_kernel<384>)
+                      : reinterpret_cast<const void*>(&flash_bwd_dq_wide_sm90_kernel<384>);
+      *smem = which == 0 ? DkvWideSmem<384>::BYTES : DqWideSmem<384>::BYTES;
+      break;
+    case 512:
+      fn = which == 0 ? reinterpret_cast<const void*>(&flash_bwd_dkv_wide_sm90_kernel<512>)
+                      : reinterpret_cast<const void*>(&flash_bwd_dq_wide_sm90_kernel<512>);
+      *smem = which == 0 ? DkvWideSmem<512>::BYTES : DqWideSmem<512>::BYTES;
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *local = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
 
 }  // extern "C"

@@ -5,9 +5,10 @@
 // ring step K6 at Dh 128 (ring_attention.cu `ring_step_sm90_kernel`), and the
 // [B, H, L, Dh] entry's long calls at Dh 64 and 128 (K3 `flash_long_fwd_kernel`,
 // K4 `flash_long_bwd_dkv_kernel`, `flash_long_bwd_dq_kernel`); and the
-// bf16 forwards at head dims 256 to 512 (flash_fwd.cu
+// bf16 kernels at head dims 256 to 512 (flash_fwd.cu
 // `flash_fwd_wide_sm90_kernel`, K1 and K3; flash_fwd_proj.cu
-// `flash_fwd_proj_wide_sm90_kernel`, K5).
+// `flash_fwd_proj_wide_sm90_kernel`, K5; flash_bwd.cu
+// `flash_bwd_dkv_wide_sm90_kernel`, `flash_bwd_dq_wide_sm90_kernel`, K2 and K4).
 //
 //   - host: TMA tensor maps for one head's [L, D] rows (D = 64 to 512) of a
 //     strided [B, L, H, D] or [B, H, L, D] operand, and for a row-major 2-D
@@ -227,7 +228,8 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
 }
 
 // Barrier over the 256 threads of two consumer warpgroups (id 3) that share
-// their q rows (the wide forwards' split 2, flash_fwd.cu and flash_fwd_proj.cu).
+// their rows (the wide forwards' split 2, flash_fwd.cu and flash_fwd_proj.cu;
+// the wide backward's two roles, flash_bwd.cu).
 __device__ __forceinline__ void pair_sync() {
   asm volatile("bar.sync 3, 256;\n" ::: "memory");
 }

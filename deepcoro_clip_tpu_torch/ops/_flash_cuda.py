@@ -14,7 +14,9 @@ names, each skipping the key tiles past a q tile's key extent
 (``visit_keys`` mirrors the rule). In bf16 at Dh 256 to 512
 (``WIDE_DIMS``) the forward of both entries runs the wide Hopper kernel
 ``flash_fwd_wide_sm90_kernel<Dh>`` on the same body (``WIDE_FWD_TILES``,
-``wide_smem_bytes``). At Lq, Lk <= ``SHORT_MAX`` (and Dh <=
+``wide_smem_bytes``), the backward ``flash_bwd_dkv_wide_sm90_kernel<Dh>``
+and ``flash_bwd_dq_wide_sm90_kernel<Dh>`` (``WIDE_BWD_TILES``,
+``wide_bwd_smem_bytes``). At Lq, Lk <= ``SHORT_MAX`` (and Dh <=
 128) the ``[B, H, L, Dh]`` entry takes ``short_forward`` and
 ``short_backward`` instead (behind ``ShortAttention`` when a gradient is
 wanted): the one-kernel forward and backward of ``csrc/flash_short.cu``
@@ -24,7 +26,7 @@ runs the CUDA-core kernels of the same files: fp32 operands of every layout
 at every head dim (``*_f32``: the forward and the backward at Dh 64 and
 128, and K5 at 128, on the register-tiled kernels of
 ``csrc/fwd_f32_regtile.cuh`` and ``csrc/bwd_f32_regtile.cuh``, the rest on
-the SIMT ones), and the bf16 backward at Dh 256 to 512 (``*_wide_bf16``).
+the SIMT ones).
 ``fwd_symbol``, ``bwd_symbol`` and ``proj_symbol`` name the C entry a call
 runs, ``fwd_kernel_name``, ``bwd_kernel_names`` and ``proj_kernel_name``
 the kernels that entry launches; a call no kernel takes raises there. ``flash_fwd_proj``
@@ -65,9 +67,10 @@ from deepcoro_clip_tpu_torch.ops.attention import (
 
 HEAD_DIMS = (64, 128, 256, 384, 512)  # the head dims a kernel takes
 HOPPER_DIMS = (64, 128)  # bf16 on the Hopper kernels of every entry, forward and backward
-# bf16 forwards (K1, K3, K5) at these head dims run the wide Hopper kernels
-# (csrc/flash_fwd.cu flash_fwd_wide_sm90_kernel, csrc/flash_fwd_proj.cu
-# flash_fwd_proj_wide_sm90_kernel); the backward there runs the SIMT kernels
+# bf16 at these head dims runs the wide Hopper kernels: the forwards K1, K3
+# (csrc/flash_fwd.cu flash_fwd_wide_sm90_kernel) and K5 (csrc/flash_fwd_proj.cu
+# flash_fwd_proj_wide_sm90_kernel), the backward K2, K4 (csrc/flash_bwd.cu
+# flash_bwd_dkv_wide_sm90_kernel, flash_bwd_dq_wide_sm90_kernel)
 WIDE_DIMS = (256, 384, 512)
 # the wide K1/K3 kernel's tiles by head dim (FwdCfg in csrc/flash_fwd.cu): q
 # rows an item, keys a K/V tile, stages of the K/V ring, and the consumer
@@ -76,6 +79,13 @@ WIDE_FWD_TILES = {256: (128, 64, 2, 1), 384: (64, 32, 3, 2), 512: (64, 32, 2, 2)
 # the wide K5 kernel's (ProjCfg in csrc/flash_fwd_proj.cu): keys a K/V tile,
 # stages of the ring
 WIDE_PROJ_TILES = {256: (32, 3), 384: (32, 2), 512: (16, 3)}
+# the wide backward's (BwdWideCfg in csrc/flash_bwd.cu): rows of the streamed
+# tile (q rows of the dK/dV kernel, keys of the dQ kernel) and its stages;
+# both kernels hold WIDE_BWD_ROWS resident rows (keys, q rows) a block, and
+# a dK/dV block at most WIDE_BWD_SLAB rotate-half pairs of boxes of dK and dV
+# (so D / 128 / WIDE_BWD_SLAB blocks, rounded up, share a key block)
+WIDE_BWD_TILES = {256: (64, 2), 384: (32, 2), 512: (16, 2)}
+WIDE_BWD_ROWS, WIDE_BWD_SLAB = 64, 2
 PROJ_MAX = 1024  # H * Dh of the fused-projection kernels' shared output tile
 TILE = 64  # rows per tile of the kernels; the backward pads its row values to it
 SHORT_MAX = 64  # Lq and Lk up to this run csrc/flash_short.cu ([B, H, L, Dh] entry)
@@ -128,7 +138,8 @@ def kernel_head_dim(Dh: int) -> int:
 def is_short(packed: bool, Lq: int, Lk: int, Dh: int) -> bool:
     """Whether a call runs the short kernels of ``csrc/flash_short.cu``:
     the ``[B, H, L, Dh]`` entry with both lengths at most ``SHORT_MAX`` and
-    Dh at most 128 (a wider head runs the SIMT kernels at every length)."""
+    Dh at most 128 (a wider head runs the wide Hopper kernels at every
+    length)."""
     return (not packed and Lq <= SHORT_MAX and Lk <= SHORT_MAX
             and Dh <= HOPPER_DIMS[-1])
 
@@ -222,8 +233,8 @@ def bwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> s
     one-launch short backward of ``csrc/flash_short.cu`` (``[B, H, L,
     Dh]``, Lq, Lk <= ``SHORT_MAX``, Dh <= 128), else the kernels of
     ``csrc/flash_bwd.cu``: K2's Hopper kernels (packed, bf16, Dh 128), K4's
-    (``[B, H, L, Dh]``, bf16, Dh 64 and 128), the wide SIMT kernels (bf16,
-    Dh 256 to 512) or the fp32 entry for every layout and head dim
+    (``[B, H, L, Dh]``, bf16, Dh 64 and 128), the wide Hopper kernels (bf16,
+    Dh 256 to 512, both layouts) or the fp32 entry for every layout and head dim
     (``bwd_kernel_names``: the register-tiled kernels at Dh 64 and 128, the
     SIMT ones above)."""
     _check_choice(dtype, packed, Dh)
@@ -235,7 +246,7 @@ def bwd_symbol(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> s
 def _tile_symbol(direction: str, dtype: torch.dtype, packed: bool, Dh: int) -> str:
     """The entry of ``csrc/flash_{direction}.cu``: the fp32 CUDA-core kernels
     for fp32, the wide entries for bf16 above Dh 128 (the wide Hopper
-    forward, the SIMT backward), else K1's or K2's Hopper kernels for the
+    forward and backward), else K1's or K2's Hopper kernels for the
     packed layouts and K3's or K4's for ``[B, H, L, Dh]``."""
     if dtype == torch.float32:
         return f"deepcoro_flash_{direction}_f32"
@@ -335,13 +346,33 @@ def wide_proj_smem_bytes(Dh: int, H: int) -> int:
     return mask + stages * keys + (2 * stages + H) * 8 + 1024
 
 
+def wide_bwd_smem_bytes(Dh: int) -> tuple:
+    """Dynamic shared memory a block of the wide backward kernels takes
+    (``DkvWideSmem`` and ``DqWideSmem`` in ``csrc/flash_bwd.cu``), as (dK/dV,
+    dQ). The dK/dV block: K and V of its 64 keys (``Dh / 64`` boxes of ``64
+    x 128`` bytes each), the ring of Q and dO tiles, a stage's row values (m,
+    1/l, delta: ``3 x rows`` fp32), P^T of two tiles in fp32 (``64 x rows``
+    each). The dQ block: Q and dO of its 64 rows, the K/V ring, P in fp32 and
+    dS in bf16 (``64 x keys`` each). Both: the barriers (full and empty a
+    stage, the resident tile loaded) and 1 KB to align the base."""
+    rows, stages = WIDE_BWD_TILES[Dh]
+    resident = 2 * (Dh // 64) * WIDE_BWD_ROWS * 128
+    bars = (2 * stages + 1) * 8 + 1024
+    dkv = (resident + stages * _ring_stage(Dh, rows) + stages * 3 * rows * 4
+           + 2 * WIDE_BWD_ROWS * rows * 4)
+    dq = resident + stages * _ring_stage(Dh, rows) + WIDE_BWD_ROWS * rows * (4 + 2)
+    return dkv + bars, dq + bars
+
+
 def bwd_kernel_names(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int) -> tuple:
     """The dK/dV and dQ kernels that ``bwd_symbol``'s entry launches for a
     call (after its row pre-pass), as a profiler names them: in fp32
     ``flash_bwd_dkv_f32_regtile_kernel<Dh>`` and
     ``flash_bwd_dq_f32_regtile_kernel<Dh>`` at Dh 64 and 128 (K2, K4) and
     the SIMT ``flash_bwd_{dkv,dq}_f32_kernel<Dh>`` above; in bf16 the
-    Hopper, long or wide kernels. A short call's one kernel alone."""
+    Hopper or long kernels, and at Dh 256 to 512
+    ``flash_bwd_{dkv,dq}_wide_sm90_kernel<Dh>`` (K2 and K4). A short call's
+    one kernel alone."""
     symbol = bwd_symbol(dtype, packed, Lq, Lk, Dh)
     if symbol.startswith("deepcoro_flash_short"):
         return (f"flash_short_bwd_{_SUFFIX[dtype]}_kernel",)
@@ -349,7 +380,7 @@ def bwd_kernel_names(dtype: torch.dtype, packed: bool, Lq: int, Lk: int, Dh: int
         kind = "f32_regtile" if Dh in REGTILE_DIMS else "f32"
         return (f"flash_bwd_dkv_{kind}_kernel<{Dh}>", f"flash_bwd_dq_{kind}_kernel<{Dh}>")
     if symbol == "deepcoro_flash_wide_bwd_bf16":
-        return (f"flash_bwd_dkv_wide_bf16_kernel<{Dh}>", f"flash_bwd_dq_wide_bf16_kernel<{Dh}>")
+        return (f"flash_bwd_dkv_wide_sm90_kernel<{Dh}>", f"flash_bwd_dq_wide_sm90_kernel<{Dh}>")
     if packed:
         return ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel")
     return (f"flash_long_bwd_dkv_kernel<{Dh}>", f"flash_long_bwd_dq_kernel<{Dh}>")
@@ -481,6 +512,28 @@ def wide_kernel_attrs() -> dict:
                 raise RuntimeError(f"cudaFuncGetAttributes failed on {kernel}<{dh}>")
             out[f"{key} wide Dh {dh}"] = {"kernel": f"{kernel}<{dh}>", "registers": regs.value,
                                           "local_bytes": local.value, "dh": dh}
+    return out
+
+
+def wide_bwd_kernel_attrs() -> dict:
+    """Registers and local memory (spilled) bytes per thread, and dynamic
+    shared memory per block, of the wide Hopper backward kernels
+    (``flash_bwd_dkv_wide_sm90_kernel<Dh>``, ``flash_bwd_dq_wide_sm90_kernel<Dh>``
+    at each of ``WIDE_DIMS``; blocks of two warpgroups, no ``setmaxnreg``), as
+    the runtime reads them from the built library: what ``chip_smoke.py``
+    reports beside ptxas and holds against ``wide_bwd_smem_bytes``."""
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    ip = ctypes.POINTER(ctypes.c_int)
+    fn = _c_fn("flash_bwd", "deepcoro_flash_wide_bwd_attrs", [_I, _I, ip, ip, ip])
+    out = {}
+    for dh in WIDE_DIMS:
+        for which, (label, name) in enumerate((("dK/dV", "dkv"), ("dQ", "dq"))):
+            kernel = f"flash_bwd_{name}_wide_sm90_kernel<{dh}>"
+            if fn(which, dh, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(smem)) != 0:
+                raise RuntimeError(f"cudaFuncGetAttributes failed on {kernel}")
+            out[f"K2/K4 {label} wide Dh {dh}"] = {
+                "kernel": kernel, "registers": regs.value, "local_bytes": local.value,
+                "smem_bytes": smem.value, "dh": dh}
     return out
 
 
@@ -671,9 +724,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``do``, the forward's ``out`` and its ``stats``. ``packed``: the views
     are heads of packed ``[B, L, H*Dh]`` operands (K2); otherwise (K4, any
     lengths). The kernels are ``_tile_symbol``'s, as for ``flash_fwd``:
-    the Hopper ones in bf16 at Dh 128 (packed) or 64 / 128, the wide SIMT
-    ones in bf16 at Dh 256 to 512, for fp32 the register-tiled ones at Dh
-    64 / 128 and the fp32 SIMT ones above (``bwd_kernel_names``)."""
+    the Hopper ones in bf16 at Dh 128 (packed) or 64 / 128, the wide
+    Hopper ones in bf16 at Dh 256 to 512, for fp32 the register-tiled ones
+    at Dh 64 / 128 and the fp32 SIMT ones above (``bwd_kernel_names``)."""
     _check_problem(q, k, v, sin, cos, kv_mask)
     mask = mask_arg(kv_mask, strided=False)
     device = q.device

@@ -8,8 +8,8 @@ backward of ``csrc/flash_short.cu``; above that (the text tower, the
 SigLIP bank, the captioning decoder) in bf16 the Hopper kernels of
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (wgmma, TMA, mbarriers; key
 tiles past each q tile's last real key skipped, exactly) at Dh 64 and 128,
-the wide Hopper forward at the padded widths 256 to 512 (the SIMT backward
-there), the CUDA-core kernels in fp32
+the wide Hopper forward and backward at the padded widths 256 to 512, the
+CUDA-core kernels in fp32
 (those files' notes say what bounds them and how they are laid out). On a CPU tensor it runs the plain versions
 (``ops/attention.py``); on a CUDA tensor it launches the kernels or raises.
 Every even head dim is padded up to the next width a kernel takes

@@ -23,7 +23,7 @@ wrapper's silent fall-backs to "kernel, then dot" have no counterpart here.
 On the card the kernels of this entry take what the JAX wrapper takes at
 Dh up to 512: bf16 or fp32 at any ``Dh % 128 == 0``. bf16 at Dh 128 runs
 the Hopper kernels (K1, K2, K5), bf16 at Dh 256 to 512 the wide Hopper
-forwards (K1, K5) and the SIMT backward (K2); fp32 runs the CUDA-core
+kernels (K1, K5 and the backward K2); fp32 runs the CUDA-core
 kernels of the same files (``_flash_cuda.fwd_symbol``, ``bwd_symbol``,
 ``proj_symbol`` name them). With ``wo``, ``H*Dh`` is at most 1024 (the
 fused kernels' shared output tile) and, on the Hopper kernel at Dh 128,

@@ -2008,3 +2008,153 @@ def test_wide_kernels_by_name(cuda):
             names = _kernels_run(fn)
             assert _ran(names, want), names
             assert not _ran(names, "wide_bf16_kernel"), names
+
+
+# --------------------------------------------------------------------------- #
+# the wide bf16 backward on the tensor cores: K2 at Dh 256 to 512 and K4 at
+# the padded widths on flash_bwd_dkv_wide_sm90_kernel<Dh> and
+# flash_bwd_dq_wide_sm90_kernel<Dh> (the wide tests above hold their
+# gradients at every route of the forward; these add split q/k/v with Lq !=
+# Lk, the training step's shapes, reruns and batch rows bit-equal, the fused
+# layout's columns and the kernels' names), against flash_bwd_plain by
+# WIDE_BWD_L2.
+
+OLD_WIDE_BWD = ("bwd_rows_wide_bf16_kernel", "flash_bwd_dkv_wide_bf16_kernel",
+                "flash_bwd_dq_wide_bf16_kernel")
+
+
+@pytest.mark.parametrize("dh,H", [(256, 2), (384, 1), (512, 1)])
+def test_wide_bwd_split_cross_with_masked_rows(cuda, dh, H):
+    """Split q ``[3, 130, H*Dh]`` over k, v ``[3, 300, H*Dh]`` (Lq != Lk)
+    with a key mask whose batch row 1 is fully masked and row 2 keeps one
+    key: one backward launch counted, the gradients against
+    flash_bwd_plain."""
+    g = torch.Generator(device=cuda).manual_seed(dh + 22)
+    B, Lq, Lk, D = 3, 130, 300, H * dh
+    q = (torch.randn(B, Lq, D, generator=g, device=cuda) * 0.5 * WIDE_QK).to(BF)
+    k = (torch.randn(B, Lk, D, generator=g, device=cuda) * 0.5 * WIDE_QK).to(BF)
+    v, do = ((torch.randn(B, L, D, generator=g, device=cuda) * 0.5).to(BF) for L in (Lk, Lq))
+    m = torch.rand(B, Lk, generator=g, device=cuda) > 0.3
+    m[1] = False
+    m[2] = False
+    m[2, 250] = True
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention_packed(*leaves, num_heads=H, kv_mask=m)
+    n = flash_attention_packed.bwd_launches
+    grads = torch.autograd.grad(out, leaves, do)
+    assert flash_attention_packed.bwd_launches == n + 1
+    heads = [t.unflatten(2, (H, dh)).transpose(1, 2) for t in (q, k, v, do)]
+    want = flash_bwd_plain(*heads, multi_head_attention(*heads[:3], kv_mask=m), kv_mask=m)
+    for name, a, w in zip(("dq", "dk", "dv"), grads, want):
+        _rel_l2(name, a.unflatten(2, (H, dh)).transpose(1, 2), w)
+
+
+@pytest.mark.parametrize("dh,H,L", [(256, 2, 1569), (512, 1, 1569), (256, 2, 393)])
+def test_wide_bwd_at_the_training_shapes(cuda, dh, H, L):
+    """K2 at the wide-head training step's shapes (four clips of
+    ``[L, 1536]``, 3D RoPE): the gradients of the fused qkv against
+    flash_bwd_plain."""
+    g = torch.Generator(device=cuda).manual_seed(dh + L)
+    B, D = 4, H * dh
+    hw = {1569: 14, 393: 7}[L]
+    t = build_rope3d_tables(dh, 8, hw, hw, n_special=1)
+    rope = dict(sin=torch.from_numpy(t.sin).to(cuda), cos=torch.from_numpy(t.cos).to(cuda))
+    qkv = _wide_randn((B, L, 3 * D), D, g, cuda)
+    do = (torch.randn(B, L, D, generator=g, device=cuda) * 0.5).to(BF)
+    leaf = qkv.clone().requires_grad_()
+    out = flash_attention_packed(qkv=leaf, num_heads=H, **rope)
+    (grad,) = torch.autograd.grad(out, [leaf], do)
+    heads = [x.unflatten(2, (H, dh)).transpose(1, 2) for x in qkv.split(D, -1)]
+    dh_ = do.unflatten(2, (H, dh)).transpose(1, 2)
+    want = flash_bwd_plain(*heads, dh_, multi_head_attention(*heads, **rope), **rope)
+    for name, a, w in zip(("dq", "dk", "dv"), grad.split(D, -1), want):
+        _rel_l2(name, a.unflatten(2, (H, dh)).transpose(1, 2), w)
+
+
+@pytest.mark.parametrize("which", ["K2 Dh 256", "K2 Dh 384", "K2 Dh 512", "K4 Dh 384"])
+def test_wide_bwd_batch_invariant_and_reproducible(cuda, which):
+    """The gradients of a B = 4 call, row by row, bit-equal to the same row
+    called alone (B = 1), and two backward launches bit-equal: fixed tiles,
+    fixed sums, no atomics (RoPE on K2, a key mask on K4)."""
+    g = torch.Generator(device=cuda).manual_seed(43)
+    dh = int(which.split()[2])
+    H = 1024 // dh // 2 if dh != 384 else 1
+    L, D = 393, H * dh
+    sin, cos = _tables(L, dh, cuda)
+    qkv = (torch.randn(4, L, 3 * D, generator=g, device=cuda) * 0.5).to(BF)
+    do = (torch.randn(4, L, D, generator=g, device=cuda) * 0.5).to(BF)
+    mask = torch.rand(4, L, generator=g, device=cuda) > 0.3
+
+    def grads(rows, twice=False):
+        leaf = qkv[rows].clone().requires_grad_()
+        if which.startswith("K2"):
+            out = flash_attention_packed(qkv=leaf, num_heads=H, sin=sin, cos=cos)
+            dout = do[rows]
+        else:
+            q, k, v = (t.unflatten(2, (H, dh)).transpose(1, 2) for t in leaf.split(D, -1))
+            out = flash_attention(q, k, v, kv_mask=mask[rows])
+            dout = do[rows].unflatten(2, (H, dh)).transpose(1, 2)
+        first = torch.autograd.grad(out, [leaf], dout, retain_graph=twice)[0]
+        if twice:
+            assert torch.equal(first, torch.autograd.grad(out, [leaf], dout)[0])
+        return first
+
+    full = grads(slice(0, 4), twice=True)
+    for b in range(4):
+        assert torch.equal(full[b:b + 1], grads(slice(b, b + 1))), f"row {b}"
+
+
+@pytest.mark.parametrize("dh,H", [(256, 2), (512, 1)])
+def test_wide_bwd_fused_writes_only_its_columns(cuda, dh, H):
+    """K2's fused layout through ``_flash_cuda.flash_bwd`` at Dh 256 and
+    512: dq, dk, dv are column blocks of one gradient buffer inside a wider
+    one filled with a sentinel; each kernel writes only its own block
+    (bit-equal to the gradients written into three separate tensors) and
+    nothing outside them."""
+    from deepcoro_clip_tpu_torch.ops._flash_cuda import flash_bwd, flash_fwd
+
+    g = torch.Generator(device=cuda).manual_seed(dh + 7)
+    B, L = 2, 393
+    D = H * dh
+    sin, cos = _tables(L, dh, cuda)
+    qkv = _wide_randn((B, L, 3 * D), D, g, cuda)
+    q, k, v = (t.unflatten(2, (H, dh)).transpose(1, 2) for t in qkv.split(D, -1))
+    do = ((torch.randn(B, L, D, generator=g, device=cuda) * 0.5).to(BF).unflatten(2, (H, dh))
+          .transpose(1, 2))
+    out = torch.empty(B, L, D, device=cuda, dtype=BF).unflatten(2, (H, dh)).transpose(1, 2)
+    stats = torch.empty(2, B, H, L, device=cuda)
+    kw = dict(sin=sin, cos=cos, kv_mask=None, causal=False, scale=dh ** -0.5)
+    flash_fwd(q, k, v, out, stats=stats, packed=True, **kw)
+    wide = torch.full((B, L, 3 * D + 128), 7.25, device=cuda, dtype=BF)
+    blocks = [wide[..., 64 + i * D:64 + (i + 1) * D].unflatten(2, (H, dh)).transpose(1, 2)
+              for i in range(3)]
+    flash_bwd(q, k, v, out, do, stats, *blocks, packed=True, **kw)
+    apart = [torch.empty(B, L, D, device=cuda, dtype=BF).unflatten(2, (H, dh)).transpose(1, 2)
+             for _ in range(3)]
+    flash_bwd(q, k, v, out, do, stats, *apart, packed=True, **kw)
+    for name, a, c in zip("qkv", blocks, apart):
+        assert torch.equal(a, c), f"d{name}"
+    assert bool((wide[..., :64] == 7.25).all()) and bool((wide[..., 64 + 3 * D:] == 7.25).all())
+
+
+def test_wide_bwd_kernels_by_name(cuda):
+    """The profiler names the wide Hopper backward for bf16 K2 at Dh 256,
+    384 and 512 and K4 padded (192 -> 256), and never the SIMT kernels it
+    replaced."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    qkv = (torch.randn(2, 200, 3 * 768, generator=g, device=cuda) * 0.5).to(BF)
+    x = (torch.randn(2, 2, 200, 192, generator=g, device=cuda) * 0.5).to(BF)
+    for inp, call, want in (
+            (qkv, lambda t: flash_attention_packed(qkv=t[..., :3 * 512], num_heads=2),
+             "flash_bwd_dkv_wide_sm90_kernel<256>"),
+            (qkv, lambda t: flash_attention_packed(qkv=t, num_heads=2),
+             "flash_bwd_dkv_wide_sm90_kernel<384>"),
+            (qkv, lambda t: flash_attention_packed(qkv=t[..., :3 * 512], num_heads=1),
+             "flash_bwd_dkv_wide_sm90_kernel<512>"),
+            (x, lambda t: flash_attention(t, t, t), "flash_bwd_dkv_wide_sm90_kernel<256>")):
+        leaf = inp.clone().requires_grad_()
+        out = call(leaf)
+        names = _kernels_run(lambda out=out, leaf=leaf: torch.autograd.grad(
+            out, [leaf], torch.ones_like(out), retain_graph=True))
+        assert _ran(names, want) and _ran(names, want.replace("dkv", "dq")), names
+        assert not any(_ran(names, old) for old in OLD_WIDE_BWD), names

@@ -79,10 +79,10 @@ def test_one_long_length_is_enough(Lq, Lk):
     (BF16, False, 128, 1572, 128, ("flash_long_bwd_dkv_kernel<128>",
                                    "flash_long_bwd_dq_kernel<128>")),
     (BF16, False, 10, 10, 64, ("flash_short_bwd_bf16_kernel",)),
-    (BF16, True, 393, 393, 256, ("flash_bwd_dkv_wide_bf16_kernel<256>",
-                                 "flash_bwd_dq_wide_bf16_kernel<256>")),
-    (BF16, False, 10, 10, 512, ("flash_bwd_dkv_wide_bf16_kernel<512>",
-                                "flash_bwd_dq_wide_bf16_kernel<512>")),
+    (BF16, True, 393, 393, 256, ("flash_bwd_dkv_wide_sm90_kernel<256>",
+                                 "flash_bwd_dq_wide_sm90_kernel<256>")),
+    (BF16, False, 10, 10, 512, ("flash_bwd_dkv_wide_sm90_kernel<512>",
+                                "flash_bwd_dq_wide_sm90_kernel<512>")),
 ])
 def test_other_backward_routes_keep_their_kernels(dtype, packed, Lq, Lk, dh, kernels):
     """Short calls, fp32 past Dh 128, the bf16 Hopper, long and wide
@@ -136,16 +136,16 @@ def test_mirror_matches_the_cuda_sources():
     for dh in REGTILE_DIMS:
         assert regtile_bwd_smem_bytes(dh) == (_tile_bytes(head, "RbDkvTiles", c, dh),
                                               _tile_bytes(head, "RbDqTiles", c, dh))
-    entry = bwd[bwd.index("int bwd_simt(BWD_ARGS)"):]
+    entry = bwd[bwd.index("int bwd_f32(BWD_ARGS)"):]
     entry = entry[:entry.index("\n}\n")]
     for dh in REGTILE_DIMS:
         case = entry[entry.index(f"case {dh}:"):]
         case = case[:case.index("break;")]
         assert f"launch_regtile<{dh}>" in case and "launch_simt" not in case
     for dh in (256, 384, 512):
-        assert f"case {dh}: err = launch_simt<T, {dh}>" in entry
+        assert f"case {dh}: err = launch_simt<{dh}>" in entry
     # the old SIMT dK/dV and dQ kernels are not built at Dh 64 or 128: no way back to them
-    assert "launch_simt<T, 64>" not in bwd and "launch_simt<T, 128>" not in bwd
+    assert "launch_simt<64>" not in bwd and "launch_simt<128>" not in bwd
 
 
 def test_ctypes_arguments_match_the_c_entries():

@@ -8,8 +8,9 @@ dim is padded to above 128) at Dh 256, 384 and 512 run
 ``deepcoro_flash_wide_fwd_bf16``; bf16 K5 there runs
 ``flash_fwd_proj_wide_sm90_kernel<Dh>`` behind
 ``deepcoro_flash_fwd_proj_wide_bf16``, at every ``H*Dh <= 1024`` and every
-Dout. The fp32 routes, the bf16 Hopper kernels at Dh 64 and 128, the wide
-backward and the ring keep their kernels. ``_flash_cuda.fwd_kernel_name``
+Dout. The fp32 routes, the bf16 Hopper kernels at Dh 64 and 128 and the
+ring keep their kernels; the wide backward runs its own Hopper kernels
+(``tests/test_torch_wide_backward.py``). ``_flash_cuda.fwd_kernel_name``
 / ``proj_kernel_name`` mirror the routing, ``wide_smem_bytes`` /
 ``wide_proj_smem_bytes`` the kernels' dynamic shared memory, which must
 stay within ``SMEM_MAX`` (232,448 bytes a block on an H100) at every
@@ -134,11 +135,11 @@ def test_hopper_projection_at_dh_128_still_takes_the_128_grid():
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("dh", WIDE_DIMS)
 def test_wide_backward_keeps_its_kernels(dh, packed):
-    """The backward at Dh 256 to 512 reads the new forward's statistics but
-    keeps the SIMT kernels."""
+    """The backward at Dh 256 to 512 reads the new forward's statistics and
+    runs the wide Hopper backward (``tests/test_torch_wide_backward.py``)."""
     assert _flash_cuda.bwd_symbol(BF16, packed, 393, 393, dh) == "deepcoro_flash_wide_bwd_bf16"
     assert bwd_kernel_names(BF16, packed, 393, 393, dh) == (
-        f"flash_bwd_dkv_wide_bf16_kernel<{dh}>", f"flash_bwd_dq_wide_bf16_kernel<{dh}>")
+        f"flash_bwd_dkv_wide_sm90_kernel<{dh}>", f"flash_bwd_dq_wide_sm90_kernel<{dh}>")
 
 
 @pytest.mark.parametrize("dh", [64, 128, 256, 384, 512])
@@ -231,7 +232,7 @@ def test_chip_smoke_names_the_new_kernels():
     no old name is a substring of a new one, nor the reverse."""
     assert chip_smoke.SIMT_FWD["bfloat16"] == ("flash_fwd_wide_sm90_kernel",)
     assert chip_smoke.SIMT_PROJ["bfloat16"] == ("flash_fwd_proj_wide_sm90_kernel",)
-    assert chip_smoke.WIDE_OLD == (OLD_FWD, OLD_PROJ)
+    assert chip_smoke.WIDE_OLD[:2] == (OLD_FWD, OLD_PROJ)  # then the backward's
     new = chip_smoke.SIMT_FWD["bfloat16"] + chip_smoke.SIMT_PROJ["bfloat16"]
     for dh in WIDE_DIMS:
         assert chip_smoke.fwd_names(BF16, dh)[0] in fwd_kernel_name(BF16, True, 393, 393, dh)
